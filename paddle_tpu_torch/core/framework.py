@@ -1,0 +1,281 @@
+"""Program construction: Program / Block / Operator / Variable.
+
+Appending an Operator writes an OpDesc into the block and immediately
+runs the op type's registered infer-shape, so downstream layers see
+concrete shapes (the same construction-time behaviour as the JAX
+package's framework module).
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import sys
+from typing import Dict, List, Optional
+
+from . import unique_name
+from .desc import CALLSITE_ATTR, BlockDesc, OpDesc, ProgramDesc, VarDesc, VarType
+from .dtypes import DataType, convert_dtype
+from .registry import OPS
+
+
+class Variable:
+    """Symbolic tensor in a block."""
+
+    def __init__(self, block: "Block", desc: VarDesc):
+        self.block = block
+        self.desc = desc
+
+    @property
+    def name(self) -> str:
+        return self.desc.name
+
+    @property
+    def shape(self):
+        return tuple(self.desc.shape)
+
+    @shape.setter
+    def shape(self, s):
+        self.desc.shape = tuple(s)
+
+    @property
+    def dtype(self) -> DataType:
+        return self.desc.dtype
+
+    @property
+    def persistable(self) -> bool:
+        return self.desc.persistable
+
+    @persistable.setter
+    def persistable(self, v: bool):
+        self.desc.persistable = v
+
+    @property
+    def stop_gradient(self) -> bool:
+        return self.desc.stop_gradient
+
+    @stop_gradient.setter
+    def stop_gradient(self, v: bool):
+        self.desc.stop_gradient = v
+
+    @property
+    def lod_level(self) -> int:
+        return self.desc.lod_level
+
+    @property
+    def type(self) -> str:
+        return self.desc.type
+
+    def __str__(self):
+        return (f"Variable({self.name}: shape={self.shape}, "
+                f"dtype={self.dtype.value}, persistable={self.persistable})")
+
+    __repr__ = __str__
+
+
+class Parameter(Variable):
+    """Trainable persistable variable."""
+
+    def __init__(self, block: "Block", desc: VarDesc, trainable: bool = True,
+                 regularizer=None, optimize_attr: Optional[dict] = None):
+        desc.persistable = True
+        desc.is_parameter = True
+        super().__init__(block, desc)
+        self.trainable = trainable
+        self.regularizer = regularizer
+        self.optimize_attr = optimize_attr or {"learning_rate": 1.0}
+
+
+class Operator:
+    """Wrapper over an appended OpDesc."""
+
+    def __init__(self, block: "Block", desc: OpDesc):
+        self.block = block
+        self.desc = desc
+
+    @property
+    def type(self) -> str:
+        return self.desc.type
+
+    def __str__(self):
+        return f"Operator({self.desc.type})"
+
+
+# Every append_op stamps the user frame that built the op -- the first
+# frame outside this package and the standard library -- as its
+# ``callsite`` attr, so errors can name "the mul at model.py:42".  The
+# attr is non-semantic (scrubbed from ProgramDesc.fingerprint()).
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__))) + os.sep
+_STDLIB_DIR = os.path.dirname(os.__file__) + os.sep
+
+
+def _user_callsite() -> Optional[str]:
+    f = sys._getframe(2)
+    while f is not None:
+        fn = f.f_code.co_filename
+        if not (fn.startswith(_PKG_DIR) or fn.startswith(_STDLIB_DIR)):
+            return f"{fn}:{f.f_lineno}"
+        f = f.f_back
+    return None
+
+
+def _to_name_list(v) -> List[str]:
+    if v is None:
+        return []
+    if isinstance(v, (list, tuple)):
+        return [x.name if isinstance(x, Variable) else str(x) for x in v]
+    if isinstance(v, Variable):
+        return [v.name]
+    return [str(v)]
+
+
+class Block:
+    def __init__(self, program: "Program", idx: int):
+        self.program = program
+        self.idx = idx
+        self.vars: Dict[str, Variable] = {}
+        self.ops: List[Operator] = []
+
+    @property
+    def desc(self) -> BlockDesc:
+        return self.program.desc.block(self.idx)
+
+    @property
+    def parent_idx(self) -> int:
+        return self.desc.parent_idx
+
+    @property
+    def parent(self) -> Optional["Block"]:
+        if self.parent_idx < 0:
+            return None
+        return self.program.block(self.parent_idx)
+
+    def create_var(self, name: Optional[str] = None, shape=(), dtype="float32",
+                   persistable: bool = False, stop_gradient: bool = False,
+                   lod_level: int = 0, type: str = VarType.DENSE_TENSOR) -> Variable:
+        if name is None:
+            name = unique_name.generate("_generated_var")
+        desc = VarDesc(
+            name=name, shape=tuple(shape), dtype=convert_dtype(dtype),
+            persistable=persistable, stop_gradient=stop_gradient,
+            lod_level=lod_level, type=type,
+        )
+        self.desc.add_var(desc)
+        var = Variable(self, desc)
+        self.vars[name] = var
+        return var
+
+    def create_parameter(self, name: Optional[str] = None, shape=(),
+                         dtype="float32", trainable: bool = True,
+                         regularizer=None, optimize_attr=None) -> Parameter:
+        if name is None:
+            name = unique_name.generate("_param")
+        desc = VarDesc(name=name, shape=tuple(shape), dtype=convert_dtype(dtype))
+        self.desc.add_var(desc)
+        p = Parameter(self, desc, trainable=trainable, regularizer=regularizer,
+                      optimize_attr=optimize_attr)
+        self.vars[name] = p
+        return p
+
+    def var(self, name: str) -> Variable:
+        v = self._find_var(name)
+        if v is None:
+            raise KeyError(f"var {name!r} not in block {self.idx}")
+        return v
+
+    def _find_var(self, name: str) -> Optional[Variable]:
+        b: Optional[Block] = self
+        while b is not None:
+            if name in b.vars:
+                return b.vars[name]
+            b = b.parent
+        return None
+
+    def has_var(self, name: str) -> bool:
+        return self._find_var(name) is not None
+
+    def append_op(self, type: str, inputs: Optional[dict] = None,
+                  outputs: Optional[dict] = None,
+                  attrs: Optional[dict] = None) -> Operator:
+        attrs = dict(attrs or {})
+        cs = _user_callsite()
+        if cs is not None:
+            attrs.setdefault(CALLSITE_ATTR, cs)
+        desc = OpDesc(
+            type=type,
+            inputs={k: _to_name_list(v) for k, v in (inputs or {}).items()},
+            outputs={k: _to_name_list(v) for k, v in (outputs or {}).items()},
+            attrs=attrs,
+        )
+        self.desc.append_op(desc)
+        op = Operator(self, desc)
+        self.ops.append(op)
+        if OPS.has(desc.type):
+            info = OPS.get(desc.type)
+            if info.infer_shape is not None:
+                info.infer_shape(self.desc, desc)
+        return op
+
+
+class Program:
+    def __init__(self):
+        self.desc = ProgramDesc()
+        self.blocks: List[Block] = [Block(self, 0)]
+        self.current_block_idx = 0
+        # seed of the executor's torch.Generator for this program's random
+        # ops; None means 0
+        self.random_seed: Optional[int] = None
+
+    def block(self, idx: int) -> Block:
+        return self.blocks[idx]
+
+    @property
+    def global_block(self) -> Block:
+        return self.blocks[0]
+
+    def current_block(self) -> Block:
+        return self.blocks[self.current_block_idx]
+
+    def list_vars(self):
+        for b in self.blocks:
+            yield from b.vars.values()
+
+    def __str__(self):
+        return str(self.desc)
+
+
+_main_program = Program()
+_startup_program = Program()
+
+
+def default_main_program() -> Program:
+    return _main_program
+
+
+def default_startup_program() -> Program:
+    return _startup_program
+
+
+def switch_main_program(p: Program) -> Program:
+    global _main_program
+    old, _main_program = _main_program, p
+    return old
+
+
+def switch_startup_program(p: Program) -> Program:
+    global _startup_program
+    old, _startup_program = _startup_program, p
+    return old
+
+
+@contextlib.contextmanager
+def program_guard(main_program: Program, startup_program: Optional[Program] = None):
+    old_main = switch_main_program(main_program)
+    old_startup = None
+    if startup_program is not None:
+        old_startup = switch_startup_program(startup_program)
+    try:
+        yield
+    finally:
+        switch_main_program(old_main)
+        if old_startup is not None:
+            switch_startup_program(old_startup)

@@ -13,8 +13,10 @@ setup(
     version="0.1.0",
     description=("TPU-native deep-learning framework with the capabilities "
                  "of PaddlePaddle Fluid, re-architected on JAX/XLA"),
-    packages=find_packages(include=["paddle_tpu", "paddle_tpu.*"]),
-    package_data={"paddle_tpu": ["native/*.cpp"]},
+    packages=find_packages(include=["paddle_tpu", "paddle_tpu.*",
+                                    "paddle_tpu_torch", "paddle_tpu_torch.*"]),
+    package_data={"paddle_tpu": ["native/*.cpp"],
+                  "paddle_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

@@ -29,6 +29,10 @@ def pytest_configure(config):
         "allow_validate_findings: this test intentionally runs defective "
         "programs through Executor(validate=...) — skip the "
         "zero-findings assertion")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA GPU and nvcc (the PyTorch/CUDA port's kernels); "
+        "skips where torch.cuda.is_available() is false")
 
 
 @pytest.fixture(autouse=True)
