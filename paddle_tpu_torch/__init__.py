@@ -1,16 +1,19 @@
 """paddle_tpu_torch: the PyTorch/CUDA port of paddle_tpu for NVIDIA Hopper.
 
 Mirrors the JAX package's structure and names.  Programs are built as
-ProgramDescs by ``layers`` and run eagerly, op by op, by the ``Executor``
-on a CUDA device (``CUDAPlace(0)``, the default) or, when asked, on the
-CPU.  Attention and embedding lookups go through hand-written CUDA kernels
+ProgramDescs by ``layers``, differentiated by ``append_backward``, given
+update ops by an ``optimizer``, and run eagerly, op by op, by the
+``Executor`` on a CUDA device (``CUDAPlace(0)``, the default) or, when
+asked, on the CPU.  Attention, embedding lookups and their gradients, the
+fused loss head and Adam go through hand-written CUDA kernels
 (``ops/cuda/``, sources in ``csrc/``), built with nvcc at first use.
 
 This package imports torch, numpy and the standard library only -- never
 jax or paddle_tpu.
 """
 from . import ops  # noqa: F401  (registers every op lowering)
-from . import layers, models  # noqa: F401
+from . import layers, models, optimizer  # noqa: F401
+from .backward import append_backward  # noqa: F401
 from .convert import params_from_numpy  # noqa: F401
 from .core import unique_name  # noqa: F401
 from .core.executor import CPUPlace, CUDAPlace, Executor, Place  # noqa: F401

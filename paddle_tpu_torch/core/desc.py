@@ -27,6 +27,20 @@ NONSEMANTIC_OP_ATTRS = frozenset({CALLSITE_ATTR, PASS_PROVENANCE_ATTR})
 NONSEMANTIC_VAR_ATTRS = frozenset({"seq_len_buckets", "mem_bytes_hint",
                                    "kv_cache_slots", "decode_position"})
 
+# Gradient var naming: ``x@GRAD`` is the gradient of ``x``; a second
+# producer of the same gradient writes ``x@GRAD@RENAME@<n>`` and a ``sum``
+# op folds it back into ``x@GRAD`` (backward.py).
+GRAD_SUFFIX = "@GRAD"
+
+
+def grad_var_name(name: str) -> str:
+    return name + GRAD_SUFFIX
+
+
+def strip_grad_suffix(name: str) -> str:
+    pos = name.find(GRAD_SUFFIX)
+    return name[:pos] if pos >= 0 else name
+
 
 class VarType:
     """Variable kinds.  DENSE_TENSOR is a padded dense tensor (raggedness
@@ -163,6 +177,9 @@ class BlockDesc:
                 return b.vars[name]
             b = b.parent
         return None
+
+    def has_var_local(self, name: str) -> bool:
+        return name in self.vars
 
     def add_var(self, desc: VarDesc) -> VarDesc:
         self.vars[desc.name] = desc

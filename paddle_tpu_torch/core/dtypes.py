@@ -36,6 +36,10 @@ class DataType(enum.Enum):
     def torch_dtype(self) -> torch.dtype:
         return _TORCH[self]
 
+    @property
+    def is_floating(self) -> bool:
+        return self in (DataType.FP16, DataType.BF16, DataType.FP32, DataType.FP64)
+
 
 _NP = {
     DataType.BOOL: np.dtype("bool"),

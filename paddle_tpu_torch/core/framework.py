@@ -193,6 +193,17 @@ class Block:
     def has_var(self, name: str) -> bool:
         return self._find_var(name) is not None
 
+    def all_parameters(self) -> List[Parameter]:
+        return [v for v in self.vars.values() if isinstance(v, Parameter)]
+
+    def _sync_with_desc(self):
+        """Wrap vars and ops that desc-level rewrites (backward) added."""
+        for name, vd in self.desc.vars.items():
+            if name not in self.vars:
+                self.vars[name] = Variable(self, vd)
+        if len(self.ops) != len(self.desc.ops):
+            self.ops = [Operator(self, od) for od in self.desc.ops]
+
     def append_op(self, type: str, inputs: Optional[dict] = None,
                   outputs: Optional[dict] = None,
                   attrs: Optional[dict] = None) -> Operator:

@@ -1,22 +1,28 @@
-"""Operator registry: op type -> lowering and compile-time infer-shape.
+"""Operator registry: op type -> lowering, compile-time infer-shape and
+gradient metadata.
 
 ``lower(ctx, op)`` reads the op's inputs from the executor's environment
 (torch tensors), computes with torch functions or a hand-written kernel,
 and writes its outputs back.  ``infer_shape(block, op)`` propagates shapes
 and dtypes into the block's VarDescs when the op is appended, exactly as
 the JAX package does, so both packages build identical ProgramDescs.
-Gradient makers, and the per-op gradient metadata they read, are not
-ported yet.
+
+``grad_maker(op, block, no_grad_set)`` emits the grad OpDescs that
+``append_backward`` appends.  Without one, :func:`default_grad_maker`
+emits a single ``<type>_grad`` op whose lowering is derived from the
+forward lowering with torch autograd (``core/lower.py``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
-from .desc import BlockDesc, OpDesc
+from .desc import BlockDesc, OpDesc, grad_var_name
 
 LowerFn = Callable[..., None]  # (ctx, op) -> None
 InferShapeFn = Callable[[BlockDesc, OpDesc], None]
+# grad_maker(op, block, no_grad_set) -> list[OpDesc]
+GradMakerFn = Callable[..., Any]
 
 
 @dataclass
@@ -24,6 +30,11 @@ class OpInfo:
     type: str
     lower: Optional[LowerFn] = None
     infer_shape: Optional[InferShapeFn] = None
+    grad_maker: Optional[GradMakerFn] = None
+    # True if the op has no gradient (initializers, optimizer updates...)
+    no_gradient: bool = False
+    # input slots whose tensors are not differentiable (integer ids...)
+    non_diff_inputs: tuple = ()
 
 
 class OpInfoMap:
@@ -47,9 +58,13 @@ class OpInfoMap:
 OPS = OpInfoMap()
 
 
-def register_lowering(op_type: str):
+def register_lowering(op_type: str, *, no_gradient: bool = False,
+                      non_diff_inputs: tuple = ()):
     def deco(fn: LowerFn):
-        OPS.get_or_create(op_type).lower = fn
+        info = OPS.get_or_create(op_type)
+        info.lower = fn
+        info.no_gradient = info.no_gradient or no_gradient
+        info.non_diff_inputs = non_diff_inputs or info.non_diff_inputs
         return fn
 
     return deco
@@ -62,3 +77,39 @@ def register_infer_shape(op_type: str):
 
     return deco
 
+
+def register_grad_maker(op_type: str):
+    def deco(fn: GradMakerFn):
+        OPS.get_or_create(op_type).grad_maker = fn
+        return fn
+
+    return deco
+
+
+def default_grad_maker(op: OpDesc, block: BlockDesc, no_grad_set) -> List[OpDesc]:
+    """One ``<type>_grad`` op with every forward input (under its slot),
+    forward output (``__out__<slot>``) and output grad
+    (``__outgrad__<slot>``) as inputs, and one grad output per
+    differentiable forward input (``<slot>@GRAD_SLOT``; ``""`` where no
+    grad is needed)."""
+    info = OPS.get(op.type)
+    grad = OpDesc(type=op.type + "_grad", attrs=dict(op.attrs))
+    for slot, names in op.inputs.items():
+        grad.inputs[slot] = list(names)
+    for slot, names in op.outputs.items():
+        grad.inputs["__out__" + slot] = list(names)
+        grad.inputs["__outgrad__" + slot] = [grad_var_name(n) for n in names]
+    for slot, names in op.inputs.items():
+        if slot in info.non_diff_inputs:
+            continue
+        outs = []
+        for n in names:
+            v = block.find_var(n)
+            diff = (v is not None and v.dtype.is_floating
+                    and not v.stop_gradient and n not in no_grad_set)
+            outs.append(grad_var_name(n) if diff else "")
+        if any(outs):
+            grad.outputs[slot + "@GRAD_SLOT"] = outs
+    if not grad.outputs:
+        return []
+    return [grad]

@@ -6,7 +6,7 @@ from __future__ import annotations
 from ..layer_helper import LayerHelper
 
 __all__ = ["fc", "embedding", "layer_norm", "dropout", "reshape", "scale",
-           "elementwise_add"]
+           "elementwise_add", "mean", "fused_fc_softmax_ce"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -111,3 +111,37 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
                      attrs={"scale": scale, "bias": bias,
                             "bias_after_scale": bias_after_scale})
     return helper.append_activation(out)
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("mean", inputs={"X": x}, outputs={"Out": out})
+    return out
+
+
+def fused_fc_softmax_ce(input, label, size, num_flatten_dims=1,
+                        param_attr=None, bias_attr=None, vocab_chunks=0,
+                        use_pallas=-1, name=None):
+    """``fc(input, size)`` + hard-label softmax cross-entropy, fused so the
+    [rows, size] logits never materialize (ops/fused_ce.py).  Creates the
+    parameters ``fc`` would.  Returns the per-token loss shaped like
+    ``label`` ([..., 1] float32).  ``vocab_chunks`` and ``use_pallas`` are
+    recorded for ProgramDesc parity with the JAX package and not read."""
+    helper = LayerHelper("fused_fc_softmax_ce", input=input,
+                         param_attr=param_attr, bias_attr=bias_attr, name=name)
+    d = 1
+    for dim in input.shape[num_flatten_dims:]:
+        d *= dim
+    w = helper.create_parameter(helper.param_attr, shape=[d, size], dtype=input.dtype)
+    inputs = {"X": input, "W": w, "Label": label}
+    if helper.kwargs.get("bias_attr") is not False:
+        inputs["Bias"] = helper.create_parameter(helper.bias_attr, shape=[size],
+                                                 dtype=input.dtype, is_bias=True)
+    loss = helper.create_variable_for_type_inference("float32")
+    lse = helper.create_variable_for_type_inference("float32")
+    helper.append_op("fused_fc_softmax_ce", inputs=inputs,
+                     outputs={"Loss": loss, "LogSumExp": lse},
+                     attrs={"vocab_chunks": vocab_chunks, "use_pallas": use_pallas,
+                            "num_flatten_dims": num_flatten_dims})
+    return loss

@@ -89,3 +89,25 @@ def transformer(src_ids, trg_ids, src_vocab, trg_vocab, max_len=256,
                            n_layer, d_model, n_head, d_inner, dropout_rate,
                            is_test)
     return layers.fc(input=dec, size=trg_vocab, num_flatten_dims=2)
+
+
+def train_network(src_ids, trg_ids, labels, src_vocab, trg_vocab,
+                  weights=None, max_len=256, n_layer=2, d_model=128,
+                  n_head=4, d_inner=512, dropout_rate=0.0,
+                  fuse_final_ce=False):
+    """labels: [N, T_trg, 1] int64 next tokens.  Returns (avg_loss, logits).
+
+    ``fuse_final_ce=True`` replaces the final projection fc + softmax CE
+    with the fused op (ops/fused_ce.py), and the returned logits are None.
+    The unfused head (``softmax_with_cross_entropy``) and the per-token
+    ``weights`` (``elementwise_mul``, ``reduce_sum``) are not ported yet."""
+    if not fuse_final_ce:
+        raise NotImplementedError("train_network(fuse_final_ce=False) needs "
+                                  "softmax_with_cross_entropy, not ported yet")
+    if weights is not None:
+        raise NotImplementedError("train_network(weights=...) needs "
+                                  "elementwise_mul and reduce_sum, not ported yet")
+    dec = transformer_body(src_ids, trg_ids, src_vocab, trg_vocab, max_len,
+                           n_layer, d_model, n_head, d_inner, dropout_rate)
+    loss = layers.fused_fc_softmax_ce(dec, labels, trg_vocab, num_flatten_dims=2)
+    return layers.mean(loss), None

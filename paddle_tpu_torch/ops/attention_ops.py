@@ -1,11 +1,14 @@
 """Fused attention as a framework op, and the position-id indexer.
 
 ``flash_attention`` splits heads into the kernel's [N*H, T, d] layout and
-runs the hand-written flash-attention forward (ops/cuda/flash_attention.py),
-masking keys by the @SEQ_LEN lengths of **K** -- so cross-attention masks
-by source lengths -- and causally when the op says so.
+runs the hand-written flash-attention forward (ops/cuda/flash_attention.py)
+through its autograd Function, masking keys by the @SEQ_LEN lengths of
+**K** -- so cross-attention masks by source lengths -- and causally when
+the op says so.  The generic ``flash_attention_grad`` differentiates it.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -13,7 +16,7 @@ from ..core.lower import SEQ_LEN_AWARE, SEQ_LEN_SUFFIX
 from ..core.registry import register_infer_shape, register_lowering
 from ..core.dtypes import convert_dtype
 from .common import in_dtype, in_shape, set_out_shape
-from .cuda.flash_attention import flash_attn_fwd
+from .cuda.flash_attention import FlashAttention
 
 SEQ_LEN_AWARE.add("flash_attention")
 
@@ -35,8 +38,8 @@ def _flash_attention_op(ctx, op):
         return (x.reshape(n, t, num_heads, d).transpose(1, 2)
                 .reshape(n * num_heads, t, d).contiguous())
 
-    out, _ = flash_attn_fwd(split(q, tq), split(k, tk), split(v, tk),
-                            kv_lens=kv_lens, causal=bool(op.attr("causal", False)))
+    out = FlashAttention.apply(split(q, tq), split(k, tk), split(v, tk), kv_lens,
+                               bool(op.attr("causal", False)), 1.0 / math.sqrt(d))
     out = out.reshape(n, num_heads, tq, d).transpose(1, 2).reshape(n, tq, hd)
     ctx.write_slot(op, "Out", out)
     q_lens = ctx.read_opt(op.input("Q")[0] + SEQ_LEN_SUFFIX)
@@ -50,7 +53,7 @@ def _flash_attention_shape(block, op):
                   in_dtype(block, op, "Q"))
 
 
-@register_lowering("position_ids")
+@register_lowering("position_ids", no_gradient=True)
 def _position_ids(ctx, op):
     """[N, T] int32 position ids; T > max_len is rejected rather than
     silently reusing the last position embedding."""

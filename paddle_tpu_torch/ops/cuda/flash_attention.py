@@ -7,7 +7,13 @@ _attn_fwd_kernel``.  Same function and layout as the JAX package's
 scaled by ``sm_scale`` (default 1/sqrt(d)) applied to q; keys at positions
 >= ``kv_lens`` and, with ``causal``, keys after the query are masked; a
 query row with no valid key gives exact zeros.  Returns ``(out, lse)``
-with lse = m + log(l) in float32, which the backward will read.
+with lse = m + log(l) in float32 (float64 for float64 inputs on the
+CPU), which the backward reads.
+
+``FlashAttention`` is the autograd Function around it: the forward is the
+kernel (saving q, k, v, kv_lens, out and lse), the backward the composed
+torch port of the JAX package's ``_flash_bwd_xla`` -- that package has no
+Pallas backward kernel either.
 
 A tensor on the CPU goes to the plain version; a CUDA tensor launches the
 kernel or raises.  ``flash_attn_fwd.launches`` counts kernel launches.
@@ -35,14 +41,15 @@ def flash_attn_fwd_plain(q, k, v, kv_lens, causal: bool, sm_scale: float,
     bh, tq, d = q.shape
     tk = k.shape[1]
     dev = q.device
-    qf = q.float() * sm_scale
+    ft = torch.promote_types(q.dtype, torch.float32)   # float64 stays float64
+    qf = q.to(ft) * sm_scale
     q_pos = torch.arange(tq, device=dev)
-    acc = torch.zeros((bh, tq, d), dtype=torch.float32, device=dev)
-    m = torch.full((bh, tq), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((bh, tq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((bh, tq, d), dtype=ft, device=dev)
+    m = torch.full((bh, tq), NEG_INF, dtype=ft, device=dev)
+    l = torch.zeros((bh, tq), dtype=ft, device=dev)
     for k0 in range(0, tk, block_k):
-        ks = k[:, k0:k0 + block_k].float()
-        vs = v[:, k0:k0 + block_k].float()
+        ks = k[:, k0:k0 + block_k].to(ft)
+        vs = v[:, k0:k0 + block_k].to(ft)
         s = torch.einsum("bqd,bkd->bqk", qf, ks)
         k_pos = torch.arange(k0, k0 + ks.shape[1], device=dev)
         if causal:
@@ -135,3 +142,52 @@ def flash_attn_fwd(q, k, v, kv_lens=None, causal: bool = False, sm_scale=None):
 
 
 flash_attn_fwd.launches = 0
+
+
+def flash_attn_bwd(q, k, v, kv_lens, out, lse, g, causal: bool, sm_scale: float):
+    """Backward from the saved lse, recomputing p: the JAX package's
+    ``_flash_bwd_xla`` over one key block.  q/k/v/out/g [BH, T, d],
+    lse [BH, Tq].  Returns (dq, dk, dv)."""
+    tq, tk = q.shape[1], k.shape[1]
+    dev = q.device
+    ft = torch.promote_types(q.dtype, torch.float32)
+    qf = q.to(ft) * sm_scale
+    gf = g.to(ft)
+    kf, vf = k.to(ft), v.to(ft)
+    delta = (out.to(ft) * gf).sum(dim=-1)                        # [bh, tq]
+    s = torch.einsum("bqd,bkd->bqk", qf, kf)
+    k_pos = torch.arange(tk, device=dev)
+    if causal:
+        q_pos = torch.arange(tq, device=dev)
+        s = torch.where(q_pos[None, :, None] >= k_pos[None, None, :], s, NEG_INF)
+    if kv_lens is not None:
+        s = torch.where(k_pos[None, None, :] < kv_lens[:, None, None], s, NEG_INF)
+    # masked entries give p = 0: for a row with no valid key (lse ~ -1e30)
+    # exp(s - lse) would be 1 and leak gradients into dk/dv
+    p = torch.where(s > NEG_INF / 2, torch.exp(s - lse[..., None].to(ft)), 0.0)
+    dp = torch.einsum("bqd,bkd->bqk", gf, vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bqk,bkd->bqd", ds, kf)
+    dk = torch.einsum("bqk,bqd->bkd", ds, qf)
+    dv = torch.einsum("bqk,bqd->bkd", p, gf)
+    return (dq * sm_scale).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable ``flash_attn_fwd`` on [BH, T, d] tensors with
+    ``kv_lens`` [BH] or None; returns out."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lens, causal: bool, sm_scale: float):
+        out, lse = flash_attn_fwd(q, k, v, kv_lens=kv_lens, causal=causal,
+                                  sm_scale=sm_scale)
+        ctx.save_for_backward(q, k, v, kv_lens, out, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, kv_lens, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attn_bwd(q, k, v, kv_lens, out, lse, g,
+                                    ctx.causal, ctx.sm_scale)
+        return dq, dk, dv, None, None, None

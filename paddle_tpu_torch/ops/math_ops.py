@@ -1,4 +1,4 @@
-"""Math op lowerings: mul, elementwise_add, scale.  ``mul`` is a plain
+"""Math op lowerings: mul, elementwise_add, scale, mean, sum.  ``mul`` is a plain
 ``torch.matmul`` (cuBLAS on the card), as the JAX package left it to XLA
 outside any Pallas kernel."""
 from __future__ import annotations
@@ -62,5 +62,32 @@ def _scale(ctx, op):
 
 @register_infer_shape("scale")
 def _scale_shape(block, op):
+    set_out_shape(block, op, "Out", in_shape(block, op, "X"),
+                  in_dtype(block, op, "X"))
+
+
+@register_lowering("mean")
+def _mean(ctx, op):
+    ctx.write_slot(op, "Out", torch.mean(ctx.read_slot(op, "X")))
+
+
+@register_infer_shape("mean")
+def _mean_shape(block, op):
+    set_out_shape(block, op, "Out", (), in_dtype(block, op, "X"))
+
+
+@register_lowering("sum")
+def _sum(ctx, op):
+    """Multi-input add; ``append_backward`` emits it to merge a gradient
+    produced more than once.  (SelectedRows inputs are not ported yet.)"""
+    xs = ctx.read_slot_list(op, "X")
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    ctx.write_slot(op, "Out", out)
+
+
+@register_infer_shape("sum")
+def _sum_shape(block, op):
     set_out_shape(block, op, "Out", in_shape(block, op, "X"),
                   in_dtype(block, op, "X"))

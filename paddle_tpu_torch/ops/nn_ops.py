@@ -1,12 +1,15 @@
 """NN op lowerings: layer_norm, dropout and lookup_table.  ``lookup_table``
-gathers through the hand-written embedding kernel (ops/cuda/embedding.py)."""
+gathers through the hand-written embedding kernels (ops/cuda/embedding.py):
+the gather forward, and the scatter-add as the gather's gradient."""
 from __future__ import annotations
 
 import torch
 
-from ..core.registry import register_infer_shape, register_lowering
+from ..core.desc import OpDesc, grad_var_name
+from ..core.registry import (register_grad_maker, register_infer_shape,
+                             register_lowering)
 from .common import in_dtype, in_shape, set_out_shape
-from .cuda.embedding import gather_rows
+from .cuda.embedding import GatherRows
 
 
 @register_lowering("layer_norm")
@@ -63,16 +66,46 @@ def _dropout_shape(block, op):
     set_out_shape(block, op, "Mask", xs, in_dtype(block, op, "X"))
 
 
-@register_lowering("lookup_table")
+@register_grad_maker("dropout")
+def _dropout_grad_maker(op, block, no_grad_set):
+    """The gradient reads the forward's saved Mask: re-running the forward
+    would draw a different mask."""
+    xname = op.input("X")[0]
+    if xname in no_grad_set:
+        return []
+    g = OpDesc(type="dropout_grad", attrs=dict(op.attrs))
+    g.inputs["Mask"] = list(op.output("Mask"))
+    g.inputs["OutGrad"] = [grad_var_name(n) for n in op.output("Out")]
+    g.outputs["XGrad"] = [grad_var_name(xname)]
+    return [g]
+
+
+@register_lowering("dropout_grad")
+def _dropout_grad(ctx, op):
+    mask = ctx.read_slot(op, "Mask")
+    dy = ctx.read_slot(op, "OutGrad")
+    prob = op.attr("dropout_prob", 0.5)
+    if op.attr("is_test", False):
+        ctx.write_slot(op, "XGrad", dy)
+    elif op.attr("dropout_implementation", "downgrade_in_infer") == "upscale_in_train":
+        ctx.write_slot(op, "XGrad", dy * mask / (1.0 - prob))
+    else:
+        ctx.write_slot(op, "XGrad", dy * mask)
+
+
+@register_lowering("lookup_table", non_diff_inputs=("Ids",))
 def _lookup_table(ctx, op):
     """Rows of W at Ids.  Ids outside [0, vocab) give zero rows, the
-    semantics of the JAX package's Pallas gather kernel."""
+    semantics of the JAX package's Pallas gather kernel.  The generic
+    ``lookup_table_grad`` reaches the scatter-add kernel through
+    ``GatherRows``' backward; the padding mask stays here, so it masks the
+    gradient rows too."""
     w = ctx.read_slot(op, "W")
     ids = ctx.read_slot(op, "Ids")
     if ids.ndim >= 2 and ids.shape[-1] == 1:
         ids = ids.squeeze(-1)
     flat = ids.reshape(-1).to(torch.int32).contiguous()
-    out = gather_rows(w.contiguous(), flat).reshape(tuple(ids.shape) + (w.shape[1],))
+    out = GatherRows.apply(w.contiguous(), flat).reshape(tuple(ids.shape) + (w.shape[1],))
     padding_idx = op.attr("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         out = torch.where((ids != padding_idx)[..., None], out, 0.0)

@@ -8,7 +8,7 @@ from ..core.registry import register_infer_shape, register_lowering
 from .common import in_dtype, in_shape, set_out_shape
 
 
-@register_lowering("fill_constant")
+@register_lowering("fill_constant", no_gradient=True)
 def _fill_constant(ctx, op):
     dtype = convert_dtype(op.attr("dtype", "float32"))
     ctx.write_slot(op, "Out", torch.full(tuple(op.attr("shape", ())),

@@ -1,5 +1,6 @@
 """Guards of the PyTorch/CUDA port: it never imports jax or the JAX
-package, it never runs on the CPU unless asked, and ``chip_smoke.py``
+package, it never runs on the CPU unless asked, a kernel wrapper given a
+CUDA tensor never falls back to its plain version, and ``chip_smoke.py``
 fails (prints no result) where there is no GPU or no package."""
 import ast
 import os
@@ -52,6 +53,43 @@ def test_executor_without_gpu_raises_instead_of_using_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pt.Executor(pt.CUDAPlace(0))
     assert pt.Executor(pt.CPUPlace()).device == torch.device("cpu")
+
+
+def _cuda_calls():
+    """(module, plain-version name, call on CUDA tensors) per wrapper."""
+    from paddle_tpu_torch.ops.cuda import (embedding, flash_attention,
+                                           fused_optimizer, linear_ce)
+    dev = torch.device("cuda")
+    q = torch.randn(2, 16, 64, device=dev)
+    x, w = torch.randn(8, 16, device=dev), torch.randn(16, 32, device=dev)
+    labels = torch.zeros(8, dtype=torch.int32, device=dev)
+    per_row = torch.rand(8, device=dev)
+    ids = torch.tensor([0, 3, 3, 9], dtype=torch.int32, device=dev)
+    table, rows = torch.zeros(10, 16, device=dev), torch.randn(4, 16, device=dev)
+    one = torch.ones((), device=dev)
+    return [
+        (linear_ce, "linear_ce_fwd_plain", lambda: linear_ce.linear_ce_fwd(x, w, None, labels)),
+        (linear_ce, "linear_ce_bwd_plain",
+         lambda: linear_ce.linear_ce_bwd(x, w, None, labels, per_row, per_row)),
+        (fused_optimizer, "fused_adam_plain",
+         lambda: fused_optimizer.fused_adam(x, x, x, x.abs(), one, one, one, 0.9, 0.999, 1e-8)),
+        (embedding, "scatter_add_rows_plain",
+         lambda: embedding.scatter_add_rows(table, ids, rows)),
+        (embedding, "gather_rows_plain", lambda: embedding.gather_rows(table, ids)),
+        (flash_attention, "flash_attn_fwd_plain", lambda: flash_attention.flash_attn_fwd(q, q, q)),
+    ]
+
+
+@pytest.mark.gpu
+def test_cuda_tensors_never_reach_the_plain_versions(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the port's kernels are CUDA-only)")
+    for module, plain, call in _cuda_calls():
+        def refuse(*args, **kwargs):
+            raise AssertionError("a CUDA tensor reached the plain version")
+        monkeypatch.setattr(module, plain, refuse)
+        call()
+    torch.cuda.synchronize()
 
 
 def test_chip_smoke_fails_without_gpu(tmp_path):
