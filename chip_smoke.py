@@ -33,8 +33,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
    on the CPU in float64: the card (TF32 off) and the CPU in float32 within
    the stated gates on the loss and three gradients, and the card with TF32
    on (the control) outside them;
-10. a ``{"kernels": [...]}`` line with each kernel's launches on the
-    training path, error against its plain version, times, and bound.
+10. the int8 GEMM (K4) at the served batch's four (K, N) products, M = 256
+    and 2048, and fused SGD (K5) on the word table and a vector, each
+    bit-equal to its plain version, with times, bound and yardstick, and
+    the abs-max quantizers' and dequant's time a batch;
+11. int8 serving: ``ServingSession(max_batch_size=8, amp=AmpConfig(
+    bf16=False, quant=True), kernels=True)`` with the float32 weights,
+    4 client threads: answers finite, of the right shape, bit-identical to
+    sequential runs of the same batches, K4/K1/K2 launched 97/18/4 times
+    per batch; one 8-row batch bit-equal to the simulated fake-quant
+    program (``kernels=False``) on the card, and within a gate of float32
+    serving that the same model at ``quant_bits=4`` (the control) fails;
+    requests/s and batch latency beside float32's; a profile of one batch;
+12. transformer-base training with ``SGD`` through ``Executor(kernels=
+    True)``: two steps at 64 x 256, loss finite, every parameter changed,
+    K5 launched 186 times a step and K7/K8/K3 as in phase 7; a profile of
+    one step;
+13. a ``{"kernels": [...]}`` line with each kernel's launches on its path,
+    error against its plain version, times, and bound.
 
 The last line is ``{"ok": true, "device": {...}}``.  Times are CUDA-event
 times on this card; bounds use the H100 SXM's published peaks.
@@ -51,6 +67,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 FP32_FLOPS = 67e12          # H100 SXM float32 rate outside the tensor cores
+INT8_OPS = 1979e12          # H100 SXM dense int8 tensor-core rate
 
 B, H, T, D_HEAD = 8, 8, 256, 64          # served batch: 8 rows x 8 heads
 VOCAB, D_MODEL, N_LAYER, D_INNER = 32000, 512, 6, 2048
@@ -59,10 +76,23 @@ FLASH_TOL = 1e-5        # float32, kernel vs plain on the card
 CPU_TOL = 1e-3          # max abs logit difference, card vs CPU, float32
 TRAIN_B = 64            # training batch rows (x T = 256 tokens each)
 N_PARAMS = 186          # transformer-base's parameters (and adam ops)
-# launches per training step: attention and embedding forwards run again
-# in their grad ops (the generic grad re-runs the forward lowering)
-PER_STEP = {"flash_attn_fwd": 2 * 3 * N_LAYER, "gather_rows": 2 * 4, "scatter_add_rows": 4,
-            "fused_adam": N_PARAMS, "linear_ce_fwd": 1, "linear_ce_bwd": 1}
+# launches per training step: attention forwards run again in their grad
+# ops (the generic grad re-runs the forward lowering); the kernel tier's
+# pallas_scatter_add reads the embedding's output gradient and runs no
+# gather again
+PER_STEP = {"flash_attn_fwd": 2 * 3 * N_LAYER, "gather_rows": 4, "scatter_add_rows": 4,
+            "fused_adam": N_PARAMS, "fused_sgd": 0, "linear_ce_fwd": 1, "linear_ce_bwd": 1,
+            "int8_matmul": 0}
+PER_STEP_SGD = dict(PER_STEP, fused_adam=0, fused_sgd=N_PARAMS)
+# the served batch's int8 products: (K, N) -> count (M = rows x 256);
+# per encoder layer q, k, v, o and the two FFN products, per decoder layer
+# eight attention projections and the FFN's two, and the vocabulary head
+INT8_SHAPES = {(D_MODEL, D_MODEL): 12 * N_LAYER, (D_MODEL, D_INNER): 2 * N_LAYER,
+               (D_INNER, D_MODEL): 2 * N_LAYER, (D_MODEL, VOCAB): 1}
+K4_PER_BATCH = sum(INT8_SHAPES.values())          # 97
+# one 8-row int8 batch against float32 serving, norm-relative logit error
+# ||int8 - fp32|| / ||fp32||; the control at quant_bits=4 must exceed it
+INT8_VS_FP32_NORM_RTOL = 0.05
 CE_RTOL = 1e-4          # K7/K8 vs plain, relative to the largest value, TF32 off
 ADAM_TOL = 1e-6         # K6 vs plain, abs (same rounding, element for element)
 ADAM_RTOL = 1e-6        # K6 vs plain, each output relative to its own largest value
@@ -94,8 +124,8 @@ def _ms(fn, iters):
     return a.elapsed_time(b) / iters
 
 
-def _bound(nbytes, flops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+def _bound(nbytes, flops, peak=FP32_FLOPS):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -224,6 +254,10 @@ def _family(name):
         return "gather_rows (K2)"
     if "scatter_add_rows_kernel" in name:
         return "scatter_add_rows (K3)"
+    if "int8_gemm_kernel" in name:
+        return "int8_matmul (K4)"
+    if "fused_sgd_kernel" in name:
+        return "fused_sgd (K5)"
     if "fused_adam_kernel" in name:
         return "fused_adam (K6)"
     if "ce_fwd" in name:
@@ -234,71 +268,91 @@ def _family(name):
         return "memcpy"
     if any(s in low for s in ("gemm", "cutlass", "xmma", "sm90")):
         return "gemm (cuBLAS)"
-    return "other (elementwise, layer_norm, copies)"
+    return OTHER
 
 
-def _profile(torch, run, label, card, extra):
+OTHER = "other (elementwise, layer_norm, copies)"
+
+
+def _scoped(torch, fn, name):
+    """``fn`` run inside a ``torch.profiler.record_function(name)`` range."""
+    def run(*args, **kwargs):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kwargs)
+    return run
+
+
+def _profile(torch, run, label, card, extra, scopes=None):
     """torch.profiler's device activities during ``run()`` by kernel
     family, their union as the device's busy time, and its share of the
-    host wall clock around ``run``."""
+    host wall clock around ``run``.  ``scopes`` maps a ``record_function``
+    range's name to a family: an activity of no named kernel that was
+    launched inside such a range counts to it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    scopes = scopes or {}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    dev = [(e.name(), e.start_ns(), e.duration_ns())
-           for e in prof.profiler.kineto_results.events()
-           if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0]
+    events = list(prof.profiler.kineto_results.events())
+    host = [e for e in events if e.device_type() != DeviceType.CUDA]
+    ranges = [(e.start_ns(), e.start_ns() + e.duration_ns(), scopes[e.name()])
+              for e in host if e.name() in scopes]
+    launched_at = {e.correlation_id(): e.start_ns() for e in host
+                   if e.name().startswith("cu") and not e.is_user_annotation()}
+    dev = [(e.name(), e.start_ns(), e.duration_ns(), e.correlation_id()) for e in events
+           if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0 and e.name() not in scopes]
     if not dev:
         print(f"{label}: torch.profiler recorded no device activity (not measured) [{card}]")
         return
-    fam, names = {}, {}
-    for name, _, dur in dev:
-        fam[_family(name)] = fam.get(_family(name), 0.0) + dur / 1e6
+
+    def family(name, corr):
+        fam = _family(name)
+        t = launched_at.get(corr)
+        if fam == OTHER and t is not None:
+            fam = next((f for a, b, f in ranges if a <= t <= b), fam)
+        return fam
+
+    fam, fam_n, names = {}, {}, {}
+    for name, _, dur, corr in dev:
+        f = family(name, corr)
+        fam[f] = fam.get(f, 0.0) + dur / 1e6
+        fam_n[f] = fam_n.get(f, 0) + 1
         ms, n = names.get(name, (0.0, 0))
         names[name] = (ms + dur / 1e6, n + 1)
     busy_ns, end = 0, 0
-    for _, start, dur in sorted(dev, key=lambda x: x[1]):
+    for _, start, dur, _ in sorted(dev, key=lambda x: x[1]):
         busy_ns += max(0, start + dur - max(start, end))
         end = max(end, start + dur)
     busy_ms = busy_ns / 1e6
-    top = sorted(names.items(), key=lambda kv: -kv[1][0])[:8]
+    top = sorted(names.items(), key=lambda kv: -kv[1][0])[:12]
     print(json.dumps({label: {
         "card": card, **extra, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
-        "by_family_ms": fam, "top": [[n[:80], ms, c] for n, (ms, c) in top]}}))
+        "by_family_ms": fam, "by_family_launches": fam_n, "top": [[n[:80], ms, c] for n, (ms, c) in top]}}))
 
 
-def phase_profile(torch, inf, reqs, card):
-    """Where one full (8-row) served batch's time goes (logits to host
-    included)."""
-    feed = {n: np.concatenate([r[n] for r in reqs])[:8] for n in reqs[0]}
-    inf.infer(feed)
-    _profile(torch, lambda: inf.infer(feed), "serving_profile", card, {"rows": 8})
+SERVE_SPECS = {"src": ((T, 1), "int64"), "trg": ((T, 1), "int64"),
+               "src@SEQ_LEN": ((), "int32"), "trg@SEQ_LEN": ((), "int32")}
 
 
-def phase_serving(torch, card):
-    import paddle_tpu_torch as pt
-    from paddle_tpu_torch.ops.cuda.embedding import gather_rows
-    from paddle_tpu_torch.ops.cuda.flash_attention import flash_attn_fwd
+def _batch_feed(reqs, n_rows=8):
+    return {n: np.concatenate([r[n] for r in reqs])[:n_rows] for n in reqs[0]}
 
-    t0 = time.perf_counter()
-    inf = pt.Inferencer(_infer_func, place=pt.CUDAPlace(0))
-    torch.cuda.synchronize()
-    print(f"transformer-base startup on the card: {time.perf_counter() - t0:.2f} s")
-    specs = {"src": ((T, 1), "int64"), "trg": ((T, 1), "int64"),
-             "src@SEQ_LEN": ((), "int32"), "trg@SEQ_LEN": ((), "int32")}
-    sess = pt.ServingSession(inferencer=inf, max_batch_size=8, max_wait_ms=20.0, warmup=False)
-    warm = inf.warmup(sess.buckets, feed_specs=specs)
-    print("warmup:", [(r["batch_size"], round(r["seconds"], 4)) for r in warm])
 
-    n_threads, per_thread = 4, 4
-    reqs = _requests(n_threads * per_thread, seed=0)
-    answers = [None] * len(reqs)
-    slices = [None] * len(reqs)
-    errors = []
+def _serve(torch, sess, reqs, per_batch, label, card):
+    """``reqs`` from 4 client threads through ``sess``, with every kernel
+    counter in ``per_batch`` set to 0 just before and read just after;
+    then each dispatched batch again, sequentially, from the same rows:
+    every answer finite, of the right shape and bit-identical to its
+    batch's sequential run.  Returns requests/s and the mean sequential
+    batch latency."""
+    counters = _counters()
+    n_threads = 4
+    per_thread = len(reqs) // n_threads
+    answers, slices, errors = [None] * len(reqs), [None] * len(reqs), []
     barrier = threading.Barrier(n_threads + 1)
 
     def client(t):
@@ -315,28 +369,28 @@ def phase_serving(torch, card):
     threads = [threading.Thread(target=client, args=(t,)) for t in range(n_threads)]
     for th in threads:
         th.start()
-    flash_attn_fwd.launches = 0
-    gather_rows.launches = 0
+    for k in per_batch:
+        counters[k].launches = 0
     barrier.wait(timeout=60)
     t_serve = time.perf_counter()
     for th in threads:
         th.join(timeout=300)
     serve_s = time.perf_counter() - t_serve
-    k1, k2 = flash_attn_fwd.launches, gather_rows.launches
+    launches = {k: counters[k].launches for k in per_batch}
     stats = sess.stats()
     sess.close()
     if errors or any(th.is_alive() for th in threads):
-        raise AssertionError(f"serving clients failed: {errors}")
+        raise AssertionError(f"{label}: serving clients failed: {errors}")
     batches = stats["batches"]
-    print(f"served {len(reqs)} requests in {batches} batches: {stats}")
+    print(f"{label}: served {len(reqs)} requests in {batches} batches: {stats}")
     if stats["requests_dispatched"] != len(reqs):
-        raise AssertionError("not every request was dispatched")
-    if k1 != K1_PER_BATCH * batches or k2 != K2_PER_BATCH * batches:
-        raise AssertionError(f"launches K1={k1} K2={k2} over {batches} batches; want "
-                             f"{K1_PER_BATCH} and {K2_PER_BATCH} per batch")
-    print(f"launches on the served path: K1 {k1} ({k1 // batches}/batch), K2 {k2} ({k2 // batches}/batch)")
+        raise AssertionError(f"{label}: not every request was dispatched")
+    if launches != {k: v * batches for k, v in per_batch.items()}:
+        raise AssertionError(f"{label}: launches {launches} over {batches} batches; want "
+                             f"{per_batch} per batch")
+    print(f"{label}: launches {launches} over {batches} batches ({per_batch} per batch)")
 
-    # each dispatched batch again, sequentially, from the same rows
+    inf = sess.inferencer
     by_batch = {}
     for i, sl in enumerate(slices):
         by_batch.setdefault(sl.batch_seq, []).append(i)
@@ -357,34 +411,147 @@ def phase_serving(torch, card):
         for i in idx:
             a, sl = answers[i], slices[i]
             if a.shape != (sl.stop - sl.start, T, VOCAB) or not np.isfinite(a).all():
-                raise AssertionError(f"request {i}: shape {a.shape} or non-finite values")
+                raise AssertionError(f"{label}: request {i}: shape {a.shape} or non-finite values")
             if not np.array_equal(a, ref[sl.start:sl.stop]):
-                raise AssertionError(f"request {i} differs from the sequential run of its batch")
-    print(f"every answer bit-identical to the sequential Inferencer.infer of its batch "
+                raise AssertionError(f"{label}: request {i} differs from the sequential run of "
+                                     f"its batch")
+    rps, lat_ms = len(reqs) / serve_s, 1e3 * float(np.mean(batch_s))
+    print(f"{label}: every answer bit-identical to the sequential Inferencer.infer of its batch "
           f"({len(by_batch)} batches)")
-    print(f"serving: {len(reqs) / serve_s:.2f} requests/s ({len(reqs)} requests of 1-2 rows, "
-          f"4 threads, {serve_s:.3f} s); sequential batch latency mean {1e3 * np.mean(batch_s):.2f} ms "
-          f"(infer + logits to host, buckets {sorted({slices[i].bucket for i in range(len(reqs))})}) [{card}]")
+    print(f"{label}: {rps:.2f} requests/s ({len(reqs)} requests of 1-2 rows, 4 threads, "
+          f"{serve_s:.3f} s); sequential batch latency mean {lat_ms:.2f} ms (infer + logits to "
+          f"host, buckets {sorted({slices[i].bucket for i in range(len(reqs))})}) [{card}]")
+    return {"requests_per_s": rps, "batch_latency_ms": lat_ms, "answers": answers,
+            "launches": launches}
+
+
+def phase_serving(torch, card):
+    import paddle_tpu_torch as pt
+
+    t0 = time.perf_counter()
+    inf = pt.Inferencer(_infer_func, place=pt.CUDAPlace(0))
+    torch.cuda.synchronize()
+    print(f"transformer-base startup on the card: {time.perf_counter() - t0:.2f} s")
+    sess = pt.ServingSession(inferencer=inf, max_batch_size=8, max_wait_ms=20.0, warmup=False)
+    warm = inf.warmup(sess.buckets, feed_specs=SERVE_SPECS)
+    print("warmup:", [(r["batch_size"], round(r["seconds"], 4)) for r in warm])
+    reqs = _requests(16, seed=0)
+    res = _serve(torch, sess, reqs, {"flash_attn_fwd": K1_PER_BATCH, "gather_rows": K2_PER_BATCH},
+                 "float32 serving", card)
 
     # not a gate: does a row's answer depend on its batch (cuBLAS picks
     # GEMM algorithms by shape)?
     (alone,) = inf.infer(reqs[0])
-    print(f"request 0 run alone ({reqs[0]['src'].shape[0]} row) vs served in its batch "
-          f"(bucket {slices[0].bucket}): max abs diff {float(np.abs(alone - answers[0]).max()):.3e}")
+    print(f"request 0 run alone ({reqs[0]['src'].shape[0]} row) vs served in its batch: max abs "
+          f"diff {float(np.abs(alone - res['answers'][0]).max()):.3e}")
 
-    phase_profile(torch, inf, reqs, card)
+    feed8 = _batch_feed(reqs)
+    inf.infer(feed8)
+    _profile(torch, lambda: inf.infer(feed8), "serving_profile", card, {"rows": 8})
 
     # one request against the port on the CPU, same weights, float32 everywhere
     cpu_inf = pt.Inferencer(_infer_func, place=pt.CPUPlace())
-    params = {n: inf.scope.find_var(n).cpu().numpy()
-              for n, v in inf.inference_program.global_block.vars.items() if v.persistable}
-    pt.params_from_numpy(params, cpu_inf.scope, "cpu")
+    pt.params_from_numpy(_params(inf), cpu_inf.scope, "cpu")
     (cpu_out,) = cpu_inf.infer(reqs[0])
-    diff = float(np.abs(cpu_out - answers[0]).max())
+    diff = float(np.abs(cpu_out - res["answers"][0]).max())
     if not diff <= CPU_TOL:
         raise AssertionError(f"card vs CPU: max abs logit diff {diff} > {CPU_TOL}")
     print(f"card vs CPU (request 0, {reqs[0]['src'].shape[0]} row): max abs logit diff {diff:.3e} "
           f"(tol {CPU_TOL}, TF32 off)")
+    return inf, res
+
+
+def _params(inf):
+    return {n: inf.scope.find_var(n).cpu().numpy()
+            for n, v in inf.inference_program.global_block.vars.items() if v.persistable}
+
+
+def _norm_rel(got, want):
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def phase_int8_serving(torch, card, f32_inf, f32_res):
+    """transformer-base served in int8 through the kernel tier, from the
+    float32 path's weights."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.amp import AmpConfig
+
+    amp = AmpConfig(bf16=False, quant=True)
+    params = _params(f32_inf)
+    t0 = time.perf_counter()
+    sess = pt.ServingSession(_infer_func, place=pt.CUDAPlace(0), max_batch_size=8,
+                             max_wait_ms=20.0, warmup=False, amp=amp, kernels=True)
+    inf = sess.inferencer
+    pt.params_from_numpy(params, inf.scope, "cuda")
+    warm = inf.warmup(sess.buckets, feed_specs=SERVE_SPECS)
+    torch.cuda.synchronize()
+    print(f"int8 serving: startup and warmup {time.perf_counter() - t0:.2f} s; warmup "
+          f"{[(r['batch_size'], round(r['seconds'], 4)) for r in warm]}")
+    reqs = _requests(16, seed=0)
+    res = _serve(torch, sess, reqs, {"int8_matmul": K4_PER_BATCH, "flash_attn_fwd": K1_PER_BATCH,
+                                     "gather_rows": K2_PER_BATCH}, "int8 serving", card)
+    ops = [o.type for o in inf.exe._apply_passes(
+        inf.inference_program, list(reqs[0]), [v.name for v in inf.predict_vars]).desc.block(0).ops]
+    print(f"int8 serving program: {len(ops)} ops, {ops.count('pallas_int8_matmul')} "
+          f"pallas_int8_matmul, {ops.count('mul')} mul, {ops.count('pallas_gather')} pallas_gather")
+    print(f"int8 vs float32 serving: {res['requests_per_s']:.2f} vs {f32_res['requests_per_s']:.2f} "
+          f"requests/s; sequential batch latency {res['batch_latency_ms']:.2f} vs "
+          f"{f32_res['batch_latency_ms']:.2f} ms [{card}]")
+
+    feed8 = _batch_feed(reqs)
+    (got,) = inf.infer(feed8)
+    sim = pt.Inferencer(_infer_func, place=pt.CUDAPlace(0), amp=amp, kernels=False)
+    pt.params_from_numpy(params, sim.scope, "cuda")
+    (want,) = sim.infer(feed8)
+    if not np.array_equal(got, want):
+        _first_differing_product(inf, sim, feed8)
+        raise AssertionError(f"int8 kernel tier vs simulated fake-quant on the card: max abs diff "
+                             f"{float(np.abs(got - want).max())}")
+    print("int8 kernel tier (K4) vs the simulated fake-quant program (kernels=False) on the card, "
+          "one 8-row batch: bit-equal")
+    del sim
+
+    (fp32,) = f32_inf.infer(feed8)
+    ctl = pt.Inferencer(_infer_func, place=pt.CUDAPlace(0), kernels=True,
+                        amp=AmpConfig(bf16=False, quant=True, quant_bits=4))
+    pt.params_from_numpy(params, ctl.scope, "cuda")
+    (int4,) = ctl.infer(feed8)
+    del ctl
+    errs = {"int8": _norm_rel(got, fp32), "int4_control": _norm_rel(int4, fp32)}
+    max_errs = {"int8": float(np.abs(got - fp32).max()), "int4_control": float(np.abs(int4 - fp32).max())}
+    print(f"one 8-row batch against float32 serving, ||x - fp32|| / ||fp32||: {errs}; max abs "
+          f"{max_errs} (largest |fp32 logit| {float(np.abs(fp32).max()):.4f}); gate "
+          f"{INT8_VS_FP32_NORM_RTOL}")
+    if not errs["int8"] <= INT8_VS_FP32_NORM_RTOL:
+        raise AssertionError(f"int8 logits too far from float32: {errs}")
+    if errs["int4_control"] <= INT8_VS_FP32_NORM_RTOL:
+        raise AssertionError(f"the gate lets the quant_bits=4 control through: {errs}")
+    # the wrapper's own kernels (abs-max, clamp, scale, round, int8 casts,
+    # the weight's transpose, the dequant) are told apart by its range
+    from paddle_tpu_torch.ops import kernel_ops
+    wrapper = kernel_ops.int8_matmul
+    kernel_ops.int8_matmul = _scoped(torch, wrapper, "ptt.int8_matmul")
+    try:
+        _profile(torch, lambda: inf.infer(feed8), "int8_serving_profile", card, {"rows": 8},
+                 scopes={"ptt.int8_matmul": "quantizers and dequant (K4's wrapper)"})
+    finally:
+        kernel_ops.int8_matmul = wrapper
+    return res
+
+
+def _first_differing_product(inf, sim, feed):
+    """Print the first int8 product whose output differs between the two
+    programs (both write the original ``mul`` outputs' names)."""
+    prog = inf.exe._apply_passes(inf.inference_program, list(feed),
+                                 [v.name for v in inf.predict_vars])
+    outs = [o.output("Out")[0] for o in prog.desc.block(0).ops if o.type == "pallas_int8_matmul"]
+    a = inf.exe.run(inf.inference_program, feed=feed, fetch_list=outs, scope=inf.scope)
+    b = sim.exe.run(sim.inference_program, feed=feed, fetch_list=outs, scope=sim.scope)
+    for name, x, y in zip(outs, a, b):
+        if not np.array_equal(x, y):
+            print(f"first differing int8 product: {name}: max abs diff "
+                  f"{float(np.abs(x - y).max())} of {float(np.abs(y).max())}")
+            return
 
 
 def _rel(got, want):
@@ -529,7 +696,99 @@ def phase_scatter(torch, card):
     return res
 
 
-def _train_programs(pt):
+def phase_int8(torch, card):
+    """K4 at the served batch's four (K, N) products, M = 256 and 2048:
+    raw int32 products and the whole quantize -> GEMM -> dequantize, both
+    bit-equal to the plain versions.  Times at M = 2048, beside the bound
+    and ``torch._int_mm`` (cuBLASLt int8); the quantizers' and dequant's
+    time for one 8-row batch's 97 products."""
+    from paddle_tpu_torch.ops.cuda.int8_matmul import (int8_matmul, int8_matmul_plain, int8_mm,
+                                                       int8_mm_plain, quantize_abs_max)
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(6)
+    res, quant_ms, wrapper_ms = {}, 0.0, 0.0
+    for (k, n), count in INT8_SHAPES.items():
+        for m in (256, B * T):
+            x = torch.randn(m, k, generator=g).to(dev)
+            y = ((torch.rand(k, n, generator=g) * 2 - 1) * (6.0 / (k + n)) ** 0.5).to(dev)
+            xq, sx = quantize_abs_max(x, 127.0)
+            yq, sy = quantize_abs_max(y, 127.0)
+            xq8, yqt8 = xq.to(torch.int8), yq.to(torch.int8).t().contiguous()
+            acc, ref_acc = int8_mm(xq8, yqt8), int8_mm_plain(xq8, yqt8)
+            out, ref_out = int8_matmul(x, y), int8_matmul_plain(x, y)
+            torch.cuda.synchronize()
+            if not (torch.equal(acc, ref_acc) and torch.equal(out, ref_out)):
+                raise AssertionError(f"int8_matmul M={m} K={k} N={n}: differs from its plain "
+                                     f"version (int32 max diff {(acc - ref_acc).abs().max().item()})")
+            if m != B * T:
+                continue
+            ms = _ms(lambda: int8_mm(xq8, yqt8), 20)
+            plain_ms = _ms(lambda: int8_mm_plain(xq8, yqt8), 5)
+            # cuBLASLt takes B row- or column-major depending on the build:
+            # the faster layout it takes is the yardstick
+            lib_times = []
+            for b in (yq.to(torch.int8), yqt8.t()):
+                try:
+                    torch._int_mm(xq8, b)
+                except RuntimeError:
+                    continue
+                lib_times.append(_ms(lambda: torch._int_mm(xq8, b), 20))
+            lib_ms = min(lib_times) if lib_times else None
+            q_ms = (_ms(lambda: quantize_abs_max(x, 127.0)[0].to(torch.int8), 20)
+                    + _ms(lambda: quantize_abs_max(y, 127.0)[0].to(torch.int8).t().contiguous(), 20)
+                    + _ms(lambda: acc.to(torch.float32).mul_((sx * sy) / 16129.0), 20))
+            w_ms = _ms(lambda: int8_matmul(x, y), 20)
+            quant_ms += count * q_ms
+            wrapper_ms += count * w_ms
+            bound_ms, bound_by = _bound(m * k + k * n + 4 * m * n, 2.0 * m * k * n, INT8_OPS)
+            res[(k, n)] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                               bound_ms=bound_ms, bound_by=bound_by)
+            print(f"K4 int8_matmul M={m} K={k} N={n} (x{count} a batch): bit-equal (int32 and "
+                  f"dequantized, and at M=256); kernel {ms:.4f} ms ({2.0 * m * k * n / ms / 1e9:.1f} "
+                  f"TOP/s), plain {plain_ms:.4f} ms, torch._int_mm {lib_ms} ms, bound "
+                  f"{bound_ms:.5f} ms ({bound_by}); quantize x, y and dequant {q_ms:.4f} ms; the "
+                  f"whole wrapper {w_ms:.4f} ms [{card}]")
+    print(f"K4 a served 8-row batch ({K4_PER_BATCH} products, CUDA events): wrappers "
+          f"{wrapper_ms:.3f} ms, of which quantizers and dequant {quant_ms:.3f} ms [{card}]")
+    return res
+
+
+def phase_sgd(torch, card):
+    """K5 on the [32000, 512] word table and a [512] vector, bit-equal to
+    its plain version, beside ``torch.optim.SGD(fused=True)``."""
+    from paddle_tpu_torch.ops.cuda.fused_optimizer import fused_sgd, fused_sgd_plain
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(7)
+    res = {}
+    for shape in ((VOCAB, D_MODEL), (D_MODEL,)):
+        p = torch.randn(*shape, generator=g).to(dev)
+        grad = (1e-2 * torch.randn(*shape, generator=g)).to(dev)
+        lr = torch.tensor([0.1], device=dev)
+        got, want = fused_sgd(p, grad, lr), fused_sgd_plain(p, grad, lr)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"fused_sgd {shape}: differs from its plain version "
+                                 f"(max {(got - want).abs().max().item()})")
+        tp = torch.nn.Parameter(p.clone())
+        tp.grad = grad.clone()
+        try:
+            opt, lib = torch.optim.SGD([tp], lr=0.1, fused=True), "torch.optim.SGD(fused=True)"
+            opt.step()
+            lib_fn = opt.step
+        except (RuntimeError, TypeError, ValueError):
+            lib, lib_fn = "p.add_(g, alpha=-lr)", lambda: tp.data.add_(grad, alpha=-0.1)
+        ms = _ms(lambda: fused_sgd(p, grad, lr), 50)
+        plain_ms = _ms(lambda: fused_sgd_plain(p, grad, lr), 20)
+        lib_ms = _ms(lib_fn, 50)
+        bound_ms, bound_by = _bound(3 * 4 * p.numel() + 4, 2 * p.numel())
+        res[shape] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+        print(f"K5 fused_sgd {list(shape)}: bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"{lib} {lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}) [{card}]")
+    return res
+
+
+def _train_programs(pt, sgd=False):
     from paddle_tpu_torch import layers
     from paddle_tpu_torch.models import transformer
     main, startup = pt.Program(), pt.Program()
@@ -540,7 +799,8 @@ def _train_programs(pt):
         loss, _ = transformer.train_network(src, trg, lbl, VOCAB, VOCAB, max_len=T,
                                             n_layer=N_LAYER, d_model=D_MODEL, n_head=H,
                                             d_inner=D_INNER, fuse_final_ce=True)
-        pt.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+        opt = pt.optimizer.SGD(learning_rate=0.1) if sgd else pt.optimizer.Adam(learning_rate=1e-3)
+        opt.minimize(loss)
     return main, startup, loss
 
 
@@ -557,39 +817,49 @@ def _train_feed(rows, seed):
 
 
 def _counters():
-    from paddle_tpu_torch.ops.cuda import embedding, flash_attention, fused_optimizer, linear_ce
+    from paddle_tpu_torch.ops.cuda import (embedding, flash_attention, fused_optimizer,
+                                           int8_matmul, linear_ce)
     return {"flash_attn_fwd": flash_attention.flash_attn_fwd,
             "gather_rows": embedding.gather_rows,
             "scatter_add_rows": embedding.scatter_add_rows,
+            "int8_matmul": int8_matmul.int8_matmul,
+            "fused_sgd": fused_optimizer.fused_sgd,
             "fused_adam": fused_optimizer.fused_adam,
             "linear_ce_fwd": linear_ce.linear_ce_fwd,
             "linear_ce_bwd": linear_ce.linear_ce_bwd}
 
 
-def phase_training(torch, card):
-    """Full-width transformer-base training on the card: 1 warm-up and 3
-    timed steps on one fixed batch."""
+def phase_training(torch, card, sgd=False):
+    """Full-width transformer-base training on the card through the kernel
+    tier (``Executor(kernels=True)``, the default on the card), on one fixed
+    batch: with Adam one warm-up and three timed steps (losses falling) and
+    a profile; with SGD one warm-up, one timed step and a profile."""
     import paddle_tpu_torch as pt
+    label = "SGD training" if sgd else "training"
+    steps, per_step = (2, PER_STEP_SGD) if sgd else (4, PER_STEP)
     t0 = time.perf_counter()
-    main, startup, loss = _train_programs(pt)
-    scope, exe = pt.Scope(), pt.Executor(pt.CUDAPlace(0))
+    main, startup, loss = _train_programs(pt, sgd=sgd)
+    scope, exe = pt.Scope(), pt.Executor(pt.CUDAPlace(0), kernels=True)
     exe.run(startup, scope=scope)
     torch.cuda.synchronize()
     params = main.global_block.all_parameters()
     n_floats = sum(int(np.prod(p.shape)) for p in params)
+    feed = _train_feed(TRAIN_B, seed=0)
     ops = [o.type for o in main.desc.block(0).ops]
-    print(f"transformer-base training program: {len(ops)} ops ({ops.count('adam')} adam, "
-          f"{ops.count('sum')} sum), {len(params)} parameters, {n_floats} floats; built and "
-          f"initialized on the card in {time.perf_counter() - t0:.2f} s")
+    run_ops = [o.type for o in exe._apply_passes(main, list(feed), [loss.name]).desc.block(0).ops]
+    kinds = ("sgd", "pallas_sgd", "adam", "pallas_adam", "pallas_gather", "pallas_scatter_add")
+    print(f"transformer-base {label} program: {len(ops)} ops ({ops.count('sum')} sum), "
+          f"{len(params)} parameters, {n_floats} floats; after the kernel pass "
+          f"{ {k: run_ops.count(k) for k in kinds} }; built and initialized on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
     if len(params) != N_PARAMS:
         raise AssertionError(f"{len(params)} parameters, want {N_PARAMS}")
-    feed = _train_feed(TRAIN_B, seed=0)
     before = {p.name: scope.find_var(p.name).clone() for p in params}
     counters = _counters()
     for f in counters.values():
         f.launches = 0
     losses, step_s = [], []
-    for step in range(4):
+    for step in range(steps):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         (l,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
@@ -599,24 +869,24 @@ def phase_training(torch, card):
             unchanged = [p.name for p in params
                          if torch.equal(before[p.name], scope.find_var(p.name))]
             if unchanged:
-                raise AssertionError(f"parameters unchanged by step 1: {unchanged}")
+                raise AssertionError(f"{label}: parameters unchanged by step 1: {unchanged}")
             del before
     launches = {k: f.launches for k, f in counters.items()}
-    print(f"training losses {losses}; step times (s) {[round(s, 4) for s in step_s]}")
-    if not (np.isfinite(losses).all() and all(a > b for a, b in zip(losses, losses[1:]))):
-        raise AssertionError(f"losses not finite and falling: {losses}")
-    want = {k: 4 * v for k, v in PER_STEP.items()}
+    print(f"{label} losses {losses}; step times (s) {[round(s, 4) for s in step_s]}")
+    if not np.isfinite(losses).all() or not (sgd or all(a > b for a, b in zip(losses, losses[1:]))):
+        raise AssertionError(f"{label}: losses not finite{'' if sgd else ' and falling'}: {losses}")
+    want = {k: steps * v for k, v in per_step.items()}
     if launches != want:
-        raise AssertionError(f"launches over 4 steps {launches}, want {want}")
-    print(f"launches on the training path over 4 steps: {launches} (per step {PER_STEP})")
+        raise AssertionError(f"{label}: launches over {steps} steps {launches}, want {want}")
+    print(f"launches on the {label} path over {steps} steps: {launches} (per step {per_step})")
     step_ms = 1e3 * float(np.mean(step_s[1:]))
     real = int(feed["trg@SEQ_LEN"].sum())
-    print(f"training step: {step_ms:.2f} ms mean of 3 timed steps (host clock to the loss "
-          f"on the host); {TRAIN_B * T / step_ms * 1e3:.0f} tokens/s at batch {TRAIN_B} x {T} "
+    print(f"{label} step: {step_ms:.2f} ms mean of {steps - 1} timed step(s) (host clock to the "
+          f"loss on the host); {TRAIN_B * T / step_ms * 1e3:.0f} tokens/s at batch {TRAIN_B} x {T} "
           f"(padded), {real / step_ms * 1e3:.0f} target tokens/s within the lengths; "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
     _profile(torch, lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope),
-             "training_profile", card, {"batch": [TRAIN_B, T]})
+             "sgd_training_profile" if sgd else "training_profile", card, {"batch": [TRAIN_B, T]})
     return launches
 
 
@@ -727,12 +997,19 @@ def main():
 
     flash = phase_flash(torch, card)
     gather = phase_gather(torch, card)
-    phase_serving(torch, card)
+    f32_inf, f32_res = phase_serving(torch, card)
     ce = phase_linear_ce(torch, card)
     adam = phase_adam(torch, card)
     scatter = phase_scatter(torch, card)
     launches = phase_training(torch, card)
     phase_train_vs_cpu(torch, card)
+    int8 = phase_int8(torch, card)
+    sgd = phase_sgd(torch, card)
+    int8_res = phase_int8_serving(torch, card, f32_inf, f32_res)
+    del f32_inf
+    sgd_launches = phase_training(torch, card, sgd=True)
+    launches["int8_matmul"] = int8_res["launches"]["int8_matmul"]
+    launches["fused_sgd"] = sgd_launches["fused_sgd"]
 
     def entry(name, source, replaces, per_case, main_case):
         m = per_case[main_case]
@@ -746,6 +1023,8 @@ def main():
               ("train", False)),
         entry("gather_rows", "embedding_gather.cu", "embedding.py:48", gather, ("train", VOCAB)),
         entry("scatter_add_rows", "embedding_scatter_add.cu", "embedding.py:85", scatter, VOCAB),
+        entry("int8_matmul", "int8_matmul.cu", "int8_matmul.py:51", int8, (D_MODEL, VOCAB)),
+        entry("fused_sgd", "fused_sgd.cu", "fused_optimizer.py:86", sgd, (VOCAB, D_MODEL)),
         entry("fused_adam", "fused_adam.cu", "fused_optimizer.py:106", adam, (VOCAB, D_MODEL)),
         entry("linear_ce_fwd", "linear_ce.cu", "linear_ce.py:42",
               {0: ce["linear_ce_fwd"]}, 0),

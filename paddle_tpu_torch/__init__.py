@@ -5,14 +5,17 @@ ProgramDescs by ``layers``, differentiated by ``append_backward``, given
 update ops by an ``optimizer``, and run eagerly, op by op, by the
 ``Executor`` on a CUDA device (``CUDAPlace(0)``, the default) or, when
 asked, on the CPU.  Attention, embedding lookups and their gradients, the
-fused loss head and Adam go through hand-written CUDA kernels
-(``ops/cuda/``, sources in ``csrc/``), built with nvcc at first use.
+fused loss head, SGD and Adam go through hand-written CUDA kernels
+(``ops/cuda/``, sources in ``csrc/``), built with nvcc at first use.  The
+pass pipeline (``passes``) rewrites programs onto the kernel tier, and
+``amp.AmpConfig(bf16=False, quant=True)`` serves every ``mul`` through the
+int8 GEMM kernel.
 
 This package imports torch, numpy and the standard library only -- never
 jax or paddle_tpu.
 """
 from . import ops  # noqa: F401  (registers every op lowering)
-from . import layers, models, optimizer  # noqa: F401
+from . import amp, layers, models, optimizer, passes  # noqa: F401
 from .backward import append_backward  # noqa: F401
 from .convert import params_from_numpy  # noqa: F401
 from .core import unique_name  # noqa: F401

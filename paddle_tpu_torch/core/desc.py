@@ -10,7 +10,9 @@ computation.
 """
 from __future__ import annotations
 
+import copy
 import hashlib
+import itertools
 import json
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
@@ -118,6 +120,12 @@ class OpDesc:
     def attr(self, name: str, default=None):
         return self.attrs.get(name, default)
 
+    @property
+    def callsite(self) -> Optional[str]:
+        """User-code ``file:line`` that appended this op (None for ops
+        synthesized by desc-level rewrites such as append_backward)."""
+        return self.attrs.get(CALLSITE_ATTR)
+
     def to_dict(self) -> dict:
         return {
             "type": self.type,
@@ -197,6 +205,11 @@ class BlockDesc:
         self.program._bump()
         return op
 
+    def insert_op(self, index: int, op: OpDesc) -> OpDesc:
+        self.ops.insert(index, op)
+        self.program._bump()
+        return op
+
     def to_dict(self) -> dict:
         return {
             "idx": self.idx,
@@ -208,16 +221,30 @@ class BlockDesc:
 
 
 class ProgramDesc:
-    """The whole-program IR: a list of blocks, block 0 global."""
+    """The whole-program IR: a list of blocks, block 0 global.
+
+    ``uid`` is a process-unique identity, never reused (unlike ``id()``),
+    and ``version`` counts mutations: the executor memoizes its pass
+    pipeline's rewrite per (uid, version, feeds, fetches)."""
+
+    _uid_counter = itertools.count()
 
     def __init__(self):
         self.blocks: List[BlockDesc] = [BlockDesc(self, 0, -1)]
         self._version = 0
+        self.uid = next(ProgramDesc._uid_counter)
         self._fp: Optional[str] = None
         self._fp_version = -1
 
     def _bump(self):
         self._version += 1
+
+    @property
+    def version(self) -> int:
+        return self._version
+
+    def num_blocks(self) -> int:
+        return len(self.blocks)
 
     def block(self, idx: int) -> BlockDesc:
         return self.blocks[idx]
@@ -249,6 +276,19 @@ class ProgramDesc:
             for od in bd["ops"]:
                 b.ops.append(OpDesc.from_dict(od))
             p.blocks.append(b)
+        return p
+
+    def clone(self) -> "ProgramDesc":
+        """A deep copy with a fresh ``uid`` (the pass pipeline gives its
+        rewrite the source's uid back)."""
+        p = ProgramDesc()
+        p.blocks = []
+        for b in self.blocks:
+            nb = BlockDesc(p, b.idx, b.parent_idx)
+            nb.forward_block_idx = b.forward_block_idx
+            nb.vars = {n: copy.deepcopy(v) for n, v in b.vars.items()}
+            nb.ops = [copy.deepcopy(o) for o in b.ops]
+            p.blocks.append(nb)
         return p
 
     def fingerprint(self) -> str:

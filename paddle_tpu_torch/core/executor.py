@@ -8,6 +8,13 @@ startup program initializes it) and returns the fetches.
 Places: ``CUDAPlace(i)`` is a real CUDA device and the default; the CPU is
 used only when the caller passes ``CPUPlace()``.  An executor asked for a
 GPU that is not there raises instead of running on the CPU.
+
+``passes=``, ``amp=`` and ``kernels=`` compose the program-rewrite
+pipeline (``amp.compose_passes``) as in the JAX package.  ``kernels=None``
+is resolved per device, as the JAX package resolves it per backend: the
+kernel tier is on for a CUDA place, where the kernels run, and off on the
+CPU.  The pipeline runs once per (program uid, version, feed names, fetch
+names); the executor runs the rewritten program.
 """
 from __future__ import annotations
 
@@ -87,11 +94,47 @@ def analyze_state(block: BlockDesc, feed_names) -> tuple:
 
 
 class Executor:
-    """Eager executor on one device.  ``place=None`` means ``CUDAPlace(0)``."""
+    """Eager executor on one device.  ``place=None`` means ``CUDAPlace(0)``.
 
-    def __init__(self, place: Optional[Place] = None):
+    ``passes``: ``None``/``False``, a list of pass names or a
+    ``PassPipeline``; ``amp``: ``None``/``AmpPolicy``/``AmpConfig``;
+    ``kernels``: ``None`` (on for a CUDA place, off on the CPU),
+    ``True``/``False`` or a ``KernelPolicy``."""
+
+    def __init__(self, place: Optional[Place] = None, passes=None, amp=None,
+                 kernels=None):
         self.place = place if place is not None else CUDAPlace(0)
         self.device = place_device(self.place)
+        from ..ops.cuda.policy import as_kernel_policy
+        if kernels is None:
+            kernels = self.device.type == "cuda"
+        self.kernel_policy = as_kernel_policy(kernels)
+        if passes or amp or self.kernel_policy is not None:
+            from ..amp import compose_passes
+            self.passes = compose_passes(passes, amp, kernels=self.kernel_policy)
+        else:
+            self.passes = None
+        # (uid, version, feed names, fetch names) -> the program to run
+        self._pass_memo: Dict[tuple, Program] = {}
+
+    def _apply_passes(self, program: Program, feed_names: List[str],
+                      fetch_names: List[str]) -> Program:
+        """The rewritten program, from the pipeline run once per (program
+        uid, version, feed names, fetch names).  The rewrite lands on a
+        clone with the program's uid and a version of its own, so running
+        the rewritten program again hits the memo too."""
+        if self.passes is None:
+            return program
+        key = (program.desc.uid, program.desc.version, tuple(sorted(feed_names)),
+               tuple(fetch_names))
+        hit = self._pass_memo.get(key)
+        if hit is not None:
+            return hit
+        new_prog, _ = self.passes.run(program, fetch_list=fetch_names,
+                                      feed_names=feed_names)
+        self._pass_memo[key] = new_prog
+        self._pass_memo[(new_prog.desc.uid, new_prog.desc.version) + key[2:]] = new_prog
+        return new_prog
 
     def _feed_to_tensor(self, block: BlockDesc, name: str, value) -> torch.Tensor:
         """A feed as a tensor on this executor's device, in its declared
@@ -116,6 +159,7 @@ class Executor:
         scope = scope or global_scope()
         fetch_names = [f.name if isinstance(f, Variable) else str(f)
                        for f in (fetch_list or [])]
+        program = self._apply_passes(program, list(feed), fetch_names)
         block = program.desc.block(0)
 
         env: Dict[str, Any] = {}

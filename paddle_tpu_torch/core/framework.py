@@ -235,6 +235,11 @@ class Program:
         # seed of the executor's torch.Generator for this program's random
         # ops; None means 0
         self.random_seed: Optional[int] = None
+        # stamped by the rewriting passes on the programs they change: the
+        # AmpPolicy fingerprint (amp-quant-int8) and the KernelPolicy
+        # fingerprint (pallas-kernels)
+        self._amp_policy_fp: Optional[str] = None
+        self._kernel_policy_fp: Optional[str] = None
 
     def block(self, idx: int) -> Block:
         return self.blocks[idx]
@@ -249,6 +254,32 @@ class Program:
     def list_vars(self):
         for b in self.blocks:
             yield from b.vars.values()
+
+    def sync_with_desc(self):
+        """Wrap the vars and ops that desc-level rewrites added."""
+        for b in self.blocks:
+            b._sync_with_desc()
+
+    def clone(self) -> "Program":
+        """A deep copy of the program (a fresh desc uid); parameters stay
+        Parameter objects."""
+        p = Program()
+        p.desc = self.desc.clone()
+        p.blocks = [Block(p, i) for i in range(p.desc.num_blocks())]
+        for b in p.blocks:
+            for name, vd in b.desc.vars.items():
+                src = self.blocks[b.idx].vars.get(name)
+                if isinstance(src, Parameter):
+                    b.vars[name] = Parameter(b, vd, trainable=src.trainable,
+                                             regularizer=src.regularizer,
+                                             optimize_attr=src.optimize_attr)
+                else:
+                    b.vars[name] = Variable(b, vd)
+            b.ops = [Operator(b, od) for od in b.desc.ops]
+        p.random_seed = self.random_seed
+        p._amp_policy_fp = self._amp_policy_fp
+        p._kernel_policy_fp = self._kernel_policy_fp
+        return p
 
     def __str__(self):
         return str(self.desc)

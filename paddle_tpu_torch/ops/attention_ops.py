@@ -4,7 +4,12 @@
 runs the hand-written flash-attention forward (ops/cuda/flash_attention.py)
 through its autograd Function, masking keys by the @SEQ_LEN lengths of
 **K** -- so cross-attention masks by source lengths -- and causally when
-the op says so.  The generic ``flash_attention_grad`` differentiates it.
+the op says so.  The ``pallas-kernels`` pass's ``pallas_kernel`` stamp is
+honoured as the JAX package honours it: ``True`` (or no stamp) launches
+the kernel on a CUDA tensor, ``False`` runs the plain composed attention
+(``flash_attn_fwd_plain``) on a CPU tensor and raises on a CUDA tensor,
+where the port has no attention but the kernel.  The generic
+``flash_attention_grad`` differentiates either.
 """
 from __future__ import annotations
 
@@ -16,7 +21,8 @@ from ..core.lower import SEQ_LEN_AWARE, SEQ_LEN_SUFFIX
 from ..core.registry import register_infer_shape, register_lowering
 from ..core.dtypes import convert_dtype
 from .common import in_dtype, in_shape, set_out_shape
-from .cuda.flash_attention import FlashAttention
+from .cuda.flash_attention import HEAD_DIMS, FlashAttention, flash_attn_fwd_plain
+from .cuda.kernel_pass import KERNEL_DECISION_ATTR
 
 SEQ_LEN_AWARE.add("flash_attention")
 
@@ -38,8 +44,18 @@ def _flash_attention_op(ctx, op):
         return (x.reshape(n, t, num_heads, d).transpose(1, 2)
                 .reshape(n * num_heads, t, d).contiguous())
 
-    out = FlashAttention.apply(split(q, tq), split(k, tk), split(v, tk), kv_lens,
-                               bool(op.attr("causal", False)), 1.0 / math.sqrt(d))
+    args = (split(q, tq), split(k, tk), split(v, tk), kv_lens,
+            bool(op.attr("causal", False)), 1.0 / math.sqrt(d))
+    if op.attr(KERNEL_DECISION_ATTR, True):
+        out = FlashAttention.apply(*args)
+    elif q.device.type == "cpu":
+        out = flash_attn_fwd_plain(*args)[0]
+    else:
+        reason = (f"head_dim {d} is not one K1 takes {HEAD_DIMS}" if d not in HEAD_DIMS
+                  else "the kernel policy disables flash_attention")
+        raise NotImplementedError(
+            f"flash_attention stamped {KERNEL_DECISION_ATTR}=False ({reason}) on a "
+            f"{q.device.type} tensor: the port has no attention for the card besides K1")
     out = out.reshape(n, num_heads, tq, d).transpose(1, 2).reshape(n, tq, hd)
     ctx.write_slot(op, "Out", out)
     q_lens = ctx.read_opt(op.input("Q")[0] + SEQ_LEN_SUFFIX)

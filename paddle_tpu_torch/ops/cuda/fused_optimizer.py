@@ -1,23 +1,31 @@
-"""Fused Adam update: the hand-written Hopper kernel (csrc/fused_adam.cu)
-and its plain PyTorch version.
+"""Fused optimizer updates: the hand-written Hopper kernels
+(csrc/fused_sgd.cu, csrc/fused_adam.cu) and their plain PyTorch versions.
 
-Replaces the TPU kernel ``paddle_tpu/ops/pallas/fused_optimizer.py::
-_adam_kernel`` (launched by ``fused_adam``).  One pass over the parameter,
+``fused_sgd`` replaces the TPU kernel ``paddle_tpu/ops/pallas/
+fused_optimizer.py::_sgd_kernel`` (launched by ``fused_sgd``): one pass of
+``p - lr * g`` with ``lr`` read on the device, rounded once per element
+(a fused multiply-add), as XLA compiles the JAX kernel's expression.
+
+``fused_adam`` replaces ``_adam_kernel`` (launched by ``fused_adam``).  One
+pass over the parameter,
 its gradient and both moments; returns the same quintuple as the JAX
 package's ``fused_adam``: (param_out, moment1_out, moment2_out,
 beta1_pow_out, beta2_pow_out).  The bias-corrected step size
 lr_t = lr * sqrt(1 - beta2_pow * beta2) / (1 - beta1_pow * beta1) is
 computed on the device from the scalar tensors, never on the host.
 
-The kernel writes into fresh tensors (the inputs are left as they were),
-so the caller may still hold the old values.
+Both kernels write into fresh tensors (the inputs are left as they were),
+so the caller may still hold the old values, and both use explicit ``_rn``
+intrinsics, so each rounds every element as its plain version does.
 
 A tensor on the CPU goes to the plain version; a CUDA tensor launches the
-kernel or raises.  ``fused_adam.launches`` counts kernel launches.
+kernel or raises.  ``fused_sgd.launches`` and ``fused_adam.launches`` count
+kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -25,6 +33,65 @@ from . import build
 
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_float] * 5
              + [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_void_p])
+_SGD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]
+
+
+def _on_cpu(name, tensors) -> bool:
+    """True when every tensor lies on the CPU; raises unless they all lie
+    on one CUDA device as float32 contiguous tensors."""
+    if all(t.device.type == "cpu" for t in tensors):
+        return True
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: tensors on {sorted({str(t.device) for t in tensors})}; "
+                         f"all must be on one CUDA device (or all on the CPU)")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"{name} kernel takes float32 tensors")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} kernel needs contiguous tensors")
+    return False
+
+
+def fused_sgd_plain(p, g, lr):
+    """``p - lr * g`` rounded once, as a fused multiply-add rounds it.
+
+    float32 tensors go through float64: ``lr * g`` is exact there, the
+    sum's rounding error is recovered exactly (TwoSum), and rounding the
+    sum to odd before the one rounding to float32 makes that rounding the
+    correctly rounded result (53 >= 24 + 2 bits).  Other float types
+    compute in their own precision."""
+    lr = lr.reshape(())
+    if p.dtype != torch.float32:
+        return p - lr.to(p.dtype) * g.to(p.dtype)
+    a, b = p.double(), -(lr.double() * g.double())
+    s = a + b
+    bb = s - a
+    err = (a - (s - bb)) + (b - bb)                  # a + b == s + err exactly
+    inexact_even = (err != 0) & ((s.view(torch.int64) & 1) == 0)
+    toward = torch.nextafter(s, torch.where(err > 0, math.inf, -math.inf).to(s))
+    return torch.where(inexact_even, toward, s).float()
+
+
+def fused_sgd(p, g, lr):
+    """One SGD step: p, g of one shape, lr a one-element tensor.  Returns
+    the updated parameter in a fresh tensor."""
+    if g.shape != p.shape:
+        raise ValueError(f"fused_sgd: p {tuple(p.shape)} and g {tuple(g.shape)} differ")
+    if lr.numel() != 1:
+        raise ValueError("fused_sgd: lr must have one element")
+    if _on_cpu("fused_sgd", (p, g, lr)):
+        return fused_sgd_plain(p, g, lr)
+    out = torch.empty_like(p)
+    fn = build.kernel("ptt_fused_sgd_f32", _SGD_ARGTYPES)
+    with torch.cuda.device(p.device):
+        rc = fn(p.data_ptr(), g.data_ptr(), lr.data_ptr(), out.data_ptr(), p.numel(),
+                torch.cuda.current_stream().cuda_stream)
+    build.check(rc, "fused_sgd")
+    fused_sgd.launches += 1
+    return out
+
+
+fused_sgd.launches = 0
 
 
 def fused_adam_plain(p, g, m1, m2, beta1_pow, beta2_pow, lr, beta1: float,
@@ -54,15 +121,8 @@ def fused_adam(p, g, m1, m2, beta1_pow, beta2_pow, lr, beta1: float,
     if any(t.numel() != 1 for t in scalars):
         raise ValueError("fused_adam: beta1_pow, beta2_pow and lr must have one element")
     tensors = big + scalars
-    if all(t.device.type == "cpu" for t in tensors):
+    if _on_cpu("fused_adam", tensors):
         return fused_adam_plain(p, g, m1, m2, beta1_pow, beta2_pow, lr, beta1, beta2, epsilon)
-    if p.device.type != "cuda" or any(t.device != p.device for t in tensors):
-        raise ValueError(f"fused_adam: tensors on {sorted({str(t.device) for t in tensors})}; "
-                         f"all must be on one CUDA device (or all on the CPU)")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("fused_adam kernel takes float32 tensors")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("fused_adam kernel needs contiguous tensors")
     outs = [torch.empty_like(t) for t in (p, m1, m2, beta1_pow, beta2_pow)]
     fn = build.kernel("ptt_fused_adam_f32", _ARGTYPES)
     # (1 - beta) is computed in double and rounded to float32 by ctypes, as

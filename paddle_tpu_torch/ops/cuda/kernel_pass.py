@@ -1,0 +1,237 @@
+"""The ``pallas-kernels`` pass: rewrite policy-selected ops onto the
+hand-written Hopper kernels.
+
+The port of the JAX package's ``paddle_tpu/ops/pallas/kernel_pass.py``,
+keeping its name, its op types and its attrs (they are part of the
+ProgramDesc; both packages write equal ProgramDescs for equal policies).
+Four rewrite families, each gated by a :class:`KernelPolicy` rule and its
+shape predicate:
+
+* **flash_attention** -- stamps the decision (``pallas_kernel`` attr) on
+  ``flash_attention``/``flash_attention_grad`` ops: ``True`` launches K1,
+  ``False`` runs the plain composed attention on the CPU and raises on the
+  card (ops/attention_ops.py).
+* **int8_matmul** -- collapses each ``amp-quant-int8`` group
+  (fake_quantize x2 -> mul -> scale mul -> fake_dequantize) into ONE
+  ``pallas_int8_matmul`` op, the int8 GEMM (K4); the orphaned quant ops
+  and vars are swept to a fixpoint, and feeds and fetches are never swept.
+* **fused_optimizer** -- ``sgd``/``adam`` -> ``pallas_sgd``/``pallas_adam``
+  (K5/K6).
+* **embedding** -- ``lookup_table`` -> ``pallas_gather`` (K2) and its
+  gradient -> ``pallas_scatter_add`` (K3), which reads the output gradient
+  directly instead of re-running the gather under autograd.
+
+A changed rewrite stamps ``program._kernel_policy_fp``.  Skipped rewrites
+are silent in the ProgramDesc, as in the JAX package; the flash family
+notes its declines in the pass result.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Set
+
+from ...core.desc import PASS_PROVENANCE_ATTR, VarType
+from ...passes.base import PassContext, PassResult, ProgramPass, register_pass
+from .policy import (KERNEL_EMB, KERNEL_FLASH, KERNEL_INT8, KERNEL_OPT,
+                     KernelPolicy)
+
+__all__ = ["PallasKernelsPass", "KERNEL_DECISION_ATTR"]
+
+#: attr carrying the pass's static decision to the flash-attention
+#: lowering (semantic: it keys the program fingerprint)
+KERNEL_DECISION_ATTR = "pallas_kernel"
+
+
+def _numel(shape) -> int:
+    n = 1
+    for d in shape:
+        if d is None or d <= 0:
+            return -1
+        n *= int(d)
+    return n
+
+
+@register_pass
+class PallasKernelsPass(ProgramPass):
+    """Rewrite policy-selected ops onto the kernel tier (module docstring)."""
+
+    name = "pallas-kernels"
+
+    def __init__(self, policy: Optional[KernelPolicy] = None):
+        self.policy = policy or KernelPolicy()
+
+    def config(self) -> dict:
+        return {"policy": self.policy.fingerprint()}
+
+    def apply(self, ctx: PassContext, result: PassResult) -> None:
+        if ctx.desc.num_blocks() > 1:
+            result.skipped = "multi-block program (control flow)"
+            return
+        block = ctx.desc.block(0)
+        n_flash = self._stamp_flash(block, result)
+        n_int8 = self._rewrite_int8(ctx, block, result)
+        n_opt = self._rewrite_optimizer(block, result)
+        n_emb = self._rewrite_embedding(block, result)
+        if result.changed:
+            block.program._bump()
+            if ctx.program is not None:
+                ctx.program._kernel_policy_fp = self.policy.fingerprint()
+            result.notes.append(
+                f"policy {self.policy.fingerprint()[:12]}: "
+                f"flash {n_flash}, int8 {n_int8}, optimizer {n_opt}, "
+                f"embedding {n_emb}")
+
+    def _stamp_flash(self, block, result: PassResult) -> int:
+        stamped = 0
+        for op in block.ops:
+            if op.type not in ("flash_attention", "flash_attention_grad"):
+                continue
+            if op.attrs.get("use_ring"):
+                continue                 # ring attention is not ported
+            if self.policy.kernel_for(op.type) != KERNEL_FLASH:
+                decision, reason = False, "policy-disabled"
+            else:
+                qs = op.inputs.get("Q") or ()
+                ks = op.inputs.get("K") or ()
+                qd = block.find_var(qs[0]) if qs else None
+                kd = block.find_var(ks[0]) if ks else None
+                if (qd is None or kd is None or len(qd.shape) < 3
+                        or qd.shape[2] <= 0
+                        or (self.policy.flash_needs_seq_len
+                            and (qd.shape[1] <= 0 or kd.shape[1] <= 0))):
+                    continue             # decided by the lowering at run time
+                heads = max(int(op.attrs.get("num_heads", 1)), 1)
+                decision, reason = self.policy.flash_profitable(
+                    int(qd.shape[1]), int(kd.shape[1]),
+                    int(qd.shape[2]) // heads)
+            if op.attrs.get(KERNEL_DECISION_ATTR) == decision:
+                continue
+            op.attrs[KERNEL_DECISION_ATTR] = decision
+            op.attrs.setdefault(PASS_PROVENANCE_ATTR, self.name)
+            result.ops_replaced += 1
+            result.changed = True
+            stamped += 1
+            if not decision:
+                result.notes.append(f"flash declined ({reason})")
+        return stamped
+
+    def _rewrite_int8(self, ctx: PassContext, block,
+                      result: PassResult) -> int:
+        """Collapse each amp-quant-int8 group into one
+        ``pallas_int8_matmul``; sweep the orphaned quant machinery."""
+        ops = block.ops
+        producers: Dict[str, int] = {}
+        for i, op in enumerate(ops):
+            for names in op.outputs.values():
+                for v in names:
+                    if v:
+                        producers[v] = i
+        rewritten = 0
+        to_remove: Set[int] = set()
+        aux: Set[int] = set()
+        for i, m in enumerate(ops):
+            if m.attrs.get(PASS_PROVENANCE_ATTR) != "amp-quant-int8" \
+                    or self.policy.kernel_for(m.type) != KERNEL_INT8:
+                continue
+            xq, yq = m.inputs["X"][0], m.inputs["Y"][0]
+            raw = m.outputs["Out"][0]
+            deq_i = next(
+                (j for j in range(i + 1, len(ops))
+                 if ops[j].type == "fake_dequantize_max_abs"
+                 and ops[j].inputs.get("X") == [raw]), None)
+            qx_i, qy_i = producers.get(xq), producers.get(yq)
+            if deq_i is None or qx_i is None or qy_i is None \
+                    or ops[qx_i].type != "fake_quantize_abs_max" \
+                    or ops[qy_i].type != "fake_quantize_abs_max":
+                continue                 # not the quant pass's pattern
+            deq = ops[deq_i]
+            out = deq.outputs["Out"][0]
+            comb = deq.inputs["Scale"][0]
+            bits = int(ops[qx_i].attrs.get("bit_length", 8))
+            base_type = m.type
+            # in-place retype: the matmul becomes the fused kernel op,
+            # reading the ORIGINAL float32 operands and writing the final
+            # dequantized output (fetch targets keep their names)
+            m.type = "pallas_int8_matmul"
+            m.inputs = {"X": [ops[qx_i].inputs["X"][0]],
+                        "Y": [ops[qy_i].inputs["X"][0]]}
+            m.outputs = {"Out": [out]}
+            m.attrs["bit_length"] = bits
+            m.attrs["base_op"] = base_type
+            m.attrs[PASS_PROVENANCE_ATTR] = self.name
+            to_remove.add(deq_i)
+            comb_i = producers.get(comb)
+            if comb_i is not None:
+                aux.add(comb_i)
+            aux.update((qx_i, qy_i))
+            result.ops_replaced += 1
+            result.changed = True
+            rewritten += 1
+        if not rewritten:
+            return 0
+        # sweep quant/scale ops whose outputs no surviving op (nor a feed
+        # or fetch) references, to a fixpoint: the scale muls release the
+        # per-operand scale vars the quant ops produce
+        protected = set(ctx.fetch_names or ()) | set(ctx.feed_names or ())
+        while True:
+            live: Set[str] = set(protected)
+            for j, op in enumerate(ops):
+                if j in to_remove:
+                    continue
+                for names in op.inputs.values():
+                    live.update(v for v in names if v)
+            dead = {j for j in aux - to_remove
+                    if not any(v in live for names in ops[j].outputs.values()
+                               for v in names if v)}
+            if not dead:
+                break
+            to_remove |= dead
+        self.remove_ops(block, to_remove, result)
+        self.gc_dead_var_decls(block, protected, result)
+        return rewritten
+
+    def _rewrite_optimizer(self, block, result: PassResult) -> int:
+        rewritten = 0
+        for op in block.ops:
+            if op.type not in ("sgd", "adam") \
+                    or self.policy.kernel_for(op.type) != KERNEL_OPT:
+                continue
+            gnames = op.inputs.get("Grad") or ()
+            gd = block.find_var(gnames[0]) if gnames else None
+            if gd is None or gd.type == VarType.SELECTED_ROWS:
+                continue
+            pnames = op.inputs.get("Param") or ()
+            pd = block.find_var(pnames[0]) if pnames else None
+            ok, _ = self.policy.optimizer_profitable(
+                _numel(pd.shape) if pd is not None else -1)
+            if not ok:
+                continue
+            op.attrs[PASS_PROVENANCE_ATTR] = self.name
+            op.type = f"pallas_{op.type}"
+            result.ops_replaced += 1
+            result.changed = True
+            rewritten += 1
+        return rewritten
+
+    def _rewrite_embedding(self, block, result: PassResult) -> int:
+        rewritten = 0
+        for op in block.ops:
+            if op.type not in ("lookup_table", "lookup_table_grad") \
+                    or self.policy.kernel_for(op.type) != KERNEL_EMB:
+                continue
+            if op.type == "lookup_table_grad" and op.attrs.get("is_sparse"):
+                continue
+            wnames = op.inputs.get("W") or ()
+            wd = block.find_var(wnames[0]) if wnames else None
+            if wd is None or len(wd.shape) != 2:
+                continue
+            ok, _ = self.policy.embedding_profitable(
+                int(wd.shape[0]), int(wd.shape[1]))
+            if not ok:
+                continue
+            op.attrs[PASS_PROVENANCE_ATTR] = self.name
+            op.type = ("pallas_gather" if op.type == "lookup_table"
+                       else "pallas_scatter_add")
+            result.ops_replaced += 1
+            result.changed = True
+            rewritten += 1
+        return rewritten

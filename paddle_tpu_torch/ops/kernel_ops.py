@@ -1,0 +1,69 @@
+"""Lowerings of the kernel tier's op types.
+
+The ``pallas-kernels`` pass (ops/cuda/kernel_pass.py) retypes
+policy-selected ops onto these.  The op types keep the JAX package's names
+(they are part of the ProgramDesc), and each lowering calls the port's
+hand-written Hopper kernel on CUDA tensors and its plain version on CPU
+tensors:
+
+* ``pallas_int8_matmul`` -- one ``amp-quant-int8`` simulation group
+  (quantize x2 -> mul -> scale -> dequantize) as the int8 GEMM, K4;
+* ``pallas_gather`` / ``pallas_scatter_add`` -- the ``lookup_table``
+  forward (K2) and its dense gradient (K3, reading the output gradient
+  slot ``__outgrad__Out`` and writing ``W@GRAD_SLOT`` as the generic
+  ``lookup_table_grad`` op's slots are named).
+
+``pallas_sgd`` / ``pallas_adam`` (K5 / K6) lower through the ``sgd`` /
+``adam`` lowerings of ops/optimizer_ops.py, which launch the same kernels.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..core.registry import register_lowering
+from .cuda.embedding import gather_rows, scatter_add_rows
+from .cuda.int8_matmul import int8_matmul
+from .nn_ops import flat_ids, lookup_rows
+
+
+# ----------------------------------------------------------- int8 matmul
+
+@register_lowering("pallas_int8_matmul", no_gradient=True)
+def _pallas_int8_matmul(ctx, op):
+    """``mul`` through K4: flatten X at x_num_col_dims and Y at
+    y_num_col_dims, int8 GEMM, restore."""
+    if op.attr("base_op", "mul") != "mul":
+        raise NotImplementedError(
+            f"pallas_int8_matmul with base_op={op.attr('base_op')!r}: the "
+            f"matmul op is not ported yet (ROADMAP.md); only base_op='mul' runs")
+    x = ctx.read_slot(op, "X")
+    y = ctx.read_slot(op, "Y")
+    xnc = op.attr("x_num_col_dims", 1)
+    ync = op.attr("y_num_col_dims", 1)
+    x2 = x.reshape(math.prod(x.shape[:xnc]), math.prod(x.shape[xnc:]))
+    y2 = y.reshape(math.prod(y.shape[:ync]), math.prod(y.shape[ync:]))
+    out = int8_matmul(x2, y2, bits=int(op.attr("bit_length", 8)))
+    ctx.write_slot(op, "Out", out.reshape(tuple(x.shape[:xnc]) + tuple(y.shape[ync:])))
+
+
+# ------------------------------------------------ embedding gather / grad
+
+@register_lowering("pallas_gather", no_gradient=True, non_diff_inputs=("Ids",))
+def _pallas_gather(ctx, op):
+    lookup_rows(ctx, op, gather_rows)
+
+
+@register_lowering("pallas_scatter_add", no_gradient=True)
+def _pallas_scatter_add(ctx, op):
+    gnames = op.outputs.get("W@GRAD_SLOT", [])
+    if not gnames or not gnames[0]:
+        return
+    w = ctx.read_slot(op, "W")
+    _, flat = flat_ids(ctx.read_slot(op, "Ids"))
+    rows = ctx.read(op.input("__outgrad__Out")[0]).reshape((-1,) + tuple(w.shape[1:]))
+    padding_idx = op.attr("padding_idx", -1)
+    if padding_idx is not None and padding_idx >= 0:
+        rows = torch.where((flat != padding_idx)[:, None], rows, 0.0)
+    ctx.write(gnames[0], scatter_add_rows(w, flat, rows.to(w.dtype).contiguous()))

@@ -1,4 +1,4 @@
-"""Math op lowerings: mul, elementwise_add, scale, mean, sum.  ``mul`` is a plain
+"""Math op lowerings: mul, elementwise_add, elementwise_mul, scale, mean, sum.  ``mul`` is a plain
 ``torch.matmul`` (cuBLAS on the card), as the JAX package left it to XLA
 outside any Pallas kernel."""
 from __future__ import annotations
@@ -33,19 +33,27 @@ def _mul_shape(block, op):
     set_out_shape(block, op, "Out", xs[:xnc] + ys[ync:], in_dtype(block, op, "X"))
 
 
-@register_lowering("elementwise_add")
-def _elementwise_add(ctx, op):
-    x = ctx.read_slot(op, "X")
-    y = ctx.read_slot(op, "Y")
-    ctx.write_slot(op, "Out", torch.add(x, bcast_y(x, y, op.attr("axis", -1))))
+def _make_elementwise(name, fn):
+    """Fluid elementwise op ``name``: ``fn(X, Y)`` with Y broadcast from
+    ``axis``; the output has the higher-rank operand's shape.  (The
+    ``amp-quant-int8`` pass inserts ``elementwise_mul`` for the combined
+    scale s_x * s_w.)"""
+    @register_lowering(name)
+    def _low(ctx, op):
+        x = ctx.read_slot(op, "X")
+        y = ctx.read_slot(op, "Y")
+        ctx.write_slot(op, "Out", fn(x, bcast_y(x, y, op.attr("axis", -1))))
+
+    @register_infer_shape(name)
+    def _shape(block, op):
+        xs = in_shape(block, op, "X")
+        ys = in_shape(block, op, "Y")
+        set_out_shape(block, op, "Out", xs if len(xs) >= len(ys) else ys,
+                      in_dtype(block, op, "X"))
 
 
-@register_infer_shape("elementwise_add")
-def _elementwise_add_shape(block, op):
-    xs = in_shape(block, op, "X")
-    ys = in_shape(block, op, "Y")
-    set_out_shape(block, op, "Out", xs if len(xs) >= len(ys) else ys,
-                  in_dtype(block, op, "X"))
+_make_elementwise("elementwise_add", torch.add)
+_make_elementwise("elementwise_mul", torch.mul)
 
 
 @register_lowering("scale")

@@ -93,6 +93,25 @@ def _dropout_grad(ctx, op):
         ctx.write_slot(op, "XGrad", dy * mask)
 
 
+def flat_ids(ids):
+    """(Ids without a trailing 1 dim, the same flattened to int32)."""
+    if ids.ndim >= 2 and ids.shape[-1] == 1:
+        ids = ids.squeeze(-1)
+    return ids, ids.reshape(-1).to(torch.int32).contiguous()
+
+
+def lookup_rows(ctx, op, gather):
+    """``lookup_table``'s output through ``gather(W, flat int32 ids)``, with
+    the ``padding_idx`` rows zeroed."""
+    w = ctx.read_slot(op, "W")
+    ids, flat = flat_ids(ctx.read_slot(op, "Ids"))
+    out = gather(w.contiguous(), flat).reshape(tuple(ids.shape) + (w.shape[1],))
+    padding_idx = op.attr("padding_idx", -1)
+    if padding_idx is not None and padding_idx >= 0:
+        out = torch.where((ids != padding_idx)[..., None], out, 0.0)
+    ctx.write_slot(op, "Out", out)
+
+
 @register_lowering("lookup_table", non_diff_inputs=("Ids",))
 def _lookup_table(ctx, op):
     """Rows of W at Ids.  Ids outside [0, vocab) give zero rows, the
@@ -100,16 +119,7 @@ def _lookup_table(ctx, op):
     ``lookup_table_grad`` reaches the scatter-add kernel through
     ``GatherRows``' backward; the padding mask stays here, so it masks the
     gradient rows too."""
-    w = ctx.read_slot(op, "W")
-    ids = ctx.read_slot(op, "Ids")
-    if ids.ndim >= 2 and ids.shape[-1] == 1:
-        ids = ids.squeeze(-1)
-    flat = ids.reshape(-1).to(torch.int32).contiguous()
-    out = GatherRows.apply(w.contiguous(), flat).reshape(tuple(ids.shape) + (w.shape[1],))
-    padding_idx = op.attr("padding_idx", -1)
-    if padding_idx is not None and padding_idx >= 0:
-        out = torch.where((ids != padding_idx)[..., None], out, 0.0)
-    ctx.write_slot(op, "Out", out)
+    lookup_rows(ctx, op, GatherRows.apply)
 
 
 @register_infer_shape("lookup_table")

@@ -2,28 +2,33 @@
 accumulators and writes the ``*Out`` vars, which share their inputs'
 names, so the executor writes the new values back to the scope.
 
-``adam`` on a CUDA tensor is the hand-written fused kernel
-(ops/cuda/fused_optimizer.py); on the CPU it is the composed expression of
-the JAX package's ``adam`` lowering.  ``sgd`` is composed (its fused
-kernel waits for the SGD path).  Gradients are dense: SelectedRows
-(sparse) gradients are not ported yet.
+``sgd`` and ``adam`` on a CUDA tensor are the hand-written fused kernels
+K5 and K6 (ops/cuda/fused_optimizer.py).  On the CPU ``sgd`` is K5's plain
+version (``p - lr * g`` rounded once, as XLA fuses the JAX package's
+``sgd``) and ``adam`` the composed expression of the JAX package's
+``adam`` lowering.  The kernel tier's ``pallas_sgd``/``pallas_adam`` (the
+``pallas-kernels`` pass's retype, whose op types are part of the
+ProgramDesc) lower through these same functions.  Gradients are dense:
+SelectedRows (sparse) gradients are not ported yet.
 """
 from __future__ import annotations
 
 import torch
 
 from ..core.registry import register_lowering
-from .cuda.fused_optimizer import fused_adam
+from .cuda.fused_optimizer import fused_adam, fused_sgd
 
 
+@register_lowering("pallas_sgd", no_gradient=True)
 @register_lowering("sgd", no_gradient=True)
 def _sgd(ctx, op):
     p = ctx.read_slot(op, "Param")
     g = ctx.read_slot(op, "Grad")
     lr = ctx.read_slot(op, "LearningRate")
-    ctx.write_slot(op, "ParamOut", p - lr * g)
+    ctx.write_slot(op, "ParamOut", fused_sgd(p, g.contiguous(), lr))
 
 
+@register_lowering("pallas_adam", no_gradient=True)
 @register_lowering("adam", no_gradient=True)
 def _adam(ctx, op):
     p = ctx.read_slot(op, "Param")

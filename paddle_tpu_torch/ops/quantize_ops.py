@@ -1,0 +1,47 @@
+"""Quantization ops: ``fake_quantize_abs_max`` and
+``fake_dequantize_max_abs``, the simulated-int8 path that the
+``amp-quant-int8`` pass writes (and that runs with ``kernels=False``).
+
+Ports of the JAX package's lowerings (``paddle_tpu/ops/quantize_ops.py``)::
+
+    bin_cnt    = 2^(bit_length-1) - 1
+    abs_max:    OutScale = max(|X|);  Out = round(clip(X, -s, s) * (bin_cnt / s)),
+                s = max(OutScale, 1e-8)
+    dequantize: Out = X * (Scale / max_range)
+
+"Fake": the quantized values stay in float storage.  Rounding is half to
+even (``torch.round``, as ``jnp.round``).  Only the ``amp-quant-int8`` pass
+writes these ops, into inference programs.  Not ported yet:
+``fake_quantize_range_abs_max`` and the straight-through gradients
+(quantization-aware training).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.registry import register_lowering
+from .cuda.int8_matmul import EPS
+
+
+def _bin_cnt(op) -> float:
+    bits = int(op.attr("bit_length", 8))
+    if not 1 <= bits <= 16:
+        raise ValueError(f"bit_length must be in [1,16], got {bits}")
+    return float((1 << (bits - 1)) - 1)
+
+
+@register_lowering("fake_quantize_abs_max")
+def _fake_quantize_abs_max(ctx, op):
+    x = ctx.read_slot(op, "X")
+    scale = torch.linalg.vector_norm(x, float("inf")).reshape(1).to(x.dtype)
+    s = torch.clamp_min(scale[0], EPS)
+    q = torch.clamp(x, -s, s).mul_(_bin_cnt(op) / s).round_()
+    ctx.write_slot(op, "Out", q)
+    ctx.write_slot(op, "OutScale", scale)
+
+
+@register_lowering("fake_dequantize_max_abs")
+def _fake_dequantize_max_abs(ctx, op):
+    x = ctx.read_slot(op, "X")
+    scale = ctx.read_slot(op, "Scale").reshape(())
+    ctx.write_slot(op, "Out", x * (scale / float(op.attr("max_range"))))

@@ -23,19 +23,24 @@ class ServingSession:
     (``infer_func=``).  ``infer`` is thread-safe and returns only the
     calling request's rows.  A model with dynamic non-batch feed dims
     (a ragged model) cannot be warmed from its declarations: pass
-    ``warmup=False`` and call ``inferencer.warmup(buckets, feed_specs)``."""
+    ``warmup=False`` and call ``inferencer.warmup(buckets, feed_specs)``.
+    ``passes=``, ``amp=`` and ``kernels=`` go to the ``Inferencer`` it
+    builds: ``amp=AmpConfig(bf16=False, quant=True), kernels=True`` serves
+    in int8."""
 
     def __init__(self, infer_func=None, place=None, inferencer=None,
                  max_batch_size: int = 32, max_wait_ms: float = 2.0,
                  max_queue: int = 256,
                  default_timeout_s: Optional[float] = 30.0,
                  buckets: Optional[Sequence[int]] = None,
-                 warmup: bool = True, nan_guard: bool = True):
+                 warmup: bool = True, nan_guard: bool = True, passes=None,
+                 amp=None, kernels=None):
         if inferencer is None:
             if infer_func is None:
                 raise ValueError("pass infer_func or an existing inferencer")
             from ..trainer import Inferencer
-            inferencer = Inferencer(infer_func=infer_func, place=place)
+            inferencer = Inferencer(infer_func=infer_func, place=place,
+                                    passes=passes, amp=amp, kernels=kernels)
         self.inferencer = inferencer
         self.buckets = tuple(sorted(
             int(b) for b in (buckets or pow2_buckets(max_batch_size))))

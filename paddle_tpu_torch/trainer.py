@@ -6,6 +6,10 @@ parameter names are deterministic: the same ``infer_func`` built by the
 JAX package's Inferencer names its parameters the same way, which is what
 lets ``convert.params_from_numpy`` carry weights across.  One pinned
 ``Scope`` holds the parameters across every ``infer`` call.
+
+``passes=``, ``amp=`` and ``kernels=`` go to the ``Executor``: e.g.
+``amp=AmpConfig(bf16=False, quant=True)`` with the kernel tier on (the
+default on a CUDA place) serves every ``mul`` through the int8 GEMM.
 """
 from __future__ import annotations
 
@@ -22,7 +26,8 @@ from .core.scope import Scope
 
 
 class Inferencer:
-    def __init__(self, infer_func: Callable, place: Optional[Place] = None):
+    def __init__(self, infer_func: Callable, place: Optional[Place] = None,
+                 passes=None, amp=None, kernels=None):
         self.scope = Scope()
         self.startup_program = Program()
         self.inference_program = Program()
@@ -31,7 +36,7 @@ class Inferencer:
                 self.predict_vars = infer_func()
                 if not isinstance(self.predict_vars, (list, tuple)):
                     self.predict_vars = [self.predict_vars]
-        self.exe = Executor(place)
+        self.exe = Executor(place, passes=passes, amp=amp, kernels=kernels)
         self.exe.run(self.startup_program, scope=self.scope)
         self.feed_names = [v.name for v in self._feed_vars()]
 

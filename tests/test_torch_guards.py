@@ -58,7 +58,7 @@ def test_executor_without_gpu_raises_instead_of_using_the_cpu(monkeypatch):
 def _cuda_calls():
     """(module, plain-version name, call on CUDA tensors) per wrapper."""
     from paddle_tpu_torch.ops.cuda import (embedding, flash_attention,
-                                           fused_optimizer, linear_ce)
+                                           fused_optimizer, int8_matmul, linear_ce)
     dev = torch.device("cuda")
     q = torch.randn(2, 16, 64, device=dev)
     x, w = torch.randn(8, 16, device=dev), torch.randn(16, 32, device=dev)
@@ -77,6 +77,11 @@ def _cuda_calls():
          lambda: embedding.scatter_add_rows(table, ids, rows)),
         (embedding, "gather_rows_plain", lambda: embedding.gather_rows(table, ids)),
         (flash_attention, "flash_attn_fwd_plain", lambda: flash_attention.flash_attn_fwd(q, q, q)),
+        (fused_optimizer, "fused_sgd_plain", lambda: fused_optimizer.fused_sgd(x, x, one)),
+        (int8_matmul, "int8_matmul_plain", lambda: int8_matmul.int8_matmul(x, w)),
+        (int8_matmul, "int8_mm_plain",
+         lambda: int8_matmul.int8_mm(ids.to(torch.int8)[:, None].expand(4, 16).contiguous(),
+                                     ids.to(torch.int8)[:, None].expand(4, 16).contiguous())),
     ]
 
 
@@ -90,6 +95,34 @@ def test_cuda_tensors_never_reach_the_plain_versions(monkeypatch):
         monkeypatch.setattr(module, plain, refuse)
         call()
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head_dim,reason", [(16, "policy disables"), (24, "head_dim 24")])
+def test_flash_stamp_false_on_the_card_raises_instead_of_the_plain_attention(
+        monkeypatch, head_dim, reason):
+    """A flash op the kernel pass declined (a policy that disables K1, or a
+    head_dim K1 does not take) raises on CUDA tensors and names why."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the port's kernels are CUDA-only)")
+    from paddle_tpu_torch.ops.cuda import flash_attention
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        q = pt.layers.data(name="q", shape=[5, 2 * head_dim])
+        out = pt.layers.flash_attention(q, q, q, num_heads=2)
+    policy = pt.passes.KernelPolicy(disable=["flash_attention"] if head_dim == 16 else ())
+    exe = pt.Executor(pt.CUDAPlace(0), kernels=policy)
+    flash_ops = [o for o in exe._apply_passes(main, ["q"], [out.name]).desc.block(0).ops
+                 if o.type == "flash_attention"]
+    assert [o.attrs["pallas_kernel"] for o in flash_ops] == [False]
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain attention")
+    monkeypatch.setattr(flash_attention, "flash_attn_fwd_plain", refuse)
+    monkeypatch.setattr("paddle_tpu_torch.ops.attention_ops.flash_attn_fwd_plain", refuse)
+    feed = {"q": torch.randn(3, 5, 2 * head_dim).numpy()}
+    with pytest.raises(NotImplementedError, match=reason):
+        exe.run(main, feed=feed, fetch_list=[out])
 
 
 def test_chip_smoke_fails_without_gpu(tmp_path):
