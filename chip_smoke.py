@@ -10,9 +10,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
 2. build the hand-written kernels from ``paddle_tpu_torch/csrc``;
 3. flash-attention forward (K1) against its plain PyTorch version at the
    serving path's shapes (ragged and zero key lengths) and the training
-   path's (64 x 8 heads, the training batch's lengths), causal and not;
+   path's (64 x 8 heads, the training batch's lengths), causal and not,
+   timed beside ``scaled_dot_product_attention``;
 4. embedding gather (K2) against its plain version at both paths' shapes,
-   out-of-range ids included, bit-equal;
+   out-of-range ids included, bit-equal; CUDA-event times, and the device
+   time of K2 and of ``F.embedding`` from the profiler;
 5. transformer-base (vocab 32000, d_model 512, 8 heads, 6+6 layers,
    d_inner 2048, max_len 256, random weights from seed 0) served by
    ``ServingSession(max_batch_size=8)`` to 4 client threads: answers
@@ -33,24 +35,31 @@ Phases, each fatal on failure (non-zero exit, no result line):
    on the CPU in float64: the card (TF32 off) and the CPU in float32 within
    the stated gates on the loss and three gradients, and the card with TF32
    on (the control) outside them;
-10. the int8 GEMM (K4) at the served batch's four (K, N) products, M = 256
-    and 2048, and fused SGD (K5) on the word table and a vector, each
-    bit-equal to its plain version, with times, bound and yardstick, and
-    the abs-max quantizers' and dequant's time a batch;
+10. the int8 path (K4) at the served batch's four (K, N) products, M = 256
+    and 2048: the quantize kernels (abs-max pair, x, the weight
+    transposed), the GEMM's int32 and float32 (dequant) epilogues and the
+    whole ``int8_matmul``, each bit-equal to its plain version; the GEMM
+    timed beside its bound and ``torch._int_mm`` (column-major B), the
+    quantizers and the whole product timed, and the quantizers' time a
+    batch; fused SGD (K5) on the word table and a vector, bit-equal, beside
+    ``torch.optim.SGD(fused=True)``;
 11. int8 serving: ``ServingSession(max_batch_size=8, amp=AmpConfig(
     bf16=False, quant=True), kernels=True)`` with the float32 weights,
     4 client threads: answers finite, of the right shape, bit-identical to
-    sequential runs of the same batches, K4/K1/K2 launched 97/18/4 times
-    per batch; one 8-row batch bit-equal to the simulated fake-quant
-    program (``kernels=False``) on the card, and within a gate of float32
-    serving that the same model at ``quant_bits=4`` (the control) fails;
-    requests/s and batch latency beside float32's; a profile of one batch;
+    sequential runs of the same batches, launches per batch K4 97 (and its
+    quantize kernels: abs-max 97, quantize 194), K1 18, K2 4; one 8-row
+    batch bit-equal to the simulated fake-quant program
+    (``kernels=False``) on the card, and within a gate of float32 serving
+    that the same model at ``quant_bits=4`` (the control) fails;
+    requests/s and batch latency beside float32's; a profile of one batch,
+    with at most 6 device operations a product;
 12. transformer-base training with ``SGD`` through ``Executor(kernels=
     True)``: two steps at 64 x 256, loss finite, every parameter changed,
     K5 launched 186 times a step and K7/K8/K3 as in phase 7; a profile of
     one step;
 13. a ``{"kernels": [...]}`` line with each kernel's launches on its path,
-    error against its plain version, times, and bound.
+    error against its plain version, times, and bound; K4's entry lists
+    its quantize kernels under ``quantizers``.
 
 The last line is ``{"ok": true, "device": {...}}``.  Times are CUDA-event
 times on this card; bounds use the H100 SXM's published peaks.
@@ -82,7 +91,7 @@ N_PARAMS = 186          # transformer-base's parameters (and adam ops)
 # gather again
 PER_STEP = {"flash_attn_fwd": 2 * 3 * N_LAYER, "gather_rows": 4, "scatter_add_rows": 4,
             "fused_adam": N_PARAMS, "fused_sgd": 0, "linear_ce_fwd": 1, "linear_ce_bwd": 1,
-            "int8_matmul": 0}
+            "int8_matmul": 0, "abs_max_pair": 0, "quantize_int8": 0}
 PER_STEP_SGD = dict(PER_STEP, fused_adam=0, fused_sgd=N_PARAMS)
 # the served batch's int8 products: (K, N) -> count (M = rows x 256);
 # per encoder layer q, k, v, o and the two FFN products, per decoder layer
@@ -90,6 +99,11 @@ PER_STEP_SGD = dict(PER_STEP, fused_adam=0, fused_sgd=N_PARAMS)
 INT8_SHAPES = {(D_MODEL, D_MODEL): 12 * N_LAYER, (D_MODEL, D_INNER): 2 * N_LAYER,
                (D_INNER, D_MODEL): 2 * N_LAYER, (D_MODEL, VOCAB): 1}
 K4_PER_BATCH = sum(INT8_SHAPES.values())          # 97
+# per int8 product: one abs-max launch for both operands, two quantize
+# launches (x, and the weight transposed), the GEMM, and the memset of the
+# abs-max pair; the profile holds the product to at most this many device
+# operations
+INT8_OPS_PER_PRODUCT = 6
 # one 8-row int8 batch against float32 serving, norm-relative logit error
 # ||int8 - fp32|| / ||fp32||; the control at quant_bits=4 must exceed it
 INT8_VS_FP32_NORM_RTOL = 0.05
@@ -208,16 +222,21 @@ def phase_gather(torch, card):
         ms = _ms(lambda: gather_rows(w, ids), 100)
         plain_ms = _ms(lambda: gather_rows_plain(w, ids), 100)
         lib_ms = _ms(lambda: torch.nn.functional.embedding(in_range, w), 100)
+        # device time alone: the events' time above is the ctypes wrapper's host rate
+        dev_ms = _device_ms(torch, lambda: gather_rows(w, ids), 50)
+        lib_dev_ms = _device_ms(torch, lambda: torch.nn.functional.embedding(in_range, w), 50)
         valid = ids[(ids >= 0) & (ids < vocab)]
         rows_read = int(torch.unique(valid).numel())
         nbytes = 4 * (rows_read * D_MODEL + ids.numel() + out.numel())
         bound_ms, bound_by = _bound(nbytes, 0)
         results[(shape, vocab)] = dict(max_abs_err=(out - ref).abs().max().item(), ms=ms,
                                        plain_ms=plain_ms, library_ms=lib_ms,
-                                       bound_ms=bound_ms, bound_by=bound_by)
+                                       bound_ms=bound_ms, bound_by=bound_by,
+                                       device_ms=dev_ms, library_device_ms=lib_dev_ms)
         print(f"K2 gather_rows {shape} W=[{vocab},{D_MODEL}] N={ids.numel()}: bit-equal; kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, F.embedding {lib_ms:.4f} ms, bound "
-              f"{bound_ms:.5f} ms ({bound_by}) [{card}]")
+              f"{bound_ms:.5f} ms ({bound_by}); device time (profiler) kernel {dev_ms} ms, "
+              f"F.embedding {lib_dev_ms} ms [{card}]")
     return results
 
 
@@ -256,6 +275,8 @@ def _family(name):
         return "scatter_add_rows (K3)"
     if "int8_gemm_kernel" in name:
         return "int8_matmul (K4)"
+    if any(k in name for k in ("absmax2_kernel", "quantize_rows_kernel", "quantize_t_kernel")):
+        return "int8 quantizers (K4)"
     if "fused_sgd_kernel" in name:
         return "fused_sgd (K5)"
     if "fused_adam_kernel" in name:
@@ -306,7 +327,7 @@ def _profile(torch, run, label, card, extra, scopes=None):
            if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0 and e.name() not in scopes]
     if not dev:
         print(f"{label}: torch.profiler recorded no device activity (not measured) [{card}]")
-        return
+        return None
 
     def family(name, corr):
         fam = _family(name)
@@ -328,10 +349,31 @@ def _profile(torch, run, label, card, extra, scopes=None):
         end = max(end, start + dur)
     busy_ms = busy_ns / 1e6
     top = sorted(names.items(), key=lambda kv: -kv[1][0])[:12]
-    print(json.dumps({label: {
-        "card": card, **extra, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-        "device_idle_share": 1.0 - busy_ms / wall_ms,
-        "by_family_ms": fam, "by_family_launches": fam_n, "top": [[n[:80], ms, c] for n, (ms, c) in top]}}))
+    rec = {"card": card, **extra, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / wall_ms, "by_family_ms": fam,
+           "by_family_launches": fam_n, "top": [[n[:80], ms, c] for n, (ms, c) in top]}
+    print(json.dumps({label: rec}))
+    return rec
+
+
+def _device_ms(torch, fn, iters):
+    """Mean device time of ``fn`` per call: the sum of the device
+    activities ``torch.profiler`` records over ``iters`` calls (None if two
+    windows record none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0]
+        if dev:
+            return sum(dev) / 1e6 / iters
+    return None
 
 
 SERVE_SPECS = {"src": ((T, 1), "int64"), "trg": ((T, 1), "int64"),
@@ -488,8 +530,10 @@ def phase_int8_serving(torch, card, f32_inf, f32_res):
     print(f"int8 serving: startup and warmup {time.perf_counter() - t0:.2f} s; warmup "
           f"{[(r['batch_size'], round(r['seconds'], 4)) for r in warm]}")
     reqs = _requests(16, seed=0)
-    res = _serve(torch, sess, reqs, {"int8_matmul": K4_PER_BATCH, "flash_attn_fwd": K1_PER_BATCH,
-                                     "gather_rows": K2_PER_BATCH}, "int8 serving", card)
+    res = _serve(torch, sess, reqs, {"int8_matmul": K4_PER_BATCH, "abs_max_pair": K4_PER_BATCH,
+                                     "quantize_int8": 2 * K4_PER_BATCH,
+                                     "flash_attn_fwd": K1_PER_BATCH, "gather_rows": K2_PER_BATCH},
+                 "int8 serving", card)
     ops = [o.type for o in inf.exe._apply_passes(
         inf.inference_program, list(reqs[0]), [v.name for v in inf.predict_vars]).desc.block(0).ops]
     print(f"int8 serving program: {len(ops)} ops, {ops.count('pallas_int8_matmul')} "
@@ -526,16 +570,28 @@ def phase_int8_serving(torch, card, f32_inf, f32_res):
         raise AssertionError(f"int8 logits too far from float32: {errs}")
     if errs["int4_control"] <= INT8_VS_FP32_NORM_RTOL:
         raise AssertionError(f"the gate lets the quant_bits=4 control through: {errs}")
-    # the wrapper's own kernels (abs-max, clamp, scale, round, int8 casts,
-    # the weight's transpose, the dequant) are told apart by its range
+    # anything else the wrapper puts on the device (the abs-max pair's
+    # memset) is told apart by its range
     from paddle_tpu_torch.ops import kernel_ops
     wrapper = kernel_ops.int8_matmul
     kernel_ops.int8_matmul = _scoped(torch, wrapper, "ptt.int8_matmul")
+    wrapper_other = "other device operations in K4's wrapper"
     try:
-        _profile(torch, lambda: inf.infer(feed8), "int8_serving_profile", card, {"rows": 8},
-                 scopes={"ptt.int8_matmul": "quantizers and dequant (K4's wrapper)"})
+        prof = _profile(torch, lambda: inf.infer(feed8), "int8_serving_profile", card, {"rows": 8},
+                        scopes={"ptt.int8_matmul": wrapper_other})
     finally:
         kernel_ops.int8_matmul = wrapper
+    if prof is not None:
+        n_ops = prof["by_family_launches"]
+        per_product = sum(n_ops.get(f, 0) for f in ("int8_matmul (K4)", "int8 quantizers (K4)",
+                                                   wrapper_other)) / K4_PER_BATCH
+        print(f"int8 serving profile: {per_product:g} device operations a product "
+              f"(limit {INT8_OPS_PER_PRODUCT}): {n_ops.get('int8_matmul (K4)', 0)} GEMM, "
+              f"{n_ops.get('int8 quantizers (K4)', 0)} quantizer, {n_ops.get(wrapper_other, 0)} "
+              f"other (memset) in {K4_PER_BATCH} products")
+        if n_ops.get("int8_matmul (K4)") != K4_PER_BATCH or per_product > INT8_OPS_PER_PRODUCT:
+            raise AssertionError(f"int8 serving profile: {n_ops}; want {K4_PER_BATCH} GEMMs and at "
+                                 f"most {INT8_OPS_PER_PRODUCT} device operations a product")
     return res
 
 
@@ -697,60 +753,109 @@ def phase_scatter(torch, card):
 
 
 def phase_int8(torch, card):
-    """K4 at the served batch's four (K, N) products, M = 256 and 2048:
-    raw int32 products and the whole quantize -> GEMM -> dequantize, both
-    bit-equal to the plain versions.  Times at M = 2048, beside the bound
-    and ``torch._int_mm`` (cuBLASLt int8); the quantizers' and dequant's
-    time for one 8-row batch's 97 products."""
-    from paddle_tpu_torch.ops.cuda.int8_matmul import (int8_matmul, int8_matmul_plain, int8_mm,
-                                                       int8_mm_plain, quantize_abs_max)
+    """K4 at the served batch's four (K, N) products, M = 256 and 2048: the
+    quantize kernels (abs-max pair, x, the weight transposed), the GEMM in
+    its int32 and its float32 (dequant) epilogue, and the whole quantize ->
+    GEMM -> dequantize, each bit-equal to its plain version.  Times at M =
+    2048: the GEMM beside the bound and ``torch._int_mm`` (cuBLASLt int8,
+    on the same int8 operands), the quantizers, the whole ``int8_matmul``;
+    and the quantizers' time for one 8-row batch's 97 products."""
+    from paddle_tpu_torch.ops.cuda.int8_matmul import (abs_max_pair, abs_max_pair_plain,
+                                                       int8_matmul, int8_matmul_plain, int8_mm,
+                                                       int8_mm_plain, quantize_int8,
+                                                       quantize_int8_plain)
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(6)
-    res, quant_ms, wrapper_ms = {}, 0.0, 0.0
+    res, quant, quant_ms, wrapper_ms = {}, {}, 0.0, 0.0
     for (k, n), count in INT8_SHAPES.items():
         for m in (256, B * T):
             x = torch.randn(m, k, generator=g).to(dev)
             y = ((torch.rand(k, n, generator=g) * 2 - 1) * (6.0 / (k + n)) ** 0.5).to(dev)
-            xq, sx = quantize_abs_max(x, 127.0)
-            yq, sy = quantize_abs_max(y, 127.0)
-            xq8, yqt8 = xq.to(torch.int8), yq.to(torch.int8).t().contiguous()
-            acc, ref_acc = int8_mm(xq8, yqt8), int8_mm_plain(xq8, yqt8)
+            scales, ref_scales = abs_max_pair(x, y), abs_max_pair_plain(x, y)
+            xq, yqt = quantize_int8(x, scales, 0, 127.0), quantize_int8(y, scales, 1, 127.0, True)
+            ref_xq = quantize_int8_plain(x, scales, 0, 127.0)
+            ref_yqt = quantize_int8_plain(y, scales, 1, 127.0, True)
+            acc, ref_acc = int8_mm(xq, yqt), int8_mm_plain(xq, yqt)
+            deq, ref_deq = int8_mm(xq, yqt, scales, 127.0), int8_mm_plain(xq, yqt, scales, 127.0)
             out, ref_out = int8_matmul(x, y), int8_matmul_plain(x, y)
             torch.cuda.synchronize()
-            if not (torch.equal(acc, ref_acc) and torch.equal(out, ref_out)):
-                raise AssertionError(f"int8_matmul M={m} K={k} N={n}: differs from its plain "
-                                     f"version (int32 max diff {(acc - ref_acc).abs().max().item()})")
+            checks = {"abs-max pair": torch.equal(scales, ref_scales),
+                      "quantize x": torch.equal(xq, ref_xq), "quantize y^T": torch.equal(yqt, ref_yqt),
+                      "int32 epilogue": torch.equal(acc, ref_acc),
+                      "float32 epilogue": torch.equal(deq, ref_deq),
+                      "int8_matmul": torch.equal(out, ref_out)}
+            if not all(checks.values()):
+                raise AssertionError(f"int8 M={m} K={k} N={n}: differs from the plain version: "
+                                     f"{checks} (int32 max diff {(acc - ref_acc).abs().max().item()})")
             if m != B * T:
                 continue
-            ms = _ms(lambda: int8_mm(xq8, yqt8), 20)
-            plain_ms = _ms(lambda: int8_mm_plain(xq8, yqt8), 5)
-            # cuBLASLt takes B row- or column-major depending on the build:
-            # the faster layout it takes is the yardstick
-            lib_times = []
-            for b in (yq.to(torch.int8), yqt8.t()):
-                try:
-                    torch._int_mm(xq8, b)
-                except RuntimeError:
-                    continue
-                lib_times.append(_ms(lambda: torch._int_mm(xq8, b), 20))
-            lib_ms = min(lib_times) if lib_times else None
-            q_ms = (_ms(lambda: quantize_abs_max(x, 127.0)[0].to(torch.int8), 20)
-                    + _ms(lambda: quantize_abs_max(y, 127.0)[0].to(torch.int8).t().contiguous(), 20)
-                    + _ms(lambda: acc.to(torch.float32).mul_((sx * sy) / 16129.0), 20))
+            ms = _ms(lambda: int8_mm(xq, yqt, scales, 127.0), 20)
+            int32_ms = _ms(lambda: int8_mm(xq, yqt), 20)
+            plain_ms = _ms(lambda: int8_mm_plain(xq, yqt, scales, 127.0), 5)
+            # cuBLASLt on the same int8 operands, B column-major (the layout
+            # it runs fastest); int32 out, no dequant
+            lib_ms = _ms(lambda: torch._int_mm(xq, yqt.t()), 20)
+
+            def quantizers():
+                s = abs_max_pair(x, y)
+                return quantize_int8(x, s, 0, 127.0), quantize_int8(y, s, 1, 127.0, True)
+
+            def quantizers_plain():
+                s = abs_max_pair_plain(x, y)
+                return quantize_int8_plain(x, s, 0, 127.0), quantize_int8_plain(y, s, 1, 127.0, True)
+            q_ms = _ms(quantizers, 20)
+            q_plain_ms = _ms(quantizers_plain, 5)
+            q_dev_ms = _device_ms(torch, quantizers, 10)
             w_ms = _ms(lambda: int8_matmul(x, y), 20)
+            w_dev_ms = _device_ms(torch, lambda: int8_matmul(x, y), 10)
             quant_ms += count * q_ms
             wrapper_ms += count * w_ms
-            bound_ms, bound_by = _bound(m * k + k * n + 4 * m * n, 2.0 * m * k * n, INT8_OPS)
+            kp = xq.shape[1]
+            bound_ms, bound_by = _bound(m * kp + n * kp + 4 * m * n, 2.0 * m * kp * n, INT8_OPS)
             res[(k, n)] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                bound_ms=bound_ms, bound_by=bound_by)
-            print(f"K4 int8_matmul M={m} K={k} N={n} (x{count} a batch): bit-equal (int32 and "
-                  f"dequantized, and at M=256); kernel {ms:.4f} ms ({2.0 * m * k * n / ms / 1e9:.1f} "
-                  f"TOP/s), plain {plain_ms:.4f} ms, torch._int_mm {lib_ms} ms, bound "
-                  f"{bound_ms:.5f} ms ({bound_by}); quantize x, y and dequant {q_ms:.4f} ms; the "
-                  f"whole wrapper {w_ms:.4f} ms [{card}]")
-    print(f"K4 a served 8-row batch ({K4_PER_BATCH} products, CUDA events): wrappers "
-          f"{wrapper_ms:.3f} ms, of which quantizers and dequant {quant_ms:.3f} ms [{card}]")
-    return res
+            # quantizers: each input read once, each int8 output written once
+            q_bound_ms, q_bound_by = _bound(4 * (m * k + k * n) + m * kp + n * kp + 8,
+                                            2 * (m * k + k * n))
+            quant[(k, n)] = dict(max_abs_err=0.0, ms=q_ms, plain_ms=q_plain_ms, library_ms=None,
+                                 bound_ms=q_bound_ms, bound_by=q_bound_by, device_ms=q_dev_ms)
+            if n == VOCAB:
+                # what the card's write path gives this output: fill_ of the same bytes
+                fill_ms = _ms(lambda: deq.fill_(1.0), 20)
+                print(f"K4 yardstick: fill_ of the head's [{m}, {n}] float32 output {fill_ms:.4f} ms "
+                      f"({4 * m * n / fill_ms / 1e9:.2f} TB/s) [{card}]")
+            print(f"K4 int8_matmul M={m} K={k} N={n} (x{count} a batch): bit-equal (quantizers, "
+                  f"int32 and float32 epilogues, the whole product; and at M=256); GEMM "
+                  f"{ms:.4f} ms ({2.0 * m * k * n / ms / 1e9:.1f} TOP/s; int32 epilogue "
+                  f"{int32_ms:.4f} ms), plain {plain_ms:.4f} ms, torch._int_mm {lib_ms:.4f} ms, "
+                  f"bound {bound_ms:.5f} ms ({bound_by}); quantizers {q_ms:.4f} ms (device "
+                  f"{q_dev_ms} ms, plain {q_plain_ms:.4f} ms, bound {q_bound_ms:.5f} ms); the "
+                  f"whole int8_matmul {w_ms:.4f} ms (device {w_dev_ms} ms) [{card}]")
+    print(f"K4 a served 8-row batch ({K4_PER_BATCH} products, CUDA events): int8_matmul "
+          f"{wrapper_ms:.3f} ms, of which quantizers {quant_ms:.3f} ms [{card}]")
+    _scale_routes(torch)
+    return res, quant
+
+
+def _scale_routes(torch):
+    """The int8 scale expressions on the card and on the CPU: the port's
+    (``quantize_ratio``, ``combined_scale``) must agree bit for bit; the
+    naive forms (a Python float over a tensor, a division by a Python
+    float) are reported, as torch routes them per device."""
+    from paddle_tpu_torch.ops.cuda.int8_matmul import combined_scale, quantize_ratio
+    g = torch.Generator().manual_seed(8)
+    s = torch.rand(100000, generator=g) * 10 + 1e-3
+    sx, sy = (torch.exp(3 * torch.randn(100000, generator=g)) for _ in range(2))
+    on = {dev: (quantize_ratio(s.to(dev), 127.0).cpu(), combined_scale(sx.to(dev), sy.to(dev), 127.0).cpu(),
+                (127.0 / s.to(dev)).cpu(), ((sx.to(dev) * sy.to(dev)) / 16129.0).cpu())
+          for dev in ("cpu", "cuda")}
+    same = [torch.equal(a, b) for a, b in zip(on["cpu"], on["cuda"])]
+    print(f"int8 scale expressions, card vs CPU over 1e5 values: ratio {same[0]}, combined scale "
+          f"{same[1]} (the port's); naive forms: 127 / s {same[2]}, (sx * sy) / 16129 {same[3]}; "
+          f"on the card (sx * sy) / 16129 equals the reciprocal product: "
+          f"{torch.equal(on['cuda'][3], on['cuda'][1])}")
+    if not (same[0] and same[1]):
+        raise AssertionError("the port's int8 scale expressions differ between the card and the CPU")
 
 
 def phase_sgd(torch, card):
@@ -823,6 +928,8 @@ def _counters():
             "gather_rows": embedding.gather_rows,
             "scatter_add_rows": embedding.scatter_add_rows,
             "int8_matmul": int8_matmul.int8_matmul,
+            "abs_max_pair": int8_matmul.abs_max_pair,
+            "quantize_int8": int8_matmul.quantize_int8,
             "fused_sgd": fused_optimizer.fused_sgd,
             "fused_adam": fused_optimizer.fused_adam,
             "linear_ce_fwd": linear_ce.linear_ce_fwd,
@@ -1003,12 +1110,13 @@ def main():
     scatter = phase_scatter(torch, card)
     launches = phase_training(torch, card)
     phase_train_vs_cpu(torch, card)
-    int8 = phase_int8(torch, card)
+    int8, int8_quant = phase_int8(torch, card)
     sgd = phase_sgd(torch, card)
     int8_res = phase_int8_serving(torch, card, f32_inf, f32_res)
     del f32_inf
     sgd_launches = phase_training(torch, card, sgd=True)
-    launches["int8_matmul"] = int8_res["launches"]["int8_matmul"]
+    for name in ("int8_matmul", "abs_max_pair", "quantize_int8"):
+        launches[name] = int8_res["launches"][name]
     launches["fused_sgd"] = sgd_launches["fused_sgd"]
 
     def entry(name, source, replaces, per_case, main_case):
@@ -1018,12 +1126,21 @@ def main():
                 "max_abs_err": max(c["max_abs_err"] for c in per_case.values()),
                 **{k: m[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
 
+    # K4's entry is the GEMM; the quantize kernels it now runs with (abs-max
+    # pair, quantize) are listed under it with their launches and times
+    k4 = entry("int8_matmul", "int8_matmul.cu", "int8_matmul.py:51", int8, (D_MODEL, VOCAB))
+    q_main = int8_quant[(D_MODEL, VOCAB)]
+    k4["quantizers"] = {
+        "names": ["abs_max_pair", "quantize_int8"],
+        "launches": {n: launches[n] for n in ("abs_max_pair", "quantize_int8")},
+        "max_abs_err": max(c["max_abs_err"] for c in int8_quant.values()),
+        **{k: q_main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
     kernels = [
         entry("flash_attn_fwd", "flash_attention_fwd.cu", "flash_attention.py:38", flash,
               ("train", False)),
         entry("gather_rows", "embedding_gather.cu", "embedding.py:48", gather, ("train", VOCAB)),
         entry("scatter_add_rows", "embedding_scatter_add.cu", "embedding.py:85", scatter, VOCAB),
-        entry("int8_matmul", "int8_matmul.cu", "int8_matmul.py:51", int8, (D_MODEL, VOCAB)),
+        k4,
         entry("fused_sgd", "fused_sgd.cu", "fused_optimizer.py:86", sgd, (VOCAB, D_MODEL)),
         entry("fused_adam", "fused_adam.cu", "fused_optimizer.py:106", adam, (VOCAB, D_MODEL)),
         entry("linear_ce_fwd", "linear_ce.cu", "linear_ce.py:42",

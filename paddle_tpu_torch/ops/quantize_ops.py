@@ -9,6 +9,11 @@ Ports of the JAX package's lowerings (``paddle_tpu/ops/quantize_ops.py``)::
                 s = max(OutScale, 1e-8)
     dequantize: Out = X * (Scale / max_range)
 
+in the form the JAX ``Executor`` computes them under ``jax.jit``:
+``bin_cnt / s`` is one float32 division, and ``Scale / max_range`` (a
+constant divisor) is ``Scale * float32(1 / max_range)`` -- the helpers of
+ops/cuda/int8_matmul.py, which the int8 GEMM's epilogue shares.
+
 "Fake": the quantized values stay in float storage.  Rounding is half to
 even (``torch.round``, as ``jnp.round``).  Only the ``amp-quant-int8`` pass
 writes these ops, into inference programs.  Not ported yet:
@@ -20,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from ..core.registry import register_lowering
-from .cuda.int8_matmul import EPS
+from .cuda.int8_matmul import EPS, quantize_with_scale, scale_by_reciprocal
 
 
 def _bin_cnt(op) -> float:
@@ -35,8 +40,7 @@ def _fake_quantize_abs_max(ctx, op):
     x = ctx.read_slot(op, "X")
     scale = torch.linalg.vector_norm(x, float("inf")).reshape(1).to(x.dtype)
     s = torch.clamp_min(scale[0], EPS)
-    q = torch.clamp(x, -s, s).mul_(_bin_cnt(op) / s).round_()
-    ctx.write_slot(op, "Out", q)
+    ctx.write_slot(op, "Out", quantize_with_scale(x, s, _bin_cnt(op)))
     ctx.write_slot(op, "OutScale", scale)
 
 
@@ -44,4 +48,4 @@ def _fake_quantize_abs_max(ctx, op):
 def _fake_dequantize_max_abs(ctx, op):
     x = ctx.read_slot(op, "X")
     scale = ctx.read_slot(op, "Scale").reshape(())
-    ctx.write_slot(op, "Out", x * (scale / float(op.attr("max_range"))))
+    ctx.write_slot(op, "Out", x * scale_by_reciprocal(scale, float(op.attr("max_range"))))

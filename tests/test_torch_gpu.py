@@ -20,8 +20,9 @@ from paddle_tpu_torch.ops.cuda.embedding import (gather_rows, gather_rows_plain,
 from paddle_tpu_torch.ops.cuda.flash_attention import flash_attn_fwd, flash_attn_fwd_plain
 from paddle_tpu_torch.ops.cuda.fused_optimizer import (fused_adam, fused_adam_plain,
                                                        fused_sgd, fused_sgd_plain)
-from paddle_tpu_torch.ops.cuda.int8_matmul import (int8_matmul, int8_matmul_plain, int8_mm,
-                                                   int8_mm_plain)
+from paddle_tpu_torch.ops.cuda.int8_matmul import (abs_max_pair, abs_max_pair_plain, int8_matmul,
+                                                   int8_matmul_plain, int8_mm, int8_mm_plain,
+                                                   quantize_int8, quantize_int8_plain)
 from paddle_tpu_torch.ops.cuda.linear_ce import (linear_ce_bwd, linear_ce_bwd_plain,
                                                  linear_ce_fwd, linear_ce_fwd_plain)
 
@@ -69,6 +70,24 @@ def test_flash_kernel_matches_plain(cuda, d, causal):
     assert (out - ref).abs().max().item() <= FLASH_ATOL
     assert (lse - ref_lse).abs().max().item() <= FLASH_ATOL
     assert torch.equal(out[0], torch.zeros_like(out[0]))
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernel_many_tiles_with_short_and_ragged_lengths(cuda, d, causal):
+    """T = 300: five 64-key tiles, the last ragged; key lengths 0, 1, at
+    and around the tile edges, and T."""
+    rs = np.random.RandomState(100 + d)
+    q, k, v = (torch.from_numpy(rs.randn(10, 300, d).astype(np.float32)).to(cuda)
+               for _ in range(3))
+    lens = torch.tensor([0, 1, 2, 63, 64, 65, 128, 257, 299, 300], dtype=torch.int32).to(cuda)
+    out, lse = flash_attn_fwd(q, k, v, kv_lens=lens, causal=causal)
+    ref, ref_lse = flash_attn_fwd_plain(q, k, v, lens, causal, d ** -0.5)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= FLASH_ATOL
+    assert (lse - ref_lse).abs().max().item() <= FLASH_ATOL
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    assert torch.equal(lse[0], ref_lse[0])
 
 
 def test_flash_kernel_cross_attention_without_lengths(cuda):
@@ -268,6 +287,7 @@ def test_int8_kernel_matches_plain_bit_equal(cuda, m, k, n):
     y = (0.05 * torch.randn(k, n, generator=g)).to(cuda)
     xq = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8).to(cuda)
     yqt = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8).to(cuda)
+    scales = torch.tensor([3.7, 0.21], device=cuda)
     before = int8_matmul.launches
     got = int8_mm(xq, yqt)
     out = int8_matmul(x, y)
@@ -275,16 +295,45 @@ def test_int8_kernel_matches_plain_bit_equal(cuda, m, k, n):
     assert int8_matmul.launches == before + 2
     assert got.dtype == torch.int32 and torch.equal(got, int8_mm_plain(xq, yqt))
     assert torch.equal(out, int8_matmul_plain(x, y))
+    # the float32 epilogue: float(acc) * ((s_x * s_y) * float32(1 / 127**2))
+    deq = int8_mm(xq, yqt, scales, 127.0)
+    assert deq.dtype == torch.float32 and torch.equal(deq, int8_mm_plain(xq, yqt, scales, 127.0))
 
 
-@pytest.mark.parametrize("m,k,n", [(7, 100, 33), (300, 96, 1000), (129, 4096, 130)])
+@pytest.mark.parametrize("m,k,n", [(7, 100, 33), (300, 96, 1000), (129, 4096, 130), (1, 16, 1)])
 def test_int8_kernel_masks_ragged_edges(cuda, m, k, n):
     g = torch.Generator().manual_seed(m)
     xq = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8).to(cuda)
     yqt = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8).to(cuda)
     assert torch.equal(int8_mm(xq, yqt), int8_mm_plain(xq, yqt))
+    scales = torch.tensor([0.5, 1e-9], device=cuda)        # the second under the 1e-8 floor
+    assert torch.equal(int8_mm(xq, yqt, scales, 7.0), int8_mm_plain(xq, yqt, scales, 7.0))
     x, y = torch.randn(m, k, generator=g).to(cuda), torch.randn(k, n, generator=g).to(cuda)
     assert torch.equal(int8_matmul(x, y, bits=4), int8_matmul_plain(x, y, bits=4))
+
+
+@pytest.mark.parametrize("r,c", [(7, 100), (300, 96), (129, 4100), (2048, 512), (512, 2048),
+                                 (1, 1)])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_quantize_kernels_match_plain_bit_equal(cuda, r, c, transpose):
+    """abs-max of both operands in one launch, then the quantize pass:
+    int8 rows zero-padded to 16 bytes (the weight transposed)."""
+    g = torch.Generator().manual_seed(r * c)
+    x = (3 * torch.randn(r, c, generator=g)).to(cuda)
+    y = (0.02 * torch.randn(c, r + 3, generator=g)).to(cuda)
+    before = abs_max_pair.launches, quantize_int8.launches
+    scales = abs_max_pair(x, y)
+    q = quantize_int8(x, scales, 0, 127.0, transpose=transpose)
+    torch.cuda.synchronize()
+    assert (abs_max_pair.launches, quantize_int8.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(scales, abs_max_pair_plain(x, y))
+    want = quantize_int8_plain(x, scales, 0, 127.0, transpose)
+    assert q.dtype == torch.int8 and q.shape == want.shape and q.shape[1] % 16 == 0
+    assert torch.equal(q, want)
+    # a scale under the 1e-8 floor, and 4 bits
+    tiny = torch.tensor([1e-9, 0.0], device=cuda)
+    assert torch.equal(quantize_int8(1e-9 * x, tiny, 1, 7.0, transpose),
+                       quantize_int8_plain(1e-9 * x, tiny, 1, 7.0, transpose))
 
 
 def test_int8_kernel_rejects_what_it_does_not_take(cuda):

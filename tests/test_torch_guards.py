@@ -79,6 +79,8 @@ def _cuda_calls():
         (flash_attention, "flash_attn_fwd_plain", lambda: flash_attention.flash_attn_fwd(q, q, q)),
         (fused_optimizer, "fused_sgd_plain", lambda: fused_optimizer.fused_sgd(x, x, one)),
         (int8_matmul, "int8_matmul_plain", lambda: int8_matmul.int8_matmul(x, w)),
+        (int8_matmul, "abs_max_pair_plain", lambda: int8_matmul.int8_matmul(x, w)),
+        (int8_matmul, "quantize_int8_plain", lambda: int8_matmul.int8_matmul(x, w)),
         (int8_matmul, "int8_mm_plain",
          lambda: int8_matmul.int8_mm(ids.to(torch.int8)[:, None].expand(4, 16).contiguous(),
                                      ids.to(torch.int8)[:, None].expand(4, 16).contiguous())),

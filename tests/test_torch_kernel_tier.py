@@ -13,6 +13,7 @@ its own tests run them on the CPU.
 """
 from collections import Counter
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,11 +25,15 @@ from paddle_tpu.amp import compose_passes as jax_compose_passes
 from paddle_tpu.models import transformer as jax_transformer
 from paddle_tpu.ops.pallas.fused_optimizer import fused_sgd as jax_fused_sgd
 from paddle_tpu.ops.pallas.int8_matmul import int8_matmul as jax_int8_matmul
+from paddle_tpu.ops.pallas.int8_matmul import quantize_abs_max as jax_quantize_abs_max
 from paddle_tpu.ops.pallas.policy import KernelPolicy as JaxKernelPolicy
 from paddle_tpu_torch.amp import compose_passes
 from paddle_tpu_torch.models import transformer as pt_transformer
 from paddle_tpu_torch.ops.cuda.fused_optimizer import fused_sgd_plain
-from paddle_tpu_torch.ops.cuda.int8_matmul import int8_matmul, int8_matmul_plain
+from paddle_tpu_torch.ops.cuda.int8_matmul import (abs_max_pair_plain, bin_count, combined_scale,
+                                                   int8_matmul, int8_matmul_plain, int8_mm_plain,
+                                                   quantize_abs_max, quantize_int8_plain,
+                                                   quantize_ratio, scale_by_reciprocal)
 from paddle_tpu_torch.passes import KernelPolicy, PassPipeline
 
 VOCAB, D_MODEL, N_HEAD, D_INNER, T, N_LAYER = 1000, 64, 4, 256, 32, 2
@@ -223,6 +228,71 @@ def test_int8_matmul_plain_bit_equal_to_jax(m, k, n, interpret):
     got = int8_matmul_plain(torch.from_numpy(x), torch.from_numpy(y)).numpy()
     np.testing.assert_array_equal(got, ref)
     np.testing.assert_array_equal(int8_matmul(torch.from_numpy(x), torch.from_numpy(y)).numpy(), ref)
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_quantizer_bit_equal_to_the_jitted_jax_quantizer(seed):
+    """transformer-base's [2048, 512] activations, against ``quantize_abs_max``
+    as the JAX ``Executor`` runs it (``jax.jit``).  From these seeds a ratio
+    ``bin_cnt / s`` rounded twice (``s.reciprocal() * bin_cnt``) moves one
+    element by a quantum."""
+    x = np.random.RandomState(seed).randn(2048, 512).astype(np.float32)
+    ref_q, ref_s = jax.jit(lambda a: jax_quantize_abs_max(a, 127.0))(jnp.asarray(x))
+    q, s = quantize_abs_max(torch.from_numpy(x), 127.0)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(ref_q))
+    assert s.item() == float(ref_s)
+    xt = torch.from_numpy(x)
+    q8 = quantize_int8_plain(xt, abs_max_pair_plain(xt, xt), 0, 127.0)
+    np.testing.assert_array_equal(q8.numpy(), np.asarray(ref_q).astype(np.int8))
+    # the twice-rounded ratio differs here: the test can tell
+    s_t = torch.tensor(float(ref_s))
+    twice = torch.clamp(torch.from_numpy(x), -s_t, s_t).mul_(127.0 / s_t).round_()
+    assert not np.array_equal(twice.numpy(), np.asarray(ref_q))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_ratio_and_combined_scale_bit_equal_to_the_jitted_jax_expressions(bits):
+    """10**5 seeded scales: ``bin_cnt / s`` is one float32 division, and XLA
+    folds the divisions by the constants ``bin_cnt**2`` and ``max_range``
+    into products with their float32 reciprocals."""
+    bin_cnt = bin_count(bits)
+    rs = np.random.RandomState(bits)
+    s = (rs.rand(100000) * 10 + 1e-3).astype(np.float32)
+    sx, sy = (np.exp(rs.randn(100000) * 3).astype(np.float32) for _ in range(2))
+    ts, tsx, tsy = (torch.from_numpy(a) for a in (s, sx, sy))
+    ref_ratio = np.asarray(jax.jit(lambda a: bin_cnt / a)(jnp.asarray(s)))
+    np.testing.assert_array_equal(quantize_ratio(ts, bin_cnt).numpy(), ref_ratio)
+    ref_scale = np.asarray(jax.jit(lambda a, b: (a * b) / (bin_cnt * bin_cnt))(
+        jnp.asarray(sx), jnp.asarray(sy)))
+    np.testing.assert_array_equal(combined_scale(tsx, tsy, bin_cnt).numpy(), ref_scale)
+    max_range = bin_cnt * bin_cnt            # what the quant pass writes
+    ref_dq = np.asarray(jax.jit(lambda x, sc: x * (sc / max_range))(jnp.asarray(sx), jnp.asarray(sy)))
+    np.testing.assert_array_equal((tsx * scale_by_reciprocal(tsy, max_range)).numpy(), ref_dq)
+    # the twice-rounded ratio and the true quotient differ on these inputs: the test can tell
+    assert not np.array_equal((bin_cnt / ts).numpy(), ref_ratio)
+    assert not np.array_equal(((tsx * tsy) / (bin_cnt * bin_cnt)).numpy(), ref_scale)
+
+
+@pytest.mark.parametrize("m,k,n,bits", [(64, 256, 384, 8), (7, 100, 33, 8), (5, 19, 40, 4)])
+def test_the_kernel_routes_plain_versions_compose_to_the_jax_int8_matmul(m, k, n, bits):
+    """The card's route -- one abs-max pass, two quantize passes (the
+    weight transposed, rows zero-padded to 16 bytes), the GEMM with the
+    dequant in its epilogue -- in its plain versions, bit-equal to the JAX
+    package's ``int8_matmul`` under ``jit``."""
+    rs = np.random.RandomState(m * k + n)
+    x = rs.randn(m, k).astype(np.float32)
+    y = (rs.rand(k, n).astype(np.float32) - 0.5) * 0.1
+    bin_cnt = bin_count(bits)
+    ref = np.asarray(jax.jit(lambda a, b: jax_int8_matmul(a, b, bits=bits))(
+        jnp.asarray(x), jnp.asarray(y)))
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y)
+    scales = abs_max_pair_plain(xt, yt)
+    xq = quantize_int8_plain(xt, scales, 0, bin_cnt)
+    yqt = quantize_int8_plain(yt, scales, 1, bin_cnt, transpose=True)
+    assert xq.shape == (m, -(-k // 16) * 16) and yqt.shape == (n, xq.shape[1])
+    assert not xq[:, k:].any() and not yqt[:, k:].any()
+    np.testing.assert_array_equal(int8_mm_plain(xq, yqt, scales, bin_cnt).numpy(), ref)
+    np.testing.assert_array_equal(int8_matmul(xt, yt, bits=bits).numpy(), ref)
 
 
 def test_int8_matmul_wrapper_rejects_bad_arguments():
