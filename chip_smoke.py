@@ -13,8 +13,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    path's (64 x 8 heads, the training batch's lengths), causal and not,
    timed beside ``scaled_dot_product_attention``;
 4. embedding gather (K2) against its plain version at both paths' shapes,
-   out-of-range ids included, bit-equal; CUDA-event times, and the device
-   time of K2 and of ``F.embedding`` from the profiler;
+   out-of-range ids included, bit-equal; CUDA-event times, the device
+   time (profiler) and the host microseconds a call of K2 and of
+   ``F.embedding``;
 5. transformer-base (vocab 32000, d_model 512, 8 heads, 6+6 layers,
    d_inner 2048, max_len 256, random weights from seed 0) served by
    ``ServingSession(max_batch_size=8)`` to 4 client threads: answers
@@ -24,7 +25,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    of the port on the CPU with the same weights;
 6. linear-CE forward and backward (K7, K8), fused Adam (K6) and embedding
    scatter-add (K3) against their plain versions at the training path's
-   shapes, with times beside a PyTorch yardstick;
+   shapes, with times beside a PyTorch yardstick; K8 (3xTF32 on the
+   tensor cores) also against its plain version in float64, beside the
+   cuBLAS float32 composition and a single-pass-TF32 control, twice for
+   bit-equality, and its mainloop alone at one chunk's three products;
 7. transformer-base training (``train_network(fuse_final_ce=True)`` +
    ``Adam(1e-3)``, random weights from seed 0, batch 64 x 256 with ragged
    lengths): one warm-up and three timed steps on one batch, every loss
@@ -41,7 +45,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
     whole ``int8_matmul``, each bit-equal to its plain version; the GEMM
     timed beside its bound and ``torch._int_mm`` (column-major B), the
     quantizers and the whole product timed, and the quantizers' time a
-    batch; fused SGD (K5) on the word table and a vector, bit-equal, beside
+    batch; host microseconds a call at (512, 512); fused SGD (K5) on the word table and a vector, bit-equal, beside
     ``torch.optim.SGD(fused=True)``;
 11. int8 serving: ``ServingSession(max_batch_size=8, amp=AmpConfig(
     bf16=False, quant=True), kernels=True)`` with the float32 weights,
@@ -59,7 +63,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
     one step;
 13. a ``{"kernels": [...]}`` line with each kernel's launches on its path,
     error against its plain version, times, and bound; K4's entry lists
-    its quantize kernels under ``quantizers``.
+    its quantize kernels under ``quantizers``, K8's both of its bounds.
 
 The last line is ``{"ok": true, "device": {...}}``.  Times are CUDA-event
 times on this card; bounds use the H100 SXM's published peaks.
@@ -76,6 +80,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 FP32_FLOPS = 67e12          # H100 SXM float32 rate outside the tensor cores
+TF32_FLOPS = 495e12         # H100 SXM dense TF32 tensor-core rate
 INT8_OPS = 1979e12          # H100 SXM dense int8 tensor-core rate
 
 B, H, T, D_HEAD = 8, 8, 256, 64          # served batch: 8 rows x 8 heads
@@ -108,6 +113,12 @@ INT8_OPS_PER_PRODUCT = 6
 # ||int8 - fp32|| / ||fp32||; the control at quant_bits=4 must exceed it
 INT8_VS_FP32_NORM_RTOL = 0.05
 CE_RTOL = 1e-4          # K7/K8 vs plain, relative to the largest value, TF32 off
+# K8 (3xTF32 on the tensor cores) against the plain version in float64, norm-
+# relative per gradient: at most this many times the error of the cuBLAS
+# float32 composition, and (dx, dW) at least this many times below
+# single-pass TF32's
+K8_VS_FP32_FACTOR = 4.0
+K8_VS_TF32_FACTOR = 100.0
 ADAM_TOL = 1e-6         # K6 vs plain, abs (same rounding, element for element)
 ADAM_RTOL = 1e-6        # K6 vs plain, each output relative to its own largest value
 SCATTER_RTOL = 1e-5     # K3 vs plain (index_add_), relative; both add by atomics
@@ -136,6 +147,32 @@ def _ms(fn, iters):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def _host_us(torch, fn, iters=1000):
+    """Host microseconds a call: the host clock over ``iters`` back-to-back
+    calls up to the last call's return; the device, which may still be
+    working then, is waited for after the clock is read."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def _best(measure, fns, rounds=3):
+    """The least ``measure(fn)`` of each ``fn`` over ``rounds`` rounds taken
+    in turns: times bound by the host vary with the load of the machine's
+    other tenants, and a kernel and its yardstick should meet the same."""
+    best = [float("inf")] * len(fns)
+    for _ in range(rounds):
+        for i, fn in enumerate(fns):
+            best[i] = min(best[i], measure(fn))
+    return best
 
 
 def _bound(nbytes, flops, peak=FP32_FLOPS):
@@ -219,12 +256,14 @@ def phase_gather(torch, card):
         if not torch.equal(out, ref):
             raise AssertionError(f"gather_rows {shape} [{vocab},{D_MODEL}] differs from its plain version")
         in_range = ids.clamp(0, vocab - 1).long()
-        ms = _ms(lambda: gather_rows(w, ids), 100)
+        fns = [lambda: gather_rows(w, ids), lambda: torch.nn.functional.embedding(in_range, w)]
+        ms, lib_ms = _best(lambda fn: _ms(fn, 1000), fns)
         plain_ms = _ms(lambda: gather_rows_plain(w, ids), 100)
-        lib_ms = _ms(lambda: torch.nn.functional.embedding(in_range, w), 100)
-        # device time alone: the events' time above is the ctypes wrapper's host rate
+        # device time alone, and host time alone: back to back, the events'
+        # time above is the larger of the two
         dev_ms = _device_ms(torch, lambda: gather_rows(w, ids), 50)
         lib_dev_ms = _device_ms(torch, lambda: torch.nn.functional.embedding(in_range, w), 50)
+        host_us, lib_host_us = _best(lambda fn: _host_us(torch, fn), fns)
         valid = ids[(ids >= 0) & (ids < vocab)]
         rows_read = int(torch.unique(valid).numel())
         nbytes = 4 * (rows_read * D_MODEL + ids.numel() + out.numel())
@@ -232,11 +271,15 @@ def phase_gather(torch, card):
         results[(shape, vocab)] = dict(max_abs_err=(out - ref).abs().max().item(), ms=ms,
                                        plain_ms=plain_ms, library_ms=lib_ms,
                                        bound_ms=bound_ms, bound_by=bound_by,
-                                       device_ms=dev_ms, library_device_ms=lib_dev_ms)
+                                       device_ms=dev_ms, library_device_ms=lib_dev_ms,
+                                       host_us=host_us, library_host_us=lib_host_us)
         print(f"K2 gather_rows {shape} W=[{vocab},{D_MODEL}] N={ids.numel()}: bit-equal; kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, F.embedding {lib_ms:.4f} ms, bound "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, F.embedding {lib_ms:.4f} ms (kernel and "
+              f"F.embedding: the best of 3 rounds in turns), bound "
               f"{bound_ms:.5f} ms ({bound_by}); device time (profiler) kernel {dev_ms} ms, "
-              f"F.embedding {lib_dev_ms} ms [{card}]")
+              f"F.embedding {lib_dev_ms} ms; host time a call (1000 calls, host clock to the last "
+              f"return, best of 3) kernel {host_us:.2f} us, F.embedding {lib_host_us:.2f} us "
+              f"[{card}]")
     return results
 
 
@@ -283,7 +326,7 @@ def _family(name):
         return "fused_adam (K6)"
     if "ce_fwd" in name:
         return "linear_ce_fwd (K7)"
-    if any(k in name for k in ("ce_dl_kernel", "ce_dx_kernel", "ce_dw_kernel")):
+    if any(k in name for k in ("gemm_3xtf32_kernel", "ce_db_kernel")):
         return "linear_ce_bwd (K8)"
     if "memcpy" in low:
         return "memcpy"
@@ -582,6 +625,10 @@ def phase_int8_serving(torch, card, f32_inf, f32_res):
     finally:
         kernel_ops.int8_matmul = wrapper
     if prof is not None:
+        copy_ms = prof["by_family_ms"].get("memcpy", 0.0)
+        print(f"int8 serving profile: one 8-row batch's wall {prof['wall_ms']:.2f} ms, less its "
+              f"copies ({copy_ms:.2f} ms) {prof['wall_ms'] - copy_ms:.2f} ms, against "
+              f"{prof['device_busy_ms'] - copy_ms:.2f} ms of device compute [{card}]")
         n_ops = prof["by_family_launches"]
         per_product = sum(n_ops.get(f, 0) for f in ("int8_matmul (K4)", "int8 quantizers (K4)",
                                                    wrapper_other)) / K4_PER_BATCH
@@ -616,8 +663,9 @@ def _rel(got, want):
 
 def phase_linear_ce(torch, card):
     """K7 and K8 at the loss head's shapes: 16384 rows, D 512, V 32000."""
-    from paddle_tpu_torch.ops.cuda.linear_ce import (linear_ce_bwd, linear_ce_bwd_plain,
-                                                     linear_ce_fwd, linear_ce_fwd_plain)
+    from paddle_tpu_torch.ops.cuda.linear_ce import (gemm_3xtf32, linear_ce_bwd,
+                                                     linear_ce_bwd_plain, linear_ce_fwd,
+                                                     linear_ce_fwd_plain)
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(3)
     rows = TRAIN_B * T
@@ -654,6 +702,43 @@ def phase_linear_ce(torch, card):
         p *= gl[:, None]
         return p @ w.T, x.T @ p, p.sum(dim=0)
 
+    # K8 and two yardsticks against the plain backward in float64 on the
+    # card: the cuBLAS float32 composition, and the same with single-pass
+    # TF32 products (the control: what 3xTF32 has to stay far below)
+    r64 = linear_ce_bwd_plain(x.double(), w.double(), b.double(), labels, lse.double(),
+                              gl.double())
+    f32 = lib_bwd()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = lib_bwd()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    vs64 = {}
+    for who, grads in (("K8", (dx, dw, db)), ("cublas_fp32", f32), ("cublas_tf32_control", tf32)):
+        vs64[who] = {n: {"norm_rel": ((got.double() - ref).norm() / ref.norm()).item(),
+                         "max_rel": ((got.double() - ref).abs().max() / ref.abs().max()).item()}
+                     for n, got, ref in zip(("dx", "dw", "db"), grads, r64)}
+    del r64, f32, tf32
+    print(f"linear_ce_bwd against its plain version in float64 on the card: {json.dumps(vs64)}; "
+          f"gate: K8's norm-relative error at most {K8_VS_FP32_FACTOR:g}x cuBLAS float32's "
+          f"(dx, dw, db) and at least {K8_VS_TF32_FACTOR:g}x below the TF32 control's (dx, dw) "
+          f"[{card}]")
+    for n in ("dx", "dw", "db"):
+        k8, fp32, ctl = (vs64[who][n]["norm_rel"] for who in ("K8", "cublas_fp32",
+                                                               "cublas_tf32_control"))
+        # db is a sum of dl over 16384 rows, in which the control's product
+        # errors average out (it reads within 4x of float32's): it cannot
+        # tell the two apart, so the control gates the products' outputs
+        vs_ctl = n == "db" or k8 * K8_VS_TF32_FACTOR <= ctl
+        if not (k8 <= K8_VS_FP32_FACTOR * fp32 and vs_ctl):
+            raise AssertionError(f"linear_ce_bwd {n} vs float64: K8 {k8}, cuBLAS float32 {fp32}, "
+                                 f"TF32 control {ctl}: outside the gate")
+    again = linear_ce_bwd(x, w, b, labels, lse, gl)
+    if not all(torch.equal(a, c) for a, c in zip((dx, dw, db), again)):
+        raise AssertionError("linear_ce_bwd: two calls on the same inputs differ")
+    print("linear_ce_bwd: two calls on the same inputs bit-equal")
+
     flops = 2.0 * rows * D_MODEL * VOCAB
     io = 4 * (x.numel() + w.numel() + b.numel() + labels.numel())
     res = {}
@@ -670,10 +755,38 @@ def phase_linear_ce(torch, card):
         bound_ms, bound_by = _bound(nbytes, nflops)
         res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=bound_ms, bound_by=bound_by)
+        both = ""
+        if name == "linear_ce_bwd":
+            # K8 runs each float32 product as three TF32 products on the
+            # tensor cores: that is its bound, and the float32 CUDA cores'
+            # stands beside it
+            res[name]["bound_fp32_ms"] = bound_ms
+            bound_ms, bound_by = _bound(nbytes, 3 * nflops, TF32_FLOPS)
+            res[name].update(bound_ms=bound_ms, bound_by=bound_by, bound_3xtf32_ms=bound_ms)
+            both = (f", as float32 on the CUDA cores {res[name]['bound_fp32_ms']:.3f} ms; "
+                    f"{3 * nflops / ms / 1e9:.1f} TFLOP/s TF32")
         print(f"{name} x=[{rows},{D_MODEL}] W=[{D_MODEL},{VOCAB}]: max_abs_err {err:.3e}, "
               f"rel {rel:.3e} (tol {CE_RTOL} rel); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
               f"composed torch {lib_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; "
-              f"{nflops / ms / 1e9:.1f} TFLOP/s) [{card}]")
+              f"{nflops / ms / 1e9:.1f} TFLOP/s float32{both}) [{card}]")
+
+    # K8's mainloop on its own at one chunk's three products (m, n, k, blocks
+    # that are neighbours share At), beside one cuBLAS float32 matmul
+    chunk = 4096
+    for what, m, n, k, n_fast in (("dlT = W^T x^T", chunk, rows, D_MODEL, False),
+                                  ("dx = dl W^T", rows, D_MODEL, chunk, True),
+                                  ("dW = x^T dl", D_MODEL, chunk, rows, False)):
+        at = torch.randn(k, m, generator=g).to(dev)
+        bk = torch.randn(n, k, generator=g).to(dev)
+        got, want = gemm_3xtf32(at, bk, n_fast), at.t() @ bk.t()
+        off = ((got - want).norm() / want.norm()).item()
+        if not off <= 1e-5:
+            raise AssertionError(f"gemm_3xtf32 {what}: {off} norm-relative from cuBLAS float32")
+        ms, lib_ms = _ms(lambda: gemm_3xtf32(at, bk, n_fast), 20), _ms(lambda: at.t() @ bk.t(), 20)
+        print(f"K8 mainloop gemm_3xtf32 {what} m={m} n={n} k={k}: {ms:.4f} ms "
+              f"({6.0 * m * n * k / ms / 1e9:.1f} TFLOP/s TF32 as three products, "
+              f"{2.0 * m * n * k / ms / 1e9:.1f} TFLOP/s float32), cuBLAS float32 matmul "
+              f"{lib_ms:.4f} ms; {off:.2e} norm-relative apart [{card}]")
     return res
 
 
@@ -808,6 +921,14 @@ def phase_int8(torch, card):
             q_dev_ms = _device_ms(torch, quantizers, 10)
             w_ms = _ms(lambda: int8_matmul(x, y), 20)
             w_dev_ms = _device_ms(torch, lambda: int8_matmul(x, y), 10)
+            if (k, n) == (D_MODEL, D_MODEL):
+                fns = [lambda: int8_mm(xq, yqt, scales, 127.0), lambda: torch._int_mm(xq, yqt.t())]
+                host_us, lib_host_us = _best(lambda fn: _host_us(torch, fn), fns)
+                gemm_dev_ms = _device_ms(torch, fns[0], 50)
+                print(f"K4 GEMM M={m} K={k} N={n}: host time a call (1000 calls, host clock to "
+                      f"the last return, best of 3 rounds in turns) kernel {host_us:.2f} us, "
+                      f"torch._int_mm {lib_host_us:.2f} us; device time (profiler) kernel "
+                      f"{gemm_dev_ms} ms [{card}]")
             quant_ms += count * q_ms
             wrapper_ms += count * w_ms
             kp = xq.shape[1]
@@ -1145,8 +1266,10 @@ def main():
         entry("fused_adam", "fused_adam.cu", "fused_optimizer.py:106", adam, (VOCAB, D_MODEL)),
         entry("linear_ce_fwd", "linear_ce.cu", "linear_ce.py:42",
               {0: ce["linear_ce_fwd"]}, 0),
-        entry("linear_ce_bwd", "linear_ce.cu", "linear_ce.py:78",
-              {0: ce["linear_ce_bwd"]}, 0),
+        dict(entry("linear_ce_bwd", "linear_ce_bwd.cu", "linear_ce.py:78",
+                   {0: ce["linear_ce_bwd"]}, 0),
+             bound_fp32_ms=ce["linear_ce_bwd"]["bound_fp32_ms"],
+             bound_3xtf32_ms=ce["linear_ce_bwd"]["bound_3xtf32_ms"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,25 +1,22 @@
 // Fused final projection + softmax cross-entropy for Hopper (sm_90a),
 // float32: the forward (lse and label logit of x @ W + b without the
-// logits in device memory) and the backward (dx, dW, db).
+// logits in device memory).  The backward is csrc/linear_ce_bwd.cu.
 //
-// Replaces the TPU kernels paddle_tpu/ops/pallas/linear_ce.py::_fwd_kernel
-// (launched by linear_ce_fwd) and ::_bwd_kernel (launched by linear_ce_bwd).
+// Replaces the TPU kernel paddle_tpu/ops/pallas/linear_ce.py::_fwd_kernel
+// (launched by linear_ce_fwd).
 //
 // Bound: operations.  At the training path's shapes (B = 16384 rows,
 // D = 512, V = 32000) the forward is one [B, D] x [D, V] product, 0.54
-// TFLOP; the backward is three (the logits recomputed, dx and dW), 1.61
-// TFLOP.  The bytes (x, W, the outputs) are ~0.2 GB.  This first version
-// does the products on the float32 CUDA cores (67 TFLOP/s on an H100 SXM):
-// TF32 or bf16 tensor cores come with the AMP work.
-//
-// All products share one tile routine, gemm_tile: a 128 x 128 output tile
+// TFLOP; the bytes (x, W, the outputs) are ~0.1 GB.  The product runs on
+// the float32 CUDA cores (67 TFLOP/s on an H100 SXM) through one tile
+// routine, gemm_tile: a 128 x 128 output tile
 // per 256-thread block, k-steps of 8 staged through double-buffered shared
 // memory with the next step's global loads in flight in registers, and an
 // 8 x 8 register micro-tile per thread (rows ty*4..+3 and 64+ty*4..+3,
 // columns tx*4..+3 and 64+tx*4..+3, so each k reads four conflict-free
 // float4s of shared memory for 64 FMAs).
 //
-// Forward.  The Pallas grid walks vocab tiles in order and carries the
+// The Pallas grid walks vocab tiles in order and carries the
 // running (max, sum-exp, label logit) of each row in VMEM scratch.  Here a
 // block owns 128 rows and a contiguous range of vocab tiles (8 by default,
 // over blockIdx.y, so the grid has thousands of blocks and two fit on an
@@ -30,20 +27,6 @@
 // range order (deterministic).  lse and the label logit are stored as [B], not
 // lane-replicated to 128.  A label outside [0, V) gives label logit 0, as
 // the Pallas one-hot pick does.
-//
-// Backward.  The Pallas backward writes V/bv dx partials and reduces them
-// outside, because a TPU grid cannot revisit an output block.  Here the
-// vocabulary is walked in chunks of VC columns, and for each chunk three
-// kernels run, each output element written by one block (deterministic):
-//   1. dl[:, chunk] = (exp(x @ W[:, chunk] + b - lse) - onehot) * g, the
-//      logits recomputed from the saved lse, written to a [B, VC] scratch;
-//   2. dx (+)= dl @ W[:, chunk]^T, accumulated over the chunks in place;
-//   3. dW[:, chunk] = x^T @ dl, and db[chunk] = column sums of dl, summed
-//      in row order by the blocks of the first row tile.
-// The scratch is the price of three products instead of four: two kernels
-// that each recompute the logits (one owning rows for dx, one owning vocab
-// tiles for dW) would do four.  With VC = 4096 it is 256 MB at B = 16384,
-// 1/8 of the [B, V] logits.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -255,100 +238,6 @@ __global__ void ce_fwd_combine_kernel(const float* __restrict__ part_m,
   lab[row] = l;
 }
 
-// --------------------------------------------------------------- backward
-
-// dl[r, c] = (exp(x[r] . W[:, v0 + c] + b[v0 + c] - lse[r]) - onehot) * g[r]
-// for the chunk's columns c < vc; dl has row stride ldl.
-__global__ void __launch_bounds__(kThreads)
-ce_dl_kernel(const float* __restrict__ x, const float* __restrict__ w,
-             const float* __restrict__ bias, const int* __restrict__ labels,
-             const float* __restrict__ lse, const float* __restrict__ g,
-             float* __restrict__ dl, int rows, int d, int v, int v0, int vc, int ldl) {
-  __shared__ Smem sm;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  float acc[8][8];
-  gemm_tile<true, false, false>(acc, sm, x, d, m0, rows, w + v0, v, n0, vc, d, nullptr);
-  float bj[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = n0 + tile_col(j);
-    bj[j] = (bias != nullptr && c < vc) ? bias[v0 + c] : 0.f;
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + tile_row(i);
-    if (row >= rows) continue;
-    const float l = lse[row], gr = g[row];
-    const int lb = labels[row] - v0;
-    float o[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = n0 + tile_col(j);
-      const float p = expf(acc[i][j] + bj[j] - l);
-      o[j] = (p - (c == lb ? 1.f : 0.f)) * gr;
-    }
-    float* dst = dl + static_cast<int64_t>(row) * ldl + n0;
-    // vc % 4 == 0: a group of 4 columns is all inside or all outside
-    if (n0 + tile_col(0) < vc)
-      *reinterpret_cast<float4*>(dst + tile_col(0)) = make_float4(o[0], o[1], o[2], o[3]);
-    if (n0 + tile_col(4) < vc)
-      *reinterpret_cast<float4*>(dst + tile_col(4)) = make_float4(o[4], o[5], o[6], o[7]);
-  }
-}
-
-// dx[r, :] (+)= dl[r, :vc] @ W[:, v0:v0+vc]^T
-__global__ void __launch_bounds__(kThreads)
-ce_dx_kernel(const float* __restrict__ dl, const float* __restrict__ w,
-             float* __restrict__ dx, int rows, int d, int v, int v0, int vc, int ldl,
-             int accumulate) {
-  __shared__ Smem sm;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  float acc[8][8];
-  gemm_tile<true, true, false>(acc, sm, dl, ldl, m0, rows, w + v0, v, n0, d, vc, nullptr);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + tile_row(i);
-    if (row >= rows) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = n0 + tile_col(j);
-      if (c < d) {
-        float* p = dx + static_cast<int64_t>(row) * d + c;
-        *p = accumulate ? *p + acc[i][j] : acc[i][j];
-      }
-    }
-  }
-}
-
-// dW[:, v0:v0+vc] = x^T @ dl[:, :vc]; the first row tile's blocks also
-// write db[v0:v0+vc] = column sums of dl.
-__global__ void __launch_bounds__(kThreads)
-ce_dw_kernel(const float* __restrict__ x, const float* __restrict__ dl,
-             float* __restrict__ dw, float* __restrict__ db, int rows, int d, int v,
-             int v0, int vc, int ldl) {
-  __shared__ Smem sm;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  float acc[8][8];
-  float colsum = 0.f;
-  if (db != nullptr && blockIdx.x == 0) {
-    gemm_tile<false, false, true>(acc, sm, x, d, m0, d, dl, ldl, n0, vc, rows, &colsum);
-    const int c = n0 + threadIdx.x;
-    if (threadIdx.x < BN && c < vc) db[v0 + c] = colsum;
-  } else {
-    gemm_tile<false, false, false>(acc, sm, x, d, m0, d, dl, ldl, n0, vc, rows, nullptr);
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = m0 + tile_row(i);
-    if (r >= d) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = n0 + tile_col(j);
-      if (c < vc) dw[static_cast<int64_t>(r) * v + v0 + c] = acc[i][j];
-    }
-  }
-}
-
 unsigned cdiv(int a, int b) { return static_cast<unsigned>((a + b - 1) / b); }
 
 }  // namespace
@@ -372,32 +261,5 @@ extern "C" int ptt_linear_ce_fwd_f32(const float* x, const float* w, const float
       x, w, bias, labels, part_m, part_s, part_lab, rows, d, v, per);
   ce_fwd_combine_kernel<<<cdiv(rows, 256), 256, 0, s>>>(part_m, part_s, part_lab, lse, lab,
                                                         rows, used);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// As the forward, plus lse, g: [rows] -> dx: [rows, d], dw: [d, v],
-// db: [v] (null when bias is null).  dl: [rows, chunk] scratch,
-// chunk % 4 == 0.
-extern "C" int ptt_linear_ce_bwd_f32(const float* x, const float* w, const float* bias,
-                                     const int* labels, const float* lse, const float* g,
-                                     float* dx, float* dw, float* db, float* dl,
-                                     int rows, int d, int v, int chunk, void* stream) {
-  if (d % 4 != 0 || v % 4 != 0 || chunk % 4 != 0 || chunk <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows <= 0) {  // no rows: every gradient is zero
-    cudaMemsetAsync(dw, 0, sizeof(float) * static_cast<size_t>(d) * v, s);
-    if (db != nullptr) cudaMemsetAsync(db, 0, sizeof(float) * static_cast<size_t>(v), s);
-    return static_cast<int>(cudaGetLastError());
-  }
-  for (int v0 = 0; v0 < v; v0 += chunk) {
-    const int vc = v - v0 < chunk ? v - v0 : chunk;
-    ce_dl_kernel<<<dim3(cdiv(rows, BM), cdiv(vc, BN)), kThreads, 0, s>>>(
-        x, w, bias, labels, lse, g, dl, rows, d, v, v0, vc, chunk);
-    ce_dx_kernel<<<dim3(cdiv(rows, BM), cdiv(d, BN)), kThreads, 0, s>>>(
-        dl, w, dx, rows, d, v, v0, vc, chunk, v0 > 0);
-    ce_dw_kernel<<<dim3(cdiv(d, BM), cdiv(vc, BN)), kThreads, 0, s>>>(
-        x, dl, dw, bias != nullptr ? db : nullptr, rows, d, v, v0, vc, chunk);
-  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,7 +22,9 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Optional
+
+import torch
 
 _PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -32,11 +34,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-_fns: Dict[str, object] = {}
 
 
 def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
+    from torch.utils.cpp_extension import CUDA_HOME   # slow to import: only to build
     cand = Path(CUDA_HOME) / "bin" / "nvcc" if CUDA_HOME else None
     if cand is not None and cand.exists():
         return str(cand)
@@ -116,27 +117,59 @@ def _compile(lib: Path, log_path: Path):
                            + "\n".join(log))
 
 
-def kernel(name: str, argtypes) -> object:
-    """The C entry point ``name`` of the kernel library (built and loaded
-    on first use), with its ``argtypes`` declared and an int return (a
-    ``cudaError_t``)."""
+class Entry:
+    """One C entry point of the kernel library: ``int name(argtypes...)``
+    returning a ``cudaError_t``, its last argument the stream.  Making one
+    costs nothing (the wrappers' modules do it at import); its first call
+    builds and loads the library, resolves the symbol and declares its types,
+    once, and puts the ``ctypes`` function in ``fn``: later calls read that
+    attribute and take no lock, look nothing up and assign no ``argtypes``."""
+
+    __slots__ = ("name", "argtypes", "fn")
+
+    def __init__(self, name: str, argtypes):
+        self.name = name
+        self.argtypes = list(argtypes)
+        self.fn = self._first_call
+
+    def _first_call(self, *args):
+        with _lock:
+            if self.fn == self._first_call:
+                fn = getattr(_load(), self.name)
+                fn.argtypes = self.argtypes
+                fn.restype = ctypes.c_int
+                self.fn = fn
+        return self.fn(*args)
+
+
+def _load() -> ctypes.CDLL:
     global _lib
-    with _lock:
-        fn = _fns.get(name)
-        if fn is None:
-            if _lib is None:
-                _lib = ctypes.CDLL(build()["path"])
-                _lib.ptt_error_string.argtypes = [ctypes.c_int]
-                _lib.ptt_error_string.restype = ctypes.c_char_p
-            fn = getattr(_lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-            _fns[name] = fn
-        return fn
+    if _lib is None:
+        lib = ctypes.CDLL(build()["path"])
+        lib.ptt_error_string.argtypes = [ctypes.c_int]
+        lib.ptt_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
 
 
-def check(rc: int, what: str):
-    """Raise if a kernel entry point returned a CUDA error."""
-    if rc != 0:
+_raw_stream = None   # device index -> handle of its current stream, no Stream object
+_get_device = None   # -> the current device's index
+
+
+def launch(entry: Entry, what: str, device, *args):
+    """Call ``entry(*args, stream)`` with the current stream of ``device``
+    (the ``torch.device`` of a CUDA tensor) and raise on a CUDA error.  The
+    device is switched to only when it is not the current one."""
+    global _raw_stream, _get_device
+    if _raw_stream is None:
+        _raw_stream = torch._C._cuda_getCurrentRawStream
+        _get_device = torch._C._cuda_getDevice
+    index = device.index
+    if index == _get_device():
+        rc = entry.fn(*args, _raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = entry.fn(*args, _raw_stream(index))
+    if rc:
         msg = _lib.ptt_error_string(rc).decode() if _lib is not None else ""
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")

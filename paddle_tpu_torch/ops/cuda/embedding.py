@@ -23,10 +23,20 @@ from . import build
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+_GATHER = build.Entry("ptt_gather_rows_f32", _ARGTYPES)
+_SCATTER_ADD = build.Entry("ptt_scatter_add_rows_f32", _ARGTYPES)
 
 
 def _check(name, w, flat_ids, rows=None) -> bool:
-    """Validate the arguments; True when they lie on the CPU."""
+    """Validate the arguments; True when they lie on the CPU.  What the
+    kernel takes passes on a few attribute reads; everything else goes
+    through the checks below, one by one."""
+    dev = w.device
+    if (rows is None and dev.type == "cuda" and flat_ids.device == dev
+            and w.dtype is torch.float32 and flat_ids.dtype is torch.int32
+            and w.ndim == 2 and flat_ids.ndim == 1
+            and w.is_contiguous() and flat_ids.is_contiguous()):
+        return False
     if w.ndim != 2 or flat_ids.ndim != 1:
         raise ValueError(f"{name} wants w [V, D] and ids [N], got "
                          f"{tuple(w.shape)} and {tuple(flat_ids.shape)}")
@@ -60,14 +70,11 @@ def gather_rows(w: torch.Tensor, flat_ids: torch.Tensor) -> torch.Tensor:
     if _check("gather_rows", w, flat_ids):
         return gather_rows_plain(w, flat_ids)
     n, (v, d) = flat_ids.shape[0], w.shape
-    out = torch.empty((n, d), dtype=w.dtype, device=w.device)
+    out = w.new_empty((n, d))
     if n == 0 or d == 0:
         return out
-    fn = build.kernel("ptt_gather_rows_f32", _ARGTYPES)
-    with torch.cuda.device(w.device):
-        rc = fn(w.data_ptr(), flat_ids.data_ptr(), out.data_ptr(), n, v, d,
-                torch.cuda.current_stream().cuda_stream)
-    build.check(rc, "gather_rows")
+    build.launch(_GATHER, "gather_rows", w.device,
+                 w.data_ptr(), flat_ids.data_ptr(), out.data_ptr(), n, v, d)
     gather_rows.launches += 1
     return out
 
@@ -99,11 +106,8 @@ def scatter_add_rows(w: torch.Tensor, flat_ids: torch.Tensor,
     out = torch.empty((v, d), dtype=w.dtype, device=w.device)
     if v == 0 or d == 0:
         return out
-    fn = build.kernel("ptt_scatter_add_rows_f32", _ARGTYPES)
-    with torch.cuda.device(w.device):
-        rc = fn(flat_ids.data_ptr(), rows.data_ptr(), out.data_ptr(), n, v, d,
-                torch.cuda.current_stream().cuda_stream)
-    build.check(rc, "scatter_add_rows")
+    build.launch(_SCATTER_ADD, "scatter_add_rows", w.device,
+                 flat_ids.data_ptr(), rows.data_ptr(), out.data_ptr(), n, v, d)
     scatter_add_rows.launches += 1
     return out
 

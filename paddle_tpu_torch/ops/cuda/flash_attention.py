@@ -32,6 +32,7 @@ HEAD_DIMS = (16, 32, 64, 128)
 
 _ARGTYPES = ([ctypes.c_void_p] * 6
              + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+_FWD = build.Entry("ptt_flash_attn_fwd_f32", _ARGTYPES)
 
 
 def flash_attn_fwd_plain(q, k, v, kv_lens, causal: bool, sm_scale: float,
@@ -94,13 +95,11 @@ def _launch(q, k, v, kv_lens, causal: bool, sm_scale: float):
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
     if bh == 0 or tq == 0:
         return out, lse
-    fn = build.kernel("ptt_flash_attn_fwd_f32", _ARGTYPES)
-    with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                kv_lens.data_ptr() if kv_lens is not None else None,
-                out.data_ptr(), lse.data_ptr(), bh, tq, tk, d, int(causal),
-                float(sm_scale), torch.cuda.current_stream().cuda_stream)
-    build.check(rc, "flash_attn_fwd")
+    build.launch(_FWD, "flash_attn_fwd", q.device,
+                 q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 kv_lens.data_ptr() if kv_lens is not None else None,
+                 out.data_ptr(), lse.data_ptr(), bh, tq, tk, d, int(causal),
+                 float(sm_scale))
     flash_attn_fwd.launches += 1
     return out, lse
 

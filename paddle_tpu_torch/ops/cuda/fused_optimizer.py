@@ -34,6 +34,8 @@ from . import build
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_float] * 5
              + [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_void_p])
 _SGD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]
+_ADAM = build.Entry("ptt_fused_adam_f32", _ARGTYPES)
+_SGD = build.Entry("ptt_fused_sgd_f32", _SGD_ARGTYPES)
 
 
 def _on_cpu(name, tensors) -> bool:
@@ -82,11 +84,8 @@ def fused_sgd(p, g, lr):
     if _on_cpu("fused_sgd", (p, g, lr)):
         return fused_sgd_plain(p, g, lr)
     out = torch.empty_like(p)
-    fn = build.kernel("ptt_fused_sgd_f32", _SGD_ARGTYPES)
-    with torch.cuda.device(p.device):
-        rc = fn(p.data_ptr(), g.data_ptr(), lr.data_ptr(), out.data_ptr(), p.numel(),
-                torch.cuda.current_stream().cuda_stream)
-    build.check(rc, "fused_sgd")
+    build.launch(_SGD, "fused_sgd", p.device,
+                 p.data_ptr(), g.data_ptr(), lr.data_ptr(), out.data_ptr(), p.numel())
     fused_sgd.launches += 1
     return out
 
@@ -124,15 +123,12 @@ def fused_adam(p, g, m1, m2, beta1_pow, beta2_pow, lr, beta1: float,
     if _on_cpu("fused_adam", tensors):
         return fused_adam_plain(p, g, m1, m2, beta1_pow, beta2_pow, lr, beta1, beta2, epsilon)
     outs = [torch.empty_like(t) for t in (p, m1, m2, beta1_pow, beta2_pow)]
-    fn = build.kernel("ptt_fused_adam_f32", _ARGTYPES)
     # (1 - beta) is computed in double and rounded to float32 by ctypes, as
     # the plain version's Python scalars are
-    with torch.cuda.device(p.device):
-        rc = fn(*(t.data_ptr() for t in tensors), beta1, beta2,
-                1.0 - beta1, 1.0 - beta2, epsilon,
-                *(t.data_ptr() for t in outs), p.numel(),
-                torch.cuda.current_stream().cuda_stream)
-    build.check(rc, "fused_adam")
+    build.launch(_ADAM, "fused_adam", p.device,
+                 *(t.data_ptr() for t in tensors), beta1, beta2,
+                 1.0 - beta1, 1.0 - beta2, epsilon,
+                 *(t.data_ptr() for t in outs), p.numel())
     fused_adam.launches += 1
     return tuple(outs)
 

@@ -37,6 +37,7 @@ kernel or raises.  ``int8_matmul.launches`` counts GEMM launches,
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -55,6 +56,9 @@ _QUANT_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
 _GEMM_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_float,
                   ctypes.c_void_p]
+_ABSMAX = build.Entry("ptt_int8_absmax2", _ABSMAX_ARGTYPES)
+_QUANT = build.Entry("ptt_int8_quantize", _QUANT_ARGTYPES)
+_GEMM = build.Entry("ptt_int8_gemm", _GEMM_ARGTYPES)
 
 
 def bin_count(bits: int) -> float:
@@ -65,6 +69,7 @@ def padded_k(k: int) -> int:
     return -(-int(k) // K_ALIGN) * K_ALIGN
 
 
+@functools.lru_cache(maxsize=None)
 def reciprocal_f32(divisor: float) -> float:
     """``float32(1 / divisor)``, rounded once: the constant XLA multiplies
     by where the JAX package divides by a constant."""
@@ -103,21 +108,23 @@ def quantize_abs_max(x: torch.Tensor, bin_cnt: float):
     return quantize_with_scale(x, s, bin_cnt), s
 
 
-def _stream():
-    return torch.cuda.current_stream().cuda_stream
-
-
-def _on_cpu(*ts) -> bool:
-    return all(t.device.type == "cpu" for t in ts)
-
-
-def _check_cuda(what: str, *ts):
+def _on_cpu(what: str, *ts) -> bool:
+    """True when every tensor lies on the CPU; raises unless they all lie
+    on one CUDA device, contiguous.  One pass over the tensors: this runs
+    four times an int8 product."""
     dev = ts[0].device
-    if dev.type != "cuda" or any(t.device != dev for t in ts):
+    same = True
+    for t in ts:
+        same = same and t.device == dev
+    if same and dev.type == "cpu":
+        return True
+    if not same or dev.type != "cuda":
         raise ValueError(f"{what}: tensors on {[str(t.device) for t in ts]}; all must be on "
                          f"one CUDA device (or all on the CPU)")
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError(f"{what} kernel needs contiguous tensors")
+    for t in ts:
+        if not t.is_contiguous():
+            raise ValueError(f"{what} kernel needs contiguous tensors")
+    return False
 
 
 # ------------------------------------------------------------ the quantizers
@@ -135,14 +142,11 @@ def abs_max_pair(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"abs_max_pair takes float32, got {x.dtype}, {y.dtype}")
     if x.numel() == 0 or y.numel() == 0:
         raise ValueError("abs_max_pair: an empty operand has no abs-max")
-    if _on_cpu(x, y):
+    if _on_cpu("abs_max_pair", x, y):
         return abs_max_pair_plain(x, y)
-    _check_cuda("abs_max_pair", x, y)
     out = torch.empty(2, dtype=torch.float32, device=x.device)
-    fn = build.kernel("ptt_int8_absmax2", _ABSMAX_ARGTYPES)
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), x.numel(), y.data_ptr(), y.numel(), out.data_ptr(), _stream())
-    build.check(rc, "abs_max_pair")
+    build.launch(_ABSMAX, "abs_max_pair", x.device,
+                 x.data_ptr(), x.numel(), y.data_ptr(), y.numel(), out.data_ptr())
     abs_max_pair.launches += 1
     return out
 
@@ -170,9 +174,8 @@ def quantize_int8(v: torch.Tensor, scales: torch.Tensor, idx: int, bin_cnt: floa
         raise ValueError(f"quantize_int8 takes float32 [R, C], got {v.dtype} {tuple(v.shape)}")
     if not 0 < bin_cnt <= 127:
         raise ValueError(f"quantize_int8: bin_cnt {bin_cnt} does not fit int8")
-    if _on_cpu(v, scales):
+    if _on_cpu("quantize_int8", v, scales):
         return quantize_int8_plain(v, scales, idx, bin_cnt, transpose)
-    _check_cuda("quantize_int8", v, scales)
     rows, cols = v.shape
     out_rows, kp = (cols, padded_k(rows)) if transpose else (rows, padded_k(cols))
     if max(rows, cols, kp) >= 2 ** 31 or (transpose and cols > 65535 * 64):
@@ -180,11 +183,9 @@ def quantize_int8(v: torch.Tensor, scales: torch.Tensor, idx: int, bin_cnt: floa
     out = torch.empty((out_rows, kp), dtype=torch.int8, device=v.device)
     if v.numel() == 0:
         return out.zero_()
-    fn = build.kernel("ptt_int8_quantize", _QUANT_ARGTYPES)
-    with torch.cuda.device(v.device):
-        rc = fn(v.data_ptr(), rows, cols, kp, scales.data_ptr() + 4 * idx, float(bin_cnt),
-                int(transpose), out.data_ptr(), _stream())
-    build.check(rc, "quantize_int8")
+    build.launch(_QUANT, "quantize_int8", v.device,
+                 v.data_ptr(), rows, cols, kp, scales.data_ptr() + 4 * idx, float(bin_cnt),
+                 int(transpose), out.data_ptr())
     quantize_int8.launches += 1
     return out
 
@@ -224,9 +225,8 @@ def int8_mm(xq: torch.Tensor, yqt: torch.Tensor, scales=None, bin_cnt=None) -> t
         raise TypeError(f"int8_mm takes int8 operands, got {xq.dtype}, {yqt.dtype}")
     if (scales is None) != (bin_cnt is None):
         raise ValueError("int8_mm: pass scales and bin_cnt together (or neither)")
-    if _on_cpu(xq, yqt, *([scales] if scales is not None else [])):
+    if _on_cpu("int8_mm", xq, yqt) if scales is None else _on_cpu("int8_mm", xq, yqt, scales):
         return int8_mm_plain(xq, yqt, scales, bin_cnt)
-    _check_cuda("int8_mm", xq, yqt, *([scales] if scales is not None else []))
     (m, k), n = xq.shape, yqt.shape[0]
     kp = padded_k(k)
     if max(m, n, kp) >= 2 ** 31 or -(-m // 128) * -(-n // 128) >= 2 ** 31:
@@ -243,12 +243,10 @@ def int8_mm(xq: torch.Tensor, yqt: torch.Tensor, scales=None, bin_cnt=None) -> t
         return out.zero_()
     # TMA reads rows whose byte stride and base are multiples of 16
     xq, yqt = (F.pad(t, (0, kp - k)) if kp != k or t.data_ptr() % 16 else t for t in (xq, yqt))
-    fn = build.kernel("ptt_int8_gemm", _GEMM_ARGTYPES)
-    with torch.cuda.device(xq.device):
-        rc = fn(xq.data_ptr(), yqt.data_ptr(), out.data_ptr(), m, n, kp,
-                scales.data_ptr() if scales is not None else None,
-                reciprocal_f32(bin_cnt * bin_cnt) if scales is not None else 0.0, _stream())
-    build.check(rc, "int8_mm")
+    build.launch(_GEMM, "int8_mm", xq.device,
+                 xq.data_ptr(), yqt.data_ptr(), out.data_ptr(), m, n, kp,
+                 scales.data_ptr() if scales is not None else None,
+                 reciprocal_f32(bin_cnt * bin_cnt) if scales is not None else 0.0)
     int8_matmul.launches += 1
     return out
 
@@ -273,7 +271,7 @@ def int8_matmul(x: torch.Tensor, y: torch.Tensor, bits: int = 8) -> torch.Tensor
     if x.ndim != 2 or y.ndim != 2 or x.shape[1] != y.shape[0]:
         raise ValueError(f"int8_matmul wants x [M, K] and y [K, N], got "
                          f"{tuple(x.shape)} and {tuple(y.shape)}")
-    if _on_cpu(x, y):
+    if x.device.type == "cpu" and y.device.type == "cpu":
         return int8_matmul_plain(x, y, bits)
     if not 2 <= int(bits) <= 8:
         raise ValueError(f"int8_matmul kernel takes bit_length 2..8, got {bits}")

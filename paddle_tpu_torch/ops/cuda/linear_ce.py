@@ -1,5 +1,6 @@
 """Fused final projection + softmax cross-entropy: the hand-written Hopper
-kernels (csrc/linear_ce.cu) and their plain PyTorch versions.
+kernels (csrc/linear_ce.cu the forward, csrc/linear_ce_bwd.cu the backward)
+and their plain PyTorch versions.
 
 Replace the TPU kernels ``paddle_tpu/ops/pallas/linear_ce.py::_fwd_kernel``
 (``linear_ce_fwd``) and ``::_bwd_kernel`` (``linear_ce_bwd``).
@@ -29,8 +30,13 @@ from . import build
 CHUNK = 4096   # vocabulary columns per chunk (plain versions, kernel backward)
 FWD_TILES_PER_SPLIT = 8
 
-_FWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_FWD = build.Entry("ptt_linear_ce_fwd_f32",
+                   [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+_BWD = build.Entry("ptt_linear_ce_bwd_f32",
+                   [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+_GEMM = build.Entry("ptt_gemm_3xtf32",
+                    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_int64] * 3
+                    + [ctypes.c_int, ctypes.c_void_p])
 
 
 def _check(name, x, w, b, labels, *extra) -> bool:
@@ -112,12 +118,10 @@ def linear_ce_fwd(x, w, b, labels):
     n_tiles = -(-v // 128)
     splits = -(-n_tiles // FWD_TILES_PER_SPLIT)
     part = torch.empty((3, splits, bsz), dtype=torch.float32, device=x.device)
-    fn = build.kernel("ptt_linear_ce_fwd_f32", _FWD_ARGTYPES)
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), w.data_ptr(), _ptr(b), labels.data_ptr(), lse.data_ptr(),
-                lab.data_ptr(), part[0].data_ptr(), part[1].data_ptr(), part[2].data_ptr(),
-                bsz, x.shape[1], v, splits, torch.cuda.current_stream().cuda_stream)
-    build.check(rc, "linear_ce_fwd")
+    build.launch(_FWD, "linear_ce_fwd", x.device,
+                 x.data_ptr(), w.data_ptr(), _ptr(b), labels.data_ptr(), lse.data_ptr(),
+                 lab.data_ptr(), part[0].data_ptr(), part[1].data_ptr(), part[2].data_ptr(),
+                 bsz, x.shape[1], v, splits)
     linear_ce_fwd.launches += 1
     return lse, lab
 
@@ -152,8 +156,9 @@ def linear_ce_bwd_plain(x, w, b, labels, lse, g):
 
 def linear_ce_bwd(x, w, b, labels, lse, g):
     """Gradients of ``sum(g * (lse - label_logit))``: (dx [B, D], dw [D, V],
-    db [V] or None), float32.  One call runs, per vocabulary chunk, the
-    dl, dx and dW kernels of csrc/linear_ce.cu."""
+    db [V] or None), float32.  One call runs, per vocabulary chunk, the dl,
+    dx, dW and db kernels of csrc/linear_ce_bwd.cu: the three products in
+    3xTF32 on the tensor cores, deterministic (no float atomics)."""
     if _check("linear_ce_bwd", x, w, b, labels, lse, g):
         return linear_ce_bwd_plain(x, w, b, labels, lse, g)
     bsz, d = x.shape
@@ -162,15 +167,71 @@ def linear_ce_bwd(x, w, b, labels, lse, g):
     dw = torch.empty((d, v), dtype=torch.float32, device=x.device)
     db = torch.empty((v,), dtype=torch.float32, device=x.device) if b is not None else None
     chunk = min(CHUNK, v)
-    dl = torch.empty((bsz, chunk), dtype=torch.float32, device=x.device)
-    fn = build.kernel("ptt_linear_ce_bwd_f32", _BWD_ARGTYPES)
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), w.data_ptr(), _ptr(b), labels.data_ptr(), lse.data_ptr(),
-                g.data_ptr(), dx.data_ptr(), dw.data_ptr(), _ptr(db), dl.data_ptr(),
-                bsz, d, v, chunk, torch.cuda.current_stream().cuda_stream)
-    build.check(rc, "linear_ce_bwd")
+    # scratch: the chunk's dl transposed, [chunk, B] with rows padded to 16
+    # bytes (TMA's stride rule), and for db each 128-row tile's sums of it
+    ldl = -(-bsz // 4) * 4
+    dlt = torch.empty((chunk, ldl), dtype=torch.float32, device=x.device)
+    part = (torch.empty((-(-bsz // 128), chunk), dtype=torch.float32, device=x.device)
+            if b is not None else None)
+    build.launch(_BWD, "linear_ce_bwd", x.device,
+                 x.data_ptr(), w.data_ptr(), _ptr(b), labels.data_ptr(), lse.data_ptr(),
+                 g.data_ptr(), dx.data_ptr(), dw.data_ptr(), _ptr(db), dlt.data_ptr(),
+                 _ptr(part), bsz, d, v, chunk, ldl)
     linear_ce_bwd.launches += 1
     return dx, dw, db
 
 
 linear_ce_bwd.launches = 0
+
+
+# ------------------------------------------------------- the 3xTF32 mainloop
+
+
+def split_tf32(t: torch.Tensor):
+    """(hi, lo) of a float32 tensor as csrc/linear_ce_bwd.cu splits it, bit
+    for bit: ``hi`` is ``t`` with its low 13 mantissa bits cleared (what a
+    tensor core reads of a float32 word), ``lo`` is ``t - hi`` (exact)
+    rounded to TF32, to nearest with ties away from zero
+    (``cvt.rna.tf32.f32``).  ``hi + lo`` rebuilds ``t`` to 2**-21 relative.
+    The kernel's mirror for the tests; nothing else calls it."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"split_tf32 takes float32, got {t.dtype}")
+    mask = -(1 << 13)                       # 0xffffe000 as an int32
+    hi = (t.contiguous().view(torch.int32) & mask).view(torch.float32)
+    rest = (t - hi).view(torch.int32)       # sign and magnitude: adding half
+    lo = ((rest + (1 << 12)) & mask).view(torch.float32)  # an ulp rounds the magnitude
+    return hi, lo
+
+
+def gemm_3xtf32_plain(at: torch.Tensor, bk: torch.Tensor) -> torch.Tensor:
+    return at.t() @ bk.t()
+
+
+def gemm_3xtf32(at: torch.Tensor, bk: torch.Tensor, n_fast: bool = False) -> torch.Tensor:
+    """``at.T @ bk.T`` for ``at`` [K, M] and ``bk`` [N, K] float32: the
+    backward's 3xTF32 tensor-core mainloop on its own (both operands as it
+    reads them: ``at`` M-major through registers, ``bk`` K-major through
+    shared memory), for tests and measurements of that mainloop."""
+    if at.ndim != 2 or bk.ndim != 2 or at.shape[0] != bk.shape[1]:
+        raise ValueError(f"gemm_3xtf32 wants at [K, M] and bk [N, K], got "
+                         f"{tuple(at.shape)} and {tuple(bk.shape)}")
+    if at.device.type == "cpu" and bk.device.type == "cpu":
+        return gemm_3xtf32_plain(at, bk)
+    if at.device.type != "cuda" or bk.device != at.device:
+        raise ValueError(f"gemm_3xtf32: tensors on {at.device} and {bk.device}; both must "
+                         f"be on one CUDA device (or both on the CPU)")
+    if at.dtype != torch.float32 or bk.dtype != torch.float32:
+        raise TypeError("gemm_3xtf32 kernel takes float32 operands")
+    (k, m), n = at.shape, bk.shape[0]
+    if not (at.is_contiguous() and bk.is_contiguous()) or m % 4 or k % 4 or k == 0 \
+            or at.data_ptr() % 16 or bk.data_ptr() % 16:
+        raise ValueError("gemm_3xtf32 kernel needs contiguous, 16-byte aligned operands "
+                         "with M and K multiples of 4 and K > 0")
+    out = torch.empty((m, n), dtype=torch.float32, device=at.device)
+    build.launch(_GEMM, "gemm_3xtf32", at.device,
+                 at.data_ptr(), bk.data_ptr(), out.data_ptr(), m, n, k, m, k, n, int(n_fast))
+    gemm_3xtf32.launches += 1
+    return out
+
+
+gemm_3xtf32.launches = 0

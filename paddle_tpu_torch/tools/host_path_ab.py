@@ -1,0 +1,139 @@
+#!/usr/bin/env python3
+"""Two checkouts of the port on one card, in turns: what a change to the
+kernels or to their launch path does to the paths that ``chip_smoke.py``
+drives.  Times bound by the host differ from machine to machine and from
+minute to minute, so two versions are compared only inside one run:
+
+    python3 paddle_tpu_torch/tools/host_path_ab.py ab <other checkout>
+
+runs the other checkout, this one, this one and the other again, each in a
+process of its own (each builds its own kernels), and prints one JSON line a
+run;
+
+    python3 paddle_tpu_torch/tools/host_path_ab.py measure <checkout>
+
+is one such run.  Measured, with ``chip_smoke.py``'s own helpers and shapes:
+K2 (``gather_rows``) beside ``F.embedding`` at the four cases, CUDA-event
+time and host microseconds a call; K4's GEMM at (512, 512) beside
+``torch._int_mm``; K8 (``linear_ce_bwd``) at the loss head's shapes; one
+8-row int8 batch of transformer-base (wall, copies, device busy, from the
+profiler, three times); three Adam training steps at 64 x 256 and one
+profiled step.  Needs one CUDA GPU and nvcc.
+"""
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def measure(root):
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs           # this checkout's helpers and shapes
+    sys.path.insert(0, os.path.abspath(root))
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.amp import AmpConfig
+    from paddle_tpu_torch.ops.cuda import build
+    from paddle_tpu_torch.ops.cuda.embedding import gather_rows
+    from paddle_tpu_torch.ops.cuda.int8_matmul import abs_max_pair, int8_mm, quantize_int8
+    from paddle_tpu_torch.ops.cuda.linear_ce import linear_ce_bwd, linear_ce_fwd
+    assert os.path.abspath(pt.__file__).startswith(os.path.abspath(root) + os.sep), pt.__file__
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    out = {"root": root, "card": smi.stdout.strip(), "build_s": build.build()["seconds"]}
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(2)
+
+    for shape, vocab, n in (("serve", cs.VOCAB, cs.B * cs.T), ("serve", cs.T, cs.B * cs.T),
+                            ("train", cs.VOCAB, cs.TRAIN_B * cs.T), ("train", cs.T, cs.TRAIN_B * cs.T)):
+        w = torch.randn(vocab, cs.D_MODEL, generator=g).to(dev)
+        ids = torch.randint(0, vocab, (n,), generator=g, dtype=torch.int32).to(dev)
+        long_ids = ids.long()
+        fns = [lambda: gather_rows(w, ids), lambda: F.embedding(long_ids, w)]
+        ms, lib_ms = cs._best(lambda fn: cs._ms(fn, 1000), fns)
+        us, lib_us = cs._best(lambda fn: cs._host_us(torch, fn), fns)
+        out[f"K2 {shape} {vocab}"] = {"ms": ms, "F.embedding_ms": lib_ms, "host_us": us,
+                                      "F.embedding_host_us": lib_us}
+
+    x = torch.randn(cs.B * cs.T, cs.D_MODEL, generator=g).to(dev)
+    y = torch.randn(cs.D_MODEL, cs.D_MODEL, generator=g).to(dev)
+    scales = abs_max_pair(x, y)
+    xq, yqt = quantize_int8(x, scales, 0, 127.0), quantize_int8(y, scales, 1, 127.0, True)
+    fns = [lambda: int8_mm(xq, yqt, scales, 127.0), lambda: torch._int_mm(xq, yqt.t())]
+    ms, lib_ms = cs._best(lambda fn: cs._ms(fn, 1000), fns)
+    us, lib_us = cs._best(lambda fn: cs._host_us(torch, fn), fns)
+    out["K4 (512, 512)"] = {"ms": ms, "_int_mm_ms": lib_ms, "host_us": us, "_int_mm_host_us": lib_us}
+
+    rows = cs.TRAIN_B * cs.T
+    xs = torch.randn(rows, cs.D_MODEL, generator=g).to(dev)
+    ws = (0.02 * torch.randn(cs.D_MODEL, cs.VOCAB, generator=g)).to(dev)
+    bs = torch.zeros(cs.VOCAB, device=dev)
+    labels = torch.randint(0, cs.VOCAB, (rows,), generator=g, dtype=torch.int32).to(dev)
+    gl = torch.full((rows,), 1.0 / rows, device=dev)
+    lse, _ = linear_ce_fwd(xs, ws, bs, labels)
+    out["K8"] = {"ms": min(cs._ms(lambda: linear_ce_bwd(xs, ws, bs, labels, lse, gl), 5)
+                           for _ in range(2))}
+    del xs, ws, bs, labels, gl, lse
+
+    inf = pt.Inferencer(cs._infer_func, place=pt.CUDAPlace(0), amp=AmpConfig(bf16=False, quant=True),
+                        kernels=True)
+    feed8 = cs._batch_feed(cs._requests(16, seed=0))
+    for _ in range(2):
+        inf.infer(feed8)
+    batches = []
+    for _ in range(3):
+        prof = cs._profile(torch, lambda: inf.infer(feed8), "int8_batch", out["card"], {})
+        copy_ms = prof["by_family_ms"].get("memcpy", 0.0)
+        batches.append({"wall_ms": prof["wall_ms"], "copy_ms": copy_ms,
+                        "wall_less_copy_ms": prof["wall_ms"] - copy_ms,
+                        "device_compute_ms": prof["device_busy_ms"] - copy_ms})
+    out["int8 batch (profiled)"] = batches
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inf.infer(feed8)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["int8 batch wall_ms (not profiled)"] = walls
+    del inf
+
+    main, startup, loss = cs._train_programs(pt)
+    scope, exe = pt.Scope(), pt.Executor(pt.CUDAPlace(0), kernels=True)
+    exe.run(startup, scope=scope)
+    feed = cs._train_feed(cs.TRAIN_B, seed=0)
+    steps = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        steps.append((time.perf_counter() - t0) * 1e3)
+    prof = cs._profile(torch, lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope),
+                       "training_step", out["card"], {})
+    out["training"] = {"step_ms": steps[1:], "profiled_wall_ms": prof["wall_ms"],
+                       "device_busy_ms": prof["device_busy_ms"],
+                       "K8_ms": prof["by_family_ms"].get("linear_ce_bwd (K8)")}
+    print("AB " + json.dumps(out))
+
+
+def main():
+    if len(sys.argv) != 3 or sys.argv[1] not in ("ab", "measure"):
+        raise SystemExit(__doc__)
+    if sys.argv[1] == "measure":
+        return measure(sys.argv[2])
+    for root in (sys.argv[2], HERE, HERE, sys.argv[2]):
+        run = subprocess.run([sys.executable, os.path.abspath(__file__), "measure", root],
+                             capture_output=True, text=True, timeout=900)
+        lines = [line for line in run.stdout.splitlines() if line.startswith("AB ")]
+        if run.returncode != 0 or not lines:
+            raise SystemExit(f"measuring {root} failed:\n{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
+        print(lines[-1], flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -23,8 +23,9 @@ from paddle_tpu_torch.ops.cuda.fused_optimizer import (fused_adam, fused_adam_pl
 from paddle_tpu_torch.ops.cuda.int8_matmul import (abs_max_pair, abs_max_pair_plain, int8_matmul,
                                                    int8_matmul_plain, int8_mm, int8_mm_plain,
                                                    quantize_int8, quantize_int8_plain)
-from paddle_tpu_torch.ops.cuda.linear_ce import (linear_ce_bwd, linear_ce_bwd_plain,
-                                                 linear_ce_fwd, linear_ce_fwd_plain)
+from paddle_tpu_torch.ops.cuda.linear_ce import (gemm_3xtf32, linear_ce_bwd,
+                                                 linear_ce_bwd_plain, linear_ce_fwd,
+                                                 linear_ce_fwd_plain)
 
 pytestmark = pytest.mark.gpu
 
@@ -183,6 +184,74 @@ def test_linear_ce_kernels_match_plain(cuda, bsz, d, v, bias):
     assert (db is None) == (not bias)
     if bias:
         assert _rel_err(db, rdb) <= CE_RTOL
+
+
+K8_F64_NORM_RTOL = 2e-6   # 3xTF32 backward vs the plain version in float64, norm-relative
+
+
+@pytest.mark.parametrize("bsz,d,v,bias", [(300, 36, 1000, True), (300, 36, 4100, False),
+                                          (129, 36, 4100, True), (1001, 64, 4100, True),
+                                          (5, 4, 8, True)])
+def test_linear_ce_bwd_ragged_against_float64_and_twice_bit_equal(cuda, bsz, d, v, bias):
+    """K8 at ragged shapes (B not a multiple of 128 nor of 4, D 36, V across
+    a chunk edge at 4100), with and without bias, a label out of range on
+    either side: against the plain version in float64, and two calls on the
+    same inputs bit-equal (no float atomics)."""
+    g = torch.Generator().manual_seed(bsz + v)
+    x = torch.randn(bsz, d, generator=g).to(cuda)
+    w = (0.1 * torch.randn(d, v, generator=g)).to(cuda)
+    b = torch.randn(v, generator=g).to(cuda) if bias else None
+    labels = torch.randint(0, v, (bsz,), generator=g, dtype=torch.int32)
+    labels[:4] = torch.tensor([0, v - 1, v, -1], dtype=torch.int32)
+    labels = labels.to(cuda)
+    gl = torch.rand(bsz, generator=g).to(cuda)
+    lse, _ = linear_ce_fwd(x, w, b, labels)
+    got = linear_ce_bwd(x, w, b, labels, lse, gl)
+    again = linear_ce_bwd(x, w, b, labels, lse, gl)
+    ref = linear_ce_bwd_plain(x.double(), w.double(), None if b is None else b.double(), labels,
+                              lse.double(), gl.double())
+    torch.cuda.synchronize()
+    assert (got[2] is None) == (not bias) and (ref[2] is None) == (not bias)
+    for a, a2, r in zip(got, again, ref):
+        if a is None:
+            continue
+        assert a.dtype == torch.float32 and a.shape == r.shape
+        assert torch.equal(a, a2)
+        assert ((a.double() - r).norm() / r.norm()).item() <= K8_F64_NORM_RTOL
+    # the rows whose label lies outside [0, V) have no one-hot: their dx is
+    # the softmax's alone
+    p = torch.softmax(x.double() @ w.double() + (0 if b is None else b.double()), dim=-1)
+    want = (p[2:4] * gl[2:4, None].double()) @ w.double().T
+    assert ((got[0][2:4].double() - want).norm() / want.norm()).item() <= K8_F64_NORM_RTOL
+
+
+@pytest.mark.parametrize("bias", [True, False])
+def test_linear_ce_bwd_no_rows_gives_zero_gradients(cuda, bias):
+    d, v = 36, 1000
+    x = torch.zeros(0, d, device=cuda)
+    w = torch.randn(d, v, device=cuda)
+    b = torch.randn(v, device=cuda) if bias else None
+    empty = torch.zeros(0, device=cuda)
+    dx, dw, db = linear_ce_bwd(x, w, b, empty.to(torch.int32), empty, empty)
+    torch.cuda.synchronize()
+    assert dx.shape == (0, d) and torch.equal(dw, torch.zeros_like(w))
+    assert (db is None) if not bias else torch.equal(db, torch.zeros_like(b))
+
+
+@pytest.mark.parametrize("m,n,k", [(128, 128, 32), (36, 200, 100), (1000, 132, 36),
+                                   (4100, 260, 1028), (512, 256, 16384)])
+@pytest.mark.parametrize("n_fast", [False, True])
+def test_gemm_3xtf32_mainloop_against_float64(cuda, m, n, k, n_fast):
+    """The backward's tensor-core mainloop on its own, ragged in M, N and K
+    and with a long K: float32 accuracy (single-pass TF32 would be ~1e-3)."""
+    g = torch.Generator().manual_seed(m + n + k)
+    at = torch.randn(k, m, generator=g).to(cuda)
+    bk = torch.randn(n, k, generator=g).to(cuda)
+    out = gemm_3xtf32(at, bk, n_fast)
+    ref = at.double().t() @ bk.double().t()
+    torch.cuda.synchronize()
+    assert ((out.double() - ref).norm() / ref.norm()).item() <= K8_F64_NORM_RTOL
+    assert torch.equal(out, gemm_3xtf32(at, bk, n_fast))
 
 
 @pytest.mark.parametrize("shape", [(64, 130), (1001,), (32000, 512)])

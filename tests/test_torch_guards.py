@@ -55,6 +55,116 @@ def test_executor_without_gpu_raises_instead_of_using_the_cpu(monkeypatch):
     assert pt.Executor(pt.CPUPlace()).device == torch.device("cpu")
 
 
+CUDA_MODULES = sorted(p.stem for p in (REPO / "paddle_tpu_torch/ops/cuda").glob("*.py")
+                      if p.stem != "__init__")
+
+
+def test_importing_the_kernel_modules_starts_no_build_and_needs_no_nvcc():
+    """Every ops/cuda module imports with no compiler on the PATH and no
+    CUDA_HOME, starts no process, and leaves every entry point unresolved."""
+    code = (
+        "import subprocess, sys\n"
+        "def refuse(*a, **k): raise AssertionError('a process was started at import')\n"
+        "subprocess.Popen = subprocess.run = refuse\n"
+        "import importlib\n"
+        "from paddle_tpu_torch.ops.cuda import build\n"
+        f"mods = [importlib.import_module('paddle_tpu_torch.ops.cuda.' + m) for m in {CUDA_MODULES!r}]\n"
+        "entries = [e for m in mods for e in vars(m).values() if isinstance(e, build.Entry)]\n"
+        "assert len(entries) >= 10, len(entries)\n"
+        "assert all(e.fn == e._first_call for e in entries)\n"
+        "assert build._lib is None\n"
+        "print('ok', len(entries))\n")
+    env = {k: v for k, v in os.environ.items() if k not in ("CUDA_HOME", "CUDA_PATH")}
+    env["PATH"] = os.path.dirname(sys.executable)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.startswith("ok")
+
+
+class _CountingLibrary:
+    """Stands in for the loaded kernel library: counts symbol look-ups."""
+
+    def __init__(self):
+        self.lookups, self.calls = [], []
+
+    def __getattr__(self, name):
+        self.lookups.append(name)
+        calls = self.calls
+
+        class Fn:
+            argtypes = restype = None
+
+            def __call__(self, *args):
+                calls.append(args)
+                return 0
+        return Fn()
+
+
+def test_entry_resolves_its_symbol_once(monkeypatch):
+    import ctypes
+
+    from paddle_tpu_torch.ops.cuda import build
+    lib = _CountingLibrary()
+    loads = []
+    monkeypatch.setattr(build, "_load", lambda: loads.append(1) or lib)
+    entry = build.Entry("ptt_some_kernel", [ctypes.c_void_p, ctypes.c_int])
+    assert entry.fn == entry._first_call and not loads     # nothing at construction
+    for i in range(5):
+        assert entry.fn(i, 7) == 0
+    assert lib.lookups == ["ptt_some_kernel"] and loads == [1]
+    assert lib.calls == [(i, 7) for i in range(5)]
+    assert entry.fn.argtypes == [ctypes.c_void_p, ctypes.c_int]
+    assert entry.fn.restype is ctypes.c_int
+    assert entry.fn != entry._first_call                   # the hot path is the C function
+
+
+def test_launch_passes_the_raw_stream_and_raises_on_an_error_code(monkeypatch):
+    from paddle_tpu_torch.ops.cuda import build
+    seen = []
+    monkeypatch.setattr(build, "_raw_stream", lambda index: 1000 + index)
+    monkeypatch.setattr(build, "_get_device", lambda: 0)
+    entry = build.Entry("ptt_x", [])
+    entry.fn = lambda *args: seen.append(args) or 0
+    build.launch(entry, "x", torch.device("cuda", 0), 1, 2)
+    assert seen == [(1, 2, 1000)]
+    entry.fn = lambda *args: 700
+    with pytest.raises(RuntimeError, match="x: CUDA error 700"):
+        build.launch(entry, "x", torch.device("cuda", 0), 1)
+
+
+def _bad_gather_arguments():
+    i32 = lambda *shape: torch.zeros(*shape, dtype=torch.int32)
+    w = torch.zeros(4, 8)
+    return [
+        ("w_3d", (w[None], i32(3)), ValueError, r"w \[V, D\]"),
+        ("w_1d", (w[0], i32(3)), ValueError, r"w \[V, D\]"),
+        ("ids_2d", (w, i32(3, 1)), ValueError, r"ids \[N\]"),
+        ("ids_int64", (w, torch.zeros(3, dtype=torch.int64)), TypeError, "int32"),
+        ("ids_float", (w, torch.zeros(3)), TypeError, "int32"),
+        ("ids_elsewhere", (w, i32(3).to("meta")), ValueError, "one CUDA device"),
+        ("w_elsewhere", (w.to("meta"), i32(3)), ValueError, "one CUDA device"),
+        ("both_not_cuda", (w.to("meta"), i32(3).to("meta")), ValueError, "one CUDA device"),
+    ]
+
+
+@pytest.mark.parametrize("case", _bad_gather_arguments(), ids=lambda c: c[0])
+def test_gather_rows_argument_errors(case):
+    from paddle_tpu_torch.ops.cuda.embedding import gather_rows
+    _, args, exc, match = case
+    with pytest.raises(exc, match=match):
+        gather_rows(*args)
+
+
+@pytest.mark.parametrize("case", ["rows_shape", "rows_elsewhere"])
+def test_scatter_add_rows_argument_errors(case):
+    from paddle_tpu_torch.ops.cuda.embedding import scatter_add_rows
+    w, ids = torch.zeros(4, 8), torch.zeros(3, dtype=torch.int32)
+    rows = torch.zeros(3, 4) if case == "rows_shape" else torch.zeros(3, 8).to("meta")
+    with pytest.raises(ValueError, match="rows \\[N, D\\]" if case == "rows_shape"
+                       else "one CUDA device"):
+        scatter_add_rows(w, ids, rows)
+
+
 def _cuda_calls():
     """(module, plain-version name, call on CUDA tensors) per wrapper."""
     from paddle_tpu_torch.ops.cuda import (embedding, flash_attention,
