@@ -193,13 +193,29 @@ def _lower_generic_grad(ctx: LowerCtx, op: OpDesc, fwd_type: str):
 class _GradTraceCtx(LowerCtx):
     """The context a forward lowering runs in while its gradient is taken:
     differentiable inputs come from the leaf tensors, every other read goes
-    through to the real environment detached, and writes are captured."""
+    through to the real environment detached, and writes are captured.
+    Random ops draw from a fork of the base generator's state, so the
+    re-run neither advances the live generator nor depends on its later
+    state (the JAX package reuses the forward's key without consuming it)."""
 
     def __init__(self, base: LowerCtx, overrides: Dict[str, Any]):
-        super().__init__(base.block, {}, base.generator, base.device)
+        super().__init__(base.block, {}, None, base.device)
         self._base = base
         self._overrides = overrides
         self.captured: Dict[str, Any] = {}
+
+    @property
+    def generator(self):
+        # forked at the first draw: most lowerings draw nothing
+        if self._fork is None:
+            base = self._base.generator
+            self._fork = torch.Generator(device=base.device)
+            self._fork.set_state(base.get_state())
+        return self._fork
+
+    @generator.setter
+    def generator(self, value):
+        self._fork = value
 
     def read_opt(self, name: str):
         if name in self.captured:

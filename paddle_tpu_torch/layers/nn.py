@@ -11,7 +11,8 @@ __all__ = ["fc", "embedding", "layer_norm", "dropout", "reshape", "scale",
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
        act=None, name=None):
-    """Fully-connected layer = mul + elementwise_add + activation."""
+    """Fully-connected layer = mul (one per input) + sum (over several
+    inputs) + elementwise_add + activation."""
     helper = LayerHelper("fc", input=input, param_attr=param_attr,
                          bias_attr=bias_attr, act=act, name=name)
     inputs = input if isinstance(input, (list, tuple)) else [input]
@@ -29,10 +30,13 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
                          attrs={"x_num_col_dims": num_flatten_dims,
                                 "y_num_col_dims": 1})
         mul_results.append(tmp)
-    if len(mul_results) != 1:
-        raise NotImplementedError("fc over several inputs needs the `sum` op, "
-                                  "which is not ported yet")
-    pre_act = helper.append_bias_op(mul_results[0], dim_start=num_flatten_dims)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_variable_for_type_inference(inputs[0].dtype)
+        helper.append_op("sum", inputs={"X": mul_results},
+                         outputs={"Out": pre_bias})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
     return helper.append_activation(pre_act)
 
 

@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Every ``paddle_tpu_torch/csrc/*.cu`` is compiled by its own ``nvcc``
-process (all started together) for ``sm_90a`` and linked into one shared
-library with a plain C interface, which Python loads through ``ctypes``.
+process (all started together) for ``sm_90a`` (the ``*.cuh`` headers they
+include are hashed with them) and linked into one shared library with a
+plain C interface, which Python loads through ``ctypes``.
 The build reads only ``csrc/``, runs once at first use under a thread lock
 and a file lock, and writes into ``build/paddle_tpu_torch/`` beside the
 package.  The library's file name carries a hash of the sources and flags,

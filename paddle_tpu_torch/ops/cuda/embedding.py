@@ -24,7 +24,9 @@ from . import build
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
 _GATHER = build.Entry("ptt_gather_rows_f32", _ARGTYPES)
-_SCATTER_ADD = build.Entry("ptt_scatter_add_rows_f32", _ARGTYPES)
+_SCATTER_ADD = build.Entry("ptt_scatter_add_rows_f32", _ARGTYPES[:3] + [ctypes.c_void_p]
+                           + _ARGTYPES[3:])
+_SORT_TILE = 2048   # ids a block of the scatter-add's radix sort
 
 
 def _check(name, w, flat_ids, rows=None) -> bool:
@@ -86,7 +88,10 @@ def scatter_add_rows_plain(w: torch.Tensor, flat_ids: torch.Tensor,
                            rows: torch.Tensor) -> torch.Tensor:
     """``index_add_`` into zeros, out-of-range ids masked to add nothing
     (``zeros.at[ids].add`` in the JAX package's composed path would wrap
-    -1 onto the last row instead)."""
+    -1 onto the last row instead).  On the CPU ``index_add_`` adds in
+    ascending n, the kernel's order (a masked id adds +0.0, which changes
+    no sum that starts from +0.0); on the card it adds by atomics, so the
+    kernel is held against this version run on a CPU copy."""
     valid = (flat_ids >= 0) & (flat_ids < w.shape[0])
     out = torch.zeros(w.shape, dtype=w.dtype, device=w.device)
     masked = torch.where(valid[:, None], rows.to(w.dtype),
@@ -98,16 +103,25 @@ def scatter_add_rows(w: torch.Tensor, flat_ids: torch.Tensor,
                      rows: torch.Tensor) -> torch.Tensor:
     """Dense [V, D] gradient of a gather: zeros with ``rows`` [N, D] added
     at ``flat_ids`` [N] int32.  ``w`` gives the shape, type and device; its
-    values are not read.  The kernel sums duplicates with float atomics,
-    so the order of the additions, and the last bits, vary run to run."""
+    values are not read.  Each output row is the sum of its rows in
+    ascending n from +0.0, on the CPU (``index_add_``) and in the kernel (a
+    stable radix sort of the ids, then ordered segment sums), so the kernel
+    is bit-equal to the plain version run on the CPU."""
     if _check("scatter_add_rows", w, flat_ids, rows):
         return scatter_add_rows_plain(w, flat_ids, rows)
     n, (v, d) = flat_ids.shape[0], w.shape
+    if n >= 2 ** 31:
+        raise ValueError("scatter_add_rows kernel takes fewer than 2**31 ids")
     out = torch.empty((v, d), dtype=w.dtype, device=w.device)
     if v == 0 or d == 0:
         return out
+    # the sort's scratch: two key and two index arrays, the digit histogram
+    # of every tile, the count of valid ids
+    scratch = torch.empty((4 * n + 256 * -(-n // _SORT_TILE) + 1,), dtype=torch.int32,
+                          device=w.device)
     build.launch(_SCATTER_ADD, "scatter_add_rows", w.device,
-                 flat_ids.data_ptr(), rows.data_ptr(), out.data_ptr(), n, v, d)
+                 flat_ids.data_ptr(), rows.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                 n, v, d)
     scatter_add_rows.launches += 1
     return out
 

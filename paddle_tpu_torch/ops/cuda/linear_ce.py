@@ -1,6 +1,7 @@
 """Fused final projection + softmax cross-entropy: the hand-written Hopper
-kernels (csrc/linear_ce.cu the forward, csrc/linear_ce_bwd.cu the backward)
-and their plain PyTorch versions.
+kernels (csrc/linear_ce.cu the forward, csrc/linear_ce_bwd.cu the backward,
+both on the 3xTF32 tensor-core mainloop of csrc/gemm_3xtf32.cuh) and their
+plain PyTorch versions.
 
 Replace the TPU kernels ``paddle_tpu/ops/pallas/linear_ce.py::_fwd_kernel``
 (``linear_ce_fwd``) and ``::_bwd_kernel`` (``linear_ce_bwd``).
@@ -28,10 +29,9 @@ import torch
 from . import build
 
 CHUNK = 4096   # vocabulary columns per chunk (plain versions, kernel backward)
-FWD_TILES_PER_SPLIT = 8
 
 _FWD = build.Entry("ptt_linear_ce_fwd_f32",
-                   [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                   [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 _BWD = build.Entry("ptt_linear_ce_bwd_f32",
                    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 _GEMM = build.Entry("ptt_gemm_3xtf32",
@@ -106,22 +106,26 @@ def linear_ce_fwd_plain(x, w, b, labels):
 
 def linear_ce_fwd(x, w, b, labels):
     """x [B, D], w [D, V], b [V] or None, labels [B] int32 -> (lse, label
-    logit), [B] float32 each."""
+    logit), [B] float32 each.  One call runs the product in 3xTF32 on the
+    tensor cores, one launch over the whole vocabulary whose epilogue
+    reduces each half of every 128-column vocabulary tile, and a merge of
+    the halves in order: deterministic (no float atomics)."""
     if _check("linear_ce_fwd", x, w, b, labels):
         return linear_ce_fwd_plain(x, w, b, labels)
-    bsz, v = x.shape[0], w.shape[1]
+    bsz, d = x.shape
+    v = w.shape[1]
+    if d == 0:
+        raise ValueError("linear_ce_fwd kernel needs D > 0")
     lse = torch.empty((bsz,), dtype=torch.float32, device=x.device)
     lab = torch.empty_like(lse)
     if bsz == 0:
         return lse, lab
-    # a block walks FWD_TILES_PER_SPLIT vocabulary tiles of 128 columns
-    n_tiles = -(-v // 128)
-    splits = -(-n_tiles // FWD_TILES_PER_SPLIT)
-    part = torch.empty((3, splits, bsz), dtype=torch.float32, device=x.device)
+    # scratch: the (max, sum of exp) of each half of every 128-column
+    # vocabulary tile, for every row
+    part = torch.empty((2, 2 * -(-v // 128), bsz), dtype=torch.float32, device=x.device)
     build.launch(_FWD, "linear_ce_fwd", x.device,
                  x.data_ptr(), w.data_ptr(), _ptr(b), labels.data_ptr(), lse.data_ptr(),
-                 lab.data_ptr(), part[0].data_ptr(), part[1].data_ptr(), part[2].data_ptr(),
-                 bsz, x.shape[1], v, splits)
+                 lab.data_ptr(), part[0].data_ptr(), part[1].data_ptr(), bsz, d, v)
     linear_ce_fwd.launches += 1
     return lse, lab
 
@@ -188,7 +192,7 @@ linear_ce_bwd.launches = 0
 
 
 def split_tf32(t: torch.Tensor):
-    """(hi, lo) of a float32 tensor as csrc/linear_ce_bwd.cu splits it, bit
+    """(hi, lo) of a float32 tensor as csrc/gemm_3xtf32.cuh splits it, bit
     for bit: ``hi`` is ``t`` with its low 13 mantissa bits cleared (what a
     tensor core reads of a float32 word), ``lo`` is ``t - hi`` (exact)
     rounded to TF32, to nearest with ties away from zero
@@ -209,7 +213,7 @@ def gemm_3xtf32_plain(at: torch.Tensor, bk: torch.Tensor) -> torch.Tensor:
 
 def gemm_3xtf32(at: torch.Tensor, bk: torch.Tensor, n_fast: bool = False) -> torch.Tensor:
     """``at.T @ bk.T`` for ``at`` [K, M] and ``bk`` [N, K] float32: the
-    backward's 3xTF32 tensor-core mainloop on its own (both operands as it
+    3xTF32 tensor-core mainloop of K7 and K8 on its own (both operands as it
     reads them: ``at`` M-major through registers, ``bk`` K-major through
     shared memory), for tests and measurements of that mainloop."""
     if at.ndim != 2 or bk.ndim != 2 or at.shape[0] != bk.shape[1]:

@@ -1,6 +1,6 @@
-"""The 3xTF32 split of the fused linear-CE backward (K8) on the CPU.
+"""The 3xTF32 split of the fused linear-CE kernels (K7, K8) on the CPU.
 
-``split_tf32`` mirrors, bit for bit, how csrc/linear_ce_bwd.cu splits a
+``split_tf32`` mirrors, bit for bit, how csrc/gemm_3xtf32.cuh splits a
 float32 operand for the tensor cores: ``hi`` with the low 13 mantissa bits
 cleared, ``lo`` the exact rest rounded to TF32.  The kernel itself runs
 only on the card (tests/test_torch_gpu.py); here the split's arithmetic is
