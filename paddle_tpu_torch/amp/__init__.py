@@ -1,26 +1,39 @@
-"""Mixed precision and int8 quantization as program rewrites.
+"""bf16 mixed precision and int8 quantization as program rewrites.
 
 The port of the JAX package's ``paddle_tpu.amp``: :class:`AmpPolicy` (per
 op-type dtype rules), :class:`AmpConfig` (the ``amp=`` knob of
 ``Executor``/``Inferencer``/``ServingSession``) and :func:`compose_passes`,
 which builds the executor's pass pipeline from the ``passes=``, ``amp=``
-and ``kernels=`` knobs.  Ported: the ``amp-quant-int8`` serving pass
-(``AmpConfig(bf16=False, quant=True)``), the simulated-int8 path that the
-kernel tier turns into real int8 GEMMs.  Not ported yet: the ``amp-bf16``
-training pass (``AmpConfig(bf16=True)`` raises) and the legacy
-``enable_amp``/``amp_guard`` bridge.
+and ``kernels=`` knobs:
+
+* ``amp-bf16`` -- bf16 compute with float32 master weights and optimizer
+  state, bf16 gradients promoted at the update (``AmpConfig()``);
+* ``amp-quant-int8`` -- the simulated-int8 serving path that the kernel
+  tier turns into real int8 GEMMs (``AmpConfig(bf16=False, quant=True)``).
+
+The legacy API flags a program for the ``amp-bf16`` pass; the executor
+rewrites it on first run, after its own pipeline (the JAX package's
+order: kernel tier first, then the bridge).  A program the pass cannot
+rewrite (several blocks) raises there instead of running in float32.
 
 Usage::
 
+    exe = Executor(CUDAPlace(0), amp=AmpConfig())
+    amp.enable_amp(main_program)        # or: the legacy flag, before run
+    with amp.amp_guard(main_program):
+        exe.run(...)
     session = ServingSession(infer_func,
                              amp=AmpConfig(bf16=False, quant=True),
                              kernels=True)
 """
 from __future__ import annotations
 
-from .policy import AmpConfig, AmpPolicy
+import contextlib
 
-__all__ = ["AmpConfig", "AmpPolicy", "as_amp_config", "compose_passes"]
+from .policy import BLACKLIST, WHITELIST, AmpConfig, AmpPolicy
+
+__all__ = ["AmpConfig", "AmpPolicy", "as_amp_config", "compose_passes",
+           "enable_amp", "disable_amp", "amp_guard", "white_list", "black_list"]
 
 
 def as_amp_config(amp):
@@ -42,20 +55,16 @@ def as_amp_config(amp):
 def compose_passes(passes, amp, kernels=None):
     """One executor pipeline from the ``passes=``, ``amp=`` and
     ``kernels=`` knobs, in the JAX package's order: the user's passes,
-    then ``amp-quant-int8``, then ``pallas-kernels`` (which consumes the
-    quant pass's simulated groups and must see the post-amp op set).
-    ``kernels`` is a resolved
+    then ``amp-quant-int8`` (it claims the policy-selected float32 matmuls
+    before the bf16 rewrite would narrow them), ``amp-bf16``, then
+    ``pallas-kernels`` (which consumes the quant pass's simulated groups
+    and must see the post-amp op set).  ``kernels`` is a resolved
     :class:`~paddle_tpu_torch.ops.cuda.policy.KernelPolicy` or ``None``.
     Returns a ``PassPipeline`` (``verify="off"``) or ``None``."""
     from ..ops.cuda.kernel_pass import PallasKernelsPass
     from ..passes import PassPipeline, make_pipeline
-    from .passes import QuantInt8Pass
+    from .passes import AmpBf16Pass, QuantInt8Pass
     cfg = as_amp_config(amp)
-    if cfg is not None and cfg.bf16:
-        raise NotImplementedError(
-            "AmpConfig(bf16=True): the amp-bf16 pass is not ported yet (it "
-            "comes with the bf16 training slice); use AmpConfig(bf16=False, "
-            "quant=True) for int8 serving")
     base = make_pipeline(passes)
     if cfg is None and kernels is None:
         return base
@@ -63,7 +72,50 @@ def compose_passes(passes, amp, kernels=None):
     if cfg is not None and cfg.quant:
         extra.append(QuantInt8Pass(cfg.policy, bits=cfg.quant_bits,
                                    quant_ops=cfg.quant_ops))
+    if cfg is not None and cfg.bf16:
+        extra.append(AmpBf16Pass(cfg.policy))
     if kernels is not None:
         extra.append(PallasKernelsPass(kernels))
     insts = list(base.passes) if base is not None else []
     return PassPipeline(insts + extra, verify="off")
+
+
+# --------------------------------------------------------------- legacy API
+
+def enable_amp(program=None):
+    """Flag ``program`` (default: the main program) for the ``amp-bf16``
+    pass with the default policy: the executor rewrites it on first run,
+    fingerprint-identical to ``PassPipeline(["amp-bf16"])``.  Prefer
+    ``Executor(amp=AmpConfig(...))``."""
+    from ..core.framework import default_main_program
+    program = program or default_main_program()
+    program.amp = True
+    return program
+
+
+def disable_amp(program=None):
+    from ..core.framework import default_main_program
+    program = program or default_main_program()
+    program.amp = False
+    return program
+
+
+@contextlib.contextmanager
+def amp_guard(program=None, enable: bool = True):
+    """Set ``program.amp`` to ``enable`` inside the block, then restore it."""
+    from ..core.framework import default_main_program
+    program = program or default_main_program()
+    prev = program.amp
+    program.amp = bool(enable)
+    try:
+        yield program
+    finally:
+        program.amp = prev
+
+
+def white_list():
+    return set(WHITELIST)
+
+
+def black_list():
+    return set(BLACKLIST)

@@ -1,30 +1,353 @@
-"""The int8 fake-quant serving pass, ``amp-quant-int8``.
+"""The two dtype-policy passes: bf16 AMP training (``amp-bf16``) and int8
+fake-quant serving (``amp-quant-int8``).
 
-The port of the JAX package's ``QuantInt8Pass``
-(``paddle_tpu/amp/passes.py``): policy-selected float32 matmuls of an
-inference program get ``fake_quantize_abs_max`` on both operands, run on
-the simulated-int8 values, and a ``fake_dequantize_max_abs`` with the
-combined scale ``s_x * s_w`` (an inserted ``elementwise_mul``) and
-``max_range = bin_cnt**2`` restores the float32 scale.  The pass name, the
-inserted op types and the var names (``@QUANT``, ``@QSCALE``, ``@QRAW``)
-are those of the JAX package: both packages write equal ProgramDescs.
+The port of the JAX package's ``paddle_tpu/amp/passes.py``.  Pass names,
+configs, inserted op types, var names and attrs are the JAX package's, so
+both packages write equal ProgramDescs (the tests compare them).
 
+``amp-bf16`` (:class:`AmpBf16Pass`) -- the training rewrite:
+
+* whitelist (bf16-class) ops get ``cast`` ops on their float32 inputs and
+  their float32 outputs re-declared bf16; parameters stay float32 master
+  weights in the scope (the cast copies ``<name>@BF16`` live inside the
+  step);
+* blacklist (fp32-class) ops, and every optimizer-update op by role, get
+  bf16 inputs cast back to float32: bf16 gradients promote at the update;
+* passthrough ops harmonize mixed float inputs to bf16;
+* a gradient produced for a cast copy is renamed onto it
+  (``<name>@BF16@GRAD``), and a repeated-gradient ``sum`` merge writes a
+  float32 ``<name>@FP32ACC`` and one cast back onto the merged name;
+* every inserted cast carries pass provenance and the consumer's callsite;
+  a changed rewrite clears ``program.amp`` and stamps
+  ``program._amp_policy_fp``.
+
+One repair against the JAX pass: the rewriter reuses one cast per (name,
+dtype), and the JAX pass keeps serving that cast after the ``sum`` merge's
+cast-back has written the name again, so a later float32 reader of a merged
+gradient reads the first contribution alone (23 such reads in a 2+2-layer
+transformer, 67 in a 6+6).  Here the cast-back drops the name's cached
+casts, so the next reader casts the merged value.  Everything else is as
+the JAX pass has it.
+
+``amp-quant-int8`` (:class:`QuantInt8Pass`) -- the serving rewrite:
+policy-selected float32 matmuls of an inference program get
+``fake_quantize_abs_max`` on both operands, run on the simulated-int8
+values, and a ``fake_dequantize_max_abs`` with the combined scale ``s_x *
+s_w`` (an inserted ``elementwise_mul``) and ``max_range = bin_cnt**2``
+restores the float32 scale (var names ``@QUANT``, ``@QSCALE``, ``@QRAW``).
 With the kernel tier on, the ``pallas-kernels`` pass collapses each such
 group into one ``pallas_int8_matmul`` op, the int8 GEMM kernel (K4).
-
-The ``amp-bf16`` training pass is not ported yet (it comes with the bf16
-training slice).
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
-from ..core.desc import CALLSITE_ATTR, PASS_PROVENANCE_ATTR, OpDesc, VarDesc
+from ..core.desc import (CALLSITE_ATTR, PASS_PROVENANCE_ATTR, BlockDesc,
+                         OpDesc, VarDesc)
 from ..core.dtypes import DataType
 from ..passes.base import PassContext, PassResult, ProgramPass, register_pass
-from .policy import AmpPolicy
+from .policy import FP32_OUT, GRAD_UNCAST, KEEP_OPS, AmpPolicy
 
-__all__ = ["QuantInt8Pass"]
+__all__ = ["AmpBf16Pass", "QuantInt8Pass"]
+
+_CSP_OPS = frozenset({"channel_create", "channel_send", "channel_recv",
+                      "channel_close", "go", "select"})
+
+_GRAD_SUFFIX = "@GRAD"
+
+
+def _unsupported(desc) -> Optional[str]:
+    """Program shapes the dtype passes do not rewrite: control-flow
+    sub-blocks and CSP programs (the JAX package runs those interpreted,
+    with a lowering-time cast path the port does not have)."""
+    if desc.num_blocks() > 1:
+        return "multi-block program (control flow)"
+    for op in desc.block(0).ops:
+        if op.type in _CSP_OPS:
+            return f"CSP program ({op.type})"
+    return None
+
+
+def _is_float(dt) -> bool:
+    return dt in (DataType.FP32, DataType.BF16)
+
+
+class _DtypeRewriter:
+    """Cast-insertion state for one block walk: each var's *runtime* dtype
+    (which may differ from the declared desc for ``@GRAD`` vars: declared
+    mirrors the forward var, the runtime cotangent follows the primal the
+    grad op read) and one reusable cast var per (source, target dtype)
+    while the source is not written again."""
+
+    def __init__(self, pass_: ProgramPass, block: BlockDesc,
+                 result: PassResult, protected=()):
+        self.pass_ = pass_
+        self.block = block
+        self.result = result
+        self.rt: Dict[str, DataType] = {}
+        self.cast_var: Dict[Tuple[str, DataType], str] = {}
+        # every cast copy ever declared, cached or not: the declared-dtype
+        # mirror loop leaves them at their cast's out_dtype
+        self.copies: set = set()
+        # grad outputs renamed onto their cast-copy primal (see
+        # retype_outputs); applied to every later op reference
+        self.rename: Dict[str, str] = {}
+        # names that must keep their identity (fetch targets)
+        self.protected = frozenset(protected)
+        # grad vars declared at their runtime dtype instead of the forward
+        # mirror (sum merge outputs); the mirror loop skips these
+        self.truthful: set = set()
+
+    def apply_renames(self, op: OpDesc) -> None:
+        if not self.rename:
+            return
+        for names in list(op.inputs.values()) + list(op.outputs.values()):
+            for i, v in enumerate(names):
+                if v in self.rename:
+                    names[i] = self.rename[v]
+                    self.result.changed = True
+
+    def runtime_dtype(self, name: str) -> Optional[DataType]:
+        hit = self.rt.get(name)
+        if hit is not None:
+            return hit
+        vd = self.block.find_var(name)
+        return vd.dtype if vd is not None else None
+
+    def cast_inputs(self, op: OpDesc, index: int, want: DataType) -> int:
+        """Insert (or reuse) ``cast`` ops so every float input of ``op``
+        arrives as ``want``; renames the op's input references in place.
+        Returns the number of ops inserted before ``index``."""
+        src_dt = DataType.FP32 if want == DataType.BF16 else DataType.BF16
+        inserted = 0
+        for slot, names in op.inputs.items():
+            for i, v in enumerate(names):
+                if not v or self.runtime_dtype(v) != src_dt:
+                    continue
+                key = (v, want)
+                cv = self.cast_var.get(key)
+                if cv is None:
+                    cv = f"{v}@{'BF16' if want == DataType.BF16 else 'FP32'}"
+                    src_vd = self.block.find_var(v)
+                    if self.block.find_var(cv) is None:
+                        self.block.add_var(VarDesc(
+                            name=cv, shape=tuple(src_vd.shape), dtype=want,
+                            persistable=False, stop_gradient=True))
+                        self.result.vars_added += 1
+                    cast = OpDesc(
+                        type="cast", inputs={"X": [v]}, outputs={"Out": [cv]},
+                        attrs={"in_dtype": src_dt.value,
+                               "out_dtype": want.value,
+                               "op_role": op.attrs.get("op_role", "forward")})
+                    self.pass_.insert_op(
+                        self.block, index + inserted, cast, self.result,
+                        callsite=op.attrs.get(CALLSITE_ATTR))
+                    self.cast_var[key] = cv
+                    self.copies.add(cv)
+                    self.rt[cv] = want
+                    inserted += 1
+                names[i] = cv
+                self.result.changed = True
+        return inserted
+
+    def written_again(self, name: str) -> None:
+        """``name`` gets a new value: casts of the old one must not serve
+        later readers (the repair; see the module docstring)."""
+        for key in [k for k in self.cast_var if k[0] == name]:
+            del self.cast_var[key]
+
+    def _grad_base(self, name: str):
+        """The forward var a ``...@GRAD...`` name mirrors (covers
+        ``@GRAD@RENAME@...`` accumulation copies too), or None."""
+        pos = name.find(_GRAD_SUFFIX)
+        if pos < 0:
+            return None
+        return self.block.find_var(name[:pos])
+
+    def retype_outputs(self, op: OpDesc, want: DataType,
+                       index: Optional[int] = None) -> int:
+        """Declare ``op``'s float outputs as ``want``.  A grad var's
+        declared dtype mirrors its forward var; where that disagrees with
+        ``want``, this grad op read a cast copy of the primal
+        (``X@BF16``), and the cotangent is renamed onto the copy
+        (``X@BF16@GRAD``).  Returns the number of ops inserted after
+        ``op`` (the float32 accumulation cast-back); ``index`` is ``op``'s
+        position in the block."""
+        inserted_after = 0
+        for slot, names in op.outputs.items():
+            for i, o in enumerate(names):
+                if not o:
+                    continue
+                vd = self.block.find_var(o)
+                if vd is None or vd.persistable or not _is_float(vd.dtype):
+                    continue
+                self.rt[o] = want
+                base = self._grad_base(o)
+                if base is not None and base.dtype != want:
+                    copy = self.cast_var.get((base.name, want))
+                    if (copy is not None and o.endswith(_GRAD_SUFFIX)
+                            and o == base.name + _GRAD_SUFFIX
+                            and o not in self.protected):
+                        new = copy + _GRAD_SUFFIX
+                        if self.block.find_var(new) is None:
+                            self.block.add_var(VarDesc(
+                                name=new, shape=tuple(vd.shape),
+                                dtype=want, stop_gradient=True))
+                            self.result.vars_added += 1
+                        names[i] = new
+                        self.rename[o] = new
+                        self.rt[new] = want
+                        del self.block.vars[o]
+                        self.result.vars_removed += 1
+                        self.result.changed = True
+                    elif (op.type == "sum" and index is not None
+                            and vd.dtype != want):
+                        # repeated-grad merge: the sum re-writes a grad name
+                        # that already has a producer on the bf16 path, but
+                        # its inputs were just cast to ``want``.  The sum
+                        # writes ``...@FP32ACC`` at the accumulation dtype and
+                        # one cast-back lands the result on the original
+                        # name at its declared (mirror) dtype
+                        acc = f"{o}@FP32ACC"
+                        if self.block.find_var(acc) is None:
+                            self.block.add_var(VarDesc(
+                                name=acc, shape=tuple(vd.shape),
+                                dtype=want, persistable=False,
+                                stop_gradient=True))
+                            self.result.vars_added += 1
+                        names[i] = acc
+                        self.rt[acc] = want
+                        self.truthful.add(acc)
+                        back = OpDesc(
+                            type="cast", inputs={"X": [acc]},
+                            outputs={"Out": [o]},
+                            attrs={"in_dtype": want.value,
+                                   "out_dtype": vd.dtype.value,
+                                   "op_role": op.attrs.get("op_role",
+                                                           "backward")})
+                        self.pass_.insert_op(
+                            self.block, index + 1 + inserted_after, back,
+                            self.result,
+                            callsite=op.attrs.get(CALLSITE_ATTR))
+                        self.rt[o] = vd.dtype
+                        self.written_again(o)
+                        inserted_after += 1
+                        self.result.changed = True
+                    # else: declared keeps mirroring the forward var; the
+                    # runtime cotangent diverges and consumers re-cast
+                    continue
+                if base is not None:
+                    if vd.dtype != base.dtype:
+                        vd.dtype = base.dtype
+                        self.result.changed = True
+                    continue
+                if vd.dtype != want:
+                    vd.dtype = want
+                    self.result.changed = True
+        return inserted_after
+
+    def note_outputs(self, op: OpDesc) -> None:
+        """Untouched op: runtime dtype follows the declared desc."""
+        for o in op.output_names():
+            if not o:
+                continue
+            vd = self.block.find_var(o)
+            if vd is not None and _is_float(vd.dtype):
+                base = self._grad_base(o)
+                self.rt[o] = (self.runtime_dtype(base.name)
+                              if base is not None else vd.dtype)
+
+
+@register_pass
+class AmpBf16Pass(ProgramPass):
+    """Rewrite a (training or inference) program to bf16 mixed precision
+    under an :class:`~paddle_tpu_torch.amp.AmpPolicy` (module docstring)."""
+
+    name = "amp-bf16"
+
+    def __init__(self, policy: Optional[AmpPolicy] = None):
+        self.policy = policy or AmpPolicy()
+
+    def config(self) -> dict:
+        return {"policy": self.policy.fingerprint()}
+
+    def apply(self, ctx: PassContext, result: PassResult) -> None:
+        skip = _unsupported(ctx.desc)
+        if skip:
+            result.skipped = skip
+            return
+        block = ctx.desc.block(0)
+        rw = _DtypeRewriter(self, block, result,
+                            protected=ctx.fetch_names or ())
+
+        i = 0
+        while i < len(block.ops):
+            op = block.ops[i]
+            rw.apply_renames(op)
+            if op.type in KEEP_OPS or op.type in GRAD_UNCAST \
+                    or op.attrs.get(PASS_PROVENANCE_ATTR) == "amp-quant-int8":
+                rw.note_outputs(op)
+                i += 1
+                continue
+            role = op.attrs.get("op_role")
+            if role in ("optimize", "lr_sched"):
+                # optimizer updates promote bf16 grads to float32: master
+                # weights and optimizer state never see bf16
+                cls = "fp32"
+            else:
+                cls = self.policy.class_for(op.type)
+            if cls == "bf16":
+                if any((vd := block.find_var(o)) is not None
+                       and vd.persistable for o in op.output_names() if o):
+                    # an op writing persistable state keeps float32: the
+                    # scope is the master copy
+                    rw.note_outputs(op)
+                    i += 1
+                    continue
+                i += rw.cast_inputs(op, i, DataType.BF16)
+                if op.type in FP32_OUT:
+                    # float32-accumulating kernel: outputs really are float32
+                    rw.note_outputs(op)
+                else:
+                    i += rw.retype_outputs(op, DataType.BF16, index=i)
+            elif cls == "fp32":
+                i += rw.cast_inputs(op, i, DataType.FP32)
+                i += rw.retype_outputs(op, DataType.FP32, index=i)
+            else:  # passthrough: harmonize mixed float inputs to bf16
+                in_dts = {rw.runtime_dtype(v)
+                          for ns in op.inputs.values() for v in ns if v}
+                if DataType.BF16 in in_dts:
+                    i += rw.cast_inputs(op, i, DataType.BF16)
+                    i += rw.retype_outputs(op, DataType.BF16, index=i)
+                else:
+                    rw.note_outputs(op)
+            i += 1
+
+        # declared @GRAD dtypes mirror their (possibly re-declared) forward
+        # vars; cast copies keep their cast's out_dtype
+        for name, vd in block.vars.items():
+            if name in rw.copies or name in rw.truthful:
+                continue
+            pos = name.find(_GRAD_SUFFIX)
+            if pos < 0:
+                continue
+            base = block.find_var(name[:pos])
+            if base is None:
+                continue
+            if _is_float(vd.dtype) and _is_float(base.dtype) \
+                    and vd.dtype != base.dtype:
+                vd.dtype = base.dtype
+                result.changed = True
+
+        if result.changed:
+            block.program._bump()
+            # this rewrite is the amp application: the flag is spent, and
+            # the policy's fingerprint names the rewrite
+            if ctx.program is not None:
+                ctx.program.amp = False
+                ctx.program._amp_policy_fp = self.policy.fingerprint()
+            result.notes.append(
+                f"policy {self.policy.fingerprint()[:12]}")
 
 
 @register_pass
@@ -47,8 +370,9 @@ class QuantInt8Pass(ProgramPass):
                 "ops": list(self.quant_ops)}
 
     def apply(self, ctx: PassContext, result: PassResult) -> None:
-        if ctx.desc.num_blocks() > 1:
-            result.skipped = "multi-block program (control flow)"
+        skip = _unsupported(ctx.desc)
+        if skip:
+            result.skipped = skip
             return
         block = ctx.desc.block(0)
         if any(op.attrs.get("op_role") in ("backward", "optimize")
@@ -97,7 +421,7 @@ class QuantInt8Pass(ProgramPass):
             out_vd = block.find_var(out)
             if any(vd is None or vd.dtype != DataType.FP32
                    for vd in (xd, yd, out_vd)):
-                i += 1  # non-float32 matmuls stay as they are
+                i += 1  # bf16-rewritten or non-float32 matmuls stay as they are
                 continue
             cs = op.attrs.get(CALLSITE_ATTR)
             ins = quantize(x, i, cs)
@@ -124,7 +448,8 @@ class QuantInt8Pass(ProgramPass):
             op.inputs["Y"][0] = yq
             op.outputs["Out"] = [raw]
             # provenance on the rewritten matmul itself: the kernel pass
-            # collapses only the groups this pass built
+            # collapses only the groups this pass built, and the amp-bf16
+            # pass leaves the simulated-int8 arithmetic in float32
             op.attrs[PASS_PROVENANCE_ATTR] = self.name
             self.insert_op(block, i + ins + 1, OpDesc(
                 type="fake_dequantize_max_abs",

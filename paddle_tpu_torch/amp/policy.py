@@ -11,9 +11,9 @@ over **op types**:
   losses, reductions and norm statistics;
 * ``passthrough`` (everything else).
 
-Grad ops inherit their forward op's class.  In the port the policy selects
-the matmuls the ``amp-quant-int8`` pass quantizes; the ``amp-bf16`` pass
-comes with the bf16 training slice.
+Grad ops inherit their forward op's class.  The policy drives the
+``amp-bf16`` training rewrite and selects the matmuls the
+``amp-quant-int8`` pass quantizes.
 """
 from __future__ import annotations
 

@@ -4,7 +4,9 @@ The same ``DataType`` enum as the JAX package (string values are the
 serialized form, so a ``ProgramDesc`` written by either package parses in
 the other).  Each member maps 1:1 to a torch dtype; the numpy dtype is
 kept for feeds, which arrive as numpy arrays.  numpy has no bfloat16, so
-``DataType.BF16.np_dtype`` raises.
+``DataType.BF16.np_dtype`` raises: a bf16 var is fed from a float32 (or
+any float) array, rounded to bf16 on the way in, and a fetched bf16 value
+comes back as a float32 array (:func:`to_numpy`), an exact widening.
 """
 from __future__ import annotations
 
@@ -108,3 +110,12 @@ def coerce_feed_dtype(want: DataType) -> DataType:
     both packages see the same values in the same types."""
     return {DataType.INT64: DataType.INT32,
             DataType.FP64: DataType.FP32}.get(want, want)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a host numpy array.  numpy has no bfloat16, so a bf16
+    tensor comes back as float32: every bf16 value is a float32 value, so
+    the widening is exact."""
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()

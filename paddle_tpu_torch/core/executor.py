@@ -14,7 +14,10 @@ pipeline (``amp.compose_passes``) as in the JAX package.  ``kernels=None``
 is resolved per device, as the JAX package resolves it per backend: the
 kernel tier is on for a CUDA place, where the kernels run, and off on the
 CPU.  The pipeline runs once per (program uid, version, feed names, fetch
-names); the executor runs the rewritten program.
+names); the executor runs the rewritten program.  A program flagged by
+``amp.enable_amp`` then goes through the ``amp-bf16`` pass (the legacy
+bridge, memoized per program uid, version and fetch names), as in the JAX
+package; one the pass cannot rewrite raises.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import numpy as np
 import torch
 
 from .desc import BlockDesc, VarType
-from .dtypes import coerce_feed_dtype, convert_dtype
+from .dtypes import coerce_feed_dtype, convert_dtype, to_numpy
 from .framework import Program, Variable, default_main_program
 from .lower import LowerCtx, lower_block
 from .scope import Scope, global_scope
@@ -114,26 +117,63 @@ class Executor:
             self.passes = compose_passes(passes, amp, kernels=self.kernel_policy)
         else:
             self.passes = None
-        # (uid, version, feed names, fetch names) -> the program to run
+        # (uid, version, amp flag, feed names, fetch names) -> the program to run
         self._pass_memo: Dict[tuple, Program] = {}
+        # (uid, version, fetch names) -> the amp-bf16 rewrite of a program
+        # flagged by enable_amp
+        self._amp_bridge_memo: Dict[tuple, Program] = {}
 
     def _apply_passes(self, program: Program, feed_names: List[str],
                       fetch_names: List[str]) -> Program:
         """The rewritten program, from the pipeline run once per (program
-        uid, version, feed names, fetch names).  The rewrite lands on a
-        clone with the program's uid and a version of its own, so running
-        the rewritten program again hits the memo too."""
+        uid, version, amp flag, feed names, fetch names).  The rewrite lands
+        on a clone with the program's uid and a version of its own, so
+        running the rewritten program again hits the memo too.  A program
+        flagged by ``enable_amp`` goes through the bridge after the pipeline
+        (the flag is in the key: setting it does not move the version)."""
         if self.passes is None:
-            return program
-        key = (program.desc.uid, program.desc.version, tuple(sorted(feed_names)),
-               tuple(fetch_names))
+            return self._legacy_amp_rewrite(program, fetch_names)
+        names = (tuple(sorted(feed_names)), tuple(fetch_names))
+        key = (program.desc.uid, program.desc.version, program.amp) + names
         hit = self._pass_memo.get(key)
         if hit is not None:
             return hit
         new_prog, _ = self.passes.run(program, fetch_list=fetch_names,
                                       feed_names=feed_names)
+        new_prog = self._legacy_amp_rewrite(new_prog, fetch_names)
         self._pass_memo[key] = new_prog
-        self._pass_memo[(new_prog.desc.uid, new_prog.desc.version) + key[2:]] = new_prog
+        self._pass_memo[(new_prog.desc.uid, new_prog.desc.version, new_prog.amp) + names] = \
+            new_prog
+        return new_prog
+
+    def _legacy_amp_rewrite(self, program: Program,
+                            fetch_names: List[str]) -> Program:
+        """The ``program.amp = True`` bridge: the flag goes through the
+        ``amp-bf16`` pass with the default policy, so the legacy API is
+        fingerprint-identical to the pass path.  A program an amp pass has
+        already rewritten is left alone.  The JAX package runs a program
+        the pass skips (several blocks) with lowering-time casts; the port
+        has no such path, and running it in float32 would ignore the
+        flag, so it raises."""
+        if not program.amp or program._amp_policy_fp:
+            return program
+        key = (program.desc.uid, program.desc.version, tuple(fetch_names))
+        hit = self._amp_bridge_memo.get(key)
+        if hit is not None:
+            return hit
+        from ..passes import PassPipeline
+        new_prog, result = PassPipeline(["amp-bf16"], verify="off").run(
+            program, fetch_list=fetch_names)
+        skipped = result.passes[0].skipped
+        if skipped:
+            raise NotImplementedError(
+                f"program.amp is set but the amp-bf16 pass skips this program "
+                f"({skipped}); the port has no lowering-time cast path to run "
+                f"it in bf16 -- call amp.disable_amp(program) to run it in float32")
+        self._amp_bridge_memo[key] = new_prog
+        if new_prog is not program:
+            self._amp_bridge_memo[(new_prog.desc.uid, new_prog.desc.version)
+                                  + key[2:]] = new_prog
         return new_prog
 
     def _feed_to_tensor(self, block: BlockDesc, name: str, value) -> torch.Tensor:
@@ -152,7 +192,8 @@ class Executor:
             return_numpy: bool = True, sync: bool = True):
         """Run block 0 once.  ``sync=False`` returns :class:`FetchHandle`\\ s
         that materialize on first read, so the caller can enqueue the next
-        step meanwhile; otherwise numpy arrays (``return_numpy``) or the
+        step meanwhile; otherwise numpy arrays (``return_numpy``; a bf16 value
+        comes back as float32, numpy having no bfloat16) or the
         device tensors."""
         program = program or default_main_program()
         feed = feed or {}
@@ -195,5 +236,5 @@ class Executor:
                 event.record(torch.cuda.current_stream(self.device))
             return [FetchHandle(v, event) for v in fetches]
         if return_numpy:
-            return [v.cpu().numpy() for v in fetches]
+            return [to_numpy(v) for v in fetches]
         return fetches

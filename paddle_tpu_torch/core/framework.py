@@ -235,8 +235,11 @@ class Program:
         # seed of the executor's torch.Generator for this program's random
         # ops; None means 0
         self.random_seed: Optional[int] = None
+        # bf16 mixed precision, set by amp.enable_amp(program): the
+        # executor rewrites the program through the amp-bf16 pass
+        self.amp = False
         # stamped by the rewriting passes on the programs they change: the
-        # AmpPolicy fingerprint (amp-quant-int8) and the KernelPolicy
+        # AmpPolicy fingerprint (amp-bf16, amp-quant-int8) and the KernelPolicy
         # fingerprint (pallas-kernels)
         self._amp_policy_fp: Optional[str] = None
         self._kernel_policy_fp: Optional[str] = None
@@ -277,6 +280,7 @@ class Program:
                     b.vars[name] = Variable(b, vd)
             b.ops = [Operator(b, od) for od in b.desc.ops]
         p.random_seed = self.random_seed
+        p.amp = self.amp
         p._amp_policy_fp = self._amp_policy_fp
         p._kernel_policy_fp = self._kernel_policy_fp
         return p

@@ -2,9 +2,10 @@
 
 ``Executor.run(..., sync=False)`` returns :class:`FetchHandle`\\ s: each holds
 the fetched tensor and a CUDA event recorded on the stream right after the
-step was enqueued, and copies to host numpy on first read.  Until then the
-step may still be running on the card, so the caller (the serving
-dispatcher) can enqueue the next batch meanwhile.
+step was enqueued, and copies to host numpy on first read (a bf16 value as
+float32: numpy has no bfloat16).  Until then the step may still be running
+on the card, so the caller (the serving dispatcher) can enqueue the next
+batch meanwhile.
 """
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from .dtypes import to_numpy
 
 
 class FetchTimeoutError(TimeoutError):
@@ -53,7 +56,7 @@ class FetchHandle:
         if self._np is None:
             if self._event is not None:
                 self._event.synchronize()
-            self._np = self._val.cpu().numpy()
+            self._np = to_numpy(self._val)
         return self._np
 
     def __array__(self, dtype=None, copy=None):

@@ -45,15 +45,26 @@
 // into the position table [256, 512]).
 //
 // Bound: bytes.  The output table is written once and each valid incoming
-// row read once: (V*D + N_valid*D) * 4 bytes plus the ids.  The sort moves
-// 16 bytes an id a pass, 0.5 MB at N = 16384: in L2.  A long segment adds
-// a chain of dependent adds per column: 4096 ids take ~9 us at 4 clocks an
-// add, whatever the width.
+// row read once: (V*D + N_valid*D) * 4 bytes (2 in bf16) plus the ids.
+// The sort moves 16 bytes an id a pass, 0.5 MB at N = 16384: in L2.  A long
+// segment adds a chain of dependent adds per column: 4096 ids take ~9 us at
+// 4 clocks an add, whatever the width.
 //
 // Semantics: an id outside [0, V), -1 included, adds nothing -- what the
 // Pallas kernel's one-hot product gives, and what the gather (K2) gives for
 // the same id.  The JAX package's composed path (zeros.at[ids].add) wraps
 // -1 onto the last row instead.  The port follows the kernel.
+//
+// Two instances: float32, and bf16 (the amp-bf16 step casts the word table
+// and its gradient rows to bf16).  The bf16 instance reads bf16 rows,
+// widens them exactly, sums each output row in float32 in the same order
+// from +0.0, and rounds once to bf16 (to nearest even) at the store: the
+// Pallas kernel's float32 one-hot product written in the table's dtype.
+// Only the segment kernels' loads and stores differ; the sort is shared.
+// At the word table the bf16 instance moves half the bytes.  Its long path
+// reads two columns a lane as one 32-bit word (a warp per 64 columns), so
+// a warp's load of a row is 128 bytes as in float32, with half the loads.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -67,6 +78,32 @@ constexpr int kDigits = 256;
 constexpr int kNoDigit = kDigits;               // an id that takes no place
 constexpr int kSegWarps = 8;                    // warps a segment block
 constexpr int kLong = 32;                       // a longer segment is spread over D
+
+// element loads widened to float32 (exact for bf16) and stores rounded to
+// the element type (to nearest even for bf16)
+__device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
+  const unsigned short u = __ldg(reinterpret_cast<const unsigned short*>(p));
+  return __uint_as_float(static_cast<uint32_t>(u) << 16);
+}
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {   // 8 bytes
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+__device__ __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
 
 // the tile's digit counts: hist[digit * tiles + tile]
 template <bool kFirst>
@@ -197,10 +234,10 @@ __device__ __forceinline__ int warp_lower_bound(const int* __restrict__ sorted, 
 }
 
 // a short segment [lo, hi) (hi - lo <= kLong) of one output row: the warp
-// adds its rows in order, 4 floats a lane (kVec) or 1, 4 rows in flight
-template <bool kVec>
+// adds its rows in order, 4 elements a lane (kVec) or 1, 4 rows in flight
+template <typename T, bool kVec>
 __device__ __forceinline__ void add_short(const int* __restrict__ idx, int lo, int hi,
-                                          const float* __restrict__ rows, float* __restrict__ dst,
+                                          const T* __restrict__ rows, T* __restrict__ dst,
                                           int64_t d) {
   const int lane = threadIdx.x % 32;
   constexpr int kPer = kVec ? 4 : 1;
@@ -219,19 +256,18 @@ __device__ __forceinline__ void add_short(const int* __restrict__ idx, int lo, i
       for (int u = 0; u < kBatch; ++u) {
         const int r = __shfl_sync(0xffffffffu, my_idx, (u0 + u) & 31);
         const bool in = u0 + u < hi - lo;
-        const float* src = rows + static_cast<int64_t>(r) * d;
+        const T* src = rows + static_cast<int64_t>(r) * d;
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int64_t c = c0 + q * kPass + lane * kPer;
           if constexpr (kVec) {
-            const float4 y = in && c < d ? __ldg(reinterpret_cast<const float4*>(src + c))
-                                         : make_float4(0.f, 0.f, 0.f, 0.f);
+            const float4 y = in && c < d ? load4(src + c) : make_float4(0.f, 0.f, 0.f, 0.f);
             x[u][q][0] = y.x;
             x[u][q][1] = y.y;
             x[u][q][2] = y.z;
             x[u][q][3] = y.w;
           } else {
-            x[u][q][0] = in && c < d ? __ldg(src + c) : 0.f;
+            x[u][q][0] = in && c < d ? load1(src + c) : 0.f;
           }
         }
       }
@@ -249,9 +285,9 @@ __device__ __forceinline__ void add_short(const int* __restrict__ idx, int lo, i
       const int64_t c = c0 + q * kPass + lane * kPer;
       if (c >= d) continue;
       if constexpr (kVec) {
-        *reinterpret_cast<float4*>(dst + c) = make_float4(acc[q][0], acc[q][1], acc[q][2], acc[q][3]);
+        store4(dst + c, make_float4(acc[q][0], acc[q][1], acc[q][2], acc[q][3]));
       } else {
-        dst[c] = acc[q][0];
+        store1(dst + c, acc[q][0]);
       }
     }
   }
@@ -270,29 +306,59 @@ __device__ __forceinline__ BatchIdx batch_idx(const int* __restrict__ idx, int b
           32 + lane < kLongBatch && base + 32 + lane < hi ? __ldg(idx + base + 32 + lane) : -1};
 }
 
-// column c of the batch's rows, whose indices the warp's lanes hold: this lane's
-// values, 0 for a missing row or past d
-__device__ __forceinline__ void load_batch(float (&x)[kLongBatch], BatchIdx bi,
-                                           const float* __restrict__ rows, int64_t d, int64_t c) {
+// what one lane of the long path reads of a row: one column (a float32, or a
+// bf16 widened), or with kPair two bf16 columns as one 32-bit word (a warp
+// then reads 128 bytes a row, as in float32, with half the loads)
+template <typename T, bool kPair>
+struct LaneWord {
+  using W = float;
+  static constexpr int kCols = 1;
+  static __device__ __forceinline__ W load(const T* p) { return load1(p); }
+  static __device__ __forceinline__ void add(float (&acc)[2], W w) { acc[0] += w; }
+};
+template <>
+struct LaneWord<__nv_bfloat16, true> {
+  using W = uint32_t;
+  static constexpr int kCols = 2;
+  static __device__ __forceinline__ W load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const unsigned int*>(p));
+  }
+  static __device__ __forceinline__ void add(float (&acc)[2], W w) {
+    acc[0] += __uint_as_float(w << 16);
+    acc[1] += __uint_as_float(w & 0xffff0000u);
+  }
+};
+
+// column(s) c of the batch's rows, whose indices the warp's lanes hold: this
+// lane's words, 0 (+0.0) for a missing row or past d
+template <typename T, bool kPair>
+__device__ __forceinline__ void load_batch(typename LaneWord<T, kPair>::W (&x)[kLongBatch],
+                                           BatchIdx bi, const T* __restrict__ rows, int64_t d,
+                                           int64_t c) {
   // every shuffle first, then every load: no load waits on the next shuffle
   int r[kLongBatch];
 #pragma unroll
   for (int u = 0; u < kLongBatch; ++u) r[u] = __shfl_sync(0xffffffffu, u < 32 ? bi.lo : bi.hi, u % 32);
 #pragma unroll
   for (int u = 0; u < kLongBatch; ++u)
-    x[u] = r[u] >= 0 && c < d ? __ldg(rows + static_cast<int64_t>(r[u]) * d + c) : 0.f;
+    x[u] = r[u] >= 0 && c < d
+               ? LaneWord<T, kPair>::load(rows + static_cast<int64_t>(r[u]) * d + c)
+               : typename LaneWord<T, kPair>::W(0);
 }
 
 // the long segments: warp (j, chunk), one a block, takes the segment that
 // covers sorted position kLong * j if it starts after kLong * (j - 1) and
-// holds more than kLong ids, at columns 32 * chunk + lane.  Each lane adds
-// its column in order; kLongBatch rows' loads are in flight while the
-// previous kLongBatch are added, and the indices one batch further ahead.  A row past the
-// segment adds +0.0, which changes no sum that starts from +0.0
+// holds more than kLong ids, at columns kCols * (32 * chunk + lane) (+1).
+// Each lane adds its column(s) in order; kLongBatch rows' loads are in
+// flight while the previous kLongBatch are added, and the indices one batch
+// further ahead.  A row past the segment adds +0.0, which changes no sum
+// that starts from +0.0
+template <typename T, bool kPair>
 __global__ void __launch_bounds__(32, 1)
 long_segment_kernel(const int* __restrict__ keys, const int* __restrict__ idx,
-                    const int* __restrict__ count, const float* __restrict__ rows,
-                    float* __restrict__ out, int64_t d, int64_t chunks) {
+                    const int* __restrict__ count, const T* __restrict__ rows,
+                    T* __restrict__ out, int64_t d, int64_t chunks) {
+  using L = LaneWord<T, kPair>;
   const int lane = threadIdx.x;
   const int m = *count;
   const int64_t j = blockIdx.x / chunks;
@@ -305,36 +371,39 @@ long_segment_kernel(const int* __restrict__ keys, const int* __restrict__ idx,
   const int lo = a + __popc(__ballot_sync(0xffffffffu, a + lane <= p && keys[a + lane] < key));
   const int hi = warp_lower_bound(keys, static_cast<int>(p), m, static_cast<int64_t>(key) + 1);
   if (hi - lo <= kLong) return;                      // the short kernel's
-  const int64_t c = (blockIdx.x % chunks) * 32 + lane;
-  float acc = 0.f, xa[kLongBatch], xb[kLongBatch];
+  const int64_t c = ((blockIdx.x % chunks) * 32 + lane) * L::kCols;
+  float acc[2] = {0.f, 0.f};
+  typename L::W xa[kLongBatch], xb[kLongBatch];
   BatchIdx ia = batch_idx(idx, lo, hi), ib = batch_idx(idx, lo + kLongBatch, hi);
-  load_batch(xa, ia, rows, d, c);
+  load_batch<T, kPair>(xa, ia, rows, d, c);
   for (int base = lo; base < hi; base += 2 * kLongBatch) {
     ia = batch_idx(idx, base + 2 * kLongBatch, hi);
-    load_batch(xb, ib, rows, d, c);
+    load_batch<T, kPair>(xb, ib, rows, d, c);
 #pragma unroll
-    for (int u = 0; u < kLongBatch; ++u) acc += xa[u];
+    for (int u = 0; u < kLongBatch; ++u) L::add(acc, xa[u]);
     ib = batch_idx(idx, base + 3 * kLongBatch, hi);
-    load_batch(xa, ia, rows, d, c);
+    load_batch<T, kPair>(xa, ia, rows, d, c);
 #pragma unroll
-    for (int u = 0; u < kLongBatch; ++u) acc += xb[u];
+    for (int u = 0; u < kLongBatch; ++u) L::add(acc, xb[u]);
   }
-  if (c < d) out[static_cast<int64_t>(key) * d + c] = acc;
+  T* dst = out + static_cast<int64_t>(key) * d + c;
+  if (c < d) store1(dst, acc[0]);
+  if (L::kCols == 2 && c + 1 < d) store1(dst + 1, acc[1]);
 }
 
 // output row w: its segment found by two searches, added by add_short
 // unless it holds more than kLong ids (long_segment_kernel's then)
-template <bool kVec>
+template <typename T, bool kVec>
 __global__ void __launch_bounds__(kSegWarps * 32)
 short_segment_kernel(const int* __restrict__ keys, const int* __restrict__ idx,
-                     const int* __restrict__ count, const float* __restrict__ rows,
-                     float* __restrict__ out, int64_t v, int64_t d) {
+                     const int* __restrict__ count, const T* __restrict__ rows,
+                     T* __restrict__ out, int64_t v, int64_t d) {
   const int64_t row = static_cast<int64_t>(blockIdx.x) * kSegWarps + threadIdx.x / 32;
   if (row >= v) return;
   const int m = count != nullptr ? *count : 0;
   const int lo = warp_lower_bound(keys, 0, m, row);
   const int hi = warp_lower_bound(keys, lo, m, row + 1);
-  if (hi - lo <= kLong) add_short<kVec>(idx, lo, hi, rows, out + row * d, d);
+  if (hi - lo <= kLong) add_short<T, kVec>(idx, lo, hi, rows, out + row * d, d);
 }
 
 int sort_passes(int64_t v) {
@@ -343,16 +412,9 @@ int sort_passes(int64_t v) {
   return bits <= 8 ? 1 : (bits + 7) / 8;
 }
 
-}  // namespace
-
-// ids: [n] int32; rows: [n, d] float32; out: [v, d] float32, every element
-// written; scratch: 4 * n + 256 * ceil(n / 2048) + 1 int32 (two key and two
-// index arrays, the [256, tiles] histogram, the count of valid ids).
-// n < 2**31.  Launches 2 * passes + 2 kernels on ``stream``; returns the
-// first error.
-extern "C" int ptt_scatter_add_rows_f32(const int* ids, const float* rows, float* out,
-                                        int* scratch, int64_t n, int64_t v, int64_t d,
-                                        void* stream) {
+template <typename T>
+int scatter_add_rows(const int* ids, const T* rows, T* out, int* scratch, int64_t n, int64_t v,
+                     int64_t d, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (v <= 0 || d <= 0) return static_cast<int>(cudaSuccess);
   if (n < 0 || n >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
@@ -382,22 +444,53 @@ extern "C" int ptt_scatter_add_rows_f32(const int* ids, const float* rows, float
       src_idx = di;
     }
   }
+  // 4 elements a lane: 16-byte (float32) or 8-byte (bf16) accesses
   const bool vec = d % 4 == 0 && (reinterpret_cast<uintptr_t>(rows) & 15) == 0 &&
                    (reinterpret_cast<uintptr_t>(out) & 15) == 0;
   const dim3 grid(static_cast<unsigned>((v + kSegWarps - 1) / kSegWarps)), block(kSegWarps * 32);
   const int* sorted_count = n > 0 ? count : nullptr;
   if (vec)
-    short_segment_kernel<true><<<grid, block, 0, s>>>(src_keys, src_idx, sorted_count, rows, out,
-                                                      v, d);
+    short_segment_kernel<T, true><<<grid, block, 0, s>>>(src_keys, src_idx, sorted_count, rows,
+                                                         out, v, d);
   else
-    short_segment_kernel<false><<<grid, block, 0, s>>>(src_keys, src_idx, sorted_count, rows, out,
-                                                       v, d);
+    short_segment_kernel<T, false><<<grid, block, 0, s>>>(src_keys, src_idx, sorted_count, rows,
+                                                          out, v, d);
   if (n > kLong) {
-    const int64_t chunks = (d + 31) / 32;
+    // bf16 rows of an even width: two columns a lane, 32-bit loads
+    bool pair = false;
+    if constexpr (sizeof(T) == 2)
+      pair = d % 2 == 0 && (reinterpret_cast<uintptr_t>(rows) & 3) == 0;
+    const int64_t chunks = pair ? (d + 63) / 64 : (d + 31) / 32;
     const int64_t blocks = (n + kLong - 1) / kLong * chunks;
     if (blocks >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
-    long_segment_kernel<<<static_cast<unsigned>(blocks), 32, 0, s>>>(src_keys, src_idx, count,
-                                                                      rows, out, d, chunks);
+    if constexpr (sizeof(T) == 2) {
+      if (pair) {
+        long_segment_kernel<T, true><<<static_cast<unsigned>(blocks), 32, 0, s>>>(
+            src_keys, src_idx, count, rows, out, d, chunks);
+        return static_cast<int>(cudaGetLastError());
+      }
+    }
+    long_segment_kernel<T, false><<<static_cast<unsigned>(blocks), 32, 0, s>>>(
+        src_keys, src_idx, count, rows, out, d, chunks);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// ids: [n] int32; rows: [n, d] and out: [v, d] float32 (or bf16), every
+// element of out written; scratch: 4 * n + 256 * ceil(n / 2048) + 1 int32
+// (two key and two index arrays, the [256, tiles] histogram, the count of
+// valid ids).  n < 2**31.  Launches 2 * passes + 2 kernels on ``stream``;
+// returns the first error.
+extern "C" int ptt_scatter_add_rows_f32(const int* ids, const float* rows, float* out,
+                                        int* scratch, int64_t n, int64_t v, int64_t d,
+                                        void* stream) {
+  return scatter_add_rows<float>(ids, rows, out, scratch, n, v, d, stream);
+}
+
+extern "C" int ptt_scatter_add_rows_bf16(const int* ids, const __nv_bfloat16* rows,
+                                         __nv_bfloat16* out, int* scratch, int64_t n, int64_t v,
+                                         int64_t d, void* stream) {
+  return scatter_add_rows<__nv_bfloat16>(ids, rows, out, scratch, n, v, d, stream);
 }

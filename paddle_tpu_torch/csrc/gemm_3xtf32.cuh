@@ -1,7 +1,9 @@
-// The 3xTF32 tensor-core GEMM mainloop for Hopper (sm_90a), shared by the
-// fused linear + softmax cross-entropy forward (K7, csrc/linear_ce.cu) and
-// backward (K8, csrc/linear_ce_bwd.cu): one kernel template,
-// gemm_3xtf32_kernel<kEpi>, whose epilogue is what differs between them.
+// The tensor-core GEMM mainloops for Hopper (sm_90a) of the fused linear +
+// softmax cross-entropy forward (K7, csrc/linear_ce.cu) and backward (K8,
+// csrc/linear_ce_bwd.cu): the 3xTF32 kernel template gemm_3xtf32_kernel<kEpi>
+// (float32 operands), whose epilogue is what differs between them, and the
+// bf16 one, gemm_bf16_kernel<kEpi> (K7's bf16 instance), with the same
+// epilogues (the epilogue<kEpi> function below).
 //
 // C[m, n] = sum_k At[k, m] * Bk[n, k], float32 in, float32 sums, on the
 // tensor cores at 495 TFLOP/s TF32 (an H100 SXM) as three TF32 products.
@@ -45,6 +47,20 @@
 // dlT tile and its row sums (csrc/linear_ce_bwd.cu); kLse reduces each tile
 // column's max and sum of exp over each warpgroup's 64 rows, for the
 // forward (csrc/linear_ce.cu).
+//
+// The bf16 mainloop, gemm_bf16_kernel<kEpi> (K7's bf16 instance): C[m, n] =
+// sum_k At[k, m] * Bk[n, k] with At bf16 and M-major, Bk bf16 and K-major,
+// on wgmma.m64n128k16.f32.bf16.bf16, both operands read from shared memory
+// through descriptors (no split, no register path).  For 16-bit types
+// wgmma reads an MN-major operand as it is stored (its transpose bit), so
+// At is the matrix as the caller holds it: TMA brings 64 k x 64 m boxes of
+// At (128-byte rows, 128-byte swizzle), one per consumer warpgroup's 64 rows,
+// and 128 rows x 64 k of Bk a stage.  A product of two bf16 values is exact
+// in float32; as in the 3xTF32 loop, wgmma sums one stage (64 k) from zero
+// and the CUDA cores add the stages, so the tensor core's truncating
+// accumulation never runs a chain longer than 64.  One producer warp, two
+// consumer warpgroups (288 threads, as K4's int8 GEMM), the same persistent
+// tile walk and the same epilogues.
 #pragma once
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -112,10 +128,14 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-// wgmma shared-memory descriptor of a K-major tile of 128-byte rows in the
-// 128-byte swizzle that TMA wrote: 8-row groups 1024 bytes apart (SBO)
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+// wgmma shared-memory descriptor of a tile of 128-byte rows in the 128-byte
+// swizzle that TMA wrote: 8-row groups 1024 bytes apart (SBO).  A K-major
+// tile's rows are its M or N rows and LBO is unused (1); an MN-major tile's
+// rows are its k rows, 64 elements of M or N each, and LBO is the distance
+// to the next 64 of M or N
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo = 16) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
@@ -205,6 +225,153 @@ __device__ __forceinline__ void tile_origin(int tile, int mt, int nt, int n_fast
   } else {
     m0 = (tile % mt) * kBM;
     n0 = (tile / mt) * kBN;
+  }
+}
+
+// what a consumer thread does with its part of an output tile (m0, n0): the
+// accumulator fragment of m64n128, acc[4j + 2h + e] at fragment row gq + 8h
+// of its warp's 16, which is tile row row_h[h], and column 8j + 2 * tq + e.
+// xchg is kLse's exchange area for this tile (consumer warps 0-7 of the
+// block, warpgroup wg of this thread)
+template <int kEpi>
+__device__ __forceinline__ void epilogue(const float (&acc)[64], const int (&row_h)[2], int m0,
+                                         int n0, int m, int n, const Epilogue& ep, float* xchg,
+                                         int warp, int wg) {
+  const int lane = threadIdx.x % 32;
+  const int gq = lane >> 2, tq = lane & 3;
+  if (kEpi == kStore) {
+    const bool vec2 = (ep.ldo & 1) == 0 && (reinterpret_cast<uintptr_t>(ep.out) & 7) == 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + row_h[h];
+      if (row >= m) continue;
+      float* dst = ep.out + static_cast<int64_t>(row) * ep.ldo;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = n0 + 8 * j + 2 * tq;
+        float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+        if (vec2 && col + 1 < n) {
+          float2* p = reinterpret_cast<float2*>(dst + col);
+          if (ep.accumulate) {
+            const float2 old = *p;
+            v0 += old.x;
+            v1 += old.y;
+          }
+          *p = make_float2(v0, v1);
+        } else {
+          if (col < n) dst[col] = ep.accumulate ? dst[col] + v0 : v0;
+          if (col + 1 < n) dst[col + 1] = ep.accumulate ? dst[col + 1] + v1 : v1;
+        }
+      }
+    }
+  } else if (kEpi == kLse) {
+    // tile rows are vocabulary columns v, tile columns batch rows b.  Per
+    // column: the max over the warp's 16 rows (8 lanes x 2 halves, by
+    // shuffles), the sum of exp(logit - max) over them the same way, then
+    // the warpgroup's 4 warps' pairs merged in warp order through shared
+    // memory.  Each warpgroup keeps its own half of the tile, so the two
+    // meet at no barrier here either
+    float bias_h[2] = {0.f, 0.f};
+    bool in_h[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      in_h[h] = m0 + row_h[h] < m;
+      if (ep.bias != nullptr && in_h[h]) bias_h[h] = ep.bias[m0 + row_h[h]];
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * tq + e;
+        const int b = n0 + col;
+        const int lab = b < n ? __ldg(ep.labels + b) : -1;
+        float x[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          x[h] = in_h[h] ? acc[4 * j + 2 * h + e] + bias_h[h] : -INFINITY;
+          if (in_h[h] && lab == m0 + row_h[h]) ep.label_logit[b] = x[h];
+        }
+        float mx = fmaxf(x[0], x[1]);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+        float s = (in_h[0] ? expf(x[0] - mx) : 0.f) + (in_h[1] ? expf(x[1] - mx) : 0.f);
+        s += __shfl_xor_sync(0xffffffffu, s, 4);
+        s += __shfl_xor_sync(0xffffffffu, s, 8);
+        s += __shfl_xor_sync(0xffffffffu, s, 16);
+        if (gq == 0) {
+          xchg[warp * 2 * kBN + col] = mx;
+          xchg[warp * 2 * kBN + kBN + col] = s;
+        }
+      }
+    }
+    warpgroup_barrier(wg);
+    // one thread a column merges the warpgroup's 4 warps; the next tile's
+    // pairs go to the other half of the exchange area
+    const int col = threadIdx.x % 128;
+    if (n0 + col < n) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int w = 4 * wg; w < 4 * wg + 4; ++w) mx = fmaxf(mx, xchg[w * 2 * kBN + col]);
+      float s = 0.f;
+#pragma unroll
+      for (int w = 4 * wg; w < 4 * wg + 4; ++w) {
+        const float sw = xchg[w * 2 * kBN + kBN + col];
+        if (sw > 0.f) s += sw * expf(xchg[w * 2 * kBN + col] - mx);
+      }
+      const int64_t idx = static_cast<int64_t>(2 * (m0 / kBM) + wg) * n + n0 + col;
+      ep.lse_max[idx] = mx;
+      ep.lse_sum[idx] = s;
+    }
+  } else {
+    // dlT[v, b] = (exp(logit + bias[v] - lse[b]) - (labels[b] == v)) * g[b]:
+    // tile rows are the chunk's vocabulary columns, tile columns the rows b
+    float bias_h[2] = {0.f, 0.f}, sum_h[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (ep.bias != nullptr && m0 + row_h[h] < m) bias_h[h] = ep.bias[ep.v0 + m0 + row_h[h]];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = n0 + 8 * j + 2 * tq;
+      float lse_e[2], g_e[2];
+      int lab_e[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool in = col + e < n;
+        lse_e[e] = in ? __ldg(ep.lse + col + e) : 0.f;
+        g_e[e] = in ? __ldg(ep.g + col + e) : 0.f;
+        lab_e[e] = in ? __ldg(ep.labels + col + e) - ep.v0 : -1;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + row_h[h];
+        if (row >= m) continue;
+        float val[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = expf(acc[4 * j + 2 * h + e] + bias_h[h] - lse_e[e]);
+          val[e] = col + e < n ? (p - (lab_e[e] == row ? 1.f : 0.f)) * g_e[e] : 0.f;
+        }
+        float* dst = ep.out + static_cast<int64_t>(row) * ep.ldo + col;
+        if (col + 1 < n) {
+          *reinterpret_cast<float2*>(dst) = make_float2(val[0], val[1]);
+        } else if (col < n) {
+          *dst = val[0];
+        }
+        sum_h[h] += val[0] + val[1];
+      }
+    }
+    if (ep.part != nullptr) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float s = sum_h[h];
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        s += __shfl_xor_sync(0xffffffffu, s, 2);
+        const int row = m0 + row_h[h];
+        if (tq == 0 && row < m)
+          ep.part[static_cast<int64_t>(n0 / kBN) * ep.part_ld + row] = s;
+      }
+    }
   }
 }
 
@@ -380,146 +547,139 @@ gemm_3xtf32_kernel(const __grid_constant__ CUtensorMap tma_a,
       for (int i = 0; i < 64; ++i) acc[i] += part[i];
     }
 
-    // accumulator fragment of m64n128: acc[4j + 2h + e] at fragment row
-    // gq + 8h of the warp's 16 (tile row row_h[h]), column 8j + 2 * tq + e
-    if (kEpi == kStore) {
-      const bool vec2 = (ep.ldo & 1) == 0 && (reinterpret_cast<uintptr_t>(ep.out) & 7) == 0;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + row_h[h];
-        if (row >= m) continue;
-        float* dst = ep.out + static_cast<int64_t>(row) * ep.ldo;
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const int col = n0 + 8 * j + 2 * tq;
-          float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
-          if (vec2 && col + 1 < n) {
-            float2* p = reinterpret_cast<float2*>(dst + col);
-            if (ep.accumulate) {
-              const float2 old = *p;
-              v0 += old.x;
-              v1 += old.y;
-            }
-            *p = make_float2(v0, v1);
-          } else {
-            if (col < n) dst[col] = ep.accumulate ? dst[col] + v0 : v0;
-            if (col + 1 < n) dst[col + 1] = ep.accumulate ? dst[col + 1] + v1 : v1;
-          }
-        }
-      }
-    } else if (kEpi == kLse) {
-      // tile rows are vocabulary columns v, tile columns batch rows b.  Per
-      // column: the max over the warp's 16 rows (8 lanes x 2 halves, by
-      // shuffles), the sum of exp(logit - max) over them the same way, then
-      // the warpgroup's 4 warps' pairs merged in warp order through shared
-      // memory.  Each warpgroup keeps its own half of the tile, so the two
-      // meet at no barrier here either
-      float* xchg = reinterpret_cast<float*>(smem + kOffXchg) + (tile_no & 1) * kXchgFloats;
-      float bias_h[2] = {0.f, 0.f};
-      bool in_h[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        in_h[h] = m0 + row_h[h] < m;
-        if (ep.bias != nullptr && in_h[h]) bias_h[h] = ep.bias[m0 + row_h[h]];
-      }
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = 8 * j + 2 * tq + e;
-          const int b = n0 + col;
-          const int lab = b < n ? __ldg(ep.labels + b) : -1;
-          float x[2];
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            x[h] = in_h[h] ? acc[4 * j + 2 * h + e] + bias_h[h] : -INFINITY;
-            if (in_h[h] && lab == m0 + row_h[h]) ep.label_logit[b] = x[h];
-          }
-          float mx = fmaxf(x[0], x[1]);
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
-          float s = (in_h[0] ? expf(x[0] - mx) : 0.f) + (in_h[1] ? expf(x[1] - mx) : 0.f);
-          s += __shfl_xor_sync(0xffffffffu, s, 4);
-          s += __shfl_xor_sync(0xffffffffu, s, 8);
-          s += __shfl_xor_sync(0xffffffffu, s, 16);
-          if (gq == 0) {
-            xchg[warp * 2 * kBN + col] = mx;
-            xchg[warp * 2 * kBN + kBN + col] = s;
-          }
-        }
-      }
-      warpgroup_barrier(wg);
-      // one thread a column merges the warpgroup's 4 warps; the next tile's
-      // pairs go to the other half of the exchange area
-      const int col = threadIdx.x % 128;
-      if (n0 + col < n) {
-        float mx = -INFINITY;
-#pragma unroll
-        for (int w = 4 * wg; w < 4 * wg + 4; ++w) mx = fmaxf(mx, xchg[w * 2 * kBN + col]);
-        float s = 0.f;
-#pragma unroll
-        for (int w = 4 * wg; w < 4 * wg + 4; ++w) {
-          const float sw = xchg[w * 2 * kBN + kBN + col];
-          if (sw > 0.f) s += sw * expf(xchg[w * 2 * kBN + col] - mx);
-        }
-        const int64_t idx = static_cast<int64_t>(2 * (m0 / kBM) + wg) * n + n0 + col;
-        ep.lse_max[idx] = mx;
-        ep.lse_sum[idx] = s;
-      }
-    } else {
-      // dlT[v, b] = (exp(logit + bias[v] - lse[b]) - (labels[b] == v)) * g[b]:
-      // tile rows are the chunk's vocabulary columns, tile columns the rows b
-      float bias_h[2] = {0.f, 0.f}, sum_h[2] = {0.f, 0.f};
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        if (ep.bias != nullptr && m0 + row_h[h] < m) bias_h[h] = ep.bias[ep.v0 + m0 + row_h[h]];
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int col = n0 + 8 * j + 2 * tq;
-        float lse_e[2], g_e[2];
-        int lab_e[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const bool in = col + e < n;
-          lse_e[e] = in ? __ldg(ep.lse + col + e) : 0.f;
-          g_e[e] = in ? __ldg(ep.g + col + e) : 0.f;
-          lab_e[e] = in ? __ldg(ep.labels + col + e) - ep.v0 : -1;
-        }
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = m0 + row_h[h];
-          if (row >= m) continue;
-          float val[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float p = expf(acc[4 * j + 2 * h + e] + bias_h[h] - lse_e[e]);
-            val[e] = col + e < n ? (p - (lab_e[e] == row ? 1.f : 0.f)) * g_e[e] : 0.f;
-          }
-          float* dst = ep.out + static_cast<int64_t>(row) * ep.ldo + col;
-          if (col + 1 < n) {
-            *reinterpret_cast<float2*>(dst) = make_float2(val[0], val[1]);
-          } else if (col < n) {
-            *dst = val[0];
-          }
-          sum_h[h] += val[0] + val[1];
-        }
-      }
-      if (ep.part != nullptr) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float s = sum_h[h];
-          s += __shfl_xor_sync(0xffffffffu, s, 1);
-          s += __shfl_xor_sync(0xffffffffu, s, 2);
-          const int row = m0 + row_h[h];
-          if (tq == 0 && row < m)
-            ep.part[static_cast<int64_t>(n0 / kBN) * ep.part_ld + row] = s;
-        }
-      }
-    }
+    float* xchg = reinterpret_cast<float*>(smem + kOffXchg) + (tile_no & 1) * kXchgFloats;
+    epilogue<kEpi>(acc, row_h, m0, n0, m, n, ep, xchg, warp, wg);
   }
 }
 
+
+// d = (keep_d ? d : 0) + a (m64k16) * b (n128k16), bf16 in, float32 sums;
+// both operands in shared memory: a M-major (transposed, k rows of 64 m),
+// b K-major (n rows of 64 k)
+__device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t da, uint64_t db,
+                                                      int keep_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(keep_d));
+}
+
+constexpr int kBKh = 64;                         // k-step of the bf16 loop: 128-byte rows
+constexpr int kBoxBytesBf16 = kBKh * 128;        // one 64 k x 64 m box of At
+static_assert(kConsumers * kBoxBytesBf16 == kTileBytes, "a warpgroup's box of At each");
+constexpr int kThreadsBf16 = kConsumerThreads + 32;   // and one producer warp
+constexpr int kOffBarBf16 = kStages * kStageBytes;    // A and B stages, then the barriers
+constexpr int kOffXchgBf16 = kOffBarBf16 + 128;
+constexpr int kSmemBf16 = kOffXchgBf16 + 1024;
+constexpr int kSmemBf16Lse = kOffXchgBf16 + 2 * kXchgFloats * 4 + 1024;
+static_assert(kBM * kBKh * 2 == kTileBytes, "a bf16 stage tile is 16 KB, as a float32 one");
+
+// C[m, n] = sum_k At[k, m] * Bk[n, k] in bf16 with float32 sums; tma_a
+// boxes are 64 k x 64 m of At, tma_b boxes 128 n x 64 k of Bk.  n_fast as in
+// gemm_3xtf32_kernel.
+template <int kEpi>
+__global__ void __launch_bounds__(kThreadsBf16, 1)
+gemm_bf16_kernel(const __grid_constant__ CUtensorMap tma_a,
+                 const __grid_constant__ CUtensorMap tma_b, int m, int n, int k, int n_fast,
+                 const Epilogue ep) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;     // 128-byte swizzle atoms: 1024-aligned
+  uint8_t* smem = smem_raw + (base - raw);
+  constexpr int kOffB = kStages * kTileBytes;
+  // full: TMA has filled the stage; empty: both consumer warpgroups are done with it
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kOffBarBf16);
+  uint64_t* empty = full + kStages;
+
+  const int warp = threadIdx.x / 32;
+  const int nk = (k + kBKh - 1) / kBKh;
+  const int mt = (m + kBM - 1) / kBM, nt = (n + kBN - 1) / kBN;
+  const int tiles = mt * nt;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers * 4) {
+    // producer: one thread keeps the ring filled, across tile boundaries
+    if (threadIdx.x % 32 == 0) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        int m0, n0;
+        tile_origin(tile, mt, nt, n_fast, m0, n0);
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % kStages;
+          if (it >= kStages) mbar_wait(&empty[s], ((it / kStages) - 1) & 1);
+          mbar_expect_tx(&full[s], kStageBytes);
+          for (int i = 0; i < kConsumers; ++i)
+            tma_load_2d(base + s * kTileBytes + i * kBoxBytesBf16, &tma_a, m0 + 64 * i,
+                        kt * kBKh, &full[s]);
+          tma_load_2d(base + kOffB + s * kTileBytes, &tma_b, kt * kBKh, n0, &full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = warp / 4, w4 = warp % 4, lane = threadIdx.x % 32;
+  const int gq = lane >> 2;
+  // tile row of accumulator row half h: the warpgroup's 64 rows, 16 a warp
+  const int row_h[2] = {64 * wg + 16 * w4 + gq, 64 * wg + 16 * w4 + gq + 8};
+  float acc[64], part[64];
+  int it = 0, tile_no = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++tile_no) {
+    int m0, n0;
+    tile_origin(tile, mt, nt, n_fast, m0, n0);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+#pragma unroll 1
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int s = it % kStages;
+      const uint32_t a = base + s * kTileBytes + wg * kBoxBytesBf16;
+      const uint32_t b = base + kOffB + s * kTileBytes;
+      mbar_wait(&full[s], (it / kStages) & 1);
+      fence_acc(part);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int ks = 0; ks < kBKh / 16; ++ks)
+        wgmma_m64n128k16_bf16(part, smem_desc(a + ks * 16 * 128, kBoxBytesBf16),
+                              smem_desc(b + ks * 32), ks > 0);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_acc(part);
+      if (threadIdx.x % 128 == 0) mbar_arrive(&empty[s]);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] += part[i];
+    }
+    float* xchg = reinterpret_cast<float*>(smem + kOffXchgBf16) + (tile_no & 1) * kXchgFloats;
+    epilogue<kEpi>(acc, row_h, m0, n0, m, n, ep, xchg, warp, wg);
+  }
+}
 
 // cuTensorMapEncodeTiled from libcuda, found at run time so that the
 // library needs no link flag of its own
@@ -538,18 +698,22 @@ EncodeTiledFn encode_fn() {
   return fn;
 }
 
-// a float32 matrix of `outer` rows of `inner` contiguous elements, row
-// stride ld, read in boxes of box_outer rows x 32 elements (128 bytes)
-bool make_map(CUtensorMap* map, const float* ptr, int64_t inner, int64_t outer, int64_t ld,
-              int box_outer) {
+// a float32 (or, with bf16, bf16) matrix of `outer` rows of `inner`
+// contiguous elements, row stride ld, read in boxes of box_outer rows x 128
+// bytes (32 float32 or 64 bf16 elements)
+bool make_map(CUtensorMap* map, const void* ptr, int64_t inner, int64_t outer, int64_t ld,
+              int box_outer, bool bf16 = false) {
   const EncodeTiledFn fn = encode_fn();
   if (fn == nullptr || inner <= 0 || outer <= 0) return false;
+  const int elem = bf16 ? 2 : 4;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 4};
-  const cuuint32_t box[2] = {32, static_cast<cuuint32_t>(box_outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * elem};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / elem),
+                             static_cast<cuuint32_t>(box_outer)};
   const cuuint32_t elem_strides[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(ptr), dims, strides, box,
-            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return fn(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+            const_cast<void*>(ptr), dims, strides, box, elem_strides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -584,6 +748,39 @@ cudaError_t launch_gemm(const float* at, int64_t lda, const float* bk, int64_t l
     return cudaErrorInvalidValue;
   const int grid = static_cast<int>(tiles < resident ? tiles : resident);
   gemm_3xtf32_kernel<kEpi><<<grid, kThreads, smem, stream>>>(ma, mb, m, n, k, n_fast, ep);
+  return cudaGetLastError();
+}
+
+// C = At^T Bk^T in bf16 with float32 sums: at [k, m] with row stride lda,
+// bk [n, k] with row stride ldb (bf16 elements; both strides multiples of
+// 8, both pointers 16-byte aligned)
+template <int kEpi>
+cudaError_t launch_gemm_bf16(const void* at, int64_t lda, const void* bk, int64_t ldb, int m,
+                             int n, int k, int n_fast, const Epilogue& ep, cudaStream_t stream) {
+  constexpr int smem = kEpi == kLse ? kSmemBf16Lse : kSmemBf16;
+  static int resident = 0;   // blocks the card holds at once
+  if (resident == 0) {
+    cudaError_t e = cudaFuncSetAttribute(gemm_bf16_kernel<kEpi>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    int dev = 0, sms = 0, per_sm = 0;
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gemm_bf16_kernel<kEpi>,
+                                                        kThreadsBf16, smem);
+    if (e != cudaSuccess) return e;
+    resident = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  if (m <= 0 || n <= 0) return cudaSuccess;
+  if (k <= 0 || lda % 8 != 0 || ldb % 8 != 0 || !aligned16(at) || !aligned16(bk))
+    return cudaErrorInvalidValue;
+  const int64_t tiles = static_cast<int64_t>((m + kBM - 1) / kBM) * ((n + kBN - 1) / kBN);
+  if (tiles >= (1ll << 31)) return cudaErrorInvalidValue;
+  alignas(64) CUtensorMap ma, mb;
+  if (!make_map(&ma, at, m, k, lda, kBKh, true) || !make_map(&mb, bk, k, n, ldb, kBN, true))
+    return cudaErrorInvalidValue;
+  const int grid = static_cast<int>(tiles < resident ? tiles : resident);
+  gemm_bf16_kernel<kEpi><<<grid, kThreadsBf16, smem, stream>>>(ma, mb, m, n, k, n_fast, ep);
   return cudaGetLastError();
 }
 

@@ -33,6 +33,14 @@
 // The Pallas grid walks vocab tiles in order and carries the running (max,
 // sum-exp, label logit) of each row in VMEM scratch; a Hopper grid has no
 // order, so the running pair becomes per-tile pairs and an ordered merge.
+//
+// The bf16 instance (the amp-bf16 step's forward): bf16 x and W, the float32
+// bias, float32 lse and label logit -- the Pallas kernel's function on bf16
+// operands.  The product runs on bf16 wgmma (gemm_bf16_kernel, same header)
+// with the same kLse epilogue and merge, W [D, V] read as stored (M-major,
+// through wgmma's transpose bit) and x [B, D] K-major.  Bound at the
+// training shapes: operations, 0.54 TFLOP at 989 TFLOP/s bf16, 0.54 ms (the
+// bytes, x 16 MB, W 33 MB and the outputs, take 0.015 ms).
 #include "gemm_3xtf32.cuh"
 
 namespace {
@@ -112,4 +120,43 @@ extern "C" int ptt_linear_ce_fwd_f32(const float* x, const float* w, const float
   ce_fwd_combine_kernel<<<(rows + 31) / 32, kMergeWarps * 32, 0, s>>>(part_max, part_sum, labels,
                                                                       lse, lab, rows, tiles, v);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 instance: x [rows, d] and w [d, v] (row stride ldw) bf16, bias
+// [v] float32 or null, labels [rows] int32 -> lse, lab [rows] float32;
+// part_max, part_sum as above.  d and ldw multiples of 8; x and w 16-byte
+// aligned.  Launches the product with its epilogue and the merge on
+// ``stream``; returns the first error.
+extern "C" int ptt_linear_ce_fwd_bf16(const uint16_t* x, const uint16_t* w, const float* bias,
+                                      const int* labels, float* lse, float* lab, float* part_max,
+                                      float* part_sum, int rows, int d, int v, int ldw,
+                                      void* stream) {
+  if (rows <= 0) return static_cast<int>(cudaSuccess);
+  if (d <= 0 || d % 8 != 0 || v <= 0 || ldw < v || ldw % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Epilogue ep = {};
+  ep.bias = bias;
+  ep.labels = labels;
+  ep.lse_max = part_max;
+  ep.lse_sum = part_sum;
+  ep.label_logit = lab;
+  cudaError_t e = launch_gemm_bf16<kLse>(w, ldw, x, d, v, rows, d, 1, ep, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tiles = 2 * ((v + kBM - 1) / kBM);
+  ce_fwd_combine_kernel<<<(rows + 31) / 32, kMergeWarps * 32, 0, s>>>(part_max, part_sum, labels,
+                                                                      lse, lab, rows, tiles, v);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 mainloop on its own, for tests and measurements: out [m, n]
+// float32 (row stride n) = at [k, m] bf16 (row stride lda) transposed times
+// bk [n, k] bf16 transposed; k and lda multiples of 8, both 16-byte aligned.
+extern "C" int ptt_gemm_bf16(const uint16_t* at, const uint16_t* bk, float* out, int m, int n,
+                             int k, int lda, void* stream) {
+  Epilogue ep = {};
+  ep.out = out;
+  ep.ldo = n;
+  return static_cast<int>(
+      launch_gemm_bf16<kStore>(at, lda, bk, k, m, n, k, 0, ep, static_cast<cudaStream_t>(stream)));
 }

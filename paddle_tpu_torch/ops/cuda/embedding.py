@@ -7,11 +7,16 @@ _gather_kernel`` and ``::_scatter_add_kernel``.
 ``gather_rows(w, ids)[n] = w[ids[n]]``, and an id outside [0, V) gives a
 zero row; ``scatter_add_rows(w, ids, rows)`` is a zero [V, D] table with
 ``rows[n]`` added at row ``ids[n]`` (duplicates summed) and an id outside
-[0, V) adding nothing -- the Pallas kernels' one-hot semantics.
+[0, V) adding nothing -- the Pallas kernels' one-hot semantics.  The
+scatter-add also takes a bf16 table and rows (the ``amp-bf16`` pass casts
+the word table for its gradient): each output row is summed in float32 and
+rounded once to bf16, as the Pallas kernel's float32 one-hot product is
+written in the table's dtype.
 ``GatherRows`` is the gather with the scatter-add as its gradient.
 
 A tensor on the CPU goes to the plain version; a CUDA tensor launches the
-kernel or raises.  ``<wrapper>.launches`` counts kernel launches.
+kernel or raises.  ``<wrapper>.launches`` counts kernel launches, and
+``scatter_add_rows.bf16_launches`` those of the bf16 instance among them.
 """
 from __future__ import annotations
 
@@ -24,8 +29,9 @@ from . import build
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
 _GATHER = build.Entry("ptt_gather_rows_f32", _ARGTYPES)
-_SCATTER_ADD = build.Entry("ptt_scatter_add_rows_f32", _ARGTYPES[:3] + [ctypes.c_void_p]
-                           + _ARGTYPES[3:])
+_SCATTER_ARGTYPES = _ARGTYPES[:3] + [ctypes.c_void_p] + _ARGTYPES[3:]
+_SCATTER_ADD = {torch.float32: build.Entry("ptt_scatter_add_rows_f32", _SCATTER_ARGTYPES),
+                torch.bfloat16: build.Entry("ptt_scatter_add_rows_bf16", _SCATTER_ARGTYPES)}
 _SORT_TILE = 2048   # ids a block of the scatter-add's radix sort
 
 
@@ -53,8 +59,11 @@ def _check(name, w, flat_ids, rows=None) -> bool:
     if w.device.type != "cuda" or any(t.device != w.device for t in tensors):
         raise ValueError(f"{name}: tensors on {[str(t.device) for t in tensors]}; "
                          f"all must be on one CUDA device (or all on the CPU)")
-    if w.dtype != torch.float32 or (rows is not None and rows.dtype != torch.float32):
-        raise TypeError(f"{name} kernel takes float32 tables and rows")
+    if rows is None and w.dtype != torch.float32:
+        raise TypeError(f"{name} kernel takes a float32 table")
+    if rows is not None and (w.dtype not in _SCATTER_ADD or rows.dtype != w.dtype):
+        raise TypeError(f"{name} kernel takes a float32 or bf16 table and rows of its "
+                        f"dtype, got {w.dtype} and {rows.dtype}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} kernel needs contiguous tensors")
     return False
@@ -91,12 +100,15 @@ def scatter_add_rows_plain(w: torch.Tensor, flat_ids: torch.Tensor,
     -1 onto the last row instead).  On the CPU ``index_add_`` adds in
     ascending n, the kernel's order (a masked id adds +0.0, which changes
     no sum that starts from +0.0); on the card it adds by atomics, so the
-    kernel is held against this version run on a CPU copy."""
+    kernel is held against this version run on a CPU copy.  The sums are
+    float32 (float64 for a float64 table) and a bf16 table's output is
+    rounded once at the end: adding in bf16 would round at every add."""
+    acc = torch.promote_types(w.dtype, torch.float32)
     valid = (flat_ids >= 0) & (flat_ids < w.shape[0])
-    out = torch.zeros(w.shape, dtype=w.dtype, device=w.device)
-    masked = torch.where(valid[:, None], rows.to(w.dtype),
-                         torch.zeros((), dtype=w.dtype, device=w.device))
-    return out.index_add_(0, torch.where(valid, flat_ids, 0).long(), masked)
+    out = torch.zeros(w.shape, dtype=acc, device=w.device)
+    masked = torch.where(valid[:, None], rows.to(w.dtype).to(acc),
+                         torch.zeros((), dtype=acc, device=w.device))
+    return out.index_add_(0, torch.where(valid, flat_ids, 0).long(), masked).to(w.dtype)
 
 
 def scatter_add_rows(w: torch.Tensor, flat_ids: torch.Tensor,
@@ -104,9 +116,10 @@ def scatter_add_rows(w: torch.Tensor, flat_ids: torch.Tensor,
     """Dense [V, D] gradient of a gather: zeros with ``rows`` [N, D] added
     at ``flat_ids`` [N] int32.  ``w`` gives the shape, type and device; its
     values are not read.  Each output row is the sum of its rows in
-    ascending n from +0.0, on the CPU (``index_add_``) and in the kernel (a
-    stable radix sort of the ids, then ordered segment sums), so the kernel
-    is bit-equal to the plain version run on the CPU."""
+    ascending n from +0.0 in float32, on the CPU (``index_add_``) and in the
+    kernel (a stable radix sort of the ids, then ordered segment sums), and
+    written in ``w``'s dtype (float32 or bf16), so the kernel is bit-equal
+    to the plain version run on the CPU."""
     if _check("scatter_add_rows", w, flat_ids, rows):
         return scatter_add_rows_plain(w, flat_ids, rows)
     n, (v, d) = flat_ids.shape[0], w.shape
@@ -119,14 +132,17 @@ def scatter_add_rows(w: torch.Tensor, flat_ids: torch.Tensor,
     # of every tile, the count of valid ids
     scratch = torch.empty((4 * n + 256 * -(-n // _SORT_TILE) + 1,), dtype=torch.int32,
                           device=w.device)
-    build.launch(_SCATTER_ADD, "scatter_add_rows", w.device,
+    build.launch(_SCATTER_ADD[w.dtype], "scatter_add_rows", w.device,
                  flat_ids.data_ptr(), rows.data_ptr(), out.data_ptr(), scratch.data_ptr(),
                  n, v, d)
     scatter_add_rows.launches += 1
+    if w.dtype == torch.bfloat16:
+        scatter_add_rows.bf16_launches += 1
     return out
 
 
 scatter_add_rows.launches = 0
+scatter_add_rows.bf16_launches = 0
 
 
 class GatherRows(torch.autograd.Function):

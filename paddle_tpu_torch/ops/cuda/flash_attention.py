@@ -8,7 +8,10 @@ scaled by ``sm_scale`` (default 1/sqrt(d)) applied to q; keys at positions
 >= ``kv_lens`` and, with ``causal``, keys after the query are masked; a
 query row with no valid key gives exact zeros.  Returns ``(out, lse)``
 with lse = m + log(l) in float32 (float64 for float64 inputs on the
-CPU), which the backward reads.
+CPU), which the backward reads.  q, k and v may be float32 or bf16 (the
+``amp-bf16`` pass's dtype for attention): bf16 tiles are widened to
+float32, the scores, softmax and ``p.v`` are float32, and only the output
+is rounded to bf16, as the Pallas kernel does.
 
 ``FlashAttention`` is the autograd Function around it: the forward is the
 kernel (saving q, k, v, kv_lens, out and lse), the backward the composed
@@ -16,7 +19,8 @@ torch port of the JAX package's ``_flash_bwd_xla`` -- that package has no
 Pallas backward kernel either.
 
 A tensor on the CPU goes to the plain version; a CUDA tensor launches the
-kernel or raises.  ``flash_attn_fwd.launches`` counts kernel launches.
+kernel or raises.  ``flash_attn_fwd.launches`` counts kernel launches, and
+``flash_attn_fwd.bf16_launches`` those of the bf16 instance among them.
 """
 from __future__ import annotations
 
@@ -32,7 +36,8 @@ HEAD_DIMS = (16, 32, 64, 128)
 
 _ARGTYPES = ([ctypes.c_void_p] * 6
              + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
-_FWD = build.Entry("ptt_flash_attn_fwd_f32", _ARGTYPES)
+_FWD = {torch.float32: build.Entry("ptt_flash_attn_fwd_f32", _ARGTYPES),
+        torch.bfloat16: build.Entry("ptt_flash_attn_fwd_bf16", _ARGTYPES)}
 
 
 def flash_attn_fwd_plain(q, k, v, kv_lens, causal: bool, sm_scale: float,
@@ -75,9 +80,9 @@ def flash_attn_fwd_plain(q, k, v, kv_lens, causal: bool, sm_scale: float,
 def _launch(q, k, v, kv_lens, causal: bool, sm_scale: float):
     bh, tq, d = q.shape
     tk = k.shape[1]
-    if q.dtype != torch.float32 or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attn_fwd kernel takes float32 q/k/v, got "
-                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if q.dtype not in _FWD or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attn_fwd kernel takes float32 or bf16 q/k/v of one "
+                        f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attn_fwd kernel takes head_dim in {HEAD_DIMS}, got {d}")
     tensors = [q, k, v] + ([kv_lens] if kv_lens is not None else [])
@@ -95,12 +100,14 @@ def _launch(q, k, v, kv_lens, causal: bool, sm_scale: float):
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
     if bh == 0 or tq == 0:
         return out, lse
-    build.launch(_FWD, "flash_attn_fwd", q.device,
+    build.launch(_FWD[q.dtype], "flash_attn_fwd", q.device,
                  q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  kv_lens.data_ptr() if kv_lens is not None else None,
                  out.data_ptr(), lse.data_ptr(), bh, tq, tk, d, int(causal),
                  float(sm_scale))
     flash_attn_fwd.launches += 1
+    if q.dtype == torch.bfloat16:
+        flash_attn_fwd.bf16_launches += 1
     return out, lse
 
 
@@ -141,6 +148,7 @@ def flash_attn_fwd(q, k, v, kv_lens=None, causal: bool = False, sm_scale=None):
 
 
 flash_attn_fwd.launches = 0
+flash_attn_fwd.bf16_launches = 0
 
 
 def flash_attn_bwd(q, k, v, kv_lens, out, lse, g, causal: bool, sm_scale: float):

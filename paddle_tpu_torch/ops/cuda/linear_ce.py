@@ -13,12 +13,21 @@ for a label outside [0, V)), without the [B, V] logits in memory.
 ``sum(g * (lse - label_logit))``, the logits recomputed from the saved lse.
 ``b`` may be None (zero bias; db is then None).
 
+bf16 (the ``amp-bf16`` pass casts the forward's operands): the forward
+takes bf16 ``x`` and ``w`` (``w`` is taken in ``x``'s dtype and the bias
+in float32, as the Pallas ``linear_ce_fwd`` takes them), multiplies in
+bf16 with float32 sums (csrc/linear_ce.cu's bf16 instance, on bf16
+``wgmma``) and returns lse and the label logit in float32.  The backward
+stays float32: the pass leaves ``fused_fc_softmax_ce_grad``'s inputs
+uncast.
+
 The plain versions follow the JAX package's chunked composed path
 (``ops/fused_ce.py::_fused_lse_and_label_logit``, ``::_fused_ce_bwd``):
 vocabulary chunks of ``CHUNK`` columns with an online log-sum-exp.
 
 A tensor on the CPU goes to the plain version; a CUDA tensor launches the
-kernel or raises.  ``<wrapper>.launches`` counts wrapper calls that launch.
+kernel or raises.  ``<wrapper>.launches`` counts wrapper calls that launch,
+and ``linear_ce_fwd.bf16_launches`` those of the bf16 instance among them.
 """
 from __future__ import annotations
 
@@ -34,13 +43,16 @@ _FWD = build.Entry("ptt_linear_ce_fwd_f32",
                    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 _BWD = build.Entry("ptt_linear_ce_bwd_f32",
                    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+_FWD_BF16 = build.Entry("ptt_linear_ce_fwd_bf16",
+                        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 _GEMM = build.Entry("ptt_gemm_3xtf32",
                     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_int64] * 3
                     + [ctypes.c_int, ctypes.c_void_p])
 
 
-def _check(name, x, w, b, labels, *extra) -> bool:
-    """Validate the arguments; True when they all lie on the CPU."""
+def _check(name, x, w, b, labels, *extra, bf16=False) -> bool:
+    """Validate the arguments; True when they all lie on the CPU.  With
+    ``bf16`` the kernel takes bf16 x and w beside a float32 bias."""
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"{name} wants x [B, D] and w [D, V], got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
@@ -57,8 +69,13 @@ def _check(name, x, w, b, labels, *extra) -> bool:
     if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
         raise ValueError(f"{name}: tensors on {sorted({str(t.device) for t in tensors})}; "
                          f"all must be on one CUDA device (or all on the CPU)")
-    if any(t.dtype != torch.float32 for t in tensors if t is not labels):
-        raise TypeError(f"{name} kernel takes float32 x, w, bias and per-row inputs")
+    if bf16 and x.dtype == torch.bfloat16:
+        if w.dtype != torch.bfloat16 or (b is not None and b.dtype != torch.float32) \
+                or any(t.dtype != torch.float32 for t in extra):
+            raise TypeError(f"{name} kernel takes bf16 x and w with a float32 bias")
+    elif any(t.dtype != torch.float32 for t in tensors if t is not labels):
+        raise TypeError(f"{name} kernel takes float32 x, w, bias and per-row inputs"
+                        + (" (or bf16 x and w)" if bf16 else ""))
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} kernel needs contiguous tensors")
     if x.shape[1] % 4 or v % 4:
@@ -82,6 +99,8 @@ def _acc_dtype(x):
 
 
 def linear_ce_fwd_plain(x, w, b, labels):
+    """bf16 ``x`` and ``w`` are widened exactly: the products and their sums
+    are float32, as the Pallas kernel's ``preferred_element_type``."""
     bsz, v = x.shape[0], w.shape[1]
     acc = _acc_dtype(x)
     xf = x.to(acc)
@@ -106,11 +125,17 @@ def linear_ce_fwd_plain(x, w, b, labels):
 
 def linear_ce_fwd(x, w, b, labels):
     """x [B, D], w [D, V], b [V] or None, labels [B] int32 -> (lse, label
-    logit), [B] float32 each.  One call runs the product in 3xTF32 on the
-    tensor cores, one launch over the whole vocabulary whose epilogue
-    reduces each half of every 128-column vocabulary tile, and a merge of
-    the halves in order: deterministic (no float atomics)."""
-    if _check("linear_ce_fwd", x, w, b, labels):
+    logit), [B] float32 each.  float32 x: one call runs the product in
+    3xTF32 on the tensor cores, one launch over the whole vocabulary whose
+    epilogue reduces each half of every 128-column vocabulary tile, and a
+    merge of the halves in order: deterministic (no float atomics).  bf16
+    x: ``w`` is taken in bf16 and the bias in float32; the product runs on
+    bf16 ``wgmma`` with ``w`` read as stored, and the same epilogue and
+    merge."""
+    if x.dtype == torch.bfloat16:
+        w = w.to(torch.bfloat16)
+        b = b.float() if b is not None else None
+    if _check("linear_ce_fwd", x, w, b, labels, bf16=True):
         return linear_ce_fwd_plain(x, w, b, labels)
     bsz, d = x.shape
     v = w.shape[1]
@@ -123,14 +148,25 @@ def linear_ce_fwd(x, w, b, labels):
     # scratch: the (max, sum of exp) of each half of every 128-column
     # vocabulary tile, for every row
     part = torch.empty((2, 2 * -(-v // 128), bsz), dtype=torch.float32, device=x.device)
-    build.launch(_FWD, "linear_ce_fwd", x.device,
-                 x.data_ptr(), w.data_ptr(), _ptr(b), labels.data_ptr(), lse.data_ptr(),
-                 lab.data_ptr(), part[0].data_ptr(), part[1].data_ptr(), bsz, d, v)
+    if x.dtype == torch.bfloat16:
+        if d % 8:
+            raise ValueError(f"linear_ce_fwd bf16 kernel needs D a multiple of 8, got {d}")
+        wp = _pad_rows16(w)
+        build.launch(_FWD_BF16, "linear_ce_fwd", x.device,
+                     x.data_ptr(), wp.data_ptr(), _ptr(b), labels.data_ptr(), lse.data_ptr(),
+                     lab.data_ptr(), part[0].data_ptr(), part[1].data_ptr(), bsz, d, v,
+                     wp.shape[1])
+        linear_ce_fwd.bf16_launches += 1
+    else:
+        build.launch(_FWD, "linear_ce_fwd", x.device,
+                     x.data_ptr(), w.data_ptr(), _ptr(b), labels.data_ptr(), lse.data_ptr(),
+                     lab.data_ptr(), part[0].data_ptr(), part[1].data_ptr(), bsz, d, v)
     linear_ce_fwd.launches += 1
     return lse, lab
 
 
 linear_ce_fwd.launches = 0
+linear_ce_fwd.bf16_launches = 0
 
 
 def linear_ce_bwd_plain(x, w, b, labels, lse, g):
@@ -239,3 +275,55 @@ def gemm_3xtf32(at: torch.Tensor, bk: torch.Tensor, n_fast: bool = False) -> tor
 
 
 gemm_3xtf32.launches = 0
+
+
+_GEMM_BF16 = build.Entry("ptt_gemm_bf16", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                         + [ctypes.c_void_p])
+
+
+def _pad_rows16(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 matrix whose rows are a multiple of 16 bytes (TMA's stride
+    rule): ``t`` itself, or a copy in a wider buffer whose first columns are
+    ``t`` (the kernels read only those)."""
+    cols = t.shape[1]
+    if cols % 8 == 0:
+        return t
+    out = torch.empty((t.shape[0], -(-cols // 8) * 8), dtype=t.dtype, device=t.device)
+    out[:, :cols] = t
+    return out
+
+
+def gemm_bf16_plain(at: torch.Tensor, bk: torch.Tensor) -> torch.Tensor:
+    return at.float().t() @ bk.float().t()
+
+
+def gemm_bf16(at: torch.Tensor, bk: torch.Tensor) -> torch.Tensor:
+    """``at.T @ bk.T`` in float32 for bf16 ``at`` [K, M] and ``bk`` [N, K]:
+    the bf16 ``wgmma`` mainloop of K7's bf16 instance on its own (both
+    operands as it reads them from shared memory: ``at`` M-major through
+    ``wgmma``'s transpose bit, ``bk`` K-major), for tests and measurements
+    of that mainloop."""
+    if at.ndim != 2 or bk.ndim != 2 or at.shape[0] != bk.shape[1]:
+        raise ValueError(f"gemm_bf16 wants at [K, M] and bk [N, K], got "
+                         f"{tuple(at.shape)} and {tuple(bk.shape)}")
+    if at.device.type == "cpu" and bk.device.type == "cpu":
+        return gemm_bf16_plain(at, bk)
+    if at.device.type != "cuda" or bk.device != at.device:
+        raise ValueError(f"gemm_bf16: tensors on {at.device} and {bk.device}; both must "
+                         f"be on one CUDA device (or both on the CPU)")
+    if at.dtype != torch.bfloat16 or bk.dtype != torch.bfloat16:
+        raise TypeError("gemm_bf16 kernel takes bf16 operands")
+    (k, m), n = at.shape, bk.shape[0]
+    if not (at.is_contiguous() and bk.is_contiguous()) or k % 8 or k == 0 \
+            or at.data_ptr() % 16 or bk.data_ptr() % 16:
+        raise ValueError("gemm_bf16 kernel needs contiguous, 16-byte aligned operands "
+                         "with K a positive multiple of 8")
+    ap = _pad_rows16(at)
+    out = torch.empty((m, n), dtype=torch.float32, device=at.device)
+    build.launch(_GEMM_BF16, "gemm_bf16", at.device, ap.data_ptr(), bk.data_ptr(),
+                 out.data_ptr(), m, n, k, ap.shape[1])
+    gemm_bf16.launches += 1
+    return out
+
+
+gemm_bf16.launches = 0

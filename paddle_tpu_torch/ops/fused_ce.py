@@ -8,6 +8,11 @@ hand-written Hopper kernels, on the CPU their plain versions, which follow
 the JAX package's chunked composed path.  The ``use_pallas`` and
 ``vocab_chunks`` attrs stay in the desc for ProgramDesc parity; the port
 ignores them.
+
+Under ``amp-bf16`` the forward reads bf16 X, W and Bias (the pass casts a
+whitelist op's inputs) and runs K7's bf16 instance: W taken in X's dtype,
+the bias in float32, lse and the loss float32.  The grad op's inputs stay
+float32 (``GRAD_UNCAST``), so the backward is float32 K8.
 """
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
-"""Tensor creation and shape op lowerings: fill_constant, reshape."""
+"""Tensor creation, dtype and shape op lowerings: fill_constant, cast,
+reshape."""
 from __future__ import annotations
 
 import torch
@@ -21,6 +22,22 @@ def _fill_constant(ctx, op):
 def _fill_constant_shape(block, op):
     set_out_shape(block, op, "Out", op.attr("shape", ()),
                   convert_dtype(op.attr("dtype", "float32")))
+
+
+@register_lowering("cast")
+def _cast(ctx, op):
+    """``X`` in ``out_dtype`` (the ``amp-bf16`` pass's casts; the legacy
+    ``dtype`` attr is read when ``out_dtype`` is absent).  Differentiable:
+    the generic ``cast_grad`` casts the cotangent back."""
+    x = ctx.read_slot(op, "X")
+    dtype = convert_dtype(op.attr("out_dtype", op.attr("dtype", "float32")))
+    ctx.write_slot(op, "Out", x.to(dtype.torch_dtype))
+
+
+@register_infer_shape("cast")
+def _cast_shape(block, op):
+    set_out_shape(block, op, "Out", in_shape(block, op, "X"),
+                  convert_dtype(op.attr("out_dtype", op.attr("dtype", "float32"))))
 
 
 def _infer_reshape(in_sh, target):

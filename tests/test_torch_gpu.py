@@ -23,7 +23,7 @@ from paddle_tpu_torch.ops.cuda.fused_optimizer import (fused_adam, fused_adam_pl
 from paddle_tpu_torch.ops.cuda.int8_matmul import (abs_max_pair, abs_max_pair_plain, int8_matmul,
                                                    int8_matmul_plain, int8_mm, int8_mm_plain,
                                                    quantize_int8, quantize_int8_plain)
-from paddle_tpu_torch.ops.cuda.linear_ce import (gemm_3xtf32, linear_ce_bwd,
+from paddle_tpu_torch.ops.cuda.linear_ce import (gemm_3xtf32, gemm_bf16, linear_ce_bwd,
                                                  linear_ce_bwd_plain, linear_ce_fwd,
                                                  linear_ce_fwd_plain)
 
@@ -46,6 +46,29 @@ ADAM_ATOL = 1e-6      # fused Adam vs plain (the kernel rounds as the plain does
 INT8_LOGIT_ATOL = 0.05
 QUIET_REL_ERR = 2e-3
 QUIET_SHARE = 0.25
+# bf16 instances.  K1: float32 inside, the output rounded once to bf16; the
+# kernel's and the plain version's float32 values differ by summation order
+# (FLASH_ATOL), and rounding can then land on neighbouring bf16 values: each
+# element within 1 bf16 ulp plus FLASH_ATOL.  The bf16 kernel runs the
+# float32 kernel's arithmetic on the widened values, so it is bit-equal to
+# that kernel's output rounded to bf16.  K7: products of bf16 values are
+# exact in float32 and both sides sum in float32.
+FLASH_BF16_ULPS = 1
+CE_BF16_RTOL = 2e-6
+# a bf16 training step, card vs CPU (both bf16, other summation orders and
+# cuBLAS's bf16 GEMMs): bf16 noise of a small random network, as between
+# the port and the JAX package on the CPU (tests/test_torch_amp_bf16.py)
+BF16_STEP_GRAD_NREL = 0.2
+BF16_STEP_LOSS_RTOL = 2e-3
+
+
+def _bf16_ulps(got, ref, atol=0.0):
+    """max over elements of (|got - ref| - atol) in units of the bf16
+    spacing at the larger magnitude."""
+    got, ref = got.float(), ref.float()
+    mag = torch.maximum(got.abs(), ref.abs()).clamp_min(2.0 ** -126)
+    off = ((got - ref).abs() - atol).clamp_min(0)
+    return (off / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max().item()
 
 
 @pytest.fixture
@@ -93,6 +116,29 @@ def test_flash_kernel_many_tiles_with_short_and_ragged_lengths(cuda, d, causal):
     assert torch.equal(lse[0], ref_lse[0])
 
 
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bf16_kernel_matches_plain(cuda, d, causal):
+    """The bf16 instance: ragged T (100), key lengths 0..T, several tiles."""
+    rs = np.random.RandomState(100 + d)
+    q, k, v = (torch.from_numpy(rs.randn(16, 100, d).astype(np.float32)).to(cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    lens = torch.from_numpy(rs.randint(0, 101, 16).astype(np.int32)).to(cuda)
+    lens[0] = 0
+    before = (flash_attn_fwd.launches, flash_attn_fwd.bf16_launches)
+    out, lse = flash_attn_fwd(q, k, v, kv_lens=lens, causal=causal)
+    ref, ref_lse = flash_attn_fwd_plain(q, k, v, lens, causal, d ** -0.5)
+    torch.cuda.synchronize()
+    assert (flash_attn_fwd.launches, flash_attn_fwd.bf16_launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert _bf16_ulps(out, ref, FLASH_ATOL) <= FLASH_BF16_ULPS
+    assert (lse - ref_lse).abs().max().item() <= FLASH_ATOL
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    out32, lse32 = flash_attn_fwd(q.float(), k.float(), v.float(), kv_lens=lens, causal=causal)
+    assert torch.equal(out, out32.to(torch.bfloat16)) and torch.equal(lse, lse32)
+
+
 def test_flash_kernel_cross_attention_without_lengths(cuda):
     rs = np.random.RandomState(7)
     q = torch.from_numpy(rs.randn(2, 4, 33, 64).astype(np.float32)).to(cuda)
@@ -109,6 +155,11 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.zeros(2, 8, 48, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attn_fwd(q, q, q)
+    q16 = torch.zeros(2, 8, 64, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError, match="bf16"):
+        flash_attn_fwd(q16, q16, q16)
+    with pytest.raises(TypeError, match="one dtype"):
+        flash_attn_fwd(q16.bfloat16(), q16.float(), q16.float())
     q = torch.zeros(2, 8, 64, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attn_fwd(q.transpose(0, 1), q.transpose(0, 1), q.transpose(0, 1))
@@ -284,6 +335,48 @@ def test_linear_ce_bwd_ragged_against_float64_and_twice_bit_equal(cuda, bsz, d, 
     assert ((got[0][2:4].double() - want).norm() / want.norm()).item() <= K8_F64_NORM_RTOL
 
 
+@pytest.mark.parametrize("bsz,d,v,bias", [(256, 128, 1024, True), (300, 64, 1000, False),
+                                          (300, 72, 4100, True), (7, 520, 132, True)])
+def test_linear_ce_fwd_bf16_kernel_matches_plain(cuda, bsz, d, v, bias):
+    """The bf16 instance (wgmma bf16, W read as stored; V = 4100 and 132
+    go through a row-padded copy): ragged rows and vocabulary, against the
+    plain version, twice bit-equal, and against float64 over the same bf16
+    values."""
+    g = torch.Generator().manual_seed(bsz + d + v)
+    x = torch.randn(bsz, d, generator=g).to(torch.bfloat16).to(cuda)
+    w = (0.1 * torch.randn(d, v, generator=g)).to(torch.bfloat16).to(cuda)
+    b = torch.randn(v, generator=g).to(cuda) if bias else None
+    labels = torch.randint(0, v, (bsz,), generator=g, dtype=torch.int32)
+    labels[:2] = torch.tensor([v - 1, v + 5])
+    labels = labels.to(cuda)
+    before = (linear_ce_fwd.launches, linear_ce_fwd.bf16_launches)
+    lse, lab = linear_ce_fwd(x, w, b, labels)
+    again = linear_ce_fwd(x, w, b, labels)
+    assert (linear_ce_fwd.launches, linear_ce_fwd.bf16_launches) == \
+        (before[0] + 2, before[1] + 2)
+    ref = linear_ce_fwd_plain(x, w, b, labels)
+    r64 = linear_ce_fwd_plain(x.double(), w.double(), b.double() if bias else None, labels)
+    torch.cuda.synchronize()
+    assert lse.dtype == lab.dtype == torch.float32
+    assert torch.equal(lse, again[0]) and torch.equal(lab, again[1])
+    assert lab[1].item() == 0.0
+    for got, want, w64 in zip((lse, lab), ref, r64):
+        scale = want.abs().max().item()
+        assert (got - want).abs().max().item() <= CE_BF16_RTOL * scale
+        assert (got.double() - w64).abs().max().item() <= CE_BF16_RTOL * scale
+
+
+@pytest.mark.parametrize("m,n,k", [(128, 128, 64), (36, 200, 104), (1000, 132, 8),
+                                   (300, 4100, 520)])
+def test_gemm_bf16_mainloop_against_float64(cuda, m, n, k):
+    g = torch.Generator().manual_seed(m + n + k)
+    a = torch.randn(m, k, generator=g).to(torch.bfloat16).to(cuda)
+    bk = torch.randn(n, k, generator=g).to(torch.bfloat16).to(cuda)
+    got, want = gemm_bf16(a.t().contiguous(), bk), a.double() @ bk.double().t()
+    assert got.dtype == torch.float32
+    assert ((got.double() - want).norm() / want.norm()).item() <= 1e-6
+
+
 @pytest.mark.parametrize("bias", [True, False])
 def test_linear_ce_bwd_no_rows_gives_zero_gradients(cuda, bias):
     d, v = 36, 1000
@@ -378,6 +471,36 @@ def test_scatter_add_kernel_bit_equal_to_cpu_and_to_itself(cuda, v, d, n, ids_ki
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("v,d,n,ids_kind", [
+    (1000, 36, 5000, "random"),       # ragged V and D (scalar path)
+    (4100, 64, 9000, "padding"),      # a quarter of the ids 0: one long segment
+    (256, 36, 16384, "random"),       # 64 ids a row: every segment long
+    (32000, 512, 16384, "random"),    # the word table
+    (256, 512, 16384, "out of range")])
+def test_scatter_add_bf16_kernel_bit_equal_to_cpu_and_to_itself(cuda, v, d, n, ids_kind):
+    """The bf16 instance: bf16 rows summed in float32 in ascending n and
+    rounded once, bit-equal to the plain version on the CPU."""
+    g = torch.Generator().manual_seed(v + d + n + 1)
+    if ids_kind == "padding":
+        ids = torch.randint(1, v, (n,), generator=g, dtype=torch.int32)
+        ids[torch.rand(n, generator=g) < 0.25] = 0
+    elif ids_kind == "out of range":
+        ids = torch.randint(-v, 2 * v, (n,), generator=g, dtype=torch.int32)
+    else:
+        ids = torch.randint(-2, v + 2, (n,), generator=g, dtype=torch.int32)
+    rows = (torch.randn(n, d, generator=g)
+            * torch.exp(3 * torch.randn(n, 1, generator=g))).to(torch.bfloat16)
+    w = torch.empty(v, d, device=cuda, dtype=torch.bfloat16)
+    before = scatter_add_rows.bf16_launches
+    got = scatter_add_rows(w, ids.to(cuda), rows.to(cuda))
+    again = scatter_add_rows(w, ids.to(cuda), rows.to(cuda))
+    want = scatter_add_rows_plain(w.cpu(), ids, rows)
+    torch.cuda.synchronize()
+    assert scatter_add_rows.bf16_launches == before + 2 and got.dtype == torch.bfloat16
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), want)
+
+
 def _train_programs():
     main, startup = pt.Program(), pt.Program()
     with pt.unique_name.guard(), pt.program_guard(main, startup):
@@ -429,6 +552,70 @@ def test_small_training_step_on_card_matches_cpu_and_uses_the_kernels(cuda):
     # (the kernel tier's pallas_scatter_add reads the output gradient and
     # runs no gather again); K3 once per embedding grad; K6 once per parameter
     assert launches == [12, 4, 4, n_params, 1, 1]
+
+
+def test_small_bf16_training_step_on_card_matches_cpu(cuda):
+    """``enable_amp``: one 2+2-layer bf16 Adam step on the card (kernel tier
+    on, then the amp-bf16 bridge) and on the CPU from the same weights."""
+    main, startup, loss = _train_programs()
+    params = [p.name for p in main.global_block.all_parameters()]
+    gpu_scope, cpu_scope = pt.Scope(), pt.Scope()
+    gpu, cpu = pt.Executor(), pt.Executor(pt.CPUPlace())
+    gpu.run(startup, scope=gpu_scope)
+    persist = [v.name for v in main.list_vars() if v.persistable]
+    pt.params_from_numpy({n: gpu_scope.find_var(n).cpu().numpy() for n in persist},
+                         cpu_scope, "cpu")
+    rs = np.random.RandomState(0)
+    feed = {"src": rs.randint(1, 1000, (3, 32, 1)), "trg": rs.randint(1, 1000, (3, 32, 1)),
+            "lbl": rs.randint(1, 1000, (3, 32, 1)),
+            "src@SEQ_LEN": np.array([32, 0, 9], np.int32),
+            "trg@SEQ_LEN": np.array([5, 32, 1], np.int32)}
+    fetch = [loss.name] + [p + "@GRAD" for p in params]
+    pt.amp.enable_amp(main)
+    before = (flash_attn_fwd.bf16_launches, scatter_add_rows.bf16_launches,
+              linear_ce_fwd.bf16_launches, linear_ce_bwd.launches)
+    got = gpu.run(main, feed=feed, fetch_list=fetch, scope=gpu_scope)
+    after = (flash_attn_fwd.bf16_launches, scatter_add_rows.bf16_launches,
+             linear_ce_fwd.bf16_launches, linear_ce_bwd.launches)
+    want = cpu.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+    assert [a - c for a, c in zip(after, before)] == [12, 4, 1, 1]
+    np.testing.assert_allclose(got[0], want[0], rtol=BF16_STEP_LOSS_RTOL)
+    for n, a, b in zip(fetch[1:], got[1:], want[1:]):
+        assert a.dtype == np.float32 and np.isfinite(a).all(), n
+        assert np.linalg.norm(a - b) <= BF16_STEP_GRAD_NREL * np.linalg.norm(b), n
+
+
+def test_full_width_bf16_step_launches_the_bf16_instances(cuda):
+    """transformer-base (vocab 32000, d_model 512, 8 heads, 6+6 layers,
+    d_inner 2048) under ``enable_amp``, one step at 2 x 256: K1 36 times in
+    bf16, K2 4 (float32 tables), K3 4 in bf16 (the pass casts each table for
+    its gradient), K6 186, K7 once in bf16, K8 once in float32."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        src = layers.data(name="src", shape=[1], dtype="int64", lod_level=1)
+        trg = layers.data(name="trg", shape=[1], dtype="int64", lod_level=1)
+        lbl = layers.data(name="lbl", shape=[256, 1], dtype="int64")
+        loss, _ = transformer.train_network(src, trg, lbl, 32000, 32000, max_len=256,
+                                            n_layer=6, d_model=512, n_head=8, d_inner=2048,
+                                            fuse_final_ce=True)
+        pt.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    pt.amp.enable_amp(main)
+    scope, exe = pt.Scope(), pt.Executor()
+    exe.run(startup, scope=scope)
+    rs = np.random.RandomState(0)
+    feed = {"src": rs.randint(1, 32000, (2, 256, 1)), "trg": rs.randint(1, 32000, (2, 256, 1)),
+            "lbl": rs.randint(1, 32000, (2, 256, 1)),
+            "src@SEQ_LEN": np.array([256, 130], np.int32),
+            "trg@SEQ_LEN": np.array([200, 256], np.int32)}
+    counters = (flash_attn_fwd, gather_rows, scatter_add_rows, fused_adam, linear_ce_fwd,
+                linear_ce_bwd)
+    before = [f.launches for f in counters] + [f.bf16_launches for f in
+                                               (flash_attn_fwd, scatter_add_rows, linear_ce_fwd)]
+    (l,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    after = [f.launches for f in counters] + [f.bf16_launches for f in
+                                              (flash_attn_fwd, scatter_add_rows, linear_ce_fwd)]
+    assert np.isfinite(l).all()
+    assert [a - c for a, c in zip(after, before)] == [36, 4, 4, 186, 1, 1, 36, 4, 1]
 
 
 def test_small_training_step_without_the_kernel_tier_on_card(cuda):

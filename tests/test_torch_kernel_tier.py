@@ -572,7 +572,9 @@ def test_pass_pipeline_verification_is_not_ported_and_says_so(verify):
 
 
 def test_bf16_amp_is_not_ported_and_says_so():
-    with pytest.raises(NotImplementedError, match="amp-bf16"):
-        compose_passes(None, pt.amp.AmpConfig())
-    with pytest.raises(NotImplementedError, match="amp-bf16"):
-        pt.Executor(pt.CPUPlace(), amp=True)
+    """Named for what it checked before the bf16 slice: ``AmpConfig()``
+    raised.  bf16 AMP is ported now (tests/test_torch_amp_bf16.py), so it
+    checks that ``AmpConfig()`` and ``amp=True`` compose the amp-bf16 pass
+    instead of raising."""
+    assert [p.name for p in compose_passes(None, pt.amp.AmpConfig()).passes] == ["amp-bf16"]
+    assert [p.name for p in pt.Executor(pt.CPUPlace(), amp=True).passes.passes] == ["amp-bf16"]

@@ -81,6 +81,36 @@ def test_flash_plain_ragged_tiles_and_no_lengths():
     np.testing.assert_allclose(out.numpy(), ref, atol=FLASH_ATOL, rtol=0)
 
 
+def _bf16_ulps(got, ref):
+    """|got - ref| in units of the bf16 spacing at the larger magnitude
+    (float32 arrays holding bf16 values)."""
+    mag = np.maximum(np.abs(got), np.abs(ref))
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(mag, 2.0 ** -126))) - 7)
+    return np.abs(got - ref) / ulp
+
+
+def test_flash_bf16_plain_matches_pallas_interpret():
+    """bf16 q, k, v (the amp-bf16 step's dtype): float32 math inside, the
+    output rounded once to bf16, lse float32.  The two sides' float32
+    values differ by summation order (~1e-6), which can round an output
+    element to the neighbouring bf16 value: at most 1 bf16 ulp apart."""
+    rs = np.random.RandomState(11)
+    bh, t, d = 4, 64, 64
+    q, k, v = (jnp.asarray(a).astype(jnp.bfloat16) for a in _qkv(rs, bh, t, d))
+    lens = np.array([64, 0, 5, 40], np.int32)
+    ref_out, ref_lse = _flash_fwd_pallas(q, k, v, jnp.asarray(lens), False, 0.125, 32, 32,
+                                         interpret=True)
+    tq, tk, tv = (torch.tensor(np.asarray(a.astype(jnp.float32))).to(torch.bfloat16)
+                  for a in (q, k, v))
+    out, lse = flash_attn_fwd(tq, tk, tv, kv_lens=torch.from_numpy(lens), sm_scale=0.125)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    got, ref = out.float().numpy(), np.asarray(ref_out.astype(jnp.float32))
+    assert _bf16_ulps(got, ref).max() <= 1
+    assert (got != ref).mean() < 0.01
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), atol=FLASH_ATOL, rtol=0)
+    assert not got[1].any()                       # no valid key: exact zeros
+
+
 def test_flash_wrapper_rejects_bad_arguments():
     q = torch.zeros(2, 8, 16)
     with pytest.raises(ValueError, match="kv_lens"):

@@ -33,6 +33,25 @@ ADAM_P_ATOL = 2e-6       # the JAX package's own kernel-vs-composed bound
 ADAM_M_ATOL = 1e-6
 SCATTER_ATOL = 1e-6
 FLASH_GRAD_ATOL = 1e-5
+# bf16 instances: K7's products of bf16 values are exact in float32 and
+# summed in float32 on both sides (in other orders); K3's float32 sums are
+# rounded once to bf16, and a last-bit difference in the float32 sum can
+# round to the neighbouring bf16 value
+CE_BF16_ATOL = 2e-5
+SCATTER_BF16_ULPS = 1
+
+
+def _bf16_ulps(got, ref):
+    """|got - ref| in units of the bf16 spacing at the larger magnitude."""
+    mag = np.maximum(np.abs(got), np.abs(ref))
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(mag, 2.0 ** -126))) - 7)
+    return np.abs(got - ref) / ulp
+
+
+def _bf16(a):
+    """(jax bf16 array, torch bf16 tensor) holding the same values."""
+    j = jnp.asarray(a).astype(jnp.bfloat16)
+    return j, torch.tensor(np.asarray(j.astype(jnp.float32))).to(torch.bfloat16)
 
 
 def _t(a):
@@ -70,6 +89,32 @@ def test_linear_ce_plain_matches_pallas_interpret(bias):
         np.testing.assert_allclose(db.numpy(), np.asarray(ref_db), atol=CE_BWD_ATOL, rtol=0)
     else:
         assert db is None
+
+
+@pytest.mark.parametrize("bias", [True, False])
+def test_linear_ce_bf16_forward_plain_matches_pallas_interpret(bias):
+    """K7's bf16 instance (the amp-bf16 step's forward): bf16 x and W, a
+    float32 bias, float32 lse and label logit."""
+    rs = np.random.RandomState(17)
+    bsz, d, v = 256, 128, 1024
+    jx, tx = _bf16(rs.randn(bsz, d).astype(np.float32))
+    jw, tw = _bf16((0.1 * rs.randn(d, v)).astype(np.float32))
+    b = rs.randn(v).astype(np.float32) if bias else None
+    labels = rs.randint(0, v, bsz).astype(np.int32)
+    labels[:3] = [0, v - 1, v]
+    ref_lse, ref_lab = pallas_linear_ce_fwd(jx, jw, jnp.asarray(b) if bias else None,
+                                            jnp.asarray(labels), interpret=True)
+    lse, lab = linear_ce_fwd(tx, tw, _t(b) if bias else None, _t(labels))
+    assert lse.dtype == lab.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), atol=CE_BF16_ATOL, rtol=0)
+    np.testing.assert_allclose(lab.numpy(), np.asarray(ref_lab), atol=CE_BF16_ATOL, rtol=0)
+    assert lab[2].item() == 0.0
+    # a float32 W is taken in x's dtype (rounded to bf16), as the Pallas kernel takes it
+    w32 = _t(np.asarray(jw.astype(jnp.float32)) + np.float32(1e-4))
+    lse2, _ = linear_ce_fwd(tx, w32, None, _t(labels))
+    ref2, _ = pallas_linear_ce_fwd(jx, jnp.asarray(w32.numpy()), None, jnp.asarray(labels),
+                                   interpret=True)
+    np.testing.assert_allclose(lse2.numpy(), np.asarray(ref2), atol=CE_BF16_ATOL, rtol=0)
 
 
 def test_linear_ce_plain_chunks_agree_with_one_dense_softmax():
@@ -150,6 +195,47 @@ def test_scatter_add_plain_matches_pallas_interpret():
     # -1 does not wrap onto the last row
     np.testing.assert_allclose(got[v - 1].numpy(), rows[ids == v - 1].sum(0),
                                atol=SCATTER_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("skew", ["uniform", "skewed"])
+def test_scatter_add_bf16_plain_matches_pallas_interpret(skew):
+    """K3's bf16 instance (the amp-bf16 step casts the word table): bf16
+    rows summed in float32, written in bf16.  Skewed: a third of the ids on
+    one row (the padding id of a padded batch)."""
+    rs = np.random.RandomState(5)
+    v, d, n = 1024, 128, 512
+    ids = rs.randint(0, v, n).astype(np.int32)
+    if skew == "skewed":
+        ids[rs.rand(n) < 1 / 3] = 0
+    ids[:4] = [7, 7, v, -1]
+    jw, tw = _bf16(np.zeros((v, d), np.float32))
+    jr, tr = _bf16(rs.randn(n, d).astype(np.float32))
+    ref = pallas_scatter_add_rows(jw, jnp.asarray(ids), jr, interpret=True)
+    got = scatter_add_rows(tw, _t(ids), tr)
+    assert got.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16
+    ulps = _bf16_ulps(got.float().numpy(), np.asarray(ref.astype(jnp.float32)))
+    assert ulps.max() <= SCATTER_BF16_ULPS
+
+
+def test_scatter_add_bf16_plain_sums_in_float32():
+    """Table row 1 gets 1.0 and sixteen 2**-9: float32 sums to 1 + 2**-5, a
+    bf16 value; a bf16 running sum stays at 1.0 (1 + 2**-9 rounds back to
+    1 each time), which is not the Pallas kernel's function."""
+    v, d = 128, 128                       # shapes the Pallas kernel takes
+    rows = torch.zeros((24, d), dtype=torch.bfloat16)
+    rows[0] = 1.0
+    rows[1:17] = 2.0 ** -9
+    ids = torch.tensor([1] * 17 + [2] * 7, dtype=torch.int32)
+    got = scatter_add_rows(torch.zeros(v, d, dtype=torch.bfloat16), ids, rows)
+    assert torch.equal(got[1], torch.full((d,), 1.0 + 2.0 ** -5, dtype=torch.bfloat16))
+    running = torch.zeros(d, dtype=torch.bfloat16)
+    for r in rows[:17]:
+        running = running + r
+    assert torch.equal(running, torch.ones(d, dtype=torch.bfloat16))
+    ref = pallas_scatter_add_rows(jnp.zeros((v, d), jnp.bfloat16), jnp.asarray(ids.numpy()),
+                                  jnp.asarray(rows.float().numpy()).astype(jnp.bfloat16),
+                                  interpret=True)
+    np.testing.assert_array_equal(np.asarray(ref.astype(jnp.float32)), got.float().numpy())
 
 
 def test_gather_rows_gradient_is_the_scatter_add():
