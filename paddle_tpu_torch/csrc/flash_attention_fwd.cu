@@ -1,5 +1,6 @@
-// Flash-attention forward for Hopper (sm_90a), register-tiled: float32 and
-// bf16 q/k/v.
+// Flash-attention forward for Hopper (sm_90a), register-tiled, on float32
+// q/k/v.  bf16 q/k/v go to the tensor-core kernel of
+// csrc/flash_attention_fwd_bf16.cu.
 //
 // Replaces the TPU kernel paddle_tpu/ops/pallas/flash_attention.py::
 // _attn_fwd_kernel (launched by _flash_fwd_pallas).  Same function: per
@@ -24,21 +25,10 @@
 //    length 0) does no work at all.
 //  * lse is stored as [B*H, T] float32, not lane-replicated to 128.
 //
-// Two instances of one template on the element type T of q, k, v and out:
-// float32, and bf16 (the amp-bf16 step's attention).  The bf16 instance is
-// the Pallas kernel's function on bf16 inputs: every tile is widened to
-// float32 as it is read (exact), the scores, the softmax and p.v are float32
-// as below, and the output is rounded once to bf16 (to nearest even); lse
-// stays float32.  Its K and V tiles stay bf16 in shared memory (cp.async in
-// 8-byte pieces; rows of k padded by 4 elements, so a half-warp's 8-byte
-// reads hit distinct banks), which halves their bytes: 68.6 KB a block at
-// head_dim 64.  The products stay on the CUDA cores: bf16 wgmma for q.k^T
-// and p.v would round P to bf16, other numerics.
-//
 // Bound: operations on the float32 CUDA cores (4*d flops per valid (query,
 // key) pair; chip_smoke.py prints the bound per shape).  The products stay
-// in float32 outside the tensor cores: TF32 would fail the float32 gates,
-// and bf16 belongs to the AMP slice.  Design for the FMA rate:
+// in float32 outside the tensor cores: TF32 would fail the float32 gates.
+// Design for the FMA rate:
 //  * 256 threads as a 16 x 16 grid.  Thread (ty, tx) owns query rows
 //    4*ty..4*ty+3 and keys tx, tx+16, tx+32, tx+48 of a tile: a 4 x 4
 //    micro-tile of S built from float4 reads of q and k rows, four d at a
@@ -51,9 +41,7 @@
 //  * K and V tiles are double-buffered in shared memory with cp.async: the
 //    next tile loads while this one is multiplied.  Rows of q and k are
 //    padded by 4 floats, so the reads of a quarter-warp hit distinct banks.
-//  * head_dim 64 takes 101.6 KB of dynamic shared memory in float32 (68.6 KB
-//    in bf16): two blocks an SM.
-#include <cuda_bf16.h>
+//  * head_dim 64 takes 101.6 KB of dynamic shared memory: two blocks an SM.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -68,17 +56,17 @@ constexpr int kPLd = kBQ + 4;            // padded row of P^T (floats)
 constexpr int kRows = 4;                 // query rows a thread
 constexpr int kThreads = 16 * (kBQ / kRows);  // 16 x 16
 
-// shared memory of one block, byte offsets: q (scaled, float32) and P^T as
-// float32, the K and V tiles (two buffers each) in the element type T
-template <int D, typename T>
+// shared memory of one block, byte offsets: q (scaled), the K and V tiles
+// (two buffers each) and P^T
+template <int D>
 struct Cfg {
-  static constexpr int kLd = D + 4;                   // padded q and k rows (elements)
+  static constexpr int kLd = D + 4;                   // padded q and k rows (floats)
   static constexpr int kVec = D >= 64 ? 4 : D / 16;   // output columns a thread reads at once
   static constexpr int kGroups = D / 16 / kVec;       // of kVec columns, 16 * kVec apart
   static constexpr int kQOff = 0;
   static constexpr int kKOff = kQOff + kBQ * kLd * 4;                  // two buffers
-  static constexpr int kVOff = kKOff + 2 * kBK * kLd * (int)sizeof(T);  // two, unpadded rows
-  static constexpr int kPOff = kVOff + 2 * kBK * D * (int)sizeof(T);
+  static constexpr int kVOff = kKOff + 2 * kBK * kLd * 4;    // two, unpadded rows
+  static constexpr int kPOff = kVOff + 2 * kBK * D * 4;
   static constexpr int kBytes = kPOff + kBK * kPLd * 4;
   static_assert(kKOff % 16 == 0 && kVOff % 16 == 0 && kPOff % 16 == 0, "16-byte regions");
 };
@@ -87,48 +75,31 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 4 elements global -> shared, asynchronously (16 bytes of float32, 8 of
-// bf16); zero-filled when !valid
+// 16 bytes global -> shared, asynchronously; zero-filled when !valid
 __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                ::"r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
 }
-__device__ __forceinline__ void cp_async4(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
-               ::"r"(smem_u32(dst)), "l"(src), "r"(valid ? 8 : 0) : "memory");
-}
 
-template <int D, typename T>
-__device__ __forceinline__ void load_kv_tile(T* ks, T* vs, const T* __restrict__ kb,
-                                             const T* __restrict__ vb, int k0, int tk) {
+template <int D>
+__device__ __forceinline__ void load_kv_tile(float* ks, float* vs, const float* __restrict__ kb,
+                                             const float* __restrict__ vb, int k0, int tk) {
   constexpr int kChunks = kBK * D / 4;
   for (int idx = threadIdx.x; idx < kChunks; idx += kThreads) {
     const int row = idx / (D / 4), col = (idx % (D / 4)) * 4;
     const int kp = k0 + row;
     const bool valid = kp < tk;
     const int64_t off = valid ? static_cast<int64_t>(kp) * D + col : 0;
-    cp_async4(ks + row * Cfg<D, T>::kLd + col, kb + off, valid);
+    cp_async4(ks + row * Cfg<D>::kLd + col, kb + off, valid);
     cp_async4(vs + row * D + col, vb + off, valid);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// reads widened to float32 (exact for bf16): 4 consecutive elements, and
-// the V row's kVec columns
-__device__ __forceinline__ float bf16_lo(uint32_t u) { return __uint_as_float(u << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
+// 4 consecutive floats, and the V row's kVec columns
 __device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y), bf16_hi(u.y));
-}
 __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 ldg4(const __nv_bfloat16* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  return make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y), bf16_hi(u.y));
 }
 
 template <int V>
@@ -141,17 +112,6 @@ template <int V>
 __device__ __forceinline__ typename VecT<V>::T ldv(const float* p) {
   return *reinterpret_cast<const typename VecT<V>::T*>(p);
 }
-template <int V>
-__device__ __forceinline__ typename VecT<V>::T ldv(const __nv_bfloat16* p) {
-  if constexpr (V == 4) {
-    return ld4(p);
-  } else if constexpr (V == 2) {
-    const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
-    return make_float2(bf16_lo(u), bf16_hi(u));
-  } else {
-    return bf16_lo(*reinterpret_cast<const unsigned short*>(p));
-  }
-}
 
 __device__ __forceinline__ float lane_of(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
@@ -159,30 +119,27 @@ __device__ __forceinline__ float lane_of(const float4& v, int i) {
 __device__ __forceinline__ float lane_of(const float2& v, int i) { return i == 0 ? v.x : v.y; }
 __device__ __forceinline__ float lane_of(const float& v, int) { return v; }
 
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-
-template <int D, typename T>
+template <int D>
 __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const int* __restrict__ kv_lens,
-                 T* __restrict__ out, float* __restrict__ lse, int tq, int tk, int causal,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const int* __restrict__ kv_lens,
+                 float* __restrict__ out, float* __restrict__ lse, int tq, int tk, int causal,
                  float sm_scale) {
-  using C = Cfg<D, T>;
+  using C = Cfg<D>;
   using VT = typename VecT<C::kVec>::T;
   constexpr int kOC = D / 16;  // output columns a thread
   extern __shared__ __align__(16) uint8_t smem[];
   float* qs = reinterpret_cast<float*>(smem + C::kQOff);
   float* ps = reinterpret_cast<float*>(smem + C::kPOff);
-  T* const kbuf = reinterpret_cast<T*>(smem + C::kKOff);
-  T* const vbuf = reinterpret_cast<T*>(smem + C::kVOff);
+  float* const kbuf = reinterpret_cast<float*>(smem + C::kKOff);
+  float* const vbuf = reinterpret_cast<float*>(smem + C::kVOff);
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kBQ;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const T* qb = q + static_cast<int64_t>(bh) * tq * D;
-  const T* kb = k + static_cast<int64_t>(bh) * tk * D;
-  const T* vb = v + static_cast<int64_t>(bh) * tk * D;
+  const float* qb = q + static_cast<int64_t>(bh) * tq * D;
+  const float* kb = k + static_cast<int64_t>(bh) * tk * D;
+  const float* vb = v + static_cast<int64_t>(bh) * tk * D;
 
   // Keys past kend are masked for every row of this block: past T, past
   // the key length, or (causal) past the block's last query row.
@@ -190,7 +147,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (kv_lens != nullptr) kend = min(kend, max(kv_lens[bh], 0));
   if (causal) kend = min(kend, min(q0 + kBQ, tq));
   const int ntiles = (kend + kBK - 1) / kBK;
-  if (ntiles > 0) load_kv_tile<D, T>(kbuf, vbuf, kb, vb, 0, tk);
+  if (ntiles > 0) load_kv_tile<D>(kbuf, vbuf, kb, vb, 0, tk);
 
   // q, scaled, into shared memory once
   for (int idx = tid; idx < kBQ * D / 4; idx += kThreads) {
@@ -214,10 +171,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int t = 0; t < ntiles; ++t) {
     const int buf = t & 1, k0 = t * kBK;
-    const T* ks = kbuf + buf * kBK * C::kLd;
-    const T* vs = vbuf + buf * kBK * D;
+    const float* ks = kbuf + buf * kBK * C::kLd;
+    const float* vs = vbuf + buf * kBK * D;
     if (t + 1 < ntiles) {
-      load_kv_tile<D, T>(kbuf + (buf ^ 1) * kBK * C::kLd, vbuf + (buf ^ 1) * kBK * D, kb, vb,
+      load_kv_tile<D>(kbuf + (buf ^ 1) * kBK * C::kLd, vbuf + (buf ^ 1) * kBK * D, kb, vb,
                          k0 + kBK, tk);
       asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     } else {
@@ -321,69 +278,55 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (qpos >= tq) continue;
     const float l_safe = fmaxf(l, 1e-20f);
     const bool any = m[r] > kNegInf / 2;  // a row with no valid key emits zeros
-    T* ob = out + (static_cast<int64_t>(bh) * tq + qpos) * D;
+    float* ob = out + (static_cast<int64_t>(bh) * tq + qpos) * D;
 #pragma unroll
     for (int g = 0; g < C::kGroups; ++g)
 #pragma unroll
       for (int i = 0; i < C::kVec; ++i)
-        store(ob + g * 16 * C::kVec + tx * C::kVec + i, any ? o[r][g * C::kVec + i] / l_safe : 0.f);
+        ob[g * 16 * C::kVec + tx * C::kVec + i] = any ? o[r][g * C::kVec + i] / l_safe : 0.f;
     if (tx == 0) lse[static_cast<int64_t>(bh) * tq + qpos] = m[r] + logf(l_safe);
   }
 }
 
-template <int D, typename T>
-cudaError_t launch(const T* q, const T* k, const T* v, const int* kv_lens, T* out, float* lse,
-                   int bh, int tq, int tk, int causal, float sm_scale, cudaStream_t stream) {
-  using C = Cfg<D, T>;
+template <int D>
+cudaError_t launch(const float* q, const float* k, const float* v, const int* kv_lens,
+                   float* out, float* lse, int bh, int tq, int tk, int causal, float sm_scale,
+                   cudaStream_t stream) {
+  using C = Cfg<D>;
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kBytes);
+        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kBytes);
     if (e != cudaSuccess) return e;
     configured = true;
   }
   const dim3 grid((tq + kBQ - 1) / kBQ, bh);
-  flash_fwd_kernel<D, T><<<grid, kThreads, C::kBytes, stream>>>(q, k, v, kv_lens, out, lse,
-                                                                tq, tk, causal, sm_scale);
+  flash_fwd_kernel<D><<<grid, kThreads, C::kBytes, stream>>>(q, k, v, kv_lens, out, lse, tq, tk,
+                                                             causal, sm_scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-int flash_attn_fwd(const T* q, const T* k, const T* v, const int* kv_lens, T* out, float* lse,
-                   int bh, int tq, int tk, int d, int causal, float sm_scale, void* stream) {
+}  // namespace
+
+// q: [bh, tq, d], k/v: [bh, tk, d] float32 contiguous, 16-byte aligned;
+// kv_lens: [bh] int32 or null; out: [bh, tq, d] float32; lse: [bh, tq]
+// float32.  Launches on ``stream`` and returns cudaGetLastError().
+extern "C" int ptt_flash_attn_fwd_f32(const float* q, const float* k, const float* v,
+                                      const int* kv_lens, float* out, float* lse, int bh,
+                                      int tq, int tk, int d, int causal, float sm_scale,
+                                      void* stream) {
   if (bh <= 0 || tq <= 0) return static_cast<int>(cudaSuccess);
   if (bh > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (d) {
-    case 16: e = launch<16, T>(q, k, v, kv_lens, out, lse, bh, tq, tk, causal, sm_scale, s); break;
-    case 32: e = launch<32, T>(q, k, v, kv_lens, out, lse, bh, tq, tk, causal, sm_scale, s); break;
-    case 64: e = launch<64, T>(q, k, v, kv_lens, out, lse, bh, tq, tk, causal, sm_scale, s); break;
+    case 16: e = launch<16>(q, k, v, kv_lens, out, lse, bh, tq, tk, causal, sm_scale, s); break;
+    case 32: e = launch<32>(q, k, v, kv_lens, out, lse, bh, tq, tk, causal, sm_scale, s); break;
+    case 64: e = launch<64>(q, k, v, kv_lens, out, lse, bh, tq, tk, causal, sm_scale, s); break;
     case 128:
-      e = launch<128, T>(q, k, v, kv_lens, out, lse, bh, tq, tk, causal, sm_scale, s);
+      e = launch<128>(q, k, v, kv_lens, out, lse, bh, tq, tk, causal, sm_scale, s);
       break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(e);
-}
-
-}  // namespace
-
-// q: [bh, tq, d], k/v: [bh, tk, d] float32 (or bf16) contiguous, 16-byte
-// aligned; kv_lens: [bh] int32 or null; out: [bh, tq, d] in q's type; lse:
-// [bh, tq] float32.  Launches on ``stream`` and returns cudaGetLastError().
-extern "C" int ptt_flash_attn_fwd_f32(const float* q, const float* k, const float* v,
-                                      const int* kv_lens, float* out, float* lse, int bh,
-                                      int tq, int tk, int d, int causal, float sm_scale,
-                                      void* stream) {
-  return flash_attn_fwd<float>(q, k, v, kv_lens, out, lse, bh, tq, tk, d, causal, sm_scale,
-                               stream);
-}
-
-extern "C" int ptt_flash_attn_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                                       const __nv_bfloat16* v, const int* kv_lens,
-                                       __nv_bfloat16* out, float* lse, int bh, int tq, int tk,
-                                       int d, int causal, float sm_scale, void* stream) {
-  return flash_attn_fwd<__nv_bfloat16>(q, k, v, kv_lens, out, lse, bh, tq, tk, d, causal,
-                                       sm_scale, stream);
 }

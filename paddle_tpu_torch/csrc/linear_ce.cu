@@ -38,9 +38,13 @@
 // bias, float32 lse and label logit -- the Pallas kernel's function on bf16
 // operands.  The product runs on bf16 wgmma (gemm_bf16_kernel, same header)
 // with the same kLse epilogue and merge, W [D, V] read as stored (M-major,
-// through wgmma's transpose bit) and x [B, D] K-major.  Bound at the
-// training shapes: operations, 0.54 TFLOP at 989 TFLOP/s bf16, 0.54 ms (the
-// bytes, x 16 MB, W 33 MB and the outputs, take 0.015 ms).
+// through wgmma's transpose bit) and x [B, D] K-major.  The tiles are
+// walked along the batch first, so the blocks at work at once read the same
+// 128 vocabulary rows of W, which L2 serves.
+// Bound at the training shapes: operations, 0.54 TFLOP at 989 TFLOP/s bf16,
+// 0.54 ms (the bytes, x 16 MB, W 33 MB and the outputs, take 0.015 ms).
+// paddle_tpu_torch/tools/k7_split.py times the kernel with its epilogue
+// taken out, and with cheapened parts of it.
 #include "gemm_3xtf32.cuh"
 
 namespace {
@@ -141,7 +145,7 @@ extern "C" int ptt_linear_ce_fwd_bf16(const uint16_t* x, const uint16_t* w, cons
   ep.lse_max = part_max;
   ep.lse_sum = part_sum;
   ep.label_logit = lab;
-  cudaError_t e = launch_gemm_bf16<kLse>(w, ldw, x, d, v, rows, d, 1, ep, s);
+  cudaError_t e = launch_gemm_bf16<kLse>(w, ldw, x, d, v, rows, d, ep, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int tiles = 2 * ((v + kBM - 1) / kBM);
   ce_fwd_combine_kernel<<<(rows + 31) / 32, kMergeWarps * 32, 0, s>>>(part_max, part_sum, labels,
@@ -158,5 +162,5 @@ extern "C" int ptt_gemm_bf16(const uint16_t* at, const uint16_t* bk, float* out,
   ep.out = out;
   ep.ldo = n;
   return static_cast<int>(
-      launch_gemm_bf16<kStore>(at, lda, bk, k, m, n, k, 0, ep, static_cast<cudaStream_t>(stream)));
+      launch_gemm_bf16<kStore>(at, lda, bk, k, m, n, k, ep, static_cast<cudaStream_t>(stream)));
 }

@@ -1,5 +1,6 @@
-"""Flash-attention forward: the hand-written Hopper kernel
-(csrc/flash_attention_fwd.cu) and its plain PyTorch version.
+"""Flash-attention forward: the hand-written Hopper kernels
+(csrc/flash_attention_fwd.cu for float32, csrc/flash_attention_fwd_bf16.cu
+for bf16) and their plain PyTorch version.
 
 Replaces the TPU kernel ``paddle_tpu/ops/pallas/flash_attention.py::
 _attn_fwd_kernel``.  Same function and layout as the JAX package's
@@ -9,9 +10,12 @@ scaled by ``sm_scale`` (default 1/sqrt(d)) applied to q; keys at positions
 query row with no valid key gives exact zeros.  Returns ``(out, lse)``
 with lse = m + log(l) in float32 (float64 for float64 inputs on the
 CPU), which the backward reads.  q, k and v may be float32 or bf16 (the
-``amp-bf16`` pass's dtype for attention): bf16 tiles are widened to
-float32, the scores, softmax and ``p.v`` are float32, and only the output
-is rounded to bf16, as the Pallas kernel does.
+``amp-bf16`` pass's dtype for attention).  bf16 inputs get the Pallas
+kernel's function: the scores, softmax and ``p.v`` in float32, only the
+output rounded to bf16.  The bf16 kernel computes it on the bf16 tensor
+cores: products of bf16 values are exact in float32, and P is split into
+two bf16 terms for ``p.v`` (``split_bf16`` mirrors the split), which
+rebuild it to 2**-17 relative.
 
 ``FlashAttention`` is the autograd Function around it: the forward is the
 kernel (saving q, k, v, kv_lens, out and lse), the backward the composed
@@ -75,6 +79,19 @@ def flash_attn_fwd_plain(q, k, v, kv_lens, causal: bool, sm_scale: float,
     # rows with no valid key at all (kv_len == 0) emit exact zeros
     out = torch.where(m[..., None] > NEG_INF / 2, out, 0.0).to(q.dtype)
     return out, m + torch.log(l_safe)
+
+
+def split_bf16(t: torch.Tensor):
+    """(hi, lo) of a float32 tensor as csrc/flash_attention_fwd_bf16.cu
+    splits P for its bf16 ``p.v`` products, bit for bit: ``hi`` is ``t``
+    rounded to bf16 (to nearest even), ``lo`` is ``t - hi`` (exact in
+    float32) rounded the same way.  ``hi + lo`` rebuilds ``t`` to 2**-17
+    relative (2**-134 absolute where ``lo`` is a bf16 subnormal).  The
+    kernel's mirror for the tests; nothing else calls it."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"split_bf16 takes float32, got {t.dtype}")
+    hi = t.to(torch.bfloat16)
+    return hi, (t - hi.float()).to(torch.bfloat16)
 
 
 def _launch(q, k, v, kv_lens, causal: bool, sm_scale: float):

@@ -15,11 +15,15 @@ run;
 is one such run.  Measured, with ``chip_smoke.py``'s own helpers and shapes:
 K2 (``gather_rows``) beside ``F.embedding`` at the four cases, CUDA-event
 time and host microseconds a call; K4's GEMM at (512, 512) beside
-``torch._int_mm``; K8 (``linear_ce_bwd``) at the loss head's shapes; one
+``torch._int_mm``; K8 (``linear_ce_bwd``) at the loss head's shapes; the
+outputs of K1, K7 (float32 and bf16) and K8 at the training shapes on
+seeded inputs, as a SHA-256 digest of their bytes (equal digests: bit-equal
+outputs), with the CUDA-event time of each; one
 8-row int8 batch of transformer-base (wall, copies, device busy, from the
 profiler, three times); three Adam training steps at 64 x 256 and one
 profiled step.  Needs one CUDA GPU and nvcc.
 """
+import hashlib
 import json
 import os
 import subprocess
@@ -49,6 +53,7 @@ def measure(root):
     out = {"root": root, "card": smi.stdout.strip(), "build_s": build.build()["seconds"]}
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(2)
+    out["outputs"] = _kernel_outputs(cs, np, torch, dev)
 
     for shape, vocab, n in (("serve", cs.VOCAB, cs.B * cs.T), ("serve", cs.T, cs.B * cs.T),
                             ("train", cs.VOCAB, cs.TRAIN_B * cs.T), ("train", cs.T, cs.TRAIN_B * cs.T)):
@@ -119,6 +124,45 @@ def measure(root):
                        "device_busy_ms": prof["device_busy_ms"],
                        "K8_ms": prof["by_family_ms"].get("linear_ce_bwd (K8)")}
     print("AB " + json.dumps(out))
+
+
+def _kernel_outputs(cs, np, torch, dev):
+    """K1 (float32 and bf16, causal and not), K7 (float32 and bf16) and K8
+    at the training path's shapes on inputs from one seed: a digest of each
+    call's output bytes and its CUDA-event time."""
+    from paddle_tpu_torch.ops.cuda.flash_attention import flash_attn_fwd
+    from paddle_tpu_torch.ops.cuda.linear_ce import linear_ce_bwd, linear_ce_fwd
+
+    def digest(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    g = torch.Generator().manual_seed(8)
+    res = {}
+    train = cs._train_feed(cs.TRAIN_B, seed=0)
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal, row_lens in ((False, train["src@SEQ_LEN"]), (True, train["trg@SEQ_LEN"])):
+            q, k, v = (torch.randn(cs.TRAIN_B * cs.H, cs.T, cs.D_HEAD, generator=g).to(dtype)
+                       .to(dev) for _ in range(3))
+            lens = torch.from_numpy(np.repeat(row_lens, cs.H)).to(dev)
+            fn = lambda: flash_attn_fwd(q, k, v, lens, causal, cs.D_HEAD ** -0.5)  # noqa: E731
+            res[f"K1 {str(dtype)[6:]} causal={causal}"] = {"digest": digest(*fn()),
+                                                           "ms": cs._ms(fn, 20)}
+    rows = cs.TRAIN_B * cs.T
+    x = torch.randn(rows, cs.D_MODEL, generator=g).to(dev)
+    w = ((torch.rand(cs.D_MODEL, cs.VOCAB, generator=g) * 2 - 1) * 0.0136).to(dev)
+    b = (0.01 * torch.randn(cs.VOCAB, generator=g)).to(dev)
+    labels = torch.randint(0, cs.VOCAB, (rows,), generator=g, dtype=torch.int32).to(dev)
+    for name, xx, ww in (("K7 float32", x, w), ("K7 bf16", x.bfloat16(), w.bfloat16())):
+        fn = lambda: linear_ce_fwd(xx, ww, b, labels)  # noqa: E731
+        res[name] = {"digest": digest(*fn()), "ms": cs._ms(fn, 5)}
+    lse, _ = linear_ce_fwd(x, w, b, labels)
+    gl = torch.full((rows,), 1.0 / rows, device=dev)
+    fn = lambda: linear_ce_bwd(x, w, b, labels, lse, gl)  # noqa: E731
+    res["K8"] = {"digest": digest(*fn()), "ms": cs._ms(fn, 3)}
+    return res
 
 
 def main():

@@ -46,13 +46,15 @@ ADAM_ATOL = 1e-6      # fused Adam vs plain (the kernel rounds as the plain does
 INT8_LOGIT_ATOL = 0.05
 QUIET_REL_ERR = 2e-3
 QUIET_SHARE = 0.25
-# bf16 instances.  K1: float32 inside, the output rounded once to bf16; the
-# kernel's and the plain version's float32 values differ by summation order
-# (FLASH_ATOL), and rounding can then land on neighbouring bf16 values: each
-# element within 1 bf16 ulp plus FLASH_ATOL.  The bf16 kernel runs the
-# float32 kernel's arithmetic on the widened values, so it is bit-equal to
-# that kernel's output rounded to bf16.  K7: products of bf16 values are
-# exact in float32 and both sides sum in float32.
+# bf16 instances.  K1: the Pallas kernel's float32 function, the output
+# rounded once to bf16; the kernel (bf16 tensor cores, P split into two bf16
+# terms, 2**-17 of P) and the plain version (float32) differ before the
+# rounding by summation order and the split (FLASH_ATOL), and rounding can
+# then land on neighbouring bf16 values: each element within 1 bf16 ulp plus
+# FLASH_ATOL.  Against float64 over the same bf16 inputs each element lies
+# within half a bf16 ulp plus FLASH_ATOL, a gate that P rounded once to bf16
+# (one term of the split, the control) fails.  K7: products of bf16 values
+# are exact in float32 and both sides sum in float32.
 FLASH_BF16_ULPS = 1
 CE_BF16_RTOL = 2e-6
 # a bf16 training step, card vs CPU (both bf16, other summation orders and
@@ -69,6 +71,54 @@ def _bf16_ulps(got, ref, atol=0.0):
     mag = torch.maximum(got.abs(), ref.abs()).clamp_min(2.0 ** -126)
     off = ((got - ref).abs() - atol).clamp_min(0)
     return (off / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max().item()
+
+
+def _half_ulp_excess(got, ref64, atol):
+    """max over elements of |got - ref64| less half a bf16 ulp at the larger
+    magnitude and ``atol``: <= 0 inside the float64 gate."""
+    x = got.double()
+    mag = torch.maximum(x.abs(), ref64.abs()).clamp_min(2.0 ** -126)
+    return ((x - ref64).abs() - 0.5 * torch.exp2(torch.floor(torch.log2(mag)) - 7)
+            - atol).max().item()
+
+
+def _flash_p_rounded_once(q, k, v, lens, causal, scale):
+    """The control of K1 bf16's float64 gate: float32 attention whose p . v
+    takes P rounded once to bf16 (one term of the kernel's split), over the
+    float32 sum of P."""
+    tq, tk = q.shape[1], k.shape[1]
+    kp = torch.arange(tk, device=q.device)
+    mask = kp[None, None, :] < lens[:, None, None]
+    if causal:
+        mask = mask & (kp[None, :] <= torch.arange(tq, device=q.device)[:, None])
+    s = (torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale).masked_fill(~mask, -np.inf)
+    p = torch.exp(s - s.amax(-1, keepdim=True)).nan_to_num(0.0)   # a row with no key: 0
+    out = torch.einsum("bqk,bkd->bqd", p.to(torch.bfloat16).float(), v.float())
+    return (out / p.sum(-1, keepdim=True).clamp_min(1e-20)).to(torch.bfloat16)
+
+
+def _check_flash_bf16(q, k, v, lens, causal):
+    """K1 bf16 against its plain version (1 bf16 ulp + FLASH_ATOL) and
+    against float64 over the same bf16 inputs (half a bf16 ulp +
+    FLASH_ATOL, lse FLASH_ATOL), with P rounded once outside that gate."""
+    scale = q.shape[-1] ** -0.5
+    before = (flash_attn_fwd.launches, flash_attn_fwd.bf16_launches)
+    out, lse = flash_attn_fwd(q, k, v, kv_lens=lens, causal=causal)
+    ref, ref_lse = flash_attn_fwd_plain(q, k, v, lens, causal, scale)
+    o64, l64 = flash_attn_fwd_plain(q.double(), k.double(), v.double(), lens, causal, scale)
+    ctl = _flash_p_rounded_once(q, k, v, lens, causal, scale)
+    torch.cuda.synchronize()
+    assert (flash_attn_fwd.launches, flash_attn_fwd.bf16_launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert _bf16_ulps(out, ref, FLASH_ATOL) <= FLASH_BF16_ULPS
+    assert (lse - ref_lse).abs().max().item() <= FLASH_ATOL
+    assert _half_ulp_excess(out, o64, FLASH_ATOL) <= 0
+    keyed = lens > 0      # a row with no valid key has lse -1e30 in either precision
+    assert (lse[keyed].double() - l64[keyed]).abs().max().item() <= FLASH_ATOL
+    assert _half_ulp_excess(ctl, o64, FLASH_ATOL) > 0
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    return out, lse
 
 
 @pytest.fixture
@@ -119,24 +169,27 @@ def test_flash_kernel_many_tiles_with_short_and_ragged_lengths(cuda, d, causal):
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_bf16_kernel_matches_plain(cuda, d, causal):
-    """The bf16 instance: ragged T (100), key lengths 0..T, several tiles."""
+    """The bf16 kernel: ragged T (100), key lengths 0..T, several tiles."""
     rs = np.random.RandomState(100 + d)
     q, k, v = (torch.from_numpy(rs.randn(16, 100, d).astype(np.float32)).to(cuda)
                .to(torch.bfloat16) for _ in range(3))
     lens = torch.from_numpy(rs.randint(0, 101, 16).astype(np.int32)).to(cuda)
     lens[0] = 0
-    before = (flash_attn_fwd.launches, flash_attn_fwd.bf16_launches)
-    out, lse = flash_attn_fwd(q, k, v, kv_lens=lens, causal=causal)
-    ref, ref_lse = flash_attn_fwd_plain(q, k, v, lens, causal, d ** -0.5)
-    torch.cuda.synchronize()
-    assert (flash_attn_fwd.launches, flash_attn_fwd.bf16_launches) == \
-        (before[0] + 1, before[1] + 1)
-    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
-    assert _bf16_ulps(out, ref, FLASH_ATOL) <= FLASH_BF16_ULPS
-    assert (lse - ref_lse).abs().max().item() <= FLASH_ATOL
-    assert torch.equal(out[0], torch.zeros_like(out[0]))
-    out32, lse32 = flash_attn_fwd(q.float(), k.float(), v.float(), kv_lens=lens, causal=causal)
-    assert torch.equal(out, out32.to(torch.bfloat16)) and torch.equal(lse, lse32)
+    _check_flash_bf16(q, k, v, lens, causal)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bf16_kernel_many_tiles_with_short_and_ragged_lengths(cuda, d, causal):
+    """T = 300: five 64-row query blocks and five 64-key tiles, the last of
+    each ragged; key lengths 0, 1, at and around the tile edges, and T."""
+    rs = np.random.RandomState(200 + d)
+    q, k, v = (torch.from_numpy(rs.randn(10, 300, d).astype(np.float32)).to(cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    lens = torch.tensor([0, 1, 2, 63, 64, 65, 128, 257, 299, 300], dtype=torch.int32).to(cuda)
+    _, lse = _check_flash_bf16(q, k, v, lens, causal)
+    assert torch.equal(lse[0], flash_attn_fwd_plain(q[:1], k[:1], v[:1], lens[:1], causal,
+                                                    d ** -0.5)[1][0])
 
 
 def test_flash_kernel_cross_attention_without_lengths(cuda):
@@ -364,6 +417,28 @@ def test_linear_ce_fwd_bf16_kernel_matches_plain(cuda, bsz, d, v, bias):
         scale = want.abs().max().item()
         assert (got - want).abs().max().item() <= CE_BF16_RTOL * scale
         assert (got.double() - w64).abs().max().item() <= CE_BF16_RTOL * scale
+
+
+@pytest.mark.parametrize("d", [512, 520])
+def test_linear_ce_fwd_bf16_several_tiles_a_block_twice_bit_equal(cuda, d):
+    """K7 bf16 where each block walks several output tiles (33 x 16 of them
+    over the card's blocks), across rows of W's tiles: at D = 512 an even
+    and at D = 520 an odd number of 64-k steps; the two k-step sums taken
+    in turn and the ring of stages carry over tile boundaries.  Two calls
+    are bit-equal and within the plain version's tolerance."""
+    g = torch.Generator().manual_seed(5)
+    bsz, v = 2048, 4100
+    x = torch.randn(bsz, d, generator=g).to(torch.bfloat16).to(cuda)
+    w = (0.05 * torch.randn(d, v, generator=g)).to(torch.bfloat16).to(cuda)
+    b = torch.randn(v, generator=g).to(cuda)
+    labels = torch.randint(0, v, (bsz,), generator=g, dtype=torch.int32).to(cuda)
+    lse, lab = linear_ce_fwd(x, w, b, labels)
+    again = linear_ce_fwd(x, w, b, labels)
+    ref = linear_ce_fwd_plain(x, w, b, labels)
+    torch.cuda.synchronize()
+    assert torch.equal(lse, again[0]) and torch.equal(lab, again[1])
+    for got, want in zip((lse, lab), ref):
+        assert (got - want).abs().max().item() <= CE_BF16_RTOL * want.abs().max().item()
 
 
 @pytest.mark.parametrize("m,n,k", [(128, 128, 64), (36, 200, 104), (1000, 132, 8),
