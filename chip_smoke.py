@@ -30,7 +30,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    float64, beside the cuBLAS float32 composition and a single-pass-TF32
    control, and twice for bit-equality; K8's mainloop alone at one chunk's
    three products; K3 bit-equal to its plain version run on the CPU, and
-   twice bit-equal;
+   twice bit-equal, on the word table (uniform ids, a quarter of them 0,
+   and the training feed's own source ids) and the position table (random
+   ids, and the step's position ids); ``torch.optim.Adam(fused=True)`` over
+   the training step's 186 parameter shapes in one call, K6's per-step
+   yardstick;
 7. transformer-base training (``train_network(fuse_final_ce=True)`` +
    ``Adam(1e-3)``, random weights from seed 0, batch 64 x 256 with ragged
    lengths): one warm-up and three timed steps on one batch, every loss
@@ -50,7 +54,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
     timed beside its bound and ``torch._int_mm`` (column-major B), the
     quantizers and the whole product timed, and the quantizers' time a
     batch; host microseconds a call at (512, 512); fused SGD (K5) on the word table and a vector, bit-equal, beside
-    ``torch.optim.SGD(fused=True)``;
+    ``torch.optim.SGD(fused=True)``, and that call over the training step's
+    186 parameter shapes, K5's per-step yardstick;
 11. int8 serving: ``ServingSession(max_batch_size=8, amp=AmpConfig(
     bf16=False, quant=True), kernels=True)`` with the float32 weights,
     4 client threads: answers finite, of the right shape, bit-identical to
@@ -68,7 +73,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
 13. the bf16 instances of K1, K3 and K7 at the bf16 step's shapes, each
     against its plain version on the card (K3: bit-equal to it run on the
     CPU, and twice bit-equal) and against float64 over the same
-    bf16-rounded inputs, inside a gate that a control fails: K1 (bf16
+    bf16-rounded inputs, inside a gate that a control fails (K3 on phase
+    6's ids): K1 (bf16
     tensor cores, P split into two bf16 terms) with P rounded once to bf16
     before p.v, K3 with a bf16 running sum, K7 with the logits rounded to
     bf16 before the lse; times beside a PyTorch yardstick, and K7's
@@ -86,8 +92,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
 15. a ``{"kernels": [...]}`` line with each kernel's launches on its path,
     error against its plain version, times, and bound; K4's entry lists
     its quantize kernels under ``quantizers``, K7's and K8's both of their
-    bounds (float32 on the CUDA cores, and three TF32 products); the bf16
-    instances of K1, K3 and K7 as entries of their own.
+    bounds (float32 on the CUDA cores, and three TF32 products), K3's times
+    those of the padded word table; the bf16 instances of K1, K3 and K7 as
+    entries of their own.
 
 Phase 9 also takes the 2 x 256 step in bf16 (``enable_amp``) with cuBLAS's
 reduced-precision bf16 reductions allowed (PyTorch's default) and not, and
@@ -402,7 +409,7 @@ def _family(name):
         return "flash_attn_fwd (K1)"
     if "gather_rows_kernel" in name:
         return "gather_rows (K2)"
-    if any(k in name for k in ("radix_hist_kernel", "radix_scatter_kernel", "segment_kernel")):
+    if "::sort_kernel(" in name or "segment_sums_kernel" in name:
         return "scatter_add_rows (K3)"
     if "int8_gemm_kernel" in name:
         return "int8_matmul (K4)"
@@ -929,6 +936,34 @@ def phase_linear_ce(torch, card):
     return res
 
 
+def _library_step(torch, card, name, make_opt, bytes_per_float):
+    """The per-step yardstick of K5/K6: one ``make_opt(params).step()`` over
+    tensors of the training step's 186 parameter shapes (transformer-base as
+    phase 7 builds it), its event time and its device time (profiler),
+    beside the step's bytes bound (``bytes_per_float`` a parameter float)."""
+    import paddle_tpu_torch as pt
+    main, _, _ = _train_programs(pt)
+    shapes = [tuple(p.shape) for p in main.global_block.all_parameters()]
+    if len(shapes) != N_PARAMS:
+        raise AssertionError(f"{len(shapes)} parameters, want {N_PARAMS}")
+    dev = torch.device("cuda")
+    params = [torch.nn.Parameter(torch.empty(s, device=dev).normal_()) for s in shapes]
+    for q in params:
+        q.grad = 1e-4 * torch.randn_like(q)
+    opt = make_opt(params)
+    opt.step()                                   # creates the optimizer's state
+    ms = _ms(opt.step, 20)
+    dev_ms = _device_ms(torch, opt.step, 5)
+    floats = sum(q.numel() for q in params)
+    bound_ms, bound_by = _bound(bytes_per_float * floats, 0)
+    print(f"{name} over the training step's {len(shapes)} parameters ({floats} floats), one call a "
+          f"step: {ms:.4f} ms (events), device {dev_ms} ms (profiler); the step's bound "
+          f"{bound_ms:.4f} ms ({bound_by}) [{card}]")
+    del opt, params
+    torch.cuda.empty_cache()
+    return dict(library_ms=ms, library_device_ms=dev_ms, bound_ms=bound_ms)
+
+
 def phase_adam(torch, card):
     """K6 on the [32000, 512] word table and a [512] vector."""
     from paddle_tpu_torch.ops.cuda.fused_optimizer import fused_adam, fused_adam_plain
@@ -966,28 +1001,52 @@ def phase_adam(torch, card):
               f"output (p, m1, m2, b1p, b2p) {[f'{r:.1e}' for r in rels]} (tol {ADAM_RTOL}); kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.optim.Adam(fused=True) {lib_ms:.4f} ms, "
               f"bound {bound_ms:.5f} ms ({bound_by}) [{card}]")
+    # p, grad, m1, m2 read; p, m1, m2 written
+    _library_step(torch, card, "torch.optim.Adam(fused=True)",
+                  lambda ps: torch.optim.Adam(ps, lr=1e-3, betas=(0.9, 0.999), eps=1e-8, fused=True),
+                  7 * 4)
     return res
 
 
+def _scatter_ids(torch, case, g, n):
+    """K3's ids at the training step's shapes, and the table's rows: 16384
+    uniform ids with out-of-range ones into the word table (VOCAB) or the
+    position table (T); "padded", the word table with a quarter of the ids
+    0, as the training feed's padded positions give (one segment of ~4100
+    ids); "feed", the step's own source ids (``_train_feed``, flattened);
+    "positions", the step's position ids (arange(T) tiled TRAIN_B times, as
+    ``_position_ids_like`` feeds the position table)."""
+    if case == "feed":
+        return VOCAB, torch.from_numpy(_train_feed(TRAIN_B, seed=0)["src"].reshape(-1)
+                                       .astype(np.int32))
+    if case == "positions":
+        return T, torch.from_numpy(np.tile(np.arange(T, dtype=np.int32), TRAIN_B))
+    vocab = VOCAB if case == "padded" else case
+    ids = torch.randint(0, vocab, (n,), generator=g, dtype=torch.int32)
+    if case == "padded":
+        ids[torch.rand(n, generator=g) < 0.25] = 0
+    ids[:4] = torch.tensor([-1, vocab, vocab + 3, 0], dtype=torch.int32)
+    return vocab, ids
+
+
+SCATTER_CASES = (VOCAB, T, "padded", "feed", "positions")
+
+
+def _scatter_label(vocab, case, n):
+    return f"W=[{vocab},{D_MODEL}] N={n}" + ("" if case in (VOCAB, T) else f" {case}")
+
+
 def phase_scatter(torch, card):
-    """K3: 16384 ids with duplicates and out-of-range ids, into the word
-    table [32000, 512] (uniform, and with a quarter of the ids 0 as padding
-    gives) and the position table [256, 512]: bit-equal to its plain version
-    run on the CPU, and to itself."""
+    """K3 at the training step's shapes (``_scatter_ids``): bit-equal to its
+    plain version run on the CPU, and to itself."""
     from paddle_tpu_torch.ops.cuda.embedding import scatter_add_rows, scatter_add_rows_plain
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(5)
     n = TRAIN_B * T
     res = {}
-    for case in (VOCAB, T, "padded"):
-        # "padded": the word table with a quarter of the ids 0, as the
-        # training feed's padded positions give (one segment of ~4100 ids)
-        vocab = VOCAB if case == "padded" else case
+    for case in SCATTER_CASES:
+        vocab, ids = _scatter_ids(torch, case, g, n)
         w = torch.zeros(vocab, D_MODEL, device=dev)
-        ids = torch.randint(0, vocab, (n,), generator=g, dtype=torch.int32)
-        if case == "padded":
-            ids[torch.rand(n, generator=g) < 0.25] = 0
-        ids[:4] = torch.tensor([-1, vocab, vocab + 3, 0], dtype=torch.int32)
         rows = torch.randn(n, D_MODEL, generator=g)
         # the plain version on the CPU adds in the kernel's order (ascending
         # n); on the card index_add_ adds by atomics
@@ -1008,13 +1067,16 @@ def phase_scatter(torch, card):
         bound_ms, bound_by = _bound(4 * (ids.numel() + int(valid.sum()) * D_MODEL + w.numel()),
                                     int(valid.sum()) * D_MODEL)
         by_kernel = _device_by_kernel(torch, lambda: scatter_add_rows(w, ids, rows), 20)
+        host_us = _host_us(torch, lambda: scatter_add_rows(w, ids, rows), 200)
         res[case] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bound_ms, bound_by=bound_by)
-        print(f"K3 scatter_add_rows W=[{vocab},{D_MODEL}] N={n}{' padded' if case == 'padded' else ''}"
-              f": bit-equal to its plain version on the CPU, two calls bit-equal; kernel "
-              f"{ms:.4f} ms, plain on the card {plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, "
-              f"bound {bound_ms:.5f} ms ({bound_by}); device time by kernel (profiler) "
-              f"{json.dumps({k: round(v, 5) for k, v in by_kernel.items()})} [{card}]")
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         device_ms=sum(by_kernel.values()) or None, host_us=host_us)
+        print(f"K3 scatter_add_rows {_scatter_label(vocab, case, n)}: bit-equal to its plain "
+              f"version on the CPU, two calls bit-equal; kernel {ms:.4f} ms, plain on the card "
+              f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound {bound_ms:.5f} ms "
+              f"({bound_by}); device time by kernel (profiler) "
+              f"{json.dumps({k: round(v, 5) for k, v in by_kernel.items()})}; host us a call "
+              f"{host_us:.1f} [{card}]")
     return res
 
 
@@ -1164,6 +1226,9 @@ def phase_sgd(torch, card):
                           bound_ms=bound_ms, bound_by=bound_by)
         print(f"K5 fused_sgd {list(shape)}: bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"{lib} {lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}) [{card}]")
+    # p, grad read; p written
+    _library_step(torch, card, "torch.optim.SGD(fused=True)",
+                  lambda ps: torch.optim.SGD(ps, lr=0.1, fused=True), 3 * 4)
     return res
 
 
@@ -1558,15 +1623,11 @@ def phase_bf16_kernels(torch, card):
               f"K1 {host_us:.1f}, sdpa {lib_host_us:.1f}, float32 K1 {f32_host_us:.1f} [{card}]")
         del q, k, v, ref, o64, ctl
 
-    # K3 into bf16 word and position tables, 16384 ids
+    # K3 into bf16 word and position tables, 16384 ids (_scatter_ids)
     n = TRAIN_B * T
-    for case in (VOCAB, T, "padded"):
-        vocab = VOCAB if case == "padded" else case
+    for case in SCATTER_CASES:
+        vocab, ids = _scatter_ids(torch, case, g, n)
         w = torch.zeros(vocab, D_MODEL, device=dev, dtype=bf)
-        ids = torch.randint(0, vocab, (n,), generator=g, dtype=torch.int32)
-        if case == "padded":
-            ids[torch.rand(n, generator=g) < 0.25] = 0
-        ids[:4] = torch.tensor([-1, vocab, vocab + 3, 0], dtype=torch.int32)
         rows = torch.randn(n, D_MODEL, generator=g).to(bf)
         want = scatter_add_rows_plain(w.cpu(), ids, rows)
         d_ids, d_rows = ids.to(dev), rows.to(dev)
@@ -1586,8 +1647,7 @@ def phase_bf16_kernels(torch, card):
                    - cnt * 2.0 ** -24 * a64).max().item()
                for who, x in (("K3", got.cpu()), ("control", ctl))}
         nrel = {who: _norm_rel64(x, r64) for who, x in (("K3", got.cpu()), ("control", ctl))}
-        print(f"scatter_add_rows bf16 [{vocab},{D_MODEL}]{' padded' if case == 'padded' else ''} "
-              f"against float64 sums: norm-relative {json.dumps(nrel)}; largest excess over half a "
+        print(f"scatter_add_rows bf16 {_scatter_label(vocab, case, n)} against float64 sums: norm-relative {json.dumps(nrel)}; largest excess over half a "
               f"bf16 ulp + the float32 summation bound {json.dumps(off)} (K3 must be <= 0, the "
               f"control > 0)")
         if not (off["K3"] <= 0 and off["control"] > 0):
@@ -1600,14 +1660,16 @@ def phase_bf16_kernels(torch, card):
         nvalid = int(valid.sum())
         bound_ms, bound_by = _bound(4 * n + 2 * (nvalid + vocab) * D_MODEL, nvalid * D_MODEL)
         by_kernel = _device_by_kernel(torch, lambda: scatter_add_rows(w, d_ids, d_rows), 20)
+        host_us = _host_us(torch, lambda: scatter_add_rows(w, d_ids, d_rows), 200)
         res[("scatter", case)] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                      bound_ms=bound_ms, bound_by=bound_by)
-        print(f"K3 scatter_add_rows bf16 W=[{vocab},{D_MODEL}] N={n}"
-              f"{' padded' if case == 'padded' else ''}: bit-equal to its plain version on the "
-              f"CPU, two calls bit-equal; kernel {ms:.4f} ms, plain on the card {plain_ms:.4f} ms, "
-              f"float32 index_add_ then .to(bfloat16) {lib_ms:.4f} ms, bound {bound_ms:.5f} ms "
-              f"({bound_by}); device time by kernel (profiler) "
-              f"{json.dumps({k: round(v, 5) for k, v in by_kernel.items()})} [{card}]")
+                                      bound_ms=bound_ms, bound_by=bound_by,
+                                      device_ms=sum(by_kernel.values()) or None, host_us=host_us)
+        print(f"K3 scatter_add_rows bf16 {_scatter_label(vocab, case, n)}: bit-equal to its plain "
+              f"version on the CPU, two calls bit-equal; kernel {ms:.4f} ms, plain on the card "
+              f"{plain_ms:.4f} ms, float32 index_add_ then .to(bfloat16) {lib_ms:.4f} ms, bound "
+              f"{bound_ms:.5f} ms ({bound_by}); device time by kernel (profiler) "
+              f"{json.dumps({k: round(v, 5) for k, v in by_kernel.items()})}; host us a call "
+              f"{host_us:.1f} [{card}]")
         del w, got, again, want, r64, a64, ctl
 
     # K7 at the loss head: x [16384, 512] and W [512, 32000] bf16, bias float32
@@ -1889,7 +1951,7 @@ def main():
         entry("flash_attn_fwd", "flash_attention_fwd.cu", "flash_attention.py:38", flash,
               ("train", False)),
         entry("gather_rows", "embedding_gather.cu", "embedding.py:48", gather, ("train", VOCAB)),
-        entry("scatter_add_rows", "embedding_scatter_add.cu", "embedding.py:85", scatter, VOCAB),
+        entry("scatter_add_rows", "embedding_scatter_add.cu", "embedding.py:85", scatter, "padded"),
         k4,
         entry("fused_sgd", "fused_sgd.cu", "fused_optimizer.py:86", sgd, (VOCAB, D_MODEL)),
         entry("fused_adam", "fused_adam.cu", "fused_optimizer.py:106", adam, (VOCAB, D_MODEL)),
@@ -1901,7 +1963,7 @@ def main():
             ("flash_attn_fwd", "flash_attention_fwd_bf16.cu", "flash_attention.py:38",
              {k: v for k, v in bf16.items() if k[0] == "flash"}, ("flash", False)),
             ("scatter_add_rows", "embedding_scatter_add.cu", "embedding.py:85",
-             {k: v for k, v in bf16.items() if k[0] == "scatter"}, ("scatter", VOCAB)),
+             {k: v for k, v in bf16.items() if k[0] == "scatter"}, ("scatter", "padded")),
             ("linear_ce_fwd", "linear_ce.cu", "linear_ce.py:42",
              {0: bf16["linear_ce_fwd"]}, 0)):
         e = dict(entry(name, source, replaces, cases, main_case), name=f"{name}_bf16",

@@ -32,7 +32,17 @@ _GATHER = build.Entry("ptt_gather_rows_f32", _ARGTYPES)
 _SCATTER_ARGTYPES = _ARGTYPES[:3] + [ctypes.c_void_p] + _ARGTYPES[3:]
 _SCATTER_ADD = {torch.float32: build.Entry("ptt_scatter_add_rows_f32", _SCATTER_ARGTYPES),
                 torch.bfloat16: build.Entry("ptt_scatter_add_rows_bf16", _SCATTER_ARGTYPES)}
-_SORT_TILE = 2048   # ids a block of the scatter-add's radix sort
+_SORT_TILE = 512    # ids a tile of the scatter-add's radix sort
+_LONG = 32          # a longer segment of one id goes to the scatter-add's long blocks
+
+
+def _scratch_ints(n: int, v: int) -> int:
+    """int32 scratch of the scatter-add kernel for ``n`` ids into ``v``
+    rows: two key and two index arrays, the digit histogram of every sort
+    tile, the counts of valid ids and of long segments, the ``v + 1`` row
+    offsets, and the list of long segments (each holds more than ``_LONG``
+    ids)."""
+    return 4 * n + 256 * -(-n // _SORT_TILE) + 2 + (v + 1) + n // (_LONG + 1)
 
 
 def _check(name, w, flat_ids, rows=None) -> bool:
@@ -40,10 +50,13 @@ def _check(name, w, flat_ids, rows=None) -> bool:
     kernel takes passes on a few attribute reads; everything else goes
     through the checks below, one by one."""
     dev = w.device
-    if (rows is None and dev.type == "cuda" and flat_ids.device == dev
-            and w.dtype is torch.float32 and flat_ids.dtype is torch.int32
+    if (dev.type == "cuda" and flat_ids.device == dev and flat_ids.dtype is torch.int32
             and w.ndim == 2 and flat_ids.ndim == 1
-            and w.is_contiguous() and flat_ids.is_contiguous()):
+            and w.is_contiguous() and flat_ids.is_contiguous()
+            and (w.dtype is torch.float32 if rows is None else
+                 (w.dtype in _SCATTER_ADD and rows.dtype is w.dtype and rows.device == dev
+                  and rows.is_contiguous() and rows.ndim == 2
+                  and rows.shape[0] == flat_ids.shape[0] and rows.shape[1] == w.shape[1]))):
         return False
     if w.ndim != 2 or flat_ids.ndim != 1:
         raise ValueError(f"{name} wants w [V, D] and ids [N], got "
@@ -117,21 +130,19 @@ def scatter_add_rows(w: torch.Tensor, flat_ids: torch.Tensor,
     at ``flat_ids`` [N] int32.  ``w`` gives the shape, type and device; its
     values are not read.  Each output row is the sum of its rows in
     ascending n from +0.0 in float32, on the CPU (``index_add_``) and in the
-    kernel (a stable radix sort of the ids, then ordered segment sums), and
+    kernel (a stable radix sort of the ids, each row's offsets, then ordered
+    segment sums; a long segment a column slice a block), and
     written in ``w``'s dtype (float32 or bf16), so the kernel is bit-equal
     to the plain version run on the CPU."""
     if _check("scatter_add_rows", w, flat_ids, rows):
         return scatter_add_rows_plain(w, flat_ids, rows)
     n, (v, d) = flat_ids.shape[0], w.shape
-    if n >= 2 ** 31:
-        raise ValueError("scatter_add_rows kernel takes fewer than 2**31 ids")
+    if n >= 2 ** 31 or v >= 2 ** 31 - 1:
+        raise ValueError("scatter_add_rows kernel takes fewer than 2**31 ids and 2**31 - 1 rows")
     out = torch.empty((v, d), dtype=w.dtype, device=w.device)
     if v == 0 or d == 0:
         return out
-    # the sort's scratch: two key and two index arrays, the digit histogram
-    # of every tile, the count of valid ids
-    scratch = torch.empty((4 * n + 256 * -(-n // _SORT_TILE) + 1,), dtype=torch.int32,
-                          device=w.device)
+    scratch = torch.empty((_scratch_ints(n, v),), dtype=torch.int32, device=w.device)
     build.launch(_SCATTER_ADD[w.dtype], "scatter_add_rows", w.device,
                  flat_ids.data_ptr(), rows.data_ptr(), out.data_ptr(), scratch.data_ptr(),
                  n, v, d)

@@ -514,6 +514,48 @@ def test_scatter_add_kernel_matches_plain(cuda, v, d):
     assert torch.equal(got.cpu(), want)
 
 
+# segment lengths about the kernel's boundaries: 32 ids go to a row block and
+# 33 to the long blocks; a stage of a long block's ring holds 56, 112 or 224
+# rows (by the slice's width), the ring 4 stages
+SEGMENT_LENGTHS = [32, 33, 55, 56, 57, 111, 112, 113, 223, 224, 225, 447, 448, 449, 895, 896, 897]
+
+
+def _scatter_ids(v, n, ids_kind, g):
+    """int32 ids of one kind: "all equal" (one segment of every id),
+    "padding" (a quarter of the ids 0, as a padded batch gives), "positions"
+    (0..v-1 tiled, as the position table's ids), "two long" (every id 5 or
+    6: two long segments side by side), "lengths" (segments of
+    SEGMENT_LENGTHS ids, shuffled; n is ignored), "out of range", or
+    "random" (a few out of range)."""
+    if ids_kind == "all equal":
+        return torch.full((n,), 7, dtype=torch.int32)
+    if ids_kind == "padding":
+        ids = torch.randint(1, v, (n,), generator=g, dtype=torch.int32)
+        ids[torch.rand(n, generator=g) < 0.25] = 0
+        return ids
+    if ids_kind == "positions":
+        return torch.arange(v, dtype=torch.int32).repeat(n // v)
+    if ids_kind == "two long":
+        return torch.randint(5, 7, (n,), generator=g, dtype=torch.int32)
+    if ids_kind == "lengths":
+        ids = torch.cat([torch.full((k,), 3 * i + 1, dtype=torch.int32)
+                         for i, k in enumerate(SEGMENT_LENGTHS)])
+        return ids[torch.randperm(len(ids), generator=g)]
+    if ids_kind == "out of range":
+        return torch.randint(-v, 2 * v, (n,), generator=g, dtype=torch.int32)
+    return torch.randint(-2, v + 2, (n,), generator=g, dtype=torch.int32)
+
+
+SCATTER_MAIN_PATH_CASES = [
+    (32000, 512, 16384, "padding"),   # the step's padded word table
+    (256, 512, 16384, "positions"),   # the step's position ids: arange(256) tiled 64 times
+    (300, 512, 16384, "all equal"),   # one segment of every id, 16 column slices
+    (300, 130, 16384, "all equal"),   # the same at a ragged D (element accesses)
+    (64, 512, 9000, "two long"),      # two long segments side by side
+    (64, 512, 0, "lengths"),          # segment lengths about the boundaries
+    (64, 130, 0, "lengths")]
+
+
 @pytest.mark.parametrize("v,d,n,ids_kind", [
     (1000, 36, 5000, "random"),       # ragged V and D (scalar path)
     (4100, 64, 9000, "random"),
@@ -522,20 +564,13 @@ def test_scatter_add_kernel_matches_plain(cuda, v, d):
     (4100, 64, 9000, "padding"),      # a quarter of the ids 0: one long segment
     (256, 36, 16384, "random"),       # 64 ids a row: every segment long
     (33, 130, 0, "random"),           # no ids: every row written as zeros
-    (256, 512, 16384, "out of range")])
+    (256, 512, 16384, "out of range")] + SCATTER_MAIN_PATH_CASES)
 def test_scatter_add_kernel_bit_equal_to_cpu_and_to_itself(cuda, v, d, n, ids_kind):
     """Rows of mixed magnitude, so that another order of addition would
     show in the last bits; ids out of range on both sides add nothing."""
     g = torch.Generator().manual_seed(v + d + n)
-    if ids_kind == "all equal":
-        ids = torch.full((n,), 7, dtype=torch.int32)
-    elif ids_kind == "padding":
-        ids = torch.randint(1, v, (n,), generator=g, dtype=torch.int32)
-        ids[torch.rand(n, generator=g) < 0.25] = 0
-    elif ids_kind == "out of range":
-        ids = torch.randint(-v, 2 * v, (n,), generator=g, dtype=torch.int32)
-    else:
-        ids = torch.randint(-2, v + 2, (n,), generator=g, dtype=torch.int32)
+    ids = _scatter_ids(v, n, ids_kind, g)
+    n = len(ids)
     rows = torch.randn(n, d, generator=g) * torch.exp(3 * torch.randn(n, 1, generator=g))
     w = torch.empty(v, d, device=cuda)
     got = scatter_add_rows(w, ids.to(cuda), rows.to(cuda))
@@ -551,18 +586,13 @@ def test_scatter_add_kernel_bit_equal_to_cpu_and_to_itself(cuda, v, d, n, ids_ki
     (4100, 64, 9000, "padding"),      # a quarter of the ids 0: one long segment
     (256, 36, 16384, "random"),       # 64 ids a row: every segment long
     (32000, 512, 16384, "random"),    # the word table
-    (256, 512, 16384, "out of range")])
+    (256, 512, 16384, "out of range")] + SCATTER_MAIN_PATH_CASES)
 def test_scatter_add_bf16_kernel_bit_equal_to_cpu_and_to_itself(cuda, v, d, n, ids_kind):
     """The bf16 instance: bf16 rows summed in float32 in ascending n and
     rounded once, bit-equal to the plain version on the CPU."""
     g = torch.Generator().manual_seed(v + d + n + 1)
-    if ids_kind == "padding":
-        ids = torch.randint(1, v, (n,), generator=g, dtype=torch.int32)
-        ids[torch.rand(n, generator=g) < 0.25] = 0
-    elif ids_kind == "out of range":
-        ids = torch.randint(-v, 2 * v, (n,), generator=g, dtype=torch.int32)
-    else:
-        ids = torch.randint(-2, v + 2, (n,), generator=g, dtype=torch.int32)
+    ids = _scatter_ids(v, n, ids_kind, g)
+    n = len(ids)
     rows = (torch.randn(n, d, generator=g)
             * torch.exp(3 * torch.randn(n, 1, generator=g))).to(torch.bfloat16)
     w = torch.empty(v, d, device=cuda, dtype=torch.bfloat16)
