@@ -32,14 +32,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
    three products; K3 bit-equal to its plain version run on the CPU, and
    twice bit-equal, on the word table (uniform ids, a quarter of them 0,
    and the training feed's own source ids) and the position table (random
-   ids, and the step's position ids); ``torch.optim.Adam(fused=True)`` over
-   the training step's 186 parameter shapes in one call, K6's per-step
-   yardstick;
+   ids, and the step's position ids); K6 (multi-tensor) over the training
+   step's 186 parameter shapes in one launch, each entry in the expression
+   of its op type (``adam`` or ``pallas_adam``, as the kernel pass types
+   it), bit-equal to its plain version, with a control (one entry's
+   expression flag flipped changes its Moment2Out), beside
+   ``torch.optim.Adam(fused=True)`` over the same shapes in one call (its
+   device operations by name and count) and the step's bound;
 7. transformer-base training (``train_network(fuse_final_ce=True)`` +
    ``Adam(1e-3)``, random weights from seed 0, batch 64 x 256 with ragged
    lengths): one warm-up and three timed steps on one batch, every loss
    finite and falling, every parameter changed by step 1, and each
-   kernel's launches per step as the design gives them; then whether a
+   kernel's launches per step as the design gives them (K6 once a step
+   over all 186 parameters); then whether a
    step taken again from the same state and feed gives bit-equal
    parameters (the first that differs is named);
 8. one training step profiled with ``torch.profiler``;
@@ -53,9 +58,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
     whole ``int8_matmul``, each bit-equal to its plain version; the GEMM
     timed beside its bound and ``torch._int_mm`` (column-major B), the
     quantizers and the whole product timed, and the quantizers' time a
-    batch; host microseconds a call at (512, 512); fused SGD (K5) on the word table and a vector, bit-equal, beside
-    ``torch.optim.SGD(fused=True)``, and that call over the training step's
-    186 parameter shapes, K5's per-step yardstick;
+    batch; host microseconds a call at (512, 512); fused SGD (K5) on the
+    word table and a vector, bit-equal, beside ``torch.optim.SGD(fused=
+    True)``, and K5 over the training step's 186 parameter shapes in one
+    launch, bit-equal, beside that call over the same shapes;
 11. int8 serving: ``ServingSession(max_batch_size=8, amp=AmpConfig(
     bf16=False, quant=True), kernels=True)`` with the float32 weights,
     4 client threads: answers finite, of the right shape, bit-identical to
@@ -68,7 +74,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
     with at most 6 device operations a product;
 12. transformer-base training with ``SGD`` through ``Executor(kernels=
     True)``: two steps at 64 x 256, loss finite, every parameter changed,
-    K5 launched 186 times a step and K7/K8/K3 as in phase 7; a profile of
+    K5 launched once a step and K7/K8/K3 as in phase 7; a profile of
     one step;
 13. the bf16 instances of K1, K3 and K7 at the bf16 step's shapes, each
     against its plain version on the card (K3: bit-equal to it run on the
@@ -83,7 +89,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
 14. bf16 AMP training: ``amp.enable_amp`` on the Adam program, run by
     ``Executor(CUDAPlace(0))`` (kernel tier, then the amp-bf16 bridge), at
     full width and 64 x 256: four steps, losses finite and falling, the
-    launches a step (K1 36 in bf16, K2 4, K3 4 in bf16, K6 186, K7 1 in
+    launches a step (K1 36 in bf16, K2 4, K3 4 in bf16, K6 1, K7 1 in
     bf16, K8 1 in float32); one step's gradients against the float32 step
     from the same state within a norm-relative gate, which the program
     with the reference pass's stale casts (the control) fails on the
@@ -129,11 +135,11 @@ N_PARAMS = 186          # transformer-base's parameters (and adam ops)
 # launches per training step: attention forwards run again in their grad
 # ops (the generic grad re-runs the forward lowering); the kernel tier's
 # pallas_scatter_add reads the embedding's output gradient and runs no
-# gather again
+# gather again; one K6 (K5) launch updates all 186 parameters
 PER_STEP = {"flash_attn_fwd": 2 * 3 * N_LAYER, "gather_rows": 4, "scatter_add_rows": 4,
-            "fused_adam": N_PARAMS, "fused_sgd": 0, "linear_ce_fwd": 1, "linear_ce_bwd": 1,
+            "fused_adam": 1, "fused_sgd": 0, "linear_ce_fwd": 1, "linear_ce_bwd": 1,
             "int8_matmul": 0, "abs_max_pair": 0, "quantize_int8": 0}
-PER_STEP_SGD = dict(PER_STEP, fused_adam=0, fused_sgd=N_PARAMS)
+PER_STEP_SGD = dict(PER_STEP, fused_adam=0, fused_sgd=1)
 # the served batch's int8 products: (K, N) -> count (M = rows x 256);
 # per encoder layer q, k, v, o and the two FFN products, per decoder layer
 # eight attention projections and the FFN's two, and the vocabulary head
@@ -160,8 +166,6 @@ K8_VS_TF32_FACTOR = 100.0
 # composition's error; the label logit (and lse where the control tells
 # float32 from TF32 there) at least K8_VS_TF32_FACTOR below single-pass TF32's
 K7_VS_FP32_FACTOR = 2.0
-ADAM_TOL = 1e-6         # K6 vs plain, abs (same rounding, element for element)
-ADAM_RTOL = 1e-6        # K6 vs plain, each output relative to its own largest value
 # one full-width step at 2 x 256 against the port on the CPU in float64.
 # Readings on an H100 (PERF.md): the card 7.9e-8 on the loss and <= 1.3e-6 on
 # the gradients; the CPU in float32 1.1e-4 norm- and 1.0e-3 max-relative,
@@ -495,10 +499,14 @@ def _profile(torch, run, label, card, extra, scopes=None):
     return rec
 
 
-def _device_by_kernel(torch, fn, iters):
+def _device_by_kernel(torch, fn, iters, counts=None, annotations=None):
     """Mean device time of each kernel ``fn`` launches, per call, by name
     (the first 48 characters), from ``torch.profiler`` ({} if two windows
-    record no device activity)."""
+    record no device activity).  ``counts``, a dict, receives each name's
+    device operations a call.  A range the profiler draws on the device's
+    timeline around a ``record_function`` (``torch.optim``'s
+    ``Optimizer.step#...``) is no device work: it goes to ``annotations``
+    (ms a call), not into the sums."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -513,7 +521,14 @@ def _device_by_kernel(torch, fn, iters):
         for e in prof.profiler.kineto_results.events():
             if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
                 name = e.name().replace("void ", "").replace("(anonymous namespace)::", "")[:48]
-                by[name] = by.get(name, 0.0) + e.duration_ns() / 1e6 / iters
+                ms = e.duration_ns() / 1e6 / iters
+                if e.is_user_annotation():
+                    if annotations is not None:
+                        annotations[name] = annotations.get(name, 0.0) + ms
+                    continue
+                by[name] = by.get(name, 0.0) + ms
+                if counts is not None:
+                    counts[name] = counts.get(name, 0) + 1 / iters
         if by:
             break
     return by
@@ -936,11 +951,43 @@ def phase_linear_ce(torch, card):
     return res
 
 
+def _step_updates(pt, sgd=False):
+    """The training step's 186 parameters as the kernel pass types their
+    updates (phase 7's program, ``Executor(kernels=True)``): (shape, op
+    type) in program order."""
+    main, _, loss = _train_programs(pt, sgd=sgd)
+    prog = pt.Executor(pt.CUDAPlace(0), kernels=True)._apply_passes(
+        main, list(_train_feed(2, seed=0)), [loss.name])
+    shapes = {p.name: tuple(p.shape) for p in main.global_block.all_parameters()}
+    kinds = ("sgd", "pallas_sgd") if sgd else ("adam", "pallas_adam")
+    ups = [(shapes[o.input("Param")[0]], o.type) for o in prog.desc.block(0).ops
+           if o.type in kinds]
+    if len(ups) != N_PARAMS or len(shapes) != N_PARAMS:
+        raise AssertionError(f"{len(ups)} updates of {len(shapes)} parameters, want {N_PARAMS}")
+    return ups
+
+
+def _step_adam_entries(torch, ups, seed):
+    """K6 entries at the step's shapes and op types, made on the card."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    entries = []
+    for k, (shape, op_type) in enumerate(ups):
+        p = torch.randn(shape, device=dev, generator=g)
+        grad, m1 = (1e-4 * torch.randn(shape, device=dev, generator=g) for _ in range(2))
+        m2 = 1e-8 * torch.rand(shape, device=dev, generator=g)
+        b1p, b2p = (torch.tensor(b ** (3 + k % 5), device=dev) for b in (0.9, 0.999))
+        entries.append((p, grad, m1, m2, b1p, b2p, torch.tensor([1e-3], device=dev),
+                        op_type == "pallas_adam"))
+    return entries
+
+
 def _library_step(torch, card, name, make_opt, bytes_per_float):
     """The per-step yardstick of K5/K6: one ``make_opt(params).step()`` over
     tensors of the training step's 186 parameter shapes (transformer-base as
-    phase 7 builds it), its event time and its device time (profiler),
-    beside the step's bytes bound (``bytes_per_float`` a parameter float)."""
+    phase 7 builds it), its event time, its device time (profiler) and its
+    device operations by name and count, beside the step's bytes bound
+    (``bytes_per_float`` a parameter float)."""
     import paddle_tpu_torch as pt
     main, _, _ = _train_programs(pt)
     shapes = [tuple(p.shape) for p in main.global_block.all_parameters()]
@@ -953,20 +1000,56 @@ def _library_step(torch, card, name, make_opt, bytes_per_float):
     opt = make_opt(params)
     opt.step()                                   # creates the optimizer's state
     ms = _ms(opt.step, 20)
-    dev_ms = _device_ms(torch, opt.step, 5)
+    counts, annotations = {}, {}
+    by = _device_by_kernel(torch, opt.step, 5, counts, annotations)
+    dev_ms = sum(by.values()) or None
     floats = sum(q.numel() for q in params)
     bound_ms, bound_by = _bound(bytes_per_float * floats, 0)
+    ops = {n: [round(by[n], 5), round(counts[n], 2)] for n in sorted(by, key=lambda n: -by[n])}
     print(f"{name} over the training step's {len(shapes)} parameters ({floats} floats), one call a "
-          f"step: {ms:.4f} ms (events), device {dev_ms} ms (profiler); the step's bound "
+          f"step: {ms:.4f} ms (events), device {dev_ms} ms (profiler); its device operations a "
+          f"call [ms, count]: {json.dumps(ops)}; left out, the profiler's range on the device "
+          f"around the call (no device work): {json.dumps(annotations)}; the step's bound "
           f"{bound_ms:.4f} ms ({bound_by}) [{card}]")
     del opt, params
     torch.cuda.empty_cache()
-    return dict(library_ms=ms, library_device_ms=dev_ms, bound_ms=bound_ms)
+    return dict(library_ms=ms, library_device_ms=dev_ms, library_device_ops=ops,
+                bound_ms=bound_ms)
+
+
+def _max_abs_diff(torch, pairs):
+    """The largest absolute difference over ``pairs`` of tensors of one
+    shape: 0.0 where every pair is bit-equal."""
+    return torch.stack([(a - b).abs().max() for a, b in pairs]).max().item()
+
+
+def _timed_step(torch, fn, launch, plain, counter):
+    """One multi-tensor call ``fn`` over the step's entries: its launches
+    (``counter``), its event time, the event time of its kernel alone
+    (``launch``: the launch of a table built once, whose host cost is below
+    its device time), its device time and operations (profiler; the mean of
+    a recorded launch times the launches, as the profiler may miss some),
+    and the time of its plain version ``plain``."""
+    before = counter.launches
+    fn()
+    launches = counter.launches - before
+    ms, kernel_ms = _best(lambda f: _ms(f, 20), [fn, launch])
+    counts = {}
+    by = _device_by_kernel(torch, fn, 5, counts)
+    return dict(ms=ms, kernel_ms=kernel_ms,
+                device_ms=launches * sum(by[n] / counts[n] for n in by) if by else None,
+                device_ops={n: [round(v, 5), round(counts[n], 2)] for n, v in by.items()},
+                host_us=_host_us(torch, fn, iters=50), plain_ms=_ms(plain, 2),
+                launches_per_call=launches)
 
 
 def phase_adam(torch, card):
-    """K6 on the [32000, 512] word table and a [512] vector."""
-    from paddle_tpu_torch.ops.cuda.fused_optimizer import fused_adam, fused_adam_plain
+    """K6 on the [32000, 512] word table and a [512] vector (a table of
+    one), and over the training step's 186 parameters in one launch."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops.cuda.fused_optimizer import (_adam_launch, fused_adam,
+                                                           fused_adam_multi, fused_adam_multi_plain,
+                                                           fused_adam_plain)
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(4)
     res = {}
@@ -979,13 +1062,9 @@ def phase_adam(torch, card):
         lr = torch.tensor(1e-3, device=dev)
         args = (p, grad, m1, m2, b1p, b2p, lr, 0.9, 0.999, 1e-8)
         got, want = fused_adam(*args), fused_adam_plain(*args)
-        torch.cuda.synchronize()
-        err = max((a - b).abs().max().item() for a, b in zip(got, want))
-        # each output against its own scale: Moment2Out is ~1e-8 here
-        rels = [_rel(a, b) for a, b in zip(got, want)]
-        if not (err <= ADAM_TOL and max(rels) <= ADAM_RTOL):
-            raise AssertionError(f"fused_adam {shape}: max abs err {err} (tol {ADAM_TOL}), "
-                                 f"relative to each output's largest value {rels} (tol {ADAM_RTOL})")
+        err = _max_abs_diff(torch, zip(got, want))
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"fused_adam {shape}: differs from its plain version (max {err})")
         tp = torch.nn.Parameter(p.clone())
         tp.grad = grad.clone()
         opt = torch.optim.Adam([tp], lr=1e-3, betas=(0.9, 0.999), eps=1e-8, fused=True)
@@ -997,14 +1076,66 @@ def phase_adam(torch, card):
         bound_ms, bound_by = _bound(7 * 4 * p.numel(), 10 * p.numel())
         res[shape] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                           bound_ms=bound_ms, bound_by=bound_by)
-        print(f"K6 fused_adam {list(shape)}: max_abs_err {err:.3e} (tol {ADAM_TOL}), relative per "
-              f"output (p, m1, m2, b1p, b2p) {[f'{r:.1e}' for r in rels]} (tol {ADAM_RTOL}); kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.optim.Adam(fused=True) {lib_ms:.4f} ms, "
-              f"bound {bound_ms:.5f} ms ({bound_by}) [{card}]")
-    # p, grad, m1, m2 read; p, m1, m2 written
-    _library_step(torch, card, "torch.optim.Adam(fused=True)",
-                  lambda ps: torch.optim.Adam(ps, lr=1e-3, betas=(0.9, 0.999), eps=1e-8, fused=True),
-                  7 * 4)
+        print(f"K6 fused_adam {list(shape)} (a table of one): bit-equal (max_abs_err {err}); kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, torch.optim.Adam(fused=True) {lib_ms:.4f} ms, bound "
+              f"{bound_ms:.5f} ms ({bound_by}) [{card}]")
+        del p, grad, m1, m2, tp, opt, got, want
+
+    # the step: 186 entries in one launch, each in its op type's expression
+    ups = _step_updates(pt)
+    entries = _step_adam_entries(torch, ups, seed=5)
+    before = fused_adam.launches
+    got = fused_adam_multi(entries, 0.9, 0.999, 1e-8)
+    torch.cuda.synchronize()
+    if fused_adam.launches != before + 1:
+        raise AssertionError(f"fused_adam_multi over {len(entries)}: "
+                             f"{fused_adam.launches - before} launches, want 1")
+
+    def plain():
+        return fused_adam_multi_plain(entries, 0.9, 0.999, 1e-8)
+    want = plain()
+    err = _max_abs_diff(torch, [(x, y) for a, b in zip(got, want) for x, y in zip(a, b)])
+    differ = [k for k, (a, b) in enumerate(zip(got, want))
+              if not all(torch.equal(x, y) for x, y in zip(a, b))]
+    if differ:
+        raise AssertionError(f"fused_adam_multi: entries {differ[:8]} ({len(differ)} of "
+                             f"{len(entries)}) differ from their plain versions")
+    # the control: one adam entry (the largest) in the other expression
+    k = max((i for i, e in enumerate(entries) if not e[7]), key=lambda i: entries[i][0].numel())
+    flipped = list(entries)
+    flipped[k] = entries[k][:7] + (True,)
+    m2_other = fused_adam_multi(flipped, 0.9, 0.999, 1e-8)[k][2]
+    n_other = int((m2_other != got[k][2]).sum())
+    if n_other == 0:
+        raise AssertionError(f"the expression flag's control: entry {k} {list(ups[k][0])} gives "
+                             f"the same Moment2Out in both expressions")
+    del got, want, m2_other, flipped
+    floats = sum(e[0].numel() for e in entries)
+    shapes, counts = [e[0].shape for e in entries], [e[0].numel() for e in entries]
+    _, launch = _adam_launch(entries, shapes, counts, 0.9, 0.999, 1e-8)
+    step = _timed_step(torch, lambda: fused_adam_multi(entries, 0.9, 0.999, 1e-8), launch, plain,
+                       fused_adam)
+    # p, grad, m1, m2 read and p, m1, m2 written; three scalars read and two
+    # written an entry
+    bound_ms, bound_by = _bound(7 * 4 * floats + 5 * 4 * len(entries), 10 * floats)
+    n_fused = sum(e[7] for e in entries)
+    print(f"K6 fused_adam_multi over the training step's {len(entries)} parameters ({floats} "
+          f"floats; {n_fused} pallas_adam, {len(entries) - n_fused} adam), one launch: bit-equal "
+          f"to the plain versions; control: entry {k} {list(ups[k][0])} in the other expression "
+          f"changes {n_other} Moment2Out elements; max_abs_err {err}; the call {step['ms']:.4f} ms (events; host "
+          f"{step['host_us']:.0f} us a call), the kernel alone {step['kernel_ms']:.4f} ms "
+          f"(events), device {step['device_ms']} ms (profiler: {json.dumps(step['device_ops'])}), plain "
+          f"{step['plain_ms']:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
+    del entries
+    torch.cuda.empty_cache()
+    lib = _library_step(torch, card, "torch.optim.Adam(fused=True)",
+                        lambda ps: torch.optim.Adam(ps, lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                                                    fused=True), 7 * 4)
+    res["step"] = dict(step, max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=lib["library_ms"], library_device_ms=lib["library_device_ms"])
+    print(f"K6 a step: the kernel {step['kernel_ms']:.4f} ms, the call {step['ms']:.4f} ms, "
+          f"against Adam(fused=True) {lib['library_ms']:.4f} ms and the bound {bound_ms:.4f} ms "
+          f"(events; device {step['device_ms']} against {lib['library_device_ms']}) [{card}]")
     return res
 
 
@@ -1195,9 +1326,13 @@ def _scale_routes(torch):
 
 
 def phase_sgd(torch, card):
-    """K5 on the [32000, 512] word table and a [512] vector, bit-equal to
-    its plain version, beside ``torch.optim.SGD(fused=True)``."""
-    from paddle_tpu_torch.ops.cuda.fused_optimizer import fused_sgd, fused_sgd_plain
+    """K5 on the [32000, 512] word table and a [512] vector (a table of
+    one), and over the training step's 186 parameters in one launch,
+    bit-equal to its plain version, beside ``torch.optim.SGD(fused=True)``."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops.cuda.fused_optimizer import (_sgd_launch, fused_sgd,
+                                                           fused_sgd_multi, fused_sgd_multi_plain,
+                                                           fused_sgd_plain)
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(7)
     res = {}
@@ -1206,10 +1341,9 @@ def phase_sgd(torch, card):
         grad = (1e-2 * torch.randn(*shape, generator=g)).to(dev)
         lr = torch.tensor([0.1], device=dev)
         got, want = fused_sgd(p, grad, lr), fused_sgd_plain(p, grad, lr)
-        torch.cuda.synchronize()
+        err = _max_abs_diff(torch, [(got, want)])
         if not torch.equal(got, want):
-            raise AssertionError(f"fused_sgd {shape}: differs from its plain version "
-                                 f"(max {(got - want).abs().max().item()})")
+            raise AssertionError(f"fused_sgd {shape}: differs from its plain version (max {err})")
         tp = torch.nn.Parameter(p.clone())
         tp.grad = grad.clone()
         try:
@@ -1222,13 +1356,54 @@ def phase_sgd(torch, card):
         plain_ms = _ms(lambda: fused_sgd_plain(p, grad, lr), 20)
         lib_ms = _ms(lib_fn, 50)
         bound_ms, bound_by = _bound(3 * 4 * p.numel() + 4, 2 * p.numel())
-        res[shape] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        res[shape] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                           bound_ms=bound_ms, bound_by=bound_by)
-        print(f"K5 fused_sgd {list(shape)}: bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"{lib} {lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}) [{card}]")
-    # p, grad read; p written
-    _library_step(torch, card, "torch.optim.SGD(fused=True)",
-                  lambda ps: torch.optim.SGD(ps, lr=0.1, fused=True), 3 * 4)
+        print(f"K5 fused_sgd {list(shape)} (a table of one): bit-equal (max_abs_err {err}); kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, {lib} {lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}) "
+              f"[{card}]")
+
+    ups = _step_updates(pt, sgd=True)
+    gd = torch.Generator(device=dev).manual_seed(8)
+    entries = [(torch.randn(s, device=dev, generator=gd),
+                1e-2 * torch.randn(s, device=dev, generator=gd),
+                torch.tensor([0.1], device=dev)) for s, _ in ups]
+    before = fused_sgd.launches
+    got = fused_sgd_multi(entries)
+    torch.cuda.synchronize()
+    if fused_sgd.launches != before + 1:
+        raise AssertionError(f"fused_sgd_multi over {len(entries)}: "
+                             f"{fused_sgd.launches - before} launches, want 1")
+
+    def plain():
+        return fused_sgd_multi_plain(entries)
+    want = plain()
+    err = _max_abs_diff(torch, zip(got, want))
+    differ = [k for k, (a, b) in enumerate(zip(got, want)) if not torch.equal(a, b)]
+    if differ:
+        raise AssertionError(f"fused_sgd_multi: entries {differ[:8]} ({len(differ)} of "
+                             f"{len(entries)}) differ from their plain versions")
+    del got, want
+    floats = sum(e[0].numel() for e in entries)
+    shapes, counts = [e[0].shape for e in entries], [e[0].numel() for e in entries]
+    _, launch = _sgd_launch(entries, shapes, counts)
+    step = _timed_step(torch, lambda: fused_sgd_multi(entries), launch, plain, fused_sgd)
+    # p, grad read and p written; lr read an entry
+    bound_ms, bound_by = _bound(3 * 4 * floats + 4 * len(entries), 2 * floats)
+    print(f"K5 fused_sgd_multi over the training step's {len(entries)} parameters ({floats} "
+          f"floats), one launch: bit-equal to the plain version (max_abs_err {err}); the call {step['ms']:.4f} ms "
+          f"(events; host {step['host_us']:.0f} us a call), the kernel alone "
+          f"{step['kernel_ms']:.4f} ms (events), device {step['device_ms']} ms (profiler: "
+          f"{json.dumps(step['device_ops'])}), plain {step['plain_ms']:.2f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}) [{card}]")
+    del entries
+    torch.cuda.empty_cache()
+    lib = _library_step(torch, card, "torch.optim.SGD(fused=True)",
+                        lambda ps: torch.optim.SGD(ps, lr=0.1, fused=True), 3 * 4)
+    res["step"] = dict(step, max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=lib["library_ms"], library_device_ms=lib["library_device_ms"])
+    print(f"K5 a step: the kernel {step['kernel_ms']:.4f} ms, the call {step['ms']:.4f} ms, "
+          f"against SGD(fused=True) {lib['library_ms']:.4f} ms and the bound {bound_ms:.4f} ms "
+          f"(events; device {step['device_ms']} against {lib['library_device_ms']}) [{card}]")
     return res
 
 
@@ -1354,7 +1529,7 @@ def phase_training(torch, card, sgd=False):
           f"peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
     _profile(torch, lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope),
              "sgd_training_profile" if sgd else "training_profile", card, {"batch": [TRAIN_B, T]})
-    return launches
+    return launches, steps
 
 
 def _step_errs(names, got, ref):
@@ -1917,13 +2092,13 @@ def main():
     ce = phase_linear_ce(torch, card)
     adam = phase_adam(torch, card)
     scatter = phase_scatter(torch, card)
-    launches = phase_training(torch, card)
+    launches, adam_steps = phase_training(torch, card)
     phase_train_vs_cpu(torch, card)
     int8, int8_quant = phase_int8(torch, card)
     sgd = phase_sgd(torch, card)
     int8_res = phase_int8_serving(torch, card, f32_inf, f32_res)
     del f32_inf
-    sgd_launches = phase_training(torch, card, sgd=True)
+    sgd_launches, sgd_steps = phase_training(torch, card, sgd=True)
     bf16 = phase_bf16_kernels(torch, card)
     _, bf16_launches = phase_bf16_step(torch, card)
     for name in ("int8_matmul", "abs_max_pair", "quantize_int8"):
@@ -1953,11 +2128,20 @@ def main():
         entry("gather_rows", "embedding_gather.cu", "embedding.py:48", gather, ("train", VOCAB)),
         entry("scatter_add_rows", "embedding_scatter_add.cu", "embedding.py:85", scatter, "padded"),
         k4,
-        entry("fused_sgd", "fused_sgd.cu", "fused_optimizer.py:86", sgd, (VOCAB, D_MODEL)),
-        entry("fused_adam", "fused_adam.cu", "fused_optimizer.py:106", adam, (VOCAB, D_MODEL)),
+        # K5's and K6's main case is the step: one launch over 186 parameters
+        entry("fused_sgd", "fused_sgd.cu", "fused_optimizer.py:86", sgd, "step"),
+        entry("fused_adam", "fused_adam.cu", "fused_optimizer.py:106", adam, "step"),
         entry("linear_ce_fwd", "linear_ce.cu", "linear_ce.py:42", {0: ce["linear_ce_fwd"]}, 0),
         entry("linear_ce_bwd", "linear_ce_bwd.cu", "linear_ce.py:78", {0: ce["linear_ce_bwd"]}, 0),
     ]
+    # K5's and K6's "ms" is the whole call's (the table built on the host,
+    # the outputs carved, the launch), "kernel_ms" the launch's alone;
+    # launches a step from phases 12 and 7
+    for e, case, steps in ((kernels[4], sgd["step"], sgd_steps),
+                           (kernels[5], adam["step"], adam_steps)):
+        e.update({k: case[k] for k in ("kernel_ms", "device_ms", "host_us", "launches_per_call",
+                                       "library_device_ms")},
+                 launches_per_step=e["launches"] // steps)
     # the bf16 instances (the amp-bf16 step's path), launches from phase 14
     for name, source, replaces, cases, main_case in (
             ("flash_attn_fwd", "flash_attention_fwd_bf16.cu", "flash_attention.py:38",

@@ -4,6 +4,11 @@ The JAX package traces a whole block into one XLA computation; here each
 op's lowering runs eagerly as it is reached, as Fluid's executor
 interpreted a block.  Op lowerings are registered in ``registry.OPS``.
 
+Ops with a group lowering (the optimizer updates) are the exception: the
+block's run gathers a run of them into one call, so that one kernel launch
+updates every parameter of a step (``lower_block``).  The result is
+bit-equal to lowering the ops one by one in program order.
+
 A ``<type>_grad`` op without a lowering of its own is lowered generically:
 the forward lowering runs again on leaf tensors that require grad, and
 ``torch.autograd.grad`` pulls the output cotangents back (the JAX
@@ -113,8 +118,53 @@ def lower_op(ctx: LowerCtx, op: OpDesc, index: Optional[int] = None):
 
 
 def lower_block(ctx: LowerCtx, block: BlockDesc):
-    for idx, op in enumerate(block.ops):
-        lower_op(ctx, op, index=idx)
+    ops = block.ops
+    i = 0
+    while i < len(ops):
+        info = OPS.get(ops[i].type) if OPS.has(ops[i].type) else None
+        if info is None or info.group_lower is None:
+            lower_op(ctx, ops[i], index=i)
+            i += 1
+        else:
+            i = _lower_group(ctx, ops, i, info)
+
+
+def _lower_group(ctx: LowerCtx, ops: List[OpDesc], start: int, info) -> int:
+    """Lower ``ops[start]`` together with the following ops of its group
+    (an equal ``group_key``) in one ``group_lower`` call; returns the index
+    of the first op not lowered.
+
+    The group reads every input before it writes an output.  A following
+    op passes the group if it reads no name a member collected so far
+    writes and writes no name such a member reads or writes: an op of the
+    group then joins it, and any other op (the bf16 step's gradient casts,
+    an update of another family or other attributes) is lowered at once,
+    ahead of the group.  The first op that does not pass ends the group,
+    which is lowered before it.  Either way each op sees what it would see
+    in program order."""
+    key = info.group_key(ops[start])
+    group = [ops[start]]
+    reads, writes = set(group[0].input_names()), set(group[0].output_names())
+    i = start + 1
+    while i < len(ops):
+        op = ops[i]
+        op_in, op_out = op.input_names(), op.output_names()
+        if not writes.isdisjoint(op_in) or not writes.isdisjoint(op_out) \
+                or not reads.isdisjoint(op_out):
+            break
+        other = OPS.get(op.type) if OPS.has(op.type) else None
+        if other is not None and other.group_key is not None and other.group_key(op) == key:
+            group.append(op)
+            reads.update(op_in)
+            writes.update(op_out)
+        else:
+            lower_op(ctx, op, index=i)
+        i += 1
+    info.group_lower(ctx, group)
+    for op in group:
+        if op.type not in SEQ_LEN_AWARE:
+            _propagate_seq_len(ctx, op)
+    return i
 
 
 def _lower_generic_grad(ctx: LowerCtx, op: OpDesc, fwd_type: str):

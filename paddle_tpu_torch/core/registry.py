@@ -7,6 +7,11 @@ and writes its outputs back.  ``infer_shape(block, op)`` propagates shapes
 and dtypes into the block's VarDescs when the op is appended, exactly as
 the JAX package does, so both packages build identical ProgramDescs.
 
+``group_lower(ctx, ops)`` lowers several ops of one family in one call
+(the optimizer updates of a step, to one multi-tensor kernel launch);
+``group_key(op)`` is equal for ops that one such call may take.
+``core/lower.py`` schedules the groups.
+
 ``grad_maker(op, block, no_grad_set)`` emits the grad OpDescs that
 ``append_backward`` appends.  Without one, :func:`default_grad_maker`
 emits a single ``<type>_grad`` op whose lowering is derived from the
@@ -35,6 +40,9 @@ class OpInfo:
     no_gradient: bool = False
     # input slots whose tensors are not differentiable (integer ids...)
     non_diff_inputs: tuple = ()
+    # (ctx, ops) -> None over ops whose group_key(op) are equal
+    group_lower: Optional[Callable[..., None]] = None
+    group_key: Optional[Callable[[OpDesc], Any]] = None
 
 
 class OpInfoMap:
@@ -65,6 +73,18 @@ def register_lowering(op_type: str, *, no_gradient: bool = False,
         info.lower = fn
         info.no_gradient = info.no_gradient or no_gradient
         info.non_diff_inputs = non_diff_inputs or info.non_diff_inputs
+        return fn
+
+    return deco
+
+
+def register_group_lowering(*op_types: str, key: Callable[[OpDesc], Any]):
+    """``fn(ctx, ops)`` lowers a list of ops of ``op_types`` whose ``key(op)``
+    are equal, in one call."""
+    def deco(fn):
+        for op_type in op_types:
+            info = OPS.get_or_create(op_type)
+            info.group_lower, info.group_key = fn, key
         return fn
 
     return deco

@@ -1,57 +1,199 @@
 """Fused optimizer updates: the hand-written Hopper kernels
 (csrc/fused_sgd.cu, csrc/fused_adam.cu) and their plain PyTorch versions.
 
-``fused_sgd`` replaces the TPU kernel ``paddle_tpu/ops/pallas/
+Both kernels are multi-tensor: one launch updates every parameter of a
+step.  ``fused_adam_multi`` and ``fused_sgd_multi`` take a list of
+entries, one a parameter, and pass the kernel a table of their pointers,
+element counts and first chunks (``plan_launches``, worked out here on the
+host); a persistent grid walks fixed-size chunks of all of them.  A group
+larger than one launch's table goes out as several launches, in order.
+
+``fused_sgd_multi`` replaces the TPU kernel ``paddle_tpu/ops/pallas/
 fused_optimizer.py::_sgd_kernel`` (launched by ``fused_sgd``): one pass of
 ``p - lr * g`` with ``lr`` read on the device, rounded once per element
-(a fused multiply-add), as XLA compiles the JAX kernel's expression.
+(a fused multiply-add), as XLA compiles the JAX kernel's expression.  The
+``sgd`` and ``pallas_sgd`` ops compute the same.
 
-``fused_adam`` replaces ``_adam_kernel`` (launched by ``fused_adam``).  One
-pass over the parameter,
-its gradient and both moments; returns the same quintuple as the JAX
-package's ``fused_adam``: (param_out, moment1_out, moment2_out,
-beta1_pow_out, beta2_pow_out).  The bias-corrected step size
-lr_t = lr * sqrt(1 - beta2_pow * beta2) / (1 - beta1_pow * beta1) is
-computed on the device from the scalar tensors, never on the host.
+``fused_adam_multi`` replaces ``_adam_kernel`` (launched by
+``fused_adam``).  Each entry carries its op type's expression: *fused*
+for ``pallas_adam`` (the JAX package's ``fused_adam``, ``(1 - b2) * (g *
+g)``: ``fused_adam_plain``), *composed* for ``adam`` (the JAX package's
+``adam`` lowering, ``((1 - b2) * g) * g``: ``adam_plain``).  An entry's
+outputs are (param_out, moment1_out, moment2_out, beta1_pow_out,
+beta2_pow_out).  The bias-corrected step size lr_t = lr * sqrt(1 -
+beta2_pow * beta2) / (1 - beta1_pow * beta1) is computed on the device
+from each entry's scalar tensors, never on the host.
 
-Both kernels write into fresh tensors (the inputs are left as they were),
-so the caller may still hold the old values, and both use explicit ``_rn``
-intrinsics, so each rounds every element as its plain version does.
+The kernels write into fresh tensors (the inputs are left as they were),
+so the caller may still hold the old values; a call's outputs of one kind
+and row shape are views of one allocation (``_carve``).  Both use
+explicit ``_rn`` intrinsics, so each entry is rounded element for element
+as its plain version rounds it.  ``fused_adam`` and ``fused_sgd`` update
+one tensor: a table of one.
 
-A tensor on the CPU goes to the plain version; a CUDA tensor launches the
-kernel or raises.  ``fused_sgd.launches`` and ``fused_adam.launches`` count
-kernel launches.
+Tensors on the CPU go to the plain versions; CUDA tensors launch the
+kernel or raise.  ``fused_sgd.launches`` and ``fused_adam.launches`` count
+kernel launches (one a group within a launch's table).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from array import array
+from typing import List, Sequence, Tuple
 
 import torch
 
 from . import build
 
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_float] * 5
-             + [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_void_p])
-_SGD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]
-_ADAM = build.Entry("ptt_fused_adam_f32", _ARGTYPES)
-_SGD = build.Entry("ptt_fused_sgd_f32", _SGD_ARGTYPES)
+# floats a chunk: kChunk in csrc/fused_adam.cu and csrc/fused_sgd.cu, which
+# walk the chunks this module's planner counts
+CHUNK = 8192
+# tensors a launch's table holds (kMaxTensors in csrc/fused_adam.cu and
+# csrc/fused_sgd.cu: the table is one kernel parameter of at most 32,764 bytes)
+ADAM_CAPACITY = 256
+SGD_CAPACITY = 512
+# an entry's flags (kFused, kVec4 in the sources)
+FUSED, VEC4 = 1, 2
+# every output carved from a shared allocation starts a multiple of ALIGN
+# floats into it (256 bytes: the alignment the caching allocator gives a
+# tensor of its own, kept for every kernel that reads a parameter)
+ALIGN = 64
+
+_MULTI_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int]
+_ADAM = build.Entry("ptt_fused_adam_multi_f32",
+                    _MULTI_ARGTYPES + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+_SGD = build.Entry("ptt_fused_sgd_multi_f32", _MULTI_ARGTYPES + [ctypes.c_void_p])
 
 
-def _on_cpu(name, tensors) -> bool:
-    """True when every tensor lies on the CPU; raises unless they all lie
-    on one CUDA device as float32 contiguous tensors."""
-    if all(t.device.type == "cpu" for t in tensors):
-        return True
-    dev = tensors[0].device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError(f"{name}: tensors on {sorted({str(t.device) for t in tensors})}; "
-                         f"all must be on one CUDA device (or all on the CPU)")
-    if any(t.dtype != torch.float32 for t in tensors):
+def plan_launches(counts: Sequence[int], capacity: int,
+                  chunk: int = CHUNK) -> List[Tuple[int, List[int]]]:
+    """The launches of a group of tensors with ``counts`` elements: a list
+    of ``(first, starts)``, one a launch of at most ``capacity`` tensors in
+    order, ``first`` its first tensor and ``starts`` the prefix sum of its
+    tensors' chunks (one longer than the launch's tensors).  A tensor has
+    ceil(n / chunk) chunks, and one if it is empty, so that its beta powers
+    are written."""
+    if chunk <= 0 or chunk % 4:
+        raise ValueError(f"chunk {chunk}: a positive multiple of 4")
+    launches = []
+    for first in range(0, len(counts), capacity):
+        starts = [0]
+        for n in counts[first:first + capacity]:
+            starts.append(starts[-1] + max(1, -(-n // chunk)))
+        launches.append((first, starts))
+    return launches
+
+
+# a step's update plans the same launches every step
+_plan = functools.lru_cache(maxsize=16)(plan_launches)
+
+
+def _on_cpu(name, entries, width) -> bool:
+    """True when the first ``width`` tensors of every entry lie on the CPU,
+    False when the first one lies on a CUDA device (``_check`` then holds
+    the rest to it); raises on a CPU tensor beside a CUDA one."""
+    if entries[0][0].is_cuda:
+        return False
+    devices = {t.device for e in entries for t in e[:width]}
+    if devices != {torch.device("cpu")}:
+        _refuse(name, devices)
+    return True
+
+
+def _refuse(name, devices):
+    raise ValueError(f"{name}: tensors on {sorted(str(d) for d in devices)}; "
+                     f"all must be on one CUDA device (or all on the CPU)")
+
+
+def _check(name, t, index, contiguous=True):
+    """Raise unless ``t`` is a float32 tensor (a contiguous one where
+    ``contiguous``) on CUDA device ``index`` (-1: the CPU)."""
+    if t.get_device() != index:
+        _refuse(name, {t.device, torch.device("cuda", index)})
+    if t.dtype != torch.float32:
         raise TypeError(f"{name} kernel takes float32 tensors")
-    if not all(t.is_contiguous() for t in tensors):
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} kernel needs contiguous tensors")
-    return False
+
+
+def _carve(device, shapes, counts, kinds):
+    """``kinds`` lists of fresh float32 tensors of ``shapes`` (``counts``
+    elements) on ``device``; returns the lists, and each tensor's address
+    in each list.  One allocation a kind and row shape (``shape[1:]``) in
+    place of one a tensor, split along its first dimension, so that no
+    view is made one by one; zero-element pads in the split start each
+    tensor ALIGN floats into its allocation.  The host's cost of a step's
+    update is mostly its allocations and views: on an H100 a 186-entry K6
+    call takes 1.6-3.0 ms of host with carved outputs against 5.6-7.1 with a
+    tensor an output, and the training step's update tail 3.9-8.2 against
+    8.6-17.9 ms (tools/k56_sweep.py, tools/host_path_ab.py, in turns).  A
+    kept parameter holds its whole allocation."""
+    lists = [[None] * len(shapes) for _ in range(kinds)]
+    addrs = [[0] * len(shapes) for _ in range(kinds)]
+    for row, members, sizes, keep, offsets, total, scalar in _layout(tuple(shapes)):
+        for kind, addr in zip(lists, addrs):
+            flat = torch.empty((total,) + row, device=device)
+            base = flat.data_ptr()
+            views = flat.split_with_sizes(sizes)
+            for k, i, off in zip(members, keep, offsets):
+                kind[k] = views[i].view(()) if k in scalar else views[i]
+                addr[k] = base + 4 * off
+    return lists, addrs
+
+
+@functools.lru_cache(maxsize=16)
+def _layout(shapes):
+    """``_carve``'s plan for ``shapes``, once for each group's shapes (a
+    step's update repeats them): for each row shape, its members, the
+    split sizes (pads only where needed), the index of each member's piece,
+    its offset in floats, the rows allocated, and the 0-d members."""
+    groups = {}
+    for k, shape in enumerate(shapes):
+        groups.setdefault(tuple(shape[1:]), []).append(k)
+    plan = []
+    for row, members in groups.items():
+        width = math.prod(row)
+        sizes, keep, offsets, total = [], [], [], 0
+        for k in members:
+            n = shapes[k][0] if len(shapes[k]) else 1
+            keep.append(len(sizes))
+            offsets.append(total * width)
+            sizes.append(n)
+            total += n
+            pad = -(total * width) % ALIGN
+            while pad % width:
+                pad += ALIGN
+            if pad:
+                sizes.append(pad // width)
+                total += pad // width
+        scalar = frozenset(k for k in members if not len(shapes[k]))
+        plan.append((row, members, sizes, keep, offsets, total, scalar))
+    return plan
+
+
+def _scalars(device, like):
+    """A fresh float32 tensor shaped as each of ``like`` (one-element
+    tensors), all carved from one allocation; and their addresses."""
+    flat = torch.empty(len(like), device=device)
+    base = flat.data_ptr()
+    return [v if t.dim() == 0 else v.view(t.shape) for v, t in zip(flat.unbind(), like)], \
+        [base + 4 * k for k in range(len(like))]
+
+
+def _launch(entry, name, counter, dev, capacity, rows, counts, flags, scalars):
+    """One launch per ``plan_launches`` part: ``rows`` holds each entry's
+    pointers, ``counts`` and ``flags`` its element count and flags."""
+    width = len(rows) // len(counts)
+    for first, starts in _plan(tuple(counts), capacity):
+        k = len(starts) - 1
+        ptrs = array("q", rows[first * width:(first + k) * width])
+        ns, fl = array("q", counts[first:first + k]), array("i", flags[first:first + k])
+        st = array("i", starts)
+        build.launch(entry, name, dev, ptrs.buffer_info()[0], ns.buffer_info()[0],
+                     fl.buffer_info()[0], st.buffer_info()[0], k, *scalars)
+        counter.launches += 1
 
 
 def fused_sgd_plain(p, g, lr):
@@ -74,20 +216,67 @@ def fused_sgd_plain(p, g, lr):
     return torch.where(inexact_even, toward, s).float()
 
 
+def fused_sgd_multi(entries):
+    """One SGD step of every entry ``(p, g, lr)``: p, g of one shape, lr a
+    one-element tensor.  Returns the updated parameters in fresh tensors,
+    in the entries' order."""
+    if not entries:
+        return []
+    shapes, counts = [], []
+    for p, g, lr in entries:
+        if g.shape != p.shape:
+            raise ValueError(f"fused_sgd: p {tuple(p.shape)} and g {tuple(g.shape)} differ")
+        if lr.numel() != 1:
+            raise ValueError("fused_sgd: lr must have one element")
+        shapes.append(p.shape)
+        counts.append(p.numel())
+    if _on_cpu("fused_sgd", entries, 3):
+        return fused_sgd_multi_plain(entries)
+    outs, launch = _sgd_launch(entries, shapes, counts)
+    launch()
+    return outs
+
+
+def fused_sgd_multi_plain(entries):
+    """``fused_sgd_multi``'s plain version: ``fused_sgd_plain`` entry by
+    entry."""
+    return [fused_sgd_plain(p, g, lr) for p, g, lr in entries]
+
+
+def _sgd_launch(entries, shapes, counts):
+    """The fresh outputs of a K5 call on the card and a function that
+    launches the kernel writing them (timed alone by chip_smoke.py and
+    tools/k56_sweep.py)."""
+    dev = entries[0][0].device
+    (outs,), (addrs,) = _carve(dev, shapes, counts, 1)
+    rows, flags = sgd_table(entries, addrs, dev.index)
+    return outs, functools.partial(_launch, _SGD, "fused_sgd", fused_sgd, dev, SGD_CAPACITY,
+                                   rows, counts, flags, ())
+
+
+def sgd_table(entries, addrs, index):
+    """K5's table for ``entries`` whose outputs lie at ``addrs``: each
+    entry's four pointers (p, g, lr, p') and its flags (VEC4 where p and g
+    are 16-byte aligned; the outputs are).  Raises unless the entries are
+    float32 tensors on CUDA device ``index``, p and g contiguous."""
+    rows, flags = [], []
+    f32 = torch.float32
+    for (p, g, lr), out in zip(entries, addrs):
+        for t in (p, g):
+            if t.get_device() != index or t.dtype != f32 or not t.is_contiguous():
+                _check("fused_sgd", t, index)
+        if lr.get_device() != index or lr.dtype != f32:
+            _check("fused_sgd", lr, index, contiguous=False)
+        ptrs = (p.data_ptr(), g.data_ptr(), lr.data_ptr(), out)
+        rows += ptrs
+        flags.append(0 if (ptrs[0] | ptrs[1]) & 15 else VEC4)
+    return rows, flags
+
+
 def fused_sgd(p, g, lr):
-    """One SGD step: p, g of one shape, lr a one-element tensor.  Returns
-    the updated parameter in a fresh tensor."""
-    if g.shape != p.shape:
-        raise ValueError(f"fused_sgd: p {tuple(p.shape)} and g {tuple(g.shape)} differ")
-    if lr.numel() != 1:
-        raise ValueError("fused_sgd: lr must have one element")
-    if _on_cpu("fused_sgd", (p, g, lr)):
-        return fused_sgd_plain(p, g, lr)
-    out = torch.empty_like(p)
-    build.launch(_SGD, "fused_sgd", p.device,
-                 p.data_ptr(), g.data_ptr(), lr.data_ptr(), out.data_ptr(), p.numel())
-    fused_sgd.launches += 1
-    return out
+    """One SGD step of one tensor (a table of one).  Returns the updated
+    parameter in a fresh tensor."""
+    return fused_sgd_multi([(p, g, lr)])[0]
 
 
 fused_sgd.launches = 0
@@ -108,29 +297,97 @@ def fused_adam_plain(p, g, m1, m2, beta1_pow, beta2_pow, lr, beta1: float,
             (b2p * beta2).reshape(beta2_pow.shape).to(beta2_pow.dtype))
 
 
+def adam_plain(p, g, m1, m2, beta1_pow, beta2_pow, lr, beta1: float, beta2: float,
+               epsilon: float):
+    """The JAX package's composed ``adam`` lowering: ``((1 - b2) * g) * g``,
+    each operation in the tensors' own type."""
+    m1n = beta1 * m1 + (1 - beta1) * g
+    m2n = beta2 * m2 + (1 - beta2) * g * g
+    lr_t = lr * torch.sqrt(1 - beta2_pow * beta2) / (1 - beta1_pow * beta1)
+    pn = p - lr_t * m1n / (torch.sqrt(m2n) + epsilon)
+    return pn, m1n, m2n, beta1_pow * beta1, beta2_pow * beta2
+
+
+def fused_adam_multi(entries, beta1: float, beta2: float, epsilon: float):
+    """One Adam step of every entry ``(p, g, m1, m2, beta1_pow, beta2_pow,
+    lr, fused)``: p, g, m1, m2 of one shape, beta1_pow, beta2_pow, lr
+    one-element tensors, ``fused`` True for ``pallas_adam``'s expression
+    and False for ``adam``'s.  Returns each entry's (p, m1, m2, beta1_pow,
+    beta2_pow) updated, in the entries' order."""
+    if not entries:
+        return []
+    shapes, counts = [], []
+    for e in entries:
+        shape = e[0].shape
+        if e[1].shape != shape or e[2].shape != shape or e[3].shape != shape:
+            raise ValueError(f"fused_adam: p, g, m1, m2 shapes differ: "
+                             f"{[tuple(t.shape) for t in e[:4]]}")
+        if e[4].numel() != 1 or e[5].numel() != 1 or e[6].numel() != 1:
+            raise ValueError("fused_adam: beta1_pow, beta2_pow and lr must have one element")
+        shapes.append(shape)
+        counts.append(e[0].numel())
+    if _on_cpu("fused_adam", entries, 7):
+        return fused_adam_multi_plain(entries, beta1, beta2, epsilon)
+    outs, launch = _adam_launch(entries, shapes, counts, beta1, beta2, epsilon)
+    launch()
+    return outs
+
+
+def fused_adam_multi_plain(entries, beta1: float, beta2: float, epsilon: float):
+    """``fused_adam_multi``'s plain version: entry by entry,
+    ``fused_adam_plain`` where the entry says ``fused``, else
+    ``adam_plain``."""
+    return [(fused_adam_plain if e[7] else adam_plain)(*e[:7], beta1, beta2, epsilon)
+            for e in entries]
+
+
+def _adam_launch(entries, shapes, counts, beta1, beta2, epsilon):
+    """The fresh outputs of a K6 call on the card and a function that
+    launches the kernel writing them (timed alone by chip_smoke.py and
+    tools/k56_sweep.py)."""
+    dev = entries[0][0].device
+    n = len(entries)
+    big, addrs = _carve(dev, shapes, counts, 3)
+    pows, pow_addrs = _scalars(dev, [e[4] for e in entries] + [e[5] for e in entries])
+    rows, flags = adam_table(entries, addrs + [pow_addrs[:n], pow_addrs[n:]], dev.index)
+    # (1 - beta) is computed in double and rounded to float32 by ctypes, as
+    # the plain versions' Python scalars are
+    return list(zip(*big, pows[:n], pows[n:])), functools.partial(
+        _launch, _ADAM, "fused_adam", fused_adam, dev, ADAM_CAPACITY, rows, counts, flags,
+        (beta1, beta2, 1.0 - beta1, 1.0 - beta2, epsilon))
+
+
+def adam_table(entries, addrs, index):
+    """K6's table for ``entries`` whose p', m1', m2', beta1_pow' and
+    beta2_pow' lie at ``addrs`` (a list of each kind): each entry's 12
+    pointers (its seven inputs, then its five outputs) and its flags (FUSED for
+    ``pallas_adam``'s expression; VEC4 where p, g, m1 and m2 are 16-byte
+    aligned; the outputs are).  Raises unless the entries are float32
+    tensors on CUDA device ``index``, p, g, m1 and m2 contiguous."""
+    rows, flags = [], []
+    f32 = torch.float32
+    for e, po, m1o, m2o, b1o, b2o in zip(entries, *addrs):
+        p, g, m1, m2, b1p, b2p, lr, fused = e
+        for t in (p, g, m1, m2):
+            if t.get_device() != index or t.dtype != f32 or not t.is_contiguous():
+                _check("fused_adam", t, index)
+        for t in (b1p, b2p, lr):
+            if t.get_device() != index or t.dtype != f32:
+                _check("fused_adam", t, index, contiguous=False)
+        ptrs = (p.data_ptr(), g.data_ptr(), m1.data_ptr(), m2.data_ptr())
+        rows += ptrs
+        rows += (b1p.data_ptr(), b2p.data_ptr(), lr.data_ptr(), po, m1o, m2o, b1o, b2o)
+        aligned = not (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]) & 15
+        flags.append((FUSED if fused else 0) | (VEC4 if aligned else 0))
+    return rows, flags
+
+
 def fused_adam(p, g, m1, m2, beta1_pow, beta2_pow, lr, beta1: float,
                beta2: float, epsilon: float):
-    """One Adam step.  p, g, m1, m2 of one shape; beta1_pow, beta2_pow, lr
-    one-element tensors.  Returns (p, m1, m2, beta1_pow, beta2_pow) updated."""
-    big = (p, g, m1, m2)
-    scalars = (beta1_pow, beta2_pow, lr)
-    if any(t.shape != p.shape for t in big):
-        raise ValueError(f"fused_adam: p, g, m1, m2 shapes differ: "
-                         f"{[tuple(t.shape) for t in big]}")
-    if any(t.numel() != 1 for t in scalars):
-        raise ValueError("fused_adam: beta1_pow, beta2_pow and lr must have one element")
-    tensors = big + scalars
-    if _on_cpu("fused_adam", tensors):
-        return fused_adam_plain(p, g, m1, m2, beta1_pow, beta2_pow, lr, beta1, beta2, epsilon)
-    outs = [torch.empty_like(t) for t in (p, m1, m2, beta1_pow, beta2_pow)]
-    # (1 - beta) is computed in double and rounded to float32 by ctypes, as
-    # the plain version's Python scalars are
-    build.launch(_ADAM, "fused_adam", p.device,
-                 *(t.data_ptr() for t in tensors), beta1, beta2,
-                 1.0 - beta1, 1.0 - beta2, epsilon,
-                 *(t.data_ptr() for t in outs), p.numel())
-    fused_adam.launches += 1
-    return tuple(outs)
+    """One Adam step of one tensor in ``pallas_adam``'s expression (a table
+    of one).  Returns (p, m1, m2, beta1_pow, beta2_pow) updated."""
+    return fused_adam_multi([(p, g, m1, m2, beta1_pow, beta2_pow, lr, True)],
+                            beta1, beta2, epsilon)[0]
 
 
 fused_adam.launches = 0

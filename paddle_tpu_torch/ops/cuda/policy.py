@@ -24,8 +24,11 @@ The default knob values describe the card's kernels, not the TPU's:
   memory and keep no table on chip, so any table the card holds is
   admitted (the name is the JAX package's knob, kept for the fingerprint).
 * ``optimizer_min_numel = 4096``, as in the JAX package.  In the port the
-  un-retyped ``sgd``/``adam`` of a smaller parameter launch the same K5/K6
-  on a CUDA tensor, so this only decides the op type.
+  un-retyped ``sgd``/``adam`` of a smaller parameter go to the same
+  multi-tensor K5/K6 launch on a CUDA tensor, so this decides the op type
+  and, for Adam, the expression its entry computes: ``adam`` the composed
+  ``((1 - b2) * g) * g``, ``pallas_adam`` ``(1 - b2) * (g * g)``, each
+  with its own roundings, as in the JAX package.
 """
 from __future__ import annotations
 

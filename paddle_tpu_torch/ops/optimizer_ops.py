@@ -2,64 +2,67 @@
 accumulators and writes the ``*Out`` vars, which share their inputs'
 names, so the executor writes the new values back to the scope.
 
-``sgd`` and ``adam`` on a CUDA tensor are the hand-written fused kernels
-K5 and K6 (ops/cuda/fused_optimizer.py).  On the CPU ``sgd`` is K5's plain
-version (``p - lr * g`` rounded once, as XLA fuses the JAX package's
-``sgd``) and ``adam`` the composed expression of the JAX package's
-``adam`` lowering.  The kernel tier's ``pallas_sgd`` (the
-``pallas-kernels`` pass's retype, whose op types are part of the
-ProgramDesc) lowers through ``sgd``'s function; ``pallas_adam`` has its
-own, which on the CPU computes the JAX package's ``fused_adam``
-expression, as the reference does.  Gradients are dense: SelectedRows
-(sparse) gradients are not ported yet.
+Each family (``sgd`` / ``pallas_sgd``, ``adam`` / ``pallas_adam``) has a
+group lowering: ``core/lower.py`` hands it every update of a step at once,
+and it calls the multi-tensor kernel K5 or K6 (ops/cuda/fused_optimizer.py)
+once on a CUDA tensor, or the plain versions entry by entry on the CPU.
+An op lowered on its own is a group of one.  ``sgd`` and the kernel tier's
+``pallas_sgd`` (the ``pallas-kernels`` pass's retype, whose op types are
+part of the ProgramDesc) compute the same, ``p - lr * g`` rounded once, as
+XLA fuses the JAX package's ``sgd``.  ``adam`` computes the JAX package's
+composed ``adam`` lowering, ``pallas_adam`` its ``fused_adam``: each entry
+of a K6 launch says which.  Gradients are dense: SelectedRows (sparse)
+gradients are not ported yet.
 """
 from __future__ import annotations
 
-import torch
+from ..core.registry import register_group_lowering, register_lowering
+from .cuda.fused_optimizer import fused_adam_multi, fused_sgd_multi
 
-from ..core.registry import register_lowering
-from .cuda.fused_optimizer import fused_adam, fused_sgd
+_ADAM_IN = ("Param", "Grad", "Moment1", "Moment2", "Beta1Pow", "Beta2Pow", "LearningRate")
+_ADAM_OUT = ("ParamOut", "Moment1Out", "Moment2Out", "Beta1PowOut", "Beta2PowOut")
+
+
+def _sgd_key(op):
+    return "sgd"
+
+
+@register_group_lowering("sgd", "pallas_sgd", key=_sgd_key)
+def _sgd_group(ctx, ops):
+    entries = []
+    for op in ops:
+        p, g, lr = (ctx.read_slot(op, s) for s in ("Param", "Grad", "LearningRate"))
+        entries.append((p, g.contiguous(), lr))
+    for op, out in zip(ops, fused_sgd_multi(entries)):
+        ctx.write_slot(op, "ParamOut", out)
+
+
+def _adam_attrs(op):
+    return op.attr("beta1", 0.9), op.attr("beta2", 0.999), op.attr("epsilon", 1e-8)
+
+
+def _adam_key(op):
+    return ("adam",) + _adam_attrs(op)
+
+
+@register_group_lowering("adam", "pallas_adam", key=_adam_key)
+def _adam_group(ctx, ops):
+    entries = []
+    for op in ops:
+        p, g, m1, m2, b1p, b2p, lr = (ctx.read_slot(op, s) for s in _ADAM_IN)
+        entries.append((p, g.contiguous(), m1, m2, b1p, b2p, lr, op.type == "pallas_adam"))
+    for op, outs in zip(ops, fused_adam_multi(entries, *_adam_attrs(ops[0]))):
+        for slot, val in zip(_ADAM_OUT, outs):
+            ctx.write_slot(op, slot, val)
 
 
 @register_lowering("pallas_sgd", no_gradient=True)
 @register_lowering("sgd", no_gradient=True)
 def _sgd(ctx, op):
-    p = ctx.read_slot(op, "Param")
-    g = ctx.read_slot(op, "Grad")
-    lr = ctx.read_slot(op, "LearningRate")
-    ctx.write_slot(op, "ParamOut", fused_sgd(p, g.contiguous(), lr))
-
-
-def _adam_slots(ctx, op):
-    return ([ctx.read_slot(op, s) for s in ("Param", "Grad", "Moment1", "Moment2",
-                                            "Beta1Pow", "Beta2Pow", "LearningRate")],
-            (op.attr("beta1", 0.9), op.attr("beta2", 0.999), op.attr("epsilon", 1e-8)))
-
-
-def _write_adam(ctx, op, outs):
-    for slot, val in zip(("ParamOut", "Moment1Out", "Moment2Out",
-                          "Beta1PowOut", "Beta2PowOut"), outs):
-        ctx.write_slot(op, slot, val)
-
-
-@register_lowering("adam", no_gradient=True)
-def _adam(ctx, op):
-    (p, g, m1, m2, b1p, b2p, lr), (b1, b2, eps) = _adam_slots(ctx, op)
-    if p.device.type == "cuda":
-        outs = fused_adam(p, g.contiguous(), m1, m2, b1p, b2p, lr, b1, b2, eps)
-    else:
-        # the JAX package's composed ``adam``: ((1 - b2) * g) * g
-        m1n = b1 * m1 + (1 - b1) * g
-        m2n = b2 * m2 + (1 - b2) * g * g
-        lr_t = lr * torch.sqrt(1 - b2p * b2) / (1 - b1p * b1)
-        pn = p - lr_t * m1n / (torch.sqrt(m2n) + eps)
-        outs = (pn, m1n, m2n, b1p * b1, b2p * b2)
-    _write_adam(ctx, op, outs)
+    _sgd_group(ctx, [op])
 
 
 @register_lowering("pallas_adam", no_gradient=True)
-def _pallas_adam(ctx, op):
-    """The JAX package's ``fused_adam``: K6 on the card, its plain version
-    (``(1 - b2) * (g * g)``) on the CPU."""
-    (p, g, m1, m2, b1p, b2p, lr), (b1, b2, eps) = _adam_slots(ctx, op)
-    _write_adam(ctx, op, fused_adam(p, g.contiguous(), m1, m2, b1p, b2p, lr, b1, b2, eps))
+@register_lowering("adam", no_gradient=True)
+def _adam(ctx, op):
+    _adam_group(ctx, [op])

@@ -20,8 +20,13 @@ outputs of K1, K7 (float32 and bf16) and K8 at the training shapes on
 seeded inputs, as a SHA-256 digest of their bytes (equal digests: bit-equal
 outputs), with the CUDA-event time of each; one
 8-row int8 batch of transformer-base (wall, copies, device busy, from the
-profiler, three times); three Adam training steps at 64 x 256 and one
-profiled step.  Needs one CUDA GPU and nvcc.
+profiler, three times); three Adam training steps at 64 x 256 (tokens/s,
+and the host time of the update tail: from the start of the first Adam
+update's lowering to the end of the last, 186 lowerings op by op or one
+group call a step; the allocator's retries a step) and one profiled
+step; where the checkout carves K6's outputs from shared allocations,
+steps with them carved and with a fresh tensor an output, in turns.  Needs one
+CUDA GPU and nvcc.
 """
 import hashlib
 import json
@@ -42,7 +47,7 @@ def measure(root):
     import torch.nn.functional as F
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.amp import AmpConfig
-    from paddle_tpu_torch.ops.cuda import build
+    from paddle_tpu_torch.ops.cuda import build, fused_optimizer
     from paddle_tpu_torch.ops.cuda.embedding import gather_rows
     from paddle_tpu_torch.ops.cuda.int8_matmul import abs_max_pair, int8_mm, quantize_int8
     from paddle_tpu_torch.ops.cuda.linear_ce import linear_ce_bwd, linear_ce_fwd
@@ -112,18 +117,99 @@ def measure(root):
     scope, exe = pt.Scope(), pt.Executor(pt.CUDAPlace(0), kernels=True)
     exe.run(startup, scope=scope)
     feed = cs._train_feed(cs.TRAIN_B, seed=0)
-    steps = []
-    for _ in range(4):
+    span, reset = _time_updates()
+
+    def step():
+        """One training step: its host ms, its update tail's host ms and
+        the caching allocator's retries in it (each frees the cached blocks
+        and waits for the device)."""
         torch.cuda.synchronize()
+        reset()
+        r0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
         t0 = time.perf_counter()
         exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
-        steps.append((time.perf_counter() - t0) * 1e3)
+        return ((time.perf_counter() - t0) * 1e3, span[0] * 1e3,
+                torch.cuda.memory_stats().get("num_alloc_retries", 0) - r0)
+    launches = fused_optimizer.fused_adam.launches
+    steps, updates, retries = zip(*[step() for _ in range(4)])
+    launches = (fused_optimizer.fused_adam.launches - launches) / 4
     prof = cs._profile(torch, lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope),
                        "training_step", out["card"], {})
     out["training"] = {"step_ms": steps[1:], "profiled_wall_ms": prof["wall_ms"],
+                       "tokens_per_s": [cs.TRAIN_B * cs.T / ms * 1e3 for ms in steps[1:]],
+                       "update_tail_host_ms": updates[1:], "alloc_retries": retries[1:],
+                       "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30,
+                       "K6_launches_a_step": launches,
+                       "K6_device_ms": prof["by_family_ms"].get("fused_adam (K6)"),
                        "device_busy_ms": prof["device_busy_ms"],
                        "K8_ms": prof["by_family_ms"].get("linear_ce_bwd (K8)")}
+    if hasattr(fused_optimizer, "_carve"):
+        out["carve_ab"] = _carve_ab(torch, fused_optimizer, step)
     print("AB " + json.dumps(out))
+
+
+def _carve_ab(torch, fo, step, rounds=3):
+    """Training steps with K6's outputs carved from one allocation a kind
+    and row shape (as the port makes them) and with a fresh tensor an
+    output (``k56_sweep._fresh``), two steps of each in turns over
+    ``rounds`` rounds: {mode: {step_ms, update_tail_host_ms,
+    alloc_retries}}."""
+    sys.path.insert(0, os.path.join(HERE, "paddle_tpu_torch", "tools"))
+    from k56_sweep import _fresh
+    modes = {"carved": (fo._carve, fo._scalars), "empty": _fresh(torch)}
+    res = {m: {"step_ms": [], "update_tail_host_ms": [], "alloc_retries": []} for m in modes}
+    try:
+        for _ in range(rounds):
+            for mode, (fo._carve, fo._scalars) in modes.items():   # swap the output makers
+                for _ in range(2):
+                    for key, v in zip(res[mode], step()):
+                        res[mode][key].append(v)
+    finally:
+        fo._carve, fo._scalars = modes["carved"]
+    return res
+
+
+def _time_updates():
+    """Wrap the block lowering's per-op and per-group calls (``lower_op``,
+    and ``_lower_group`` where the checkout has one) so that the returned
+    one-element list holds, for the last block run, the host seconds from
+    the start of its first Adam update to the end of its last: the update
+    tail's host time, 186 lowerings or one group call a step, with the
+    block loop's own work between them counted on both sides."""
+    from paddle_tpu_torch.core import lower
+    updates = ("adam", "pallas_adam")
+    span = [0.0]
+    first = [None]
+
+    def mark(t0):
+        if first[0] is None:
+            first[0] = t0
+        span[0] = time.perf_counter() - first[0]
+
+    op_fn = lower.lower_op
+
+    def lower_op(ctx, op, index=None):
+        t0 = time.perf_counter()
+        try:
+            return op_fn(ctx, op, index=index)
+        finally:
+            if op.type in updates:
+                mark(t0)
+    lower.lower_op = lower_op
+    group_fn = getattr(lower, "_lower_group", None)
+    if group_fn is not None:
+        def lower_group(ctx, ops, start, info):
+            t0 = time.perf_counter()
+            try:
+                return group_fn(ctx, ops, start, info)
+            finally:
+                if ops[start].type in updates:
+                    mark(t0)
+        lower._lower_group = lower_group
+
+    def reset():
+        span[0], first[0] = 0.0, None
+    return span, reset
 
 
 def _kernel_outputs(cs, np, torch, dev):

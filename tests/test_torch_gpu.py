@@ -18,8 +18,11 @@ from paddle_tpu_torch.models import transformer
 from paddle_tpu_torch.ops.cuda.embedding import (gather_rows, gather_rows_plain,
                                                  scatter_add_rows, scatter_add_rows_plain)
 from paddle_tpu_torch.ops.cuda.flash_attention import flash_attn_fwd, flash_attn_fwd_plain
-from paddle_tpu_torch.ops.cuda.fused_optimizer import (fused_adam, fused_adam_plain,
-                                                       fused_sgd, fused_sgd_plain)
+from paddle_tpu_torch.ops.cuda import fused_optimizer
+from paddle_tpu_torch.ops.cuda.fused_optimizer import (fused_adam, fused_adam_multi,
+                                                       fused_adam_multi_plain, fused_adam_plain,
+                                                       fused_sgd, fused_sgd_multi,
+                                                       fused_sgd_multi_plain, fused_sgd_plain)
 from paddle_tpu_torch.ops.cuda.int8_matmul import (abs_max_pair, abs_max_pair_plain, int8_matmul,
                                                    int8_matmul_plain, int8_mm, int8_mm_plain,
                                                    quantize_int8, quantize_int8_plain)
@@ -497,6 +500,85 @@ def test_fused_adam_kernel_matches_plain(cuda, shape):
         assert a.shape == b.shape and (a - b).abs().max().item() <= ADAM_ATOL
 
 
+def _adam_group(cuda, shapes, seed):
+    """Mixed ``adam`` / ``pallas_adam`` entries on the card: every third
+    one a view one float into its buffer (element by element)."""
+    g = torch.Generator().manual_seed(seed)
+    entries = []
+    for k, shape in enumerate(shapes):
+        def make(scale, rand=torch.randn):
+            t = (scale * rand(*shape, generator=g)).to(cuda)
+            if k % 3 == 2:          # one float into a buffer: not 16-byte aligned
+                t = torch.cat([torch.zeros(1, device=cuda), t.flatten()])[1:].view(shape)
+            return t
+        p, grad, m1, m2 = make(1.0), make(1e-2), make(1e-3), make(1e-5, torch.rand)
+        b1p, b2p = (torch.tensor(b ** (k + 1), device=cuda) for b in (0.9, 0.999))
+        lr = torch.tensor(1e-3 * (1 + k % 4), device=cuda)
+        entries.append((p, grad, m1, m2, b1p, b2p, lr, k % 2 == 0))
+    return entries
+
+
+ADAM_GROUP_SHAPES = [(32000, 512), (512,), (2048, 512), (7,), (512, 2048), (1001,), (3, 5),
+                     (64, 130), (0,), (4097,)]
+
+
+@pytest.mark.parametrize("extra", [0, fused_optimizer.ADAM_CAPACITY])
+def test_fused_adam_multi_bit_equal_to_plain_over_mixed_groups(cuda, extra):
+    """One launch over a mixed group (two launches when ``extra`` small
+    tensors push it over one launch's table): every output of every entry
+    bit-equal to its op type's plain version; flipping one entry's
+    expression flag changes its Moment2Out."""
+    shapes = ADAM_GROUP_SHAPES + [(1 + k % 9,) for k in range(extra)]
+    entries = _adam_group(cuda, shapes, seed=len(shapes))
+    before = fused_adam.launches
+    got = fused_adam_multi(entries, 0.9, 0.999, 1e-8)
+    torch.cuda.synchronize()
+    assert fused_adam.launches == before + (1 if extra == 0 else 2)
+    for k, (outs, want) in enumerate(zip(got, fused_adam_multi_plain(entries, 0.9, 0.999, 1e-8))):
+        for a, b in zip(outs, want):
+            assert a.shape == b.shape and torch.equal(a, b), (k, shapes[k])
+    flipped = list(entries)
+    flipped[0] = entries[0][:7] + (not entries[0][7],)
+    again = fused_adam_multi(flipped, 0.9, 0.999, 1e-8)
+    assert not torch.equal(again[0][2], got[0][2])
+    assert all(torch.equal(a, b) for o, w in zip(again[1:], got[1:]) for a, b in zip(o, w))
+
+
+@pytest.mark.parametrize("extra", [0, fused_optimizer.SGD_CAPACITY])
+def test_fused_sgd_multi_bit_equal_to_plain_over_mixed_groups(cuda, extra):
+    shapes = ADAM_GROUP_SHAPES + [(1 + k % 9,) for k in range(extra)]
+    entries = [e[:2] + (torch.tensor([0.37 + 0.01 * (k % 3)], device=cuda),)
+               for k, e in enumerate(_adam_group(cuda, shapes, seed=3))]
+    before = fused_sgd.launches
+    got = fused_sgd_multi(entries)
+    torch.cuda.synchronize()
+    assert fused_sgd.launches == before + (1 if extra == 0 else 2)
+    for k, (out, want) in enumerate(zip(got, fused_sgd_multi_plain(entries))):
+        assert torch.equal(out, want), (k, shapes[k])
+
+
+@pytest.mark.parametrize("op_type", ["adam", "pallas_adam"])
+def test_adam_op_on_the_card_bit_equal_to_the_cpu(cuda, op_type):
+    """Each Adam op type on the card computes its own expression, as on
+    the CPU: ``adam`` the composed ``((1 - b2) * g) * g``, ``pallas_adam``
+    ``fused_adam``'s ``(1 - b2) * (g * g)``."""
+    from paddle_tpu_torch.core.desc import OpDesc
+    from paddle_tpu_torch.core.lower import LowerCtx, lower_op
+    ins = ("Param", "Grad", "Moment1", "Moment2", "Beta1Pow", "Beta2Pow", "LearningRate")
+    outs = ("ParamOut", "Moment1Out", "Moment2Out", "Beta1PowOut", "Beta2PowOut")
+    op = OpDesc(type=op_type, inputs={s: [s] for s in ins}, outputs={s: [s] for s in outs},
+                attrs={"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8})
+    entry = _adam_group(cuda, [(4096, 33)], seed=9)[0]
+    res = []
+    for dev in (cuda, torch.device("cpu")):
+        ctx = LowerCtx(None, {s: t.to(dev) for s, t in zip(ins, entry[:7])},
+                       torch.Generator(), dev)
+        lower_op(ctx, op)
+        res.append([ctx.read(s).cpu() for s in outs])
+    for a, b in zip(*res):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("v,d", [(1024, 128), (256, 512), (77, 30)])
 def test_scatter_add_kernel_matches_plain(cuda, v, d):
     """Bit-equal to the plain version run on the CPU: both add each row's
@@ -655,8 +737,9 @@ def test_small_training_step_on_card_matches_cpu_and_uses_the_kernels(cuda):
     launches, n_params = _train_step_on_card_vs_cpu(kernels=None)   # on for the card
     # K1: 6 attention ops, forward and grad retrace; K2 once per embedding
     # (the kernel tier's pallas_scatter_add reads the output gradient and
-    # runs no gather again); K3 once per embedding grad; K6 once per parameter
-    assert launches == [12, 4, 4, n_params, 1, 1]
+    # runs no gather again); K3 once per embedding grad; K6 once a step over
+    # every parameter
+    assert launches == [12, 4, 4, 1, 1, 1]
 
 
 def test_small_bf16_training_step_on_card_matches_cpu(cuda):
@@ -694,7 +777,9 @@ def test_full_width_bf16_step_launches_the_bf16_instances(cuda):
     """transformer-base (vocab 32000, d_model 512, 8 heads, 6+6 layers,
     d_inner 2048) under ``enable_amp``, one step at 2 x 256: K1 36 times in
     bf16, K2 4 (float32 tables), K3 4 in bf16 (the pass casts each table for
-    its gradient), K6 186, K7 once in bf16, K8 once in float32."""
+    its gradient), K6 once over the 186 parameters (the gradient casts
+    between the updates run ahead of it), K7 once in bf16, K8 once in
+    float32."""
     main, startup = pt.Program(), pt.Program()
     with pt.unique_name.guard(), pt.program_guard(main, startup):
         src = layers.data(name="src", shape=[1], dtype="int64", lod_level=1)
@@ -720,14 +805,14 @@ def test_full_width_bf16_step_launches_the_bf16_instances(cuda):
     after = [f.launches for f in counters] + [f.bf16_launches for f in
                                               (flash_attn_fwd, scatter_add_rows, linear_ce_fwd)]
     assert np.isfinite(l).all()
-    assert [a - c for a, c in zip(after, before)] == [36, 4, 4, 186, 1, 1, 36, 4, 1]
+    assert [a - c for a, c in zip(after, before)] == [36, 4, 4, 1, 1, 1, 36, 4, 1]
 
 
 def test_small_training_step_without_the_kernel_tier_on_card(cuda):
     """``kernels=False``: lookup_table_grad differentiates the gather
     (GatherRows.backward), so K2 runs again under autograd before K3."""
     launches, n_params = _train_step_on_card_vs_cpu(kernels=False)
-    assert launches == [12, 8, 4, n_params, 1, 1]
+    assert launches == [12, 8, 4, 1, 1, 1]
 
 
 @pytest.mark.parametrize("m", [256, 2048])
@@ -863,8 +948,9 @@ def test_small_sgd_training_step_on_card_launches_fused_sgd(cuda):
     feed = {"x": np.random.RandomState(0).randn(16, 64).astype(np.float32)}
     before = fused_sgd.launches
     gpu.run(main, feed=feed, fetch_list=[loss], scope=scope)
-    # one pallas_sgd (the 64 x 96 weight) and three sgd ops: K5 for each on the card
-    assert fused_sgd.launches - before == 4
+    # one pallas_sgd (the 64 x 96 weight) and three sgd ops: one K5 launch
+    # updates all four
+    assert fused_sgd.launches - before == 1
     cpu.run(main, feed=feed, fetch_list=[loss], scope=cpu_scope)
     for n in persist:
         np.testing.assert_allclose(scope.find_var(n).cpu().numpy(), cpu_scope.find_var(n).numpy(),

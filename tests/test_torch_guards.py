@@ -183,6 +183,14 @@ def _cuda_calls():
          lambda: linear_ce.linear_ce_bwd(x, w, None, labels, per_row, per_row)),
         (fused_optimizer, "fused_adam_plain",
          lambda: fused_optimizer.fused_adam(x, x, x, x.abs(), one, one, one, 0.9, 0.999, 1e-8)),
+        (fused_optimizer, "adam_plain",
+         lambda: fused_optimizer.fused_adam_multi([(x, x, x, x.abs(), one, one, one, False)],
+                                                  0.9, 0.999, 1e-8)),
+        (fused_optimizer, "fused_adam_multi_plain",
+         lambda: fused_optimizer.fused_adam_multi([(x, x, x, x.abs(), one, one, one, True)],
+                                                  0.9, 0.999, 1e-8)),
+        (fused_optimizer, "fused_sgd_multi_plain",
+         lambda: fused_optimizer.fused_sgd_multi([(x, x, one)])),
         (embedding, "scatter_add_rows_plain",
          lambda: embedding.scatter_add_rows(table, ids, rows)),
         (embedding, "gather_rows_plain", lambda: embedding.gather_rows(table, ids)),
