@@ -17,12 +17,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
    time (profiler) and the host microseconds a call of K2 and of
    ``F.embedding``;
 5. transformer-base (vocab 32000, d_model 512, 8 heads, 6+6 layers,
-   d_inner 2048, max_len 256, random weights from seed 0) served by
-   ``ServingSession(max_batch_size=8)`` to 4 client threads: answers
-   finite, of the right shape, bit-identical to sequential
-   ``Inferencer.infer`` runs of the same batches, K1/K2 launched 18/4
-   times per dispatched batch, and one request within a stated tolerance
-   of the port on the CPU with the same weights;
+   d_inner 2048, max_len 256, random weights from seed 0): every bucket
+   (1, 2, 4, 8) captured as one CUDA graph by ``Inferencer.warmup`` before
+   the session's engine thread starts (the executor's cache entries and
+   their reasons printed), then served by ``ServingSession(max_batch_size=
+   8)`` to 4 client threads through graph replays, with no capture while
+   serving: answers finite, of the right shape, bit-identical to
+   sequential ``Inferencer.infer`` runs (replays) of the same batches,
+   K1/K2 launched 18/4 times per dispatched batch (the counts each replay
+   adds, as captured), the 8-row batch's replay bit-equal to its eager
+   (op-by-op) run, a profile of the replay with K1/K2's device launches
+   gated at 18/4, and one request within a stated tolerance of
+   the port on the CPU with the same weights; then phase 16 for float32;
 6. linear-CE forward and backward (K7, K8), fused Adam (K6) and embedding
    scatter-add (K3) against their plain versions at the training path's
    shapes, with times beside a PyTorch yardstick; K7 and K8 (3xTF32 on the
@@ -62,16 +68,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
     word table and a vector, bit-equal, beside ``torch.optim.SGD(fused=
     True)``, and K5 over the training step's 186 parameter shapes in one
     launch, bit-equal, beside that call over the same shapes;
-11. int8 serving: ``ServingSession(max_batch_size=8, amp=AmpConfig(
-    bf16=False, quant=True), kernels=True)`` with the float32 weights,
-    4 client threads: answers finite, of the right shape, bit-identical to
-    sequential runs of the same batches, launches per batch K4 97 (and its
-    quantize kernels: abs-max 97, quantize 194), K1 18, K2 4; one 8-row
-    batch bit-equal to the simulated fake-quant program
-    (``kernels=False``) on the card, and within a gate of float32 serving
-    that the same model at ``quant_bits=4`` (the control) fails;
-    requests/s and batch latency beside float32's; a profile of one batch,
-    with at most 6 device operations a product;
+11. int8 serving: ``Inferencer(amp=AmpConfig(bf16=False, quant=True),
+    kernels=True)`` with the float32 weights, every bucket captured at
+    warmup, served by ``ServingSession(max_batch_size=8)`` to 4 client
+    threads through graph replays: answers finite, of the right shape,
+    bit-identical to sequential runs of the same batches, launches per
+    batch K4 97 (and its quantize kernels: abs-max 97, quantize 194), K1
+    18, K2 4; one 8-row batch's replay bit-equal to its eager run and to
+    the simulated fake-quant program (``kernels=False``) on the card, and
+    within a gate of float32 serving that the same model at
+    ``quant_bits=4`` (the control) fails; requests/s and batch latency
+    beside float32's; a profile of one replay, its device launches gated
+    at K4 97, quantizers 291, K1 18 and K2 4, with at most 6 device
+    operations a product; then phase 16 for int8;
 12. transformer-base training with ``SGD`` through ``Executor(kernels=
     True)``: two steps at 64 x 256, loss finite, every parameter changed,
     K5 launched once a step and K7/K8/K3 as in phase 7; a profile of
@@ -100,7 +109,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
     its quantize kernels under ``quantizers``, K7's and K8's both of their
     bounds (float32 on the CUDA cores, and three TF32 products), K3's times
     those of the padded word table; the bf16 instances of K1, K3 and K7 as
-    entries of their own.
+    entries of their own;
+16. (inside phases 5 and 11, before each drops its inferencer and graphs)
+    the executable cache per serving path and bucket: the capture's
+    seconds, host us a replay (the ``run(sync=False)`` call on a hit; of
+    it ``CUDAGraph.replay`` alone, and the feed coercion and cache lookup
+    alone), the logits' copy into pinned memory (events) beside a pageable
+    copy and a host copy of the pinned array, pinned allocations, each
+    replay bit-equal to the eager run of its batch, the batch's wall
+    through the graph, eagerly with pinned fetches, and eagerly with a
+    pageable copy (the path before the cache), in alternating turns, and
+    profiles of the batch through the graph and eagerly (device idle
+    share); requests/s over 64 requests at 4 threads through the graphs
+    and eagerly, with the pinned allocations of the graphs' run; and a
+    client that keeps all 64 answers: the pinned bytes its arrays hold
+    (at most ``PINNED_HANDOUT_LIMIT``, given back when they are dropped)
+    and the host allocator's.
 
 Phase 9 also takes the 2 x 256 step in bf16 (``enable_amp``) with cuBLAS's
 reduced-precision bf16 reductions allowed (PyTorch's default) and not, and
@@ -109,6 +133,7 @@ prints each one's gradient error against float64.
 The last line is ``{"ok": true, "device": {...}}``.  Times are CUDA-event
 times on this card; bounds use the H100 SXM's published peaks.
 """
+import gc
 import json
 import os
 import subprocess
@@ -154,6 +179,12 @@ INT8_OPS_PER_PRODUCT = 6
 # one 8-row int8 batch against float32 serving, norm-relative logit error
 # ||int8 - fp32|| / ||fp32||; the control at quant_bits=4 must exceed it
 INT8_VS_FP32_NORM_RTOL = 0.05
+# the serving buckets of ServingSession(max_batch_size=8), each one CUDA
+# graph; a replay against the eager (op-by-op) run of the same batch, max
+# abs logit difference: bit-equal at every bucket of both paths on an H100
+# (PERF.md), cuBLAS picking the same GEMMs inside the capture
+BUCKETS = (1, 2, 4, 8)
+REPLAY_ATOL = 0.0
 CE_RTOL = 1e-4          # K7/K8 vs plain, relative to the largest value, TF32 off
 # K8 (3xTF32 on the tensor cores) against the plain version in float64, norm-
 # relative per gradient: at most this many times the error of the cuBLAS
@@ -429,6 +460,8 @@ def _family(name):
         return "linear_ce_bwd (K8)"
     if "memcpy" in low:
         return "memcpy"
+    if "memset" in low:
+        return "memset"
     if any(s in low for s in ("gemm", "cutlass", "xmma", "sm90")):
         return "gemm (cuBLAS)"
     return OTHER
@@ -437,57 +470,33 @@ def _family(name):
 OTHER = "other (elementwise, layer_norm, copies)"
 
 
-def _scoped(torch, fn, name):
-    """``fn`` run inside a ``torch.profiler.record_function(name)`` range."""
-    def run(*args, **kwargs):
-        with torch.profiler.record_function(name):
-            return fn(*args, **kwargs)
-    return run
-
-
-def _profile(torch, run, label, card, extra, scopes=None):
+def _profile(torch, run, label, card, extra):
     """torch.profiler's device activities during ``run()`` by kernel
     family, their union as the device's busy time, and its share of the
-    host wall clock around ``run``.  ``scopes`` maps a ``record_function``
-    range's name to a family: an activity of no named kernel that was
-    launched inside such a range counts to it."""
+    host wall clock around ``run``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    scopes = scopes or {}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _profiler_started(torch)
         t0 = time.perf_counter()
         run()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = list(prof.profiler.kineto_results.events())
-    host = [e for e in events if e.device_type() != DeviceType.CUDA]
-    ranges = [(e.start_ns(), e.start_ns() + e.duration_ns(), scopes[e.name()])
-              for e in host if e.name() in scopes]
-    launched_at = {e.correlation_id(): e.start_ns() for e in host
-                   if e.name().startswith("cu") and not e.is_user_annotation()}
-    dev = [(e.name(), e.start_ns(), e.duration_ns(), e.correlation_id()) for e in events
-           if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0 and e.name() not in scopes]
+    dev = [(e.name(), e.start_ns(), e.duration_ns()) for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0]
     if not dev:
         print(f"{label}: torch.profiler recorded no device activity (not measured) [{card}]")
         return None
 
-    def family(name, corr):
-        fam = _family(name)
-        t = launched_at.get(corr)
-        if fam == OTHER and t is not None:
-            fam = next((f for a, b, f in ranges if a <= t <= b), fam)
-        return fam
-
     fam, fam_n, names = {}, {}, {}
-    for name, _, dur, corr in dev:
-        f = family(name, corr)
+    for name, _, dur in dev:
+        f = _family(name)
         fam[f] = fam.get(f, 0.0) + dur / 1e6
         fam_n[f] = fam_n.get(f, 0) + 1
         ms, n = names.get(name, (0.0, 0))
         names[name] = (ms + dur / 1e6, n + 1)
     busy_ns, end = 0, 0
-    for _, start, dur, _ in sorted(dev, key=lambda x: x[1]):
+    for _, start, dur in sorted(dev, key=lambda x: x[1]):
         busy_ns += max(0, start + dur - max(start, end))
         end = max(end, start + dur)
     busy_ms = busy_ns / 1e6
@@ -632,6 +641,64 @@ def _serve(torch, sess, reqs, per_batch, label, card):
             "launches": launches}
 
 
+def _warm(torch, inf, label):
+    """Capture every bucket of ``inf`` (``Inferencer.warmup`` ->
+    ``Executor.precompile``) before a session's engine thread starts: each
+    must be a CUDA graph.  Prints each bucket's record and the cache's
+    entries (the startup program's is eager, with its reasons)."""
+    warm = inf.warmup(BUCKETS, feed_specs=SERVE_SPECS)
+    torch.cuda.synchronize()
+    for r in warm:
+        print(f"{label} warmup: bucket {r['batch_size']}: kind {r['kind']}, aot {r['aot']}, "
+              f"capture {r['compile_s']:.3f} s (whole call {r['seconds']:.3f} s), "
+              f"fingerprint {r['fingerprint'][:12]}")
+    if [(r["batch_size"], r["kind"]) for r in warm] != [(b, "graph") for b in BUCKETS]:
+        raise AssertionError(f"{label}: a bucket was not captured: {warm}")
+    for e in inf.exe.cache_info()["entries"]:
+        print(f"{label} cache entry: kind {e['kind']}, src feed {e['feeds'].get('src')}, "
+              f"reasons {e['reasons']}, replay launches {e['launches']}")
+    return warm
+
+
+def _serve_graphs(torch, sess, reqs, per_batch, label, card):
+    """``_serve`` through graphs captured at warmup: no capture while
+    serving, and a replay of the 8-row batch against its eager run."""
+    exe = sess.inferencer.exe
+    captures = exe.cache_info()["captures"]
+    res = _serve(torch, sess, reqs, per_batch, label, card)
+    info = exe.cache_info()
+    if info["captures"] != captures:
+        raise AssertionError(f"{label}: {info['captures'] - captures} captures while serving")
+    print(f"{label}: served through the graphs captured at warmup: hits {info['hits']}, "
+          f"misses {info['misses']}, captures {info['captures']}, pipeline {info['pipeline']}")
+    return res
+
+
+def _gate_profile_launches(prof, want, label):
+    """The per-batch launch gates read from the device: ``prof``'s
+    operations by kernel family (a replay calls no wrapper, so this is
+    what the card ran) must equal ``want``."""
+    if prof is None:
+        raise AssertionError(f"{label}: the profiler recorded no device activity; the "
+                             f"per-batch launch gates read it")
+    got = {f: prof["by_family_launches"].get(f, 0) for f in want}
+    if got != want:
+        raise AssertionError(f"{label}: device launches {got}, want {want} per batch")
+    print(f"{label}: device launches a batch from the profile {got} (gate {want})")
+
+
+def _replay_vs_eager(inf, feed, label):
+    (got,) = inf.infer(feed)
+    (want,) = inf.exe._run_eager(inf.inference_program, feed, inf.predict_vars, inf.scope)
+    diff = float(np.abs(got - want).max())
+    print(f"{label}: graph replay vs the eager run of the same {feed['src'].shape[0]}-row batch: "
+          f"max abs diff {diff:.3e} ({'bit-equal' if diff == 0 else 'not bit-equal'}; "
+          f"gate {REPLAY_ATOL})")
+    if not diff <= REPLAY_ATOL:
+        raise AssertionError(f"{label}: replay vs eager {diff} > {REPLAY_ATOL}")
+    return got
+
+
 def phase_serving(torch, card):
     import paddle_tpu_torch as pt
 
@@ -639,12 +706,12 @@ def phase_serving(torch, card):
     inf = pt.Inferencer(_infer_func, place=pt.CUDAPlace(0))
     torch.cuda.synchronize()
     print(f"transformer-base startup on the card: {time.perf_counter() - t0:.2f} s")
+    warm = _warm(torch, inf, "float32 serving")
     sess = pt.ServingSession(inferencer=inf, max_batch_size=8, max_wait_ms=20.0, warmup=False)
-    warm = inf.warmup(sess.buckets, feed_specs=SERVE_SPECS)
-    print("warmup:", [(r["batch_size"], round(r["seconds"], 4)) for r in warm])
     reqs = _requests(16, seed=0)
-    res = _serve(torch, sess, reqs, {"flash_attn_fwd": K1_PER_BATCH, "gather_rows": K2_PER_BATCH},
-                 "float32 serving", card)
+    res = _serve_graphs(torch, sess, reqs, {"flash_attn_fwd": K1_PER_BATCH,
+                                            "gather_rows": K2_PER_BATCH},
+                        "float32 serving", card)
 
     # not a gate: does a row's answer depend on its batch (cuBLAS picks
     # GEMM algorithms by shape)?
@@ -653,19 +720,216 @@ def phase_serving(torch, card):
           f"diff {float(np.abs(alone - res['answers'][0]).max()):.3e}")
 
     feed8 = _batch_feed(reqs)
-    inf.infer(feed8)
-    _profile(torch, lambda: inf.infer(feed8), "serving_profile", card, {"rows": 8})
+    res["fp32_feed8"] = _replay_vs_eager(inf, feed8, "float32 serving")
+    prof = _profile(torch, lambda: inf.infer(feed8), "serving_profile", card,
+                    {"rows": 8, "path": "graph"})
+    _gate_profile_launches(prof, {"flash_attn_fwd (K1)": K1_PER_BATCH,
+                                  "gather_rows (K2)": K2_PER_BATCH}, "float32 serving profile")
 
     # one request against the port on the CPU, same weights, float32 everywhere
+    res["params"] = _params(inf)
     cpu_inf = pt.Inferencer(_infer_func, place=pt.CPUPlace())
-    pt.params_from_numpy(_params(inf), cpu_inf.scope, "cpu")
+    pt.params_from_numpy(res["params"], cpu_inf.scope, "cpu")
     (cpu_out,) = cpu_inf.infer(reqs[0])
     diff = float(np.abs(cpu_out - res["answers"][0]).max())
     if not diff <= CPU_TOL:
         raise AssertionError(f"card vs CPU: max abs logit diff {diff} > {CPU_TOL}")
     print(f"card vs CPU (request 0, {reqs[0]['src'].shape[0]} row): max abs logit diff {diff:.3e} "
           f"(tol {CPU_TOL}, TF32 off)")
-    return inf, res
+    del res["answers"]
+    res["graphs"] = _graphs_vs_eager(torch, inf, warm, "float32", card)
+    return res
+
+
+def _host_ms(torch, fn, rounds=5):
+    """Host milliseconds of each of ``rounds`` calls of ``fn``, each begun
+    with the card idle and ended by ``fn``'s own wait for its result."""
+    out = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _host_alloc_stats(torch):
+    """torch's caching host allocator: pinned blocks allocated with
+    ``cudaHostAlloc`` (``allocations``) and the time they took (us), and
+    the requests it served (``active_requests``, new blocks or reused)."""
+    s = torch.cuda.memory.host_memory_stats()
+    return {"new_blocks": s["allocations.allocated"], "requests": s["active_requests.allocated"],
+            "alloc_us": s["host_alloc_time.total"]}
+
+
+def _pinned_bytes(torch):
+    """The pinned bytes torch's host allocator owns (blocks in use and
+    cached) and those that arrays handed out by fetch handles hold."""
+    from paddle_tpu_torch.core.staging import PINNED_HANDOUT
+    s = torch.cuda.memory.host_memory_stats()
+    return {"allocator_bytes": s["allocated_bytes.current"],
+            "allocator_peak_bytes": s["allocated_bytes.peak"], **PINNED_HANDOUT.snapshot()}
+
+
+def _moved(after, before):
+    return {k: after[k] - before[k] for k in after}
+
+
+def _rps(sess, n_requests=64, n_threads=4, kept=None):
+    """Requests/s of ``n_requests`` 1-2-row requests from ``n_threads``
+    client threads through ``sess`` (answers dropped as they come, or
+    appended to ``kept``)."""
+    reqs = _requests(n_requests, seed=2)
+    errors = []
+    barrier = threading.Barrier(n_threads + 1)
+
+    def client(t):
+        try:
+            barrier.wait(timeout=60)
+            for i in range(t, n_requests, n_threads):
+                (a,) = sess.infer(reqs[i], timeout=120)
+                if not np.isfinite(a).all():
+                    raise AssertionError(f"request {i}: non-finite logits")
+                if kept is not None:
+                    kept.append(a)
+        except Exception as e:  # noqa: BLE001 -- re-raised on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(n_threads)]
+    for th in threads:
+        th.start()
+    barrier.wait(timeout=60)
+    t0 = time.perf_counter()
+    for th in threads:
+        th.join(timeout=300)
+    wall = time.perf_counter() - t0
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"serving clients failed: {errors}")
+    return n_requests / wall, sess.stats()
+
+
+def _graphs_vs_eager(torch, inf, warm, label, card):
+    """Phase 16, for one serving path (run inside phases 5 and 11, before
+    each drops its inferencer): per bucket the capture's seconds, host us
+    a replay (the whole ``run(sync=False)`` call on a hit; of it
+    ``CUDAGraph.replay`` alone, and the feed coercion and cache lookup
+    alone), the logits' copy into pinned memory (device ms, events) beside
+    a pageable copy and a host copy of the pinned array, pinned allocations
+    and their time over the timed batches, the replay against the eager
+    run of the same batch, the batch's wall through the graph, the eager
+    path with pinned fetches and the eager path with a pageable copy of
+    the logits (the path before the cache), in alternating turns, and a
+    profile of the batch through the graph and eagerly (device idle
+    share); then requests/s over 64 requests at 4 threads through the
+    graphs and through the eager path."""
+    import paddle_tpu_torch as pt
+    exe, fetch = inf.exe, list(inf.predict_vars)
+    reqs = _requests(16, seed=1)
+    out = {"card": card, "buckets": {}}
+    entries = {e.feeds["src"][0][0]: e for e in exe._cache.values() if e.graph is not None}
+    for rec in warm:
+        b = rec["batch_size"]
+        feed = _batch_feed(reqs, b)
+        entry = entries[b]
+
+        def graph():
+            return inf.infer(feed)
+
+        def eager():
+            return exe._run_eager(inf.inference_program, feed, fetch, inf.scope)
+
+        def pageable():
+            return [t.cpu().numpy() for t in exe._run_eager(
+                inf.inference_program, feed, fetch, inf.scope, return_numpy=False)]
+
+        _replay_vs_eager(inf, feed, f"{label} bucket {b}")
+        host_run_us = [v * 1e3 for v in _host_ms(torch, lambda: inf.infer(feed, sync=False), 20)]
+        host_replay_us = [v * 1e3 for v in _host_ms(torch, entry.graph.replay, 20)]
+
+        def lookup():
+            program, scope, feeds, names = exe._prepare(inf.inference_program, feed, fetch,
+                                                         inf.scope)
+            with exe._lock:
+                exe._get_entry(program, feeds, names, scope)
+
+        host_lookup_us = [v * 1e3 for v in _host_ms(torch, lookup, 20)]
+        dev_out = entry.outputs[0]
+        pinned = torch.empty(dev_out.shape, dtype=dev_out.dtype, pin_memory=True)
+        copy_ms = _ms(lambda: pinned.copy_(dev_out, non_blocking=True), 5)
+        pageable_copy_ms = min(_host_ms(torch, lambda: dev_out.cpu(), 3))
+        # what a ring of pinned buffers would add: one host copy of the logits
+        host_copy_ms = min(_host_ms(torch, lambda: pinned.numpy().copy(), 3))
+        del pinned
+        stats0 = _host_alloc_stats(torch)
+        walls = {"graph": [], "eager": [], "eager_pageable": []}
+        for _ in range(3):
+            for name, fn in (("graph", graph), ("eager", eager), ("eager_pageable", pageable)):
+                walls[name] += _host_ms(torch, fn, 1)
+        stats1 = _host_alloc_stats(torch)
+        row = {"capture_s": rec["compile_s"],
+               "host_us_run": float(np.median(host_run_us)),
+               "host_us_replay": float(np.median(host_replay_us)),
+               "host_us_lookup": float(np.median(host_lookup_us)),
+               "logits_mb": dev_out.numel() * dev_out.element_size() / 1e6,
+               "pinned_copy_ms": copy_ms, "pageable_copy_ms": pageable_copy_ms,
+               "host_copy_ms": host_copy_ms,
+               "pinned_allocs": _moved(stats1, stats0),
+               "wall_ms": {k: {"min": min(v), "median": float(np.median(v))}
+                           for k, v in walls.items()}}
+        for path, fn in (("graph", graph), ("eager", eager)):
+            prof = _profile(torch, fn, f"{label}_bucket{b}_{path}_profile", card, {"rows": b})
+            if prof is not None:
+                row[f"{path}_profile"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                                              "device_idle_share")}
+        out["buckets"][b] = row
+        w = row["wall_ms"]
+        print(f"{label} bucket {b}: capture {row['capture_s']:.3f} s; host us a replay "
+              f"{row['host_us_run']:.1f} (run call) / {row['host_us_replay']:.1f} (replay alone) / "
+              f"{row['host_us_lookup']:.1f} (feeds coerced and the cache entry found); "
+              f"logits {row['logits_mb']:.1f} MB: pinned copy {copy_ms:.3f} ms, pageable "
+              f"{pageable_copy_ms:.3f} ms, a host copy of the pinned array {host_copy_ms:.3f} "
+              f"ms; batch wall graph {w['graph']['median']:.2f} ms, eager "
+              f"{w['eager']['median']:.2f}, eager with a pageable copy "
+              f"{w['eager_pageable']['median']:.2f} (medians of 3 in turns); pinned allocations "
+              f"over the 9 batches {row['pinned_allocs']}; profiled device idle share graph "
+              f"{row.get('graph_profile', {}).get('device_idle_share')}, eager "
+              f"{row.get('eager_profile', {}).get('device_idle_share')} [{card}]")
+
+    sess = pt.ServingSession(inferencer=inf, max_batch_size=8, max_wait_ms=20.0, warmup=False)
+    stats0 = _host_alloc_stats(torch)
+    out["requests_per_s_graph"], stats = _rps(sess)
+    out["serving_pinned_allocs"] = _moved(_host_alloc_stats(torch), stats0)
+    sess.close()
+    print(f"{label}: {out['requests_per_s_graph']:.2f} requests/s through the graphs (64 requests "
+          f"of 1-2 rows, 4 threads): {stats}; pinned allocations {out['serving_pinned_allocs']} "
+          f"[{card}]")
+    # a client that keeps all 64 answers: the arrays handed out over pinned
+    # blocks stop at PINNED_HANDOUT_LIMIT, later reads are copied out
+    kept, pinned0 = [], _pinned_bytes(torch)
+    sess = pt.ServingSession(inferencer=inf, max_batch_size=8, max_wait_ms=20.0, warmup=False)
+    out["requests_per_s_keeping"], stats = _rps(sess, kept=kept)
+    sess.close()
+    gc.collect()
+    pinned1 = _pinned_bytes(torch)
+    del kept
+    gc.collect()
+    pinned2 = _pinned_bytes(torch)
+    out["keeping"] = {"before": pinned0, "answers_kept": pinned1, "answers_dropped": pinned2}
+    print(f"{label}: a client keeping all 64 answers: {out['requests_per_s_keeping']:.2f} "
+          f"requests/s, {stats['batches']} batches; pinned bytes before {pinned0}, with the "
+          f"answers kept {pinned1}, after dropping them {pinned2} [{card}]")
+    if pinned1["bytes"] > pinned1["limit"] or pinned2["bytes"] != pinned0["bytes"]:
+        raise AssertionError(f"{label}: pinned bytes held past the limit or not given back: "
+                             f"{out['keeping']}")
+    sess = pt.ServingSession(inferencer=inf, max_batch_size=8, max_wait_ms=20.0, warmup=False)
+    sess.engine._runner = lambda feed: exe._run_eager(inf.inference_program, feed, fetch,
+                                                      inf.scope, sync=False)
+    out["requests_per_s_eager"], stats = _rps(sess)
+    sess.close()
+    print(f"{label}: {out['requests_per_s_eager']:.2f} requests/s eagerly (the same requests): "
+          f"{stats} [{card}]")
+    print(json.dumps({f"serving_graphs_{label}": out}))
+    return out
 
 
 def _params(inf):
@@ -677,28 +941,26 @@ def _norm_rel(got, want):
     return float(np.linalg.norm(got - want) / np.linalg.norm(want))
 
 
-def phase_int8_serving(torch, card, f32_inf, f32_res):
+def phase_int8_serving(torch, card, f32_res):
     """transformer-base served in int8 through the kernel tier, from the
     float32 path's weights."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.amp import AmpConfig
 
     amp = AmpConfig(bf16=False, quant=True)
-    params = _params(f32_inf)
+    params = f32_res["params"]
     t0 = time.perf_counter()
-    sess = pt.ServingSession(_infer_func, place=pt.CUDAPlace(0), max_batch_size=8,
-                             max_wait_ms=20.0, warmup=False, amp=amp, kernels=True)
-    inf = sess.inferencer
+    inf = pt.Inferencer(_infer_func, place=pt.CUDAPlace(0), amp=amp, kernels=True)
     pt.params_from_numpy(params, inf.scope, "cuda")
-    warm = inf.warmup(sess.buckets, feed_specs=SERVE_SPECS)
-    torch.cuda.synchronize()
-    print(f"int8 serving: startup and warmup {time.perf_counter() - t0:.2f} s; warmup "
-          f"{[(r['batch_size'], round(r['seconds'], 4)) for r in warm]}")
+    warm = _warm(torch, inf, "int8 serving")
+    print(f"int8 serving: startup and warmup {time.perf_counter() - t0:.2f} s")
+    sess = pt.ServingSession(inferencer=inf, max_batch_size=8, max_wait_ms=20.0, warmup=False)
     reqs = _requests(16, seed=0)
-    res = _serve(torch, sess, reqs, {"int8_matmul": K4_PER_BATCH, "abs_max_pair": K4_PER_BATCH,
-                                     "quantize_int8": 2 * K4_PER_BATCH,
-                                     "flash_attn_fwd": K1_PER_BATCH, "gather_rows": K2_PER_BATCH},
-                 "int8 serving", card)
+    res = _serve_graphs(torch, sess, reqs, {
+        "int8_matmul": K4_PER_BATCH, "abs_max_pair": K4_PER_BATCH,
+        "quantize_int8": 2 * K4_PER_BATCH, "flash_attn_fwd": K1_PER_BATCH,
+        "gather_rows": K2_PER_BATCH}, "int8 serving", card)
+    del res["answers"]
     ops = [o.type for o in inf.exe._apply_passes(
         inf.inference_program, list(reqs[0]), [v.name for v in inf.predict_vars]).desc.block(0).ops]
     print(f"int8 serving program: {len(ops)} ops, {ops.count('pallas_int8_matmul')} "
@@ -708,7 +970,7 @@ def phase_int8_serving(torch, card, f32_inf, f32_res):
           f"{f32_res['batch_latency_ms']:.2f} ms [{card}]")
 
     feed8 = _batch_feed(reqs)
-    (got,) = inf.infer(feed8)
+    got = _replay_vs_eager(inf, feed8, "int8 serving")
     sim = pt.Inferencer(_infer_func, place=pt.CUDAPlace(0), amp=amp, kernels=False)
     pt.params_from_numpy(params, sim.scope, "cuda")
     (want,) = sim.infer(feed8)
@@ -720,7 +982,7 @@ def phase_int8_serving(torch, card, f32_inf, f32_res):
           "one 8-row batch: bit-equal")
     del sim
 
-    (fp32,) = f32_inf.infer(feed8)
+    fp32 = f32_res["fp32_feed8"]
     ctl = pt.Inferencer(_infer_func, place=pt.CUDAPlace(0), kernels=True,
                         amp=AmpConfig(bf16=False, quant=True, quant_bits=4))
     pt.params_from_numpy(params, ctl.scope, "cuda")
@@ -735,32 +997,33 @@ def phase_int8_serving(torch, card, f32_inf, f32_res):
         raise AssertionError(f"int8 logits too far from float32: {errs}")
     if errs["int4_control"] <= INT8_VS_FP32_NORM_RTOL:
         raise AssertionError(f"the gate lets the quant_bits=4 control through: {errs}")
-    # anything else the wrapper puts on the device (the abs-max pair's
-    # memset) is told apart by its range
-    from paddle_tpu_torch.ops import kernel_ops
-    wrapper = kernel_ops.int8_matmul
-    kernel_ops.int8_matmul = _scoped(torch, wrapper, "ptt.int8_matmul")
-    wrapper_other = "other device operations in K4's wrapper"
-    try:
-        prof = _profile(torch, lambda: inf.infer(feed8), "int8_serving_profile", card, {"rows": 8},
-                        scopes={"ptt.int8_matmul": wrapper_other})
-    finally:
-        kernel_ops.int8_matmul = wrapper
-    if prof is not None:
-        copy_ms = prof["by_family_ms"].get("memcpy", 0.0)
-        print(f"int8 serving profile: one 8-row batch's wall {prof['wall_ms']:.2f} ms, less its "
-              f"copies ({copy_ms:.2f} ms) {prof['wall_ms'] - copy_ms:.2f} ms, against "
-              f"{prof['device_busy_ms'] - copy_ms:.2f} ms of device compute [{card}]")
-        n_ops = prof["by_family_launches"]
-        per_product = sum(n_ops.get(f, 0) for f in ("int8_matmul (K4)", "int8 quantizers (K4)",
-                                                   wrapper_other)) / K4_PER_BATCH
-        print(f"int8 serving profile: {per_product:g} device operations a product "
-              f"(limit {INT8_OPS_PER_PRODUCT}): {n_ops.get('int8_matmul (K4)', 0)} GEMM, "
-              f"{n_ops.get('int8 quantizers (K4)', 0)} quantizer, {n_ops.get(wrapper_other, 0)} "
-              f"other (memset) in {K4_PER_BATCH} products")
-        if n_ops.get("int8_matmul (K4)") != K4_PER_BATCH or per_product > INT8_OPS_PER_PRODUCT:
-            raise AssertionError(f"int8 serving profile: {n_ops}; want {K4_PER_BATCH} GEMMs and at "
-                                 f"most {INT8_OPS_PER_PRODUCT} device operations a product")
+    # the replay of the 8-row batch's graph: the product's memset is a node
+    # of it.  The arrays above give their pinned blocks back first, so the
+    # profiled fetch allocates none (each 8-row fetch held is a 512 MB block)
+    del got, want, int4
+    stats0 = _host_alloc_stats(torch)
+    prof = _profile(torch, lambda: inf.infer(feed8), "int8_serving_profile", card, {"rows": 8})
+    print(f"int8 serving profile: pinned allocations {_moved(_host_alloc_stats(torch), stats0)}")
+    # 97 abs-max pairs and 194 quantize launches: K4's quantizers
+    _gate_profile_launches(prof, {"int8_matmul (K4)": K4_PER_BATCH,
+                                  "int8 quantizers (K4)": 3 * K4_PER_BATCH,
+                                  "flash_attn_fwd (K1)": K1_PER_BATCH,
+                                  "gather_rows (K2)": K2_PER_BATCH}, "int8 serving profile")
+    copy_ms = prof["by_family_ms"].get("memcpy", 0.0)
+    print(f"int8 serving profile: one 8-row batch's wall {prof['wall_ms']:.2f} ms, less its "
+          f"copies ({copy_ms:.2f} ms) {prof['wall_ms'] - copy_ms:.2f} ms, against "
+          f"{prof['device_busy_ms'] - copy_ms:.2f} ms of device compute [{card}]")
+    n_ops = prof["by_family_launches"]
+    per_product = sum(n_ops.get(f, 0) for f in ("int8_matmul (K4)", "int8 quantizers (K4)",
+                                               "memset")) / K4_PER_BATCH
+    print(f"int8 serving profile: {per_product:g} device operations a product "
+          f"(limit {INT8_OPS_PER_PRODUCT}): {n_ops.get('int8_matmul (K4)', 0)} GEMM, "
+          f"{n_ops.get('int8 quantizers (K4)', 0)} quantizer, {n_ops.get('memset', 0)} "
+          f"memset in {K4_PER_BATCH} products")
+    if per_product > INT8_OPS_PER_PRODUCT:
+        raise AssertionError(f"int8 serving profile: {n_ops}; want at most "
+                             f"{INT8_OPS_PER_PRODUCT} device operations a product")
+    res["graphs"] = _graphs_vs_eager(torch, inf, warm, "int8", card)
     return res
 
 
@@ -2061,6 +2324,15 @@ def phase_bf16_step(torch, card):
     return launches, bf16_launches
 
 
+def _release_serving(torch, label):
+    """A serving phase's inferencers (and their graphs' memory pools) are
+    gone once it returns: collect them before the training phases."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{label} released: {torch.cuda.memory_allocated() / 2**20:.0f} MiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**20:.0f} MiB reserved on the card")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2088,7 +2360,8 @@ def main():
 
     flash = phase_flash(torch, card)
     gather = phase_gather(torch, card)
-    f32_inf, f32_res = phase_serving(torch, card)
+    f32_res = phase_serving(torch, card)
+    _release_serving(torch, "float32 serving")
     ce = phase_linear_ce(torch, card)
     adam = phase_adam(torch, card)
     scatter = phase_scatter(torch, card)
@@ -2096,8 +2369,8 @@ def main():
     phase_train_vs_cpu(torch, card)
     int8, int8_quant = phase_int8(torch, card)
     sgd = phase_sgd(torch, card)
-    int8_res = phase_int8_serving(torch, card, f32_inf, f32_res)
-    del f32_inf
+    int8_res = phase_int8_serving(torch, card, f32_res)
+    _release_serving(torch, "int8 serving")
     sgd_launches, sgd_steps = phase_training(torch, card, sgd=True)
     bf16 = phase_bf16_kernels(torch, card)
     _, bf16_launches = phase_bf16_step(torch, card)

@@ -1,9 +1,29 @@
-"""The executor: run a program's global block eagerly on one device.
+"""The executor: run a program's global block on one device, through a
+cache of executables.
 
-``Executor.run`` coerces the feeds, builds the environment from the scope's
-state, the feeds and their ``@SEQ_LEN`` lengths, runs every op's lowering
-in order, writes persistable outputs back to the scope (so running the
-startup program initializes it) and returns the fetches.
+``Executor.run`` coerces the feeds, finds the cache entry of (program uid,
+version, feed signature, fetch names, state signature, amp, passes, kernel
+policy, matmul flags) -- the JAX package's executable cache -- and runs
+it.  An entry holds the block's analysis (which names it reads from the
+scope and writes back), done once.  On a CUDA place an entry of a program
+that writes no state, draws no random numbers and has one block holds one
+CUDA graph of the whole lowering of block 0: a hit copies the feeds into
+the graph's static buffers and replays it, and no op is lowered from
+Python.  Any other entry (and every entry on the CPU) lowers the block op
+by op: the environment is built from the scope's state, the feeds and
+their ``@SEQ_LEN`` lengths, every op's lowering runs in order, written
+state goes back to the scope (so running the startup program initializes
+it).  Which kind an entry is is decided from the program before any
+capture; a capture that fails raises.  ``Executor.cache_info()`` lists
+each entry's kind and the reasons an entry has no graph.
+
+A graph reads the addresses it captured, so the state signature of a
+graph-eligible program includes each state tensor's ``data_ptr()``: a
+scope variable rebound to a new tensor misses (the new graph replaces the
+old one), and an in-place update (``copy_``) hits and is read.  Fetches on the card are copied into pinned
+host memory on the step's stream right after the step
+(``staging.prefetch_to_host``); ``return_numpy=False`` returns device
+clones of a graph's outputs, never its own buffers.
 
 Places: ``CUDAPlace(i)`` is a real CUDA device and the default; the CPU is
 used only when the caller passes ``CPUPlace()``.  An executor asked for a
@@ -21,20 +41,28 @@ package; one the pass cannot rewrite raises.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence
+import threading
+import time
+import warnings
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .desc import BlockDesc, VarType
-from .dtypes import coerce_feed_dtype, convert_dtype, to_numpy
+from .dtypes import coerce_feed_dtype, convert_dtype
 from .framework import Program, Variable, default_main_program
 from .lower import LowerCtx, lower_block
+from .registry import op_draws
 from .scope import Scope, global_scope
-from .staging import FetchHandle
+from .staging import COUNTERS, FetchHandle, executable_fingerprint, prefetch_to_host
 
 # scope var holding the executor's torch.Generator for random ops
 RNG_STATE_VAR = "@RNG_STATE@"
+
+# a program that has built this many distinct cache entries (feed shapes,
+# usually) draws one warning, as in the JAX package
+RECOMPILE_WARN_THRESHOLD = 8
 
 
 class Place:
@@ -96,8 +124,84 @@ def analyze_state(block: BlockDesc, feed_names) -> tuple:
     return state_in, state_out
 
 
+def graph_blockers(program: Program, state_out: Sequence[str]) -> List[str]:
+    """Why block 0 of ``program`` gets no CUDA graph (empty: it may): it
+    writes state (persistable or read-modify-written names), draws random
+    numbers, or the program has more than one block."""
+    reasons = []
+    if state_out:
+        names = ", ".join(state_out[:3]) + (", ..." if len(state_out) > 3 else "")
+        reasons.append(f"writes state ({len(state_out)} vars: {names})")
+    draws = sorted({op.type for op in program.desc.block(0).ops if op_draws(op)})
+    if draws:
+        reasons.append(f"draws random numbers ({', '.join(draws)})")
+    if program.desc.num_blocks() > 1:
+        reasons.append(f"{program.desc.num_blocks()} blocks")
+    return reasons
+
+
+def _matmul_flags() -> Tuple[Tuple[str, bool], ...]:
+    """The flags a capture bakes into its cuBLAS and cuDNN calls."""
+    m = torch.backends.cuda.matmul
+    return (("tf32_matmul", m.allow_tf32),
+            ("tf32_cudnn", torch.backends.cudnn.allow_tf32),
+            ("bf16_reduced", m.allow_bf16_reduced_precision_reduction),
+            ("fp16_reduced", m.allow_fp16_reduced_precision_reduction))
+
+
+def _tensor_sig(name: str, v, with_address: bool) -> tuple:
+    if not isinstance(v, torch.Tensor):
+        return (name, type(v).__name__)
+    if with_address:
+        return (name, tuple(v.shape), v.dtype, v.stride(), v.data_ptr())
+    return (name, tuple(v.shape), v.dtype)
+
+
+class _CacheEntry:
+    """One entry of the executable cache (the JAX package's
+    ``_CompiledBlock``): the rewritten program, the feeds' shapes and
+    coerced dtypes, the analysed ``state_in`` / ``state_out`` and fetch
+    names, and on the card, for a graph-eligible program, the CUDA graph
+    of the whole lowering with its static feed buffers, its output tensors
+    and the kernel launches a replay makes (``launches``: (wrapper,
+    counter) -> count).  ``eligible``: the program allows a graph;
+    ``reasons``: why the entry has none."""
+
+    def __init__(self, program: Program, feeds: Dict[str, torch.Tensor],
+                 state_in: List[str], state_out: List[str],
+                 fetch_names: List[str], reasons: List[str], eligible: bool):
+        self.program = program
+        self.block = program.desc.block(0)
+        # name -> (shape, coerced dtype)
+        self.feeds = {k: (tuple(t.shape), t.dtype) for k, t in feeds.items()}
+        self.state_in = state_in
+        self.state_out = state_out
+        self.fetch_names = fetch_names
+        self.reasons: Tuple[str, ...] = tuple(reasons)
+        self.eligible = eligible      # the program allows a graph
+        self.fingerprint: Optional[str] = None
+        self.compile_s = 0.0
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.static_feeds: Dict[str, torch.Tensor] = {}
+        self.outputs: List[torch.Tensor] = []
+        self.launches: Dict[tuple, int] = {}
+        self.state: List[Any] = []     # the captured state tensors, kept alive
+
+    @property
+    def kind(self) -> str:
+        return "graph" if self.graph is not None else "eager"
+
+    def info(self) -> Dict[str, Any]:
+        return {"fingerprint": (self.fingerprint or "")[:12], "kind": self.kind,
+                "graph_eligible": self.eligible, "reasons": list(self.reasons),
+                "compile_s": round(self.compile_s, 4),
+                "feeds": {k: [list(s), str(d)] for k, (s, d) in self.feeds.items()},
+                "launches": {f"{w.__name__}.{a}": n for (w, a), n in self.launches.items()}}
+
+
 class Executor:
-    """Eager executor on one device.  ``place=None`` means ``CUDAPlace(0)``.
+    """Executor on one device, with the executable cache described above.
+    ``place=None`` means ``CUDAPlace(0)``.
 
     ``passes``: ``None``/``False``, a list of pass names or a
     ``PassPipeline``; ``amp``: ``None``/``AmpPolicy``/``AmpConfig``;
@@ -117,11 +221,34 @@ class Executor:
             self.passes = compose_passes(passes, amp, kernels=self.kernel_policy)
         else:
             self.passes = None
+        self._passes_fp = self.passes.fingerprint() if self.passes is not None else None
         # (uid, version, amp flag, feed names, fetch names) -> the program to run
         self._pass_memo: Dict[tuple, Program] = {}
         # (uid, version, fetch names) -> the amp-bf16 rewrite of a program
         # flagged by enable_amp
         self._amp_bridge_memo: Dict[tuple, Program] = {}
+        # (uid, version, feed names) -> (state_in, state_out, graph blockers)
+        self._analysis_memo: Dict[tuple, tuple] = {}
+        self._cache: Dict[tuple, _CacheEntry] = {}
+        # the key without state addresses, and the scope -> the key of the
+        # one graph-eligible entry kept for it (see ``_get_entry``)
+        self._by_shape: Dict[tuple, tuple] = {}
+        # guards the cache, and a graph's feed copy, replay and output copies
+        self._lock = threading.RLock()
+        self._side_stream = None       # the captures' eager runs
+        self._compiles = self._captures = self._hits = self._misses = self._runs = 0
+        self._per_program_compiles: Dict[int, int] = {}
+        self._per_program_replaced: Dict[int, int] = {}
+
+    # counters, under the JAX package's names (the rest: ``cache_info``)
+    @property
+    def compile_count(self) -> int:
+        """Cache entries built (graphs captured and eager entries)."""
+        return self._compiles
+
+    @property
+    def run_count(self) -> int:
+        return self._runs
 
     def _apply_passes(self, program: Program, feed_names: List[str],
                       fetch_names: List[str]) -> Program:
@@ -176,25 +303,24 @@ class Executor:
                                   + key[2:]] = new_prog
         return new_prog
 
-    def _feed_to_tensor(self, block: BlockDesc, name: str, value) -> torch.Tensor:
-        """A feed as a tensor on this executor's device, in its declared
-        dtype (the value's own for undeclared ``@SEQ_LEN`` feeds), with
-        64-bit types narrowed."""
+    def _amp_desc(self, program: Program):
+        """The amp descriptor keyed into the cache and the fingerprint: the
+        policy fingerprint when a dtype pass rewrote the program, else the
+        legacy flag."""
+        return program._amp_policy_fp or bool(program.amp)
+
+    def _feed_tensor(self, block: BlockDesc, name: str, value) -> torch.Tensor:
+        """A feed as a tensor in its declared dtype (the value's own for
+        undeclared ``@SEQ_LEN`` feeds), with 64-bit types narrowed.  A numpy
+        array is coerced on the host; a tensor keeps its device."""
         t = value if isinstance(value, torch.Tensor) \
             else torch.from_numpy(np.ascontiguousarray(value))
         vd = block.find_var(name)
         want = vd.dtype if vd is not None and vd.type == VarType.DENSE_TENSOR \
             else convert_dtype(t.dtype)
-        return t.to(device=self.device, dtype=coerce_feed_dtype(want).torch_dtype)
+        return t.to(dtype=coerce_feed_dtype(want).torch_dtype)
 
-    def run(self, program: Optional[Program] = None, feed: Optional[dict] = None,
-            fetch_list: Optional[Sequence] = None, scope: Optional[Scope] = None,
-            return_numpy: bool = True, sync: bool = True):
-        """Run block 0 once.  ``sync=False`` returns :class:`FetchHandle`\\ s
-        that materialize on first read, so the caller can enqueue the next
-        step meanwhile; otherwise numpy arrays (``return_numpy``; a bf16 value
-        comes back as float32, numpy having no bfloat16) or the
-        device tensors."""
+    def _prepare(self, program, feed, fetch_list, scope):
         program = program or default_main_program()
         feed = feed or {}
         scope = scope or global_scope()
@@ -202,39 +328,295 @@ class Executor:
                        for f in (fetch_list or [])]
         program = self._apply_passes(program, list(feed), fetch_names)
         block = program.desc.block(0)
+        feeds = {k: self._feed_tensor(block, k, v) for k, v in feed.items()}
+        return program, scope, feeds, fetch_names
 
-        env: Dict[str, Any] = {}
-        state_in, state_out = analyze_state(block, feed)
-        for n in state_in:
+    def run(self, program: Optional[Program] = None, feed: Optional[dict] = None,
+            fetch_list: Optional[Sequence] = None, scope: Optional[Scope] = None,
+            return_numpy: bool = True, sync: bool = True):
+        """Run block 0 once through its cache entry.  ``sync=False``
+        returns :class:`FetchHandle`\\ s whose copies to pinned host memory
+        are enqueued behind the step, so the caller can enqueue the next
+        step meanwhile; otherwise numpy arrays (``return_numpy``; a bf16
+        value comes back as float32, numpy having no bfloat16) or device
+        tensors (clones of a graph's outputs)."""
+        program, scope, feeds, fetch_names = self._prepare(program, feed, fetch_list, scope)
+        outs = None
+        with self._lock:
+            self._runs += 1
+            entry, state, warm = self._get_entry(program, feeds, fetch_names, scope)
+            if entry.graph is not None and warm is None:
+                # the outputs' copies are enqueued before another replay can start
+                outs = self._stage(self._replay(entry, feeds), sync, return_numpy, clone=True)
+        if outs is None:
+            # an eager entry, or the eager run that preceded a fresh capture
+            fetches = warm if warm is not None else self._lower(entry, feeds, state, scope)
+            outs = self._stage(fetches, sync, return_numpy, clone=False)
+        return [h.numpy() for h in outs] if sync and return_numpy else outs
+
+    def _run_eager(self, program: Optional[Program] = None, feed: Optional[dict] = None,
+                   fetch_list: Optional[Sequence] = None, scope: Optional[Scope] = None,
+                   return_numpy: bool = True, sync: bool = True):
+        """``run`` with the block lowered op by op, outside the cache: the
+        eager path a graph is measured and checked against."""
+        program, scope, feeds, fetch_names = self._prepare(program, feed, fetch_list, scope)
+        state_in, state_out, blockers, state = self._analyse(program, feeds, scope)
+        entry = _CacheEntry(program, feeds, state_in, state_out, fetch_names, blockers,
+                            eligible=not blockers)
+        outs = self._stage(self._lower(entry, feeds, state, scope), sync, return_numpy,
+                           clone=False)
+        return [h.numpy() for h in outs] if sync and return_numpy else outs
+
+    def _stage(self, fetches, sync: bool, return_numpy: bool, clone: bool):
+        """Device tensors (``sync`` without ``return_numpy``; clones of a
+        graph's buffers), else handles whose copies to pinned host memory
+        are enqueued now."""
+        if sync and not return_numpy:
+            return [t.clone() for t in fetches] if clone else list(fetches)
+        handles = [FetchHandle(t) for t in fetches]
+        prefetch_to_host(handles)
+        return handles
+
+    def precompile(self, program: Optional[Program] = None, feed: Optional[dict] = None,
+                   fetch_list: Optional[Sequence] = None,
+                   scope: Optional[Scope] = None) -> Dict[str, Any]:
+        """Build the cache entry of one (program, feed signature) without
+        running a step: the serving warmup path.  On the card a
+        graph-eligible program is run once eagerly and captured.  ``feed``
+        values may be arrays or ``(shape, dtype)`` specs (zeros).  On the
+        card an eager entry built now is run once, writing no state.  The
+        scope is read, never written.  Returns the JAX package's record:
+        ``fingerprint``, ``kind`` (``graph`` / ``eager``), ``compile_s``
+        (the entry's build: on the card the eager run and the capture),
+        ``aot`` (a graph was captured) and ``reasons`` (why the entry has
+        no graph)."""
+        arrays = {}
+        for k, v in (feed or {}).items():
+            if isinstance(v, tuple) and len(v) == 2 and not hasattr(v, "shape"):
+                shape, dtype = v
+                v = np.zeros(tuple(int(d) for d in shape), dtype=np.dtype(dtype))
+            arrays[k] = v
+        program, scope, feeds, fetch_names = self._prepare(program, arrays, fetch_list, scope)
+        with self._lock:
+            compiles = self._compiles
+            entry, state, _ = self._get_entry(program, feeds, fetch_names, scope)
+            built = self._compiles != compiles
+        if built and entry.graph is None and self.device.type == "cuda":
+            # an eager entry's first run on the card builds the kernel
+            # library and creates cuBLAS's handles: paid here, not by the
+            # first live request
+            t0 = time.perf_counter()
+            self._lower(entry, feeds, state, scope, commit=False)
+            torch.cuda.synchronize(self.device)
+            entry.compile_s += time.perf_counter() - t0
+        return {"fingerprint": entry.fingerprint, "kind": entry.kind,
+                "compile_s": round(entry.compile_s, 6), "aot": entry.graph is not None,
+                "reasons": list(entry.reasons)}
+
+    def cache_info(self) -> Dict[str, Any]:
+        """Cache and pipeline statistics, under the JAX package's keys,
+        and one record per entry (``kind``, ``graph_eligible``, ``reasons``,
+        ``compile_s``, the feeds' shapes and dtypes and the kernel launches
+        a replay makes)."""
+        with self._lock:
+            return {"executables": len(self._cache), "compile_count": self._compiles,
+                    "fresh_compiles": self._compiles, "captures": self._captures,
+                    "hits": self._hits, "misses": self._misses, "runs": self._runs,
+                    "pipeline": COUNTERS.snapshot(),
+                    "entries": [e.info() for e in self._cache.values()]}
+
+    # ------------------------------------------------------------ the cache
+    def _analyse(self, program: Program, feeds: Dict[str, torch.Tensor], scope: Scope):
+        """(state_in, state_out, graph blockers, state values): the block's
+        analysis, once per (program uid, version, feed names), and the
+        values of ``state_in`` in ``scope``."""
+        desc = program.desc
+        akey = (desc.uid, desc.version, tuple(sorted(feeds)))
+        analysis = self._analysis_memo.get(akey)
+        if analysis is None:
+            state_in, state_out = analyze_state(desc.block(0), feeds)
+            analysis = (state_in, state_out, graph_blockers(program, state_out))
+            self._analysis_memo[akey] = analysis
+        state = []
+        for n in analysis[0]:
             v = scope.find_var(n)
             if v is None:
                 raise RuntimeError(
                     f"variable {n!r} used by the program is not initialized "
                     f"in the scope -- run the startup program first")
-            env[n] = v
-        for k, v in feed.items():
-            env[k] = self._feed_to_tensor(block, k, v)
+            state.append(v)
+        return analysis + (state,)
 
-        gen = scope.find_var(RNG_STATE_VAR)
+    def _get_entry(self, program: Program, feeds: Dict[str, torch.Tensor],
+                   fetch_names: List[str], scope: Scope):
+        """(entry, state values, warm): the cache entry of this run, found
+        or built, under ``self._lock``.  ``warm`` is the fetches of the eager
+        run that preceded a capture made now, else None.
+
+        A graph-eligible entry that misses only because a state tensor of
+        the same scope was rebound (its address moved: a training step
+        between two evaluations rebinds every parameter) replaces the entry
+        it differs from instead of being added beside it, so each (program
+        version, feed signature, fetches, scope) keeps at most one graph,
+        and the old graph, its memory pool and the state it captured go."""
+        state_in, state_out, blockers, state = self._analyse(program, feeds, scope)
+        desc = program.desc
+        feed_sig = tuple(sorted((k, tuple(t.shape), t.dtype) for k, t in feeds.items()))
+        shape_sig = tuple(_tensor_sig(n, v, False) for n, v in zip(state_in, state))
+        state_sig = shape_sig if blockers else \
+            tuple(_tensor_sig(n, v, True) for n, v in zip(state_in, state))
+        rest = (self._amp_desc(program), self._passes_fp, program._kernel_policy_fp,
+                _matmul_flags())
+        key = (desc.uid, desc.version, feed_sig, tuple(fetch_names), state_sig) + rest
+        entry = self._cache.get(key)
+        if entry is not None:
+            self._hits += 1
+            COUNTERS.inc("cache_hits")
+            return entry, state, None
+        self._misses += 1
+        COUNTERS.inc("cache_misses")
+        replaced = None
+        if not blockers:
+            shape_key = (desc.uid, desc.version, feed_sig, tuple(fetch_names), shape_sig,
+                         id(scope)) + rest
+            replaced = self._by_shape.get(shape_key)
+            # dropped before the capture, so the old graph's memory is free for it
+            self._cache.pop(replaced, None)
+            self._by_shape[shape_key] = key
+
+        t0 = time.perf_counter()
+        on_card = self.device.type == "cuda"
+        reasons = blockers if blockers or on_card else ["the CPU runs the block op by op"]
+        entry = _CacheEntry(program, feeds, state_in, state_out, fetch_names, reasons,
+                            eligible=not blockers)
+        entry.fingerprint = executable_fingerprint(
+            desc.fingerprint(), feed_sig, shape_sig, fetch_names, *rest[:3],
+            torch.cuda.get_device_name(self.device) if on_card else "cpu",
+            dict(_matmul_flags()))
+        warm = None
+        if on_card and not blockers:
+            warm = self._capture(entry, feeds, state)
+            self._captures += 1
+        entry.compile_s = time.perf_counter() - t0
+        self._cache[key] = entry
+        self._compiles += 1
+        COUNTERS.inc("compiles")
+        # each warning at most once per program
+        if replaced is not None:
+            n = self._per_program_replaced.get(desc.uid, 0) + 1
+            self._per_program_replaced[desc.uid] = n
+            if n == RECOMPILE_WARN_THRESHOLD and on_card:
+                warnings.warn(
+                    f"this program's graph has been captured again {n} times "
+                    f"because a scope variable it reads was rebound to a new "
+                    f"tensor (a training step rebinds every parameter); each "
+                    f"capture replaces the last.  Update state in place "
+                    f"(copy_) to keep the graph.", stacklevel=4)
+            return entry, state, warm
+        n = self._per_program_compiles.get(desc.uid, 0) + 1
+        self._per_program_compiles[desc.uid] = n
+        if n == RECOMPILE_WARN_THRESHOLD:
+            warnings.warn(
+                f"this program has built {n} distinct cache entries "
+                f"(Executor.compile_count={self._compiles}), usually one per "
+                f"feed shape; on the card each is a CUDA graph with memory of "
+                f"its own.  Bucket the batch and sequence shapes.", stacklevel=4)
+        return entry, state, warm
+
+    def _lower(self, entry: _CacheEntry, feeds: Dict[str, torch.Tensor], state: list,
+               scope: Scope, commit: bool = True) -> List[torch.Tensor]:
+        """Lower the block op by op; written state goes back to the scope.
+        Returns the fetched tensors.  ``commit=False`` writes nothing to the
+        scope: random ops draw from a generator of their own."""
+        env: Dict[str, Any] = dict(zip(entry.state_in, state))
+        cuda = self.device.type == "cuda"
+        for k, t in feeds.items():
+            env[k] = t.to(self.device, non_blocking=cuda)
+        gen = scope.find_var(RNG_STATE_VAR) if commit else None
         if gen is None:
             gen = torch.Generator(device=self.device)
-            gen.manual_seed(program.random_seed or 0)
-            scope.set_var(RNG_STATE_VAR, gen)
-
-        ctx = LowerCtx(block, env, gen, self.device)
+            gen.manual_seed(entry.program.random_seed or 0)
+            if commit:
+                scope.set_var(RNG_STATE_VAR, gen)
+        ctx = LowerCtx(entry.block, env, gen, self.device)
         with torch.no_grad():
-            lower_block(ctx, block)
-        for n in state_out:
-            if n in env:
-                scope.update_var(n, env[n])
-        fetches = [ctx.read(n) for n in fetch_names]
+            lower_block(ctx, entry.block)
+        if commit:
+            for n in entry.state_out:
+                if n in env:
+                    scope.update_var(n, env[n])
+        return [ctx.read(n) for n in entry.fetch_names]
 
-        if not sync:
-            event = None
-            if self.device.type == "cuda":
-                event = torch.cuda.Event()
-                event.record(torch.cuda.current_stream(self.device))
-            return [FetchHandle(v, event) for v in fetches]
-        if return_numpy:
-            return [to_numpy(v) for v in fetches]
-        return fetches
+    def _capture(self, entry: _CacheEntry, feeds: Dict[str, torch.Tensor],
+                 state: list) -> List[torch.Tensor]:
+        """Capture block 0's whole lowering as one CUDA graph into
+        ``entry``, reading static feed buffers that hold this run's feeds.
+        The block first runs once eagerly on a side stream (that builds the
+        kernel library, sets the kernels' attributes and creates cuBLAS's
+        handles and workspaces); its fetches are returned.  The capture
+        launches nothing, so the kernel launch counters it moved are set
+        back and recorded in ``entry.launches`` for each replay to add.  A
+        capture that fails raises."""
+        from ..ops.cuda.build import launch_counters
+        dev = self.device
+        with torch.cuda.device(dev):
+            cur = torch.cuda.current_stream(dev)
+            static = {k: torch.empty(t.shape, dtype=t.dtype, device=dev)
+                      for k, t in feeds.items()}
+            for k, t in feeds.items():
+                static[k].copy_(t, non_blocking=True)
+            if self._side_stream is None:
+                # one side stream an executor: cuBLAS keeps a workspace for
+                # each stream it has run on
+                self._side_stream = torch.cuda.Stream(dev)
+            side = self._side_stream
+            side.wait_stream(cur)
+            with torch.cuda.stream(side), torch.no_grad():
+                env = dict(zip(entry.state_in, state))
+                env.update(static)
+                ctx = LowerCtx(entry.block, env, None, dev)
+                lower_block(ctx, entry.block)
+                warm = [ctx.read(n) for n in entry.fetch_names]
+            cur.wait_stream(side)
+            for t in warm:
+                t.record_stream(cur)
+
+            counters = launch_counters()
+            before = [getattr(w, a) for w, a in counters]
+            default_gen = torch.cuda.default_generators[dev.index]
+            gen_state = default_gen.clone_state()
+            graph = torch.cuda.CUDAGraph()
+            env = dict(zip(entry.state_in, state))
+            env.update(static)
+            ctx = LowerCtx(entry.block, env, None, dev)
+            try:
+                with torch.no_grad(), torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                    lower_block(ctx, entry.block)
+            except Exception as e:
+                # a capture that fails to end leaves torch's capture stream
+                # current and the default generator in capture mode
+                torch.cuda.set_stream(cur)
+                default_gen.graphsafe_set_state(gen_state)
+                raise RuntimeError(
+                    f"capturing block 0 of program {entry.program.desc.uid} as a CUDA "
+                    f"graph failed: {e}") from e
+            finally:
+                moved = [getattr(w, a) - b for (w, a), b in zip(counters, before)]
+                for (w, a), n in zip(counters, moved):
+                    setattr(w, a, getattr(w, a) - n)
+        entry.graph, entry.static_feeds, entry.state = graph, static, list(state)
+        entry.outputs = [ctx.read(n) for n in entry.fetch_names]
+        entry.launches = {c: n for c, n in zip(counters, moved) if n}
+        return warm
+
+    def _replay(self, entry: _CacheEntry, feeds: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+        """Copy the feeds into the entry's static buffers and replay its
+        graph on the current stream; returns the graph's own output
+        tensors, which the next replay overwrites."""
+        with torch.cuda.device(self.device):
+            for k, t in feeds.items():
+                entry.static_feeds[k].copy_(t, non_blocking=True)
+            entry.graph.replay()
+        for (w, a), n in entry.launches.items():
+            setattr(w, a, getattr(w, a) + n)
+        return entry.outputs

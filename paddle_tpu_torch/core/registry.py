@@ -12,6 +12,11 @@ the JAX package does, so both packages build identical ProgramDescs.
 ``group_key(op)`` is equal for ops that one such call may take.
 ``core/lower.py`` schedules the groups.
 
+``draws`` marks a lowering that draws from the executor's generator
+(``True``, or ``draws(op)`` for an op that draws only under some attrs):
+the executor captures no CUDA graph of a program with such an op
+(:func:`op_draws`).
+
 ``grad_maker(op, block, no_grad_set)`` emits the grad OpDescs that
 ``append_backward`` appends.  Without one, :func:`default_grad_maker`
 emits a single ``<type>_grad`` op whose lowering is derived from the
@@ -43,6 +48,8 @@ class OpInfo:
     # (ctx, ops) -> None over ops whose group_key(op) are equal
     group_lower: Optional[Callable[..., None]] = None
     group_key: Optional[Callable[[OpDesc], Any]] = None
+    # True, or draws(op): the lowering draws from the executor's generator
+    draws: Any = False
 
 
 class OpInfoMap:
@@ -67,15 +74,29 @@ OPS = OpInfoMap()
 
 
 def register_lowering(op_type: str, *, no_gradient: bool = False,
-                      non_diff_inputs: tuple = ()):
+                      non_diff_inputs: tuple = (), draws=False):
     def deco(fn: LowerFn):
         info = OPS.get_or_create(op_type)
         info.lower = fn
         info.no_gradient = info.no_gradient or no_gradient
         info.non_diff_inputs = non_diff_inputs or info.non_diff_inputs
+        info.draws = draws
         return fn
 
     return deco
+
+
+def op_draws(op: OpDesc) -> bool:
+    """Whether ``op``'s lowering draws from the executor's generator; a
+    ``<type>_grad`` op lowered generically re-runs its forward's lowering
+    and draws where the forward does."""
+    info = OPS.get(op.type) if OPS.has(op.type) else None
+    if (info is None or info.lower is None) and op.type.endswith("_grad"):
+        fwd = op.type[: -len("_grad")]
+        info = OPS.get(fwd) if OPS.has(fwd) else None
+    if info is None:
+        return False
+    return bool(info.draws(op) if callable(info.draws) else info.draws)
 
 
 def register_group_lowering(*op_types: str, key: Callable[[OpDesc], Any]):

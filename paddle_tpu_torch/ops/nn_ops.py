@@ -42,11 +42,15 @@ def _layer_norm_shape(block, op):
     set_out_shape(block, op, "Variance", xs[:begin])
 
 
-@register_lowering("dropout")
+def _dropout_draws(op) -> bool:
+    return not op.attr("is_test", False) and op.attr("dropout_prob", 0.5) != 0.0
+
+
+@register_lowering("dropout", draws=_dropout_draws)
 def _dropout(ctx, op):
     x = ctx.read_slot(op, "X")
     prob = op.attr("dropout_prob", 0.5)
-    if op.attr("is_test", False) or prob == 0.0:
+    if not _dropout_draws(op):
         ctx.write_slot(op, "Out", x)
         ctx.write_slot(op, "Mask", torch.ones_like(x))
         return

@@ -11,7 +11,7 @@ from ..core.registry import register_infer_shape, register_lowering
 from .common import set_out_shape
 
 
-@register_lowering("uniform_random", no_gradient=True)
+@register_lowering("uniform_random", no_gradient=True, draws=True)
 def _uniform_random(ctx, op):
     shape = tuple(op.attr("shape", ()))
     dtype = convert_dtype(op.attr("dtype", "float32"))

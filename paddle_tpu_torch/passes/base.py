@@ -17,7 +17,7 @@ Not ported yet:
 * the analysis verifier that the JAX pipeline runs before and after every
   pass (``verify="error"``/``"warn"``): here those modes raise
   ``NotImplementedError`` and the pipelines the port builds use
-  ``verify="off"`` (ROADMAP.md, item 10);
+  ``verify="off"`` (ROADMAP.md, queue A item 7);
 * the four seed passes of ``default_pipeline`` (``fuse-fc-softmax-ce``,
   ``bn-fold``, ``dead-op-elim``, ``donation-insert``), so
   ``make_pipeline(True)`` raises;
@@ -41,7 +41,7 @@ __all__ = [
 ]
 
 _VERIFIER_MISSING = (
-    "the analysis verifier is not ported yet (ROADMAP.md, queue A item 10: "
+    "the analysis verifier is not ported yet (ROADMAP.md, queue A item 7: "
     "analysis and passes); build the pipeline with verify='off'")
 
 _SEED_PASSES = ("fuse-fc-softmax-ce", "bn-fold", "dead-op-elim",
@@ -156,7 +156,7 @@ def _resolve(p) -> ProgramPass:
     if isinstance(p, str):
         if p in _SEED_PASSES:
             raise NotImplementedError(
-                f"pass {p!r} is not ported yet (ROADMAP.md, queue A item 10)")
+                f"pass {p!r} is not ported yet (ROADMAP.md, queue A item 7)")
         if p not in PASSES:
             raise KeyError(f"unknown pass {p!r}; registered: {sorted(PASSES)}")
         return PASSES[p]()
@@ -269,7 +269,7 @@ def default_pipeline(verify: str = "error") -> PassPipeline:
     """The JAX package's seed pipeline; its passes are not ported yet."""
     raise NotImplementedError(
         f"the seed passes {list(_SEED_PASSES)} are not ported yet "
-        f"(ROADMAP.md, queue A item 10); name the passes to run instead")
+        f"(ROADMAP.md, queue A item 7); name the passes to run instead")
 
 
 def make_pipeline(spec) -> Optional[PassPipeline]:

@@ -2,7 +2,9 @@
 
 Wraps an :class:`~paddle_tpu_torch.trainer.Inferencer` with the
 :class:`~paddle_tpu_torch.serving.engine.BatchingEngine`: at load time it
-runs one zero batch per bucket, at request time callers from any number of
+builds the executor's cache entry of every bucket (on the card, one CUDA
+graph each; ``warmup_report`` holds one record per bucket) before the
+engine's thread starts, at request time callers from any number of
 threads share one dispatcher and one device queue, and at shutdown
 in-flight batches drain before the session closes.
 """
@@ -22,8 +24,9 @@ class ServingSession:
     pipeline.  Wrap an ``Inferencer`` (``inferencer=``) or build one
     (``infer_func=``).  ``infer`` is thread-safe and returns only the
     calling request's rows.  A model with dynamic non-batch feed dims
-    (a ragged model) cannot be warmed from its declarations: pass
-    ``warmup=False`` and call ``inferencer.warmup(buckets, feed_specs)``.
+    (a ragged model) cannot be warmed from its declarations: call
+    ``inferencer.warmup(buckets, feed_specs)`` first and pass
+    ``warmup=False``.
     ``passes=``, ``amp=`` and ``kernels=`` go to the ``Inferencer`` it
     builds: ``amp=AmpConfig(bf16=False, quant=True), kernels=True`` serves
     in int8."""

@@ -59,15 +59,20 @@ class Inferencer:
 
     def warmup(self, batch_sizes: Sequence[int] = (1,),
                feed_specs: Optional[dict] = None) -> List[dict]:
-        """Run one zero batch at each batch size, so the first live request
-        at that size pays no one-time cost (kernel library build and load,
-        cuBLAS handles and workspaces, allocator growth).
+        """Build the executor's cache entry at each batch size
+        (``Executor.precompile`` on zero feeds from the specs): on the card
+        the inference program is run once and captured as a CUDA graph (a
+        program that gets no graph is run once, writing no state), so a
+        live request at that size pays no one-time cost (kernel library
+        build and load, cuBLAS handles and workspaces, the capture).
 
         ``feed_specs`` maps feed name -> ``(row_shape, dtype)`` (shape
         WITHOUT the batch dim), overriding what the program's data vars
         declare -- required for ragged models, whose non-batch dims are
         dynamic (include their ``@SEQ_LEN`` channels too).  Returns one
-        record per batch size."""
+        record per batch size: ``precompile``'s (``fingerprint``, ``kind``,
+        ``compile_s``, ``aot``, ``reasons``) with ``batch_size`` and
+        ``seconds`` (the whole call's)."""
         specs: dict = {}
         for v in self._feed_vars():
             specs[v.name] = (tuple(v.shape)[1:], v.dtype.np_dtype)
@@ -83,13 +88,14 @@ class Inferencer:
                     f"@SEQ_LEN channels)")
         report = []
         for bs in batch_sizes:
-            feed = {n: np.zeros((int(bs),) + tuple(int(d) for d in s), dtype=d)
+            feed = {n: ((int(bs),) + tuple(int(d) for d in s), d)
                     for n, (s, d) in specs.items()}
             t0 = time.perf_counter()
-            for h in self.infer(feed, sync=False):
-                h.numpy()
-            report.append({"batch_size": int(bs),
-                           "seconds": time.perf_counter() - t0})
+            info = self.exe.precompile(self.inference_program, feed=feed,
+                                       fetch_list=list(self.predict_vars),
+                                       scope=self.scope)
+            info.update(batch_size=int(bs), seconds=time.perf_counter() - t0)
+            report.append(info)
         return report
 
     def infer(self, inputs: dict, return_numpy: bool = True, sync: bool = True):

@@ -955,3 +955,269 @@ def test_small_sgd_training_step_on_card_launches_fused_sgd(cuda):
     for n in persist:
         np.testing.assert_allclose(scope.find_var(n).cpu().numpy(), cpu_scope.find_var(n).numpy(),
                                    atol=1e-6, rtol=1e-5, err_msg=n)
+
+
+# ------------------------------------------------ the executable cache's graphs
+
+SMALL_SPECS = {"src": ((32, 1), "int64"), "trg": ((32, 1), "int64"),
+               "src@SEQ_LEN": ((), "int32"), "trg@SEQ_LEN": ((), "int32")}
+INT8_AMP = pt.amp.AmpConfig(bf16=False, quant=True)
+
+
+def _small_feed(rs, rows):
+    feed = {}
+    for name in ("src", "trg"):
+        feed[name] = rs.randint(1, 1000, (rows, 32, 1))
+        feed[name + "@SEQ_LEN"] = rs.randint(1, 33, rows).astype(np.int32)
+    return feed
+
+
+def _warm(amp=None, buckets=(1, 2)):
+    """A 2+2-layer Inferencer on the card with a graph captured at each
+    bucket."""
+    inf = pt.Inferencer(_infer_func, amp=amp)
+    report = inf.warmup(buckets, feed_specs=SMALL_SPECS)
+    assert [(r["batch_size"], r["kind"], r["aot"]) for r in report] == \
+        [(b, "graph", True) for b in buckets]
+    return inf
+
+
+def _captures(exe):
+    return exe.cache_info()["captures"]
+
+
+def _eager(inf, feed, **kw):
+    return inf.exe._run_eager(inf.inference_program, feed=feed, fetch_list=inf.predict_vars,
+                              scope=inf.scope, **kw)
+
+
+@pytest.mark.parametrize("amp", [None, INT8_AMP], ids=["float32", "int8"])
+def test_graph_replay_matches_the_eager_run_of_the_same_batch(cuda, amp):
+    inf = _warm(amp)
+    rs = np.random.RandomState(1)
+    feed, other = _small_feed(rs, 2), _small_feed(rs, 2)
+    (got,) = inf.infer(feed)
+    (want,) = _eager(inf, feed)
+    print(f"replay vs eager, max abs diff {float(np.abs(got - want).max()):.3e} "
+          f"(bit-equal: {np.array_equal(got, want)})")
+    np.testing.assert_array_equal(got, want)
+    # the control: the replay of another batch (the static feed buffers hold
+    # each run's feeds) is far outside the gate
+    (got_other,) = inf.infer(other)
+    assert np.abs(got_other - want).max() > 1e-2
+    info = inf.exe.cache_info()
+    assert info["captures"] == 2 and info["hits"] == 2
+    assert all(e["kind"] == "graph" for e in info["entries"] if e["graph_eligible"])
+
+
+def test_sync_false_handles_keep_their_values_across_replays(cuda):
+    """Two batches at one bucket with sync=False, then the first read: it
+    holds its own values, though the second replay has overwritten the
+    graph's output buffer (the control)."""
+    inf = _warm()
+    rs = np.random.RandomState(2)
+    a, b = _small_feed(rs, 2), _small_feed(rs, 2)
+    (ha,) = inf.infer(a, sync=False)
+    (hb,) = inf.infer(b, sync=False)
+    got_a, got_b = ha.numpy(), hb.numpy()
+    np.testing.assert_array_equal(got_a, _eager(inf, a)[0])
+    np.testing.assert_array_equal(got_b, _eager(inf, b)[0])
+    (entry,) = [e for e in inf.exe._cache.values() if e.feeds.get("src", [None])[0] == (2, 32, 1)]
+    buffer = entry.outputs[0].cpu().numpy()
+    assert np.array_equal(buffer, got_b) and not np.array_equal(buffer, got_a)
+    # return_numpy=False: clones, never the graph's own buffer
+    (t,) = inf.infer(a, return_numpy=False)
+    assert t.is_cuda and t.data_ptr() != entry.outputs[0].data_ptr()
+    np.testing.assert_array_equal(t.cpu().numpy(), got_a)
+
+
+def test_rebound_parameter_is_captured_again_and_in_place_update_is_read(cuda):
+    inf = _warm(buckets=(2,))
+    feed = _small_feed(np.random.RandomState(3), 2)
+    (before,) = inf.infer(feed)
+    name = next(n for n, v in inf.inference_program.global_block.vars.items()
+                if v.persistable and "fc" in n and n.endswith(".w_0"))
+    w = inf.scope.find_var(name)
+    captures = _captures(inf.exe)
+    executables = inf.exe.cache_info()["executables"]
+    w.mul_(1.5)                                   # in place: the same address, a hit
+    (in_place,) = inf.infer(feed)
+    assert _captures(inf.exe) == captures
+    assert not np.array_equal(in_place, before)
+    np.testing.assert_array_equal(in_place, _eager(inf, feed)[0])
+    inf.scope.set_var(name, w / 1.5)              # a new tensor: a miss and a capture
+    (rebound,) = inf.infer(feed)
+    assert _captures(inf.exe) == captures + 1
+    # the new graph replaced the one captured over the old tensor
+    assert inf.exe.cache_info()["executables"] == executables
+    np.testing.assert_allclose(rebound, before, atol=LOGIT_ATOL, rtol=0)
+    (again,) = inf.infer(feed)                    # the new graph replays
+    np.testing.assert_array_equal(again, _eager(inf, feed)[0])
+
+
+def test_replay_launches_equal_the_eager_run(cuda):
+    """int8: a replay adds to every kernel counter what an eager run of the
+    batch adds; the capture itself (which launches nothing) adds nothing,
+    so warming a bucket adds one eager run's launches (the control: two
+    would mean the capture was counted)."""
+    counters = (int8_matmul, abs_max_pair, quantize_int8, flash_attn_fwd, gather_rows)
+    read = lambda: [f.launches for f in counters]      # noqa: E731
+    inf = pt.Inferencer(_infer_func, amp=INT8_AMP)
+    feed = _small_feed(np.random.RandomState(4), 2)
+    c0 = read()
+    _eager(inf, feed)
+    c1 = read()
+    eager = [b - a for a, b in zip(c0, c1)]
+    assert eager == [33, 33, 66, 6, 4]
+    inf.warmup((2,), feed_specs=SMALL_SPECS)
+    c2 = read()
+    assert [b - a for a, b in zip(c1, c2)] == eager
+    inf.infer(feed)
+    c3 = read()
+    assert [b - a for a, b in zip(c2, c3)] == eager
+    (entry,) = inf.exe.cache_info()["entries"][1:]
+    assert entry["launches"]["int8_matmul.launches"] == 33
+
+
+def test_fetches_come_from_pinned_memory(cuda):
+    inf = _warm(buckets=(1,))
+    feed = _small_feed(np.random.RandomState(5), 1)
+    (h,) = inf.infer(feed, sync=False)
+    assert not h.value.is_cuda and h.value.is_pinned()
+    a = h.numpy()
+    assert a.ctypes.data == h.value.data_ptr()          # the array is the pinned buffer
+    # the control: a fetch on the CPU place is not pinned
+    cpu = pt.Inferencer(_infer_func, place=pt.CPUPlace())
+    (hc,) = cpu.infer(feed, sync=False)
+    assert not hc.value.is_pinned()
+
+
+def test_kept_fetches_pin_no_more_than_the_limit(cuda, monkeypatch):
+    """A caller that keeps every answer: arrays over pinned buffers are
+    handed out until the limit (two 2-row blocks here), later reads are
+    copied out to pageable memory, and the pinned bytes held go back as
+    the arrays go.  The control: the first reads are pinned."""
+    import gc
+    from paddle_tpu_torch.core import staging
+    inf = _warm(buckets=(2,))
+    feed = _small_feed(np.random.RandomState(8), 2)
+    (probe,) = inf.infer(feed, sync=False)
+    block = staging._block_bytes(probe.value)
+    del probe
+    gc.collect()
+    base = staging.PINNED_HANDOUT.snapshot()
+    monkeypatch.setattr(staging, "PINNED_HANDOUT_LIMIT", base["bytes"] + 2 * block)
+    handles = [inf.infer(feed, sync=False)[0] for _ in range(5)]
+    kept = [h.numpy() for h in handles]
+    pinned = [h.value.is_pinned() for h in handles]
+    assert pinned == [True, True, False, False, False]
+    assert all(a.ctypes.data == h.value.data_ptr() for a, h in zip(kept, handles))
+    now = staging.PINNED_HANDOUT.snapshot()
+    assert now["bytes"] - base["bytes"] == 2 * block and now["copies"] - base["copies"] == 3
+    for a in kept[1:]:
+        np.testing.assert_array_equal(a, kept[0])
+    del kept, handles
+    assert staging.PINNED_HANDOUT.snapshot()["bytes"] == base["bytes"]
+
+
+def test_evaluating_between_training_steps_keeps_memory_flat(cuda):
+    """An Adam step (K6 carves every parameter anew) and then a
+    forward-only clone on the same scope, six times: each evaluation is
+    captured again (the control: one capture a step) and replaces the last
+    graph, so the cache's size and the card's allocated memory stay flat,
+    and the evaluation reads the step's parameters."""
+    import gc
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        x = layers.data(name="x", shape=[64])
+        loss = pt.layers.mean(pt.layers.fc(input=pt.layers.fc(input=x, size=96), size=8))
+        test = main.clone()
+        pt.optimizer.Adam(learning_rate=1e-2).minimize(loss)
+    scope, exe = pt.Scope(), pt.Executor()
+    exe.run(startup, scope=scope)
+    feed = {"x": np.random.RandomState(9).randn(16, 64).astype(np.float32)}
+    sizes, mem, caps = [], [], []
+    for _ in range(6):
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        (ev,) = exe.run(test, feed=feed, fetch_list=[loss.name], scope=scope)
+        gc.collect()
+        torch.cuda.synchronize()
+        sizes.append(exe.cache_info()["executables"])
+        mem.append(torch.cuda.memory_allocated())
+        caps.append(_captures(exe))
+    print(f"executables {sizes}, captures {caps}, allocated bytes {mem}")
+    assert sizes == [3] * 6
+    assert [b - a for a, b in zip(caps, caps[1:])] == [1] * 5
+    assert mem[5] == mem[1]
+    (want,) = exe._run_eager(test, feed, [loss.name], scope)
+    np.testing.assert_array_equal(ev, want)
+
+
+def test_precompile_runs_an_eager_entry_once_writing_no_state(cuda):
+    """An entry that gets no graph (dropout draws) is run once on the card
+    by ``precompile`` -- the kernel library and cuBLAS are set up then, not
+    by the first live request -- and the scope, its generator included, is
+    left as it was.  The control: a second precompile hits and runs
+    nothing."""
+    from paddle_tpu_torch.core.executor import RNG_STATE_VAR
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        ids = layers.data(name="ids", shape=[1], dtype="int64")
+        emb = layers.embedding(ids, size=[1000, 64])
+        out = layers.dropout(emb, dropout_prob=0.5, is_test=False)
+    scope, exe = pt.Scope(), pt.Executor()
+    exe.run(startup, scope=scope)
+    names = sorted(scope._vars)
+    before = {n: v.clone() for n, v in scope._vars.items() if isinstance(v, torch.Tensor)}
+    rng = scope.find_var(RNG_STATE_VAR).get_state()
+    spec = {"ids": ((4, 1), "int64")}
+    launches = gather_rows.launches
+    rec = exe.precompile(main, feed=spec, fetch_list=[out], scope=scope)
+    assert rec["kind"] == "eager" and "draws random numbers (dropout)" in rec["reasons"]
+    assert gather_rows.launches == launches + 1
+    assert sorted(scope._vars) == names
+    assert torch.equal(scope.find_var(RNG_STATE_VAR).get_state(), rng)
+    for n, v in before.items():
+        assert torch.equal(scope.find_var(n), v), n
+    exe.precompile(main, feed=spec, fetch_list=[out], scope=scope)
+    assert gather_rows.launches == launches + 1
+
+
+def test_failed_capture_raises_and_caches_nothing(cuda):
+    """A lowering that reads a device value on the host (``.item()``) runs
+    eagerly but cannot be captured: the run raises, no entry is cached and
+    nothing runs eagerly instead.  The control: without the host read the
+    same program is captured."""
+    from paddle_tpu_torch.core.registry import OPS, register_lowering
+    op_type = "_test_host_read"
+
+    @register_lowering(op_type)
+    def _lower(ctx, op):
+        x = ctx.read_slot(op, "X")
+        ctx.write_slot(op, "Out", x + (x.sum().item() if op.attr("host_read") else 0.0))
+
+    try:
+        for host_read in (False, True):
+            main, startup = pt.Program(), pt.Program()
+            with pt.program_guard(main, startup):
+                x = layers.data(name="x", shape=[4])
+                out = main.global_block.create_var(name="out", shape=(-1, 4))
+                main.global_block.append_op(op_type, inputs={"X": [x]}, outputs={"Out": [out]},
+                                            attrs={"host_read": host_read})
+            exe = pt.Executor()
+            feed = {"x": np.ones((2, 4), np.float32)}
+            if not host_read:
+                np.testing.assert_array_equal(exe.run(main, feed=feed, fetch_list=[out])[0],
+                                              feed["x"])
+                assert exe.cache_info()["entries"][0]["kind"] == "graph"
+                continue
+            stream = torch.cuda.current_stream()
+            with pytest.raises(RuntimeError, match="capturing block 0"):
+                exe.run(main, feed=feed, fetch_list=[out])
+            assert exe.cache_info()["executables"] == 0
+            # the process goes on: its stream and the default generator are as before
+            assert torch.cuda.current_stream() == stream
+            assert torch.randn(4, device=cuda).isfinite().all()
+        torch.cuda.synchronize()
+    finally:
+        del OPS._map[op_type]
