@@ -41,19 +41,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ids, and the step's position ids); K6 (multi-tensor) over the training
    step's 186 parameter shapes in one launch, each entry in the expression
    of its op type (``adam`` or ``pallas_adam``, as the kernel pass types
-   it), bit-equal to its plain version, with a control (one entry's
-   expression flag flipped changes its Moment2Out), beside
+   it), in place (p, m1 and m2 updated where they lie, the beta powers
+   into fresh scalars), bit-equal to its plain version, with a control
+   (one entry's expression flag flipped changes its Moment2Out), beside
    ``torch.optim.Adam(fused=True)`` over the same shapes in one call (its
-   device operations by name and count) and the step's bound;
+   device operations by name and count) and the step's bound; K6's times
+   are those of the in-place call on clones of the inputs;
 7. transformer-base training (``train_network(fuse_final_ce=True)`` +
    ``Adam(1e-3)``, random weights from seed 0, batch 64 x 256 with ragged
-   lengths): one warm-up and three timed steps on one batch, every loss
-   finite and falling, every parameter changed by step 1, and each
-   kernel's launches per step as the design gives them (K6 once a step
-   over all 186 parameters); then whether a
-   step taken again from the same state and feed gives bit-equal
-   parameters (the first that differs is named);
-8. one training step profiled with ``torch.profiler``;
+   lengths), each step one CUDA graph replay: the graph captured by
+   ``Executor.precompile`` (kind ``graph``, the scope left bit-equal),
+   then one warm-up and three timed steps on one batch, every loss
+   finite and falling, every parameter changed by step 1, no capture over
+   the steps, the allocated memory equal after steps 2 and 4, every state
+   tensor at its address, and each kernel's launches per step as the
+   design gives them (K6 once a step over all 186 parameters); then a
+   step taken again from the same state (copied in place) and feed must
+   give bit-equal parameters (the first that differs is named);
+8. one training step (a replay) profiled with ``torch.profiler``, its
+   device launches gated by kernel family (K1 36, K2 4, K3 8 kernels, K7
+   2, K8 32, K6 1); then phase 17;
 9. one step at batch 2 x 256 from the same weights, held against the port
    on the CPU in float64: the card (TF32 off) and the CPU in float32 within
    the stated gates on the loss and three gradients, and the card with TF32
@@ -67,7 +74,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
     batch; host microseconds a call at (512, 512); fused SGD (K5) on the
     word table and a vector, bit-equal, beside ``torch.optim.SGD(fused=
     True)``, and K5 over the training step's 186 parameter shapes in one
-    launch, bit-equal, beside that call over the same shapes;
+    launch, in place, bit-equal, beside that call over the same shapes
+    (K5's times those of the in-place call on clones of p);
 11. int8 serving: ``Inferencer(amp=AmpConfig(bf16=False, quant=True),
     kernels=True)`` with the float32 weights, every bucket captured at
     warmup, served by ``ServingSession(max_batch_size=8)`` to 4 client
@@ -82,9 +90,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
     at K4 97, quantizers 291, K1 18 and K2 4, with at most 6 device
     operations a product; then phase 16 for int8;
 12. transformer-base training with ``SGD`` through ``Executor(kernels=
-    True)``: two steps at 64 x 256, loss finite, every parameter changed,
-    K5 launched once a step and K7/K8/K3 as in phase 7; a profile of
-    one step;
+    True)``, one graph replay a step as in phase 7: three steps at 64 x
+    256, loss finite, every parameter changed, K5 launched once a step and
+    K7/K8/K3 as in phase 7; a profile of one step gated as phase 8's (K5
+    in place of K6); then phase 17;
 13. the bf16 instances of K1, K3 and K7 at the bf16 step's shapes, each
     against its plain version on the card (K3: bit-equal to it run on the
     CPU, and twice bit-equal) and against float64 over the same
@@ -97,13 +106,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
     same shape;
 14. bf16 AMP training: ``amp.enable_amp`` on the Adam program, run by
     ``Executor(CUDAPlace(0))`` (kernel tier, then the amp-bf16 bridge), at
-    full width and 64 x 256: four steps, losses finite and falling, the
-    launches a step (K1 36 in bf16, K2 4, K3 4 in bf16, K6 1, K7 1 in
-    bf16, K8 1 in float32); one step's gradients against the float32 step
-    from the same state within a norm-relative gate, which the program
-    with the reference pass's stale casts (the control) fails on the
-    layer_norm parameters behind a gradient merge; the same step through
-    ``Executor(amp=AmpConfig())``; tokens/s and a profile;
+    full width and 64 x 256: one step's gradients against the float32
+    step from the same state within a norm-relative gate (these runs op by
+    op), which the program with the reference pass's stale casts (the
+    control) fails on the layer_norm parameters behind a gradient merge;
+    the same step through ``Executor(amp=AmpConfig())``; then the bf16
+    step's graph captured by ``precompile`` and four steps, one replay
+    each, losses finite and falling, no capture, memory flat from step 2,
+    the launches a step (K1 36 in bf16, K2 4, K3 4 in bf16, K6 1, K7 1 in
+    bf16, K8 1 in float32); tokens/s and a profile gated as phase 8's;
+    then phase 17;
 15. a ``{"kernels": [...]}`` line with each kernel's launches on its path,
     error against its plain version, times, and bound; K4's entry lists
     its quantize kernels under ``quantizers``, K7's and K8's both of their
@@ -124,7 +136,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
     and eagerly, with the pinned allocations of the graphs' run; and a
     client that keeps all 64 answers: the pinned bytes its arrays hold
     (at most ``PINNED_HANDOUT_LIMIT``, given back when they are dropped)
-    and the host allocator's.
+    and the host allocator's;
+17. (inside phases 7, 12 and 14, before each drops its executor) the
+    training step through its graph against the same step op by op
+    (``Executor._run_eager``) from the same state and feed, the loss and
+    every state tensor bit-equal; the capture's seconds,
+    ``CUDAGraph.replay``'s host microseconds, the wall a step and tokens/s
+    through the graph and eagerly in alternating turns, the peak device
+    memory of a step each way, and a profile of each (device idle share;
+    both gated as phase 8) (``{"training_graph_float32_Adam": ...}``,
+    ``..._float32_SGD``, ``..._bf16_Adam``).
 
 Phase 9 also takes the 2 x 256 step in bf16 (``enable_amp``) with cuBLAS's
 reduced-precision bf16 reductions allowed (PyTorch's default) and not, and
@@ -239,13 +260,22 @@ BF16_WITNESS_FACTOR = 2.0
 BF16_WITNESS_FLOOR = 1e-3
 
 
+# the primer's kernels (``torch.cuda._sleep``), left out of every profile
+PRIMER = "spin_kernel"
+
+
 def _profiler_started(torch):
     """Called first inside a ``torch.profiler.profile`` block: the card's
     activity tracing starts a few milliseconds after the block is entered
     (kernels launched at once were seen missing from the trace), so wait
-    for it before the measured work."""
+    for it before the measured work; then a primer of a few short spin
+    kernels, which the profiles leave out: a window was seen to lose its
+    first records (a replayed step's first 4 feed copies and gather)."""
     torch.cuda.synchronize()
     time.sleep(0.2)
+    for _ in range(8):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
 
 
 def _ms(fn, iters):
@@ -483,16 +513,19 @@ def _profile(torch, run, label, card, extra):
         run()
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev = [(e.name(), e.start_ns(), e.duration_ns()) for e in prof.profiler.kineto_results.events()
-           if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0]
+           if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0
+           and PRIMER not in e.name()]
     if not dev:
         print(f"{label}: torch.profiler recorded no device activity (not measured) [{card}]")
         return None
 
-    fam, fam_n, names = {}, {}, {}
+    fam, fam_n, names, bf16_n = {}, {}, {}, {}
     for name, _, dur in dev:
         f = _family(name)
         fam[f] = fam.get(f, 0.0) + dur / 1e6
         fam_n[f] = fam_n.get(f, 0) + 1
+        if "bf16" in name or "bfloat16" in name:
+            bf16_n[f] = bf16_n.get(f, 0) + 1
         ms, n = names.get(name, (0.0, 0))
         names[name] = (ms + dur / 1e6, n + 1)
     busy_ns, end = 0, 0
@@ -503,7 +536,8 @@ def _profile(torch, run, label, card, extra):
     top = sorted(names.items(), key=lambda kv: -kv[1][0])[:12]
     rec = {"card": card, **extra, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "device_idle_share": 1.0 - busy_ms / wall_ms, "by_family_ms": fam,
-           "by_family_launches": fam_n, "top": [[n[:80], ms, c] for n, (ms, c) in top]}
+           "by_family_launches": fam_n, "bf16_named_launches": bf16_n,
+           "top": [[n[:80], ms, c] for n, (ms, c) in top]}
     print(json.dumps({label: rec}))
     return rec
 
@@ -528,7 +562,8 @@ def _device_by_kernel(torch, fn, iters, counts=None, annotations=None):
                 fn()
             torch.cuda.synchronize()
         for e in prof.profiler.kineto_results.events():
-            if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0 \
+                    and PRIMER not in e.name():
                 name = e.name().replace("void ", "").replace("(anonymous namespace)::", "")[:48]
                 ms = e.duration_ns() / 1e6 / iters
                 if e.is_user_annotation():
@@ -1245,6 +1280,12 @@ def _step_adam_entries(torch, ups, seed):
     return entries
 
 
+def _adam_clones(e):
+    """A K6 entry with clones of p, m1 and m2 (the call updates them in
+    place; the gradient, powers and lr are read only)."""
+    return (e[0].clone(), e[1], e[2].clone(), e[3].clone()) + tuple(e[4:])
+
+
 def _library_step(torch, card, name, make_opt, bytes_per_float):
     """The per-step yardstick of K5/K6: one ``make_opt(params).step()`` over
     tensors of the training step's 186 parameter shapes (transformer-base as
@@ -1333,7 +1374,9 @@ def phase_adam(torch, card):
         opt = torch.optim.Adam([tp], lr=1e-3, betas=(0.9, 0.999), eps=1e-8, fused=True)
         opt.state[tp] = {"step": torch.tensor(3.0, device=dev), "exp_avg": m1.clone(),
                          "exp_avg_sq": m2.clone()}
-        ms = _ms(lambda: fused_adam(*args), 50)
+        # timed as the step calls it: in place (on clones of p, m1, m2)
+        mine = [_adam_clones(args[:7] + (True,))]
+        ms = _ms(lambda: fused_adam_multi(mine, 0.9, 0.999, 1e-8), 50)
         plain_ms = _ms(lambda: fused_adam_plain(*args), 20)
         lib_ms = _ms(opt.step, 50)
         bound_ms, bound_by = _bound(7 * 4 * p.numel(), 10 * p.numel())
@@ -1342,20 +1385,25 @@ def phase_adam(torch, card):
         print(f"K6 fused_adam {list(shape)} (a table of one): bit-equal (max_abs_err {err}); kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, torch.optim.Adam(fused=True) {lib_ms:.4f} ms, bound "
               f"{bound_ms:.5f} ms ({bound_by}) [{card}]")
-        del p, grad, m1, m2, tp, opt, got, want
+        del p, grad, m1, m2, tp, opt, got, want, mine
 
-    # the step: 186 entries in one launch, each in its op type's expression
+    # the step: 186 entries in one launch, each in its op type's expression,
+    # in place (on clones of p, m1, m2; the plain version on other clones)
     ups = _step_updates(pt)
     entries = _step_adam_entries(torch, ups, seed=5)
+    mine = [_adam_clones(e) for e in entries]
     before = fused_adam.launches
-    got = fused_adam_multi(entries, 0.9, 0.999, 1e-8)
+    got = fused_adam_multi(mine, 0.9, 0.999, 1e-8)
     torch.cuda.synchronize()
     if fused_adam.launches != before + 1:
         raise AssertionError(f"fused_adam_multi over {len(entries)}: "
                              f"{fused_adam.launches - before} launches, want 1")
+    if not all(o[0] is e[0] and o[1] is e[2] and o[2] is e[3] for o, e in zip(got, mine)):
+        raise AssertionError("fused_adam_multi: p, m1, m2 not updated in place")
+    theirs = [_adam_clones(e) for e in entries]
 
     def plain():
-        return fused_adam_multi_plain(entries, 0.9, 0.999, 1e-8)
+        return fused_adam_multi_plain(theirs, 0.9, 0.999, 1e-8)
     want = plain()
     err = _max_abs_diff(torch, [(x, y) for a, b in zip(got, want) for x, y in zip(a, b)])
     differ = [k for k, (a, b) in enumerate(zip(got, want))
@@ -1365,18 +1413,17 @@ def phase_adam(torch, card):
                              f"{len(entries)}) differ from their plain versions")
     # the control: one adam entry (the largest) in the other expression
     k = max((i for i, e in enumerate(entries) if not e[7]), key=lambda i: entries[i][0].numel())
-    flipped = list(entries)
-    flipped[k] = entries[k][:7] + (True,)
-    m2_other = fused_adam_multi(flipped, 0.9, 0.999, 1e-8)[k][2]
+    flipped = _adam_clones(entries[k])[:7] + (True,)
+    m2_other = fused_adam_multi([flipped], 0.9, 0.999, 1e-8)[0][2]
     n_other = int((m2_other != got[k][2]).sum())
     if n_other == 0:
         raise AssertionError(f"the expression flag's control: entry {k} {list(ups[k][0])} gives "
                              f"the same Moment2Out in both expressions")
     del got, want, m2_other, flipped
     floats = sum(e[0].numel() for e in entries)
-    shapes, counts = [e[0].shape for e in entries], [e[0].numel() for e in entries]
-    _, launch = _adam_launch(entries, shapes, counts, 0.9, 0.999, 1e-8)
-    step = _timed_step(torch, lambda: fused_adam_multi(entries, 0.9, 0.999, 1e-8), launch, plain,
+    counts = [e[0].numel() for e in entries]
+    _, launch = _adam_launch(mine, counts, 0.9, 0.999, 1e-8)
+    step = _timed_step(torch, lambda: fused_adam_multi(mine, 0.9, 0.999, 1e-8), launch, plain,
                        fused_adam)
     # p, grad, m1, m2 read and p, m1, m2 written; three scalars read and two
     # written an entry
@@ -1388,8 +1435,8 @@ def phase_adam(torch, card):
           f"changes {n_other} Moment2Out elements; max_abs_err {err}; the call {step['ms']:.4f} ms (events; host "
           f"{step['host_us']:.0f} us a call), the kernel alone {step['kernel_ms']:.4f} ms "
           f"(events), device {step['device_ms']} ms (profiler: {json.dumps(step['device_ops'])}), plain "
-          f"{step['plain_ms']:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
-    del entries
+          f"{step['plain_ms']:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}); in place [{card}]")
+    del entries, mine, theirs
     torch.cuda.empty_cache()
     lib = _library_step(torch, card, "torch.optim.Adam(fused=True)",
                         lambda ps: torch.optim.Adam(ps, lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
@@ -1615,7 +1662,9 @@ def phase_sgd(torch, card):
             lib_fn = opt.step
         except (RuntimeError, TypeError, ValueError):
             lib, lib_fn = "p.add_(g, alpha=-lr)", lambda: tp.data.add_(grad, alpha=-0.1)
-        ms = _ms(lambda: fused_sgd(p, grad, lr), 50)
+        # timed as the step calls it: in place (on a clone of p)
+        mine = [(p.clone(), grad, lr)]
+        ms = _ms(lambda: fused_sgd_multi(mine), 50)
         plain_ms = _ms(lambda: fused_sgd_plain(p, grad, lr), 20)
         lib_ms = _ms(lib_fn, 50)
         bound_ms, bound_by = _bound(3 * 4 * p.numel() + 4, 2 * p.numel())
@@ -1630,15 +1679,20 @@ def phase_sgd(torch, card):
     entries = [(torch.randn(s, device=dev, generator=gd),
                 1e-2 * torch.randn(s, device=dev, generator=gd),
                 torch.tensor([0.1], device=dev)) for s, _ in ups]
+    # in place, on clones of p (the plain version on other clones)
+    mine = [(e[0].clone(),) + e[1:] for e in entries]
+    theirs = [(e[0].clone(),) + e[1:] for e in entries]
     before = fused_sgd.launches
-    got = fused_sgd_multi(entries)
+    got = fused_sgd_multi(mine)
     torch.cuda.synchronize()
     if fused_sgd.launches != before + 1:
         raise AssertionError(f"fused_sgd_multi over {len(entries)}: "
                              f"{fused_sgd.launches - before} launches, want 1")
+    if not all(o is e[0] for o, e in zip(got, mine)):
+        raise AssertionError("fused_sgd_multi: p not updated in place")
 
     def plain():
-        return fused_sgd_multi_plain(entries)
+        return fused_sgd_multi_plain(theirs)
     want = plain()
     err = _max_abs_diff(torch, zip(got, want))
     differ = [k for k, (a, b) in enumerate(zip(got, want)) if not torch.equal(a, b)]
@@ -1647,9 +1701,8 @@ def phase_sgd(torch, card):
                              f"{len(entries)}) differ from their plain versions")
     del got, want
     floats = sum(e[0].numel() for e in entries)
-    shapes, counts = [e[0].shape for e in entries], [e[0].numel() for e in entries]
-    _, launch = _sgd_launch(entries, shapes, counts)
-    step = _timed_step(torch, lambda: fused_sgd_multi(entries), launch, plain, fused_sgd)
+    launch = _sgd_launch(mine, [e[0].numel() for e in entries])
+    step = _timed_step(torch, lambda: fused_sgd_multi(mine), launch, plain, fused_sgd)
     # p, grad read and p written; lr read an entry
     bound_ms, bound_by = _bound(3 * 4 * floats + 4 * len(entries), 2 * floats)
     print(f"K5 fused_sgd_multi over the training step's {len(entries)} parameters ({floats} "
@@ -1657,8 +1710,8 @@ def phase_sgd(torch, card):
           f"(events; host {step['host_us']:.0f} us a call), the kernel alone "
           f"{step['kernel_ms']:.4f} ms (events), device {step['device_ms']} ms (profiler: "
           f"{json.dumps(step['device_ops'])}), plain {step['plain_ms']:.2f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}) [{card}]")
-    del entries
+          f"{bound_ms:.4f} ms ({bound_by}); in place [{card}]")
+    del entries, mine, theirs
     torch.cuda.empty_cache()
     lib = _library_step(torch, card, "torch.optim.SGD(fused=True)",
                         lambda ps: torch.optim.SGD(ps, lr=0.1, fused=True), 3 * 4)
@@ -1713,14 +1766,47 @@ def _counters():
             "linear_ce_bwd": linear_ce.linear_ce_bwd}
 
 
+def _train_entry(exe, fetch_names):
+    """The executor's graph entry of the full-width step fetching
+    ``fetch_names``."""
+    (entry,) = [e for e in exe._cache.values() if e.graph is not None
+                and e.fetch_names == list(fetch_names) and e.feeds["lbl"][0][0] == TRAIN_B]
+    return entry
+
+
+def _gate_step_profile(prof, want, label):
+    """The launches a training step makes, read from its profile by kernel
+    family (a replay calls no wrapper, so this is what the card ran)."""
+    if prof is None:
+        raise AssertionError(f"{label}: the profiler recorded no device activity; the "
+                             f"per-step launch gates read it")
+    got = {f: prof["by_family_launches"].get(f, 0) for f in want}
+    if got != want:
+        raise AssertionError(f"{label}: device launches a step {got}, want {want}")
+    print(f"{label}: device launches a step from the profile {got} (gate {want})")
+
+
+def _step_families(sgd=False):
+    """Kernel launches a full-width step makes on the device, by profile
+    family: K3 and K7 are 2 kernels a call, K8 32."""
+    return {"flash_attn_fwd (K1)": PER_STEP["flash_attn_fwd"],
+            "gather_rows (K2)": PER_STEP["gather_rows"],
+            "scatter_add_rows (K3)": 2 * PER_STEP["scatter_add_rows"],
+            "linear_ce_fwd (K7)": 2, "linear_ce_bwd (K8)": 32,
+            "fused_sgd (K5)" if sgd else "fused_adam (K6)": 1}
+
+
 def phase_training(torch, card, sgd=False):
     """Full-width transformer-base training on the card through the kernel
     tier (``Executor(kernels=True)``, the default on the card), on one fixed
-    batch: with Adam one warm-up and three timed steps (losses falling) and
-    a profile; with SGD one warm-up, one timed step and a profile."""
+    batch, each step one CUDA graph replay: the graph captured by
+    ``precompile`` (writing nothing), then with Adam one warm-up and three
+    timed steps (losses falling) and with SGD one warm-up and two timed
+    steps; the allocated memory flat from step 2; the launches a step from
+    the wrappers' counters and from a profile; then phase 17."""
     import paddle_tpu_torch as pt
     label = "SGD training" if sgd else "training"
-    steps, per_step = (2, PER_STEP_SGD) if sgd else (4, PER_STEP)
+    steps, per_step = (3, PER_STEP_SGD) if sgd else (4, PER_STEP)
     t0 = time.perf_counter()
     main, startup, loss = _train_programs(pt, sgd=sgd)
     scope, exe = pt.Scope(), pt.Executor(pt.CUDAPlace(0), kernels=True)
@@ -1738,40 +1824,66 @@ def phase_training(torch, card, sgd=False):
           f"{time.perf_counter() - t0:.2f} s")
     if len(params) != N_PARAMS:
         raise AssertionError(f"{len(params)} parameters, want {N_PARAMS}")
-    before = {p.name: scope.find_var(p.name).clone() for p in params}
     persist = [v.name for v in main.list_vars()
                if v.persistable and scope.find_var(v.name) is not None]
-    state0 = {n: scope.find_var(n).clone() for n in persist} if not sgd else None
+    before = {n: scope.find_var(n).clone() for n in persist}
+    addrs = {n: scope.find_var(n).data_ptr() for n in persist}
+    rec = exe.precompile(main, feed=feed, fetch_list=[loss], scope=scope)
+    torch.cuda.synchronize()
+    wrote = [n for n in persist if not torch.equal(before[n], scope.find_var(n))]
+    print(f"{label}: precompile -> kind {rec['kind']}, capture {rec['compile_s']:.3f} s (an eager "
+          f"run on clones of the written state, then the capture), reasons {rec['reasons']}; "
+          f"state written by it: {len(wrote)} of {len(persist)}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, reserved "
+          f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB [{card}]")
+    if rec["kind"] != "graph" or wrote:
+        raise AssertionError(f"{label}: precompile gave kind {rec['kind']} and wrote {wrote[:8]}")
+    state0 = before
+    del before
     counters = _counters()
+    captures = exe.cache_info()["captures"]
     for f in counters.values():
         f.launches = 0
-    losses, step_s = [], []
+    losses, step_s, mem = [], [], []
     for step in range(steps):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         (l,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
         step_s.append(time.perf_counter() - t1)
         losses.append(float(l))
+        mem.append(torch.cuda.memory_allocated())
         if step == 0:
-            unchanged = [p.name for p in params
-                         if torch.equal(before[p.name], scope.find_var(p.name))]
+            after1 = {p.name: scope.find_var(p.name).clone() for p in params}
+            unchanged = [p.name for p in params if torch.equal(state0[p.name], after1[p.name])]
             if unchanged:
                 raise AssertionError(f"{label}: parameters unchanged by step 1: {unchanged}")
-            del before
-            after1 = {p.name: scope.find_var(p.name).clone() for p in params}
+            if sgd:
+                state0 = None
     launches = {k: f.launches for k, f in counters.items()}
-    print(f"{label} losses {losses}; step times (s) {[round(s, 4) for s in step_s]}")
+    info = exe.cache_info()
+    entry = {k: v for k, v in _train_entry(exe, [loss.name]).info().items() if k != "feeds"}
+    print(f"{label} losses {losses}; step times (s) {[round(s, 4) for s in step_s]}; allocated "
+          f"bytes after each step {mem}; captures over the steps "
+          f"{info['captures'] - captures}; the step's entry {json.dumps(entry)}")
     if not np.isfinite(losses).all() or not (sgd or all(a > b for a, b in zip(losses, losses[1:]))):
         raise AssertionError(f"{label}: losses not finite{'' if sgd else ' and falling'}: {losses}")
+    if info["captures"] != captures or mem[1] != mem[-1]:
+        raise AssertionError(f"{label}: {info['captures'] - captures} captures over the steps, "
+                             f"allocated bytes {mem}")
+    moved = [n for n in persist if scope.find_var(n).data_ptr() != addrs[n]]
+    if moved:
+        raise AssertionError(f"{label}: state tensors moved: {moved[:8]}")
     want = {k: steps * v for k, v in per_step.items()}
     if launches != want:
         raise AssertionError(f"{label}: launches over {steps} steps {launches}, want {want}")
-    print(f"launches on the {label} path over {steps} steps: {launches} (per step {per_step})")
+    print(f"launches on the {label} path over {steps} steps: {launches} (per step {per_step}); "
+          f"every one of the {len(persist)} state tensors at its address")
     if state0 is not None:
-        # step 1 again, from the same state and feed: bit-equal parameters
-        # need every kernel and op on the path to add in a fixed order
+        # step 1 again, from the same state (copied in place: the same graph
+        # replays) and feed: bit-equal parameters need every kernel and op on
+        # the path to add in a fixed order
         for n, t in state0.items():
-            scope.set_var(n, t)
+            scope.find_var(n).copy_(t)
         exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
         differ = [p.name for p in params if not torch.equal(after1[p.name], scope.find_var(p.name))]
         first = ""
@@ -1783,16 +1895,95 @@ def phase_training(torch, card, sgd=False):
         print(f"{label}: step 1 taken again from the same state and feed: parameters "
               f"{'bit-equal' if not differ else 'not bit-equal'} ({len(params) - len(differ)} of "
               f"{len(params)} bit-equal){first}; differing: {differ[:12]}")
-        del state0, after1
+        if differ:
+            raise AssertionError(f"{label}: the repeated step is not bit-equal")
+        del state0
+    del after1
     step_ms = 1e3 * float(np.mean(step_s[1:]))
     real = int(feed["trg@SEQ_LEN"].sum())
     print(f"{label} step: {step_ms:.2f} ms mean of {steps - 1} timed step(s) (host clock to the "
-          f"loss on the host); {TRAIN_B * T / step_ms * 1e3:.0f} tokens/s at batch {TRAIN_B} x {T} "
-          f"(padded), {real / step_ms * 1e3:.0f} target tokens/s within the lengths; "
-          f"peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
-    _profile(torch, lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope),
-             "sgd_training_profile" if sgd else "training_profile", card, {"batch": [TRAIN_B, T]})
+          f"loss on the host, one graph replay a step); {TRAIN_B * T / step_ms * 1e3:.0f} tokens/s "
+          f"at batch {TRAIN_B} x {T} (padded), {real / step_ms * 1e3:.0f} target tokens/s within "
+          f"the lengths; peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+          f"[{card}]")
+    prof = _profile(torch, lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope),
+                    "sgd_training_profile" if sgd else "training_profile", card,
+                    {"batch": [TRAIN_B, T]})
+    _gate_step_profile(prof, _step_families(sgd), label)
+    _step_graph_vs_eager(torch, exe, main, feed, loss, scope,
+                         "float32 SGD" if sgd else "float32 Adam", card, _step_families(sgd))
     return launches, steps
+
+
+def _step_graph_vs_eager(torch, exe, main, feed, loss, scope, label, card, families):
+    """Phase 17, for one training path (run inside phases 7, 12 and 14,
+    before each drops its executor): the step through its graph
+    (``Executor.run``, a replay) against the same step op by op
+    (``Executor._run_eager``) from the same state and feed, loss and every
+    state tensor bit-equal; then the capture's seconds, ``CUDAGraph.replay``'s
+    host microseconds, the wall a step and tokens/s through the graph and
+    eagerly in alternating turns, the peak device memory of a step each
+    way, and a profile of each (device idle share; the eager step's
+    launches gated as the replay's)."""
+    entry = _train_entry(exe, [loss.name])
+    persist = [v.name for v in main.list_vars() if v.persistable]
+    state0 = {n: scope.find_var(n).clone() for n in persist}
+    (g_loss,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    after = {n: scope.find_var(n).clone() for n in persist}
+    for n, t in state0.items():
+        scope.find_var(n).copy_(t)
+    (e_loss,) = exe._run_eager(main, feed, [loss], scope)
+    differ = [n for n in persist if not torch.equal(after[n], scope.find_var(n))]
+    del state0, after
+    bit_equal = not differ and np.array_equal(g_loss, e_loss)
+    print(f"{label}: the step replayed vs op by op from the same state and feed: loss "
+          f"{float(g_loss):.7f} / {float(e_loss):.7f}; {len(persist) - len(differ)} of "
+          f"{len(persist)} state tensors bit-equal ({'bit-equal' if bit_equal else 'NOT'}); "
+          f"differing {differ[:8]}")
+    if not bit_equal:
+        raise AssertionError(f"{label}: a replayed step differs from the eager step: {differ[:8]}")
+
+    def graph():
+        return exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+
+    def eager():
+        return exe._run_eager(main, feed, [loss], scope)
+    replay_us = [v * 1e3 for v in _host_ms(torch, entry.graph.replay, 5)]
+    torch.cuda.synchronize()
+    walls = {"graph": [], "eager": []}
+    for _ in range(3):
+        for name, fn in (("graph", graph), ("eager", eager)):
+            walls[name] += _host_ms(torch, fn, 1)
+    peak = {}
+    for name, fn in (("graph", graph), ("eager", eager)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak[name] = {"max_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                      "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30}
+    out = {"card": card, "capture_s": entry.compile_s,
+           "host_us_replay": float(np.median(replay_us)), "host_us_replay_all": replay_us,
+           "wall_ms": {k: {"min": min(v), "median": float(np.median(v)), "all": v}
+                       for k, v in walls.items()},
+           "tokens_per_s": {k: TRAIN_B * T / float(np.median(v)) * 1e3 for k, v in walls.items()},
+           "peak_memory": peak, "launches_captured": entry.info()["launches"]}
+    for name, fn in (("graph", graph), ("eager", eager)):
+        tag = label.replace(" ", "_")
+        prof = _profile(torch, fn, f"{tag}_step_{name}_profile", card, {"batch": [TRAIN_B, T]})
+        _gate_step_profile(prof, families, f"{label} ({name})")
+        out[f"{name}_profile"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                                      "device_idle_share")}
+    w = out["wall_ms"]
+    print(f"{label} step through its graph vs op by op: capture {out['capture_s']:.3f} s; "
+          f"CUDAGraph.replay {out['host_us_replay']:.0f} host us; wall a step graph "
+          f"{w['graph']['median']:.2f} ms ({out['tokens_per_s']['graph']:.0f} tokens/s), eager "
+          f"{w['eager']['median']:.2f} ms ({out['tokens_per_s']['eager']:.0f} tokens/s) (medians "
+          f"of 3 in turns); device idle share graph "
+          f"{out['graph_profile']['device_idle_share']:.3f}, eager "
+          f"{out['eager_profile']['device_idle_share']:.3f}; peak memory {json.dumps(peak)} [{card}]")
+    print(json.dumps({f"training_graph_{label.replace(' ', '_')}": out}))
+    return out
 
 
 def _step_errs(names, got, ref):
@@ -2232,9 +2423,11 @@ def phase_bf16_step(torch, card):
     fetch = [loss.name] + [p + "@GRAD" for p in params]
 
     def from_state0(prog, executor=exe, fetch_list=fetch):
+        # op by op: each of these programs would hold a full-width graph's
+        # memory pool (phase 17 holds the graph to this path)
         for n, t in state0.items():
-            scope.set_var(n, t.clone())
-        return executor.run(prog, feed=feed, fetch_list=fetch_list, scope=scope)
+            scope.find_var(n).copy_(t)
+        return executor._run_eager(prog, feed, fetch_list, scope)
 
     f32 = from_state0(main)
     with pt.amp.amp_guard(main):
@@ -2287,26 +2480,42 @@ def phase_bf16_step(torch, card):
 
     counters = _counters()
     bf16_counters = {k: counters[k] for k in BF16_PER_STEP}
-    for f in counters.values():
-        f.launches = 0
-    for f in bf16_counters.values():
-        f.bf16_launches = 0
-    steps, losses, step_s = 4, [], []
+    steps, losses, step_s, mem = 4, [], [], []
     for n, t in state0.items():
-        scope.set_var(n, t.clone())
+        scope.find_var(n).copy_(t)
+    addrs = {n: scope.find_var(n).data_ptr() for n in state0}
     del state0
     with pt.amp.amp_guard(main):
+        rec = exe.precompile(main, feed=feed, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        print(f"bf16 training: precompile -> kind {rec['kind']}, capture {rec['compile_s']:.3f} s, "
+              f"reasons {rec['reasons']}; reserved "
+              f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB [{card}]")
+        if rec["kind"] != "graph":
+            raise AssertionError(f"bf16 training: precompile gave kind {rec['kind']}")
+        captures = exe.cache_info()["captures"]
+        for f in counters.values():
+            f.launches = 0
+        for f in bf16_counters.values():
+            f.bf16_launches = 0
         for _ in range(steps):
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             (l,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
             step_s.append(time.perf_counter() - t1)
             losses.append(float(l))
+            mem.append(torch.cuda.memory_allocated())
         launches = {k: f.launches for k, f in counters.items()}
         bf16_launches = {k: f.bf16_launches for k, f in bf16_counters.items()}
-        print(f"bf16 training losses {losses}; step times (s) {[round(x, 4) for x in step_s]}")
+        moved = [n for n, a in addrs.items() if scope.find_var(n).data_ptr() != a]
+        print(f"bf16 training losses {losses}; step times (s) {[round(x, 4) for x in step_s]}; "
+              f"allocated bytes after each step {mem}; captures over the steps "
+              f"{exe.cache_info()['captures'] - captures}; state tensors moved {len(moved)}")
         if not (np.isfinite(losses).all() and all(a > c for a, c in zip(losses, losses[1:]))):
             raise AssertionError(f"bf16 training: losses not finite and falling: {losses}")
+        if exe.cache_info()["captures"] != captures or mem[1] != mem[-1] or moved:
+            raise AssertionError(f"bf16 training: captures over the steps, memory {mem} or "
+                                 f"moved state {moved[:8]}")
         want = {k: steps * v for k, v in PER_STEP.items()}
         want_bf16 = {k: steps * v for k, v in BF16_PER_STEP.items()}
         if launches != want or bf16_launches != want_bf16:
@@ -2316,11 +2525,16 @@ def phase_bf16_step(torch, card):
               f"instances {bf16_launches} (per step {BF16_PER_STEP}; K8 stays float32)")
         step_ms = 1e3 * float(np.mean(step_s[1:]))
         print(f"bf16 training step: {step_ms:.2f} ms mean of {steps - 1} timed steps (host clock "
-              f"to the loss on the host); {TRAIN_B * T / step_ms * 1e3:.0f} tokens/s at batch "
-              f"{TRAIN_B} x {T} (padded); peak device memory "
-              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
-        _profile(torch, lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope),
-                 "bf16_training_profile", card, {"batch": [TRAIN_B, T]})
+              f"to the loss on the host, one graph replay a step); "
+              f"{TRAIN_B * T / step_ms * 1e3:.0f} tokens/s at batch {TRAIN_B} x {T} (padded); "
+              f"peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
+        prof = _profile(torch, lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope),
+                        "bf16_training_profile", card, {"batch": [TRAIN_B, T]})
+        _gate_step_profile(prof, _step_families(), "bf16 training")
+        print(f"bf16 training: device launches a step of kernels whose names carry bf16, by "
+              f"family: {json.dumps(prof['bf16_named_launches'])}")
+        _step_graph_vs_eager(torch, exe, main, feed, loss, scope, "bf16 Adam", card,
+                             _step_families())
     return launches, bf16_launches
 
 
@@ -2407,8 +2621,8 @@ def main():
         entry("linear_ce_fwd", "linear_ce.cu", "linear_ce.py:42", {0: ce["linear_ce_fwd"]}, 0),
         entry("linear_ce_bwd", "linear_ce_bwd.cu", "linear_ce.py:78", {0: ce["linear_ce_bwd"]}, 0),
     ]
-    # K5's and K6's "ms" is the whole call's (the table built on the host,
-    # the outputs carved, the launch), "kernel_ms" the launch's alone;
+    # K5's and K6's "ms" is the whole in-place call's (the table built on the
+    # host, K6's power outputs made, the launch), "kernel_ms" the launch's alone;
     # launches a step from phases 12 and 7
     for e, case, steps in ((kernels[4], sgd["step"], sgd_steps),
                            (kernels[5], adam["step"], adam_steps)):

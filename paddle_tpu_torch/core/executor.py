@@ -5,25 +5,40 @@ cache of executables.
 version, feed signature, fetch names, state signature, amp, passes, kernel
 policy, matmul flags) -- the JAX package's executable cache -- and runs
 it.  An entry holds the block's analysis (which names it reads from the
-scope and writes back), done once.  On a CUDA place an entry of a program
-that writes no state, draws no random numbers and has one block holds one
-CUDA graph of the whole lowering of block 0: a hit copies the feeds into
-the graph's static buffers and replays it, and no op is lowered from
-Python.  Any other entry (and every entry on the CPU) lowers the block op
-by op: the environment is built from the scope's state, the feeds and
-their ``@SEQ_LEN`` lengths, every op's lowering runs in order, written
-state goes back to the scope (so running the startup program initializes
-it).  Which kind an entry is is decided from the program before any
-capture; a capture that fails raises.  ``Executor.cache_info()`` lists
-each entry's kind and the reasons an entry has no graph.
+scope and which state it writes), done once.
+
+State is updated in place, the port's counterpart of the reference's
+donated state: after the block's ops, each written state value that is
+not the scope's own tensor is copied into that tensor (one
+``torch._foreach_copy_``), and the optimizer kernels update parameters and
+moments in place to begin with.  So a scope tensor keeps its address from
+step to step; only state the block initializes (the startup program) is
+bound anew.
+
+On a CUDA place an entry of a program with one block whose written state
+all exists already (``state_out`` within ``state_in``: an inference
+program, a training step) holds one CUDA graph of the whole lowering of
+block 0 and its write-back: a hit copies the feeds into the graph's static
+buffers and replays it, and no op is lowered from Python.  A program that
+draws random numbers registers the executor's generator with its graph,
+so each replay draws anew and advances it as an eager run would.  Any
+other entry (the startup program, which initializes state; a generic
+grad of a random op, which forks the generator; several blocks; every
+entry on the CPU) lowers the block op by op: the environment is built from
+the scope's state, the feeds and their ``@SEQ_LEN`` lengths, and every
+op's lowering runs in order.  Which kind an entry is is decided from the
+program before any capture; a capture that fails raises.
+``Executor.cache_info()`` lists each entry's kind and the reasons an entry
+has no graph.
 
 A graph reads the addresses it captured, so the state signature of a
 graph-eligible program includes each state tensor's ``data_ptr()``: a
 scope variable rebound to a new tensor misses (the new graph replaces the
-old one), and an in-place update (``copy_``) hits and is read.  Fetches on the card are copied into pinned
-host memory on the step's stream right after the step
-(``staging.prefetch_to_host``); ``return_numpy=False`` returns device
-clones of a graph's outputs, never its own buffers.
+old one), and an in-place update (``copy_``, or a training step) hits and
+is read.  Fetches on the card are copied into pinned host memory on the
+step's stream right after the step (``staging.prefetch_to_host``);
+``return_numpy=False`` returns device clones of a graph's outputs, never
+its own buffers, and of fetched state, which the next step overwrites.
 
 Places: ``CUDAPlace(i)`` is a real CUDA device and the default; the CPU is
 used only when the caller passes ``CPUPlace()``.  An executor asked for a
@@ -53,7 +68,7 @@ from .desc import BlockDesc, VarType
 from .dtypes import coerce_feed_dtype, convert_dtype
 from .framework import Program, Variable, default_main_program
 from .lower import LowerCtx, lower_block
-from .registry import op_draws
+from .registry import op_draws, op_forks
 from .scope import Scope, global_scope
 from .staging import COUNTERS, FetchHandle, executable_fingerprint, prefetch_to_host
 
@@ -124,17 +139,24 @@ def analyze_state(block: BlockDesc, feed_names) -> tuple:
     return state_in, state_out
 
 
-def graph_blockers(program: Program, state_out: Sequence[str]) -> List[str]:
-    """Why block 0 of ``program`` gets no CUDA graph (empty: it may): it
-    writes state (persistable or read-modify-written names), draws random
-    numbers, or the program has more than one block."""
+def graph_blockers(program: Program, state_in: Sequence[str],
+                   state_out: Sequence[str]) -> List[str]:
+    """Why block 0 of ``program`` gets no CUDA graph (empty: it may).  The
+    reference's rule: the block may be one executable when every state
+    name it writes is one it reads (its graph then updates the scope's
+    tensors in place); a block that initializes state does not.  Nor does
+    a block with a generic grad of a random op, whose re-run draws from a
+    fork of the generator (a graph would replay the fork's numbers), or a
+    program of more than one block."""
     reasons = []
-    if state_out:
-        names = ", ".join(state_out[:3]) + (", ..." if len(state_out) > 3 else "")
-        reasons.append(f"writes state ({len(state_out)} vars: {names})")
-    draws = sorted({op.type for op in program.desc.block(0).ops if op_draws(op)})
-    if draws:
-        reasons.append(f"draws random numbers ({', '.join(draws)})")
+    have = set(state_in)
+    created = [n for n in state_out if n not in have]
+    if created:
+        names = ", ".join(created[:3]) + (", ..." if len(created) > 3 else "")
+        reasons.append(f"initializes state ({len(created)} vars: {names})")
+    forks = sorted({op.type for op in program.desc.block(0).ops if op_forks(op)})
+    if forks:
+        reasons.append(f"forks the generator in a generic grad ({', '.join(forks)})")
     if program.desc.num_blocks() > 1:
         reasons.append(f"{program.desc.num_blocks()} blocks")
     return reasons
@@ -147,6 +169,52 @@ def _matmul_flags() -> Tuple[Tuple[str, bool], ...]:
             ("tf32_cudnn", torch.backends.cudnn.allow_tf32),
             ("bf16_reduced", m.allow_bf16_reduced_precision_reduction),
             ("fp16_reduced", m.allow_fp16_reduced_precision_reduction))
+
+
+def _write_back(state_out: Sequence[str], homes: Dict[str, Any],
+                env: Dict[str, Any]) -> Dict[str, Any]:
+    """Copy each written state value in ``env`` into its home tensor
+    (``homes``: name -> the tensor the value goes into), where it is not
+    that tensor already, in one ``torch._foreach_copy_``.  Returns the
+    values that have no home of their shape, dtype and device (state the
+    block initializes), for the caller to bind."""
+    dst, src, rest = [], [], {}
+    for n in state_out:
+        v, h = env.get(n), homes.get(n)
+        if v is None or v is h:
+            continue
+        if isinstance(h, torch.Tensor) and isinstance(v, torch.Tensor) and \
+                (h.shape, h.dtype, h.device) == (v.shape, v.dtype, v.device):
+            dst.append(h)
+            src.append(v)
+        else:
+            rest[n] = v
+    if dst:
+        # a value that is another name's home is read before it is overwritten
+        home_ids = {id(h) for h in dst}
+        torch._foreach_copy_(dst, [v.clone() if id(v) in home_ids else v for v in src])
+    return rest
+
+
+def _fetches(entry: "_CacheEntry", ctx: LowerCtx) -> List[torch.Tensor]:
+    """An eager run's fetched tensors: clones where a fetch names state,
+    whose tensor the next step updates in place."""
+    return [ctx.read(n).clone() if n in entry.state_names else ctx.read(n)
+            for n in entry.fetch_names]
+
+
+def _private(entry: "_CacheEntry", env: Dict[str, Any]) -> Dict[str, Any]:
+    """``env`` (state_in name -> value) with clones of the state the block
+    writes: a run over it changes nothing the scope holds."""
+    written = set(entry.state_out)
+    return {n: v.clone() if n in written and isinstance(v, torch.Tensor) else v
+            for n, v in env.items()}
+
+
+def _copy_generator(gen: torch.Generator) -> torch.Generator:
+    copy = torch.Generator(device=gen.device)
+    copy.set_state(gen.get_state())
+    return copy
 
 
 def _tensor_sig(name: str, v, with_address: bool) -> tuple:
@@ -176,6 +244,7 @@ class _CacheEntry:
         self.feeds = {k: (tuple(t.shape), t.dtype) for k, t in feeds.items()}
         self.state_in = state_in
         self.state_out = state_out
+        self.state_names = frozenset(state_in).union(state_out)
         self.fetch_names = fetch_names
         self.reasons: Tuple[str, ...] = tuple(reasons)
         self.eligible = eligible      # the program allows a graph
@@ -186,6 +255,8 @@ class _CacheEntry:
         self.outputs: List[torch.Tensor] = []
         self.launches: Dict[tuple, int] = {}
         self.state: List[Any] = []     # the captured state tensors, kept alive
+        # the generator a graph's replays draw from (kept alive: its id is keyed)
+        self.generator: Optional[torch.Generator] = None
 
     @property
     def kind(self) -> str:
@@ -360,7 +431,7 @@ class Executor:
         """``run`` with the block lowered op by op, outside the cache: the
         eager path a graph is measured and checked against."""
         program, scope, feeds, fetch_names = self._prepare(program, feed, fetch_list, scope)
-        state_in, state_out, blockers, state = self._analyse(program, feeds, scope)
+        state_in, state_out, blockers, _, state = self._analyse(program, feeds, scope)
         entry = _CacheEntry(program, feeds, state_in, state_out, fetch_names, blockers,
                             eligible=not blockers)
         outs = self._stage(self._lower(entry, feeds, state, scope), sync, return_numpy,
@@ -382,10 +453,13 @@ class Executor:
                    scope: Optional[Scope] = None) -> Dict[str, Any]:
         """Build the cache entry of one (program, feed signature) without
         running a step: the serving warmup path.  On the card a
-        graph-eligible program is run once eagerly and captured.  ``feed``
-        values may be arrays or ``(shape, dtype)`` specs (zeros).  On the
-        card an eager entry built now is run once, writing no state.  The
-        scope is read, never written.  Returns the JAX package's record:
+        graph-eligible program is run once eagerly (on clones of the state
+        it writes) and captured.  ``feed`` values may be arrays or
+        ``(shape, dtype)`` specs (zeros).  On the card an eager entry built
+        now is run once, writing no state.  The scope and its generator are
+        read, never written (a graph of a random program makes the scope's
+        generator if it has none, as its first run would).  Returns the JAX
+        package's record:
         ``fingerprint``, ``kind`` (``graph`` / ``eager``), ``compile_s``
         (the entry's build: on the card the eager run and the capture),
         ``aot`` (a graph was captured) and ``reasons`` (why the entry has
@@ -427,15 +501,16 @@ class Executor:
 
     # ------------------------------------------------------------ the cache
     def _analyse(self, program: Program, feeds: Dict[str, torch.Tensor], scope: Scope):
-        """(state_in, state_out, graph blockers, state values): the block's
-        analysis, once per (program uid, version, feed names), and the
-        values of ``state_in`` in ``scope``."""
+        """(state_in, state_out, graph blockers, draws, state values): the
+        block's analysis, once per (program uid, version, feed names), and
+        the values of ``state_in`` in ``scope``."""
         desc = program.desc
         akey = (desc.uid, desc.version, tuple(sorted(feeds)))
         analysis = self._analysis_memo.get(akey)
         if analysis is None:
             state_in, state_out = analyze_state(desc.block(0), feeds)
-            analysis = (state_in, state_out, graph_blockers(program, state_out))
+            analysis = (state_in, state_out, graph_blockers(program, state_in, state_out),
+                        any(op_draws(op) for op in desc.block(0).ops))
             self._analysis_memo[akey] = analysis
         state = []
         for n in analysis[0]:
@@ -451,20 +526,27 @@ class Executor:
                    fetch_names: List[str], scope: Scope):
         """(entry, state values, warm): the cache entry of this run, found
         or built, under ``self._lock``.  ``warm`` is the fetches of the eager
-        run that preceded a capture made now, else None.
+        run that preceded a capture made now where the block writes no
+        state and draws nothing, else None (such a graph's first step is its
+        first replay).
 
         A graph-eligible entry that misses only because a state tensor of
-        the same scope was rebound (its address moved: a training step
-        between two evaluations rebinds every parameter) replaces the entry
-        it differs from instead of being added beside it, so each (program
-        version, feed signature, fetches, scope) keeps at most one graph,
-        and the old graph, its memory pool and the state it captured go."""
-        state_in, state_out, blockers, state = self._analyse(program, feeds, scope)
+        the same scope was rebound (its address moved: ``set_var`` of a new
+        tensor) replaces the entry it differs from instead of being added
+        beside it, so each (program version, feed signature, fetches,
+        scope) keeps at most one graph, and the old graph, its memory pool
+        and the state it captured go."""
+        state_in, state_out, blockers, draws, state = self._analyse(program, feeds, scope)
         desc = program.desc
+        on_card = self.device.type == "cuda"
+        gen = None
+        if draws and not blockers and on_card:
+            # the graph registers this generator: keyed by identity
+            gen = self._scope_generator(program, scope)
         feed_sig = tuple(sorted((k, tuple(t.shape), t.dtype) for k, t in feeds.items()))
         shape_sig = tuple(_tensor_sig(n, v, False) for n, v in zip(state_in, state))
         state_sig = shape_sig if blockers else \
-            tuple(_tensor_sig(n, v, True) for n, v in zip(state_in, state))
+            tuple(_tensor_sig(n, v, True) for n, v in zip(state_in, state)) + (id(gen),)
         rest = (self._amp_desc(program), self._passes_fp, program._kernel_policy_fp,
                 _matmul_flags())
         key = (desc.uid, desc.version, feed_sig, tuple(fetch_names), state_sig) + rest
@@ -485,7 +567,6 @@ class Executor:
             self._by_shape[shape_key] = key
 
         t0 = time.perf_counter()
-        on_card = self.device.type == "cuda"
         reasons = blockers if blockers or on_card else ["the CPU runs the block op by op"]
         entry = _CacheEntry(program, feeds, state_in, state_out, fetch_names, reasons,
                             eligible=not blockers)
@@ -495,7 +576,7 @@ class Executor:
             dict(_matmul_flags()))
         warm = None
         if on_card and not blockers:
-            warm = self._capture(entry, feeds, state)
+            warm = self._capture(entry, feeds, state, gen)
             self._captures += 1
         entry.compile_s = time.perf_counter() - t0
         self._cache[key] = entry
@@ -509,9 +590,8 @@ class Executor:
                 warnings.warn(
                     f"this program's graph has been captured again {n} times "
                     f"because a scope variable it reads was rebound to a new "
-                    f"tensor (a training step rebinds every parameter); each "
-                    f"capture replaces the last.  Update state in place "
-                    f"(copy_) to keep the graph.", stacklevel=4)
+                    f"tensor (set_var); each capture replaces the last.  "
+                    f"Update state in place (copy_) to keep the graph.", stacklevel=4)
             return entry, state, warm
         n = self._per_program_compiles.get(desc.uid, 0) + 1
         self._per_program_compiles[desc.uid] = n
@@ -523,42 +603,80 @@ class Executor:
                 f"its own.  Bucket the batch and sequence shapes.", stacklevel=4)
         return entry, state, warm
 
-    def _lower(self, entry: _CacheEntry, feeds: Dict[str, torch.Tensor], state: list,
-               scope: Scope, commit: bool = True) -> List[torch.Tensor]:
-        """Lower the block op by op; written state goes back to the scope.
-        Returns the fetched tensors.  ``commit=False`` writes nothing to the
-        scope: random ops draw from a generator of their own."""
-        env: Dict[str, Any] = dict(zip(entry.state_in, state))
-        cuda = self.device.type == "cuda"
-        for k, t in feeds.items():
-            env[k] = t.to(self.device, non_blocking=cuda)
-        gen = scope.find_var(RNG_STATE_VAR) if commit else None
+    def _new_generator(self, program: Program) -> torch.Generator:
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(program.random_seed or 0)
+        return gen
+
+    def _scope_generator(self, program: Program, scope: Scope) -> torch.Generator:
+        """The scope's generator, made (seeded from the program) and set if
+        it has none."""
+        gen = scope.find_var(RNG_STATE_VAR)
         if gen is None:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(entry.program.random_seed or 0)
-            if commit:
-                scope.set_var(RNG_STATE_VAR, gen)
+            gen = self._new_generator(program)
+            scope.set_var(RNG_STATE_VAR, gen)
+        return gen
+
+    def _lower_block(self, entry: _CacheEntry, env: Dict[str, Any], homes: Dict[str, Any],
+                     gen) -> Tuple[LowerCtx, Dict[str, Any]]:
+        """Lower block 0 op by op over ``env`` (state and feeds) and write
+        the state it updates into ``homes`` in place (``_write_back``).
+        Returns the context and the written values that have no home."""
         ctx = LowerCtx(entry.block, env, gen, self.device)
         with torch.no_grad():
             lower_block(ctx, entry.block)
+            rest = _write_back(entry.state_out, homes, ctx.env)
+        return ctx, rest
+
+    def _lower(self, entry: _CacheEntry, feeds: Dict[str, torch.Tensor], state: list,
+               scope: Scope, commit: bool = True) -> List[torch.Tensor]:
+        """Lower the block op by op, updating the scope's state in place;
+        state the block initializes (or writes in another shape or dtype)
+        is bound in the scope, into a tensor it already holds where it
+        can.  Returns the fetched tensors, clones where a fetch names state
+        (the next step overwrites the state's tensor).  ``commit=False``
+        writes nothing: the block runs on clones of the state it writes,
+        random ops draw from a copy of the scope's generator (or one of
+        their own), and initialized state is dropped."""
+        env: Dict[str, Any] = dict(zip(entry.state_in, state))
         if commit:
-            for n in entry.state_out:
-                if n in env:
-                    scope.update_var(n, env[n])
-        return [ctx.read(n) for n in entry.fetch_names]
+            homes = {n: env[n] if n in env else scope.find_var(n) for n in entry.state_out}
+        else:
+            env = homes = _private(entry, env)
+        cuda = self.device.type == "cuda"
+        for k, t in feeds.items():
+            env[k] = t.to(self.device, non_blocking=cuda)
+        if commit:
+            gen = self._scope_generator(entry.program, scope)
+        else:
+            gen = scope.find_var(RNG_STATE_VAR)
+            gen = self._new_generator(entry.program) if gen is None else _copy_generator(gen)
+        ctx, rest = self._lower_block(entry, env, homes, gen)
+        if commit:
+            for n, v in rest.items():
+                scope.update_var(n, v)
+        return _fetches(entry, ctx)
 
     def _capture(self, entry: _CacheEntry, feeds: Dict[str, torch.Tensor],
-                 state: list) -> List[torch.Tensor]:
-        """Capture block 0's whole lowering as one CUDA graph into
-        ``entry``, reading static feed buffers that hold this run's feeds.
-        The block first runs once eagerly on a side stream (that builds the
-        kernel library, sets the kernels' attributes and creates cuBLAS's
-        handles and workspaces); its fetches are returned.  The capture
-        launches nothing, so the kernel launch counters it moved are set
-        back and recorded in ``entry.launches`` for each replay to add.  A
-        capture that fails raises."""
+                 state: list, gen) -> Optional[List[torch.Tensor]]:
+        """Capture block 0's whole lowering, with its in-place write-back,
+        as one CUDA graph into ``entry``, reading static feed buffers that
+        hold this run's feeds.  The block first runs once eagerly on a side
+        stream (that builds the kernel library, sets the kernels'
+        attributes and creates cuBLAS's handles and workspaces) on clones
+        of the state it writes and a copy of ``gen``, so neither that run
+        nor the capture, which launches nothing, changes the scope or the
+        generator.  Returns that run's fetches where the block writes no
+        state and draws nothing, else None: the step asked for is then the
+        first replay.
+        ``gen`` (the scope's generator, where the block draws) is
+        registered with the graph, so each replay draws anew and advances
+        it as an eager run does.  The kernel launch counters the capture
+        moved are set back and recorded in ``entry.launches`` for each
+        replay to add.  A capture that fails raises."""
         from ..ops.cuda.build import launch_counters
         dev = self.device
+        homes = dict(zip(entry.state_in, state))
         with torch.cuda.device(dev):
             cur = torch.cuda.current_stream(dev)
             static = {k: torch.empty(t.shape, dtype=t.dtype, device=dev)
@@ -571,32 +689,37 @@ class Executor:
                 self._side_stream = torch.cuda.Stream(dev)
             side = self._side_stream
             side.wait_stream(cur)
-            with torch.cuda.stream(side), torch.no_grad():
-                env = dict(zip(entry.state_in, state))
-                env.update(static)
-                ctx = LowerCtx(entry.block, env, None, dev)
-                lower_block(ctx, entry.block)
-                warm = [ctx.read(n) for n in entry.fetch_names]
+            with torch.cuda.stream(side):
+                private = _private(entry, homes)
+                ctx, _ = self._lower_block(entry, {**private, **static}, private,
+                                           None if gen is None else _copy_generator(gen))
+                # a block that writes state or draws (the generator is state
+                # too) takes its step in the first replay
+                warm = None if entry.state_out or gen is not None else _fetches(entry, ctx)
+                del ctx, private
             cur.wait_stream(side)
-            for t in warm:
+            for t in warm or ():
                 t.record_stream(cur)
 
             counters = launch_counters()
             before = [getattr(w, a) for w, a in counters]
-            default_gen = torch.cuda.default_generators[dev.index]
-            gen_state = default_gen.clone_state()
+            gens = [torch.cuda.default_generators[dev.index]] + ([gen] if gen is not None else [])
+            saved = [g.clone_state() for g in gens]
             graph = torch.cuda.CUDAGraph()
-            env = dict(zip(entry.state_in, state))
-            env.update(static)
-            ctx = LowerCtx(entry.block, env, None, dev)
+            if gen is not None:
+                graph.register_generator_state(gen)
             try:
-                with torch.no_grad(), torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                    lower_block(ctx, entry.block)
+                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                    ctx, rest = self._lower_block(entry, {**homes, **static}, homes, gen)
+                    if rest:
+                        raise RuntimeError(f"the block writes state in another shape or dtype "
+                                           f"than the scope's: {sorted(rest)}")
             except Exception as e:
                 # a capture that fails to end leaves torch's capture stream
-                # current and the default generator in capture mode
+                # current and the generators in capture mode
                 torch.cuda.set_stream(cur)
-                default_gen.graphsafe_set_state(gen_state)
+                for g, st in zip(gens, saved):
+                    g.graphsafe_set_state(st)
                 raise RuntimeError(
                     f"capturing block 0 of program {entry.program.desc.uid} as a CUDA "
                     f"graph failed: {e}") from e
@@ -605,6 +728,7 @@ class Executor:
                 for (w, a), n in zip(counters, moved):
                     setattr(w, a, getattr(w, a) - n)
         entry.graph, entry.static_feeds, entry.state = graph, static, list(state)
+        entry.generator = gen
         entry.outputs = [ctx.read(n) for n in entry.fetch_names]
         entry.launches = {c: n for c, n in zip(counters, moved) if n}
         return warm

@@ -13,9 +13,10 @@ the JAX package does, so both packages build identical ProgramDescs.
 ``core/lower.py`` schedules the groups.
 
 ``draws`` marks a lowering that draws from the executor's generator
-(``True``, or ``draws(op)`` for an op that draws only under some attrs):
-the executor captures no CUDA graph of a program with such an op
-(:func:`op_draws`).
+(``True``, or ``draws(op)`` for an op that draws only under some attrs;
+:func:`op_draws`): a CUDA graph of a program with such an op registers
+the generator, so each replay draws anew.  A generic grad of such an op
+forks the generator (:func:`op_forks`), and its program gets no graph.
 
 ``grad_maker(op, block, no_grad_set)`` emits the grad OpDescs that
 ``append_backward`` appends.  Without one, :func:`default_grad_maker`
@@ -97,6 +98,15 @@ def op_draws(op: OpDesc) -> bool:
     if info is None:
         return False
     return bool(info.draws(op) if callable(info.draws) else info.draws)
+
+
+def op_forks(op: OpDesc) -> bool:
+    """Whether ``op`` is a ``<type>_grad`` op lowered generically whose
+    forward draws: its re-run draws from a fork of the executor's generator
+    (``core/lower.py``), a generator no CUDA graph knows of."""
+    info = OPS.get(op.type) if OPS.has(op.type) else None
+    return (info is None or info.lower is None) and op.type.endswith("_grad") \
+        and op_draws(op)
 
 
 def register_group_lowering(*op_types: str, key: Callable[[OpDesc], Any]):

@@ -26,7 +26,16 @@
 // tensors (a transformer has many of 512 floats) share the card with the
 // large ones instead of each paying a launch.  Every chunk computes lr_t
 // from its tensor's three device scalars; the thread that owns a tensor's
-// chunk 0 writes its beta powers.  The outputs are fresh buffers.
+// chunk 0 writes its beta powers.
+//
+// In place: the host passes p, m1 and m2 as their own outputs (the port
+// updates state in place, as the TPU executor's donated buffers are).
+// Each element is loaded and stored by one thread, loads before stores,
+// and no pointer is __restrict__, so that is race-free.  The beta powers
+// are not: every chunk of a tensor reads beta{1,2}_pow, and a later chunk
+// would read the new value the chunk-0 thread wrote.  Their outputs are
+// fresh one-element buffers, which the caller copies home after the
+// launch.
 //
 // Bound: bytes.  Four tensors are read and three written, 28 bytes an
 // element, with 10 flops: far below the card's flops per byte.  No byte is
@@ -67,7 +76,8 @@ constexpr int kBlocksPerSm = 4;
 constexpr int kSmallTensors = 8;
 constexpr int32_t kFused = 1, kVec4 = 2;
 
-// an entry's pointers: the inputs, then the fresh outputs
+// an entry's pointers: the inputs, then the outputs (PO, M1O, M2O may be P,
+// M1, M2: in place; B1PO and B2PO never alias B1P and B2P)
 enum { P, G, M1, M2, B1P, B2P, LR, PO, M1O, M2O, B1PO, B2PO, kPtrs };
 
 template <int CAP>
@@ -96,7 +106,8 @@ __device__ __forceinline__ void adam1(const Coef& c, float p, float g, float m1,
   po = __fsub_rn(p, __fdiv_rn(__fmul_rn(c.lr_t, m1n), __fadd_rn(__fsqrt_rn(m2n), c.eps)));
 }
 
-// a streaming store: no byte written is read again by this kernel
+// a streaming store: no byte written is read again by this kernel (in
+// place, its element was loaded before, by the same thread)
 __device__ __forceinline__ void store(float4* p, float4 v) { __stcs(p, v); }
 
 template <bool FUSED>
@@ -222,10 +233,11 @@ static_assert(sizeof(Table<kMaxTensors>) <= 32764, "the table must fit the kerne
 }  // namespace
 
 // One launch over n_tensors <= kMaxTensors tensors.  ptrs: kPtrs device
-// pointers an entry (p, g, m1, m2, beta1_pow, beta2_pow, lr, then the fresh
-// p', m1', m2', beta1_pow', beta2_pow'; float32); counts: elements an
-// entry; flags: kFused | kVec4 (every big pointer 16-byte aligned);
-// chunk_start: n_tensors + 1 chunk offsets.  The host arrays are copied
+// pointers an entry (p, g, m1, m2, beta1_pow, beta2_pow, lr, then p', m1',
+// m2' -- p, m1, m2 themselves to update in place, or other buffers -- and
+// beta1_pow', beta2_pow', buffers apart from the inputs; float32);
+// counts: elements an entry; flags: kFused | kVec4 (every big pointer
+// 16-byte aligned); chunk_start: n_tensors + 1 chunk offsets.  The host arrays are copied
 // into the kernel's parameter before this returns.  Launches on ``stream``
 // and returns cudaGetLastError().
 extern "C" int ptt_fused_adam_multi_f32(const int64_t* ptrs, const int64_t* counts,

@@ -12,7 +12,13 @@
 // give the design): a __grid_constant__ table of pointers, element counts,
 // flags and first chunks; a persistent grid walking fixed-size chunks; a
 // binary search over the chunk prefix in shared memory.  Every chunk reads
-// its tensor's lr from the device.  The outputs are fresh buffers.
+// its tensor's lr from the device.
+//
+// In place: the host passes p as its own output (the port updates state in
+// place, as the TPU executor's donated buffers are).  That is race-free:
+// each element is loaded and stored by one thread, the load first, no
+// pointer is __restrict__, and the only value a chunk shares with another,
+// lr, is never written here.
 //
 // Bound: bytes.  Two tensors are read and one written, 12 bytes an
 // element, for one fused multiply-add.  Streaming float4 loads and stores
@@ -133,8 +139,8 @@ static_assert(sizeof(Table<kMaxTensors>) <= 32764, "the table must fit the kerne
 }  // namespace
 
 // One launch over n_tensors <= kMaxTensors tensors.  ptrs: kPtrs device
-// pointers an entry (p, g, lr, then the fresh p'; float32); counts:
-// elements an entry; flags: kVec4 (p, g and p' 16-byte aligned);
+// pointers an entry (p, g, lr, then p': p itself to update in place, or
+// another buffer; float32); counts: elements an entry; flags: kVec4 (p, g and p' 16-byte aligned);
 // chunk_start: n_tensors + 1 chunk offsets.  The host arrays are copied
 // into the kernel's parameter before this returns.  Launches on ``stream``
 // and returns cudaGetLastError().

@@ -24,12 +24,17 @@ beta2_pow_out).  The bias-corrected step size lr_t = lr * sqrt(1 -
 beta2_pow * beta2) / (1 - beta1_pow * beta1) is computed on the device
 from each entry's scalar tensors, never on the host.
 
-The kernels write into fresh tensors (the inputs are left as they were),
-so the caller may still hold the old values; a call's outputs of one kind
-and row shape are views of one allocation (``_carve``).  Both use
-explicit ``_rn`` intrinsics, so each entry is rounded element for element
-as its plain version rounds it.  ``fused_adam`` and ``fused_sgd`` update
-one tensor: a table of one.
+The multi-tensor calls update in place, as the JAX package's executor
+updates donated state: every p (and Adam's m1, m2) is overwritten with its
+update, and the table's output pointers are the inputs' own.  Each element
+is read and written by one thread, so that is race-free.  Adam's beta
+powers are the exception: every chunk of a tensor reads them to form lr_t,
+so their updates go into fresh one-element tensors (one allocation a
+call), which the caller copies home.  Both kernels use explicit ``_rn``
+intrinsics, so each entry is rounded element for element as its plain
+version rounds it; the plain versions update in place too (``copy_``).
+``fused_adam`` and ``fused_sgd`` update one tensor out of place: a table
+of one over clones of the inputs.
 
 Tensors on the CPU go to the plain versions; CUDA tensors launch the
 kernel or raise.  ``fused_sgd.launches`` and ``fused_adam.launches`` count
@@ -56,10 +61,6 @@ ADAM_CAPACITY = 256
 SGD_CAPACITY = 512
 # an entry's flags (kFused, kVec4 in the sources)
 FUSED, VEC4 = 1, 2
-# every output carved from a shared allocation starts a multiple of ALIGN
-# floats into it (256 bytes: the alignment the caching allocator gives a
-# tensor of its own, kept for every kernel that reads a parameter)
-ALIGN = 64
 
 _MULTI_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int]
 _ADAM = build.Entry("ptt_fused_adam_multi_f32",
@@ -118,64 +119,9 @@ def _check(name, t, index, contiguous=True):
         raise ValueError(f"{name} kernel needs contiguous tensors")
 
 
-def _carve(device, shapes, counts, kinds):
-    """``kinds`` lists of fresh float32 tensors of ``shapes`` (``counts``
-    elements) on ``device``; returns the lists, and each tensor's address
-    in each list.  One allocation a kind and row shape (``shape[1:]``) in
-    place of one a tensor, split along its first dimension, so that no
-    view is made one by one; zero-element pads in the split start each
-    tensor ALIGN floats into its allocation.  The host's cost of a step's
-    update is mostly its allocations and views: on an H100 a 186-entry K6
-    call takes 1.6-3.0 ms of host with carved outputs against 5.6-7.1 with a
-    tensor an output, and the training step's update tail 3.9-8.2 against
-    8.6-17.9 ms (tools/k56_sweep.py, tools/host_path_ab.py, in turns).  A
-    kept parameter holds its whole allocation."""
-    lists = [[None] * len(shapes) for _ in range(kinds)]
-    addrs = [[0] * len(shapes) for _ in range(kinds)]
-    for row, members, sizes, keep, offsets, total, scalar in _layout(tuple(shapes)):
-        for kind, addr in zip(lists, addrs):
-            flat = torch.empty((total,) + row, device=device)
-            base = flat.data_ptr()
-            views = flat.split_with_sizes(sizes)
-            for k, i, off in zip(members, keep, offsets):
-                kind[k] = views[i].view(()) if k in scalar else views[i]
-                addr[k] = base + 4 * off
-    return lists, addrs
-
-
-@functools.lru_cache(maxsize=16)
-def _layout(shapes):
-    """``_carve``'s plan for ``shapes``, once for each group's shapes (a
-    step's update repeats them): for each row shape, its members, the
-    split sizes (pads only where needed), the index of each member's piece,
-    its offset in floats, the rows allocated, and the 0-d members."""
-    groups = {}
-    for k, shape in enumerate(shapes):
-        groups.setdefault(tuple(shape[1:]), []).append(k)
-    plan = []
-    for row, members in groups.items():
-        width = math.prod(row)
-        sizes, keep, offsets, total = [], [], [], 0
-        for k in members:
-            n = shapes[k][0] if len(shapes[k]) else 1
-            keep.append(len(sizes))
-            offsets.append(total * width)
-            sizes.append(n)
-            total += n
-            pad = -(total * width) % ALIGN
-            while pad % width:
-                pad += ALIGN
-            if pad:
-                sizes.append(pad // width)
-                total += pad // width
-        scalar = frozenset(k for k in members if not len(shapes[k]))
-        plan.append((row, members, sizes, keep, offsets, total, scalar))
-    return plan
-
-
 def _scalars(device, like):
     """A fresh float32 tensor shaped as each of ``like`` (one-element
-    tensors), all carved from one allocation; and their addresses."""
+    tensors), all views of one allocation; and their addresses."""
     flat = torch.empty(len(like), device=device)
     base = flat.data_ptr()
     return [v if t.dim() == 0 else v.view(t.shape) for v, t in zip(flat.unbind(), like)], \
@@ -217,66 +163,62 @@ def fused_sgd_plain(p, g, lr):
 
 
 def fused_sgd_multi(entries):
-    """One SGD step of every entry ``(p, g, lr)``: p, g of one shape, lr a
-    one-element tensor.  Returns the updated parameters in fresh tensors,
-    in the entries' order."""
+    """One SGD step of every entry ``(p, g, lr)`` in place: p, g of one
+    shape, lr a one-element tensor; each p is overwritten with its update.
+    Returns the parameters (the entries' own tensors), in order."""
     if not entries:
         return []
-    shapes, counts = [], []
+    counts = []
     for p, g, lr in entries:
         if g.shape != p.shape:
             raise ValueError(f"fused_sgd: p {tuple(p.shape)} and g {tuple(g.shape)} differ")
         if lr.numel() != 1:
             raise ValueError("fused_sgd: lr must have one element")
-        shapes.append(p.shape)
         counts.append(p.numel())
     if _on_cpu("fused_sgd", entries, 3):
         return fused_sgd_multi_plain(entries)
-    outs, launch = _sgd_launch(entries, shapes, counts)
-    launch()
-    return outs
+    _sgd_launch(entries, counts)()
+    return [e[0] for e in entries]
 
 
 def fused_sgd_multi_plain(entries):
     """``fused_sgd_multi``'s plain version: ``fused_sgd_plain`` entry by
-    entry."""
-    return [fused_sgd_plain(p, g, lr) for p, g, lr in entries]
+    entry, copied into p."""
+    return [p.copy_(fused_sgd_plain(p, g, lr)) for p, g, lr in entries]
 
 
-def _sgd_launch(entries, shapes, counts):
-    """The fresh outputs of a K5 call on the card and a function that
-    launches the kernel writing them (timed alone by chip_smoke.py and
-    tools/k56_sweep.py)."""
+def _sgd_launch(entries, counts):
+    """A function that launches K5 over ``entries`` in place (timed alone
+    by chip_smoke.py and tools/k56_sweep.py)."""
     dev = entries[0][0].device
-    (outs,), (addrs,) = _carve(dev, shapes, counts, 1)
-    rows, flags = sgd_table(entries, addrs, dev.index)
-    return outs, functools.partial(_launch, _SGD, "fused_sgd", fused_sgd, dev, SGD_CAPACITY,
-                                   rows, counts, flags, ())
+    rows, flags = sgd_table(entries, dev.index)
+    return functools.partial(_launch, _SGD, "fused_sgd", fused_sgd, dev, SGD_CAPACITY,
+                             rows, counts, flags, ())
 
 
-def sgd_table(entries, addrs, index):
-    """K5's table for ``entries`` whose outputs lie at ``addrs``: each
-    entry's four pointers (p, g, lr, p') and its flags (VEC4 where p and g
-    are 16-byte aligned; the outputs are).  Raises unless the entries are
-    float32 tensors on CUDA device ``index``, p and g contiguous."""
+def sgd_table(entries, index):
+    """K5's table for ``entries``: each entry's four pointers (p, g, lr and
+    p' = p: in place) and its flags (VEC4 where p and g are 16-byte
+    aligned).  Raises unless the entries are float32 tensors on CUDA device
+    ``index``, p and g contiguous."""
     rows, flags = [], []
     f32 = torch.float32
-    for (p, g, lr), out in zip(entries, addrs):
+    for p, g, lr in entries:
         for t in (p, g):
             if t.get_device() != index or t.dtype != f32 or not t.is_contiguous():
                 _check("fused_sgd", t, index)
         if lr.get_device() != index or lr.dtype != f32:
             _check("fused_sgd", lr, index, contiguous=False)
-        ptrs = (p.data_ptr(), g.data_ptr(), lr.data_ptr(), out)
+        ptrs = (p.data_ptr(), g.data_ptr(), lr.data_ptr(), p.data_ptr())
         rows += ptrs
         flags.append(0 if (ptrs[0] | ptrs[1]) & 15 else VEC4)
     return rows, flags
 
 
 def fused_sgd(p, g, lr):
-    """One SGD step of one tensor (a table of one).  Returns the updated
-    parameter in a fresh tensor."""
-    return fused_sgd_multi([(p, g, lr)])[0]
+    """One SGD step of one tensor, out of place (a table of one over a
+    clone of p).  Returns the updated parameter in a fresh tensor."""
+    return fused_sgd_multi([(p.clone(memory_format=torch.contiguous_format), g, lr)])[0]
 
 
 fused_sgd.launches = 0
@@ -312,11 +254,12 @@ def fused_adam_multi(entries, beta1: float, beta2: float, epsilon: float):
     """One Adam step of every entry ``(p, g, m1, m2, beta1_pow, beta2_pow,
     lr, fused)``: p, g, m1, m2 of one shape, beta1_pow, beta2_pow, lr
     one-element tensors, ``fused`` True for ``pallas_adam``'s expression
-    and False for ``adam``'s.  Returns each entry's (p, m1, m2, beta1_pow,
-    beta2_pow) updated, in the entries' order."""
+    and False for ``adam``'s.  p, m1 and m2 are updated in place, the beta
+    powers into fresh tensors.  Returns each entry's (p, m1, m2,
+    beta1_pow', beta2_pow'), in the entries' order."""
     if not entries:
         return []
-    shapes, counts = [], []
+    counts = []
     for e in entries:
         shape = e[0].shape
         if e[1].shape != shape or e[2].shape != shape or e[3].shape != shape:
@@ -324,49 +267,54 @@ def fused_adam_multi(entries, beta1: float, beta2: float, epsilon: float):
                              f"{[tuple(t.shape) for t in e[:4]]}")
         if e[4].numel() != 1 or e[5].numel() != 1 or e[6].numel() != 1:
             raise ValueError("fused_adam: beta1_pow, beta2_pow and lr must have one element")
-        shapes.append(shape)
         counts.append(e[0].numel())
     if _on_cpu("fused_adam", entries, 7):
         return fused_adam_multi_plain(entries, beta1, beta2, epsilon)
-    outs, launch = _adam_launch(entries, shapes, counts, beta1, beta2, epsilon)
+    pows, launch = _adam_launch(entries, counts, beta1, beta2, epsilon)
     launch()
-    return outs
+    n = len(entries)
+    return [e[:1] + e[2:4] + (b1, b2) for e, b1, b2 in zip(entries, pows[:n], pows[n:])]
 
 
 def fused_adam_multi_plain(entries, beta1: float, beta2: float, epsilon: float):
     """``fused_adam_multi``'s plain version: entry by entry,
     ``fused_adam_plain`` where the entry says ``fused``, else
-    ``adam_plain``."""
-    return [(fused_adam_plain if e[7] else adam_plain)(*e[:7], beta1, beta2, epsilon)
-            for e in entries]
+    ``adam_plain``, with p, m1 and m2 copied into the entry's own."""
+    outs = []
+    for e in entries:
+        pn, m1n, m2n, b1, b2 = (fused_adam_plain if e[7] else adam_plain)(
+            *e[:7], beta1, beta2, epsilon)
+        outs.append((e[0].copy_(pn), e[2].copy_(m1n), e[3].copy_(m2n), b1, b2))
+    return outs
 
 
-def _adam_launch(entries, shapes, counts, beta1, beta2, epsilon):
-    """The fresh outputs of a K6 call on the card and a function that
-    launches the kernel writing them (timed alone by chip_smoke.py and
-    tools/k56_sweep.py)."""
+def _adam_launch(entries, counts, beta1, beta2, epsilon):
+    """The fresh beta powers of a K6 call on the card (each entry's
+    beta1_pow', then each entry's beta2_pow') and a function that launches
+    the kernel over ``entries`` in place, writing them (timed alone by
+    chip_smoke.py and tools/k56_sweep.py)."""
     dev = entries[0][0].device
     n = len(entries)
-    big, addrs = _carve(dev, shapes, counts, 3)
     pows, pow_addrs = _scalars(dev, [e[4] for e in entries] + [e[5] for e in entries])
-    rows, flags = adam_table(entries, addrs + [pow_addrs[:n], pow_addrs[n:]], dev.index)
+    rows, flags = adam_table(entries, pow_addrs[:n], pow_addrs[n:], dev.index)
     # (1 - beta) is computed in double and rounded to float32 by ctypes, as
     # the plain versions' Python scalars are
-    return list(zip(*big, pows[:n], pows[n:])), functools.partial(
+    return pows, functools.partial(
         _launch, _ADAM, "fused_adam", fused_adam, dev, ADAM_CAPACITY, rows, counts, flags,
         (beta1, beta2, 1.0 - beta1, 1.0 - beta2, epsilon))
 
 
-def adam_table(entries, addrs, index):
-    """K6's table for ``entries`` whose p', m1', m2', beta1_pow' and
-    beta2_pow' lie at ``addrs`` (a list of each kind): each entry's 12
-    pointers (its seven inputs, then its five outputs) and its flags (FUSED for
-    ``pallas_adam``'s expression; VEC4 where p, g, m1 and m2 are 16-byte
-    aligned; the outputs are).  Raises unless the entries are float32
-    tensors on CUDA device ``index``, p, g, m1 and m2 contiguous."""
+def adam_table(entries, b1_addrs, b2_addrs, index):
+    """K6's table for ``entries`` whose beta1_pow' and beta2_pow' lie at
+    ``b1_addrs`` and ``b2_addrs``: each entry's 12 pointers (its seven
+    inputs, then its five outputs: p, m1 and m2 themselves, in place, and
+    the two powers) and its flags (FUSED for ``pallas_adam``'s expression;
+    VEC4 where p, g, m1 and m2 are 16-byte aligned).  Raises unless the
+    entries are float32 tensors on CUDA device ``index``, p, g, m1 and m2
+    contiguous."""
     rows, flags = [], []
     f32 = torch.float32
-    for e, po, m1o, m2o, b1o, b2o in zip(entries, *addrs):
+    for e, b1o, b2o in zip(entries, b1_addrs, b2_addrs):
         p, g, m1, m2, b1p, b2p, lr, fused = e
         for t in (p, g, m1, m2):
             if t.get_device() != index or t.dtype != f32 or not t.is_contiguous():
@@ -376,7 +324,7 @@ def adam_table(entries, addrs, index):
                 _check("fused_adam", t, index, contiguous=False)
         ptrs = (p.data_ptr(), g.data_ptr(), m1.data_ptr(), m2.data_ptr())
         rows += ptrs
-        rows += (b1p.data_ptr(), b2p.data_ptr(), lr.data_ptr(), po, m1o, m2o, b1o, b2o)
+        rows += (b1p.data_ptr(), b2p.data_ptr(), lr.data_ptr()) + ptrs[:1] + ptrs[2:] + (b1o, b2o)
         aligned = not (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]) & 15
         flags.append((FUSED if fused else 0) | (VEC4 if aligned else 0))
     return rows, flags
@@ -384,8 +332,10 @@ def adam_table(entries, addrs, index):
 
 def fused_adam(p, g, m1, m2, beta1_pow, beta2_pow, lr, beta1: float,
                beta2: float, epsilon: float):
-    """One Adam step of one tensor in ``pallas_adam``'s expression (a table
-    of one).  Returns (p, m1, m2, beta1_pow, beta2_pow) updated."""
+    """One Adam step of one tensor in ``pallas_adam``'s expression, out of
+    place (a table of one over clones of p, m1 and m2).  Returns (p, m1,
+    m2, beta1_pow, beta2_pow) updated, in fresh tensors."""
+    p, m1, m2 = (t.clone(memory_format=torch.contiguous_format) for t in (p, m1, m2))
     return fused_adam_multi([(p, g, m1, m2, beta1_pow, beta2_pow, lr, True)],
                             beta1, beta2, epsilon)[0]
 

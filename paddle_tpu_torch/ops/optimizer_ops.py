@@ -1,6 +1,9 @@
 """Optimizer update rules as ops.  Each reads Param, Grad and its
 accumulators and writes the ``*Out`` vars, which share their inputs'
-names, so the executor writes the new values back to the scope.
+names: the update is made in place, into the scope's own tensors, as the
+JAX package's executor updates donated state.  An output named apart from
+its input (no op that ``optimizer.py`` emits has one) gets a clone of the
+input, updated in place, so the input keeps its value.
 
 Each family (``sgd`` / ``pallas_sgd``, ``adam`` / ``pallas_adam``) has a
 group lowering: ``core/lower.py`` hands it every update of a step at once,
@@ -27,12 +30,19 @@ def _sgd_key(op):
     return "sgd"
 
 
+def _own(op, slot, out_slot, t):
+    """``t`` (the value of ``op``'s input ``slot``) to be updated in place
+    into ``out_slot``: ``t`` itself where the output shares the input's
+    name, else a clone of it."""
+    return t if op.output(out_slot) == op.input(slot) else t.clone()
+
+
 @register_group_lowering("sgd", "pallas_sgd", key=_sgd_key)
 def _sgd_group(ctx, ops):
     entries = []
     for op in ops:
         p, g, lr = (ctx.read_slot(op, s) for s in ("Param", "Grad", "LearningRate"))
-        entries.append((p, g.contiguous(), lr))
+        entries.append((_own(op, "Param", "ParamOut", p), g.contiguous(), lr))
     for op, out in zip(ops, fused_sgd_multi(entries)):
         ctx.write_slot(op, "ParamOut", out)
 
@@ -50,6 +60,8 @@ def _adam_group(ctx, ops):
     entries = []
     for op in ops:
         p, g, m1, m2, b1p, b2p, lr = (ctx.read_slot(op, s) for s in _ADAM_IN)
+        p, m1, m2 = (_own(op, s, o, t) for s, o, t in
+                     zip(("Param", "Moment1", "Moment2"), _ADAM_OUT, (p, m1, m2)))
         entries.append((p, g.contiguous(), m1, m2, b1p, b2p, lr, op.type == "pallas_adam"))
     for op, outs in zip(ops, fused_adam_multi(entries, *_adam_attrs(ops[0]))):
         for slot, val in zip(_ADAM_OUT, outs):

@@ -24,9 +24,10 @@ profiler, three times); three Adam training steps at 64 x 256 (tokens/s,
 and the host time of the update tail: from the start of the first Adam
 update's lowering to the end of the last, 186 lowerings op by op or one
 group call a step; the allocator's retries a step) and one profiled
-step; where the checkout carves K6's outputs from shared allocations,
-steps with them carved and with a fresh tensor an output, in turns.  Needs one
-CUDA GPU and nvcc.
+step.  In a checkout whose training step replays a CUDA graph the updates
+are lowered only while the first step is captured: the update tail reads
+0 on the timed steps, and the first step's launches include the
+capture's eager run.  Needs one CUDA GPU and nvcc.
 """
 import hashlib
 import json
@@ -143,30 +144,7 @@ def measure(root):
                        "K6_device_ms": prof["by_family_ms"].get("fused_adam (K6)"),
                        "device_busy_ms": prof["device_busy_ms"],
                        "K8_ms": prof["by_family_ms"].get("linear_ce_bwd (K8)")}
-    if hasattr(fused_optimizer, "_carve"):
-        out["carve_ab"] = _carve_ab(torch, fused_optimizer, step)
     print("AB " + json.dumps(out))
-
-
-def _carve_ab(torch, fo, step, rounds=3):
-    """Training steps with K6's outputs carved from one allocation a kind
-    and row shape (as the port makes them) and with a fresh tensor an
-    output (``k56_sweep._fresh``), two steps of each in turns over
-    ``rounds`` rounds: {mode: {step_ms, update_tail_host_ms,
-    alloc_retries}}."""
-    sys.path.insert(0, os.path.join(HERE, "paddle_tpu_torch", "tools"))
-    from k56_sweep import _fresh
-    modes = {"carved": (fo._carve, fo._scalars), "empty": _fresh(torch)}
-    res = {m: {"step_ms": [], "update_tail_host_ms": [], "alloc_retries": []} for m in modes}
-    try:
-        for _ in range(rounds):
-            for mode, (fo._carve, fo._scalars) in modes.items():   # swap the output makers
-                for _ in range(2):
-                    for key, v in zip(res[mode], step()):
-                        res[mode][key].append(v)
-    finally:
-        fo._carve, fo._scalars = modes["carved"]
-    return res
 
 
 def _time_updates():

@@ -20,19 +20,19 @@ The variants:
   one_table   every group through the table of kMaxTensors entries (no
               small table for groups of at most kSmallTensors).
 
-Each variant launches the step's table built once; its CUDA-event time is
-the best of 5 rounds taken in turns (``chip_smoke._best``), and its outputs
-are bit-equal to the as-built kernel's.  A table of one ([512] and the
+Each variant launches the step's table built once, in place; its
+CUDA-event time is the best of 5 rounds taken in turns
+(``chip_smoke._best``), and its outputs from the same inputs (copied back
+before each check; Adam's beta powers, which go to fresh tensors, set to
+NaN) are bit-equal to the as-built kernel's.  A table of one ([512] and the
 [32000, 512] word table) is timed the same way through as_built and
 one_table, event milliseconds and host microseconds a launch.
 
 The wrappers' whole calls (``fused_adam_multi``, ``fused_sgd_multi``: the
-table built in Python, the outputs made, the launch): event time, device
-time (profiler) and host microseconds a call, with the outputs carved from
-one allocation a kind and row shape (as the port does) and with a fresh
-tensor an output (``empty``), the two taken in alternating turns over 5
-rounds and checked bit-equal; the same for the library calls.  Prints one
-JSON line.  Needs one CUDA GPU and nvcc.
+table built in Python, Adam's power outputs made, the launch, all in
+place): event time, device time (profiler) and host microseconds a call
+over 5 rounds; the same for the library calls.  Prints one JSON line.
+Needs one CUDA GPU and nvcc.
 """
 import ctypes
 import json
@@ -99,19 +99,6 @@ def build_variants(build):
     return libs
 
 
-def _fresh(torch):
-    """Stand-ins for ``fused_optimizer._carve`` and ``_scalars`` that give
-    each output a tensor of its own."""
-    def outputs(device, shapes, counts, kinds):
-        lists = [[torch.empty(s, device=device) for s in shapes] for _ in range(kinds)]
-        return lists, [[t.data_ptr() for t in kind] for kind in lists]
-
-    def scalars(device, like):
-        outs = [torch.empty(t.shape, device=device) for t in like]
-        return outs, [t.data_ptr() for t in outs]
-    return outputs, scalars
-
-
 def main():
     sys.path.insert(0, ROOT)
     import torch
@@ -132,35 +119,44 @@ def main():
     symbols = {"K6": "ptt_fused_adam_multi_f32", "K5": "ptt_fused_sgd_multi_f32"}
 
     def prepared(name, entries):
-        """The outputs (flat) of a prepared launch over ``entries``, and the
-        launch."""
-        shapes, counts = [e[0].shape for e in entries], [e[0].numel() for e in entries]
+        """The tensors a prepared launch over ``entries`` writes (flat: the
+        updated inputs, then K6's fresh beta powers), how many of them are
+        inputs, and the launch."""
+        counts = [e[0].numel() for e in entries]
         if name == "K6":
-            outs, launch = fo._adam_launch(entries, shapes, counts, *scalars["K6"][:2],
+            pows, launch = fo._adam_launch(entries, counts, *scalars["K6"][:2],
                                            scalars["K6"][4])
-            return [t for o in outs for t in o], launch
-        return fo._sgd_launch(entries, shapes, counts)
+            ins = [t for e in entries for t in (e[0], e[2], e[3])]
+            return ins + pows, len(ins), launch
+        return [e[0] for e in entries], len(entries), fo._sgd_launch(entries, counts)
 
     # the kernels alone: launches of a table built once (a launch's host
     # cost, ~0.1 ms, is below its device time, so events time the device)
     for name, entries in (("K6", adam), ("K5", sgd)):
-        outputs, launch = prepared(name, entries)
+        outputs, n_in, launch = prepared(name, entries)
+        inputs = [t.clone() for t in outputs[:n_in]]
+
+        def restore():
+            for t, v in zip(outputs, inputs):
+                t.copy_(v)
+            for t in outputs[n_in:]:                # a launch that writes nothing shows
+                t.fill_(float("nan"))
+        restore()
         launch()
         ref = [t.clone() for t in outputs]
         variants = _variant_calls(torch, fo, libs, symbols[name], launch, scalars[name])
         for v, fn in variants.items():
-            for t in outputs:                       # a launch that writes nothing shows
-                t.fill_(float("nan"))
+            restore()
             fn()
             if not all(torch.equal(x, y) for x, y in zip(outputs, ref)):
                 raise AssertionError(f"{name} variant {v} differs from the kernel as built")
         best = cs._best(lambda fn: cs._ms(fn, 20), list(variants.values()), rounds=ROUNDS)
         out[name + " variant_ms"] = dict(zip(variants, best))
-        del ref, outputs
+        del ref, outputs, inputs
         # a table of one: the small table (as built) against the large one
         for k in (min(range(len(entries)), key=lambda i: entries[i][0].numel()),
                   max(range(len(entries)), key=lambda i: entries[i][0].numel())):
-            kept, launch = prepared(name, [entries[k]])      # its outputs live as long
+            kept, _, launch = prepared(name, [entries[k]])   # its outputs live as long
             fns = _variant_calls(torch, fo, {v: libs[v] for v in ("as_built", "one_table")},
                                  symbols[name], launch, scalars[name])
             label = f"{name} table of one {list(entries[k][0].shape)}"
@@ -169,24 +165,14 @@ def main():
             out[label + " host_us"] = dict(zip(fns, cs._best(
                 lambda fn: cs._host_us(torch, fn, iters=2000), list(fns.values()),
                 rounds=ROUNDS)))
-    # the wrappers' whole calls: outputs carved against a fresh tensor each
+    # the wrappers' whole calls, in place
     calls = {"K6": lambda: fo.fused_adam_multi(adam, 0.9, 0.999, 1e-8),
              "K5": lambda: fo.fused_sgd_multi(sgd)}
-    modes = {"carved": (fo._carve, fo._scalars), "empty": _fresh(torch)}
     for name, call in calls.items():
-        got = {}
-        for mode, (fo._carve, fo._scalars) in modes.items():   # swap the output makers
-            got[mode] = call()
-        a, b = ([t for o in got[m] for t in (o if name == "K6" else (o,))] for m in modes)
-        if not all(torch.equal(x, y) for x, y in zip(a, b)):
-            raise AssertionError(f"{name}: carved and fresh outputs differ")
-        del got, a, b
-        res = {m: {"ms": [], "host_us": []} for m in modes}
+        res = {"ms": [], "host_us": []}
         for _ in range(ROUNDS):
-            for mode, (fo._carve, fo._scalars) in modes.items():
-                res[mode]["ms"].append(cs._ms(call, 20))
-                res[mode]["host_us"].append(cs._host_us(torch, call, iters=200))
-        fo._carve, fo._scalars = modes["carved"]
+            res["ms"].append(cs._ms(call, 20))
+            res["host_us"].append(cs._host_us(torch, call, iters=200))
         out[name + " call"] = res
         out[name + " call_device_ms"] = sum(cs._device_by_kernel(torch, call, 5).values())
     floats = sum(e[0].numel() for e in adam)

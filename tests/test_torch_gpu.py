@@ -518,6 +518,14 @@ def _adam_group(cuda, shapes, seed):
     return entries
 
 
+def _copy_as(t):
+    """A copy of ``t`` as far from 16-byte alignment as ``t`` is (a view
+    one float into a buffer stays one)."""
+    off = (t.data_ptr() % 16) // t.element_size()
+    return torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)[off:].view(
+        t.shape).copy_(t)
+
+
 ADAM_GROUP_SHAPES = [(32000, 512), (512,), (2048, 512), (7,), (512, 2048), (1001,), (3, 5),
                      (64, 130), (0,), (4097,)]
 
@@ -525,21 +533,27 @@ ADAM_GROUP_SHAPES = [(32000, 512), (512,), (2048, 512), (7,), (512, 2048), (1001
 @pytest.mark.parametrize("extra", [0, fused_optimizer.ADAM_CAPACITY])
 def test_fused_adam_multi_bit_equal_to_plain_over_mixed_groups(cuda, extra):
     """One launch over a mixed group (two launches when ``extra`` small
-    tensors push it over one launch's table): every output of every entry
-    bit-equal to its op type's plain version; flipping one entry's
-    expression flag changes its Moment2Out."""
+    tensors push it over one launch's table), in place: every output of
+    every entry bit-equal to its op type's plain version (run in place on
+    other clones of the inputs); flipping one entry's expression flag
+    changes its Moment2Out."""
     shapes = ADAM_GROUP_SHAPES + [(1 + k % 9,) for k in range(extra)]
     entries = _adam_group(cuda, shapes, seed=len(shapes))
+
+    def clones(flip=False):
+        return [tuple(_copy_as(t) for t in e[:7]) + ((not e[7]) if flip and k == 0 else e[7],)
+                for k, e in enumerate(entries)]
+    mine = clones()
     before = fused_adam.launches
-    got = fused_adam_multi(entries, 0.9, 0.999, 1e-8)
+    got = fused_adam_multi(mine, 0.9, 0.999, 1e-8)
     torch.cuda.synchronize()
     assert fused_adam.launches == before + (1 if extra == 0 else 2)
-    for k, (outs, want) in enumerate(zip(got, fused_adam_multi_plain(entries, 0.9, 0.999, 1e-8))):
+    assert all(o[0] is e[0] and o[1] is e[2] and o[2] is e[3] for o, e in zip(got, mine))
+    for k, (outs, want) in enumerate(zip(got, fused_adam_multi_plain(clones(), 0.9, 0.999,
+                                                                     1e-8))):
         for a, b in zip(outs, want):
             assert a.shape == b.shape and torch.equal(a, b), (k, shapes[k])
-    flipped = list(entries)
-    flipped[0] = entries[0][:7] + (not entries[0][7],)
-    again = fused_adam_multi(flipped, 0.9, 0.999, 1e-8)
+    again = fused_adam_multi(clones(flip=True), 0.9, 0.999, 1e-8)
     assert not torch.equal(again[0][2], got[0][2])
     assert all(torch.equal(a, b) for o, w in zip(again[1:], got[1:]) for a, b in zip(o, w))
 
@@ -549,12 +563,13 @@ def test_fused_sgd_multi_bit_equal_to_plain_over_mixed_groups(cuda, extra):
     shapes = ADAM_GROUP_SHAPES + [(1 + k % 9,) for k in range(extra)]
     entries = [e[:2] + (torch.tensor([0.37 + 0.01 * (k % 3)], device=cuda),)
                for k, e in enumerate(_adam_group(cuda, shapes, seed=3))]
+    plain = fused_sgd_multi_plain([(e[0].clone(),) + e[1:] for e in entries])
     before = fused_sgd.launches
     got = fused_sgd_multi(entries)
     torch.cuda.synchronize()
     assert fused_sgd.launches == before + (1 if extra == 0 else 2)
-    for k, (out, want) in enumerate(zip(got, fused_sgd_multi_plain(entries))):
-        assert torch.equal(out, want), (k, shapes[k])
+    for k, (out, want) in enumerate(zip(got, plain)):
+        assert out is entries[k][0] and torch.equal(out, want), (k, shapes[k])
 
 
 @pytest.mark.parametrize("op_type", ["adam", "pallas_adam"])
@@ -571,7 +586,7 @@ def test_adam_op_on_the_card_bit_equal_to_the_cpu(cuda, op_type):
     entry = _adam_group(cuda, [(4096, 33)], seed=9)[0]
     res = []
     for dev in (cuda, torch.device("cpu")):
-        ctx = LowerCtx(None, {s: t.to(dev) for s, t in zip(ins, entry[:7])},
+        ctx = LowerCtx(None, {s: t.to(dev, copy=True) for s, t in zip(ins, entry[:7])},
                        torch.Generator(), dev)
         lower_op(ctx, op)
         res.append([ctx.read(s).cpu() for s in outs])
@@ -719,6 +734,9 @@ def _train_step_on_card_vs_cpu(kernels):
             "src@SEQ_LEN": np.array([32, 0, 9], np.int32),
             "trg@SEQ_LEN": np.array([5, 32, 1], np.int32)}
     fetch = [loss.name] + [p + "@GRAD" for p in params]
+    # the step's graph is captured first (its eager run on clones of the
+    # state launches every kernel once): the launches counted are one replay's
+    gpu.precompile(main, feed=feed, fetch_list=fetch, scope=gpu_scope)
     counts = [f.launches for f in (flash_attn_fwd, gather_rows, scatter_add_rows,
                                    fused_adam, linear_ce_fwd, linear_ce_bwd)]
     got = gpu.run(main, feed=feed, fetch_list=fetch, scope=gpu_scope)
@@ -760,6 +778,7 @@ def test_small_bf16_training_step_on_card_matches_cpu(cuda):
             "trg@SEQ_LEN": np.array([5, 32, 1], np.int32)}
     fetch = [loss.name] + [p + "@GRAD" for p in params]
     pt.amp.enable_amp(main)
+    gpu.precompile(main, feed=feed, fetch_list=fetch, scope=gpu_scope)
     before = (flash_attn_fwd.bf16_launches, scatter_add_rows.bf16_launches,
               linear_ce_fwd.bf16_launches, linear_ce_bwd.launches)
     got = gpu.run(main, feed=feed, fetch_list=fetch, scope=gpu_scope)
@@ -799,6 +818,7 @@ def test_full_width_bf16_step_launches_the_bf16_instances(cuda):
             "trg@SEQ_LEN": np.array([200, 256], np.int32)}
     counters = (flash_attn_fwd, gather_rows, scatter_add_rows, fused_adam, linear_ce_fwd,
                 linear_ce_bwd)
+    exe.precompile(main, feed=feed, fetch_list=[loss], scope=scope)
     before = [f.launches for f in counters] + [f.bf16_launches for f in
                                                (flash_attn_fwd, scatter_add_rows, linear_ce_fwd)]
     (l,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
@@ -946,6 +966,7 @@ def test_small_sgd_training_step_on_card_launches_fused_sgd(cuda):
     persist = [v.name for v in main.list_vars() if v.persistable]
     pt.params_from_numpy({n: scope.find_var(n).cpu().numpy() for n in persist}, cpu_scope, "cpu")
     feed = {"x": np.random.RandomState(0).randn(16, 64).astype(np.float32)}
+    gpu.precompile(main, feed=feed, fetch_list=[loss], scope=scope)
     before = fused_sgd.launches
     gpu.run(main, feed=feed, fetch_list=[loss], scope=scope)
     # one pallas_sgd (the 64 x 96 weight) and three sgd ops: one K5 launch
@@ -1121,11 +1142,11 @@ def test_kept_fetches_pin_no_more_than_the_limit(cuda, monkeypatch):
 
 
 def test_evaluating_between_training_steps_keeps_memory_flat(cuda):
-    """An Adam step (K6 carves every parameter anew) and then a
-    forward-only clone on the same scope, six times: each evaluation is
-    captured again (the control: one capture a step) and replaces the last
-    graph, so the cache's size and the card's allocated memory stay flat,
-    and the evaluation reads the step's parameters."""
+    """An Adam step (K6 updates every parameter in place) and then a
+    forward-only clone on the same scope, six times: the step and the
+    evaluation are each captured once and then replayed, so the cache's
+    size and the card's allocated memory stay flat, and the evaluation
+    reads the step's parameters."""
     import gc
     main, startup = pt.Program(), pt.Program()
     with pt.unique_name.guard(), pt.program_guard(main, startup):
@@ -1147,18 +1168,19 @@ def test_evaluating_between_training_steps_keeps_memory_flat(cuda):
         caps.append(_captures(exe))
     print(f"executables {sizes}, captures {caps}, allocated bytes {mem}")
     assert sizes == [3] * 6
-    assert [b - a for a, b in zip(caps, caps[1:])] == [1] * 5
+    assert caps == [2] * 6
+    assert exe.cache_info()["entries"][1]["kind"] == "graph"
     assert mem[5] == mem[1]
     (want,) = exe._run_eager(test, feed, [loss.name], scope)
     np.testing.assert_array_equal(ev, want)
 
 
 def test_precompile_runs_an_eager_entry_once_writing_no_state(cuda):
-    """An entry that gets no graph (dropout draws) is run once on the card
-    by ``precompile`` -- the kernel library and cuBLAS are set up then, not
-    by the first live request -- and the scope, its generator included, is
-    left as it was.  The control: a second precompile hits and runs
-    nothing."""
+    """A dropout program (its graph registers the scope's generator) is
+    run once on the card by ``precompile``, on a copy of the generator, and
+    captured -- the kernel library and cuBLAS are set up then, not by the
+    first live request -- and the scope, its generator included, is left
+    as it was.  The control: a second precompile hits and runs nothing."""
     from paddle_tpu_torch.core.executor import RNG_STATE_VAR
     main, startup = pt.Program(), pt.Program()
     with pt.unique_name.guard(), pt.program_guard(main, startup):
@@ -1173,7 +1195,7 @@ def test_precompile_runs_an_eager_entry_once_writing_no_state(cuda):
     spec = {"ids": ((4, 1), "int64")}
     launches = gather_rows.launches
     rec = exe.precompile(main, feed=spec, fetch_list=[out], scope=scope)
-    assert rec["kind"] == "eager" and "draws random numbers (dropout)" in rec["reasons"]
+    assert (rec["kind"], rec["aot"], rec["reasons"]) == ("graph", True, [])
     assert gather_rows.launches == launches + 1
     assert sorted(scope._vars) == names
     assert torch.equal(scope.find_var(RNG_STATE_VAR).get_state(), rng)
@@ -1221,3 +1243,159 @@ def test_failed_capture_raises_and_caches_nothing(cuda):
         torch.cuda.synchronize()
     finally:
         del OPS._map[op_type]
+
+
+# ------------------------------------------------ the training step's graph
+
+
+def _small_train_feed():
+    rs = np.random.RandomState(0)
+    return {"src": rs.randint(1, 1000, (3, 32, 1)), "trg": rs.randint(1, 1000, (3, 32, 1)),
+            "lbl": rs.randint(1, 1000, (3, 32, 1)),
+            "src@SEQ_LEN": np.array([32, 0, 9], np.int32),
+            "trg@SEQ_LEN": np.array([5, 32, 1], np.int32)}
+
+
+def _sgd_train_programs():
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        src = layers.data(name="src", shape=[1], dtype="int64", lod_level=1)
+        trg = layers.data(name="trg", shape=[1], dtype="int64", lod_level=1)
+        lbl = layers.data(name="lbl", shape=[32, 1], dtype="int64")
+        loss, _ = transformer.train_network(src, trg, lbl, 1000, 1000, max_len=32,
+                                            n_layer=2, d_model=64, n_head=4,
+                                            d_inner=256, fuse_final_ce=True)
+        pt.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    return main, startup, loss
+
+
+def _state(main, scope):
+    return {v.name: scope.find_var(v.name) for v in main.list_vars() if v.persistable}
+
+
+@pytest.mark.parametrize("kind", ["float32", "bf16", "sgd"])
+def test_replayed_step_bit_equal_to_an_eager_step(cuda, kind):
+    """A 2+2-layer step through its graph (a replay: the capture and the
+    first replay come before) and eagerly (``_run_eager``, op by op) from
+    the same state and feed: the loss and every parameter, moment and beta
+    power bit-equal, and every state tensor at the address it had before
+    the first step; one capture."""
+    main, startup, loss = _sgd_train_programs() if kind == "sgd" else _train_programs()
+    if kind == "bf16":
+        pt.amp.enable_amp(main)
+    scope, exe = pt.Scope(), pt.Executor()
+    exe.run(startup, scope=scope)
+    feed = _small_train_feed()
+    addrs = {n: t.data_ptr() for n, t in _state(main, scope).items()}
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    state0 = {n: t.clone() for n, t in _state(main, scope).items()}
+    (replayed,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    after = {n: t.clone() for n, t in _state(main, scope).items()}
+    for n, t in _state(main, scope).items():
+        t.copy_(state0[n])
+    (eager,) = exe._run_eager(main, feed, [loss], scope)
+    assert np.isfinite(replayed) and np.array_equal(replayed, eager)
+    differ = [n for n, t in _state(main, scope).items() if not torch.equal(t, after[n])]
+    assert not differ, differ[:8]
+    assert not any(torch.equal(after[n], state0[n]) for n in after if "moment1" in n)
+    assert {n: t.data_ptr() for n, t in _state(main, scope).items()} == addrs
+    info = exe.cache_info()
+    assert info["captures"] == 1 and info["entries"][1]["kind"] == "graph"
+
+
+@pytest.mark.parametrize("shape", [(3 * fused_optimizer.CHUNK + 5,), (32000, 512)])
+def test_fused_adam_in_place_over_several_chunks_bit_equal_to_plain(cuda, shape):
+    """Every chunk of a tensor reads its beta powers: updated in place they
+    would race with the chunk-0 thread's write.  In place over 4 and 2,000
+    chunks, p, m1 and m2 bit-equal to the plain version, the input powers
+    unchanged and the new ones in fresh tensors."""
+    (entry,) = _adam_group(cuda, [shape], seed=11)
+    want = fused_adam_plain(*entry[:7], 0.9, 0.999, 1e-8)
+    pows = [entry[4].clone(), entry[5].clone()]
+    mine = tuple(t.clone() for t in entry[:7]) + entry[7:]
+    (got,) = fused_adam_multi([mine], 0.9, 0.999, 1e-8)
+    torch.cuda.synchronize()
+    assert got[0] is mine[0] and got[1] is mine[2] and got[2] is mine[3]
+    assert torch.equal(mine[4], pows[0]) and torch.equal(mine[5], pows[1])
+    assert got[3].data_ptr() not in (mine[4].data_ptr(), mine[5].data_ptr())
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_add_captured_and_replayed_bit_equal(cuda, dtype):
+    """K3's cooperative sort and its segment sums captured in a CUDA graph:
+    the replay bit-equal to an eager call, and again after new ids are
+    copied into the captured buffer (the control: the first output
+    differs from the second)."""
+    g = torch.Generator().manual_seed(12)
+    w = torch.empty(32000, 512, dtype=dtype, device=cuda)
+    ids = torch.randint(0, 32000, (16384,), generator=g, dtype=torch.int32).to(cuda)
+    ids[::4] = 0
+    rows = torch.randn(16384, 512, generator=g).to(dtype).to(cuda)
+    eager = scatter_add_rows(w, ids, rows)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = scatter_add_rows(w, ids, rows)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    ids.copy_(torch.randint(0, 32000, (16384,), generator=g, dtype=torch.int32).to(cuda))
+    graph.replay()
+    again = scatter_add_rows(w, ids, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and not torch.equal(out, eager)
+
+
+def test_dropout_replays_draw_new_masks_equal_to_eager_runs(cuda):
+    """The executor's generator is registered with the dropout program's
+    graph: three replays draw three masks, equal to three eager runs from
+    the same generator state, which ends where theirs does."""
+    from paddle_tpu_torch.core.executor import RNG_STATE_VAR
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        x = layers.data(name="x", shape=[256])
+        y = layers.dropout(x, dropout_prob=0.5, is_test=False)
+    scope, exe = pt.Scope(), pt.Executor()
+    feed = {"x": np.ones((8, 256), np.float32)}
+    exe.run(main, feed=feed, fetch_list=[y], scope=scope)        # the capture
+    gen = scope.find_var(RNG_STATE_VAR)
+    state = gen.get_state()
+    replays = [exe.run(main, feed=feed, fetch_list=[y], scope=scope)[0] for _ in range(3)]
+    end = gen.get_state()
+    gen.set_state(state)
+    eager = [exe._run_eager(main, feed, [y], scope)[0] for _ in range(3)]
+    assert exe.cache_info()["entries"][0]["kind"] == "graph"
+    assert exe.cache_info()["captures"] == 1
+    for a, b in zip(replays, eager):
+        np.testing.assert_array_equal(a, b)
+    assert not np.array_equal(replays[0], replays[1])
+    assert 0.3 < float((replays[0] == 0).mean()) < 0.7
+    assert torch.equal(gen.get_state(), end)
+
+
+def test_precompile_of_a_training_step_writes_nothing(cuda):
+    """``precompile`` of an Adam step captures its graph from an eager run
+    on clones of the state and a copy of the generator: the scope and the
+    generator bit-equal after it; the first run then replays (no capture)
+    and equals an eager step from the same state."""
+    from paddle_tpu_torch.core.executor import RNG_STATE_VAR
+    main, startup, loss = _train_programs()
+    scope, exe = pt.Scope(), pt.Executor()
+    exe.run(startup, scope=scope)
+    feed = _small_train_feed()
+    before = {n: t.clone() for n, t in _state(main, scope).items()}
+    rng = scope.find_var(RNG_STATE_VAR).get_state()
+    rec = exe.precompile(main, feed=feed, fetch_list=[loss], scope=scope)
+    assert (rec["kind"], rec["aot"], rec["reasons"]) == ("graph", True, [])
+    assert all(torch.equal(t, before[n]) for n, t in _state(main, scope).items())
+    assert torch.equal(scope.find_var(RNG_STATE_VAR).get_state(), rng)
+    captures = exe.cache_info()["captures"]
+    (got,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    assert exe.cache_info()["captures"] == captures
+    after = {n: t.clone() for n, t in _state(main, scope).items()}
+    for n, t in _state(main, scope).items():
+        t.copy_(before[n])
+    (want,) = exe._run_eager(main, feed, [loss], scope)
+    assert np.array_equal(got, want)
+    assert all(torch.equal(t, after[n]) for n, t in _state(main, scope).items())

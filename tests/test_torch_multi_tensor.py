@@ -127,28 +127,6 @@ def _adam_entries(counts, offset=()):
     return entries
 
 
-def _assert_carved(lists, addrs):
-    """Each carved output at its address, 16-byte aligned, and apart from
-    every other output of its kind."""
-    for kind, addr in zip(lists, addrs):
-        spans = sorted((a, a + 4 * t.numel()) for t, a in zip(kind, addr))
-        assert all(a % 16 == 0 for a, _ in spans)
-        assert all(b <= c for (_, b), (c, _) in zip(spans, spans[1:]))
-        assert all(t.data_ptr() == a for t, a in zip(kind, addr) if t.numel())
-
-
-def test_carve_groups_by_row_shape():
-    shapes = [torch.Size(s) for s in ((3, 5), (7,), (), (2, 5), (4, 6, 2), (1, 5), (0,), (9,))]
-    lists, addrs = fo._carve(CPU, shapes, [s.numel() for s in shapes], 2)
-    for kind in lists:
-        assert [t.shape for t in kind] == shapes and all(t.is_contiguous() for t in kind)
-    # the three rows of 5 floats share one allocation (one untyped storage)
-    stores = [t.untyped_storage().data_ptr() for t in lists[0]]
-    assert stores[0] == stores[3] == stores[5] and stores[1] == stores[2] == stores[7]
-    assert len({stores[0], stores[1], stores[4]}) == 3
-    _assert_carved(lists, addrs)
-
-
 CASES = [[1, 3, 4, 5, 2048, 4095, 4097], [4097, 5, 4095, 1, 2048, 4, 3]]
 CPU = torch.device("cpu")
 
@@ -158,19 +136,17 @@ CPU = torch.device("cpu")
 def test_walk_writes_every_element_once(counts, chunk):
     n = len(counts)
     entries = _adam_entries(counts, offset=(3,))
-    big, addrs = fo._carve(CPU, [e[0].shape for e in entries], counts, 3)
     pows, pow_addrs = fo._scalars(CPU, [e[4] for e in entries] + [e[5] for e in entries])
     assert pow_addrs == [t.data_ptr() for t in pows]
-    rows, flags = fo.adam_table(entries, addrs + [pow_addrs[:n], pow_addrs[n:]],
-                                -1)   # -1: the CPU
+    rows, flags = fo.adam_table(entries, pow_addrs[:n], pow_addrs[n:], -1)   # -1: the CPU
     assert len(rows) == 12 * n
     for k, e in enumerate(entries):
         assert rows[12 * k:12 * k + 7] == [t.data_ptr() for t in e[:7]]
-        outs = [kind[k] for kind in big] + [pows[k], pows[n + k]]
+        # in place: p', m1', m2' are p, m1, m2; the powers go to fresh scalars
+        outs = [e[0], e[2], e[3], pows[k], pows[n + k]]
         assert rows[12 * k + 7:12 * k + 12] == [t.data_ptr() for t in outs]
-        assert all(t.shape == e[0].shape and t.is_contiguous() for t in outs[:3])
         assert all(t.shape == () for t in outs[3:])
-    _assert_carved(big, addrs)
+    assert len({t.data_ptr() for t in pows}) == 2 * n
     # the offset view goes element by element; every other entry is aligned
     assert [f & fo.VEC4 for f in flags] == [0 if k == 3 else fo.VEC4 for k in range(n)]
     assert [f & fo.FUSED for f in flags] == [fo.FUSED * (k % 2 == 0) for k in range(n)]
@@ -189,10 +165,9 @@ def test_walk_over_more_tensors_than_one_launch_holds():
     counts[5] = 0
     p = [torch.zeros(n) for n in counts]
     entries = [(t, t, torch.ones(1)) for t in p]
-    (outs,), (addrs,) = fo._carve(CPU, [t.shape for t in p], counts, 1)
-    rows, flags = fo.sgd_table(entries, addrs, -1)
-    assert len(rows) == 4 * len(counts) and rows[3::4] == addrs
-    _assert_carved([outs], [addrs])
+    rows, flags = fo.sgd_table(entries, -1)
+    # in place: each p' is p
+    assert len(rows) == 4 * len(counts) and rows[3::4] == rows[0::4]
     launches = fo.plan_launches(counts, fo.SGD_CAPACITY, 8)
     assert [first for first, _ in launches] == [0, fo.SGD_CAPACITY]
     cover, _, first_chunks = _walk(counts, flags, fo.SGD_CAPACITY, 8, SGD_SRC, blocks=7)
@@ -234,7 +209,10 @@ def _scale_op(x, out, scale=0.5):
 
 
 def _ctx(env):
-    return LowerCtx(None, dict(env), torch.Generator(), torch.device("cpu"))
+    """A context over clones of ``env``'s tensors: the updates write their
+    inputs in place."""
+    return LowerCtx(None, {k: v.clone() for k, v in env.items()}, torch.Generator(),
+                    torch.device("cpu"))
 
 
 def _assert_envs_equal(a, b):
@@ -257,8 +235,9 @@ def test_adam_group_is_each_ops_own_lowering_bit_for_bit():
     # each entry computes its op type's expression: adam's composed
     # ((1 - b2) * g) * g, pallas_adam's fused_adam_plain
     args = [[env[n + x] for x in _SUFFIX] + [env["lr"]] for n in names]
-    plain = fo.fused_adam_multi_plain([(*a, k % 2 == 1) for k, a in enumerate(args)],
-                                      0.9, 0.999, 1e-8)
+    # the plain group version updates p, m1 and m2 in place: on clones
+    plain = fo.fused_adam_multi_plain([(*(t.clone() for t in a), k % 2 == 1)
+                                       for k, a in enumerate(args)], 0.9, 0.999, 1e-8)
     differ = 0
     for k, n in enumerate(names):
         want = (fo.fused_adam_plain if k % 2 else fo.adam_plain)(*args[k], 0.9, 0.999, 1e-8)
@@ -283,7 +262,8 @@ def test_sgd_group_is_each_ops_own_lowering_bit_for_bit():
     for op in ops:
         lower_op(single, op)
     _assert_envs_equal(group.env, single.env)
-    plain = fo.fused_sgd_multi_plain([(env[n], env[n + "@GRAD"], env["lr2"]) for n in names])
+    plain = fo.fused_sgd_multi_plain([(env[n].clone(), env[n + "@GRAD"], env["lr2"])
+                                      for n in names])
     for n, want in zip(names, plain):
         assert torch.equal(group.env[n], want)
         assert torch.equal(want, fo.fused_sgd_plain(env[n], env[n + "@GRAD"], env["lr2"]))
@@ -300,9 +280,9 @@ def test_multi_entries_against_the_jax_package():
     env = _env(names, rs, shapes={"a0": (64, 130), "a1": (1001,), "a2": (7,)})
     entries, arrays = [], []
     for k, n in enumerate(names):
-        args = [env[n + x] for x in _SUFFIX] + [env["lr"]]
+        args = [env[n + x].clone() for x in _SUFFIX] + [env["lr"]]
         entries.append((*args, k != 1))
-        arrays.append([a.numpy() for a in args])
+        arrays.append([a.numpy().copy() for a in args])
     got = fo.fused_adam_multi(entries, 0.9, 0.999, 1e-8)
     for k, (outs, arr) in enumerate(zip(got, arrays)):
         if k != 1:
@@ -323,10 +303,11 @@ def test_multi_entries_against_the_jax_package():
             assert a.shape == b.shape
             err = np.abs(a.numpy().astype(np.float64) - b).max() / max(np.abs(b).max(), 1e-30)
             assert err <= ADAM_VS_JAX_RTOL
-    sgd = [(env[n], env[n + "@GRAD"], env["lr2"]) for n in names]
-    for (p, g, lr), out in zip(sgd, fo.fused_sgd_multi(sgd)):
-        ref = jax_fused_sgd(jnp.asarray(p.numpy()), jnp.asarray(g.numpy()),
-                            jnp.asarray(lr.numpy()), interpret=True)
+    sgd = [(env[n].clone(), env[n + "@GRAD"], env["lr2"]) for n in names]
+    refs = [jax_fused_sgd(jnp.asarray(p.numpy()), jnp.asarray(g.numpy()),
+                          jnp.asarray(lr.numpy()), interpret=True) for p, g, lr in sgd]
+    for (p, _, _), out, ref in zip(sgd, fo.fused_sgd_multi(sgd), refs):
+        assert out is p
         np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
 
 
