@@ -116,7 +116,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
     the launches a step (K1 36 in bf16, K2 4, K3 4 in bf16, K6 1, K7 1 in
     bf16, K8 1 in float32); tokens/s and a profile gated as phase 8's;
     then phase 17;
-15. a ``{"kernels": [...]}`` line with each kernel's launches on its path,
+15. a ``{"kernels": [...]}`` line with each kernel's launches on its path
+    (and, as ``launches_trainer``, in phase 18's pipelined Trainer run and
+    its bf16 Trainer, counted alone),
     error against its plain version, times, and bound; K4's entry lists
     its quantize kernels under ``quantizers``, K7's and K8's both of their
     bounds (float32 on the CUDA cores, and three TF32 products), K3's times
@@ -145,7 +147,30 @@ Phases, each fatal on failure (non-zero exit, no result line):
     through the graph and eagerly in alternating turns, the peak device
     memory of a step each way, and a profile of each (device idle share;
     both gated as phase 8) (``{"training_graph_float32_Adam": ...}``,
-    ``..._float32_SGD``, ``..._bf16_Adam``).
+    ``..._float32_SGD``, ``..._bf16_Adam``);
+18. the ``Trainer`` at phase 7's full width (Adam, float32) from a seeded
+    reader through ``reader.batch`` and the pow2 ``DataFeeder`` (source
+    lengths in [129, 256], target and label at 256): ``Trainer(pipeline=
+    True)`` over one epoch of 6 batches (batches staged by the
+    ``FeedStager`` on its own stream) and ``Trainer(pipeline=False)`` from
+    the same state over the same batches, losses and every parameter
+    bit-equal, no capture after step 0, each later step's launches from
+    the counters K1 36, K2 4, K3 4, K6 1, K7 1, K8 1 (step 0: twice, the
+    eager run before the capture and the first replay); ``save_params``
+    after step 3 and a new ``Trainer(param_path=)`` holding every
+    persistable bit-equal; ``CheckpointConfig(step_interval=2)``: a run
+    stopped after step 3, resumed by a new Trainer, repeating steps 3-5's
+    losses and the final parameters bit for bit; ``clone(for_test=True)``
+    on a held-out batch, its second run a replay bit-equal to the eager
+    run, no state changed; a 3-step ``Trainer(amp=AmpConfig())`` on one
+    batch, losses falling, phase 14's launches a step.  It prints
+    tokens/s through the Trainer both ways (a warm epoch, to the last
+    loss on the host) beside an ``exe.run`` loop on the same executor and
+    phase 7's, the Trainer's host ms a step outside ``run`` (``wait_s``,
+    ``handler_s``, from ``telemetry.STEPS``), profiles of a warm 6-step
+    epoch each way (device idle share; launches by family gated at 6
+    steps' K1 36, K2 4, K3 8, K7 2, K8 32, K6 1 a step), the staged copy per
+    batch, and what a second feed signature (a half batch) costs.
 
 Phase 9 also takes the 2 x 256 step in bf16 (``enable_amp``) with cuBLAS's
 reduced-precision bf16 reductions allowed (PyTorch's default) and not, and
@@ -259,6 +284,9 @@ BF16_STEP_GRAD_NREL = 0.2
 BF16_WITNESS_FACTOR = 2.0
 BF16_WITNESS_FLOOR = 1e-3
 
+
+# phase 7's exe.run loop, read beside phase 18's Trainer
+PHASE7 = {}
 
 # the primer's kernels (``torch.cuda._sleep``), left out of every profile
 PRIMER = "spin_kernel"
@@ -1900,6 +1928,8 @@ def phase_training(torch, card, sgd=False):
         del state0
     del after1
     step_ms = 1e3 * float(np.mean(step_s[1:]))
+    if not sgd:
+        PHASE7["tokens_per_s"] = TRAIN_B * T / step_ms * 1e3
     real = int(feed["trg@SEQ_LEN"].sum())
     print(f"{label} step: {step_ms:.2f} ms mean of {steps - 1} timed step(s) (host clock to the "
           f"loss on the host, one graph replay a step); {TRAIN_B * T / step_ms * 1e3:.0f} tokens/s "
@@ -2538,6 +2568,451 @@ def phase_bf16_step(torch, card):
     return launches, bf16_launches
 
 
+# ------------------------------------------------------------ phase 18: the Trainer
+
+TRAINER_STEPS = 6          # phase 18's epoch: whole batches of TRAIN_B rows
+TRAINER_STOP_AFTER = 3     # the checkpointed run stops after this step
+
+
+def _trainer_train_func(pt):
+    """Phase 7's model as a Trainer's ``train_func``."""
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.models import transformer
+
+    def train_func():
+        src = layers.data(name="src", shape=[1], dtype="int64", lod_level=1)
+        trg = layers.data(name="trg", shape=[1], dtype="int64", lod_level=1)
+        lbl = layers.data(name="lbl", shape=[T, 1], dtype="int64")
+        loss, _ = transformer.train_network(src, trg, lbl, VOCAB, VOCAB, max_len=T,
+                                            n_layer=N_LAYER, d_model=D_MODEL, n_head=H,
+                                            d_inner=D_INNER, fuse_final_ce=True)
+        return loss
+    return train_func
+
+
+def _trainer_samples(n, seed):
+    """A seeded sample reader: source lengths in [129, 256] (pow2 buckets
+    pad every batch to 256, K1's key mask reads the true lengths), target
+    and label at 256."""
+    def reader():
+        rs = np.random.RandomState(seed)
+        for _ in range(n):
+            yield (rs.randint(1, VOCAB, (rs.randint(T // 2 + 1, T + 1), 1)).astype(np.int64),
+                   rs.randint(1, VOCAB, (T, 1)).astype(np.int64),
+                   rs.randint(1, VOCAB, (T, 1)).astype(np.int64))
+    return reader
+
+
+def _make_trainer(pt, **kw):
+    with pt.unique_name.guard():
+        return pt.Trainer(_trainer_train_func(pt), lambda: pt.optimizer.Adam(learning_rate=1e-3),
+                          place=pt.CUDAPlace(0), **kw)
+
+
+class _TrainerRun:
+    """An event handler: the events, each step's metrics (handles on the
+    pipelined path, read after the run), the launch counters and captures
+    after each step, and optional actions after given steps."""
+
+    def __init__(self, trainer, counters, actions=None):
+        self.trainer, self.counters, self.actions = trainer, counters, actions or {}
+        self.events, self.metrics, self.after_step = [], [], []
+
+    def __call__(self, ev):
+        self.events.append((type(ev).__name__, ev.epoch, getattr(ev, "step", None)))
+        if type(ev).__name__ == "EndStepEvent":
+            self.metrics.append(ev.metrics[0])
+            self.after_step.append(({k: f.launches for k, f in self.counters.items()},
+                                    {k: getattr(f, "bf16_launches", 0)
+                                     for k, f in self.counters.items()},
+                                    self.trainer.exe.cache_info()["captures"]))
+            action = self.actions.get(ev.step)
+            if action is not None:
+                action(self.trainer)
+
+    def losses(self):
+        return [float(np.asarray(m)) for m in self.metrics]
+
+    def per_step(self, first=1):
+        """Launches each step from ``first`` on made, from the counters."""
+        out = []
+        for (a, _, _), (b, _, _) in zip(self.after_step[first - 1:], self.after_step[first:]):
+            out.append({k: b[k] - a[k] for k in b})
+        return out
+
+
+def _train_once(trainer, reader, counters, actions=None):
+    for f in counters.values():
+        f.launches = 0
+        if hasattr(f, "bf16_launches"):
+            f.bf16_launches = 0
+    run = _TrainerRun(trainer, counters, actions)
+    trainer.train(1, run, reader=reader, feed_order=["src", "trg", "lbl"])
+    losses = run.losses()
+    return run, losses
+
+
+def _persist_numpy(trainer):
+    """The trainer's persistables as host copies."""
+    return {v.name: trainer.scope.find_var(v.name).to("cpu", copy=True).numpy()
+            for v in trainer.train_program.list_vars() if v.persistable}
+
+
+def _carry_numpy(trainer, state):
+    import torch
+    for n, a in state.items():
+        t = trainer.scope.find_var(n)
+        t.copy_(torch.from_numpy(a).reshape(t.shape))
+
+
+def _free_trainer(torch, label):
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{label} released: {torch.cuda.memory_allocated() / 2**20:.0f} MiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**20:.0f} MiB reserved on the card")
+
+
+def _gate_trainer_steps(run, label, per_step, bf16_per_step=None, steps=TRAINER_STEPS):
+    """One replay a step: no capture after step 0, and the launches each
+    later step made from the wrappers' counters equal to the step's design
+    (step 0 adds the eager run before its capture); returns the first
+    later step's launches."""
+    captures = [c for _, _, c in run.after_step]
+    per = run.per_step()
+    bf16_per = [{k: b[1][k] - a[1][k] for k in b[1]}
+                for a, b in zip(run.after_step, run.after_step[1:])]
+    print(f"{label}: {len(run.after_step)} steps; captures after each step {captures}; launches "
+          f"a step after step 0 {json.dumps(per[0]) if per else None}")
+    if len(run.after_step) != steps or len(set(captures)) != 1:
+        raise AssertionError(f"{label}: {len(run.after_step)} steps, captures after each "
+                             f"{captures}: want {steps} steps, no capture after step 0")
+    want = {k: v for k, v in per_step.items()}
+    bad = [p for p in per if {k: p.get(k, 0) for k in want} != want]
+    if bad:
+        raise AssertionError(f"{label}: launches a step {bad[0]}, want {want}")
+    if bf16_per_step is not None:
+        bad = [p for p in bf16_per if {k: p.get(k, 0) for k in bf16_per_step} != bf16_per_step]
+        if bad:
+            raise AssertionError(f"{label}: bf16 instances a step {bad[0]}, want {bf16_per_step}")
+    first = run.after_step[0][0]
+    if {k: first[k] for k in want} != {k: 2 * v for k, v in want.items()}:
+        raise AssertionError(f"{label}: step 0 launched {first}, want twice the step's "
+                             f"(the eager run before the capture, then the first replay)")
+    return per[0]
+
+
+def _trainer_records(pt, first, n):
+    """The step records of the last ``n`` steps (``telemetry.STEPS``) from
+    index ``first``: medians of wait_s, run_s, handler_s, step_time_s (ms)."""
+    recs = pt.telemetry.STEPS.records()[first:first + n]
+    return {k: 1e3 * float(np.median([r[k] for r in recs]))
+            for k in ("wait_s", "run_s", "handler_s", "step_time_s")}
+
+
+def _timed_epoch(torch, pt, trainer, reader, label, card):
+    """One warm epoch through ``Trainer.train`` (its graph captured): the
+    wall from the call to the last loss on the host, and the records'
+    host times a step."""
+    first = len(pt.telemetry.STEPS.records())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = _TrainerRun(trainer, {})
+    trainer.train(1, run, reader=reader, feed_order=["src", "trg", "lbl"])
+    losses = run.losses()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = len(losses)
+    rec = _trainer_records(pt, first, n)
+    out = {"steps": n, "wall_s": wall, "tokens_per_s": n * TRAIN_B * T / wall,
+           "host_ms_a_step": rec, "losses_finite": bool(np.isfinite(losses).all())}
+    print(f"{label}: {n} warm steps through Trainer.train in {wall:.3f} s, "
+          f"{out['tokens_per_s']:.0f} tokens/s (to the last loss on the host); host ms a step "
+          f"(medians): wait {rec['wait_s']:.3f}, run {rec['run_s']:.3f}, handler "
+          f"{rec['handler_s']:.3f}, step {rec['step_time_s']:.3f} [{card}]")
+    if not out["losses_finite"]:
+        raise AssertionError(f"{label}: losses not finite: {losses}")
+    return out
+
+
+def _exe_run_loop(torch, pt, trainer, reader, card):
+    """Phase 7's loop on the same trainer's executor: the DataFeeder's
+    feeds run by ``exe.run`` one by one, the loss read each step."""
+    program = trainer.train_program
+    feeder = pt.DataFeeder(feed_list=[program.global_block.var(n) for n in ("src", "trg", "lbl")],
+                           program=program, seq_len_buckets="pow2")
+    feeds = [feeder.feed(b) for b in reader()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in feeds:
+        (l,) = trainer.exe.run(program, feed=f, fetch_list=[trainer.loss], scope=trainer.scope)
+        float(l)
+    wall = time.perf_counter() - t0
+    tps = len(feeds) * TRAIN_B * T / wall
+    print(f"phase 7's exe.run loop on the same executor: {len(feeds)} steps in {wall:.3f} s, "
+          f"{tps:.0f} tokens/s (the loss read each step) [{card}]")
+    return {"steps": len(feeds), "wall_s": wall, "tokens_per_s": tps}
+
+
+def _staged_h2d(torch, pt, trainer, reader, card):
+    """The copy to the card one staged batch makes: its bytes (a
+    StagedBatch's ``nbytes``), and the copies' device time (events on a
+    stream of their own) and host time (coercion into pinned buffers and
+    the enqueue), as the stager thread makes them."""
+    from paddle_tpu_torch.core.staging import host_to_device_copy
+    program = trainer.train_program
+    feeder = pt.DataFeeder(feed_list=[program.global_block.var(n) for n in ("src", "trg", "lbl")],
+                           program=program, seq_len_buckets="pow2")
+    feed = feeder.feed(next(iter(reader())))
+    (staged,) = list(trainer.exe.stage_feeds(program, iter([feed])))
+    block = program.desc.block(0)
+    stream = torch.cuda.Stream()
+    pinned = {}
+    dev_ms, host_ms = [], []
+    with torch.cuda.stream(stream):
+        for _ in range(6):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            a.record(stream)
+            for k, v in feed.items():
+                host, dtype = trainer.exe._feed_host(block, k, v)
+                _, pinned[k] = host_to_device_copy(host, trainer.exe.device, dtype, pinned.get(k))
+            b.record(stream)
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            b.synchronize()
+            dev_ms.append(a.elapsed_time(b))
+    out = {"bytes": staged.nbytes, "feeds": {k: [list(v.shape), str(v.dtype)]
+                                             for k, v in staged.items()},
+           "device_ms": float(np.median(dev_ms[1:])), "host_ms": float(np.median(host_ms[1:]))}
+    print(f"staged H2D per batch: {out['bytes']} bytes {json.dumps(out['feeds'])}; the copies "
+          f"{out['device_ms']:.4f} ms on the card, {out['host_ms']:.4f} ms of host (coercion into "
+          f"pinned buffers and the enqueue), medians of 5 [{card}]")
+    return out
+
+
+def _second_signature(torch, pt, trainer, card):
+    """What a partial last batch costs: an epoch of one whole batch and one
+    of half the rows, whose new feed signature is a second capture and a
+    second graph memory pool."""
+    reserved0 = torch.cuda.memory_reserved()
+    n_entries = len(trainer.exe._cache)
+    run = _TrainerRun(trainer, {})
+    t0 = time.perf_counter()
+    trainer.train(1, run, reader=pt.batch(_trainer_samples(TRAIN_B + TRAIN_B // 2, seed=4),
+                                          TRAIN_B), feed_order=["src", "trg", "lbl"])
+    losses = run.losses()
+    wall = time.perf_counter() - t0
+    new = list(trainer.exe._cache.values())[n_entries:]
+    out = {"rows": TRAIN_B // 2, "captures": len(new),
+           "capture_s": [e.compile_s for e in new], "kinds": [e.kind for e in new],
+           "reserved_gib_before": reserved0 / 2 ** 30,
+           "reserved_gib_after": torch.cuda.memory_reserved() / 2 ** 30, "epoch_s": wall}
+    print(f"a partial last batch ({TRAIN_B // 2} rows): {len(new)} new entr(ies), kind "
+          f"{out['kinds']}, capture {[round(c, 3) for c in out['capture_s']]} s; reserved "
+          f"{out['reserved_gib_before']:.2f} -> {out['reserved_gib_after']:.2f} GiB; the epoch of "
+          f"2 batches {wall:.3f} s; losses {losses} [{card}]")
+    if out["kinds"] != ["graph"] or not np.isfinite(losses).all():
+        raise AssertionError(f"a partial last batch: entries {out['kinds']}, losses {losses}")
+    return out
+
+
+def _trainer_profile(torch, pt, trainer, reader, label, card):
+    """A profile of one warm epoch of TRAINER_STEPS batches through
+    ``Trainer.train`` (the epoch's start, the stager's first batch
+    included; the last loss read inside the window): device idle share,
+    and the launches by kernel family held to the steps' design."""
+    def run():
+        r = _TrainerRun(trainer, {})
+        trainer.train(1, r, reader=reader, feed_order=["src", "trg", "lbl"])
+        r.losses()
+        torch.cuda.synchronize()
+    prof = _profile(torch, run, f"trainer_{label}_profile", card,
+                    {"batch": [TRAIN_B, T], "steps": TRAINER_STEPS})
+    if prof is None:
+        raise AssertionError(f"trainer {label}: the profiler recorded no device activity")
+    want = {k: TRAINER_STEPS * v for k, v in _step_families().items()}
+    _gate_step_profile(prof, want, f"trainer {label} ({TRAINER_STEPS} steps)")
+    return {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share")}
+
+
+def phase_trainer(torch, card):
+    """Phase 18: the ``Trainer`` on the card at transformer-base's full
+    width (phase 7's model and Adam), from a seeded reader through
+    ``reader.batch`` and the pow2 ``DataFeeder``.  (a) ``Trainer(pipeline=
+    True)``, one epoch of 6 batches, against ``Trainer(pipeline=False)``
+    from the same state over the same batches: losses and every state
+    tensor bit-equal, one replay a step, launches a step K1 36, K2 4, K3 4
+    calls, K6 1, K7 1, K8 1 (the profile: K3 8, K7 2, K8 32 kernels);
+    (b) ``save_params`` after step 3, and a new ``Trainer(param_path=)``
+    holding every persistable bit-equal; (c) ``CheckpointConfig(
+    step_interval=2)``: a run stopped after step 3, resumed by a new
+    Trainer, repeats steps 3-5's losses and ends with the uninterrupted
+    run's parameters, bit for bit; (d) ``clone(for_test=True)`` on a
+    held-out batch twice: the second run a replay bit-equal to the eager
+    run, no state changed; then a 3-step ``Trainer(amp=AmpConfig())``:
+    one replay a step, losses finite and falling, phase 14's launches.
+    Prints tokens/s through the Trainer both ways beside ``exe.run``'s
+    loop, the Trainer's host time a step outside ``run``, the device idle
+    share of a profiled pipelined and synchronous epoch, and the staged
+    copy per batch."""
+    import shutil
+    import paddle_tpu_torch as pt
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_trainer")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    counters = _counters()
+    reader = pt.batch(_trainer_samples(TRAINER_STEPS * TRAIN_B, seed=1), TRAIN_B)
+    res = {"card": card}
+
+    # (a) pipelined, with save_params after step 3 (b)
+    t0 = time.perf_counter()
+    piped = _make_trainer(pt)
+    start = _persist_numpy(piped)
+    params = [p.name for p in piped.train_program.global_block.all_parameters()]
+    print(f"trainer (pipeline=True) built and initialized in {time.perf_counter() - t0:.2f} s: "
+          f"{len(params)} parameters, {len(start)} persistables")
+    if len(params) != N_PARAMS:
+        raise AssertionError(f"{len(params)} parameters, want {N_PARAMS}")
+    saved = {}
+
+    def save_after_step(trainer):
+        trainer.save_params(os.path.join(workdir, "params"))
+        saved.update(_persist_numpy(trainer))
+    run_p, loss_p = _train_once(piped, reader, counters, {TRAINER_STOP_AFTER: save_after_step})
+    per_p = _gate_trainer_steps(run_p, "trainer pipelined", PER_STEP)
+    if type(run_p.metrics[0]).__name__ != "FetchHandle":
+        raise AssertionError(f"pipelined metrics are {type(run_p.metrics[0]).__name__}")
+    launches_trainer = {k: f.launches for k, f in counters.items()}
+    events_p = run_p.events
+    final_p = {n: piped.scope.find_var(n).to("cpu", copy=True).numpy() for n in params}
+    res["pipelined"] = {"losses": loss_p, "launches_a_step": per_p,
+                        "entry": {k: v for k, v in piped.exe.cache_info()["entries"][-1].items()
+                                  if k != "feeds"}}
+    res["pipelined"]["timed"] = _timed_epoch(torch, pt, piped, reader, "trainer pipelined", card)
+    res["pipelined"]["profile"] = _trainer_profile(
+        torch, pt, piped, pt.batch(_trainer_samples(TRAINER_STEPS * TRAIN_B, seed=2), TRAIN_B),
+        "pipelined",
+        card)
+    res["staged_h2d"] = _staged_h2d(torch, pt, piped, reader, card)
+    res["second_signature"] = _second_signature(torch, pt, piped, card)
+    del piped, run_p
+    _free_trainer(torch, "pipelined trainer")
+
+    # (a) synchronous, from the same state
+    sync = _make_trainer(pt, pipeline=False)
+    _carry_numpy(sync, start)
+    run_s, loss_s = _train_once(sync, reader, counters)
+    per_s = _gate_trainer_steps(run_s, "trainer synchronous", PER_STEP)
+    differ = [n for n in params if not np.array_equal(final_p[n],
+                                                      sync.scope.find_var(n).cpu().numpy())]
+    print(f"trainer pipelined vs synchronous over {TRAINER_STEPS} steps: losses {loss_p} / "
+          f"{loss_s} ({'bit-equal' if loss_p == loss_s else 'NOT bit-equal'}); "
+          f"{len(params) - len(differ)} of {len(params)} parameters bit-equal; events equal "
+          f"{run_s.events == events_p}")
+    if loss_p != loss_s or differ or run_s.events != events_p:
+        raise AssertionError(f"pipelined and synchronous trainers differ: {differ[:8]}")
+    res["synchronous"] = {"losses": loss_s, "launches_a_step": per_s}
+    res["synchronous"]["timed"] = _timed_epoch(torch, pt, sync, reader, "trainer synchronous",
+                                               card)
+    res["synchronous"]["profile"] = _trainer_profile(
+        torch, pt, sync, pt.batch(_trainer_samples(TRAINER_STEPS * TRAIN_B, seed=2), TRAIN_B),
+        "synchronous", card)
+    res["exe_run_loop"] = _exe_run_loop(torch, pt, sync, reader, card)
+    res["phase7_exe_run_tokens_per_s"] = PHASE7.get("tokens_per_s")
+    del sync, run_s
+    _free_trainer(torch, "synchronous trainer")
+
+    # (b) a new trainer from the parameters saved after step 3
+    t0 = time.perf_counter()
+    loaded = _make_trainer(pt, param_path=os.path.join(workdir, "params"))
+    load_s = time.perf_counter() - t0
+    differ = [n for n, a in saved.items()
+              if not np.array_equal(a, loaded.scope.find_var(n).cpu().numpy())]
+    print(f"trainer(param_path=) from save_params after step {TRAINER_STOP_AFTER}: built and "
+          f"loaded in {load_s:.2f} s; {len(saved) - len(differ)} of {len(saved)} persistables "
+          f"bit-equal")
+    if differ or not saved:
+        raise AssertionError(f"param_path reload differs: {differ[:8]}")
+    del loaded, saved
+    _free_trainer(torch, "param_path trainer")
+
+    # (c) checkpoint, stop after step 3, resume
+    ckpt = os.path.join(workdir, "ckpt")
+    first = _make_trainer(pt, checkpoint_config=pt.CheckpointConfig(ckpt, step_interval=2))
+    _carry_numpy(first, start)
+    run_c, loss_c = _train_once(first, reader, counters, {TRAINER_STOP_AFTER: pt.Trainer.stop})
+    if loss_c != loss_p[:TRAINER_STOP_AFTER + 1] or run_c.events[-1] != \
+            ("EndStepEvent", 0, TRAINER_STOP_AFTER):
+        raise AssertionError(f"the checkpointed run: losses {loss_c}, last event "
+                             f"{run_c.events[-1]}")
+    del first, run_c
+    _free_trainer(torch, "checkpointed trainer")
+    t0 = time.perf_counter()
+    resumed = _make_trainer(pt, checkpoint_config=pt.CheckpointConfig(ckpt, step_interval=2))
+    resume_s = time.perf_counter() - t0
+    state = dict(resumed._ckpt_state)
+    run_r, loss_r = _train_once(resumed, reader, counters)
+    differ = [n for n in params if not np.array_equal(final_p[n],
+                                                      resumed.scope.find_var(n).cpu().numpy())]
+    want_r = loss_p[TRAINER_STOP_AFTER:]
+    print(f"trainer resumed from {state} (built and loaded in {resume_s:.2f} s): steps "
+          f"{[e[2] for e in run_r.events if e[0] == 'EndStepEvent']}, losses {loss_r} against the "
+          f"uninterrupted {want_r} ({'bit-equal' if loss_r == want_r else 'NOT bit-equal'}); "
+          f"final parameters {len(params) - len(differ)} of {len(params)} bit-equal")
+    if state != {"epoch_id": 0, "step_id": TRAINER_STOP_AFTER} or loss_r != want_r or differ:
+        raise AssertionError(f"the resume differs: {state}, {loss_r}, {differ[:8]}")
+    res["resume"] = {"from": state, "losses": loss_r}
+
+    # (d) the evaluation clone on a held-out batch
+    test_prog = resumed.train_program.clone(for_test=True)
+    feeder = pt.DataFeeder(feed_list=[test_prog.global_block.var(n) for n in ("src", "trg", "lbl")],
+                           program=test_prog, seq_len_buckets="pow2")
+    held_out = feeder.feed(next(iter(pt.batch(_trainer_samples(TRAIN_B, seed=9), TRAIN_B)())))
+    persist = [v.name for v in resumed.train_program.list_vars() if v.persistable]
+    before = {n: resumed.scope.find_var(n).clone() for n in persist}
+    exe, scope = resumed.exe, resumed.scope
+    (e1,) = exe.run(test_prog, feed=held_out, fetch_list=[resumed.loss], scope=scope)
+    captures = exe.cache_info()["captures"]
+    (e2,) = exe.run(test_prog, feed=held_out, fetch_list=[resumed.loss], scope=scope)
+    (e3,) = exe._run_eager(test_prog, held_out, [resumed.loss], scope)
+    kinds = [e.kind for e in exe._cache.values() if e.program.desc.uid == test_prog.desc.uid]
+    changed = [n for n in persist if not torch.equal(before[n], scope.find_var(n))]
+    print(f"clone(for_test=True): {len(test_prog.desc.block(0).ops)} ops of "
+          f"{len(resumed.train_program.desc.block(0).ops)}; held-out loss {float(e1):.7f} / replay "
+          f"{float(e2):.7f} / eager {float(e3):.7f}; captures by the replay "
+          f"{exe.cache_info()['captures'] - captures}; entry kinds {kinds}; state changed "
+          f"{len(changed)}")
+    if exe.cache_info()["captures"] != captures or kinds != ["graph"] \
+            or not np.array_equal(e2, e3) or changed or not np.isfinite(e2):
+        raise AssertionError(f"the for_test clone: replay {e2} vs eager {e3}, changed {changed[:8]}")
+    res["eval_clone"] = {"loss": float(e2), "ops": len(test_prog.desc.block(0).ops)}
+    del resumed, run_r, before, exe, scope
+    _free_trainer(torch, "resumed trainer")
+
+    # the bf16 trainer: one batch three times
+    once = _trainer_samples(TRAIN_B, seed=3)
+    bf16_reader = pt.batch(pt.reader.chain(once, once, once), TRAIN_B)
+    bf16 = _make_trainer(pt, amp=pt.amp.AmpConfig())
+    run_b, loss_b = _train_once(bf16, bf16_reader, counters)
+    per_b = _gate_trainer_steps(run_b, "trainer bf16", PER_STEP, BF16_PER_STEP, steps=3)
+    print(f"trainer bf16 (amp=AmpConfig()) losses {loss_b}")
+    if not (np.isfinite(loss_b).all() and all(a > b for a, b in zip(loss_b, loss_b[1:]))):
+        raise AssertionError(f"trainer bf16: losses not finite and falling: {loss_b}")
+    res["bf16"] = {"losses": loss_b, "launches_a_step": per_b}
+    bf16_launches = {k: counters[k].bf16_launches for k in BF16_PER_STEP}
+    del bf16, run_b
+    _free_trainer(torch, "bf16 trainer")
+    shutil.rmtree(workdir, ignore_errors=True)
+
+    p, s = res["pipelined"], res["synchronous"]
+    print(f"trainer tokens/s: pipelined {p['timed']['tokens_per_s']:.0f}, synchronous "
+          f"{s['timed']['tokens_per_s']:.0f}, exe.run loop {res['exe_run_loop']['tokens_per_s']:.0f} "
+          f"(phase 7's loop {res['phase7_exe_run_tokens_per_s']}); device idle share of a profiled "
+          f"epoch pipelined {p['profile']['device_idle_share']:.4f}, synchronous "
+          f"{s['profile']['device_idle_share']:.4f} [{card}]")
+    print(json.dumps({"trainer": res}))
+    return launches_trainer, bf16_launches
+
+
 def _release_serving(torch, label):
     """A serving phase's inferencers (and their graphs' memory pools) are
     gone once it returns: collect them before the training phases."""
@@ -2588,6 +3063,8 @@ def main():
     sgd_launches, sgd_steps = phase_training(torch, card, sgd=True)
     bf16 = phase_bf16_kernels(torch, card)
     _, bf16_launches = phase_bf16_step(torch, card)
+    _free_trainer(torch, "bf16 step")
+    trainer_launches, trainer_bf16_launches = phase_trainer(torch, card)
     for name in ("int8_matmul", "abs_max_pair", "quantize_int8"):
         launches[name] = int8_res["launches"][name]
     launches["fused_sgd"] = sgd_launches["fused_sgd"]
@@ -2610,6 +3087,7 @@ def main():
         "max_abs_err": max(c["max_abs_err"] for c in int8_quant.values()),
         **{k: q_main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
     kernels = [
+        # launches_trainer: phase 18's pipelined Trainer run, counted alone
         entry("flash_attn_fwd", "flash_attention_fwd.cu", "flash_attention.py:38", flash,
               ("train", False)),
         entry("gather_rows", "embedding_gather.cu", "embedding.py:48", gather, ("train", VOCAB)),
@@ -2630,6 +3108,8 @@ def main():
                                        "library_device_ms")},
                  launches_per_step=e["launches"] // steps)
     # the bf16 instances (the amp-bf16 step's path), launches from phase 14
+    for e in kernels:
+        e["launches_trainer"] = trainer_launches[e["name"]]
     for name, source, replaces, cases, main_case in (
             ("flash_attn_fwd", "flash_attention_fwd_bf16.cu", "flash_attention.py:38",
              {k: v for k, v in bf16.items() if k[0] == "flash"}, ("flash", False)),
@@ -2638,7 +3118,7 @@ def main():
             ("linear_ce_fwd", "linear_ce.cu", "linear_ce.py:42",
              {0: bf16["linear_ce_fwd"]}, 0)):
         e = dict(entry(name, source, replaces, cases, main_case), name=f"{name}_bf16",
-                 launches=bf16_launches[name])
+                 launches=bf16_launches[name], launches_trainer=trainer_bf16_launches[name])
         kernels.append(e)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

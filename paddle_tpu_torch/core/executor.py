@@ -40,6 +40,13 @@ step's stream right after the step (``staging.prefetch_to_host``);
 ``return_numpy=False`` returns device clones of a graph's outputs, never
 its own buffers, and of fetched state, which the next step overwrites.
 
+Feeds may come staged (``stage_feeds`` / ``run_pipelined``: a
+``FeedStager`` thread coerces batch N+1 into pinned buffers and copies it
+to the card on a stream of its own while step N runs).  ``run`` makes its
+stream wait on the batch's event before anything reads it (a replay's copy
+into its static buffers, or an eager lowering) and marks the staged
+tensors as used by that stream; they are not coerced or moved again.
+
 Places: ``CUDAPlace(i)`` is a real CUDA device and the default; the CPU is
 used only when the caller passes ``CPUPlace()``.  An executor asked for a
 GPU that is not there raises instead of running on the CPU.
@@ -70,7 +77,8 @@ from .framework import Program, Variable, default_main_program
 from .lower import LowerCtx, lower_block
 from .registry import op_draws, op_forks
 from .scope import Scope, global_scope
-from .staging import COUNTERS, FetchHandle, executable_fingerprint, prefetch_to_host
+from .staging import (COUNTERS, FeedStager, FetchHandle, executable_fingerprint,
+                      prefetch_to_host)
 
 # scope var holding the executor's torch.Generator for random ops
 RNG_STATE_VAR = "@RNG_STATE@"
@@ -380,20 +388,44 @@ class Executor:
         legacy flag."""
         return program._amp_policy_fp or bool(program.amp)
 
-    def _feed_tensor(self, block: BlockDesc, name: str, value) -> torch.Tensor:
-        """A feed as a tensor in its declared dtype (the value's own for
-        undeclared ``@SEQ_LEN`` feeds), with 64-bit types narrowed.  A numpy
-        array is coerced on the host; a tensor keeps its device."""
+    @staticmethod
+    def _feed_host(block: BlockDesc, name: str, value) -> Tuple[torch.Tensor, torch.dtype]:
+        """A feed as a tensor (a view of a numpy array) and the dtype it
+        runs in: its declared dtype (the value's own for undeclared
+        ``@SEQ_LEN`` feeds), with 64-bit types narrowed."""
         t = value if isinstance(value, torch.Tensor) \
             else torch.from_numpy(np.ascontiguousarray(value))
         vd = block.find_var(name)
         want = vd.dtype if vd is not None and vd.type == VarType.DENSE_TENSOR \
             else convert_dtype(t.dtype)
-        return t.to(dtype=coerce_feed_dtype(want).torch_dtype)
+        return t, coerce_feed_dtype(want).torch_dtype
+
+    def _feed_tensor(self, block: BlockDesc, name: str, value) -> torch.Tensor:
+        """A feed as a tensor in the dtype it runs in.  A numpy array is
+        coerced on the host; a tensor keeps its device (a staged tensor is
+        in that dtype already, and is returned as it is)."""
+        t, dtype = self._feed_host(block, name, value)
+        return t.to(dtype=dtype)
+
+    def _wait_staged(self, feed) -> None:
+        """A batch staged on the card (a :class:`StagedBatch` with an
+        event): the current stream waits for its copies before anything
+        reads it, and each of its tensors is marked as used by that
+        stream, so its memory is not handed out again before the step that
+        reads it has run."""
+        event = getattr(feed, "event", None)
+        if event is None:
+            return
+        cur = torch.cuda.current_stream(self.device)
+        cur.wait_event(event)
+        for t in feed.values():
+            if isinstance(t, torch.Tensor) and t.is_cuda:
+                t.record_stream(cur)
 
     def _prepare(self, program, feed, fetch_list, scope):
         program = program or default_main_program()
         feed = feed or {}
+        self._wait_staged(feed)
         scope = scope or global_scope()
         fetch_names = [f.name if isinstance(f, Variable) else str(f)
                        for f in (fetch_list or [])]
@@ -447,6 +479,41 @@ class Executor:
         handles = [FetchHandle(t) for t in fetches]
         prefetch_to_host(handles)
         return handles
+
+    # ------------------------------------------------------- async pipeline
+    def stage_feeds(self, program: Optional[Program] = None, feeds=(), depth: int = 2,
+                    reuse: bool = True) -> FeedStager:
+        """Wrap an iterable of host feed dicts in a :class:`FeedStager` that
+        converts batch N+1 on a background thread while batch N runs: on the
+        card each value is coerced into a pinned buffer and copied to the
+        device on the stager's stream, and ``run`` waits on the batch's
+        event and reads the staged tensors as they are.  ``reuse=False``
+        turns off the staged-tensor reuse cache and marks batches
+        donatable."""
+        program = program or default_main_program()
+        block = program.desc.block(0)
+
+        def convert(name, value):
+            return self._feed_host(block, name, value)
+        return FeedStager(convert, feeds, depth=depth, reuse=reuse, device=self.device)
+
+    def run_pipelined(self, program: Optional[Program] = None, feeds=(),
+                      fetch_list: Optional[Sequence] = None, scope: Optional[Scope] = None,
+                      depth: int = 2, donate_feeds: bool = False):
+        """Pipelined multi-step execution: a generator over each step's list
+        of :class:`FetchHandle`.  Batch N+1 is staged (:meth:`stage_feeds`)
+        while step N runs, and fetches do not block (``sync=False``), so the
+        device queue stays full until a handle is read.  ``donate_feeds``
+        turns off the stager's reuse cache; the port has no buffer donation
+        beside it (a graph replay copies its feeds into its own buffers)."""
+        program = program or default_main_program()
+        stager = self.stage_feeds(program, feeds, depth=depth, reuse=not donate_feeds)
+        try:
+            for feed in stager:
+                yield self.run(program, feed=feed, fetch_list=fetch_list, scope=scope,
+                               return_numpy=False, sync=False)
+        finally:
+            stager.close()
 
     def precompile(self, program: Optional[Program] = None, feed: Optional[dict] = None,
                    fetch_list: Optional[Sequence] = None,

@@ -263,11 +263,21 @@ class Program:
         for b in self.blocks:
             b._sync_with_desc()
 
-    def clone(self) -> "Program":
+    def clone(self, for_test: bool = False) -> "Program":
         """A deep copy of the program (a fresh desc uid); parameters stay
-        Parameter objects."""
+        Parameter objects.  ``for_test`` (Fluid's framework.py:1567, as the
+        JAX package ports it) drops the ops whose ``op_role`` is
+        ``backward``, ``optimize`` or ``lr_sched`` (an evaluation run must
+        not step the optimizer), sets ``is_test`` on every op that has the
+        attr (and on dropout and batch_norm), and bumps the desc's
+        version.  The result writes no state, so on the card it replays one
+        CUDA graph per feed signature."""
         p = Program()
         p.desc = self.desc.clone()
+        if for_test:
+            for bd in p.desc.blocks:
+                bd.ops = [od for od in bd.ops
+                          if od.attrs.get("op_role") not in ("backward", "optimize", "lr_sched")]
         p.blocks = [Block(p, i) for i in range(p.desc.num_blocks())]
         for b in p.blocks:
             for name, vd in b.desc.vars.items():
@@ -283,7 +293,19 @@ class Program:
         p.amp = self.amp
         p._amp_policy_fp = self._amp_policy_fp
         p._kernel_policy_fp = self._kernel_policy_fp
+        if for_test:
+            for b in p.blocks:
+                for op in b.ops:
+                    if "is_test" in op.desc.attrs or op.type in ("dropout", "batch_norm"):
+                        op.desc.attrs["is_test"] = True
+            p.desc._bump()
         return p
+
+    def _prune(self, targets: List[str]) -> "Program":
+        """A clone whose block 0 keeps only the ops needed for ``targets``
+        (Fluid's framework/prune.cc)."""
+        from .prune import prune_program
+        return prune_program(self, targets)
 
     def __str__(self):
         return str(self.desc)

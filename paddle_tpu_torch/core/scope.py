@@ -3,6 +3,7 @@ executor's device) or host objects such as the random generator.  Child
 scopes fall through to their parent on lookup."""
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional
 
 
@@ -38,3 +39,17 @@ _global_scope = Scope()
 
 def global_scope() -> Scope:
     return _global_scope
+
+
+@contextlib.contextmanager
+def scope_guard(scope: Scope):
+    """Make ``scope`` the global scope for the block (Fluid's
+    ``executor.scope_guard``): ``io`` and an executor run given no scope
+    read and write it."""
+    global _global_scope
+    prev = _global_scope
+    _global_scope = scope
+    try:
+        yield scope
+    finally:
+        _global_scope = prev

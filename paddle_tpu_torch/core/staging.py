@@ -1,11 +1,19 @@
-"""The executor's pipeline plumbing: counters, pinned fetches and the
-executable fingerprint.
+"""The executor's pipeline plumbing: counters, feed staging, pinned
+fetches and the executable fingerprint.
 
 * :data:`COUNTERS` -- process-wide pipeline counters (cache hits and
-  misses, compiles, sync stalls, fetch timeouts), shared by every
-  executor and shown by ``Executor.cache_info``.  The names are the JAX
-  package's (``paddle_tpu/core/staging.py`` ``PipelineCounters``), so the
-  telemetry registry can take them over when it is ported.
+  misses, compiles, staged batches, reused buffers, sync stalls, fetch
+  timeouts), shared by every executor and shown by
+  ``Executor.cache_info``.  They live in the telemetry registry's
+  ``"pipeline"`` scope under the JAX package's names
+  (``paddle_tpu/core/staging.py`` ``PipelineCounters``).
+* :class:`FeedStager` -- a bounded ring that converts batch N+1 on a
+  background thread while step N runs.  On the card each value is coerced
+  on that thread into a pinned host buffer (:func:`host_to_device_copy`)
+  and copied to the device on the stager's own stream; the
+  :class:`StagedBatch` carries an event the executor's stream waits on
+  before it reads the batch.  A host object fed again reuses its staged
+  tensor.
 * :class:`FetchHandle` -- the value of a fetch.  On the card
   :func:`prefetch_to_host` enqueues its device-to-host copy into pinned
   host memory on the step's stream, right after the step, and records an
@@ -25,38 +33,53 @@ from __future__ import annotations
 
 import hashlib
 import json
+import queue
 import threading
 import time
 import weakref
-from typing import Any, Dict, Optional, Sequence
+from collections import OrderedDict
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..telemetry import REGISTRY
 from .dtypes import to_numpy
 
 __all__ = ["COUNTERS", "PipelineCounters", "PINNED_HANDOUT", "PINNED_HANDOUT_LIMIT",
+           "FeedStager", "StagedBatch", "stager_stats", "host_to_device_copy",
            "FetchHandle", "FetchTimeoutError", "prefetch_to_host", "executable_fingerprint"]
 
 
 class PipelineCounters:
-    """Named integer counters of the pipeline, one instance
-    (:data:`COUNTERS`) shared by every executor."""
+    """Named integer counters of the pipeline, backed by the telemetry
+    :data:`~paddle_tpu_torch.telemetry.REGISTRY` under the ``"pipeline"``
+    scope; one instance (:data:`COUNTERS`) is shared by every executor.
+    The JAX package's counters that have no counterpart here (the
+    persistent compile cache's, a mesh's global assembly) are left out."""
 
-    _FIELDS = ("compiles", "cache_hits", "cache_misses", "sync_stalls",
-               "fetch_timeouts")
+    _FIELDS = ("compiles", "cache_hits", "cache_misses", "staged_batches",
+               "reused_buffers", "buffer_reuse_misses", "feed_fastpath_hits",
+               "sync_stalls", "fetch_timeouts")
 
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._values = dict.fromkeys(self._FIELDS, 0)
+    SCOPE = "pipeline"
+
+    def __init__(self, scope: str = SCOPE):
+        self._scope = scope
+        for k in self._FIELDS:
+            REGISTRY.counter(k, scope=scope)   # pre-registered: snapshots total
 
     def inc(self, name: str, n: int = 1):
-        with self._lock:
-            self._values[name] += n
+        REGISTRY.counter(name, scope=self._scope).inc(n)
+
+    def get(self, name: str) -> int:
+        return REGISTRY.counter(name, scope=self._scope).value
 
     def snapshot(self) -> Dict[str, int]:
-        with self._lock:
-            return dict(self._values)
+        return dict(REGISTRY.snapshot(scope=self._scope))
+
+    def reset(self):
+        REGISTRY.reset(scope=self._scope)
 
 
 COUNTERS = PipelineCounters()
@@ -247,6 +270,292 @@ def prefetch_to_host(handles: Sequence[FetchHandle]) -> int:
         for h in started:
             h._event = event
     return len(started)
+
+
+# ------------------------------------------------------------ feed staging
+
+def host_to_device_copy(value, device, dtype: Optional[torch.dtype] = None,
+                        pinned: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``value`` (a numpy array or a tensor) as a new tensor on ``device`` in
+    ``dtype`` (default: its own), and the pinned buffer it went through.
+
+    On the card a host value is coerced on the host straight into a pinned
+    buffer (``pinned`` when its shape and dtype fit, else a new one), and
+    the copy to the device is enqueued on the current stream without
+    blocking the host: the caller keeps the buffer unwritten until that
+    copy has finished (an event recorded after it).  A value already on the
+    device is converted there; on the CPU the value is only coerced (no
+    pinned buffer: ``None``).  The JAX package's counterpart places a host
+    array as an executable's output (``device_put`` in its stager)."""
+    device = torch.device(device)
+    src = value if isinstance(value, torch.Tensor) \
+        else torch.from_numpy(np.ascontiguousarray(value))
+    dtype = dtype or src.dtype
+    if device.type != "cuda" or src.is_cuda:
+        return src.to(device=device, dtype=dtype), None
+    if pinned is None or pinned.shape != src.shape or pinned.dtype != dtype:
+        pinned = torch.empty(src.shape, dtype=dtype, pin_memory=True)
+    pinned.copy_(src)
+    out = torch.empty(src.shape, dtype=dtype, device=device)
+    out.copy_(pinned, non_blocking=True)
+    return out, pinned
+
+
+class _EndOfStream:
+    pass
+
+
+_EOS = _EndOfStream()
+
+
+class StagedBatch(dict):
+    """A staged feed dict (tensors on the executor's device): ``seq``
+    (staging order), ``nbytes`` (the bytes of its tensors) and
+    ``donatable`` (its tensors are not kept by the stager's reuse cache).
+    On the card ``event`` is recorded on the stager's stream after the
+    batch's copies: the executor's stream waits on it before reading the
+    batch.  A plain dict everywhere else.  (The JAX package's timeline
+    spans and flows of a staged batch wait for the port's profiler.)"""
+
+    __slots__ = ("seq", "nbytes", "donatable", "event")
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.seq: int = -1
+        self.nbytes: int = 0
+        self.donatable: bool = False
+        self.event: Optional["torch.cuda.Event"] = None
+
+
+# live stagers, for queue-depth / bytes-in-flight readings: weak, so a
+# dropped stager never lingers in the stats
+_LIVE_STAGERS: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def stager_stats() -> Dict[str, int]:
+    """Queue depth and staged bytes in flight over every live
+    :class:`FeedStager`."""
+    depth = in_flight = n = 0
+    for s in list(_LIVE_STAGERS):
+        if s._stop.is_set():
+            continue
+        n += 1
+        depth += s.queue_depth
+        in_flight += s.bytes_in_flight
+    return {"stagers": n, "queue_depth": depth, "bytes_in_flight": in_flight}
+
+
+class _Slot:
+    """One pinned host buffer of a stager's ring and the event after the
+    last copy out of it."""
+
+    __slots__ = ("pinned", "event")
+
+    def __init__(self):
+        self.pinned: Optional[torch.Tensor] = None
+        self.event: Optional["torch.cuda.Event"] = None
+
+
+class FeedStager:
+    """Double-buffered feed staging: a daemon thread pulls host feed dicts
+    from ``feeds``, converts each value and parks up to ``depth`` staged
+    batches in a bounded queue, so the executor's feed phase is a dict
+    passthrough.
+
+    ``convert(name, value)`` returns ``(host, dtype)``: the value as a
+    tensor (a view of a numpy array where it can be) and the dtype the
+    executor runs it in.  On the CPU the stager coerces ``host`` to
+    ``dtype``.  On a CUDA ``device`` the thread sets that device and a copy
+    stream of its own as current (both are per thread), coerces each value
+    into a pinned buffer from a ring of ``depth + 2`` per feed name, and
+    enqueues its copy to the device on that stream; one event recorded
+    after the batch's copies travels in the :class:`StagedBatch`.  Before
+    the ring writes a buffer again the thread waits on the event of its
+    last copy, so no buffer is overwritten while a copy out of it is in
+    flight.
+
+    Staged tensors are reused when the *same host object* is fed again
+    (per feed name, keyed by identity through a weakref and by dtype), so
+    epoch-cycled pools pay one copy per distinct buffer; a conversion the
+    cache could not serve counts as ``buffer_reuse_misses``.
+    ``reuse=False`` turns the cache off and marks batches ``donatable``.
+    An error in ``convert`` or in ``feeds`` reaches the consumer."""
+
+    # staged tensors kept per feed name for reuse
+    REUSE_DEPTH = 8
+
+    def __init__(self, convert: Callable[[str, Any], Tuple[torch.Tensor, torch.dtype]],
+                 feeds: Iterable[dict], depth: int = 2, reuse: bool = True, device=None):
+        if depth < 1:
+            raise ValueError(f"FeedStager depth must be >= 1, got {depth}")
+        self._convert = convert
+        self._reuse_enabled = reuse
+        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self._cuda = self.device.type == "cuda"
+        self._stream: Optional["torch.cuda.Stream"] = None   # made on the thread
+        self._ring_depth = depth + 2
+        # name -> (slots, next index)
+        self._ring: Dict[str, List[Any]] = {}
+        self._q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._error: Optional[BaseException] = None
+        # name -> {(id(src), dtype): (weakref(src), staged tensor)}; identity
+        # is checked through the weakref (an id() alone can be recycled);
+        # values that take no weakref are never cached
+        self._reuse: Dict[str, "OrderedDict[tuple, tuple]"] = {}
+        self._bytes_lock = threading.Lock()
+        self._bytes_in_flight = 0
+        _LIVE_STAGERS.add(self)
+        self._thread = threading.Thread(target=self._worker, args=(iter(feeds),),
+                                        daemon=True, name="paddle_tpu_torch-feed-stager")
+        self._thread.start()
+
+    @property
+    def queue_depth(self) -> int:
+        """Staged batches parked now (approximate, lock-free)."""
+        return self._q.qsize()
+
+    @property
+    def bytes_in_flight(self) -> int:
+        return self._bytes_in_flight
+
+    def _add_bytes(self, n: int):
+        with self._bytes_lock:
+            self._bytes_in_flight += n
+
+    # -- background side ---------------------------------------------------
+    def _slot(self, name: str) -> _Slot:
+        """The next ring slot of ``name``, its last copy finished."""
+        ring = self._ring.get(name)
+        if ring is None:
+            ring = self._ring[name] = [[_Slot() for _ in range(self._ring_depth)], 0]
+        slots, i = ring
+        ring[1] = (i + 1) % len(slots)
+        slot = slots[i]
+        if slot.event is not None:
+            slot.event.synchronize()
+        return slot
+
+    def _to_device(self, name: str, val, used: List[_Slot]) -> torch.Tensor:
+        host, dtype = self._convert(name, val)
+        if not self._cuda:
+            return host.to(dtype=dtype)
+        slot = self._slot(name)
+        out, slot.pinned = host_to_device_copy(host, self.device, dtype, slot.pinned)
+        used.append(slot)
+        return out
+
+    def _stage_one(self, feed: dict, seq: int) -> StagedBatch:
+        staged = StagedBatch()
+        staged.seq = seq
+        staged.donatable = not self._reuse_enabled
+        used: List[_Slot] = []
+        for name, val in feed.items():
+            ent_map = self._reuse.setdefault(name, OrderedDict())
+            key = (id(val), str(getattr(val, "dtype", type(val).__name__))) \
+                if self._reuse_enabled else None
+            if key is not None:
+                ent = ent_map.get(key)
+                if ent is not None and ent[0]() is val:
+                    ent_map.move_to_end(key)
+                    staged[name] = ent[1]
+                    COUNTERS.inc("reused_buffers")
+                    continue
+                # a conversion the enabled cache could not serve (reuse=False
+                # converts by design and does not count)
+                COUNTERS.inc("buffer_reuse_misses")
+            dev = self._to_device(name, val, used)
+            staged[name] = dev
+            if key is None:
+                continue
+            try:
+                ent_map[key] = (weakref.ref(val), dev)
+            except TypeError:
+                continue           # not weakrefable: identity unverifiable
+            while len(ent_map) > self.REUSE_DEPTH:
+                ent_map.popitem(last=False)
+        if self._cuda:
+            staged.event = torch.cuda.Event()
+            staged.event.record(self._stream)
+            for slot in used:
+                slot.event = staged.event
+        staged.nbytes = sum(int(v.numel() * v.element_size()) for v in staged.values()
+                            if isinstance(v, torch.Tensor))
+        return staged
+
+    def _worker(self, it: Iterator[dict]):
+        try:
+            if self._cuda:
+                torch.cuda.set_device(self.device)
+                self._stream = torch.cuda.Stream(self.device)
+                torch.cuda.set_stream(self._stream)
+            for seq, feed in enumerate(it):
+                if self._stop.is_set():
+                    return
+                staged = self._stage_one(feed, seq)
+                COUNTERS.inc("staged_batches")
+                while not self._stop.is_set():
+                    try:
+                        self._q.put(staged, timeout=0.1)
+                        self._add_bytes(staged.nbytes)
+                        break
+                    except queue.Full:
+                        continue
+        except BaseException as e:  # noqa: BLE001 -- relayed to the consumer
+            self._error = e
+        finally:
+            while not self._stop.is_set():
+                try:
+                    self._q.put(_EOS, timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+
+    # -- consumer side -----------------------------------------------------
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> StagedBatch:
+        if self._q.empty() and self._thread.is_alive():
+            # the device raced ahead of host staging: an observable, not an error
+            COUNTERS.inc("sync_stalls")
+        while True:
+            try:
+                item = self._q.get(timeout=0.2)
+                break
+            except queue.Empty:
+                if not self._thread.is_alive():
+                    # closed (queue drained) or the worker died: end cleanly
+                    if self._error is not None:
+                        raise self._error
+                    raise StopIteration
+        if isinstance(item, _EndOfStream):
+            self.close()
+            if self._error is not None:
+                raise self._error
+            raise StopIteration
+        self._add_bytes(-item.nbytes)
+        return item
+
+    def _drain(self):
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+
+    def close(self):
+        """Stop the staging thread and drop parked batches (safe to call
+        repeatedly; used on early exit from a training loop).  The queue is
+        drained again after the thread has ended: a batch it parked while
+        stopping would otherwise stay counted in flight."""
+        self._stop.set()
+        self._drain()
+        self._thread.join(timeout=2.0)
+        self._drain()
+        with self._bytes_lock:
+            self._bytes_in_flight = 0
 
 
 def executable_fingerprint(program_fp: str, feed_sig, state_sig,

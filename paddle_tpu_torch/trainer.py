@@ -1,33 +1,356 @@
-"""Inferencer: build an inference program once, initialize its parameters,
-run predictions.
+"""Trainer and Inferencer: the high-level entry points.
 
-The program is built under ``unique_name.guard()`` (fresh counters) so
+``Trainer`` (Fluid's trainer.py:169, ported from the JAX package's
+``trainer.py``): ``train_func`` builds the forward graph and returns the
+loss (or ``[loss, *metrics]``), ``optimizer_func`` returns an optimizer,
+and ``train`` runs epochs over a reader, calling ``event_handler`` with
+``BeginEpochEvent`` / ``BeginStepEvent`` / ``EndStepEvent`` /
+``EndEpochEvent`` in that order.  With ``pipeline=True`` (the default)
+each epoch's batches are converted by ``DataFeeder`` and staged to the
+card on a background thread (``Executor.stage_feeds``) while the step
+before runs, and ``EndStepEvent.metrics`` are non-blocking
+``FetchHandle`` objects; ``pipeline=False`` runs synchronous steps with
+numpy metrics.  On the card each step replays the step program's CUDA graph
+(one per feed signature).  ``CheckpointConfig`` keeps Fluid's numbered
+serial directories (``checkpoint_<n>``) with rotation and epoch and step
+resume; a resumed run repeats the uninterrupted run's steps.  A step
+record goes to ``telemetry.STEPS`` (JSONL under
+``PADDLE_TPU_TELEMETRY_DIR``) with the JAX Trainer's keys.
+
+Options of the JAX Trainer that need modules not ported yet raise
+``NotImplementedError`` naming their ROADMAP item: ``parallel``,
+``mesh``, ``layout``, ``accum_steps > 1``, ``health``, ``checkpoint=``
+(the async manager), ``dispatch``, ``profile_steps`` and ``prefetcher``.
+
+``Inferencer``: build an inference program once, initialize its
+parameters (or load them from ``param_path``), run predictions.  The
+program is built under ``unique_name.guard()`` (fresh counters) so
 parameter names are deterministic: the same ``infer_func`` built by the
 JAX package's Inferencer names its parameters the same way, which is what
-lets ``convert.params_from_numpy`` carry weights across.  One pinned
-``Scope`` holds the parameters across every ``infer`` call.
-
-``passes=``, ``amp=`` and ``kernels=`` go to the ``Executor``: e.g.
+lets ``convert.params_from_numpy`` or a saved directory carry weights
+across.  One pinned ``Scope`` holds the parameters across every ``infer``
+call.  ``passes=``, ``amp=`` and ``kernels=`` go to the ``Executor``: e.g.
 ``amp=AmpConfig(bf16=False, quant=True)`` with the kernel tier on (the
 default on a CUDA place) serves every ``mul`` through the int8 GEMM.
 """
 from __future__ import annotations
 
+import json
+import logging
+import os
+import shutil
 import time
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
+from . import io as io_mod
+from . import telemetry
 from .core import unique_name
 from .core.desc import VarType
 from .core.executor import Executor, Place
 from .core.framework import Program, Variable, program_guard
-from .core.scope import Scope
+from .core.scope import Scope, scope_guard
+from .core.staging import COUNTERS
+from .data_feeder import DataFeeder
+
+__all__ = ["BeginEpochEvent", "EndEpochEvent", "BeginStepEvent", "EndStepEvent",
+           "CheckpointConfig", "Trainer", "Inferencer"]
+
+_LOG = logging.getLogger(__name__)
+
+
+class BeginEpochEvent:
+    def __init__(self, epoch_id: int):
+        self.epoch = epoch_id
+
+
+class EndEpochEvent:
+    def __init__(self, epoch_id: int):
+        self.epoch = epoch_id
+
+
+class BeginStepEvent:
+    def __init__(self, epoch_id: int, step_id: int):
+        self.epoch = epoch_id
+        self.step = step_id
+        self.fetch_metrics = True
+
+
+class EndStepEvent:
+    def __init__(self, epoch_id: int, step_id: int, metrics: List):
+        self.epoch = epoch_id
+        self.step = step_id
+        self.metrics = metrics
+
+
+class CheckpointConfig:
+    """Fluid's trainer.py:100: periodic serial-dir checkpoints with
+    rotation and epoch and step resume."""
+
+    def __init__(self, checkpoint_dir: Optional[str] = None,
+                 max_num_checkpoints: int = 3, epoch_interval: int = 1,
+                 step_interval: int = 10):
+        self.checkpoint_dir = checkpoint_dir or os.path.join(os.getcwd(), "checkpoint")
+        self.max_num_checkpoints = max_num_checkpoints
+        self.epoch_interval = max(1, int(epoch_interval))
+        self.step_interval = max(1, int(step_interval))
+        self.epoch_id = 0
+        self.step_id = 0
+        self.load_serial: Optional[int] = None
+
+
+_TRAINER_STATE = "trainer_state.json"
+
+
+def _serial_dir(root: str, serial: int) -> str:
+    return os.path.join(root, f"checkpoint_{serial}")
+
+
+def _list_serials(root: str) -> List[int]:
+    if not os.path.isdir(root):
+        return []
+    out = []
+    for d in os.listdir(root):
+        if d.startswith("checkpoint_"):
+            try:
+                out.append(int(d.split("_")[-1]))
+            except ValueError:
+                pass
+    return sorted(out)
+
+
+def _not_ported(option: str, item: str):
+    raise NotImplementedError(
+        f"Trainer({option}) is not ported to paddle_tpu_torch yet (ROADMAP §A item {item})")
+
+
+class Trainer:
+    """Fluid's trainer.py:169 (see the module docstring)."""
+
+    def __init__(self, train_func: Callable, optimizer_func: Callable,
+                 place: Optional[Place] = None,
+                 param_path: Optional[str] = None, parallel: bool = False,
+                 checkpoint_config: Optional[CheckpointConfig] = None,
+                 seq_len_buckets=None, pipeline: bool = True,
+                 mesh=None, layout=None, accum_steps: int = 1,
+                 health=None, checkpoint=None, dispatch=None, amp=None,
+                 kernels=None, profile_steps: Optional[int] = None,
+                 prefetcher=None):
+        for option, value, item in (("parallel", parallel, "12"), ("mesh", mesh, "12"),
+                                    ("layout", layout, "12"),
+                                    ("accum_steps > 1", int(accum_steps) > 1, "5"),
+                                    ("health", health, "8"),
+                                    ("checkpoint=", checkpoint, "4"),
+                                    ("dispatch", dispatch, "11"),
+                                    ("profile_steps", profile_steps, "2"),
+                                    ("prefetcher", prefetcher, "11")):
+            if value:
+                _not_ported(option, item)
+        # seq_len_buckets: DataFeeder's ragged-length buckets (None: the
+        # pow2 default for ragged feeds, False: exact per-batch padding)
+        self.seq_len_buckets = seq_len_buckets
+        # pipeline: stage batch N+1 on a background thread while step N
+        # runs, and fetch metrics through non-blocking handles
+        self.pipeline = pipeline
+        self.checkpoint_cfg = checkpoint_config
+        self.scope = Scope()
+        self.startup_program = Program()
+        self.train_program = Program()
+        # the resume point, written by the checkpoint load and read by train()
+        self._ckpt_state = {"epoch_id": 0, "step_id": 0}
+        self._stop = False
+        with program_guard(self.train_program, self.startup_program):
+            outs = train_func()
+            self.train_outputs = list(outs) if isinstance(outs, (list, tuple)) else [outs]
+            loss = self.train_outputs[0]
+            optimizer = optimizer_func()
+            optimizer.minimize(loss)
+        self.loss = loss
+        # amp: mixed precision (amp.AmpConfig / AmpPolicy / True) composed
+        # into the executor's pass pipeline; kernels: the kernel tier (None:
+        # on for a CUDA place, off on the CPU)
+        self.amp = amp
+        self.kernels = kernels
+        self.exe = Executor(place, amp=amp, kernels=kernels)
+        self.exe.run(self.startup_program, scope=self.scope)
+        if param_path:
+            with scope_guard(self.scope):
+                io_mod.load_persistables(self.exe, param_path, self.train_program)
+        if self.checkpoint_cfg:
+            serials = _list_serials(self.checkpoint_cfg.checkpoint_dir)
+            if serials:
+                self._load_checkpoint(serials[-1])
+        self._memory_planned = False
+
+    # ------------------------------------------------------------- training
+    def train(self, num_epochs: int, event_handler: Callable,
+              reader: Optional[Callable] = None, feed_order: Sequence[str] = ()):
+        if reader is None:
+            raise ValueError("train(reader=None) reads from a dispatch master, which is not "
+                             "ported (ROADMAP §A item 11): pass a reader")
+        feed_vars = [self.train_program.global_block.var(n) for n in feed_order]
+        buckets = self.seq_len_buckets
+        if buckets is None and any(v.lod_level > 0 for v in feed_vars):
+            # ragged feeds default to power-of-two buckets: an epoch of
+            # varying lengths then builds one cache entry (on the card, one
+            # CUDA graph) a bucket; pad columns carry zero ids and the true
+            # lengths ride @SEQ_LEN, so SEQ_LEN-aware consumers are
+            # unaffected.  seq_len_buckets=False pads each batch exactly.
+            buckets = "pow2"
+            _LOG.info("Trainer: ragged feeds default to seq_len_buckets='pow2' (pass "
+                      "seq_len_buckets=False for exact per-batch padding)")
+        elif buckets is False:
+            buckets = None
+        feeder = DataFeeder(feed_list=feed_vars, program=self.train_program,
+                            seq_len_buckets=buckets)
+        # mid-epoch resume: skip the already-trained steps of the first
+        # resumed epoch
+        start_epoch = self._ckpt_state["epoch_id"]
+        resume_step = self._ckpt_state["step_id"]
+        self._stop = False
+        with scope_guard(self.scope):
+            for epoch_id in range(start_epoch, num_epochs):
+                event_handler(BeginEpochEvent(epoch_id))
+                skip_until = resume_step if epoch_id == start_epoch else 0
+                self._run_epoch(epoch_id, event_handler, reader, feeder, skip_until)
+                if self._stop:
+                    return
+                event_handler(EndEpochEvent(epoch_id))
+                if self.checkpoint_cfg and epoch_id % self.checkpoint_cfg.epoch_interval == 0:
+                    self._save_checkpoint(epoch_id + 1, 0)
+
+    def _run_epoch(self, epoch_id: int, event_handler: Callable, reader,
+                   feeder: DataFeeder, skip_until: int):
+        if self.pipeline:
+            # DataFeeder's conversion and the copy to the card of batch N+1
+            # run on the stager thread while step N runs; the executor
+            # returns non-blocking FetchHandles, so reading a metric in the
+            # event handler is the step's one sync point
+            batches = (feeder.feed(b) for i, b in enumerate(reader()) if i >= skip_until)
+            stager = self.exe.stage_feeds(self.train_program, batches)
+            steps = enumerate(stager, start=skip_until)
+        else:
+            stager = None
+
+            def _synchronous_steps():
+                for i, b in enumerate(reader()):
+                    if i >= skip_until:
+                        yield i, feeder.feed(b)
+            steps = _synchronous_steps()
+        steps = iter(steps)
+        try:
+            while True:
+                # the pull is timed on its own: on the pipelined path it is
+                # the host waiting for the stager (feed starvation)
+                t_wait0 = time.perf_counter()
+                try:
+                    step_id, feed = next(steps)
+                except StopIteration:
+                    return
+                t_run0 = time.perf_counter()
+                if self._stop:
+                    return
+                if not self._memory_planned:
+                    self._log_memory_plan()
+                stalls0 = COUNTERS.get("sync_stalls")
+                begin = BeginStepEvent(epoch_id, step_id)
+                event_handler(begin)
+                fetch = self.train_outputs if begin.fetch_metrics else []
+                metrics = self.exe.run(self.train_program, feed=feed, fetch_list=fetch,
+                                       scope=self.scope, sync=not self.pipeline)
+                t_handler0 = time.perf_counter()
+                event_handler(EndStepEvent(epoch_id, step_id, metrics))
+                t_end = time.perf_counter()
+                # assembly_s: the JAX Trainer's global-batch assembly time
+                # under a multi-process mesh; one card assembles nothing
+                self._record_step(epoch_id, step_id, feed, wait_s=t_run0 - t_wait0,
+                                  run_s=t_handler0 - t_run0, handler_s=t_end - t_handler0,
+                                  step_time_s=t_end - t_wait0,
+                                  sync_stalls=COUNTERS.get("sync_stalls") - stalls0,
+                                  assembly_s=0.0)
+                if self.checkpoint_cfg and step_id \
+                        and step_id % self.checkpoint_cfg.step_interval == 0:
+                    # saved step_id + 1: training through step_id is
+                    # complete, a resume starts at the next step
+                    self._save_checkpoint(epoch_id, step_id + 1)
+        finally:
+            if stager is not None:
+                stager.close()
+
+    def _log_memory_plan(self):
+        """The JAX Trainer plans the step's memory from the first batch
+        here; the planner (``analysis/memory.py``) is not ported."""
+        self._memory_planned = True
+        _LOG.info("Trainer: no step-0 memory plan (analysis/memory.py is not ported, "
+                  "ROADMAP §A item 7)")
+
+    def _record_step(self, epoch_id: int, step_id: int, feed: dict, **timings):
+        """One step's telemetry record (ring buffer, and JSONL when
+        PADDLE_TPU_TELEMETRY_DIR is set): step time, examples/s, stall
+        attribution, cache state; ``tools/stats.py`` summarizes them."""
+        examples = 0
+        for v in feed.values():
+            shape = getattr(v, "shape", None)
+            if shape:
+                examples = int(shape[0])
+                break
+        st = timings.get("step_time_s") or 0.0
+        telemetry.STEPS.record(epoch=epoch_id, step=step_id, examples=examples,
+                               examples_per_sec=(examples / st) if st > 0 else 0.0,
+                               compiles=self.exe.compile_count, pipeline=self.pipeline,
+                               **timings)
+
+    def stop(self):
+        self._stop = True
+
+    # ---------------------------------------------------------- persistence
+    def save_params(self, param_path: str):
+        with scope_guard(self.scope):
+            io_mod.save_persistables(self.exe, param_path, self.train_program)
+
+    def save_inference_model(self, param_path: str, feeded_var_names: Sequence[str],
+                             target_vars: Sequence[Variable]):
+        with scope_guard(self.scope):
+            io_mod.save_inference_model(param_path, list(feeded_var_names),
+                                        list(target_vars), self.exe, self.train_program)
+
+    def _save_checkpoint(self, epoch_id: int, step_id: int):
+        cfg = self.checkpoint_cfg
+        serials = _list_serials(cfg.checkpoint_dir)
+        serial = (serials[-1] + 1) if serials else 0
+        d = _serial_dir(cfg.checkpoint_dir, serial)
+        with scope_guard(self.scope):
+            io_mod.save_persistables(self.exe, d, self.train_program)
+        with open(os.path.join(d, _TRAINER_STATE), "w") as f:
+            json.dump({"epoch_id": epoch_id, "step_id": step_id}, f)
+        # rotation (Fluid's max_num_checkpoints)
+        serials = _list_serials(cfg.checkpoint_dir)
+        while len(serials) > cfg.max_num_checkpoints:
+            shutil.rmtree(_serial_dir(cfg.checkpoint_dir, serials.pop(0)), ignore_errors=True)
+
+    def _load_checkpoint(self, serial: int):
+        cfg = self.checkpoint_cfg
+        d = _serial_dir(cfg.checkpoint_dir, serial)
+        with scope_guard(self.scope):
+            io_mod.load_persistables(self.exe, d, self.train_program)
+        state_path = os.path.join(d, _TRAINER_STATE)
+        if os.path.exists(state_path):
+            with open(state_path) as f:
+                st = json.load(f)
+            cfg.epoch_id = int(st.get("epoch_id", 0))
+            cfg.step_id = int(st.get("step_id", 0))
+            cfg.load_serial = serial
+            self._ckpt_state = {"epoch_id": cfg.epoch_id, "step_id": cfg.step_id}
 
 
 class Inferencer:
-    def __init__(self, infer_func: Callable, place: Optional[Place] = None,
-                 passes=None, amp=None, kernels=None):
+    """Fluid's inferencer.py (see the module docstring).  ``param_path``
+    loads a directory ``io.save_persistables`` (or ``Trainer.save_params``)
+    wrote, of either package, into the startup's tensors (``copy_``)."""
+
+    def __init__(self, infer_func: Callable, param_path: Optional[str] = None,
+                 place: Optional[Place] = None, passes=None, amp=None, kernels=None):
         self.scope = Scope()
         self.startup_program = Program()
         self.inference_program = Program()
@@ -38,6 +361,9 @@ class Inferencer:
                     self.predict_vars = [self.predict_vars]
         self.exe = Executor(place, passes=passes, amp=amp, kernels=kernels)
         self.exe.run(self.startup_program, scope=self.scope)
+        if param_path:
+            with scope_guard(self.scope):
+                io_mod.load_persistables(self.exe, param_path, self.inference_program)
         self.feed_names = [v.name for v in self._feed_vars()]
 
     def _feed_vars(self) -> List[Variable]:

@@ -8,6 +8,8 @@ GPU machine without jax, bypassing tests/conftest.py (which imports jax):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py -q
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -1399,3 +1401,141 @@ def test_precompile_of_a_training_step_writes_nothing(cuda):
     (want,) = exe._run_eager(main, feed, [loss], scope)
     assert np.array_equal(got, want)
     assert all(torch.equal(t, after[n]) for n, t in _state(main, scope).items())
+
+
+# ------------------------------------------------ the Trainer and its data path
+
+
+def test_feed_stager_on_the_card_bit_equal_to_the_host_arrays(cuda):
+    """Twelve batches (three times the pinned ring) staged on the card: each
+    value coerced on the stager thread (int64 to int32), copied on the
+    stager's stream, and after the consumer's wait bit-equal to the host
+    array; the event travels with the batch."""
+    main, _, _ = _train_programs()
+    exe = pt.Executor()
+    rs = np.random.RandomState(3)
+    feeds = [{"src": rs.randint(0, 1000, (4, 32, 1)), "lbl": rs.randint(0, 1000, (4, 32, 1)),
+              "src@SEQ_LEN": rs.randint(1, 33, 4).astype(np.int32)} for _ in range(12)]
+    got = []
+    for b in exe.stage_feeds(main, iter(feeds), depth=2):
+        assert b.event is not None and b.nbytes == 2 * 4 * 32 * 4 + 4 * 4
+        torch.cuda.current_stream().wait_event(b.event)
+        got.append({k: v.cpu() for k, v in b.items()})
+    assert len(got) == 12
+    for b, f in zip(got, feeds):
+        for k, v in f.items():
+            assert b[k].dtype == torch.int32, k
+            assert np.array_equal(b[k].numpy(), v.astype(np.int32)), k
+
+
+def _small_trainer(**kw):
+    def train_func():
+        src = layers.data(name="src", shape=[1], dtype="int64", lod_level=1)
+        trg = layers.data(name="trg", shape=[1], dtype="int64", lod_level=1)
+        lbl = layers.data(name="lbl", shape=[32, 1], dtype="int64")
+        loss, _ = transformer.train_network(src, trg, lbl, 1000, 1000, max_len=32,
+                                            n_layer=2, d_model=64, n_head=4,
+                                            d_inner=256, fuse_final_ce=True)
+        return loss
+    with pt.unique_name.guard():
+        return pt.Trainer(train_func, lambda: pt.optimizer.Adam(learning_rate=1e-3), **kw)
+
+
+def _small_samples(n, pause=0.0):
+    """Samples whose source lengths alternate by batch of 4 between
+    [9, 16] and [17, 32], so pow2 buckets give the batches two feed
+    signatures in turn; ``pause`` seconds before each sample keep the
+    stager thread converting and copying while the step before runs (and
+    while the first steps capture their graphs)."""
+    def reader():
+        rs = np.random.RandomState(0)
+        for i in range(n):
+            time.sleep(pause)
+            lo, hi = (9, 17) if (i // 4) % 2 == 0 else (17, 33)
+            yield (rs.randint(1, 1000, (rs.randint(lo, hi), 1)),
+                   rs.randint(1, 1000, (32, 1)), rs.randint(1, 1000, (32, 1)))
+    return reader
+
+
+def test_pipelined_trainer_bit_equal_to_a_synchronous_one_one_capture_a_signature(cuda):
+    """A 2+2-layer Trainer on the card, pipelined (its reader slow enough
+    that the stager thread allocates pinned memory and copies on its own
+    stream while the graphs are captured) and synchronous from the same
+    state, 2 epochs of 3 batches of 4 and a last batch of 2 whose source
+    lengths pad to 16 and 32 in turn: losses and every state tensor
+    bit-equal; three captures each (one a feed signature), every other
+    step a replay."""
+    runs = []
+    start = None
+    for pipeline in (True, False):
+        trainer = _small_trainer(pipeline=pipeline)
+        persist = [v.name for v in trainer.train_program.list_vars() if v.persistable]
+        if start is None:
+            start = {n: trainer.scope.find_var(n).clone() for n in persist}
+        for n in persist:
+            trainer.scope.find_var(n).copy_(start[n])
+        losses = []
+
+        def handler(ev, losses=losses):
+            if isinstance(ev, pt.EndStepEvent):
+                losses.append(ev.metrics[0])
+        reader = _small_samples(14, pause=0.02 if pipeline else 0.0)
+        trainer.train(2, handler, reader=pt.batch(reader, 4), feed_order=["src", "trg", "lbl"])
+        runs.append((trainer, [float(np.asarray(m)) for m in losses], persist))
+    (a, la, persist), (b, lb, _) = runs
+    assert len(la) == 8 and np.isfinite(la).all() and la == lb
+    for n in persist:
+        assert torch.equal(a.scope.find_var(n), b.scope.find_var(n)), n
+    for t in (a, b):
+        info = t.exe.cache_info()
+        assert info["captures"] == 3
+        assert sorted((e["feeds"]["src"][0][1], e["feeds"]["lbl"][0][0])
+                      for e in info["entries"] if e["kind"] == "graph" and "lbl" in e["feeds"]) == \
+            [(16, 4), (32, 2), (32, 4)]
+
+
+def test_load_persistables_into_a_captured_scope_is_read_by_the_next_replay(cuda, tmp_path):
+    """Parameters loaded into an Inferencer whose graph is captured are
+    copied into its tensors: the next replay reads them (the CPU run of the
+    saved parameters within LOGIT_ATOL), with no new capture."""
+    inf = _warm(buckets=(2,))
+    names = [v.name for v in inf.inference_program.list_vars() if v.persistable]
+    addrs = {n: inf.scope.find_var(n).data_ptr() for n in names}
+    src = pt.Inferencer(_infer_func, place=pt.CPUPlace())
+    for n in names:
+        src.scope.find_var(n).mul_(1.5)
+    with pt.scope_guard(src.scope):
+        pt.io.save_persistables(src.exe, str(tmp_path), src.inference_program)
+    feed = _small_feed(np.random.RandomState(1), 2)
+    (before,) = inf.infer(feed)
+    captures = _captures(inf.exe)
+    with pt.scope_guard(inf.scope):
+        pt.io.load_persistables(inf.exe, str(tmp_path), inf.inference_program)
+    (got,) = inf.infer(feed)
+    (want,) = src.infer(feed)
+    assert _captures(inf.exe) == captures
+    assert {n: inf.scope.find_var(n).data_ptr() for n in names} == addrs
+    assert not np.allclose(got, before, atol=LOGIT_ATOL)
+    np.testing.assert_allclose(got, want, atol=LOGIT_ATOL, rtol=0)
+
+
+def test_for_test_clone_replays_a_graph_bit_equal_to_its_eager_run(cuda):
+    """The evaluation clone of an Adam training program writes no state: on
+    the card it is one graph, the second run a replay bit-equal to the
+    eager run, and no state tensor changes."""
+    main, startup, loss = _train_programs()
+    scope, exe = pt.Scope(), pt.Executor()
+    exe.run(startup, scope=scope)
+    test_prog = main.clone(for_test=True)
+    before = {n: t.clone() for n, t in _state(main, scope).items()}
+    feed = _small_train_feed()
+    (first,) = exe.run(test_prog, feed=feed, fetch_list=[loss], scope=scope)
+    captures = _captures(exe)
+    (replayed,) = exe.run(test_prog, feed=feed, fetch_list=[loss], scope=scope)
+    (eager,) = exe._run_eager(test_prog, feed, [loss], scope)
+    assert _captures(exe) == captures
+    (entry,) = [e for e in exe.cache_info()["entries"] if "lbl" in e["feeds"]]
+    assert entry["kind"] == "graph"
+    assert np.isfinite(replayed) and np.array_equal(replayed, eager)
+    assert np.array_equal(first, replayed)
+    assert all(torch.equal(t, before[n]) for n, t in _state(main, scope).items())

@@ -46,6 +46,25 @@ def test_no_source_imports_jax_or_paddle_tpu(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def test_the_import_scan_covers_the_data_path_and_io_modules():
+    scanned = {str(p.relative_to(REPO)) for p in (REPO / "paddle_tpu_torch").rglob("*.py")}
+    for path in ("reader/__init__.py", "reader/decorator.py", "checkpoint/__init__.py",
+                 "checkpoint/manifest.py", "io.py", "telemetry.py", "data_feeder.py", "lod.py",
+                 "trainer.py", "core/prune.py"):
+        assert f"paddle_tpu_torch/{path}" in scanned, path
+
+
+def test_trainer_and_inferencer_without_gpu_raise_instead_of_using_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def train_func():
+        return pt.layers.mean(pt.layers.data(name="x", shape=[2]))
+    with pytest.raises(RuntimeError, match="CPUPlace"):
+        pt.Trainer(train_func, lambda: pt.optimizer.SGD(learning_rate=0.1))
+    with pytest.raises(RuntimeError, match="CPUPlace"):
+        pt.Inferencer(lambda: pt.layers.scale(pt.layers.data(name="x", shape=[2]), 2.0))
+
+
 def test_executor_without_gpu_raises_instead_of_using_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CPUPlace"):
