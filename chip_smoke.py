@@ -118,7 +118,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
     then phase 17;
 15. a ``{"kernels": [...]}`` line with each kernel's launches on its path
     (and, as ``launches_trainer``, in phase 18's pipelined Trainer run and
-    its bf16 Trainer, counted alone),
+    its bf16 Trainer, counted alone, and as ``launches_profile`` under
+    phase 19's op profiles),
     error against its plain version, times, and bound; K4's entry lists
     its quantize kernels under ``quantizers``, K7's and K8's both of their
     bounds (float32 on the CUDA cores, and three TF32 products), K3's times
@@ -170,7 +171,36 @@ Phases, each fatal on failure (non-zero exit, no result line):
     ``handler_s``, from ``telemetry.STEPS``), profiles of a warm 6-step
     epoch each way (device idle share; launches by family gated at 6
     steps' K1 36, K2 4, K3 8, K7 2, K8 32, K6 1 a step), the staged copy per
-    batch, and what a second feed signature (a half batch) costs.
+    batch, and what a second feed signature (a half batch) costs;
+19. the observability core, every record under one temporary
+    ``PADDLE_TPU_TELEMETRY_DIR`` (set only around phase 19's pieces, so the
+    other phases run with telemetry off): (a) inside phases 7 and 14, right
+    after a replay of the step's graph, ``Executor.profile_ops`` (3 samples
+    and a warm-up pass, every op) on the float32 and the bf16 step: rows,
+    coverage (at least 0.9), top 10 ops and the sum by op type printed
+    beside the graph's step wall; every state tensor bit-equal and at its
+    address after it, no capture, the launches during it those of 4
+    op-by-op passes (K1 36, K2 4, K3 4, K6 186 (one an update op), K7 1, K8
+    1 a pass; in bf16 also its bf16 instances), and the next replay's loss
+    and state bit-equal to a control step from the same state; (b) inside
+    phases 5 and 11 the same profile of the 8-row float32 and int8 serving
+    batch (K4 97 a pass); (c) inside phase 18 ``Trainer(profile_steps=2)``
+    over 4 pipelined steps: 2 profile summaries, losses bit-equal to phase
+    18's and, with every persistable, to the same Trainer with profiles
+    off; (d) inside phase 5, 64 requests through a ``ServingSession`` under
+    one root trace, ``tools/trace_tool.py --strict`` exiting 0 and its
+    critical-path split, requests/s traced and with telemetry off beside
+    phase 16's; (f) inside phases 7 and 14 ``profiler.device_trace``
+    around one eager step: K1's, K7's and K8's kernels and ``op<idx>:``
+    ranges in the exported trace, and the step's device time by op type
+    (each kernel booked to the op range its launch ran in), of it the
+    "other" kernels' (outside cuBLAS and the hand-written kernels); then (g) ``resource_sampler.sample_once()``'s device
+    bytes in use equal to ``torch.cuda.memory_allocated()``, and (e) the
+    record families present and ``tools/stats.py``, ``profile_report.py``,
+    ``compile_report.py``, ``pass_report.py`` and ``trace_tool.py
+    --strict`` each exiting 0 over the directory.  The kernels line
+    carries each kernel's launches under the profiles as
+    ``launches_profile``.
 
 Phase 9 also takes the 2 x 256 step in bf16 (``enable_amp``) with cuBLAS's
 reduced-precision bf16 reductions allowed (PyTorch's default) and not, and
@@ -179,11 +209,14 @@ prints each one's gradient error against float64.
 The last line is ``{"ok": true, "device": {...}}``.  Times are CUDA-event
 times on this card; bounds use the H100 SXM's published peaks.
 """
+import contextlib
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import traceback
@@ -520,7 +553,8 @@ def _family(name):
         return "memcpy"
     if "memset" in low:
         return "memset"
-    if any(s in low for s in ("gemm", "cutlass", "xmma", "sm90")):
+    # cuBLAS's Hopper kernels for bf16 GEMMs are named nvjet_*
+    if any(s in low for s in ("gemm", "cutlass", "xmma", "sm90", "nvjet")):
         return "gemm (cuBLAS)"
     return OTHER
 
@@ -661,7 +695,9 @@ def _serve(torch, sess, reqs, per_batch, label, card):
     if errors or any(th.is_alive() for th in threads):
         raise AssertionError(f"{label}: serving clients failed: {errors}")
     batches = stats["batches"]
-    print(f"{label}: served {len(reqs)} requests in {batches} batches: {stats}")
+    engine_stats = {k: v for k, v in stats.items() if k not in ("serving", "executor")}
+    print(f"{label}: served {len(reqs)} requests in {batches} batches: {engine_stats}; "
+          f"executor {stats['executor']}")
     if stats["requests_dispatched"] != len(reqs):
         raise AssertionError(f"{label}: not every request was dispatched")
     if launches != {k: v * batches for k, v in per_batch.items()}:
@@ -801,6 +837,12 @@ def phase_serving(torch, card):
           f"(tol {CPU_TOL}, TF32 off)")
     del res["answers"]
     res["graphs"] = _graphs_vs_eager(torch, inf, warm, "float32", card)
+    inf.infer(feed8)      # a replay: the profile follows one
+    res["op_profile"] = _op_profile(
+        torch, inf.exe, inf.inference_program, feed8, list(inf.predict_vars), inf.scope,
+        "float32 serving", card, SERVE_PER_PASS,
+        graph_wall_ms=res["graphs"]["buckets"][8]["wall_ms"]["graph"]["median"])[1]
+    res["traced"] = _traced_serving(torch, inf, res["graphs"]["requests_per_s_graph"], card)
     return res
 
 
@@ -838,10 +880,11 @@ def _moved(after, before):
     return {k: after[k] - before[k] for k in after}
 
 
-def _rps(sess, n_requests=64, n_threads=4, kept=None):
+def _rps(sess, n_requests=64, n_threads=4, kept=None, trace=None):
     """Requests/s of ``n_requests`` 1-2-row requests from ``n_threads``
     client threads through ``sess`` (answers dropped as they come, or
-    appended to ``kept``)."""
+    appended to ``kept``), each client inside ``trace`` when one is given."""
+    from paddle_tpu_torch.telemetry import use_trace
     reqs = _requests(n_requests, seed=2)
     errors = []
     barrier = threading.Barrier(n_threads + 1)
@@ -849,12 +892,13 @@ def _rps(sess, n_requests=64, n_threads=4, kept=None):
     def client(t):
         try:
             barrier.wait(timeout=60)
-            for i in range(t, n_requests, n_threads):
-                (a,) = sess.infer(reqs[i], timeout=120)
-                if not np.isfinite(a).all():
-                    raise AssertionError(f"request {i}: non-finite logits")
-                if kept is not None:
-                    kept.append(a)
+            with use_trace(trace):
+                for i in range(t, n_requests, n_threads):
+                    (a,) = sess.infer(reqs[i], timeout=120)
+                    if not np.isfinite(a).all():
+                        raise AssertionError(f"request {i}: non-finite logits")
+                    if kept is not None:
+                        kept.append(a)
         except Exception as e:  # noqa: BLE001 -- re-raised on the main thread
             errors.append(e)
 
@@ -1087,6 +1131,11 @@ def phase_int8_serving(torch, card, f32_res):
         raise AssertionError(f"int8 serving profile: {n_ops}; want at most "
                              f"{INT8_OPS_PER_PRODUCT} device operations a product")
     res["graphs"] = _graphs_vs_eager(torch, inf, warm, "int8", card)
+    inf.infer(feed8)      # a replay: the profile follows one
+    res["op_profile"] = _op_profile(
+        torch, inf.exe, inf.inference_program, feed8, list(inf.predict_vars), inf.scope,
+        "int8 serving", card, INT8_PER_PASS,
+        graph_wall_ms=res["graphs"]["buckets"][8]["wall_ms"]["graph"]["median"])[1]
     return res
 
 
@@ -1940,8 +1989,13 @@ def phase_training(torch, card, sgd=False):
                     "sgd_training_profile" if sgd else "training_profile", card,
                     {"batch": [TRAIN_B, T]})
     _gate_step_profile(prof, _step_families(sgd), label)
-    _step_graph_vs_eager(torch, exe, main, feed, loss, scope,
-                         "float32 SGD" if sgd else "float32 Adam", card, _step_families(sgd))
+    out = _step_graph_vs_eager(torch, exe, main, feed, loss, scope,
+                               "float32 SGD" if sgd else "float32 Adam", card,
+                               _step_families(sgd))
+    if not sgd:
+        _profile_training_step(torch, exe, main, feed, loss, scope, "float32 Adam step", card,
+                               out["wall_ms"]["graph"]["median"])
+        _device_trace_step(torch, exe, main, feed, loss, scope, "float32 Adam step", card)
     return launches, steps
 
 
@@ -2563,8 +2617,11 @@ def phase_bf16_step(torch, card):
         _gate_step_profile(prof, _step_families(), "bf16 training")
         print(f"bf16 training: device launches a step of kernels whose names carry bf16, by "
               f"family: {json.dumps(prof['bf16_named_launches'])}")
-        _step_graph_vs_eager(torch, exe, main, feed, loss, scope, "bf16 Adam", card,
-                             _step_families())
+        out = _step_graph_vs_eager(torch, exe, main, feed, loss, scope, "bf16 Adam", card,
+                                   _step_families())
+        _profile_training_step(torch, exe, main, feed, loss, scope, "bf16 Adam step", card,
+                               out["wall_ms"]["graph"]["median"], bf16=True)
+        _device_trace_step(torch, exe, main, feed, loss, scope, "bf16 Adam step", card)
     return launches, bf16_launches
 
 
@@ -2988,6 +3045,9 @@ def phase_trainer(torch, card):
     del resumed, run_r, before, exe, scope
     _free_trainer(torch, "resumed trainer")
 
+    res["profiled"] = _profiled_trainer(torch, pt, start, loss_p, card)
+    _free_trainer(torch, "profiled trainer")
+
     # the bf16 trainer: one batch three times
     once = _trainer_samples(TRAIN_B, seed=3)
     bf16_reader = pt.batch(pt.reader.chain(once, once, once), TRAIN_B)
@@ -3013,6 +3073,342 @@ def phase_trainer(torch, card):
     return launches_trainer, bf16_launches
 
 
+# ------------------------------------------------- phase 19: the observability core
+
+# phase 19's records all go to one temporary directory (made in main); the
+# launches each kernel made under the op profiles, summed over them
+PHASE19 = {"dir": None, "launches_profile": {}, "launches_profile_bf16": {}}
+# every record family phase 19 must leave in its directory
+PHASE19_FAMILIES = ("steps_", "compiles_", "profile_", "costmodel_", "gauges_", "passes_",
+                    "serving_")
+PROFILE_SAMPLES = 3
+PROFILE_COVERAGE = 0.9     # attributed / replay wall, the JAX package's own bar
+# the launches one op-by-op replay pass of the training step makes: the
+# step's (PER_STEP), with each of the 186 update ops lowered alone (one K6
+# launch an op, where the step's graph makes one over all of them)
+PER_PROFILE_PASS = dict(PER_STEP, fused_adam=N_PARAMS)
+SERVE_PER_PASS = {"flash_attn_fwd": K1_PER_BATCH, "gather_rows": K2_PER_BATCH}
+INT8_PER_PASS = dict(SERVE_PER_PASS, int8_matmul=K4_PER_BATCH, abs_max_pair=K4_PER_BATCH,
+                     quantize_int8=2 * K4_PER_BATCH)
+
+
+@contextlib.contextmanager
+def _telemetry_on():
+    """``PADDLE_TPU_TELEMETRY_DIR`` (and ``PADDLE_TPU_PROGRAM_DUMP_DIR``,
+    which ``tools/pass_report.py`` reads) set to phase 19's directory for
+    the block; on exit both are unset and every record stream's file is
+    closed, so the other phases run with telemetry off."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.profiling import PROFILE_RECORDS
+    names = ("PADDLE_TPU_TELEMETRY_DIR", "PADDLE_TPU_PROGRAM_DUMP_DIR")
+    for k in names:
+        os.environ[k] = PHASE19["dir"]
+    try:
+        yield PHASE19["dir"]
+    finally:
+        for k in names:
+            os.environ.pop(k, None)
+        for stream in (pt.telemetry.STEPS, PROFILE_RECORDS, pt.compile_log.COMPILE_LOG):
+            stream.reopen()
+
+
+def _zero_counters(counters):
+    for f in counters.values():
+        f.launches = 0
+        if hasattr(f, "bf16_launches"):
+            f.bf16_launches = 0
+
+
+def _op_profile(torch, exe, program, feed, fetch, scope, label, card, per_pass,
+                bf16_per_pass=None, graph_wall_ms=None):
+    """Phase 19 (a)/(b): ``exe.profile_ops`` (``PROFILE_SAMPLES`` samples,
+    telemetry on) over ``program``'s step or batch right after a replay of
+    its graph: the rows, coverage, top 10 ops and the sum by op type
+    printed; the state and the captures unchanged; the kernels' launches
+    during the profile equal to ``per_pass`` for each replay pass (the
+    warm-up included).  Returns the profile and its launches."""
+    persist = [v.name for v in program.list_vars()
+               if v.persistable and scope.find_var(v.name) is not None]
+    before = {n: scope.find_var(n).clone() for n in persist}
+    addrs = {n: scope.find_var(n).data_ptr() for n in persist}
+    captures = exe.cache_info()["captures"]
+    counters = _counters()
+    _zero_counters(counters)
+    with _telemetry_on():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prof = exe.profile_ops(program, feed=feed, fetch_list=fetch, scope=scope,
+                               samples=PROFILE_SAMPLES)
+        call_s = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items() if f.launches}
+    bf16 = {k: f.bf16_launches for k, f in counters.items()
+            if getattr(f, "bf16_launches", 0)}
+    written = [n for n in persist if scope.find_var(n).data_ptr() != addrs[n]
+               or not torch.equal(scope.find_var(n), before[n])]
+    del before
+    passes = prof.samples + 1
+    by_type = sorted(prof.by_type.items(), key=lambda kv: -kv[1]["wall_s"])
+    rec = {"card": card, "ops_replayed": prof.ops_replayed, "samples": prof.samples,
+           "replay_wall_ms": prof.measured_wall_s * 1e3,
+           "attributed_ms": prof.attributed_s * 1e3, "coverage": prof.coverage,
+           "profile_call_s": call_s, "graph_wall_ms": graph_wall_ms,
+           "launches_profile": launches, "bf16_launches_profile": bf16,
+           "top10": [[o.op_index, o.op_type, o.wall_s * 1e3, o.share, o.roofline, o.callsite]
+                     for o in prof.top(10)],
+           "by_type": {t: {"count": v["count"], "ms": v["wall_s"] * 1e3,
+                           "share": v["wall_s"] / prof.attributed_s} for t, v in by_type}}
+    print(prof.format(10))
+    print(json.dumps({f"op_profile_{label.replace(' ', '_')}": rec}))
+    want = {k: passes * v for k, v in per_pass.items() if v}
+    want_bf16 = {k: passes * v for k, v in (bf16_per_pass or {}).items()}
+    print(f"{label} op profile: {prof.ops_replayed} ops, replay wall "
+          f"{rec['replay_wall_ms']:.2f} ms (graph {graph_wall_ms}), coverage "
+          f"{prof.coverage:.4f}; launches over {passes} passes {launches} (want {want}), bf16 "
+          f"{bf16}; state written {len(written)}; captures "
+          f"{exe.cache_info()['captures'] - captures} [{card}]")
+    if written or exe.cache_info()["captures"] != captures:
+        raise AssertionError(f"{label}: the profile wrote state {written[:8]} or captured")
+    if launches != want or bf16 != want_bf16:
+        raise AssertionError(f"{label}: launches during the profile {launches}, bf16 {bf16}; "
+                             f"want {want}, {want_bf16}")
+    for k, n in launches.items():
+        PHASE19["launches_profile"][k] = PHASE19["launches_profile"].get(k, 0) + n
+    for k, n in bf16.items():
+        PHASE19["launches_profile_bf16"][k] = PHASE19["launches_profile_bf16"].get(k, 0) + n
+    return prof, rec
+
+
+def _profile_training_step(torch, exe, main, feed, loss, scope, label, card, graph_wall_ms,
+                           bf16=False):
+    """Phase 19 (a), inside phases 7 and 14: after a replay of the step's
+    graph, a control step from the state S the profile starts from, S
+    copied back in place, the profile (every op: fetch_list=None), and
+    the next replay: its loss and every state tensor bit-equal to the
+    control's; coverage at least PROFILE_COVERAGE."""
+    persist = [v.name for v in main.list_vars() if v.persistable]
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    state0 = {n: scope.find_var(n).clone() for n in persist}
+    (ctl,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    ctl_state = {n: scope.find_var(n).clone() for n in persist}
+    for n, t in state0.items():
+        scope.find_var(n).copy_(t)
+    del state0
+    prof, rec = _op_profile(torch, exe, main, feed, None, scope, label, card, PER_PROFILE_PASS,
+                            BF16_PER_STEP if bf16 else None, graph_wall_ms)
+    (got,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    differ = [n for n in persist if not torch.equal(scope.find_var(n), ctl_state[n])]
+    print(f"{label}: the replayed step after the profile vs the control step from the same "
+          f"state: loss {float(got):.7f} / {float(ctl):.7f}; {len(persist) - len(differ)} of "
+          f"{len(persist)} state tensors bit-equal")
+    if not np.array_equal(got, ctl) or differ:
+        raise AssertionError(f"{label}: the step after the profile differs from the control: "
+                             f"{differ[:8]}")
+    if not prof.coverage >= PROFILE_COVERAGE:
+        raise AssertionError(f"{label}: profile coverage {prof.coverage} < {PROFILE_COVERAGE}")
+    return rec
+
+
+def _device_ms_by_op(events):
+    """Device milliseconds of a trace's kernels by the op whose
+    ``op<idx>:<type>`` range was open when the kernel was launched (the
+    runtime call carrying the kernel's correlation id), by op type and by
+    (op type, kernel family).  Ops run one after another, so the ranges do
+    not overlap; a launch may come from another thread than the range's
+    (the autograd engine runs a generic grad's backward on a device
+    thread of its own while the op waits), so any thread's launch counts."""
+    import bisect
+    import re
+    ranges, launches = [], {}
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat, name = e.get("cat", ""), str(e.get("name", ""))
+        m = re.match(r"op\d+:(\w+)", name)
+        if m and cat != "gpu_user_annotation":
+            ranges.append((e["ts"], e["ts"] + e["dur"], m.group(1)))
+        elif cat in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {}):
+            launches[e["args"]["correlation"]] = e["ts"]
+    ranges.sort()
+    starts = [a for a, _, _ in ranges]
+    by_type, by_family = {}, {}
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") != "kernel":
+            continue
+        ts = launches.get(e.get("args", {}).get("correlation"))
+        op = "(outside an op)"
+        if ts is not None:
+            i = bisect.bisect_right(starts, ts) - 1
+            if i >= 0 and ranges[i][1] >= ts:
+                op = ranges[i][2]
+        ms = e["dur"] / 1e3
+        by_type[op] = by_type.get(op, 0.0) + ms
+        key = f"{op} | {_family(str(e.get('name', '')))}"
+        by_family[key] = by_family.get(key, 0.0) + ms
+    return by_type, by_family
+
+
+def _device_trace_step(torch, exe, main, feed, loss, scope, label, card):
+    """Phase 19 (f), inside phases 7 and 14: ``profiler.device_trace``
+    (default directory: ``$PADDLE_TPU_TELEMETRY_DIR/xplane``) around one
+    eager step (``_run_eager``, which commits the step): the exported trace
+    names K1's, K7's and K8's kernels and the lowering's ``op<idx>:``
+    ranges.  Prints the step's device time by op type, and of it the
+    kernels outside cuBLAS and the hand-written ones ("other") by op type:
+    the same kernels a replay of the step's graph launches."""
+    import re
+    import paddle_tpu_torch as pt
+    with _telemetry_on():
+        with pt.profiler.device_trace() as dt:
+            exe._run_eager(main, feed, [loss], scope)
+    with open(dt.path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels, ranges = {}, set()
+    for e in events:
+        name = str(e.get("name", ""))
+        if e.get("cat") == "kernel":
+            fam = _family(name)
+            kernels[fam] = kernels.get(fam, 0) + 1
+        elif re.match(r"op\d+:", name):
+            ranges.add(name)
+    by_type, by_family = _device_ms_by_op(events)
+    other = {k.split(" | ")[0]: v for k, v in by_family.items() if k.endswith(f" | {OTHER}")}
+    rec = {"card": card, "trace_mib": os.path.getsize(dt.path) / 2 ** 20, "op_ranges": len(ranges),
+           "kernels_by_family": kernels,
+           "device_ms_by_op_type": dict(sorted(by_type.items(), key=lambda kv: -kv[1])),
+           "other_kernels_ms_by_op_type": dict(sorted(other.items(), key=lambda kv: -kv[1])),
+           "device_ms": sum(by_type.values()), "other_kernels_ms": sum(other.values())}
+    print(f"{label}: device_trace of an eager step -> "
+          f"{os.path.relpath(dt.path, PHASE19['dir'])} ({rec['trace_mib']:.1f} MiB): kernels by "
+          f"family {kernels}; {len(ranges)} op ranges, e.g. {sorted(ranges)[:3]}; device "
+          f"{rec['device_ms']:.2f} ms, of it other kernels {rec['other_kernels_ms']:.2f} ms [{card}]")
+    print(json.dumps({f"device_by_op_{label.replace(' ', '_')}": rec}))
+    need = ("flash_attn_fwd (K1)", "linear_ce_fwd (K7)", "linear_ce_bwd (K8)")
+    if any(not kernels.get(k) for k in need) or not ranges:
+        raise AssertionError(f"{label}: the device trace lacks {need} kernels or op ranges")
+    os.remove(dt.path)     # tens of MiB; its numbers are printed
+
+
+def _traced_serving(torch, inf, phase16_rps, card):
+    """Phase 19 (d), inside phase 5: 64 requests from 4 threads through a
+    ``ServingSession`` under one root trace (telemetry on; the root's own
+    record closes every chain), ``tools/trace_tool.py --strict`` over the
+    directory and its critical-path split; then the same 64 requests with
+    telemetry off.  Both requests/s beside phase 16's."""
+    import paddle_tpu_torch as pt
+    tel = pt.telemetry
+    root = tel.TraceContext.new_root()
+    with _telemetry_on():
+        sess = pt.ServingSession(inferencer=inf, max_batch_size=8, max_wait_ms=20.0,
+                                 warmup=False)
+        t0 = time.perf_counter()
+        rps_on, stats = _rps(sess, trace=root)
+        client = tel.StepTelemetry(prefix="client")
+        client.record(kind="client", requests=64, latency_s=time.perf_counter() - t0,
+                      **root.fields())
+        client.reopen()
+        sess.close()
+    sess = pt.ServingSession(inferencer=inf, max_batch_size=8, max_wait_ms=20.0, warmup=False)
+    rps_off, _ = _rps(sess)
+    sess.close()
+    p = _tool("trace_tool", "--strict", "--json")
+    if p.returncode != 0:
+        raise AssertionError(f"trace_tool --strict exited {p.returncode}: {p.stderr[-2000:]}")
+    (trace,) = [t for t in json.loads(p.stdout)["traces"] if t["trace_id"] == root.trace_id]
+    out = {"card": card, "requests_per_s_traced": rps_on, "requests_per_s_off": rps_off,
+           "requests_per_s_phase16": phase16_rps, "spans": trace["spans"],
+           "critical_path_s": trace["attribution"], "end_to_end_s": trace["end_to_end_s"],
+           "batches": stats["batches"]}
+    print(f"traced serving: 64 requests under one root trace, {trace['spans']} spans, "
+          f"trace_tool --strict exit 0; critical path (s, summed over the requests) "
+          f"{json.dumps(trace['attribution'])}; requests/s traced {rps_on:.2f}, telemetry off "
+          f"{rps_off:.2f}, phase 16 {phase16_rps:.2f} [{card}]")
+    print(json.dumps({"traced_serving": out}))
+    return out
+
+
+def _profiled_trainer(torch, pt, start, loss_p, card):
+    """Phase 19 (c), inside phase 18: ``Trainer(profile_steps=2)``
+    (pipelined) over 4 batches from phase 18's start state (telemetry on):
+    two profile summaries; losses bit-equal to phase 18's pipelined
+    Trainer's first 4, and losses and every persistable bit-equal to the
+    same Trainer run again from the start state with profiles off."""
+    from paddle_tpu_torch.profiling import PROFILE_RECORDS
+    reader = pt.batch(_trainer_samples(4 * TRAIN_B, seed=1), TRAIN_B)
+    with _telemetry_on():
+        tr = _make_trainer(pt, profile_steps=2)
+        _carry_numpy(tr, start)
+        n0 = len(PROFILE_RECORDS.records())
+        run_a, loss_a = _train_once(tr, reader, {})
+        recs = PROFILE_RECORDS.records()[n0:]
+        final_a = _persist_numpy(tr)
+        _carry_numpy(tr, start)
+        tr.profile_steps = None
+        run_b, loss_b = _train_once(tr, reader, {})
+        final_b = _persist_numpy(tr)
+    summaries = [r for r in recs if r["kind"] == "summary"]
+    differ = [n for n in final_a if not np.array_equal(final_a[n], final_b[n])]
+    print(f"Trainer(profile_steps=2), 4 pipelined steps: losses {loss_a}; profiles off "
+          f"{loss_b}; phase 18's first 4 {loss_p[:4]}; {len(final_a) - len(differ)} of "
+          f"{len(final_a)} persistables bit-equal; {len(summaries)} profile summaries, "
+          f"coverage {[round(r['coverage'], 4) for r in summaries]}, the step's run_s "
+          f"{[round(r['compiled_step_s'] * 1e3, 3) for r in summaries]} ms [{card}]")
+    if loss_a != loss_b or loss_a != loss_p[:4] or differ or len(summaries) != 2:
+        raise AssertionError(f"Trainer(profile_steps=2): losses {loss_a} / {loss_b} / "
+                             f"{loss_p[:4]}, differing {differ[:8]}, {len(summaries)} summaries")
+    del tr, run_a, run_b
+    return {"losses": loss_a, "summaries": len(summaries),
+            "coverage": [r["coverage"] for r in summaries]}
+
+
+def _tool(name, *args):
+    """``tools/<name>.py`` (the JAX package's jax-free readers) over phase
+    19's directory, as a subprocess."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.run([sys.executable, os.path.join(repo, "tools", f"{name}.py"),
+                           PHASE19["dir"], *args], capture_output=True, text=True, timeout=300)
+
+
+def phase_observability(torch, card):
+    """Phase 19's end (its profiles, device trace, traced serving and
+    profiled Trainer ran inside phases 5, 7, 11, 14 and 18): (g)
+    ``resource_sampler.sample_once()``, its device bytes in use equal to
+    ``torch.cuda.memory_allocated()`` read in the same call, and one gauge
+    row written; (e) the record families present and ``tools/stats.py``,
+    ``profile_report.py``, ``compile_report.py``, ``pass_report.py`` and
+    ``trace_tool.py --strict`` each exiting 0 over the directory."""
+    from paddle_tpu_torch import resource_sampler
+    values = resource_sampler.sample_once()
+    allocated = torch.cuda.memory_allocated()
+    print(f"resource sampler: device0 bytes in use {values.get('device0_bytes_in_use')}, "
+          f"torch.cuda.memory_allocated() {allocated}, peak "
+          f"{values.get('device0_peak_bytes_in_use')}, limit {values.get('device0_bytes_limit')}, "
+          f"process RSS {values.get('process_rss_bytes')}")
+    if values.get("device0_bytes_in_use") != allocated:
+        raise AssertionError(f"sample_once: {values.get('device0_bytes_in_use')} bytes in use, "
+                             f"memory_allocated {allocated}")
+    with _telemetry_on():
+        sampler = resource_sampler.ResourceSampler()
+        sampler.write_sample(values)
+        sampler.close()
+    names = sorted(os.listdir(PHASE19["dir"]))
+    missing = [f for f in PHASE19_FAMILIES if not any(n.startswith(f) for n in names)]
+    print(f"phase 19 records: {names}")
+    if missing:
+        raise AssertionError(f"phase 19's directory lacks {missing}")
+    out = {}
+    for name, args in (("stats", []), ("profile_report", []), ("compile_report", []),
+                       ("pass_report", []), ("trace_tool", ["--strict"])):
+        t0 = time.perf_counter()
+        p = _tool(name, *args)
+        out[name] = {"rc": p.returncode, "s": time.perf_counter() - t0}
+        tail = "\n".join(p.stdout.strip().splitlines()[-6:])
+        print(f"tools/{name}.py {' '.join(args)}: exit {p.returncode} in "
+              f"{out[name]['s']:.2f} s\n{tail}")
+        if p.returncode != 0:
+            raise AssertionError(f"tools/{name}.py exited {p.returncode}: {p.stderr[-2000:]}")
+    return out
+
+
 def _release_serving(torch, label):
     """A serving phase's inferencers (and their graphs' memory pools) are
     gone once it returns: collect them before the training phases."""
@@ -3034,7 +3430,14 @@ def main():
         raise SystemExit(f"chip_smoke: the paddle_tpu_torch package is missing: {e}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    PHASE19["dir"] = tempfile.mkdtemp(prefix="chip_smoke_telemetry_")
+    try:
+        _main(torch, build)
+    finally:
+        shutil.rmtree(PHASE19["dir"], ignore_errors=True)
 
+
+def _main(torch, build):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
@@ -3068,6 +3471,7 @@ def main():
     for name in ("int8_matmul", "abs_max_pair", "quantize_int8"):
         launches[name] = int8_res["launches"][name]
     launches["fused_sgd"] = sgd_launches["fused_sgd"]
+    phase_observability(torch, card)
 
     def entry(name, source, replaces, per_case, main_case):
         m = per_case[main_case]
@@ -3108,8 +3512,13 @@ def main():
                                        "library_device_ms")},
                  launches_per_step=e["launches"] // steps)
     # the bf16 instances (the amp-bf16 step's path), launches from phase 14
+    # launches_profile: phase 19's op profiles (the float32 and bf16 steps,
+    # the float32 and int8 serving batches), summed
     for e in kernels:
         e["launches_trainer"] = trainer_launches[e["name"]]
+        e["launches_profile"] = PHASE19["launches_profile"].get(e["name"], 0)
+    k4["quantizers"]["launches_profile"] = {
+        n: PHASE19["launches_profile"].get(n, 0) for n in ("abs_max_pair", "quantize_int8")}
     for name, source, replaces, cases, main_case in (
             ("flash_attn_fwd", "flash_attention_fwd_bf16.cu", "flash_attention.py:38",
              {k: v for k, v in bf16.items() if k[0] == "flash"}, ("flash", False)),
@@ -3118,7 +3527,8 @@ def main():
             ("linear_ce_fwd", "linear_ce.cu", "linear_ce.py:42",
              {0: bf16["linear_ce_fwd"]}, 0)):
         e = dict(entry(name, source, replaces, cases, main_case), name=f"{name}_bf16",
-                 launches=bf16_launches[name], launches_trainer=trainer_bf16_launches[name])
+                 launches=bf16_launches[name], launches_trainer=trainer_bf16_launches[name],
+                 launches_profile=PHASE19["launches_profile_bf16"].get(name, 0))
         kernels.append(e)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -12,14 +12,20 @@ pass pipeline (``passes``) rewrites programs onto the kernel tier, and
 int8 GEMM kernel.  ``Trainer`` trains from a reader (``reader``,
 ``DataFeeder``), staging batches to the card on a background thread, with
 serial-dir checkpoints; ``io`` saves and loads in the JAX package's
-formats.
+formats.  Observability: ``telemetry`` (metrics, the trace timeline, step
+records), ``profiler`` (host spans, chrome traces, ``device_trace``),
+``profiling`` (the sampled per-op profiler behind
+``Executor.profile_ops`` and ``Trainer(profile_steps=)``), ``compile_log``
+(the capture log), ``resource_sampler`` (memory and stager gauges;
+``PADDLE_TPU_SAMPLER=1`` starts it at import) and ``log`` (``VLOG``).
 
 This package imports torch, numpy and the standard library only -- never
 jax or paddle_tpu.
 """
 from . import ops  # noqa: F401  (registers every op lowering)
-from . import (amp, checkpoint, io, layers, lod, models, optimizer,  # noqa: F401
-               passes, reader, telemetry)
+from . import (amp, checkpoint, compile_log, io, layers, lod, log,  # noqa: F401
+               models, optimizer, passes, profiler, profiling, reader,
+               resource_sampler, telemetry)
 from .backward import append_backward  # noqa: F401
 from .convert import params_from_numpy  # noqa: F401
 from .core import unique_name  # noqa: F401
@@ -33,3 +39,7 @@ from .serving import ServingSession  # noqa: F401
 from .reader.decorator import batch  # noqa: F401
 from .trainer import (BeginEpochEvent, BeginStepEvent, CheckpointConfig,  # noqa: F401
                       EndEpochEvent, EndStepEvent, Inferencer, Trainer)
+
+# PADDLE_TPU_SAMPLER=1 starts the background resource sampler with no code
+# change (off by default: no thread)
+resource_sampler._maybe_autostart()

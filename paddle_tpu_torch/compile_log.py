@@ -1,0 +1,366 @@
+"""The capture log: why each executable-cache entry was built, and what it
+cost.
+
+The port of the JAX package's ``compile_log`` (stdlib only, the same
+record schema, so ``tools/compile_report.py`` reads the port's records
+unedited).  The executor keeps one cache entry per (program version, feed
+signature, ...); on the card an entry of a step that may be one graph is a
+CUDA graph captured once, seconds of work that shows up host-side as a
+stall.  Every new entry records a structured event:
+
+* **attribution** -- a diff of this entry's signature against the previous
+  entry built *for the same program*, naming the trigger (``new-program``,
+  ``feed-shape-change:x (4,8)->(4,16)``, ``dtype-change:x``,
+  ``fetch-list-change``, ...);
+* **kind** -- what the entry cost: ``"capture"`` for a CUDA graph,
+  ``"eager"`` for an entry the graph rule left op by op (its reason, from
+  ``graph_blockers``, among ``reasons``);
+* ``cost`` and ``memory`` are ``null``: a CUDA graph has no counterpart of
+  XLA's cost and memory analysis.  :func:`flatten_cost_analysis` and
+  :func:`memory_analysis_dict` are kept for the schema and return ``None``
+  for ``None``;
+* **export** -- a bounded in-memory ring (:data:`COMPILE_LOG`) mirrored to
+  ``compiles_<pid>.jsonl`` under ``PADDLE_TPU_TELEMETRY_DIR``, the same
+  contract as the step records.
+
+Stdlib only: the executor fills the records, everything here is plain
+data.
+"""
+from __future__ import annotations
+
+import collections
+import json
+import os
+import threading
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+__all__ = [
+    "CompileLog", "COMPILE_LOG", "diff_signatures",
+    "summarize_compile_records", "flatten_cost_analysis",
+    "memory_analysis_dict",
+]
+
+
+def _fmt_shape(shape) -> str:
+    return "(" + ",".join(str(int(d)) for d in shape) + ")"
+
+
+def _sig_map(sig) -> "Dict[str, Tuple[Optional[tuple], Optional[str]]]":
+    """(name, shape, dtype) triples -> {name: (shape, dtype)}; shape may be
+    None for non-tensor state entries."""
+    out = {}
+    for name, shape, dtype in sig or ():
+        out[name] = (tuple(shape) if shape is not None else None, dtype)
+    return out
+
+
+def diff_signatures(prev: Optional[dict], cur: dict) -> List[str]:
+    """Name the trigger(s) of a compile by diffing the previous executable's
+    signature for the same program against the new one.
+
+    ``prev``/``cur`` are signature dicts with keys ``program_fp``,
+    ``feed_sig`` / ``state_sig`` (lists of (name, shape, dtype)),
+    ``fetch_names``, ``donated``, ``mesh``, ``amp``.  ``prev is None``
+    means this program never compiled in this executor: ``new-program``.
+    Reasons are ordered most-specific first and each is a stable
+    machine-parseable string (category before the first ``:``)."""
+    if prev is None:
+        return ["new-program"]
+    reasons: List[str] = []
+    if prev.get("program_fp") != cur.get("program_fp"):
+        reasons.append("program-edit")
+    for kind, key in (("feed", "feed_sig"), ("state", "state_sig")):
+        pm, cm = _sig_map(prev.get(key)), _sig_map(cur.get(key))
+        for name in sorted(set(pm) | set(cm)):
+            if name not in cm:
+                reasons.append(f"{kind}-removed:{name}")
+            elif name not in pm:
+                reasons.append(f"{kind}-added:{name}")
+            else:
+                (ps, pd), (cs, cd) = pm[name], cm[name]
+                if ps != cs:
+                    reasons.append(
+                        f"{kind}-shape-change:{name} "
+                        f"{_fmt_shape(ps) if ps is not None else '?'}"
+                        f"->{_fmt_shape(cs) if cs is not None else '?'}")
+                if pd != cd:
+                    reasons.append(f"dtype-change:{name} {pd}->{cd}")
+    if list(prev.get("fetch_names") or ()) != list(cur.get("fetch_names")
+                                                  or ()):
+        reasons.append("fetch-list-change")
+    if prev.get("scope") != cur.get("scope"):
+        # same program, different Executor: per-executor jit caches make
+        # this a real (if avoidable) compile
+        reasons.append("new-executor")
+    if sorted(prev.get("donated") or ()) != sorted(cur.get("donated") or ()):
+        reasons.append("donation-change")
+    if prev.get("mesh") != cur.get("mesh"):
+        reasons.append("mesh-change")
+    if prev.get("layout") != cur.get("layout"):
+        # same mesh, different SpecLayout (or layout added/removed): the
+        # in/out shardings changed, distinct from a topology change
+        reasons.append("layout-change")
+    if (prev.get("passes") or None) != (cur.get("passes") or None):
+        # same model, different transformation pipeline (or passes
+        # toggled on/off): the executor compiled a rewritten program
+        reasons.append("passes-change")
+    if (prev.get("amp") or False) != (cur.get("amp") or False):
+        # amp toggled, or a different AmpPolicy fingerprint rewrote the
+        # same model (the descriptor is the policy fp when a dtype pass
+        # ran, else the legacy bool)
+        reasons.append("amp-change")
+    if (prev.get("kernels") or None) != (cur.get("kernels") or None):
+        # the pallas-kernels tier toggled, or a different KernelPolicy
+        # fingerprint rewrote the same model (the descriptor is the
+        # policy fp when the pass landed a rewrite, else None)
+        reasons.append("kernels-change")
+    return reasons or ["signature-change"]
+
+
+def flatten_cost_analysis(cost) -> Optional[Dict[str, float]]:
+    """Normalize an XLA cost analysis (a dict, or a list of
+    per-computation dicts) to the headline numbers; drops the per-operand
+    ``bytes accessed0{}`` entries.  Kept for the record schema: the port's
+    entries have no cost analysis and pass ``None``."""
+    if cost is None:
+        return None
+    if isinstance(cost, (list, tuple)):
+        cost = cost[0] if cost else None
+        if cost is None:
+            return None
+    out: Dict[str, float] = {}
+    for src, dst in (("flops", "flops"), ("bytes accessed", "bytes_accessed"),
+                     ("transcendentals", "transcendentals"),
+                     ("optimal_seconds", "optimal_seconds")):
+        v = cost.get(src)
+        if v is not None:
+            out[dst] = float(v)
+    return out or None
+
+
+def memory_analysis_dict(mem) -> Optional[Dict[str, int]]:
+    """An XLA memory analysis (``CompiledMemoryStats``) to a plain dict,
+    duck-typed.  Kept for the record schema: the port's entries pass
+    ``None``."""
+    if mem is None:
+        return None
+    out: Dict[str, int] = {}
+    for attr, key in (("argument_size_in_bytes", "argument_bytes"),
+                      ("output_size_in_bytes", "output_bytes"),
+                      ("temp_size_in_bytes", "temp_bytes"),
+                      ("alias_size_in_bytes", "alias_bytes"),
+                      ("generated_code_size_in_bytes",
+                       "generated_code_bytes")):
+        v = getattr(mem, attr, None)
+        if v is not None:
+            out[key] = int(v)
+    return out or None
+
+
+class CompileLog:
+    """Bounded ring of compile events + JSONL mirror (same sink contract
+    as :class:`~paddle_tpu_torch.telemetry.StepTelemetry`: lazily opened
+    ``compiles_<pid>.jsonl`` under ``PADDLE_TPU_TELEMETRY_DIR``, append
+    per event, never raises into the training run)."""
+
+    FILE_PREFIX = "compiles_"
+
+    def __init__(self, capacity: int = 1024):
+        self._lock = threading.Lock()
+        self._ring: "collections.deque[dict]" = collections.deque(
+            maxlen=capacity)
+        self._seq = 0
+        self._sink = None
+        self._sink_path: Optional[str] = None
+        self._sink_failed = False
+
+    def _ensure_sink(self):
+        if self._sink is not None or self._sink_failed:
+            return self._sink
+        d = os.environ.get("PADDLE_TPU_TELEMETRY_DIR")
+        if not d:
+            return None
+        try:
+            os.makedirs(d, exist_ok=True)
+            self._sink_path = os.path.join(
+                d, f"{self.FILE_PREFIX}{os.getpid()}.jsonl")
+            self._sink = open(self._sink_path, "a", buffering=1)
+        except OSError:
+            self._sink_failed = True
+            self._sink = None
+        return self._sink
+
+    @property
+    def sink_path(self) -> Optional[str]:
+        return self._sink_path
+
+    def reopen(self):
+        """Close and forget the sink so the next record re-reads
+        ``PADDLE_TPU_TELEMETRY_DIR`` (tests repoint the dir mid-process)."""
+        with self._lock:
+            if self._sink is not None:
+                try:
+                    self._sink.close()
+                except OSError:
+                    pass
+            self._sink = None
+            self._sink_path = None
+            self._sink_failed = False
+
+    def record(self, **fields) -> dict:
+        # rank/pid stamped like every telemetry stream (the fingerprint
+        # lockstep check in tools/health_report.py merges per-rank logs)
+        # rank/pid stamped like every telemetry stream
+        rank = 0
+        env = os.environ.get("PADDLE_TRAINER_ID")
+        if env:
+            try:
+                rank = int(env)
+            except ValueError:
+                rank = 0
+        else:
+            import sys
+            dist = sys.modules.get("torch.distributed")
+            if dist is not None:
+                try:
+                    if dist.is_available() and dist.is_initialized():
+                        rank = int(dist.get_rank())
+                except Exception:  # noqa: BLE001 -- stamping never raises
+                    rank = 0
+        rec = {"ts": time.time(), "t_mono": time.monotonic(),
+               "pid": os.getpid(), "rank": rank}
+        rec.update(fields)
+        if "trace_id" not in rec:
+            # trace stamping reads the port's telemetry module only when it
+            # is loaded (this file stays importable on its own): a record
+            # written inside an active span (the serving batch span, a
+            # traced step) inherits its ids
+            import sys
+            tel = sys.modules.get("paddle_tpu_torch.telemetry")
+            if tel is not None:
+                try:
+                    ctx = tel.current_trace()
+                except Exception:  # noqa: BLE001 — stamping never raises
+                    ctx = None
+                if ctx is not None:
+                    rec["trace_id"] = ctx.trace_id
+                    rec["span_id"] = ctx.span_id
+                    if ctx.parent_id:
+                        rec["parent_id"] = ctx.parent_id
+        with self._lock:
+            self._seq += 1
+            rec.setdefault("seq", self._seq)
+            self._ring.append(rec)
+            sink = self._ensure_sink()
+            if sink is not None:
+                try:
+                    sink.write(json.dumps(rec, default=str) + "\n")
+                except (OSError, TypeError, ValueError):
+                    self._sink_failed = True
+        return rec
+
+    def records(self) -> List[dict]:
+        with self._lock:
+            return list(self._ring)
+
+    def clear(self):
+        with self._lock:
+            self._ring.clear()
+
+    def summary(self) -> Dict[str, Any]:
+        return summarize_compile_records(self.records())
+
+
+COMPILE_LOG = CompileLog()
+
+
+def _reason_category(reason: str) -> str:
+    return reason.split(":", 1)[0]
+
+
+def summarize_compile_records(records: List[dict]) -> Dict[str, Any]:
+    """Aggregate compile events into the report sections
+    ``tools/compile_report.py`` renders: counts/time split cold-vs-warm,
+    compiles grouped by reason category, the feed vars churning shapes
+    hardest (with their observed transitions), and a per-executable
+    cost/memory table."""
+    out: Dict[str, Any] = {"compiles": len(records)}
+    if not records:
+        return out
+    by_kind: Dict[str, Dict[str, float]] = {}
+    by_reason: Dict[str, int] = {}
+    churn: Dict[str, Dict[str, Any]] = {}
+    table: List[dict] = []
+    programs = set()
+    meshes: List[dict] = []
+    layouts: List[str] = []
+    amps: List[Any] = []
+    kernels: List[str] = []
+    for r in records:
+        mesh = r.get("mesh")
+        if mesh and mesh not in meshes:
+            meshes.append(mesh)
+        layout = r.get("layout")
+        if layout and layout not in layouts:
+            layouts.append(layout)
+        amp = r.get("amp")
+        if amp and amp not in amps:
+            amps.append(amp)
+        kfp = r.get("kernels")
+        if kfp and kfp not in kernels:
+            kernels.append(kfp)
+        kind = r.get("kind", "fresh")
+        k = by_kind.setdefault(kind, {"count": 0, "compile_s": 0.0})
+        k["count"] += 1
+        k["compile_s"] += float(r.get("compile_s") or 0.0)
+        programs.add((r.get("program_uid"), r.get("scope")))
+        for reason in r.get("reasons") or ():
+            by_reason[_reason_category(reason)] = \
+                by_reason.get(_reason_category(reason), 0) + 1
+            if reason.startswith("feed-shape-change:"):
+                body = reason.split(":", 1)[1]
+                var, _, transition = body.partition(" ")
+                c = churn.setdefault(var, {"count": 0, "transitions": []})
+                c["count"] += 1
+                if transition and transition not in c["transitions"]:
+                    c["transitions"].append(transition)
+        row = {"kind": kind,
+               "fingerprint": (r.get("fingerprint") or "")[:12],
+               # the ProgramDesc fingerprint is the join key the
+               # op-profiler records carry (profile_*.jsonl summary
+               # rows) — compile_report's measured_s/calibration columns
+               # match on it
+               "program_fp": (r.get("program_fp") or "")[:12] or None,
+               "scope": r.get("scope"),
+               "compile_s": float(r.get("compile_s") or 0.0),
+               "reasons": list(r.get("reasons") or ())}
+        if r.get("cost"):
+            row["cost"] = r["cost"]
+        if r.get("memory"):
+            row["memory"] = r["memory"]
+        table.append(row)
+    out.update({
+        "by_kind": by_kind,
+        "fresh": by_kind.get("fresh", {}).get("count", 0),
+        "warm_disk_hits": by_kind.get("warm-disk-hit", {}).get("count", 0),
+        "by_reason": dict(sorted(by_reason.items(),
+                                 key=lambda kv: -kv[1])),
+        "shape_churn_vars": dict(sorted(
+            churn.items(), key=lambda kv: -kv[1]["count"])),
+        "programs": len(programs),
+        "executables": table,
+        "compile_s_total": sum(k["compile_s"] for k in by_kind.values()),
+        # sharding header facts: the per-axis mesh shape(s) and SpecLayout
+        # fingerprint(s) these compiles ran under, so the report can tell
+        # mesh-change from layout-change at a glance
+        "meshes": meshes,
+        "layouts": layouts,
+        # active amp descriptor(s): AmpPolicy fingerprint strings for
+        # pass-rewritten programs, True for the legacy lowering flag
+        "amp": amps,
+        # active KernelPolicy fingerprint(s) for kernel-rewritten
+        # programs (empty when the pallas-kernels tier never landed)
+        "kernels": kernels,
+    })
+    return out

@@ -60,9 +60,26 @@ names); the executor runs the rewritten program.  A program flagged by
 ``amp.enable_amp`` then goes through the ``amp-bf16`` pass (the legacy
 bridge, memoized per program uid, version and fetch names), as in the JAX
 package; one the pass cannot rewrite raises.
+
+Telemetry, as in the JAX package: each executor counts its cache in a
+telemetry scope of its own (``executor:<n>``: ``compile_count``,
+``fresh_compiles``, ``persistent_hits`` (always 0: a CUDA graph is not
+saved across processes), ``cache_hits``, ``cache_misses``, ``runs`` and
+``captures``), and every new cache entry writes one record to the capture
+log (``compile_log.COMPILE_LOG``, ``compiles_<pid>.jsonl``): why it was
+built, what it cost (``kind``: ``capture`` or ``eager``) and how long.
+While the timeline is enabled a run records ``executor::feed``,
+``executor::run(block0/<n> ops)`` and ``executor::fetch`` spans, the
+head of a staged batch's flow, and the step's span on the device lane;
+with it off a run adds a few counter increments.  ``profile_ops`` is the
+sampled per-op profiler (``paddle_tpu_torch.profiling``) over the program
+``run`` would execute.
 """
 from __future__ import annotations
 
+import itertools
+import json
+import os
 import threading
 import time
 import warnings
@@ -71,6 +88,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..compile_log import COMPILE_LOG, diff_signatures
+from ..log import VLOG
+from ..telemetry import REGISTRY, TIMELINE
 from .desc import BlockDesc, VarType
 from .dtypes import coerce_feed_dtype, convert_dtype
 from .framework import Program, Variable, default_main_program
@@ -86,6 +106,14 @@ RNG_STATE_VAR = "@RNG_STATE@"
 # a program that has built this many distinct cache entries (feed shapes,
 # usually) draws one warning, as in the JAX package
 RECOMPILE_WARN_THRESHOLD = 8
+
+# program uid -> the signature of the last cache entry built for it, by any
+# executor: the capture log's attribution diffs against it
+_LAST_PROGRAM_SIG: Dict[int, dict] = {}
+_LAST_PROGRAM_SIG_LOCK = threading.Lock()
+
+# (program uid, version) already written under PADDLE_TPU_PROGRAM_DUMP_DIR
+_DUMPED_PROGRAMS: set = set()
 
 
 class Place:
@@ -225,6 +253,11 @@ def _copy_generator(gen: torch.Generator) -> torch.Generator:
     return copy
 
 
+def _dtype_name(dtype) -> str:
+    """``torch.float32`` -> ``"float32"`` (the JAX package's spelling)."""
+    return str(dtype).replace("torch.", "")
+
+
 def _tensor_sig(name: str, v, with_address: bool) -> tuple:
     if not isinstance(v, torch.Tensor):
         return (name, type(v).__name__)
@@ -287,6 +320,8 @@ class Executor:
     ``kernels``: ``None`` (on for a CUDA place, off on the CPU),
     ``True``/``False`` or a ``KernelPolicy``."""
 
+    _SEQ = itertools.count(1)      # executor numbering, for telemetry scopes
+
     def __init__(self, place: Optional[Place] = None, passes=None, amp=None,
                  kernels=None):
         self.place = place if place is not None else CUDAPlace(0)
@@ -315,7 +350,18 @@ class Executor:
         # guards the cache, and a graph's feed copy, replay and output copies
         self._lock = threading.RLock()
         self._side_stream = None       # the captures' eager runs
-        self._compiles = self._captures = self._hits = self._misses = self._runs = 0
+        # the cache's counters, in this executor's own telemetry scope (two
+        # executors' numbers never mix); process-wide totals stay in the
+        # "pipeline" scope (COUNTERS)
+        self.telemetry_scope = f"executor:{next(Executor._SEQ)}"
+        sc = self.telemetry_scope
+        self._m_compiles = REGISTRY.counter("compile_count", scope=sc)
+        self._m_fresh = REGISTRY.counter("fresh_compiles", scope=sc)
+        self._m_persistent = REGISTRY.counter("persistent_hits", scope=sc)
+        self._m_hits = REGISTRY.counter("cache_hits", scope=sc)
+        self._m_misses = REGISTRY.counter("cache_misses", scope=sc)
+        self._m_runs = REGISTRY.counter("runs", scope=sc)
+        self._m_captures = REGISTRY.counter("captures", scope=sc)
         self._per_program_compiles: Dict[int, int] = {}
         self._per_program_replaced: Dict[int, int] = {}
 
@@ -323,11 +369,20 @@ class Executor:
     @property
     def compile_count(self) -> int:
         """Cache entries built (graphs captured and eager entries)."""
-        return self._compiles
+        return self._m_compiles.value
+
+    @property
+    def fresh_compile_count(self) -> int:
+        return self._m_fresh.value
+
+    @property
+    def persistent_hit_count(self) -> int:
+        """Always 0: a CUDA graph is not saved across processes."""
+        return self._m_persistent.value
 
     @property
     def run_count(self) -> int:
-        return self._runs
+        return self._m_runs.value
 
     def _apply_passes(self, program: Program, feed_names: List[str],
                       fetch_names: List[str]) -> Program:
@@ -431,7 +486,12 @@ class Executor:
                        for f in (fetch_list or [])]
         program = self._apply_passes(program, list(feed), fetch_names)
         block = program.desc.block(0)
-        feeds = {k: self._feed_tensor(block, k, v) for k, v in feed.items()}
+        if TIMELINE.enabled:
+            t0 = TIMELINE.now_us()
+            feeds = {k: self._feed_tensor(block, k, v) for k, v in feed.items()}
+            TIMELINE.record_complete("executor::feed", t0, TIMELINE.now_us() - t0)
+        else:
+            feeds = {k: self._feed_tensor(block, k, v) for k, v in feed.items()}
         return program, scope, feeds, fetch_names
 
     def run(self, program: Optional[Program] = None, feed: Optional[dict] = None,
@@ -443,19 +503,39 @@ class Executor:
         step meanwhile; otherwise numpy arrays (``return_numpy``; a bf16
         value comes back as float32, numpy having no bfloat16) or device
         tensors (clones of a graph's outputs)."""
+        # a staged batch's flow id links its stage span to this step's span
+        timeline = TIMELINE.enabled
+        flow_id = getattr(feed, "flow_id", None) if timeline else None
         program, scope, feeds, fetch_names = self._prepare(program, feed, fetch_list, scope)
+        self._m_runs.inc()
+        label = dispatch_us = None
+        if timeline:
+            label, dispatch_us = f"step[{self._m_runs.value}]", TIMELINE.now_us()
+            if flow_id is not None:
+                TIMELINE.record_flow("f", "staged_batch", flow_id, TIMELINE.now_us())
         outs = None
         with self._lock:
-            self._runs += 1
             entry, state, warm = self._get_entry(program, feeds, fetch_names, scope)
             if entry.graph is not None and warm is None:
                 # the outputs' copies are enqueued before another replay can start
-                outs = self._stage(self._replay(entry, feeds), sync, return_numpy, clone=True)
+                outs = self._stage(self._replay(entry, feeds), sync, return_numpy, clone=True,
+                                   label=label, dispatch_us=dispatch_us)
         if outs is None:
             # an eager entry, or the eager run that preceded a fresh capture
             fetches = warm if warm is not None else self._lower(entry, feeds, state, scope)
-            outs = self._stage(fetches, sync, return_numpy, clone=False)
-        return [h.numpy() for h in outs] if sync and return_numpy else outs
+            outs = self._stage(fetches, sync, return_numpy, clone=False, label=label,
+                               dispatch_us=dispatch_us)
+        if timeline:
+            TIMELINE.record_complete(f"executor::run(block0/{len(entry.block.ops)} ops)",
+                                     dispatch_us, TIMELINE.now_us() - dispatch_us)
+        if not (sync and return_numpy):
+            return outs
+        if not timeline:
+            return [h.numpy() for h in outs]
+        t0 = TIMELINE.now_us()
+        out = [h.numpy() for h in outs]
+        TIMELINE.record_complete("executor::fetch", t0, TIMELINE.now_us() - t0)
+        return out
 
     def _run_eager(self, program: Optional[Program] = None, feed: Optional[dict] = None,
                    fetch_list: Optional[Sequence] = None, scope: Optional[Scope] = None,
@@ -470,13 +550,16 @@ class Executor:
                            clone=False)
         return [h.numpy() for h in outs] if sync and return_numpy else outs
 
-    def _stage(self, fetches, sync: bool, return_numpy: bool, clone: bool):
+    def _stage(self, fetches, sync: bool, return_numpy: bool, clone: bool,
+               label: Optional[str] = None, dispatch_us: Optional[float] = None):
         """Device tensors (``sync`` without ``return_numpy``; clones of a
         graph's buffers), else handles whose copies to pinned host memory
-        are enqueued now."""
+        are enqueued now.  The first handle carries the step's ``label``
+        and ``dispatch_us`` (the device-lane span: one a step)."""
         if sync and not return_numpy:
             return [t.clone() for t in fetches] if clone else list(fetches)
-        handles = [FetchHandle(t) for t in fetches]
+        handles = [FetchHandle(t, label, dispatch_us) if i == 0 else FetchHandle(t)
+                   for i, t in enumerate(fetches)]
         prefetch_to_host(handles)
         return handles
 
@@ -539,9 +622,9 @@ class Executor:
             arrays[k] = v
         program, scope, feeds, fetch_names = self._prepare(program, arrays, fetch_list, scope)
         with self._lock:
-            compiles = self._compiles
+            compiles = self.compile_count
             entry, state, _ = self._get_entry(program, feeds, fetch_names, scope)
-            built = self._compiles != compiles
+            built = self.compile_count != compiles
         if built and entry.graph is None and self.device.type == "cuda":
             # an eager entry's first run on the card builds the kernel
             # library and creates cuBLAS's handles: paid here, not by the
@@ -554,16 +637,48 @@ class Executor:
                 "compile_s": round(entry.compile_s, 6), "aot": entry.graph is not None,
                 "reasons": list(entry.reasons)}
 
+    def profile_ops(self, program: Optional[Program] = None, feed: Optional[dict] = None,
+                    fetch_list: Optional[Sequence] = None, scope: Optional[Scope] = None,
+                    samples: int = 3, compiled_step_s: Optional[float] = None):
+        """Per-op wall-time attribution of one step (the sampled slice
+        profiler of ``paddle_tpu_torch.profiling``): ``feed`` replayed op by
+        op through the live slice of the program ``run`` would execute
+        with this fetch list (the pass pipeline, the amp bridge and the
+        kernel tier applied), each op timed to its outputs being ready.
+        The replay runs on clones of the state it writes and draws from a
+        generator of its own: the scope, its tensors' addresses, the
+        generators and this executor's cache are left as they were.
+        ``fetch_list=None`` profiles every op (a training step's backward
+        and updates included).  ``compiled_step_s`` (the measured step
+        wall, when the caller has one) rides into the record.
+
+        Returns a :class:`~paddle_tpu_torch.profiling.ProgramProfile`; its
+        records (``profile_<pid>.jsonl``, ``costmodel_<pid>.json``) go to
+        ``PADDLE_TPU_TELEMETRY_DIR`` when it is set."""
+        from ..profiling import profile_program
+        program = program or default_main_program()
+        feed = feed or {}
+        fetch_names = [f.name if isinstance(f, Variable) else str(f)
+                       for f in (fetch_list or [])]
+        program = self._apply_passes(program, list(feed), fetch_names)
+        return profile_program(program, feed, scope=scope or global_scope(),
+                               fetch_list=fetch_names, samples=samples, executor=self,
+                               compiled_step_s=compiled_step_s)
+
     def cache_info(self) -> Dict[str, Any]:
-        """Cache and pipeline statistics, under the JAX package's keys,
-        and one record per entry (``kind``, ``graph_eligible``, ``reasons``,
+        """Cache and pipeline statistics, under the JAX package's keys
+        (``scope`` names this executor's telemetry scope), and one record
+        per entry (``kind``, ``graph_eligible``, ``reasons``,
         ``compile_s``, the feeds' shapes and dtypes and the kernel launches
         a replay makes)."""
         with self._lock:
-            return {"executables": len(self._cache), "compile_count": self._compiles,
-                    "fresh_compiles": self._compiles, "captures": self._captures,
-                    "hits": self._hits, "misses": self._misses, "runs": self._runs,
-                    "pipeline": COUNTERS.snapshot(),
+            return {"executables": len(self._cache), "scope": self.telemetry_scope,
+                    "compile_count": self.compile_count,
+                    "fresh_compiles": self.fresh_compile_count,
+                    "persistent_hits": self.persistent_hit_count,
+                    "captures": self._m_captures.value,
+                    "hits": self._m_hits.value, "misses": self._m_misses.value,
+                    "runs": self._m_runs.value, "pipeline": COUNTERS.snapshot(),
                     "entries": [e.info() for e in self._cache.values()]}
 
     # ------------------------------------------------------------ the cache
@@ -619,11 +734,12 @@ class Executor:
         key = (desc.uid, desc.version, feed_sig, tuple(fetch_names), state_sig) + rest
         entry = self._cache.get(key)
         if entry is not None:
-            self._hits += 1
+            self._m_hits.inc()
             COUNTERS.inc("cache_hits")
             return entry, state, None
-        self._misses += 1
+        self._m_misses.inc()
         COUNTERS.inc("cache_misses")
+        self._maybe_dump_program(program, fetch_names, feeds)
         replaced = None
         if not blockers:
             shape_key = (desc.uid, desc.version, feed_sig, tuple(fetch_names), shape_sig,
@@ -633,22 +749,29 @@ class Executor:
             self._cache.pop(replaced, None)
             self._by_shape[shape_key] = key
 
+        VLOG(1, "building the cache entry of block 0: %d ops, %d feeds, %d state vars, "
+                "%d fetches (cache size %d)", len(desc.block(0).ops), len(feeds),
+             len(state_in), len(fetch_names), len(self._cache))
+        t_span = TIMELINE.now_us() if TIMELINE.enabled else None
         t0 = time.perf_counter()
         reasons = blockers if blockers or on_card else ["the CPU runs the block op by op"]
         entry = _CacheEntry(program, feeds, state_in, state_out, fetch_names, reasons,
                             eligible=not blockers)
+        program_fp = desc.fingerprint()
         entry.fingerprint = executable_fingerprint(
-            desc.fingerprint(), feed_sig, shape_sig, fetch_names, *rest[:3],
+            program_fp, feed_sig, shape_sig, fetch_names, *rest[:3],
             torch.cuda.get_device_name(self.device) if on_card else "cpu",
             dict(_matmul_flags()))
         warm = None
         if on_card and not blockers:
             warm = self._capture(entry, feeds, state, gen)
-            self._captures += 1
+            self._m_captures.inc()
         entry.compile_s = time.perf_counter() - t0
         self._cache[key] = entry
-        self._compiles += 1
+        self._m_compiles.inc()
+        self._m_fresh.inc()
         COUNTERS.inc("compiles")
+        self._record_capture(entry, program, program_fp, feed_sig, shape_sig, t_span)
         # each warning at most once per program
         if replaced is not None:
             n = self._per_program_replaced.get(desc.uid, 0) + 1
@@ -665,10 +788,78 @@ class Executor:
         if n == RECOMPILE_WARN_THRESHOLD:
             warnings.warn(
                 f"this program has built {n} distinct cache entries "
-                f"(Executor.compile_count={self._compiles}), usually one per "
+                f"(Executor.compile_count={self.compile_count}), usually one per "
                 f"feed shape; on the card each is a CUDA graph with memory of "
                 f"its own.  Bucket the batch and sequence shapes.", stacklevel=4)
         return entry, state, warm
+
+    def _record_capture(self, entry: _CacheEntry, program: Program, program_fp: str,
+                        feed_sig, shape_sig, t_span: Optional[float]):
+        """One record of a new cache entry in the capture log: the diff of
+        its signature against the last entry built for the same program
+        (by any executor), what it cost (``kind``: ``capture`` for a CUDA
+        graph, ``eager`` for an entry the graph rule left op by op, with
+        the rule's reasons as ``eager:<reason>``) and its seconds; plus a
+        timeline span while the timeline is enabled."""
+        feeds = [[n, [int(d) for d in s], _dtype_name(d)] for n, s, d in feed_sig]
+        state = [[sig[0], [int(d) for d in sig[1]], _dtype_name(sig[2])] if len(sig) == 3
+                 else [sig[0], None, None] for sig in shape_sig]
+        donated = sorted(set(entry.state_in) & set(entry.state_out))
+        amp = self._amp_desc(program)
+        passes = (self._passes_fp or "")[:12] or None
+        kernels = (program._kernel_policy_fp or "")[:12] or None
+        cur = {"program_fp": program_fp, "scope": self.telemetry_scope, "feed_sig": feeds,
+               "state_sig": state, "fetch_names": list(entry.fetch_names),
+               "donated": donated, "mesh": None, "amp": amp, "layout": None,
+               "passes": passes, "kernels": kernels}
+        uid = program.desc.uid
+        with _LAST_PROGRAM_SIG_LOCK:
+            prev = _LAST_PROGRAM_SIG.get(uid)
+            _LAST_PROGRAM_SIG[uid] = cur
+        kind = "capture" if entry.graph is not None else "eager"
+        reasons = diff_signatures(prev, cur) + [f"eager:{r}" for r in entry.reasons]
+        COMPILE_LOG.record(
+            scope=self.telemetry_scope, program_uid=uid,
+            program_version=program.desc.version, program_fp=program_fp[:12],
+            fingerprint=entry.fingerprint, kind=kind, reasons=reasons,
+            compile_s=round(entry.compile_s, 6), ops=len(entry.block.ops),
+            feeds={n: [s, d] for n, s, d in feeds}, fetches=list(entry.fetch_names),
+            state_vars=len(state), donated=len(donated), mesh=None, amp=amp,
+            layout=None, passes=passes, kernels=kernels, aot=entry.graph is not None,
+            cost=None, memory=None)
+        if t_span is not None:
+            TIMELINE.record_complete(
+                "executor::compile", t_span, max(0.0, TIMELINE.now_us() - t_span),
+                cat="compile", args={"kind": kind, "reasons": reasons[:6],
+                                     "fingerprint": (entry.fingerprint or "")[:12]})
+
+    def _maybe_dump_program(self, program: Program, fetch_names: List[str],
+                            feeds: Dict[str, torch.Tensor]):
+        """With ``PADDLE_TPU_PROGRAM_DUMP_DIR`` set, write each program the
+        executor runs once per version as ``program_<pid>_<uid>_v<version>
+        .json`` (the JAX package's dump: the ProgramDesc, the fetch and
+        feed names and this first signature's feed shapes), the input of
+        ``tools/pass_report.py`` and ``tools/program_lint.py``."""
+        out_dir = os.environ.get("PADDLE_TPU_PROGRAM_DUMP_DIR")
+        if not out_dir:
+            return
+        key = (program.desc.uid, program.desc.version)
+        if key in _DUMPED_PROGRAMS:
+            return
+        _DUMPED_PROGRAMS.add(key)
+        try:
+            os.makedirs(out_dir, exist_ok=True)
+            path = os.path.join(out_dir, f"program_{os.getpid()}_{key[0]}_v{key[1]}.json")
+            with open(path, "w") as f:
+                json.dump({"program": program.desc.to_dict(),
+                           "fetch_names": list(fetch_names),
+                           "feed_names": sorted(feeds),
+                           "feed_shapes": {k: [int(d) for d in v.shape]
+                                           for k, v in feeds.items()},
+                           "mesh": None, "fingerprint": program.desc.fingerprint(),
+                           "uid": key[0], "version": key[1]}, f)
+        except (OSError, TypeError, ValueError) as e:
+            VLOG(1, "program dump failed: %s: %s", type(e).__name__, e)
 
     def _new_generator(self, program: Program) -> torch.Generator:
         gen = torch.Generator(device=self.device)

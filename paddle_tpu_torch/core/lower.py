@@ -15,6 +15,12 @@ the forward lowering runs again on leaf tensors that require grad, and
 package's ``jax.vjp`` of the forward lowering).  Eager torch does not
 remove that recompute, so a forward kernel launches again in each grad op
 of its forward op.
+
+While a torch profiler is active each op's lowering runs inside a
+``record_function`` range named ``op<idx>:<type>@<file.py:line>`` (the JAX
+package's ``jax.named_scope`` of the same name), so a device trace maps a
+kernel back to the ProgramDesc op and the user-code line that appended it.
+With no profiler active the lowering pays one check.
 """
 from __future__ import annotations
 
@@ -24,6 +30,9 @@ import torch
 
 from .desc import BlockDesc, OpDesc
 from .registry import OPS
+
+# whether any torch profiler is recording (one C call)
+_profiler_enabled = torch._C._autograd._profiler_enabled
 
 # Env key suffix carrying per-row sequence lengths of a padded ragged
 # batch: var `x` with lod_level>0 is a padded [N, T, ...] tensor and
@@ -101,7 +110,24 @@ class LowerCtx:
             self.write(names[0], value)
 
 
+def _op_scope_name(op: OpDesc, index: Optional[int]) -> str:
+    """The profiler range of one op: ``op<idx>:<type>@<file.py:line>``."""
+    name = f"op{'?' if index is None else index}:{op.type}"
+    callsite = op.callsite
+    if callsite:
+        name += "@" + callsite.replace("\\", "/").rsplit("/", 1)[-1].replace(" ", "")
+    return name
+
+
 def lower_op(ctx: LowerCtx, op: OpDesc, index: Optional[int] = None):
+    if _profiler_enabled():
+        with torch.profiler.record_function(_op_scope_name(op, index)):
+            _lower_op(ctx, op, index)
+    else:
+        _lower_op(ctx, op, index)
+
+
+def _lower_op(ctx: LowerCtx, op: OpDesc, index: Optional[int]):
     info = OPS.get(op.type) if OPS.has(op.type) else None
     if info is not None and info.lower is not None:
         info.lower(ctx, op)
@@ -160,7 +186,12 @@ def _lower_group(ctx: LowerCtx, ops: List[OpDesc], start: int, info) -> int:
         else:
             lower_op(ctx, op, index=i)
         i += 1
-    info.group_lower(ctx, group)
+    if _profiler_enabled():
+        name = f"{_op_scope_name(group[0], start)}[group of {len(group)}]"
+        with torch.profiler.record_function(name):
+            info.group_lower(ctx, group)
+    else:
+        info.group_lower(ctx, group)
     for op in group:
         if op.type not in SEQ_LEN_AWARE:
             _propagate_seq_len(ctx, op)

@@ -13,7 +13,9 @@ fetches and the executable fingerprint.
   and copied to the device on the stager's own stream; the
   :class:`StagedBatch` carries an event the executor's stream waits on
   before it reads the batch.  A host object fed again reuses its staged
-  tensor.
+  tensor.  While the timeline is enabled the stager thread's lane carries a
+  ``stage[<seq>]`` span a batch (``stage::convert(<name>)`` inside it) and
+  the tail of a flow whose head lands on the step that reads the batch.
 * :class:`FetchHandle` -- the value of a fetch.  On the card
   :func:`prefetch_to_host` enqueues its device-to-host copy into pinned
   host memory on the step's stream, right after the step, and records an
@@ -21,7 +23,10 @@ fetches and the executable fingerprint.
   out an array over the pinned buffer (a bf16 value as float32: numpy has
   no bfloat16).  Until then the step may still be running on the card, so
   the caller (the serving dispatcher) can enqueue the next batch meanwhile.
-  A CPU tensor is read as it is.
+  A CPU tensor is read as it is.  A handle keeps the trace context active
+  where it was made; the executor stamps the first handle of a step with
+  its label and dispatch time, and its first read records the step's span
+  on the timeline's device lane (dispatch to ready).
 * :data:`PINNED_HANDOUT` -- the pinned bytes that arrays handed out hold,
   bounded by :data:`PINNED_HANDOUT_LIMIT`: past it a fetch is copied out to
   pageable memory when it is read, so a caller that keeps its answers does
@@ -43,7 +48,7 @@ from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequ
 import numpy as np
 import torch
 
-from ..telemetry import REGISTRY
+from ..telemetry import REGISTRY, TIMELINE, current_trace, next_flow_id
 from .dtypes import to_numpy
 
 __all__ = ["COUNTERS", "PipelineCounters", "PINNED_HANDOUT", "PINNED_HANDOUT_LIMIT",
@@ -145,11 +150,20 @@ class FetchHandle:
     written; :meth:`block` waits), else the fetched tensor.  A pinned
     value is handed out as an array over its buffer while
     :data:`PINNED_HANDOUT` is under its limit, else copied out to pageable
-    memory (``value`` then becomes that copy)."""
+    memory (``value`` then becomes that copy).
 
-    __slots__ = ("_val", "_event", "_np", "_pinned", "_lock")
+    ``trace`` is the trace context active when the handle was made (the
+    serving batch's span; None when untraced).  A handle given a ``label``
+    and ``dispatch_us`` (the executor's first handle of a step, while the
+    timeline is enabled) records ``[dispatch, ready]`` on the device lane
+    when it is first read: ready is the moment the host saw the value,
+    exact after a stall and an upper bound otherwise."""
 
-    def __init__(self, val: torch.Tensor):
+    __slots__ = ("_val", "_event", "_np", "_pinned", "_lock", "_label", "_dispatch_us",
+                 "_span_done", "trace")
+
+    def __init__(self, val: torch.Tensor, label: Optional[str] = None,
+                 dispatch_us: Optional[float] = None):
         self._val = val
         self._event: Optional[torch.cuda.Event] = None
         self._np = None
@@ -157,6 +171,25 @@ class FetchHandle:
         # batch-mates read one handle from several threads: one of them
         # makes the array (a copy, past the limit), the others reuse it
         self._lock = threading.Lock()
+        self._label = label
+        self._dispatch_us = dispatch_us
+        self._span_done = False
+        self.trace = current_trace()
+
+    def _record_device_span(self, stalled: bool):
+        """The first completion records the step's span on the device lane."""
+        if self._span_done:
+            return
+        self._span_done = True
+        if not TIMELINE.enabled:
+            return
+        now = TIMELINE.now_us()
+        args: Dict[str, Any] = {"stalled": stalled}
+        if self.trace is not None:
+            args["trace_id"] = self.trace.trace_id
+            args["span_id"] = self.trace.span_id
+        TIMELINE.record_device_span(self._label or "device_step", self._dispatch_us,
+                                    max(0.0, now - self._dispatch_us), args=args)
 
     @property
     def value(self) -> torch.Tensor:
@@ -167,8 +200,11 @@ class FetchHandle:
 
     def block(self) -> "FetchHandle":
         """Wait until the value is on the host."""
+        stalled = self._dispatch_us is not None and not self.ready()
         if self._event is not None:
             self._event.synchronize()
+        if self._dispatch_us is not None:
+            self._record_device_span(stalled)
         return self
 
     def result(self, timeout: Optional[float] = None) -> np.ndarray:
@@ -315,13 +351,15 @@ class StagedBatch(dict):
     ``donatable`` (its tensors are not kept by the stager's reuse cache).
     On the card ``event`` is recorded on the stager's stream after the
     batch's copies: the executor's stream waits on it before reading the
-    batch.  A plain dict everywhere else.  (The JAX package's timeline
-    spans and flows of a staged batch wait for the port's profiler.)"""
+    batch.  ``flow_id`` (set while the timeline is enabled) ties the
+    batch's stage span to the span of the step that reads it.  A plain
+    dict everywhere else."""
 
-    __slots__ = ("seq", "nbytes", "donatable", "event")
+    __slots__ = ("flow_id", "seq", "nbytes", "donatable", "event")
 
     def __init__(self, *a, **kw):
         super().__init__(*a, **kw)
+        self.flow_id: Optional[int] = None
         self.seq: int = -1
         self.nbytes: int = 0
         self.donatable: bool = False
@@ -447,6 +485,8 @@ class FeedStager:
         return out
 
     def _stage_one(self, feed: dict, seq: int) -> StagedBatch:
+        t0 = TIMELINE.now_us() if TIMELINE.enabled else 0.0
+        reused = 0
         staged = StagedBatch()
         staged.seq = seq
         staged.donatable = not self._reuse_enabled
@@ -461,11 +501,20 @@ class FeedStager:
                     ent_map.move_to_end(key)
                     staged[name] = ent[1]
                     COUNTERS.inc("reused_buffers")
+                    reused += 1
                     continue
                 # a conversion the enabled cache could not serve (reuse=False
                 # converts by design and does not count)
                 COUNTERS.inc("buffer_reuse_misses")
-            dev = self._to_device(name, val, used)
+            if TIMELINE.enabled:
+                # coercion and the copy's enqueue, on this (stager) thread:
+                # a sub-span of the stage span
+                tc = TIMELINE.now_us()
+                dev = self._to_device(name, val, used)
+                TIMELINE.record_complete(f"stage::convert({name})", tc,
+                                         TIMELINE.now_us() - tc, cat="staging")
+            else:
+                dev = self._to_device(name, val, used)
             staged[name] = dev
             if key is None:
                 continue
@@ -482,6 +531,14 @@ class FeedStager:
                 slot.event = staged.event
         staged.nbytes = sum(int(v.numel() * v.element_size()) for v in staged.values()
                             if isinstance(v, torch.Tensor))
+        if TIMELINE.enabled:
+            now = TIMELINE.now_us()
+            TIMELINE.record_complete(f"stage[{seq}]", t0, now - t0, cat="staging",
+                                     args={"reused_buffers": reused, "feeds": len(feed)})
+            # the flow's tail, on the stage span; the executor step that
+            # reads this batch records its head
+            staged.flow_id = next_flow_id()
+            TIMELINE.record_flow("s", "staged_batch", staged.flow_id, now - 1.0)
         return staged
 
     def _worker(self, it: Iterator[dict]):

@@ -23,7 +23,15 @@ shape predicate:
 
 A changed rewrite stamps ``program._kernel_policy_fp``.  Skipped rewrites
 are silent in the ProgramDesc, as in the JAX package; the flash family
-notes its declines in the pass result.
+notes its declines in the pass result.  Every decision counts into the
+telemetry registry's ``"kernels"`` scope under the JAX package's names
+(``flash_selected``, ``flash_skip:<reason>``, ``flash_deferred``,
+``int8_applied``, ``int8_skip:pattern-mismatch``, ``optimizer_applied``,
+``optimizer_skip:<reason>``, ``embedding_applied``,
+``embedding_skip:<reason>``).  The reasons are the port's policy's
+(``policy.py``): ``head-dim-unsupported`` is a head dim K1 does not take
+(16, 32, 64, 128), and ``table-exceeds-budget`` a table over the card's
+80 GiB knob, not the TPU's lane and VMEM gates.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ from typing import Dict, Optional, Set
 
 from ...core.desc import PASS_PROVENANCE_ATTR, VarType
 from ...passes.base import PassContext, PassResult, ProgramPass, register_pass
+from ...telemetry import REGISTRY
 from .policy import (KERNEL_EMB, KERNEL_FLASH, KERNEL_INT8, KERNEL_OPT,
                      KernelPolicy)
 
@@ -39,6 +48,10 @@ __all__ = ["PallasKernelsPass", "KERNEL_DECISION_ATTR"]
 #: attr carrying the pass's static decision to the flash-attention
 #: lowering (semantic: it keys the program fingerprint)
 KERNEL_DECISION_ATTR = "pallas_kernel"
+
+
+def _count(name: str) -> None:
+    REGISTRY.counter(name, scope="kernels").inc()
 
 
 def _numel(shape) -> int:
@@ -98,6 +111,7 @@ class PallasKernelsPass(ProgramPass):
                         or qd.shape[2] <= 0
                         or (self.policy.flash_needs_seq_len
                             and (qd.shape[1] <= 0 or kd.shape[1] <= 0))):
+                    _count("flash_deferred")
                     continue             # decided by the lowering at run time
                 heads = max(int(op.attrs.get("num_heads", 1)), 1)
                 decision, reason = self.policy.flash_profitable(
@@ -110,7 +124,10 @@ class PallasKernelsPass(ProgramPass):
             result.ops_replaced += 1
             result.changed = True
             stamped += 1
-            if not decision:
+            if decision:
+                _count("flash_selected")
+            else:
+                _count(f"flash_skip:{reason}")
                 result.notes.append(f"flash declined ({reason})")
         return stamped
 
@@ -142,6 +159,7 @@ class PallasKernelsPass(ProgramPass):
             if deq_i is None or qx_i is None or qy_i is None \
                     or ops[qx_i].type != "fake_quantize_abs_max" \
                     or ops[qy_i].type != "fake_quantize_abs_max":
+                _count("int8_skip:pattern-mismatch")
                 continue                 # not the quant pass's pattern
             deq = ops[deq_i]
             out = deq.outputs["Out"][0]
@@ -166,6 +184,7 @@ class PallasKernelsPass(ProgramPass):
             result.ops_replaced += 1
             result.changed = True
             rewritten += 1
+            _count("int8_applied")
         if not rewritten:
             return 0
         # sweep quant/scale ops whose outputs no surviving op (nor a feed
@@ -198,18 +217,21 @@ class PallasKernelsPass(ProgramPass):
             gnames = op.inputs.get("Grad") or ()
             gd = block.find_var(gnames[0]) if gnames else None
             if gd is None or gd.type == VarType.SELECTED_ROWS:
+                _count("optimizer_skip:sparse-grad")
                 continue
             pnames = op.inputs.get("Param") or ()
             pd = block.find_var(pnames[0]) if pnames else None
-            ok, _ = self.policy.optimizer_profitable(
+            ok, reason = self.policy.optimizer_profitable(
                 _numel(pd.shape) if pd is not None else -1)
             if not ok:
+                _count(f"optimizer_skip:{reason}")
                 continue
             op.attrs[PASS_PROVENANCE_ATTR] = self.name
             op.type = f"pallas_{op.type}"
             result.ops_replaced += 1
             result.changed = True
             rewritten += 1
+            _count("optimizer_applied")
         return rewritten
 
     def _rewrite_embedding(self, block, result: PassResult) -> int:
@@ -219,14 +241,17 @@ class PallasKernelsPass(ProgramPass):
                     or self.policy.kernel_for(op.type) != KERNEL_EMB:
                 continue
             if op.type == "lookup_table_grad" and op.attrs.get("is_sparse"):
+                _count("embedding_skip:sparse-grad")
                 continue
             wnames = op.inputs.get("W") or ()
             wd = block.find_var(wnames[0]) if wnames else None
             if wd is None or len(wd.shape) != 2:
+                _count("embedding_skip:dynamic-shape")
                 continue
-            ok, _ = self.policy.embedding_profitable(
+            ok, reason = self.policy.embedding_profitable(
                 int(wd.shape[0]), int(wd.shape[1]))
             if not ok:
+                _count(f"embedding_skip:{reason}")
                 continue
             op.attrs[PASS_PROVENANCE_ATTR] = self.name
             op.type = ("pallas_gather" if op.type == "lookup_table"
@@ -234,4 +259,5 @@ class PallasKernelsPass(ProgramPass):
             result.ops_replaced += 1
             result.changed = True
             rewritten += 1
+            _count("embedding_applied")
         return rewritten

@@ -21,23 +21,33 @@ Not ported yet:
 * the four seed passes of ``default_pipeline`` (``fuse-fc-softmax-ce``,
   ``bn-fold``, ``dead-op-elim``, ``donation-insert``), so
   ``make_pipeline(True)`` raises;
-* the pipeline's telemetry counters and JSONL records (observability
-  slice), and the passes' access to parameter values (``scope``,
-  ``requires_scope``; bn-fold is the first pass that needs it).
+* the passes' access to parameter values (``scope``, ``requires_scope``;
+  bn-fold is the first pass that needs it).
+
+Each pipeline run counts into the telemetry registry's ``"passes"`` scope
+(``pipelines_run``, ``programs_rewritten``, ``ops_removed``,
+``ops_added``) and, with ``PADDLE_TPU_TELEMETRY_DIR`` set, appends its
+:class:`PipelineResult` to ``passes_<pid>.jsonl`` in the JAX package's
+schema (the verifier's counts stay empty).  Telemetry never fails a
+rewrite.
 """
 from __future__ import annotations
 
 import hashlib
 import json
+import os
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Set
 
 from ..core.desc import (CALLSITE_ATTR, PASS_PROVENANCE_ATTR, BlockDesc,
                          OpDesc, ProgramDesc)
+from ..telemetry import REGISTRY
 
 __all__ = [
     "PASSES", "PassContext", "PassPipeline", "PassResult", "PipelineResult",
-    "ProgramPass", "default_pipeline", "make_pipeline", "register_pass",
+    "ProgramPass", "default_pipeline", "export_pipeline_result", "make_pipeline",
+    "register_pass",
 ]
 
 _VERIFIER_MISSING = (
@@ -79,7 +89,21 @@ class PassResult:
     ops_replaced: int = 0                  # pattern instances rewritten
     vars_added: int = 0
     vars_removed: int = 0
+    donate_vars: List[str] = field(default_factory=list)
     notes: List[str] = field(default_factory=list)
+    wall_s: float = 0.0
+
+    def to_dict(self) -> dict:
+        return {"name": self.name, "changed": self.changed,
+                "skipped": self.skipped,
+                "ops_added": list(self.ops_added),
+                "ops_removed": list(self.ops_removed),
+                "ops_replaced": self.ops_replaced,
+                "vars_added": self.vars_added,
+                "vars_removed": self.vars_removed,
+                "donate_vars": list(self.donate_vars),
+                "notes": list(self.notes),
+                "wall_s": round(self.wall_s, 6)}
 
 
 class ProgramPass:
@@ -171,10 +195,30 @@ class PipelineResult:
     fingerprint: str = ""
     passes: List[PassResult] = field(default_factory=list)
     changed: bool = False
+    program_fp_before: str = ""
+    program_fp_after: str = ""
     version_before: int = 0
     version_after: int = 0
     ops_before: int = 0
     ops_after: int = 0
+    donate_vars: List[str] = field(default_factory=list)
+    verify_counts_pre: Dict[str, int] = field(default_factory=dict)
+    verify_counts_post: Dict[str, int] = field(default_factory=dict)
+    wall_s: float = 0.0
+
+    def to_dict(self) -> dict:
+        return {"fingerprint": self.fingerprint[:12],
+                "changed": self.changed,
+                "passes": [r.to_dict() for r in self.passes],
+                "program_fp_before": self.program_fp_before[:12],
+                "program_fp_after": self.program_fp_after[:12],
+                "version_before": self.version_before,
+                "version_after": self.version_after,
+                "ops_before": self.ops_before, "ops_after": self.ops_after,
+                "donate_vars": list(self.donate_vars),
+                "verify_pre": dict(self.verify_counts_pre),
+                "verify_post": dict(self.verify_counts_post),
+                "wall_s": round(self.wall_s, 6)}
 
 
 class PassPipeline:
@@ -215,10 +259,12 @@ class PassPipeline:
         lands on a version no other pipeline over that uid can reach when
         anything changed.  If no pass changes anything, the ORIGINAL
         program object is returned."""
+        t0 = time.perf_counter()
         is_framework = hasattr(program, "desc")
         src_desc: ProgramDesc = program.desc if is_framework else program
         fetch_names = [getattr(f, "name", f) for f in (fetch_list or [])]
         v_before = src_desc.version
+        fp_before = src_desc.fingerprint()
 
         if clone:
             work = program.clone() if is_framework else src_desc.clone()
@@ -234,11 +280,12 @@ class PassPipeline:
             fetch_names=fetch_names,
             feed_names=set(feed_names) if feed_names is not None else None)
         result = PipelineResult(
-            fingerprint=self.fingerprint(), version_before=v_before,
-            ops_before=sum(len(b.ops) for b in desc.blocks))
+            fingerprint=self.fingerprint(), program_fp_before=fp_before,
+            version_before=v_before, ops_before=sum(len(b.ops) for b in desc.blocks))
 
         for p in self.passes:
             pr = PassResult(name=p.name)
+            t_pass = time.perf_counter()
             v0 = desc.version
             p.apply(ctx, pr)
             if pr.changed and desc.version == v0:
@@ -249,6 +296,7 @@ class PassPipeline:
                                 "(pass mutated without _bump)")
             if pr.changed and is_framework:
                 work.sync_with_desc()
+            pr.wall_s = time.perf_counter() - t_pass
             result.passes.append(pr)
 
         result.changed = any(r.changed for r in result.passes)
@@ -260,9 +308,43 @@ class PassPipeline:
             desc._version = (v_before + 1
                              + (int(self.fingerprint()[:8], 16) & 0xFFFF))
             result.version_after = desc.version
+        result.program_fp_after = desc.fingerprint()
+        result.wall_s = time.perf_counter() - t0
+        _count_pipeline(result)
+        export_pipeline_result(result)
         if not result.changed and clone:
             return program, result
         return work, result
+
+
+def _count_pipeline(result: PipelineResult) -> None:
+    """The ``"passes"`` scope's counters."""
+    REGISTRY.counter("pipelines_run", scope="passes").inc()
+    if result.changed:
+        REGISTRY.counter("programs_rewritten", scope="passes").inc()
+    REGISTRY.counter("ops_removed", scope="passes").inc(
+        sum(len(r.ops_removed) for r in result.passes))
+    REGISTRY.counter("ops_added", scope="passes").inc(
+        sum(len(r.ops_added) for r in result.passes))
+
+
+def export_pipeline_result(result: PipelineResult,
+                           out_dir: Optional[str] = None) -> Optional[str]:
+    """Append one JSONL record of ``result`` to ``passes_<pid>.jsonl``
+    under ``out_dir`` (default the telemetry dir); returns the path, or
+    None when export is off or fails."""
+    out_dir = out_dir or os.environ.get("PADDLE_TPU_TELEMETRY_DIR")
+    if not out_dir:
+        return None
+    try:
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, f"passes_{os.getpid()}.jsonl")
+        rec = dict(result.to_dict(), ts=time.time(), pid=os.getpid())
+        with open(path, "a") as f:
+            f.write(json.dumps(rec, sort_keys=True) + "\n")
+        return path
+    except OSError:
+        return None  # telemetry must never fail a rewrite
 
 
 def default_pipeline(verify: str = "error") -> PassPipeline:

@@ -1,0 +1,240 @@
+"""Device and host resource gauges, and the opt-in background sampler.
+
+The port of the JAX package's ``resource_sampler``.  A daemon thread
+(off by default: nothing runs unless it is started) periodically
+snapshots:
+
+* **FeedStager state** -- staged batches parked in queues and the device
+  bytes they hold (``core.staging.stager_stats()`` over live stagers);
+* **device memory** -- ``torch.cuda.memory_stats()`` of each visible card:
+  ``bytes_in_use`` is the caching allocator's
+  ``allocated_bytes.all.current`` (what ``torch.cuda.memory_allocated()``
+  reads), ``peak_bytes_in_use`` its ``.peak``, and ``bytes_limit`` the
+  card's total memory; without a card the keys are absent;
+* **process RSS** -- ``/proc/self/status`` VmRSS (peak ``ru_maxrss`` as
+  the fallback).
+
+Each sample sets ``telemetry.Gauge``\\ s under the ``"resources"`` scope
+and, when ``PADDLE_TPU_TELEMETRY_DIR`` is set, the sampler appends one
+JSONL row to ``gauges_<pid>.jsonl`` beside the step and capture records.
+
+Opt in with :func:`start_resource_sampler`, or ``PADDLE_TPU_SAMPLER=1``
+(interval ``PADDLE_TPU_SAMPLER_INTERVAL`` seconds), honored when the
+package is imported.  :func:`sample_once` is the sampler's body as a plain
+call.
+"""
+from __future__ import annotations
+
+import json
+import os
+import sys
+import threading
+import time
+from typing import Any, Dict, Optional
+
+from .log import VLOG
+from .telemetry import REGISTRY, current_trace, telemetry_dir
+
+__all__ = [
+    "ResourceSampler", "sample_once", "start_resource_sampler",
+    "stop_resource_sampler", "resource_sampler",
+]
+
+SCOPE = "resources"
+
+# cap the per-device gauge fan-out
+MAX_DEVICES = 16
+
+
+def _read_rss_bytes() -> Optional[int]:
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+    except (OSError, ValueError, IndexError):
+        pass
+    try:  # fallback: peak RSS (not current), better than nothing
+        import resource
+        return int(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss) * 1024
+    except Exception:  # noqa: BLE001
+        return None
+
+
+def _device_memory() -> Dict[str, Optional[int]]:
+    """bytes in use, their peak and the limit of each visible card, keyed
+    ``device<i>_*``, from the caching allocator.  Reads nothing (no keys)
+    when torch is not imported or CUDA is not initialized: the sampler
+    never initializes CUDA itself."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.cuda.is_initialized():
+        return {}
+    out: Dict[str, Optional[int]] = {}
+    for i in range(min(torch.cuda.device_count(), MAX_DEVICES)):
+        stats = torch.cuda.memory_stats(i)
+        out[f"device{i}_bytes_in_use"] = int(
+            stats.get("allocated_bytes.all.current", 0))
+        out[f"device{i}_peak_bytes_in_use"] = int(
+            stats.get("allocated_bytes.all.peak", 0))
+        out[f"device{i}_bytes_limit"] = int(
+            torch.cuda.get_device_properties(i).total_memory)
+    return out
+
+
+def _stager_state() -> Dict[str, int]:
+    staging = sys.modules.get("paddle_tpu_torch.core.staging")
+    if staging is None:
+        return {}
+    s = staging.stager_stats()
+    return {"stager_queue_depth": max(0, s["queue_depth"]),
+            "stager_bytes_in_flight": max(0, s["bytes_in_flight"]),
+            "stagers_alive": s["stagers"]}
+
+
+def sample_once() -> Dict[str, Any]:
+    """Take one gauge sample: sets the ``"resources"``-scope gauges and
+    returns the sampled values (the JSONL row, minus the timestamp).  A
+    sample taken inside an active trace carries its ids."""
+    values: Dict[str, Any] = {}
+    values.update(_stager_state())
+    values.update(_device_memory())
+    rss = _read_rss_bytes()
+    if rss is not None:
+        values["process_rss_bytes"] = rss
+    for name, v in values.items():
+        if v is not None:
+            REGISTRY.gauge(name, scope=SCOPE).set(v)
+    ctx = current_trace()
+    if ctx is not None:
+        values.update(ctx.fields())
+    return values
+
+
+class ResourceSampler:
+    """Daemon thread calling :func:`sample_once` every ``interval_s``
+    seconds and mirroring each sample to ``gauges_<pid>.jsonl`` under
+    ``PADDLE_TPU_TELEMETRY_DIR``.  Never raises into the run: sink
+    failures disable the sink, sample failures skip the tick."""
+
+    FILE_PREFIX = "gauges_"
+
+    def __init__(self, interval_s: float = 0.5):
+        self.interval_s = max(0.05, float(interval_s))
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._sink = None
+        self._sink_path: Optional[str] = None
+        self._sink_failed = False
+        self.samples = 0
+
+    # -- sink -------------------------------------------------------------
+    def _ensure_sink(self):
+        if self._sink is not None or self._sink_failed:
+            return self._sink
+        d = telemetry_dir()
+        if not d:
+            return None
+        try:
+            os.makedirs(d, exist_ok=True)
+            self._sink_path = os.path.join(
+                d, f"{self.FILE_PREFIX}{os.getpid()}.jsonl")
+            self._sink = open(self._sink_path, "a", buffering=1)
+        except OSError:
+            self._sink_failed = True
+            self._sink = None
+        return self._sink
+
+    @property
+    def sink_path(self) -> Optional[str]:
+        return self._sink_path
+
+    def write_sample(self, values: Dict[str, Any]):
+        sink = self._ensure_sink()
+        if sink is None:
+            return
+        try:
+            from .telemetry import process_rank
+            sink.write(json.dumps({"ts": time.time(), "pid": os.getpid(),
+                                   "rank": process_rank(),
+                                   **values}) + "\n")
+        except (OSError, ValueError):
+            self._sink_failed = True
+
+    def close(self):
+        """Stop the thread and close the sink."""
+        self.stop()
+        if self._sink is not None:
+            try:
+                self._sink.close()
+            except OSError:
+                pass
+        self._sink = None
+
+    # -- lifecycle --------------------------------------------------------
+    def _loop(self):
+        while not self._stop.is_set():
+            try:
+                self.write_sample(sample_once())
+                self.samples += 1
+            except Exception:  # noqa: BLE001 -- sampling must never kill
+                pass
+            self._stop.wait(self.interval_s)
+
+    def start(self) -> "ResourceSampler":
+        if self._thread is not None and self._thread.is_alive():
+            return self
+        self._stop.clear()
+        self._thread = threading.Thread(
+            target=self._loop, daemon=True,
+            name="paddle_tpu_torch-resource-sampler")
+        self._thread.start()
+        VLOG(1, "resource sampler started (interval %.2fs, sink %s)",
+             self.interval_s, self._sink_path or telemetry_dir() or "off")
+        return self
+
+    def stop(self):
+        self._stop.set()
+        t = self._thread
+        if t is not None:
+            t.join(timeout=2.0)
+        self._thread = None
+
+    @property
+    def running(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()
+
+
+_sampler: Optional[ResourceSampler] = None
+
+
+def resource_sampler() -> Optional[ResourceSampler]:
+    """The process-wide sampler, or None when never started."""
+    return _sampler
+
+
+def start_resource_sampler(interval_s: Optional[float] = None
+                           ) -> ResourceSampler:
+    """Start (or return) the process-wide sampler.  ``interval_s``
+    defaults to ``$PADDLE_TPU_SAMPLER_INTERVAL`` or 0.5 s."""
+    global _sampler
+    if interval_s is None:
+        env = os.environ.get("PADDLE_TPU_SAMPLER_INTERVAL")
+        interval_s = float(env) if env else 0.5
+    if _sampler is None:
+        _sampler = ResourceSampler(interval_s)
+    else:
+        _sampler.interval_s = max(0.05, float(interval_s))
+    return _sampler.start()
+
+
+def stop_resource_sampler():
+    if _sampler is not None:
+        _sampler.stop()
+
+
+def _maybe_autostart():
+    """``PADDLE_TPU_SAMPLER=1 python train.py`` starts the sampler with no
+    code change."""
+    flag = os.environ.get("PADDLE_TPU_SAMPLER", "")
+    if flag and flag not in ("0", "false", "off"):
+        start_resource_sampler()

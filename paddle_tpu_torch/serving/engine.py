@@ -17,8 +17,19 @@ Admission control: the queue is bounded (:class:`ServingOverloaded` on
 overflow) and every request carries a deadline; requests that expire while
 queued are dropped at dispatch with :class:`RequestTimeout`.
 
-Counters are per engine (:meth:`BatchingEngine.stats`).  The JAX package's
-timeline spans, trace contexts and JSONL request records are not ported.
+Counters are per engine (:meth:`BatchingEngine.stats`), and mirrored
+process-wide in the telemetry registry's ``"serving"`` scope (with the
+``batch_size`` and ``request_latency_s`` histograms and the ``queue_depth``
+gauge), which ``telemetry.snapshot()``, ``prometheus_text()`` and
+``tools/stats.py`` read.  Each request gets a trace context at submit, a
+child of the caller's active one (a new root when there is none and
+tracing is on: ``PADDLE_TPU_TELEMETRY_DIR`` set); a dispatched batch's
+span is a child of its first member's, with ``links`` to every member.
+``infer`` writes a ``kind: request`` row (latency split into queue,
+device and demux seconds) and each batch a ``kind: batch`` row to
+``serving_<pid>.jsonl``, which ``tools/trace_tool.py`` assembles into
+trees.  While the timeline is enabled, ``serve::submit`` and
+``serve::batch[<seq>]`` spans are joined by ``serve_request`` flows.
 """
 from __future__ import annotations
 
@@ -31,10 +42,19 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import telemetry
 from ..core.staging import FetchHandle
+from ..telemetry import REGISTRY, TIMELINE, next_flow_id
 
 __all__ = ["BatchingEngine", "BatchSlice", "ServingError", "ServingOverloaded",
-           "RequestTimeout", "ServingNonFinite", "ServingClosed", "pow2_buckets"]
+           "RequestTimeout", "ServingNonFinite", "ServingClosed", "pow2_buckets",
+           "SERVING_SCOPE"]
+
+SERVING_SCOPE = "serving"
+
+# batch-size histogram edges: exact powers of two (the default buckets), so
+# the histogram shows one row a dispatched bucket size
+_BATCH_HIST_BUCKETS = tuple(float(1 << i) for i in range(13))
 
 _COUNTERS = ("requests", "requests_dispatched", "requests_expired",
              "requests_rejected", "batches", "rows_dispatched", "padded_rows",
@@ -83,15 +103,21 @@ def pow2_buckets(max_batch_size: int) -> Tuple[int, ...]:
 
 
 class _Request:
-    __slots__ = ("inputs", "rows", "future", "deadline", "enqueued_at")
+    __slots__ = ("inputs", "rows", "future", "deadline", "enqueued_at", "flow_id",
+                 "trace")
 
     def __init__(self, inputs: Dict[str, np.ndarray], rows: int,
-                 deadline: Optional[float]):
+                 deadline: Optional[float], flow_id: Optional[int],
+                 trace: Optional[telemetry.TraceContext]):
         self.inputs = inputs
         self.rows = rows
         self.future: "Future[BatchSlice]" = Future()
         self.deadline = deadline
         self.enqueued_at = time.perf_counter()
+        self.flow_id = flow_id
+        # the request's span, a child of the caller's active context; None
+        # when untraced
+        self.trace = trace
 
 
 class BatchSlice:
@@ -162,6 +188,13 @@ class BatchingEngine:
         self._counts = dict.fromkeys(_COUNTERS, 0)
         self._counts_lock = threading.Lock()
         self._seq = 0
+        # the process-wide mirror of the counters (shared by every engine)
+        self._m = {name: REGISTRY.counter(name, scope=SERVING_SCOPE) for name in _COUNTERS}
+        self._h_batch = REGISTRY.histogram("batch_size", scope=SERVING_SCOPE,
+                                           buckets=_BATCH_HIST_BUCKETS)
+        self._h_latency = REGISTRY.histogram("request_latency_s", scope=SERVING_SCOPE)
+        self._g_depth = REGISTRY.gauge("queue_depth", scope=SERVING_SCOPE)
+        self._records = telemetry.StepTelemetry(capacity=4096, prefix="serving")
         self._thread = threading.Thread(target=self._worker, daemon=True,
                                         name="paddle_tpu_torch-serving-dispatch")
         self._thread.start()
@@ -169,6 +202,7 @@ class BatchingEngine:
     def _inc(self, name: str, n: int = 1):
         with self._counts_lock:
             self._counts[name] += n
+        self._m[name].inc(n)
 
     def stats(self) -> Dict[str, Any]:
         """Counter snapshot plus ``coalesce_ratio`` (dispatched requests per
@@ -230,7 +264,19 @@ class BatchingEngine:
         if timeout is None:
             timeout = self.default_timeout_s
         deadline = (time.monotonic() + timeout) if timeout is not None else None
-        req = _Request(arrays, rows, deadline)
+        flow_id = None
+        if TIMELINE.enabled:
+            # the flow's tail on the caller's lane: the arrow to the batch
+            # that carries this request
+            ts = TIMELINE.now_us()
+            TIMELINE.record_complete("serve::submit", ts, 1.0, cat="serving",
+                                     args={"rows": rows})
+            flow_id = next_flow_id()
+            TIMELINE.record_flow("s", "serve_request", flow_id, ts + 0.5)
+        ctx = telemetry.current_trace()
+        trace = ctx.child() if ctx is not None else (
+            telemetry.TraceContext.new_root() if telemetry.tracing_enabled() else None)
+        req = _Request(arrays, rows, deadline, flow_id, trace)
         try:
             self._q.put_nowait(req)
         except queue.Full:
@@ -239,6 +285,7 @@ class BatchingEngine:
                 f"request queue full ({self._q.maxsize} waiting); retry "
                 f"with backoff or raise max_queue") from None
         self._inc("requests")
+        self._g_depth.set(self.queue_depth)
         if self._drained.is_set():
             # close() raced this submit: nothing will pop the request
             self._fail_parked()
@@ -248,7 +295,11 @@ class BatchingEngine:
               timeout: Optional[float] = None) -> List[np.ndarray]:
         """Synchronous request: submit, wait for the batch, return ONLY
         this request's rows (one array per model fetch).  Raises
-        :class:`RequestTimeout` when the deadline lapses first."""
+        :class:`RequestTimeout` when the deadline lapses first.  Writes a
+        ``kind: request`` record: ``latency_s`` = ``queue_s`` (submit to
+        dispatched) + ``device_s`` (waiting for the device result) +
+        ``demux_s`` (slicing and the NaN guard)."""
+        t0 = time.perf_counter()
         if timeout is None:
             timeout = self.default_timeout_s
         req = self._submit(inputs, timeout=timeout)
@@ -261,6 +312,7 @@ class BatchingEngine:
             raise RequestTimeout(
                 f"request not dispatched within {timeout}s "
                 f"(queue_depth={self.queue_depth})", where="queue") from None
+        queue_s = time.perf_counter() - t0
         rest = None if deadline is None else max(0.0, deadline - time.monotonic())
         try:
             out = sl.materialize(timeout=rest)
@@ -271,16 +323,32 @@ class BatchingEngine:
             raise RequestTimeout(
                 f"device result not ready within {timeout}s (batch "
                 f"{sl.batch_seq}): {e}", where="device") from None
+        device_s = time.perf_counter() - t0 - queue_s
+        trace = req.trace.fields() if req.trace else {}
         if self.nan_guard:
             bad = [i for i, a in enumerate(out)
                    if a.dtype.kind == "f" and not bool(np.isfinite(a).all())]
             if bad:
                 self._inc("requests_nonfinite")
+                guard = time.perf_counter() - t0
+                self._records.record(
+                    kind="event", event="non-finite-output", fetch_indices=bad,
+                    rows=sl.stop - sl.start, batch_seq=sl.batch_seq, bucket=sl.bucket,
+                    latency_s=round(guard, 6), queue_s=round(queue_s, 6),
+                    device_s=round(device_s, 6),
+                    demux_s=round(guard - queue_s - device_s, 6), **trace)
                 raise ServingNonFinite(
                     f"model produced non-finite values in output fetch(es) "
                     f"{bad} for this request (batch {sl.batch_seq}); response "
                     f"withheld by the NaN guard", fetch_indices=bad,
                     batch_seq=sl.batch_seq)
+        latency = time.perf_counter() - t0
+        self._h_latency.observe(latency)
+        self._records.record(kind="request", latency_s=round(latency, 6),
+                             rows=sl.stop - sl.start, batch_seq=sl.batch_seq,
+                             bucket=sl.bucket, queue_s=round(queue_s, 6),
+                             device_s=round(device_s, 6),
+                             demux_s=round(latency - queue_s - device_s, 6), **trace)
         return out
 
     # ---------------------------------------------------------- dispatcher
@@ -344,6 +412,8 @@ class BatchingEngine:
         rows = sum(r.rows for r in live)
         bucket = self._bucket_for(rows)
         pad = bucket - rows
+        t0 = time.perf_counter()
+        ts = TIMELINE.now_us() if TIMELINE.enabled else None
         self._seq += 1
         feed: Dict[str, np.ndarray] = {}
         for name in live[0].inputs:
@@ -353,7 +423,15 @@ class BatchingEngine:
                 parts.append(np.zeros((pad,) + parts[0].shape[1:],
                                       dtype=parts[0].dtype))
             feed[name] = parts[0] if len(parts) == 1 else np.concatenate(parts, axis=0)
-        handles = list(self._runner(feed))
+        assemble_s = time.perf_counter() - t0
+        # one batch span fans in the requests' spans: a child of the first
+        # member's, with links to every member.  It is active around the
+        # runner, so capture records and fetch handles inherit it.
+        first = next((r.trace for r in live if r.trace is not None), None)
+        btrace = first.child() if first is not None else None
+        with telemetry.use_trace(btrace):
+            handles = list(self._runner(feed))
+        dispatch_s = time.perf_counter() - t0 - assemble_s
         start = 0
         for r in live:
             r.future.set_result(BatchSlice(handles, start, start + r.rows,
@@ -363,6 +441,25 @@ class BatchingEngine:
         self._inc("batches")
         self._inc("rows_dispatched", rows)
         self._inc("padded_rows", pad)
+        self._h_batch.observe(bucket)
+        self._g_depth.set(self.queue_depth)
+        if ts is not None:
+            end = TIMELINE.now_us()
+            TIMELINE.record_complete(f"serve::batch[{self._seq}]", ts, end - ts, cat="serving",
+                                     args={"requests": len(live), "rows": rows,
+                                           "bucket": bucket, "padded_rows": pad})
+            for r in live:      # the flows' heads land on this batch's span
+                if r.flow_id is not None:
+                    TIMELINE.record_flow("f", "serve_request", r.flow_id, ts + (end - ts) / 2.0)
+        extra: Dict[str, Any] = btrace.fields() if btrace is not None else {}
+        links = [{"trace_id": r.trace.trace_id, "span_id": r.trace.span_id}
+                 for r in live if r.trace is not None]
+        if links:
+            extra["links"] = links
+        self._records.record(kind="batch", batch_seq=self._seq, requests=len(live),
+                             rows=rows, bucket=bucket, padded_rows=pad,
+                             queue_depth=self.queue_depth, assemble_s=round(assemble_s, 6),
+                             dispatch_s=round(dispatch_s, 6), **extra)
 
     # ------------------------------------------------------------ lifecycle
     def _fail_parked(self):
@@ -389,6 +486,7 @@ class BatchingEngine:
             self._drained.wait(timeout=timeout)
         self._thread.join(timeout=max(0.0, timeout))
         self._fail_parked()
+        self._records.reopen()     # closes this engine's serving_<pid>.jsonl handle
 
     def __enter__(self):
         return self

@@ -14,7 +14,8 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
-from .engine import BatchingEngine, pow2_buckets
+from ..telemetry import REGISTRY
+from .engine import SERVING_SCOPE, BatchingEngine, pow2_buckets
 
 __all__ = ["ServingSession"]
 
@@ -69,7 +70,17 @@ class ServingSession:
         return self.engine.infer(inputs, timeout=timeout)
 
     def stats(self) -> Dict[str, Any]:
-        return self.engine.stats()
+        """This session's engine counters (``coalesce_ratio``,
+        ``queue_depth``), its executor's cache counters under
+        ``"executor"``, and under ``"serving"`` the registry's process-wide
+        ``"serving"`` scope (every engine's counters, the ``batch_size``
+        and ``request_latency_s`` histograms, the ``queue_depth`` gauge)."""
+        s = self.engine.stats()
+        exe = self.inferencer.exe
+        s["executor"] = {"scope": exe.telemetry_scope, "compile_count": exe.compile_count,
+                         "executables": len(exe._cache)}
+        s["serving"] = REGISTRY.snapshot(scope=SERVING_SCOPE)
+        return s
 
     def close(self, drain: bool = True):
         """Stop accepting requests; by default drain in-flight batches."""

@@ -646,6 +646,20 @@ class StepTelemetry:
     def sink_path(self) -> Optional[str]:
         return self._sink_path
 
+    def reopen(self):
+        """Close and forget the sink, so the next record reads
+        ``PADDLE_TPU_TELEMETRY_DIR`` again (a caller that points the
+        export at another directory, or turns it off, mid-process)."""
+        with self._lock:
+            if self._sink is not None:
+                try:
+                    self._sink.close()
+                except OSError:
+                    pass
+            self._sink = None
+            self._sink_path = None
+            self._sink_failed = False
+
     # -- recording ---------------------------------------------------------
     def record(self, **fields):
         # rank/pid stamped into every record: cross-rank readers

@@ -16,11 +16,15 @@ serial directories (``checkpoint_<n>``) with rotation and epoch and step
 resume; a resumed run repeats the uninterrupted run's steps.  A step
 record goes to ``telemetry.STEPS`` (JSONL under
 ``PADDLE_TPU_TELEMETRY_DIR``) with the JAX Trainer's keys.
+``profile_steps=N`` replays every Nth step's feed through
+``Executor.profile_ops`` (the sampled per-op profiler: records in
+``profile_<pid>.jsonl`` and ``costmodel_<pid>.json``) after the step; the
+replay writes no state, and a failure is logged at ``VLOG(1)``.
 
 Options of the JAX Trainer that need modules not ported yet raise
 ``NotImplementedError`` naming their ROADMAP item: ``parallel``,
 ``mesh``, ``layout``, ``accum_steps > 1``, ``health``, ``checkpoint=``
-(the async manager), ``dispatch``, ``profile_steps`` and ``prefetcher``.
+(the async manager), ``dispatch`` and ``prefetcher``.
 
 ``Inferencer``: build an inference program once, initialize its
 parameters (or load them from ``param_path``), run predictions.  The
@@ -53,6 +57,7 @@ from .core.framework import Program, Variable, program_guard
 from .core.scope import Scope, scope_guard
 from .core.staging import COUNTERS
 from .data_feeder import DataFeeder
+from .log import VLOG
 
 __all__ = ["BeginEpochEvent", "EndEpochEvent", "BeginStepEvent", "EndStepEvent",
            "CheckpointConfig", "Trainer", "Inferencer"]
@@ -143,7 +148,6 @@ class Trainer:
                                     ("health", health, "8"),
                                     ("checkpoint=", checkpoint, "4"),
                                     ("dispatch", dispatch, "11"),
-                                    ("profile_steps", profile_steps, "2"),
                                     ("prefetcher", prefetcher, "11")):
             if value:
                 _not_ported(option, item)
@@ -153,6 +157,9 @@ class Trainer:
         # pipeline: stage batch N+1 on a background thread while step N
         # runs, and fetch metrics through non-blocking handles
         self.pipeline = pipeline
+        # profile_steps=N: every Nth step's feed replayed through
+        # exe.profile_ops after the step (the other steps pay nothing)
+        self.profile_steps = int(profile_steps) if profile_steps else None
         self.checkpoint_cfg = checkpoint_config
         self.scope = Scope()
         self.startup_program = Program()
@@ -269,6 +276,14 @@ class Trainer:
                                   step_time_s=t_end - t_wait0,
                                   sync_stalls=COUNTERS.get("sync_stalls") - stalls0,
                                   assembly_s=0.0)
+                if self.profile_steps and (step_id + 1) % self.profile_steps == 0:
+                    # fetch_list=None: every op output is a target, so the
+                    # backward and the updates stay in the live slice
+                    try:
+                        self.exe.profile_ops(self.train_program, feed=feed, scope=self.scope,
+                                             compiled_step_s=t_handler0 - t_run0)
+                    except Exception as e:  # noqa: BLE001 -- profiling never fails a run
+                        VLOG(1, "profile_ops failed: %s: %s", type(e).__name__, e)
                 if self.checkpoint_cfg and step_id \
                         and step_id % self.checkpoint_cfg.step_interval == 0:
                     # saved step_id + 1: training through step_id is

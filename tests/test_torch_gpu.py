@@ -1539,3 +1539,108 @@ def test_for_test_clone_replays_a_graph_bit_equal_to_its_eager_run(cuda):
     assert np.isfinite(replayed) and np.array_equal(replayed, eager)
     assert np.array_equal(first, replayed)
     assert all(torch.equal(t, before[n]) for n, t in _state(main, scope).items())
+
+
+# ------------------------------------------------ the observability core
+
+
+def test_profile_ops_of_a_replayed_step_writes_nothing(cuda):
+    """``Executor.profile_ops`` of a 2+2 Adam step right after a replay of
+    its graph: every state tensor bit-equal and at its address, no
+    capture, each update op lowered alone (one K6 launch an ``adam`` row,
+    where the step's graph makes one launch), and the next replay
+    bit-equal to a control step from the same state."""
+    from paddle_tpu_torch.ops.cuda.flash_attention import flash_attn_fwd as k1
+    main, startup, loss = _train_programs()
+    scope, exe = pt.Scope(), pt.Executor()
+    exe.run(startup, scope=scope)
+    feed = _small_train_feed()
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    state0 = {n: t.clone() for n, t in _state(main, scope).items()}
+    addrs = {n: t.data_ptr() for n, t in _state(main, scope).items()}
+    (ctl,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    ctl_state = {n: t.clone() for n, t in _state(main, scope).items()}
+    for n, t in _state(main, scope).items():
+        t.copy_(state0[n])
+    captures = exe.cache_info()["captures"]
+    adam0, k10 = fused_adam.launches, k1.launches
+    prof = exe.profile_ops(main, feed=feed, scope=scope, samples=2)
+    n_adam = sum(o.op_type in ("adam", "pallas_adam") for o in prof.ops)
+    assert n_adam == len(main.global_block.all_parameters())
+    assert fused_adam.launches - adam0 == 3 * n_adam        # a warm-up pass and 2 samples
+    assert k1.launches - k10 == 3 * 2 * 3 * 2               # 6 attentions, forward and grad
+    assert exe.cache_info()["captures"] == captures
+    for n, t in _state(main, scope).items():
+        assert t.data_ptr() == addrs[n] and torch.equal(t, state0[n]), n
+    assert 0.5 < prof.coverage <= 1.0 + 1e-9
+    (got,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    assert np.array_equal(got, ctl)
+    for n, t in _state(main, scope).items():
+        assert torch.equal(t, ctl_state[n]), n
+
+
+def test_device_trace_names_the_kernels_and_the_op_ranges(cuda, tmp_path):
+    """``profiler.device_trace`` around an eager 2+2 step: the exported
+    trace holds K1's kernel and ``op<idx>:<type>@file:line`` ranges; a
+    replayed step's trace holds the kernels but no op range."""
+    import json
+    import re
+    main, startup, loss = _train_programs()
+    scope, exe = pt.Scope(), pt.Executor()
+    exe.run(startup, scope=scope)
+    feed = _small_train_feed()
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    names = {}
+    for how in ("eager", "replay"):
+        with pt.profiler.device_trace(str(tmp_path / how)) as dt:
+            if how == "eager":
+                exe._run_eager(main, feed, [loss], scope)
+            else:
+                exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        with open(dt.path) as f:
+            names[how] = [str(e.get("name", "")) for e in json.load(f)["traceEvents"]]
+    for how in ("eager", "replay"):
+        assert any("flash_fwd_kernel" in n for n in names[how]), how
+    ranges = [n for n in names["eager"] if re.match(r"op\d+:\w+", n)]
+    assert any(":flash_attention_grad" in r for r in ranges)
+    assert any(":flash_attention@" in r for r in ranges)     # with its callsite
+    assert not [n for n in names["replay"] if re.match(r"op\d+:\w+", n)]
+
+
+def test_sample_once_reads_the_caching_allocator(cuda):
+    from paddle_tpu_torch import resource_sampler
+    keep = torch.empty(1 << 20, device=cuda)
+    values = resource_sampler.sample_once()
+    assert values["device0_bytes_in_use"] == torch.cuda.memory_allocated()
+    assert values["device0_peak_bytes_in_use"] == torch.cuda.max_memory_allocated()
+    assert values["device0_bytes_limit"] == torch.cuda.get_device_properties(0).total_memory
+    del keep
+
+
+def test_trainer_profile_steps_on_the_card_bit_equal_to_no_profiles(cuda):
+    """A pipelined 2+2 Trainer with ``profile_steps=2`` and one without,
+    from the same state over the same 4 batches: losses and every state
+    tensor bit-equal, two profiles."""
+    from paddle_tpu_torch.profiling import PROFILE_RECORDS
+    runs, start = [], None
+    for profile_steps in (2, None):
+        trainer = _small_trainer(profile_steps=profile_steps)
+        persist = [v.name for v in trainer.train_program.list_vars() if v.persistable]
+        if start is None:
+            start = {n: trainer.scope.find_var(n).clone() for n in persist}
+        for n in persist:
+            trainer.scope.find_var(n).copy_(start[n])
+        n0, losses = len(PROFILE_RECORDS.records()), []
+
+        def handler(ev, losses=losses):
+            if isinstance(ev, pt.EndStepEvent):
+                losses.append(ev.metrics[0])
+        trainer.train(1, handler, reader=pt.batch(_small_samples(16), 4),
+                      feed_order=["src", "trg", "lbl"])
+        summaries = [r for r in PROFILE_RECORDS.records()[n0:] if r["kind"] == "summary"]
+        runs.append((trainer, [float(np.asarray(m)) for m in losses], len(summaries)))
+    (a, la, na), (b, lb, nb) = runs
+    assert (na, nb) == (2, 0) and len(la) == 4 and la == lb
+    for n in start:
+        assert torch.equal(a.scope.find_var(n), b.scope.find_var(n)), n

@@ -54,6 +54,13 @@ def test_the_import_scan_covers_the_data_path_and_io_modules():
         assert f"paddle_tpu_torch/{path}" in scanned, path
 
 
+def test_the_import_scan_covers_the_observability_modules():
+    scanned = {str(p.relative_to(REPO)) for p in (REPO / "paddle_tpu_torch").rglob("*.py")}
+    for path in ("log.py", "compile_log.py", "profiler.py", "profiling/__init__.py",
+                 "profiling/op_profiler.py", "resource_sampler.py"):
+        assert f"paddle_tpu_torch/{path}" in scanned, path
+
+
 def test_trainer_and_inferencer_without_gpu_raise_instead_of_using_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
