@@ -61,7 +61,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
 8. one training step (a replay) profiled with ``torch.profiler``, its
    device launches gated by kernel family (K1 36, K2 4, K3 8 kernels, K7
    2, K8 32, K6 1); then phase 17;
-9. one step at batch 2 x 256 from the same weights, held against the port
+9. one step at batch 2 x 256 (2+2 layers) from the same weights, held against the port
    on the CPU in float64: the card (TF32 off) and the CPU in float32 within
    the stated gates on the loss and three gradients, and the card with TF32
    on (the control) outside them;
@@ -200,7 +200,38 @@ Phases, each fatal on failure (non-zero exit, no result line):
     ``compile_report.py``, ``pass_report.py`` and ``trace_tool.py
     --strict`` each exiting 0 over the directory.  The kernels line
     carries each kernel's launches under the profiles as
-    ``launches_profile``.
+    ``launches_profile``;
+20. the reference training path (``phase_reference_path``): (a)
+    transformer-base at 64 x 256 with the unfused head (fc to the
+    vocabulary, ``softmax_with_cross_entropy``), token weights zeroing each
+    target row's padded tail, ``noam_decay(512, 4000)``, ``Adam(beta1=0.9,
+    beta2=0.98, epsilon=1e-9)``, ``GradientClipByGlobalNorm(1.0)`` and
+    ``L2Decay(1e-4)`` on the fc weights: one op-by-op step, then steps
+    through one CUDA graph; losses finite and falling, the fetched
+    learning rate each step equal to noam_decay's float32 value (K6 reads a
+    fresh rate on each replay), the step counter at n after n steps, a
+    replay bit-equal to an op-by-op step from the same state, launches a
+    replay K1 36, K2 4, K3 4, K6 1 (no K7/K8), a profile gated alike, peak
+    memory and tokens/s; (b) its bf16 twin (``AmpConfig()``) from (a)'s
+    last state: losses finite and falling, the softmax-CE vars float32;
+    (c) ``Trainer(accum_steps=4, pipeline=True)`` over 16 x 256
+    micro-batches, two applies, bit-equal to an ``exe.run`` loop of its
+    accumulate and apply programs from the same state, each program's
+    cache entry kind printed; (d) 3 steps of one program at 2+2 layers of
+    (a)'s widths in which each update rule (Momentum and Nesterov,
+    LarsMomentum, Adamax, Adagrad, DecayedAdagrad, Adadelta, RMSProp, Ftrl,
+    SGD with ``exponential_decay`` through K5) updates every tenth
+    parameter, each step against one step from the card's state before it
+    on the CPU in float32 and in float64 (the loss against the float32
+    one; each state tensor's change, slots included, no further from the
+    float64 one than ``FAMILY_WITNESS_FACTOR`` x the float32 CPU's
+    distance + ``FAMILY_WITNESS_FLOOR``), with each rule's group calls and
+    the multi-tensor kernels of a replay; (e) a
+    2-D ``layers.matmul`` [2048, 512] x [512, 2048] served with
+    ``AmpConfig(bf16=False, quant=True)``: K4 once a pass through the
+    ``base_op="matmul"`` branch, bit-equal to the fake-quant program and
+    within 0.05 norm-relative of float32.  The kernels line carries each
+    kernel's phase-20 launches as ``launches_reference_path``.
 
 Phase 9 also takes the 2 x 256 step in bf16 (``enable_amp``) with cuBLAS's
 reduced-precision bf16 reductions allowed (PyTorch's default) and not, and
@@ -276,13 +307,15 @@ K8_VS_TF32_FACTOR = 100.0
 # composition's error; the label logit (and lse where the control tells
 # float32 from TF32 there) at least K8_VS_TF32_FACTOR below single-pass TF32's
 K7_VS_FP32_FACTOR = 2.0
-# one full-width step at 2 x 256 against the port on the CPU in float64.
-# Readings on an H100 (PERF.md): the card 7.9e-8 on the loss and <= 1.3e-6 on
-# the gradients; the CPU in float32 1.1e-4 norm- and 1.0e-3 max-relative,
-# from two ReLU inputs on the other side of 0 than in float64; the TF32
-# control 2.6e-7 on the loss and up to 1.5e-2 norm- and 2.3e-2
-# max-relative.  The gradient gates sit between the float32 readings and
-# the control's.
+# one full-width step at 2 x 256 against the port on the CPU in float64, at
+# TRAIN_VS_CPU_LAYERS (6+6 before the reference path's phase came; the CPU's
+# three steps then took 16 of the phase's 38 s).  Readings on an H100 at
+# 6+6 (PERF.md): the card 7.9e-8 on the loss and <= 1.3e-6 on the
+# gradients; the CPU in float32 1.1e-4 norm- and 1.0e-3 max-relative, from
+# two ReLU inputs on the other side of 0 than in float64; the TF32 control
+# 2.6e-7 on the loss and up to 1.5e-2 norm- and 2.3e-2 max-relative.  The
+# gradient gates sit between the float32 readings and the control's.
+TRAIN_VS_CPU_LAYERS = 2
 STEP_LOSS_RTOL = 1e-6        # |x - f64| / |f64| on the loss
 STEP_GRAD_NORM_RTOL = 1e-3   # ||x - f64|| / ||f64||
 STEP_GRAD_MAX_RTOL = 5e-3    # max |x - f64| / max |f64|
@@ -565,7 +598,9 @@ OTHER = "other (elementwise, layer_norm, copies)"
 def _profile(torch, run, label, card, extra):
     """torch.profiler's device activities during ``run()`` by kernel
     family, their union as the device's busy time, and its share of the
-    host wall clock around ``run``."""
+    host wall clock around ``run`` and the wait for the card to finish it
+    (a window closed before the card had finished was seen to lose a
+    step's last kernels: the weight gradients' scatter and the update)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -573,6 +608,7 @@ def _profile(torch, run, label, card, extra):
         _profiler_started(torch)
         t0 = time.perf_counter()
         run()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev = [(e.name(), e.start_ns(), e.duration_ns()) for e in prof.profiler.kineto_results.events()
            if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0
@@ -1800,7 +1836,7 @@ def phase_sgd(torch, card):
     return res
 
 
-def _train_programs(pt, sgd=False):
+def _train_programs(pt, sgd=False, n_layer=N_LAYER):
     from paddle_tpu_torch import layers
     from paddle_tpu_torch.models import transformer
     main, startup = pt.Program(), pt.Program()
@@ -1809,7 +1845,7 @@ def _train_programs(pt, sgd=False):
         trg = layers.data(name="trg", shape=[1], dtype="int64", lod_level=1)
         lbl = layers.data(name="lbl", shape=[T, 1], dtype="int64")
         loss, _ = transformer.train_network(src, trg, lbl, VOCAB, VOCAB, max_len=T,
-                                            n_layer=N_LAYER, d_model=D_MODEL, n_head=H,
+                                            n_layer=n_layer, d_model=D_MODEL, n_head=H,
                                             d_inner=D_INNER, fuse_final_ce=True)
         opt = pt.optimizer.SGD(learning_rate=0.1) if sgd else pt.optimizer.Adam(learning_rate=1e-3)
         opt.minimize(loss)
@@ -2089,7 +2125,8 @@ def _within_gates(e):
 
 
 def phase_train_vs_cpu(torch, card):
-    """One step at batch 2 x 256, full width, from the same weights.  The
+    """One step at batch 2 x 256, full width at TRAIN_VS_CPU_LAYERS, from
+    the same weights.  The
     witness is the port on the CPU in float64; the card (TF32 off) must be
     within the gates of it, as the port on the CPU in float32 is; the card
     with TF32 on is the control the gates must reject.  The bf16 step's
@@ -2098,7 +2135,7 @@ def phase_train_vs_cpu(torch, card):
     held against the same program's bf16 step on the CPU (plain versions),
     with the stale-cast program as the control."""
     import paddle_tpu_torch as pt
-    main, startup, loss = _train_programs(pt)
+    main, startup, loss = _train_programs(pt, n_layer=TRAIN_VS_CPU_LAYERS)
     init_scope = pt.Scope()
     pt.Executor(pt.CUDAPlace(0)).run(startup, scope=init_scope)
     persist = [v.name for v in main.list_vars() if v.persistable]
@@ -3409,6 +3446,585 @@ def phase_observability(torch, card):
     return out
 
 
+# ------------------------------------------------- phase 20: the reference path
+
+P20_STEPS = 6                 # (a): one eager step, then graph steps
+NOAM_D, NOAM_WARMUP = D_MODEL, 4000
+L2_COEFF, CLIP_NORM = 1e-4, 1.0
+# the unfused head's step: no K7/K8; K3 and K8 are 2 and 32 kernels a call
+P20_PER_STEP = dict(PER_STEP, linear_ce_fwd=0, linear_ce_bwd=0)
+P20_FAMILIES = {"flash_attn_fwd (K1)": PER_STEP["flash_attn_fwd"],
+                "gather_rows (K2)": PER_STEP["gather_rows"],
+                "scatter_add_rows (K3)": 2 * PER_STEP["scatter_add_rows"],
+                "fused_adam (K6)": 1, "linear_ce_fwd (K7)": 0, "linear_ce_bwd (K8)": 0}
+ACCUM_STEPS, ACCUM_ROWS, ACCUM_APPLIES = 4, 16, 2   # (c)
+FAMILY_LAYERS, FAMILY_T, FAMILY_ROWS, FAMILY_STEPS = 2, 64, 4, 3   # (d)
+# (d): one program, each rule updating every tenth parameter; each of its 3
+# steps on the card held against one step from the card's own state before
+# it, on the CPU in float32 and in float64 (the witness).  The loss within
+# FAMILY_LOSS_RTOL of the float32 CPU's.  Each floating state tensor,
+# parameters and slots alike, by the step's change: the card's distance
+# from the witness, norm-relative to the witness's change, at most
+# FAMILY_WITNESS_FACTOR x the float32 CPU's own distance +
+# FAMILY_WITNESS_FLOOR.  Rounding (the stored float32 parameter, a sign-like
+# step such as Adamax's m / (u + 1e-8) where a gradient is near 0) puts
+# both float32 runs about equally far from float64; a wrong rule puts the
+# card far outside.  Held from the start rather than step by step, the card
+# drifted: after 2 Adamax steps a few ReLU inputs crossed 0 on the card and
+# not on the CPU, and the third step's gradients read 4.5e-3 from float64
+# on the card against 3.4e-6 on the CPU (an H100).  Step by step on an H100
+# every tensor read at most 0.25 of its gate: the card as far from float64
+# as the CPU, or nearer (LarsMomentum's norms).  The gate's resolution is
+# printed: a step FAMILY_CONTROL_SCALE x the witness's fails it for how
+# many of each rule's tensors (at least one).  In this program the first
+# rule's updates are one group call; each other rule's update passes that
+# group and is lowered alone (``core/lower.py`` ``_lower_group``), so K5
+# launches once an SGD op: the GPU tests hold each rule's group alone.
+FAMILY_WITNESS_FACTOR = 4.0
+FAMILY_WITNESS_FLOOR = 1e-5
+FAMILY_CONTROL_SCALE = 1.1
+FAMILY_LOSS_RTOL = 1e-5
+INT8_MM = (2048, 512, 2048)   # (e): M, K, N
+
+
+def _ref_feed(rows, t, seed):
+    """Phase 7's feed at ``rows`` x ``t`` with the token weights: each
+    target row's padded tail (past its ragged length) weighted 0."""
+    rs = np.random.RandomState(seed)
+    feed = {}
+    for name in ("src", "trg"):
+        lens = rs.randint(t // 2, t + 1, rows).astype(np.int32)
+        ids = rs.randint(1, VOCAB, (rows, t, 1)).astype(np.int64)
+        ids[np.arange(t)[None, :] >= lens[:, None]] = 0
+        feed[name], feed[name + "@SEQ_LEN"] = ids, lens
+    feed["lbl"] = rs.randint(1, VOCAB, (rows, t, 1)).astype(np.int64)
+    feed["wgt"] = (np.arange(t)[None, :] < feed["trg@SEQ_LEN"][:, None]).astype(
+        np.float32)[..., None]
+    return feed
+
+
+def _ref_net(pt, t=None, n_layer=None):
+    """transformer-base's reference training network: the unfused head
+    (fc to the vocabulary, softmax_with_cross_entropy) weighted by ``wgt``,
+    global-norm clipping and L2 decay on the fc weights; returns the loss."""
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.models import transformer
+    t, n_layer = t or T, n_layer or N_LAYER
+    src = layers.data(name="src", shape=[1], dtype="int64", lod_level=1)
+    trg = layers.data(name="trg", shape=[1], dtype="int64", lod_level=1)
+    lbl = layers.data(name="lbl", shape=[t, 1], dtype="int64")
+    wgt = layers.data(name="wgt", shape=[t, 1], dtype="float32")
+    loss, _ = transformer.train_network(src, trg, lbl, VOCAB, VOCAB, weights=wgt, max_len=t,
+                                        n_layer=n_layer, d_model=D_MODEL, n_head=H,
+                                        d_inner=D_INNER, fuse_final_ce=False)
+    for p in pt.default_main_program().global_block.all_parameters():
+        if p.name.startswith("fc_") and p.name.endswith(".w_0"):
+            p.regularizer = pt.regularizer.L2Decay(L2_COEFF)
+    pt.clip.set_gradient_clip(pt.clip.GradientClipByGlobalNorm(CLIP_NORM))
+    return loss
+
+
+def _noam_adam(pt):
+    """Paddle's Transformer schedule and Adam settings."""
+    lr = pt.layers.noam_decay(NOAM_D, NOAM_WARMUP)
+    return pt.optimizer.Adam(learning_rate=lr, beta1=0.9, beta2=0.98, epsilon=1e-9), lr
+
+
+def _ref_programs(pt, make_opt=_noam_adam, t=None, n_layer=None):
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        loss = _ref_net(pt, t, n_layer)
+        opt, lr = make_opt(pt)
+        opt.minimize(loss)
+    return main, startup, loss, lr
+
+
+def _noam_f32(torch, step):
+    """noam_decay's value at ``step`` by the program's float32 operations on
+    the card (pow, the two scales, the minimum)."""
+    s = torch.tensor([float(step)], dtype=torch.float32, device="cuda")
+    a = torch.pow(s, -0.5)
+    b = s * (float(NOAM_WARMUP) ** -1.5) + 0.0
+    return float((torch.minimum(a, b) * (float(NOAM_D) ** -0.5) + 0.0).item())
+
+
+def _op_counts(program):
+    types = [o.type for o in program.desc.block(0).ops]
+    return len(types), {k: types.count(k) for k in sorted(set(types))}
+
+
+def _launch_snapshot(counters):
+    return {k: f.launches for k, f in counters.items()}
+
+
+def _delta(after, before):
+    return {k: after[k] - before[k] for k in after}
+
+
+def phase_reference_path(torch, card):
+    """Phase 20 (see the module docstring): the reference training path at
+    transformer-base's full width -- (a) the unfused head with token
+    weights, noam_decay, Adam, global-norm clipping and L2 decay, (b) its
+    bf16 twin, (c) Trainer(accum_steps=4), (d) the optimizer family at 2+2
+    layers against the CPU, (e) the int8 matmul.  Returns the launches by
+    kernel of each piece."""
+    import paddle_tpu_torch as pt
+    counters = _counters()
+    res = {"card": card}
+    out = {}
+
+    # (a) the full-width reference step
+    t0 = time.perf_counter()
+    main, startup, loss, lr = _ref_programs(pt)
+    scope, exe = pt.Scope(), pt.Executor(pt.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    feed = _ref_feed(TRAIN_B, T, seed=0)
+    n_ops, by_type = _op_counts(main)
+    n_params = len(main.global_block.all_parameters())
+    run_ops = [o.type for o in exe._apply_passes(main, list(feed), [loss.name, lr.name])
+               .desc.block(0).ops]
+    persist = [v.name for v in main.list_vars()
+               if v.persistable and scope.find_var(v.name) is not None]
+    (counter,) = [n for n in persist if "COUNTER" in n]
+    keys = ("softmax_with_cross_entropy", "softmax_with_cross_entropy_grad", "mul", "mul_grad",
+            "adam", "squared_l2_norm", "elementwise_mul", "reduce_sum", "scale", "sum",
+            "increment", "fused_fc_softmax_ce")
+    res["program"] = {"ops": n_ops, "by_type": {k: by_type.get(k, 0) for k in keys},
+                      "parameters": n_params, "after_passes": {
+                          k: run_ops.count(k) for k in ("pallas_adam", "adam", "pallas_gather",
+                                                        "pallas_scatter_add")}}
+    print(f"phase 20 (a) reference program: {n_ops} ops {json.dumps(res['program'])}; built and "
+          f"initialized on the card in {time.perf_counter() - t0:.2f} s")
+    if n_params != N_PARAMS or by_type.get("softmax_with_cross_entropy") != 1 \
+            or by_type.get("fused_fc_softmax_ce"):
+        raise AssertionError(f"phase 20 (a): {n_params} parameters, ops {by_type}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for f in counters.values():
+        f.launches = 0
+    snaps, losses, lrs, counts, step_s = [], [], [], [], []
+    for step in range(1, P20_STEPS + 1):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if step == 1:
+            lv, rv = exe._run_eager(main, feed, [loss, lr], scope)
+        else:
+            lv, rv = exe.run(main, feed=feed, fetch_list=[loss, lr], scope=scope)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        losses.append(float(np.asarray(lv)))
+        lrs.append(float(np.ravel(rv)[0]))
+        counts.append(int(scope.find_var(counter)[0]))
+        snaps.append(_launch_snapshot(counters))
+    main_path = _launch_snapshot(counters)
+    peak = torch.cuda.max_memory_allocated()
+    want_lr = [_noam_f32(torch, s) for s in range(1, P20_STEPS + 1)]
+    per_step = [_delta(b, a) for a, b in zip(snaps[2:], snaps[3:])]
+    entries = [e for e in exe.cache_info()["entries"] if "lbl" in e["feeds"]]
+    print(f"phase 20 (a) losses {losses}; learning rates {lrs} (noam_decay in float32 "
+          f"{want_lr}); counter after each step {counts}; step seconds "
+          f"{[round(s, 4) for s in step_s]} (step 1 op by op, step 2 the capture, then "
+          f"replays); launches over the {P20_STEPS} steps {main_path}; a replay's "
+          f"{per_step[0] if per_step else None}; the step's entry kind "
+          f"{[e['kind'] for e in entries]}; peak device memory {peak / 2 ** 30:.2f} GiB [{card}]")
+    if not np.isfinite(losses).all() or not all(a > b for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"phase 20 (a): losses not finite and falling: {losses}")
+    if lrs != want_lr or counts != list(range(1, P20_STEPS + 1)):
+        raise AssertionError(f"phase 20 (a): learning rates {lrs} (want {want_lr}) or "
+                             f"counter {counts}")
+    if [e["kind"] for e in entries] != ["graph"] or exe.cache_info()["captures"] != 1:
+        raise AssertionError(f"phase 20 (a): the step is not one graph: {entries}")
+    want = {k: v for k, v in P20_PER_STEP.items()}
+    if any(d != want for d in per_step):
+        raise AssertionError(f"phase 20 (a): launches a replay {per_step}, want {want}")
+    for k in ("flash_attn_fwd", "gather_rows", "scatter_add_rows", "fused_adam"):
+        if not main_path[k]:
+            raise AssertionError(f"phase 20 (a): {k} was not launched on the main path")
+    out["a"] = main_path
+    replay_ms = 1e3 * float(np.median(step_s[2:]))
+    res["a"] = {"losses": losses, "lrs": lrs, "step_s": step_s, "replay_ms_median": replay_ms,
+                "tokens_per_s": TRAIN_B * T / replay_ms * 1e3,
+                "target_tokens_per_s": float(feed["wgt"].sum()) / replay_ms * 1e3,
+                "peak_allocated_gib": peak / 2 ** 30, "launches_a_step": per_step[0],
+                "launches_main_path": main_path}
+
+    # the replayed step against an op-by-op step from the same state
+    state0 = {n: scope.find_var(n).clone() for n in persist}
+    g_out = exe.run(main, feed=feed, fetch_list=[loss, lr], scope=scope)
+    after = {n: scope.find_var(n).clone() for n in persist}
+    for n, t in state0.items():
+        scope.find_var(n).copy_(t)
+    e_out = exe._run_eager(main, feed, [loss, lr], scope)
+    differ = [n for n in persist if not torch.equal(after[n], scope.find_var(n))]
+    equal = not differ and all(np.array_equal(a, b) for a, b in zip(g_out, e_out))
+    print(f"phase 20 (a): step {P20_STEPS + 1} replayed vs op by op from the same state: loss "
+          f"{float(g_out[0]):.7f} / {float(e_out[0]):.7f}, lr {float(np.ravel(g_out[1])[0])!r} / "
+          f"{float(np.ravel(e_out[1])[0])!r}; {len(persist) - len(differ)} of {len(persist)} "
+          f"state tensors bit-equal ({'bit-equal' if equal else 'NOT bit-equal'})")
+    if not equal:
+        raise AssertionError(f"phase 20 (a): the replay differs from the eager step: {differ[:8]}")
+    del state0, after
+    prof = _profile(torch, lambda: exe.run(main, feed=feed, fetch_list=[loss, lr], scope=scope),
+                    "reference_path_profile", card, {"batch": [TRAIN_B, T]})
+    _gate_step_profile(prof, P20_FAMILIES, "phase 20 (a)")
+    res["a"]["profile"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share",
+                                                "by_family_ms", "by_family_launches")}
+    start = {n: scope.find_var(n).to("cpu", copy=True) for n in persist}
+    del exe, scope
+    _free_trainer(torch, "phase 20 (a)")
+
+    # (b) the bf16 twin, from (a)'s last state (the counter included: the
+    # schedule goes on where (a) stopped)
+    scope, exe = pt.Scope(), pt.Executor(pt.CUDAPlace(0), amp=pt.amp.AmpConfig())
+    exe.run(startup, scope=scope)
+    for n, t in start.items():
+        scope.find_var(n).copy_(t)
+    prog = exe._apply_passes(main, list(feed), [loss.name, lr.name])
+    blk = prog.desc.block(0)
+    ce_dtypes = sorted({blk.find_var(n).dtype.value for o in blk.ops
+                        if o.type.startswith("softmax_with_cross_entropy")
+                        for slot in ("Logits", "Softmax", "Loss", "__out__Softmax", "__out__Loss")
+                        for n in o.inputs.get(slot, []) + o.outputs.get(slot, []) if n})
+    bf16_before = {k: getattr(f, "bf16_launches", 0) for k, f in counters.items()}
+    b_losses = [float(np.asarray(exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]))
+                for _ in range(3)]
+    bf16_launches = {k: getattr(f, "bf16_launches", 0) - bf16_before[k]
+                     for k, f in counters.items()}
+    print(f"phase 20 (b) bf16 twin (AmpConfig()): losses {b_losses}; softmax-CE vars in "
+          f"{ce_dtypes}; {sum(o.type == 'cast' for o in blk.ops)} casts; bf16 launches over 3 "
+          f"steps {bf16_launches}; captures {exe.cache_info()['captures']} [{card}]")
+    if not np.isfinite(b_losses).all() or not b_losses[0] > b_losses[-1] \
+            or ce_dtypes != ["float32"]:
+        raise AssertionError(f"phase 20 (b): losses {b_losses}, softmax-CE dtypes {ce_dtypes}")
+    res["b"] = {"losses": b_losses, "softmax_ce_dtypes": ce_dtypes, "bf16_launches": bf16_launches}
+    out["b_bf16"] = bf16_launches
+    del exe, scope, prog, main, startup
+    _free_trainer(torch, "phase 20 (b)")
+
+    res["c"] = _ref_accumulation(torch, pt, counters, card)
+    res["d"], out["d"] = _ref_families(torch, pt, counters, card)
+    res["e"], out["e"] = _ref_int8_matmul(torch, pt, counters, card)
+    print(json.dumps({"reference_path": res}))
+    return out
+
+
+def _ref_samples(n, seed):
+    """Phase 18's samples with the token weights of a ragged target."""
+    def reader():
+        rs = np.random.RandomState(seed)
+        for _ in range(n):
+            length = rs.randint(T // 2, T + 1)
+            yield (rs.randint(1, VOCAB, (rs.randint(T // 2 + 1, T + 1), 1)).astype(np.int64),
+                   rs.randint(1, VOCAB, (T, 1)).astype(np.int64),
+                   rs.randint(1, VOCAB, (T, 1)).astype(np.int64),
+                   (np.arange(T) < length).astype(np.float32)[:, None])
+    return reader
+
+
+def _ref_accumulation(torch, pt, counters, card):
+    """(c) Trainer(accum_steps=4, pipeline=True) over 16 x 256 micro-batches
+    of (a)'s program, two applies, against an exe.run loop of the same
+    accumulate and apply programs on the same executor from the same
+    state: parameters bit-equal; each program's cache entry kind."""
+    def optimizer_func():
+        return _noam_adam(pt)[0]
+    with pt.unique_name.guard():
+        trainer = pt.Trainer(lambda: _ref_net(pt), optimizer_func, place=pt.CUDAPlace(0),
+                             accum_steps=ACCUM_STEPS, pipeline=True)
+    feed_order = ["src", "trg", "lbl", "wgt"]
+    names = [v.name for v in trainer.train_program.list_vars() if v.persistable] + \
+        [v.name for v in trainer.apply_program.list_vars() if v.name.endswith("@ACC")]
+    start = {n: trainer.scope.find_var(n).clone() for n in names}
+    reader = pt.batch(_ref_samples(ACCUM_STEPS * ACCUM_APPLIES * ACCUM_ROWS, seed=3), ACCUM_ROWS)
+    losses = []
+
+    def handler(ev):
+        if type(ev).__name__ == "EndStepEvent":
+            losses.append(ev.metrics[0])
+    t0 = time.perf_counter()
+    trainer.train(1, handler, reader=reader, feed_order=feed_order)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    losses = [float(np.asarray(m)) for m in losses]
+    params = [p.name for p in trainer.train_program.global_block.all_parameters()]
+    trained = {n: trainer.scope.find_var(n).clone() for n in names}
+    kinds = {}
+    for e in trainer.exe.cache_info()["entries"]:
+        if "lbl" in e["feeds"]:
+            kinds["accumulate"] = [e["kind"], e["reasons"]]
+        elif not e["feeds"] and not any("initializes" in r for r in e["reasons"]):
+            kinds["apply"] = [e["kind"], e["reasons"]]
+    for n, t in start.items():
+        trainer.scope.find_var(n).copy_(t)
+    feeder = pt.DataFeeder(feed_list=[trainer.train_program.global_block.var(n)
+                                      for n in feed_order],
+                           program=trainer.train_program, seq_len_buckets="pow2")
+    for i, batch in enumerate(reader()):
+        # the Trainer's fetch list: the same cache entry, its graph replayed
+        trainer.exe.run(trainer._step_program, feed=feeder.feed(batch),
+                        fetch_list=trainer.train_outputs, scope=trainer.scope)
+        if i % ACCUM_STEPS == ACCUM_STEPS - 1:
+            trainer.exe.run(trainer.apply_program, feed={}, fetch_list=[], scope=trainer.scope)
+    differ = [n for n in names if not torch.equal(trained[n], trainer.scope.find_var(n))]
+    moved = [n for n in params if torch.equal(trained[n], start[n])]
+    print(f"phase 20 (c) Trainer(accum_steps={ACCUM_STEPS}, pipeline=True), "
+          f"{ACCUM_STEPS * ACCUM_APPLIES} micro-batches of {ACCUM_ROWS} x {T}: losses {losses}; "
+          f"{train_s:.2f} s; against an exe.run loop of the accumulate and apply programs from "
+          f"the same state: {len(names) - len(differ)} of {len(names)} persistables bit-equal; "
+          f"entries {json.dumps(kinds)}; captures {trainer.exe.cache_info()['captures']} [{card}]")
+    if differ or moved or not np.isfinite(losses).all():
+        raise AssertionError(f"phase 20 (c): differ {differ[:8]}, unmoved {moved[:8]}")
+    out = {"losses": losses, "seconds": train_s, "entries": kinds,
+           "bit_equal_persistables": len(names)}
+    del trainer, start, trained
+    _free_trainer(torch, "phase 20 (c)")
+    return out
+
+
+def _family_optimizers(pt):
+    o, L = pt.optimizer, pt.layers
+    return {
+        "Momentum": lambda: o.Momentum(learning_rate=0.01, momentum=0.9),
+        "Momentum_nesterov": lambda: o.Momentum(learning_rate=0.01, momentum=0.9,
+                                                use_nesterov=True),
+        "LarsMomentum": lambda: o.LarsMomentum(learning_rate=1.0, momentum=0.9),
+        "Adamax": lambda: o.Adamax(learning_rate=0.002),
+        "Adagrad": lambda: o.Adagrad(learning_rate=0.01),
+        "DecayedAdagrad": lambda: o.DecayedAdagrad(learning_rate=0.01),
+        "Adadelta": lambda: o.Adadelta(learning_rate=1.0),
+        "RMSProp": lambda: o.RMSProp(learning_rate=0.001, momentum=0.5),
+        "Ftrl": lambda: o.Ftrl(learning_rate=0.01, l2=0.001),
+        "SGD_exponential_decay": lambda: o.SGD(learning_rate=L.exponential_decay(0.1, 2, 0.5)),
+    }
+
+
+def _kernel_names(torch, run):
+    """Device kernels by name during ``run()`` (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _profiler_started(torch)
+        run()
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0 and PRIMER not in e.name():
+            names[e.name()] = names.get(e.name(), 0) + 1
+    return names
+
+
+def _family_program(pt):
+    """(d)'s program: (a)'s network at FAMILY_LAYERS x FAMILY_T with its
+    clip and L2, each rule of _family_optimizers applying the gradients of
+    its share of the parameters (every tenth, in order).  Returns (main,
+    startup, loss, each rule's parameter names)."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        loss = _ref_net(pt, FAMILY_T, FAMILY_LAYERS)
+        params_grads = pt.append_backward(loss)
+        params_grads = pt.clip.append_gradient_clip_ops(params_grads)
+        params_grads = pt.regularizer.append_regularization_ops(params_grads)
+        rules = _family_optimizers(pt)
+        shares = {}
+        for k, (name, make) in enumerate(rules.items()):
+            share = params_grads[k::len(rules)]
+            make().apply_gradients(share)
+            shares[name] = [p.name for p, _ in share]
+    return main, startup, loss, shares
+
+
+def _family_distances(torch, before, card, cpu32, cpu64):
+    """Per floating state tensor: the card's and the float32 CPU's distance
+    from the float64 witness, norm-relative to the witness's change from
+    ``before``; computed in float64 on the card."""
+    out = {}
+    for n, w in cpu64.items():
+        if not w.is_floating_point():
+            continue
+        w = w.to("cuda")
+        s = torch.from_numpy(before[n]).to("cuda", torch.float64)
+        move = float(torch.linalg.vector_norm(w - s))
+        out[n] = tuple(float(torch.linalg.vector_norm(t.to("cuda", torch.float64) - w))
+                       / max(move, 1e-300) for t in (card[n], cpu32[n]))
+    return out
+
+
+def _family_gate(dist_cpu):
+    return FAMILY_WITNESS_FACTOR * dist_cpu + FAMILY_WITNESS_FLOOR
+
+
+def _ref_families(torch, pt, counters, card):
+    """(d) Three steps of one program in which each update rule (8 new
+    ones, Momentum also Nesterov, and SGD with exponential_decay through
+    K5) updates its share of a 2+2 network at (a)'s widths on the card (one
+    graph a step); each step against one step from the same state on the
+    CPU in float32 and in float64; each rule's lowering calls, and the
+    multi-tensor kernels of one replay."""
+    from paddle_tpu_torch.core.registry import OPS
+    t0 = time.perf_counter()
+    feed = _ref_feed(FAMILY_ROWS, FAMILY_T, seed=4)
+    main, startup, loss, shares = _family_program(pt)
+    rule_of = {p: name for name, ps in shares.items() for p in ps}
+    blk = main.desc.block(0)
+    persist = [v.name for v in main.list_vars() if v.persistable]
+    # a slot belongs to its parameter's rule
+    for n in persist:
+        owner = blk.find_var(n).attrs.get("slot_of")
+        if owner in rule_of:
+            rule_of[n] = rule_of[owner]
+    updates = sorted({o.type for o in blk.ops if o.attrs.get("op_role") == "optimize"
+                      and o.type != "scale"})
+    gscope, gexe = pt.Scope(), pt.Executor(pt.CUDAPlace(0))
+    gexe.run(startup, scope=gscope)
+    persist = [n for n in persist if gscope.find_var(n) is not None]
+    infos = {t: OPS.get(t) for u in updates for t in (u, "pallas_" + u) if OPS.has(t)}
+    originals = {t: (i.group_lower, i.lower) for t, i in infos.items()}
+    calls = {name: [] for name in shares}
+
+    def counting(group_lower, lower):
+        """The lowerings, each call booked to its rule with its op count (an
+        update that passes another rule's group is lowered at once, alone:
+        ``core/lower.py`` ``_lower_group``)."""
+        def group(ctx, ops):
+            calls[rule_of[ops[0].input("Param")[0]]].append(len(ops))
+            group_lower(ctx, ops)
+
+        def one(ctx, op):
+            calls[rule_of[op.input("Param")[0]]].append(1)
+            lower(ctx, op)
+        return group, one
+    cpu = {dt: (pt.Scope(), pt.Executor(pt.CPUPlace())) for dt in (np.float32, np.float64)}
+    k5 = counters["fused_sgd"].launches
+    losses, steps, secs = [], [], {"card": 0.0, "cpu_float32": 0.0, "cpu_float64": 0.0}
+    for _ in range(FAMILY_STEPS):
+        before = {n: gscope.find_var(n).to("cpu", copy=True).numpy() for n in persist}
+        t1 = time.perf_counter()
+        for t, i in infos.items():
+            i.group_lower, i.lower = counting(*originals[t])
+        try:
+            step_losses = [float(gexe.run(main, feed=feed, fetch_list=[loss], scope=gscope)[0])]
+        finally:
+            for t, i in infos.items():
+                i.group_lower, i.lower = originals[t]
+        torch.cuda.synchronize()
+        secs["card"] += time.perf_counter() - t1
+        got = {n: gscope.find_var(n) for n in persist}
+        if not all(torch.isfinite(t).all() for t in got.values() if t.is_floating_point()):
+            raise AssertionError("phase 20 (d): a state tensor is not finite on the card")
+        ref = {}
+        for dt, (scope, exe) in cpu.items():
+            t1 = time.perf_counter()
+            pt.params_from_numpy({n: a.astype(dt) if a.dtype == np.float32 else a
+                                  for n, a in before.items()}, scope, "cpu")
+            step_losses.append(float(exe.run(main, feed=feed, fetch_list=[loss],
+                                             scope=scope)[0]))
+            ref[dt] = {n: scope.find_var(n) for n in persist}
+            secs["cpu_" + np.dtype(dt).name] += time.perf_counter() - t1
+        losses.append(step_losses)
+        steps.append(_family_distances(torch, before, got, ref[np.float32], ref[np.float64]))
+        del before, ref
+    k5 = counters["fused_sgd"].launches - k5
+    kinds = [e["kind"] for e in gexe.cache_info()["entries"] if "lbl" in e["feeds"]]
+    names = _kernel_names(torch, lambda: gexe.run(main, feed=feed, fetch_list=[loss],
+                                                  scope=gscope))
+    foreach = sum(c for k, c in names.items() if "multi_tensor_apply" in k)
+    outside = [{n: round(c / _family_gate(f), 2) for n, (c, f) in d.items() if c > _family_gate(f)}
+               for d in steps]
+    out = {}
+    for name in shares:
+        mine = [n for n in steps[0] if rule_of.get(n) == name]
+        worst = max(((d[n][0] / _family_gate(d[n][1]), k + 1, n) for k, d in enumerate(steps)
+                     for n in mine))
+        resolved = sum(FAMILY_CONTROL_SCALE - 1 > _family_gate(d[n][1])
+                       for d in steps[-1:] for n in mine)
+        out[name] = {"parameters": len(shares[name]), "tensors": len(mine),
+                     "lowering_calls": len(calls[name]), "ops_per_call": sorted(set(calls[name])),
+                     "card_vs_float64_max": max(d[n][0] for d in steps for n in mine),
+                     "cpu_vs_float64_max": max(d[n][1] for d in steps for n in mine),
+                     "worst_over_gate": worst, "control_outside_last_step": resolved}
+        print(f"phase 20 (d) {name}: {len(shares[name])} parameters, {len(mine)} state tensors; "
+              f"each step's change against the float64 witness, the largest: card "
+              f"{out[name]['card_vs_float64_max']:.3e}, CPU float32 "
+              f"{out[name]['cpu_vs_float64_max']:.3e}; nearest the gate: {worst[2]} at step "
+              f"{worst[1]}, {worst[0]:.3f} of it; a step {FAMILY_CONTROL_SCALE:g} x the "
+              f"witness's fails the gate for {resolved} of {len(mine)}; lowering calls on the "
+              f"card {len(calls[name])} of {sorted(set(calls[name]))} ops [{card}]")
+    rec = {"rules": out, "losses_card_cpu32_cpu64": losses, "outside": outside,
+           "entry_kinds": kinds, "multi_tensor_kernels_a_replay": foreach,
+           "fused_sgd_launches": k5, "updates": updates, "seconds": time.perf_counter() - t0,
+           **{k + "_s": v for k, v in secs.items()}}
+    print(f"phase 20 (d): losses (card, CPU float32, float64) {losses}; outside the gate "
+          f"({FAMILY_WITNESS_FACTOR:g} x CPU + {FAMILY_WITNESS_FLOOR:g}) {outside}; "
+          f"{foreach} multi-tensor kernels in one replay; K5 launches {k5}; entries {kinds}; "
+          f"{rec['seconds']:.1f} s (card {secs['card']:.1f}, CPU float32 "
+          f"{secs['cpu_float32']:.1f}, float64 {secs['cpu_float64']:.1f}) [{card}]")
+    if any(outside) or kinds != ["graph"] or not all(
+            abs(c - f) <= FAMILY_LOSS_RTOL * abs(f) for c, f, _ in losses):
+        raise AssertionError(f"phase 20 (d): outside the witness gate {outside}, entries "
+                             f"{kinds}, losses {losses}")
+    if not all(r["control_outside_last_step"] and r["lowering_calls"] for r in out.values()):
+        raise AssertionError(f"phase 20 (d): a rule not lowered, or whose gate a "
+                             f"{FAMILY_CONTROL_SCALE:g} x step passes: {out}")
+    # the capture's eager run and the capture each lower the step once; K5
+    # launches once a lowering call of the SGD rule, as many on each replay
+    want_k5 = (FAMILY_STEPS + 1) * len(calls["SGD_exponential_decay"]) // 2
+    if k5 != want_k5:
+        raise AssertionError(f"phase 20 (d): K5 launched {k5} times over {FAMILY_STEPS} steps, "
+                             f"want {want_k5}")
+    del gexe, gscope, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, {"fused_sgd": k5}
+
+
+def _ref_int8_matmul(torch, pt, counters, card):
+    """(e) a 2-D ``layers.matmul`` served by Inferencer(amp=AmpConfig(
+    bf16=False, quant=True), kernels=True): K4 once a pass through the
+    ``base_op="matmul"`` branch, bit-equal to the fake-quant program
+    (kernels=False) and within INT8_VS_FP32_NORM_RTOL of float32."""
+    m, k, n = INT8_MM
+
+    def infer_func():
+        x = pt.layers.data(name="x", shape=[k])
+        w = pt.layer_helper.LayerHelper("proj").create_parameter(
+            pt.ParamAttr(name="proj.w"), shape=[k, n], dtype="float32")
+        return pt.layers.matmul(x, w)
+    amp = pt.amp.AmpConfig(bf16=False, quant=True)
+    kern = pt.Inferencer(infer_func, place=pt.CUDAPlace(0), amp=amp, kernels=True)
+    sim = pt.Inferencer(infer_func, place=pt.CUDAPlace(0), amp=amp, kernels=False)
+    f32 = pt.Inferencer(infer_func, place=pt.CUDAPlace(0))
+    w = kern.scope.find_var("proj.w")
+    for inf in (sim, f32):
+        inf.scope.find_var("proj.w").copy_(w)
+    ops = [(o.type, o.attrs.get("base_op")) for o in kern.exe._apply_passes(
+        kern.inference_program, ["x"], [v.name for v in kern.predict_vars]).desc.block(0).ops]
+    kern.warmup([m])
+    feed = {"x": np.random.RandomState(6).randn(m, k).astype(np.float32)}
+    names = ("int8_matmul", "abs_max_pair", "quantize_int8")
+    for nm in names:
+        counters[nm].launches = 0
+    passes = 3
+    got = [kern.infer(feed)[0] for _ in range(passes)]
+    launches = {nm: counters[nm].launches for nm in names}
+    ref = sim.infer(feed)[0]
+    want = f32.infer(feed)[0]
+    rel = float(np.linalg.norm(got[0] - want) / np.linalg.norm(want))
+    equal = all(np.array_equal(g, ref) for g in got)
+    print(f"phase 20 (e) int8 matmul [{m}, {k}] x [{k}, {n}]: program {ops}; launches over "
+          f"{passes} passes {launches}; bit-equal to the fake-quant program {equal}; "
+          f"norm-relative to float32 {rel:.4e} (gate {INT8_VS_FP32_NORM_RTOL}) [{card}]")
+    if ops != [("pallas_int8_matmul", "matmul")] or launches["int8_matmul"] != passes \
+            or not equal or rel > INT8_VS_FP32_NORM_RTOL:
+        raise AssertionError(f"phase 20 (e): ops {ops}, launches {launches}, equal {equal}, "
+                             f"rel {rel}")
+    del kern, sim, f32
+    _free_trainer(torch, "phase 20 (e)")
+    return {"launches": launches, "bit_equal_to_fake_quant": equal, "nrel_vs_float32": rel}, \
+        launches
+
+
 def _release_serving(torch, label):
     """A serving phase's inferencers (and their graphs' memory pools) are
     gone once it returns: collect them before the training phases."""
@@ -3450,28 +4066,39 @@ def _main(torch, build):
     print("\n".join(line for line in info["log"].splitlines()
                     if "registers" in line or "Compiling entry" in line or "C75" in line))
 
-    flash = phase_flash(torch, card)
-    gather = phase_gather(torch, card)
-    f32_res = phase_serving(torch, card)
+    seconds = {}
+
+    def timed(label, phase, *args, **kw):
+        t0 = time.perf_counter()
+        result = phase(torch, card, *args, **kw)
+        seconds[label] = round(time.perf_counter() - t0, 1)
+        print(f"phase function {label}: {seconds[label]} s")
+        return result
+    flash = timed("flash", phase_flash)
+    gather = timed("gather", phase_gather)
+    f32_res = timed("serving", phase_serving)
     _release_serving(torch, "float32 serving")
-    ce = phase_linear_ce(torch, card)
-    adam = phase_adam(torch, card)
-    scatter = phase_scatter(torch, card)
-    launches, adam_steps = phase_training(torch, card)
-    phase_train_vs_cpu(torch, card)
-    int8, int8_quant = phase_int8(torch, card)
-    sgd = phase_sgd(torch, card)
-    int8_res = phase_int8_serving(torch, card, f32_res)
+    ce = timed("linear_ce", phase_linear_ce)
+    adam = timed("adam", phase_adam)
+    scatter = timed("scatter", phase_scatter)
+    launches, adam_steps = timed("training", phase_training)
+    timed("train_vs_cpu", phase_train_vs_cpu)
+    int8, int8_quant = timed("int8", phase_int8)
+    sgd = timed("sgd", phase_sgd)
+    int8_res = timed("int8_serving", phase_int8_serving, f32_res)
     _release_serving(torch, "int8 serving")
-    sgd_launches, sgd_steps = phase_training(torch, card, sgd=True)
-    bf16 = phase_bf16_kernels(torch, card)
-    _, bf16_launches = phase_bf16_step(torch, card)
+    sgd_launches, sgd_steps = timed("training_sgd", phase_training, sgd=True)
+    bf16 = timed("bf16_kernels", phase_bf16_kernels)
+    _, bf16_launches = timed("bf16_step", phase_bf16_step)
     _free_trainer(torch, "bf16 step")
-    trainer_launches, trainer_bf16_launches = phase_trainer(torch, card)
+    trainer_launches, trainer_bf16_launches = timed("trainer", phase_trainer)
     for name in ("int8_matmul", "abs_max_pair", "quantize_int8"):
         launches[name] = int8_res["launches"][name]
     launches["fused_sgd"] = sgd_launches["fused_sgd"]
-    phase_observability(torch, card)
+    timed("observability_end", phase_observability)
+    ref_launches = timed("reference_path", phase_reference_path)
+    print(f"seconds by phase function: {json.dumps(seconds)}; "
+          f"{sum(seconds.values()):.1f} in all [{card}]")
 
     def entry(name, source, replaces, per_case, main_case):
         m = per_case[main_case]
@@ -3514,11 +4141,19 @@ def _main(torch, build):
     # the bf16 instances (the amp-bf16 step's path), launches from phase 14
     # launches_profile: phase 19's op profiles (the float32 and bf16 steps,
     # the float32 and int8 serving batches), summed
+    # launches_reference_path: phase 20's runs, each counted from 0 -- (a) the
+    # full-width reference step (K1, K2, K3, K6), (d) SGD with a schedule
+    # (K5), (e) the int8 matmul (K4); the bf16 entries (b)'s bf16 twin
+    phase20 = {**ref_launches["a"], "fused_sgd": ref_launches["d"].get("fused_sgd", 0),
+               "int8_matmul": ref_launches["e"]["int8_matmul"]}
     for e in kernels:
         e["launches_trainer"] = trainer_launches[e["name"]]
         e["launches_profile"] = PHASE19["launches_profile"].get(e["name"], 0)
+        e["launches_reference_path"] = phase20.get(e["name"], 0)
     k4["quantizers"]["launches_profile"] = {
         n: PHASE19["launches_profile"].get(n, 0) for n in ("abs_max_pair", "quantize_int8")}
+    k4["quantizers"]["launches_reference_path"] = {
+        n: ref_launches["e"][n] for n in ("abs_max_pair", "quantize_int8")}
     for name, source, replaces, cases, main_case in (
             ("flash_attn_fwd", "flash_attention_fwd_bf16.cu", "flash_attention.py:38",
              {k: v for k, v in bf16.items() if k[0] == "flash"}, ("flash", False)),
@@ -3528,7 +4163,8 @@ def _main(torch, build):
              {0: bf16["linear_ce_fwd"]}, 0)):
         e = dict(entry(name, source, replaces, cases, main_case), name=f"{name}_bf16",
                  launches=bf16_launches[name], launches_trainer=trainer_bf16_launches[name],
-                 launches_profile=PHASE19["launches_profile_bf16"].get(name, 0))
+                 launches_profile=PHASE19["launches_profile_bf16"].get(name, 0),
+                 launches_reference_path=ref_launches["b_bf16"].get(name, 0))
         kernels.append(e)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,7 +6,10 @@ update ops by an ``optimizer``, and run eagerly, op by op, by the
 ``Executor`` on a CUDA device (``CUDAPlace(0)``, the default) or, when
 asked, on the CPU.  Attention, embedding lookups and their gradients, the
 fused loss head, SGD and Adam go through hand-written CUDA kernels
-(``ops/cuda/``, sources in ``csrc/``), built with nvcc at first use.  The
+(``ops/cuda/``, sources in ``csrc/``), built with nvcc at first use; the
+other update rules (``optimizer``), learning-rate schedules
+(``layers.noam_decay`` and the decays), gradient clips (``clip``) and
+regularizers (``regularizer``) run in the same step.  The
 pass pipeline (``passes``) rewrites programs onto the kernel tier, and
 ``amp.AmpConfig(bf16=False, quant=True)`` serves every ``mul`` through the
 int8 GEMM kernel.  ``Trainer`` trains from a reader (``reader``,
@@ -23,10 +26,12 @@ This package imports torch, numpy and the standard library only -- never
 jax or paddle_tpu.
 """
 from . import ops  # noqa: F401  (registers every op lowering)
-from . import (amp, checkpoint, compile_log, io, layers, lod, log,  # noqa: F401
+from . import (amp, checkpoint, clip, compile_log, io, layers, lod, log,  # noqa: F401
                models, optimizer, passes, profiler, profiling, reader,
-               resource_sampler, telemetry)
-from .backward import append_backward  # noqa: F401
+               regularizer, resource_sampler, telemetry)
+from .backward import append_backward, calc_gradient  # noqa: F401
+from .clip import (ErrorClipByValue, GradientClipByGlobalNorm,  # noqa: F401
+                   GradientClipByNorm, GradientClipByValue)
 from .convert import params_from_numpy  # noqa: F401
 from .core import unique_name  # noqa: F401
 from .core.executor import CPUPlace, CUDAPlace, Executor, Place  # noqa: F401

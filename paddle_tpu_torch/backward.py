@@ -1,4 +1,5 @@
-"""Program-rewriting autodiff: ``append_backward``.
+"""Program-rewriting autodiff: ``append_backward``, ``calc_gradient`` and
+``split_for_gradient_accumulation``.
 
 Gradients are ops appended to the program, so the optimizer and the
 executor see one IR.  Each op's grad ops come from its registered grad
@@ -38,28 +39,76 @@ def append_backward(target: Variable,
                     ) -> List[Tuple[Variable, Variable]]:
     """Append grad ops for the loss ``target`` and return
     [(param, grad_var), ...]."""
-    program: Program = target.block.program
+    pairs, _ = _backward_core([target], [None], parameter_list, no_grad_set,
+                              check_params=True)
+    return pairs
+
+
+def calc_gradient(targets, inputs, target_gradients=None, no_grad_set=None):
+    """Gradients of ``targets`` (one var or a list; their gradients sum into
+    shared inputs) with respect to ``inputs``.  ``target_gradients`` gives
+    each target's cotangent as a var of its shape (None: ones).  Returns
+    one grad var per input, None where this call produced no gradient."""
+    if not isinstance(targets, (list, tuple)):
+        targets = [targets]
+    if not isinstance(inputs, (list, tuple)):
+        inputs = [inputs]
+    if target_gradients is None:
+        target_gradients = [None] * len(targets)
+    elif not isinstance(target_gradients, (list, tuple)):
+        target_gradients = [target_gradients]
+    if len(target_gradients) != len(targets):
+        raise ValueError(
+            f"calc_gradient got {len(targets)} targets but {len(target_gradients)} "
+            f"target_gradients: they must align 1:1 (None entries seed with ones)")
+    _, written = _backward_core(list(targets), list(target_gradients), None,
+                                no_grad_set, check_params=False)
+    block = targets[0].block
+    return [block.var(grad_var_name(v.name)) if grad_var_name(v.name) in written else None
+            for v in inputs]
+
+
+def _backward_core(targets, target_gradients, parameter_list, no_grad_set, check_params):
+    """``append_backward`` (one target, a unit seed) and ``calc_gradient``
+    (several targets, optional cotangent seeds) alike.  Returns ``(pairs,
+    written)``: the (param, grad) pairs and the grad names this call
+    produced."""
+    program: Program = targets[0].block.program
     block: Block = program.block(0)
     no_grad = set(no_grad_set or ())
     no_grad.update(v.name for v in block.vars.values() if v.stop_gradient)
 
-    target_idx = None
-    for i, o in enumerate(block.ops):
-        if target.name in o.desc.output_names():
-            target_idx = i
-    if target_idx is None:
-        raise ValueError(f"target var {target.name!r} is not produced in block 0")
-    relevant = _collect_relevant_ops(block, target.name, target_idx)
+    relevant_set: Set[int] = set()
+    for t in targets:
+        target_idx = None
+        for i, o in enumerate(block.ops):
+            if t.name in o.desc.output_names():
+                target_idx = i
+        if target_idx is None:
+            raise ValueError(f"target var {t.name!r} is not produced in block 0")
+        relevant_set.update(_collect_relevant_ops(block, t.name, target_idx))
+    relevant = sorted(relevant_set)
 
-    # 1. the seed: d target / d target = 1
-    t_grad_name = grad_var_name(target.name)
-    _ensure_grad_var(block, t_grad_name, target.name)
-    grad_ops: List[OpDesc] = [OpDesc(
-        type="fill_constant", outputs={"Out": [t_grad_name]},
-        attrs={"shape": list(target.shape), "value": 1.0,
-               "dtype": target.dtype, "op_role": "backward"})]
+    # 1. the seeds: d target / d target = 1, or the given cotangent
+    grad_ops: List[OpDesc] = []
     produced: Dict[str, int] = defaultdict(int)
-    produced[t_grad_name] += 1
+    for t, tg in zip(targets, target_gradients):
+        t_grad_name = grad_var_name(t.name)
+        _ensure_grad_var(block, t_grad_name, t.name)
+        if tg is None:
+            grad_ops.append(OpDesc(
+                type="fill_constant", outputs={"Out": [t_grad_name]},
+                attrs={"shape": list(t.shape), "value": 1.0,
+                       "dtype": t.dtype, "op_role": "backward"}))
+        else:
+            if tuple(tg.shape) != tuple(t.shape):
+                raise ValueError(
+                    f"target_gradient {tg.name!r} shape {tuple(tg.shape)} does not match "
+                    f"target {t.name!r} shape {tuple(t.shape)}")
+            grad_ops.append(OpDesc(
+                type="assign", inputs={"X": [tg.name]}, outputs={"Out": [t_grad_name]},
+                attrs={"op_role": "backward"}))
+        produced[t_grad_name] += 1
 
     # 2. relevant ops in reverse; a grad name produced twice is written to
     #    a renamed var and summed into the canonical one
@@ -109,6 +158,7 @@ def append_backward(target: Variable,
             grad_ops.extend(extra)
 
     # 3. append to the program
+    written = {n for g in grad_ops for names in g.outputs.values() for n in names if n}
     if any(g.type == "lookup_table_grad" and g.attrs.get("is_sparse")
            for g in grad_ops):
         raise NotImplementedError(
@@ -125,10 +175,15 @@ def append_backward(target: Variable,
         params = [p for p in block.all_parameters() if p.trainable]
     pairs = [(p, block.var(grad_var_name(p.name))) for p in params
              if produced[grad_var_name(p.name)] > 0]
+    if check_params:
+        _check_params(block, targets, relevant, params, pairs, no_grad, no_grad_set)
+    return pairs, written
 
-    # a trainable param that feeds the loss but got no gradient means a
-    # path to the loss is cut by a non-differentiable op: fail loudly
-    # instead of never training it
+
+def _check_params(block, targets, relevant, params, pairs, no_grad, no_grad_set):
+    """A trainable param that feeds the loss but got no gradient means a
+    path to the loss is cut by a non-differentiable op: fail loudly instead
+    of never training it."""
     grad_names = {g.name for _, g in pairs}
     read_by_relevant = set()
     for idx in relevant:
@@ -138,7 +193,7 @@ def append_backward(target: Variable,
                   and p.name in read_by_relevant and p.name not in no_grad]
     if candidates:
         user_prune = set(no_grad_set or ())
-        cot = {target.name}
+        cot = {t.name for t in targets}
         for idx in reversed(relevant):
             op = block.ops[idx].desc
             if any(n in cot for n in op.output_names() if n):
@@ -151,7 +206,6 @@ def append_backward(target: Variable,
                 f"non-differentiable op or a stop_gradient var.  Fix the "
                 f"blocker, or add the parameter to no_grad_set to train "
                 f"without it.")
-    return pairs
 
 
 def _ensure_grad_var(block: Block, grad_name: str, fwd_name: str):
@@ -162,3 +216,72 @@ def _ensure_grad_var(block: Block, grad_name: str, fwd_name: str):
         name=grad_name, shape=fwd.shape if fwd is not None else (),
         dtype=fwd.dtype if fwd is not None else DataType.FP32))
     block._sync_with_desc()
+
+
+ACCUM_SUFFIX = "@ACC"
+
+
+def split_for_gradient_accumulation(program: Program, startup_program: Program,
+                                    accum_steps: int):
+    """Split a built forward + backward + optimize program into the
+    gradient-accumulation pair ``(accum_program, apply_program)``:
+
+    * ``accum_program``: forward and backward of one micro-batch, without
+      the optimize and lr-schedule ops; each gradient an update reads is
+      summed into a persistable ``<grad>@ACC`` buffer;
+    * ``apply_program``: the updates and the schedule, each reading its
+      gradient as ``acc / accum_steps`` (the mean over the window), then the
+      buffers filled with zeros for the next window.
+
+    ``startup_program`` gains the buffers' zero fills.  Run the accumulate
+    program every micro-step and the apply program every ``accum_steps``-th
+    (``Trainer(accum_steps=N)``).  Gradient clipping and regularization
+    stay in the accumulate program, so they act on each micro-batch's
+    gradients, as in the JAX package.  Both programs write only state that
+    exists (the buffers, parameters, slots and counter), so on the card
+    each replays one CUDA graph."""
+    if accum_steps < 2:
+        raise ValueError(f"accum_steps must be >= 2, got {accum_steps}")
+    src = program.desc.block(0)
+    pairs, seen = [], set()
+    for od in src.ops:
+        if od.attrs.get("op_role") != "optimize":
+            continue
+        p = (od.inputs.get("Param") or [None])[0]
+        g = (od.inputs.get("Grad") or [None])[0]
+        if p and g and g not in seen:
+            seen.add(g)
+            pairs.append((p, g))
+    if not pairs:
+        raise ValueError("no optimizer ops with Param/Grad inputs found: call "
+                         "optimizer.minimize() before splitting for accumulation")
+
+    accum, apply_p = program.clone(), program.clone()
+    abd, pbd, sbd = accum.desc.block(0), apply_p.desc.block(0), startup_program.desc.block(0)
+    abd.ops = [od for od in abd.ops if od.attrs.get("op_role") not in ("optimize", "lr_sched")]
+    pre, post = [], []
+    for pname, gname in pairs:
+        pvd = src.find_var(pname)
+        acc_name = gname + ACCUM_SUFFIX
+        for bd in (abd, pbd, sbd):
+            vd = VarDesc(name=acc_name, shape=tuple(pvd.shape), dtype=pvd.dtype,
+                         persistable=True)
+            vd.attrs["slot_of"] = pname
+            bd.add_var(vd)
+        abd.append_op(OpDesc(type="sum", inputs={"X": [acc_name, gname]},
+                             outputs={"Out": [acc_name]}, attrs={"op_role": "backward"}))
+        sbd.append_op(OpDesc(type="fill_constant", outputs={"Out": [acc_name]},
+                             attrs={"shape": list(pvd.shape), "dtype": pvd.dtype,
+                                    "value": 0.0}))
+        # the window's mean, written to the grad name the updates read
+        pre.append(OpDesc(type="scale", inputs={"X": [acc_name]}, outputs={"Out": [gname]},
+                          attrs={"scale": 1.0 / accum_steps, "op_role": "optimize"}))
+        post.append(OpDesc(type="fill_constant", outputs={"Out": [acc_name]},
+                           attrs={"shape": list(pvd.shape), "dtype": pvd.dtype,
+                                  "value": 0.0, "op_role": "optimize"}))
+    pbd.ops = pre + [od for od in pbd.ops
+                     if od.attrs.get("op_role") in ("optimize", "lr_sched")] + post
+    for prog in (accum, apply_p, startup_program):
+        prog.desc._bump()
+        prog.sync_with_desc()
+    return accum, apply_p

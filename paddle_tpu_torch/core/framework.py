@@ -10,6 +10,7 @@ from __future__ import annotations
 import contextlib
 import os
 import sys
+import threading
 from typing import Dict, List, Optional
 
 from . import unique_name
@@ -128,6 +129,27 @@ def _to_name_list(v) -> List[str]:
     return [str(v)]
 
 
+class _OpRoleState(threading.local):
+    role: Optional[str] = None
+
+
+# The active op-role stamp: ops appended inside ``op_role_guard(role)`` get
+# ``attrs["op_role"] = role`` unless the caller set one.  The learning-rate
+# schedules stamp ``lr_sched``, so ``clone(for_test=True)`` drops their
+# step-counter increment with the backward and optimize ops.
+_ACTIVE_OP_ROLE = _OpRoleState()
+
+
+@contextlib.contextmanager
+def op_role_guard(role: str):
+    prev = _ACTIVE_OP_ROLE.role
+    _ACTIVE_OP_ROLE.role = role
+    try:
+        yield
+    finally:
+        _ACTIVE_OP_ROLE.role = prev
+
+
 class Block:
     def __init__(self, program: "Program", idx: int):
         self.program = program
@@ -208,6 +230,8 @@ class Block:
                   outputs: Optional[dict] = None,
                   attrs: Optional[dict] = None) -> Operator:
         attrs = dict(attrs or {})
+        if _ACTIVE_OP_ROLE.role is not None:
+            attrs.setdefault("op_role", _ACTIVE_OP_ROLE.role)
         cs = _user_callsite()
         if cs is not None:
             attrs.setdefault(CALLSITE_ATTR, cs)

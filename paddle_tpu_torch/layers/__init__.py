@@ -1,4 +1,5 @@
-from . import nn, sequence, tensor
+from . import learning_rate_scheduler, nn, sequence, tensor
+from .learning_rate_scheduler import *  # noqa: F401,F403
 from .nn import *  # noqa: F401,F403
 from .sequence import *  # noqa: F401,F403
 from .tensor import *  # noqa: F401,F403

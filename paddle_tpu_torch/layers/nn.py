@@ -5,8 +5,15 @@ from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["fc", "embedding", "layer_norm", "dropout", "reshape", "scale",
-           "elementwise_add", "mean", "fused_fc_softmax_ce"]
+# the names the JAX package's layers/nn.py exports; the other builders here
+# (exp, abs, floor, elementwise_max, ...) are reached as layers.nn.<name>
+__all__ = ["fc", "embedding", "layer_norm", "dropout", "softmax", "cross_entropy",
+           "softmax_with_cross_entropy", "fused_fc_softmax_ce", "square_error_cost",
+           "mean", "mul", "matmul", "elementwise_add", "elementwise_sub",
+           "elementwise_mul", "elementwise_div", "reduce_sum", "reduce_mean",
+           "reduce_max", "reduce_min", "reduce_prod", "relu", "reshape", "transpose",
+           "concat", "split", "cast", "scale", "clip", "clip_by_norm", "log", "sqrt",
+           "square", "pow"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -92,14 +99,6 @@ def dropout(x, dropout_prob, is_test=False, seed=None,
     return out
 
 
-def elementwise_add(x, y, axis=-1, act=None, name=None):
-    helper = LayerHelper("elementwise_add", act=act, name=name)
-    out = helper.create_variable_for_type_inference(x.dtype)
-    helper.append_op("elementwise_add", inputs={"X": x, "Y": y},
-                     outputs={"Out": out}, attrs={"axis": axis})
-    return helper.append_activation(out)
-
-
 def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
     helper = LayerHelper("reshape", act=act, name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
@@ -115,13 +114,6 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
                      attrs={"scale": scale, "bias": bias,
                             "bias_after_scale": bias_after_scale})
     return helper.append_activation(out)
-
-
-def mean(x, name=None):
-    helper = LayerHelper("mean", name=name)
-    out = helper.create_variable_for_type_inference(x.dtype)
-    helper.append_op("mean", inputs={"X": x}, outputs={"Out": out})
-    return out
 
 
 def fused_fc_softmax_ce(input, label, size, num_flatten_dims=1,
@@ -149,3 +141,185 @@ def fused_fc_softmax_ce(input, label, size, num_flatten_dims=1,
                      attrs={"vocab_chunks": vocab_chunks, "use_pallas": use_pallas,
                             "num_flatten_dims": num_flatten_dims})
     return loss
+
+
+def _unary_layer(op_type):
+    def layer(x, name=None, **attrs):
+        helper = LayerHelper(op_type, name=name)
+        out = helper.create_variable_for_type_inference(x.dtype)
+        helper.append_op(op_type, inputs={"X": x}, outputs={"Out": out}, attrs=attrs)
+        return out
+
+    layer.__name__ = op_type
+    return layer
+
+
+relu = _unary_layer("relu")
+log = _unary_layer("log")
+sqrt = _unary_layer("sqrt")
+square = _unary_layer("square")
+pow = _unary_layer("pow")
+softmax = _unary_layer("softmax")
+exp = _unary_layer("exp")
+abs = _unary_layer("abs")
+ceil = _unary_layer("ceil")
+floor = _unary_layer("floor")
+cos = _unary_layer("cos")
+sin = _unary_layer("sin")
+round = _unary_layer("round")
+reciprocal = _unary_layer("reciprocal")
+
+
+def _binary_layer(op_type):
+    def layer(x, y, axis=-1, act=None, name=None):
+        helper = LayerHelper(op_type, act=act, name=name)
+        out = helper.create_variable_for_type_inference(x.dtype)
+        helper.append_op(op_type, inputs={"X": x, "Y": y}, outputs={"Out": out},
+                         attrs={"axis": axis})
+        return helper.append_activation(out)
+
+    layer.__name__ = op_type
+    return layer
+
+
+elementwise_add = _binary_layer("elementwise_add")
+elementwise_sub = _binary_layer("elementwise_sub")
+elementwise_mul = _binary_layer("elementwise_mul")
+elementwise_div = _binary_layer("elementwise_div")
+elementwise_max = _binary_layer("elementwise_max")
+elementwise_min = _binary_layer("elementwise_min")
+elementwise_pow = _binary_layer("elementwise_pow")
+
+
+def _reduce_layer(op_type):
+    def layer(input, dim=None, keep_dim=False, name=None):
+        helper = LayerHelper(op_type, name=name)
+        out = helper.create_variable_for_type_inference(input.dtype)
+        if dim is None:
+            attrs = {"reduce_all": True, "keep_dim": keep_dim}
+        else:
+            if isinstance(dim, int):
+                dim = [dim]
+            attrs = {"dim": list(dim), "keep_dim": keep_dim, "reduce_all": False}
+        helper.append_op(op_type, inputs={"X": input}, outputs={"Out": out}, attrs=attrs)
+        return out
+
+    layer.__name__ = op_type
+    return layer
+
+
+reduce_sum = _reduce_layer("reduce_sum")
+reduce_mean = _reduce_layer("reduce_mean")
+reduce_max = _reduce_layer("reduce_max")
+reduce_min = _reduce_layer("reduce_min")
+reduce_prod = _reduce_layer("reduce_prod")
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("mean", inputs={"X": x}, outputs={"Out": out})
+    return out
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    helper = LayerHelper("mul", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("mul", inputs={"X": x, "Y": y}, outputs={"Out": out},
+                     attrs={"x_num_col_dims": x_num_col_dims, "y_num_col_dims": y_num_col_dims})
+    return out
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    helper = LayerHelper("matmul", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("matmul", inputs={"X": x, "Y": y}, outputs={"Out": out},
+                     attrs={"transpose_X": transpose_x, "transpose_Y": transpose_y,
+                            "alpha": alpha})
+    return out
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100, name=None):
+    helper = LayerHelper("cross_entropy", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("cross_entropy", inputs={"X": input, "Label": label},
+                     outputs={"Y": out},
+                     attrs={"soft_label": soft_label, "ignore_index": ignore_index})
+    return out
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False, name=None):
+    """Per-row loss [..., 1] of softmax(logits) against ``label``; the
+    softmax is an output of the op too (not returned)."""
+    helper = LayerHelper("softmax_with_cross_entropy", name=name)
+    softmax_out = helper.create_variable_for_type_inference(logits.dtype)
+    loss = helper.create_variable_for_type_inference(logits.dtype)
+    helper.append_op("softmax_with_cross_entropy",
+                     inputs={"Logits": logits, "Label": label},
+                     outputs={"Softmax": softmax_out, "Loss": loss},
+                     attrs={"soft_label": soft_label})
+    return loss
+
+
+def square_error_cost(input, label, name=None):
+    helper = LayerHelper("square_error_cost", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("square_error_cost", inputs={"X": input, "Y": label},
+                     outputs={"Out": out})
+    return out
+
+
+def transpose(x, perm, name=None):
+    helper = LayerHelper("transpose", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("transpose", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"axis": list(perm)})
+    return out
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", name=name)
+    out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op("concat", inputs={"X": input}, outputs={"Out": out},
+                     attrs={"axis": axis})
+    return out
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper("split", name=name)
+    in_shape = input.shape
+    axis = dim if dim >= 0 else dim + len(in_shape)
+    if isinstance(num_or_sections, int):
+        num = num_or_sections
+        sections = [in_shape[axis] // num] * num
+    else:
+        sections = list(num_or_sections)
+        num = len(sections)
+    outs = [helper.create_variable_for_type_inference(input.dtype) for _ in range(num)]
+    helper.append_op("split", inputs={"X": input}, outputs={"Out": outs},
+                     attrs={"axis": axis, "sections": sections, "num": 0})
+    return outs
+
+
+def cast(x, dtype, name=None):
+    helper = LayerHelper("cast", name=name)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("cast", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"out_dtype": dtype})
+    return out
+
+
+def clip(x, min, max, name=None):
+    helper = LayerHelper("clip", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("clip", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"min": min, "max": max})
+    return out
+
+
+def clip_by_norm(x, max_norm, name=None):
+    helper = LayerHelper("clip_by_norm", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("clip_by_norm", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"max_norm": max_norm})
+    return out

@@ -95,19 +95,28 @@ def train_network(src_ids, trg_ids, labels, src_vocab, trg_vocab,
                   weights=None, max_len=256, n_layer=2, d_model=128,
                   n_head=4, d_inner=512, dropout_rate=0.0,
                   fuse_final_ce=False):
-    """labels: [N, T_trg, 1] int64 next tokens.  Returns (avg_loss, logits).
+    """labels: [N, T_trg, 1] int64 next tokens.  ``weights`` [N, T_trg, 1]
+    float zeroes padded positions: the loss is sum(loss * weights) /
+    sum(weights), as the reference Transformer masks its loss; without it,
+    the mean.  Returns (avg_loss, logits).
 
-    ``fuse_final_ce=True`` replaces the final projection fc + softmax CE
-    with the fused op (ops/fused_ce.py), and the returned logits are None.
-    The unfused head (``softmax_with_cross_entropy``) and the per-token
-    ``weights`` (``elementwise_mul``, ``reduce_sum``) are not ported yet."""
-    if not fuse_final_ce:
-        raise NotImplementedError("train_network(fuse_final_ce=False) needs "
-                                  "softmax_with_cross_entropy, not ported yet")
+    The default head is the final projection ``fc`` to [N, T_trg,
+    trg_vocab] logits and ``softmax_with_cross_entropy``.
+    ``fuse_final_ce=True`` replaces the two with the fused op
+    (ops/fused_ce.py), which never builds the logits, and the returned
+    logits are None."""
+    if fuse_final_ce:
+        dec = transformer_body(src_ids, trg_ids, src_vocab, trg_vocab, max_len,
+                               n_layer, d_model, n_head, d_inner, dropout_rate)
+        loss = layers.fused_fc_softmax_ce(dec, labels, trg_vocab, num_flatten_dims=2)
+        logits = None
+    else:
+        logits = transformer(src_ids, trg_ids, src_vocab, trg_vocab, max_len,
+                             n_layer, d_model, n_head, d_inner, dropout_rate)
+        loss = layers.softmax_with_cross_entropy(logits=logits, label=labels)
     if weights is not None:
-        raise NotImplementedError("train_network(weights=...) needs "
-                                  "elementwise_mul and reduce_sum, not ported yet")
-    dec = transformer_body(src_ids, trg_ids, src_vocab, trg_vocab, max_len,
-                           n_layer, d_model, n_head, d_inner, dropout_rate)
-    loss = layers.fused_fc_softmax_ce(dec, labels, trg_vocab, num_flatten_dims=2)
-    return layers.mean(loss), None
+        avg_loss = layers.elementwise_div(layers.reduce_sum(layers.elementwise_mul(loss, weights)),
+                                          layers.reduce_sum(weights))
+    else:
+        avg_loss = layers.mean(loss)
+    return avg_loss, logits

@@ -5,6 +5,7 @@ from typing import Optional
 
 from ..core.desc import BlockDesc, OpDesc
 from ..core.dtypes import DataType, convert_dtype
+from ..core.registry import register_infer_shape
 
 
 def set_out_shape(block: BlockDesc, op: OpDesc, slot: str, shape,
@@ -45,3 +46,26 @@ def bcast_y(x, y, axis: int):
     if axis == -1:
         axis = x.ndim - y.ndim
     return y.reshape((1,) * axis + tuple(y.shape) + (1,) * (x.ndim - axis - y.ndim))
+
+
+def bcast_shape(x_shape, y_shape):
+    """An elementwise op's output shape: the higher-rank operand's."""
+    if len(x_shape) >= len(y_shape):
+        return tuple(x_shape)
+    return tuple(y_shape)
+
+
+def normalize_axis(axis: int, ndim: int) -> int:
+    return axis + ndim if axis < 0 else axis
+
+
+def same_shape(op_type: str, in_slot: str = "X", out_slots=("Out",)):
+    """Register the infer-shape rule "each of ``out_slots`` has ``in_slot``'s
+    shape and dtype" for ``op_type``."""
+    @register_infer_shape(op_type)
+    def rule(block, op):
+        sh = in_shape(block, op, in_slot)
+        dt = in_dtype(block, op, in_slot)
+        for slot in out_slots:
+            set_out_shape(block, op, slot, sh, dt)
+    return rule

@@ -256,7 +256,9 @@ def int8_mm(xq: torch.Tensor, yqt: torch.Tensor, scales=None, bin_cnt=None) -> t
 
 def int8_matmul_plain(x: torch.Tensor, y: torch.Tensor, bits: int = 8) -> torch.Tensor:
     """The JAX package's ``int8_matmul`` (its exact integer path) on any
-    device: quantize, exact integer product, dequantize.  x [M, K], y [K, N]."""
+    device: quantize, exact integer product, dequantize.  x [..., M, K], y
+    [..., K, N] (batch dims broadcast; each operand quantized whole, one
+    scale each: the batched ``matmul`` form)."""
     bin_cnt = bin_count(bits)
     xq, sx = quantize_abs_max(x.to(torch.float32), bin_cnt)
     yq, sy = quantize_abs_max(y.to(torch.float32), bin_cnt)

@@ -7,7 +7,8 @@ hand-written Hopper kernel on CUDA tensors and its plain version on CPU
 tensors:
 
 * ``pallas_int8_matmul`` -- one ``amp-quant-int8`` simulation group
-  (quantize x2 -> mul -> scale -> dequantize) as the int8 GEMM, K4;
+  (quantize x2 -> mul or matmul -> scale -> dequantize) as the int8 GEMM,
+  K4 (a batched ``matmul`` contracts the quantized operands without it);
 * ``pallas_gather`` / ``pallas_scatter_add`` -- the ``lookup_table``
   forward (K2) and its dense gradient (K3, reading the output gradient
   slot ``__outgrad__Out`` and writing ``W@GRAD_SLOT`` as the generic
@@ -22,9 +23,11 @@ import math
 
 import torch
 
-from ..core.registry import register_lowering
+from ..core.registry import register_infer_shape, register_lowering
+from .common import in_dtype, in_shape, set_out_shape
 from .cuda.embedding import gather_rows, scatter_add_rows
-from .cuda.int8_matmul import int8_matmul
+from .cuda.int8_matmul import int8_matmul, int8_matmul_plain
+from .math_ops import matmul_out_shape
 from .nn_ops import flat_ids, lookup_rows
 
 
@@ -32,20 +35,45 @@ from .nn_ops import flat_ids, lookup_rows
 
 @register_lowering("pallas_int8_matmul", no_gradient=True)
 def _pallas_int8_matmul(ctx, op):
-    """``mul`` through K4: flatten X at x_num_col_dims and Y at
-    y_num_col_dims, int8 GEMM, restore."""
-    if op.attr("base_op", "mul") != "mul":
-        raise NotImplementedError(
-            f"pallas_int8_matmul with base_op={op.attr('base_op')!r}: the "
-            f"matmul op is not ported yet (ROADMAP.md); only base_op='mul' runs")
+    """The int8 product of X and Y.  ``base_op="mul"``: flatten X at
+    x_num_col_dims and Y at y_num_col_dims, K4, restore.  ``base_op=
+    "matmul"``: each operand transposed where its flag says; a 2-D product
+    goes through K4, a batched one is the exact integer contraction of the
+    abs-max quantized operands, dequantized by the combined scale (the JAX
+    package computes it so without its kernel); then ``alpha``."""
     x = ctx.read_slot(op, "X")
     y = ctx.read_slot(op, "Y")
+    bits = int(op.attr("bit_length", 8))
+    if op.attr("base_op", "mul") == "matmul":
+        if op.attr("transpose_X", False):
+            x = x.transpose(-1, -2)
+        if op.attr("transpose_Y", False):
+            y = y.transpose(-1, -2)
+        if x.ndim == 2 and y.ndim == 2:
+            out = int8_matmul(x.contiguous(), y.contiguous(), bits=bits)
+        else:
+            out = int8_matmul_plain(x, y, bits=bits)
+        alpha = op.attr("alpha", 1.0)
+        if alpha != 1.0:
+            out = out * alpha
+        ctx.write_slot(op, "Out", out)
+        return
     xnc = op.attr("x_num_col_dims", 1)
     ync = op.attr("y_num_col_dims", 1)
     x2 = x.reshape(math.prod(x.shape[:xnc]), math.prod(x.shape[xnc:]))
     y2 = y.reshape(math.prod(y.shape[:ync]), math.prod(y.shape[ync:]))
-    out = int8_matmul(x2, y2, bits=int(op.attr("bit_length", 8)))
+    out = int8_matmul(x2, y2, bits=bits)
     ctx.write_slot(op, "Out", out.reshape(tuple(x.shape[:xnc]) + tuple(y.shape[ync:])))
+
+
+@register_infer_shape("pallas_int8_matmul")
+def _pallas_int8_matmul_shape(block, op):
+    if op.attr("base_op", "mul") == "matmul":
+        out = matmul_out_shape(block, op)
+    else:
+        xs, ys = in_shape(block, op, "X"), in_shape(block, op, "Y")
+        out = list(xs[:op.attr("x_num_col_dims", 1)]) + list(ys[op.attr("y_num_col_dims", 1):])
+    set_out_shape(block, op, "Out", out, in_dtype(block, op, "X"))
 
 
 # ------------------------------------------------ embedding gather / grad

@@ -1,6 +1,10 @@
-"""NN op lowerings: layer_norm, dropout and lookup_table.  ``lookup_table``
-gathers through the hand-written embedding kernels (ops/cuda/embedding.py):
-the gather forward, and the scatter-add as the gather's gradient."""
+"""NN op lowerings: layer_norm, dropout, lookup_table, softmax and the
+cross-entropy losses.  ``lookup_table`` gathers through the hand-written
+embedding kernels (ops/cuda/embedding.py): the gather forward, and the
+scatter-add as the gather's gradient.  ``softmax``, ``log_softmax``,
+``cross_entropy`` and ``softmax_with_cross_entropy`` are plain PyTorch, as
+the JAX package computes them with XLA outside any Pallas kernel; their
+gradients go through the generic grad."""
 from __future__ import annotations
 
 import torch
@@ -8,7 +12,7 @@ import torch
 from ..core.desc import OpDesc, grad_var_name
 from ..core.registry import (register_grad_maker, register_infer_shape,
                              register_lowering)
-from .common import in_dtype, in_shape, set_out_shape
+from .common import in_dtype, in_shape, same_shape, set_out_shape
 from .cuda.embedding import GatherRows
 
 
@@ -134,3 +138,77 @@ def _lookup_table_shape(block, op):
         ids = ids[:-1]
     set_out_shape(block, op, "Out", tuple(ids) + (ws[-1],),
                   in_dtype(block, op, "W"))
+
+
+@register_lowering("softmax")
+def _softmax(ctx, op):
+    ctx.write_slot(op, "Out", torch.softmax(ctx.read_slot(op, "X"), dim=-1))
+
+
+@register_lowering("log_softmax")
+def _log_softmax(ctx, op):
+    ctx.write_slot(op, "Out", torch.log_softmax(ctx.read_slot(op, "X"),
+                                                dim=op.attr("axis", -1)))
+
+
+same_shape("softmax")
+same_shape("log_softmax")
+
+
+def _hard_label(label, ndim):
+    """A hard label as int64 gather indices [..., 1] against a [..., C]
+    input of ``ndim`` dims."""
+    if label.ndim == ndim and label.shape[-1] == 1:
+        label = label.squeeze(-1)
+    return label.long().unsqueeze(-1)
+
+
+@register_lowering("cross_entropy", non_diff_inputs=("Label",))
+def _cross_entropy(ctx, op):
+    """X is a probability distribution over its last dim: a hard label
+    indexes it (Y = -log X[label]), a soft label is dotted with log X."""
+    x = ctx.read_slot(op, "X")
+    label = ctx.read_slot(op, "Label")
+    if op.attr("soft_label", False):
+        loss = -torch.sum(label * torch.log(torch.clamp(x, min=1e-20)), dim=-1, keepdim=True)
+    else:
+        picked = torch.gather(x, -1, _hard_label(label, x.ndim))
+        loss = -torch.log(torch.clamp(picked, min=1e-20))
+    ctx.write_slot(op, "Y", loss)
+
+
+@register_infer_shape("cross_entropy")
+def _cross_entropy_shape(block, op):
+    xs = in_shape(block, op, "X")
+    set_out_shape(block, op, "Y", tuple(xs[:-1]) + (1,), in_dtype(block, op, "X"))
+
+
+@register_lowering("softmax_with_cross_entropy", non_diff_inputs=("Label",))
+def _softmax_with_cross_entropy(ctx, op):
+    """Softmax = exp(log_softmax(Logits)); Loss = -log_softmax at the hard
+    label, or the soft label's dot with it, [..., 1]."""
+    logits = ctx.read_slot(op, "Logits")
+    label = ctx.read_slot(op, "Label")
+    logp = torch.log_softmax(logits, dim=-1)
+    ctx.write_slot(op, "Softmax", torch.exp(logp))
+    if op.attr("soft_label", False):
+        loss = -torch.sum(label * logp, dim=-1, keepdim=True)
+    else:
+        loss = -torch.gather(logp, -1, _hard_label(label, logits.ndim))
+    ctx.write_slot(op, "Loss", loss)
+
+
+@register_infer_shape("softmax_with_cross_entropy")
+def _swce_shape(block, op):
+    xs = in_shape(block, op, "Logits")
+    dt = in_dtype(block, op, "Logits")
+    set_out_shape(block, op, "Softmax", xs, dt)
+    set_out_shape(block, op, "Loss", tuple(xs[:-1]) + (1,), dt)
+
+
+@register_lowering("square_error_cost")
+def _square_error_cost(ctx, op):
+    ctx.write_slot(op, "Out", torch.square(ctx.read_slot(op, "X") - ctx.read_slot(op, "Y")))
+
+
+same_shape("square_error_cost")

@@ -5,21 +5,34 @@ JAX package's executor updates donated state.  An output named apart from
 its input (no op that ``optimizer.py`` emits has one) gets a clone of the
 input, updated in place, so the input keeps its value.
 
-Each family (``sgd`` / ``pallas_sgd``, ``adam`` / ``pallas_adam``) has a
-group lowering: ``core/lower.py`` hands it every update of a step at once,
-and it calls the multi-tensor kernel K5 or K6 (ops/cuda/fused_optimizer.py)
-once on a CUDA tensor, or the plain versions entry by entry on the CPU.
-An op lowered on its own is a group of one.  ``sgd`` and the kernel tier's
-``pallas_sgd`` (the ``pallas-kernels`` pass's retype, whose op types are
-part of the ProgramDesc) compute the same, ``p - lr * g`` rounded once, as
-XLA fuses the JAX package's ``sgd``.  ``adam`` computes the JAX package's
-composed ``adam`` lowering, ``pallas_adam`` its ``fused_adam``: each entry
-of a K6 launch says which.  Gradients are dense: SelectedRows (sparse)
-gradients are not ported yet.
+Each family has a group lowering: ``core/lower.py`` hands it every update
+of a step at once (``register_group_lowering``).  ``sgd`` / ``pallas_sgd``
+and ``adam`` / ``pallas_adam`` call the multi-tensor kernel K5 or K6
+(ops/cuda/fused_optimizer.py) once on CUDA tensors, or the plain versions
+entry by entry on the CPU.  ``sgd`` and the kernel tier's ``pallas_sgd``
+(the ``pallas-kernels`` pass's retype, whose op types are part of the
+ProgramDesc) compute the same, ``p - lr * g`` rounded once, as XLA fuses
+the JAX package's ``sgd``.  ``adam`` computes the JAX package's composed
+``adam`` lowering, ``pallas_adam`` its ``fused_adam``: each entry of a K6
+launch says which.
+
+The other rules -- ``momentum`` (Nesterov too), ``lars_momentum``,
+``adamax``, ``adagrad``, ``decayed_adagrad``, ``adadelta``, ``rmsprop``
+and ``ftrl`` -- have no Pallas kernel in the JAX package (XLA computes
+them), so here they are PyTorch's multi-tensor ``torch._foreach_*`` ops:
+one pass over every tensor of the group a step per operation, each
+operation in the order the JAX lowering writes it.  A group shares its
+attributes and its learning-rate var (part of the group key).
+
+An op lowered on its own is a group of one.  Gradients are dense:
+SelectedRows (sparse) gradients are not ported yet.
 """
 from __future__ import annotations
 
-from ..core.registry import register_group_lowering, register_lowering
+import torch
+
+from ..core.registry import register_group_lowering, register_infer_shape, register_lowering
+from .common import in_dtype, in_shape, set_out_shape
 from .cuda.fused_optimizer import fused_adam_multi, fused_sgd_multi
 
 _ADAM_IN = ("Param", "Grad", "Moment1", "Moment2", "Beta1Pow", "Beta2Pow", "LearningRate")
@@ -78,3 +91,210 @@ def _sgd(ctx, op):
 @register_lowering("adam", no_gradient=True)
 def _adam(ctx, op):
     _adam_group(ctx, [op])
+
+
+# ------------------------------------------------- the foreach families
+
+def _family(op_type, state, attrs, reads=()):
+    """Register ``op_type``'s lowering and group lowering around
+    ``rule(lr, ps, gs, slots, extra, at)``, which updates the list ``ps``
+    and the lists ``slots[i]`` (the tensors of the state slot ``state[i]``,
+    a name whose output is ``<name>Out``, or an (input, output) pair) in
+    place.  ``lr`` is the group's one learning rate as a 0-d tensor (None
+    for a rule without one), ``extra`` the lists of the read-only slots
+    ``reads``, ``at`` the attrs.  The group key is the op type, the values
+    of ``attrs`` and the LearningRate var."""
+    def key(op):
+        return (op_type,) + tuple(op.attr(a) for a in attrs) + tuple(op.input("LearningRate"))
+
+    state = [(s, s + "Out") if isinstance(s, str) else s for s in state]
+
+    def deco(rule):
+        @register_group_lowering(op_type, key=key)
+        def group(ctx, ops):
+            lr = ctx.read_slot(ops[0], "LearningRate")
+            ps = [_own(op, "Param", "ParamOut", ctx.read_slot(op, "Param")) for op in ops]
+            gs = [ctx.read_slot(op, "Grad") for op in ops]
+            slots = [[_own(op, s, o, ctx.read_slot(op, s)) for op in ops] for s, o in state]
+            extra = [[ctx.read_slot(op, s) for op in ops] for s in reads]
+            rule(None if lr is None else lr.reshape(()), ps, gs, slots, extra,
+                 {a: ops[0].attr(a) for a in attrs})
+            for i, op in enumerate(ops):
+                ctx.write_slot(op, "ParamOut", ps[i])
+                for (_, o), ts in zip(state, slots):
+                    ctx.write_slot(op, o, ts[i])
+
+        @register_lowering(op_type, no_gradient=True)
+        def single(ctx, op):
+            group(ctx, [op])
+        return rule
+    return deco
+
+
+def _decay_avg(decay, avg, xs):
+    """avg' = decay * avg + (1 - decay) * x * x in place, each product
+    rounded as the JAX lowerings' ``decay * a + (1 - decay) * x * x``."""
+    sq = torch._foreach_mul(xs, 1 - decay)
+    torch._foreach_mul_(sq, xs)
+    torch._foreach_mul_(avg, decay)
+    torch._foreach_add_(avg, sq)
+
+
+def _each(xs, scalars):
+    """x * s for per-tensor 0-d tensors ``scalars``."""
+    return [x * s for x, s in zip(xs, scalars)]
+
+
+@_family("momentum", ("Velocity",), ("mu", "use_nesterov"))
+def _momentum(lr, ps, gs, slots, extra, at):
+    """v' = mu * v + g; p' = p - lr * v', or with Nesterov
+    p' = p - (g + mu * v') * lr."""
+    (vs,) = slots
+    mu = at["mu"]
+    torch._foreach_mul_(vs, mu)
+    torch._foreach_add_(vs, gs)
+    if at["use_nesterov"]:
+        step = torch._foreach_mul(vs, mu)
+        torch._foreach_add_(step, gs)
+        torch._foreach_mul_(step, lr)
+    else:
+        step = torch._foreach_mul(vs, lr)
+    torch._foreach_sub_(ps, step)
+
+
+@_family("lars_momentum", ("Velocity",), ("mu", "lars_coeff", "lars_weight_decay"))
+def _lars_momentum(lr, ps, gs, slots, extra, at):
+    """Per tensor local_lr = lr * coeff * |p| / (|g| + decay * |p| + 1e-12);
+    v' = mu * v + local_lr * (g + decay * p); p' = p - v'."""
+    (vs,) = slots
+    mu, decay = at["mu"], at["lars_weight_decay"]
+    pn = torch._foreach_norm(ps)
+    den = torch._foreach_mul(pn, decay)
+    torch._foreach_add_(den, torch._foreach_norm(gs))
+    torch._foreach_add_(den, 1e-12)
+    local = torch._foreach_mul(pn, lr * at["lars_coeff"])
+    torch._foreach_div_(local, den)
+    step = torch._foreach_mul(ps, decay)
+    torch._foreach_add_(step, gs)
+    torch._foreach_mul_(vs, mu)
+    torch._foreach_add_(vs, _each(step, local))
+    torch._foreach_sub_(ps, vs)
+
+
+@_family("adamax", ("Moment", "InfNorm"), ("beta1", "beta2", "epsilon"), reads=("Beta1Pow",))
+def _adamax(lr, ps, gs, slots, extra, at):
+    """m' = b1 * m + (1 - b1) * g; u' = max(b2 * u, |g|);
+    p' = p - (lr / (1 - b1^t)) * m' / (u' + eps), b1^t each parameter's own
+    beta1 power (the optimizer's ``scale`` op advances it after the
+    updates)."""
+    ms, us = slots
+    (b1ps,) = extra
+    b1, b2 = at["beta1"], at["beta2"]
+    g1 = torch._foreach_mul(gs, 1 - b1)
+    torch._foreach_mul_(ms, b1)
+    torch._foreach_add_(ms, g1)
+    torch._foreach_mul_(us, b2)
+    torch._foreach_maximum_(us, torch._foreach_abs(gs))
+    step = _each(ms, [lr / (1 - b.reshape(())) for b in b1ps])
+    torch._foreach_div_(step, torch._foreach_add(us, at["epsilon"]))
+    torch._foreach_sub_(ps, step)
+
+
+def _sqrt_step(lr, ps, gs, ms, eps):
+    """p' = p - lr * g / (sqrt(m) + eps)."""
+    den = torch._foreach_sqrt(ms)
+    torch._foreach_add_(den, eps)
+    step = torch._foreach_mul(gs, lr)
+    torch._foreach_div_(step, den)
+    torch._foreach_sub_(ps, step)
+
+
+@_family("adagrad", ("Moment",), ("epsilon",))
+def _adagrad(lr, ps, gs, slots, extra, at):
+    """m' = m + g * g; p' = p - lr * g / (sqrt(m') + eps)."""
+    (ms,) = slots
+    torch._foreach_add_(ms, torch._foreach_mul(gs, gs))
+    _sqrt_step(lr, ps, gs, ms, at["epsilon"])
+
+
+@_family("decayed_adagrad", ("Moment",), ("decay", "epsilon"))
+def _decayed_adagrad(lr, ps, gs, slots, extra, at):
+    """m' = decay * m + (1 - decay) * g * g; p' = p - lr * g / (sqrt(m') + eps)."""
+    (ms,) = slots
+    _decay_avg(at["decay"], ms, gs)
+    _sqrt_step(lr, ps, gs, ms, at["epsilon"])
+
+
+@_family("adadelta", ("AvgSquaredGrad", "AvgSquaredUpdate"), ("rho", "epsilon"))
+def _adadelta(lr, ps, gs, slots, extra, at):
+    """a_g' = rho * a_g + (1 - rho) * g * g;
+    u = -sqrt((a_u + eps) / (a_g' + eps)) * g;
+    a_u' = rho * a_u + (1 - rho) * u * u; p' = p + u."""
+    asg, asu = slots
+    rho, eps = at["rho"], at["epsilon"]
+    _decay_avg(rho, asg, gs)
+    upd = torch._foreach_add(asu, eps)
+    torch._foreach_div_(upd, torch._foreach_add(asg, eps))
+    torch._foreach_sqrt_(upd)
+    torch._foreach_neg_(upd)
+    torch._foreach_mul_(upd, gs)
+    _decay_avg(rho, asu, upd)
+    torch._foreach_add_(ps, upd)
+
+
+@_family("rmsprop", ("MeanSquare", "Moment"), ("decay", "epsilon", "momentum"))
+def _rmsprop(lr, ps, gs, slots, extra, at):
+    """ms' = decay * ms + (1 - decay) * g * g;
+    mom' = momentum * mom + lr * g / sqrt(ms' + eps); p' = p - mom'."""
+    mss, moms = slots
+    _decay_avg(at["decay"], mss, gs)
+    den = torch._foreach_add(mss, at["epsilon"])
+    torch._foreach_sqrt_(den)
+    step = torch._foreach_mul(gs, lr)
+    torch._foreach_div_(step, den)
+    torch._foreach_mul_(moms, at["momentum"])
+    torch._foreach_add_(moms, step)
+    torch._foreach_sub_(ps, moms)
+
+
+@_family("ftrl", (("SquaredAccumulator", "SquaredAccumOut"),
+                  ("LinearAccumulator", "LinearAccumOut")), ("l1", "l2", "lr_power"))
+def _ftrl(lr, ps, gs, slots, extra, at):
+    """n' = n + g * g; sigma = (n'^-k - n^-k) / lr (k = lr_power, a square
+    root at -0.5); z' = z + g - sigma * p;
+    p' = (l1 * sign(z') - z') / (n'^-k / lr + 2 * l2) where |z'| > l1, else 0."""
+    sq, lin = slots
+    l1, l2, power = at["l1"], at["l2"], at["lr_power"]
+    new_sq = torch._foreach_add(sq, torch._foreach_mul(gs, gs))
+    if power == -0.5:
+        root_new, root_old = torch._foreach_sqrt(new_sq), torch._foreach_sqrt(sq)
+    else:
+        root_new, root_old = torch._foreach_pow(new_sq, -power), torch._foreach_pow(sq, -power)
+    sigma = torch._foreach_sub(root_new, root_old)
+    torch._foreach_div_(sigma, lr)
+    torch._foreach_mul_(sigma, ps)
+    torch._foreach_add_(lin, gs)
+    torch._foreach_sub_(lin, sigma)
+    den = torch._foreach_div(root_new, lr)
+    torch._foreach_add_(den, 2 * l2)
+    pre = torch._foreach_mul(torch._foreach_sign(lin), l1)
+    torch._foreach_sub_(pre, lin)
+    torch._foreach_div_(pre, den)
+    torch._foreach_copy_(ps, [torch.where(z.abs() > l1, q, 0.0) for z, q in zip(lin, pre)])
+    torch._foreach_copy_(sq, new_sq)
+
+
+def _optimizer_shape(op_type):
+    """Each ``<Slot>Out`` has its ``<Slot>``'s shape and dtype."""
+    @register_infer_shape(op_type)
+    def rule(block, op):
+        for out_slot in list(op.outputs):
+            in_slot = out_slot[:-3]
+            if out_slot.endswith("Out") and op.input(in_slot):
+                set_out_shape(block, op, out_slot, in_shape(block, op, in_slot),
+                              in_dtype(block, op, in_slot))
+
+
+for _t in ("sgd", "momentum", "lars_momentum", "adam", "adamax", "adagrad", "adadelta",
+           "decayed_adagrad", "ftrl", "rmsprop"):
+    _optimizer_shape(_t)

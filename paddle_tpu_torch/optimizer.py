@@ -1,39 +1,24 @@
-"""Optimizer classes: ``minimize`` = ``append_backward`` + per-parameter
-update ops.  Accumulators (moments, beta powers) and the learning rate are
-persistable vars initialized by the startup program; the update rules are
-the ops of ``ops/optimizer_ops.py``.  Builds the same ops, vars and attrs
-as the JAX package's ``optimizer.py``.
-
-Gradient clipping and regularization are ported for the case without
-either (what the transformer's training path uses); any other case raises
-``NotImplementedError``.
+"""Optimizer classes: ``minimize`` = ``append_backward``, the gradient
+clips (clip.py), the regularizers (regularizer.py), then one update op per
+parameter.  Accumulators (moments, beta powers) and a constant learning
+rate are persistable vars initialized by the startup program; a schedule's
+learning rate (layers/learning_rate_scheduler.py) is a [1] var the step
+computes.  The update rules are the ops of ``ops/optimizer_ops.py``.
+Builds the same ops, vars and attrs as the JAX package's ``optimizer.py``:
+``SGD``, ``Momentum``, ``LarsMomentum``, ``Adam``, ``Adamax``,
+``Adagrad``, ``DecayedAdagrad``, ``Adadelta``, ``RMSProp`` and ``Ftrl``.
+``ModelAverage`` is not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
 
 from .backward import append_backward
+from .clip import append_gradient_clip_ops
 from .core import unique_name
 from .core.framework import (Block, Parameter, Program, Variable,
                              default_main_program, default_startup_program)
-
-
-def append_gradient_clip_ops(params_grads):
-    """Gradient clipping: only the no-clip case is ported."""
-    clipped = [p.name for p, _ in params_grads
-               if getattr(p, "gradient_clip", None) is not None]
-    if clipped:
-        raise NotImplementedError(f"gradient clipping is not ported yet (params {clipped})")
-    return params_grads
-
-
-def append_regularization_ops(params_grads, regularization=None):
-    """Weight decay: only the no-regularizer case is ported."""
-    regular = [p.name for p, g in params_grads
-               if g is not None and (p.regularizer or regularization) is not None]
-    if regular:
-        raise NotImplementedError(f"regularization is not ported yet (params {regular})")
-    return params_grads
+from .regularizer import append_regularization_ops
 
 
 class Optimizer:
@@ -91,18 +76,27 @@ class Optimizer:
                  parameter_list=None, no_grad_set=None
                  ) -> Tuple[List, List[Tuple[Parameter, Variable]]]:
         params_grads = append_backward(loss, parameter_list, no_grad_set)
+        # clip, then regularize (the JAX package's order)
         params_grads = append_gradient_clip_ops(params_grads)
         params_grads = append_regularization_ops(params_grads, self.regularization)
         return self._create_optimization_pass(params_grads), params_grads
+
+    def apply_gradients(self, params_grads):
+        return self._create_optimization_pass(params_grads)
 
     def _create_optimization_pass(self, params_grads):
         block = default_main_program().global_block
         self._global_learning_rate()
         self._create_accumulators(block, [p for p, _ in params_grads])
-        return [self._append_optimize_op(block, (p, g)) for p, g in params_grads
-                if g is not None and p.trainable]
+        ops = [self._append_optimize_op(block, (p, g)) for p, g in params_grads
+               if g is not None and p.trainable]
+        self._finish_update(block, params_grads)
+        return ops
 
     def _create_accumulators(self, block: Block, params: List[Parameter]):
+        pass
+
+    def _finish_update(self, block: Block, params_grads):
         pass
 
     def _append_optimize_op(self, block: Block, param_and_grad):
@@ -145,5 +139,176 @@ class AdamOptimizer(Optimizer):
                    "epsilon": self._epsilon, "op_role": "optimize"})
 
 
+def _update(optimizer, block, op_type, param_and_grad, slots, attrs, lr=True,
+            extra_inputs=()):
+    """Append ``op_type`` updating Param and the accumulators ``slots``
+    ((input slot, output slot, accumulator name)) in place; it also reads
+    the accumulators ``extra_inputs`` ((input slot, accumulator name))."""
+    p, g = param_and_grad
+    inputs = {"Param": p, "Grad": g}
+    outputs = {"ParamOut": p}
+    for slot, out_slot, acc in slots:
+        inputs[slot] = outputs[out_slot] = optimizer._get_accumulator(acc, p)
+    for slot, acc in extra_inputs:
+        inputs[slot] = optimizer._get_accumulator(acc, p)
+    if lr:
+        inputs["LearningRate"] = optimizer._global_learning_rate()
+    return block.append_op(op_type, inputs=inputs, outputs=outputs,
+                           attrs={**attrs, "op_role": "optimize"})
+
+
+class MomentumOptimizer(Optimizer):
+    def __init__(self, learning_rate, momentum, use_nesterov=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, params):
+        for p in params:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        return _update(self, block, "momentum", param_and_grad,
+                       [("Velocity", "VelocityOut", "velocity")],
+                       {"mu": self._momentum, "use_nesterov": self._use_nesterov})
+
+
+class LarsMomentumOptimizer(Optimizer):
+    def __init__(self, learning_rate, momentum, lars_coeff=1e-3, lars_weight_decay=5e-4, **kw):
+        super().__init__(learning_rate, **kw)
+        self._momentum = momentum
+        self._lars_coeff = lars_coeff
+        self._lars_weight_decay = lars_weight_decay
+
+    def _create_accumulators(self, block, params):
+        for p in params:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        return _update(self, block, "lars_momentum", param_and_grad,
+                       [("Velocity", "VelocityOut", "velocity")],
+                       {"mu": self._momentum, "lars_coeff": self._lars_coeff,
+                        "lars_weight_decay": self._lars_weight_decay})
+
+
+class AdamaxOptimizer(Optimizer):
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8, **kw):
+        super().__init__(learning_rate, **kw)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def _create_accumulators(self, block, params):
+        for p in params:
+            self._add_accumulator("moment", p)
+            self._add_accumulator("inf_norm", p)
+            # beta1^t at the update, starting at beta1 (1.0 would divide the
+            # first step's bias correction by zero)
+            self._add_accumulator("beta1_pow", p, shape=(), fill_value=self._beta1)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        return _update(self, block, "adamax", param_and_grad,
+                       [("Moment", "MomentOut", "moment"), ("InfNorm", "InfNormOut", "inf_norm")],
+                       {"beta1": self._beta1, "beta2": self._beta2, "epsilon": self._epsilon},
+                       extra_inputs=[("Beta1Pow", "beta1_pow")])
+
+    def _finish_update(self, block, params_grads):
+        """Advance each beta1 power after all the updates."""
+        for p, _ in params_grads:
+            b1p = self._get_accumulator("beta1_pow", p)
+            block.append_op("scale", inputs={"X": b1p}, outputs={"Out": b1p},
+                            attrs={"scale": self._beta1, "op_role": "optimize"})
+
+
+class AdagradOptimizer(Optimizer):
+    def __init__(self, learning_rate, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, **kw)
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, block, params):
+        for p in params:
+            self._add_accumulator("moment", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        return _update(self, block, "adagrad", param_and_grad,
+                       [("Moment", "MomentOut", "moment")], {"epsilon": self._epsilon})
+
+
+class DecayedAdagradOptimizer(Optimizer):
+    def __init__(self, learning_rate, decay=0.95, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, **kw)
+        self._decay, self._epsilon = decay, epsilon
+
+    def _create_accumulators(self, block, params):
+        for p in params:
+            self._add_accumulator("moment", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        return _update(self, block, "decayed_adagrad", param_and_grad,
+                       [("Moment", "MomentOut", "moment")],
+                       {"decay": self._decay, "epsilon": self._epsilon})
+
+
+class AdadeltaOptimizer(Optimizer):
+    """Adadelta reads no learning rate (the startup program still sets
+    one, as the JAX package's does)."""
+
+    def __init__(self, learning_rate, epsilon=1e-6, rho=0.95, **kw):
+        super().__init__(learning_rate, **kw)
+        self._epsilon, self._rho = epsilon, rho
+
+    def _create_accumulators(self, block, params):
+        for p in params:
+            self._add_accumulator("avg_squared_grad", p)
+            self._add_accumulator("avg_squared_update", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        return _update(self, block, "adadelta", param_and_grad,
+                       [("AvgSquaredGrad", "AvgSquaredGradOut", "avg_squared_grad"),
+                        ("AvgSquaredUpdate", "AvgSquaredUpdateOut", "avg_squared_update")],
+                       {"epsilon": self._epsilon, "rho": self._rho}, lr=False)
+
+
+class RMSPropOptimizer(Optimizer):
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0, **kw):
+        super().__init__(learning_rate, **kw)
+        self._rho, self._epsilon, self._momentum = rho, epsilon, momentum
+
+    def _create_accumulators(self, block, params):
+        for p in params:
+            self._add_accumulator("mean_square", p)
+            self._add_accumulator("momentum", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        return _update(self, block, "rmsprop", param_and_grad,
+                       [("MeanSquare", "MeanSquareOut", "mean_square"),
+                        ("Moment", "MomentOut", "momentum")],
+                       {"decay": self._rho, "epsilon": self._epsilon,
+                        "momentum": self._momentum})
+
+
+class FtrlOptimizer(Optimizer):
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5, **kw):
+        super().__init__(learning_rate, **kw)
+        self._l1, self._l2, self._lr_power = l1, l2, lr_power
+
+    def _create_accumulators(self, block, params):
+        for p in params:
+            self._add_accumulator("squared", p)
+            self._add_accumulator("linear", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        return _update(self, block, "ftrl", param_and_grad,
+                       [("SquaredAccumulator", "SquaredAccumOut", "squared"),
+                        ("LinearAccumulator", "LinearAccumOut", "linear")],
+                       {"l1": self._l1, "l2": self._l2, "lr_power": self._lr_power})
+
+
 SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer
+Adamax = AdamaxOptimizer
+Adagrad = AdagradOptimizer
+DecayedAdagrad = DecayedAdagradOptimizer
+Adadelta = AdadeltaOptimizer
+RMSProp = RMSPropOptimizer
+Ftrl = FtrlOptimizer
+LarsMomentum = LarsMomentumOptimizer

@@ -21,10 +21,16 @@ record goes to ``telemetry.STEPS`` (JSONL under
 ``profile_<pid>.jsonl`` and ``costmodel_<pid>.json``) after the step; the
 replay writes no state, and a failure is logged at ``VLOG(1)``.
 
+``accum_steps=N`` splits the step program (``backward.
+split_for_gradient_accumulation``) into an accumulate program, run on
+every batch, and an apply program (the updates on the mean of the N
+accumulated gradients), run after every Nth batch; on the card each is one
+CUDA graph.
+
 Options of the JAX Trainer that need modules not ported yet raise
 ``NotImplementedError`` naming their ROADMAP item: ``parallel``,
-``mesh``, ``layout``, ``accum_steps > 1``, ``health``, ``checkpoint=``
-(the async manager), ``dispatch`` and ``prefetcher``.
+``mesh``, ``layout``, ``health``, ``checkpoint=`` (the async manager),
+``dispatch`` and ``prefetcher``.
 
 ``Inferencer``: build an inference program once, initialize its
 parameters (or load them from ``param_path``), run predictions.  The
@@ -144,7 +150,6 @@ class Trainer:
                  prefetcher=None):
         for option, value, item in (("parallel", parallel, "12"), ("mesh", mesh, "12"),
                                     ("layout", layout, "12"),
-                                    ("accum_steps > 1", int(accum_steps) > 1, "5"),
                                     ("health", health, "8"),
                                     ("checkpoint=", checkpoint, "4"),
                                     ("dispatch", dispatch, "11"),
@@ -157,6 +162,10 @@ class Trainer:
         # pipeline: stage batch N+1 on a background thread while step N
         # runs, and fetch metrics through non-blocking handles
         self.pipeline = pipeline
+        # accum_steps=N: gradients of N micro-batches are summed into
+        # persistable buffers and the optimizer applies their mean every
+        # Nth micro-step
+        self.accum_steps = max(1, int(accum_steps))
         # profile_steps=N: every Nth step's feed replayed through
         # exe.profile_ops after the step (the other steps pay nothing)
         self.profile_steps = int(profile_steps) if profile_steps else None
@@ -174,6 +183,12 @@ class Trainer:
             optimizer = optimizer_func()
             optimizer.minimize(loss)
         self.loss = loss
+        if self.accum_steps > 1:
+            from .backward import split_for_gradient_accumulation
+            self._step_program, self.apply_program = split_for_gradient_accumulation(
+                self.train_program, self.startup_program, self.accum_steps)
+        else:
+            self._step_program, self.apply_program = self.train_program, None
         # amp: mixed precision (amp.AmpConfig / AmpPolicy / True) composed
         # into the executor's pass pipeline; kernels: the kernel tier (None:
         # on for a CUDA place, off on the CPU)
@@ -235,7 +250,7 @@ class Trainer:
             # returns non-blocking FetchHandles, so reading a metric in the
             # event handler is the step's one sync point
             batches = (feeder.feed(b) for i, b in enumerate(reader()) if i >= skip_until)
-            stager = self.exe.stage_feeds(self.train_program, batches)
+            stager = self.exe.stage_feeds(self._step_program, batches)
             steps = enumerate(stager, start=skip_until)
         else:
             stager = None
@@ -246,6 +261,7 @@ class Trainer:
                         yield i, feeder.feed(b)
             steps = _synchronous_steps()
         steps = iter(steps)
+        micro = 0   # micro-steps since the last application of the optimizer
         try:
             while True:
                 # the pull is timed on its own: on the pipelined path it is
@@ -264,8 +280,14 @@ class Trainer:
                 begin = BeginStepEvent(epoch_id, step_id)
                 event_handler(begin)
                 fetch = self.train_outputs if begin.fetch_metrics else []
-                metrics = self.exe.run(self.train_program, feed=feed, fetch_list=fetch,
+                metrics = self.exe.run(self._step_program, feed=feed, fetch_list=fetch,
                                        scope=self.scope, sync=not self.pipeline)
+                if self.apply_program is not None:
+                    micro += 1
+                    if micro >= self.accum_steps:
+                        micro = 0
+                        self.exe.run(self.apply_program, feed={}, fetch_list=[],
+                                     scope=self.scope, sync=not self.pipeline)
                 t_handler0 = time.perf_counter()
                 event_handler(EndStepEvent(epoch_id, step_id, metrics))
                 t_end = time.perf_counter()
@@ -280,7 +302,7 @@ class Trainer:
                     # fetch_list=None: every op output is a target, so the
                     # backward and the updates stay in the live slice
                     try:
-                        self.exe.profile_ops(self.train_program, feed=feed, scope=self.scope,
+                        self.exe.profile_ops(self._step_program, feed=feed, scope=self.scope,
                                              compiled_step_s=t_handler0 - t_run0)
                     except Exception as e:  # noqa: BLE001 -- profiling never fails a run
                         VLOG(1, "profile_ops failed: %s: %s", type(e).__name__, e)

@@ -1644,3 +1644,203 @@ def test_trainer_profile_steps_on_the_card_bit_equal_to_no_profiles(cuda):
     assert (na, nb) == (2, 0) and len(la) == 4 and la == lb
     for n in start:
         assert torch.equal(a.scope.find_var(n), b.scope.find_var(n)), n
+
+
+# ------------------------------------------- the optimizer family, schedules
+
+
+GPU_FAMILIES = {
+    "Momentum": lambda o: o.Momentum(learning_rate=0.05, momentum=0.9),
+    "Momentum_nesterov": lambda o: o.Momentum(learning_rate=0.05, momentum=0.9,
+                                              use_nesterov=True),
+    "LarsMomentum": lambda o: o.LarsMomentum(learning_rate=50.0, momentum=0.9),
+    "Adamax": lambda o: o.Adamax(learning_rate=0.05),
+    "Adagrad": lambda o: o.Adagrad(learning_rate=0.2),
+    "DecayedAdagrad": lambda o: o.DecayedAdagrad(learning_rate=0.02),
+    "Adadelta": lambda o: o.Adadelta(learning_rate=1.0),
+    "RMSProp": lambda o: o.RMSProp(learning_rate=0.05, momentum=0.5),
+    "Ftrl": lambda o: o.Ftrl(learning_rate=0.3, l1=0.01, l2=0.1),
+    "SGD_exponential_decay": lambda o: o.SGD(
+        learning_rate=layers.exponential_decay(0.1, 2, 0.5)),
+}
+# 3 steps of a small network on the card (graph replays) against the CPU,
+# norm-relative per state tensor: cuBLAS and the CPU sum the products in
+# other orders, and an adaptive rule's first step, lr * g / (|g| + eps), turns
+# a 1e-11 difference in a gradient near 0 into 1e-5 in the parameter (Adagrad
+# at lr 0.2 read 2 such elements of 8192 on an H100, 1e-6 norm-relative)
+FAMILY_NREL = 1e-5
+
+
+def _family_net(make_opt):
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        x = layers.data(name="x", shape=[64])
+        y = layers.data(name="y", shape=[1], dtype="int64")
+        h = layers.fc(input=x, size=128, act="relu")
+        logits = layers.fc(input=h, size=10)
+        loss = layers.mean(layers.softmax_with_cross_entropy(logits, y))
+        pt.clip.set_gradient_clip(pt.clip.GradientClipByGlobalNorm(1.0))
+        make_opt(pt.optimizer).minimize(loss)
+    return main, startup, loss
+
+
+@pytest.mark.parametrize("name", sorted(GPU_FAMILIES))
+def test_each_update_family_on_the_card_matches_the_cpu(cuda, name):
+    """Each family's group lowering (torch._foreach_* on the card; K5 for
+    SGD) inside the step's CUDA graph: 3 steps against the same program on
+    the CPU from the same state; one capture, every state tensor at its
+    address."""
+    main, startup, loss = _family_net(GPU_FAMILIES[name])
+    gpu_scope, cpu_scope = pt.Scope(), pt.Scope()
+    gpu, cpu = pt.Executor(), pt.Executor(pt.CPUPlace())
+    gpu.run(startup, scope=gpu_scope)
+    persist = [v.name for v in main.list_vars() if v.persistable]
+    pt.params_from_numpy({n: gpu_scope.find_var(n).cpu().numpy() for n in persist},
+                         cpu_scope, "cpu")
+    addrs = {n: gpu_scope.find_var(n).data_ptr() for n in persist}
+    rs = np.random.RandomState(0)
+    feed = {"x": rs.randn(32, 64).astype(np.float32), "y": rs.randint(0, 10, (32, 1))}
+    sgd0 = fused_sgd.launches
+    for _ in range(3):
+        (a,) = gpu.run(main, feed=feed, fetch_list=[loss], scope=gpu_scope)
+        (b,) = cpu.run(main, feed=feed, fetch_list=[loss], scope=cpu_scope)
+        np.testing.assert_allclose(a, b, rtol=1e-5)
+    for n in persist:
+        a, b = gpu_scope.find_var(n).cpu().double(), cpu_scope.find_var(n).double()
+        assert torch.linalg.norm(a - b) <= FAMILY_NREL * torch.linalg.norm(b), n
+    info = gpu.cache_info()
+    assert info["captures"] == 1 and [e["kind"] for e in info["entries"]][-1] == "graph"
+    assert {n: gpu_scope.find_var(n).data_ptr() for n in persist} == addrs
+    if name.startswith("SGD"):
+        # the capture's eager run (on clones of the state) launches once more
+        assert fused_sgd.launches - sgd0 == 3 + 1
+
+
+def _unfused_programs(clip=True):
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        src = layers.data(name="src", shape=[1], dtype="int64", lod_level=1)
+        trg = layers.data(name="trg", shape=[1], dtype="int64", lod_level=1)
+        lbl = layers.data(name="lbl", shape=[32, 1], dtype="int64")
+        wgt = layers.data(name="wgt", shape=[32, 1], dtype="float32")
+        loss, _ = transformer.train_network(src, trg, lbl, 1000, 1000, weights=wgt,
+                                            max_len=32, n_layer=2, d_model=64, n_head=4,
+                                            d_inner=256, fuse_final_ce=False)
+        if clip:
+            pt.clip.set_gradient_clip(pt.clip.GradientClipByGlobalNorm(1.0))
+        lr = layers.noam_decay(64, 4000)
+        pt.optimizer.Adam(learning_rate=lr, beta1=0.9, beta2=0.98,
+                          epsilon=1e-9).minimize(loss)
+    return main, startup, loss, lr
+
+
+def _unfused_feed():
+    feed = _small_train_feed()
+    feed["wgt"] = (np.arange(32)[None, :] < feed["trg@SEQ_LEN"][:, None]).astype(
+        np.float32)[..., None]
+    return feed
+
+
+def _noam(step):
+    s = torch.tensor([float(step)], dtype=torch.float32)
+    return (torch.minimum(torch.pow(s, -0.5), s * 4000.0 ** -1.5) * 64.0 ** -0.5).item()
+
+
+def test_scheduled_learning_rate_is_fresh_on_every_replay(cuda):
+    """The unfused 2+2 step with noam_decay, global-norm clipping and Adam:
+    one capture, each replay's fetched lr the schedule's value at that step
+    (the counter advances in the graph and K6 reads the new lr through its
+    table's pointer), one K6 launch a step, the counter at n after n steps,
+    and a replay bit-equal to an eager step from the same state."""
+    main, startup, loss, lr = _unfused_programs()
+    scope, exe = pt.Scope(), pt.Executor()
+    exe.run(startup, scope=scope)
+    feed = _unfused_feed()
+    k6 = fused_adam.launches
+    lrs, losses = [], []
+    for _ in range(4):
+        a, b = exe.run(main, feed=feed, fetch_list=[loss, lr], scope=scope)
+        losses.append(float(a))
+        lrs.append(float(np.ravel(b)[0]))
+    assert lrs == [_noam(s) for s in (1, 2, 3, 4)]
+    assert np.isfinite(losses).all() and losses[0] > losses[-1]
+    # one launch a replay, and one in the capture's eager run
+    assert exe.cache_info()["captures"] == 1 and fused_adam.launches - k6 == 4 + 1
+    (counter,) = [n for n in _state(main, scope) if "COUNTER" in n]
+    assert scope.find_var(counter).dtype == torch.int32 and int(scope.find_var(counter)[0]) == 4
+    state0 = {n: t.clone() for n, t in _state(main, scope).items()}
+    replayed = exe.run(main, feed=feed, fetch_list=[loss, lr], scope=scope)
+    after = {n: t.clone() for n, t in _state(main, scope).items()}
+    for n, t in _state(main, scope).items():
+        t.copy_(state0[n])
+    eager = exe._run_eager(main, feed, [loss, lr], scope)
+    assert all(np.array_equal(x, y) for x, y in zip(replayed, eager))
+    assert not [n for n, t in _state(main, scope).items() if not torch.equal(t, after[n])]
+
+
+def test_accumulation_programs_each_replay_one_graph(cuda):
+    """Trainer(accum_steps=2) on the card over the unfused step: the
+    accumulate and apply programs each one CUDA graph, and the parameters
+    bit-equal to an exe.run loop of the same two programs on a second
+    Trainer's executor from the same state."""
+    def train_func():
+        src = layers.data(name="src", shape=[1], dtype="int64", lod_level=1)
+        trg = layers.data(name="trg", shape=[1], dtype="int64", lod_level=1)
+        lbl = layers.data(name="lbl", shape=[32, 1], dtype="int64")
+        loss, _ = transformer.train_network(src, trg, lbl, 1000, 1000, max_len=32, n_layer=2,
+                                            d_model=64, n_head=4, d_inner=256)
+        return loss
+
+    def make():
+        with pt.unique_name.guard():
+            return pt.Trainer(train_func, lambda: pt.optimizer.Adam(
+                learning_rate=layers.noam_decay(64, 4000)), accum_steps=2,
+                seq_len_buckets=False)
+    a, b = make(), make()
+    persist = [v.name for v in a.train_program.list_vars() if v.persistable]
+    for n in persist:
+        b.scope.find_var(n).copy_(a.scope.find_var(n))
+    reader = pt.batch(_small_samples(16), 4)
+    a.train(1, lambda ev: None, reader=reader, feed_order=["src", "trg", "lbl"])
+    kinds = {}
+    for e in a.exe.cache_info()["entries"]:
+        kinds.setdefault(e["kind"], 0)
+        kinds[e["kind"]] += 1
+    feeder = pt.DataFeeder(feed_list=[b.train_program.global_block.var(n)
+                                      for n in ("src", "trg", "lbl")], program=b.train_program)
+    for i, batch in enumerate(reader()):
+        b.exe.run(b._step_program, feed=feeder.feed(batch), fetch_list=[], scope=b.scope)
+        if i % 2 == 1:
+            b.exe.run(b.apply_program, feed={}, fetch_list=[], scope=b.scope)
+    for n in persist:
+        assert torch.equal(a.scope.find_var(n), b.scope.find_var(n)), n
+    graphs = [e for e in a.exe.cache_info()["entries"] if e["kind"] == "graph"]
+    assert len(graphs) >= 2 and not [e for e in a.exe.cache_info()["entries"]
+                                     if e["kind"] == "eager" and e["graph_eligible"]]
+
+
+def test_int8_matmul_program_launches_k4_once_a_pass(cuda):
+    """``layers.matmul`` served through AmpConfig(bf16=False, quant=True)
+    with the kernel tier: ``pallas_int8_matmul`` with base_op="matmul",
+    one K4 launch a pass, bit-equal to the fake-quant program on the card
+    (kernels=False) and within 0.05 norm-relative of float32."""
+    def infer_func():
+        x = layers.data(name="x", shape=[512])
+        w = pt.layer_helper.LayerHelper("proj").create_parameter(
+            pt.ParamAttr(name="proj.w"), shape=[512, 256], dtype="float32")
+        return layers.matmul(x, w)
+    amp = pt.amp.AmpConfig(bf16=False, quant=True)
+    kern = pt.Inferencer(infer_func, amp=amp, kernels=True)
+    sim = pt.Inferencer(infer_func, amp=amp, kernels=False)
+    f32 = pt.Inferencer(infer_func)
+    w = kern.scope.find_var("proj.w")
+    for inf in (sim, f32):
+        inf.scope.find_var("proj.w").copy_(w)
+    feed = {"x": np.random.RandomState(0).randn(256, 512).astype(np.float32)}
+    k4 = int8_matmul.launches
+    (got,) = kern.infer(feed)
+    (again,) = kern.infer(feed)
+    assert int8_matmul.launches - k4 == 2
+    assert np.array_equal(got, again) and np.array_equal(got, sim.infer(feed)[0])
+    want = f32.infer(feed)[0]
+    assert np.linalg.norm(got - want) <= 0.05 * np.linalg.norm(want)

@@ -61,6 +61,14 @@ def test_the_import_scan_covers_the_observability_modules():
         assert f"paddle_tpu_torch/{path}" in scanned, path
 
 
+def test_the_import_scan_covers_the_optimizer_slice_modules():
+    scanned = {str(p.relative_to(REPO)) for p in (REPO / "paddle_tpu_torch").rglob("*.py")}
+    for path in ("clip.py", "regularizer.py", "optimizer.py", "backward.py",
+                 "layers/learning_rate_scheduler.py", "ops/optimizer_ops.py", "ops/math_ops.py",
+                 "ops/nn_ops.py", "ops/tensor_ops.py", "ops/kernel_ops.py"):
+        assert f"paddle_tpu_torch/{path}" in scanned, path
+
+
 def test_trainer_and_inferencer_without_gpu_raise_instead_of_using_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 

@@ -468,12 +468,24 @@ def test_flash_stamp_false_runs_the_plain_composed_attention(monkeypatch):
 
 
 def test_pallas_int8_matmul_on_the_matmul_base_op_raises():
+    """Named for what it checked before the matmul op was ported: the
+    ``base_op="matmul"`` branch raised.  It is ported now
+    (tests/test_torch_unfused_head.py holds it against the JAX lowering), so
+    this checks the branch on the CPU: the transposed operands' int8 product
+    times ``alpha``, bit-equal to ``int8_matmul_plain``."""
     from paddle_tpu_torch.core.desc import OpDesc
+    from paddle_tpu_torch.core.lower import LowerCtx
     from paddle_tpu_torch.core.registry import OPS
+    rs = np.random.RandomState(3)
+    x, y = (torch.from_numpy(rs.randn(*s).astype(np.float32)) for s in ((48, 32), (40, 48)))
     op = OpDesc(type="pallas_int8_matmul", inputs={"X": ["x"], "Y": ["y"]},
-                outputs={"Out": ["o"]}, attrs={"base_op": "matmul"})
-    with pytest.raises(NotImplementedError, match="matmul op is not ported"):
-        OPS.get("pallas_int8_matmul").lower(None, op)
+                outputs={"Out": ["o"]},
+                attrs={"base_op": "matmul", "transpose_X": True, "transpose_Y": True,
+                       "alpha": 0.5})
+    ctx = LowerCtx(None, {"x": x, "y": y}, None, torch.device("cpu"))
+    OPS.get("pallas_int8_matmul").lower(ctx, op)
+    want = int8_matmul_plain(x.t().contiguous(), y.t().contiguous()) * 0.5
+    assert torch.equal(ctx.read("o"), want) and want.shape == (32, 40)
 
 
 # ----------------------------------------------------------- SGD training

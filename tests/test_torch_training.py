@@ -164,17 +164,18 @@ def test_the_cpu_step_runs_in_float64_from_float64_parameters(runs):
 
 
 def test_unported_training_options_raise():
-    with pytest.raises(NotImplementedError, match="softmax_with_cross_entropy"):
-        main, startup = pt.Program(), pt.Program()
-        with pt.program_guard(main, startup):
-            src = pt.layers.data(name="src", shape=[1], dtype="int64", lod_level=1)
-            pt_transformer.train_network(src, src, src, 10, 10, fuse_final_ce=False)
+    """Before the optimizer slice this checked that the unfused head and a
+    regularizer raised; both are ported now (tests/test_torch_unfused_head.py,
+    tests/test_torch_optimizers.py).  What still raises: sparse embedding
+    gradients and ``piecewise_decay`` (no conditional sub-blocks yet)."""
     main, startup = pt.Program(), pt.Program()
     with pt.program_guard(main, startup):
-        x = pt.layers.data(name="x", shape=[4])
-        loss = pt.layers.mean(pt.layers.fc(input=x, size=2))
-        with pytest.raises(NotImplementedError, match="regularization"):
-            pt.optimizer.SGD(0.1, regularization=object()).minimize(loss)
+        ids = pt.layers.data(name="ids", shape=[1], dtype="int64")
+        emb = pt.layers.embedding(ids, size=[10, 4], is_sparse=True)
+        with pytest.raises(NotImplementedError, match="sparse"):
+            pt.optimizer.SGD(0.1).minimize(pt.layers.mean(emb))
+        with pytest.raises(NotImplementedError, match="Switch"):
+            pt.layers.piecewise_decay([2], [1.0, 0.5])
 
 
 def test_sgd_trains_a_linear_regression():
