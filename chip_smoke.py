@@ -149,14 +149,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
     memory of a step each way, and a profile of each (device idle share;
     both gated as phase 8) (``{"training_graph_float32_Adam": ...}``,
     ``..._float32_SGD``, ``..._bf16_Adam``);
-18. the ``Trainer`` at phase 7's full width (Adam, float32) from a seeded
-    reader through ``reader.batch`` and the pow2 ``DataFeeder`` (source
-    lengths in [129, 256], target and label at 256): ``Trainer(pipeline=
+18. the ``Trainer`` at phase 7's widths and 2+2 layers (Adam, float32)
+    from a seeded reader through ``reader.batch`` and the pow2
+    ``DataFeeder`` (source lengths in [129, 256], target and label at
+    256): ``Trainer(pipeline=
     True)`` over one epoch of 6 batches (batches staged by the
     ``FeedStager`` on its own stream) and ``Trainer(pipeline=False)`` from
     the same state over the same batches, losses and every parameter
     bit-equal, no capture after step 0, each later step's launches from
-    the counters K1 36, K2 4, K3 4, K6 1, K7 1, K8 1 (step 0: twice, the
+    the counters K1 12, K2 4, K3 4, K6 1, K7 1, K8 1 (step 0: twice, the
     eager run before the capture and the first replay); ``save_params``
     after step 3 and a new ``Trainer(param_path=)`` holding every
     persistable bit-equal; ``CheckpointConfig(step_interval=2)``: a run
@@ -170,7 +171,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
     phase 7's, the Trainer's host ms a step outside ``run`` (``wait_s``,
     ``handler_s``, from ``telemetry.STEPS``), profiles of a warm 6-step
     epoch each way (device idle share; launches by family gated at 6
-    steps' K1 36, K2 4, K3 8, K7 2, K8 32, K6 1 a step), the staged copy per
+    steps' K1 12, K2 4, K3 8, K7 2, K8 32, K6 1 a step), the staged copy per
     batch, and what a second feed signature (a half batch) costs;
 19. the observability core, every record under one temporary
     ``PADDLE_TPU_TELEMETRY_DIR`` (set only around phase 19's pieces, so the
@@ -215,7 +216,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
     memory and tokens/s; (b) its bf16 twin (``AmpConfig()``) from (a)'s
     last state: losses finite and falling, the softmax-CE vars float32;
     (c) ``Trainer(accum_steps=4, pipeline=True)`` over 16 x 256
-    micro-batches, two applies, bit-equal to an ``exe.run`` loop of its
+    micro-batches at 2+2 layers, two applies, bit-equal to an ``exe.run`` loop of its
     accumulate and apply programs from the same state, each program's
     cache entry kind printed; (d) 3 steps of one program at 2+2 layers of
     (a)'s widths in which each update rule (Momentum and Nesterov,
@@ -231,7 +232,29 @@ Phases, each fatal on failure (non-zero exit, no result line):
     ``AmpConfig(bf16=False, quant=True)``: K4 once a pass through the
     ``base_op="matmul"`` branch, bit-equal to the fake-quant program and
     within 0.05 norm-relative of float32.  The kernels line carries each
-    kernel's phase-20 launches as ``launches_reference_path``.
+    kernel's phase-20 launches as ``launches_reference_path``;
+21. the CNN path (``phase_cnn``): (a) bench.py's headline, ResNet-50
+    training (``resnet.train_network`` at batch 128, 3 x 224 x 224, 1,000
+    classes, ``Momentum(0.01, 0.9)``, ``enable_amp``) from seeded random
+    images placed on the card, each step one CUDA graph replay: the
+    program's 535 ops (975 and 440 casts after amp-bf16), the capture's
+    seconds, images/s over 6 replays with their spread, the FLOPs a step
+    (3 x 2 x the conv2d and mul multiply-adds) as a share of the dense
+    bf16 peak, peak memory, losses finite and falling, all 106 running
+    statistics moved, no hand-written kernel launched, a profile (device
+    idle share) and the device ms by op type (a device trace of an eager
+    step); (b) the same in float32 with TF32 off; (c) inside each, a
+    replay against an op-by-op step from the same state, the loss and the
+    106 statistics and 161 velocities bit-equal, and where cuDNN's
+    default algorithms are not deterministic, again with
+    ``cudnn.deterministic`` (images/s that way too); (d) ResNet-18 at 32 x
+    32, batch 8, two steps on the card against the CPU from the same state,
+    and a max pool over a window of ties; (e) the MNIST CNN with Adam, each
+    step a replay with K6 inside (``launches_cnn`` on the kernels line;
+    ResNet's path launches none, ``launches_resnet`` 0); (f) (b)'s trained
+    model's ``clone(for_test=True)`` served at 8 rows with and without
+    ``passes=["bn-fold"]``, the logits within the fold tolerance, a batch's
+    latency both ways.
 
 Phase 9 also takes the 2 x 256 step in bf16 (``enable_amp``) with cuBLAS's
 reduced-precision bf16 reductions allowed (PyTorch's default) and not, and
@@ -370,6 +393,19 @@ def _profiler_started(torch):
     for _ in range(8):
         torch.cuda._sleep(1000)
     torch.cuda.synchronize()
+
+
+def _profiler_ending(torch):
+    """Called last inside a ``torch.profiler.profile`` block, after the
+    measured work has finished on the card: a tail of the primer's spin
+    kernels and a short wait before the block closes.  A window was seen
+    to lose a replayed step's last records (K1's last launch, half of K3's
+    kernels and the update's) although the card had finished them; the
+    records it loses now are the tail's, which the profiles leave out."""
+    for _ in range(8):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    time.sleep(0.05)
 
 
 def _ms(fn, iters):
@@ -582,6 +618,9 @@ def _family(name):
         return "linear_ce_fwd (K7)"
     if any(k in name for k in ("gemm_3xtf32_kernel", "ce_db_kernel")):
         return "linear_ce_bwd (K8)"
+    # cuDNN's convolutions (and its layout transposes around them)
+    if any(s in low for s in ("cudnn", "fprop", "dgrad", "wgrad", "convolve", "implicit_gemm")):
+        return "conv (cuDNN)"
     if "memcpy" in low:
         return "memcpy"
     if "memset" in low:
@@ -610,6 +649,7 @@ def _profile(torch, run, label, card, extra):
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        _profiler_ending(torch)
     dev = [(e.name(), e.start_ns(), e.duration_ns()) for e in prof.profiler.kineto_results.events()
            if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0
            and PRIMER not in e.name()]
@@ -659,6 +699,7 @@ def _device_by_kernel(torch, fn, iters, counts=None, annotations=None):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+            _profiler_ending(torch)
         for e in prof.profiler.kineto_results.events():
             if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0 \
                     and PRIMER not in e.name():
@@ -1899,10 +1940,11 @@ def _gate_step_profile(prof, want, label):
     print(f"{label}: device launches a step from the profile {got} (gate {want})")
 
 
-def _step_families(sgd=False):
-    """Kernel launches a full-width step makes on the device, by profile
-    family: K3 and K7 are 2 kernels a call, K8 32."""
-    return {"flash_attn_fwd (K1)": PER_STEP["flash_attn_fwd"],
+def _step_families(sgd=False, n_layer=N_LAYER):
+    """Kernel launches a full-width step of ``n_layer`` + ``n_layer`` layers
+    makes on the device, by profile family: K3 and K7 are 2 kernels a call,
+    K8 32."""
+    return {"flash_attn_fwd (K1)": 2 * 3 * n_layer,
             "gather_rows (K2)": PER_STEP["gather_rows"],
             "scatter_add_rows (K3)": 2 * PER_STEP["scatter_add_rows"],
             "linear_ce_fwd (K7)": 2, "linear_ce_bwd (K8)": 32,
@@ -2666,10 +2708,16 @@ def phase_bf16_step(torch, card):
 
 TRAINER_STEPS = 6          # phase 18's epoch: whole batches of TRAIN_B rows
 TRAINER_STOP_AFTER = 3     # the checkpointed run stops after this step
+# phase 18's depth: transformer-base's widths at 2+2 layers (6+6 before the
+# CNN phase came; the phase then took 49-57 s of the script's 236-262)
+TRAINER_LAYERS = 2
+TRAINER_PARAMS = 66
+TRAINER_PER_STEP = dict(PER_STEP, flash_attn_fwd=2 * 3 * TRAINER_LAYERS)
+TRAINER_BF16_PER_STEP = dict(BF16_PER_STEP, flash_attn_fwd=2 * 3 * TRAINER_LAYERS)
 
 
 def _trainer_train_func(pt):
-    """Phase 7's model as a Trainer's ``train_func``."""
+    """Phase 7's model at TRAINER_LAYERS as a Trainer's ``train_func``."""
     from paddle_tpu_torch import layers
     from paddle_tpu_torch.models import transformer
 
@@ -2678,7 +2726,7 @@ def _trainer_train_func(pt):
         trg = layers.data(name="trg", shape=[1], dtype="int64", lod_level=1)
         lbl = layers.data(name="lbl", shape=[T, 1], dtype="int64")
         loss, _ = transformer.train_network(src, trg, lbl, VOCAB, VOCAB, max_len=T,
-                                            n_layer=N_LAYER, d_model=D_MODEL, n_head=H,
+                                            n_layer=TRAINER_LAYERS, d_model=D_MODEL, n_head=H,
                                             d_inner=D_INNER, fuse_final_ce=True)
         return loss
     return train_func
@@ -2829,8 +2877,9 @@ def _timed_epoch(torch, pt, trainer, reader, label, card):
 
 
 def _exe_run_loop(torch, pt, trainer, reader, card):
-    """Phase 7's loop on the same trainer's executor: the DataFeeder's
-    feeds run by ``exe.run`` one by one, the loss read each step."""
+    """Phase 7's loop on the same trainer's executor (phase 18's depth):
+    the DataFeeder's feeds run by ``exe.run`` one by one, the loss read
+    each step."""
     program = trainer.train_program
     feeder = pt.DataFeeder(feed_list=[program.global_block.var(n) for n in ("src", "trg", "lbl")],
                            program=program, seq_len_buckets="pow2")
@@ -2842,7 +2891,7 @@ def _exe_run_loop(torch, pt, trainer, reader, card):
         float(l)
     wall = time.perf_counter() - t0
     tps = len(feeds) * TRAIN_B * T / wall
-    print(f"phase 7's exe.run loop on the same executor: {len(feeds)} steps in {wall:.3f} s, "
+    print(f"an exe.run loop on the same executor: {len(feeds)} steps in {wall:.3f} s, "
           f"{tps:.0f} tokens/s (the loss read each step) [{card}]")
     return {"steps": len(feeds), "wall_s": wall, "tokens_per_s": tps}
 
@@ -2923,18 +2972,18 @@ def _trainer_profile(torch, pt, trainer, reader, label, card):
                     {"batch": [TRAIN_B, T], "steps": TRAINER_STEPS})
     if prof is None:
         raise AssertionError(f"trainer {label}: the profiler recorded no device activity")
-    want = {k: TRAINER_STEPS * v for k, v in _step_families().items()}
+    want = {k: TRAINER_STEPS * v for k, v in _step_families(n_layer=TRAINER_LAYERS).items()}
     _gate_step_profile(prof, want, f"trainer {label} ({TRAINER_STEPS} steps)")
     return {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share")}
 
 
 def phase_trainer(torch, card):
-    """Phase 18: the ``Trainer`` on the card at transformer-base's full
-    width (phase 7's model and Adam), from a seeded reader through
+    """Phase 18: the ``Trainer`` on the card at transformer-base's widths
+    and TRAINER_LAYERS (phase 7's model and Adam), from a seeded reader through
     ``reader.batch`` and the pow2 ``DataFeeder``.  (a) ``Trainer(pipeline=
     True)``, one epoch of 6 batches, against ``Trainer(pipeline=False)``
     from the same state over the same batches: losses and every state
-    tensor bit-equal, one replay a step, launches a step K1 36, K2 4, K3 4
+    tensor bit-equal, one replay a step, launches a step K1 12, K2 4, K3 4
     calls, K6 1, K7 1, K8 1 (the profile: K3 8, K7 2, K8 32 kernels);
     (b) ``save_params`` after step 3, and a new ``Trainer(param_path=)``
     holding every persistable bit-equal; (c) ``CheckpointConfig(
@@ -2964,15 +3013,15 @@ def phase_trainer(torch, card):
     params = [p.name for p in piped.train_program.global_block.all_parameters()]
     print(f"trainer (pipeline=True) built and initialized in {time.perf_counter() - t0:.2f} s: "
           f"{len(params)} parameters, {len(start)} persistables")
-    if len(params) != N_PARAMS:
-        raise AssertionError(f"{len(params)} parameters, want {N_PARAMS}")
+    if len(params) != TRAINER_PARAMS:
+        raise AssertionError(f"{len(params)} parameters, want {TRAINER_PARAMS}")
     saved = {}
 
     def save_after_step(trainer):
         trainer.save_params(os.path.join(workdir, "params"))
         saved.update(_persist_numpy(trainer))
     run_p, loss_p = _train_once(piped, reader, counters, {TRAINER_STOP_AFTER: save_after_step})
-    per_p = _gate_trainer_steps(run_p, "trainer pipelined", PER_STEP)
+    per_p = _gate_trainer_steps(run_p, "trainer pipelined", TRAINER_PER_STEP)
     if type(run_p.metrics[0]).__name__ != "FetchHandle":
         raise AssertionError(f"pipelined metrics are {type(run_p.metrics[0]).__name__}")
     launches_trainer = {k: f.launches for k, f in counters.items()}
@@ -2995,7 +3044,7 @@ def phase_trainer(torch, card):
     sync = _make_trainer(pt, pipeline=False)
     _carry_numpy(sync, start)
     run_s, loss_s = _train_once(sync, reader, counters)
-    per_s = _gate_trainer_steps(run_s, "trainer synchronous", PER_STEP)
+    per_s = _gate_trainer_steps(run_s, "trainer synchronous", TRAINER_PER_STEP)
     differ = [n for n in params if not np.array_equal(final_p[n],
                                                       sync.scope.find_var(n).cpu().numpy())]
     print(f"trainer pipelined vs synchronous over {TRAINER_STEPS} steps: losses {loss_p} / "
@@ -3090,7 +3139,8 @@ def phase_trainer(torch, card):
     bf16_reader = pt.batch(pt.reader.chain(once, once, once), TRAIN_B)
     bf16 = _make_trainer(pt, amp=pt.amp.AmpConfig())
     run_b, loss_b = _train_once(bf16, bf16_reader, counters)
-    per_b = _gate_trainer_steps(run_b, "trainer bf16", PER_STEP, BF16_PER_STEP, steps=3)
+    per_b = _gate_trainer_steps(run_b, "trainer bf16", TRAINER_PER_STEP, TRAINER_BF16_PER_STEP,
+                                steps=3)
     print(f"trainer bf16 (amp=AmpConfig()) losses {loss_b}")
     if not (np.isfinite(loss_b).all() and all(a > b for a, b in zip(loss_b, loss_b[1:]))):
         raise AssertionError(f"trainer bf16: losses not finite and falling: {loss_b}")
@@ -3103,7 +3153,8 @@ def phase_trainer(torch, card):
     p, s = res["pipelined"], res["synchronous"]
     print(f"trainer tokens/s: pipelined {p['timed']['tokens_per_s']:.0f}, synchronous "
           f"{s['timed']['tokens_per_s']:.0f}, exe.run loop {res['exe_run_loop']['tokens_per_s']:.0f} "
-          f"(phase 7's loop {res['phase7_exe_run_tokens_per_s']}); device idle share of a profiled "
+          f"(phase 7's loop at {N_LAYER}+{N_LAYER} layers {res['phase7_exe_run_tokens_per_s']}); "
+          f"device idle share of a profiled "
           f"epoch pipelined {p['profile']['device_idle_share']:.4f}, synchronous "
           f"{s['profile']['device_idle_share']:.4f} [{card}]")
     print(json.dumps({"trainer": res}))
@@ -3284,7 +3335,8 @@ def _device_ms_by_op(events):
     return by_type, by_family
 
 
-def _device_trace_step(torch, exe, main, feed, loss, scope, label, card):
+def _device_trace_step(torch, exe, main, feed, loss, scope, label, card,
+                       need=("flash_attn_fwd (K1)", "linear_ce_fwd (K7)", "linear_ce_bwd (K8)")):
     """Phase 19 (f), inside phases 7 and 14: ``profiler.device_trace``
     (default directory: ``$PADDLE_TPU_TELEMETRY_DIR/xplane``) around one
     eager step (``_run_eager``, which commits the step): the exported trace
@@ -3319,10 +3371,10 @@ def _device_trace_step(torch, exe, main, feed, loss, scope, label, card):
           f"family {kernels}; {len(ranges)} op ranges, e.g. {sorted(ranges)[:3]}; device "
           f"{rec['device_ms']:.2f} ms, of it other kernels {rec['other_kernels_ms']:.2f} ms [{card}]")
     print(json.dumps({f"device_by_op_{label.replace(' ', '_')}": rec}))
-    need = ("flash_attn_fwd (K1)", "linear_ce_fwd (K7)", "linear_ce_bwd (K8)")
     if any(not kernels.get(k) for k in need) or not ranges:
         raise AssertionError(f"{label}: the device trace lacks {need} kernels or op ranges")
     os.remove(dt.path)     # tens of MiB; its numbers are printed
+    return rec
 
 
 def _traced_serving(torch, inf, phase16_rps, card):
@@ -3458,6 +3510,7 @@ P20_FAMILIES = {"flash_attn_fwd (K1)": PER_STEP["flash_attn_fwd"],
                 "scatter_add_rows (K3)": 2 * PER_STEP["scatter_add_rows"],
                 "fused_adam (K6)": 1, "linear_ce_fwd (K7)": 0, "linear_ce_bwd (K8)": 0}
 ACCUM_STEPS, ACCUM_ROWS, ACCUM_APPLIES = 4, 16, 2   # (c)
+ACCUM_LAYERS = 2        # (c)'s depth (6+6 before the CNN phase came)
 FAMILY_LAYERS, FAMILY_T, FAMILY_ROWS, FAMILY_STEPS = 2, 64, 4, 3   # (d)
 # (d): one program, each rule updating every tenth parameter; each of its 3
 # steps on the card held against one step from the card's own state before
@@ -3565,7 +3618,7 @@ def phase_reference_path(torch, card):
     """Phase 20 (see the module docstring): the reference training path at
     transformer-base's full width -- (a) the unfused head with token
     weights, noam_decay, Adam, global-norm clipping and L2 decay, (b) its
-    bf16 twin, (c) Trainer(accum_steps=4), (d) the optimizer family at 2+2
+    bf16 twin, (c) Trainer(accum_steps=4) at 2+2 layers, (d) the optimizer family at 2+2
     layers against the CPU, (e) the int8 matmul.  Returns the launches by
     kernel of each piece."""
     import paddle_tpu_torch as pt
@@ -3724,14 +3777,15 @@ def _ref_samples(n, seed):
 
 def _ref_accumulation(torch, pt, counters, card):
     """(c) Trainer(accum_steps=4, pipeline=True) over 16 x 256 micro-batches
-    of (a)'s program, two applies, against an exe.run loop of the same
-    accumulate and apply programs on the same executor from the same
-    state: parameters bit-equal; each program's cache entry kind."""
+    of (a)'s program at ACCUM_LAYERS, two applies, against an exe.run loop
+    of the same accumulate and apply programs on the same executor from
+    the same state: parameters bit-equal; each program's cache entry
+    kind."""
     def optimizer_func():
         return _noam_adam(pt)[0]
     with pt.unique_name.guard():
-        trainer = pt.Trainer(lambda: _ref_net(pt), optimizer_func, place=pt.CUDAPlace(0),
-                             accum_steps=ACCUM_STEPS, pipeline=True)
+        trainer = pt.Trainer(lambda: _ref_net(pt, n_layer=ACCUM_LAYERS), optimizer_func,
+                             place=pt.CUDAPlace(0), accum_steps=ACCUM_STEPS, pipeline=True)
     feed_order = ["src", "trg", "lbl", "wgt"]
     names = [v.name for v in trainer.train_program.list_vars() if v.persistable] + \
         [v.name for v in trainer.apply_program.list_vars() if v.name.endswith("@ACC")]
@@ -3808,6 +3862,7 @@ def _kernel_names(torch, run):
         _profiler_started(torch)
         run()
         torch.cuda.synchronize()
+        _profiler_ending(torch)
     names = {}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0 and PRIMER not in e.name():
@@ -4025,6 +4080,386 @@ def _ref_int8_matmul(torch, pt, counters, card):
         launches
 
 
+# phase 21: the CNN path (ResNet-50 training in bf16 and float32, ResNet-18
+# on the card against the CPU, the MNIST CNN with Adam, bn-fold served)
+RESNET_B, RESNET_HW, RESNET_CLASSES, RESNET_DEPTH = 128, 224, 1000, 50   # bench.py:124
+RESNET_OPS, RESNET_AMP_OPS, RESNET_AMP_CASTS = 535, 975, 440
+RESNET_BN_STATS, RESNET_VELOCITIES = 106, 161
+CNN_REPLAYS = 6            # timed replays of the step on one batch
+CNN_PROFILE_STEPS = 2
+# (d): ResNet-18 at bench.py's shapes off the TPU (bench.py:127), two steps on
+# the card, each against a step on the CPU from the card's state before it,
+# float32 (TF32 off): each state tensor's change in the step, norm-relative
+# to the CPU's, and the loss, relative.  The port on the CPU against the JAX
+# package at the same shapes read <= 5.8e-5 on the changes over two steps
+# from one start (tests/test_torch_cnn_models.py); two steps from one start
+# on the card read 1.7e-3 against the CPU (a batch_norm bias's velocity: the
+# first step takes the loss from 4.46 to 0.44, and the second step's
+# gradients carry the first step's rounding), hence a step from the card's
+# own state
+CARD_VS_CPU_CHANGE_NREL = 1e-3
+CARD_VS_CPU_LOSS_RTOL = 1e-4
+CARD_VS_CPU_B, CARD_VS_CPU_HW, CARD_VS_CPU_CLASSES, CARD_VS_CPU_DEPTH = 8, 32, 10, 18
+MNIST_B, MNIST_STEPS = 64, 4
+# (f): the folded program's logits against the unfolded one's: the JAX
+# package's fold tolerance, rtol 2e-4, with an absolute term of 2e-4 of the
+# largest logit for the logits near 0
+BN_FOLD_RTOL = 2e-4
+BN_FOLD_ROWS = 8
+
+
+def _resnet_programs(pt, depth=RESNET_DEPTH, hw=RESNET_HW, classes=RESNET_CLASSES, amp=False):
+    """bench.py's ``_resnet_train_setup``: ``resnet.train_network`` and
+    ``Momentum(0.01, 0.9)``, flagged by ``enable_amp`` for bf16."""
+    from paddle_tpu_torch.models import resnet
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        image = pt.layers.data(name="image", shape=[3, hw, hw], dtype="float32")
+        label = pt.layers.data(name="label", shape=[1], dtype="int64")
+        loss, acc = resnet.train_network(image, label, class_dim=classes, depth=depth)
+        pt.optimizer.MomentumOptimizer(learning_rate=0.01, momentum=0.9).minimize(loss)
+    if amp:
+        pt.amp.enable_amp(main)
+    return main, startup, loss, acc
+
+
+def _image_feed(torch, rows, hw, classes, seed, device):
+    rs = np.random.RandomState(seed)
+    image = rs.randn(rows, 3, hw, hw).astype(np.float32)
+    label = rs.randint(0, classes, (rows, 1)).astype(np.int32)
+    if device == "cpu":
+        return {"image": image, "label": label}
+    # placed on the card before the step, as bench.py:153-161 places them
+    return {"image": torch.from_numpy(image).to(device), "label": torch.from_numpy(label).to(device)}
+
+
+def _model_flops(program, rows):
+    """2 * multiply-adds of a forward pass over ``rows`` rows, from the
+    ProgramDesc's ``conv2d`` and ``mul`` shapes."""
+    blk = program.desc.block(0)
+
+    def shape(name):
+        return [rows if d < 0 else d for d in blk.find_var(name).shape]
+
+    macs = 0
+    for op in blk.ops:
+        if op.type == "conv2d":
+            n, _, ho, wo = shape(op.output("Output")[0])
+            co, ci, kh, kw = shape(op.input("Filter")[0])
+            macs += n * co * ho * wo * ci * kh * kw
+        elif op.type == "mul":
+            x, (k, n) = shape(op.input("X")[0]), shape(op.input("Y")[0])
+            macs += int(np.prod(x[:op.attr("x_num_col_dims", 1)])) * k * n
+    return 2 * macs
+
+
+def _state_names(main, scope):
+    persist = [v.name for v in main.list_vars() if v.persistable and scope.find_var(v.name) is not None]
+    stats = [n for n in persist if n.startswith("batch_norm_") and n.endswith((".w_2", ".w_3"))]
+    velocities = [n for n in persist if "_velocity_" in n]
+    return persist, stats, velocities
+
+
+def _state_vs_eager(torch, exe, main, feed, fetch, scope, persist, kinds, label, card):
+    """Phase 21 (c): a replayed step against an op-by-op step from the same
+    state, printed by kind of state tensor; the loss must be bit-equal.
+    Returns the state tensors that differ and the largest difference."""
+    state0 = {n: scope.find_var(n).clone() for n in persist}
+    g_out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+    after = {n: scope.find_var(n).clone() for n in persist}
+    for n, t in state0.items():
+        scope.find_var(n).copy_(t)
+    e_out = exe._run_eager(main, feed, fetch, scope)
+    differ = {n: float((after[n].double() - scope.find_var(n).double()).abs().max())
+              for n in persist if not torch.equal(after[n], scope.find_var(n))}
+    fetch_equal = all(np.array_equal(a, b) for a, b in zip(g_out, e_out))
+    g_loss, e_loss = float(np.asarray(g_out[0])), float(np.asarray(e_out[0]))
+    print(f"phase 21 (c) {label}: a replay against an op-by-op step from the same state: loss "
+          f"{g_loss!r} / {e_loss!r}; " + "; ".join(
+              f"{k} bit-equal {sum(n not in differ for n in ns)} of {len(ns)}"
+              for k, ns in kinds.items())
+          + f"; all state {len(persist) - len(differ)} of {len(persist)}"
+          + (f"; largest differences {sorted(differ.items(), key=lambda kv: -kv[1])[:4]}"
+             if differ else "") + f" [{card}]")
+    if g_loss != e_loss:
+        raise AssertionError(f"phase 21 (c) {label}: the replay's loss {g_loss!r} differs from "
+                             f"the op-by-op step's {e_loss!r}")
+    return {"differ": len(differ), "state": len(persist), "fetch_equal": fetch_equal,
+            "max_abs": max(differ.values()) if differ else 0.0}
+
+
+def _resnet_cell(torch, pt, card, counters, amp):
+    """Phase 21 (a) (bf16) or (b) (float32): bench.py's ResNet-50 step at
+    batch 128, one CUDA graph replay a step; returns its readings and the
+    trained executor, program and scope."""
+    label = "bf16" if amp else "float32"
+    t0 = time.perf_counter()
+    main, startup, loss, acc = _resnet_programs(pt, amp=amp)
+    scope, exe = pt.Scope(), pt.Executor(pt.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    feed = _image_feed(torch, RESNET_B, RESNET_HW, RESNET_CLASSES, seed=0, device="cuda")
+    fetch = [loss, acc]
+    n_ops, by_type = _op_counts(main)
+    run_ops = [o.type for o in exe._apply_passes(main, list(feed), [loss.name, acc.name], scope)
+               .desc.block(0).ops]
+    persist, stats, velocities = _state_names(main, scope)
+    flops = 3 * _model_flops(main, RESNET_B)
+    print(f"phase 21 ({'a' if amp else 'b'}) ResNet-{RESNET_DEPTH} {label}: {n_ops} ops "
+          f"({len(run_ops)} run, {run_ops.count('cast')} casts), {len(stats)} running statistics, "
+          f"{len(velocities)} velocities, {flops / 1e12:.3f} TFLOP a step (3 x 2 x MACs of the conv2d "
+          f"and mul ops); built and initialized in {time.perf_counter() - t0:.2f} s")
+    want_ops = (RESNET_AMP_OPS, RESNET_AMP_CASTS) if amp else (RESNET_OPS, 0)
+    if n_ops != RESNET_OPS or (len(run_ops), run_ops.count("cast")) != want_ops \
+            or (len(stats), len(velocities)) != (RESNET_BN_STATS, RESNET_VELOCITIES):
+        raise AssertionError(f"phase 21 {label}: {n_ops} ops, {len(run_ops)} run with "
+                             f"{run_ops.count('cast')} casts, {len(stats)} statistics, "
+                             f"{len(velocities)} velocities; want {RESNET_OPS}, {want_ops}, "
+                             f"{RESNET_BN_STATS}, {RESNET_VELOCITIES}")
+    torch.cuda.synchronize()
+    for f in counters.values():
+        f.launches = 0
+    # the peak over the capture (its eager run and the graph's pool) and the replays
+    torch.cuda.reset_peak_memory_stats()
+    info = exe.precompile(main, feed=feed, fetch_list=fetch, scope=scope)
+    stats0 = {n: scope.find_var(n).clone() for n in stats}
+    losses, step_s = [], []
+    for _ in range(CNN_REPLAYS):
+        t1 = time.perf_counter()
+        lv, _ = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        step_s.append(time.perf_counter() - t1)
+        losses.append(float(np.asarray(lv)))
+    peak = torch.cuda.max_memory_allocated()
+    launches = _launch_snapshot(counters)
+    moved = sum(not torch.equal(stats0[n], scope.find_var(n)) for n in stats)
+    entries = [e for e in exe.cache_info()["entries"] if "image" in e["feeds"]]
+    ips = [RESNET_B / s for s in step_s]
+    step_ms = 1e3 * float(np.median(step_s))
+    res = {"card": card, "ops": n_ops, "run_ops": len(run_ops), "casts": run_ops.count("cast"),
+           "capture_s": info["compile_s"], "losses": losses, "step_ms": [1e3 * s for s in step_s],
+           "images_per_s_median": float(np.median(ips)), "images_per_s_min": min(ips),
+           "images_per_s_max": max(ips), "peak_allocated_gib": peak / 2 ** 30,
+           "tflop_a_step": flops / 1e12,
+           "bf16_peak_share": flops / (step_ms / 1e3) / BF16_FLOPS,
+           "launches": launches, "statistics_moved": moved}
+    print(f"phase 21 {label}: capture {info['compile_s']:.2f} s (kind {info['kind']}); "
+          f"{CNN_REPLAYS} replays on one batch: losses {losses}; step ms "
+          f"{[round(1e3 * s, 2) for s in step_s]}; images/s median {res['images_per_s_median']:.1f} "
+          f"(min {res['images_per_s_min']:.1f}, max {res['images_per_s_max']:.1f}); "
+          f"{res['bf16_peak_share']:.4f} of the dense bf16 peak ({BF16_FLOPS / 1e12:.0f} TFLOP/s); "
+          f"peak {peak / 2 ** 30:.2f} GiB; {moved} of {len(stats)} running statistics moved; "
+          f"hand-written kernel launches {launches} [{card}]")
+    if info["kind"] != "graph" or [e["kind"] for e in entries] != ["graph"] \
+            or exe.cache_info()["captures"] != 1:
+        raise AssertionError(f"phase 21 {label}: the step is not one graph: {info}, {entries}")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 21 {label}: losses not finite and falling: {losses}")
+    if moved != len(stats) or any(launches.values()):
+        raise AssertionError(f"phase 21 {label}: {moved} of {len(stats)} statistics moved, "
+                             f"launches {launches} (the CNN path runs no hand-written kernel)")
+
+    # (c) a replay against an op-by-op step from the same state; where
+    # cuDNN's default algorithms are not deterministic, again with
+    # cudnn.deterministic (a flag of the cache key: a new capture), with the
+    # step's images/s that way
+    res["replay_vs_eager"] = _state_vs_eager(torch, exe, main, feed, fetch, scope, persist,
+                                             {"running statistics": stats,
+                                              "velocities": velocities}, label, card)
+    if res["replay_vs_eager"]["differ"]:
+        torch.backends.cudnn.deterministic = True
+        try:
+            det_s = []
+            for _ in range(CNN_REPLAYS):
+                t1 = time.perf_counter()
+                exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+                det_s.append(time.perf_counter() - t1)
+            det_ips = [RESNET_B / s for s in det_s[1:]]     # the first is the capture
+            res["deterministic"] = {
+                "images_per_s_median": float(np.median(det_ips)),
+                "images_per_s_min": min(det_ips), "images_per_s_max": max(det_ips),
+                "replay_vs_eager": _state_vs_eager(
+                    torch, exe, main, feed, fetch, scope, persist,
+                    {"running statistics": stats, "velocities": velocities},
+                    f"{label} with cudnn.deterministic", card)}
+            print(f"phase 21 {label} with cudnn.deterministic: images/s median "
+                  f"{res['deterministic']['images_per_s_median']:.1f} (min "
+                  f"{min(det_ips):.1f}, max {max(det_ips):.1f}) against "
+                  f"{res['images_per_s_median']:.1f} without [{card}]")
+        finally:
+            torch.backends.cudnn.deterministic = False
+        if res["deterministic"]["replay_vs_eager"]["differ"]:
+            raise AssertionError(f"phase 21 (c) {label}: the replay differs from the op-by-op "
+                                 f"step even with cudnn.deterministic")
+
+    prof = _profile(torch, lambda: [exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+                                    for _ in range(CNN_PROFILE_STEPS)],
+                    f"resnet50_{label}_profile", card,
+                    {"batch": [RESNET_B, 3, RESNET_HW, RESNET_HW], "steps": CNN_PROFILE_STEPS})
+    if prof is not None:
+        res["profile"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share",
+                                               "by_family_ms", "by_family_launches")}
+    res["device_by_op"] = _device_trace_step(torch, exe, main, feed, loss, scope,
+                                             f"phase 21 {label}", card, need=("conv (cuDNN)",))
+    print(json.dumps({f"resnet50_training_{label}": res}))
+    return res, exe, main, scope, feed, loss
+
+
+def _card_vs_cpu(torch, pt, card):
+    """Phase 21 (d): ResNet-18 at 32 x 32, batch 8, 10 classes, float32: two
+    steps on the card, each against a step on the CPU from the card's state
+    before it (the first from the CPU startup's state), and a max-pool
+    window of ties."""
+    main, startup, loss, acc = _resnet_programs(
+        pt, depth=CARD_VS_CPU_DEPTH, hw=CARD_VS_CPU_HW, classes=CARD_VS_CPU_CLASSES)
+    feed = _image_feed(torch, CARD_VS_CPU_B, CARD_VS_CPU_HW, CARD_VS_CPU_CLASSES, seed=1,
+                       device="cpu")
+    cpu_scope, cpu_exe = pt.Scope(), pt.Executor(pt.CPUPlace())
+    cpu_exe.run(startup, scope=cpu_scope)
+    persist, _, _ = _state_names(main, cpu_scope)
+    card_scope, card_exe = pt.Scope(), pt.Executor(pt.CUDAPlace(0))
+    card_exe.run(startup, scope=card_scope)
+    for n in persist:
+        card_scope.find_var(n).copy_(cpu_scope.find_var(n))
+    losses, worst, worst_name, loss_rel = {"cpu": [], "card": []}, 0.0, None, 0.0
+    for step in range(2):
+        before = {n: card_scope.find_var(n).cpu().numpy().copy() for n in persist}
+        for n, a in before.items():
+            cpu_scope.find_var(n).copy_(torch.from_numpy(a))
+        for name, exe, scope in (("cpu", cpu_exe, cpu_scope), ("card", card_exe, card_scope)):
+            losses[name].append(float(np.asarray(exe.run(main, feed=feed, fetch_list=[loss],
+                                                         scope=scope)[0])))
+        loss_rel = max(loss_rel, abs(losses["card"][-1] - losses["cpu"][-1]) / abs(losses["cpu"][-1]))
+        for n in persist:
+            d_cpu = cpu_scope.find_var(n).numpy() - before[n]
+            d_card = card_scope.find_var(n).cpu().numpy() - before[n]
+            den = np.linalg.norm(d_cpu)
+            if den == 0:
+                continue
+            r = float(np.linalg.norm(d_card - d_cpu) / den)
+            if r > worst:
+                worst, worst_name = r, f"{n} (step {step + 1})"
+
+    # ties: a 3 x 3, stride 2, pad 1 max pool over equal values, and its gradient
+    tie_grads = {}
+    for name, place in (("cpu", pt.CPUPlace()), ("card", pt.CUDAPlace(0))):
+        tmain, tstart = pt.Program(), pt.Program()
+        with pt.unique_name.guard(), pt.program_guard(tmain, tstart):
+            x = pt.layers.data(name="x", shape=[2, 3, 7, 7], dtype="float32",
+                               append_batch_size=False, stop_gradient=False)
+            y = pt.layers.pool2d(x, pool_size=3, pool_stride=2, pool_padding=1, pool_type="max")
+            (gx,) = pt.calc_gradient(pt.layers.reduce_sum(y), [x])
+        tie_grads[name] = pt.Executor(place).run(
+            tmain, feed={"x": np.ones((2, 3, 7, 7), np.float32)}, fetch_list=[gx],
+            scope=pt.Scope())[0]
+    ties_equal = bool(np.array_equal(tie_grads["cpu"], tie_grads["card"]))
+    res = {"card": card, "losses": losses, "loss_rel": loss_rel, "worst_change_nrel": worst,
+           "worst_state": worst_name, "ties_equal": ties_equal,
+           "tie_grad_sum": float(tie_grads["card"].sum())}
+    print(f"phase 21 (d) ResNet-{CARD_VS_CPU_DEPTH} {CARD_VS_CPU_B} x 3 x {CARD_VS_CPU_HW} x "
+          f"{CARD_VS_CPU_HW}, 2 steps on the card, each against the CPU from the card's state "
+          f"before it: losses {losses}, loss {loss_rel:.2e} "
+          f"(gate {CARD_VS_CPU_LOSS_RTOL}); each state tensor's change, largest norm-relative "
+          f"{worst:.2e} ({worst_name}; gate {CARD_VS_CPU_CHANGE_NREL}); max pool over ties: the "
+          f"gradients {'bit-equal' if ties_equal else 'DIFFER'} [{card}]")
+    if loss_rel > CARD_VS_CPU_LOSS_RTOL or worst > CARD_VS_CPU_CHANGE_NREL or not ties_equal:
+        raise AssertionError(f"phase 21 (d): {res}")
+    return res
+
+
+def _mnist_adam(torch, pt, card, counters):
+    """Phase 21 (e): the MNIST CNN (models/mnist.py) with Adam, each step one
+    graph replay, K6 once a step inside it."""
+    from paddle_tpu_torch.models import mnist
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        image = pt.layers.data(name="pixel", shape=[1, 28, 28], dtype="float32")
+        label = pt.layers.data(name="label", shape=[1], dtype="int64")
+        loss, acc = mnist.train_network(image, label)
+        pt.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    scope, exe = pt.Scope(), pt.Executor(pt.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    images, labels = pt.dataset.mnist._synthetic(MNIST_B, seed=0)
+    feed = {"pixel": torch.from_numpy(images.reshape(MNIST_B, 1, 28, 28)).cuda(),
+            "label": torch.from_numpy(labels.reshape(MNIST_B, 1).astype(np.int32)).cuda()}
+    torch.cuda.synchronize()
+    for f in counters.values():
+        f.launches = 0
+    losses = [float(np.asarray(exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]))
+              for _ in range(MNIST_STEPS)]
+    launches = _launch_snapshot(counters)
+    entries = [e for e in exe.cache_info()["entries"] if "pixel" in e["feeds"]]
+    replay = entries[0]["launches"] if entries else {}
+    print(f"phase 21 (e) MNIST CNN + Adam, {MNIST_B} rows, {MNIST_STEPS} steps: losses {losses}; "
+          f"launches {launches} (the capture's eager run and {MNIST_STEPS} replays); a replay's "
+          f"{replay}; entry kinds {[e['kind'] for e in entries]} [{card}]")
+    want = dict.fromkeys(launches, 0, ) | {"fused_adam": MNIST_STEPS + 1}
+    if launches != want or [e["kind"] for e in entries] != ["graph"] \
+            or not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 21 (e): launches {launches} (want {want}), entries "
+                             f"{entries}, losses {losses}")
+    return {"card": card, "losses": losses, "launches": launches}, launches
+
+
+def _bn_fold_served(torch, pt, card, main, scope, loss):
+    """Phase 21 (f): ``clone(for_test=True)`` of (b)'s trained float32
+    ResNet-50, pruned to its logits, served at 8 rows with and without
+    ``passes=["bn-fold"]``."""
+    blk = main.desc.block(0)
+    (logits,) = [o.input("Logits")[0] for o in blk.ops if o.type == "softmax_with_cross_entropy"]
+    test = main.clone(for_test=True)._prune([logits])
+    rs = np.random.RandomState(2)
+    feed = {"image": torch.from_numpy(rs.randn(BN_FOLD_ROWS, 3, RESNET_HW, RESNET_HW)
+                                      .astype(np.float32)).cuda()}
+    out, walls = {}, {}
+    for name, passes in (("unfolded", None), ("bn-fold", ["bn-fold"])):
+        exe = pt.Executor(pt.CUDAPlace(0), passes=passes)
+        ts = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            (out[name],) = exe.run(test, feed=feed, fetch_list=[logits], scope=scope)
+            ts.append(time.perf_counter() - t0)
+        walls[name] = [1e3 * t for t in ts[1:]]
+        if name == "bn-fold":
+            folded = exe._apply_passes(test, list(feed), [logits], scope)
+    n_bn = sum(o.type == "batch_norm" for o in folded.desc.block(0).ops)
+    want, got = out["unfolded"], out["bn-fold"]
+    atol = BN_FOLD_RTOL * float(np.abs(want).max())
+    err = float(np.max(np.abs(got - want) / (atol + BN_FOLD_RTOL * np.abs(want))))
+    res = {"card": card, "batch_norm_left": n_bn, "ops": [len(test.desc.block(0).ops),
+                                                          len(folded.desc.block(0).ops)],
+           "max_abs": float(np.abs(got - want).max()), "gate_ratio": err,
+           "batch_ms_unfolded": walls["unfolded"], "batch_ms_folded": walls["bn-fold"]}
+    print(f"phase 21 (f) bn-fold served, ResNet-{RESNET_DEPTH} clone(for_test=True), "
+          f"{BN_FOLD_ROWS} rows: ops {res['ops'][0]} -> {res['ops'][1]} ({n_bn} batch_norm left); "
+          f"logits max abs difference {res['max_abs']:.3e}, {err:.3f} of the gate (rtol "
+          f"{BN_FOLD_RTOL}, atol {BN_FOLD_RTOL} x max |logit|); a batch (the first is the "
+          f"capture, then replays) unfolded {[round(w, 3) for w in walls['unfolded']]} ms, folded "
+          f"{[round(w, 3) for w in walls['bn-fold']]} ms [{card}]")
+    if n_bn or err > 1.0:
+        raise AssertionError(f"phase 21 (f): {res}")
+    return res
+
+
+def phase_cnn(torch, card):
+    """Phase 21 (see the module docstring): the CNN path.  Returns (the
+    readings, the MNIST path's launches by kernel)."""
+    import paddle_tpu_torch as pt
+    counters = _counters()
+    res = {}
+    res["a"], exe, main, scope, _, _ = _resnet_cell(torch, pt, card, counters, amp=True)
+    del exe, main, scope
+    _free_trainer(torch, "phase 21 (a)")
+    res["b"], exe, main, scope, _, loss = _resnet_cell(torch, pt, card, counters, amp=False)
+    del exe
+    _free_trainer(torch, "phase 21 (b)")
+    res["f"] = _bn_fold_served(torch, pt, card, main, scope, loss)
+    del main, scope
+    _free_trainer(torch, "phase 21 (f)")
+    res["d"] = _card_vs_cpu(torch, pt, card)
+    res["e"], mnist_launches = _mnist_adam(torch, pt, card, counters)
+    print(json.dumps({"cnn_path": res}))
+    return res, mnist_launches
+
+
 def _release_serving(torch, label):
     """A serving phase's inferencers (and their graphs' memory pools) are
     gone once it returns: collect them before the training phases."""
@@ -4054,6 +4489,7 @@ def main():
 
 
 def _main(torch, build):
+    t_main = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
@@ -4097,8 +4533,10 @@ def _main(torch, build):
     launches["fused_sgd"] = sgd_launches["fused_sgd"]
     timed("observability_end", phase_observability)
     ref_launches = timed("reference_path", phase_reference_path)
+    _, cnn_launches = timed("cnn", phase_cnn)
     print(f"seconds by phase function: {json.dumps(seconds)}; "
-          f"{sum(seconds.values()):.1f} in all [{card}]")
+          f"{sum(seconds.values()):.1f} in all; {time.perf_counter() - t_main:.1f} since the "
+          f"card's name was read (the kernel build included) [{card}]")
 
     def entry(name, source, replaces, per_case, main_case):
         m = per_case[main_case]
@@ -4146,10 +4584,15 @@ def _main(torch, build):
     # (K5), (e) the int8 matmul (K4); the bf16 entries (b)'s bf16 twin
     phase20 = {**ref_launches["a"], "fused_sgd": ref_launches["d"].get("fused_sgd", 0),
                "int8_matmul": ref_launches["e"]["int8_matmul"]}
+    # launches_cnn: phase 21 (e), the MNIST CNN with Adam, counted from 0;
+    # launches_resnet: phase 21 (a)-(b), bf16 and float32 ResNet-50 training,
+    # which runs no hand-written kernel (gated at 0 there)
     for e in kernels:
         e["launches_trainer"] = trainer_launches[e["name"]]
         e["launches_profile"] = PHASE19["launches_profile"].get(e["name"], 0)
         e["launches_reference_path"] = phase20.get(e["name"], 0)
+        e["launches_cnn"] = cnn_launches[e["name"]]
+        e["launches_resnet"] = 0
     k4["quantizers"]["launches_profile"] = {
         n: PHASE19["launches_profile"].get(n, 0) for n in ("abs_max_pair", "quantize_int8")}
     k4["quantizers"]["launches_reference_path"] = {
@@ -4164,7 +4607,8 @@ def _main(torch, build):
         e = dict(entry(name, source, replaces, cases, main_case), name=f"{name}_bf16",
                  launches=bf16_launches[name], launches_trainer=trainer_bf16_launches[name],
                  launches_profile=PHASE19["launches_profile_bf16"].get(name, 0),
-                 launches_reference_path=ref_launches["b_bf16"].get(name, 0))
+                 launches_reference_path=ref_launches["b_bf16"].get(name, 0),
+                 launches_cnn=0, launches_resnet=0)
         kernels.append(e)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -26,9 +26,9 @@ This package imports torch, numpy and the standard library only -- never
 jax or paddle_tpu.
 """
 from . import ops  # noqa: F401  (registers every op lowering)
-from . import (amp, checkpoint, clip, compile_log, io, layers, lod, log,  # noqa: F401
-               models, optimizer, passes, profiler, profiling, reader,
-               regularizer, resource_sampler, telemetry)
+from . import (amp, checkpoint, clip, compile_log, dataset, initializer, io,  # noqa: F401
+               layers, lod, log, models, nets, optimizer, passes, profiler,
+               profiling, reader, regularizer, resource_sampler, telemetry)
 from .backward import append_backward, calc_gradient  # noqa: F401
 from .clip import (ErrorClipByValue, GradientClipByGlobalNorm,  # noqa: F401
                    GradientClipByNorm, GradientClipByValue)

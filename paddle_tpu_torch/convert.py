@@ -18,7 +18,13 @@ from .core.scope import Scope
 def params_from_numpy(arrays: Dict[str, np.ndarray], scope: Scope,
                       device) -> None:
     """Set each ``name -> array`` in ``scope`` as a tensor on ``device``
-    (a ``torch.device`` or a string such as ``"cuda:0"``)."""
+    (a ``torch.device`` or a string such as ``"cuda:0"``); a bfloat16
+    array (``ml_dtypes``) becomes a bfloat16 tensor."""
     device = torch.device(device)
     for name, a in arrays.items():
-        scope.set_var(name, torch.from_numpy(np.array(a, copy=True)).to(device))
+        a = np.array(a, copy=True)
+        if a.dtype.name == "bfloat16":      # ml_dtypes' bfloat16, the JAX scope's
+            t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(a)
+        scope.set_var(name, t.to(device))

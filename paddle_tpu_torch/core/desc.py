@@ -120,6 +120,12 @@ class OpDesc:
     def attr(self, name: str, default=None):
         return self.attrs.get(name, default)
 
+    def rename_input(self, old: str, new: str):
+        for ns in self.inputs.values():
+            for i, n in enumerate(ns):
+                if n == old:
+                    ns[i] = new
+
     @property
     def callsite(self) -> Optional[str]:
         """User-code ``file:line`` that appended this op (None for ops

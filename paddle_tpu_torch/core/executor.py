@@ -3,7 +3,7 @@ cache of executables.
 
 ``Executor.run`` coerces the feeds, finds the cache entry of (program uid,
 version, feed signature, fetch names, state signature, amp, passes, kernel
-policy, matmul flags) -- the JAX package's executable cache -- and runs
+policy, matmul and cuDNN flags) -- the JAX package's executable cache -- and runs
 it.  An entry holds the block's analysis (which names it reads from the
 scope and which state it writes), done once.
 
@@ -94,7 +94,7 @@ from ..telemetry import REGISTRY, TIMELINE
 from .desc import BlockDesc, VarType
 from .dtypes import coerce_feed_dtype, convert_dtype
 from .framework import Program, Variable, default_main_program
-from .lower import LowerCtx, lower_block
+from .lower import LowerCtx, lower_block, plan_frees
 from .registry import op_draws, op_forks
 from .scope import Scope, global_scope
 from .staging import (COUNTERS, FeedStager, FetchHandle, executable_fingerprint,
@@ -199,12 +199,15 @@ def graph_blockers(program: Program, state_in: Sequence[str],
 
 
 def _matmul_flags() -> Tuple[Tuple[str, bool], ...]:
-    """The flags a capture bakes into its cuBLAS and cuDNN calls."""
-    m = torch.backends.cuda.matmul
+    """The flags a capture bakes into its cuBLAS and cuDNN calls (cuDNN's
+    choice of convolution algorithms among them)."""
+    m, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
     return (("tf32_matmul", m.allow_tf32),
-            ("tf32_cudnn", torch.backends.cudnn.allow_tf32),
+            ("tf32_cudnn", cudnn.allow_tf32),
             ("bf16_reduced", m.allow_bf16_reduced_precision_reduction),
-            ("fp16_reduced", m.allow_fp16_reduced_precision_reduction))
+            ("fp16_reduced", m.allow_fp16_reduced_precision_reduction),
+            ("cudnn_deterministic", cudnn.deterministic),
+            ("cudnn_benchmark", cudnn.benchmark))
 
 
 def _write_back(state_out: Sequence[str], homes: Dict[str, Any],
@@ -287,6 +290,8 @@ class _CacheEntry:
         self.state_out = state_out
         self.state_names = frozenset(state_in).union(state_out)
         self.fetch_names = fetch_names
+        # for each op, the values that leave the environment after it
+        self.frees: Optional[List[List[str]]] = None
         self.reasons: Tuple[str, ...] = tuple(reasons)
         self.eligible = eligible      # the program allows a graph
         self.fingerprint: Optional[str] = None
@@ -385,22 +390,26 @@ class Executor:
         return self._m_runs.value
 
     def _apply_passes(self, program: Program, feed_names: List[str],
-                      fetch_names: List[str]) -> Program:
+                      fetch_names: List[str], scope: Optional[Scope] = None) -> Program:
         """The rewritten program, from the pipeline run once per (program
-        uid, version, amp flag, feed names, fetch names).  The rewrite lands
+        uid, version, amp flag, feed names, fetch names, and the scope when
+        a pass reads parameter values: ``bn-fold``).  The rewrite lands
         on a clone with the program's uid and a version of its own, so
         running the rewritten program again hits the memo too.  A program
         flagged by ``enable_amp`` goes through the bridge after the pipeline
         (the flag is in the key: setting it does not move the version)."""
         if self.passes is None:
             return self._legacy_amp_rewrite(program, fetch_names)
+        scope = scope or global_scope()
         names = (tuple(sorted(feed_names)), tuple(fetch_names))
+        if any(p.requires_scope for p in self.passes.passes):
+            names += (id(scope),)
         key = (program.desc.uid, program.desc.version, program.amp) + names
         hit = self._pass_memo.get(key)
         if hit is not None:
             return hit
         new_prog, _ = self.passes.run(program, fetch_list=fetch_names,
-                                      feed_names=feed_names)
+                                      feed_names=feed_names, scope=scope)
         new_prog = self._legacy_amp_rewrite(new_prog, fetch_names)
         self._pass_memo[key] = new_prog
         self._pass_memo[(new_prog.desc.uid, new_prog.desc.version, new_prog.amp) + names] = \
@@ -484,7 +493,7 @@ class Executor:
         scope = scope or global_scope()
         fetch_names = [f.name if isinstance(f, Variable) else str(f)
                        for f in (fetch_list or [])]
-        program = self._apply_passes(program, list(feed), fetch_names)
+        program = self._apply_passes(program, list(feed), fetch_names, scope)
         block = program.desc.block(0)
         if TIMELINE.enabled:
             t0 = TIMELINE.now_us()
@@ -660,8 +669,9 @@ class Executor:
         feed = feed or {}
         fetch_names = [f.name if isinstance(f, Variable) else str(f)
                        for f in (fetch_list or [])]
-        program = self._apply_passes(program, list(feed), fetch_names)
-        return profile_program(program, feed, scope=scope or global_scope(),
+        scope = scope or global_scope()
+        program = self._apply_passes(program, list(feed), fetch_names, scope)
+        return profile_program(program, feed, scope=scope,
                                fetch_list=fetch_names, samples=samples, executor=self,
                                compiled_step_s=compiled_step_s)
 
@@ -880,7 +890,9 @@ class Executor:
         """Lower block 0 op by op over ``env`` (state and feeds) and write
         the state it updates into ``homes`` in place (``_write_back``).
         Returns the context and the written values that have no home."""
-        ctx = LowerCtx(entry.block, env, gen, self.device)
+        if entry.frees is None:
+            entry.frees = plan_frees(entry.block, set(entry.fetch_names) | set(entry.state_out))
+        ctx = LowerCtx(entry.block, env, gen, self.device, frees=entry.frees)
         with torch.no_grad():
             lower_block(ctx, entry.block)
             rest = _write_back(entry.state_out, homes, ctx.env)

@@ -16,6 +16,11 @@ package's ``jax.vjp`` of the forward lowering).  Eager torch does not
 remove that recompute, so a forward kernel launches again in each grad op
 of its forward op.
 
+The executor gives the context :func:`plan_frees`' plan: each value leaves the
+environment after the last op that reads or writes it, so a block holds
+only what it still needs (the reference's XLA computation frees its
+buffers as it goes too).
+
 While a torch profiler is active each op's lowering runs inside a
 ``record_function`` range named ``op<idx>:<type>@<file.py:line>`` (the JAX
 package's ``jax.named_scope`` of the same name), so a device trace maps a
@@ -73,15 +78,19 @@ def _propagate_seq_len(ctx: "LowerCtx", op: OpDesc):
 class LowerCtx:
     """Environment of one block run: ``env`` maps var name -> tensor.
     ``generator`` is the ``torch.Generator`` random ops draw from;
-    ``device`` is where ops create new tensors.  (The JAX package's parent
-    contexts for control-flow sub-blocks come with control flow.)"""
+    ``device`` is where ops create new tensors; ``frees`` is
+    :func:`plan_frees`' plan for the block, or None to keep every value.
+    (The JAX package's parent contexts for control-flow sub-blocks come
+    with control flow.)"""
 
     def __init__(self, block: BlockDesc, env: Dict[str, Any],
-                 generator: torch.Generator, device: torch.device):
+                 generator: torch.Generator, device: torch.device,
+                 frees: Optional[List[List[str]]] = None):
         self.block = block
         self.env = env
         self.generator = generator
         self.device = device
+        self.frees = frees
 
     def read(self, name: str):
         if name not in self.env:
@@ -143,9 +152,32 @@ def _lower_op(ctx: LowerCtx, op: OpDesc, index: Optional[int]):
     raise NotImplementedError(f"no lowering registered for op {op.type!r}{where}")
 
 
+def plan_frees(block: BlockDesc, keep) -> List[List[str]]:
+    """For each op of ``block``, the names no later op reads or writes:
+    their values may leave the environment once it has run.  Names in
+    ``keep`` (read after the block: its fetches, the state it writes) and
+    ``@SEQ_LEN`` lengths (read by name, not through a slot) never leave."""
+    last: Dict[str, int] = {}
+    for i, op in enumerate(block.ops):
+        for n in op.input_names() + op.output_names():
+            if n:
+                last[n] = i
+    dead: List[List[str]] = [[] for _ in block.ops]
+    for n, i in last.items():
+        if n not in keep and not n.endswith(SEQ_LEN_SUFFIX):
+            dead[i].append(n)
+    return dead
+
+
 def lower_block(ctx: LowerCtx, block: BlockDesc):
-    ops = block.ops
-    i = 0
+    """Lower ``block``'s ops in order (a group's updates in one call).  With
+    ``ctx.frees`` (:func:`plan_frees`), each value leaves the environment
+    after the last op that reads or writes it, so its memory goes back to
+    the allocator (during a CUDA graph's capture, to the graph's pool)
+    while the block runs: a training step then holds what it still needs,
+    not every activation and gradient it made."""
+    ops, frees = block.ops, ctx.frees
+    i = done = 0
     while i < len(ops):
         info = OPS.get(ops[i].type) if OPS.has(ops[i].type) else None
         if info is None or info.group_lower is None:
@@ -153,6 +185,13 @@ def lower_block(ctx: LowerCtx, block: BlockDesc):
             i += 1
         else:
             i = _lower_group(ctx, ops, i, info)
+        if frees is not None:
+            # every op before i has run (a group runs ops past its first out
+            # of order, but all of them before it returns)
+            for names in frees[done:i]:
+                for n in names:
+                    ctx.env.pop(n, None)
+            done = i
 
 
 def _lower_group(ctx: LowerCtx, ops: List[OpDesc], start: int, info) -> int:

@@ -1,0 +1,6 @@
+"""Dataset readers with the JAX package's sample schemas.  Only the
+synthetic generators are ported: each reader yields the same arrays from
+the same seed as the JAX package's synthetic branch, and nothing is
+downloaded or read from a cache."""
+from . import cifar, mnist  # noqa: F401
+from .common import DATA_HOME  # noqa: F401

@@ -35,6 +35,30 @@ class UniformInitializer(Initializer):
                    "min": self.low, "max": self.high, "seed": self.seed})
 
 
+class NormalInitializer(Initializer):
+    def __init__(self, loc: float = 0.0, scale: float = 1.0, seed: int = 0):
+        self.loc, self.scale, self.seed = loc, scale, seed
+
+    def __call__(self, var, block):
+        block.append_op(
+            "gaussian_random", outputs={"Out": var},
+            attrs={"shape": list(var.shape), "dtype": var.dtype,
+                   "mean": self.loc, "std": self.scale, "seed": self.seed})
+
+
+class TruncatedNormalInitializer(Initializer):
+    """A normal draw truncated to two standard deviations of the mean."""
+
+    def __init__(self, loc: float = 0.0, scale: float = 1.0, seed: int = 0):
+        self.loc, self.scale, self.seed = loc, scale, seed
+
+    def __call__(self, var, block):
+        block.append_op(
+            "truncated_gaussian_random", outputs={"Out": var},
+            attrs={"shape": list(var.shape), "dtype": var.dtype,
+                   "mean": self.loc, "std": self.scale, "seed": self.seed})
+
+
 def _fan_in_out(var):
     shape = var.shape
     if len(shape) == 0:
@@ -48,15 +72,47 @@ def _fan_in_out(var):
 
 
 class XavierInitializer(Initializer):
-    """Glorot uniform init.  The normal form needs ``gaussian_random``,
-    which is not ported yet."""
+    """Glorot init: uniform in +-sqrt(6 / (fan_in + fan_out)), or normal
+    with std sqrt(2 / (fan_in + fan_out))."""
 
-    def __init__(self, fan_in=None, fan_out=None, seed: int = 0):
-        self.fan_in, self.fan_out, self.seed = fan_in, fan_out, seed
+    def __init__(self, uniform: bool = True, fan_in=None, fan_out=None,
+                 seed: int = 0):
+        self.uniform, self.fan_in, self.fan_out, self.seed = (
+            uniform, fan_in, fan_out, seed)
 
     def __call__(self, var, block):
         fi, fo = _fan_in_out(var)
         fi = self.fan_in if self.fan_in is not None else fi
         fo = self.fan_out if self.fan_out is not None else fo
-        limit = math.sqrt(6.0 / (fi + fo))
-        UniformInitializer(-limit, limit, self.seed)(var, block)
+        if self.uniform:
+            limit = math.sqrt(6.0 / (fi + fo))
+            UniformInitializer(-limit, limit, self.seed)(var, block)
+        else:
+            std = math.sqrt(2.0 / (fi + fo))
+            NormalInitializer(0.0, std, self.seed)(var, block)
+
+
+class MSRAInitializer(Initializer):
+    """He (Kaiming) init: uniform in +-sqrt(6 / fan_in), or normal with std
+    sqrt(2 / fan_in)."""
+
+    def __init__(self, uniform: bool = True, fan_in=None, seed: int = 0):
+        self.uniform, self.fan_in, self.seed = uniform, fan_in, seed
+
+    def __call__(self, var, block):
+        fi, _ = _fan_in_out(var)
+        fi = self.fan_in if self.fan_in is not None else fi
+        if self.uniform:
+            limit = math.sqrt(6.0 / fi)
+            UniformInitializer(-limit, limit, self.seed)(var, block)
+        else:
+            std = math.sqrt(2.0 / fi)
+            NormalInitializer(0.0, std, self.seed)(var, block)
+
+
+Constant = ConstantInitializer
+Uniform = UniformInitializer
+Normal = NormalInitializer
+TruncatedNormal = TruncatedNormalInitializer
+Xavier = XavierInitializer
+MSRA = MSRAInitializer

@@ -3,17 +3,23 @@ Each builds the same ops, attrs and parameters as its namesake in the
 JAX package."""
 from __future__ import annotations
 
+from ..core.dtypes import DataType
 from ..layer_helper import LayerHelper
+from ..param_attr import ParamAttr
 
-# the names the JAX package's layers/nn.py exports; the other builders here
+# the names the JAX package's layers/nn.py exports, and the activations it
+# registers (the activation family, ``maxout``); the other builders here
 # (exp, abs, floor, elementwise_max, ...) are reached as layers.nn.<name>
-__all__ = ["fc", "embedding", "layer_norm", "dropout", "softmax", "cross_entropy",
-           "softmax_with_cross_entropy", "fused_fc_softmax_ce", "square_error_cost",
-           "mean", "mul", "matmul", "elementwise_add", "elementwise_sub",
-           "elementwise_mul", "elementwise_div", "reduce_sum", "reduce_mean",
-           "reduce_max", "reduce_min", "reduce_prod", "relu", "reshape", "transpose",
-           "concat", "split", "cast", "scale", "clip", "clip_by_norm", "log", "sqrt",
-           "square", "pow"]
+__all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm", "dropout",
+           "softmax", "cross_entropy", "softmax_with_cross_entropy", "fused_fc_softmax_ce",
+           "square_error_cost", "accuracy", "topk", "mean", "mul", "matmul",
+           "elementwise_add", "elementwise_sub", "elementwise_mul", "elementwise_div",
+           "reduce_sum", "reduce_mean", "reduce_max", "reduce_min", "reduce_prod", "relu",
+           "sigmoid", "tanh", "reshape", "transpose", "concat", "split", "cast", "scale",
+           "clip", "clip_by_norm", "log", "sqrt", "square", "prelu", "maxout",
+           "hard_sigmoid", "leaky_relu", "soft_relu", "elu", "relu6", "pow", "swish",
+           "gelu", "logsigmoid", "softplus", "softsign", "tanh_shrink", "softshrink",
+           "hard_shrink", "brelu", "stanh", "thresholded_relu", "mish", "silu", "exp_act"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -59,6 +65,98 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
         attrs={"is_sparse": is_sparse, "is_distributed": is_distributed,
                "padding_idx": -1 if padding_idx is None else padding_idx})
     return out
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, act=None,
+           use_cudnn=True, name=None):
+    """NCHW convolution with an OIHW filter drawn from N(0, sqrt(2 /
+    (kh * kw * C_in))), a bias a channel (unless ``bias_attr=False``) and
+    ``act``."""
+    from ..initializer import NormalInitializer
+    helper = LayerHelper("conv2d", input=input, param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    filter_size, stride, padding, dilation = (
+        [v, v] if isinstance(v, int) else v for v in (filter_size, stride, padding, dilation))
+    num_channels = input.shape[1]
+    filter_shape = [num_filters, num_channels // groups] + list(filter_size)
+    std = (2.0 / (filter_size[0] * filter_size[1] * num_channels)) ** 0.5
+    w = helper.create_parameter(helper.param_attr, shape=filter_shape,
+                                dtype=input.dtype,
+                                default_initializer=NormalInitializer(0.0, std))
+    pre_bias = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "conv2d", inputs={"Input": input, "Filter": w},
+        outputs={"Output": pre_bias},
+        attrs={"strides": stride, "paddings": padding, "dilations": dilation,
+               "groups": groups})
+    return helper.append_activation(_append_channel_bias(helper, pre_bias))
+
+
+def _append_channel_bias(helper, pre_bias):
+    """``pre_bias`` plus a [C] bias over axis 1, unless ``bias_attr`` is False."""
+    if helper.kwargs.get("bias_attr") is False:
+        return pre_bias
+    num_filters = pre_bias.shape[1]
+    b = helper.create_parameter(helper.bias_attr, shape=[num_filters],
+                                dtype=pre_bias.dtype, is_bias=True)
+    out = helper.create_variable_for_type_inference(pre_bias.dtype)
+    helper.append_op("elementwise_add", inputs={"X": pre_bias, "Y": b},
+                     outputs={"Out": out}, attrs={"axis": 1})
+    return out
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, ceil_mode=False,
+           exclusive=True, name=None):
+    helper = LayerHelper("pool2d", name=name)
+    pool_size, pool_stride, pool_padding = (
+        [v, v] if isinstance(v, int) else v for v in (pool_size, pool_stride, pool_padding))
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "pool2d", inputs={"X": input}, outputs={"Out": out},
+        attrs={"pooling_type": pool_type, "ksize": pool_size,
+               "strides": pool_stride, "paddings": pool_padding,
+               "global_pooling": global_pooling, "ceil_mode": ceil_mode,
+               "exclusive": exclusive})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               moving_mean_name=None, moving_variance_name=None, name=None):
+    """Batch normalization with a scale (1) and bias (0) a channel; the
+    running mean (0) and variance (1) are persistable, non-trainable
+    parameters that the op updates in place."""
+    from ..initializer import ConstantInitializer
+    helper = LayerHelper("batch_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    c = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    scale = helper.create_parameter(
+        helper.param_attr, shape=[c], dtype=input.dtype,
+        default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(helper.bias_attr, shape=[c],
+                                   dtype=input.dtype, is_bias=True)
+    mean = helper.create_parameter(
+        ParamAttr(name=moving_mean_name, trainable=False), shape=[c],
+        dtype=input.dtype, default_initializer=ConstantInitializer(0.0))
+    variance = helper.create_parameter(
+        ParamAttr(name=moving_variance_name, trainable=False), shape=[c],
+        dtype=input.dtype, default_initializer=ConstantInitializer(1.0))
+    mean.stop_gradient = True
+    variance.stop_gradient = True
+    saved_mean = helper.create_variable_for_type_inference(input.dtype, stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference(input.dtype, stop_gradient=True)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "batch_norm",
+        inputs={"X": input, "Scale": scale, "Bias": bias, "Mean": mean,
+                "Variance": variance},
+        outputs={"Y": out, "MeanOut": mean, "VarianceOut": variance,
+                 "SavedMean": saved_mean, "SavedVariance": saved_var},
+        attrs={"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+               "data_layout": data_layout})
+    return helper.append_activation(out)
 
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
@@ -155,6 +253,28 @@ def _unary_layer(op_type):
 
 
 relu = _unary_layer("relu")
+sigmoid = _unary_layer("sigmoid")
+tanh = _unary_layer("tanh")
+hard_sigmoid = _unary_layer("hard_sigmoid")
+leaky_relu = _unary_layer("leaky_relu")
+soft_relu = _unary_layer("soft_relu")
+elu = _unary_layer("elu")
+relu6 = _unary_layer("relu6")
+swish = _unary_layer("swish")
+gelu = _unary_layer("gelu")
+logsigmoid = _unary_layer("logsigmoid")
+softplus = _unary_layer("softplus")
+softsign = _unary_layer("softsign")
+tanh_shrink = _unary_layer("tanh_shrink")
+softshrink = _unary_layer("softshrink")
+hard_shrink = _unary_layer("hard_shrink")
+brelu = _unary_layer("brelu")
+stanh = _unary_layer("stanh")
+thresholded_relu = _unary_layer("thresholded_relu")
+mish = _unary_layer("mish")
+silu = _unary_layer("silu")
+exp_act = _unary_layer("exp_act")
+maxout = _unary_layer("maxout")
 log = _unary_layer("log")
 sqrt = _unary_layer("sqrt")
 square = _unary_layer("square")
@@ -322,4 +442,50 @@ def clip_by_norm(x, max_norm, name=None):
     out = helper.create_variable_for_type_inference(x.dtype)
     helper.append_op("clip_by_norm", inputs={"X": x}, outputs={"Out": out},
                      attrs={"max_norm": max_norm})
+    return out
+
+
+def topk(input, k, name=None):
+    """(values, indices) of the ``k`` largest entries of the last dim."""
+    helper = LayerHelper("top_k", name=name)
+    values = helper.create_variable_for_type_inference(input.dtype)
+    indices = helper.create_variable_for_type_inference(DataType.INT64, True)
+    helper.append_op("top_k", inputs={"X": input},
+                     outputs={"Out": values, "Indices": indices},
+                     attrs={"k": k})
+    return values, indices
+
+
+def accuracy(input, label, k=1, correct=None, total=None, name=None):
+    """``top_k`` of ``input``, then the share of rows whose top k hold the
+    label (``accuracy``)."""
+    helper = LayerHelper("accuracy", name=name)
+    _, indices = topk(input, k)
+    acc = helper.create_variable_for_type_inference("float32", True)
+    correct = correct or helper.create_variable_for_type_inference(DataType.INT32, True)
+    total = total or helper.create_variable_for_type_inference(DataType.INT32, True)
+    helper.append_op("accuracy",
+                     inputs={"Out": input, "Indices": indices, "Label": label},
+                     outputs={"Accuracy": acc, "Correct": correct, "Total": total})
+    return acc
+
+
+def prelu(x, mode="all", param_attr=None, name=None):
+    """max(0, x) + alpha * min(0, x) with a learned alpha (0.25 at start):
+    one value (``all``), one a channel (``channel``) or one an element of
+    a row (``element``)."""
+    from ..initializer import ConstantInitializer
+    helper = LayerHelper("prelu", param_attr=param_attr, name=name)
+    if mode == "all":
+        alpha_shape = [1]
+    elif mode == "channel":
+        alpha_shape = [x.shape[1]]
+    else:
+        alpha_shape = list(x.shape[1:])
+    alpha = helper.create_parameter(
+        helper.param_attr, shape=alpha_shape, dtype=x.dtype,
+        default_initializer=ConstantInitializer(0.25))
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("prelu", inputs={"X": x, "Alpha": alpha},
+                     outputs={"Out": out}, attrs={"mode": mode})
     return out

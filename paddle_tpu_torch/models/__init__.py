@@ -1,1 +1,1 @@
-from . import transformer  # noqa: F401
+from . import mnist, resnet, transformer, vgg  # noqa: F401

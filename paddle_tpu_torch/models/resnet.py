@@ -1,0 +1,94 @@
+"""ResNet for ImageNet-class and cifar10 input, NCHW, built through the
+layers API as the JAX package's ``models/resnet.py`` builds it: conv +
+batch_norm units, basic and bottleneck blocks, a max pool after the stem
+and a global average pool before the classifier.  ``train_network`` is
+the step ``bench.py`` headlines (depth 50 at 224 x 224, 1,000 classes)."""
+from .. import layers
+
+
+def conv_bn_layer(input, ch_out, filter_size, stride, padding, act="relu",
+                  is_test=False):
+    conv = layers.conv2d(input=input, num_filters=ch_out,
+                         filter_size=filter_size, stride=stride,
+                         padding=padding, act=None, bias_attr=False)
+    return layers.batch_norm(input=conv, act=act, is_test=is_test)
+
+
+def _shortcut(input, ch_in, ch_out, stride, is_test=False):
+    if stride != 1 or ch_in != ch_out:
+        return conv_bn_layer(input, ch_out, 1, stride, 0, act=None,
+                             is_test=is_test)
+    return input
+
+
+def basicblock(input, ch_in, ch_out, stride, is_test=False):
+    short = _shortcut(input, ch_in, ch_out, stride, is_test=is_test)
+    conv1 = conv_bn_layer(input, ch_out, 3, stride, 1, is_test=is_test)
+    conv2 = conv_bn_layer(conv1, ch_out, 3, 1, 1, act=None, is_test=is_test)
+    return layers.elementwise_add(x=short, y=conv2, act="relu")
+
+
+def bottleneck(input, ch_in, ch_out, stride, is_test=False):
+    short = _shortcut(input, ch_in, ch_out * 4, stride, is_test=is_test)
+    conv1 = conv_bn_layer(input, ch_out, 1, stride, 0, is_test=is_test)
+    conv2 = conv_bn_layer(conv1, ch_out, 3, 1, 1, is_test=is_test)
+    conv3 = conv_bn_layer(conv2, ch_out * 4, 1, 1, 0, act=None,
+                          is_test=is_test)
+    return layers.elementwise_add(x=short, y=conv3, act="relu")
+
+
+def _layer_warp(block_func, input, ch_in, ch_out, count, stride,
+                is_test=False):
+    res_out = block_func(input, ch_in, ch_out, stride, is_test=is_test)
+    ch_in = ch_out * (4 if block_func is bottleneck else 1)
+    for _ in range(1, count):
+        res_out = block_func(res_out, ch_in, ch_out, 1, is_test=is_test)
+    return res_out
+
+
+DEPTHS = {18: ([2, 2, 2, 2], basicblock),
+          34: ([3, 4, 6, 3], basicblock),
+          50: ([3, 4, 6, 3], bottleneck),
+          101: ([3, 4, 23, 3], bottleneck),
+          152: ([3, 8, 36, 3], bottleneck)}
+
+
+def resnet_imagenet(input, class_dim=1000, depth=50, is_test=False):
+    """ResNet-18/34 (basic blocks) or -50/101/152 (bottlenecks)."""
+    stages, block_func = DEPTHS[depth]
+    conv1 = conv_bn_layer(input, ch_out=64, filter_size=7, stride=2,
+                          padding=3, is_test=is_test)
+    pool1 = layers.pool2d(input=conv1, pool_type="max", pool_size=3,
+                          pool_stride=2, pool_padding=1)
+    ch_in = 64
+    res = pool1
+    for i, count in enumerate(stages):
+        stride = 1 if i == 0 else 2
+        res = _layer_warp(block_func, res, ch_in, 64 * (2 ** i), count,
+                          stride, is_test=is_test)
+        ch_in = 64 * (2 ** i) * (4 if block_func is bottleneck else 1)
+    pool2 = layers.pool2d(input=res, pool_type="avg", global_pooling=True)
+    return layers.fc(input=pool2, size=class_dim, act=None)
+
+
+def resnet_cifar10(input, class_dim=10, depth=32, is_test=False):
+    """6n+2 layers of basic blocks over 16, 32 and 64 channels."""
+    assert (depth - 2) % 6 == 0
+    n = (depth - 2) // 6
+    conv1 = conv_bn_layer(input, ch_out=16, filter_size=3, stride=1,
+                          padding=1, is_test=is_test)
+    res1 = _layer_warp(basicblock, conv1, 16, 16, n, 1, is_test=is_test)
+    res2 = _layer_warp(basicblock, res1, 16, 32, n, 2, is_test=is_test)
+    res3 = _layer_warp(basicblock, res2, 32, 64, n, 2, is_test=is_test)
+    pool = layers.pool2d(input=res3, pool_type="avg", global_pooling=True)
+    return layers.fc(input=pool, size=class_dim, act=None)
+
+
+def train_network(image, label, class_dim=1000, depth=50, is_test=False):
+    """(mean softmax cross-entropy, top-1 accuracy) of ``resnet_imagenet``."""
+    logits = resnet_imagenet(image, class_dim=class_dim, depth=depth,
+                             is_test=is_test)
+    loss = layers.softmax_with_cross_entropy(logits=logits, label=label)
+    avg_loss = layers.mean(loss)
+    acc = layers.accuracy(input=layers.softmax(logits), label=label)
+    return avg_loss, acc

@@ -1,4 +1,4 @@
 """Op lowerings; importing this package registers every op type."""
 from . import (activation_ops, attention_ops, fused_ce, kernel_ops,  # noqa: F401
-               math_ops, nn_ops, optimizer_ops, quantize_ops, random_ops,
-               tensor_ops)
+               math_ops, metric_ops, nn_ops, optimizer_ops, quantize_ops,
+               random_ops, tensor_ops)

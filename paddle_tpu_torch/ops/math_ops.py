@@ -140,8 +140,15 @@ def _reduce_prod(x, dims=None, keep=False):
     return x
 
 
+def _reduce_mean(x, dims=None, keep=False):
+    """``torch.mean``; an integer tensor's mean is float32, as ``jnp.mean``'s."""
+    if not (x.is_floating_point() or x.is_complex()):
+        x = x.to(torch.float32)
+    return torch.mean(x) if dims is None else torch.mean(x, dims, keep)
+
+
 _make_reduce("reduce_sum", torch.sum)
-_make_reduce("reduce_mean", torch.mean)
+_make_reduce("reduce_mean", _reduce_mean)
 _make_reduce("reduce_max", torch.amax)
 _make_reduce("reduce_min", torch.amin)
 _make_reduce("reduce_prod", _reduce_prod)

@@ -1,6 +1,6 @@
 """Tensor creation, dtype and shape op lowerings: fill_constant (and its
 batch-size-like and zeros-like forms), assign, cast, reshape, transpose,
-concat and split.
+concat, split and top_k.
 
 A constant of a 64-bit type is made in its 32-bit type, as the JAX
 package's ``jnp.full`` makes it with 64-bit mode off (its default): an
@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.dtypes import coerce_feed_dtype, convert_dtype
+from ..core.dtypes import DataType, coerce_feed_dtype, convert_dtype
 from ..core.registry import register_infer_shape, register_lowering
 from .common import in_dtype, in_shape, normalize_axis, same_shape, set_out_shape
 
@@ -142,8 +142,20 @@ def _split(ctx, op):
     x = ctx.read_slot(op, "X")
     axis = normalize_axis(op.attr("axis", 0), x.ndim)
     sections = op.attr("sections")
-    parts = torch.split(x, list(sections) if sections else x.shape[axis] // op.attr("num", 0),
-                        dim=axis)
+    if sections:
+        # cut at the offsets of sections[:-1]: the last part takes the rest,
+        # whatever the last section says (the JAX lowering's jnp.split)
+        offsets, at = [], 0
+        for s in sections[:-1]:
+            at += int(s)
+            offsets.append(at)
+        parts = torch.tensor_split(x, offsets, dim=axis)
+    else:
+        num = op.attr("num", 0)
+        if x.shape[axis] % num:
+            raise ValueError(f"split: dim {axis} of size {x.shape[axis]} does not divide "
+                             f"into {num} equal parts")
+        parts = torch.tensor_split(x, num, dim=axis)
     for name, part in zip(op.output("Out"), parts):
         ctx.write(name, part)
 
@@ -162,3 +174,21 @@ def _split_shape(block, op):
         vd = block.find_var(name)
         if vd is not None:
             vd.shape = tuple(s)
+
+
+@register_lowering("top_k", no_gradient=True)
+def _top_k(ctx, op):
+    """The ``k`` largest entries of the last dim, in descending order, and
+    their indices.  The indices are declared int64 and made int32, as the
+    JAX package makes them with 64-bit mode off."""
+    vals, idx = torch.topk(ctx.read_slot(op, "X"), op.attr("k", 1), dim=-1)
+    ctx.write_slot(op, "Out", vals)
+    ctx.write_slot(op, "Indices", idx.to(coerce_feed_dtype(DataType.INT64).torch_dtype))
+
+
+@register_infer_shape("top_k")
+def _top_k_shape(block, op):
+    sh = list(in_shape(block, op, "X"))
+    sh[-1] = op.attr("k", 1)
+    set_out_shape(block, op, "Out", sh, in_dtype(block, op, "X"))
+    set_out_shape(block, op, "Indices", sh, DataType.INT64)

@@ -11,6 +11,7 @@ verify="off").run(program, fetch_list=...)`` directly.
 from .base import (PASSES, PassContext, PassPipeline, PassResult,
                    PipelineResult, ProgramPass, default_pipeline,
                    make_pipeline, register_pass)
+from .bn_fold import BnFoldPass
 # the dtype-policy pass lives in paddle_tpu_torch/amp but registers into
 # the same PASSES registry
 from ..amp.passes import QuantInt8Pass
@@ -30,7 +31,7 @@ def __getattr__(name):
 
 
 __all__ = [
-    "PASSES", "KernelPolicy", "PallasKernelsPass", "PassContext",
+    "PASSES", "BnFoldPass", "KernelPolicy", "PallasKernelsPass", "PassContext",
     "PassPipeline", "PassResult", "PipelineResult", "ProgramPass",
     "QuantInt8Pass", "default_pipeline", "make_pipeline", "register_pass",
 ]

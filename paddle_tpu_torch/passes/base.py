@@ -13,16 +13,18 @@ passes write are part of the ProgramDesc, and the tests compare the
 rewritten ProgramDescs of both packages, so they keep the JAX package's
 names.
 
+A pass that rewrites parameter *values* (``bn-fold``) sets
+``requires_scope`` and reads and writes ``PassContext.scope``; a pipeline
+run without a scope skips it.
+
 Not ported yet:
 * the analysis verifier that the JAX pipeline runs before and after every
   pass (``verify="error"``/``"warn"``): here those modes raise
   ``NotImplementedError`` and the pipelines the port builds use
   ``verify="off"`` (ROADMAP.md, queue A item 7);
-* the four seed passes of ``default_pipeline`` (``fuse-fc-softmax-ce``,
-  ``bn-fold``, ``dead-op-elim``, ``donation-insert``), so
-  ``make_pipeline(True)`` raises;
-* the passes' access to parameter values (``scope``, ``requires_scope``;
-  bn-fold is the first pass that needs it).
+* three of the four seed passes of ``default_pipeline``
+  (``fuse-fc-softmax-ce``, ``dead-op-elim``, ``donation-insert``; the
+  fourth, ``bn-fold``, is ported), so ``make_pipeline(True)`` raises.
 
 Each pipeline run counts into the telemetry registry's ``"passes"`` scope
 (``pipelines_run``, ``programs_rewritten``, ``ops_removed``,
@@ -54,8 +56,8 @@ _VERIFIER_MISSING = (
     "the analysis verifier is not ported yet (ROADMAP.md, queue A item 7: "
     "analysis and passes); build the pipeline with verify='off'")
 
-_SEED_PASSES = ("fuse-fc-softmax-ce", "bn-fold", "dead-op-elim",
-                "donation-insert")
+# the seed passes of the JAX package's default pipeline still to port
+_UNPORTED_SEED_PASSES = ("fuse-fc-softmax-ce", "dead-op-elim", "donation-insert")
 
 
 def op_info(op: OpDesc) -> dict:
@@ -69,12 +71,15 @@ def op_info(op: OpDesc) -> dict:
 @dataclass
 class PassContext:
     """What one pipeline run knows about the program being rewritten.
-    ``feed_names`` and ``fetch_names`` are vars no pass may remove."""
+    ``feed_names`` and ``fetch_names`` are vars no pass may remove;
+    ``scope`` holds the parameter values (None: passes that need it are
+    skipped)."""
 
     desc: ProgramDesc
     program: Any = None                    # framework Program, if any
     fetch_names: List[str] = field(default_factory=list)
     feed_names: Optional[Set[str]] = None
+    scope: Any = None
 
 
 @dataclass
@@ -113,6 +118,8 @@ class ProgramPass:
     :meth:`remove_ops`."""
 
     name: str = "?"
+    # reads or writes parameter values through ``PassContext.scope``
+    requires_scope: bool = False
 
     def config(self) -> dict:
         """Semantic configuration, keyed into the pipeline fingerprint."""
@@ -178,7 +185,7 @@ def _resolve(p) -> ProgramPass:
     if isinstance(p, type) and issubclass(p, ProgramPass):
         return p()
     if isinstance(p, str):
-        if p in _SEED_PASSES:
+        if p in _UNPORTED_SEED_PASSES:
             raise NotImplementedError(
                 f"pass {p!r} is not ported yet (ROADMAP.md, queue A item 7)")
         if p not in PASSES:
@@ -251,8 +258,10 @@ class PassPipeline:
                 f", verify={self.verify!r})")
 
     def run(self, program, *, fetch_list: Optional[Sequence] = None,
-            feed_names: Optional[Iterable[str]] = None, clone: bool = True):
+            feed_names: Optional[Iterable[str]] = None, scope=None,
+            clone: bool = True):
         """Apply every pass in order.  Returns ``(program, result)``.
+        A pass that ``requires_scope`` is skipped when ``scope`` is None.
 
         With ``clone=True`` (default) the input program is never mutated:
         the rewrite happens on a clone that keeps the input's ``uid`` but
@@ -278,7 +287,8 @@ class PassPipeline:
         ctx = PassContext(
             desc=desc, program=work if is_framework else None,
             fetch_names=fetch_names,
-            feed_names=set(feed_names) if feed_names is not None else None)
+            feed_names=set(feed_names) if feed_names is not None else None,
+            scope=scope)
         result = PipelineResult(
             fingerprint=self.fingerprint(), program_fp_before=fp_before,
             version_before=v_before, ops_before=sum(len(b.ops) for b in desc.blocks))
@@ -286,6 +296,10 @@ class PassPipeline:
         for p in self.passes:
             pr = PassResult(name=p.name)
             t_pass = time.perf_counter()
+            if p.requires_scope and scope is None:
+                pr.skipped = "needs a Scope (parameter values)"
+                result.passes.append(pr)
+                continue
             v0 = desc.version
             p.apply(ctx, pr)
             if pr.changed and desc.version == v0:
@@ -348,9 +362,9 @@ def export_pipeline_result(result: PipelineResult,
 
 
 def default_pipeline(verify: str = "error") -> PassPipeline:
-    """The JAX package's seed pipeline; its passes are not ported yet."""
+    """The JAX package's seed pipeline; three of its passes are not ported yet."""
     raise NotImplementedError(
-        f"the seed passes {list(_SEED_PASSES)} are not ported yet "
+        f"the seed passes {list(_UNPORTED_SEED_PASSES)} are not ported yet "
         f"(ROADMAP.md, queue A item 7); name the passes to run instead")
 
 

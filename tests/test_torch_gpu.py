@@ -1844,3 +1844,62 @@ def test_int8_matmul_program_launches_k4_once_a_pass(cuda):
     assert np.array_equal(got, again) and np.array_equal(got, sim.infer(feed)[0])
     want = f32.infer(feed)[0]
     assert np.linalg.norm(got - want) <= 0.05 * np.linalg.norm(want)
+
+
+# ResNet-18 at 32 x 32, batch 8, 10 classes (bench.py's shapes off the TPU):
+# two Momentum steps on the card (TF32 off), each against a step of the port
+# on the CPU from the card's state before it; each state tensor's change in
+# the step norm-relative to the CPU's, and the loss relative (chip_smoke.py
+# phase 21 (d), where the readings stand).
+RESNET18_CHANGE_NREL = 1e-3
+RESNET18_LOSS_RTOL = 1e-4
+
+
+def test_resnet18_on_the_card_matches_the_cpu(cuda):
+    """chip_smoke.py phase 21 (d): the CNN path's ops (conv2d through
+    cuDNN, pool2d, batch_norm and its grad, momentum) on the card against
+    the CPU, and a max pool over a window of ties routing its gradient as
+    the CPU does."""
+    from paddle_tpu_torch.models import resnet
+    torch.backends.cudnn.allow_tf32 = False
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        image = layers.data(name="image", shape=[3, 32, 32], dtype="float32")
+        label = layers.data(name="label", shape=[1], dtype="int64")
+        loss, _ = resnet.train_network(image, label, class_dim=10, depth=18)
+        pt.optimizer.MomentumOptimizer(learning_rate=0.01, momentum=0.9).minimize(loss)
+    rs = np.random.RandomState(1)
+    feed = {"image": rs.randn(8, 3, 32, 32).astype(np.float32),
+            "label": rs.randint(0, 10, (8, 1)).astype(np.int64)}
+    scopes = {"cpu": pt.Scope(), "cuda": pt.Scope()}
+    exes = {"cpu": pt.Executor(pt.CPUPlace()), "cuda": pt.Executor(pt.CUDAPlace(0))}
+    for k in scopes:
+        exes[k].run(startup, scope=scopes[k])
+    persist = [v.name for v in main.list_vars() if v.persistable]
+    for n in persist:
+        scopes["cuda"].find_var(n).copy_(scopes["cpu"].find_var(n))
+    for _ in range(2):
+        before = {n: scopes["cuda"].find_var(n).cpu().numpy().copy() for n in persist}
+        for n, a in before.items():
+            scopes["cpu"].find_var(n).copy_(torch.from_numpy(a))
+        losses = {k: float(exes[k].run(main, feed=feed, fetch_list=[loss], scope=scopes[k])[0])
+                  for k in scopes}
+        assert abs(losses["cuda"] - losses["cpu"]) <= RESNET18_LOSS_RTOL * abs(losses["cpu"])
+        for n in persist:
+            d_cpu = scopes["cpu"].find_var(n).numpy() - before[n]
+            d_card = scopes["cuda"].find_var(n).cpu().numpy() - before[n]
+            if np.any(d_cpu):
+                assert np.linalg.norm(d_card - d_cpu) <= \
+                    RESNET18_CHANGE_NREL * np.linalg.norm(d_cpu), n
+
+    grads = {}
+    for k, place in (("cpu", pt.CPUPlace()), ("cuda", pt.CUDAPlace(0))):
+        tmain = pt.Program()
+        with pt.unique_name.guard(), pt.program_guard(tmain, pt.Program()):
+            x = layers.data(name="x", shape=[2, 3, 7, 7], append_batch_size=False,
+                            stop_gradient=False)
+            y = layers.pool2d(x, pool_size=3, pool_stride=2, pool_padding=1)
+            (gx,) = pt.calc_gradient(layers.reduce_sum(y), [x])
+        grads[k] = pt.Executor(place).run(tmain, feed={"x": np.ones((2, 3, 7, 7), np.float32)},
+                                          fetch_list=[gx], scope=pt.Scope())[0]
+    np.testing.assert_array_equal(grads["cuda"], grads["cpu"])

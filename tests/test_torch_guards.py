@@ -69,6 +69,15 @@ def test_the_import_scan_covers_the_optimizer_slice_modules():
         assert f"paddle_tpu_torch/{path}" in scanned, path
 
 
+def test_the_import_scan_covers_the_cnn_slice_modules():
+    scanned = {str(p.relative_to(REPO)) for p in (REPO / "paddle_tpu_torch").rglob("*.py")}
+    for path in ("nets.py", "initializer.py", "models/resnet.py", "models/mnist.py",
+                 "models/vgg.py", "passes/bn_fold.py", "ops/metric_ops.py",
+                 "ops/activation_ops.py", "ops/random_ops.py", "dataset/__init__.py",
+                 "dataset/common.py", "dataset/mnist.py", "dataset/cifar.py"):
+        assert f"paddle_tpu_torch/{path}" in scanned, path
+
+
 def test_trainer_and_inferencer_without_gpu_raise_instead_of_using_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
