@@ -197,8 +197,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
     (each kernel booked to the op range its launch ran in), of it the
     "other" kernels' (outside cuBLAS and the hand-written kernels); then (g) ``resource_sampler.sample_once()``'s device
     bytes in use equal to ``torch.cuda.memory_allocated()``, and (e) the
-    record families present and ``tools/stats.py``, ``profile_report.py``,
-    ``compile_report.py``, ``pass_report.py`` and ``trace_tool.py
+    record families present (``memplan_`` too: the Trainer's step-0 plan)
+    and ``tools/stats.py``, ``profile_report.py``, ``compile_report.py``,
+    ``pass_report.py``, ``memory_report.py`` and ``trace_tool.py
     --strict`` each exiting 0 over the directory.  The kernels line
     carries each kernel's launches under the profiles as
     ``launches_profile``;
@@ -254,7 +255,29 @@ Phases, each fatal on failure (non-zero exit, no result line):
     ResNet's path launches none, ``launches_resnet`` 0); (f) (b)'s trained
     model's ``clone(for_test=True)`` served at 8 rows with and without
     ``passes=["bn-fold"]``, the logits within the fold tolerance, a batch's
-    latency both ways.
+    latency both ways;
+22. static analysis (``phase_analysis``): (a) phase 20's trained model's
+    ``clone(for_test=True)`` at 64 x 256 run with ``Executor(passes=True,
+    validate="error")`` and without passes from the same state and feed,
+    each as graph replays: the default pipeline fuses the one loss head,
+    K7 launches once a pass and no bf16 instance launches
+    (``launches_passes`` on the kernels line, counted apart), the
+    fused loss within ``EVAL_LOSS_RTOL`` of the unfused one, both peaks and
+    eval times printed; (b) every main path's program as it runs (float32
+    and int8 serving, the fused float32 step and its bf16 twin, the
+    reference step, bf16 and float32 ResNet-50, after the port's rewrites)
+    verified by ``analysis.verify`` inside its phase, zero errors, its
+    counts by code and the verifier's host seconds printed; (c) each of
+    those programs' ``plan_memory`` peak beside the peak an eager run of
+    it measured in its phase (the scope's state its ops touch and the feeds
+    already on the card, plus ``torch.cuda.max_memory_allocated`` over the
+    run after ``reset_peak_memory_stats`` less what was allocated before),
+    the ratio within ``analysis/measured.py``'s ``PLAN_BAND``; (d)
+    ``memory_budget`` at 0.9 x the reference step's plan raising
+    ``PredictedOOMError`` with ``torch.cuda.memory_allocated`` unchanged and
+    no cache entry, a ``ServingSession`` budget between two buckets' plans
+    rejecting the larger buckets with the survivors' answers bit-equal to an
+    unbudgeted session's, and the Trainer's step-0 ``memplan_`` record.
 
 Phase 9 also takes the 2 x 256 step in bf16 (``enable_amp``) with cuBLAS's
 reduced-precision bf16 reductions allowed (PyTorch's default) and not, and
@@ -863,9 +886,17 @@ def _gate_profile_launches(prof, want, label):
     print(f"{label}: device launches a batch from the profile {got} (gate {want})")
 
 
-def _replay_vs_eager(inf, feed, label):
+def _replay_vs_eager(inf, feed, label, key=None):
+    """The batch's replay against its eager run; with ``key``, the eager run
+    is phase 22's measured run of the serving program."""
+    import torch
     (got,) = inf.infer(feed)
-    (want,) = inf.exe._run_eager(inf.inference_program, feed, inf.predict_vars, inf.scope)
+
+    def eager():
+        return inf.exe._run_eager(inf.inference_program, feed, inf.predict_vars, inf.scope)
+    (want,) = eager() if key is None else _analysis_path(
+        torch, key, inf.exe, inf.inference_program, feed, [v.name for v in inf.predict_vars],
+        inf.scope, eager)
     diff = float(np.abs(got - want).max())
     print(f"{label}: graph replay vs the eager run of the same {feed['src'].shape[0]}-row batch: "
           f"max abs diff {diff:.3e} ({'bit-equal' if diff == 0 else 'not bit-equal'}; "
@@ -896,7 +927,7 @@ def phase_serving(torch, card):
           f"diff {float(np.abs(alone - res['answers'][0]).max()):.3e}")
 
     feed8 = _batch_feed(reqs)
-    res["fp32_feed8"] = _replay_vs_eager(inf, feed8, "float32 serving")
+    res["fp32_feed8"] = _replay_vs_eager(inf, feed8, "float32 serving", key="serving_float32")
     prof = _profile(torch, lambda: inf.infer(feed8), "serving_profile", card,
                     {"rows": 8, "path": "graph"})
     _gate_profile_launches(prof, {"flash_attn_fwd (K1)": K1_PER_BATCH,
@@ -1154,7 +1185,7 @@ def phase_int8_serving(torch, card, f32_res):
           f"{f32_res['batch_latency_ms']:.2f} ms [{card}]")
 
     feed8 = _batch_feed(reqs)
-    got = _replay_vs_eager(inf, feed8, "int8 serving")
+    got = _replay_vs_eager(inf, feed8, "int8 serving", key="serving_int8")
     sim = pt.Inferencer(_infer_func, place=pt.CUDAPlace(0), amp=amp, kernels=False)
     pt.params_from_numpy(params, sim.scope, "cuda")
     (want,) = sim.infer(feed8)
@@ -2069,7 +2100,7 @@ def phase_training(torch, card, sgd=False):
     _gate_step_profile(prof, _step_families(sgd), label)
     out = _step_graph_vs_eager(torch, exe, main, feed, loss, scope,
                                "float32 SGD" if sgd else "float32 Adam", card,
-                               _step_families(sgd))
+                               _step_families(sgd), key=None if sgd else "fused_step_float32")
     if not sgd:
         _profile_training_step(torch, exe, main, feed, loss, scope, "float32 Adam step", card,
                                out["wall_ms"]["graph"]["median"])
@@ -2077,7 +2108,8 @@ def phase_training(torch, card, sgd=False):
     return launches, steps
 
 
-def _step_graph_vs_eager(torch, exe, main, feed, loss, scope, label, card, families):
+def _step_graph_vs_eager(torch, exe, main, feed, loss, scope, label, card, families,
+                         key=None):
     """Phase 17, for one training path (run inside phases 7, 12 and 14,
     before each drops its executor): the step through its graph
     (``Executor.run``, a replay) against the same step op by op
@@ -2086,7 +2118,8 @@ def _step_graph_vs_eager(torch, exe, main, feed, loss, scope, label, card, famil
     host microseconds, the wall a step and tokens/s through the graph and
     eagerly in alternating turns, the peak device memory of a step each
     way, and a profile of each (device idle share; the eager step's
-    launches gated as the replay's)."""
+    launches gated as the replay's).  With ``key``, the eager step's peak
+    is phase 22's measured run of the step program."""
     entry = _train_entry(exe, [loss.name])
     persist = [v.name for v in main.list_vars() if v.persistable]
     state0 = {n: scope.find_var(n).clone() for n in persist}
@@ -2117,10 +2150,15 @@ def _step_graph_vs_eager(torch, exe, main, feed, loss, scope, label, card, famil
         for name, fn in (("graph", graph), ("eager", eager)):
             walls[name] += _host_ms(torch, fn, 1)
     peak = {}
+    if key is not None:
+        rec = _analysis_prepare(key, exe, main, feed, [loss.name], scope)
     for name, fn in (("graph", graph), ("eager", eager)):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fn()
+        if key is not None and name == "eager":
+            _analysis_measure(rec, scope, feed, fn)
+        else:
+            fn()
         torch.cuda.synchronize()
         peak[name] = {"max_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
                       "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30}
@@ -2697,7 +2735,7 @@ def phase_bf16_step(torch, card):
         print(f"bf16 training: device launches a step of kernels whose names carry bf16, by "
               f"family: {json.dumps(prof['bf16_named_launches'])}")
         out = _step_graph_vs_eager(torch, exe, main, feed, loss, scope, "bf16 Adam", card,
-                                   _step_families())
+                                   _step_families(), key="fused_step_bf16")
         _profile_training_step(torch, exe, main, feed, loss, scope, "bf16 Adam step", card,
                                out["wall_ms"]["graph"]["median"], bf16=True)
         _device_trace_step(torch, exe, main, feed, loss, scope, "bf16 Adam step", card)
@@ -3168,7 +3206,7 @@ def phase_trainer(torch, card):
 PHASE19 = {"dir": None, "launches_profile": {}, "launches_profile_bf16": {}}
 # every record family phase 19 must leave in its directory
 PHASE19_FAMILIES = ("steps_", "compiles_", "profile_", "costmodel_", "gauges_", "passes_",
-                    "serving_")
+                    "serving_", "memplan_")
 PROFILE_SAMPLES = 3
 PROFILE_COVERAGE = 0.9     # attributed / replay wall, the JAX package's own bar
 # the launches one op-by-op replay pass of the training step makes: the
@@ -3486,7 +3524,7 @@ def phase_observability(torch, card):
         raise AssertionError(f"phase 19's directory lacks {missing}")
     out = {}
     for name, args in (("stats", []), ("profile_report", []), ("compile_report", []),
-                       ("pass_report", []), ("trace_tool", ["--strict"])):
+                       ("pass_report", []), ("memory_report", []), ("trace_tool", ["--strict"])):
         t0 = time.perf_counter()
         p = _tool(name, *args)
         out[name] = {"rc": p.returncode, "s": time.perf_counter() - t0}
@@ -3496,6 +3534,33 @@ def phase_observability(torch, card):
         if p.returncode != 0:
             raise AssertionError(f"tools/{name}.py exited {p.returncode}: {p.stderr[-2000:]}")
     return out
+
+
+# ----------------------------------------------- phase 22 (b)-(c): in-phase hooks
+
+# name -> the verifier's counts and seconds, the plan and the measured peak
+# of each main path's program, filled inside the phases that run them
+# (paddle_tpu_torch/analysis/measured.py, whose PLAN_BAND they are held in)
+PHASE22 = {"paths": {}}
+
+
+def _analysis_prepare(key, exe, program, feed, fetch_names, scope):
+    """Phase 22 (b)-(c)'s record of the program ``exe`` runs for
+    ``program`` (``measured.prepare``), kept under ``key``."""
+    from paddle_tpu_torch.analysis import measured
+    rec = PHASE22["paths"][key] = measured.prepare(
+        f"phase 22 (b) {key}", exe, program, feed, fetch_names, scope)
+    return rec
+
+
+def _analysis_measure(rec, scope, feed, run):
+    from paddle_tpu_torch.analysis import measured
+    return measured.measure(rec, scope, feed, run)
+
+
+def _analysis_path(torch, key, exe, program, feed, fetch_names, scope, run):
+    rec = _analysis_prepare(key, exe, program, feed, fetch_names, scope)
+    return _analysis_measure(rec, scope, feed, run)
 
 
 # ------------------------------------------------- phase 20: the reference path
@@ -3610,6 +3675,12 @@ def _launch_snapshot(counters):
     return {k: f.launches for k, f in counters.items()}
 
 
+def _bf16_snapshot(counters):
+    """The bf16 instances' counts (0 for a wrapper with none); each is also
+    in its wrapper's ``launches``."""
+    return {k: getattr(f, "bf16_launches", 0) for k, f in counters.items()}
+
+
 def _delta(after, before):
     return {k: after[k] - before[k] for k in after}
 
@@ -3652,6 +3723,7 @@ def phase_reference_path(torch, card):
     if n_params != N_PARAMS or by_type.get("softmax_with_cross_entropy") != 1 \
             or by_type.get("fused_fc_softmax_ce"):
         raise AssertionError(f"phase 20 (a): {n_params} parameters, ops {by_type}")
+    rec22 = _analysis_prepare("reference_step", exe, main, feed, [loss.name, lr.name], scope)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for f in counters.values():
@@ -3661,7 +3733,8 @@ def phase_reference_path(torch, card):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         if step == 1:
-            lv, rv = exe._run_eager(main, feed, [loss, lr], scope)
+            lv, rv = _analysis_measure(rec22, scope, feed,
+                                       lambda: exe._run_eager(main, feed, [loss, lr], scope))
         else:
             lv, rv = exe.run(main, feed=feed, fetch_list=[loss, lr], scope=scope)
         torch.cuda.synchronize()
@@ -3724,6 +3797,9 @@ def phase_reference_path(torch, card):
     res["a"]["profile"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share",
                                                 "by_family_ms", "by_family_launches")}
     start = {n: scope.find_var(n).to("cpu", copy=True) for n in persist}
+    # phase 22 (a) evaluates this trained model, (d) budgets its step
+    PHASE22["ref"] = {"main": main, "startup": startup, "loss": loss.name, "state": start,
+                      "feed": feed}
     del exe, scope
     _free_trainer(torch, "phase 20 (a)")
 
@@ -4160,16 +4236,21 @@ def _state_names(main, scope):
     return persist, stats, velocities
 
 
-def _state_vs_eager(torch, exe, main, feed, fetch, scope, persist, kinds, label, card):
+def _state_vs_eager(torch, exe, main, feed, fetch, scope, persist, kinds, label, card, key=None):
     """Phase 21 (c): a replayed step against an op-by-op step from the same
     state, printed by kind of state tensor; the loss must be bit-equal.
-    Returns the state tensors that differ and the largest difference."""
+    Returns the state tensors that differ and the largest difference.  With
+    ``key``, the op-by-op step is phase 22's measured run of the step."""
     state0 = {n: scope.find_var(n).clone() for n in persist}
     g_out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
     after = {n: scope.find_var(n).clone() for n in persist}
     for n, t in state0.items():
         scope.find_var(n).copy_(t)
-    e_out = exe._run_eager(main, feed, fetch, scope)
+    if key is None:
+        e_out = exe._run_eager(main, feed, fetch, scope)
+    else:
+        e_out = _analysis_path(torch, key, exe, main, feed, [v.name for v in fetch], scope,
+                               lambda: exe._run_eager(main, feed, fetch, scope))
     differ = {n: float((after[n].double() - scope.find_var(n).double()).abs().max())
               for n in persist if not torch.equal(after[n], scope.find_var(n))}
     fetch_equal = all(np.array_equal(a, b) for a, b in zip(g_out, e_out))
@@ -4263,7 +4344,8 @@ def _resnet_cell(torch, pt, card, counters, amp):
     # step's images/s that way
     res["replay_vs_eager"] = _state_vs_eager(torch, exe, main, feed, fetch, scope, persist,
                                              {"running statistics": stats,
-                                              "velocities": velocities}, label, card)
+                                              "velocities": velocities}, label, card,
+                                             key=f"resnet50_{label}")
     if res["replay_vs_eager"]["differ"]:
         torch.backends.cudnn.deterministic = True
         try:
@@ -4460,6 +4542,235 @@ def phase_cnn(torch, card):
     return res, mnist_launches
 
 
+# ------------------------------------------------------ phase 22: static analysis
+
+EVAL_LOSS_RTOL = 1e-5      # the fused head's loss against softmax + CE
+EVAL_REPLAYS = 5           # timed replays of each eval, in turns
+BUDGET_FRACTION = 0.9      # (d): the reference step's budget, of its plan
+BUDGET_NET = (4096, 4096, 1000)   # (d): the serving net's input, hidden and output widths
+BUDGET_BUCKETS = (1, 2, 4, 8)
+
+
+def _reference_eval(torch, pt, card):
+    """Phase 22 (a): phase 20 (a)'s trained model's eval clone at 64 x 256,
+    unfused (``Executor()``) and through the seed pipeline
+    (``Executor(passes=True, validate="error")``): an eager run of each is
+    phase 22's measured run of its program (the peaks), then each is
+    captured and replayed in turns (the eval times); the counters set to 0
+    just before the fused executor's graph runs and read just after.
+    Returns (the readings, the float32 instances' launches, the bf16
+    instances', the scope): the float32 eval must run no bf16 instance."""
+    ref = PHASE22["ref"]
+    main, loss, feed = ref["main"], ref["loss"], ref["feed"]
+    test = main.clone(for_test=True)
+    scope = pt.Scope()
+    pt.Executor(pt.CUDAPlace(0)).run(ref["startup"], scope=scope)
+    names = [n for n, v in test.desc.block(0).vars.items()
+             if v.persistable and n in ref["state"] and scope.find_var(n) is not None]
+    for n in names:
+        scope.find_var(n).copy_(ref["state"][n])
+    plain = pt.Executor(pt.CUDAPlace(0))
+    fused = pt.Executor(pt.CUDAPlace(0), passes=True, validate="error")
+    shapes = {k: tuple(np.shape(v)) for k, v in feed.items()}
+    ran = fused._apply_passes(test, list(feed), [loss], scope, shapes)
+    heads = [o.type for o in ran.desc.block(0).ops].count("fused_fc_softmax_ce")
+    left = [o.type for o in ran.desc.block(0).ops].count("softmax_with_cross_entropy")
+    print(f"phase 22 (a) the reference eval clone: {len(test.desc.block(0).ops)} ops; "
+          f"through the seed pipeline {len(ran.desc.block(0).ops)} ops, {heads} head(s) fused, "
+          f"{left} softmax_with_cross_entropy left; {len(names)} parameters from phase 20")
+    if heads != 1 or left:
+        raise AssertionError(f"phase 22 (a): {heads} fused heads, {left} unfused left")
+    (u_eager,) = _analysis_path(torch, "reference_eval_unfused", plain, test, feed, [loss], scope,
+                                lambda: plain._run_eager(test, feed, [loss], scope))
+    (f_eager,) = _analysis_path(torch, "reference_eval_fused", fused, test, feed, [loss], scope,
+                                lambda: fused._run_eager(test, feed, [loss], scope))
+    counters = _counters()
+    (u_loss,) = plain.run(test, feed=feed, fetch_list=[loss], scope=scope)   # the capture
+    # the counts are the fused executor's runs alone: each is counted from
+    # its own snapshot (the unfused replays in turns launch K1 and K2 too)
+    _zero_counters(counters)
+    (f_loss,) = fused.run(test, feed=feed, fetch_list=[loss], scope=scope)   # the capture
+    launches, bf16 = _launch_snapshot(counters), _bf16_snapshot(counters)
+    walls = {"unfused": [], "fused": []}
+    runs = 1
+    for _ in range(EVAL_REPLAYS):
+        for name, exe in (("unfused", plain), ("fused", fused)):
+            before, bf16_before = _launch_snapshot(counters), _bf16_snapshot(counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (lv,) = exe.run(test, feed=feed, fetch_list=[loss], scope=scope)
+            walls[name].append(1e3 * (time.perf_counter() - t0))
+            if name == "fused":
+                runs += 1
+                after, bf16_after = _launch_snapshot(counters), _bf16_snapshot(counters)
+                launches = {k: launches[k] + after[k] - before[k] for k in launches}
+                bf16 = {k: bf16[k] + bf16_after[k] - bf16_before[k] for k in bf16}
+                if not np.array_equal(lv, f_loss):
+                    raise AssertionError("phase 22 (a): a fused replay's loss moved")
+    kinds = {n: [e["kind"] for e in exe.cache_info()["entries"] if "lbl" in e["feeds"]]
+             for n, exe in (("unfused", plain), ("fused", fused))}
+    rel = abs(float(f_loss) - float(u_loss)) / abs(float(u_loss))
+    paths = PHASE22["paths"]
+    u, f = paths["reference_eval_unfused"], paths["reference_eval_fused"]
+    drop = u["measured_bytes"] - f["measured_bytes"]
+    logits = TRAIN_B * T * VOCAB * 4
+    res = {"card": card, "loss_unfused": float(u_loss), "loss_fused": float(f_loss),
+           "loss_rel_diff": rel, "eager_loss_rel_diff":
+               abs(float(f_eager) - float(u_eager)) / abs(float(u_eager)),
+           "eval_ms": {k: {"median": float(np.median(v)), "all": v} for k, v in walls.items()},
+           "peak_bytes": {"unfused": u["measured_bytes"], "fused": f["measured_bytes"]},
+           "plan_bytes": {"unfused": u["plan_bytes"], "fused": f["plan_bytes"]},
+           "drop_bytes": drop, "logits_and_softmax_bytes": 2 * logits,
+           "launches_passes": {k: v for k, v in launches.items() if v},
+           "bf16_launches_passes": bf16, "runs": runs, "kinds": kinds}
+    print(f"phase 22 (a) eval, 64 x 256, graph replays: loss unfused {float(u_loss)!r}, fused "
+          f"{float(f_loss)!r} (relative difference {rel:.3e}, gate {EVAL_LOSS_RTOL}); eval ms "
+          f"unfused {res['eval_ms']['unfused']['median']:.2f}, fused "
+          f"{res['eval_ms']['fused']['median']:.2f} (medians of {EVAL_REPLAYS} in turns); peak "
+          f"unfused {u['measured_bytes'] / 2 ** 30:.3f} GiB, fused "
+          f"{f['measured_bytes'] / 2 ** 30:.3f} GiB, lower by {drop / 1e9:.3f} GB (the logits "
+          f"and softmax: {2 * logits / 1e9:.3f} GB); launches over the fused executor's {runs} "
+          f"runs {res['launches_passes']}, of them the bf16 instances' {bf16}; entry kinds "
+          f"{kinds} [{card}]")
+    if rel > EVAL_LOSS_RTOL or not np.isfinite([float(u_loss), float(f_loss)]).all():
+        raise AssertionError(f"phase 22 (a): fused loss {float(f_loss)} vs {float(u_loss)}")
+    want = {"linear_ce_fwd": runs, "flash_attn_fwd": K1_PER_BATCH * runs,
+            "gather_rows": K2_PER_BATCH * runs}
+    float32 = _delta(launches, bf16)
+    if {k: float32[k] for k in want} != want or any(bf16.values()) or \
+            kinds != {"unfused": ["graph"], "fused": ["graph"]}:
+        raise AssertionError(f"phase 22 (a): launches over {runs} fused runs "
+                             f"{res['launches_passes']} (bf16 instances {bf16}), want {want} "
+                             f"float32 and no bf16; entry kinds {kinds}")
+    if not f["measured_bytes"] < u["measured_bytes"]:
+        raise AssertionError(f"phase 22 (a): the fused eval's peak is not the lower one")
+    return res, float32, bf16, scope
+
+
+def _budget_net(pt):
+    x = pt.layers.data(name="x", shape=[BUDGET_NET[0]], dtype="float32")
+    h = pt.layers.fc(input=x, size=BUDGET_NET[1], act="relu")
+    return pt.layers.fc(input=h, size=BUDGET_NET[2], act="softmax")
+
+
+def _budget_checks(torch, pt, card, scope):
+    """Phase 22 (d): the reference step under 0.9 x its plan raises before
+    anything is allocated; a ServingSession budget between the plans of
+    buckets 2 and 4 drops 4 and 8, and the survivors answer bit-equal to an
+    unbudgeted session's; the Trainer's step-0 record in phase 19's
+    directory."""
+    from paddle_tpu_torch.analysis import PredictedOOMError, plan_memory
+    ref = PHASE22["ref"]
+    step_plan = PHASE22["paths"]["reference_step"]["plan_bytes"]
+    budget = int(BUDGET_FRACTION * step_plan)
+    exe = pt.Executor(pt.CUDAPlace(0), memory_budget=budget)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    try:
+        exe.run(ref["main"], feed=ref["feed"], fetch_list=[ref["loss"]], scope=scope)
+        raise AssertionError("phase 22 (d): the reference step ran under 0.9 x its plan")
+    except PredictedOOMError as e:
+        err = e
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    info = exe.cache_info()
+    print(f"phase 22 (d) memory_budget {budget} B (0.9 x the reference step's plan {step_plan} "
+          f"B): PredictedOOMError ({err.diagnostic.code} at op#{err.diagnostic.op_index} "
+          f"{err.diagnostic.op_type}); memory_allocated {before} -> {after}; cache entries "
+          f"{info['executables']}, captures {info['captures']}")
+    if after != before or info["executables"] or info["captures"] or             err.plan.peak_bytes != step_plan:
+        raise AssertionError(f"phase 22 (d): allocated {before} -> {after}, cache {info}, plan "
+                             f"{err.plan.peak_bytes} vs {step_plan}")
+
+    plain = pt.ServingSession(lambda: _budget_net(pt), place=pt.CUDAPlace(0),
+                              max_batch_size=8, max_wait_ms=1.0)
+    inf = plain.inferencer
+    fetch = [v.name for v in inf.predict_vars]
+    plans = {}
+    for b in BUDGET_BUCKETS:
+        shapes = {"x": (b, BUDGET_NET[0])}
+        ran = inf.exe._apply_passes(inf.inference_program, ["x"], fetch, inf.scope, shapes)
+        plans[b] = plan_memory(ran, fetch_list=fetch, feed_shapes=shapes).peak_bytes
+    budget = (plans[2] + plans[4]) // 2
+    sess = pt.ServingSession(inferencer=pt.Inferencer(lambda: _budget_net(pt),
+                                                      place=pt.CUDAPlace(0)),
+                             max_batch_size=8, max_wait_ms=1.0, memory_budget=budget)
+    try:
+        for n in inf.scope._vars:
+            v, w = inf.scope.find_var(n), sess.inferencer.scope.find_var(n)
+            if isinstance(v, torch.Tensor) and isinstance(w, torch.Tensor):
+                w.copy_(v)
+        rejected = [r["batch_size"] for r in sess.warmup_report if r.get("rejected")]
+        rs = np.random.RandomState(11)
+        equal = []
+        for i in range(8):
+            x = {"x": rs.rand(1 + i % 2, BUDGET_NET[0]).astype(np.float32)}
+            (a,), (b,) = plain.infer(x), sess.infer(x)
+            equal.append(bool(np.array_equal(a, b)))
+        print(f"phase 22 (d) ServingSession(memory_budget={budget}): bucket plans {plans}; "
+              f"rejected {rejected} ({[r['code'] for r in sess.warmup_report if r.get('rejected')]}); "
+              f"buckets served {sess.buckets}; 8 one- and two-row requests bit-equal to the "
+              f"unbudgeted session's: {sum(equal)} of 8 [{card}]")
+        if rejected != [4, 8] or sess.buckets != (1, 2) or not all(equal):
+            raise AssertionError(f"phase 22 (d): rejected {rejected}, buckets {sess.buckets}, "
+                                 f"bit-equal {equal}")
+    finally:
+        plain.close()
+        sess.close()
+
+    recs = [json.loads(line) for f in sorted(os.listdir(PHASE19["dir"]))
+            if f.startswith("memplan_") for line in open(os.path.join(PHASE19["dir"], f))]
+    trainer = [r for r in recs if r.get("source") == "trainer"]
+    print(f"phase 22 (d) memplan_ records in phase 19's directory: {len(recs)}; the Trainer's "
+          f"step-0 plans (source='trainer'): "
+          f"{[(r['peak_bytes'], r['peak_op']['type']) for r in trainer]}")
+    if not trainer or not all(r["peak_bytes"] > 0 for r in trainer):
+        raise AssertionError(f"phase 22 (d): no step-0 memplan_ record from the Trainer")
+    return {"rejected_buckets": rejected, "bucket_plans": plans,
+            "trainer_plans": [r["peak_bytes"] for r in trainer]}
+
+
+def phase_analysis(torch, card):
+    """Phase 22 (see the module docstring).  Returns the launches of (a)'s
+    fused eval runs (``launches_passes``): the float32 instances', the bf16
+    instances'."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.analysis import measured, memory
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"phase 22: torch.cuda.get_device_properties(0).total_memory {total} B "
+          f"(DEVICE_PROFILES['h100-80gb-hbm3'] reads {memory.H100_TOTAL_MEMORY} B) [{card}]")
+    res, launches, bf16, scope = _reference_eval(torch, pt, card)
+    res["budget"] = _budget_checks(torch, pt, card, scope)
+    del scope
+    PHASE22.pop("ref")
+    _free_trainer(torch, "phase 22")
+    rows, out_of_band = {}, []
+    for key, r in PHASE22["paths"].items():
+        rows[key] = {k: r[k] for k in ("ops", "counts", "codes", "verify_s", "plan_bytes",
+                                       "measured_bytes", "resident_bytes", "transient_bytes",
+                                       "ratio", "plan_peak_op", "unsized")}
+        print(f"phase 22 (b)-(c) {key}: {r['ops']} ops, verify {r['counts']} by code "
+              f"{r['codes']} in {r['verify_s']:.3f} host s; plan {r['plan_bytes'] / 2 ** 30:.3f} GiB "
+              f"(peak at op#{r['plan_peak_op'][0]} {r['plan_peak_op'][1]}), measured "
+              f"{r['measured_bytes'] / 2 ** 30:.3f} GiB (state {r['resident_bytes'] / 2 ** 30:.3f} + "
+              f"run {r['transient_bytes'] / 2 ** 30:.3f}); predicted/measured {r['ratio']:.3f} "
+              f"[{card}]")
+        if not measured.PLAN_BAND[0] <= r["ratio"] <= measured.PLAN_BAND[1]:
+            out_of_band.append(key)
+    want = {"serving_float32", "serving_int8", "fused_step_float32", "fused_step_bf16",
+            "reference_step", "resnet50_bf16", "resnet50_float32", "reference_eval_unfused",
+            "reference_eval_fused"}
+    res["paths"] = rows
+    print(json.dumps({"analysis": res}))
+    if set(rows) != want or any(r["unsized"] for r in rows.values()):
+        raise AssertionError(f"phase 22: paths {sorted(rows)}, want {sorted(want)}")
+    if out_of_band:
+        raise AssertionError(f"phase 22 (c): predicted/measured outside the band "
+                             f"{measured.PLAN_BAND}: {out_of_band} (a ratio < 0.5 or > 2 is a "
+                             f"planner fault, ROADMAP §C)")
+    return launches, bf16
+
+
 def _release_serving(torch, label):
     """A serving phase's inferencers (and their graphs' memory pools) are
     gone once it returns: collect them before the training phases."""
@@ -4534,6 +4845,7 @@ def _main(torch, build):
     timed("observability_end", phase_observability)
     ref_launches = timed("reference_path", phase_reference_path)
     _, cnn_launches = timed("cnn", phase_cnn)
+    passes_launches, passes_bf16 = timed("analysis", phase_analysis)
     print(f"seconds by phase function: {json.dumps(seconds)}; "
           f"{sum(seconds.values()):.1f} in all; {time.perf_counter() - t_main:.1f} since the "
           f"card's name was read (the kernel build included) [{card}]")
@@ -4584,6 +4896,9 @@ def _main(torch, build):
     # (K5), (e) the int8 matmul (K4); the bf16 entries (b)'s bf16 twin
     phase20 = {**ref_launches["a"], "fused_sgd": ref_launches["d"].get("fused_sgd", 0),
                "int8_matmul": ref_launches["e"]["int8_matmul"]}
+    # launches_passes: phase 22 (a), the reference eval through passes=True
+    # (K7 once a pass), counted from 0, the float32 and the bf16 instances
+    # apart (the bf16 entries' count, gated at 0 there);
     # launches_cnn: phase 21 (e), the MNIST CNN with Adam, counted from 0;
     # launches_resnet: phase 21 (a)-(b), bf16 and float32 ResNet-50 training,
     # which runs no hand-written kernel (gated at 0 there)
@@ -4593,6 +4908,7 @@ def _main(torch, build):
         e["launches_reference_path"] = phase20.get(e["name"], 0)
         e["launches_cnn"] = cnn_launches[e["name"]]
         e["launches_resnet"] = 0
+        e["launches_passes"] = passes_launches[e["name"]]
     k4["quantizers"]["launches_profile"] = {
         n: PHASE19["launches_profile"].get(n, 0) for n in ("abs_max_pair", "quantize_int8")}
     k4["quantizers"]["launches_reference_path"] = {
@@ -4608,7 +4924,7 @@ def _main(torch, build):
                  launches=bf16_launches[name], launches_trainer=trainer_bf16_launches[name],
                  launches_profile=PHASE19["launches_profile_bf16"].get(name, 0),
                  launches_reference_path=ref_launches["b_bf16"].get(name, 0),
-                 launches_cnn=0, launches_resnet=0)
+                 launches_cnn=0, launches_resnet=0, launches_passes=passes_bf16[name])
         kernels.append(e)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -10,9 +10,13 @@ fused loss head, SGD and Adam go through hand-written CUDA kernels
 other update rules (``optimizer``), learning-rate schedules
 (``layers.noam_decay`` and the decays), gradient clips (``clip``) and
 regularizers (``regularizer``) run in the same step.  The
-pass pipeline (``passes``) rewrites programs onto the kernel tier, and
-``amp.AmpConfig(bf16=False, quant=True)`` serves every ``mul`` through the
-int8 GEMM kernel.  ``Trainer`` trains from a reader (``reader``,
+pass pipeline (``passes``) rewrites programs onto the kernel tier (and,
+with ``passes=True``, fuses loss heads onto K7, folds batch norms, drops
+dead ops and stamps donations), and ``amp.AmpConfig(bf16=False,
+quant=True)`` serves every ``mul`` through the int8 GEMM kernel.  The
+static analysis (``analysis``: the verifier behind ``Executor(validate=)``
+and the memory planner behind ``Executor(memory_budget=)``) checks a
+program before it first runs.  ``Trainer`` trains from a reader (``reader``,
 ``DataFeeder``), staging batches to the card on a background thread, with
 serial-dir checkpoints; ``io`` saves and loads in the JAX package's
 formats.  Observability: ``telemetry`` (metrics, the trace timeline, step
@@ -26,9 +30,10 @@ This package imports torch, numpy and the standard library only -- never
 jax or paddle_tpu.
 """
 from . import ops  # noqa: F401  (registers every op lowering)
-from . import (amp, checkpoint, clip, compile_log, dataset, initializer, io,  # noqa: F401
-               layers, lod, log, models, nets, optimizer, passes, profiler,
-               profiling, reader, regularizer, resource_sampler, telemetry)
+from . import (amp, analysis, checkpoint, clip, compile_log, dataset,  # noqa: F401
+               initializer, io, layers, lod, log, models, nets, optimizer,
+               passes, profiler, profiling, reader, regularizer,
+               resource_sampler, telemetry, transpiler)
 from .backward import append_backward, calc_gradient  # noqa: F401
 from .clip import (ErrorClipByValue, GradientClipByGlobalNorm,  # noqa: F401
                    GradientClipByNorm, GradientClipByValue)
@@ -41,6 +46,8 @@ from .core.scope import Scope, global_scope, scope_guard  # noqa: F401
 from .data_feeder import DataFeeder  # noqa: F401
 from .param_attr import ParamAttr  # noqa: F401
 from .serving import ServingSession  # noqa: F401
+from .transpiler import (InferenceTranspiler, memory_optimize,  # noqa: F401
+                         release_memory)
 from .reader.decorator import batch  # noqa: F401
 from .trainer import (BeginEpochEvent, BeginStepEvent, CheckpointConfig,  # noqa: F401
                       EndEpochEvent, EndStepEvent, Inferencer, Trainer)

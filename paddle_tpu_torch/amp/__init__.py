@@ -54,13 +54,16 @@ def as_amp_config(amp):
 
 def compose_passes(passes, amp, kernels=None):
     """One executor pipeline from the ``passes=``, ``amp=`` and
-    ``kernels=`` knobs, in the JAX package's order: the user's passes,
-    then ``amp-quant-int8`` (it claims the policy-selected float32 matmuls
+    ``kernels=`` knobs, in the JAX package's order: the amp passes slot in
+    before the liveness passes (``dead-op-elim`` sweeps orphaned
+    declarations, ``donation-insert`` sees the final program):
+    ``amp-quant-int8`` (it claims the policy-selected float32 matmuls
     before the bf16 rewrite would narrow them), ``amp-bf16``, then
     ``pallas-kernels`` (which consumes the quant pass's simulated groups
     and must see the post-amp op set).  ``kernels`` is a resolved
     :class:`~paddle_tpu_torch.ops.cuda.policy.KernelPolicy` or ``None``.
-    Returns a ``PassPipeline`` (``verify="off"``) or ``None``."""
+    Returns a ``PassPipeline`` (with the ``verify`` mode of ``passes=``'s
+    pipeline, else ``"error"``) or ``None``."""
     from ..ops.cuda.kernel_pass import PallasKernelsPass
     from ..passes import PassPipeline, make_pipeline
     from .passes import AmpBf16Pass, QuantInt8Pass
@@ -76,8 +79,12 @@ def compose_passes(passes, amp, kernels=None):
         extra.append(AmpBf16Pass(cfg.policy))
     if kernels is not None:
         extra.append(PallasKernelsPass(kernels))
-    insts = list(base.passes) if base is not None else []
-    return PassPipeline(insts + extra, verify="off")
+    if base is None:
+        return PassPipeline(extra)
+    insts = list(base.passes)
+    idx = next((k for k, p in enumerate(insts)
+                if p.name in ("dead-op-elim", "donation-insert")), len(insts))
+    return PassPipeline(insts[:idx] + extra + insts[idx:], verify=base.verify)
 
 
 # --------------------------------------------------------------- legacy API

@@ -26,8 +26,14 @@ dtype), and the JAX pass keeps serving that cast after the ``sum`` merge's
 cast-back has written the name again, so a later float32 reader of a merged
 gradient reads the first contribution alone (23 such reads in a 2+2-layer
 transformer, 67 in a 6+6).  Here the cast-back drops the name's cached
-casts, so the next reader casts the merged value.  Everything else is as
-the JAX pass has it.
+casts, so the next reader casts the merged value.  A second repair: the
+JAX pass declares every ``...@GRAD...`` var at its forward var's dtype,
+also a value a forward-type op computes from bf16 gradients (the
+global-norm clip's ``x@GRAD_gclip_0``, bf16 at run time): the verifier
+reads that as S102 (26 findings on a 1+1-layer reference step), and the
+memory planner sizes it at float32.  Here such a value is declared at the
+dtype it runs in; a cotangent a ``<type>_grad`` op writes keeps mirroring
+its forward var.  Everything else is as the JAX pass has it.
 
 ``amp-quant-int8`` (:class:`QuantInt8Pass`) -- the serving rewrite:
 policy-selected float32 matmuls of an inference program get
@@ -233,8 +239,18 @@ class _DtypeRewriter:
                         self.written_again(o)
                         inserted_after += 1
                         self.result.changed = True
-                    # else: declared keeps mirroring the forward var; the
-                    # runtime cotangent diverges and consumers re-cast
+                    elif not op.type.endswith("_grad"):
+                        # a value a forward-type op computes from gradients
+                        # (the global-norm clip's scaled gradient,
+                        # ``x@GRAD_gclip_0``) is no cotangent: its rule gives
+                        # it its inputs' dtype, and it is declared at the
+                        # dtype it runs in (the second repair)
+                        vd.dtype = want
+                        self.truthful.add(o)
+                        self.result.changed = True
+                    # else: a cotangent's declared dtype keeps mirroring the
+                    # forward var; the runtime value diverges and consumers
+                    # re-cast
                     continue
                 if base is not None:
                     if vd.dtype != base.dtype:

@@ -29,6 +29,11 @@ NONSEMANTIC_OP_ATTRS = frozenset({CALLSITE_ATTR, PASS_PROVENANCE_ATTR})
 NONSEMANTIC_VAR_ATTRS = frozenset({"seq_len_buckets", "mem_bytes_hint",
                                    "kv_cache_slots", "decode_position"})
 
+# Marker for an attribute value that refers to a block index (a control-flow
+# op's body).  The port lowers no such op, but the analysis walks them in
+# programs either package serialized.
+BLOCK_ATTR_PREFIX = "__block__:"
+
 # Gradient var naming: ``x@GRAD`` is the gradient of ``x``; a second
 # producer of the same gradient writes ``x@GRAD@RENAME@<n>`` and a ``sum``
 # op folds it back into ``x@GRAD`` (backward.py).
@@ -37,6 +42,10 @@ GRAD_SUFFIX = "@GRAD"
 
 def grad_var_name(name: str) -> str:
     return name + GRAD_SUFFIX
+
+
+def is_grad_var_name(name: str) -> bool:
+    return name.endswith(GRAD_SUFFIX)
 
 
 def strip_grad_suffix(name: str) -> str:
@@ -119,6 +128,15 @@ class OpDesc:
 
     def attr(self, name: str, default=None):
         return self.attrs.get(name, default)
+
+    def set_block_attr(self, name: str, block_idx: int):
+        self.attrs[name] = BLOCK_ATTR_PREFIX + str(block_idx)
+
+    def block_attr(self, name: str) -> Optional[int]:
+        v = self.attrs.get(name)
+        if isinstance(v, str) and v.startswith(BLOCK_ATTR_PREFIX):
+            return int(v[len(BLOCK_ATTR_PREFIX):])
+        return None
 
     def rename_input(self, old: str, new: str):
         for ns in self.inputs.values():
@@ -329,3 +347,45 @@ class ProgramDesc:
                 outs = ", ".join(f"{k}={v}" for k, v in o.outputs.items())
                 lines.append(f"  op {o.type}({ins}) -> ({outs}) attrs={o.attrs}")
         return "\n".join(lines)
+
+
+def block_written_names(block: "BlockDesc") -> List[str]:
+    """Names written by ``block``'s ops, recursing through nested sub-block
+    attrs; vars declared in a nested block are local to it and left out."""
+    out: List[str] = []
+
+    def visit(b: BlockDesc, local: set):
+        for o in b.ops:
+            for aname in o.attrs:
+                bidx = o.block_attr(aname)
+                if bidx is not None:
+                    sub = b.program.blocks[bidx]
+                    visit(sub, local | set(sub.vars.keys()))
+            for n in o.output_names():
+                if n and n not in local and n not in out:
+                    out.append(n)
+
+    visit(block, set())
+    return out
+
+
+def block_outer_reads(block: "BlockDesc") -> List[str]:
+    """Names ``block`` reads from the enclosing scope: read by some op before
+    any op of the block writes them, its own declared vars left out, nested
+    sub-blocks folded in."""
+    written: set = set()
+    reads: List[str] = []
+    for o in block.ops:
+        in_names = [n for n in o.input_names() if n]
+        out_names = [n for n in o.output_names() if n]
+        for aname in o.attrs:
+            bidx = o.block_attr(aname)
+            if bidx is not None:
+                sub = block.program.blocks[bidx]
+                in_names += [n for n in block_outer_reads(sub) if n not in sub.vars]
+                out_names += [n for n in block_written_names(sub) if n not in sub.vars]
+        for n in in_names:
+            if n not in written and n not in reads and n not in block.vars:
+                reads.append(n)
+        written.update(out_names)
+    return reads

@@ -31,6 +31,29 @@ program before any capture; a capture that fails raises.
 ``Executor.cache_info()`` lists each entry's kind and the reasons an entry
 has no graph.
 
+Static analysis, as in the JAX package (``paddle_tpu_torch.analysis``).
+``validate`` (``"error"``, ``"warn"`` or ``"off"``; default
+``$PADDLE_TPU_VALIDATE``, else ``"off"``) runs the verifier on the program
+that runs, once per (program uid, version, fetch names): the buckets of a
+serving warmup share one pass.  ``"error"`` raises
+:class:`~paddle_tpu_torch.analysis.ProgramVerificationError` on an
+error-severity finding, and both modes warn on the other findings.
+``memory_budget`` (bytes, a size string such as ``"16GiB"``, or a device
+profile such as ``"h100-80gb-hbm3"``) plans the program's per-device peak
+(``analysis.plan_memory``) before the first eager run or capture of each
+feed signature, and raises
+:class:`~paddle_tpu_torch.analysis.PredictedOOMError` when the plan
+exceeds it: nothing has been allocated for the program then.  The plan
+goes to the ``predicted_peak_bytes`` gauge and ``memplan_<pid>.jsonl``.
+
+Donation: ``run(donate_feeds=True)`` on a batch staged with
+``stage_feeds(reuse=False)`` (``donatable``), or a program the
+``donation-insert`` pass stamped, hands the batch to the step: the staged
+batch is emptied and the executor keeps each feed tensor only until its
+last reader in an eager run (a CUDA graph copies the feeds into its own
+static buffers, so there only the staged copy goes).  The flag is part of
+the cache key.
+
 A graph reads the addresses it captured, so the state signature of a
 graph-eligible program includes each state tensor's ``data_ptr()``: a
 scope variable rebound to a new tensor misses (the new graph replaces the
@@ -250,6 +273,11 @@ def _private(entry: "_CacheEntry", env: Dict[str, Any]) -> Dict[str, Any]:
             for n, v in env.items()}
 
 
+def _feed_shapes(feed) -> Dict[str, tuple]:
+    """The shapes of a feed dict's values that have one."""
+    return {k: tuple(int(d) for d in v.shape) for k, v in feed.items() if hasattr(v, "shape")}
+
+
 def _copy_generator(gen: torch.Generator) -> torch.Generator:
     copy = torch.Generator(device=gen.device)
     copy.set_state(gen.get_state())
@@ -301,6 +329,7 @@ class _CacheEntry:
         self.outputs: List[torch.Tensor] = []
         self.launches: Dict[tuple, int] = {}
         self.state: List[Any] = []     # the captured state tensors, kept alive
+        self.donate = False            # the feeds are the step's (dropped after use)
         # the generator a graph's replays draw from (kept alive: its id is keyed)
         self.generator: Optional[torch.Generator] = None
 
@@ -323,14 +352,29 @@ class Executor:
     ``passes``: ``None``/``False``, a list of pass names or a
     ``PassPipeline``; ``amp``: ``None``/``AmpPolicy``/``AmpConfig``;
     ``kernels``: ``None`` (on for a CUDA place, off on the CPU),
-    ``True``/``False`` or a ``KernelPolicy``."""
+    ``True``/``False`` or a ``KernelPolicy``; ``validate`` and
+    ``memory_budget``: the static analysis described above."""
 
     _SEQ = itertools.count(1)      # executor numbering, for telemetry scopes
 
     def __init__(self, place: Optional[Place] = None, passes=None, amp=None,
-                 kernels=None):
+                 kernels=None, validate: Optional[str] = None, memory_budget=None):
         self.place = place if place is not None else CUDAPlace(0)
         self.device = place_device(self.place)
+        if validate is None:
+            validate = os.environ.get("PADDLE_TPU_VALIDATE", "off")
+        if validate not in ("off", "warn", "error"):
+            raise ValueError(f"validate must be 'error', 'warn' or 'off', got {validate!r}")
+        self.validate = validate
+        # (uid, version, fetch names) -> VerifyResult: the buckets of one
+        # program share one verification
+        self._verified: Dict[tuple, Any] = {}
+        # bytes, a size string or a device profile; plans are memoized per
+        # feed signature (each serving bucket is a plan of its own)
+        self.memory_budget = memory_budget
+        self._budget_memo: Dict[tuple, Any] = {}
+        # (uid, version) -> the program carries a donate feed stamp
+        self._donate_stamp_memo: Dict[tuple, bool] = {}
         from ..ops.cuda.policy import as_kernel_policy
         if kernels is None:
             kernels = self.device.type == "cuda"
@@ -390,16 +434,23 @@ class Executor:
         return self._m_runs.value
 
     def _apply_passes(self, program: Program, feed_names: List[str],
-                      fetch_names: List[str], scope: Optional[Scope] = None) -> Program:
+                      fetch_names: List[str], scope: Optional[Scope] = None,
+                      feed_shapes=None) -> Program:
         """The rewritten program, from the pipeline run once per (program
         uid, version, amp flag, feed names, fetch names, and the scope when
         a pass reads parameter values: ``bn-fold``).  The rewrite lands
         on a clone with the program's uid and a version of its own, so
         running the rewritten program again hits the memo too.  A program
         flagged by ``enable_amp`` goes through the bridge after the pipeline
-        (the flag is in the key: setting it does not move the version)."""
+        (the flag is in the key: setting it does not move the version).
+        As in the JAX package, the pipeline infers the feeds from the
+        program and plans with the first call's ``feed_shapes``
+        (``donation-insert``): a dict, or a function giving one, called
+        only on a memo miss (the run path's hits pay nothing for it)."""
+        def shapes():
+            return (feed_shapes() if callable(feed_shapes) else feed_shapes) or None
         if self.passes is None:
-            return self._legacy_amp_rewrite(program, fetch_names)
+            return self._legacy_amp_rewrite(program, fetch_names, shapes)
         scope = scope or global_scope()
         names = (tuple(sorted(feed_names)), tuple(fetch_names))
         if any(p.requires_scope for p in self.passes.passes):
@@ -409,22 +460,23 @@ class Executor:
         if hit is not None:
             return hit
         new_prog, _ = self.passes.run(program, fetch_list=fetch_names,
-                                      feed_names=feed_names, scope=scope)
-        new_prog = self._legacy_amp_rewrite(new_prog, fetch_names)
+                                      feed_shapes=shapes(), scope=scope)
+        new_prog = self._legacy_amp_rewrite(new_prog, fetch_names, shapes)
         self._pass_memo[key] = new_prog
         self._pass_memo[(new_prog.desc.uid, new_prog.desc.version, new_prog.amp) + names] = \
             new_prog
         return new_prog
 
-    def _legacy_amp_rewrite(self, program: Program,
-                            fetch_names: List[str]) -> Program:
+    def _legacy_amp_rewrite(self, program: Program, fetch_names: List[str],
+                            feed_shapes=lambda: None) -> Program:
         """The ``program.amp = True`` bridge: the flag goes through the
         ``amp-bf16`` pass with the default policy, so the legacy API is
         fingerprint-identical to the pass path.  A program an amp pass has
         already rewritten is left alone.  The JAX package runs a program
         the pass skips (several blocks) with lowering-time casts; the port
         has no such path, and running it in float32 would ignore the
-        flag, so it raises."""
+        flag, so it raises.  ``feed_shapes`` gives the feed shapes on a
+        memo miss."""
         if not program.amp or program._amp_policy_fp:
             return program
         key = (program.desc.uid, program.desc.version, tuple(fetch_names))
@@ -432,8 +484,8 @@ class Executor:
         if hit is not None:
             return hit
         from ..passes import PassPipeline
-        new_prog, result = PassPipeline(["amp-bf16"], verify="off").run(
-            program, fetch_list=fetch_names)
+        new_prog, result = PassPipeline(["amp-bf16"]).run(program, fetch_list=fetch_names,
+                                                          feed_shapes=feed_shapes())
         skipped = result.passes[0].skipped
         if skipped:
             raise NotImplementedError(
@@ -451,6 +503,87 @@ class Executor:
         policy fingerprint when a dtype pass rewrote the program, else the
         legacy flag."""
         return program._amp_policy_fp or bool(program.amp)
+
+    def _wants_donate(self, program: Program) -> bool:
+        """Whether ``program`` carries a ``donate`` feed stamp (the
+        ``donation-insert`` pass's output), once per (uid, version)."""
+        key = (program.desc.uid, program.desc.version)
+        want = self._donate_stamp_memo.get(key)
+        if want is None:
+            from ..analysis.memory import DONATE_ATTR
+            want = any(vd.attrs.get(DONATE_ATTR) for vd in program.desc.block(0).vars.values()
+                       if not vd.persistable)
+            self._donate_stamp_memo[key] = want
+        return want
+
+    def _check(self, program: Program, feeds: Dict[str, torch.Tensor],
+               fetch_names: List[str], donate: bool) -> None:
+        """The static analysis before a run: the verifier, then the memory
+        pre-flight (each a no-op when off, and memoized)."""
+        if self.validate != "off":
+            self._maybe_validate(program, fetch_names, donate, list(feeds))
+        if self.memory_budget is not None:
+            self._preflight_memory(program, feeds, fetch_names, donate)
+
+    def _maybe_validate(self, program: Program, fetch_names: List[str],
+                        donate_feeds: bool = False, feed_names: Sequence[str] = ()) -> None:
+        """Verify ``program`` once per (uid, version, fetch names, feed
+        names): ``error`` raises on error-severity findings, both modes warn
+        on the rest.  The feeds are those inferred from the program (an
+        unproduced non-persistable read may be fed or found in the scope),
+        as the JAX executor infers them, and the fetched names that are fed
+        and that no op produces: a fed var no op reads may still be fetched
+        (D203 would call it unreachable)."""
+        key = (program.desc.uid, program.desc.version, tuple(fetch_names),
+               tuple(sorted(feed_names)))
+        if key in self._verified:
+            return
+        from ..analysis import ProgramVerificationError, record_findings, verify
+        from ..analysis.verifier import _BlockFacts
+        facts = _BlockFacts(program.desc.block(0))
+        fed = set(feed_names)
+        feeds = facts.feed_like() | {n for n in fetch_names if n in fed and n not in facts.producer}
+        res = verify(program, fetch_list=fetch_names, feed_names=feeds,
+                     donate_feeds=donate_feeds)
+        self._verified[key] = res
+        record_findings(res)
+        if res.errors and self.validate == "error":
+            raise ProgramVerificationError(res)
+        findings = res.findings
+        if findings:
+            lines = [d.format() for d in findings[:8]]
+            if len(findings) > 8:
+                lines.append(f"... and {len(findings) - 8} more")
+            warnings.warn(f"program verifier found {len(findings)} issue(s):\n  "
+                          + "\n  ".join(lines), stacklevel=4)
+
+    def _preflight_memory(self, program: Program, feeds: Dict[str, torch.Tensor],
+                          fetch_names: List[str], donate_feeds: bool = False) -> None:
+        """Plan the per-device peak of ``program`` at this feed signature
+        (``analysis.plan_memory``) and raise ``PredictedOOMError`` when it
+        exceeds ``memory_budget``, before anything is allocated for the
+        program.  Memoized per feed signature (a verdict, error included);
+        each plan sets the ``predicted_peak_bytes`` gauge and goes to
+        ``memplan_<pid>.jsonl``."""
+        shapes = _feed_shapes(feeds)
+        key = (program.desc.uid, program.desc.version, tuple(sorted(shapes.items())),
+               tuple(fetch_names), donate_feeds)
+        hit = self._budget_memo.get(key)
+        if hit is not None:
+            if isinstance(hit, Exception):
+                raise hit
+            return
+        from ..analysis import memory as _memory
+        budget = _memory.parse_memory_budget(self.memory_budget)
+        plan = _memory.plan_memory(program, fetch_list=fetch_names, feed_shapes=shapes,
+                                   donate_feeds=donate_feeds)
+        REGISTRY.gauge("predicted_peak_bytes", scope=self.telemetry_scope).set(plan.peak_bytes)
+        _memory.export_plan(plan, scope=self.telemetry_scope, budget=budget)
+        if plan.peak_bytes > budget:
+            err = _memory.PredictedOOMError(plan, budget)
+            self._budget_memo[key] = err
+            raise err
+        self._budget_memo[key] = True
 
     @staticmethod
     def _feed_host(block: BlockDesc, name: str, value) -> Tuple[torch.Tensor, torch.dtype]:
@@ -493,7 +626,8 @@ class Executor:
         scope = scope or global_scope()
         fetch_names = [f.name if isinstance(f, Variable) else str(f)
                        for f in (fetch_list or [])]
-        program = self._apply_passes(program, list(feed), fetch_names, scope)
+        program = self._apply_passes(program, list(feed), fetch_names, scope,
+                                     lambda: _feed_shapes(feed))
         block = program.desc.block(0)
         if TIMELINE.enabled:
             t0 = TIMELINE.now_us()
@@ -505,17 +639,25 @@ class Executor:
 
     def run(self, program: Optional[Program] = None, feed: Optional[dict] = None,
             fetch_list: Optional[Sequence] = None, scope: Optional[Scope] = None,
-            return_numpy: bool = True, sync: bool = True):
+            return_numpy: bool = True, sync: bool = True, donate_feeds: bool = False):
         """Run block 0 once through its cache entry.  ``sync=False``
         returns :class:`FetchHandle`\\ s whose copies to pinned host memory
         are enqueued behind the step, so the caller can enqueue the next
         step meanwhile; otherwise numpy arrays (``return_numpy``; a bf16
         value comes back as float32, numpy having no bfloat16) or device
-        tensors (clones of a graph's outputs)."""
+        tensors (clones of a graph's outputs).  ``donate_feeds`` (or a
+        program's ``donate`` stamp) donates a ``donatable`` staged batch
+        (see the module docstring)."""
         # a staged batch's flow id links its stage span to this step's span
         timeline = TIMELINE.enabled
         flow_id = getattr(feed, "flow_id", None) if timeline else None
         program, scope, feeds, fetch_names = self._prepare(program, feed, fetch_list, scope)
+        donate = bool(getattr(feed, "donatable", False)) and \
+            (donate_feeds or self._wants_donate(program))
+        self._check(program, feeds, fetch_names, donate)
+        if donate:
+            # the batch is the step's now: only ``feeds`` holds its tensors
+            feed.clear()
         self._m_runs.inc()
         label = dispatch_us = None
         if timeline:
@@ -524,7 +666,7 @@ class Executor:
                 TIMELINE.record_flow("f", "staged_batch", flow_id, TIMELINE.now_us())
         outs = None
         with self._lock:
-            entry, state, warm = self._get_entry(program, feeds, fetch_names, scope)
+            entry, state, warm = self._get_entry(program, feeds, fetch_names, scope, donate)
             if entry.graph is not None and warm is None:
                 # the outputs' copies are enqueued before another replay can start
                 outs = self._stage(self._replay(entry, feeds), sync, return_numpy, clone=True,
@@ -552,6 +694,7 @@ class Executor:
         """``run`` with the block lowered op by op, outside the cache: the
         eager path a graph is measured and checked against."""
         program, scope, feeds, fetch_names = self._prepare(program, feed, fetch_list, scope)
+        self._check(program, feeds, fetch_names, False)
         state_in, state_out, blockers, _, state = self._analyse(program, feeds, scope)
         entry = _CacheEntry(program, feeds, state_in, state_out, fetch_names, blockers,
                             eligible=not blockers)
@@ -596,20 +739,20 @@ class Executor:
         of :class:`FetchHandle`.  Batch N+1 is staged (:meth:`stage_feeds`)
         while step N runs, and fetches do not block (``sync=False``), so the
         device queue stays full until a handle is read.  ``donate_feeds``
-        turns off the stager's reuse cache; the port has no buffer donation
-        beside it (a graph replay copies its feeds into its own buffers)."""
+        turns off the stager's reuse cache and donates each batch to its
+        step (see the module docstring)."""
         program = program or default_main_program()
         stager = self.stage_feeds(program, feeds, depth=depth, reuse=not donate_feeds)
         try:
             for feed in stager:
                 yield self.run(program, feed=feed, fetch_list=fetch_list, scope=scope,
-                               return_numpy=False, sync=False)
+                               return_numpy=False, sync=False, donate_feeds=donate_feeds)
         finally:
             stager.close()
 
     def precompile(self, program: Optional[Program] = None, feed: Optional[dict] = None,
                    fetch_list: Optional[Sequence] = None,
-                   scope: Optional[Scope] = None) -> Dict[str, Any]:
+                   scope: Optional[Scope] = None, donate_feeds: bool = False) -> Dict[str, Any]:
         """Build the cache entry of one (program, feed signature) without
         running a step: the serving warmup path.  On the card a
         graph-eligible program is run once eagerly (on clones of the state
@@ -618,7 +761,8 @@ class Executor:
         now is run once, writing no state.  The scope and its generator are
         read, never written (a graph of a random program makes the scope's
         generator if it has none, as its first run would).  Returns the JAX
-        package's record:
+        package's record (the verifier and the memory pre-flight run first,
+        as in ``run``):
         ``fingerprint``, ``kind`` (``graph`` / ``eager``), ``compile_s``
         (the entry's build: on the card the eager run and the capture),
         ``aot`` (a graph was captured) and ``reasons`` (why the entry has
@@ -630,9 +774,10 @@ class Executor:
                 v = np.zeros(tuple(int(d) for d in shape), dtype=np.dtype(dtype))
             arrays[k] = v
         program, scope, feeds, fetch_names = self._prepare(program, arrays, fetch_list, scope)
+        self._check(program, feeds, fetch_names, donate_feeds)
         with self._lock:
             compiles = self.compile_count
-            entry, state, _ = self._get_entry(program, feeds, fetch_names, scope)
+            entry, state, _ = self._get_entry(program, feeds, fetch_names, scope, donate_feeds)
             built = self.compile_count != compiles
         if built and entry.graph is None and self.device.type == "cuda":
             # an eager entry's first run on the card builds the kernel
@@ -670,7 +815,8 @@ class Executor:
         fetch_names = [f.name if isinstance(f, Variable) else str(f)
                        for f in (fetch_list or [])]
         scope = scope or global_scope()
-        program = self._apply_passes(program, list(feed), fetch_names, scope)
+        program = self._apply_passes(program, list(feed), fetch_names, scope,
+                                     lambda: _feed_shapes(feed))
         return profile_program(program, feed, scope=scope,
                                fetch_list=fetch_names, samples=samples, executor=self,
                                compiled_step_s=compiled_step_s)
@@ -715,7 +861,7 @@ class Executor:
         return analysis + (state,)
 
     def _get_entry(self, program: Program, feeds: Dict[str, torch.Tensor],
-                   fetch_names: List[str], scope: Scope):
+                   fetch_names: List[str], scope: Scope, donate: bool = False):
         """(entry, state values, warm): the cache entry of this run, found
         or built, under ``self._lock``.  ``warm`` is the fetches of the eager
         run that preceded a capture made now where the block writes no
@@ -740,7 +886,7 @@ class Executor:
         state_sig = shape_sig if blockers else \
             tuple(_tensor_sig(n, v, True) for n, v in zip(state_in, state)) + (id(gen),)
         rest = (self._amp_desc(program), self._passes_fp, program._kernel_policy_fp,
-                _matmul_flags())
+                _matmul_flags(), donate)
         key = (desc.uid, desc.version, feed_sig, tuple(fetch_names), state_sig) + rest
         entry = self._cache.get(key)
         if entry is not None:
@@ -767,6 +913,7 @@ class Executor:
         reasons = blockers if blockers or on_card else ["the CPU runs the block op by op"]
         entry = _CacheEntry(program, feeds, state_in, state_out, fetch_names, reasons,
                             eligible=not blockers)
+        entry.donate = donate
         program_fp = desc.fingerprint()
         entry.fingerprint = executable_fingerprint(
             program_fp, feed_sig, shape_sig, fetch_names, *rest[:3],
@@ -815,6 +962,8 @@ class Executor:
         state = [[sig[0], [int(d) for d in sig[1]], _dtype_name(sig[2])] if len(sig) == 3
                  else [sig[0], None, None] for sig in shape_sig]
         donated = sorted(set(entry.state_in) & set(entry.state_out))
+        if entry.donate:
+            donated.append("@FEEDS@")
         amp = self._amp_desc(program)
         passes = (self._passes_fp or "")[:12] or None
         kernels = (program._kernel_policy_fp or "")[:12] or None
@@ -916,6 +1065,10 @@ class Executor:
         cuda = self.device.type == "cuda"
         for k, t in feeds.items():
             env[k] = t.to(self.device, non_blocking=cuda)
+        if entry.donate and commit:
+            # the environment holds the only reference: each feed goes
+            # after its last reader (``plan_frees``)
+            feeds.clear()
         if commit:
             gen = self._scope_generator(entry.program, scope)
         else:

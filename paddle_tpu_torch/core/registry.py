@@ -18,6 +18,11 @@ the JAX package does, so both packages build identical ProgramDescs.
 the generator, so each replay draws anew.  A generic grad of such an op
 forks the generator (:func:`op_forks`), and its program gets no graph.
 
+:meth:`OpInfoMap.infer_shape_fn` is the static analysis's lookup (the
+verifier's shape checker and the memory planner): a ``<type>_grad`` op
+without a rule of its own gets the structural grad rule, each
+``<name>@GRAD`` output taking its forward var's shape and dtype.
+
 ``grad_maker(op, block, no_grad_set)`` emits the grad OpDescs that
 ``append_backward`` appends.  Without one, :func:`default_grad_maker`
 emits a single ``<type>_grad`` op whose lowering is derived from the
@@ -28,7 +33,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional
 
-from .desc import BlockDesc, OpDesc, grad_var_name
+from .desc import BlockDesc, OpDesc, grad_var_name, strip_grad_suffix
 
 LowerFn = Callable[..., None]  # (ctx, op) -> None
 InferShapeFn = Callable[[BlockDesc, OpDesc], None]
@@ -69,6 +74,39 @@ class OpInfoMap:
 
     def has(self, op_type: str) -> bool:
         return op_type in self._map
+
+    def infer_shape_fn(self, op_type: str) -> Optional[InferShapeFn]:
+        """The registered infer-shape rule of ``op_type``, or None (shape
+        propagation skips an op without one); a ``<type>_grad`` op without
+        a rule gets :func:`_generic_grad_infer_shape`."""
+        info = self._map.get(op_type)
+        fn = info.infer_shape if info is not None else None
+        if fn is None and op_type.endswith("_grad"):
+            return _generic_grad_infer_shape
+        return fn
+
+    def infer_shape_coverage(self) -> List[str]:
+        """Op types with a registered infer-shape rule."""
+        return sorted(t for t, i in self._map.items() if i.infer_shape is not None)
+
+
+def _generic_grad_infer_shape(block: BlockDesc, op: OpDesc):
+    """A gradient has its forward var's shape and dtype (what the default
+    grad maker guarantees); renamed accumulation copies
+    (``x@GRAD@RENAME@...``) strip back to the same forward var."""
+    for names in op.outputs.values():
+        for n in names:
+            if not n:
+                continue
+            base_name = strip_grad_suffix(n)
+            if base_name == n:
+                continue
+            gvd = block.find_var(n)
+            base = block.find_var(base_name)
+            if gvd is None or base is None or not base.shape:
+                continue
+            gvd.shape = tuple(base.shape)
+            gvd.dtype = base.dtype
 
 
 OPS = OpInfoMap()

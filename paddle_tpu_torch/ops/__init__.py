@@ -2,3 +2,4 @@
 from . import (activation_ops, attention_ops, fused_ce, kernel_ops,  # noqa: F401
                math_ops, metric_ops, nn_ops, optimizer_ops, quantize_ops,
                random_ops, tensor_ops)
+from . import shape_infer  # noqa: F401  (last: the default rules fill gaps only)

@@ -38,6 +38,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Set
 
 from ...core.desc import PASS_PROVENANCE_ATTR, VarType
+from ...core.registry import OPS
 from ...passes.base import PassContext, PassResult, ProgramPass, register_pass
 from ...telemetry import REGISTRY
 from .policy import (KERNEL_EMB, KERNEL_FLASH, KERNEL_INT8, KERNEL_OPT,
@@ -256,6 +257,13 @@ class PallasKernelsPass(ProgramPass):
             op.attrs[PASS_PROVENANCE_ATTR] = self.name
             op.type = ("pallas_gather" if op.type == "lookup_table"
                        else "pallas_scatter_add")
+            # the retyped op's outputs are declared by its own rule, which
+            # gives the gradient the table's dtype: after amp-bf16, a
+            # fetched gradient of a bf16 table copy keeps its name and runs
+            # in bf16, where the ``_grad`` op's declaration mirrored the
+            # float32 parameter (the JAX pass keeps that declaration, and
+            # its verifier reads it as S102)
+            OPS.infer_shape_fn(op.type)(block, op)
             result.ops_replaced += 1
             result.changed = True
             rewritten += 1

@@ -83,6 +83,15 @@ def _pallas_gather(ctx, op):
     lookup_rows(ctx, op, gather_rows)
 
 
+@register_infer_shape("pallas_gather")
+def _pallas_gather_shape(block, op):
+    ws = in_shape(block, op, "W")
+    ids = in_shape(block, op, "Ids")
+    if ids and ids[-1] == 1:
+        ids = ids[:-1]
+    set_out_shape(block, op, "Out", tuple(ids) + (ws[-1],), in_dtype(block, op, "W"))
+
+
 @register_lowering("pallas_scatter_add", no_gradient=True)
 def _pallas_scatter_add(ctx, op):
     gnames = op.outputs.get("W@GRAD_SLOT", [])
@@ -95,3 +104,26 @@ def _pallas_scatter_add(ctx, op):
     if padding_idx is not None and padding_idx >= 0:
         rows = torch.where((flat != padding_idx)[:, None], rows, 0.0)
     ctx.write(gnames[0], scatter_add_rows(w, flat, rows.to(w.dtype).contiguous()))
+
+
+@register_infer_shape("pallas_scatter_add")
+def _pallas_scatter_add_shape(block, op):
+    set_out_shape(block, op, "W@GRAD_SLOT", in_shape(block, op, "W"), in_dtype(block, op, "W"))
+
+
+# ------------------------------------------------ fused optimizers (K5 / K6)
+
+def _pallas_opt_shape(block, op):
+    """Structural: every ``<Slot>Out`` mirrors ``<Slot>`` (in-place update)."""
+    for out_slot in list(op.outputs):
+        if not out_slot.endswith("Out"):
+            continue
+        in_slot = out_slot[:-3]
+        if not op.input(in_slot):
+            continue
+        set_out_shape(block, op, out_slot, in_shape(block, op, in_slot),
+                      in_dtype(block, op, in_slot))
+
+
+for _t in ("pallas_sgd", "pallas_adam"):
+    register_infer_shape(_t)(_pallas_opt_shape)

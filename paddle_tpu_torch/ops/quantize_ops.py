@@ -24,7 +24,8 @@ from __future__ import annotations
 
 import torch
 
-from ..core.registry import register_lowering
+from ..core.registry import register_infer_shape, register_lowering
+from .common import in_dtype, in_shape, set_out_shape
 from .cuda.int8_matmul import EPS, quantize_with_scale, scale_by_reciprocal
 
 
@@ -44,8 +45,20 @@ def _fake_quantize_abs_max(ctx, op):
     ctx.write_slot(op, "OutScale", scale)
 
 
+@register_infer_shape("fake_quantize_abs_max")
+def _fq_abs_max_shape(block, op):
+    dt = in_dtype(block, op, "X")
+    set_out_shape(block, op, "Out", in_shape(block, op, "X"), dt)
+    set_out_shape(block, op, "OutScale", (1,), dt)
+
+
 @register_lowering("fake_dequantize_max_abs")
 def _fake_dequantize_max_abs(ctx, op):
     x = ctx.read_slot(op, "X")
     scale = ctx.read_slot(op, "Scale").reshape(())
     ctx.write_slot(op, "Out", x * scale_by_reciprocal(scale, float(op.attr("max_range"))))
+
+
+@register_infer_shape("fake_dequantize_max_abs")
+def _fdq_shape(block, op):
+    set_out_shape(block, op, "Out", in_shape(block, op, "X"), in_dtype(block, op, "X"))

@@ -1,37 +1,40 @@
 """Program-transformation pass pipeline over the ProgramDesc IR.
 
 The port of the JAX package's ``paddle_tpu/passes/base.py``: ordered,
-registered :class:`ProgramPass` rewrites of a ``ProgramDesc``, each
-reporting a structured diff (:class:`PassResult`) and stamping the ops it
-inserts with ``callsite``/``inserted_by`` provenance attrs (both scrubbed
-from ``ProgramDesc.fingerprint()``).  :meth:`PassPipeline.fingerprint`
-hashes the ordered pass names and their configs exactly as the JAX package
-does, so equal pipelines fingerprint equally in both packages.
+registered :class:`ProgramPass` rewrites of a ``ProgramDesc`` with three
+invariants:
 
-Pass names (``amp-quant-int8``, ``pallas-kernels``) and the op types the
-passes write are part of the ProgramDesc, and the tests compare the
-rewritten ProgramDescs of both packages, so they keep the JAX package's
-names.
+* **verifier-checked**: ``analysis.verify`` runs before the first pass and
+  after every pass that changed the program; a pass that *introduces* an
+  S1xx/D2xx/A3xx finding raises :class:`PassVerificationError` naming the
+  pass (``verify="error"``, the default), or warns (``"warn"``);
+  ``"off"`` skips verification;
+* **structured diffs**: every pass reports the ops it added, removed or
+  replaced (:class:`PassResult`), and ops a pass inserts are stamped with
+  ``callsite``/``inserted_by`` provenance attrs (both scrubbed from
+  ``ProgramDesc.fingerprint()``);
+* **fingerprinted**: :meth:`PassPipeline.fingerprint` hashes the ordered
+  pass names and configs as the JAX package does, and keys the executor's
+  cache.
 
-A pass that rewrites parameter *values* (``bn-fold``) sets
-``requires_scope`` and reads and writes ``PassContext.scope``; a pipeline
-run without a scope skips it.
+Pass names and the op types the passes write are part of the ProgramDesc,
+and the tests compare the rewritten ProgramDescs of both packages, so
+they keep the JAX package's names.  A pass that rewrites parameter
+*values* (``bn-fold``) sets ``requires_scope``; a pipeline run without a
+scope skips it.
 
-Not ported yet:
-* the analysis verifier that the JAX pipeline runs before and after every
-  pass (``verify="error"``/``"warn"``): here those modes raise
-  ``NotImplementedError`` and the pipelines the port builds use
-  ``verify="off"`` (ROADMAP.md, queue A item 7);
-* three of the four seed passes of ``default_pipeline``
-  (``fuse-fc-softmax-ce``, ``dead-op-elim``, ``donation-insert``; the
-  fourth, ``bn-fold``, is ported), so ``make_pipeline(True)`` raises.
+Version hygiene: a pass that reports a change but left the desc version
+where it was gets a bump from the pipeline, and a changed pipeline lands
+on a version distinct from the input's (offset by the pipeline
+fingerprint), so two pipelines over one program never collide on
+(uid, version) in the executor's memos.
 
-Each pipeline run counts into the telemetry registry's ``"passes"`` scope
+Each run counts into the telemetry registry's ``"passes"`` scope
 (``pipelines_run``, ``programs_rewritten``, ``ops_removed``,
 ``ops_added``) and, with ``PADDLE_TPU_TELEMETRY_DIR`` set, appends its
-:class:`PipelineResult` to ``passes_<pid>.jsonl`` in the JAX package's
-schema (the verifier's counts stay empty).  Telemetry never fails a
-rewrite.
+:class:`PipelineResult` (with the verifier's counts before and after) to
+``passes_<pid>.jsonl`` in the JAX package's schema.  Telemetry never
+fails a rewrite.
 """
 from __future__ import annotations
 
@@ -39,25 +42,27 @@ import hashlib
 import json
 import os
 import time
+import warnings
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Set
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, \
+    Set, Tuple
 
 from ..core.desc import (CALLSITE_ATTR, PASS_PROVENANCE_ATTR, BlockDesc,
                          OpDesc, ProgramDesc)
 from ..telemetry import REGISTRY
 
 __all__ = [
-    "PASSES", "PassContext", "PassPipeline", "PassResult", "PipelineResult",
-    "ProgramPass", "default_pipeline", "export_pipeline_result", "make_pipeline",
+    "PASSES", "PassContext", "PassPipeline", "PassResult",
+    "PassVerificationError", "PipelineResult", "ProgramPass",
+    "default_pipeline", "export_pipeline_result", "make_pipeline",
     "register_pass",
 ]
 
-_VERIFIER_MISSING = (
-    "the analysis verifier is not ported yet (ROADMAP.md, queue A item 7: "
-    "analysis and passes); build the pipeline with verify='off'")
-
-# the seed passes of the JAX package's default pipeline still to port
-_UNPORTED_SEED_PASSES = ("fuse-fc-softmax-ce", "dead-op-elim", "donation-insert")
+#: diagnostic families a pass must never introduce (shape/dtype,
+#: dataflow, donation-aliasing) — all severities, info included: a
+#: rewrite that leaves dead ops or orphan vars behind is a pass bug even
+#: though the finding itself is only a perf note.
+_GUARDED_FAMILIES = ("S1", "D2", "A3")
 
 
 def op_info(op: OpDesc) -> dict:
@@ -68,18 +73,38 @@ def op_info(op: OpDesc) -> dict:
             "pass": op.attrs.get(PASS_PROVENANCE_ATTR)}
 
 
+class PassVerificationError(RuntimeError):
+    """A pass introduced verifier findings the input program did not
+    have — the rewrite is unsound; carries the pass name and the new
+    :class:`~paddle_tpu_torch.analysis.Diagnostic` list."""
+
+    def __init__(self, pass_name: str, introduced: list):
+        self.pass_name = pass_name
+        self.introduced = list(introduced)
+        lines = [d.format() for d in self.introduced[:8]]
+        if len(self.introduced) > 8:
+            lines.append(f"... and {len(self.introduced) - 8} more")
+        super().__init__(
+            f"pass {pass_name!r} introduced {len(self.introduced)} "
+            f"verifier finding(s):\n  " + "\n  ".join(lines))
+
+
 @dataclass
 class PassContext:
     """What one pipeline run knows about the program being rewritten.
     ``feed_names`` and ``fetch_names`` are vars no pass may remove;
     ``scope`` holds the parameter values (None: passes that need it are
-    skipped)."""
+    skipped); ``feed_shapes``, ``mesh`` and ``layout`` go to the
+    verifier and the memory planner."""
 
     desc: ProgramDesc
     program: Any = None                    # framework Program, if any
     fetch_names: List[str] = field(default_factory=list)
     feed_names: Optional[Set[str]] = None
+    feed_shapes: Optional[Dict[str, Tuple[int, ...]]] = None
     scope: Any = None
+    mesh: Any = None
+    layout: Any = None
 
 
 @dataclass
@@ -110,15 +135,29 @@ class PassResult:
                 "notes": list(self.notes),
                 "wall_s": round(self.wall_s, 6)}
 
+    def format(self) -> str:
+        if self.skipped:
+            return f"{self.name}: skipped ({self.skipped})"
+        bits = [f"+{len(self.ops_added)}/-{len(self.ops_removed)} ops"]
+        if self.ops_replaced:
+            bits.append(f"{self.ops_replaced} pattern(s) replaced")
+        if self.vars_removed or self.vars_added:
+            bits.append(f"+{self.vars_added}/-{self.vars_removed} vars")
+        if self.donate_vars:
+            bits.append(f"donate: {', '.join(self.donate_vars)}")
+        state = "changed" if self.changed else "no-op"
+        return f"{self.name}: {state} ({'; '.join(bits)})"
+
 
 class ProgramPass:
-    """One ProgramDesc rewrite.  Subclasses set ``name`` and implement
-    :meth:`apply`, mutating ``ctx.desc`` in place and recording every op
-    they add or remove into ``result`` through :meth:`insert_op` and
-    :meth:`remove_ops`."""
+    """One verifier-checked ProgramDesc rewrite.  Subclasses set ``name``
+    and implement :meth:`apply`, mutating ``ctx.desc`` in place and
+    recording every op they add/remove into ``result`` (use
+    :meth:`insert_op` / :meth:`remove_ops` so provenance stamping and the
+    structured diff stay consistent)."""
 
     name: str = "?"
-    # reads or writes parameter values through ``PassContext.scope``
+    #: the pass rewrites runtime parameter values and needs a Scope
     requires_scope: bool = False
 
     def config(self) -> dict:
@@ -128,12 +167,14 @@ class ProgramPass:
     def apply(self, ctx: PassContext, result: PassResult) -> None:
         raise NotImplementedError
 
+    # ------------------------------------------------------------- helpers
     def insert_op(self, block: BlockDesc, index: int, op: OpDesc,
                   result: PassResult,
                   callsite: Optional[str] = None) -> OpDesc:
         """Insert ``op`` with pass provenance: ``inserted_by`` names this
-        pass and ``callsite`` the rewritten op's creation site (or
-        ``pass:<name>``)."""
+        pass and ``callsite`` points at the rewritten op's creation site
+        (or ``pass:<name>``) — both non-semantic, scrubbed from the
+        program fingerprint."""
         op.attrs.setdefault(PASS_PROVENANCE_ATTR, self.name)
         op.attrs.setdefault(CALLSITE_ATTR, callsite or f"pass:{self.name}")
         block.insert_op(index, op)
@@ -153,13 +194,20 @@ class ProgramPass:
 
     def gc_dead_var_decls(self, block: BlockDesc, keep: Set[str],
                           result: PassResult) -> None:
-        """Drop non-persistable var declarations that no remaining op (nor
-        a feed or fetch in ``keep``) references.  (The port's programs have
-        one block: the passes skip multi-block programs.)"""
+        """Drop non-persistable var declarations no remaining op (or
+        fetch/feed in ``keep``) references — a clean rewrite leaves no
+        D205 orphans behind."""
         referenced: Set[str] = set(keep)
         for op in block.ops:
             referenced.update(n for n in op.input_names() if n)
             referenced.update(n for n in op.output_names() if n)
+            for aname in op.attrs:
+                if op.block_attr(aname) is not None:
+                    # conservatively keep everything a sub-block touches
+                    sub = block.program.blocks[op.block_attr(aname)]
+                    for sop in sub.ops:
+                        referenced.update(sop.input_names())
+                        referenced.update(sop.output_names())
         dead = [n for n, vd in block.vars.items()
                 if n not in referenced and not vd.persistable]
         for n in dead:
@@ -170,7 +218,8 @@ class ProgramPass:
             result.changed = True
 
 
-#: pass registry: name -> zero-arg constructor
+#: pass registry: name -> zero-arg constructor (Fluid's
+#: PassRegistry, pass.h REGISTER_PASS)
 PASSES: Dict[str, Callable[[], ProgramPass]] = {}
 
 
@@ -185,19 +234,17 @@ def _resolve(p) -> ProgramPass:
     if isinstance(p, type) and issubclass(p, ProgramPass):
         return p()
     if isinstance(p, str):
-        if p in _UNPORTED_SEED_PASSES:
-            raise NotImplementedError(
-                f"pass {p!r} is not ported yet (ROADMAP.md, queue A item 7)")
         if p not in PASSES:
-            raise KeyError(f"unknown pass {p!r}; registered: {sorted(PASSES)}")
+            raise KeyError(f"unknown pass {p!r}; registered: "
+                           f"{sorted(PASSES)}")
         return PASSES[p]()
     raise TypeError(f"cannot resolve pass from {p!r}")
 
 
 @dataclass
 class PipelineResult:
-    """One pipeline application: per-pass structured diffs and identity
-    bookkeeping."""
+    """One pipeline application: per-pass structured diffs plus the
+    pre/post verification and identity bookkeeping."""
 
     fingerprint: str = ""
     passes: List[PassResult] = field(default_factory=list)
@@ -227,28 +274,33 @@ class PipelineResult:
                 "verify_post": dict(self.verify_counts_post),
                 "wall_s": round(self.wall_s, 6)}
 
+    def format(self) -> str:
+        head = (f"pass pipeline [{self.fingerprint[:12]}]: "
+                f"{self.ops_before} -> {self.ops_after} ops "
+                f"({'changed' if self.changed else 'no-op'})")
+        return "\n".join([head] + ["  " + r.format() for r in self.passes])
+
 
 class PassPipeline:
     """Ordered, registered, fingerprint-aware pass sequence.
 
-    ``verify`` names the JAX package's pre/post verification mode; only
-    ``"off"`` exists in the port until the verifier is ported, and the
-    default (``"error"``, as in the JAX package) raises rather than
-    skipping verification silently."""
+    ``verify`` controls the pre/post invariant checking: ``"error"``
+    (default) raises :class:`PassVerificationError` when a pass
+    introduces a D2xx/S1xx/A3xx finding, ``"warn"`` warns, ``"off"``
+    skips verification (the pipeline is then only as sound as its
+    passes)."""
 
     def __init__(self, passes: Sequence, verify: str = "error"):
         if verify not in ("error", "warn", "off"):
             raise ValueError(f"verify must be 'error', 'warn' or 'off', "
                              f"got {verify!r}")
-        if verify != "off":
-            raise NotImplementedError(f"PassPipeline(verify={verify!r}): "
-                                      f"{_VERIFIER_MISSING}")
         self.passes: List[ProgramPass] = [_resolve(p) for p in passes]
         self.verify = verify
 
     def fingerprint(self) -> str:
         """Stable content hash of the ordered pass names and their
-        semantic configs."""
+        semantic configs — keyed into the executor's cache and the capture
+        log's attribution."""
         payload = json.dumps([[p.name, p.config()] for p in self.passes],
                              sort_keys=True)
         return hashlib.sha1(payload.encode()).hexdigest()
@@ -257,17 +309,19 @@ class PassPipeline:
         return (f"PassPipeline([{', '.join(p.name for p in self.passes)}]"
                 f", verify={self.verify!r})")
 
+    # ------------------------------------------------------------------ run
     def run(self, program, *, fetch_list: Optional[Sequence] = None,
-            feed_names: Optional[Iterable[str]] = None, scope=None,
-            clone: bool = True):
+            feed_names: Optional[Iterable[str]] = None,
+            feed_shapes: Optional[Dict[str, Sequence[int]]] = None,
+            scope=None, mesh=None, layout=None, clone: bool = True):
         """Apply every pass in order.  Returns ``(program, result)``.
-        A pass that ``requires_scope`` is skipped when ``scope`` is None.
 
         With ``clone=True`` (default) the input program is never mutated:
-        the rewrite happens on a clone that keeps the input's ``uid`` but
-        lands on a version no other pipeline over that uid can reach when
-        anything changed.  If no pass changes anything, the ORIGINAL
-        program object is returned."""
+        the rewrite happens on a clone that keeps the input's ``uid``
+        (executor memos and capture-log attribution stay keyed to the
+        *model*) but lands on a distinct ``version`` when anything
+        changed.  If no pass changes anything, the ORIGINAL program
+        object is returned."""
         t0 = time.perf_counter()
         is_framework = hasattr(program, "desc")
         src_desc: ProgramDesc = program.desc if is_framework else program
@@ -281,30 +335,44 @@ class PassPipeline:
             work = program
         desc: ProgramDesc = work.desc if is_framework else work
         if clone:
+            # identity continuity: same uid (per-model memo/attribution
+            # keys), version continued from the source so a rewrite can
+            # never be served the source's memoized verdicts
             desc.uid = src_desc.uid
             desc._version = src_desc.version
 
+        feed_shape_map = ({k: tuple(int(d) for d in v)
+                           for k, v in feed_shapes.items()}
+                          if feed_shapes else None)
         ctx = PassContext(
             desc=desc, program=work if is_framework else None,
             fetch_names=fetch_names,
             feed_names=set(feed_names) if feed_names is not None else None,
-            scope=scope)
+            feed_shapes=feed_shape_map, scope=scope, mesh=mesh,
+            layout=layout)
+
         result = PipelineResult(
             fingerprint=self.fingerprint(), program_fp_before=fp_before,
-            version_before=v_before, ops_before=sum(len(b.ops) for b in desc.blocks))
+            version_before=v_before,
+            ops_before=sum(len(b.ops) for b in desc.blocks))
+
+        pre_keys, pre_counts = self._verify(desc, ctx)
+        result.verify_counts_pre = pre_counts
 
         for p in self.passes:
             pr = PassResult(name=p.name)
             t_pass = time.perf_counter()
-            if p.requires_scope and scope is None:
+            if p.requires_scope and ctx.scope is None:
                 pr.skipped = "needs a Scope (parameter values)"
+                pr.wall_s = time.perf_counter() - t_pass
                 result.passes.append(pr)
                 continue
             v0 = desc.version
             p.apply(ctx, pr)
             if pr.changed and desc.version == v0:
-                # a mutation must move the version, or a memo keyed on
-                # (uid, version) would serve the pre-rewrite program
+                # a mutation must move the version, or the executor's
+                # per-(uid, version) memos would serve the pre-rewrite
+                # program and verdicts
                 desc._bump()
                 pr.notes.append("version bump supplied by the pipeline "
                                 "(pass mutated without _bump)")
@@ -312,23 +380,55 @@ class PassPipeline:
                 work.sync_with_desc()
             pr.wall_s = time.perf_counter() - t_pass
             result.passes.append(pr)
+            result.donate_vars.extend(pr.donate_vars)
+            if pr.changed and self.verify != "off":
+                post_keys, post_counts = self._verify(desc, ctx)
+                introduced = [d for k, d in post_keys.items()
+                              if k not in pre_keys]
+                if introduced:
+                    err = PassVerificationError(p.name, introduced)
+                    if self.verify == "error":
+                        raise err
+                    warnings.warn(str(err), stacklevel=2)
+                pre_keys, pre_counts = post_keys, post_counts
 
         result.changed = any(r.changed for r in result.passes)
+        result.verify_counts_post = pre_counts
         result.version_after = desc.version
         result.ops_after = sum(len(b.ops) for b in desc.blocks)
         if result.changed and clone:
+            # land on a version no other pipeline over this uid can hit:
             # offset by this pipeline's fingerprint so two different
-            # pipelines rewriting one program never collide on (uid, version)
+            # pipelines rewriting one program never collide on
+            # (uid, version) in process-wide memos
             desc._version = (v_before + 1
                              + (int(self.fingerprint()[:8], 16) & 0xFFFF))
             result.version_after = desc.version
         result.program_fp_after = desc.fingerprint()
         result.wall_s = time.perf_counter() - t0
+
         _count_pipeline(result)
         export_pipeline_result(result)
+
         if not result.changed and clone:
             return program, result
         return work, result
+
+    def _verify(self, desc: ProgramDesc, ctx: PassContext):
+        """One analysis.verify pass → ({guarded finding key: diag},
+        severity counts).  Keys exclude op indices (passes legitimately
+        renumber ops)."""
+        if self.verify == "off":
+            return {}, {}
+        from ..analysis import verifier
+        res = verifier.verify(
+            desc, fetch_list=ctx.fetch_names, feed_names=ctx.feed_names,
+            feed_shapes=ctx.feed_shapes, mesh=ctx.mesh, layout=ctx.layout)
+        keys = {}
+        for d in res.diagnostics:
+            if d.code[:2] in _GUARDED_FAMILIES:
+                keys[(d.code, d.var, d.op_type, d.block_idx)] = d
+        return keys, res.counts()
 
 
 def _count_pipeline(result: PipelineResult) -> None:
@@ -362,21 +462,23 @@ def export_pipeline_result(result: PipelineResult,
 
 
 def default_pipeline(verify: str = "error") -> PassPipeline:
-    """The JAX package's seed pipeline; three of its passes are not ported yet."""
-    raise NotImplementedError(
-        f"the seed passes {list(_UNPORTED_SEED_PASSES)} are not ported yet "
-        f"(ROADMAP.md, queue A item 7); name the passes to run instead")
+    """The seed pipeline, in dependency order: pattern fusion first (it
+    leaves orphans the dead-op pass sweeps), BN folding (inference),
+    dead-op elimination, then donation insertion over the now-final
+    liveness."""
+    return PassPipeline(["fuse-fc-softmax-ce", "bn-fold", "dead-op-elim",
+                         "donation-insert"], verify=verify)
 
 
 def make_pipeline(spec) -> Optional[PassPipeline]:
     """Normalize the ``Executor(passes=)`` knob: ``None``/``False`` → no
-    pipeline, ``True`` → :func:`default_pipeline` (raises until its passes
-    are ported), a :class:`PassPipeline` → itself, else an iterable of
-    pass names / classes / instances, run with ``verify="off"``."""
+    pipeline, ``True`` → :func:`default_pipeline`, a
+    :class:`PassPipeline` → itself, else an iterable of pass names /
+    classes / instances."""
     if spec is None or spec is False:
         return None
     if spec is True:
         return default_pipeline()
     if isinstance(spec, PassPipeline):
         return spec
-    return PassPipeline(list(spec), verify="off")
+    return PassPipeline(list(spec))

@@ -28,9 +28,14 @@ class ServingSession:
     (a ragged model) cannot be warmed from its declarations: call
     ``inferencer.warmup(buckets, feed_specs)`` first and pass
     ``warmup=False``.
-    ``passes=``, ``amp=`` and ``kernels=`` go to the ``Inferencer`` it
-    builds: ``amp=AmpConfig(bf16=False, quant=True), kernels=True`` serves
-    in int8."""
+    ``passes=``, ``amp=``, ``kernels=``, ``validate=`` and
+    ``memory_budget=`` go to the ``Inferencer`` it builds:
+    ``amp=AmpConfig(bf16=False, quant=True), kernels=True`` serves in int8;
+    ``validate="warn"``/``"error"`` verifies the inference program once
+    for all buckets.  A pre-built inferencer adopts the session's
+    ``memory_budget``.  With a budget, the warmup rejects every bucket
+    whose planned peak exceeds it, and the engine dispatches only the
+    others (a ``ValueError`` when none is left)."""
 
     def __init__(self, infer_func=None, place=None, inferencer=None,
                  max_batch_size: int = 32, max_wait_ms: float = 2.0,
@@ -38,19 +43,32 @@ class ServingSession:
                  default_timeout_s: Optional[float] = 30.0,
                  buckets: Optional[Sequence[int]] = None,
                  warmup: bool = True, nan_guard: bool = True, passes=None,
-                 amp=None, kernels=None):
+                 amp=None, kernels=None, validate: Optional[str] = None,
+                 memory_budget=None):
         if inferencer is None:
             if infer_func is None:
                 raise ValueError("pass infer_func or an existing inferencer")
             from ..trainer import Inferencer
             inferencer = Inferencer(infer_func=infer_func, place=place,
-                                    passes=passes, amp=amp, kernels=kernels)
+                                    passes=passes, amp=amp, kernels=kernels,
+                                    validate=validate, memory_budget=memory_budget)
+        elif memory_budget is not None:
+            inferencer.exe.memory_budget = memory_budget
         self.inferencer = inferencer
         self.buckets = tuple(sorted(
             int(b) for b in (buckets or pow2_buckets(max_batch_size))))
         self.warmup_report: List[Dict[str, Any]] = []
         if warmup:
             self.warmup_report = self.inferencer.warmup(self.buckets)
+            accepted = tuple(r["batch_size"] for r in self.warmup_report
+                             if not r.get("rejected"))
+            if len(accepted) != len(self.buckets):
+                rejected = [r for r in self.warmup_report if r.get("rejected")]
+                if not accepted:
+                    raise ValueError("every warmup bucket exceeds the memory budget -- "
+                                     f"smallest rejection: {rejected[0]['error']}")
+                self.buckets = accepted
+                max_batch_size = min(int(max_batch_size), accepted[-1])
         self.engine = BatchingEngine(
             runner=self._run_batch, max_batch_size=max_batch_size,
             max_wait_ms=max_wait_ms, max_queue=max_queue,

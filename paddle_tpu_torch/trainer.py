@@ -32,6 +32,11 @@ Options of the JAX Trainer that need modules not ported yet raise
 ``mesh``, ``layout``, ``health``, ``checkpoint=`` (the async manager),
 ``dispatch`` and ``prefetcher``.
 
+Before the first step the Trainer plans the step program's memory from
+the first batch's shapes (``analysis.plan_memory``), logs the predicted
+peak and exports the plan to ``memplan_<pid>.jsonl`` with
+``source="trainer"``; the plan is advisory and never fails a run.
+
 ``Inferencer``: build an inference program once, initialize its
 parameters (or load them from ``param_path``), run predictions.  The
 program is built under ``unique_name.guard()`` (fresh counters) so
@@ -42,6 +47,10 @@ across.  One pinned ``Scope`` holds the parameters across every ``infer``
 call.  ``passes=``, ``amp=`` and ``kernels=`` go to the ``Executor``: e.g.
 ``amp=AmpConfig(bf16=False, quant=True)`` with the kernel tier on (the
 default on a CUDA place) serves every ``mul`` through the int8 GEMM.
+``validate=`` and ``memory_budget=`` go to the ``Executor`` as well: the
+verifier runs once for all warmup buckets, and :meth:`Inferencer.warmup`
+rejects a batch size whose planned peak exceeds the budget (its record
+carries ``rejected=True`` and the M501 diagnostic).
 """
 from __future__ import annotations
 
@@ -204,6 +213,7 @@ class Trainer:
             if serials:
                 self._load_checkpoint(serials[-1])
         self._memory_planned = False
+        self.memory_plan = None
 
     # ------------------------------------------------------------- training
     def train(self, num_epochs: int, event_handler: Callable,
@@ -275,7 +285,7 @@ class Trainer:
                 if self._stop:
                     return
                 if not self._memory_planned:
-                    self._log_memory_plan()
+                    self._log_memory_plan(feed)
                 stalls0 = COUNTERS.get("sync_stalls")
                 begin = BeginStepEvent(epoch_id, step_id)
                 event_handler(begin)
@@ -315,12 +325,30 @@ class Trainer:
             if stager is not None:
                 stager.close()
 
-    def _log_memory_plan(self):
-        """The JAX Trainer plans the step's memory from the first batch
-        here; the planner (``analysis/memory.py``) is not ported."""
+    def _log_memory_plan(self, feed: dict):
+        """The step-0 static memory plan: the step program's per-device
+        peak from the first batch's shapes, logged and exported
+        (``memplan_<pid>.jsonl``, ``source="trainer"``) as the plan side of
+        a plan-vs-actual comparison.  Kept as ``self.memory_plan``; a
+        failure is logged, never raised."""
         self._memory_planned = True
-        _LOG.info("Trainer: no step-0 memory plan (analysis/memory.py is not ported, "
-                  "ROADMAP §A item 7)")
+        try:
+            from .analysis import memory as _memory
+            plan = _memory.plan_memory(
+                self._step_program, fetch_list=[v.name for v in self.train_outputs],
+                feed_shapes={k: tuple(int(d) for d in v.shape) for k, v in feed.items()
+                             if hasattr(v, "shape")})
+            self.memory_plan = plan
+            _memory.export_plan(plan, source="trainer")
+            b = plan.breakdown
+            VLOG(0, "memory plan: peak %s/device at op#%s %s (%s) -- persistent %s, "
+                    "activations %s, feeds %s over %d device(s)",
+                 _memory.fmt_bytes(plan.peak_bytes), plan.peak_op_index, plan.peak_op_type,
+                 plan.peak_callsite or "?", _memory.fmt_bytes(b.get("persistent", 0)),
+                 _memory.fmt_bytes(b.get("activations", 0)),
+                 _memory.fmt_bytes(b.get("feeds", 0)), plan.num_devices)
+        except Exception as e:  # noqa: BLE001 -- advisory only
+            VLOG(1, "memory plan failed: %s: %s", type(e).__name__, e)
 
     def _record_step(self, epoch_id: int, step_id: int, feed: dict, **timings):
         """One step's telemetry record (ring buffer, and JSONL when
@@ -387,7 +415,8 @@ class Inferencer:
     wrote, of either package, into the startup's tensors (``copy_``)."""
 
     def __init__(self, infer_func: Callable, param_path: Optional[str] = None,
-                 place: Optional[Place] = None, passes=None, amp=None, kernels=None):
+                 place: Optional[Place] = None, passes=None, amp=None, kernels=None,
+                 validate: Optional[str] = None, memory_budget=None):
         self.scope = Scope()
         self.startup_program = Program()
         self.inference_program = Program()
@@ -396,7 +425,8 @@ class Inferencer:
                 self.predict_vars = infer_func()
                 if not isinstance(self.predict_vars, (list, tuple)):
                     self.predict_vars = [self.predict_vars]
-        self.exe = Executor(place, passes=passes, amp=amp, kernels=kernels)
+        self.exe = Executor(place, passes=passes, amp=amp, kernels=kernels,
+                            validate=validate, memory_budget=memory_budget)
         self.exe.run(self.startup_program, scope=self.scope)
         if param_path:
             with scope_guard(self.scope):
@@ -435,7 +465,14 @@ class Inferencer:
         dynamic (include their ``@SEQ_LEN`` channels too).  Returns one
         record per batch size: ``precompile``'s (``fingerprint``, ``kind``,
         ``compile_s``, ``aot``, ``reasons``) with ``batch_size`` and
-        ``seconds`` (the whole call's)."""
+        ``seconds`` (the whole call's).
+
+        With the executor's ``memory_budget`` set, a batch size whose
+        planned per-device peak exceeds the budget is rejected before
+        anything is built for it: its record holds ``rejected=True``,
+        ``code="M501"``, the error, ``predicted_peak_bytes`` and
+        ``budget_bytes``."""
+        from .analysis import PredictedOOMError
         specs: dict = {}
         for v in self._feed_vars():
             specs[v.name] = (tuple(v.shape)[1:], v.dtype.np_dtype)
@@ -454,9 +491,13 @@ class Inferencer:
             feed = {n: ((int(bs),) + tuple(int(d) for d in s), d)
                     for n, (s, d) in specs.items()}
             t0 = time.perf_counter()
-            info = self.exe.precompile(self.inference_program, feed=feed,
-                                       fetch_list=list(self.predict_vars),
-                                       scope=self.scope)
+            try:
+                info = self.exe.precompile(self.inference_program, feed=feed,
+                                           fetch_list=list(self.predict_vars),
+                                           scope=self.scope)
+            except PredictedOOMError as e:
+                info = {"rejected": True, "code": "M501", "error": str(e),
+                        "predicted_peak_bytes": e.plan.peak_bytes, "budget_bytes": e.budget}
             info.update(batch_size=int(bs), seconds=time.perf_counter() - t0)
             report.append(info)
         return report

@@ -46,6 +46,8 @@ from paddle_tpu_torch.core.desc import BlockDesc, grad_var_name
 from paddle_tpu_torch.models import transformer as pt_transformer
 from paddle_tpu_torch.passes import KernelPolicy, PassPipeline
 
+from _torch_validate import _no_port_validate_findings  # noqa: F401
+
 VOCAB, D_MODEL, N_HEAD, D_INNER, T, N_LAYER, BATCH = 1024, 128, 4, 512, 32, 2, 4
 LR, STEPS = 1e-3, 3
 N_STALE = 19                      # stale reads in JAX's rewrite of this model

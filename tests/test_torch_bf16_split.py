@@ -20,6 +20,8 @@ import jax.numpy as jnp
 from paddle_tpu.ops.pallas.flash_attention import _flash_fwd_pallas
 from paddle_tpu_torch.ops.cuda.flash_attention import NEG_INF, flash_attn_fwd_plain, split_bf16
 
+from _torch_validate import _no_port_validate_findings  # noqa: F401
+
 FLASH_TOL = 1e-5      # float32 sums, as chip_smoke.py's gate
 SPLIT_REL = 2.0 ** -17
 SPLIT_ABS = 2.0 ** -134   # half the spacing of bf16's subnormals

@@ -33,6 +33,8 @@ from paddle_tpu_torch.core.registry import OPS
 from test_torch_cnn_ops import (build_both, descs_equal, fetch_names, persistables,
                                 start_both)
 
+from _torch_validate import _no_port_validate_findings  # noqa: F401
+
 # ResNet-18 at 32 x 32, batch 8, port against the JAX package.  Readings on
 # the CPU (x86-64): the loss 7.9e-7 and 5.0e-6 relative (steps 1, 2);
 # gradients <= 1.3e-5 norm-relative; each persistable's change over two

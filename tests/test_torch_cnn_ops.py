@@ -26,6 +26,8 @@ import paddle_tpu.initializer  # noqa: F401  (registers the attribute)
 import paddle_tpu.passes  # noqa: F401
 import paddle_tpu_torch as pt
 
+from _torch_validate import _no_port_validate_findings  # noqa: F401
+
 ATOL = 1e-5          # float32, XLA against torch, single ops
 CONV_RTOL = 1e-5     # conv outputs and gradients, relative to the largest value
 
@@ -625,8 +627,10 @@ def test_bn_fold_matches_the_jax_pass_and_leaves_its_input_alone(conv_bias):
 def test_bn_fold_through_the_executor_and_without_a_scope():
     """``Executor(passes=["bn-fold"])`` folds with the scope it runs in; a
     pipeline run without a scope skips the pass; a training-mode
-    batch_norm is left alone; ``default_pipeline`` still raises (three
-    seed passes to go)."""
+    batch_norm is left alone.  Its last check read "``default_pipeline``
+    still raises (three seed passes to go)" before the seed passes were
+    ported; now ``make_pipeline(True)`` folds this program too, within the
+    fold tolerance, with the verifier on (``verify="error"``)."""
     main, startup = pt.Program(), pt.Program()
     with pt.unique_name.guard(), pt.program_guard(main, startup):
         loss, pred = _fold_net(pt, True)
@@ -645,8 +649,13 @@ def test_bn_fold_through_the_executor_and_without_a_scope():
     _, res = pt.passes.PassPipeline(["bn-fold"], verify="off").run(
         main, fetch_list=[loss.name], scope=scope)
     assert not res.changed and "training-mode" in res.passes[0].notes[0]
-    with pytest.raises(NotImplementedError, match="seed passes"):
-        pt.passes.make_pipeline(True)
+    seed = pt.passes.make_pipeline(True)
+    assert seed.verify == "error" and "bn-fold" in [p.name for p in seed.passes]
+    folded, res = seed.run(test, fetch_list=[pred.name], scope=scope)
+    assert "batch_norm" not in [o.type for o in folded.desc.block(0).ops]
+    assert res.verify_counts_post["error"] == res.verify_counts_post["warning"] == 0
+    got = plain.run(folded, feed=x, fetch_list=[pred.name], scope=scope)[0]
+    np.testing.assert_allclose(got, want, rtol=BN_FOLD_RTOL, atol=BN_FOLD_ATOL)
 
 
 def test_inferencer_with_bn_fold_serves_the_folded_program():

@@ -29,6 +29,8 @@ from paddle_tpu_torch import lod as pt_lod
 from paddle_tpu_torch.core.staging import COUNTERS, FeedStager, StagedBatch, stager_stats
 from paddle_tpu_torch.data_feeder import bucketed_len as pt_bucketed_len
 
+from _torch_validate import _no_port_validate_findings  # noqa: F401
+
 PKGS = [(jax_reader, jax_batch), (pt_reader, pt_reader.batch)]
 
 

@@ -30,6 +30,8 @@ from paddle_tpu_torch.core.staging import (COUNTERS, PINNED_HANDOUT, FetchHandle
                                            prefetch_to_host)
 from paddle_tpu_torch.models import transformer as pt_transformer
 
+from _torch_validate import _no_port_validate_findings  # noqa: F401
+
 VOCAB, D_MODEL, N_HEAD, D_INNER, T, N_LAYER = 1000, 64, 4, 256, 32, 2
 # float32 through 4 layers, different summation orders (XLA vs torch CPU):
 # tests/test_torch_serving.py's tolerance

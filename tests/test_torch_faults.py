@@ -29,6 +29,8 @@ from paddle_tpu_torch.core.registry import OPS, register_lowering
 from paddle_tpu_torch.ops.cuda.embedding import scatter_add_rows, scatter_add_rows_plain
 from paddle_tpu_torch.ops.cuda.fused_optimizer import fused_adam_plain
 
+from _torch_validate import _no_port_validate_findings  # noqa: F401
+
 FC_ATOL = 1e-5     # float32, XLA vs torch summation orders over 12 + 7 terms
 
 

@@ -32,6 +32,8 @@ from paddle_tpu_torch.ops.cuda.linear_ce import (gemm_3xtf32, gemm_bf16, linear_
                                                  linear_ce_bwd_plain, linear_ce_fwd,
                                                  linear_ce_fwd_plain)
 
+from _torch_validate import _no_port_validate_findings  # noqa: F401
+
 pytestmark = pytest.mark.gpu
 
 FLASH_ATOL = 1e-5     # float32, kernel vs plain on the card
@@ -1903,3 +1905,66 @@ def test_resnet18_on_the_card_matches_the_cpu(cuda):
         grads[k] = pt.Executor(place).run(tmain, feed={"x": np.ones((2, 3, 7, 7), np.float32)},
                                           fetch_list=[gx], scope=pt.Scope())[0]
     np.testing.assert_array_equal(grads["cuda"], grads["cpu"])
+
+
+EVAL_LOSS_RTOL = 1e-5   # the fused head's eval loss against softmax + CE's
+
+
+def _reference_eval(rows=16, t=256, vocab=32000):
+    """The eval clone of a 2+2-layer reference step (unfused head with token
+    weights) at the full vocabulary, and its feed."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        src = layers.data(name="src", shape=[1], dtype="int64", lod_level=1)
+        trg = layers.data(name="trg", shape=[1], dtype="int64", lod_level=1)
+        lbl = layers.data(name="lbl", shape=[t, 1], dtype="int64")
+        wgt = layers.data(name="wgt", shape=[t, 1], dtype="float32")
+        loss, _ = transformer.train_network(src, trg, lbl, vocab, vocab, weights=wgt,
+                                            max_len=t, n_layer=2, d_model=512, n_head=8,
+                                            d_inner=2048, fuse_final_ce=False)
+    rs = np.random.RandomState(2)
+    feed = {}
+    for name in ("src", "trg"):
+        lens = rs.randint(t // 2, t + 1, rows).astype(np.int32)
+        ids = rs.randint(1, vocab, (rows, t, 1)).astype(np.int64)
+        ids[np.arange(t)[None, :] >= lens[:, None]] = 0
+        feed[name], feed[name + "@SEQ_LEN"] = ids, lens
+    feed["lbl"] = rs.randint(1, vocab, (rows, t, 1)).astype(np.int64)
+    feed["wgt"] = (np.arange(t)[None, :] < feed["trg@SEQ_LEN"][:, None]).astype(
+        np.float32)[..., None]
+    return main.clone(for_test=True), startup, loss.name, feed
+
+
+def test_passes_fuse_the_reference_eval_and_the_plan_holds_the_band(cuda):
+    """``Executor(passes=True, validate="error")`` on a 2+2 reference eval
+    at vocab 32000, 16 x 256: one head fused, K7 once a run (the capture,
+    then replays), the loss within ``EVAL_LOSS_RTOL`` of the unfused
+    eval's; each eval's ``plan_memory`` peak against the peak an eager run
+    of it measures (``analysis.measured``: the state it reads +
+    ``max_memory_allocated`` over the run less what was allocated before)
+    within ``measured.PLAN_BAND``, the fused one the lower."""
+    from paddle_tpu_torch.analysis import measured
+    from paddle_tpu_torch.ops.cuda.linear_ce import linear_ce_fwd as k7
+    test, startup, loss, feed = _reference_eval()
+    scope = pt.Scope()
+    pt.Executor().run(startup, scope=scope)
+    plain = pt.Executor()
+    fused = pt.Executor(passes=True, validate="error")
+    ran = fused._apply_passes(test, list(feed), [loss], scope,
+                              {k: np.shape(v) for k, v in feed.items()})
+    assert [o.type for o in ran.desc.block(0).ops].count("fused_fc_softmax_ce") == 1
+    paths = {}
+    for key, exe in (("unfused", plain), ("fused", fused)):
+        paths[key] = measured.prepare(key, exe, test, feed, [loss], scope)
+        measured.measure(paths[key], scope, feed,
+                         lambda: exe._run_eager(test, feed, [loss], scope))
+    for r in paths.values():
+        assert measured.PLAN_BAND[0] <= r["ratio"] <= measured.PLAN_BAND[1], paths
+    assert paths["fused"]["measured_bytes"] < paths["unfused"]["measured_bytes"]
+    k7_0 = k7.launches
+    (want,) = plain.run(test, feed=feed, fetch_list=[loss], scope=scope)
+    losses = [fused.run(test, feed=feed, fetch_list=[loss], scope=scope)[0] for _ in range(3)]
+    assert k7.launches - k7_0 == 3
+    assert [e["kind"] for e in fused.cache_info()["entries"] if "lbl" in e["feeds"]] == ["graph"]
+    for got in losses:
+        assert abs(float(got) - float(want)) <= EVAL_LOSS_RTOL * abs(float(want))

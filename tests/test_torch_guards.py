@@ -14,6 +14,8 @@ import torch
 
 import paddle_tpu_torch as pt
 
+from _torch_validate import _no_port_validate_findings  # noqa: F401
+
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 
@@ -66,6 +68,15 @@ def test_the_import_scan_covers_the_optimizer_slice_modules():
     for path in ("clip.py", "regularizer.py", "optimizer.py", "backward.py",
                  "layers/learning_rate_scheduler.py", "ops/optimizer_ops.py", "ops/math_ops.py",
                  "ops/nn_ops.py", "ops/tensor_ops.py", "ops/kernel_ops.py"):
+        assert f"paddle_tpu_torch/{path}" in scanned, path
+
+
+def test_the_import_scan_covers_the_analysis_slice_modules():
+    scanned = {str(p.relative_to(REPO)) for p in (REPO / "paddle_tpu_torch").rglob("*.py")}
+    for path in ("analysis/__init__.py", "analysis/diagnostics.py", "analysis/verifier.py",
+                 "analysis/memory.py", "ops/shape_infer.py", "passes/fuse.py",
+                 "passes/dead_ops.py", "passes/donation.py", "transpiler/__init__.py",
+                 "transpiler/inference_transpiler.py"):
         assert f"paddle_tpu_torch/{path}" in scanned, path
 
 

@@ -30,6 +30,8 @@ from paddle_tpu_torch import io as pt_io
 from paddle_tpu_torch.amp import AmpConfig
 from paddle_tpu_torch.models import transformer as pt_transformer
 
+from _torch_validate import _no_port_validate_findings  # noqa: F401
+
 VOCAB, D_MODEL, N_HEAD, D_INNER, T, N_LAYER = 1000, 64, 4, 256, 32, 2
 LOGIT_ATOL = 1e-4     # tests/test_torch_serving.py: float32 through 4 layers
 # bf16 serving, port against the JAX package, ||a - b|| / ||b|| over the

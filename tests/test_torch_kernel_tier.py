@@ -36,6 +36,8 @@ from paddle_tpu_torch.ops.cuda.int8_matmul import (abs_max_pair_plain, bin_count
                                                    quantize_ratio, scale_by_reciprocal)
 from paddle_tpu_torch.passes import KernelPolicy, PassPipeline
 
+from _torch_validate import _no_port_validate_findings  # noqa: F401
+
 VOCAB, D_MODEL, N_HEAD, D_INNER, T, N_LAYER = 1000, 64, 4, 256, 32, 2
 N_MUL = 33                      # mul ops of the 2+2-layer serving program
 KNOBS = ("flash_block_q", "flash_block_k", "flash_min_block_q", "flash_lane",
@@ -576,11 +578,29 @@ def test_kernels_none_is_off_on_the_cpu():
 
 
 @pytest.mark.parametrize("verify", ["error", "warn"])
-def test_pass_pipeline_verification_is_not_ported_and_says_so(verify):
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        PassPipeline(["amp-quant-int8"], verify=verify)
-    with pytest.raises(NotImplementedError, match="seed passes"):
-        pt.passes.make_pipeline(True)
+def test_pass_pipeline_verification_is_not_ported_and_says_so(verify, serving_programs):
+    """Named for what it checked before the analysis slice: ``verify="error"``
+    and ``"warn"`` raised ``NotImplementedError``, and so did
+    ``make_pipeline(True)``.  The verifier and the seed passes are ported
+    now (tests/test_torch_analysis.py, tests/test_torch_passes.py), so it
+    checks that both modes build and verify the quant rewrite before and
+    after the pass (no finding added), with the JAX pipeline's counts, and
+    that ``make_pipeline(True)`` is the seed pipeline."""
+    (jm, jo), (tm, to) = serving_programs
+    p = PassPipeline(["amp-quant-int8"], verify=verify)
+    assert p.verify == verify
+    _, res = p.run(tm, fetch_list=[to.name])
+    _, jres = fluid.passes.PassPipeline(["amp-quant-int8"], verify=verify).run(
+        jm, fetch_list=[jo.name])
+    assert res.changed and res.verify_counts_pre and res.verify_counts_post
+    assert (res.verify_counts_pre, res.verify_counts_post) == \
+        (jres.verify_counts_pre, jres.verify_counts_post)
+    assert res.verify_counts_post["error"] == res.verify_counts_post["warning"] == 0
+    seed = pt.passes.make_pipeline(True)
+    assert [q.name for q in seed.passes] == ["fuse-fc-softmax-ce", "bn-fold", "dead-op-elim",
+                                             "donation-insert"]
+    assert seed.verify == "error" and seed.fingerprint() == \
+        fluid.passes.make_pipeline(True).fingerprint()
 
 
 def test_bf16_amp_is_not_ported_and_says_so():

@@ -20,6 +20,8 @@ from paddle_tpu.ops.pallas.flash_attention import flash_attention as pallas_flas
 from paddle_tpu_torch.ops.cuda.embedding import gather_rows
 from paddle_tpu_torch.ops.cuda.flash_attention import flash_attn_fwd, flash_attn_fwd_plain
 
+from _torch_validate import _no_port_validate_findings  # noqa: F401
+
 FLASH_ATOL = 1e-5   # float32; composed vs interpret differ by ~1.2e-6 here
 
 

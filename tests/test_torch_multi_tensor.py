@@ -37,6 +37,8 @@ from paddle_tpu_torch.models import transformer
 from paddle_tpu_torch.ops import optimizer_ops
 from paddle_tpu_torch.ops.cuda import fused_optimizer as fo
 
+from _torch_validate import _no_port_validate_findings  # noqa: F401
+
 CSRC = Path(fo.__file__).resolve().parents[2] / "csrc"
 ADAM_SRC = (CSRC / "fused_adam.cu").read_text()
 SGD_SRC = (CSRC / "fused_sgd.cu").read_text()

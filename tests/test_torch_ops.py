@@ -13,6 +13,8 @@ import pytest
 import paddle_tpu as fluid
 import paddle_tpu_torch as pt
 
+from _torch_validate import _no_port_validate_findings  # noqa: F401
+
 ATOL = 1e-5
 
 

@@ -24,6 +24,8 @@ import torch
 import paddle_tpu as fluid
 import paddle_tpu_torch as pt
 
+from _torch_validate import _no_port_validate_findings  # noqa: F401
+
 ATOL = 1e-5          # float32, XLA against torch
 STEP_ATOL = 2e-5     # parameters after 3 steps, float32
 

@@ -31,6 +31,8 @@ from paddle_tpu_torch.core.executor import RNG_STATE_VAR
 from paddle_tpu_torch.models import transformer as pt_transformer
 from paddle_tpu_torch.profiling import op_profiler as pt_op_profiler
 
+from _torch_validate import _no_port_validate_findings  # noqa: F401
+
 VOCAB, D_MODEL, N_HEAD, D_INNER, T, N_LAYER, BATCH = 1000, 64, 4, 256, 32, 2, 4
 
 

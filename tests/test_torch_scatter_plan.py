@@ -19,6 +19,8 @@ import torch
 from paddle_tpu_torch.ops.cuda import embedding
 from paddle_tpu_torch.ops.cuda.embedding import _scratch_ints, scatter_add_rows_plain
 
+from _torch_validate import _no_port_validate_findings  # noqa: F401
+
 SRC = (Path(embedding.__file__).resolve().parents[2] / "csrc" / "embedding_scatter_add.cu").read_text()
 SMS = 132   # an H100's SMs: the host sizes the long blocks from it
 

@@ -22,6 +22,8 @@ from paddle_tpu_torch.serving import (BatchingEngine, RequestTimeout,
                                       ServingClosed, ServingNonFinite,
                                       ServingOverloaded)
 
+from _torch_validate import _no_port_validate_findings  # noqa: F401
+
 VOCAB, D_MODEL, N_HEAD, D_INNER, T, N_LAYER = 1000, 64, 4, 256, 32, 2
 # float32 through 4 layers, different summation orders (XLA vs torch CPU)
 LOGIT_ATOL = 1e-4

@@ -30,7 +30,10 @@ from paddle_tpu_torch.core.executor import _write_back, analyze_state, graph_blo
 from paddle_tpu_torch.core.lower import LowerCtx
 from paddle_tpu_torch.core.registry import OPS, register_lowering
 from paddle_tpu_torch.models import transformer as pt_transformer
+from paddle_tpu_torch.ops import shape_infer
 from paddle_tpu_torch.ops.cuda import fused_optimizer as fo
+
+from _torch_validate import _no_port_validate_findings  # noqa: F401
 
 VOCAB, D_MODEL, N_HEAD, D_INNER, T, N_LAYER, BATCH = 1000, 64, 4, 256, 32, 2, 4
 STEPS = 3
@@ -143,6 +146,7 @@ def random_scale_op():
         x = ctx.read_slot(op, "X")
         ctx.write_slot(op, "Out", x * torch.rand(x.shape, generator=ctx.generator))
 
+    shape_infer._same(op_type)     # Out is X's shape: the memory plan sizes it
     yield op_type
     del OPS._map[op_type]
 

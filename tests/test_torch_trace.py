@@ -35,6 +35,8 @@ from paddle_tpu_torch import telemetry as pt_telemetry
 from paddle_tpu_torch.passes import base as pt_passes
 from paddle_tpu_torch.serving import engine as pt_engine
 
+from _torch_validate import _no_port_validate_findings  # noqa: F401
+
 REPO = Path(__file__).resolve().parents[1]
 TRACE_IDS = {"trace_id", "span_id", "parent_id"}
 

@@ -27,6 +27,8 @@ from paddle_tpu_torch.ops.cuda.flash_attention import FlashAttention
 from paddle_tpu_torch.ops.cuda.fused_optimizer import fused_adam
 from paddle_tpu_torch.ops.cuda.linear_ce import linear_ce_bwd, linear_ce_fwd
 
+from _torch_validate import _no_port_validate_findings  # noqa: F401
+
 CE_FWD_ATOL = 1e-5       # lse and label logit, float32
 CE_BWD_ATOL = 1e-4       # dx, dW, db: sums over 256 rows or 1024 columns
 ADAM_P_ATOL = 2e-6       # the JAX package's own kernel-vs-composed bound

@@ -31,6 +31,8 @@ from paddle_tpu.models import transformer as jax_transformer
 from paddle_tpu_torch import telemetry as pt_telemetry
 from paddle_tpu_torch.models import transformer as pt_transformer
 
+from _torch_validate import _no_port_validate_findings  # noqa: F401
+
 REPO = Path(__file__).resolve().parents[1]
 VOCAB, D_MODEL, N_HEAD, D_INNER, T, N_LAYER, BATCH = 1000, 64, 4, 256, 32, 2, 4
 EPOCHS, BATCHES = 2, 3

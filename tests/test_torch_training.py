@@ -20,6 +20,9 @@ from paddle_tpu.models import transformer as jax_transformer
 from paddle_tpu_torch.core.desc import grad_var_name
 from paddle_tpu_torch.core.registry import OPS, register_lowering
 from paddle_tpu_torch.models import transformer as pt_transformer
+from paddle_tpu_torch.ops import shape_infer
+
+from _torch_validate import _no_port_validate_findings  # noqa: F401
 
 VOCAB, D_MODEL, N_HEAD, D_INNER, T, N_LAYER, BATCH = 1000, 64, 4, 256, 32, 2, 4
 LR, STEPS = 1e-3, 3
@@ -224,6 +227,7 @@ def test_generic_grad_refuses_a_lowering_without_autograd_history():
     @register_lowering(name)
     def _detached(ctx, op):
         ctx.write_slot(op, "Out", ctx.read_slot(op, "X").detach() * 2.0)
+    shape_infer._same(name)       # Out is X's shape: the memory plan sizes it
 
     main, startup = pt.Program(), pt.Program()
     with pt.unique_name.guard(), pt.program_guard(main, startup):

@@ -34,6 +34,8 @@ from paddle_tpu.models import transformer as jax_transformer
 from paddle_tpu_torch.core.desc import grad_var_name
 from paddle_tpu_torch.models import transformer as pt_transformer
 
+from _torch_validate import _no_port_validate_findings  # noqa: F401
+
 VOCAB, D_MODEL, N_HEAD, D_INNER, T, N_LAYER, BATCH = 1000, 64, 4, 256, 32, 2, 4
 STEPS = 3
 NOAM_WARMUP = 4
