@@ -118,8 +118,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
     then phase 17;
 15. a ``{"kernels": [...]}`` line with each kernel's launches on its path
     (and, as ``launches_trainer``, in phase 18's pipelined Trainer run and
-    its bf16 Trainer, counted alone, and as ``launches_profile`` under
-    phase 19's op profiles),
+    its bf16 Trainer, counted alone, as ``launches_profile`` under
+    phase 19's op profiles, and as ``launches_health`` phase 23's launches
+    a step),
     error against its plain version, times, and bound; K4's entry lists
     its quantize kernels under ``quantizers``, K7's and K8's both of their
     bounds (float32 on the CUDA cores, and three TF32 products), K3's times
@@ -277,7 +278,37 @@ Phases, each fatal on failure (non-zero exit, no result line):
     ``PredictedOOMError`` with ``torch.cuda.memory_allocated`` unchanged and
     no cache entry, a ``ServingSession`` budget between two buckets' plans
     rejecting the larger buckets with the survivors' answers bit-equal to an
-    unbudgeted session's, and the Trainer's step-0 ``memplan_`` record.
+    unbudgeted session's, and the Trainer's step-0 ``memplan_`` record;
+23. the training flight recorder and the async checkpoint
+    (``phase_health``): (a) ``Trainer(health=True, checkpoint=
+    CheckpointConfig(step_interval=2, epoch_interval=0, keep=2,
+    rollback_on_divergence=True))`` on phase 7's step at full width (6+6
+    layers, 64 x 256, Adam, float32), 6 pipelined steps, each one graph
+    replay with the sentinel inside: every health record ok with finite
+    norms, launches a step K1 36, K2 4, K3 4, K6 1, K7 1, K8 1 and no
+    bf16 instance (``launches_health`` on the kernels line), one replay's
+    sentinel scalars within ``SENTINEL_RTOL`` of float64 sums over the
+    same step's state and its eager step's gradients, tokens/s with and
+    without the sentinel in turns on one executor, the device ms a replay
+    with and without it from ``torch.profiler`` (the difference by part:
+    the shadow copy, the norms, the update pass), and the peak device
+    memory of each entry's first run (the scalars' check and the cost
+    run after (c): their replays train on one batch); (b) each save's
+    stall on the step (the whole ``save`` call on the step's thread), its
+    snapshot, writer
+    seconds and bytes, every committed checkpoint validated, (c)'s save
+    taking a pinned buffer (a)'s writer had released, and a new Trainer in
+    a new scope resuming from the latest one, its next loss bit-equal to
+    the uninterrupted run's; (c) one element of the first weight the step
+    reads set to inf in place before a step at a save boundary: that
+    step's sentinel trips, the localization names the weight's first
+    reader, the rollback restores the last good checkpoint into the same
+    tensors (read back bit-equal before the next step), the later steps
+    finite, one rollback, no new cache entry; (d) ``FLAGS.check_nan_inf``
+    naming ``elementwise_div`` on the card, at the first run and at a
+    replay; (e) ``fail@serving.backend.m:n=2`` failing exactly the second
+    of four batches served by ``ServingSession(fault_site=
+    "serving.backend.m")``.
 
 Phase 9 also takes the 2 x 256 step in bf16 (``enable_amp``) with cuBLAS's
 reduced-precision bf16 reductions allowed (PyTorch's default) and not, and
@@ -703,9 +734,9 @@ def _profile(torch, run, label, card, extra):
     return rec
 
 
-def _device_by_kernel(torch, fn, iters, counts=None, annotations=None):
+def _device_by_kernel(torch, fn, iters, counts=None, annotations=None, width=48):
     """Mean device time of each kernel ``fn`` launches, per call, by name
-    (the first 48 characters), from ``torch.profiler`` ({} if two windows
+    (the first ``width`` characters), from ``torch.profiler`` ({} if two windows
     record no device activity).  ``counts``, a dict, receives each name's
     device operations a call.  A range the profiler draws on the device's
     timeline around a ``record_function`` (``torch.optim``'s
@@ -726,7 +757,7 @@ def _device_by_kernel(torch, fn, iters, counts=None, annotations=None):
         for e in prof.profiler.kineto_results.events():
             if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0 \
                     and PRIMER not in e.name():
-                name = e.name().replace("void ", "").replace("(anonymous namespace)::", "")[:48]
+                name = e.name().replace("void ", "").replace("(anonymous namespace)::", "")[:width]
                 ms = e.duration_ns() / 1e6 / iters
                 if e.is_user_annotation():
                     if annotations is not None:
@@ -4771,6 +4802,448 @@ def phase_analysis(torch, card):
     return launches, bf16
 
 
+# ------------------------------------------------ phase 23: health and checkpoint
+
+HEALTH_STEPS = 6              # (a)'s epoch, at full width (6+6 layers)
+HEALTH_SAVE_EVERY = 2         # CheckpointConfig(step_interval=)
+HEALTH_TRIP_STEP = 2          # (c): the weight poisoned before this step (a save boundary)
+SENTINEL_RTOL = 1e-4          # the sentinel's scalars against float64 norms of the same step
+HEALTH_COST_STEPS = 8         # replays a turn, with and without the sentinel
+HEALTH_PROFILE_STEPS = 3      # replays a profile window, with and without the sentinel
+# the sentinel's device work by kernel name (torch's multi-tensor functors):
+# the shadow copy at the block's head, the group norms, the update pass
+SENTINEL_PARTS = (("shadow_copy", ("CopyFunctor", "UnaryOpFunctor")),
+                  ("norms", ("LpNormFunctor", "lpnorm_cleanup")),
+                  ("update", ("BinaryOpListAlphaFunctor",)))
+
+
+def _health_trainer(pt, **kw):
+    """Phase 7's model (6+6 layers) and Adam as a Trainer on the card."""
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.models import transformer
+
+    def train_func():
+        src = layers.data(name="src", shape=[1], dtype="int64", lod_level=1)
+        trg = layers.data(name="trg", shape=[1], dtype="int64", lod_level=1)
+        lbl = layers.data(name="lbl", shape=[T, 1], dtype="int64")
+        loss, _ = transformer.train_network(src, trg, lbl, VOCAB, VOCAB, max_len=T,
+                                            n_layer=N_LAYER, d_model=D_MODEL, n_head=H,
+                                            d_inner=D_INNER, fuse_final_ce=True)
+        return loss
+    with pt.unique_name.guard():
+        return pt.Trainer(train_func, lambda: pt.optimizer.Adam(learning_rate=1e-3),
+                          place=pt.CUDAPlace(0), **kw)
+
+
+def _health_feed(pt, trainer, reader, index):
+    """The ``index``-th batch of ``reader`` as the Trainer's DataFeeder
+    makes it (pow2 buckets)."""
+    batch = next(b for i, b in enumerate(reader()) if i == index)
+    feed_vars = [trainer.train_program.global_block.var(n) for n in ("src", "trg", "lbl")]
+    return pt.DataFeeder(feed_list=feed_vars, program=trainer.train_program,
+                         seq_len_buckets="pow2").feed(batch), batch
+
+
+def _health_entry(exe):
+    (entry,) = [e for e in exe._cache.values() if e.graph is not None and e.sentinel_extra
+                and "lbl" in e.feeds and e.feeds["lbl"][0][0] == TRAIN_B]
+    return entry
+
+
+def _sentinel_vs_eager(torch, pt, trainer, feed, card):
+    """One replay of the step with its sentinel, then the same step op by
+    op from the same state (fetching the gradients): the sentinel's loss,
+    grad norm, param norm and update norm against float64 sums over the
+    replay's state and the eager step's gradients."""
+    exe, scope, prog = trainer.exe, trainer.scope, trainer._step_program
+    fetch = [v.name for v in trainer.train_outputs]
+    entry = _health_entry(exe)
+    names, grads = list(entry.param_watch), list(entry.grad_watch)
+    before = {n: scope.find_var(n).clone() for n in names}
+    tapped, hook = [], exe._health_hook
+    exe._health_hook = lambda **kw: (tapped.append(kw["values"]), hook(**kw))
+    try:
+        (loss,) = exe.run(prog, feed=feed, fetch_list=fetch, scope=scope)
+    finally:
+        exe._health_hook = hook
+    got = [float(np.asarray(v)) for v in tapped[0][1:5]]
+    after = {n: scope.find_var(n).clone() for n in names}
+    for n, t in before.items():
+        scope.find_var(n).copy_(t)
+    outs = exe._run_eager(prog, feed=feed, fetch_list=fetch + grads, scope=scope,
+                          return_numpy=False)
+    for n, t in after.items():
+        scope.find_var(n).copy_(t)
+
+    def norm(ts):
+        return float(torch.sqrt(sum(t.double().square().sum() for t in ts)))
+    want = [float(loss), norm(outs[1:]), norm(after.values()),
+            norm(after[n].double() - before[n].double() for n in names)]
+    rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+    print(f"phase 23 (a) sentinel vs float64 of the same step ({len(grads)} gradients, "
+          f"{len(names)} state tensors): loss/grad/param/update {got} vs {want}, relative "
+          f"{[f'{r:.2e}' for r in rel]} (gate {SENTINEL_RTOL}); eager loss "
+          f"{float(outs[0].float().mean())} [{card}]")
+    if not all(r <= SENTINEL_RTOL for r in rel) or float(outs[0].float().mean()) != float(loss):
+        raise AssertionError(f"phase 23 (a): sentinel {got} vs {want}")
+    return {"sentinel": got, "float64": want, "rel": rel, "grads": len(grads),
+            "state_tensors": len(names)}
+
+
+def _health_cost(torch, pt, trainer, feed, card):
+    """The sentinel's cost on the same executor and scope: the step's
+    graph with the sentinel (the Trainer's entry) and without (``exe.
+    sentinels = ()``: a new entry, captured here), ``HEALTH_COST_STEPS``
+    replays a turn in turns (with, without, without, with), tokens/s
+    each, every replay fed one batch staged as the Trainer stages its
+    feeds (on the card, no pageable copy to wait for); the peak device
+    memory above what was allocated before each entry's first run (its
+    eager run and capture); and profile windows of each."""
+    exe, scope, prog = trainer.exe, trainer.scope, trainer._step_program
+    fetch = [v.name for v in trainer.train_outputs]
+    sentinels = exe.sentinels
+    stager = exe.stage_feeds(prog, [feed])
+    staged = next(iter(stager))
+
+    def replay():
+        out = exe.run(prog, feed=staged, fetch_list=fetch, scope=scope, sync=False)
+        trainer.health.poll()
+        return out
+
+    def turn(on):
+        exe.sentinels = sentinels if on else ()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HEALTH_COST_STEPS):
+            out = replay()
+        out[0].numpy()
+        torch.cuda.synchronize()
+        return TRAIN_B * T * HEALTH_COST_STEPS / (time.perf_counter() - t0)
+    try:
+        exe.sentinels = ()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        exe.run(prog, feed=staged, fetch_list=fetch, scope=scope)
+        peak_off = torch.cuda.max_memory_allocated() - base
+        exe.sentinels = sentinels
+        exe.run(prog, feed=staged, fetch_list=fetch, scope=scope)     # the entry, warm
+        rates = {"with": [], "without": []}
+        for on in (True, False, False, True):
+            rates["with" if on else "without"].append(turn(on))
+        device, windows = {}, {}
+        for on in (True, False):
+            exe.sentinels = sentinels if on else ()
+            key = "with" if on else "without"
+            device[key] = _device_by_kernel(torch, replay, HEALTH_PROFILE_STEPS, width=160)
+            rec = _profile(torch, lambda: [replay() for _ in range(HEALTH_PROFILE_STEPS)],
+                           f"phase23_replays_{key}_the_sentinel", card,
+                           {"replays": HEALTH_PROFILE_STEPS})
+            if rec is not None:
+                windows[key] = {k: rec[k] for k in ("wall_ms", "device_busy_ms",
+                                                    "device_idle_share")}
+        exe.sentinels = sentinels
+        trainer.health.flush()
+    finally:
+        stager.close()
+    out = {"tokens_per_s": rates, "peak_without_bytes": peak_off}
+    gap_ms = [1e3 * TRAIN_B * T * (1 / w - 1 / o) for w, o in zip(rates["with"], rates["without"])]
+    print(f"phase 23 (a) tokens/s with the sentinel {[round(r) for r in rates['with']]}, "
+          f"without {[round(r) for r in rates['without']]} ({HEALTH_COST_STEPS} replays a turn, "
+          f"in turns): {[f'{g:.2f}' for g in gap_ms]} ms a step of wall clock; peak above the "
+          f"allocated state at the entry's first run without the sentinel "
+          f"{peak_off / 2 ** 30:.3f} GiB [{card}]")
+    if not device["with"] or not device["without"]:
+        print(f"phase 23 (a) the sentinel's device ms a step: not measured (torch.profiler "
+              f"recorded no device activity) [{card}]")
+        return out
+    diff = {n: device["with"].get(n, 0.0) - device["without"].get(n, 0.0)
+            for n in set(device["with"]) | set(device["without"])}
+    parts = {part: sum(ms for n, ms in diff.items() if any(k in n for k in keys))
+             for part, keys in SENTINEL_PARTS}
+    parts["other"] = sum(diff.values()) - sum(parts.values())
+    total = {k: sum(v.values()) for k, v in device.items()}
+    out["device_ms"] = {"with": total["with"], "without": total["without"],
+                        "sentinel": total["with"] - total["without"], "parts": parts,
+                        "windows": windows}
+    top = sorted(diff.items(), key=lambda kv: -abs(kv[1]))[:8]
+    print(f"phase 23 (a) the sentinel's device ms a step ({HEALTH_PROFILE_STEPS} replays a "
+          f"window, torch.profiler): with {total['with']:.3f}, without {total['without']:.3f}, "
+          f"the difference {total['with'] - total['without']:.3f}: "
+          f"{ {k: round(v, 4) for k, v in parts.items()} }; largest differences by kernel "
+          f"{[(n[:110], round(ms, 4)) for n, ms in top]}; a window of "
+          f"{HEALTH_PROFILE_STEPS} replays (wall, device busy, idle share) {windows} [{card}]")
+    return out
+
+
+def _poison_first_reader(trainer, reader_batch):
+    """The weight the step reads first (the source word embedding, read by
+    op 0 ``pallas_gather``) and the row of the tripping batch's first
+    source token: (name, row, the program op that reads it first)."""
+    entry = _health_entry(trainer.exe)
+    params = {p.name for p in trainer.train_program.global_block.all_parameters()}
+    for i, op in enumerate(entry.block.ops):
+        read = [n for n in op.input_names() if n in params]
+        if read:
+            row = int(np.asarray(reader_batch[0][0]).reshape(-1)[0])
+            return read[0], row, (i, op.type)
+    raise AssertionError("phase 23 (c): no op reads a parameter")
+
+
+def _time_saves(manager):
+    """(calls, buffers): each ``manager.save`` call's (step, seconds on the
+    caller's thread, result), and every pinned buffer its pool hands out."""
+    calls, taken = [], []
+    save, take = manager.save, manager._pool.take
+
+    def timed(programs, scope, step, **kw):
+        t0 = time.perf_counter()
+        ok = save(programs, scope, step, **kw)
+        calls.append((step, time.perf_counter() - t0, ok))
+        return ok
+
+    def counted(dtype, numel):
+        taken.append(take(dtype, numel))
+        return taken[-1]
+    manager.save, manager._pool.take = timed, counted
+    return calls, taken
+
+
+def phase_health(torch, card):
+    """Phase 23 (see the module docstring).  Returns the launches a step of
+    (a)'s Trainer (``launches_health``): the float32 instances', and the
+    bf16 instances' apart (gated at 0)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import faults, health
+    from paddle_tpu_torch.checkpoint import (CKPT_RECORDS, CheckpointConfig, checkpoint_dir,
+                                             list_steps, manifest, read_manifest,
+                                             validate_shards)
+    from paddle_tpu_torch.flags import FLAGS
+    from paddle_tpu_torch.telemetry import REGISTRY
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                           "chip_smoke_health")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    ckpt = os.path.join(workdir, "ckpt")
+    counters = _counters()
+    reader = pt.batch(_trainer_samples(HEALTH_STEPS * TRAIN_B, seed=3), TRAIN_B)
+    res = {"card": card}
+    try:
+        # (a) the Trainer with the flight recorder and the async checkpoint
+        t0 = time.perf_counter()
+        tr = _health_trainer(pt, health=health.HealthConfig(), checkpoint=CheckpointConfig(
+            dir=ckpt, step_interval=HEALTH_SAVE_EVERY, epoch_interval=0, keep=2,
+            rollback_on_divergence=True))
+        print(f"phase 23 (a) trainer built in {time.perf_counter() - t0:.2f} s: sentinels "
+              f"{tr.exe.sentinels} [{card}]")
+        h0, c0 = len(health.HEALTH_RECORDS.records()), len(CKPT_RECORDS.records())
+        save_calls, taken = _time_saves(tr.ckpt_manager)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run, losses = _train_once(tr, reader, counters)
+        epoch_s = time.perf_counter() - t0
+        peak_on = torch.cuda.max_memory_allocated() - base
+        _gate_trainer_steps(run, "phase 23 (a)", PER_STEP,
+                            bf16_per_step={k: 0 for k in PER_STEP}, steps=HEALTH_STEPS)
+        # the first later step's launches, the float32 and the bf16
+        # instances apart (the bf16 ones gated at 0 above)
+        (l0, b0, _), (l1, b1, _) = run.after_step[:2]
+        bf16_step = {k: b1[k] - b0[k] for k in b1}
+        per = {k: l1[k] - l0[k] - bf16_step[k] for k in l1}
+        recs = [r for r in health.HEALTH_RECORDS.records()[h0:] if r.get("kind") == "step"]
+        events = [r for r in health.HEALTH_RECORDS.records()[h0:] if r.get("kind") == "event"]
+        entry = _health_entry(tr.exe)
+        print(f"phase 23 (a) {HEALTH_STEPS} pipelined steps in {epoch_s:.2f} s (the capture "
+              f"included): losses {losses}; health records "
+              f"{[(r['step'], r['ok'], r['grad_norm'], r['param_norm'], r['update_ratio']) for r in recs]}; "
+              f"watch {len(entry.sentinel_watch)} bits ({entry.sentinel_watch[:1]} + groups), "
+              f"{len(entry.grad_watch)} gradients, {len(entry.param_watch)} state tensors; peak "
+              f"above the allocated state at the entry's first run with the sentinel "
+              f"{peak_on / 2 ** 30:.3f} GiB [{card}]")
+        if len(recs) != HEALTH_STEPS or events or not all(
+                r["ok"] and all(np.isfinite(r[k]) for k in ("loss", "grad_norm", "param_norm",
+                                                             "update_ratio")) for r in recs):
+            raise AssertionError(f"phase 23 (a): health records {recs}, events {events}")
+        res["a"] = {"losses": losses, "launches_a_step": per, "epoch_s": epoch_s,
+                    "peak_with_bytes": peak_on}
+
+        # (b) the saves: stall on the step, writer seconds, bytes; validate
+        saves = [r for r in CKPT_RECORDS.records()[c0:] if r.get("kind") == "save"]
+        steps = list_steps(ckpt)
+        for s in steps:
+            validate_shards(checkpoint_dir(ckpt, s), check_payload=True)
+        print(f"phase 23 (b) saves {[(r['step'], r['snapshot_s'], r['save_s'], r['bytes']) for r in saves]} "
+              f"(step, snapshot s, writer s, bytes); each save call on the step's thread "
+              f"{[(st, round(sec, 6)) for st, sec, _ in save_calls]} s (the stall on the step: "
+              f"the snapshot and the manifest's program descs), {len(taken)} pinned buffers "
+              f"taken, {len({t.data_ptr() for t in taken})} distinct; committed {steps}, each "
+              f"validate_shards clean [{card}]")
+        if [r["step"] for r in saves] != [3, 5] or steps != [3, 5]:
+            raise AssertionError(f"phase 23 (b): saves {saves}, committed {steps}")
+        res["b"] = {"saves": [dict({k: r[k] for k in ("step", "snapshot_s", "save_s", "bytes")},
+                                   call_s=sec) for r, (_, sec, _) in zip(saves, save_calls)]}
+        first_buffers = {t.data_ptr() for t in taken}
+        del save_calls[:], taken[:]
+        # a fresh Trainer in a new scope resumes from the step-5 save (after
+        # step 4): its step 5 against the uninterrupted run's
+        t0 = time.perf_counter()
+        resumed = _health_trainer(pt, health=True, checkpoint=CheckpointConfig(
+            dir=ckpt, step_interval=0, epoch_interval=0))
+        build_s = time.perf_counter() - t0
+        if resumed.scope is tr.scope or resumed._ckpt_state != {"epoch_id": 0, "step_id": 5}:
+            raise AssertionError(f"phase 23 (b): resume state {resumed._ckpt_state}")
+        run_r, loss_r = _train_once(resumed, reader, {})
+        print(f"phase 23 (b) a new Trainer resumed at {resumed._ckpt_state} (built and restored "
+              f"in {build_s:.2f} s): step 5 loss {loss_r} vs the uninterrupted {losses[5:]} "
+              f"({'bit-equal' if loss_r == losses[5:] else 'NOT bit-equal'}) [{card}]")
+        if loss_r != losses[5:]:
+            raise AssertionError(f"phase 23 (b): resumed {loss_r}, uninterrupted {losses[5:]}")
+        res["b"]["resume"] = {"build_s": build_s, "loss": loss_r}
+        del resumed, run_r
+        _free_trainer(torch, "phase 23 resumed trainer")
+
+        # (c) a trip: a weight poisoned in place before a step at a save boundary
+        feed_trip, batch_trip = _health_feed(pt, tr, reader, HEALTH_TRIP_STEP)
+        name, row, (op_index, op_type) = _poison_first_reader(tr, batch_trip)
+        persist = [v.name for v in tr.train_program.list_vars() if v.persistable]
+        addrs = {n: tr.scope.find_var(n).data_ptr() for n in persist}
+        compiles = tr.exe.compile_count
+        rollbacks = REGISTRY.counter("rollbacks", scope="checkpoint").value
+        h0 = len(health.HEALTH_RECORDS.records())
+        t_c = time.perf_counter()
+        checked = {}
+
+        def poison(trainer):
+            trainer.scope.find_var(name)[row, 0] = float("inf")
+
+        def check_restored():
+            # before the step after the trip: the rollback has restored the
+            # latest committed checkpoint into the scope's tensors
+            last = list_steps(ckpt)[-1]
+            d = checkpoint_dir(ckpt, last)
+            want = [n for n in persist if n == name or n.startswith("fc_0.w_0")]
+            arrays = manifest.read_chunks(d, read_manifest(d), want)
+            checked["step"] = last
+            checked["equal"] = {n: bool(np.array_equal(
+                tr.scope.find_var(n).to("cpu", copy=True).numpy(), a))
+                for n, a in arrays.items()}
+        run_c = _TrainerRun(tr, counters, {HEALTH_TRIP_STEP - 1: poison})
+
+        def handler(ev):
+            if type(ev).__name__ == "BeginStepEvent" and ev.step == HEALTH_TRIP_STEP + 1:
+                check_restored()
+            run_c(ev)
+        tr.train(1, handler, reader=reader, feed_order=["src", "trg", "lbl"])
+        losses_c = run_c.losses()
+        epoch_c_s = time.perf_counter() - t_c
+        tr.ckpt_manager.wait()
+        saves_c = [r for r in CKPT_RECORDS.records()[c0:] if r.get("kind") == "save"][2:]
+        print(f"phase 23 (c) saves after the trip {[(r['step'], r['snapshot_s'], r['save_s']) for r in saves_c]} "
+              f"(step, snapshot s, writer s); each save call on the step's thread "
+              f"{[(st, round(sec, 6)) for st, sec, _ in save_calls]} s with a pinned buffer "
+              f"the writer had released ({len(taken)} taken, all (a)'s: "
+              f"{bool(taken) and {t.data_ptr() for t in taken} <= first_buffers}) [{card}]")
+        if not saves_c or len(save_calls) != len(saves_c) or not taken or \
+                not {t.data_ptr() for t in taken} <= first_buffers:
+            raise AssertionError(f"phase 23 (c): saves {saves_c}, calls {save_calls}, "
+                                 f"buffers {[t.data_ptr() for t in taken]} vs {first_buffers}")
+        res["b"]["saves_reused"] = [dict({k: r[k] for k in ("step", "snapshot_s", "save_s")},
+                                         call_s=sec)
+                                    for r, (_, sec, _) in zip(saves_c, save_calls)]
+        recs = health.HEALTH_RECORDS.records()[h0:]
+        trips = [r for r in recs if r.get("event") == "non-finite"]
+        steps_ok = [(r["step"], r["ok"]) for r in recs if r.get("kind") == "step"]
+        loc = trips[0]["localization"] if trips else None
+        n_roll = REGISTRY.counter("rollbacks", scope="checkpoint").value - rollbacks
+        moved = [n for n in persist if tr.scope.find_var(n).data_ptr() != addrs[n]]
+        print(f"phase 23 (c) {name}[{row}, 0] = inf before step {HEALTH_TRIP_STEP}, the epoch "
+              f"in {epoch_c_s:.2f} s (the localization and the rollback included): losses "
+              f"{losses_c}; health {steps_ok}; trips {len(trips)}, localization {loc} (the first "
+              f"reader of {name}: op {op_index} {op_type}); rollbacks {n_roll}, restored from "
+              f"ckpt {checked.get('step')} bit-equal {checked.get('equal')}; compile_count "
+              f"{compiles} -> {tr.exe.compile_count}; state tensors moved {len(moved)} [{card}]")
+        after = losses_c[HEALTH_TRIP_STEP + 1:]
+        if (len(trips) != 1 or not loc or loc.get("op_index") != op_index
+                or loc.get("op_type") != op_type or n_roll != 1
+                or tr.exe.compile_count != compiles or moved
+                or not checked.get("equal") or not all(checked["equal"].values())
+                or not after or not all(np.isfinite(after))
+                or [ok for _, ok in steps_ok] != [i != HEALTH_TRIP_STEP
+                                                  for i in range(HEALTH_STEPS)]):
+            raise AssertionError(f"phase 23 (c): trips {trips}, rollbacks {n_roll}, losses "
+                                 f"{losses_c}, restored {checked}, moved {moved[:4]}")
+        res["c"] = {"weight": name, "row": row, "losses": losses_c, "localization": loc,
+                    "epoch_s": epoch_c_s,
+                    "first_reader": [op_index, op_type], "rollbacks": n_roll,
+                    "restored_from": checked["step"]}
+
+        # (a) the sentinel against float64 of the same step, and its cost:
+        # after (c), since the cost's replays train on one batch and would
+        # skew the divergence detector's window ahead of (c)'s trip
+        t0 = time.perf_counter()
+        feed, _ = _health_feed(pt, tr, reader, 0)
+        res["a"]["sentinel_vs_eager"] = _sentinel_vs_eager(torch, pt, tr, feed, card)
+        res["a"]["cost"] = _health_cost(torch, pt, tr, feed, card)
+        print(f"phase 23 (a) the sentinel's check and cost in {time.perf_counter() - t0:.2f} s")
+        del tr, run, run_c
+        _free_trainer(torch, "phase 23 trainer")
+
+        # (d) FLAGS_check_nan_inf on the card
+        main, startup = pt.Program(), pt.Program()
+        with pt.unique_name.guard(), pt.program_guard(main, startup):
+            x = pt.layers.data(name="x", shape=[4], dtype="float32")
+            z = pt.layers.fill_constant(shape=[4], dtype="float32", value=0.0)
+            out = pt.layers.mean(pt.layers.elementwise_div(x, z))
+        exe = pt.Executor(pt.CUDAPlace(0))
+        FLAGS.check_nan_inf = True
+        named = []
+        try:
+            for _ in range(2):           # the entry's first run, then a replay
+                try:
+                    exe.run(main, feed={"x": np.zeros((2, 4), np.float32)}, fetch_list=[out])
+                except RuntimeError as e:
+                    named.append(str(e))
+        finally:
+            FLAGS.check_nan_inf = False
+        kinds = [e["kind"] for e in exe.cache_info()["entries"]]
+        print(f"phase 23 (d) FLAGS_check_nan_inf on the card ({kinds}): {named} [{card}]")
+        if len(named) != 2 or not all("elementwise_div" in s for s in named):
+            raise AssertionError(f"phase 23 (d): {named}")
+        res["d"] = {"errors": named, "entries": kinds}
+
+        # (e) a fault plan fails exactly the second served batch
+        def infer_func():
+            xs = pt.layers.data(name="x", shape=[D_MODEL], dtype="float32")
+            return pt.layers.fc(input=xs, size=8)
+        sess = pt.ServingSession(infer_func=infer_func, max_batch_size=1, max_wait_ms=0.0,
+                                 fault_site="serving.backend.m")
+        outcome = []
+        try:
+            faults.install("fail@serving.backend.m:n=2", seed=0)
+            for i in range(4):
+                try:
+                    (o,) = sess.infer({"x": np.full((1, D_MODEL), i, np.float32)})
+                    outcome.append(list(o.shape))
+                except faults.FaultInjected as e:
+                    outcome.append(f"FaultInjected({e.site})")
+            log, counts = faults.fired_log(), faults.counters()
+        finally:
+            faults.reset()
+            sess.close()
+        print(f"phase 23 (e) fail@serving.backend.m:n=2 over 4 batches: {outcome}; fired {log}; "
+              f"counters {counts} [{card}]")
+        if outcome != [[1, 8], "FaultInjected(serving.backend.m)", [1, 8], [1, 8]] or \
+                log != [("serving.backend.m", "fail", 2)]:
+            raise AssertionError(f"phase 23 (e): {outcome}, {log}")
+        res["e"] = {"outcome": outcome}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(json.dumps({"health": res}, default=str))
+    return per, bf16_step
+
+
 def _release_serving(torch, label):
     """A serving phase's inferencers (and their graphs' memory pools) are
     gone once it returns: collect them before the training phases."""
@@ -4846,6 +5319,7 @@ def _main(torch, build):
     ref_launches = timed("reference_path", phase_reference_path)
     _, cnn_launches = timed("cnn", phase_cnn)
     passes_launches, passes_bf16 = timed("analysis", phase_analysis)
+    health_launches, health_bf16 = timed("health", phase_health)
     print(f"seconds by phase function: {json.dumps(seconds)}; "
           f"{sum(seconds.values()):.1f} in all; {time.perf_counter() - t_main:.1f} since the "
           f"card's name was read (the kernel build included) [{card}]")
@@ -4901,7 +5375,10 @@ def _main(torch, build):
     # apart (the bf16 entries' count, gated at 0 there);
     # launches_cnn: phase 21 (e), the MNIST CNN with Adam, counted from 0;
     # launches_resnet: phase 21 (a)-(b), bf16 and float32 ResNet-50 training,
-    # which runs no hand-written kernel (gated at 0 there)
+    # which runs no hand-written kernel (gated at 0 there);
+    # launches_health: phase 23 (a), a step of Trainer(health=, checkpoint=)
+    # after its capture, the float32 and the bf16 instances apart (the bf16
+    # entries' count, gated at 0 there)
     for e in kernels:
         e["launches_trainer"] = trainer_launches[e["name"]]
         e["launches_profile"] = PHASE19["launches_profile"].get(e["name"], 0)
@@ -4909,6 +5386,7 @@ def _main(torch, build):
         e["launches_cnn"] = cnn_launches[e["name"]]
         e["launches_resnet"] = 0
         e["launches_passes"] = passes_launches[e["name"]]
+        e["launches_health"] = health_launches.get(e["name"], 0)
     k4["quantizers"]["launches_profile"] = {
         n: PHASE19["launches_profile"].get(n, 0) for n in ("abs_max_pair", "quantize_int8")}
     k4["quantizers"]["launches_reference_path"] = {
@@ -4924,7 +5402,8 @@ def _main(torch, build):
                  launches=bf16_launches[name], launches_trainer=trainer_bf16_launches[name],
                  launches_profile=PHASE19["launches_profile_bf16"].get(name, 0),
                  launches_reference_path=ref_launches["b_bf16"].get(name, 0),
-                 launches_cnn=0, launches_resnet=0, launches_passes=passes_bf16[name])
+                 launches_cnn=0, launches_resnet=0, launches_passes=passes_bf16[name],
+                 launches_health=health_bf16.get(name, 0))
         kernels.append(e)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -18,9 +18,12 @@ static analysis (``analysis``: the verifier behind ``Executor(validate=)``
 and the memory planner behind ``Executor(memory_budget=)``) checks a
 program before it first runs.  ``Trainer`` trains from a reader (``reader``,
 ``DataFeeder``), staging batches to the card on a background thread, with
-serial-dir checkpoints; ``io`` saves and loads in the JAX package's
-formats.  Observability: ``telemetry`` (metrics, the trace timeline, step
-records), ``profiler`` (host spans, chrome traces, ``device_trace``),
+serial-dir checkpoints or the async ``checkpoint.CheckpointManager``;
+``io`` and ``checkpoint`` save and load in the JAX package's formats.  Observability: ``telemetry`` (metrics, the trace timeline, step
+records), ``health`` (the training flight recorder: sentinels inside the
+step, first-bad-op localization, divergence events), ``flags`` (the
+gflags registry: ``FLAGS.check_nan_inf``, ``FLAGS.benchmark``), ``faults``
+(seeded fault injection), ``profiler`` (host spans, chrome traces, ``device_trace``),
 ``profiling`` (the sampled per-op profiler behind
 ``Executor.profile_ops`` and ``Trainer(profile_steps=)``), ``compile_log``
 (the capture log), ``resource_sampler`` (memory and stager gauges;
@@ -31,8 +34,8 @@ jax or paddle_tpu.
 """
 from . import ops  # noqa: F401  (registers every op lowering)
 from . import (amp, analysis, checkpoint, clip, compile_log, dataset,  # noqa: F401
-               initializer, io, layers, lod, log, models, nets, optimizer,
-               passes, profiler, profiling, reader, regularizer,
+               faults, flags, health, initializer, io, layers, lod, log, models,
+               nets, optimizer, passes, profiler, profiling, reader, regularizer,
                resource_sampler, telemetry, transpiler)
 from .backward import append_backward, calc_gradient  # noqa: F401
 from .clip import (ErrorClipByValue, GradientClipByGlobalNorm,  # noqa: F401

@@ -74,6 +74,26 @@ Places: ``CUDAPlace(i)`` is a real CUDA device and the default; the CPU is
 used only when the caller passes ``CPUPlace()``.  An executor asked for a
 GPU that is not there raises instead of running on the CPU.
 
+The health sentinel (``Executor(sentinels=...)``, ``health.py``): each
+entry watches the fetches and the gradient and state groups its program
+has, and after the block's ops computes five tensors (a finite-bit mask,
+loss, grad norm, param norm, update norm; the update reads copies of the
+watched state taken at the block's head, since the updates write in
+place).  They are outputs of the block, so on the card the step's CUDA
+graph writes them on every replay; ``run`` peels them off the caller's
+fetches, enqueues their copies to pinned host memory behind the step and
+hands the handles to the attached ``HealthMonitor`` without waiting.  The
+sentinel classes are part of the cache key and the fingerprint (as a
+``@HEALTH[...]@`` pseudo-fetch): toggling them builds a new entry.  With
+no sentinel the block has no extra outputs and the key is unchanged.
+
+``flags.FLAGS.check_nan_inf`` makes ``run`` scan the fetches and the
+written state after the step and, on a non-finite value, replay the block
+op by op from clones of the state taken before it, raising a
+``RuntimeError`` that names the first op with a non-finite output;
+``FLAGS.benchmark`` synchronizes after each run and logs its wall time
+and the live device bytes (``torch.cuda.memory_allocated``).
+
 ``passes=``, ``amp=`` and ``kernels=`` compose the program-rewrite
 pipeline (``amp.compose_passes``) as in the JAX package.  ``kernels=None``
 is resolved per device, as the JAX package resolves it per backend: the
@@ -112,12 +132,14 @@ import numpy as np
 import torch
 
 from ..compile_log import COMPILE_LOG, diff_signatures
+from ..flags import FLAGS
+from ..health import _nonfinite, sentinel_classes, sentinel_extras, shadow_state
 from ..log import VLOG
 from ..telemetry import REGISTRY, TIMELINE
-from .desc import BlockDesc, VarType
+from .desc import GRAD_SUFFIX, BlockDesc, VarType
 from .dtypes import coerce_feed_dtype, convert_dtype
 from .framework import Program, Variable, default_main_program
-from .lower import LowerCtx, lower_block, plan_frees
+from .lower import _SKIP_OPS, LowerCtx, lower_block, lower_op, plan_frees
 from .registry import op_draws, op_forks
 from .scope import Scope, global_scope
 from .staging import (COUNTERS, FeedStager, FetchHandle, executable_fingerprint,
@@ -260,9 +282,21 @@ def _write_back(state_out: Sequence[str], homes: Dict[str, Any],
 
 def _fetches(entry: "_CacheEntry", ctx: LowerCtx) -> List[torch.Tensor]:
     """An eager run's fetched tensors: clones where a fetch names state,
-    whose tensor the next step updates in place."""
+    whose tensor the next step updates in place; then the sentinel's
+    tensors, when the entry watches any."""
     return [ctx.read(n).clone() if n in entry.state_names else ctx.read(n)
-            for n in entry.fetch_names]
+            for n in entry.fetch_names] + ctx.sentinel
+
+
+def _scope_tensors(scope: Scope):
+    """The tensors ``scope`` and its ancestors hold."""
+    s, seen = scope, set()
+    while s is not None:
+        for name, v in s._vars.items():
+            if name not in seen and isinstance(v, torch.Tensor):
+                seen.add(name)
+                yield v
+        s = s.parent
 
 
 def _private(entry: "_CacheEntry", env: Dict[str, Any]) -> Dict[str, Any]:
@@ -332,10 +366,53 @@ class _CacheEntry:
         self.donate = False            # the feeds are the step's (dropped after use)
         # the generator a graph's replays draw from (kept alive: its id is keyed)
         self.generator: Optional[torch.Generator] = None
+        # the health sentinel (``Executor(sentinels=...)``): the watched
+        # names, whose finite bits pack into the mask (fetches, then the
+        # group pseudo-names), and the gradient and state groups behind the
+        # norms; ``sentinel_extra`` tensors (5, or 0) follow the fetches
+        self.sentinel_watch: Tuple[str, ...] = ()
+        self.grad_watch: Tuple[str, ...] = ()
+        self.param_watch: Tuple[str, ...] = ()
+        self.sentinel_extra = 0
 
     @property
     def kind(self) -> str:
         return "graph" if self.graph is not None else "eager"
+
+    def watch(self, sentinels: Sequence[str]) -> None:
+        """Fix the sentinel's watched names (the JAX package's rule): the
+        fetches (at most ``MAX_WATCH``); the gradients of parameters and
+        persistable vars the block writes, as one group; the persistable
+        state it writes, as another."""
+        if not sentinels:
+            return
+        from ..health import GRADS_GROUP, MAX_WATCH, PARAMS_GROUP
+        block = self.block
+        grads: List[str] = []
+        for op in block.ops:
+            for n in op.output_names():
+                if not n or not n.endswith(GRAD_SUFFIX) or n in grads:
+                    continue
+                vd = block.find_var(n[:-len(GRAD_SUFFIX)])
+                if vd is not None and (vd.is_parameter or vd.persistable):
+                    grads.append(n)
+        params = []
+        for n in self.state_out:
+            vd = block.find_var(n)
+            if vd is not None and vd.persistable and n not in params:
+                params.append(n)
+        watch: List[str] = []
+        if "fetches" in sentinels:
+            watch += [n for n in self.fetch_names if n not in watch]
+        watch = watch[:MAX_WATCH]
+        if "grads" in sentinels and grads:
+            self.grad_watch = tuple(grads)
+            watch.append(GRADS_GROUP)
+        if "params" in sentinels and params:
+            self.param_watch = tuple(params)
+            watch.append(PARAMS_GROUP)
+        self.sentinel_watch = tuple(watch)
+        self.sentinel_extra = 5 if watch else 0
 
     def info(self) -> Dict[str, Any]:
         return {"fingerprint": (self.fingerprint or "")[:12], "kind": self.kind,
@@ -353,14 +430,26 @@ class Executor:
     ``PassPipeline``; ``amp``: ``None``/``AmpPolicy``/``AmpConfig``;
     ``kernels``: ``None`` (on for a CUDA place, off on the CPU),
     ``True``/``False`` or a ``KernelPolicy``; ``validate`` and
-    ``memory_budget``: the static analysis described above."""
+    ``memory_budget``: the static analysis described above; ``sentinels``:
+    the health sentinel described above."""
 
     _SEQ = itertools.count(1)      # executor numbering, for telemetry scopes
 
     def __init__(self, place: Optional[Place] = None, passes=None, amp=None,
-                 kernels=None, validate: Optional[str] = None, memory_budget=None):
+                 kernels=None, validate: Optional[str] = None, memory_budget=None,
+                 sentinels=None):
         self.place = place if place is not None else CUDAPlace(0)
         self.device = place_device(self.place)
+        # sentinels: the health sentinel (``health.sentinel_extras``) over
+        # the chosen value groups, computed inside each step (inside its
+        # CUDA graph on the card) as five extra outputs that ``run`` hands
+        # to the attached ``HealthMonitor`` without waiting.  True watches
+        # every group, or pass a subset of ("fetches", "grads", "params").
+        self.sentinels: Tuple[str, ...] = sentinel_classes(sentinels)
+        # set by HealthMonitor.attach(): called with each step's sentinel
+        # values, and whether it wants the step's feed kept for localization
+        self._health_hook = None
+        self._health_keep_feed = False
         if validate is None:
             validate = os.environ.get("PADDLE_TPU_VALIDATE", "off")
         if validate not in ("off", "warn", "error"):
@@ -655,27 +744,61 @@ class Executor:
         donate = bool(getattr(feed, "donatable", False)) and \
             (donate_feeds or self._wants_donate(program))
         self._check(program, feeds, fetch_names, donate)
+        check_nan, bench = FLAGS.check_nan_inf, FLAGS.benchmark
+        # FLAGS_check_nan_inf: the state and feeds before the run, for the
+        # op-by-op replay that names the first bad op (the run updates the
+        # state in place)
+        snapshot = self._nan_snapshot(program, feeds, scope) if check_nan else None
+        # a monitor that localizes trips keeps each step's feed, on this
+        # executor's device: a graph's feed buffers are overwritten by the
+        # next replay, a donated batch is emptied
+        kept_feed = {k: t.to(self.device, copy=True) for k, t in feeds.items()} \
+            if self.sentinels and self._health_hook is not None and self._health_keep_feed \
+            else None
         if donate:
             # the batch is the step's now: only ``feeds`` holds its tensors
             feed.clear()
         self._m_runs.inc()
+        step_no = self._m_runs.value
+        t_bench = time.perf_counter() if bench else 0.0
         label = dispatch_us = None
         if timeline:
-            label, dispatch_us = f"step[{self._m_runs.value}]", TIMELINE.now_us()
+            label, dispatch_us = f"step[{step_no}]", TIMELINE.now_us()
             if flow_id is not None:
                 TIMELINE.record_flow("f", "staged_batch", flow_id, TIMELINE.now_us())
-        outs = None
+        outs = sentinel = None
         with self._lock:
             entry, state, warm = self._get_entry(program, feeds, fetch_names, scope, donate)
             if entry.graph is not None and warm is None:
                 # the outputs' copies are enqueued before another replay can start
-                outs = self._stage(self._replay(entry, feeds), sync, return_numpy, clone=True,
-                                   label=label, dispatch_us=dispatch_us)
+                fetches = self._replay(entry, feeds)
+                if check_nan:
+                    self._check_nan_inf(entry, fetches, scope, snapshot)
+                outs, sentinel = self._stage_step(entry, fetches, sync, return_numpy, True,
+                                                  label, dispatch_us)
         if outs is None:
             # an eager entry, or the eager run that preceded a fresh capture
             fetches = warm if warm is not None else self._lower(entry, feeds, state, scope)
-            outs = self._stage(fetches, sync, return_numpy, clone=False, label=label,
-                               dispatch_us=dispatch_us)
+            if check_nan:
+                self._check_nan_inf(entry, fetches, scope, snapshot)
+            outs, sentinel = self._stage_step(entry, fetches, sync, return_numpy, False,
+                                              label, dispatch_us)
+        if bench:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+                live = torch.cuda.memory_allocated(self.device)
+            else:
+                live = sum(v.nbytes for v in _scope_tensors(scope))
+            VLOG(0, "benchmark: run %.3f ms, live device buffers %.1f MiB",
+                 (time.perf_counter() - t_bench) * 1e3, live / 2**20)
+        if sentinel is not None and self._health_hook is not None:
+            # the sentinel's values go to the monitor as handles whose
+            # copies are enqueued behind the step: no sync here
+            try:
+                self._health_hook(step=step_no, program=program, compiled=entry,
+                                  values=sentinel, feed=kept_feed, scope=scope)
+            except Exception as e:  # noqa: BLE001 -- health never kills a run
+                VLOG(1, "health hook failed: %s: %s", type(e).__name__, e)
         if timeline:
             TIMELINE.record_complete(f"executor::run(block0/{len(entry.block.ops)} ops)",
                                      dispatch_us, TIMELINE.now_us() - dispatch_us)
@@ -701,6 +824,61 @@ class Executor:
         outs = self._stage(self._lower(entry, feeds, state, scope), sync, return_numpy,
                            clone=False)
         return [h.numpy() for h in outs] if sync and return_numpy else outs
+
+    def _stage_step(self, entry: _CacheEntry, outs: List[torch.Tensor], sync: bool,
+                    return_numpy: bool, clone: bool, label: Optional[str],
+                    dispatch_us: Optional[float]):
+        """(the caller's fetches staged as ``_stage`` stages them, the
+        sentinel's handles or None): an entry's sentinel tensors follow
+        its fetches and are peeled off first; their copies to pinned host
+        memory are enqueued now, behind the step, whatever the caller
+        asked for."""
+        sentinel = None
+        if entry.sentinel_extra:
+            n = len(outs) - entry.sentinel_extra
+            outs, extra = outs[:n], outs[n:]
+            sentinel = [FetchHandle(t) for t in extra]
+            prefetch_to_host(sentinel)
+        return self._stage(outs, sync, return_numpy, clone, label=label,
+                           dispatch_us=dispatch_us), sentinel
+
+    def _nan_snapshot(self, program: Program, feeds: Dict[str, torch.Tensor], scope: Scope):
+        """FLAGS_check_nan_inf's snapshot before a run: the feeds, clones
+        of the state the block reads (its updates write it in place) and a
+        copy of the scope's generator."""
+        state_in, _, _, _, state = self._analyse(program, feeds, scope)
+        env = {n: v.clone() if isinstance(v, torch.Tensor) else v
+               for n, v in zip(state_in, state)}
+        env.update({k: t.to(self.device) for k, t in feeds.items()})
+        gen = scope.find_var(RNG_STATE_VAR)
+        return env, (self._new_generator(program) if gen is None else _copy_generator(gen))
+
+    def _check_nan_inf(self, entry: _CacheEntry, outs: List[torch.Tensor], scope: Scope,
+                       snapshot) -> None:
+        """FLAGS_check_nan_inf: scan the fetches and the written state; on a
+        hit, replay the block op by op from the snapshot taken before the
+        run and raise naming the first op with a non-finite output (Fluid
+        scans after every op, operator.cc:643-655; a whole-block graph
+        makes the scan post-hoc and the naming a replay)."""
+        n = len(outs) - entry.sentinel_extra
+        hits = [name for name, v in zip(entry.fetch_names, outs[:n]) if _nonfinite(v)]
+        hits += [name for name in entry.state_out if _nonfinite(scope.find_var(name))]
+        if not hits:
+            return
+        env, gen = snapshot
+        ctx = LowerCtx(entry.block, dict(env), gen, self.device)
+        with torch.no_grad():
+            for i, op in enumerate(entry.block.ops):
+                if op.type in _SKIP_OPS:
+                    continue
+                lower_op(ctx, op, index=i)
+                for name in op.output_names():
+                    if name and _nonfinite(ctx.env.get(name)):
+                        raise RuntimeError(f"Operator {op.type} output {name!r} contains "
+                                           f"NaN/Inf (FLAGS_check_nan_inf)")
+        raise RuntimeError(f"NaN/Inf detected in {hits} but the op-by-op replay was clean -- "
+                           f"likely a nondeterministic source (a random op); inspect with "
+                           f"FLAGS_v=2")
 
     def _stage(self, fetches, sync: bool, return_numpy: bool, clone: bool,
                label: Optional[str] = None, dispatch_us: Optional[float] = None):
@@ -887,7 +1065,12 @@ class Executor:
             tuple(_tensor_sig(n, v, True) for n, v in zip(state_in, state)) + (id(gen),)
         rest = (self._amp_desc(program), self._passes_fp, program._kernel_policy_fp,
                 _matmul_flags(), donate)
-        key = (desc.uid, desc.version, feed_sig, tuple(fetch_names), state_sig) + rest
+        # the sentinel adds outputs to the block, so it keys the entry and
+        # the fingerprint as a pseudo-fetch (toggling it reads as a
+        # fetch-list change in the capture log)
+        sig_fetches = tuple(fetch_names) + (
+            ("@HEALTH[" + ",".join(self.sentinels) + "]@",) if self.sentinels else ())
+        key = (desc.uid, desc.version, feed_sig, sig_fetches, state_sig) + rest
         entry = self._cache.get(key)
         if entry is not None:
             self._m_hits.inc()
@@ -898,7 +1081,7 @@ class Executor:
         self._maybe_dump_program(program, fetch_names, feeds)
         replaced = None
         if not blockers:
-            shape_key = (desc.uid, desc.version, feed_sig, tuple(fetch_names), shape_sig,
+            shape_key = (desc.uid, desc.version, feed_sig, sig_fetches, shape_sig,
                          id(scope)) + rest
             replaced = self._by_shape.get(shape_key)
             # dropped before the capture, so the old graph's memory is free for it
@@ -914,9 +1097,10 @@ class Executor:
         entry = _CacheEntry(program, feeds, state_in, state_out, fetch_names, reasons,
                             eligible=not blockers)
         entry.donate = donate
+        entry.watch(self.sentinels)
         program_fp = desc.fingerprint()
         entry.fingerprint = executable_fingerprint(
-            program_fp, feed_sig, shape_sig, fetch_names, *rest[:3],
+            program_fp, feed_sig, shape_sig, list(sig_fetches), *rest[:3],
             torch.cuda.get_device_name(self.device) if on_card else "cpu",
             dict(_matmul_flags()))
         warm = None
@@ -928,7 +1112,8 @@ class Executor:
         self._m_compiles.inc()
         self._m_fresh.inc()
         COUNTERS.inc("compiles")
-        self._record_capture(entry, program, program_fp, feed_sig, shape_sig, t_span)
+        self._record_capture(entry, program, program_fp, feed_sig, shape_sig, t_span,
+                             list(sig_fetches))
         # each warning at most once per program
         if replaced is not None:
             n = self._per_program_replaced.get(desc.uid, 0) + 1
@@ -951,7 +1136,7 @@ class Executor:
         return entry, state, warm
 
     def _record_capture(self, entry: _CacheEntry, program: Program, program_fp: str,
-                        feed_sig, shape_sig, t_span: Optional[float]):
+                        feed_sig, shape_sig, t_span: Optional[float], sig_fetches: List[str]):
         """One record of a new cache entry in the capture log: the diff of
         its signature against the last entry built for the same program
         (by any executor), what it cost (``kind``: ``capture`` for a CUDA
@@ -968,7 +1153,7 @@ class Executor:
         passes = (self._passes_fp or "")[:12] or None
         kernels = (program._kernel_policy_fp or "")[:12] or None
         cur = {"program_fp": program_fp, "scope": self.telemetry_scope, "feed_sig": feeds,
-               "state_sig": state, "fetch_names": list(entry.fetch_names),
+               "state_sig": state, "fetch_names": sig_fetches,
                "donated": donated, "mesh": None, "amp": amp, "layout": None,
                "passes": passes, "kernels": kernels}
         uid = program.desc.uid
@@ -1040,11 +1225,19 @@ class Executor:
         the state it updates into ``homes`` in place (``_write_back``).
         Returns the context and the written values that have no home."""
         if entry.frees is None:
-            entry.frees = plan_frees(entry.block, set(entry.fetch_names) | set(entry.state_out))
+            # the sentinel reads its watched names after the last op
+            entry.frees = plan_frees(entry.block, set(entry.fetch_names) | set(entry.state_out)
+                                     | set(entry.grad_watch) | set(entry.param_watch))
         ctx = LowerCtx(entry.block, env, gen, self.device, frees=entry.frees)
+        ctx.sentinel = []
         with torch.no_grad():
+            old = shadow_state(env, entry.param_watch) if entry.sentinel_extra else None
             lower_block(ctx, entry.block)
             rest = _write_back(entry.state_out, homes, ctx.env)
+            if entry.sentinel_extra:
+                ctx.sentinel = sentinel_extras(
+                    ctx.env, old, [ctx.read(n) for n in entry.fetch_names],
+                    entry.sentinel_watch, entry.grad_watch, entry.param_watch, self.device)
         return ctx, rest
 
     def _lower(self, entry: _CacheEntry, feeds: Dict[str, torch.Tensor], state: list,
@@ -1152,7 +1345,7 @@ class Executor:
                     setattr(w, a, getattr(w, a) - n)
         entry.graph, entry.static_feeds, entry.state = graph, static, list(state)
         entry.generator = gen
-        entry.outputs = [ctx.read(n) for n in entry.fetch_names]
+        entry.outputs = [ctx.read(n) for n in entry.fetch_names] + ctx.sentinel
         entry.launches = {c: n for c, n in zip(counters, moved) if n}
         return warm
 

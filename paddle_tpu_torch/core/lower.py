@@ -48,6 +48,10 @@ SEQ_LEN_SUFFIX = "@SEQ_LEN"
 # must not second-guess them.  Populated by op modules at registration.
 SEQ_LEN_AWARE: set = set()
 
+# op types no lowering runs: the executor, the localization and the op
+# profiler's replay skip them (the JAX executor skips the same set)
+_SKIP_OPS = frozenset({"feed", "fetch", "read"})
+
 
 def _propagate_seq_len(ctx: "LowerCtx", op: OpDesc):
     """Carry lengths through shape-preserving ops (fc over flattened [N,T],

@@ -26,7 +26,10 @@ fetches and the executable fingerprint.
   A CPU tensor is read as it is.  A handle keeps the trace context active
   where it was made; the executor stamps the first handle of a step with
   its label and dispatch time, and its first read records the step's span
-  on the timeline's device lane (dispatch to ready).
+  on the timeline's device lane (dispatch to ready).  A bounded read that
+  times out (``result(timeout=)``) counts ``fetch_timeouts`` and calls the
+  hooks of :func:`add_fetch_timeout_hook` (the health stream's event, the
+  Trainer's save-and-stop).
 * :data:`PINNED_HANDOUT` -- the pinned bytes that arrays handed out hold,
   bounded by :data:`PINNED_HANDOUT_LIMIT`: past it a fetch is copied out to
   pageable memory when it is read, so a caller that keeps its answers does
@@ -53,7 +56,8 @@ from .dtypes import to_numpy
 
 __all__ = ["COUNTERS", "PipelineCounters", "PINNED_HANDOUT", "PINNED_HANDOUT_LIMIT",
            "FeedStager", "StagedBatch", "stager_stats", "host_to_device_copy",
-           "FetchHandle", "FetchTimeoutError", "prefetch_to_host", "executable_fingerprint"]
+           "FetchHandle", "FetchTimeoutError", "add_fetch_timeout_hook", "prefetch_to_host",
+           "executable_fingerprint"]
 
 
 class PipelineCounters:
@@ -141,6 +145,31 @@ class FetchTimeoutError(TimeoutError):
     produced the value."""
 
 
+# Observers of fetch timeouts (``health.py`` registers one that records a
+# ``fetch-timeout`` event in the health stream; ``Trainer(checkpoint=
+# CheckpointConfig(save_on_fetch_timeout=True))`` one that saves and stops).
+# A hook's failure is swallowed: observers never break the fetch path.
+_FETCH_TIMEOUT_HOOKS: list = []
+
+
+def add_fetch_timeout_hook(hook):
+    """Register ``hook(label=..., timeout=..., trace=...)`` to run whenever
+    a bounded :meth:`FetchHandle.result` wait expires (idempotent).
+    ``label`` is the handle's step label (None when untraced), ``trace``
+    its :class:`~paddle_tpu_torch.telemetry.TraceContext` (or None)."""
+    if hook not in _FETCH_TIMEOUT_HOOKS:
+        _FETCH_TIMEOUT_HOOKS.append(hook)
+
+
+def _notify_fetch_timeout(label, timeout, trace=None):
+    COUNTERS.inc("fetch_timeouts")
+    for hook in list(_FETCH_TIMEOUT_HOOKS):
+        try:
+            hook(label=label, timeout=timeout, trace=trace)
+        except Exception:  # noqa: BLE001 -- observability only
+            pass
+
+
 class FetchHandle:
     """A fetched value that materializes to numpy on first access
     (``np.asarray(h)``, ``float(h)``, ``h.numpy()``).
@@ -216,7 +245,7 @@ class FetchHandle:
             pause = 5e-5
             while not self.ready():
                 if time.monotonic() >= deadline:
-                    COUNTERS.inc("fetch_timeouts")
+                    _notify_fetch_timeout(self._label, timeout, self.trace)
                     raise FetchTimeoutError(
                         f"fetch not ready after {timeout:.3f}s (device queue "
                         f"wedged or overloaded)")

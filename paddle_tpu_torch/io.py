@@ -17,8 +17,8 @@ a new tensor on the executor's device.
 Not ported: the StableHLO artifact of ``save_inference_model``
 (``export_compiled``; ``CompiledPredictor``), which is jax's
 serialization.  ``save_inference_model`` writes the program and the
-parameters and warns, as the JAX package does when its export fails
-(ROADMAP §A item 4).
+parameters and warns, as the JAX package does when its export fails: a
+CUDA graph cannot be saved across processes, so it has no counterpart.
 """
 from __future__ import annotations
 

@@ -249,7 +249,8 @@ def profile_ops(program, feed: dict, scope=None, fetch_list=None,
     Returns ``{op_type: {"calls", "total", "ave", "max", "min"}}`` in
     microseconds, derived from this call's spans.  ``executor`` coerces
     the feeds and picks the device (default: the state's device)."""
-    from .profiling.op_profiler import _SKIP_OPS, _Replay
+    from .core.lower import _SKIP_OPS
+    from .profiling.op_profiler import _Replay
 
     block = program.desc.block(0)
     idx = [i for i, op in enumerate(block.ops) if op.type not in _SKIP_OPS]

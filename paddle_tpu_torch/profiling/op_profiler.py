@@ -30,6 +30,7 @@ import os
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
+from ..core.lower import _SKIP_OPS
 from ..log import VLOG
 from ..telemetry import (REGISTRY, StepTelemetry, TIMELINE, process_rank,
                          telemetry_dir)
@@ -45,9 +46,6 @@ PROFILE_SCOPE = "profiling"
 # one process-wide stream: every profile appends to the same
 # profile_<pid>.jsonl
 PROFILE_RECORDS = StepTelemetry(capacity=8192, prefix="profile")
-
-# op types the executor does not lower; the replay skips them too
-_SKIP_OPS = frozenset({"feed", "fetch", "read"})
 
 # roofline classification knobs, shared with the report tools: an op whose
 # measured wall sits under OVERHEAD_WALL_S is bound by its launch and host

@@ -145,9 +145,8 @@ def xmap_readers(mapper, reader, process_num: Optional[int] = None,
     ``process_num=None`` sizes the pool from FLAGS_paddle_num_threads
     (0 = cpu count), the reference's host-threading knob."""
     if process_num is None:
-        # FLAGS_paddle_num_threads at its default, 0 (= the cpu count): the
-        # port has no flags module yet
-        process_num = os.cpu_count() or 4
+        from ..flags import FLAGS
+        process_num = int(FLAGS.paddle_num_threads) or (os.cpu_count() or 4)
     end = object()
 
     def data_reader():

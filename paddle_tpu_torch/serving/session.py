@@ -14,6 +14,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from .. import faults
 from ..telemetry import REGISTRY
 from .engine import SERVING_SCOPE, BatchingEngine, pow2_buckets
 
@@ -35,7 +36,11 @@ class ServingSession:
     for all buckets.  A pre-built inferencer adopts the session's
     ``memory_budget``.  With a budget, the warmup rejects every bucket
     whose planned peak exceeds it, and the engine dispatches only the
-    others (a ``ValueError`` when none is left)."""
+    others (a ``ValueError`` when none is left).
+    ``fault_site``: a per-model chaos hook (``faults``): every dispatched
+    batch fires the generic ``serving.backend`` site and this one, so a
+    fault plan can fail, slow or kill one model's backend; None (the
+    default) fires nothing."""
 
     def __init__(self, infer_func=None, place=None, inferencer=None,
                  max_batch_size: int = 32, max_wait_ms: float = 2.0,
@@ -44,7 +49,7 @@ class ServingSession:
                  buckets: Optional[Sequence[int]] = None,
                  warmup: bool = True, nan_guard: bool = True, passes=None,
                  amp=None, kernels=None, validate: Optional[str] = None,
-                 memory_budget=None):
+                 memory_budget=None, fault_site: Optional[str] = None):
         if inferencer is None:
             if infer_func is None:
                 raise ValueError("pass infer_func or an existing inferencer")
@@ -55,6 +60,7 @@ class ServingSession:
         elif memory_budget is not None:
             inferencer.exe.memory_budget = memory_budget
         self.inferencer = inferencer
+        self._fault_site = fault_site
         self.buckets = tuple(sorted(
             int(b) for b in (buckets or pow2_buckets(max_batch_size))))
         self.warmup_report: List[Dict[str, Any]] = []
@@ -79,6 +85,9 @@ class ServingSession:
     def _run_batch(self, feed: dict):
         # sync=False: the dispatcher gets FetchHandles back as soon as the
         # batch is enqueued and can coalesce the next one meanwhile
+        if self._fault_site is not None:
+            faults.fire("serving.backend")
+            faults.fire(self._fault_site)
         return self.inferencer.infer(feed, sync=False)
 
     def infer(self, inputs: Dict[str, Any],

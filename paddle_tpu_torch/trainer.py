@@ -27,10 +27,30 @@ every batch, and an apply program (the updates on the mean of the N
 accumulated gradients), run after every Nth batch; on the card each is one
 CUDA graph.
 
+``health=True`` (or a ``health.HealthConfig``) builds the step's
+executor with the health sentinel (``Executor(sentinels=...)``: computed
+inside the step's CUDA graph on the card) and attaches a
+``health.HealthMonitor`` after the startup run: a health record a step in
+``health_<pid>.jsonl``, divergence events, and on a non-finite trip the
+first bad op named by a replay.  The monitor is polled after each step
+(non-blocking) and flushed when ``train`` returns.
+
+``checkpoint=CheckpointConfig(...)`` (``checkpoint.CheckpointConfig``,
+the async manager; exclusive with the legacy ``checkpoint_config=``)
+restores the latest committed checkpoint when the Trainer is built
+(``resume="auto"``: epoch and step resume, the values copied into the
+startup's tensors), saves every ``step_interval`` steps and every
+``epoch_interval`` epochs (the step pays the snapshot's copies; the
+writer thread the rest), and acts on the health layer's events:
+``rollback_on_divergence`` restores the last good checkpoint in place
+after a loss spike, a grad explosion or a non-finite trip (the step's
+graph replays on, no new capture), ``save_on_fetch_timeout`` saves
+synchronously and stops after a fetch timeout.  ``train`` waits for the
+queued saves before it returns.
+
 Options of the JAX Trainer that need modules not ported yet raise
 ``NotImplementedError`` naming their ROADMAP item: ``parallel``,
-``mesh``, ``layout``, ``health``, ``checkpoint=`` (the async manager),
-``dispatch`` and ``prefetcher``.
+``mesh``, ``layout`` (item 12), ``dispatch`` and ``prefetcher`` (item 11).
 
 Before the first step the Trainer plans the step program's memory from
 the first batch's shapes (``analysis.plan_memory``), logs the predicted
@@ -58,6 +78,7 @@ import json
 import logging
 import os
 import shutil
+import threading
 import time
 from typing import Callable, List, Optional, Sequence
 
@@ -159,12 +180,20 @@ class Trainer:
                  prefetcher=None):
         for option, value, item in (("parallel", parallel, "12"), ("mesh", mesh, "12"),
                                     ("layout", layout, "12"),
-                                    ("health", health, "8"),
-                                    ("checkpoint=", checkpoint, "4"),
                                     ("dispatch", dispatch, "11"),
                                     ("prefetcher", prefetcher, "11")):
             if value:
                 _not_ported(option, item)
+        if checkpoint and checkpoint_config:
+            raise ValueError(
+                "pass either checkpoint= (paddle_tpu_torch.checkpoint, the async format) "
+                "or the legacy checkpoint_config=, not both")
+        # health: the flight recorder (health.py): True or a HealthConfig
+        if health:
+            from .health import HealthConfig, HealthMonitor
+            self.health = HealthMonitor(HealthConfig() if health is True else health)
+        else:
+            self.health = None
         # seq_len_buckets: DataFeeder's ragged-length buckets (None: the
         # pow2 default for ragged feeds, False: exact per-batch padding)
         self.seq_len_buckets = seq_len_buckets
@@ -182,9 +211,16 @@ class Trainer:
         self.scope = Scope()
         self.startup_program = Program()
         self.train_program = Program()
-        # the resume point, written by the checkpoint load and read by train()
+        # the resume point, written by whichever checkpoint layer loaded
+        # (legacy serial dirs or the manifest format) and read by train()
         self._ckpt_state = {"epoch_id": 0, "step_id": 0}
         self._stop = False
+        self.ckpt_config = None
+        self.ckpt_manager = None
+        self._global_step = 0
+        # set by the health layer's hooks, acted on after the step
+        self._ckpt_rollback = threading.Event()
+        self._ckpt_save_exit = threading.Event()
         with program_guard(self.train_program, self.startup_program):
             outs = train_func()
             self.train_outputs = list(outs) if isinstance(outs, (list, tuple)) else [outs]
@@ -203,8 +239,13 @@ class Trainer:
         # on for a CUDA place, off on the CPU)
         self.amp = amp
         self.kernels = kernels
-        self.exe = Executor(place, amp=amp, kernels=kernels)
+        sentinels = self.health.config.sentinels if self.health else None
+        self.exe = Executor(place, amp=amp, kernels=kernels, sentinels=sentinels)
         self.exe.run(self.startup_program, scope=self.scope)
+        if self.health:
+            # attached after the startup run: an init program gives no
+            # step-health signal worth a record
+            self.health.attach(self.exe)
         if param_path:
             with scope_guard(self.scope):
                 io_mod.load_persistables(self.exe, param_path, self.train_program)
@@ -212,8 +253,38 @@ class Trainer:
             serials = _list_serials(self.checkpoint_cfg.checkpoint_dir)
             if serials:
                 self._load_checkpoint(serials[-1])
+        if checkpoint:
+            self._attach_checkpoint(checkpoint)
         self._memory_planned = False
         self.memory_plan = None
+
+    def _attach_checkpoint(self, checkpoint):
+        """The async manager: resume from its latest checkpoint (in place),
+        and the health layer's triggers."""
+        from .checkpoint import CheckpointConfig as _AsyncCkptConfig, CheckpointManager
+        cfg = _AsyncCkptConfig() if checkpoint is True else checkpoint
+        self.ckpt_config = cfg
+        self.ckpt_manager = CheckpointManager(
+            cfg.dir, keep=cfg.keep, async_save=cfg.async_save,
+            memory_budget=cfg.memory_budget, include_rng=cfg.include_rng)
+        if cfg.resume == "auto" and self.ckpt_manager.latest() is not None:
+            manifest = self.ckpt_manager.restore([self._step_program, self.apply_program],
+                                                 self.scope, executor=self.exe)
+            st = manifest.get("trainer") or {}
+            self._ckpt_state = {"epoch_id": int(st.get("epoch_id", 0)),
+                                "step_id": int(st.get("step_id", 0))}
+            self._global_step = int(manifest.get("step", 0))
+        if cfg.rollback_on_divergence and self.health:
+            ev = self._ckpt_rollback
+
+            def _on_health_event(rec, _ev=ev):
+                if rec.get("event") in ("loss-spike", "grad-explosion", "non-finite"):
+                    _ev.set()
+            self.health.add_event_hook(_on_health_event)
+        if cfg.save_on_fetch_timeout:
+            from .core import staging as _staging
+            ev = self._ckpt_save_exit
+            _staging.add_fetch_timeout_hook(lambda _ev=ev, **kw: _ev.set())
 
     # ------------------------------------------------------------- training
     def train(self, num_epochs: int, event_handler: Callable,
@@ -241,16 +312,29 @@ class Trainer:
         start_epoch = self._ckpt_state["epoch_id"]
         resume_step = self._ckpt_state["step_id"]
         self._stop = False
-        with scope_guard(self.scope):
-            for epoch_id in range(start_epoch, num_epochs):
-                event_handler(BeginEpochEvent(epoch_id))
-                skip_until = resume_step if epoch_id == start_epoch else 0
-                self._run_epoch(epoch_id, event_handler, reader, feeder, skip_until)
-                if self._stop:
-                    return
-                event_handler(EndEpochEvent(epoch_id))
-                if self.checkpoint_cfg and epoch_id % self.checkpoint_cfg.epoch_interval == 0:
-                    self._save_checkpoint(epoch_id + 1, 0)
+        try:
+            with scope_guard(self.scope):
+                for epoch_id in range(start_epoch, num_epochs):
+                    event_handler(BeginEpochEvent(epoch_id))
+                    skip_until = resume_step if epoch_id == start_epoch else 0
+                    self._run_epoch(epoch_id, event_handler, reader, feeder, skip_until)
+                    if self._stop:
+                        return
+                    event_handler(EndEpochEvent(epoch_id))
+                    if self.checkpoint_cfg and \
+                            epoch_id % self.checkpoint_cfg.epoch_interval == 0:
+                        self._save_checkpoint(epoch_id + 1, 0)
+                    if (self.ckpt_manager is not None and self.ckpt_config.epoch_interval
+                            and (epoch_id + 1) % self.ckpt_config.epoch_interval == 0):
+                        self._ckpt_save(epoch_id + 1, 0, None, reason="epoch")
+        finally:
+            if self.health:
+                # the last steps' records land even when training stops early
+                self.health.flush()
+            if self.ckpt_manager is not None:
+                # every save asked for is committed (the manager stays open:
+                # train() may be called again)
+                self.ckpt_manager.wait()
 
     def _run_epoch(self, epoch_id: int, event_handler: Callable, reader,
                    feeder: DataFeeder, skip_until: int):
@@ -316,11 +400,19 @@ class Trainer:
                                              compiled_step_s=t_handler0 - t_run0)
                     except Exception as e:  # noqa: BLE001 -- profiling never fails a run
                         VLOG(1, "profile_ops failed: %s: %s", type(e).__name__, e)
+                if self.health:
+                    # resolve the sentinels whose copies have landed, without
+                    # waiting: the pipeline stays full
+                    self.health.poll()
                 if self.checkpoint_cfg and step_id \
                         and step_id % self.checkpoint_cfg.step_interval == 0:
                     # saved step_id + 1: training through step_id is
                     # complete, a resume starts at the next step
                     self._save_checkpoint(epoch_id, step_id + 1)
+                if self.ckpt_manager is not None:
+                    self._global_step += 1
+                    if self._ckpt_step_actions(epoch_id, step_id, feed):
+                        return
         finally:
             if stager is not None:
                 stager.close()
@@ -407,6 +499,53 @@ class Trainer:
             cfg.step_id = int(st.get("step_id", 0))
             cfg.load_serial = serial
             self._ckpt_state = {"epoch_id": cfg.epoch_id, "step_id": cfg.step_id}
+
+
+    # -------------------------------------------- async checkpoint wiring
+    def _ckpt_save(self, epoch_id: int, step_id: int, feed, sync: Optional[bool] = None,
+                   reason: str = "periodic"):
+        """One manager save of the step (and apply) programs' persistable
+        state, stamped with this trainer's resume point."""
+        feed_shapes = {k: tuple(int(d) for d in v.shape)
+                       for k, v in (feed or {}).items() if hasattr(v, "shape")}
+        self.ckpt_manager.save([self._step_program, self.apply_program], self.scope,
+                               self._global_step, epoch_id=epoch_id, step_id=step_id,
+                               sync=sync, feed_shapes=feed_shapes, reason=reason)
+
+    def _ckpt_step_actions(self, epoch_id: int, step_id: int, feed) -> bool:
+        """After a step: a health-triggered rollback or save-and-exit
+        first, then the periodic save.  True when the epoch loop should
+        stop (save-and-exit)."""
+        cfg = self.ckpt_config
+        due = bool(cfg.step_interval and step_id and step_id % cfg.step_interval == 0)
+        if due and self.health is not None and cfg.rollback_on_divergence \
+                and not self._ckpt_rollback.is_set():
+            # certify the save: every parked sentinel resolved first, so a
+            # step that diverged on the card is never committed as the last
+            # good checkpoint (this sync happens only at save boundaries,
+            # and only with rollback armed)
+            self.health.flush()
+        if self._ckpt_rollback.is_set():
+            # a divergence event: restore the last good checkpoint in place
+            # and train on (the step counters are not rewound)
+            self._ckpt_rollback.clear()
+            if self.ckpt_manager.latest() is None:
+                # a save from before the divergence may still be queued
+                self.ckpt_manager.wait(timeout=60.0)
+            if self.ckpt_manager.latest() is not None:
+                self.ckpt_manager.restore([self._step_program, self.apply_program],
+                                          self.scope, executor=self.exe, reason="rollback")
+            return False
+        if self._ckpt_save_exit.is_set():
+            # a fetch timeout: save everything synchronously and stop
+            self._ckpt_save_exit.clear()
+            self._ckpt_save(epoch_id, step_id + 1, feed, sync=True, reason="fetch-timeout")
+            self.stop()
+            return True
+        if due:
+            # saved step_id + 1: a resume starts at the next step
+            self._ckpt_save(epoch_id, step_id + 1, feed, reason="periodic")
+        return False
 
 
 class Inferencer:

@@ -1968,3 +1968,136 @@ def test_passes_fuse_the_reference_eval_and_the_plan_holds_the_band(cuda):
     assert [e["kind"] for e in fused.cache_info()["entries"] if "lbl" in e["feeds"]] == ["graph"]
     for got in losses:
         assert abs(float(got) - float(want)) <= EVAL_LOSS_RTOL * abs(float(want))
+
+
+# ------------------------------------- the health sentinel and the checkpoint
+
+
+def test_sentinel_inside_the_step_graph_against_float64_norms(cuda):
+    """``Executor(sentinels=True)`` on the card: the step's graph holds the
+    sentinel, each replay writes it (no capture after the first run), its
+    four scalars within 1e-4 of float64 sums over the same replay's state
+    before and after and the eager step's gradients, and a replay from a
+    poisoned weight trips the gradient and state bits."""
+    from paddle_tpu_torch import health
+    main, startup, loss = _train_programs()
+    scope, exe = pt.Scope(), pt.Executor(sentinels=True)
+    exe.run(startup, scope=scope)
+    feed = _small_train_feed()
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)      # the capture
+    (entry,) = [e for e in exe._cache.values() if e.graph is not None]
+    assert entry.sentinel_extra == 5 and entry.param_watch and entry.grad_watch
+    names, grads = list(entry.param_watch), list(entry.grad_watch)
+    before = {n: scope.find_var(n).clone() for n in names}
+    tapped = []
+    exe._health_hook = lambda **kw: tapped.append([np.asarray(v) for v in kw["values"]])
+    (got_loss,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    assert exe.cache_info()["captures"] == 1
+    after = {n: scope.find_var(n).clone() for n in names}
+    for n, t in before.items():
+        scope.find_var(n).copy_(t)
+    outs = exe._run_eager(main, feed=feed, fetch_list=[loss.name] + grads, scope=scope,
+                          return_numpy=False)
+
+    def norm(ts):
+        return float(torch.sqrt(sum(t.double().square().sum() for t in ts)))
+    want = [float(got_loss), norm(outs[1:]), norm(after.values()),
+            norm(after[n].double() - before[n].double() for n in names)]
+    mask, *scalars = tapped[0]
+    assert int(mask[0]) == 0
+    for g, w in zip(scalars, want):
+        assert abs(float(g) - w) <= 1e-4 * abs(w), (scalars, want)
+    for n, t in after.items():
+        scope.find_var(n).copy_(t)
+    # a poisoned weight: the replay trips, and the monitor localizes it on
+    # the card from the feed the executor kept (numpy feeds: a host copy
+    # would put the replay on the CPU)
+    monitor = health.HealthMonitor()
+    monitor.attach(exe)
+    exe._health_hook = lambda **kw: (tapped.append([np.asarray(v) for v in kw["values"]]),
+                                     monitor.on_step(**kw))
+    n0 = len(health.HEALTH_RECORDS.records())
+    scope.find_var("src_emb")[int(feed["src"][0, 0, 0]), 0] = float("inf")
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    monitor.flush()
+    bad = health.decode_sentinel_mask(tapped[-1][0], entry.sentinel_watch)
+    assert {health.GRADS_GROUP, health.PARAMS_GROUP} <= set(bad), bad
+    assert exe.cache_info()["captures"] == 1
+    (trip,) = [r for r in health.HEALTH_RECORDS.records()[n0:] if r.get("event") == "non-finite"]
+    assert trip["localization"]["op_index"] == 0, trip["localization"]
+
+
+def test_a_restore_sets_a_graph_registered_generator_in_place(cuda, tmp_path):
+    """The dropout program's graph registers the scope's generator; a
+    checkpoint restore sets that generator's state in place (the object the
+    graph registered), so the next replay draws the mask an eager run from
+    the saved state draws."""
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+    from paddle_tpu_torch.core.executor import RNG_STATE_VAR
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        x = layers.data(name="x", shape=[256])
+        y = layers.dropout(x, dropout_prob=0.5, is_test=False)
+    scope, exe = pt.Scope(), pt.Executor()
+    feed = {"x": np.ones((8, 256), np.float32)}
+    exe.run(main, feed=feed, fetch_list=[y], scope=scope)        # the capture
+    gen = scope.find_var(RNG_STATE_VAR)
+    saved = gen.get_state()
+    m = CheckpointManager(str(tmp_path), async_save=False)
+    m.save(main, scope, step=1)
+    drawn = [exe.run(main, feed=feed, fetch_list=[y], scope=scope)[0] for _ in range(2)]
+    m.restore(main, scope)
+    assert scope.find_var(RNG_STATE_VAR) is gen and torch.equal(gen.get_state(), saved)
+    (replayed,) = exe.run(main, feed=feed, fetch_list=[y], scope=scope)
+    gen.set_state(saved)
+    (eager,) = exe._run_eager(main, feed, [y], scope)
+    np.testing.assert_array_equal(replayed, eager)
+    np.testing.assert_array_equal(replayed, drawn[0])
+    assert exe.cache_info()["captures"] == 1
+
+
+def test_saves_reuse_a_pinned_buffer_once_the_writer_has_released_it(cuda, tmp_path):
+    """The manager's snapshots of CUDA state land in pinned buffers from its
+    pool: a save after the writer has committed the last one reuses that
+    buffer (the same host address), and the checkpoint holds the second
+    save's values."""
+    from paddle_tpu_torch.checkpoint import (CheckpointManager, checkpoint_dir, manifest,
+                                             read_manifest)
+    main, startup, loss = _train_programs()
+    scope, exe = pt.Scope(), pt.Executor()
+    exe.run(startup, scope=scope)
+    m = CheckpointManager(str(tmp_path), async_save=True, keep=3)
+    taken, take = [], m._pool.take
+    m._pool.take = lambda dtype, numel: taken.append(take(dtype, numel)) or taken[-1]
+    m.save(main, scope, step=1)
+    m.wait()
+    exe.run(main, feed=_small_train_feed(), fetch_list=[loss], scope=scope)
+    m.save(main, scope, step=2)
+    m.wait()
+    assert len(taken) == 2 and taken[0].is_pinned()
+    assert taken[1].data_ptr() == taken[0].data_ptr()
+    d = checkpoint_dir(str(tmp_path), 2)
+    arrays = manifest.read_chunks(d, read_manifest(d), ["src_emb"])
+    np.testing.assert_array_equal(arrays["src_emb"], scope.find_var("src_emb").cpu().numpy())
+    m.close()
+
+
+def test_check_nan_inf_names_the_op_on_the_card(cuda):
+    """``FLAGS.check_nan_inf`` on a graph entry: the first run (the eager
+    run before the capture) and a replay each raise naming the op; the
+    replay from the snapshot runs on the card."""
+    from paddle_tpu_torch.flags import FLAGS
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        x = layers.data(name="x", shape=[4], dtype="float32")
+        z = layers.fill_constant(shape=[4], dtype="float32", value=0.0)
+        out = layers.mean(layers.elementwise_div(x, z))
+    exe = pt.Executor()
+    FLAGS.check_nan_inf = True
+    try:
+        for _ in range(2):
+            with pytest.raises(RuntimeError, match="Operator elementwise_div output"):
+                exe.run(main, feed={"x": np.zeros((2, 4), np.float32)}, fetch_list=[out])
+    finally:
+        FLAGS.check_nan_inf = False
+    assert [e["kind"] for e in exe.cache_info()["entries"]] == ["graph"]

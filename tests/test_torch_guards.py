@@ -89,6 +89,13 @@ def test_the_import_scan_covers_the_cnn_slice_modules():
         assert f"paddle_tpu_torch/{path}" in scanned, path
 
 
+def test_the_import_scan_covers_the_health_slice_modules():
+    scanned = {str(p.relative_to(REPO)) for p in (REPO / "paddle_tpu_torch").rglob("*.py")}
+    for path in ("flags.py", "faults.py", "health.py", "checkpoint/manager.py",
+                 "layers/math_op_patch.py", "tools/ckpt_smoke.py"):
+        assert f"paddle_tpu_torch/{path}" in scanned, path
+
+
 def test_trainer_and_inferencer_without_gpu_raise_instead_of_using_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 

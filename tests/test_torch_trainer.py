@@ -269,7 +269,6 @@ def test_begin_step_event_can_skip_the_metrics():
 
 @pytest.mark.parametrize("option,value,item", [
     ("parallel", True, "12"), ("mesh", object(), "12"), ("layout", object(), "12"),
-    ("health", True, "8"), ("checkpoint", True, "4"),
     ("dispatch", object(), "11"), ("prefetcher", object(), "11")])
 def test_options_not_ported_raise_naming_their_roadmap_item(option, value, item):
     with pytest.raises(NotImplementedError, match=rf"ROADMAP §A item {item}\)"):
