@@ -119,8 +119,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
 15. a ``{"kernels": [...]}`` line with each kernel's launches on its path
     (and, as ``launches_trainer``, in phase 18's pipelined Trainer run and
     its bf16 Trainer, counted alone, as ``launches_profile`` under
-    phase 19's op profiles, and as ``launches_health`` phase 23's launches
-    a step),
+    phase 19's op profiles, as ``launches_health`` phase 23's launches
+    a step, and as ``launches_book`` phase 24's),
     error against its plain version, times, and bound; K4's entry lists
     its quantize kernels under ``quantizers``, K7's and K8's both of their
     bounds (float32 on the CUDA cores, and three TF32 products), K3's times
@@ -154,7 +154,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
     from a seeded reader through ``reader.batch`` and the pow2
     ``DataFeeder`` (source lengths in [129, 256], target and label at
     256): ``Trainer(pipeline=
-    True)`` over one epoch of 6 batches (batches staged by the
+    True)`` over one epoch of 5 batches (batches staged by the
     ``FeedStager`` on its own stream) and ``Trainer(pipeline=False)`` from
     the same state over the same batches, losses and every parameter
     bit-equal, no capture after step 0, each later step's launches from
@@ -162,7 +162,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
     eager run before the capture and the first replay); ``save_params``
     after step 3 and a new ``Trainer(param_path=)`` holding every
     persistable bit-equal; ``CheckpointConfig(step_interval=2)``: a run
-    stopped after step 3, resumed by a new Trainer, repeating steps 3-5's
+    stopped after step 3, resumed by a new Trainer, repeating steps 3-4's
     losses and the final parameters bit for bit; ``clone(for_test=True)``
     on a held-out batch, its second run a replay bit-equal to the eager
     run, no state changed; a 3-step ``Trainer(amp=AmpConfig())`` on one
@@ -220,7 +220,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
     (c) ``Trainer(accum_steps=4, pipeline=True)`` over 16 x 256
     micro-batches at 2+2 layers, two applies, bit-equal to an ``exe.run`` loop of its
     accumulate and apply programs from the same state, each program's
-    cache entry kind printed; (d) 3 steps of one program at 2+2 layers of
+    cache entry kind printed; (d) 2 steps of one program at 2+2 layers of
     (a)'s widths in which each update rule (Momentum and Nesterov,
     LarsMomentum, Adamax, Adagrad, DecayedAdagrad, Adadelta, RMSProp, Ftrl,
     SGD with ``exponential_decay`` through K5) updates every tenth
@@ -309,6 +309,33 @@ Phases, each fatal on failure (non-zero exit, no result line):
     replay; (e) ``fail@serving.backend.m:n=2`` failing exactly the second
     of four batches served by ``ServingSession(fault_site=
     "serving.backend.m")``.
+24. the book models and what the training path left (``phase_book``):
+    (a) bench.py's AlexNet row (``bench_image_model``: 128 x 3 x 224 x
+    224, 1,000 classes, ``Momentum(0.01, 0.9)``, ``enable_amp``, uniform
+    images in [0, 1) placed on the card), each step one CUDA graph replay:
+    the program's ops and casts, the capture's seconds, images/s over 6
+    replays with their spread, the K40m ratio as bench.py prints it,
+    peak memory, losses finite and falling, no hand-written kernel
+    launched, a profile (device idle share) and the device ms by op type
+    (``lrn``, ``conv2d(_grad)``, ``mul(_grad)``, the casts); (b) GoogLeNet
+    the same; (c) SE-ResNeXt-50 (stages [3, 4, 6, 3], filters [128, 256,
+    512, 1024], cardinality 32, SE ratio 16) the same with the grouped
+    3x3s' device ms named, then its eval clone exported with
+    ``save_inference_model`` and one batch of 8 served through
+    ``Inferencer(param_path=)``, against the eval clone on the trainer's
+    executor; (d) one float32 step of each model at a small image size on
+    the card and on the CPU from the same parameters, against the port on
+    the CPU in float64; (e) fit_a_line with SGD on the synthetic
+    ``uci_housing`` reader, the loss from ~25 to under 0.1 in 30 steps, K5
+    once a replay; (f) ``ModelAverage`` over an Adam step (K6 once a
+    replay, ``average_accumulates`` in the graph), the averages against a
+    float64 host witness of the window's mean, ``apply()`` and its restore
+    copying in place (no new capture, the next replay bit-equal to one
+    without them), and a QAT step with ``fake_quantize_range_abs_max`` in
+    its graph against the CPU (``Iter`` and the window on the device); (g)
+    each new op on the card against the CPU: bit-equal where the maths is
+    exact, else within ``BOOK_OP_RTOL`` (``launches_book`` on the kernels
+    line: K5 and K6 on (e) and (f)).
 
 Phase 9 also takes the 2 x 256 step in bf16 (``enable_amp``) with cuBLAS's
 reduced-precision bf16 reductions allowed (PyTorch's default) and not, and
@@ -2775,7 +2802,7 @@ def phase_bf16_step(torch, card):
 
 # ------------------------------------------------------------ phase 18: the Trainer
 
-TRAINER_STEPS = 6          # phase 18's epoch: whole batches of TRAIN_B rows
+TRAINER_STEPS = 5          # phase 18's epoch: whole batches of TRAIN_B rows
 TRAINER_STOP_AFTER = 3     # the checkpointed run stops after this step
 # phase 18's depth: transformer-base's widths at 2+2 layers (6+6 before the
 # CNN phase came; the phase then took 49-57 s of the script's 236-262)
@@ -3050,14 +3077,14 @@ def phase_trainer(torch, card):
     """Phase 18: the ``Trainer`` on the card at transformer-base's widths
     and TRAINER_LAYERS (phase 7's model and Adam), from a seeded reader through
     ``reader.batch`` and the pow2 ``DataFeeder``.  (a) ``Trainer(pipeline=
-    True)``, one epoch of 6 batches, against ``Trainer(pipeline=False)``
+    True)``, one epoch of TRAINER_STEPS batches, against ``Trainer(pipeline=False)``
     from the same state over the same batches: losses and every state
     tensor bit-equal, one replay a step, launches a step K1 12, K2 4, K3 4
     calls, K6 1, K7 1, K8 1 (the profile: K3 8, K7 2, K8 32 kernels);
     (b) ``save_params`` after step 3, and a new ``Trainer(param_path=)``
     holding every persistable bit-equal; (c) ``CheckpointConfig(
     step_interval=2)``: a run stopped after step 3, resumed by a new
-    Trainer, repeats steps 3-5's losses and ends with the uninterrupted
+    Trainer, repeats the later steps' losses and ends with the uninterrupted
     run's parameters, bit for bit; (d) ``clone(for_test=True)`` on a
     held-out batch twice: the second run a replay bit-equal to the eager
     run, no state changed; then a 3-step ``Trainer(amp=AmpConfig())``:
@@ -3076,7 +3103,7 @@ def phase_trainer(torch, card):
     res = {"card": card}
 
     # (a) pipelined, with save_params after step 3 (b)
-    t0 = time.perf_counter()
+    t_phase = t0 = time.perf_counter()
     piped = _make_trainer(pt)
     start = _persist_numpy(piped)
     params = [p.name for p in piped.train_program.global_block.all_parameters()]
@@ -3109,6 +3136,7 @@ def phase_trainer(torch, card):
     del piped, run_p
     _free_trainer(torch, "pipelined trainer")
 
+    t_phase = _piece_seconds("phase 18 (a) pipelined", t_phase)
     # (a) synchronous, from the same state
     sync = _make_trainer(pt, pipeline=False)
     _carry_numpy(sync, start)
@@ -3133,6 +3161,7 @@ def phase_trainer(torch, card):
     del sync, run_s
     _free_trainer(torch, "synchronous trainer")
 
+    t_phase = _piece_seconds("phase 18 (a) synchronous", t_phase)
     # (b) a new trainer from the parameters saved after step 3
     t0 = time.perf_counter()
     loaded = _make_trainer(pt, param_path=os.path.join(workdir, "params"))
@@ -3147,6 +3176,7 @@ def phase_trainer(torch, card):
     del loaded, saved
     _free_trainer(torch, "param_path trainer")
 
+    t_phase = _piece_seconds("phase 18 (b)", t_phase)
     # (c) checkpoint, stop after step 3, resume
     ckpt = os.path.join(workdir, "ckpt")
     first = _make_trainer(pt, checkpoint_config=pt.CheckpointConfig(ckpt, step_interval=2))
@@ -3174,6 +3204,7 @@ def phase_trainer(torch, card):
         raise AssertionError(f"the resume differs: {state}, {loss_r}, {differ[:8]}")
     res["resume"] = {"from": state, "losses": loss_r}
 
+    t_phase = _piece_seconds("phase 18 (c)", t_phase)
     # (d) the evaluation clone on a held-out batch
     test_prog = resumed.train_program.clone(for_test=True)
     feeder = pt.DataFeeder(feed_list=[test_prog.global_block.var(n) for n in ("src", "trg", "lbl")],
@@ -3200,7 +3231,9 @@ def phase_trainer(torch, card):
     del resumed, run_r, before, exe, scope
     _free_trainer(torch, "resumed trainer")
 
+    t_phase = _piece_seconds("phase 18 (d)", t_phase)
     res["profiled"] = _profiled_trainer(torch, pt, start, loss_p, card)
+    t_phase = _piece_seconds("phase 18 profiled trainer", t_phase)
     _free_trainer(torch, "profiled trainer")
 
     # the bf16 trainer: one batch three times
@@ -3218,6 +3251,7 @@ def phase_trainer(torch, card):
     del bf16, run_b
     _free_trainer(torch, "bf16 trainer")
     shutil.rmtree(workdir, ignore_errors=True)
+    _piece_seconds("phase 18 bf16 trainer", t_phase)
 
     p, s = res["pipelined"], res["synchronous"]
     print(f"trainer tokens/s: pipelined {p['timed']['tokens_per_s']:.0f}, synchronous "
@@ -3365,12 +3399,12 @@ def _profile_training_step(torch, exe, main, feed, loss, scope, label, card, gra
     return rec
 
 
-def _device_ms_by_op(events):
+def _device_ms_by_op(events, by_index=False):
     """Device milliseconds of a trace's kernels by the op whose
     ``op<idx>:<type>`` range was open when the kernel was launched (the
-    runtime call carrying the kernel's correlation id), by op type and by
-    (op type, kernel family).  Ops run one after another, so the ranges do
-    not overlap; a launch may come from another thread than the range's
+    runtime call carrying the kernel's correlation id), by op type (by
+    ``"<idx>:<type>"`` with ``by_index``) and by (op type, kernel
+    family).  Ops run one after another, so the ranges do not overlap; a launch may come from another thread than the range's
     (the autograd engine runs a generic grad's backward on a device
     thread of its own while the op waits), so any thread's launch counts."""
     import bisect
@@ -3380,39 +3414,43 @@ def _device_ms_by_op(events):
         if e.get("ph") != "X":
             continue
         cat, name = e.get("cat", ""), str(e.get("name", ""))
-        m = re.match(r"op\d+:(\w+)", name)
+        m = re.match(r"op(\d+):(\w+)", name)
         if m and cat != "gpu_user_annotation":
-            ranges.append((e["ts"], e["ts"] + e["dur"], m.group(1)))
+            ranges.append((e["ts"], e["ts"] + e["dur"], m.group(2),
+                           f"{m.group(1)}:{m.group(2)}"))
         elif cat in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {}):
             launches[e["args"]["correlation"]] = e["ts"]
     ranges.sort()
-    starts = [a for a, _, _ in ranges]
+    starts = [r[0] for r in ranges]
     by_type, by_family = {}, {}
     for e in events:
         if e.get("ph") != "X" or e.get("cat") != "kernel":
             continue
         ts = launches.get(e.get("args", {}).get("correlation"))
-        op = "(outside an op)"
+        op = key = "(outside an op)"
         if ts is not None:
             i = bisect.bisect_right(starts, ts) - 1
             if i >= 0 and ranges[i][1] >= ts:
                 op = ranges[i][2]
+                key = ranges[i][3] if by_index else op
         ms = e["dur"] / 1e3
-        by_type[op] = by_type.get(op, 0.0) + ms
-        key = f"{op} | {_family(str(e.get('name', '')))}"
-        by_family[key] = by_family.get(key, 0.0) + ms
+        by_type[key] = by_type.get(key, 0.0) + ms
+        fam = f"{op} | {_family(str(e.get('name', '')))}"
+        by_family[fam] = by_family.get(fam, 0.0) + ms
     return by_type, by_family
 
 
 def _device_trace_step(torch, exe, main, feed, loss, scope, label, card,
-                       need=("flash_attn_fwd (K1)", "linear_ce_fwd (K7)", "linear_ce_bwd (K8)")):
+                       need=("flash_attn_fwd (K1)", "linear_ce_fwd (K7)", "linear_ce_bwd (K8)"),
+                       by_index=None):
     """Phase 19 (f), inside phases 7 and 14: ``profiler.device_trace``
     (default directory: ``$PADDLE_TPU_TELEMETRY_DIR/xplane``) around one
     eager step (``_run_eager``, which commits the step): the exported trace
     names K1's, K7's and K8's kernels and the lowering's ``op<idx>:``
     ranges.  Prints the step's device time by op type, and of it the
     kernels outside cuBLAS and the hand-written ones ("other") by op type:
-    the same kernels a replay of the step's graph launches."""
+    the same kernels a replay of the step's graph launches.  A dict given
+    as ``by_index`` is filled with the device ms by ``"<idx>:<type>"``."""
     import re
     import paddle_tpu_torch as pt
     with _telemetry_on():
@@ -3429,6 +3467,8 @@ def _device_trace_step(torch, exe, main, feed, loss, scope, label, card,
         elif re.match(r"op\d+:", name):
             ranges.add(name)
     by_type, by_family = _device_ms_by_op(events)
+    if by_index is not None:
+        by_index.update(_device_ms_by_op(events, by_index=True)[0])
     other = {k.split(" | ")[0]: v for k, v in by_family.items() if k.endswith(f" | {OTHER}")}
     rec = {"card": card, "trace_mib": os.path.getsize(dt.path) / 2 ** 20, "op_ranges": len(ranges),
            "kernels_by_family": kernels,
@@ -3596,7 +3636,8 @@ def _analysis_path(torch, key, exe, program, feed, fetch_names, scope, run):
 
 # ------------------------------------------------- phase 20: the reference path
 
-P20_STEPS = 6                 # (a): one eager step, then graph steps
+P20_STEPS = 4                 # (a): one eager step, then graph steps
+P20_BF16_STEPS = 2            # (b): the capture's step, then a replay
 NOAM_D, NOAM_WARMUP = D_MODEL, 4000
 L2_COEFF, CLIP_NORM = 1e-4, 1.0
 # the unfused head's step: no K7/K8; K3 and K8 are 2 and 32 kernels a call
@@ -3607,8 +3648,9 @@ P20_FAMILIES = {"flash_attn_fwd (K1)": PER_STEP["flash_attn_fwd"],
                 "fused_adam (K6)": 1, "linear_ce_fwd (K7)": 0, "linear_ce_bwd (K8)": 0}
 ACCUM_STEPS, ACCUM_ROWS, ACCUM_APPLIES = 4, 16, 2   # (c)
 ACCUM_LAYERS = 2        # (c)'s depth (6+6 before the CNN phase came)
-FAMILY_LAYERS, FAMILY_T, FAMILY_ROWS, FAMILY_STEPS = 2, 64, 4, 3   # (d)
-# (d): one program, each rule updating every tenth parameter; each of its 3
+# (d)'s depth: the CPU's float32 and float64 steps take most of its time
+FAMILY_LAYERS, FAMILY_T, FAMILY_ROWS, FAMILY_STEPS = 2, 64, 2, 2
+# (d): one program, each rule updating every tenth parameter; each of its
 # steps on the card held against one step from the card's own state before
 # it, on the CPU in float32 and in float64 (the witness).  The loss within
 # FAMILY_LOSS_RTOL of the float32 CPU's.  Each floating state tensor,
@@ -3697,6 +3739,13 @@ def _noam_f32(torch, step):
     return float((torch.minimum(a, b) * (float(NOAM_D) ** -0.5) + 0.0).item())
 
 
+def _piece_seconds(label, t0):
+    """Print the seconds since ``t0`` of a phase's piece; returns now."""
+    now = time.perf_counter()
+    print(f"{label}: {now - t0:.1f} s")
+    return now
+
+
 def _op_counts(program):
     types = [o.type for o in program.desc.block(0).ops]
     return len(types), {k: types.count(k) for k in sorted(set(types))}
@@ -3729,7 +3778,7 @@ def phase_reference_path(torch, card):
     out = {}
 
     # (a) the full-width reference step
-    t0 = time.perf_counter()
+    t_phase = t0 = time.perf_counter()
     main, startup, loss, lr = _ref_programs(pt)
     scope, exe = pt.Scope(), pt.Executor(pt.CUDAPlace(0))
     exe.run(startup, scope=scope)
@@ -3833,6 +3882,7 @@ def phase_reference_path(torch, card):
                       "feed": feed}
     del exe, scope
     _free_trainer(torch, "phase 20 (a)")
+    t_phase = _piece_seconds("phase 20 (a)", t_phase)
 
     # (b) the bf16 twin, from (a)'s last state (the counter included: the
     # schedule goes on where (a) stopped)
@@ -3848,11 +3898,11 @@ def phase_reference_path(torch, card):
                         for n in o.inputs.get(slot, []) + o.outputs.get(slot, []) if n})
     bf16_before = {k: getattr(f, "bf16_launches", 0) for k, f in counters.items()}
     b_losses = [float(np.asarray(exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]))
-                for _ in range(3)]
+                for _ in range(P20_BF16_STEPS)]
     bf16_launches = {k: getattr(f, "bf16_launches", 0) - bf16_before[k]
                      for k, f in counters.items()}
     print(f"phase 20 (b) bf16 twin (AmpConfig()): losses {b_losses}; softmax-CE vars in "
-          f"{ce_dtypes}; {sum(o.type == 'cast' for o in blk.ops)} casts; bf16 launches over 3 "
+          f"{ce_dtypes}; {sum(o.type == 'cast' for o in blk.ops)} casts; bf16 launches over {P20_BF16_STEPS} "
           f"steps {bf16_launches}; captures {exe.cache_info()['captures']} [{card}]")
     if not np.isfinite(b_losses).all() or not b_losses[0] > b_losses[-1] \
             or ce_dtypes != ["float32"]:
@@ -3861,9 +3911,12 @@ def phase_reference_path(torch, card):
     out["b_bf16"] = bf16_launches
     del exe, scope, prog, main, startup
     _free_trainer(torch, "phase 20 (b)")
+    t_phase = _piece_seconds("phase 20 (b)", t_phase)
 
     res["c"] = _ref_accumulation(torch, pt, counters, card)
+    t_phase = _piece_seconds("phase 20 (c)", t_phase)
     res["d"], out["d"] = _ref_families(torch, pt, counters, card)
+    t_phase = _piece_seconds("phase 20 (d)", t_phase)
     res["e"], out["e"] = _ref_int8_matmul(torch, pt, counters, card)
     print(json.dumps({"reference_path": res}))
     return out
@@ -4018,7 +4071,7 @@ def _family_gate(dist_cpu):
 
 
 def _ref_families(torch, pt, counters, card):
-    """(d) Three steps of one program in which each update rule (8 new
+    """(d) FAMILY_STEPS steps of one program in which each update rule (8 new
     ones, Momentum also Nesterov, and SGD with exponential_decay through
     K5) updates its share of a 2+2 network at (a)'s widths on the card (one
     graph a step); each step against one step from the same state on the
@@ -5244,6 +5297,596 @@ def phase_health(torch, card):
     return per, bf16_step
 
 
+# ------------------------------------------------------ phase 24: the book models
+BOOK_MODELS = ("alexnet", "googlenet", "se_resnext")
+# bench.py's image rows (bench_image_model on the accelerator, bench.py:1542):
+# batch 128 at 224 x 224, 1,000 classes, Momentum(0.01, 0.9), enable_amp
+BOOK_B, BOOK_HW, BOOK_CLASSES = 128, 224, 1000
+BOOK_REPLAYS = 6
+BOOK_PROFILE_STEPS = 2
+K40M_MS = {"alexnet": 334.0, "googlenet": 1149.0}     # bench.py:2067, the K40m rows
+# ops, and ops and casts after amp-bf16 (tests/test_torch_book_models.py)
+BOOK_OPS = {"alexnet": (85, 120, 35), "googlenet": (546, 862, 316),
+            "se_resnext": (874, 1473, 599)}
+SE_GROUPED = 16                 # SE-ResNeXt-50's grouped 3x3s (cardinality 32)
+SERVE_ROWS = 8                  # (c): one batch through Inferencer
+# (d): one float32 step of each model at a small image size (the smallest
+# its pools take; rows, classes) on the card and on the CPU from the same
+# parameters (AlexNet, GoogLeNet with is_test=True, SE-ResNeXt with
+# dropout_prob=0.0: dropout draws never agree), all the gradients as one
+# vector.  AlexNet and GoogLeNet: the card within BOOK_CARD_VS_CPU_NREL of
+# the CPU (an H100's readings against float64 before this gate, AlexNet at
+# 4 rows: the card 5.0e-6 and 1.0e-6, the CPU 4.1e-7 and 6.0e-7).  At 32 x
+# 32 SE-ResNeXt's last stage is 1 x 1 and its batch_norm over 2 values
+# degenerate (float32 and float64 10 % apart on the loss); at 64 x 64 its
+# fifty training batch_norms put both
+# float32 runs ~1e-2 from float64 (tests/test_torch_book_models.py), so it
+# is held against the port on the CPU in float64 from the same state (the
+# witness): the card's distance from it at most BOOK_WITNESS_FACTOR x the
+# float32 CPU's + BOOK_WITNESS_FLOOR.  The loss within BOOK_LOSS_RTOL of the
+# float32 CPU's.
+BOOK_SMALL = {"alexnet": (64, 5, 2), "googlenet": (64, 5, 2), "se_resnext": (64, 10, 2)}
+BOOK_CARD_VS_CPU_NREL = 1e-4
+BOOK_WITNESS_FACTOR = 4.0
+BOOK_WITNESS_FLOOR = 1e-5
+BOOK_LOSS_RTOL = 1e-4
+FIT_STEPS, FIT_B = 30, 32       # (e) fit_a_line: SGD(0.05) on uci_housing's reader
+# (f): ModelAverage(0.5, min 2, max 4) over an Adam MLP, the averages against
+# a float64 host witness of the window's mean (the parameters after each
+# step, the windows emulated): float32 sums of a few float32 values
+MA_STEPS, MA_WINDOW = 8, (0.5, 2, 4)
+MA_RTOL = 1e-6
+QAT_STEPS, QAT_WINDOW = 5, 3
+# (g) the float ops on the card against the CPU, relative to the largest
+# value (TF32 off; other summation orders)
+BOOK_OP_RTOL = 1e-5
+
+
+def _book_programs(pt, name, hw=BOOK_HW, classes=BOOK_CLASSES, amp=True, small=False):
+    """bench.py's ``bench_image_model`` program for ``name`` (SE-ResNeXt-50
+    with the same recipe); ``small``: the parity step of
+    tests/test_torch_book_models.py (no dropout draws)."""
+    from paddle_tpu_torch import models
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        image = pt.layers.data(name="image", shape=[3, hw, hw], dtype="float32")
+        label = pt.layers.data(name="label", shape=[1], dtype="int64")
+        if small and name == "se_resnext":
+            pred = models.se_resnext.se_resnext(image, class_dim=classes, dropout_prob=0.0)
+            loss = pt.layers.mean(pt.layers.cross_entropy(input=pred, label=label))
+            acc = pt.layers.accuracy(input=pred, label=label)
+        else:
+            loss, acc = getattr(models, name).train_network(image, label, class_dim=classes,
+                                                            **({"is_test": True} if small else {}))
+        pt.optimizer.MomentumOptimizer(learning_rate=0.01, momentum=0.9).minimize(loss)
+    if amp:
+        pt.amp.enable_amp(main)
+    return main, startup, loss, acc
+
+
+def _book_feed(torch, rows, hw, classes, seed, device="cuda"):
+    """bench.py's feed: uniform images in [0, 1) and int32 labels."""
+    rng = np.random.default_rng(seed)
+    image = rng.random((rows, 3, hw, hw), dtype=np.float32)
+    label = rng.integers(0, classes, (rows, 1)).astype(np.int32)
+    if device == "cpu":
+        return {"image": image, "label": label}
+    return {"image": torch.from_numpy(image).to(device), "label": torch.from_numpy(label).to(device)}
+
+
+def _book_cell(torch, pt, card, counters, name):
+    """Phase 24 (a)-(c): bench.py's row for ``name`` at batch 128, one CUDA
+    graph replay a step.  Returns its readings and the trained executor,
+    programs and scope."""
+    t0 = time.perf_counter()
+    main, startup, loss, acc = _book_programs(pt, name)
+    scope, exe = pt.Scope(), pt.Executor(pt.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    feed = _book_feed(torch, BOOK_B, BOOK_HW, BOOK_CLASSES, seed=0)
+    fetch = [loss, acc]
+    run_prog = exe._apply_passes(main, list(feed), [loss.name, acc.name], scope)
+    run_ops = run_prog.desc.block(0).ops
+    types = [o.type for o in run_ops]
+    n_ops = len(main.desc.block(0).ops)
+    flops = 3 * _model_flops(main, BOOK_B)
+    print(f"phase 24 {name}: {n_ops} ops ({len(types)} run, {types.count('cast')} casts), "
+          f"{flops / 1e12:.3f} TFLOP a step (3 x 2 x MACs of the conv2d and mul ops); built and "
+          f"initialized in {time.perf_counter() - t0:.2f} s")
+    if (n_ops, len(types), types.count("cast")) != BOOK_OPS[name]:
+        raise AssertionError(f"phase 24 {name}: {n_ops} ops, {len(types)} run, "
+                             f"{types.count('cast')} casts; want {BOOK_OPS[name]}")
+    torch.cuda.synchronize()
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    info = exe.precompile(main, feed=feed, fetch_list=fetch, scope=scope)
+    losses, step_s = [], []
+    for _ in range(BOOK_REPLAYS):
+        t1 = time.perf_counter()
+        lv, _ = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        step_s.append(time.perf_counter() - t1)
+        losses.append(float(np.asarray(lv)))
+    peak = torch.cuda.max_memory_allocated()
+    launches = _launch_snapshot(counters)
+    entries = [e for e in exe.cache_info()["entries"] if "image" in e["feeds"]]
+    ips = [BOOK_B / s for s in step_s]
+    step_ms = 1e3 * float(np.median(step_s))
+    res = {"card": card, "ops": n_ops, "run_ops": len(types), "casts": types.count("cast"),
+           "capture_s": info["compile_s"], "losses": losses, "step_ms": [1e3 * s for s in step_s],
+           "step_ms_median": step_ms, "images_per_s_median": float(np.median(ips)),
+           "images_per_s_min": min(ips), "images_per_s_max": max(ips),
+           "peak_allocated_gib": peak / 2 ** 30, "tflop_a_step": flops / 1e12,
+           "bf16_peak_share": flops / (step_ms / 1e3) / BF16_FLOPS, "launches": launches}
+    if name in K40M_MS:
+        res["k40m_ms"] = K40M_MS[name]
+        res["k40m_ratio"] = K40M_MS[name] / step_ms
+    print(f"phase 24 {name} bf16: capture {info['compile_s']:.2f} s (kind {info['kind']}); "
+          f"{BOOK_REPLAYS} replays on one batch: losses {losses}; step ms "
+          f"{[round(1e3 * s, 2) for s in step_s]}; images/s median "
+          f"{res['images_per_s_median']:.1f} (min {res['images_per_s_min']:.1f}, max "
+          f"{res['images_per_s_max']:.1f}); {res['bf16_peak_share']:.4f} of the dense bf16 peak; "
+          f"peak {peak / 2 ** 30:.2f} GiB; hand-written kernel launches {launches}"
+          + (f"; {step_ms:.1f} ms/batch bs={BOOK_B} (reference K40m: {K40M_MS[name]:.0f} "
+             f"ms/batch -> {res['k40m_ratio']:.1f}x)" if name in K40M_MS else "") + f" [{card}]")
+    if info["kind"] != "graph" or [e["kind"] for e in entries] != ["graph"] \
+            or exe.cache_info()["captures"] != 1:
+        raise AssertionError(f"phase 24 {name}: the step is not one graph: {info}, {entries}")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 24 {name}: losses not finite and falling: {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"phase 24 {name}: launches {launches} (the image models run no "
+                             f"hand-written kernel)")
+    prof = _profile(torch, lambda: [exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+                                    for _ in range(BOOK_PROFILE_STEPS)],
+                    f"book_{name}_profile", card,
+                    {"batch": [BOOK_B, 3, BOOK_HW, BOOK_HW], "steps": BOOK_PROFILE_STEPS})
+    if prof is not None:
+        res["profile"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share",
+                                               "by_family_ms", "by_family_launches")}
+    by_index = {}
+    res["device_by_op"] = _device_trace_step(torch, exe, main, feed, loss, scope,
+                                             f"phase 24 {name}", card, need=("conv (cuDNN)",),
+                                             by_index=by_index)
+    for k in ("lrn", "lrn_grad", "conv2d", "conv2d_grad", "mul", "mul_grad", "cast"):
+        res[f"device_ms_{k}"] = res["device_by_op"]["device_ms_by_op_type"].get(k, 0.0)
+    if name == "se_resnext":
+        grouped = {str(i) for i, o in enumerate(run_ops)
+                   if o.type in ("conv2d", "conv2d_grad") and o.attr("groups", 1) == 32}
+        ms = sum(v for k, v in by_index.items() if k.split(":")[0] in grouped)
+        res["grouped_conv"] = {"ops": len(grouped), "device_ms": ms,
+                               "share": ms / res["device_by_op"]["device_ms"]}
+        print(f"phase 24 se_resnext: the grouped 3x3s ({len(grouped)} ops, forward and grad) "
+              f"{ms:.2f} device ms of the eager step's {res['device_by_op']['device_ms']:.2f} "
+              f"({res['grouped_conv']['share']:.3f}) [{card}]")
+        if len(grouped) != 2 * SE_GROUPED or not ms > 0:
+            raise AssertionError(f"phase 24 (c): grouped convolutions {res['grouped_conv']}")
+    print(json.dumps({f"book_{name}_bf16": res}))
+    return res, exe, main, scope, loss
+
+
+def _book_serve(torch, pt, card, exe, main, scope, loss):
+    """Phase 24 (c): the trained SE-ResNeXt-50's eval clone (float32, its
+    softmax output) exported with ``save_inference_model`` and one batch of
+    8 served through ``Inferencer(param_path=)``, against the eval clone
+    run by the trainer's executor on the same parameters."""
+    from paddle_tpu_torch.models import se_resnext
+    (pred,) = [o.input("X")[0] for o in main.desc.block(0).ops if o.type == "cross_entropy"]
+    test = pt.amp.disable_amp(main.clone(for_test=True)._prune([pred]))
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_se_resnext_")
+    try:
+        with pt.scope_guard(scope):
+            pt.io.save_inference_model(workdir, ["image"], [test.global_block.var(pred)], exe,
+                                       test, export_compiled=False)
+
+        def infer_func():
+            image = pt.layers.data(name="image", shape=[3, BOOK_HW, BOOK_HW], dtype="float32")
+            return se_resnext.se_resnext(image, class_dim=BOOK_CLASSES, is_test=True)
+        t0 = time.perf_counter()
+        inf = pt.Inferencer(infer_func, param_path=workdir, place=pt.CUDAPlace(0))
+        load_s = time.perf_counter() - t0
+        feed = _book_feed(torch, SERVE_ROWS, BOOK_HW, BOOK_CLASSES, seed=3)
+        (want,) = exe.run(test, feed={"image": feed["image"]}, fetch_list=[pred], scope=scope)
+        walls = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            (got,) = inf.infer({"image": feed["image"]})
+            walls.append(1e3 * (time.perf_counter() - t1))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    got, want = np.asarray(got), np.asarray(want)
+    err = float(np.abs(got - want).max())
+    res = {"card": card, "rows": SERVE_ROWS, "load_s": load_s, "batch_ms": walls,
+           "max_abs": err, "bit_equal": bool(np.array_equal(got, want)),
+           "rows_sum_to_one": float(np.abs(got.sum(-1) - 1).max())}
+    print(f"phase 24 (c) SE-ResNeXt-50 exported and served through Inferencer(param_path=), "
+          f"{SERVE_ROWS} rows: against the trainer's eval clone on the same parameters max abs "
+          f"{err:.3e} ({'bit-equal' if res['bit_equal'] else 'not bit-equal'}); batch ms "
+          f"{[round(w, 2) for w in walls]} (the first the capture); loaded in {load_s:.2f} s "
+          f"[{card}]")
+    if got.shape != (SERVE_ROWS, BOOK_CLASSES) or err > BOOK_OP_RTOL \
+            or res["rows_sum_to_one"] > 1e-4:
+        raise AssertionError(f"phase 24 (c): {res}")
+    return res
+
+
+def _grad_vector(outs):
+    return np.concatenate([np.asarray(a, np.float64).ravel() for a in outs])
+
+
+def _book_card_vs_cpu(torch, pt, card):
+    """Phase 24 (d): one float32 step of each model at a small image size on
+    the card and on the CPU from the same parameters; SE-ResNeXt's also
+    against the float64 witness on the CPU."""
+    res = {}
+    for name in BOOK_MODELS:
+        t0 = time.perf_counter()
+        hw, classes, rows = BOOK_SMALL[name]
+        main, startup, loss, _ = _book_programs(pt, name, hw, classes, amp=False, small=True)
+        params = [p.name for p in main.global_block.all_parameters()
+                  if main.desc.block(0).find_var(p.name + "@GRAD") is not None]
+        fetch = [loss.name] + [p + "@GRAD" for p in params]
+        feed = _book_feed(torch, rows, hw, classes, seed=5, device="cpu")
+        cpu_scope, cpu = pt.Scope(), pt.Executor(pt.CPUPlace())
+        cpu.run(startup, scope=cpu_scope)
+        persist = [v.name for v in main.list_vars()
+                   if v.persistable and cpu_scope.find_var(v.name) is not None]
+        state = {n: cpu_scope.find_var(n).numpy().copy() for n in persist}
+        card_scope, card_exe = pt.Scope(), pt.Executor(pt.CUDAPlace(0))
+        card_exe.run(startup, scope=card_scope)
+        for n, a in state.items():
+            card_scope.find_var(n).copy_(torch.from_numpy(a))
+        got = card_exe.run(main, feed=feed, fetch_list=fetch, scope=card_scope)
+        ref = cpu.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+        g_card, g_cpu = _grad_vector(got[1:]), _grad_vector(ref[1:])
+        loss_rel = abs(float(got[0]) - float(ref[0])) / abs(float(ref[0]))
+        r = {"image": [rows, 3, hw, hw], "losses": [float(got[0]), float(ref[0])],
+             "loss_rel": loss_rel,
+             "grads_card_vs_cpu": float(np.linalg.norm(g_card - g_cpu) / np.linalg.norm(g_cpu))}
+        ok = loss_rel <= BOOK_LOSS_RTOL
+        if name == "se_resnext":
+            # the witness: float64 state, the image read from the scope (a
+            # feed is narrowed to float32)
+            w_scope = pt.Scope()
+            pt.params_from_numpy({n: a.astype(np.float64) if a.dtype == np.float32 else a
+                                  for n, a in state.items()}, w_scope, "cpu")
+            w_scope.set_var("image", torch.from_numpy(feed["image"].astype(np.float64)))
+            wit = pt.Executor(pt.CPUPlace()).run(main, feed={"label": feed["label"]},
+                                                 fetch_list=fetch, scope=w_scope)
+            w = _grad_vector(wit[1:])
+            r["losses"].append(float(wit[0]))
+            r["witness_dtype"] = str(np.asarray(wit[1]).dtype)
+            r["grads_vs_float64"] = {k: float(np.linalg.norm(g - w) / np.linalg.norm(w))
+                                     for k, g in (("card", g_card), ("cpu_float32", g_cpu))}
+            ok = ok and r["witness_dtype"] == "float64" and r["grads_vs_float64"]["card"] <= \
+                BOOK_WITNESS_FACTOR * r["grads_vs_float64"]["cpu_float32"] + BOOK_WITNESS_FLOOR
+            gate = (f"against float64: card {r['grads_vs_float64']['card']:.3e}, CPU float32 "
+                    f"{r['grads_vs_float64']['cpu_float32']:.3e} (gate {BOOK_WITNESS_FACTOR} x "
+                    f"CPU + {BOOK_WITNESS_FLOOR})")
+        else:
+            ok = ok and r["grads_card_vs_cpu"] <= BOOK_CARD_VS_CPU_NREL
+            gate = f"gate {BOOK_CARD_VS_CPU_NREL}"
+        r["seconds"] = time.perf_counter() - t0
+        res[name] = r
+        print(f"phase 24 (d) {name} {rows} x 3 x {hw} x {hw}, one float32 step: losses card / CPU"
+              f"{' / float64' if name == 'se_resnext' else ''} {r['losses']} ({loss_rel:.2e}, gate "
+              f"{BOOK_LOSS_RTOL}); {len(params)} gradients as one vector, card against CPU "
+              f"{r['grads_card_vs_cpu']:.3e}, {gate}; {r['seconds']:.1f} s [{card}]")
+        if not ok:
+            raise AssertionError(f"phase 24 (d) {name}: {r}")
+        del card_exe, card_scope
+        gc.collect()
+    return res
+
+
+def _fit_a_line_programs(pt):
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        x = pt.layers.data(name="x", shape=[13], dtype="float32")
+        y = pt.layers.data(name="y", shape=[1], dtype="float32")
+        y_predict = pt.layers.fc(input=x, size=1)
+        avg_cost = pt.layers.mean(pt.layers.square_error_cost(input=y_predict, label=y))
+        pt.optimizer.SGD(learning_rate=0.05).minimize(avg_cost)
+    return main, startup, avg_cost
+
+
+def _fit_a_line(torch, pt, card, counters):
+    """Phase 24 (e): fit_a_line with SGD on the synthetic uci_housing
+    reader's batches, each step one replay with K5 inside."""
+    main, startup, loss = _fit_a_line_programs(pt)
+    scope, exe = pt.Scope(), pt.Executor(pt.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    reader = pt.reader.batch(pt.dataset.uci_housing.train(), FIT_B, drop_last=True)
+    feeds = []
+    while len(feeds) < FIT_STEPS:
+        for rows in reader():
+            feeds.append({"x": np.stack([r[0] for r in rows]), "y": np.stack([r[1] for r in rows])})
+    torch.cuda.synchronize()
+    for f in counters.values():
+        f.launches = 0
+    losses = [float(np.asarray(exe.run(main, feed=f, fetch_list=[loss], scope=scope)[0]))
+              for f in feeds[:FIT_STEPS]]
+    launches = _launch_snapshot(counters)
+    entries = [e for e in exe.cache_info()["entries"] if "x" in e["feeds"]]
+    replay = entries[0]["launches"] if entries else {}
+    res = {"card": card, "losses": losses, "launches": launches, "replay_launches": replay}
+    print(f"phase 24 (e) fit_a_line, SGD(0.05), {FIT_STEPS} steps of {FIT_B} uci_housing rows: "
+          f"losses {[round(v, 4) for v in losses]}; launches {launches} (the capture's eager run "
+          f"and {FIT_STEPS} replays); a replay's {replay}; entry kinds "
+          f"{[e['kind'] for e in entries]} [{card}]")
+    want = dict.fromkeys(launches, 0) | {"fused_sgd": FIT_STEPS + 1}
+    if launches != want or [e["kind"] for e in entries] != ["graph"] \
+            or not np.isfinite(losses).all() or not (15.0 < losses[0] and losses[-1] < 0.1):
+        raise AssertionError(f"phase 24 (e): {res}")
+    return res, launches
+
+
+def _ma_witness(snapshots, rate, min_w, max_w):
+    """The window's mean on the host in float64 from the parameter after
+    each step: ``average_accumulates``' rule (no spill within the steps)."""
+    s12 = s3 = 0.0
+    n_acc = n_old = n_upd = 0
+    for p in snapshots:
+        n_upd += 1
+        n_acc += 1
+        s12 = s12 + p
+        if n_acc >= min_w and n_acc >= min(float(max_w), np.float32(n_upd) * np.float32(rate)):
+            s3, s12, n_old, n_acc = s12, 0.0, n_acc, 0
+    return (s12 + s3) / max(n_acc + n_old, 1)
+
+
+def _model_average(torch, pt, card, counters):
+    """Phase 24 (f): ModelAverage over an Adam step replayed as one graph
+    (K6 once a step, ``average_accumulates`` inside the graph), ``apply()``
+    and its restore without a new capture, and a QAT step with the range
+    quantizer in its graph."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        x = pt.layers.data(name="x", shape=[13], dtype="float32")
+        y = pt.layers.data(name="y", shape=[1], dtype="float32")
+        h = pt.layers.fc(input=x, size=64, act="relu")
+        loss = pt.layers.mean(pt.layers.square_error_cost(input=pt.layers.fc(input=h, size=1),
+                                                          label=y))
+        pt.optimizer.Adam(learning_rate=0.01).minimize(loss)
+        ma = pt.optimizer.ModelAverage(MA_WINDOW[0], min_average_window=MA_WINDOW[1],
+                                       max_average_window=MA_WINDOW[2])
+    scope, exe = pt.Scope(), pt.Executor(pt.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    xs, ys = pt.dataset.uci_housing._synthetic(FIT_B, seed=0)
+    feed = {"x": torch.from_numpy(xs).cuda(), "y": torch.from_numpy(ys).cuda()}
+    torch.cuda.synchronize()
+    for f in counters.values():
+        f.launches = 0
+    snaps = {p.name: [] for p in ma.params}
+    for _ in range(MA_STEPS):
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        for p in ma.params:
+            snaps[p.name].append(scope.find_var(p.name).double().cpu().numpy())
+    launches = _launch_snapshot(counters)
+    persist = [v.name for v in main.list_vars() if v.persistable]
+    n_upd = {int(scope.find_var(v.name).cpu()[0]) for v in ma._accumulators["num_updates"].values()}
+    captures = exe.cache_info()["captures"]
+    ptrs = {n: scope.find_var(n).data_ptr() for n in persist}
+    state0 = {n: scope.find_var(n).clone() for n in persist}
+    with pt.scope_guard(scope):
+        with ma.apply(exe):
+            applied = {p.name: scope.find_var(p.name).double().cpu().numpy() for p in ma.params}
+    restored = all(torch.equal(scope.find_var(n), state0[n]) for n in persist)
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    after_apply = {n: scope.find_var(n).clone() for n in persist}
+    for n, t in state0.items():
+        scope.find_var(n).copy_(t)
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    continues = all(torch.equal(scope.find_var(n), after_apply[n]) for n in persist)
+    errs = {}
+    for p in ma.params:
+        w = _ma_witness(snaps[p.name], *MA_WINDOW)
+        errs[p.name] = float(np.abs(applied[p.name] - w).max() / np.abs(w).max())
+    res = {"card": card, "launches": launches, "num_updates": sorted(n_upd),
+           "average_vs_float64": errs, "restored_bit_equal": restored,
+           "next_replay_bit_equal": continues,
+           "captures": [captures, exe.cache_info()["captures"]],
+           "addresses_kept": ptrs == {n: scope.find_var(n).data_ptr() for n in persist}}
+    print(f"phase 24 (f) ModelAverage{MA_WINDOW} over Adam, {MA_STEPS} replays: launches "
+          f"{launches}; num_updates {sorted(n_upd)}; averages against the float64 witness, "
+          f"largest relative {max(errs.values()):.2e} (gate {MA_RTOL}); apply()/restore: "
+          f"restored bit-equal {restored}, the next replay bit-equal to one without apply "
+          f"{continues}, captures {res['captures']}, every tensor at its address "
+          f"{res['addresses_kept']} [{card}]")
+    want = dict.fromkeys(launches, 0) | {"fused_adam": MA_STEPS + 1}
+    if launches != want or n_upd != {MA_STEPS} or max(errs.values()) > MA_RTOL or not restored \
+            or not continues or res["captures"] != [1, 1] or not res["addresses_kept"]:
+        raise AssertionError(f"phase 24 (f): {res}")
+    res["qat"], qat_launches = _qat_step(torch, pt, card, counters)
+    return res, {k: launches[k] + qat_launches[k] for k in launches}
+
+
+def _qat_step(torch, pt, card, counters):
+    """Phase 24 (f): a QAT step (``fake_quantize_range_abs_max`` on an fc
+    output, dequantized, SGD) replayed on the card against the CPU from the
+    same parameters: ``Iter`` and the window advance inside the graph."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        x = pt.layers.data(name="x", shape=[13], dtype="float32")
+        y = pt.layers.data(name="y", shape=[1], dtype="float32")
+        h = pt.layers.fc(input=x, size=8)
+        q, s = pt.layers.fake_quantize_range_abs_max(h, bit_length=8, window_size=QAT_WINDOW)
+        deq = pt.layers.fake_dequantize_max_abs(q, s, max_range=127.0)
+        loss = pt.layers.mean(pt.layers.square_error_cost(
+            input=pt.layers.fc(input=deq, size=1), label=y))
+        pt.optimizer.SGD(learning_rate=0.05).minimize(loss)
+    (op,) = [o for o in main.desc.block(0).ops if o.type == "fake_quantize_range_abs_max"]
+    buf, it = op.input("InScales")[0], op.input("Iter")[0]
+    cpu_scope, cpu = pt.Scope(), pt.Executor(pt.CPUPlace())
+    cpu.run(startup, scope=cpu_scope)
+    card_scope, card_exe = pt.Scope(), pt.Executor(pt.CUDAPlace(0))
+    card_exe.run(startup, scope=card_scope)
+    for v in main.list_vars():
+        if v.persistable and cpu_scope.find_var(v.name) is not None:
+            card_scope.find_var(v.name).copy_(cpu_scope.find_var(v.name))
+    torch.cuda.synchronize()
+    for f in counters.values():
+        f.launches = 0
+    windows, worst = [], 0.0
+    for step in range(QAT_STEPS):
+        xs, ys = pt.dataset.uci_housing._synthetic(FIT_B, seed=10 + step)
+        feed = {"x": xs * (1 + step % 3), "y": ys}
+        card_exe.run(main, feed=feed, fetch_list=[loss], scope=card_scope)
+        cpu.run(main, feed=feed, fetch_list=[loss], scope=cpu_scope)
+        a, b = card_scope.find_var(buf).cpu().numpy(), cpu_scope.find_var(buf).numpy()
+        worst = max(worst, float(np.abs(a - b).max() / np.abs(b).max()))
+        windows.append(a.tolist())
+    launches = _launch_snapshot(counters)
+    iters = (int(card_scope.find_var(it).cpu()), int(cpu_scope.find_var(it)))
+    res = {"card": card, "windows": windows, "iter": iters, "window_vs_cpu": worst,
+           "launches": launches, "captures": card_exe.cache_info()["captures"]}
+    print(f"phase 24 (f) QAT, the range quantizer (window {QAT_WINDOW}) in the SGD step's graph, "
+          f"{QAT_STEPS} replays: Iter card / CPU {iters}; the window after each step {windows}; "
+          f"against the CPU {worst:.2e} (gate {BOOK_OP_RTOL}); launches {launches}; captures "
+          f"{res['captures']} [{card}]")
+    want = dict.fromkeys(launches, 0) | {"fused_sgd": QAT_STEPS + 1}
+    if iters != (QAT_STEPS, QAT_STEPS) or worst > BOOK_OP_RTOL or launches != want \
+            or res["captures"] != 1 or not all(np.count_nonzero(w) == min(i + 1, QAT_WINDOW)
+                                               for i, w in enumerate(windows)):
+        raise AssertionError(f"phase 24 (f) QAT: {res}")
+    return res, launches
+
+
+def _book_ops_programs(pt):
+    """Phase 24 (g): every op of the slice in two programs over seeded
+    feeds: (the ops' program, the update rules' program, the feeds, the
+    names to fetch whose values are exact, the names held within
+    BOOK_OP_RTOL)."""
+    L = pt.layers
+    rs = np.random.RandomState(24)
+    feeds = {"x": rs.randn(4, 16, 9, 9).astype(np.float32) * 2,
+             "w": rs.randn(16, 8, 3, 3).astype(np.float32) * 0.2,
+             "u": rs.randn(6, 8).astype(np.float32) * 3,
+             "v": (rs.rand(6, 8).astype(np.float32) + 0.5) * np.where(rs.rand(6, 8) < 0.5, -1, 1)
+             .astype(np.float32),
+             "a": rs.randint(-20, 20, (6, 8)).astype(np.int32),
+             "b": (rs.randint(1, 6, (6, 8)) * np.where(rs.rand(6, 8) < 0.5, -1, 1)).astype(np.int32),
+             "idx": np.array([5, 0, -1, 3, 2], np.int32),
+             "ids": np.array([[0], [7], [3], [-1], [9], [2]], np.int64)}
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        xs = {n: L.data(name=n, shape=list(a.shape), dtype=str(a.dtype), append_batch_size=False,
+                        stop_gradient=a.dtype != np.float32) for n, a in feeds.items()}
+        helper = pt.layer_helper.LayerHelper("book_ops")
+
+        def op(op_type, ins, attrs=None, outs=("Out",), dtype="float32"):
+            o = {s: helper.create_variable_for_type_inference(dtype) for s in outs}
+            helper.append_op(op_type, inputs=ins, outputs=o, attrs=attrs or {})
+            return o[outs[0]]
+        x, u, v, a, b = (xs[n] for n in "xuvab")
+        exact = [L.flatten(x, axis=2), L.stack([u, v], axis=1),
+                 L.squeeze(L.unsqueeze(u, axes=[0, 2]), axes=[0]), L.gather(u, xs["idx"]),
+                 op("slice", {"Input": x}, {"axes": [1, 3], "starts": [2, -4], "ends": [100, -1]}),
+                 L.expand(u, [2, 3]), L.pad(u, [1, 0, 2, 1], pad_value=0.5),
+                 L.one_hot(xs["ids"], depth=8), L.argmax(u, axis=1), L.argmin(u, axis=0),
+                 L.assign_value([1.5, -2.0, 3.0, 4.0], [2, 2]),
+                 op("elementwise_mod", {"X": a, "Y": b}, {"axis": -1}, dtype="int32"),
+                 op("elementwise_floordiv", {"X": a, "Y": b}, {"axis": -1}, dtype="int32"),
+                 op("elementwise_mod", {"X": u, "Y": v}, {"axis": -1}),
+                 op("elementwise_floordiv", {"X": u, "Y": v}, {"axis": -1}),
+                 op("isfinite", {"X": u}, dtype="bool")]
+        close = [L.lrn(x, n=5, alpha=0.05, beta=0.75),
+                 op("conv2d_transpose", {"Input": x, "Filter": xs["w"]},
+                    {"strides": [2, 2], "paddings": [1, 1], "dilations": [1, 1]},
+                    outs=("Output",)),
+                 L.cos_sim(u, v), op("squared_l2_distance", {"X": u, "Y": v},
+                                     outs=("Out", "sub_result"))]
+        parts = [L.reduce_sum(t) for t in close + exact[1:4] + exact[5:7]]
+        target = parts[0]
+        for t in parts[1:]:
+            target = L.elementwise_add(target, t)
+        close += pt.calc_gradient(target, [x, u, v, xs["w"]])
+    # the proximal rules, their outputs named apart from their inputs
+    rmain, rstart = pt.Program(), pt.Program()
+    rfeeds = {"param": rs.randn(16, 8).astype(np.float32), "grad": rs.randn(16, 8).astype(np.float32),
+              "lr": np.array([0.4], np.float32),
+              "moment": np.abs(rs.randn(16, 8)).astype(np.float32)}
+    with pt.unique_name.guard(), pt.program_guard(rmain, rstart):
+        r = {n: L.data(name=n, shape=list(a.shape), dtype="float32", append_batch_size=False)
+             for n, a in rfeeds.items()}
+        helper = pt.layer_helper.LayerHelper("book_rules")
+        rules = []
+        for op_type, state, attrs in (("proximal_gd", (), {"l1": 0.3, "l2": 0.1}),
+                                      ("proximal_adagrad", ("Moment",), {"l1": 0.1, "l2": 0.2})):
+            ins = {"Param": r["param"], "Grad": r["grad"], "LearningRate": r["lr"]}
+            outs = {"ParamOut": helper.create_variable_for_type_inference("float32")}
+            for s_ in state:
+                ins[s_] = r["moment"]
+                outs[s_ + "Out"] = helper.create_variable_for_type_inference("float32")
+            helper.append_op(op_type, inputs=ins, outputs=outs, attrs=attrs)
+            rules += list(outs.values())
+    return main, rmain, feeds, rfeeds, [t.name for t in exact], [t.name for t in close], \
+        [t.name for t in rules]
+
+
+def _book_ops(torch, pt, card):
+    """Phase 24 (g): each op of the slice once on the card against its
+    result on the CPU."""
+    main, rmain, feeds, rfeeds, exact, close, rules = _book_ops_programs(pt)
+    out = {}
+    for place, key in ((pt.CUDAPlace(0), "card"), (pt.CPUPlace(), "cpu")):
+        exe = pt.Executor(place)
+        out[key] = [np.asarray(t) for t in exe.run(main, feed=feeds, fetch_list=exact + close,
+                                                    scope=pt.Scope())]
+        out[key] += [np.asarray(t) for t in exe.run(rmain, feed=rfeeds, fetch_list=rules,
+                                                     scope=pt.Scope())]
+    names = exact + close + rules
+    n_exact = len(exact)
+    differ, worst = [], 0.0
+    for i, (n, g, c) in enumerate(zip(names, out["card"], out["cpu"])):
+        if g.shape != c.shape or g.dtype != c.dtype:
+            differ.append(f"{n}: {g.shape} {g.dtype} / {c.shape} {c.dtype}")
+        elif n_exact <= i < n_exact + len(close):
+            scale = max(float(np.abs(c).max()), 1e-30)
+            e = float(np.abs(g.astype(np.float64) - c).max() / scale)
+            worst = max(worst, e)
+            if e > BOOK_OP_RTOL:
+                differ.append(f"{n}: {e:.2e}")
+        elif not np.array_equal(g, c, equal_nan=g.dtype.kind == "f"):
+            differ.append(f"{n}: not bit-equal")
+    res = {"card": card, "exact": len(exact) + len(rules), "close": len(close),
+           "close_worst_rel": worst, "differ": differ}
+    print(f"phase 24 (g) each op of the slice on the card against the CPU: {res['exact']} "
+          f"outputs bit-equal (shape ops, gather, one_hot, arg_max/arg_min, assign_value, "
+          f"integer and float mod and floor division, isfinite, proximal_gd, "
+          f"proximal_adagrad), {len(close)} within {BOOK_OP_RTOL} of the largest value (lrn, "
+          f"conv2d_transpose, cos_sim, squared_l2_distance and the gradients of x, u, v, w): "
+          f"largest {worst:.2e}; differing {differ} [{card}]")
+    if differ:
+        raise AssertionError(f"phase 24 (g): {differ}")
+    return res
+
+
+def phase_book(torch, card):
+    """Phase 24 (see the module docstring): the book models and what the
+    training path left.  Returns phase 24's launches by kernel (K5 and K6
+    on (e) and (f); the image models launch none)."""
+    import paddle_tpu_torch as pt
+    counters = _counters()
+    res = {}
+    t_piece = time.perf_counter()
+    for part, name in zip("abc", BOOK_MODELS):
+        res[name], exe, main, scope, loss = _book_cell(torch, pt, card, counters, name)
+        if name == "se_resnext":
+            res["serve"] = _book_serve(torch, pt, card, exe, main, scope, loss)
+        del exe, main, scope
+        _free_trainer(torch, f"phase 24 {name}")
+        t_piece = _piece_seconds(f"phase 24 ({part})", t_piece)
+    res["card_vs_cpu"] = _book_card_vs_cpu(torch, pt, card)
+    t_piece = _piece_seconds("phase 24 (d)", t_piece)
+    res["fit_a_line"], fit_launches = _fit_a_line(torch, pt, card, counters)
+    res["model_average"], ma_launches = _model_average(torch, pt, card, counters)
+    res["ops"] = _book_ops(torch, pt, card)
+    _piece_seconds("phase 24 (e)-(g)", t_piece)
+    launches = {k: fit_launches[k] + ma_launches[k] for k in fit_launches}
+    print(json.dumps({"book_models": res}))
+    return launches
+
+
 def _release_serving(torch, label):
     """A serving phase's inferencers (and their graphs' memory pools) are
     gone once it returns: collect them before the training phases."""
@@ -5320,6 +5963,7 @@ def _main(torch, build):
     _, cnn_launches = timed("cnn", phase_cnn)
     passes_launches, passes_bf16 = timed("analysis", phase_analysis)
     health_launches, health_bf16 = timed("health", phase_health)
+    book_launches = timed("book", phase_book)
     print(f"seconds by phase function: {json.dumps(seconds)}; "
           f"{sum(seconds.values()):.1f} in all; {time.perf_counter() - t_main:.1f} since the "
           f"card's name was read (the kernel build included) [{card}]")
@@ -5378,7 +6022,10 @@ def _main(torch, build):
     # which runs no hand-written kernel (gated at 0 there);
     # launches_health: phase 23 (a), a step of Trainer(health=, checkpoint=)
     # after its capture, the float32 and the bf16 instances apart (the bf16
-    # entries' count, gated at 0 there)
+    # entries' count, gated at 0 there);
+    # launches_book: phase 24, counted from 0 -- K5 in (e) fit_a_line and
+    # (f)'s QAT step, K6 in (f)'s ModelAverage over Adam; the image models
+    # (a)-(c) launch none (gated at 0 there)
     for e in kernels:
         e["launches_trainer"] = trainer_launches[e["name"]]
         e["launches_profile"] = PHASE19["launches_profile"].get(e["name"], 0)
@@ -5387,6 +6034,7 @@ def _main(torch, build):
         e["launches_resnet"] = 0
         e["launches_passes"] = passes_launches[e["name"]]
         e["launches_health"] = health_launches.get(e["name"], 0)
+        e["launches_book"] = book_launches[e["name"]]
     k4["quantizers"]["launches_profile"] = {
         n: PHASE19["launches_profile"].get(n, 0) for n in ("abs_max_pair", "quantize_int8")}
     k4["quantizers"]["launches_reference_path"] = {
@@ -5403,7 +6051,7 @@ def _main(torch, build):
                  launches_profile=PHASE19["launches_profile_bf16"].get(name, 0),
                  launches_reference_path=ref_launches["b_bf16"].get(name, 0),
                  launches_cnn=0, launches_resnet=0, launches_passes=passes_bf16[name],
-                 launches_health=health_bf16.get(name, 0))
+                 launches_health=health_bf16.get(name, 0), launches_book=0)
         kernels.append(e)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -175,6 +175,13 @@ def register_grad_maker(op_type: str):
     return deco
 
 
+def mark_no_gradient(*op_types: str):
+    """Mark ``op_types`` as having no gradient, whether or not they have a
+    lowering yet (the JAX package's ``mark_no_gradient``)."""
+    for t in op_types:
+        OPS.get_or_create(t).no_gradient = True
+
+
 def default_grad_maker(op: OpDesc, block: BlockDesc, no_grad_set) -> List[OpDesc]:
     """One ``<type>_grad`` op with every forward input (under its slot),
     forward output (``__out__<slot>``) and output grad

@@ -10,16 +10,19 @@ from ..param_attr import ParamAttr
 # the names the JAX package's layers/nn.py exports, and the activations it
 # registers (the activation family, ``maxout``); the other builders here
 # (exp, abs, floor, elementwise_max, ...) are reached as layers.nn.<name>
-__all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm", "dropout",
+__all__ = ["fc", "embedding", "conv2d", "conv2d_transpose", "pool2d", "batch_norm", "layer_norm", "dropout",
            "softmax", "cross_entropy", "softmax_with_cross_entropy", "fused_fc_softmax_ce",
            "square_error_cost", "accuracy", "topk", "mean", "mul", "matmul",
            "elementwise_add", "elementwise_sub", "elementwise_mul", "elementwise_div",
            "reduce_sum", "reduce_mean", "reduce_max", "reduce_min", "reduce_prod", "relu",
            "sigmoid", "tanh", "reshape", "transpose", "concat", "split", "cast", "scale",
-           "clip", "clip_by_norm", "log", "sqrt", "square", "prelu", "maxout",
+           "clip", "clip_by_norm", "one_hot", "lrn", "log", "sqrt", "square", "prelu",
+           "flatten", "stack", "squeeze", "unsqueeze", "gather", "pad", "maxout",
            "hard_sigmoid", "leaky_relu", "soft_relu", "elu", "relu6", "pow", "swish",
            "gelu", "logsigmoid", "softplus", "softsign", "tanh_shrink", "softshrink",
-           "hard_shrink", "brelu", "stanh", "thresholded_relu", "mish", "silu", "exp_act"]
+           "hard_shrink", "brelu", "stanh", "thresholded_relu", "mish", "silu", "exp_act",
+           "fake_quantize_abs_max", "fake_quantize_range_abs_max", "fake_dequantize_max_abs",
+           "cos_sim"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -90,6 +93,26 @@ def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
         outputs={"Output": pre_bias},
         attrs={"strides": stride, "paddings": padding, "dilations": dilation,
                "groups": groups})
+    return helper.append_activation(_append_channel_bias(helper, pre_bias))
+
+
+def conv2d_transpose(input, num_filters, filter_size=None, output_size=None,
+                     stride=1, padding=0, dilation=1, param_attr=None,
+                     bias_attr=None, act=None, name=None):
+    """The transpose of ``conv2d`` with an (in, out, kh, kw) filter, a bias a
+    channel and ``act``; ``output_size`` is accepted and not used, as in
+    the JAX package."""
+    helper = LayerHelper("conv2d_transpose", input=input, param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    stride, padding, dilation, filter_size = (
+        [v, v] if isinstance(v, int) else v for v in (stride, padding, dilation, filter_size))
+    filter_shape = [input.shape[1], num_filters] + list(filter_size)
+    w = helper.create_parameter(helper.param_attr, shape=filter_shape, dtype=input.dtype)
+    pre_bias = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "conv2d_transpose", inputs={"Input": input, "Filter": w},
+        outputs={"Output": pre_bias},
+        attrs={"strides": stride, "paddings": padding, "dilations": dilation})
     return helper.append_activation(_append_channel_bias(helper, pre_bias))
 
 
@@ -195,6 +218,57 @@ def dropout(x, dropout_prob, is_test=False, seed=None,
                "seed": seed if seed is not None else 0,
                "dropout_implementation": dropout_implementation})
     return out
+
+
+def one_hot(input, depth, name=None):
+    helper = LayerHelper("one_hot", name=name)
+    out = helper.create_variable_for_type_inference("float32")
+    helper.append_op("one_hot", inputs={"X": input}, outputs={"Out": out},
+                     attrs={"depth": depth})
+    return out
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    """Local response normalization across channels (writes ``k``: 1.0
+    here, where the op's own default is 2.0)."""
+    helper = LayerHelper("lrn", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    mid = helper.create_variable_for_type_inference(input.dtype, True)
+    helper.append_op("lrn", inputs={"X": input}, outputs={"Out": out, "MidOut": mid},
+                     attrs={"n": n, "k": k, "alpha": alpha, "beta": beta})
+    return out
+
+
+def _shape_layer(op_type, x, attrs, name, in_slot="X", out_slot="Out", dtype=None, **inputs):
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(dtype or x.dtype)
+    helper.append_op(op_type, inputs={in_slot: x, **inputs}, outputs={out_slot: out},
+                     attrs=attrs)
+    return out
+
+
+def flatten(x, axis=1, name=None):
+    return _shape_layer("flatten", x, {"axis": axis}, name)
+
+
+def stack(x, axis=0, name=None):
+    return _shape_layer("stack", x, {"axis": axis}, name, out_slot="Y", dtype=x[0].dtype)
+
+
+def squeeze(input, axes, name=None):
+    return _shape_layer("squeeze", input, {"axes": axes}, name)
+
+
+def unsqueeze(input, axes, name=None):
+    return _shape_layer("unsqueeze", input, {"axes": axes}, name)
+
+
+def gather(input, index, name=None):
+    return _shape_layer("gather", input, None, name, Index=index)
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    return _shape_layer("pad", x, {"paddings": list(paddings), "pad_value": pad_value}, name)
 
 
 def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
@@ -488,4 +562,66 @@ def prelu(x, mode="all", param_attr=None, name=None):
     out = helper.create_variable_for_type_inference(x.dtype)
     helper.append_op("prelu", inputs={"X": x, "Alpha": alpha},
                      outputs={"Out": out}, attrs={"mode": mode})
+    return out
+
+
+def fake_quantize_abs_max(x, bit_length=8, name=None):
+    """Simulated-int quantization with the tensor's abs-max as its scale:
+    Out = round(X / max|X| * (2^(bit_length-1) - 1)).  Returns (out,
+    scale); differentiable through the straight-through estimator."""
+    helper = LayerHelper("fake_quantize_abs_max", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    scale = helper.create_variable_for_type_inference(x.dtype, True)
+    helper.append_op("fake_quantize_abs_max", inputs={"X": x},
+                     outputs={"Out": out, "OutScale": scale},
+                     attrs={"bit_length": int(bit_length)})
+    return out, scale
+
+
+def fake_quantize_range_abs_max(x, bit_length=8, window_size=10000, is_test=False, name=None):
+    """Quantization-aware training's quantizer: the scale is the largest
+    abs-max of the last ``window_size`` steps, held with the window and its
+    step counter in persistable vars that the op reads and writes (the
+    same vars on both sides).  Returns (out, scale)."""
+    from ..initializer import ConstantInitializer
+    helper = LayerHelper("fake_quantize_range_abs_max", name=name)
+    dtype = x.dtype
+    in_scale = helper.create_parameter(
+        ParamAttr(name=None, trainable=False), shape=[1], dtype=dtype,
+        default_initializer=ConstantInitializer(0.0))
+    scales_buf = helper.create_parameter(
+        ParamAttr(name=None, trainable=False), shape=[int(window_size)], dtype=dtype,
+        default_initializer=ConstantInitializer(0.0))
+    it = helper.create_parameter(
+        ParamAttr(name=None, trainable=False), shape=[], dtype="int32",
+        default_initializer=ConstantInitializer(0))
+    for v in (in_scale, scales_buf, it):
+        v.stop_gradient = True
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "fake_quantize_range_abs_max",
+        inputs={"X": x, "InScale": in_scale, "InScales": scales_buf, "Iter": it},
+        outputs={"Out": out, "OutScale": in_scale, "OutScales": scales_buf, "IterOut": it},
+        attrs={"bit_length": int(bit_length), "window_size": int(window_size),
+               "is_test": bool(is_test)})
+    return out, in_scale
+
+
+def fake_dequantize_max_abs(x, scale, max_range, name=None):
+    """The inverse of the quantizers: Out = scale * X / max_range."""
+    helper = LayerHelper("fake_dequantize_max_abs", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("fake_dequantize_max_abs", inputs={"X": x, "Scale": scale},
+                     outputs={"Out": out}, attrs={"max_range": float(max_range)})
+    return out
+
+
+def cos_sim(X, Y, name=None):
+    """Cosine similarity along the last axis, Y broadcast against X: [N, 1]."""
+    helper = LayerHelper("cos_sim", name=name)
+    out = helper.create_variable_for_type_inference(X.dtype)
+    xnorm = helper.create_variable_for_type_inference(X.dtype, True)
+    ynorm = helper.create_variable_for_type_inference(X.dtype, True)
+    helper.append_op("cos_sim", inputs={"X": X, "Y": Y},
+                     outputs={"Out": out, "XNorm": xnorm, "YNorm": ynorm})
     return out

@@ -8,8 +8,8 @@ from ..core.framework import default_main_program, default_startup_program
 from ..layer_helper import LayerHelper
 
 __all__ = ["data", "fill_constant", "fill_constant_batch_size_like", "create_tensor",
-           "create_global_var", "cast", "assign", "zeros", "ones", "zeros_like",
-           "increment"]
+           "create_global_var", "cast", "assign", "zeros", "ones", "argmax", "argmin",
+           "zeros_like", "increment", "expand", "assign_value"]
 
 
 def data(name, shape, dtype="float32", lod_level=0, append_batch_size=True,
@@ -104,4 +104,38 @@ def increment(x, value=1.0, in_place=True):
     out = x if in_place else helper.create_variable_for_type_inference(x.dtype)
     helper.append_op("increment", inputs={"X": x}, outputs={"Out": out},
                      attrs={"step": float(value)})
+    return out
+
+
+def _arg_reduce(op_type, x, axis):
+    from ..core.dtypes import DataType
+    helper = LayerHelper(op_type)
+    out = helper.create_variable_for_type_inference(DataType.INT64, True)
+    helper.append_op(op_type, inputs={"X": x}, outputs={"Out": out}, attrs={"axis": axis})
+    return out
+
+
+def argmax(x, axis=0):
+    return _arg_reduce("arg_max", x, axis)
+
+
+def argmin(x, axis=0):
+    return _arg_reduce("arg_min", x, axis)
+
+
+def expand(x, expand_times, name=None):
+    """X tiled ``expand_times`` times along each dim."""
+    helper = LayerHelper("expand", name=name)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op("expand", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"expand_times": list(expand_times)})
+    return out
+
+
+def assign_value(values, shape, dtype="float32", name=None):
+    """A constant tensor from literal values."""
+    helper = LayerHelper("assign_value", name=name)
+    out = helper.create_tmp_variable(dtype)
+    helper.append_op("assign_value", outputs={"Out": out},
+                     attrs={"values": list(values), "shape": list(shape), "dtype": dtype})
     return out

@@ -1,1 +1,1 @@
-from . import mnist, resnet, transformer, vgg  # noqa: F401
+from . import alexnet, googlenet, mnist, resnet, se_resnext, transformer, vgg  # noqa: F401

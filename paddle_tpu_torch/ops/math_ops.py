@@ -1,6 +1,7 @@
 """Math op lowerings: mul and matmul, the elementwise family with Fluid's
-broadcast, reductions, unary ops, comparisons, scale, clip and the
-norm ops the gradient clips use, and the ``sum`` multi-input add.  ``mul``
+broadcast, reductions, unary ops, comparisons, ``isfinite``, scale, clip,
+the norm ops the gradient clips use, ``cos_sim``, ``squared_l2_distance``
+and the ``sum`` multi-input add.  ``mul``
 and ``matmul`` are plain ``torch.matmul`` (cuBLAS on the card), as the JAX
 package left them to XLA outside any Pallas kernel; the int8 form of both
 is the kernel tier's ``pallas_int8_matmul`` (ops/kernel_ops.py).  Ops
@@ -103,6 +104,12 @@ _make_elementwise("elementwise_div", torch.div)
 _make_elementwise("elementwise_min", torch.minimum)
 _make_elementwise("elementwise_max", torch.maximum)
 _make_elementwise("elementwise_pow", torch.pow)
+# Python's modulus, with the divisor's sign (jnp.mod); torch.fmod would
+# take the dividend's
+_make_elementwise("elementwise_mod", torch.remainder)
+# floored (jnp.floor_divide); its gradient is zero, as JAX's
+_make_elementwise("elementwise_floordiv",
+                  lambda x, y: torch.div(x, y, rounding_mode="floor"))
 
 
 def _make_reduce(name, fn):
@@ -262,6 +269,45 @@ _make_compare("not_equal", torch.ne)
 _make_compare("logical_and", torch.logical_and)
 _make_compare("logical_or", torch.logical_or)
 _make_compare("logical_xor", torch.logical_xor)
+
+
+@register_lowering("isfinite", no_gradient=True)
+def _isfinite(ctx, op):
+    """One boolean: whether every entry of X is finite."""
+    ctx.write_slot(op, "Out", torch.isfinite(ctx.read_slot(op, "X")).all())
+
+
+@register_lowering("cos_sim")
+def _cos_sim(ctx, op):
+    """Cosine similarity along the last axis (Y broadcasts against X), with
+    the norms: Out = sum(x * y) / (|x| * |y| + 1e-12)."""
+    x = ctx.read_slot(op, "X")
+    y = ctx.read_slot(op, "Y")
+    xn = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
+    yn = torch.sqrt(torch.sum(y * y, dim=-1, keepdim=True))
+    ctx.write_slot(op, "Out", torch.sum(x * y, dim=-1, keepdim=True) / (xn * yn + 1e-12))
+    ctx.write_slot(op, "XNorm", xn)
+    ctx.write_slot(op, "YNorm", yn)
+
+
+@register_infer_shape("cos_sim")
+def _cos_sim_shape(block, op):
+    xs = in_shape(block, op, "X")
+    ys = in_shape(block, op, "Y")
+    dt = in_dtype(block, op, "X")
+    xkeep = tuple(xs[:-1]) + (1,) if xs else (1,)
+    ykeep = tuple(ys[:-1]) + (1,) if ys else (1,)
+    set_out_shape(block, op, "Out", xkeep, dt)
+    set_out_shape(block, op, "XNorm", xkeep, dt)
+    set_out_shape(block, op, "YNorm", ykeep, dt)
+
+
+@register_lowering("squared_l2_distance")
+def _squared_l2_distance(ctx, op):
+    """Out = sum((X - Y)^2) over the last axis, kept; ``sub_result`` = X - Y."""
+    d = ctx.read_slot(op, "X") - ctx.read_slot(op, "Y")
+    ctx.write_slot(op, "sub_result", d)
+    ctx.write_slot(op, "Out", torch.sum(d * d, dim=-1, keepdim=True))
 
 
 @register_lowering("squared_l2_norm")

@@ -1,8 +1,9 @@
-"""NN op lowerings: convolution, pooling, batch_norm, layer_norm, dropout,
-lookup_table, softmax and the cross-entropy losses.  ``lookup_table``
-gathers through the hand-written embedding kernels (ops/cuda/embedding.py):
-the gather forward, and the scatter-add as the gather's gradient.  The
-convolutions (cuDNN through ``F.conv2d``), pooling, ``batch_norm``,
+"""NN op lowerings: convolution and its transpose, pooling, batch_norm,
+layer_norm, lrn, dropout, lookup_table, softmax and the cross-entropy
+losses.  ``lookup_table`` gathers through the hand-written embedding
+kernels (ops/cuda/embedding.py): the gather forward, and the scatter-add
+as the gather's gradient.  The convolutions (cuDNN through ``F.conv2d``
+and ``F.conv_transpose2d``), pooling, ``batch_norm``, ``lrn``,
 ``softmax``, ``log_softmax``, ``cross_entropy`` and
 ``softmax_with_cross_entropy`` are plain PyTorch, as the JAX package
 computes them with XLA outside any Pallas kernel; the gradients go through
@@ -53,6 +54,18 @@ def _depthwise_conv2d(ctx, op):
     ctx.write_slot(op, "Output", F.conv2d(
         x, ctx.read_slot(op, "Filter"), stride=tuple(op.attr("strides", [1, 1])),
         padding=tuple(op.attr("paddings", [0, 0])), groups=x.shape[1]))
+
+
+@register_lowering("conv2d_transpose")
+def _conv2d_transpose(ctx, op):
+    """The gradient of a convolution with respect to its input: NCHW
+    input, filter (in, out, kh, kw), output (H - 1) * stride - 2 * pad +
+    dilation * (kh - 1) + 1.  As in the JAX lowering, ``groups`` and any
+    requested output size are not read."""
+    ctx.write_slot(op, "Output", F.conv_transpose2d(
+        ctx.read_slot(op, "Input"), ctx.read_slot(op, "Filter"),
+        stride=tuple(op.attr("strides", [1, 1])), padding=tuple(op.attr("paddings", [0, 0])),
+        dilation=tuple(op.attr("dilations", [1, 1]))))
 
 
 @register_lowering("pool2d")
@@ -264,6 +277,32 @@ def _layer_norm_shape(block, op):
     begin = op.attr("begin_norm_axis", 1)
     set_out_shape(block, op, "Mean", xs[:begin])
     set_out_shape(block, op, "Variance", xs[:begin])
+
+
+@register_lowering("lrn")
+def _lrn(ctx, op):
+    """Local response normalization across channels (NCHW): MidOut = k +
+    alpha * (the sum of x^2 over the ``n`` channels centred on each, zero
+    outside), Out = x / MidOut^beta.  ``k`` defaults to 2.0 when the attr
+    is absent (the lowering's default; ``layers.lrn`` writes 1.0).
+
+    Computed in X's dtype op by op, each result rounded to it, with the
+    scalars rounded to it first: the JAX lowering's weak-typed Python
+    floats take a bf16 array's dtype, and XLA rounds each bf16 op's float32
+    result (under ``enable_amp`` ``lrn`` follows its bf16 input)."""
+    x = ctx.read_slot(op, "X")
+    n = op.attr("n", 5)
+    k, alpha, beta = (float(torch.tensor(op.attr(a, d), dtype=x.dtype))
+                      for a, d in (("k", 2.0), ("alpha", 1e-4), ("beta", 0.75)))
+    half = n // 2
+    sq = F.pad(x * x, (0, 0, 0, 0, half, half))
+    acc = sum(sq[:, i:i + x.shape[1]] for i in range(n))
+    mid = k + alpha * acc
+    ctx.write_slot(op, "MidOut", mid)
+    ctx.write_slot(op, "Out", x / torch.pow(mid, beta))
+
+
+same_shape("lrn", out_slots=("Out", "MidOut"))
 
 
 def _dropout_draws(op) -> bool:

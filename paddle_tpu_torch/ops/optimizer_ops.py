@@ -17,8 +17,8 @@ the JAX package's ``sgd``.  ``adam`` computes the JAX package's composed
 launch says which.
 
 The other rules -- ``momentum`` (Nesterov too), ``lars_momentum``,
-``adamax``, ``adagrad``, ``decayed_adagrad``, ``adadelta``, ``rmsprop``
-and ``ftrl`` -- have no Pallas kernel in the JAX package (XLA computes
+``adamax``, ``adagrad``, ``decayed_adagrad``, ``adadelta``, ``rmsprop``,
+``ftrl``, ``proximal_gd`` and ``proximal_adagrad`` -- have no Pallas kernel in the JAX package (XLA computes
 them), so here they are PyTorch's multi-tensor ``torch._foreach_*`` ops:
 one pass over every tensor of the group a step per operation, each
 operation in the order the JAX lowering writes it.  A group shares its
@@ -26,6 +26,10 @@ attributes and its learning-rate var (part of the group key).
 
 An op lowered on its own is a group of one.  Gradients are dense:
 SelectedRows (sparse) gradients are not ported yet.
+
+``average_accumulates`` is ``ModelAverage``'s windowed parameter sum
+(optimizer.py): its counters stay int32 tensors and its branches are
+device-side selects, so a step's CUDA graph advances them on each replay.
 """
 from __future__ import annotations
 
@@ -284,6 +288,67 @@ def _ftrl(lr, ps, gs, slots, extra, at):
     torch._foreach_copy_(sq, new_sq)
 
 
+def _proximal(lrs, ps, gs, l1, l2):
+    """p' = sign(q) * max(|q| - lr * l1, 0) / (1 + lr * l2), q = p - lr * g,
+    per tensor, ``lrs[i]`` a 0-d rate or an elementwise one."""
+    for p, g, lr in zip(ps, gs, lrs):
+        prox = p - lr * g
+        p.copy_(torch.sign(prox) * torch.clamp_min(prox.abs() - lr * l1, 0.0)
+                / (1.0 + lr * l2))
+
+
+@_family("proximal_gd", (), ("l1", "l2"))
+def _proximal_gd(lr, ps, gs, slots, extra, at):
+    """Proximal gradient descent with L1 and L2 terms (the JAX lowering;
+    no optimizer class emits it)."""
+    _proximal([lr] * len(ps), ps, gs, at["l1"], at["l2"])
+
+
+@_family("proximal_adagrad", ("Moment",), ("l1", "l2"))
+def _proximal_adagrad(lr, ps, gs, slots, extra, at):
+    """m' = m + g * g; the proximal step with the rate lr / sqrt(m')."""
+    (ms,) = slots
+    torch._foreach_add_(ms, torch._foreach_mul(gs, gs))
+    _proximal([lr / torch.sqrt(m) for m in ms], ps, gs, at["l1"], at["l2"])
+
+
+SPILL_EVERY = 16384     # average_accumulates moves sum_1 into sum_2 this often
+
+
+@register_lowering("average_accumulates", no_gradient=True)
+def _average_accumulates(ctx, op):
+    """Three parameter sums: sum_1 adds the parameter each step and spills
+    into sum_2 every SPILL_EVERY updates; once num_accumulates reaches
+    ``min_average_window`` and min(``max_average_window``, num_updates *
+    ``average_window``), sum_1 + sum_2 move to sum_3 and the window
+    restarts (old_num_accumulates keeps its length).  The average is
+    (sum_1 + sum_2 + sum_3) / (num_accumulates + old_num_accumulates)."""
+    p, s1, s2, s3 = (ctx.read_slot(op, s) for s in ("param", "in_sum_1", "in_sum_2", "in_sum_3"))
+    num_acc, old_acc, num_upd = (ctx.read_slot(op, s).reshape(()) for s in (
+        "in_num_accumulates", "in_old_num_accumulates", "in_num_updates"))
+    rate = float(op.attr("average_window", 0.0))
+    max_w = int(op.attr("max_average_window", 10000))
+    min_w = int(op.attr("min_average_window", 10000))
+    num_upd = num_upd + 1
+    num_acc = num_acc + 1
+    s1 = s1 + p.to(s1.dtype)
+    spill = (num_upd % SPILL_EVERY) == 0
+    s2 = torch.where(spill, s2 + s1, s2)
+    s1 = torch.where(spill, 0.0, s1)
+    window = torch.clamp_max(num_upd.to(torch.float32) * rate, float(max_w))
+    shift = (num_acc >= min_w) & (num_acc.to(torch.float32) >= window)
+    s3 = torch.where(shift, s1 + s2, s3)
+    s1 = torch.where(shift, 0.0, s1)
+    s2 = torch.where(shift, 0.0, s2)
+    old_acc = torch.where(shift, num_acc, old_acc)
+    num_acc = torch.where(shift, 0, num_acc)
+    for slot, v in (("out_sum_1", s1), ("out_sum_2", s2), ("out_sum_3", s3)):
+        ctx.write_slot(op, slot, v)
+    for slot, v in (("out_num_accumulates", num_acc), ("out_old_num_accumulates", old_acc),
+                    ("out_num_updates", num_upd)):
+        ctx.write_slot(op, slot, v.reshape(1).to(torch.int32))
+
+
 def _optimizer_shape(op_type):
     """Each ``<Slot>Out`` has its ``<Slot>``'s shape and dtype."""
     @register_infer_shape(op_type)
@@ -296,5 +361,5 @@ def _optimizer_shape(op_type):
 
 
 for _t in ("sgd", "momentum", "lars_momentum", "adam", "adamax", "adagrad", "adadelta",
-           "decayed_adagrad", "ftrl", "rmsprop"):
+           "decayed_adagrad", "ftrl", "rmsprop", "proximal_gd", "proximal_adagrad"):
     _optimizer_shape(_t)

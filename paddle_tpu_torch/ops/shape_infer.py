@@ -169,7 +169,7 @@ def _squared_l2_distance_shape(block, op):
     x = in_shape(block, op, "X")
     y = in_shape(block, op, "Y")
     dt = in_dtype(block, op, "X")
-    sub = bcast_shape(x, y, -1)
+    sub = bcast_shape(x, y)
     set_out_shape(block, op, "sub_result", sub, dt)
     set_out_shape(block, op, "Out", tuple(sub[:-1]) + (1,), dt)
 

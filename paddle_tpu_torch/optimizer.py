@@ -6,18 +6,22 @@ learning rate (layers/learning_rate_scheduler.py) is a [1] var the step
 computes.  The update rules are the ops of ``ops/optimizer_ops.py``.
 Builds the same ops, vars and attrs as the JAX package's ``optimizer.py``:
 ``SGD``, ``Momentum``, ``LarsMomentum``, ``Adam``, ``Adamax``,
-``Adagrad``, ``DecayedAdagrad``, ``Adadelta``, ``RMSProp`` and ``Ftrl``.
-``ModelAverage`` is not ported yet (ROADMAP.md).
+``Adagrad``, ``DecayedAdagrad``, ``Adadelta``, ``RMSProp``, ``Ftrl`` and
+``ModelAverage``.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional, Tuple
+
+import torch
 
 from .backward import append_backward
 from .clip import append_gradient_clip_ops
 from .core import unique_name
 from .core.framework import (Block, Parameter, Program, Variable,
                              default_main_program, default_startup_program)
+from .core.scope import global_scope
 from .regularizer import append_regularization_ops
 
 
@@ -300,6 +304,78 @@ class FtrlOptimizer(Optimizer):
                        [("SquaredAccumulator", "SquaredAccumOut", "squared"),
                         ("LinearAccumulator", "LinearAccumOut", "linear")],
                        {"l1": self._l1, "l2": self._l2, "lr_power": self._lr_power})
+
+
+class ModelAverage(Optimizer):
+    """Sliding-window parameter averaging.  Appends one
+    ``average_accumulates`` op a trainable parameter to the current main
+    program (call it after ``minimize``); at evaluation::
+
+        with model_average.apply(exe):
+            ... run inference on the averaged parameters ...
+
+    puts each parameter's windowed average into the global scope's tensor
+    and the live values back on exit.  Both are copies into the scope's own
+    tensors (``copy_``), so a step's captured CUDA graph stays valid: no
+    tensor is rebound.
+    """
+
+    def __init__(self, average_window_rate, min_average_window=10000,
+                 max_average_window=10000, **kwargs):
+        super().__init__(0.0, **kwargs)
+        self.average_window = float(average_window_rate)
+        self.min_average_window = int(min_average_window)
+        self.max_average_window = int(max_average_window)
+        block = default_main_program().global_block
+        self.params = [p for p in block.all_parameters() if p.trainable]
+        self._suffixes = ("sum_1", "sum_2", "sum_3")
+        for param in self.params:
+            s1, s2, s3 = (self._add_accumulator(k, param) for k in self._suffixes)
+            na, oa, nu = (self._add_accumulator(k, param, shape=(1,), dtype="int32") for k in (
+                "num_accumulates", "old_num_accumulates", "num_updates"))
+            block.append_op(
+                "average_accumulates",
+                inputs={"param": param, "in_sum_1": s1, "in_sum_2": s2, "in_sum_3": s3,
+                        "in_num_accumulates": na, "in_old_num_accumulates": oa,
+                        "in_num_updates": nu},
+                outputs={"out_sum_1": s1, "out_sum_2": s2, "out_sum_3": s3,
+                         "out_num_accumulates": na, "out_old_num_accumulates": oa,
+                         "out_num_updates": nu},
+                attrs={"average_window": self.average_window,
+                       "min_average_window": self.min_average_window,
+                       "max_average_window": self.max_average_window,
+                       "op_role": "optimize"})
+
+    def _avg(self, scope, param):
+        """(sum_1 + sum_2 + sum_3) / max(num_accumulates +
+        old_num_accumulates, 1), summed and divided in float64 and rounded
+        once to float32, as the JAX package computes it on the host."""
+        accs = self._accumulators
+        total = sum(scope.find_var(accs[k][param.name].name).double() for k in self._suffixes)
+        n = sum(int(scope.find_var(accs[k][param.name].name).reshape(()))
+                for k in ("num_accumulates", "old_num_accumulates"))
+        return (total / max(n, 1)).to(torch.float32)
+
+    @contextlib.contextmanager
+    def apply(self, executor, need_restore=True):
+        """Each parameter's average copied into its tensor for the block;
+        the live values copied back after it unless ``need_restore`` is
+        False."""
+        scope = global_scope()
+        backup = {}
+        for p in self.params:
+            t = scope.find_var(p.name)
+            backup[p.name] = t.clone()
+            t.copy_(self._avg(scope, p))
+        try:
+            yield
+        finally:
+            if need_restore:
+                for p in self.params:
+                    scope.find_var(p.name).copy_(backup[p.name])
+
+    def restore(self, executor=None):
+        """No-op outside ``apply()`` (the JAX package's)."""
 
 
 SGD = SGDOptimizer

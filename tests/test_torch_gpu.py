@@ -2101,3 +2101,148 @@ def test_check_nan_inf_names_the_op_on_the_card(cuda):
     finally:
         FLAGS.check_nan_inf = False
     assert [e["kind"] for e in exe.cache_info()["entries"]] == ["graph"]
+
+
+# ------------------------------------------------------ the book models' slice
+
+def _book_ops_program():
+    """The slice's ops over seeded feeds: (program, feeds, exact fetches,
+    float fetches incl. the gradients)."""
+    rs = np.random.RandomState(19)
+    feeds = {"x": rs.randn(2, 8, 7, 7).astype(np.float32),
+             "w": rs.randn(8, 4, 3, 3).astype(np.float32) * 0.2,
+             "u": rs.randn(5, 6).astype(np.float32) * 3,
+             "v": (rs.rand(5, 6).astype(np.float32) + 0.5) * np.where(rs.rand(5, 6) < 0.5, -1, 1)
+             .astype(np.float32),
+             "idx": np.array([4, 0, -1, 2], np.int32), "ids": np.array([[1], [6], [-1]], np.int64)}
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        xs = {n: layers.data(name=n, shape=list(a.shape), dtype=str(a.dtype),
+                             append_batch_size=False, stop_gradient=a.dtype != np.float32)
+              for n, a in feeds.items()}
+        helper = pt.layer_helper.LayerHelper("book_ops")
+
+        def op(op_type, ins, attrs=None, dtype="float32", out="Out"):
+            o = helper.create_variable_for_type_inference(dtype)
+            helper.append_op(op_type, inputs=ins, outputs={out: o}, attrs=attrs or {})
+            return o
+        x, u, v = xs["x"], xs["u"], xs["v"]
+        exact = [layers.flatten(x, axis=2), layers.stack([u, v], axis=-1),
+                 layers.squeeze(layers.unsqueeze(u, axes=[1]), axes=[1]),
+                 layers.gather(u, xs["idx"]), layers.expand(u, [2, 1]),
+                 layers.pad(u, [0, 1, 2, 0], pad_value=-1.0), layers.one_hot(xs["ids"], depth=6),
+                 layers.argmax(u, axis=1), layers.argmin(u, axis=0),
+                 op("slice", {"Input": x}, {"axes": [1, 2], "starts": [1, -5], "ends": [50, -2]}),
+                 op("elementwise_mod", {"X": u, "Y": v}, {"axis": -1}),
+                 op("elementwise_floordiv", {"X": u, "Y": v}, {"axis": -1}),
+                 op("isfinite", {"X": u}, dtype="bool")]
+        floats = [layers.lrn(x, n=5, alpha=0.1, beta=0.75),
+                  op("conv2d_transpose", {"Input": x, "Filter": xs["w"]},
+                     {"strides": [2, 2], "paddings": [1, 1], "dilations": [1, 1]},
+                     out="Output"),
+                  layers.cos_sim(u, v)]
+        total = layers.reduce_sum(floats[0])
+        for t in floats[1:] + exact[1:6]:
+            total = layers.elementwise_add(total, layers.reduce_sum(t))
+        floats += pt.calc_gradient(total, [x, u, v, xs["w"]])
+    return main, feeds, exact, floats
+
+
+def test_the_book_slices_ops_on_the_card_match_the_cpu(cuda):
+    """Shape ops, gather, one_hot, the arg reductions, mod and floor
+    division, isfinite bit-equal to the CPU; lrn, conv2d_transpose, cos_sim
+    and the gradients within BOOK_RTOL of the largest value."""
+    main, feeds, exact, floats = _book_ops_program()
+    fetch = exact + floats
+    got = pt.Executor().run(main, feed=feeds, fetch_list=fetch, scope=pt.Scope())
+    ref = pt.Executor(pt.CPUPlace()).run(main, feed=feeds, fetch_list=fetch, scope=pt.Scope())
+    for i, (a, b) in enumerate(zip(got, ref)):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.shape == b.shape and a.dtype == b.dtype, fetch[i].name
+        if i < len(exact):
+            np.testing.assert_array_equal(a, b, err_msg=fetch[i].name)
+        else:
+            np.testing.assert_allclose(a, b, rtol=0, atol=BOOK_RTOL * np.abs(b).max(),
+                                       err_msg=fetch[i].name)
+
+
+BOOK_RTOL = 1e-5   # float32 card vs CPU, TF32 off
+
+
+def test_model_average_apply_in_a_captured_step_keeps_its_graph(cuda):
+    """ModelAverage over an Adam step replayed as one graph: K6 once a
+    replay with ``average_accumulates`` inside the graph (num_updates
+    counts the replays), ``apply()`` within 1e-6 of the float64 window
+    mean of the parameters after each step, every tensor at its address,
+    no new capture, and the next replay bit-equal to one without apply."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        x = layers.data(name="x", shape=[13])
+        y = layers.data(name="y", shape=[1])
+        h = layers.fc(input=x, size=16, act="relu")
+        loss = layers.mean(layers.square_error_cost(input=layers.fc(input=h, size=1), label=y))
+        pt.optimizer.Adam(learning_rate=0.01).minimize(loss)
+        ma = pt.optimizer.ModelAverage(1.0, min_average_window=0, max_average_window=10000)
+    scope, exe = pt.Scope(), pt.Executor()
+    exe.run(startup, scope=scope)
+    xs, ys = pt.dataset.uci_housing._synthetic(32, seed=0)
+    feed = {"x": xs, "y": ys}
+    k6 = fused_adam.launches
+    snaps = {p.name: [] for p in ma.params}
+    for _ in range(5):
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        for p in ma.params:
+            snaps[p.name].append(scope.find_var(p.name).double().cpu())
+    assert fused_adam.launches - k6 == 5 + 1 and exe.cache_info()["captures"] == 1
+    assert {int(scope.find_var(v.name).cpu()[0])
+            for v in ma._accumulators["num_updates"].values()} == {5}
+    persist = [v.name for v in main.list_vars() if v.persistable]
+    ptrs = {n: scope.find_var(n).data_ptr() for n in persist}
+    state0 = {n: scope.find_var(n).clone() for n in persist}
+    with pt.scope_guard(scope):
+        with ma.apply(exe):
+            for p in ma.params:
+                want = torch.stack(snaps[p.name]).mean(0)
+                got = scope.find_var(p.name).double().cpu()
+                assert (got - want).abs().max() <= 1e-6 * want.abs().max(), p.name
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    after = {n: scope.find_var(n).clone() for n in persist}
+    for n, t in state0.items():
+        scope.find_var(n).copy_(t)
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    assert all(torch.equal(scope.find_var(n), after[n]) for n in persist)
+    assert exe.cache_info()["captures"] == 1
+    assert {n: scope.find_var(n).data_ptr() for n in persist} == ptrs
+
+
+def test_the_range_quantizer_advances_inside_the_graph(cuda):
+    """A QAT step (range quantizer, window 3, on an fc output; SGD)
+    replayed on the card against the CPU from the same parameters: Iter
+    and the window advance inside the graph (4 replays), the window within
+    BOOK_RTOL of the CPU's, one capture."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        x = layers.data(name="x", shape=[13])
+        y = layers.data(name="y", shape=[1])
+        q, s = layers.fake_quantize_range_abs_max(layers.fc(input=x, size=8), window_size=3)
+        pred = layers.fc(input=layers.fake_dequantize_max_abs(q, s, max_range=127.0), size=1)
+        loss = layers.mean(layers.square_error_cost(input=pred, label=y))
+        pt.optimizer.SGD(learning_rate=0.05).minimize(loss)
+    (op,) = [o for o in main.desc.block(0).ops if o.type == "fake_quantize_range_abs_max"]
+    buf, it = op.input("InScales")[0], op.input("Iter")[0]
+    cpu_scope, gpu_scope = pt.Scope(), pt.Scope()
+    cpu, gpu = pt.Executor(pt.CPUPlace()), pt.Executor()
+    cpu.run(startup, scope=cpu_scope)
+    gpu.run(startup, scope=gpu_scope)
+    for v in main.list_vars():
+        if v.persistable:
+            gpu_scope.find_var(v.name).copy_(cpu_scope.find_var(v.name))
+    for step in range(4):
+        xs, ys = pt.dataset.uci_housing._synthetic(16, seed=step)
+        feed = {"x": xs * (1 + step), "y": ys}
+        gpu.run(main, feed=feed, fetch_list=[loss], scope=gpu_scope)
+        cpu.run(main, feed=feed, fetch_list=[loss], scope=cpu_scope)
+        a, b = gpu_scope.find_var(buf).cpu(), cpu_scope.find_var(buf)
+        assert (a - b).abs().max() <= BOOK_RTOL * b.abs().max(), step
+        assert int(gpu_scope.find_var(it).cpu()) == step + 1
+    assert gpu.cache_info()["captures"] == 1
