@@ -120,8 +120,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
     (and, as ``launches_trainer``, in phase 18's pipelined Trainer run and
     its bf16 Trainer, counted alone, as ``launches_profile`` under
     phase 19's op profiles, as ``launches_health`` phase 23's launches
-    a step, and as ``launches_book`` phase 24's),
-    error against its plain version, times, and bound; K4's entry lists
+    a step, as ``launches_book`` phase 24's, and as ``launches_lstm``,
+    ``launches_imdb_trainer`` and ``launches_seq_models`` phase 25's (a),
+    (b) and (c)),
+    error against its plain version (``max_abs_err_lstm``: phase 25 (a)'s
+    check at the LSTM step's shapes, in ``max_abs_err`` too), times, and
+    bound; K4's entry lists
     its quantize kernels under ``quantizers``, K7's and K8's both of their
     bounds (float32 on the CUDA cores, and three TF32 products), K3's times
     those of the padded word table; the bf16 instances of K1, K3 and K7 as
@@ -336,6 +340,39 @@ Phases, each fatal on failure (non-zero exit, no result line):
     each new op on the card against the CPU: bit-equal where the maths is
     exact, else within ``BOOK_OP_RTOL`` (``launches_book`` on the kernels
     line: K5 and K6 on (e) and (f)).
+25. sequences and recurrent nets (``phase_sequences``): (a) bench.py's
+    LSTM row (``bench_lstm``: ``stacked_lstm.train_network`` at batch 64,
+    seq 80, dict 30,000, emb 128, hidden 256, ``stacked_num=2``,
+    ``Adam(0.002)``, ``enable_amp``; lengths in [40, 80] on the card),
+    each step one CUDA graph replay: the program's ops and casts; one
+    step op by op from the same state in bf16 and in its float32 twin
+    (TF32 off), the loss and the gradients against the twin's within
+    stated bf16 gates; K2, the bf16 K3 and K6 at the step's shapes (its
+    table and ids, its 11 updates from that step's state and gradients)
+    bit-equal to their plain versions; the capture's seconds, ms/batch
+    over 6 replays with their spread beside the reference's K40m 83 ms as
+    bench.py states it, peak memory, losses finite and falling, launches a
+    replay K2 1, K3 1 (its bf16 instance: the grad of the table's bf16
+    copy; the float32 K3 0) and K6 1 (over the 11 parameters), a 2-replay
+    profile (the device idle share, device operations a step; K2, K3 and
+    K6 in both replays), a replay bit-equal to an op-by-op step from the
+    same state (loss and all 56 state tensors), the device ms by op type
+    of an eager step (its trace showing K2, K3 and K6), and the float32
+    twin's replays from the same state and feed: its ms/batch and its
+    first loss within the bf16 gate of the bf16 step's; (b) the same net
+    in bf16 through ``Trainer(amp=AmpConfig())`` on the synthetic imdb
+    reader (its 5,148-word dict; reviews sorted by length, 3 batches of
+    64 for each pow2 bucket 16, 32, 64): the first step's loss against
+    one op-by-op step of the Trainer's program on the same padded batch
+    from the same state, one capture a bucket, then a warm epoch of
+    replays (K2, the bf16 K3, K6 once a step), real and padded tokens/s; (c)
+    machine translation's ``train_network`` (``dynamic_gru`` encoder and
+    decoder, ``sequence_pool`` last and sum, ``sequence_length``) and the
+    sentiment convolution net (``nets.sequence_conv_pool`` x 2,
+    ``Adagrad``), one float32 step on the card and on the CPU from the same
+    state, each against the port on the CPU in float64, then 3 replays
+    with the losses falling (``launches_seq_models``: K2, K3 on both, K6
+    on machine translation; no bf16 instance).
 
 Phase 9 also takes the 2 x 256 step in bf16 (``enable_amp``) with cuBLAS's
 reduced-precision bf16 reductions allowed (PyTorch's default) and not, and
@@ -460,6 +497,9 @@ PHASE7 = {}
 
 # the primer's kernels (``torch.cuda._sleep``), left out of every profile
 PRIMER = "spin_kernel"
+# the ``record_function`` range around the measured work of a window that
+# runs a warm-up first (``_profile(warm=)``, ``_device_trace_step(warm=)``)
+MEASURED = "chip_smoke_measured"
 
 
 def _profiler_started(torch):
@@ -715,25 +755,44 @@ def _family(name):
 OTHER = "other (elementwise, layer_norm, copies)"
 
 
-def _profile(torch, run, label, card, extra):
+def _profile(torch, run, label, card, extra, warm=None):
     """torch.profiler's device activities during ``run()`` by kernel
     family, their union as the device's busy time, and its share of the
     host wall clock around ``run`` and the wait for the card to finish it
     (a window closed before the card had finished was seen to lose a
-    step's last kernels: the weight gradients' scatter and the update)."""
+    step's last kernels: the weight gradients' scatter and the update).
+    With ``warm``, that call runs first in the window, behind the primer
+    (a whole-script run was seen to lose a replayed step's first records
+    there: its feed copies and K2), and only the device records inside
+    ``run``'s range are counted; ``warm_records`` counts the warm-up's."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _profiler_started(torch)
+        if warm is not None:
+            warm()
+            torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
+        with record_function(MEASURED) if warm is not None else contextlib.nullcontext():
+            run()
+            torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         _profiler_ending(torch)
-    dev = [(e.name(), e.start_ns(), e.duration_ns()) for e in prof.profiler.kineto_results.events()
-           if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0
-           and PRIMER not in e.name()]
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0
+              and PRIMER not in e.name()]
+    warm_n = None
+    if warm is not None:
+        spans = [(e.start_ns(), e.end_ns()) for e in events
+                 if e.is_user_annotation() and e.name() == MEASURED]
+        if len(spans) != 1:
+            raise AssertionError(f"{label}: {len(spans)} device ranges of the measured run")
+        ((lo, hi),) = spans
+        events = [e for e in events if not e.is_user_annotation()]
+        warm_n = sum(1 for e in events if e.start_ns() < lo)
+        events = [e for e in events if lo <= e.start_ns() <= hi]
+    dev = [(e.name(), e.start_ns(), e.duration_ns()) for e in events]
     if not dev:
         print(f"{label}: torch.profiler recorded no device activity (not measured) [{card}]")
         return None
@@ -757,6 +816,8 @@ def _profile(torch, run, label, card, extra):
            "device_idle_share": 1.0 - busy_ms / wall_ms, "by_family_ms": fam,
            "by_family_launches": fam_n, "bf16_named_launches": bf16_n,
            "top": [[n[:80], ms, c] for n, (ms, c) in top]}
+    if warm_n is not None:
+        rec["warm_records"] = warm_n
     print(json.dumps({label: rec}))
     return rec
 
@@ -3442,7 +3503,7 @@ def _device_ms_by_op(events, by_index=False):
 
 def _device_trace_step(torch, exe, main, feed, loss, scope, label, card,
                        need=("flash_attn_fwd (K1)", "linear_ce_fwd (K7)", "linear_ce_bwd (K8)"),
-                       by_index=None):
+                       by_index=None, warm=False):
     """Phase 19 (f), inside phases 7 and 14: ``profiler.device_trace``
     (default directory: ``$PADDLE_TPU_TELEMETRY_DIR/xplane``) around one
     eager step (``_run_eager``, which commits the step): the exported trace
@@ -3450,14 +3511,46 @@ def _device_trace_step(torch, exe, main, feed, loss, scope, label, card,
     ranges.  Prints the step's device time by op type, and of it the
     kernels outside cuBLAS and the hand-written ones ("other") by op type:
     the same kernels a replay of the step's graph launches.  A dict given
-    as ``by_index`` is filled with the device ms by ``"<idx>:<type>"``."""
+    as ``by_index`` is filled with the device ms by ``"<idx>:<type>"``.
+    With ``warm``, a first eager step runs in the window, behind the
+    primer, and only the kernels inside the second step's range count
+    (see ``_profile``)."""
     import re
     import paddle_tpu_torch as pt
     with _telemetry_on():
         with pt.profiler.device_trace() as dt:
-            exe._run_eager(main, feed, [loss], scope)
+            # the primer's spin kernels first (a window was seen to lose its
+            # first records: the LSTM step's gather, its first kernel) and
+            # its tail last; the counts and times leave them out
+            _profiler_started(torch)
+            if warm:
+                exe._run_eager(main, feed, [loss], scope)
+                torch.cuda.synchronize()
+            with torch.profiler.record_function(MEASURED) if warm else contextlib.nullcontext():
+                exe._run_eager(main, feed, [loss], scope)
+                torch.cuda.synchronize()
+            _profiler_ending(torch)
     with open(dt.path) as f:
-        events = json.load(f)["traceEvents"]
+        events = [e for e in json.load(f)["traceEvents"]
+                  if not (e.get("cat") == "kernel" and PRIMER in str(e.get("name", "")))]
+    warm_n = None
+    if warm:
+        # the host's range of the measured step, and each kernel's launch
+        # (the runtime call of its correlation id) on the host's clock: the
+        # device-side range holds only the kernels no op range encloses
+        spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("cat") == "user_annotation" and e.get("name") == MEASURED]
+        if len(spans) != 1:
+            raise AssertionError(f"{label}: {len(spans)} host ranges of the measured step")
+        ((lo, hi),) = spans
+        launched = {e["args"]["correlation"]: e["ts"] for e in events
+                    if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                    and "correlation" in e.get("args", {})}
+
+        def at(e):
+            return launched.get(e.get("args", {}).get("correlation"), -1.0)
+        warm_n = sum(1 for e in events if e.get("cat") == "kernel" and at(e) < lo)
+        events = [e for e in events if e.get("cat") != "kernel" or lo <= at(e) <= hi]
     kernels, ranges = {}, set()
     for e in events:
         name = str(e.get("name", ""))
@@ -3475,10 +3568,13 @@ def _device_trace_step(torch, exe, main, feed, loss, scope, label, card,
            "device_ms_by_op_type": dict(sorted(by_type.items(), key=lambda kv: -kv[1])),
            "other_kernels_ms_by_op_type": dict(sorted(other.items(), key=lambda kv: -kv[1])),
            "device_ms": sum(by_type.values()), "other_kernels_ms": sum(other.values())}
+    if warm:
+        rec["warm_kernels"] = warm_n
     print(f"{label}: device_trace of an eager step -> "
           f"{os.path.relpath(dt.path, PHASE19['dir'])} ({rec['trace_mib']:.1f} MiB): kernels by "
           f"family {kernels}; {len(ranges)} op ranges, e.g. {sorted(ranges)[:3]}; device "
-          f"{rec['device_ms']:.2f} ms, of it other kernels {rec['other_kernels_ms']:.2f} ms [{card}]")
+          f"{rec['device_ms']:.2f} ms, of it other kernels {rec['other_kernels_ms']:.2f} ms"
+          + (f" (behind a warm-up step of {warm_n} kernels)" if warm else "") + f" [{card}]")
     print(json.dumps({f"device_by_op_{label.replace(' ', '_')}": rec}))
     if any(not kernels.get(k) for k in need) or not ranges:
         raise AssertionError(f"{label}: the device trace lacks {need} kernels or op ranges")
@@ -4320,11 +4416,13 @@ def _state_names(main, scope):
     return persist, stats, velocities
 
 
-def _state_vs_eager(torch, exe, main, feed, fetch, scope, persist, kinds, label, card, key=None):
-    """Phase 21 (c): a replayed step against an op-by-op step from the same
-    state, printed by kind of state tensor; the loss must be bit-equal.
-    Returns the state tensors that differ and the largest difference.  With
-    ``key``, the op-by-op step is phase 22's measured run of the step."""
+def _state_vs_eager(torch, exe, main, feed, fetch, scope, persist, kinds, label, card, key=None,
+                    phase="phase 21 (c)"):
+    """Phase 21 (c) (and 25 (a)): a replayed step against an op-by-op step
+    from the same state, printed by kind of state tensor; the loss must be
+    bit-equal.  Returns the state tensors that differ and the largest
+    difference.  With ``key``, the op-by-op step is phase 22's measured run
+    of the step."""
     state0 = {n: scope.find_var(n).clone() for n in persist}
     g_out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
     after = {n: scope.find_var(n).clone() for n in persist}
@@ -4339,7 +4437,7 @@ def _state_vs_eager(torch, exe, main, feed, fetch, scope, persist, kinds, label,
               for n in persist if not torch.equal(after[n], scope.find_var(n))}
     fetch_equal = all(np.array_equal(a, b) for a, b in zip(g_out, e_out))
     g_loss, e_loss = float(np.asarray(g_out[0])), float(np.asarray(e_out[0]))
-    print(f"phase 21 (c) {label}: a replay against an op-by-op step from the same state: loss "
+    print(f"{phase} {label}: a replay against an op-by-op step from the same state: loss "
           f"{g_loss!r} / {e_loss!r}; " + "; ".join(
               f"{k} bit-equal {sum(n not in differ for n in ns)} of {len(ns)}"
               for k, ns in kinds.items())
@@ -4347,7 +4445,7 @@ def _state_vs_eager(torch, exe, main, feed, fetch, scope, persist, kinds, label,
           + (f"; largest differences {sorted(differ.items(), key=lambda kv: -kv[1])[:4]}"
              if differ else "") + f" [{card}]")
     if g_loss != e_loss:
-        raise AssertionError(f"phase 21 (c) {label}: the replay's loss {g_loss!r} differs from "
+        raise AssertionError(f"{phase} {label}: the replay's loss {g_loss!r} differs from "
                              f"the op-by-op step's {e_loss!r}")
     return {"differ": len(differ), "state": len(persist), "fetch_equal": fetch_equal,
             "max_abs": max(differ.values()) if differ else 0.0}
@@ -5374,6 +5472,18 @@ def _book_feed(torch, rows, hw, classes, seed, device="cuda"):
     return {"image": torch.from_numpy(image).to(device), "label": torch.from_numpy(label).to(device)}
 
 
+def _timed_replays(exe, main, feed, fetch, scope, n):
+    """``n`` runs of ``main`` (replays of its graph once captured): the
+    first fetch of each as a float, and each run's wall seconds."""
+    losses, step_s = [], []
+    for _ in range(n):
+        t1 = time.perf_counter()
+        lv = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)[0]
+        step_s.append(time.perf_counter() - t1)
+        losses.append(float(np.asarray(lv)))
+    return losses, step_s
+
+
 def _book_cell(torch, pt, card, counters, name):
     """Phase 24 (a)-(c): bench.py's row for ``name`` at batch 128, one CUDA
     graph replay a step.  Returns its readings and the trained executor,
@@ -5400,12 +5510,7 @@ def _book_cell(torch, pt, card, counters, name):
         f.launches = 0
     torch.cuda.reset_peak_memory_stats()
     info = exe.precompile(main, feed=feed, fetch_list=fetch, scope=scope)
-    losses, step_s = [], []
-    for _ in range(BOOK_REPLAYS):
-        t1 = time.perf_counter()
-        lv, _ = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
-        step_s.append(time.perf_counter() - t1)
-        losses.append(float(np.asarray(lv)))
+    losses, step_s = _timed_replays(exe, main, feed, fetch, scope, BOOK_REPLAYS)
     peak = torch.cuda.max_memory_allocated()
     launches = _launch_snapshot(counters)
     entries = [e for e in exe.cache_info()["entries"] if "image" in e["feeds"]]
@@ -5513,6 +5618,56 @@ def _grad_vector(outs):
     return np.concatenate([np.asarray(a, np.float64).ravel() for a in outs])
 
 
+def _card_cpu_witness(torch, pt, main, startup, feed, fetch, witness=None):
+    """One float32 step of ``main`` on the card and on the CPU from the CPU
+    startup's state.  With ``witness`` (a tuple of feed names), also the
+    witness: the same step on the CPU in float64 from the same state, the
+    feeds ``witness`` names read from its scope as float64 (a feed is
+    narrowed to float32).  Returns the card's, the CPU's and the witness's
+    fetches (None without one), and the card's executor and scope."""
+    cpu_scope, cpu = pt.Scope(), pt.Executor(pt.CPUPlace())
+    cpu.run(startup, scope=cpu_scope)
+    persist = [v.name for v in main.list_vars()
+               if v.persistable and cpu_scope.find_var(v.name) is not None]
+    state = {n: cpu_scope.find_var(n).numpy().copy() for n in persist}
+    card_scope, card_exe = pt.Scope(), pt.Executor(pt.CUDAPlace(0))
+    card_exe.run(startup, scope=card_scope)
+    for n, a in state.items():
+        card_scope.find_var(n).copy_(torch.from_numpy(a))
+    got = card_exe.run(main, feed=feed, fetch_list=fetch, scope=card_scope)
+    ref = cpu.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+    wit = None
+    if witness is not None:
+        w_scope = pt.Scope()
+        pt.params_from_numpy({n: a.astype(np.float64) if a.dtype == np.float32 else a
+                              for n, a in state.items()}, w_scope, "cpu")
+        for n in witness:
+            w_scope.set_var(n, torch.from_numpy(feed[n].astype(np.float64)))
+        wit = pt.Executor(pt.CPUPlace()).run(
+            main, feed={k: v for k, v in feed.items() if k not in witness}, fetch_list=fetch,
+            scope=w_scope)
+    return got, ref, wit, card_exe, card_scope
+
+
+def _witness_gate(got, ref, wit):
+    """The card's and the float32 CPU's gradients (fetches 1 on), as one
+    vector, norm-relative to the witness's; the card's at most
+    BOOK_WITNESS_FACTOR x the CPU's + BOOK_WITNESS_FLOOR.  Returns the
+    readings and whether they pass."""
+    w = _grad_vector(wit[1:])
+    gv = {k: float(np.linalg.norm(_grad_vector(g[1:]) - w) / np.linalg.norm(w))
+          for k, g in (("card", got), ("cpu_float32", ref))}
+    dtype = str(np.asarray(wit[1]).dtype)
+    ok = dtype == "float64" and \
+        gv["card"] <= BOOK_WITNESS_FACTOR * gv["cpu_float32"] + BOOK_WITNESS_FLOOR
+    return {"witness_dtype": dtype, "grads_vs_float64": gv}, ok
+
+
+def _witness_text(gv):
+    return (f"against float64: card {gv['card']:.3e}, CPU float32 {gv['cpu_float32']:.3e} "
+            f"(gate {BOOK_WITNESS_FACTOR} x CPU + {BOOK_WITNESS_FLOOR})")
+
+
 def _book_card_vs_cpu(torch, pt, card):
     """Phase 24 (d): one float32 step of each model at a small image size on
     the card and on the CPU from the same parameters; SE-ResNeXt's also
@@ -5526,49 +5681,28 @@ def _book_card_vs_cpu(torch, pt, card):
                   if main.desc.block(0).find_var(p.name + "@GRAD") is not None]
         fetch = [loss.name] + [p + "@GRAD" for p in params]
         feed = _book_feed(torch, rows, hw, classes, seed=5, device="cpu")
-        cpu_scope, cpu = pt.Scope(), pt.Executor(pt.CPUPlace())
-        cpu.run(startup, scope=cpu_scope)
-        persist = [v.name for v in main.list_vars()
-                   if v.persistable and cpu_scope.find_var(v.name) is not None]
-        state = {n: cpu_scope.find_var(n).numpy().copy() for n in persist}
-        card_scope, card_exe = pt.Scope(), pt.Executor(pt.CUDAPlace(0))
-        card_exe.run(startup, scope=card_scope)
-        for n, a in state.items():
-            card_scope.find_var(n).copy_(torch.from_numpy(a))
-        got = card_exe.run(main, feed=feed, fetch_list=fetch, scope=card_scope)
-        ref = cpu.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+        got, ref, wit, card_exe, card_scope = _card_cpu_witness(
+            torch, pt, main, startup, feed, fetch,
+            witness=("image",) if name == "se_resnext" else None)
         g_card, g_cpu = _grad_vector(got[1:]), _grad_vector(ref[1:])
         loss_rel = abs(float(got[0]) - float(ref[0])) / abs(float(ref[0]))
         r = {"image": [rows, 3, hw, hw], "losses": [float(got[0]), float(ref[0])],
              "loss_rel": loss_rel,
              "grads_card_vs_cpu": float(np.linalg.norm(g_card - g_cpu) / np.linalg.norm(g_cpu))}
         ok = loss_rel <= BOOK_LOSS_RTOL
-        if name == "se_resnext":
-            # the witness: float64 state, the image read from the scope (a
-            # feed is narrowed to float32)
-            w_scope = pt.Scope()
-            pt.params_from_numpy({n: a.astype(np.float64) if a.dtype == np.float32 else a
-                                  for n, a in state.items()}, w_scope, "cpu")
-            w_scope.set_var("image", torch.from_numpy(feed["image"].astype(np.float64)))
-            wit = pt.Executor(pt.CPUPlace()).run(main, feed={"label": feed["label"]},
-                                                 fetch_list=fetch, scope=w_scope)
-            w = _grad_vector(wit[1:])
+        if wit is not None:
             r["losses"].append(float(wit[0]))
-            r["witness_dtype"] = str(np.asarray(wit[1]).dtype)
-            r["grads_vs_float64"] = {k: float(np.linalg.norm(g - w) / np.linalg.norm(w))
-                                     for k, g in (("card", g_card), ("cpu_float32", g_cpu))}
-            ok = ok and r["witness_dtype"] == "float64" and r["grads_vs_float64"]["card"] <= \
-                BOOK_WITNESS_FACTOR * r["grads_vs_float64"]["cpu_float32"] + BOOK_WITNESS_FLOOR
-            gate = (f"against float64: card {r['grads_vs_float64']['card']:.3e}, CPU float32 "
-                    f"{r['grads_vs_float64']['cpu_float32']:.3e} (gate {BOOK_WITNESS_FACTOR} x "
-                    f"CPU + {BOOK_WITNESS_FLOOR})")
+            w_rec, w_ok = _witness_gate(got, ref, wit)
+            r.update(w_rec)
+            ok = ok and w_ok
+            gate = _witness_text(r["grads_vs_float64"])
         else:
             ok = ok and r["grads_card_vs_cpu"] <= BOOK_CARD_VS_CPU_NREL
             gate = f"gate {BOOK_CARD_VS_CPU_NREL}"
         r["seconds"] = time.perf_counter() - t0
         res[name] = r
         print(f"phase 24 (d) {name} {rows} x 3 x {hw} x {hw}, one float32 step: losses card / CPU"
-              f"{' / float64' if name == 'se_resnext' else ''} {r['losses']} ({loss_rel:.2e}, gate "
+              f"{' / float64' if wit is not None else ''} {r['losses']} ({loss_rel:.2e}, gate "
               f"{BOOK_LOSS_RTOL}); {len(params)} gradients as one vector, card against CPU "
               f"{r['grads_card_vs_cpu']:.3e}, {gate}; {r['seconds']:.1f} s [{card}]")
         if not ok:
@@ -5887,6 +6021,553 @@ def phase_book(torch, card):
     return launches
 
 
+# bench.py's LSTM row (bench_lstm on the accelerator, bench.py:1510-1539):
+# stacked_lstm.train_network at batch 64, seq 80, dict 30,000, emb 128,
+# hidden 256, stacked_num=2, Adam(0.002), enable_amp; lengths in [40, 80]
+LSTM_B, LSTM_T, LSTM_DICT, LSTM_EMB, LSTM_HID, LSTM_STACK = 64, 80, 30000, 128, 256, 2
+LSTM_LR = 0.002
+LSTM_REPLAYS = 6
+LSTM_PROFILE_STEPS = 2
+K40M_LSTM_MS = 83.0          # bench.py:1511, BASELINE.md's LSTM row
+# the step's op types (tests/test_torch_lstm_models.py): 47 ops, 78 after
+# amp-bf16 (31 casts); on the card the kernel tier retypes the table's
+# gather and scatter (K2, K3) and 5 of the 11 updates (all 11 in one K6)
+LSTM_OPS = (47, 78, 31)
+LSTM_PER_STEP = {"gather_rows": 1, "scatter_add_rows": 1, "fused_adam": 1}
+# of those, the bf16 instances: the table's gradient is scattered into its
+# bf16 copy, so the float32 K3 runs 0 times a step
+LSTM_BF16_PER_STEP = {"scatter_add_rows": 1}
+# (a)'s kernels at the step's shapes, before its replays: K2 on the [30000,
+# 128] float32 table at the feed's 5,120 ids, bit-equal to its plain version
+# and to F.embedding; the bf16 K3 into the table's bf16 copy at those ids
+# (its rows seeded bf16 values), bit-equal to its plain version run on the
+# CPU (float32 index_add_ in ascending n, then bf16 once; on the card
+# index_add_ adds by atomics); K6 over the step's 11 updates in their op
+# types, from the first step's state and gradients, bit-equal to the plain
+# versions.
+# (a)'s bf16 step against its float32 twin, one step op by op from the
+# same state and feed: the loss within LSTM_BF16_LOSS_RTOL
+# (tests/test_torch_lstm_models.py's BF16_LOSS_RTOL); the 11 gradients as
+# one vector at most BF16_STEP_GLOBAL_NREL norm-relative (phase 14's gate);
+# each gradient's norm within LSTM_BF16_GRAD_NORM_RTOL of the float32 one's
+LSTM_BF16_LOSS_RTOL = 1e-3
+LSTM_BF16_GRAD_NORM_RTOL = 0.1
+# (b): the Trainer's first step against one op-by-op step of its program
+# on the same padded batch from the Trainer's initial state
+LSTM_TRAINER_LOSS_RTOL = 1e-6
+# (b): the Trainer on the synthetic imdb reader (its 5,148-word dict), the
+# samples sorted by length and cut into batches of 64, LSTM_TRAINER_STEPS
+# batches for each pow2 bucket of their longest review (8-63 words)
+LSTM_TRAINER_BUCKETS = (16, 32, 64)
+LSTM_TRAINER_STEPS = 3
+# (c): machine translation's train_network (the JAX package's widths, word
+# and hidden 32, dicts of 10,000, batch 64, source and target up to 32) and
+# the sentiment convolution net (the reference book model's emb 128, hid
+# 512 and Adagrad(0.002), notest_understand_sentiment.py; a batch of 64 of
+# the sentiment reader's 8-40 words):
+# one float32 step on the card and on the CPU from the same state, each
+# against the port on the CPU in float64 (the witness; TF32 off), under
+# phase 24 (d)'s gates (BOOK_WITNESS_FACTOR, BOOK_WITNESS_FLOOR,
+# BOOK_LOSS_RTOL); then SEQ_STEPS steps on the card, the losses finite and
+# falling
+SEQ_MT = dict(src_dict_size=10000, trg_dict_size=10000, word_dim=32, hidden_dim=32)
+SEQ_MT_T = 32
+SEQ_SENT = dict(emb=128, hid=512, t=40, dict_dim=600, lr=0.002)
+SEQ_STEPS = 3
+
+
+def _lstm_programs(pt, amp=True, dict_dim=LSTM_DICT):
+    """bench.py's ``bench_lstm`` program (``amp``: through ``enable_amp``)."""
+    from paddle_tpu_torch.models import stacked_lstm
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        data = pt.layers.data(name="words", shape=[1], dtype="int64", lod_level=1)
+        label = pt.layers.data(name="label", shape=[1], dtype="int64")
+        loss, acc = stacked_lstm.train_network(data, label, dict_dim=dict_dim, emb_dim=LSTM_EMB,
+                                               hid_dim=LSTM_HID, stacked_num=LSTM_STACK)
+        pt.optimizer.Adam(learning_rate=LSTM_LR).minimize(loss)
+    if amp:
+        pt.amp.enable_amp(main)
+    return main, startup, loss, acc
+
+
+def _lstm_feed(torch, seed):
+    """bench.py's feed: int32 ids, lengths in [T/2, T], labels, on the card."""
+    rng = np.random.default_rng(seed)
+    feed = {"words": rng.integers(0, LSTM_DICT, (LSTM_B, LSTM_T, 1)).astype(np.int32),
+            "words@SEQ_LEN": rng.integers(LSTM_T // 2, LSTM_T + 1, (LSTM_B,)).astype(np.int32),
+            "label": rng.integers(0, 2, (LSTM_B, 1)).astype(np.int32)}
+    return {k: torch.from_numpy(v).to("cuda") for k, v in feed.items()}
+
+
+def _lstm_kernels(torch, run_prog, state0, feed, grads, card):
+    """(a)'s kernels on the card at the step's shapes (see LSTM_BF16_PER_STEP's
+    note), each against its plain version; ``grads`` the first bf16 step's
+    gradients by parameter.  Returns each kernel's largest absolute error."""
+    from paddle_tpu_torch.ops.cuda.embedding import (gather_rows, gather_rows_plain,
+                                                     scatter_add_rows, scatter_add_rows_plain)
+    from paddle_tpu_torch.ops.cuda.fused_optimizer import fused_adam_multi, fused_adam_multi_plain
+    bf = torch.bfloat16
+    ops = run_prog.desc.block(0).ops
+    (gather,) = [o for o in ops if o.type == "pallas_gather"]
+    table = state0[gather.input("W")[0]]
+    ids = feed["words"].reshape(-1).contiguous()
+    out, ref = gather_rows(table, ids), gather_rows_plain(table, ids)
+    lib = torch.nn.functional.embedding(ids.long(), table)
+    errs = {"gather_rows": (out - ref).abs().max().item()}
+    ok = {"gather_rows": torch.equal(out, ref) and torch.equal(out, lib)}
+    g = torch.Generator().manual_seed(25)
+    rows = (1e-3 * torch.randn(ids.numel(), table.shape[1], generator=g)).to(bf)
+    w = table.to(bf)
+    got = scatter_add_rows(w, ids, rows.to("cuda"))
+    want = scatter_add_rows_plain(w.cpu(), ids.cpu(), rows)
+    errs["scatter_add_rows_bf16"] = (got.cpu().float() - want.float()).abs().max().item()
+    ok["scatter_add_rows_bf16"] = got.dtype == bf and torch.equal(got.cpu(), want)
+    ups = [o for o in ops if o.type in ("adam", "pallas_adam")]
+    hyper = {(o.attr("beta1"), o.attr("beta2"), o.attr("epsilon")) for o in ups}
+    if len(hyper) != 1:
+        raise AssertionError(f"phase 25 (a): the updates' betas and epsilon differ: {hyper}")
+    ((b1, b2, eps),) = hyper
+    entries = [(state0[o.input("Param")[0]].clone(),
+                torch.as_tensor(np.asarray(grads[o.input("Param")[0]])).to("cuda", torch.float32),
+                state0[o.input("Moment1")[0]].clone(), state0[o.input("Moment2")[0]].clone(),
+                state0[o.input("Beta1Pow")[0]], state0[o.input("Beta2Pow")[0]],
+                state0[o.input("LearningRate")[0]], o.type == "pallas_adam") for o in ups]
+    mine = fused_adam_multi([_adam_clones(e) for e in entries], b1, b2, eps)
+    theirs = fused_adam_multi_plain([_adam_clones(e) for e in entries], b1, b2, eps)
+    pairs = [(x, y) for a, b in zip(mine, theirs) for x, y in zip(a, b)]
+    errs["fused_adam"] = _max_abs_diff(torch, pairs)
+    ok["fused_adam"] = all(torch.equal(x, y) for x, y in pairs)
+    torch.cuda.synchronize()
+    print(f"phase 25 (a) kernels at the step's shapes against their plain versions: K2 "
+          f"[{table.shape[0]},{table.shape[1]}] float32 at {ids.numel()} ids (and "
+          f"F.embedding), bf16 K3 into its bf16 copy (plain on the CPU), K6 over "
+          f"{len(entries)} updates ({sum(e[7] for e in entries)} pallas_adam): bit-equal "
+          f"{ok}; max abs err {errs} [{card}]")
+    if not all(ok.values()):
+        raise AssertionError(f"phase 25 (a): a kernel differs from its plain version: {ok}, "
+                             f"{errs}")
+    return errs
+
+
+def _lstm_bf16_vs_float32(torch, exe, runs, feed, scope, state0, params, card):
+    """(a)'s bf16 step against its float32 twin: one step of each of
+    ``runs`` ("bf16" and "float32": program and loss) op by op from
+    ``state0`` (copied back after each), under LSTM_BF16_LOSS_RTOL,
+    BF16_STEP_GLOBAL_NREL and LSTM_BF16_GRAD_NORM_RTOL.  Returns the
+    readings and the bf16 step's gradients by parameter."""
+    outs = {}
+    for who, (prog, loss) in runs.items():
+        outs[who] = exe._run_eager(prog, feed, [loss.name] + [p + "@GRAD" for p in params],
+                                   scope)
+        for n, t in state0.items():
+            scope.find_var(n).copy_(t)
+    b, f = ([np.asarray(a, np.float64) for a in outs[w]] for w in ("bf16", "float32"))
+    loss_rel = abs(float(b[0]) - float(f[0])) / abs(float(f[0]))
+    glob = float(np.linalg.norm(_grad_vector(b[1:]) - _grad_vector(f[1:]))
+                 / np.linalg.norm(_grad_vector(f[1:])))
+    norms = {p: float(np.linalg.norm(x) / np.linalg.norm(y) - 1.0)
+             for p, x, y in zip(params, b[1:], f[1:])}
+    res = {"losses_bf16_float32": [float(b[0]), float(f[0])], "loss_rel": loss_rel,
+           "grads_nrel": glob, "grad_norm_rel_diff": norms}
+    print(f"phase 25 (a) one step op by op from the same state, bf16 against float32: losses "
+          f"{res['losses_bf16_float32']} ({loss_rel:.3e} relative, gate {LSTM_BF16_LOSS_RTOL}); "
+          f"{len(params)} gradients as one vector {glob:.4e} norm-relative (gate "
+          f"{BF16_STEP_GLOBAL_NREL}); each gradient's norm over the float32 one's, less 1 "
+          f"(gate {LSTM_BF16_GRAD_NORM_RTOL}) {json.dumps({k: round(v, 5) for k, v in norms.items()})} "
+          f"[{card}]")
+    if not (np.isfinite(_grad_vector(b)).all() and loss_rel <= LSTM_BF16_LOSS_RTOL
+            and glob <= BF16_STEP_GLOBAL_NREL
+            and all(abs(v) <= LSTM_BF16_GRAD_NORM_RTOL for v in norms.values())):
+        raise AssertionError(f"phase 25 (a): the bf16 step is outside the gates of its float32 "
+                             f"twin: {res}")
+    return res, dict(zip(params, outs["bf16"][1:]))
+
+
+def _lstm_cell(torch, pt, card, counters):
+    """Phase 25 (a): bench.py's LSTM step at 64 x 80, bf16, one CUDA graph
+    replay a step; its kernels at the step's shapes against their plain
+    versions; the step against its float32 twin from the same state and
+    feed, op by op, and the twin's replays."""
+    t0 = time.perf_counter()
+    main, startup, loss, acc = _lstm_programs(pt)
+    main32, startup32, loss32, acc32 = _lstm_programs(pt, amp=False)
+    scope, exe = pt.Scope(), pt.Executor(pt.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    persist = [v.name for v in main.list_vars() if v.persistable and scope.find_var(v.name)
+               is not None]
+    params = [p.name for p in main.global_block.all_parameters()]
+    state0 = {n: scope.find_var(n).clone() for n in persist}
+    feed = _lstm_feed(torch, seed=0)
+    fetch = [loss, acc]
+    run_prog = exe._apply_passes(main, list(feed), [loss.name, acc.name], scope)
+    types = [o.type for o in run_prog.desc.block(0).ops]
+    n_ops = len(main.desc.block(0).ops)
+    got_ops = (n_ops, len(types), types.count("cast"))
+    kinds = {k: types.count(k) for k in ("dynamic_lstm", "dynamic_lstm_grad", "pallas_gather",
+                                         "pallas_scatter_add", "pallas_adam", "adam")}
+    print(f"phase 25 (a) stacked LSTM {LSTM_B} x {LSTM_T}, dict {LSTM_DICT}, emb {LSTM_EMB}, "
+          f"hidden {LSTM_HID} x {LSTM_STACK}: {n_ops} ops ({len(types)} run, {types.count('cast')} "
+          f"casts; {kinds}); {len(params)} parameters; built and initialized in "
+          f"{time.perf_counter() - t0:.2f} s")
+    if got_ops != LSTM_OPS or kinds != {"dynamic_lstm": 2, "dynamic_lstm_grad": 2,
+                                        "pallas_gather": 1, "pallas_scatter_add": 1,
+                                        "pallas_adam": 5, "adam": 6}:
+        raise AssertionError(f"phase 25 (a): ops {got_ops}, {kinds}; want {LSTM_OPS}")
+    vs32, grads = _lstm_bf16_vs_float32(
+        torch, exe, {"bf16": (main, loss), "float32": (main32, loss32)}, feed, scope, state0,
+        params, card)
+    kernel_errs = _lstm_kernels(torch, run_prog, state0, feed, grads, card)
+    del grads
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    info = exe.precompile(main, feed=feed, fetch_list=fetch, scope=scope)
+    for f in counters.values():
+        f.launches = 0
+        if hasattr(f, "bf16_launches"):
+            f.bf16_launches = 0
+    losses, step_s = _timed_replays(exe, main, feed, fetch, scope, LSTM_REPLAYS)
+    launches, bf16 = _launch_snapshot(counters), _bf16_snapshot(counters)
+    # the step's own peak: over what earlier phases still hold
+    peak = torch.cuda.max_memory_allocated() - base
+    entries = [e for e in exe.cache_info()["entries"] if "words" in e["feeds"]]
+    step_ms = 1e3 * float(np.median(step_s))
+    res = {"card": card, "ops": n_ops, "run_ops": len(types), "casts": types.count("cast"),
+           "capture_s": info["compile_s"], "losses": losses, "step_ms": [1e3 * s for s in step_s],
+           "step_ms_median": step_ms, "step_ms_min": 1e3 * min(step_s),
+           "step_ms_max": 1e3 * max(step_s), "k40m_ms": K40M_LSTM_MS,
+           "k40m_ratio": K40M_LSTM_MS / step_ms,
+           "padded_tokens_per_s": LSTM_B * LSTM_T / (step_ms / 1e3),
+           "peak_over_base_gib": peak / 2 ** 30, "launches": launches, "bf16_launches": bf16,
+           "kernel_max_abs_err": kernel_errs, "bf16_vs_float32": vs32}
+    print(f"phase 25 (a) bf16: capture {info['compile_s']:.2f} s (kind {info['kind']}); "
+          f"{LSTM_REPLAYS} replays on one batch: losses {losses}; step ms "
+          f"{[round(1e3 * s, 3) for s in step_s]}; median {step_ms:.3f} ms/batch bs={LSTM_B} "
+          f"(reference K40m: {K40M_LSTM_MS:.0f} ms/batch -> {res['k40m_ratio']:.2f}x); "
+          f"{res['padded_tokens_per_s']:.0f} padded tokens/s; peak {peak / 2 ** 30:.3f} GiB over "
+          f"what was allocated before; "
+          f"hand-written kernel launches {launches} (bf16 instances {bf16}) [{card}]")
+    if info["kind"] != "graph" or [e["kind"] for e in entries] != ["graph"] \
+            or exe.cache_info()["captures"] != 1:
+        raise AssertionError(f"phase 25 (a): the step is not one graph: {info}, {entries}")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 25 (a): losses not finite and falling: {losses}")
+    want = {k: LSTM_REPLAYS * v for k, v in LSTM_PER_STEP.items()}
+    want_bf16 = {k: LSTM_REPLAYS * LSTM_BF16_PER_STEP.get(k, 0) for k in bf16}
+    if {k: launches[k] for k in want} != want or bf16 != want_bf16 or \
+            any(v for k, v in launches.items() if k not in want):
+        raise AssertionError(f"phase 25 (a): launches {launches}, bf16 instances {bf16}; want "
+                             f"{want}, bf16 {LSTM_BF16_PER_STEP} a replay")
+    prof = _profile(torch, lambda: [exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+                                    for _ in range(LSTM_PROFILE_STEPS)],
+                    "lstm_bf16_profile", card,
+                    {"batch": [LSTM_B, LSTM_T], "steps": LSTM_PROFILE_STEPS},
+                    warm=lambda: exe.run(main, feed=feed, fetch_list=fetch, scope=scope))
+    if prof is not None:
+        res["profile"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share",
+                                               "by_family_ms", "by_family_launches",
+                                               "warm_records")}
+        fams = prof["by_family_launches"]
+        # K3 is two kernels a call (the sort and the segment sums)
+        want = {"gather_rows (K2)": 1, "scatter_add_rows (K3)": 2, "fused_adam (K6)": 1}
+        got = {k: fams.get(k, 0) for k in want}
+        if got != {k: LSTM_PROFILE_STEPS * v for k, v in want.items()}:
+            raise AssertionError(f"phase 25 (a): the profile's kernels {got}, want {want} a "
+                                 f"replay")
+        n_dev = sum(fams.values())
+        res["profile"]["device_operations_a_step"] = n_dev / LSTM_PROFILE_STEPS
+        print(f"phase 25 (a) profile of {LSTM_PROFILE_STEPS} replays behind a warm-up replay: "
+              f"idle share {prof['device_idle_share']:.4f}, {n_dev / LSTM_PROFILE_STEPS:.0f} "
+              f"device operations a step (the warm-up replay's records "
+              f"{prof['warm_records']}) [{card}]")
+    moments = [n for n in persist if "_moment" in n]
+    res["replay_vs_eager"] = _state_vs_eager(
+        torch, exe, main, feed, fetch, scope, persist,
+        {"parameters": params, "moments": moments}, "bf16 stacked LSTM", card,
+        phase="phase 25 (a)")
+    if res["replay_vs_eager"]["differ"] or not res["replay_vs_eager"]["fetch_equal"]:
+        raise AssertionError(f"phase 25 (a): the replay differs from the op-by-op step: "
+                             f"{res['replay_vs_eager']}")
+    res["device_by_op"] = _device_trace_step(
+        torch, exe, main, feed, loss, scope, "phase 25 lstm bf16", card,
+        need=("gather_rows (K2)", "scatter_add_rows (K3)", "fused_adam (K6)"), warm=True)
+    by_type = res["device_by_op"]["device_ms_by_op_type"]
+    res["recurrence_device_ms"] = by_type.get("dynamic_lstm", 0.0) + \
+        by_type.get("dynamic_lstm_grad", 0.0)
+    del exe
+    _free_trainer(torch, "phase 25 (a) bf16")
+
+    # the float32 twin's replays from the same state and feed (TF32 off)
+    scope32, exe32 = pt.Scope(), pt.Executor(pt.CUDAPlace(0))
+    exe32.run(startup32, scope=scope32)
+    for n, t in state0.items():
+        scope32.find_var(n).copy_(t)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    info32 = exe32.precompile(main32, feed=feed, fetch_list=[loss32, acc32], scope=scope32)
+    losses32, step32 = _timed_replays(exe32, main32, feed, [loss32, acc32], scope32,
+                                      LSTM_REPLAYS)
+    ms32 = 1e3 * float(np.median(step32))
+    res["float32"] = {"capture_s": info32["compile_s"], "losses": losses32,
+                      "step_ms": [1e3 * s for s in step32], "step_ms_median": ms32,
+                      "peak_over_base_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+                      "first_loss_bf16_vs_float32": abs(losses[0] - losses32[0]) / abs(losses32[0])}
+    print(f"phase 25 (a) float32 twin (TF32 off), from the same state and feed: capture "
+          f"{info32['compile_s']:.2f} s; losses {losses32}; step ms "
+          f"{[round(1e3 * s, 3) for s in step32]}, median {ms32:.3f} ({ms32 / step_ms:.2f}x the "
+          f"bf16 step's); the first replay's loss bf16 {losses[0]!r} vs float32 "
+          f"{losses32[0]!r}: {res['float32']['first_loss_bf16_vs_float32']:.3e} relative (gate "
+          f"{LSTM_BF16_LOSS_RTOL}) [{card}]")
+    if info32["kind"] != "graph" or not np.isfinite(losses32).all() \
+            or res["float32"]["first_loss_bf16_vs_float32"] > LSTM_BF16_LOSS_RTOL:
+        raise AssertionError(f"phase 25 (a) float32: {info32}, losses {losses32}")
+    del exe32, scope32, state0
+    _free_trainer(torch, "phase 25 (a) float32")
+    return res
+
+
+def _imdb_bucket_reader(pt):
+    """(b)'s reader: the imdb samples sorted by length, cut into batches of
+    LSTM_B, LSTM_TRAINER_STEPS batches for each bucket in order."""
+    samples = sorted(pt.dataset.imdb.train()(), key=lambda s: len(s[0]))
+    batches = [samples[i:i + LSTM_B] for i in range(0, len(samples) - LSTM_B + 1, LSTM_B)]
+    chosen = []
+    for b in LSTM_TRAINER_BUCKETS:
+        inb = [x for x in batches if 1 << (max(len(s[0]) for s in x) - 1).bit_length() == b]
+        chosen += inb[:LSTM_TRAINER_STEPS]
+    flat = [s for x in chosen for s in x]
+    return (lambda: iter(flat)), [sum(len(s[0]) for s in x) for x in chosen]
+
+
+def _trainer_first_step(torch, pt, trainer, batch, card):
+    """(b)'s control: one op-by-op step of the Trainer's program on
+    ``batch`` as the Trainer pads it (pow2 buckets), from the Trainer's
+    initial state copied into a scope of its own.  Returns its loss."""
+    program = trainer.train_program
+    scope = pt.Scope()
+    for v in program.list_vars():
+        t = trainer.scope.find_var(v.name) if v.persistable else None
+        if t is not None:
+            scope.set_var(v.name, t.clone())
+    feeder = pt.DataFeeder(feed_list=[program.global_block.var(n) for n in ("words", "label")],
+                           program=program, seq_len_buckets="pow2")
+    exe = pt.Executor(pt.CUDAPlace(0), amp=pt.amp.AmpConfig())
+    (loss,) = exe._run_eager(program, feeder.feed(batch), [trainer.loss.name], scope)
+    del exe, scope
+    return float(np.asarray(loss))
+
+
+def _lstm_trainer(torch, pt, card, counters):
+    """Phase 25 (b): an epoch of the same net (bf16, the imdb dict) through
+    ``Trainer`` on the synthetic imdb reader, one capture a bucket, then a
+    warm epoch of replays; the first step's loss against one op-by-op step
+    from the same state on the same batch."""
+    dict_dim = len(pt.dataset.imdb.word_dict())
+
+    def train_func():
+        from paddle_tpu_torch.models import stacked_lstm
+        data = pt.layers.data(name="words", shape=[1], dtype="int64", lod_level=1)
+        label = pt.layers.data(name="label", shape=[1], dtype="int64")
+        return stacked_lstm.train_network(data, label, dict_dim=dict_dim, emb_dim=LSTM_EMB,
+                                          hid_dim=LSTM_HID, stacked_num=LSTM_STACK)[0]
+    with pt.unique_name.guard():
+        trainer = pt.Trainer(train_func, lambda: pt.optimizer.Adam(learning_rate=LSTM_LR),
+                             place=pt.CUDAPlace(0), amp=pt.amp.AmpConfig())
+    reader, real_tokens = _imdb_bucket_reader(pt)
+    batched = pt.batch(reader, LSTM_B)
+    n_steps = len(LSTM_TRAINER_BUCKETS) * LSTM_TRAINER_STEPS
+    ctl_loss = _trainer_first_step(torch, pt, trainer, next(iter(batched())), card)
+    for f in counters.values():
+        f.launches = 0
+        if hasattr(f, "bf16_launches"):
+            f.bf16_launches = 0
+    run = _TrainerRun(trainer, counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train(1, run, reader=batched, feed_order=["words", "label"])
+    losses = run.losses()
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t0
+    captures = [c for _, _, c in run.after_step]
+    # the warm epoch: every bucket's graph replays
+    run2 = _TrainerRun(trainer, counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train(1, run2, reader=batched, feed_order=["words", "label"])
+    losses2 = run2.losses()
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t0
+    launches, bf16 = _launch_snapshot(counters), _bf16_snapshot(counters)
+    first_rel = abs(losses[0] - ctl_loss) / abs(ctl_loss)
+    padded = sum(LSTM_B * b * LSTM_TRAINER_STEPS for b in LSTM_TRAINER_BUCKETS)
+    res = {"card": card, "steps": n_steps, "buckets": list(LSTM_TRAINER_BUCKETS),
+           "captures_after_each_step": captures, "epoch_s_with_captures": wall1,
+           "warm_epoch_s": wall2, "real_tokens": sum(real_tokens), "padded_tokens": padded,
+           "real_tokens_per_s": sum(real_tokens) / wall2, "padded_tokens_per_s": padded / wall2,
+           "losses": losses, "warm_losses": losses2, "first_loss_op_by_op": ctl_loss,
+           "first_loss_rel": first_rel, "launches": launches, "bf16_launches": bf16}
+    print(f"phase 25 (b) Trainer(amp=AmpConfig()) on the synthetic imdb reader (dict "
+          f"{dict_dim}), {n_steps} steps in buckets {list(LSTM_TRAINER_BUCKETS)}: captures after "
+          f"each step {captures}; the epoch with its captures {wall1:.2f} s; the warm epoch "
+          f"{wall2:.3f} s, {res['real_tokens_per_s']:.0f} real tokens/s "
+          f"({res['padded_tokens_per_s']:.0f} padded); losses of the first epoch {losses}, of "
+          f"the warm epoch {losses2} (the reader's classes part by word ids); the first step's "
+          f"loss {losses[0]!r} against one op-by-op step from the same state on the same batch "
+          f"{ctl_loss!r} ({first_rel:.3e} relative, gate {LSTM_TRAINER_LOSS_RTOL}); launches "
+          f"{launches} (bf16 instances {bf16}) [{card}]")
+    if captures[-1] != len(LSTM_TRAINER_BUCKETS) or len(losses) != n_steps \
+            or trainer.exe.cache_info()["captures"] != len(LSTM_TRAINER_BUCKETS):
+        raise AssertionError(f"phase 25 (b): captures {captures}, "
+                             f"{trainer.exe.cache_info()['captures']}, want one a bucket")
+    bad = [p for p in run2.per_step() if {k: p.get(k, 0) for k in LSTM_PER_STEP} != LSTM_PER_STEP]
+    bf16_per = [{k: b[1][k] - a[1][k] for k in b[1]}
+                for a, b in zip(run2.after_step, run2.after_step[1:])]
+    bad_bf16 = [p for p in bf16_per
+                if p != {k: LSTM_BF16_PER_STEP.get(k, 0) for k in p}]
+    if bad or bad_bf16 or not np.isfinite(losses + losses2).all():
+        raise AssertionError(f"phase 25 (b): warm launches a step {bad[:1]}, bf16 instances "
+                             f"{bad_bf16[:1]}; want {LSTM_PER_STEP}, bf16 {LSTM_BF16_PER_STEP}; "
+                             f"losses {losses2}")
+    if not first_rel <= LSTM_TRAINER_LOSS_RTOL:
+        raise AssertionError(f"phase 25 (b): the first step's loss {losses[0]!r}, op by op "
+                             f"{ctl_loss!r}")
+    del trainer
+    _free_trainer(torch, "phase 25 (b)")
+    return res, launches, bf16
+
+
+def _mt_programs(pt):
+    from paddle_tpu_torch.models import machine_translation
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        src = pt.layers.data(name="src", shape=[1], dtype="int64", lod_level=1)
+        trg = pt.layers.data(name="trg", shape=[1], dtype="int64", lod_level=1)
+        lbl = pt.layers.data(name="lbl", shape=[1], dtype="int64", lod_level=1)
+        loss = machine_translation.train_network(src, trg, lbl, **SEQ_MT)
+        pt.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    return main, startup, loss
+
+
+def _mt_feed(seed):
+    rng = np.random.default_rng(seed)
+    n, t = LSTM_B, SEQ_MT_T
+    trg_lens = rng.integers(1, t + 1, (n,)).astype(np.int32)
+    return {"src": rng.integers(2, SEQ_MT["src_dict_size"], (n, t, 1)).astype(np.int32),
+            "src@SEQ_LEN": rng.integers(1, t + 1, (n,)).astype(np.int32),
+            "trg": rng.integers(2, SEQ_MT["trg_dict_size"], (n, t, 1)).astype(np.int32),
+            "trg@SEQ_LEN": trg_lens,
+            "lbl": rng.integers(2, SEQ_MT["trg_dict_size"], (n, t, 1)).astype(np.int32),
+            "lbl@SEQ_LEN": trg_lens}
+
+
+def _sentiment_programs(pt):
+    """tests/test_understand_sentiment.py's convolution_net at the
+    reference book model's widths."""
+    main, startup = pt.Program(), pt.Program()
+    emb_dim, hid = SEQ_SENT["emb"], SEQ_SENT["hid"]
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        data = pt.layers.data(name="words", shape=[1], dtype="int64", lod_level=1)
+        label = pt.layers.data(name="label", shape=[1], dtype="int64")
+        emb = pt.layers.embedding(input=data, size=[SEQ_SENT["dict_dim"], emb_dim])
+        emb = pt.layers.reshape(emb, shape=[0, 0, emb_dim])
+        conv_3 = pt.nets.sequence_conv_pool(input=emb, num_filters=hid, filter_size=3,
+                                            act="tanh", pool_type="sqrt")
+        conv_4 = pt.nets.sequence_conv_pool(input=emb, num_filters=hid, filter_size=4,
+                                            act="tanh", pool_type="sqrt")
+        pred = pt.layers.fc(input=[conv_3, conv_4], size=2, act="softmax")
+        loss = pt.layers.mean(pt.layers.cross_entropy(input=pred, label=label))
+        pt.optimizer.Adagrad(learning_rate=SEQ_SENT["lr"]).minimize(loss)
+    return main, startup, loss
+
+
+def _sentiment_feed(pt):
+    rows = list(pt.dataset.sentiment.train(LSTM_B)())
+    t = SEQ_SENT["t"]
+    words = np.zeros((LSTM_B, t, 1), np.int32)
+    lens = np.array([len(w) for w, _ in rows], np.int32)
+    for i, (w, _) in enumerate(rows):
+        words[i, :len(w), 0] = w
+    return {"words": words, "words@SEQ_LEN": lens,
+            "label": np.array([[l] for _, l in rows], np.int32)}
+
+
+def _witness_model(torch, pt, card, name, main, startup, loss, feed):
+    """Phase 25 (c): one float32 step on the card (a graph replay) and on
+    the CPU from the same state, the gradients against the port on the CPU
+    in float64 (``_card_cpu_witness``, phase 24 (d)'s gates); then
+    SEQ_STEPS - 1 more replays on the card."""
+    t0 = time.perf_counter()
+    params = [p.name for p in main.global_block.all_parameters()
+              if main.desc.block(0).find_var(p.name + "@GRAD") is not None]
+    fetch = [loss.name] + [p + "@GRAD" for p in params]
+    got, ref, wit, card_exe, card_scope = _card_cpu_witness(torch, pt, main, startup, feed,
+                                                             fetch, witness=())
+    losses = [float(np.asarray(got[0]))]
+    for _ in range(SEQ_STEPS - 1):
+        losses.append(float(np.asarray(card_exe.run(main, feed=feed, fetch_list=fetch,
+                                                    scope=card_scope)[0])))
+    w_rec, w_ok = _witness_gate(got, ref, wit)
+    r = {"losses_card_cpu_float64": [losses[0], float(ref[0]), float(wit[0])],
+         "loss_rel": abs(losses[0] - float(ref[0])) / abs(float(ref[0])), **w_rec,
+         "card_losses": losses, "entries": [e["kind"] for e in card_exe.cache_info()["entries"]
+                                            if "words" in e["feeds"] or "src" in e["feeds"]]}
+    r["seconds"] = time.perf_counter() - t0
+    print(f"phase 25 (c) {name}: one float32 step, losses card / CPU / float64 "
+          f"{r['losses_card_cpu_float64']} ({r['loss_rel']:.2e}, gate {BOOK_LOSS_RTOL}); "
+          f"{len(params)} gradients as one vector {_witness_text(r['grads_vs_float64'])}; "
+          f"{SEQ_STEPS} steps on the card (entries {r['entries']}): losses {losses}; "
+          f"{r['seconds']:.1f} s [{card}]")
+    if not w_ok or r["loss_rel"] > BOOK_LOSS_RTOL or not np.isfinite(losses).all() \
+            or not losses[-1] < losses[0] or r["entries"] != ["graph"]:
+        raise AssertionError(f"phase 25 (c) {name}: {r}")
+    del card_exe, card_scope
+    gc.collect()
+    return r
+
+
+def phase_sequences(torch, card):
+    """Phase 25 (see the module docstring): sequences and recurrent nets.
+    Returns (a)'s, (b)'s and (c)'s launches by kernel, each counted from 0,
+    the float32 instances and the bf16 ones apart, and (a)'s kernels'
+    largest errors at the step's shapes."""
+    import paddle_tpu_torch as pt
+    counters = _counters()
+    res = {}
+    t_piece = time.perf_counter()
+    res["lstm"] = _lstm_cell(torch, pt, card, counters)
+    launches_a = res["lstm"]["launches"]
+    t_piece = _piece_seconds("phase 25 (a)", t_piece)
+    res["trainer"], launches_b, bf16_b = _lstm_trainer(torch, pt, card, counters)
+    t_piece = _piece_seconds("phase 25 (b)", t_piece)
+    for f in counters.values():
+        f.launches = 0
+        if hasattr(f, "bf16_launches"):
+            f.bf16_launches = 0
+    main, startup, loss = _mt_programs(pt)
+    res["machine_translation"] = _witness_model(torch, pt, card, "machine translation", main,
+                                                startup, loss, _mt_feed(seed=7))
+    main, startup, loss = _sentiment_programs(pt)
+    res["sentiment"] = _witness_model(torch, pt, card, "sentiment conv net", main, startup,
+                                      loss, _sentiment_feed(pt))
+    launches_c, bf16_c = _launch_snapshot(counters), _bf16_snapshot(counters)
+    _piece_seconds("phase 25 (c)", t_piece)
+    print(f"phase 25 (c) launches over both models' steps {launches_c} (bf16 instances "
+          f"{bf16_c}) [{card}]")
+    if not (launches_c["gather_rows"] and launches_c["scatter_add_rows"]
+            and launches_c["fused_adam"]) or any(bf16_c.values()):
+        raise AssertionError(f"phase 25 (c): launches {launches_c}, bf16 instances {bf16_c} "
+                             f"(float32 steps)")
+    print(json.dumps({"sequences": res}))
+
+    def float32(launches, bf16):
+        return {k: v - bf16.get(k, 0) for k, v in launches.items()}
+    return {"a": float32(launches_a, res["lstm"]["bf16_launches"]),
+            "a_bf16": res["lstm"]["bf16_launches"], "b": float32(launches_b, bf16_b),
+            "b_bf16": bf16_b, "c": float32(launches_c, bf16_c), "c_bf16": bf16_c,
+            "max_abs_err": res["lstm"]["kernel_max_abs_err"]}
+
+
 def _release_serving(torch, label):
     """A serving phase's inferencers (and their graphs' memory pools) are
     gone once it returns: collect them before the training phases."""
@@ -5964,6 +6645,7 @@ def _main(torch, build):
     passes_launches, passes_bf16 = timed("analysis", phase_analysis)
     health_launches, health_bf16 = timed("health", phase_health)
     book_launches = timed("book", phase_book)
+    seq_launches = timed("sequences", phase_sequences)
     print(f"seconds by phase function: {json.dumps(seconds)}; "
           f"{sum(seconds.values()):.1f} in all; {time.perf_counter() - t_main:.1f} since the "
           f"card's name was read (the kernel build included) [{card}]")
@@ -6026,6 +6708,14 @@ def _main(torch, build):
     # launches_book: phase 24, counted from 0 -- K5 in (e) fit_a_line and
     # (f)'s QAT step, K6 in (f)'s ModelAverage over Adam; the image models
     # (a)-(c) launch none (gated at 0 there)
+    # launches_lstm: phase 25 (a), bench.py's bf16 stacked-LSTM step, counted
+    # from 0 over its timed replays (K2, the bf16 K3, K6 one a replay);
+    # launches_imdb_trainer: (b), the Trainer's two epochs over the imdb
+    # buckets; launches_seq_models: (c), machine translation's and the
+    # sentiment net's float32 steps; each the float32 and the bf16 instances
+    # apart (the float32 K3 gated at 0 in (a) and (b), the bf16 instances at
+    # 0 in (c)).  max_abs_err_lstm: (a)'s check of K2, the bf16 K3 and K6 at
+    # the step's shapes, also in max_abs_err
     for e in kernels:
         e["launches_trainer"] = trainer_launches[e["name"]]
         e["launches_profile"] = PHASE19["launches_profile"].get(e["name"], 0)
@@ -6035,6 +6725,12 @@ def _main(torch, build):
         e["launches_passes"] = passes_launches[e["name"]]
         e["launches_health"] = health_launches.get(e["name"], 0)
         e["launches_book"] = book_launches[e["name"]]
+        e["launches_lstm"] = seq_launches["a"][e["name"]]
+        e["launches_imdb_trainer"] = seq_launches["b"][e["name"]]
+        e["launches_seq_models"] = seq_launches["c"][e["name"]]
+        if e["name"] in seq_launches["max_abs_err"]:
+            e["max_abs_err_lstm"] = seq_launches["max_abs_err"][e["name"]]
+            e["max_abs_err"] = max(e["max_abs_err"], e["max_abs_err_lstm"])
     k4["quantizers"]["launches_profile"] = {
         n: PHASE19["launches_profile"].get(n, 0) for n in ("abs_max_pair", "quantize_int8")}
     k4["quantizers"]["launches_reference_path"] = {
@@ -6051,7 +6747,14 @@ def _main(torch, build):
                  launches_profile=PHASE19["launches_profile_bf16"].get(name, 0),
                  launches_reference_path=ref_launches["b_bf16"].get(name, 0),
                  launches_cnn=0, launches_resnet=0, launches_passes=passes_bf16[name],
-                 launches_health=health_bf16.get(name, 0), launches_book=0)
+                 launches_health=health_bf16.get(name, 0), launches_book=0,
+                 launches_lstm=seq_launches["a_bf16"].get(name, 0),
+                 launches_imdb_trainer=seq_launches["b_bf16"].get(name, 0),
+                 launches_seq_models=seq_launches["c_bf16"].get(name, 0))
+        lstm_err = seq_launches["max_abs_err"].get(f"{name}_bf16")
+        if lstm_err is not None:
+            e["max_abs_err_lstm"] = lstm_err
+            e["max_abs_err"] = max(e["max_abs_err"], lstm_err)
         kernels.append(e)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

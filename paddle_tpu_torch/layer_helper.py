@@ -68,6 +68,17 @@ class LayerHelper:
     def bias_attr(self):
         return ParamAttr._to_attr(self.kwargs.get("bias_attr"))
 
+    def param_attr_for(self, suffix: str):
+        """A copy of this layer's param_attr for one of several weights
+        (``dynamic_lstmp``'s): one shared ParamAttr would give them one
+        generated name; a name the user gave gets ``.suffix``."""
+        import copy
+
+        a = copy.copy(self.param_attr)
+        if a.name is not None:
+            a.name = f"{a.name}.{suffix}"
+        return a
+
     def append_bias_op(self, input_var: Variable, dim_start=1) -> Variable:
         bias_attr = self.kwargs.get("bias_attr")
         if bias_attr is False:

@@ -1,1 +1,2 @@
-from . import alexnet, googlenet, mnist, resnet, se_resnext, transformer, vgg  # noqa: F401
+from . import (alexnet, googlenet, machine_translation, mnist, resnet,  # noqa: F401
+               se_resnext, stacked_lstm, transformer, vgg)

@@ -1,7 +1,6 @@
 """Composite nets built from ``layers``, as the JAX package's ``nets``:
-``simple_img_conv_pool``, ``img_conv_group``, ``glu`` and
-``scaled_dot_product_attention``.  ``sequence_conv_pool`` needs the
-sequence ops, which are not ported yet."""
+``simple_img_conv_pool``, ``img_conv_group``, ``sequence_conv_pool``,
+``glu`` and ``scaled_dot_product_attention``."""
 from __future__ import annotations
 
 import math
@@ -81,6 +80,9 @@ def scaled_dot_product_attention(queries, keys, values, num_heads=1,
 
 def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
                        act="sigmoid", pool_type="max"):
-    raise NotImplementedError(
-        "nets.sequence_conv_pool needs sequence_conv and sequence_pool, which are "
-        "not ported yet (ROADMAP.md, queue A item 9: sequences, control flow, RNNs)")
+    """``sequence_conv`` (with ``act``) then ``sequence_pool``: the text
+    convolution of the understand_sentiment book model."""
+    conv_out = layers.sequence_conv(input=input, num_filters=num_filters,
+                                    filter_size=filter_size,
+                                    param_attr=param_attr, act=act)
+    return layers.sequence_pool(input=conv_out, pool_type=pool_type)

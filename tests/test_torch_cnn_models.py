@@ -368,8 +368,16 @@ def test_nets_match_the_jax_package(name):
 
 
 def test_sequence_conv_pool_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pt.nets.sequence_conv_pool(None, 4, 3)
+    """``nets.sequence_conv_pool`` is ported now (ROADMAP.md queue A item 9's
+    sequence half): ``sequence_conv`` with its bias and activation, then
+    ``sequence_pool``, the program the JAX package builds."""
+    def build(pkg):
+        x = pkg.layers.data(name="x", shape=[1], dtype="int64", lod_level=1)
+        emb = pkg.layers.embedding(input=x, size=[50, 8])
+        return pkg.nets.sequence_conv_pool(emb, 4, 3, act="tanh", pool_type="sqrt")
+    (jm, _, _), (tm, _, _) = build_both(build)
+    assert [o.type for o in tm.desc.block(0).ops] == [
+        "lookup_table", "sequence_conv", "elementwise_add", "tanh", "sequence_pool"]
 
 
 @pytest.mark.parametrize("name,make,n", [

@@ -2246,3 +2246,163 @@ def test_the_range_quantizer_advances_inside_the_graph(cuda):
         assert (a - b).abs().max() <= BOOK_RTOL * b.abs().max(), step
         assert int(gpu_scope.find_var(it).cpu()) == step + 1
     assert gpu.cache_info()["captures"] == 1
+
+
+# ------------------------------------------- sequences and recurrent nets
+
+SEQ_RTOL = 1e-5    # float32 card vs CPU, TF32 off, relative to the largest value
+
+
+def _seq_card_vs_cpu(build, feed, exact=0):
+    """``build(xs)`` (inside a fresh program; ``xs`` one data var per feed
+    entry that is not a lengths channel) returns the vars to fetch, of
+    which the first ``exact`` are integer or copies.  Both executors start
+    from the CPU startup's state; returns nothing, asserts the card
+    against the CPU."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        xs = [layers.data(name=n, shape=list(a.shape), dtype=str(a.dtype),
+                          append_batch_size=False,
+                          lod_level=int(n + "@SEQ_LEN" in feed),
+                          stop_gradient=a.dtype.kind != "f")
+              for n, a in feed.items() if "@" not in n]
+        fetch = build(xs)
+    cpu_scope, gpu_scope = pt.Scope(), pt.Scope()
+    cpu, gpu = pt.Executor(pt.CPUPlace()), pt.Executor()
+    cpu.run(startup, scope=cpu_scope)
+    gpu.run(startup, scope=gpu_scope)
+    for v in main.list_vars():
+        if v.persistable and cpu_scope.find_var(v.name) is not None:
+            gpu_scope.find_var(v.name).copy_(cpu_scope.find_var(v.name))
+    got = gpu.run(main, feed=feed, fetch_list=fetch, scope=gpu_scope)
+    ref = cpu.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert a.shape == b.shape and a.dtype == b.dtype, fetch[i].name
+        if i < exact or a.dtype.kind != "f":
+            np.testing.assert_array_equal(a, b, err_msg=fetch[i].name)
+        else:
+            assert np.isfinite(a).all(), fetch[i].name
+            np.testing.assert_allclose(a, b, rtol=0, atol=SEQ_RTOL * max(np.abs(b).max(), 1.0),
+                                       err_msg=fetch[i].name)
+
+
+def _seq_feed(t=6, d=5, seed=0):
+    rs = np.random.RandomState(seed)
+    return {"x": rs.randn(4, t, d).astype(np.float32),
+            "x@SEQ_LEN": np.array([t, 0, 3, 5], np.int32)}
+
+
+def test_the_sequence_ops_on_the_card_match_the_cpu(cuda):
+    """The six pool types, softmax, conv, reshape, pad, slice, erase and
+    the lengths on the card against the CPU, with a zero-length row;
+    gradients of the float outputs included."""
+    feed = dict(_seq_feed(), y=np.random.RandomState(1).randn(4, 6).astype(np.float32),
+                ids=np.random.RandomState(2).randint(0, 5, (4, 6, 1)).astype(np.int64),
+                pad=np.array([0.5], np.float32))
+    feed["y@SEQ_LEN"] = feed["ids@SEQ_LEN"] = feed["x@SEQ_LEN"]
+
+    def build(xs):
+        x, y, ids, pad = xs
+        helper = pt.layer_helper.LayerHelper("sequence_erase")
+        erased = helper.create_variable_for_type_inference("int64")
+        helper.append_op("sequence_erase", inputs={"X": ids}, outputs={"Out": erased},
+                         attrs={"tokens": [1, 3]})
+        padded, length = layers.sequence_pad(x, pad, maxlen=8)
+        exact = [erased, layers.sequence_length(erased), length, layers.sequence_length(x),
+                 layers.sequence_pool(x, "first"), layers.sequence_pool(x, "last"),
+                 layers.sequence_mask(layers.sequence_length(x), maxlen=7, dtype="float32"),
+                 padded, layers.sequence_reshape(x, 10)]
+        floats = [layers.sequence_pool(x, p) for p in ("sum", "average", "sqrt", "max")]
+        floats += [layers.sequence_softmax(y),
+                   layers.sequence_conv(x, num_filters=3, filter_size=3, act="tanh"),
+                   layers.row_conv(x, future_context_size=2)]
+        total = layers.reduce_sum(layers.square(floats[0]))
+        for t in floats[1:] + exact[4:6]:
+            total = layers.elementwise_add(total, layers.reduce_sum(layers.square(t)))
+        floats += pt.calc_gradient(total, [x, y])
+        return exact + floats
+    _seq_card_vs_cpu(build, feed, exact=9)
+
+
+@pytest.mark.parametrize("op", ["lstm", "lstm_reverse", "gru", "gru_reverse", "lstmp", "units"])
+def test_the_recurrent_ops_on_the_card_match_the_cpu(cuda, op):
+    """Each recurrence (lengths below T, one row empty, initial states) and
+    every gradient on the card against the CPU from the same parameters."""
+    h = 8
+    width = 3 * h if op.startswith("gru") or op == "units" else 4 * h
+    feed = _seq_feed(t=7, d=width, seed=3)
+    feed["h0"] = np.random.RandomState(4).randn(4, h).astype(np.float32)
+    if not op.startswith("gru"):
+        feed["c0"] = np.random.RandomState(5).randn(4, h).astype(np.float32)
+
+    def bias():
+        return pt.ParamAttr(initializer=pt.initializer.Normal(0.0, 0.5))
+
+    def build(xs):
+        if op in ("lstm", "lstm_reverse"):
+            x, h0, c0 = xs
+            out = list(layers.dynamic_lstm(x, size=4 * h, h_0=h0, c_0=c0, bias_attr=bias(),
+                                           is_reverse=op.endswith("reverse")))
+        elif op.startswith("gru"):
+            x, h0 = xs
+            out = [layers.dynamic_gru(x, size=h, h_0=h0, bias_attr=bias(),
+                                      is_reverse=op.endswith("reverse"))]
+        elif op == "lstmp":
+            x, h0, c0 = xs
+            out = list(layers.dynamic_lstmp(x, size=4 * h, proj_size=3, h_0=h0, c_0=c0,
+                                            bias_attr=bias()))
+        else:
+            x, h0, c0 = xs
+            step = layers.reduce_sum(x, dim=1)
+            out = list(layers.gru_unit(step, h0, size=3 * h, bias_attr=bias()))
+            out += list(layers.lstm_unit(out[0], h0, c0, bias_attr=bias()))
+        total = layers.reduce_sum(layers.square(out[0]))
+        for t in out[1:]:
+            total = layers.elementwise_add(total, layers.reduce_sum(layers.square(t)))
+        params = pt.default_main_program().global_block.all_parameters()
+        return out + pt.calc_gradient(total, list(xs) + params)
+    _seq_card_vs_cpu(build, feed)
+
+
+@pytest.mark.parametrize("amp", [False, True])
+def test_a_stacked_lstm_step_replays_bit_equal_to_an_eager_step(cuda, amp):
+    """models/stacked_lstm at a small size with Adam (bf16 through
+    ``enable_amp`` too): each step one graph replay launching K2, K3 and K6
+    once, the lengths on the device (no capture per batch of other
+    lengths), and a replay bit-equal to an op-by-op step from the same
+    state."""
+    from paddle_tpu_torch.models import stacked_lstm
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        data = layers.data(name="words", shape=[1], dtype="int64", lod_level=1)
+        label = layers.data(name="label", shape=[1], dtype="int64")
+        loss, _ = stacked_lstm.train_network(data, label, dict_dim=1000, emb_dim=32,
+                                             hid_dim=32, stacked_num=2)
+        pt.optimizer.Adam(learning_rate=0.002).minimize(loss)
+    if amp:
+        pt.amp.enable_amp(main)
+    scope, exe = pt.Scope(), pt.Executor()
+    exe.run(startup, scope=scope)
+
+    def feed(seed):
+        r = np.random.RandomState(seed)
+        return {"words": r.randint(0, 1000, (8, 12, 1)).astype(np.int64),
+                "words@SEQ_LEN": r.randint(0, 13, (8,)).astype(np.int32),
+                "label": r.randint(0, 2, (8, 1)).astype(np.int64)}
+    before = (gather_rows.launches, scatter_add_rows.launches, fused_adam.launches)
+    losses = [float(exe.run(main, feed=feed(s), fetch_list=[loss], scope=scope)[0])
+              for s in range(4)]
+    after = (gather_rows.launches, scatter_add_rows.launches, fused_adam.launches)
+    # 4 steps, the first's capture adding its eager warm-up run
+    assert tuple(b - a for a, b in zip(before, after)) == (5, 5, 5)
+    assert exe.cache_info()["captures"] == 1 and np.isfinite(losses).all()
+    persist = [v.name for v in main.list_vars() if v.persistable]
+    state0 = {n: scope.find_var(n).clone() for n in persist}
+    f = feed(9)
+    g = exe.run(main, feed=f, fetch_list=[loss], scope=scope)
+    replayed = {n: scope.find_var(n).clone() for n in persist}
+    for n, t in state0.items():
+        scope.find_var(n).copy_(t)
+    e = exe._run_eager(main, f, [loss], scope)
+    assert np.array_equal(g[0], e[0])
+    assert all(torch.equal(replayed[n], scope.find_var(n)) for n in persist)
