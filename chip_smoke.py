@@ -120,11 +120,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
     (and, as ``launches_trainer``, in phase 18's pipelined Trainer run and
     its bf16 Trainer, counted alone, as ``launches_profile`` under
     phase 19's op profiles, as ``launches_health`` phase 23's launches
-    a step, as ``launches_book`` phase 24's, and as ``launches_lstm``,
+    a step, as ``launches_book`` phase 24's, as ``launches_lstm``,
     ``launches_imdb_trainer`` and ``launches_seq_models`` phase 25's (a),
-    (b) and (c)),
+    (b) and (c), and as ``launches_control_flow`` phase 26's),
     error against its plain version (``max_abs_err_lstm``: phase 25 (a)'s
-    check at the LSTM step's shapes, in ``max_abs_err`` too), times, and
+    check at the LSTM step's shapes; ``max_abs_err_control_flow``: phase
+    26's; both in ``max_abs_err`` too), times, and
     bound; K4's entry lists
     its quantize kernels under ``quantizers``, K7's and K8's both of their
     bounds (float32 on the CUDA cores, and three TF32 products), K3's times
@@ -373,6 +374,31 @@ Phases, each fatal on failure (non-zero exit, no result line):
     state, each against the port on the CPU in float64, then 3 replays
     with the losses falling (``launches_seq_models``: K2, K3 on both, K6
     on machine translation; no bf16 instance).
+26. control flow (``phase_control_flow``): (a) the book's RNN
+    encoder-decoder (``models/rnn_encoder_decoder.py``: an embedding, fc
+    and ``dynamic_lstm`` encoder pooled at its last step, a
+    ``DynamicRNN`` decoder, a masked cross-entropy) at vocabulary 30,000,
+    word and hidden 32, batch 64 x 32 (lengths in [8, 32]), with Adam at
+    ``piecewise_decay`` (a ``Switch`` of ``conditional_block``s): no graph
+    blocker for its five blocks; K2 on both tables, K3 of each table's
+    step gradient (against the CPU) and K6 over the 10 updates at the
+    step's shapes, bit-equal to their plain versions; the capture's
+    seconds and 6 replays on one batch, one graph: ms a replay with its
+    spread, target tokens/s, losses finite and falling, the rate read back
+    after each replay equal to the host's formula across both boundaries,
+    launches a replay K2 4, K3 2, K6 1 and no bf16 instance; a 2-replay
+    profile, which must record (device busy ms a replay, and from it the
+    timed replays' idle share; K2 4, K3 4 kernels, K6 1 a replay); a
+    replay bit-equal to an op-by-op
+    step (loss and every state tensor); the device ms by op type of an
+    eager step; (b) a ``While`` of 8 trips of tanh(fc) over [4096, 256]:
+    bounded (``max_iters``) with SGD, one replay a step (K5 once, no bf16
+    instance, bit-equal to its plain version at the step's 2 updates), and
+    its forward bounded
+    (replayed, and op by op) against unbounded (op by op, the condition
+    read on the host each trip, the reason named), outputs bit-equal
+    (``launches_control_flow`` and ``max_abs_err_control_flow`` on the
+    kernels line).
 
 Phase 9 also takes the 2 x 256 step in bf16 (``enable_amp``) with cuBLAS's
 reduced-precision bf16 reductions allowed (PyTorch's default) and not, and
@@ -6264,23 +6290,25 @@ def _lstm_cell(torch, pt, card, counters):
                     "lstm_bf16_profile", card,
                     {"batch": [LSTM_B, LSTM_T], "steps": LSTM_PROFILE_STEPS},
                     warm=lambda: exe.run(main, feed=feed, fetch_list=fetch, scope=scope))
-    if prof is not None:
-        res["profile"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share",
-                                               "by_family_ms", "by_family_launches",
-                                               "warm_records")}
-        fams = prof["by_family_launches"]
-        # K3 is two kernels a call (the sort and the segment sums)
-        want = {"gather_rows (K2)": 1, "scatter_add_rows (K3)": 2, "fused_adam (K6)": 1}
-        got = {k: fams.get(k, 0) for k in want}
-        if got != {k: LSTM_PROFILE_STEPS * v for k, v in want.items()}:
-            raise AssertionError(f"phase 25 (a): the profile's kernels {got}, want {want} a "
-                                 f"replay")
-        n_dev = sum(fams.values())
-        res["profile"]["device_operations_a_step"] = n_dev / LSTM_PROFILE_STEPS
-        print(f"phase 25 (a) profile of {LSTM_PROFILE_STEPS} replays behind a warm-up replay: "
-              f"idle share {prof['device_idle_share']:.4f}, {n_dev / LSTM_PROFILE_STEPS:.0f} "
-              f"device operations a step (the warm-up replay's records "
-              f"{prof['warm_records']}) [{card}]")
+    if prof is None:
+        raise AssertionError("phase 25 (a): the profiler recorded no device activity; the "
+                             "per-step kernel gates read it")
+    res["profile"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share",
+                                           "by_family_ms", "by_family_launches",
+                                           "warm_records")}
+    fams = prof["by_family_launches"]
+    # K3 is two kernels a call (the sort and the segment sums)
+    want = {"gather_rows (K2)": 1, "scatter_add_rows (K3)": 2, "fused_adam (K6)": 1}
+    got = {k: fams.get(k, 0) for k in want}
+    if got != {k: LSTM_PROFILE_STEPS * v for k, v in want.items()}:
+        raise AssertionError(f"phase 25 (a): the profile's kernels {got}, want {want} a "
+                             f"replay")
+    n_dev = sum(fams.values())
+    res["profile"]["device_operations_a_step"] = n_dev / LSTM_PROFILE_STEPS
+    print(f"phase 25 (a) profile of {LSTM_PROFILE_STEPS} replays behind a warm-up replay: "
+          f"idle share {prof['device_idle_share']:.4f}, {n_dev / LSTM_PROFILE_STEPS:.0f} "
+          f"device operations a step (the warm-up replay's records "
+          f"{prof['warm_records']}) [{card}]")
     moments = [n for n in persist if "_moment" in n]
     res["replay_vs_eager"] = _state_vs_eager(
         torch, exe, main, feed, fetch, scope, persist,
@@ -6568,6 +6596,384 @@ def phase_sequences(torch, card):
             "max_abs_err": res["lstm"]["kernel_max_abs_err"]}
 
 
+# Phase 26: control flow.  (a) the book's RNN encoder-decoder
+# (tests/test_dynamic_rnn.py::test_rnn_encoder_decoder_book's graph: an
+# embedding, fc and dynamic_lstm encoder pooled at its last step; a
+# DynamicRNN decoder over the target with the encoder's state as memory and
+# static input, fc(tanh) and fc to the vocabulary; softmax, cross-entropy
+# masked by sequence_mask) at the JAX package's book NMT widths, word and
+# hidden 32 (paddle_tpu/models/machine_translation.py:23, :45), a
+# vocabulary of 30,000 on both sides (the book's dict_size, phase 25's
+# LSTM_DICT), batch 64, padded length 32, lengths from the seed in
+# [8, 32]; Adam whose rate is piecewise_decay (a Switch of
+# conditional_blocks over the step counter), boundaries inside the replays
+CF_V, CF_E, CF_H, CF_B, CF_T = 30000, 32, 32, 64, 32
+CF_LOW = 8
+CF_BOUNDARIES, CF_RATES = [2, 4], [2e-3, 1e-3, 5e-4]
+CF_REPLAYS = 6
+CF_PROFILE_STEPS = 2
+# launches a replay: K2 on both tables in the forward and again in each
+# lookup_table_grad's re-run; K3 in each table's gradient; K6 once over the
+# 10 parameters (the kernel pass skips a program of several blocks, so the
+# ops keep their types and launch through their lowerings)
+CF_PER_STEP = {"gather_rows": 4, "scatter_add_rows": 2, "fused_adam": 1}
+# (b): a loop of CF_TRIPS trips of h = tanh(fc(h)) over [CF_ROWS, CF_WIDTH],
+# its weight shared by every trip: the bounded form (max_iters) trained by
+# SGD, one replay a step (K5 once); the forward alone bounded (replayed)
+# and unbounded (op by op, the condition read on the host each trip),
+# bit-equal to each other
+CF_ROWS, CF_WIDTH, CF_TRIPS = 4096, 256, 8
+CF_WHILE_STEPS = 6
+
+
+def _encdec_programs(pt):
+    """(a)'s program, the port's builder at CF_B x CF_T and the book's
+    widths: [loss, rate] and its main and startup programs."""
+    from paddle_tpu_torch.models import rnn_encoder_decoder
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        loss, lr = rnn_encoder_decoder.train_network(CF_B, CF_T, CF_BOUNDARIES, CF_RATES,
+                                                     dict_size=CF_V, word_dim=CF_E,
+                                                     hidden_dim=CF_H)
+    return main, startup, loss, lr
+
+
+def _encdec_feed(torch, seed):
+    """The builder's synthetic feed on the card, lengths in [CF_LOW, CF_T],
+    ids and lengths int32."""
+    from paddle_tpu_torch.models.rnn_encoder_decoder import synthetic_feed
+    feed = synthetic_feed(seed, CF_B, CF_T, dict_size=CF_V, low=CF_LOW)
+    return {k: torch.from_numpy(v.astype(np.int32)).to("cuda") for k, v in feed.items()}
+
+
+def _piecewise_rate(step):
+    """The host's piecewise formula: CF_RATES[i] below CF_BOUNDARIES[i]."""
+    for b, v in zip(CF_BOUNDARIES, CF_RATES):
+        if step < b:
+            return float(np.float32(v))
+    return float(np.float32(CF_RATES[-1]))
+
+
+def _encdec_kernels(torch, main, state0, feed, grads, card):
+    """(a)'s kernels at the step's shapes against their plain versions:
+    K2 on each [30000, 32] table at its 2,048 ids (and F.embedding); K3
+    of each table's step gradient rows (the embedding output's gradient
+    of the first step) at those ids, against the plain version on the CPU;
+    K6 over the step's 10 updates from its first state and gradients."""
+    from paddle_tpu_torch.ops.cuda.embedding import (gather_rows, gather_rows_plain,
+                                                     scatter_add_rows, scatter_add_rows_plain)
+    from paddle_tpu_torch.ops.cuda.fused_optimizer import fused_adam_multi, fused_adam_multi_plain
+    ops = main.desc.block(0).ops
+    lookups = [o for o in ops if o.type == "lookup_table"]
+    errs, ok = {"gather_rows": 0.0, "scatter_add_rows": 0.0}, {}
+    for o in lookups:
+        table, name = state0[o.input("W")[0]], o.input("Ids")[0]
+        ids = feed[name].reshape(-1).contiguous()
+        out, ref = gather_rows(table, ids), gather_rows_plain(table, ids)
+        lib = torch.nn.functional.embedding(ids.long(), table)
+        errs["gather_rows"] = max(errs["gather_rows"], (out - ref).abs().max().item())
+        ok[f"gather_rows {name}"] = torch.equal(out, ref) and torch.equal(out, lib)
+        rows = torch.as_tensor(np.asarray(grads[o.output("Out")[0]])).reshape(
+            ids.numel(), table.shape[1]).to("cuda", torch.float32)
+        got = scatter_add_rows(table, ids, rows)
+        want = scatter_add_rows_plain(table.cpu(), ids.cpu(), rows.cpu())
+        errs["scatter_add_rows"] = max(errs["scatter_add_rows"],
+                                       (got.cpu() - want).abs().max().item())
+        ok[f"scatter_add_rows {name}"] = torch.equal(got.cpu(), want)
+    ups = [o for o in ops if o.type == "adam"]
+    ((b1, b2, eps),) = {(o.attr("beta1"), o.attr("beta2"), o.attr("epsilon")) for o in ups}
+    entries = [(state0[o.input("Param")[0]].clone(),
+                torch.as_tensor(np.asarray(grads[o.input("Param")[0]])).to("cuda", torch.float32),
+                state0[o.input("Moment1")[0]].clone(), state0[o.input("Moment2")[0]].clone(),
+                state0[o.input("Beta1Pow")[0]], state0[o.input("Beta2Pow")[0]],
+                state0[o.input("LearningRate")[0]], False) for o in ups]
+    mine = fused_adam_multi([_adam_clones(e) for e in entries], b1, b2, eps)
+    theirs = fused_adam_multi_plain([_adam_clones(e) for e in entries], b1, b2, eps)
+    pairs = [(x, y) for a, b in zip(mine, theirs) for x, y in zip(a, b)]
+    errs["fused_adam"] = _max_abs_diff(torch, pairs)
+    ok["fused_adam"] = all(torch.equal(x, y) for x, y in pairs)
+    torch.cuda.synchronize()
+    print(f"phase 26 (a) kernels at the step's shapes against their plain versions: K2 on "
+          f"{len(lookups)} [{CF_V},{CF_E}] tables at {CF_B * CF_T} ids each (and F.embedding), "
+          f"K3 of each table's step gradient (plain on the CPU), K6 over {len(entries)} "
+          f"updates (the rate the Switch wrote): bit-equal {ok}; max abs err {errs} [{card}]")
+    if not all(ok.values()) or len(lookups) != 2 or len(entries) != 10:
+        raise AssertionError(f"phase 26 (a): a kernel differs from its plain version: {ok}, "
+                             f"{errs}")
+    return errs
+
+
+def _encdec_cell(torch, pt, card, counters):
+    """Phase 26 (a): the encoder-decoder trained one CUDA graph replay a
+    step; returns its readings."""
+    from paddle_tpu_torch.core.executor import analyze_state, graph_blockers
+    t0 = time.perf_counter()
+    main, startup, loss, lr = _encdec_programs(pt)
+    scope, exe = pt.Scope(), pt.Executor(pt.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    feed = _encdec_feed(torch, seed=26)
+    st_in, st_out = analyze_state(main.desc.block(0), list(feed))
+    blockers = graph_blockers(main, st_in, st_out)
+    types = [o.type for o in main.desc.block(0).ops]
+    kinds = {k: types.count(k) for k in ("recurrent", "recurrent_grad", "conditional_block",
+                                         "dynamic_lstm", "lookup_table", "lookup_table_grad",
+                                         "adam")}
+    persist = [v.name for v in main.list_vars() if v.persistable and scope.find_var(v.name)
+               is not None]
+    params = [p.name for p in main.global_block.all_parameters()]
+    tokens = int(feed["trg@SEQ_LEN"].sum().item())
+    print(f"phase 26 (a) encoder-decoder: vocabulary {CF_V}, word {CF_E}, hidden {CF_H}, batch "
+          f"{CF_B} x {CF_T} ({tokens} target tokens), piecewise_decay({CF_BOUNDARIES}, "
+          f"{CF_RATES}): {main.desc.num_blocks()} blocks, {len(types)} ops in block 0 {kinds}; "
+          f"{len(params)} parameters; graph blockers {blockers}; built and initialized in "
+          f"{time.perf_counter() - t0:.2f} s")
+    if blockers or main.desc.num_blocks() != 5 or kinds["conditional_block"] != 3:
+        raise AssertionError(f"phase 26 (a): blocks {main.desc.num_blocks()}, {kinds}, "
+                             f"blockers {blockers}")
+    state0 = {n: scope.find_var(n).clone() for n in persist}
+    emb_outs = [o.output("Out")[0] for o in main.desc.block(0).ops if o.type == "lookup_table"]
+    grad_names = [p + "@GRAD" for p in params] + [n + "@GRAD" for n in emb_outs]
+    first = exe._run_eager(main, feed, [loss.name] + grad_names, scope)
+    for n, t in state0.items():
+        scope.find_var(n).copy_(t)
+    grads = dict(zip(params + emb_outs, first[1:]))
+    kernel_errs = _encdec_kernels(torch, main, state0, feed, grads, card)
+    del grads, first
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    info = exe.precompile(main, feed=feed, fetch_list=[loss, lr], scope=scope)
+    for f in counters.values():
+        f.launches = 0
+    bf16_before = _bf16_snapshot(counters)
+    losses, rates, step_s = [], [], []
+    for _ in range(CF_REPLAYS):
+        t1 = time.perf_counter()
+        lv, rv = exe.run(main, feed=feed, fetch_list=[loss, lr], scope=scope)
+        step_s.append(time.perf_counter() - t1)
+        losses.append(float(np.asarray(lv)))
+        rates.append(float(np.asarray(rv).reshape(-1)[0]))
+    launches = _launch_snapshot(counters)
+    bf16 = {k: v - bf16_before[k] for k, v in _bf16_snapshot(counters).items()}
+    peak = torch.cuda.max_memory_allocated() - base
+    entries = [e for e in exe.cache_info()["entries"] if "src" in e["feeds"]]
+    step_ms = 1e3 * float(np.median(step_s))
+    want_rates = [_piecewise_rate(k) for k in range(CF_REPLAYS)]
+    res = {"card": card, "blocks": main.desc.num_blocks(), "ops": len(types), "op_kinds": kinds,
+           "capture_s": info["compile_s"], "losses": losses, "rates": rates,
+           "step_ms": [1e3 * s for s in step_s], "step_ms_median": step_ms,
+           "step_ms_min": 1e3 * min(step_s), "step_ms_max": 1e3 * max(step_s),
+           "target_tokens": tokens, "target_tokens_per_s": tokens / (step_ms / 1e3),
+           "peak_over_base_gib": peak / 2 ** 30, "launches": launches, "bf16_launches": bf16,
+           "kernel_max_abs_err": kernel_errs}
+    print(f"phase 26 (a) capture {info['compile_s']:.2f} s (kind {info['kind']}); "
+          f"{CF_REPLAYS} replays on one batch: losses {losses}; rates read back {rates} (the "
+          f"host's piecewise formula {want_rates}); step ms "
+          f"{[round(1e3 * s, 3) for s in step_s]}; median {step_ms:.3f} ms (min "
+          f"{res['step_ms_min']:.3f}, max {res['step_ms_max']:.3f}); "
+          f"{res['target_tokens_per_s']:.0f} target tokens/s; peak {peak / 2 ** 30:.3f} GiB "
+          f"over what was allocated before; hand-written kernel launches {launches} (bf16 "
+          f"instances {bf16}) [{card}]")
+    if info["kind"] != "graph" or [e["kind"] for e in entries] != ["graph"] \
+            or exe.cache_info()["captures"] != 1:
+        raise AssertionError(f"phase 26 (a): the step is not one graph: {info}, {entries}")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 26 (a): losses not finite and falling: {losses}")
+    if rates != want_rates:
+        raise AssertionError(f"phase 26 (a): rates {rates}, the formula gives {want_rates}")
+    want = {k: CF_REPLAYS * v for k, v in CF_PER_STEP.items()}
+    if {k: launches[k] for k in want} != want or any(bf16.values()) or \
+            any(v for k, v in launches.items() if k not in want):
+        raise AssertionError(f"phase 26 (a): launches {launches}, bf16 instances {bf16}; want "
+                             f"{CF_PER_STEP} a replay, no bf16 instance")
+    prof = _profile(torch, lambda: [exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+                                    for _ in range(CF_PROFILE_STEPS)],
+                    "encdec_profile", card,
+                    {"batch": [CF_B, CF_T], "steps": CF_PROFILE_STEPS},
+                    warm=lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope))
+    if prof is None:
+        raise AssertionError("phase 26 (a): the profiler recorded no device activity; the "
+                             "per-step kernel gates and the idle share read it")
+    res["profile"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share",
+                                           "by_family_ms", "by_family_launches",
+                                           "warm_records")}
+    fams = prof["by_family_launches"]
+    # K3 is two kernels a call (the sort and the segment sums)
+    want = {"gather_rows (K2)": 4, "scatter_add_rows (K3)": 4, "fused_adam (K6)": 1}
+    got = {k: fams.get(k, 0) for k in want}
+    if got != {k: CF_PROFILE_STEPS * v for k, v in want.items()}:
+        raise AssertionError(f"phase 26 (a): the profile's kernels {got}, want {want} a "
+                             f"replay")
+    n_dev = sum(fams.values())
+    busy = prof["device_busy_ms"] / CF_PROFILE_STEPS
+    # the profiler stretches the host's side of a replay (its wall a step
+    # is printed beside the unprofiled one), so the idle share of the
+    # timed replays is read from their median and the profile's busy time
+    res["profile"].update(device_operations_a_step=n_dev / CF_PROFILE_STEPS,
+                          device_busy_ms_a_step=busy,
+                          idle_share_of_timed_replays=1.0 - busy / step_ms)
+    print(f"phase 26 (a) profile of {CF_PROFILE_STEPS} replays behind a warm-up replay: "
+          f"wall {prof['wall_ms'] / CF_PROFILE_STEPS:.3f} ms a replay (unprofiled median "
+          f"{step_ms:.3f}), device busy {busy:.3f} ms a replay; idle share "
+          f"{res['profile']['idle_share_of_timed_replays']:.4f} of the timed replays "
+          f"({prof['device_idle_share']:.4f} of the profiled window); "
+          f"{n_dev / CF_PROFILE_STEPS:.0f} device operations a step [{card}]")
+    moments = [n for n in persist if "_moment" in n]
+    res["replay_vs_eager"] = _state_vs_eager(
+        torch, exe, main, feed, [loss, lr], scope, persist,
+        {"parameters": params, "moments": moments}, "encoder-decoder", card,
+        phase="phase 26 (a)")
+    if res["replay_vs_eager"]["differ"] or not res["replay_vs_eager"]["fetch_equal"]:
+        raise AssertionError(f"phase 26 (a): the replay differs from the op-by-op step: "
+                             f"{res['replay_vs_eager']}")
+    res["device_by_op"] = _device_trace_step(
+        torch, exe, main, feed, loss, scope, "phase 26 encoder-decoder", card,
+        need=("gather_rows (K2)", "scatter_add_rows (K3)", "fused_adam (K6)"), warm=True)
+    del exe, scope, state0
+    _free_trainer(torch, "phase 26 (a)")
+    return res
+
+
+def _while_programs(pt, max_iters, train):
+    """(b)'s loop: CF_TRIPS trips of h = tanh(fc(h)) from the feed, its fc
+    shared by every trip; with ``train``, SGD on mean((h - t)^2)."""
+    L = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        x = L.data(name="x", shape=[CF_ROWS, CF_WIDTH], append_batch_size=False)
+        t = L.data(name="t", shape=[CF_ROWS, CF_WIDTH], append_batch_size=False)
+        i = L.fill_constant(shape=[1], dtype="int32", value=0)
+        limit = L.fill_constant(shape=[1], dtype="int32", value=CF_TRIPS)
+        h = L.assign(x)
+        h.stop_gradient = False
+        cond = L.less_than(i, limit)
+        with L.While(cond, max_iters=max_iters).block():
+            L.assign(L.fc(input=h, size=CF_WIDTH, act="tanh",
+                          param_attr=pt.ParamAttr(name="loop_w"),
+                          bias_attr=pt.ParamAttr(name="loop_b")), output=h)
+            L.increment(i, value=1, in_place=True)
+            L.less_than(i, limit, cond=cond)
+        diff = L.elementwise_sub(h, t)
+        loss = L.mean(L.elementwise_mul(diff, diff))
+        if train:
+            pt.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    return main, startup, loss
+
+
+def _while_cell(torch, pt, card, counters):
+    """Phase 26 (b): the bounded While trained one replay a step (K5);
+    the forward bounded and replayed against unbounded and op by op."""
+    from paddle_tpu_torch.ops.cuda.fused_optimizer import fused_sgd_multi, fused_sgd_multi_plain
+    g = torch.Generator().manual_seed(261)
+    feed = {"x": torch.randn(CF_ROWS, CF_WIDTH, generator=g).to("cuda"),
+            "t": (0.5 * torch.randn(CF_ROWS, CF_WIDTH, generator=g)).to("cuda")}
+    res = {}
+    main, startup, loss = _while_programs(pt, CF_TRIPS, train=True)
+    scope, exe = pt.Scope(), pt.Executor(pt.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    params = ["loop_w", "loop_b"]
+    state0 = {n: scope.find_var(n).clone() for n in params}
+    first = exe._run_eager(main, feed, [loss.name] + [p + "@GRAD" for p in params], scope)
+    for n, t in state0.items():
+        scope.find_var(n).copy_(t)
+    ((lr_name,),) = {tuple(o.input("LearningRate")) for o in main.desc.block(0).ops
+                     if o.type == "sgd"}
+    lr_t = scope.find_var(lr_name)
+    entries = [(state0[p].clone(), torch.as_tensor(np.asarray(gv)).to("cuda"), lr_t)
+               for p, gv in zip(params, first[1:])]
+    mine = fused_sgd_multi([(p.clone(), gr, r) for p, gr, r in entries])
+    theirs = fused_sgd_multi_plain([(p.clone(), gr, r) for p, gr, r in entries])
+    k5_err = _max_abs_diff(torch, list(zip(mine, theirs)))
+    k5_ok = all(torch.equal(a, b) for a, b in zip(mine, theirs))
+    info = exe.precompile(main, feed=feed, fetch_list=[loss], scope=scope)
+    for f in counters.values():
+        f.launches = 0
+    bf16_before = _bf16_snapshot(counters)
+    losses, step_s = _timed_replays(exe, main, feed, [loss], scope, CF_WHILE_STEPS)
+    launches = _launch_snapshot(counters)
+    bf16 = {k: v - bf16_before[k] for k, v in _bf16_snapshot(counters).items()}
+    train_ms = 1e3 * float(np.median(step_s))
+    print(f"phase 26 (b) bounded While ({CF_TRIPS} trips of tanh(fc) over [{CF_ROWS}, "
+          f"{CF_WIDTH}], max_iters {CF_TRIPS}) + SGD: K5 at the step's 2 updates against its "
+          f"plain version bit-equal {k5_ok} (max abs err {k5_err}); capture "
+          f"{info['compile_s']:.2f} s (kind {info['kind']}); {CF_WHILE_STEPS} replays: losses "
+          f"{losses}; step ms {[round(1e3 * s, 3) for s in step_s]}, median {train_ms:.3f}; "
+          f"launches {launches} (bf16 instances {bf16}) [{card}]")
+    if info["kind"] != "graph" or not k5_ok or not np.isfinite(losses).all() \
+            or not losses[-1] < losses[0] or launches["fused_sgd"] != CF_WHILE_STEPS \
+            or any(v for k, v in launches.items() if k != "fused_sgd") or any(bf16.values()):
+        raise AssertionError(f"phase 26 (b): {info}, K5 {k5_ok}, losses {losses}, launches "
+                             f"{launches}, bf16 instances {bf16}")
+    res["bounded_sgd"] = {"capture_s": info["compile_s"], "losses": losses,
+                          "step_ms": [1e3 * s for s in step_s], "step_ms_median": train_ms,
+                          "launches": launches, "bf16_launches": bf16, "k5_max_abs_err": k5_err}
+    res["k5_max_abs_err"] = k5_err
+    del exe, scope
+
+    outs, times = {}, {}
+    for form, max_iters in (("bounded", CF_TRIPS), ("unbounded", None)):
+        fmain, fstartup, floss = _while_programs(pt, max_iters, train=False)
+        fscope, fexe = pt.Scope(), pt.Executor(pt.CUDAPlace(0))
+        fexe.run(fstartup, scope=fscope)
+        for n, t in state0.items():
+            fscope.find_var(n).copy_(t)
+        if max_iters is not None:
+            fexe.precompile(fmain, feed=feed, fetch_list=[floss], scope=fscope)
+        else:
+            fexe.run(fmain, feed=feed, fetch_list=[floss], scope=fscope)
+        vals, run_s = _timed_replays(fexe, fmain, feed, [floss], fscope, CF_WHILE_STEPS)
+        (entry,) = [e for e in fexe.cache_info()["entries"] if "x" in e["feeds"]]
+        outs[form], times[form] = vals, [1e3 * s for s in run_s]
+        res[form] = {"kind": entry["kind"], "reasons": entry["reasons"], "ms": times[form],
+                     "ms_median": float(np.median(times[form]))}
+        if form == "bounded":
+            eager_s = []
+            for _ in range(CF_WHILE_STEPS):
+                t1 = time.perf_counter()
+                fexe._run_eager(fmain, feed, [floss], fscope)
+                eager_s.append(time.perf_counter() - t1)
+            res["bounded_op_by_op_ms_median"] = 1e3 * float(np.median(eager_s))
+        want_kind = "graph" if max_iters is not None else "eager"
+        if entry["kind"] != want_kind or (max_iters is None) != bool(entry["reasons"]):
+            raise AssertionError(f"phase 26 (b) {form}: {entry}")
+        del fexe, fscope
+    print(f"phase 26 (b) the loop's forward, {CF_TRIPS} trips: bounded, one graph replay "
+          f"{res['bounded']['ms_median']:.3f} ms a run (op by op "
+          f"{res['bounded_op_by_op_ms_median']:.3f} ms); unbounded, op by op, the condition "
+          f"read on the host each trip, {res['unbounded']['ms_median']:.3f} ms a run "
+          f"({res['unbounded']['ms_median'] / res['bounded']['ms_median']:.2f}x the replay; "
+          f"reason: {res['unbounded']['reasons']}); outputs bit-equal "
+          f"{outs['bounded'] == outs['unbounded']} [{card}]")
+    if outs["bounded"] != outs["unbounded"]:
+        raise AssertionError(f"phase 26 (b): bounded {outs['bounded']} != unbounded "
+                             f"{outs['unbounded']}")
+    _free_trainer(torch, "phase 26 (b)")
+    return res
+
+
+def phase_control_flow(torch, card):
+    """Phase 26 (see the module docstring): control flow.  Returns (a)'s
+    and (b)'s launches by kernel, each counted from 0, the float32
+    instances and the bf16 ones (gated at 0) apart, and the kernels'
+    largest errors at (a)'s and (b)'s shapes."""
+    import paddle_tpu_torch as pt
+    counters = _counters()
+    res = {}
+    t_piece = time.perf_counter()
+    res["encoder_decoder"] = _encdec_cell(torch, pt, card, counters)
+    t_piece = _piece_seconds("phase 26 (a)", t_piece)
+    res["while"] = _while_cell(torch, pt, card, counters)
+    _piece_seconds("phase 26 (b)", t_piece)
+    print(json.dumps({"control_flow": res}))
+    cells = (res["encoder_decoder"], res["while"]["bounded_sgd"])
+    bf16 = {k: sum(c["bf16_launches"][k] for c in cells) for k in cells[0]["bf16_launches"]}
+    launches = {k: sum(c["launches"][k] for c in cells) - bf16[k]
+                for k in cells[0]["launches"]}
+    errs = {**res["encoder_decoder"]["kernel_max_abs_err"],
+            "fused_sgd": res["while"]["k5_max_abs_err"]}
+    return {"launches": launches, "bf16_launches": bf16, "max_abs_err": errs}
+
+
 def _release_serving(torch, label):
     """A serving phase's inferencers (and their graphs' memory pools) are
     gone once it returns: collect them before the training phases."""
@@ -6646,6 +7052,7 @@ def _main(torch, build):
     health_launches, health_bf16 = timed("health", phase_health)
     book_launches = timed("book", phase_book)
     seq_launches = timed("sequences", phase_sequences)
+    cf = timed("control_flow", phase_control_flow)
     print(f"seconds by phase function: {json.dumps(seconds)}; "
           f"{sum(seconds.values()):.1f} in all; {time.perf_counter() - t_main:.1f} since the "
           f"card's name was read (the kernel build included) [{card}]")
@@ -6716,6 +7123,12 @@ def _main(torch, build):
     # apart (the float32 K3 gated at 0 in (a) and (b), the bf16 instances at
     # 0 in (c)).  max_abs_err_lstm: (a)'s check of K2, the bf16 K3 and K6 at
     # the step's shapes, also in max_abs_err
+    # launches_control_flow: phase 26, counted from 0 -- (a) the
+    # encoder-decoder's timed replays (K2 4, K3 2, K6 1 a replay), (b) the
+    # bounded While's SGD replays (K5 1 a replay); the float32 and the bf16
+    # instances apart (the bf16 entries' count, gated at 0 in both).
+    # max_abs_err_control_flow: (a)'s check of K2, K3 and K6 and (b)'s of
+    # K5 at their steps' shapes, also in max_abs_err
     for e in kernels:
         e["launches_trainer"] = trainer_launches[e["name"]]
         e["launches_profile"] = PHASE19["launches_profile"].get(e["name"], 0)
@@ -6731,6 +7144,10 @@ def _main(torch, build):
         if e["name"] in seq_launches["max_abs_err"]:
             e["max_abs_err_lstm"] = seq_launches["max_abs_err"][e["name"]]
             e["max_abs_err"] = max(e["max_abs_err"], e["max_abs_err_lstm"])
+        e["launches_control_flow"] = cf["launches"][e["name"]]
+        if e["name"] in cf["max_abs_err"]:
+            e["max_abs_err_control_flow"] = cf["max_abs_err"][e["name"]]
+            e["max_abs_err"] = max(e["max_abs_err"], e["max_abs_err_control_flow"])
     k4["quantizers"]["launches_profile"] = {
         n: PHASE19["launches_profile"].get(n, 0) for n in ("abs_max_pair", "quantize_int8")}
     k4["quantizers"]["launches_reference_path"] = {
@@ -6750,7 +7167,8 @@ def _main(torch, build):
                  launches_health=health_bf16.get(name, 0), launches_book=0,
                  launches_lstm=seq_launches["a_bf16"].get(name, 0),
                  launches_imdb_trainer=seq_launches["b_bf16"].get(name, 0),
-                 launches_seq_models=seq_launches["c_bf16"].get(name, 0))
+                 launches_seq_models=seq_launches["c_bf16"].get(name, 0),
+                 launches_control_flow=cf["bf16_launches"].get(name, 0))
         lstm_err = seq_launches["max_abs_err"].get(f"{name}_bf16")
         if lstm_err is not None:
             e["max_abs_err_lstm"] = lstm_err

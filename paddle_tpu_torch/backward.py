@@ -203,9 +203,11 @@ def _check_params(block, targets, relevant, params, pairs, no_grad, no_grad_set)
             raise ValueError(
                 f"parameters {silent} influence the loss but received no "
                 f"gradient: a path to the loss is blocked by a "
-                f"non-differentiable op or a stop_gradient var.  Fix the "
-                f"blocker, or add the parameter to no_grad_set to train "
-                f"without it.")
+                f"non-differentiable op (e.g. a While without max_iters, or "
+                f"array ops) or by a stop_gradient var (e.g. a "
+                f"fill_constant-initialized accumulator: set "
+                f"var.stop_gradient = False).  Fix the blocker, or add the "
+                f"parameter to no_grad_set to train without it.")
 
 
 def _ensure_grad_var(block: Block, grad_name: str, fwd_name: str):

@@ -30,8 +30,7 @@ NONSEMANTIC_VAR_ATTRS = frozenset({"seq_len_buckets", "mem_bytes_hint",
                                    "kv_cache_slots", "decode_position"})
 
 # Marker for an attribute value that refers to a block index (a control-flow
-# op's body).  The port lowers no such op, but the analysis walks them in
-# programs either package serialized.
+# op's body).
 BLOCK_ATTR_PREFIX = "__block__:"
 
 # Gradient var naming: ``x@GRAD`` is the gradient of ``x``; a second
@@ -266,6 +265,14 @@ class ProgramDesc:
     @property
     def version(self) -> int:
         return self._version
+
+    def append_block(self, parent: BlockDesc) -> BlockDesc:
+        """A new empty block whose var lookup falls through to ``parent``
+        (a control-flow op's body)."""
+        b = BlockDesc(self, len(self.blocks), parent.idx)
+        self.blocks.append(b)
+        self._bump()
+        return b
 
     def num_blocks(self) -> int:
         return len(self.blocks)

@@ -15,15 +15,17 @@ moments in place to begin with.  So a scope tensor keeps its address from
 step to step; only state the block initializes (the startup program) is
 bound anew.
 
-On a CUDA place an entry of a program with one block whose written state
-all exists already (``state_out`` within ``state_in``: an inference
-program, a training step) holds one CUDA graph of the whole lowering of
-block 0 and its write-back: a hit copies the feeds into the graph's static
-buffers and replays it, and no op is lowered from Python.  A program that
+On a CUDA place an entry of a program whose written state all exists
+already (``state_out`` within ``state_in``: an inference program, a
+training step) holds one CUDA graph of the whole lowering of block 0 (its
+control-flow ops' sub-blocks included) and its write-back: a hit copies
+the feeds into the graph's static buffers and replays it, and no op is
+lowered from Python.  A program that
 draws random numbers registers the executor's generator with its graph,
 so each replay draws anew and advances it as an eager run would.  Any
 other entry (the startup program, which initializes state; a generic
-grad of a random op, which forks the generator; several blocks; every
+grad of a random op, which forks the generator; a ``while`` without
+``max_iters``, which reads its condition on the host each trip; every
 entry on the CPU) lowers the block op by op: the environment is built from
 the scope's state, the feeds and their ``@SEQ_LEN`` lengths, and every
 op's lowering runs in order.  Which kind an entry is is decided from the
@@ -136,11 +138,11 @@ from ..flags import FLAGS
 from ..health import _nonfinite, sentinel_classes, sentinel_extras, shadow_state
 from ..log import VLOG
 from ..telemetry import REGISTRY, TIMELINE
-from .desc import GRAD_SUFFIX, BlockDesc, VarType
+from .desc import GRAD_SUFFIX, BlockDesc, OpDesc, VarType, block_written_names
 from .dtypes import coerce_feed_dtype, convert_dtype
 from .framework import Program, Variable, default_main_program
-from .lower import _SKIP_OPS, LowerCtx, lower_block, lower_op, plan_frees
-from .registry import op_draws, op_forks
+from .lower import _SKIP_OPS, LowerCtx, TensorArrayVal, lower_block, lower_op, plan_frees
+from .registry import op_draws, op_forks, sub_blocks
 from .scope import Scope, global_scope
 from .staging import (COUNTERS, FeedStager, FetchHandle, executable_fingerprint,
                       prefetch_to_host)
@@ -199,19 +201,43 @@ def place_device(place: Place) -> torch.device:
 def analyze_state(block: BlockDesc, feed_names) -> tuple:
     """(state_in, state_out): names the block reads before any op writes
     them and that are not feeds, and written names that are persistable or
-    read-modify-written."""
-    defined = set(feed_names)
+    read-modify-written.  Control-flow sub-blocks are scanned too: a name
+    a body reads from the enclosing scope is read by the block, and a name
+    a ``while`` or ``conditional_block`` body writes there is a carry,
+    both read (its value before the loop or branch) and written."""
+    feeds = set(feed_names)
     state_in: List[str] = []
     written: List[str] = []
-    for op in block.ops:
+
+    def scan(op: OpDesc, defined: set):
         for name in op.input_names():
-            if name and name not in defined and name not in state_in:
+            if name and name not in defined and name not in feeds and name not in state_in:
                 state_in.append(name)
+        for sub in sub_blocks(op, block.program):
+            # vars declared in the sub-block are local to it (step inputs
+            # and memories the lowering binds)
+            sub_defined = defined | set(sub.vars)
+            for sop in sub.ops:
+                scan(sop, sub_defined)
+                sub_defined.update(n for n in sop.output_names() if n)
+            if op.type not in ("while", "conditional_block"):
+                continue
+            for n in block_written_names(sub):
+                if n in sub.vars or n in feeds:
+                    continue
+                if n not in defined and n not in state_in:
+                    state_in.append(n)
+                if n not in written:
+                    written.append(n)
         for name in op.output_names():
             if name:
                 defined.add(name)
                 if name not in written:
                     written.append(name)
+
+    defined: set = set()
+    for op in block.ops:
+        scan(op, defined)
     state_out = []
     for n in written:
         vd = block.find_var(n)
@@ -226,20 +252,28 @@ def graph_blockers(program: Program, state_in: Sequence[str],
     reference's rule: the block may be one executable when every state
     name it writes is one it reads (its graph then updates the scope's
     tensors in place); a block that initializes state does not.  Nor does
-    a block with a generic grad of a random op, whose re-run draws from a
-    fork of the generator (a graph would replay the fork's numbers), or a
-    program of more than one block."""
+    a block with a generic grad of a random op, or the grad of a control
+    flow op whose body draws, which draws from a fork of the generator (a
+    graph would replay the fork's numbers), or one that runs a ``while``
+    without ``max_iters``, which reads its condition on the host each
+    trip.  A bounded ``while``, a ``conditional_block`` and a
+    ``recurrent`` op run a fixed number of trips on the device and are
+    recorded whole."""
     reasons = []
     have = set(state_in)
     created = [n for n in state_out if n not in have]
     if created:
         names = ", ".join(created[:3]) + (", ..." if len(created) > 3 else "")
         reasons.append(f"initializes state ({len(created)} vars: {names})")
-    forks = sorted({op.type for op in program.desc.block(0).ops if op_forks(op)})
+    desc = program.desc
+    ops = [op for b in desc.blocks for op in b.ops]
+    forks = sorted({op.type for op in ops if op_forks(op, desc)})
     if forks:
         reasons.append(f"forks the generator in a generic grad ({', '.join(forks)})")
-    if program.desc.num_blocks() > 1:
-        reasons.append(f"{program.desc.num_blocks()} blocks")
+    unbounded = sum(op.type == "while" and op.attr("max_iters") is None for op in ops)
+    if unbounded:
+        reasons.append(f"runs {unbounded} unbounded while loop(s) (no max_iters), which read "
+                       f"their condition on the host each trip")
     return reasons
 
 
@@ -561,11 +595,10 @@ class Executor:
         """The ``program.amp = True`` bridge: the flag goes through the
         ``amp-bf16`` pass with the default policy, so the legacy API is
         fingerprint-identical to the pass path.  A program an amp pass has
-        already rewritten is left alone.  The JAX package runs a program
-        the pass skips (several blocks) with lowering-time casts; the port
-        has no such path, and running it in float32 would ignore the
-        flag, so it raises.  ``feed_shapes`` gives the feed shapes on a
-        memo miss."""
+        already rewritten is left alone.  A program the pass skips
+        (several blocks) keeps the flag and runs with the lowering-time
+        casts (``core/lower.py``), as in the JAX package.  ``feed_shapes``
+        gives the feed shapes on a memo miss."""
         if not program.amp or program._amp_policy_fp:
             return program
         key = (program.desc.uid, program.desc.version, tuple(fetch_names))
@@ -575,12 +608,6 @@ class Executor:
         from ..passes import PassPipeline
         new_prog, result = PassPipeline(["amp-bf16"]).run(program, fetch_list=fetch_names,
                                                           feed_shapes=feed_shapes())
-        skipped = result.passes[0].skipped
-        if skipped:
-            raise NotImplementedError(
-                f"program.amp is set but the amp-bf16 pass skips this program "
-                f"({skipped}); the port has no lowering-time cast path to run "
-                f"it in bf16 -- call amp.disable_amp(program) to run it in float32")
         self._amp_bridge_memo[key] = new_prog
         if new_prog is not program:
             self._amp_bridge_memo[(new_prog.desc.uid, new_prog.desc.version)
@@ -866,7 +893,7 @@ class Executor:
         if not hits:
             return
         env, gen = snapshot
-        ctx = LowerCtx(entry.block, dict(env), gen, self.device)
+        ctx = LowerCtx(entry.block, dict(env), gen, self.device, amp=bool(entry.program.amp))
         with torch.no_grad():
             for i, op in enumerate(entry.block.ops):
                 if op.type in _SKIP_OPS:
@@ -1026,7 +1053,7 @@ class Executor:
         if analysis is None:
             state_in, state_out = analyze_state(desc.block(0), feeds)
             analysis = (state_in, state_out, graph_blockers(program, state_in, state_out),
-                        any(op_draws(op) for op in desc.block(0).ops))
+                        any(op_draws(op, desc) for op in desc.block(0).ops))
             self._analysis_memo[akey] = analysis
         state = []
         for n in analysis[0]:
@@ -1228,11 +1255,16 @@ class Executor:
             # the sentinel reads its watched names after the last op
             entry.frees = plan_frees(entry.block, set(entry.fetch_names) | set(entry.state_out)
                                      | set(entry.grad_watch) | set(entry.param_watch))
-        ctx = LowerCtx(entry.block, env, gen, self.device, frees=entry.frees)
+        ctx = LowerCtx(entry.block, env, gen, self.device, frees=entry.frees,
+                       amp=bool(entry.program.amp))
         ctx.sentinel = []
         with torch.no_grad():
             old = shadow_state(env, entry.param_watch) if entry.sentinel_extra else None
             lower_block(ctx, entry.block)
+            for n in entry.fetch_names:
+                # a fetched tensor array is its elements stacked
+                if isinstance(ctx.env.get(n), TensorArrayVal):
+                    ctx.env[n] = torch.stack(list(ctx.env[n]))
             rest = _write_back(entry.state_out, homes, ctx.env)
             if entry.sentinel_extra:
                 ctx.sentinel = sentinel_extras(

@@ -278,6 +278,24 @@ class Program:
     def current_block(self) -> Block:
         return self.blocks[self.current_block_idx]
 
+    def create_block(self, parent_idx: Optional[int] = None) -> Block:
+        """A new block under ``parent_idx`` (the current block by default),
+        made current: the layers a control-flow construct's body calls
+        append their ops there."""
+        parent = self.block(parent_idx if parent_idx is not None else self.current_block_idx)
+        self.desc.append_block(parent.desc)
+        b = Block(self, len(self.blocks))
+        self.blocks.append(b)
+        self.current_block_idx = b.idx
+        return b
+
+    def rollback(self):
+        """Make the current block's parent current again."""
+        self.current_block_idx = self.block(self.current_block_idx).parent_idx
+
+    def num_blocks(self) -> int:
+        return len(self.blocks)
+
     def list_vars(self):
         for b in self.blocks:
             yield from b.vars.values()

@@ -19,7 +19,9 @@ of its forward op.
 The executor gives the context :func:`plan_frees`' plan: each value leaves the
 environment after the last op that reads or writes it, so a block holds
 only what it still needs (the reference's XLA computation frees its
-buffers as it goes too).
+buffers as it goes too).  A control-flow op runs its sub-block in a child
+context (:meth:`LowerCtx.child`) with the sub-block's own plan, and the
+names its sub-block reads count as read by the op.
 
 While a torch profiler is active each op's lowering runs inside a
 ``record_function`` range named ``op<idx>:<type>@<file.py:line>`` (the JAX
@@ -29,12 +31,13 @@ With no profiler active the lowering pays one check.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from .desc import BlockDesc, OpDesc
-from .registry import OPS
+from ..amp import policy as _amp_policy
+from .desc import BlockDesc, OpDesc, block_outer_reads, block_written_names
+from .registry import OPS, sub_blocks
 
 # whether any torch profiler is recording (one C call)
 _profiler_enabled = torch._C._autograd._profiler_enabled
@@ -51,6 +54,41 @@ SEQ_LEN_AWARE: set = set()
 # op types no lowering runs: the executor, the localization and the op
 # profiler's replay skip them (the JAX executor skips the same set)
 _SKIP_OPS = frozenset({"feed", "fetch", "read"})
+
+# The lowering-time casts of bf16 mixed precision, for a program flagged
+# ``amp`` that the ``amp-bf16`` pass does not rewrite (one of several
+# blocks), as the JAX package's lowering applies them: while an op of the
+# bf16 class (``amp.policy.WHITELIST``) runs, the float32 values it reads
+# are read as bf16; while an op of the float32 class (the BLACKLIST, but
+# batch_norm, which this path leaves alone) runs, bf16 values are read as
+# float32.  A grad op takes its forward op's class, but for the fused head's
+# grad, whose body casts its own operands.
+AMP_WHITELIST = frozenset(_amp_policy.WHITELIST)
+AMP_BLACKLIST = frozenset(_amp_policy.BLACKLIST - {"batch_norm"})
+AMP_GRAD_UNCAST = frozenset(_amp_policy.GRAD_UNCAST)
+
+
+def _amp_class(op_type: str) -> Optional[torch.dtype]:
+    """The dtype an op's float reads are cast to under the lowering-time
+    casts: bf16, float32, or None (read as they are)."""
+    if op_type in AMP_GRAD_UNCAST:
+        return None
+    base = op_type[:-len("_grad")] if op_type.endswith("_grad") else op_type
+    if base in AMP_WHITELIST:
+        return torch.bfloat16
+    if base in AMP_BLACKLIST:
+        return torch.float32
+    return None
+
+
+def _amp_cast(v, want: Optional[torch.dtype]):
+    """``v`` moved between float32 and bf16 to ``want``; any other value
+    as it is."""
+    if want is None or not isinstance(v, torch.Tensor) or v.dtype == want:
+        return v
+    if v.dtype in (torch.float32, torch.bfloat16):
+        return v.to(want)
+    return v
 
 
 def _propagate_seq_len(ctx: "LowerCtx", op: OpDesc):
@@ -79,32 +117,63 @@ def _propagate_seq_len(ctx: "LowerCtx", op: OpDesc):
             ctx.write(n + SEQ_LEN_SUFFIX, in_lens)
 
 
+class TensorArrayVal(list):
+    """The value of a TENSOR_ARRAY var: a list of tensors (Fluid's
+    LoDTensorArray)."""
+
+
 class LowerCtx:
     """Environment of one block run: ``env`` maps var name -> tensor.
     ``generator`` is the ``torch.Generator`` random ops draw from;
     ``device`` is where ops create new tensors; ``frees`` is
     :func:`plan_frees`' plan for the block, or None to keep every value.
-    (The JAX package's parent contexts for control-flow sub-blocks come
-    with control flow.)"""
+
+    A control-flow op runs its sub-block in a :meth:`child` context:
+    reads fall through to the parent (the block's lexical scope), writes
+    stay in the child, and the child draws from the parent's generator
+    unless it is given one of its own."""
 
     def __init__(self, block: BlockDesc, env: Dict[str, Any],
-                 generator: torch.Generator, device: torch.device,
-                 frees: Optional[List[List[str]]] = None):
+                 generator: Optional[torch.Generator], device: torch.device,
+                 frees: Optional[List[List[str]]] = None,
+                 parent: Optional["LowerCtx"] = None, amp: bool = False):
         self.block = block
         self.env = env
+        self.parent = parent
         self.generator = generator
         self.device = device
         self.frees = frees
+        # the lowering-time bf16 casts (``_amp_class``): ``amp_cast`` is
+        # the dtype the running op's float reads are cast to
+        self.amp = amp
+        self.amp_cast: Optional[torch.dtype] = None
+
+    @property
+    def generator(self):
+        if self._generator is None and self.parent is not None:
+            return self.parent.generator
+        return self._generator
+
+    @generator.setter
+    def generator(self, value):
+        self._generator = value
 
     def read(self, name: str):
-        if name not in self.env:
+        v = self.read_opt(name)
+        if v is None:
             raise KeyError(
                 f"var {name!r} is not defined at this point of block {self.block.idx}"
             )
-        return self.env[name]
+        return v if self.amp_cast is None else _amp_cast(v, self.amp_cast)
 
     def read_opt(self, name: str):
-        return self.env.get(name)
+        v = self.env.get(name)
+        if v is None and self.parent is not None:
+            return self.parent.read_opt(name)
+        return v
+
+    def has(self, name: str) -> bool:
+        return self.read_opt(name) is not None
 
     def write(self, name: str, value):
         if name:
@@ -122,6 +191,15 @@ class LowerCtx:
         if names:
             self.write(names[0], value)
 
+    def child(self, block: BlockDesc, env: Optional[Dict[str, Any]] = None,
+              frees: Optional[List[List[str]]] = None,
+              generator: Optional[torch.Generator] = None,
+              amp: Optional[bool] = None) -> "LowerCtx":
+        """The context of ``block`` (a sub-block) run under this one, with
+        this one's lowering-time casts unless ``amp`` says otherwise."""
+        return LowerCtx(block, {} if env is None else env, generator, self.device,
+                        frees=frees, parent=self, amp=self.amp if amp is None else amp)
+
 
 def _op_scope_name(op: OpDesc, index: Optional[int]) -> str:
     """The profiler range of one op: ``op<idx>:<type>@<file.py:line>``."""
@@ -133,6 +211,17 @@ def _op_scope_name(op: OpDesc, index: Optional[int]) -> str:
 
 
 def lower_op(ctx: LowerCtx, op: OpDesc, index: Optional[int] = None):
+    if ctx.amp:
+        prev, ctx.amp_cast = ctx.amp_cast, _amp_class(op.type)
+        try:
+            _lower_op_ranged(ctx, op, index)
+        finally:
+            ctx.amp_cast = prev
+    else:
+        _lower_op_ranged(ctx, op, index)
+
+
+def _lower_op_ranged(ctx: LowerCtx, op: OpDesc, index: Optional[int]):
     if _profiler_enabled():
         with torch.profiler.record_function(_op_scope_name(op, index)):
             _lower_op(ctx, op, index)
@@ -156,16 +245,32 @@ def _lower_op(ctx: LowerCtx, op: OpDesc, index: Optional[int]):
     raise NotImplementedError(f"no lowering registered for op {op.type!r}{where}")
 
 
+def op_names(block: BlockDesc, op: OpDesc) -> Tuple[List[str], List[str]]:
+    """(reads, writes) of ``op`` in ``block``: its slots, and for an op that
+    owns a sub-block (a control-flow op, or its grad) the names the
+    sub-block reads from and writes to the enclosing scope, which the op's
+    slots need not declare (StaticRNN declares only the parameters it
+    reads)."""
+    reads = [n for n in op.input_names() if n]
+    writes = [n for n in op.output_names() if n]
+    for sub in sub_blocks(op, block.program):
+        reads += [n for n in block_outer_reads(sub) if n not in sub.vars]
+        writes += [n for n in block_written_names(sub) if n not in sub.vars]
+    return reads, writes
+
+
 def plan_frees(block: BlockDesc, keep) -> List[List[str]]:
     """For each op of ``block``, the names no later op reads or writes:
     their values may leave the environment once it has run.  Names in
-    ``keep`` (read after the block: its fetches, the state it writes) and
-    ``@SEQ_LEN`` lengths (read by name, not through a slot) never leave."""
+    ``keep`` (read after the block: its fetches, the state it writes, a
+    sub-block's carries) and ``@SEQ_LEN`` lengths (read by name, not
+    through a slot) never leave.  A name a sub-block reads counts as read
+    by the op that owns the sub-block (:func:`op_names`)."""
     last: Dict[str, int] = {}
     for i, op in enumerate(block.ops):
-        for n in op.input_names() + op.output_names():
-            if n:
-                last[n] = i
+        reads, writes = op_names(block, op)
+        for n in reads + writes:
+            last[n] = i
     dead: List[List[str]] = [[] for _ in block.ops]
     for n, i in last.items():
         if n not in keep and not n.endswith(SEQ_LEN_SUFFIX):
@@ -272,7 +377,11 @@ def _lower_generic_grad(ctx: LowerCtx, op: OpDesc, fwd_type: str):
     for slot, onames in out_slots.items():
         for on, gn in zip(onames, outgrad_slots.get(slot, [])):
             if on and gn:
-                out_grad[on] = ctx.read(gn)
+                # read uncast: the cotangent takes its output's dtype below
+                out_grad[on] = ctx.read_opt(gn)
+                if out_grad[on] is None:
+                    raise KeyError(f"var {gn!r} is not defined at this point of block "
+                                   f"{ctx.block.idx}")
 
     with torch.enable_grad():
         primals = [ctx.read(n).detach().requires_grad_(True) for n in diff_names]
@@ -323,7 +432,8 @@ class _GradTraceCtx(LowerCtx):
     state (the JAX package reuses the forward's key without consuming it)."""
 
     def __init__(self, base: LowerCtx, overrides: Dict[str, Any]):
-        super().__init__(base.block, {}, None, base.device)
+        super().__init__(base.block, {}, None, base.device, amp=base.amp)
+        self.amp_cast = base.amp_cast
         self._base = base
         self._overrides = overrides
         self.captured: Dict[str, Any] = {}
@@ -353,7 +463,7 @@ class _GradTraceCtx(LowerCtx):
         v = self.read_opt(name)
         if v is None:
             raise KeyError(f"var {name!r} missing while taking a gradient")
-        return v
+        return v if self.amp_cast is None else _amp_cast(v, self.amp_cast)
 
     def write(self, name: str, value):
         if name:

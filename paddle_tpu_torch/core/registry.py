@@ -125,26 +125,40 @@ def register_lowering(op_type: str, *, no_gradient: bool = False,
     return deco
 
 
-def op_draws(op: OpDesc) -> bool:
+def sub_blocks(op: OpDesc, program) -> List[BlockDesc]:
+    """The sub-blocks ``op`` owns (a control-flow op's body; its grad op
+    carries the same attr) in ``program`` (a ProgramDesc; None: none)."""
+    if program is None:
+        return []
+    return [program.blocks[b] for b in (op.block_attr(a) for a in op.attrs) if b is not None]
+
+
+def op_draws(op: OpDesc, program=None) -> bool:
     """Whether ``op``'s lowering draws from the executor's generator; a
     ``<type>_grad`` op lowered generically re-runs its forward's lowering
-    and draws where the forward does."""
+    and draws where the forward does, and a control-flow op draws where an
+    op of its sub-block (in ``program``, a ProgramDesc) does."""
     info = OPS.get(op.type) if OPS.has(op.type) else None
     if (info is None or info.lower is None) and op.type.endswith("_grad"):
         fwd = op.type[: -len("_grad")]
         info = OPS.get(fwd) if OPS.has(fwd) else None
-    if info is None:
+    if info is not None and (info.draws(op) if callable(info.draws) else info.draws):
+        return True
+    return any(op_draws(o, program) for sub in sub_blocks(op, program) for o in sub.ops)
+
+
+def op_forks(op: OpDesc, program=None) -> bool:
+    """Whether ``op`` draws from a fork of the executor's generator, a
+    generator no CUDA graph knows of: a ``<type>_grad`` op lowered
+    generically whose forward draws (its re-run draws from a fork,
+    ``core/lower.py``), or the grad of a control-flow op whose sub-block
+    draws (it re-runs the body from the fork its forward stashed)."""
+    if not op.type.endswith("_grad"):
         return False
-    return bool(info.draws(op) if callable(info.draws) else info.draws)
-
-
-def op_forks(op: OpDesc) -> bool:
-    """Whether ``op`` is a ``<type>_grad`` op lowered generically whose
-    forward draws: its re-run draws from a fork of the executor's generator
-    (``core/lower.py``), a generator no CUDA graph knows of."""
     info = OPS.get(op.type) if OPS.has(op.type) else None
-    return (info is None or info.lower is None) and op.type.endswith("_grad") \
-        and op_draws(op)
+    if (info is None or info.lower is None) and op_draws(op, program):
+        return True
+    return any(op_draws(o, program) for sub in sub_blocks(op, program) for o in sub.ops)
 
 
 def register_group_lowering(*op_types: str, key: Callable[[OpDesc], Any]):

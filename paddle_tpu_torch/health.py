@@ -317,7 +317,7 @@ def localize_first_bad_op(program, feed: Dict[str, Any], scope=None,
         bad: Dict[str, bool] = {}
         gen = torch.Generator(device=device)
         gen.manual_seed(rng_seed)
-        ctx = LowerCtx(block, env, gen, device)
+        ctx = LowerCtx(block, env, gen, device, amp=bool(program.amp))
         with torch.no_grad():
             for pos, i in enumerate(run):
                 op = block.ops[i]

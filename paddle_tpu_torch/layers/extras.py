@@ -1,11 +1,12 @@
-"""The sequence layers the JAX package keeps in its ``layers/extras.py``:
-``lod_reset``, ``row_conv`` and ``sequence_pad``.  The rest of that
-file's surface (``im2sequence`` among it) is not ported yet."""
+"""The layers the JAX package keeps in its ``layers/extras.py`` that the
+port has: ``lod_reset``, ``row_conv``, ``sequence_pad`` and
+``create_parameter``.  The rest of that file's surface (``im2sequence``
+among it) is not ported yet."""
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["lod_reset", "row_conv", "sequence_pad"]
+__all__ = ["lod_reset", "row_conv", "sequence_pad", "create_parameter"]
 
 
 def lod_reset(x, y=None, target_lod=None, name=None):
@@ -43,3 +44,13 @@ def sequence_pad(x, pad_value, maxlen=None, name=None):
                      outputs={"Out": out, "Length": length},
                      attrs={"padded_length": int(maxlen or -1)})
     return out, length
+
+
+def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
+                     default_initializer=None):
+    """A standalone learnable parameter."""
+    from ..param_attr import ParamAttr
+    helper = LayerHelper("create_parameter")
+    attr = attr or ParamAttr(name=name)
+    return helper.create_parameter(attr, shape=list(shape), dtype=dtype, is_bias=is_bias,
+                                   default_initializer=default_initializer)

@@ -5,10 +5,9 @@ decay's math ops.  The schedule is computed on the device inside the step
 (inside its CUDA graph on the card), and the optimizer's update reads the
 result as its ``LearningRate``.  Every op a schedule builds is stamped
 ``op_role="lr_sched"``, so ``Program.clone(for_test=True)`` drops them and
-an evaluation run never advances the counter.
-
-``piecewise_decay`` builds a ``Switch`` over conditional sub-blocks, which
-the port does not have yet: it raises ``NotImplementedError``.
+an evaluation run never advances the counter.  ``piecewise_decay`` is a
+``Switch`` over conditional sub-blocks, which the step's graph records
+whole (``ops/control_flow_ops.py``).
 """
 from __future__ import annotations
 
@@ -18,7 +17,7 @@ import math
 from ..core import unique_name
 from ..core.framework import op_role_guard
 from ..layer_helper import LayerHelper
-from . import nn, tensor
+from . import control_flow, nn, tensor
 
 __all__ = ["exponential_decay", "natural_exp_decay", "inverse_time_decay",
            "polynomial_decay", "piecewise_decay", "noam_decay"]
@@ -103,12 +102,26 @@ def polynomial_decay(learning_rate, decay_steps, end_learning_rate=0.0001, power
                     bias=float(end_learning_rate))
 
 
+@_lr_sched
 def piecewise_decay(boundaries, values):
-    """A step-function schedule: a ``Switch`` over conditional blocks, not
-    ported yet."""
-    raise NotImplementedError(
-        "piecewise_decay builds a Switch over conditional sub-blocks, which "
-        "paddle_tpu_torch does not have yet (ROADMAP.md section A item 9)")
+    """``values[i]`` while the step is below ``boundaries[i]``, the last
+    value after them: a ``Switch`` of conditional blocks over the step
+    counter, each assigning its value to a persistable rate."""
+    if len(values) - len(boundaries) != 1:
+        raise ValueError("len(values) must be len(boundaries) + 1")
+    step = _decay_step_counter()
+    lr = tensor.create_global_var(shape=[1], value=float(values[0]), dtype="float32",
+                                  persistable=True, name=unique_name.generate("piecewise_lr"))
+    with control_flow.Switch() as switch:
+        for i, b in enumerate(boundaries):
+            bvar = tensor.fill_constant(shape=[1], dtype="float32", value=float(b))
+            with switch.case(control_flow.less_than(step, bvar)):
+                vvar = tensor.fill_constant(shape=[1], dtype="float32", value=float(values[i]))
+                tensor.assign(vvar, output=lr)
+        with switch.default():
+            vvar = tensor.fill_constant(shape=[1], dtype="float32", value=float(values[-1]))
+            tensor.assign(vvar, output=lr)
+    return lr
 
 
 def _pow(x, p):

@@ -1,2 +1,2 @@
 from . import (alexnet, googlenet, machine_translation, mnist, resnet,  # noqa: F401
-               se_resnext, stacked_lstm, transformer, vgg)
+               rnn_encoder_decoder, se_resnext, stacked_lstm, transformer, vgg)

@@ -1,7 +1,9 @@
 """Shared helpers for op lowerings and shape inference."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
+
+import torch
 
 from ..core.desc import BlockDesc, OpDesc
 from ..core.dtypes import DataType, convert_dtype
@@ -69,3 +71,20 @@ def same_shape(op_type: str, in_slot: str = "X", out_slots=("Out",)):
         for slot in out_slots:
             set_out_shape(block, op, slot, sh, dt)
     return rule
+
+
+# constants on their device, made by a lowering's first run (an eager one:
+# a capture runs the block eagerly first): key -> tensor
+_DEVICE_CONSTANTS: dict = {}
+
+
+def device_constant(key, make: Callable[[], torch.Tensor]) -> torch.Tensor:
+    """A copy of the constant ``make()`` gives, on its device: made once
+    for ``key`` (which names the device) and cloned for each run.  A copy
+    from pageable host memory, which a CUDA graph's capture cannot record,
+    happens at the first run only; a clone between device buffers is
+    captured."""
+    const = _DEVICE_CONSTANTS.get(key)
+    if const is None:
+        const = _DEVICE_CONSTANTS[key] = make()
+    return const.clone()

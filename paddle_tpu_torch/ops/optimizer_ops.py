@@ -47,6 +47,13 @@ def _sgd_key(op):
     return "sgd"
 
 
+def _grad_as(g, p):
+    """``g`` contiguous in ``p``'s dtype: under the lowering-time bf16
+    casts a gradient may come out bf16, and the update promotes it to its
+    float32 parameter, as the JAX package's arithmetic does (exactly)."""
+    return g.to(p.dtype).contiguous()
+
+
 def _own(op, slot, out_slot, t):
     """``t`` (the value of ``op``'s input ``slot``) to be updated in place
     into ``out_slot``: ``t`` itself where the output shares the input's
@@ -59,7 +66,7 @@ def _sgd_group(ctx, ops):
     entries = []
     for op in ops:
         p, g, lr = (ctx.read_slot(op, s) for s in ("Param", "Grad", "LearningRate"))
-        entries.append((_own(op, "Param", "ParamOut", p), g.contiguous(), lr))
+        entries.append((_own(op, "Param", "ParamOut", p), _grad_as(g, p), lr))
     for op, out in zip(ops, fused_sgd_multi(entries)):
         ctx.write_slot(op, "ParamOut", out)
 
@@ -79,7 +86,7 @@ def _adam_group(ctx, ops):
         p, g, m1, m2, b1p, b2p, lr = (ctx.read_slot(op, s) for s in _ADAM_IN)
         p, m1, m2 = (_own(op, s, o, t) for s, o, t in
                      zip(("Param", "Moment1", "Moment2"), _ADAM_OUT, (p, m1, m2)))
-        entries.append((p, g.contiguous(), m1, m2, b1p, b2p, lr, op.type == "pallas_adam"))
+        entries.append((p, _grad_as(g, p), m1, m2, b1p, b2p, lr, op.type == "pallas_adam"))
     for op, outs in zip(ops, fused_adam_multi(entries, *_adam_attrs(ops[0]))):
         for slot, val in zip(_ADAM_OUT, outs):
             ctx.write_slot(op, slot, val)
@@ -118,7 +125,7 @@ def _family(op_type, state, attrs, reads=()):
         def group(ctx, ops):
             lr = ctx.read_slot(ops[0], "LearningRate")
             ps = [_own(op, "Param", "ParamOut", ctx.read_slot(op, "Param")) for op in ops]
-            gs = [ctx.read_slot(op, "Grad") for op in ops]
+            gs = [_grad_as(ctx.read_slot(op, "Grad"), p) for op, p in zip(ops, ps)]
             slots = [[_own(op, s, o, ctx.read_slot(op, s)) for op in ops] for s, o in state]
             extra = [[ctx.read_slot(op, s) for op in ops] for s in reads]
             rule(None if lr is None else lr.reshape(()), ps, gs, slots, extra,

@@ -20,7 +20,7 @@ from ..core.dtypes import DataType, coerce_feed_dtype, convert_dtype
 from ..core.lower import SEQ_LEN_AWARE, SEQ_LEN_SUFFIX, LowerCtx
 from ..core.registry import mark_no_gradient, register_infer_shape, register_lowering
 from ..lod import seq_len_name
-from .common import in_dtype, in_shape, set_out_shape
+from .common import device_constant, in_dtype, in_shape, set_out_shape
 
 # these ops set and consume lengths themselves; the generic propagation must
 # not overwrite their choices (sequence_pool's [N, D] output has no time
@@ -451,14 +451,17 @@ def _sequence_erase_shape(block, op):
 @register_lowering("lod_reset")
 def _lod_reset(ctx, op):
     """New lengths for X (reference lod_reset_op.cc): from the lengths in
-    Y, or from the offsets in attr ``target_lod``."""
+    Y, or from the offsets in attr ``target_lod``.  Those are copied to
+    the device once (``device_constant``), as ``assign_value``'s: a copy
+    from pageable host memory cannot be captured in a CUDA graph."""
     x = ctx.read_slot(op, "X")
     y = ctx.read_slot(op, "Y")
     if y is not None:
         lens = y.reshape(-1).to(_INT32)
     else:
-        offsets = np.asarray([int(v) for v in op.attr("target_lod")])
-        lens = torch.from_numpy(np.diff(offsets).astype(np.int32)).to(x.device)
+        offsets = tuple(int(v) for v in op.attr("target_lod"))
+        lens = device_constant(("lod_reset", str(x.device), offsets), lambda: torch.from_numpy(
+            np.diff(np.asarray(offsets)).astype(np.int32)).to(x.device))
     ctx.write_slot(op, "Out", x)
     ctx.write(op.output("Out")[0] + SEQ_LEN_SUFFIX, lens)
 

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 from ..core.dtypes import DataType, coerce_feed_dtype, convert_dtype
 from ..core.registry import mark_no_gradient, register_infer_shape, register_lowering
-from .common import in_dtype, in_shape, normalize_axis, same_shape, set_out_shape
+from .common import device_constant, in_dtype, in_shape, normalize_axis, same_shape, set_out_shape
 
 
 def _const_dtype(op) -> torch.dtype:
@@ -114,27 +114,19 @@ same_shape("fill_zeros_like")
 same_shape("assign")
 
 
-# assign_value's constants on their device: (device, dtype, shape, values)
-# -> tensor, made by the first run (an eager one: a capture runs the block
-# eagerly first)
-_CONSTANTS: dict = {}
-
-
 @register_lowering("assign_value", no_gradient=True)
 def _assign_value(ctx, op):
     """A constant of ``shape`` from the literal ``values`` (64-bit types made
-    in their 32-bit type, as the JAX package makes them).  The values are
-    copied to the device once and each run clones that tensor: a copy
-    between devices, which a CUDA graph can capture, where a copy from
-    pageable host memory cannot be captured."""
+    in their 32-bit type, as the JAX package makes them), copied to the
+    device once (``device_constant``)."""
     shape, dtype = tuple(op.attr("shape")), _const_dtype(op)
-    key = (str(ctx.device), dtype, shape, tuple(op.attr("values")))
-    const = _CONSTANTS.get(key)
-    if const is None:
+
+    def make():
         np_dtype = convert_dtype(op.attr("dtype", "float32")).np_dtype
         values = np.asarray(op.attr("values"), dtype=np_dtype).reshape(shape)
-        const = _CONSTANTS[key] = torch.from_numpy(values).to(ctx.device, dtype)
-    ctx.write_slot(op, "Out", const.clone())
+        return torch.from_numpy(values).to(ctx.device, dtype)
+    key = ("assign_value", str(ctx.device), dtype, shape, tuple(op.attr("values")))
+    ctx.write_slot(op, "Out", device_constant(key, make))
 
 
 @register_lowering("flatten")
@@ -385,3 +377,33 @@ def _top_k_shape(block, op):
 
 
 mark_no_gradient("shape", "one_hot", "arg_max", "arg_min", "top_k", "is_empty")
+
+
+@register_lowering("is_empty", no_gradient=True)
+def _is_empty(ctx, op):
+    """Whether X has no element: a boolean scalar made on the device from
+    the static size (a fill, which a graph records)."""
+    x = ctx.read_slot(op, "X")
+    ctx.write_slot(op, "Out", torch.full((), x.numel() == 0, dtype=torch.bool,
+                                         device=ctx.device))
+
+
+@register_lowering("where", non_diff_inputs=("Condition",))
+def _where(ctx, op):
+    """Elementwise select: X where Condition holds, else Y (IfElse's merge
+    and DynamicRNN's masked memory update).  A [N, 1] condition selects
+    the rows of rank-1 [N] values; a lower-rank one broadcasts over the
+    trailing dims."""
+    cond = ctx.read_slot(op, "Condition").to(torch.bool)
+    x, y = ctx.read_slot(op, "X"), ctx.read_slot(op, "Y")
+    while cond.ndim > x.ndim and cond.shape[-1] == 1:
+        cond = cond[..., 0]
+    if cond.ndim > x.ndim:
+        raise ValueError(f"where: condition rank {cond.ndim} exceeds value rank {x.ndim} "
+                         f"and is not squeezable")
+    while cond.ndim < x.ndim:
+        cond = cond[..., None]
+    ctx.write_slot(op, "Out", torch.where(cond, x, y))
+
+
+same_shape("where")

@@ -331,7 +331,7 @@ class _Replay:
             env[n] = self.base[n].clone()
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.rng_seed)
-        ctx = LowerCtx(self.block, env, gen, self.device)
+        ctx = LowerCtx(self.block, env, gen, self.device, amp=bool(self.program.amp))
         self._sync()
         times: List[float] = []
         with torch.no_grad():

@@ -22,7 +22,7 @@ memory and passes tests import it):
 On every program both packages' ``verify`` give the same sorted
 ``(code, severity, var, op_type, block_idx, op_index)``; every
 infer-shape rule gives equal shapes and dtypes on every op of a type the
-port lowers; ``infer_shape_coverage()`` is equal over the 165 lowered op
+port lowers; ``infer_shape_coverage()`` is equal over the 178 lowered op
 types; ``Executor(validate=)`` raises, warns and memoizes as the JAX
 package's; ``tools/program_lint.py`` reads the port's program dumps.
 """
@@ -61,7 +61,7 @@ from _torch_validate import _no_port_validate_findings  # noqa: F401
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VOCAB, D_MODEL, N_HEAD, D_INNER, T, N_LAYER, ROWS = 1000, 64, 4, 256, 32, 1, 4
 # op types the port lowers (143, and the 22 sequence and recurrent types)
-N_LOWERED = 165
+N_LOWERED = 178
 
 
 # ------------------------------------------------------------ the corpus
@@ -498,7 +498,7 @@ def test_infer_shape_coverage_equal_on_the_lowered_op_types():
     assert len(lowered) == N_LOWERED
     mine = [t for t in OPS.infer_shape_coverage() if t in lowered]
     theirs = [t for t in JAX_OPS.infer_shape_coverage() if t in lowered]
-    assert mine == theirs and len(mine) == 154
+    assert mine == theirs and len(mine) == 157
     for t in lowered:
         assert (OPS.infer_shape_fn(t) is None) == (JAX_OPS.infer_shape_fn(t) is None), t
     # a <type>_grad without a rule of its own gets the structural grad rule

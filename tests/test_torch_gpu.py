@@ -2406,3 +2406,126 @@ def test_a_stacked_lstm_step_replays_bit_equal_to_an_eager_step(cuda, amp):
     e = exe._run_eager(main, f, [loss], scope)
     assert np.array_equal(g[0], e[0])
     assert all(torch.equal(replayed[n], scope.find_var(n)) for n in persist)
+
+
+def _replay_vs_eager(exe, main, feed, fetch, scope):
+    """One replay and one op-by-op step of ``main`` from the same state:
+    (fetches equal, every persistable equal)."""
+    persist = [v.name for v in main.list_vars() if v.persistable]
+    state0 = {n: scope.find_var(n).clone() for n in persist}
+    g = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+    replayed = {n: scope.find_var(n).clone() for n in persist}
+    for n, t in state0.items():
+        scope.find_var(n).copy_(t)
+    e = exe._run_eager(main, feed, fetch, scope)
+    return (all(np.array_equal(a, b) for a, b in zip(g, e)),
+            all(torch.equal(replayed[n], scope.find_var(n)) for n in persist))
+
+
+def test_lod_reset_with_target_lod_replays_bit_equal_to_an_eager_step(cuda):
+    """``lod_reset(target_lod=)`` makes its lengths on the device once and
+    clones them each run, so a training step holding it is one graph (a
+    copy from pageable host memory each run made the capture fail)."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        x = layers.data(name="x", shape=[4], dtype="float32", lod_level=1)
+        y = layers.lod_reset(layers.fc(input=x, size=4, num_flatten_dims=2),
+                             target_lod=[0, 6, 9, 11, 15])
+        loss = layers.mean(layers.sequence_pool(y, "sum"))
+        pt.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    scope, exe = pt.Scope(), pt.Executor()
+    exe.run(startup, scope=scope)
+    feed = {"x": np.random.RandomState(0).randn(4, 6, 4).astype(np.float32)}
+    losses = [float(exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0])
+              for _ in range(3)]
+    (entry,) = [e for e in exe.cache_info()["entries"] if "x" in e["feeds"]]
+    assert entry["kind"] == "graph" and exe.cache_info()["captures"] == 1
+    assert np.isfinite(losses).all() and losses[2] < losses[0]
+    assert _replay_vs_eager(exe, main, feed, [loss], scope) == (True, True)
+
+
+def _while_training(max_iters):
+    """y = x + 3 w x through three trips of a While, SGD on (y - t)^2."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        x = layers.data(name="x", shape=[64, 1], append_batch_size=False)
+        t = layers.data(name="t", shape=[64, 1], append_batch_size=False)
+        w = layers.create_parameter(shape=[1], dtype="float32")
+        i = layers.fill_constant(shape=[1], dtype="int32", value=0)
+        limit = layers.fill_constant(shape=[1], dtype="int32", value=3)
+        y = layers.elementwise_add(x, layers.fill_constant(shape=[64, 1], dtype="float32",
+                                                           value=0.0))
+        y.stop_gradient = False
+        cond = layers.less_than(i, limit)
+        with layers.While(cond, max_iters=max_iters).block():
+            layers.assign(layers.elementwise_add(y, layers.elementwise_mul(x, w, axis=0)),
+                          output=y)
+            layers.increment(i, value=1, in_place=True)
+            layers.less_than(i, limit, cond=cond)
+        diff = layers.elementwise_sub(y, t)
+        loss = layers.mean(layers.elementwise_mul(diff, diff))
+        if max_iters is not None:
+            pt.optimizer.SGD(learning_rate=0.03).minimize(loss)
+    xv = np.random.RandomState(0).rand(64, 1).astype(np.float32) + 0.5
+    return main, startup, loss, {"x": xv, "t": (1 + 3 * 0.7) * xv}
+
+
+def test_a_bounded_while_step_replays_bit_equal_to_an_eager_step(cuda):
+    """``max_iters`` keeps the trips on the device: the SGD step is one
+    graph replay launching K5 once, and a replay is bit-equal to an
+    op-by-op step from the same state."""
+    main, startup, loss, feed = _while_training(max_iters=4)
+    scope, exe = pt.Scope(), pt.Executor()
+    exe.run(startup, scope=scope)
+    before = fused_sgd.launches
+    losses = [float(exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0])
+              for _ in range(4)]
+    (entry,) = [e for e in exe.cache_info()["entries"] if "x" in e["feeds"]]
+    assert entry["kind"] == "graph" and entry["reasons"] == []
+    # 4 steps, the capture adding its eager warm-up run
+    assert fused_sgd.launches - before == 5
+    assert np.isfinite(losses).all() and losses[3] < losses[0]
+    assert _replay_vs_eager(exe, main, feed, [loss], scope) == (True, True)
+
+
+def test_an_unbounded_while_runs_op_by_op_and_says_why(cuda):
+    main, startup, loss, feed = _while_training(max_iters=None)
+    scope, exe = pt.Scope(), pt.Executor()
+    exe.run(startup, scope=scope)
+    a = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    (entry,) = [e for e in exe.cache_info()["entries"] if "x" in e["feeds"]]
+    assert entry["kind"] == "eager" and exe.cache_info()["captures"] == 0
+    assert entry["reasons"] == ["runs 1 unbounded while loop(s) (no max_iters), which read "
+                                "their condition on the host each trip"]
+    bounded_main, bounded_startup, bounded_loss, _ = _while_training(max_iters=4)
+    b_scope, b_exe = pt.Scope(), pt.Executor()
+    b_exe.run(bounded_startup, scope=b_scope)
+    b_scope.find_var(bounded_main.global_block.all_parameters()[0].name).copy_(
+        scope.find_var(main.global_block.all_parameters()[0].name))
+    b = b_exe._run_eager(bounded_main, feed, [bounded_loss], b_scope)
+    assert np.array_equal(a[0], b[0])
+
+
+def test_the_encoder_decoder_trains_one_replay_a_step(cuda):
+    """The book's encoder-decoder at a small width with ``piecewise_decay``:
+    one graph for its five blocks, K2 4 times, K3 twice and K6 once a
+    replay, the rate crossing its boundaries, a replay bit-equal to an
+    op-by-op step."""
+    from paddle_tpu_torch.models.rnn_encoder_decoder import synthetic_feed, train_network
+    rates = [5e-3, 2e-3, 1e-3]
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        loss, lr = train_network(4, 6, [1, 2], rates, dict_size=24, word_dim=12, hidden_dim=16)
+    scope, exe = pt.Scope(), pt.Executor()
+    exe.run(startup, scope=scope)
+    feed = synthetic_feed(3, 4, 6, dict_size=24)
+    exe.run(main, feed=feed, fetch_list=[loss, lr], scope=scope)
+    before = (gather_rows.launches, scatter_add_rows.launches, fused_adam.launches)
+    runs = [exe.run(main, feed=feed, fetch_list=[loss, lr], scope=scope) for _ in range(3)]
+    after = (gather_rows.launches, scatter_add_rows.launches, fused_adam.launches)
+    assert tuple(b - a for a, b in zip(before, after)) == (12, 6, 3)
+    (entry,) = [e for e in exe.cache_info()["entries"] if "src" in e["feeds"]]
+    assert entry["kind"] == "graph" and exe.cache_info()["captures"] == 1
+    assert [float(r[1][0]) for r in runs] == [float(np.float32(v)) for v in rates[1:]] + \
+        [float(np.float32(rates[-1]))]
+    assert _replay_vs_eager(exe, main, feed, [loss, lr], scope) == (True, True)

@@ -11,7 +11,8 @@
   ``STEP_ATOL`` of the JAX ``Executor`` (a fused multiply-add under XLA
   against two roundings here);
 * the five schedules' learning rates over 8 runs against the JAX
-  package's and the closed forms, ``piecewise_decay`` raising;
+  package's and the closed forms; ``piecewise_decay``'s program equal to
+  the JAX package's, and its error on values that do not fit;
 * clip, then L2 regularization, then SGD with a staircase-decayed rate,
   against hand math;
 * ``clone(for_test=True)`` leaving the step counter alone, and the
@@ -360,9 +361,22 @@ def test_schedule_learning_rates_equal_the_jax_package_and_the_formula(name):
 
 
 def test_piecewise_decay_raises_naming_its_roadmap_item():
-    with pt.program_guard(pt.Program(), pt.Program()):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            pt.layers.piecewise_decay(boundaries=[2, 5], values=[1.0, 0.5, 0.1])
+    """It raised NotImplementedError naming ROADMAP item 9 while the port
+    had no Switch.  Now it builds the JAX package's program (a Switch of
+    conditional blocks: every block equal, tests/test_torch_control_flow.py
+    runs it) and raises only where the JAX package does: on values that do
+    not fit the boundaries."""
+    built = []
+    for pkg in (fluid, pt):
+        main, startup = pkg.Program(), pkg.Program()
+        with pkg.unique_name.guard(), pkg.program_guard(main, startup):
+            pkg.layers.piecewise_decay(boundaries=[2, 5], values=[1.0, 0.5, 0.1])
+            with pytest.raises(ValueError, match="len\\(values\\)"):
+                pkg.layers.piecewise_decay(boundaries=[2, 5], values=[1.0, 0.5])
+        built.append((main, startup))
+    assert built[1][0].desc.num_blocks() == 4
+    _descs_equal(built[0][0], built[1][0])
+    _descs_equal(built[0][1], built[1][1])
 
 
 def test_the_step_counter_is_int32_in_both_scopes_and_the_eval_clone_leaves_it():

@@ -169,16 +169,18 @@ def test_the_cpu_step_runs_in_float64_from_float64_parameters(runs):
 def test_unported_training_options_raise():
     """Before the optimizer slice this checked that the unfused head and a
     regularizer raised; both are ported now (tests/test_torch_unfused_head.py,
-    tests/test_torch_optimizers.py).  What still raises: sparse embedding
-    gradients and ``piecewise_decay`` (no conditional sub-blocks yet)."""
+    tests/test_torch_optimizers.py), and so is ``piecewise_decay``, which
+    raised while the port had no conditional sub-blocks
+    (tests/test_torch_control_flow.py).  What still raises: sparse
+    embedding gradients."""
     main, startup = pt.Program(), pt.Program()
     with pt.program_guard(main, startup):
         ids = pt.layers.data(name="ids", shape=[1], dtype="int64")
         emb = pt.layers.embedding(ids, size=[10, 4], is_sparse=True)
         with pytest.raises(NotImplementedError, match="sparse"):
             pt.optimizer.SGD(0.1).minimize(pt.layers.mean(emb))
-        with pytest.raises(NotImplementedError, match="Switch"):
-            pt.layers.piecewise_decay([2], [1.0, 0.5])
+        lr = pt.layers.piecewise_decay([2], [1.0, 0.5])
+    assert main.desc.num_blocks() == 3 and lr.persistable
 
 
 def test_sgd_trains_a_linear_regression():
