@@ -399,6 +399,36 @@ Phases, each fatal on failure (non-zero exit, no result line):
     read on the host each trip, the reason named), outputs bit-equal
     (``launches_control_flow`` and ``max_abs_err_control_flow`` on the
     kernels line).
+27. sparse gradients and the embedding subsystem (``phase_sparse``): (a)
+    DeepFM (``models/deepfm.py``) at the Criteo width (26 fields with the
+    Criteo Kaggle cardinalities, 33,762,577 rows a table set, embed 16,
+    MLP 400-400-400 with dropout, batch 2,048, Zipf(1.3) ids from the
+    seed), the tables' gradients SelectedRows and Adam lazy on them: no
+    graph blocker; K2 at the 10,131,227-row field's [V, 16] and [V, 1]
+    tables and a small field's, bit-equal to its plain version and
+    ``F.embedding`` and timed beside them, K6 over the 8 dense updates
+    bit-equal; the capture and 8 replays over 4 batches, one graph: ms a
+    replay with its spread, examples/s, peak, losses finite, launches a
+    replay K2 52 and K6 1 and nothing else (``launches_sparse``); every
+    row no batch touched unmoved in the 52 tables and their moments; a
+    2-replay profile (K2 52, K6 1, K3 0, K5 0 a replay; the idle share of
+    the timed replays); a replay bit-equal to an op-by-op step from the
+    same state and generator state; (b) the dense twin (``is_sparse=
+    False``): K3 at the 10,131,227-row field's [V, 16] and [V, 1] tables
+    (the first op-by-op step's output gradients at its ids) bit-equal to
+    its plain version run on the CPU and timed beside ``index_add_``, K6
+    over all 60 updates (574 M floats) bit-equal to its plain version;
+    6 replays: K2 52, K3 52, K6 1 a replay; (c) bench.py's
+    embedding row (``sharded_table`` + ``mean`` + ``SGD(0.125)``, batch
+    1,024, dim 128, Zipf ids) at 4,096, 32,768 and 262,144 rows, both
+    arms one graph each, ms a step, the dense arm launching K2, K3 and
+    K5, the sparse arm K2 alone, the arms' tables equal after the same
+    steps (within ``EMB_ARM_ATOL``); (d) DeepFM through
+    ``Trainer(prefetcher=RowPrefetcher(...))``, 3 pipelined steps, the
+    dedup ratio equal to numpy's; (e) the trained tables served by
+    ``ServingSession(embedding_cache=...)``: ``lookup_rows`` equal to the
+    trained rows with hits, a served batch bit-equal to the inferencer's
+    replay and to an op-by-op run.
 
 Phase 9 also takes the 2 x 256 step in bf16 (``enable_amp``) with cuBLAS's
 reduced-precision bf16 reductions allowed (PyTorch's default) and not, and
@@ -6974,6 +7004,617 @@ def phase_control_flow(torch, card):
     return {"launches": launches, "bf16_launches": bf16, "max_abs_err": errs}
 
 
+# ---------------------------------------------------------------- phase 27
+# (a): DeepFM (models/deepfm.py, BASELINE.json's CTR config) at the width
+# users train it at: 26 categorical fields with the Criteo Kaggle
+# cardinalities (33,762,577 rows a table set), embed_dim 16, a 400-400-400
+# ReLU MLP with dropout 0.5, 13 dense features, batch 2,048; the tables'
+# gradients SelectedRows (is_sparse=True), Adam (lazy on the tables)
+FM_B, FM_DIM, FM_HIDDEN = 2048, 16, (400, 400, 400)
+FM_LR = 1e-3
+FM_REPLAYS = 8
+FM_FEEDS = 4                # the replays cycle over this many batches
+FM_PROFILE_STEPS = 2
+# launches a replay: K2 once a lookup (52: the [V, 1] and [V, 16] table of
+# each field; a sparse gradient re-runs no gather), K6 once over the MLP's
+# 8 dense parameters; no K3 (a sparse gradient is no scatter-add) and no K5
+FM_PER_STEP = {"gather_rows": 52, "fused_adam": 1}
+# (b): the dense twin (is_sparse=False): K2 52, K3 52 (the kernel tier's
+# pallas_scatter_add reads the output gradient; no gather again), K6 once
+# over all 60 parameters
+FM_DENSE_PER_STEP = {"gather_rows": 52, "scatter_add_rows": 52, "fused_adam": 1}
+FM_DENSE_REPLAYS = 6
+# (c): bench.py's embedding row (bench.py:1456-1507) at its TPU sizes
+EMB_ROWS, EMB_DIM, EMB_B = (4096, 32768, 262144), 128, 1024
+EMB_LR, EMB_STEPS, EMB_FEEDS = 0.125, 20, 4
+# both arms' tables after the same steps: every update is exact (a mean over
+# 1024 x 128 and a rate of 2**-3 make multiples of 2**-20), so they agree
+# within this (0 expected)
+EMB_ARM_ATOL = 1e-6
+# (d): the Trainer's steps; (e): the served batch and the cached table
+FM_TRAINER_STEPS = 3
+FM_SERVE_ROWS = 8
+FM_CACHE_TABLE = "fm_emb_2"     # the 10,131,227-row field
+
+
+def _deepfm_programs(pt, is_sparse=True, is_test=False):
+    """(main, startup, loss) of DeepFM at the Criteo width."""
+    from paddle_tpu_torch.models import deepfm
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        ids, dense, label = deepfm.data_layers(len(deepfm.CRITEO_VOCAB))
+        logits = deepfm.deepfm(ids, dense, deepfm.CRITEO_VOCAB, embed_dim=FM_DIM,
+                               hidden=FM_HIDDEN, is_test=is_test, is_sparse=is_sparse)
+        loss = pt.layers.mean(pt.layers.sigmoid_cross_entropy_with_logits(x=logits, label=label))
+        pt.optimizer.Adam(learning_rate=FM_LR).minimize(loss)
+    return main, startup, loss
+
+
+def _deepfm_feeds(torch, n, seed):
+    """``n`` seeded Criteo-width batches on the card (ids int32)."""
+    from paddle_tpu_torch.models.deepfm import synthetic_feed
+    feeds = []
+    for k in range(n):
+        f = synthetic_feed(seed + k, FM_B)
+        feeds.append({name: torch.from_numpy(v.astype(np.int32) if v.dtype == np.int64 else v)
+                      .to("cuda") for name, v in f.items()})
+    return feeds
+
+
+def _k2_at(torch, w, ids, label, card):
+    """K2 on ``w`` at ``ids`` against its plain version (bit-equal) and
+    ``F.embedding``: event ms (best of 3 rounds in turns), plain ms, bound."""
+    from paddle_tpu_torch.ops.cuda.embedding import gather_rows, gather_rows_plain
+    out, ref = gather_rows(w, ids), gather_rows_plain(w, ids)
+    lib = torch.nn.functional.embedding(ids.long(), w)
+    torch.cuda.synchronize()
+    equal = torch.equal(out, ref) and torch.equal(out, lib)
+    fns = [lambda: gather_rows(w, ids), lambda: torch.nn.functional.embedding(ids.long(), w)]
+    ms, lib_ms = _best(lambda fn: _ms(fn, 200), fns)
+    plain_ms = _ms(lambda: gather_rows_plain(w, ids), 50)
+    rows_read = int(torch.unique(ids).numel())
+    bound_ms, bound_by = _bound(4 * (rows_read * w.shape[1] + ids.numel() + out.numel()), 0)
+    rec = dict(max_abs_err=(out - ref).abs().max().item(), bit_equal=equal, ms=ms,
+               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+               rows_read=rows_read, table=list(w.shape), ids=ids.numel())
+    print(f"phase 27 (a) K2 {label} W=[{w.shape[0]},{w.shape[1]}] N={ids.numel()} "
+          f"({rows_read} rows read): bit-equal to plain and F.embedding {equal}; kernel {ms:.4f} "
+          f"ms, plain {plain_ms:.4f} ms, F.embedding {lib_ms:.4f} ms, bound {bound_ms:.5f} ms "
+          f"({bound_by}) [{card}]")
+    return rec
+
+
+def _k6_at(torch, ups, state0, grads):
+    """K6 over the update ops ``ups`` from ``state0`` and ``grads`` (by
+    parameter) against its plain version: max abs err, bit-equal, entries
+    and floats."""
+    from paddle_tpu_torch.ops.cuda.fused_optimizer import fused_adam_multi, fused_adam_multi_plain
+    ((b1, b2, eps),) = {(o.attr("beta1"), o.attr("beta2"), o.attr("epsilon")) for o in ups}
+    entries = [(state0[o.input("Param")[0]], grads[o.input("Param")[0]],
+                state0[o.input("Moment1")[0]], state0[o.input("Moment2")[0]],
+                state0[o.input("Beta1Pow")[0]], state0[o.input("Beta2Pow")[0]],
+                state0[o.input("LearningRate")[0]], o.type == "pallas_adam") for o in ups]
+    mine = fused_adam_multi([_adam_clones(e) for e in entries], b1, b2, eps)
+    theirs = fused_adam_multi_plain([_adam_clones(e) for e in entries], b1, b2, eps)
+    pairs = [(x, y) for a, b in zip(mine, theirs) for x, y in zip(a, b)]
+    return {"max_abs_err": _max_abs_diff(torch, pairs),
+            "bit_equal": all(torch.equal(x, y) for x, y in pairs), "entries": len(entries),
+            "floats": sum(e[0].numel() for e in entries)}
+
+
+def _fm_kernels(torch, main, state0, feed, grads, card):
+    """(a)'s kernels at the step's shapes: K2 on the D-16 and D-1 tables of
+    the largest field (10,131,227 rows, the scalar branch at D 1) and of a
+    small one at the step's ids; K6 over the 8 dense updates of the first
+    step from its state and gradients."""
+    k2 = {}
+    for field in (2, 0):
+        ids = feed[f"C{field}"].reshape(-1).contiguous()
+        for name in (f"fm_emb_{field}", f"fm_w1_{field}"):
+            k2[name] = _k2_at(torch, state0[name], ids, f"field {field}", card)
+    k6 = _k6_at(torch, [o for o in main.desc.block(0).ops if o.type in ("adam", "pallas_adam")
+                        and not o.input("Param")[0].startswith("fm_")], state0, grads)
+    print(f"phase 27 (a) K6 over the step's {k6['entries']} dense updates (the MLP) against its "
+          f"plain version: bit-equal {k6['bit_equal']}, max abs err {k6['max_abs_err']} [{card}]")
+    if not all(r["bit_equal"] for r in k2.values()) or not k6["bit_equal"] or k6["entries"] != 8:
+        raise AssertionError(f"phase 27 (a): a kernel differs from its plain version: K2 "
+                             f"{ {k: r['bit_equal'] for k, r in k2.items()} }, K6 {k6}")
+    return k2, k6
+
+
+def _replay_vs_eager_rng(torch, exe, main, feed, fetch, scope, persist, label, card):
+    """A replay against an op-by-op step from the same state and the same
+    generator state (the step draws dropout masks): loss and every state
+    tensor bit-equal."""
+    from paddle_tpu_torch.core.executor import RNG_STATE_VAR
+    gen = scope.find_var(RNG_STATE_VAR)
+    state0 = {n: scope.find_var(n).clone() for n in persist}
+    rng = gen.get_state()
+    g_out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+    after = {n: scope.find_var(n).clone() for n in persist}
+    for n, t in state0.items():
+        scope.find_var(n).copy_(t)
+    gen.set_state(rng)
+    e_out = exe._run_eager(main, feed, fetch, scope)
+    differ = [n for n in persist if not torch.equal(after[n], scope.find_var(n))]
+    equal = not differ and all(np.array_equal(a, b) for a, b in zip(g_out, e_out))
+    print(f"phase 27 {label}: a replay against an op-by-op step from the same state and "
+          f"generator state: loss {float(np.asarray(g_out[0]))!r} / "
+          f"{float(np.asarray(e_out[0]))!r}; {len(persist) - len(differ)} of {len(persist)} "
+          f"state tensors bit-equal; differing {differ[:6]} [{card}]")
+    if not equal:
+        raise AssertionError(f"phase 27 {label}: the replay differs from the op-by-op step: "
+                             f"{differ[:6]}")
+    return {"state": len(persist), "differ": len(differ)}
+
+
+def _untouched_unchanged(torch, scope, before, feeds):
+    """Of each table and its two moments, the rows no batch in ``feeds``
+    touched, against ``before`` (their values before the steps): the count
+    of tensors checked, rows checked, and the names that moved."""
+    moved, rows = [], 0
+    for field in range(26):
+        hit = torch.zeros(0, dtype=torch.int64, device="cuda")
+        for f in feeds:
+            hit = torch.cat([hit, f[f"C{field}"].reshape(-1).long()])
+        for table in (f"fm_emb_{field}", f"fm_w1_{field}"):
+            for name in (table, f"{table}_moment1_0", f"{table}_moment2_0"):
+                keep = torch.ones(before[name].shape[0], dtype=torch.bool, device="cuda")
+                keep[hit] = False
+                rows += int(keep.sum())
+                if not torch.equal(scope.find_var(name)[keep], before[name][keep]):
+                    moved.append(name)
+    return {"tensors": 26 * 6, "untouched_rows": rows, "moved": moved}
+
+
+def _deepfm_cell(torch, pt, card, counters):
+    """Phase 27 (a): DeepFM trained one CUDA graph replay a step with
+    SelectedRows gradients; returns its readings."""
+    from paddle_tpu_torch.core.executor import RNG_STATE_VAR, analyze_state, graph_blockers
+    from paddle_tpu_torch.models.deepfm import CRITEO_VOCAB
+    t0 = time.perf_counter()
+    main, startup, loss = _deepfm_programs(pt)
+    scope, exe = pt.Scope(), pt.Executor(pt.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    feeds = _deepfm_feeds(torch, FM_FEEDS, seed=27)
+    st_in, st_out = analyze_state(main.desc.block(0), list(feeds[0]))
+    blockers = graph_blockers(main, st_in, st_out)
+    n_ops, kinds = _op_counts(main)
+    sparse = [v.name for v in main.list_vars() if v.type == "selected_rows"]
+    persist = [v.name for v in main.list_vars() if v.persistable and scope.find_var(v.name)
+               is not None]
+    params = [p.name for p in main.global_block.all_parameters()]
+    table_bytes = sum(scope.find_var(p).numel() * 4 for p in params if p.startswith("fm_"))
+    print(f"phase 27 (a) DeepFM: 26 Criteo fields ({sum(CRITEO_VOCAB):,} rows a table set, "
+          f"{table_bytes / 1e9:.3f} GB of tables), embed {FM_DIM}, MLP {FM_HIDDEN}, batch {FM_B}: "
+          f"{n_ops} ops {kinds}; {len(sparse)} SelectedRows gradients; {len(params)} parameters; "
+          f"graph blockers {blockers}; built and initialized in {time.perf_counter() - t0:.2f} s "
+          f"[{card}]")
+    if blockers or len(sparse) != 52 or kinds.get("adam", 0) != 60:
+        raise AssertionError(f"phase 27 (a): blockers {blockers}, {len(sparse)} sparse "
+                             f"gradients, {kinds}")
+    # the first step's dense gradients from an op-by-op step, after which
+    # the state and the generator are put back
+    state0 = {n: scope.find_var(n).clone() for n in persist}
+    gen = scope.find_var(RNG_STATE_VAR)
+    rng = gen.get_state() if gen is not None else None
+    dense_params = [p for p in params if not p.startswith("fm_")]
+    first = exe._run_eager(main, feeds[0], [loss.name] + [p + "@GRAD" for p in dense_params],
+                           scope, return_numpy=False)
+    for n, t in state0.items():
+        scope.find_var(n).copy_(t)
+    if rng is not None:
+        scope.find_var(RNG_STATE_VAR).set_state(rng)
+    grads = dict(zip(dense_params, first[1:]))
+    kernels = _fm_kernels(torch, main, state0, feeds[0], grads, card)
+    del first, grads
+    # the tables and their moments before the replays, for the untouched rows
+    before = {n: t for n, t in state0.items() if n.startswith("fm_")}
+    del state0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    info = exe.precompile(main, feed=feeds[0], fetch_list=[loss], scope=scope)
+    for f in counters.values():
+        f.launches = 0
+    bf16_before = _bf16_snapshot(counters)
+    losses, step_s = [], []
+    for k in range(FM_REPLAYS):
+        t1 = time.perf_counter()
+        (lv,) = exe.run(main, feed=feeds[k % FM_FEEDS], fetch_list=[loss], scope=scope)
+        losses.append(float(np.asarray(lv)))
+        step_s.append(time.perf_counter() - t1)
+    launches = _launch_snapshot(counters)
+    bf16 = {k: v - bf16_before[k] for k, v in _bf16_snapshot(counters).items()}
+    peak = torch.cuda.max_memory_allocated()
+    untouched = _untouched_unchanged(torch, scope, before, feeds[:min(FM_REPLAYS, FM_FEEDS)])
+    del before
+    step_ms = 1e3 * float(np.median(step_s))
+    entries = [e for e in exe.cache_info()["entries"] if "C0" in e["feeds"]]
+    res = {"card": card, "ops": n_ops, "op_kinds": kinds, "sparse_grads": len(sparse),
+           "table_bytes": table_bytes, "capture_s": info["compile_s"], "losses": losses,
+           "step_ms": [1e3 * s for s in step_s], "step_ms_median": step_ms,
+           "step_ms_min": 1e3 * min(step_s), "step_ms_max": 1e3 * max(step_s),
+           "examples_per_s": FM_B / (step_ms / 1e3), "peak_gib": peak / 2 ** 30,
+           "peak_over_base_gib": (peak - base) / 2 ** 30, "launches": launches,
+           "bf16_launches": bf16, "untouched": untouched,
+           "k2": kernels[0], "k6": kernels[1]}
+    print(f"phase 27 (a) capture {info['compile_s']:.2f} s (kind {info['kind']}); {FM_REPLAYS} "
+          f"replays over {FM_FEEDS} batches: losses {losses}; step ms "
+          f"{[round(1e3 * s, 3) for s in step_s]}; median {step_ms:.3f} ms (min "
+          f"{res['step_ms_min']:.3f}, max {res['step_ms_max']:.3f}); "
+          f"{res['examples_per_s']:.0f} examples/s; peak {peak / 2 ** 30:.3f} GiB allocated "
+          f"({(peak - base) / 2 ** 30:.3f} over the state); hand-written kernel launches "
+          f"{launches} (bf16 instances {bf16}); untouched rows of the 52 tables and their "
+          f"moments: {untouched['untouched_rows']:,} rows, moved {untouched['moved']} [{card}]")
+    if info["kind"] != "graph" or [e["kind"] for e in entries] != ["graph"] \
+            or exe.cache_info()["captures"] != 1:
+        raise AssertionError(f"phase 27 (a): the step is not one graph: {info}, {entries}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"phase 27 (a): losses not finite: {losses}")
+    if untouched["moved"]:
+        raise AssertionError(f"phase 27 (a): untouched rows moved in {untouched['moved']}")
+    want = {k: FM_REPLAYS * v for k, v in FM_PER_STEP.items()}
+    if {k: launches[k] for k in want} != want or any(bf16.values()) or \
+            any(v for k, v in launches.items() if k not in want):
+        raise AssertionError(f"phase 27 (a): launches {launches}, bf16 {bf16}; want "
+                             f"{FM_PER_STEP} a replay and nothing else")
+    res["profile"] = _replay_profile(torch, exe, main, feeds[0], loss, scope, "deepfm", card,
+                                     {"gather_rows (K2)": 52, "fused_adam (K6)": 1,
+                                      "scatter_add_rows (K3)": 0, "fused_sgd (K5)": 0},
+                                     step_ms)
+    res["replay_vs_eager"] = _replay_vs_eager_rng(torch, exe, main, feeds[1], [loss], scope,
+                                                  persist, "(a) DeepFM", card)
+    del exe, scope
+    _free_trainer(torch, "phase 27 (a)")
+    return res
+
+
+def _replay_profile(torch, exe, main, feed, loss, scope, label, card, want, step_ms):
+    """A profile of FM_PROFILE_STEPS replays behind a warm-up replay, which
+    must record: device busy ms a replay, the timed replays' idle share
+    (their median wall against the profile's busy time: the profiler
+    stretches the host's side), the kernels by family gated at ``want`` a
+    replay."""
+    prof = _profile(torch, lambda: [exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+                                    for _ in range(FM_PROFILE_STEPS)],
+                    f"{label}_profile", card, {"batch": FM_B, "steps": FM_PROFILE_STEPS},
+                    warm=lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope))
+    if prof is None:
+        raise AssertionError(f"phase 27 {label}: the profiler recorded no device activity; the "
+                             f"kernel gates and the idle share read it")
+    fams = prof["by_family_launches"]
+    got = {k: fams.get(k, 0) for k in want}
+    if got != {k: FM_PROFILE_STEPS * v for k, v in want.items()}:
+        raise AssertionError(f"phase 27 {label}: the profile's kernels {got}, want {want} a "
+                             f"replay")
+    busy = prof["device_busy_ms"] / FM_PROFILE_STEPS
+    out = {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share",
+                                "by_family_ms", "by_family_launches", "warm_records")}
+    out.update(device_operations_a_step=sum(fams.values()) / FM_PROFILE_STEPS,
+               device_busy_ms_a_step=busy, idle_share_of_timed_replays=1.0 - busy / step_ms)
+    print(f"phase 27 {label} profile of {FM_PROFILE_STEPS} replays: device busy {busy:.3f} ms a "
+          f"replay (timed median {step_ms:.3f} ms): idle share "
+          f"{out['idle_share_of_timed_replays']:.4f} of the timed replays "
+          f"({prof['device_idle_share']:.4f} of the profiled window); "
+          f"{out['device_operations_a_step']:.0f} device operations a step; ms by family "
+          f"{ {k: round(v / FM_PROFILE_STEPS, 4) for k, v in prof['by_family_ms'].items()} } "
+          f"[{card}]")
+    return out
+
+
+def _k3_at(torch, w, ids, rows, label, card):
+    """K3 of ``rows`` at ``ids`` into ``w``'s shape against its plain
+    version run on the CPU (bit-equal; on the card ``index_add_`` adds by
+    atomics): event ms (best of 3 rounds in turns with ``index_add_``),
+    plain ms on the card, bound."""
+    from paddle_tpu_torch.ops.cuda.embedding import scatter_add_rows, scatter_add_rows_plain
+    got = scatter_add_rows(w, ids, rows)
+    want = scatter_add_rows_plain(w.cpu(), ids.cpu(), rows.cpu())
+    got = got.cpu()
+    equal = torch.equal(got, want)
+    err = (got - want).abs().max().item()
+    del got, want
+    l_ids = ids.long()
+    fns = [lambda: scatter_add_rows(w, ids, rows),
+           lambda: torch.zeros_like(w).index_add_(0, l_ids, rows)]
+    ms, lib_ms = _best(lambda fn: _ms(fn, 20), fns)
+    plain_ms = _ms(lambda: scatter_add_rows_plain(w, ids, rows), 20)
+    n, d = rows.shape
+    bound_ms, bound_by = _bound(4 * (ids.numel() + n * d + w.numel()), n * d)
+    rec = dict(max_abs_err=err, bit_equal=equal, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=bound_ms, bound_by=bound_by, table=list(w.shape), ids=ids.numel())
+    print(f"phase 27 (b) K3 {label} W=[{w.shape[0]},{w.shape[1]}] N={n}: bit-equal to its plain "
+          f"version on the CPU {equal} (max abs err {err}); kernel {ms:.4f} ms, plain on the card "
+          f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}) "
+          f"[{card}]")
+    return rec
+
+
+def _dense_twin_kernels(torch, main, state0, feed, grads, card):
+    """(b)'s kernels at the step's shapes: K3 of the first step's output
+    gradients of the 10,131,227-row field's two lookups at its ids; K6
+    over the step's 60 updates (every table dense) from its state and
+    gradients."""
+    ops = main.desc.block(0).ops
+    ids = feed["C2"].reshape(-1).contiguous()
+    k3 = {}
+    for name in ("fm_emb_2", "fm_w1_2"):
+        (out,) = [o.output("Out")[0] for o in ops
+                  if o.type in ("lookup_table", "pallas_gather") and o.input("W")[0] == name]
+        w = state0[name]
+        k3[name] = _k3_at(torch, w, ids,
+                          grads[out].reshape(ids.numel(), w.shape[1]).contiguous(),
+                          "field 2", card)
+    k6 = _k6_at(torch, [o for o in ops if o.type in ("adam", "pallas_adam")], state0, grads)
+    print(f"phase 27 (b) K6 over the step's {k6['entries']} updates ({k6['floats']:,} floats, "
+          f"every table dense) against its plain version: bit-equal {k6['bit_equal']}, max abs "
+          f"err {k6['max_abs_err']} [{card}]")
+    if not all(r["bit_equal"] for r in k3.values()) or not k6["bit_equal"] or k6["entries"] != 60:
+        raise AssertionError(f"phase 27 (b): a kernel differs from its plain version: K3 "
+                             f"{ {k: r['bit_equal'] for k, r in k3.items()} }, K6 {k6}")
+    return k3, k6
+
+
+def _deepfm_dense_twin(torch, pt, card, counters):
+    """Phase 27 (b): the same model with dense table gradients, replayed:
+    K3 into the 10M-row tables and K6 over all 60 parameters, each first
+    held against its plain version at the step's shapes."""
+    from paddle_tpu_torch.core.executor import RNG_STATE_VAR
+    main, startup, loss = _deepfm_programs(pt, is_sparse=False)
+    scope, exe = pt.Scope(), pt.Executor(pt.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    feeds = _deepfm_feeds(torch, FM_FEEDS, seed=27)
+    # the first step's gradients from an op-by-op step, after which the
+    # state and the generator are put back
+    persist = [v.name for v in main.list_vars() if v.persistable and scope.find_var(v.name)
+               is not None]
+    params = [p.name for p in main.global_block.all_parameters()]
+    outs = [o.output("Out")[0] for o in main.desc.block(0).ops
+            if o.type in ("lookup_table", "pallas_gather")
+            and o.input("W")[0] in ("fm_emb_2", "fm_w1_2")]
+    state0 = {n: scope.find_var(n).clone() for n in persist}
+    gen = scope.find_var(RNG_STATE_VAR)
+    rng = gen.get_state() if gen is not None else None
+    first = exe._run_eager(main, feeds[0], [loss.name] + [n + "@GRAD" for n in params + outs],
+                           scope, return_numpy=False)
+    for n, t in state0.items():
+        scope.find_var(n).copy_(t)
+    if rng is not None:
+        gen.set_state(rng)
+    kernels = _dense_twin_kernels(torch, main, state0, feeds[0],
+                                  dict(zip(params + outs, first[1:])), card)
+    del first, state0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    info = exe.precompile(main, feed=feeds[0], fetch_list=[loss], scope=scope)
+    for f in counters.values():
+        f.launches = 0
+    losses, step_s = [], []
+    for k in range(FM_DENSE_REPLAYS):
+        t1 = time.perf_counter()
+        (lv,) = exe.run(main, feed=feeds[k % FM_FEEDS], fetch_list=[loss], scope=scope)
+        losses.append(float(np.asarray(lv)))
+        step_s.append(time.perf_counter() - t1)
+    launches = _launch_snapshot(counters)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = 1e3 * float(np.median(step_s))
+    res = {"card": card, "capture_s": info["compile_s"], "losses": losses,
+           "step_ms": [1e3 * s for s in step_s], "step_ms_median": step_ms,
+           "step_ms_min": 1e3 * min(step_s), "step_ms_max": 1e3 * max(step_s),
+           "examples_per_s": FM_B / (step_ms / 1e3), "peak_gib": peak / 2 ** 30,
+           "launches": launches, "k3": kernels[0], "k6": kernels[1]}
+    print(f"phase 27 (b) the dense twin (is_sparse=False): capture {info['compile_s']:.2f} s "
+          f"(kind {info['kind']}); {FM_DENSE_REPLAYS} replays: losses {losses}; step ms "
+          f"{[round(1e3 * s, 3) for s in step_s]}; median {step_ms:.3f} ms; "
+          f"{res['examples_per_s']:.0f} examples/s; peak {peak / 2 ** 30:.3f} GiB; launches "
+          f"{launches} [{card}]")
+    want = {k: FM_DENSE_REPLAYS * v for k, v in FM_DENSE_PER_STEP.items()}
+    if info["kind"] != "graph" or not np.isfinite(losses).all() or \
+            {k: launches[k] for k in want} != want or \
+            any(v for k, v in launches.items() if k not in want):
+        raise AssertionError(f"phase 27 (b): {info['kind']}, losses {losses}, launches "
+                             f"{launches}; want {FM_DENSE_PER_STEP} a replay")
+    del exe, scope
+    _free_trainer(torch, "phase 27 (b)")
+    return res
+
+
+def _embedding_arm(torch, pt, rows, is_sparse, feeds, start, counters):
+    """bench.py's embedding step (sharded_table + mean + SGD(0.125)) at
+    ``rows``, EMB_STEPS replays over ``feeds``: (step ms a replay, the
+    table after them, launches)."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        ids = pt.layers.data(name="ids", shape=[1], dtype="int64")
+        emb = pt.embedding.sharded_table(ids, "bench_table", rows=rows, dim=EMB_DIM,
+                                         is_sparse=is_sparse)
+        loss = pt.layers.mean(emb)
+        pt.optimizer.SGD(learning_rate=EMB_LR).minimize(loss)
+    scope, exe = pt.Scope(), pt.Executor(pt.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    scope.find_var("bench_table").copy_(start)
+    exe.precompile(main, feed=feeds[0], fetch_list=[loss], scope=scope)
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(EMB_STEPS):
+        exe.run(main, feed=feeds[k % len(feeds)], fetch_list=[loss], scope=scope)
+    ms = (time.perf_counter() - t0) / EMB_STEPS * 1e3
+    launches = _launch_snapshot(counters)
+    table = scope.find_var("bench_table").clone()
+    if [e["kind"] for e in exe.cache_info()["entries"] if "ids" in e["feeds"]] != ["graph"]:
+        raise AssertionError(f"phase 27 (c): rows {rows} sparse {is_sparse}: not one graph")
+    return ms, table, launches
+
+
+def _embedding_row(torch, pt, card, counters):
+    """Phase 27 (c): bench.py's embedding row at its TPU sizes, both arms."""
+    rng = np.random.default_rng(17)
+    out = []
+    for rows in EMB_ROWS:
+        feeds = [{"ids": torch.from_numpy(np.minimum(rng.zipf(1.3, (EMB_B, 1)) - 1, rows - 1)
+                                          .astype(np.int32)).to("cuda")}
+                 for _ in range(EMB_FEEDS)]
+        start = torch.randn(rows, EMB_DIM, generator=torch.Generator().manual_seed(rows)).cuda()
+        dense_ms, dense_t, dense_l = _embedding_arm(torch, pt, rows, False, feeds, start, counters)
+        sparse_ms, sparse_t, sparse_l = _embedding_arm(torch, pt, rows, True, feeds, start,
+                                                       counters)
+        diff = (dense_t - sparse_t).abs().max().item()
+        rec = {"rows": rows, "dim": EMB_DIM, "batch": EMB_B, "dense_step_ms": dense_ms,
+               "sparse_step_ms": sparse_ms, "speedup": dense_ms / sparse_ms,
+               "sparse_rows_per_s": EMB_B / (sparse_ms / 1e3), "arms_max_abs_diff": diff,
+               "arms_bit_equal": torch.equal(dense_t, sparse_t),
+               "dense_launches": {k: v for k, v in dense_l.items() if v},
+               "sparse_launches": {k: v for k, v in sparse_l.items() if v}}
+        out.append(rec)
+        print(f"phase 27 (c) bench.py's embedding row, rows {rows} x {EMB_DIM}, batch {EMB_B}, "
+              f"{EMB_STEPS} replays: dense {dense_ms:.3f} ms a step, sparse {sparse_ms:.3f} ms "
+              f"({rec['speedup']:.2f}x); the arms' tables max abs diff {diff} (bit-equal "
+              f"{rec['arms_bit_equal']}); launches dense {rec['dense_launches']}, sparse "
+              f"{rec['sparse_launches']} [{card}]")
+        want_dense = {"gather_rows": EMB_STEPS, "scatter_add_rows": EMB_STEPS,
+                      "fused_sgd": EMB_STEPS}
+        if diff > EMB_ARM_ATOL or rec["dense_launches"] != want_dense or \
+                rec["sparse_launches"] != {"gather_rows": EMB_STEPS}:
+            raise AssertionError(f"phase 27 (c): rows {rows}: {rec}; the dense arm must launch "
+                                 f"{want_dense}, the sparse arm K2 alone")
+        del dense_t, sparse_t, start
+    _free_trainer(torch, "phase 27 (c)")
+    return out
+
+
+def _deepfm_trainer(torch, pt, card):
+    """Phase 27 (d): DeepFM through Trainer(prefetcher=RowPrefetcher(...)),
+    pipelined, FM_TRAINER_STEPS steps; returns the trainer and readings."""
+    from paddle_tpu_torch.embedding import RowPrefetcher
+    from paddle_tpu_torch.models import deepfm
+    n = len(deepfm.CRITEO_VOCAB)
+    feeds = [deepfm.synthetic_feed(270 + k, FM_B) for k in range(FM_TRAINER_STEPS)]
+
+    def train_func():
+        ids, dense, label = deepfm.data_layers(n)
+        loss, _ = deepfm.train_network(ids, dense, label, deepfm.CRITEO_VOCAB, embed_dim=FM_DIM)
+        return loss
+
+    def reader():
+        for f in feeds:
+            yield list(zip(*[f[f"C{i}"] for i in range(n)], f["dense"], f["label"]))
+
+    pf = RowPrefetcher({f"C{i}": f"fm_emb_{i}" for i in range(n)})
+    with pt.unique_name.guard():
+        trainer = pt.Trainer(train_func=train_func,
+                             optimizer_func=lambda: pt.optimizer.Adam(learning_rate=FM_LR),
+                             place=pt.CUDAPlace(0), prefetcher=pf)
+    losses = []
+
+    def handler(ev):
+        if isinstance(ev, pt.EndStepEvent):
+            losses.append(float(np.asarray(ev.metrics[0])))
+    t0 = time.perf_counter()
+    trainer.train(num_epochs=1, event_handler=handler, reader=reader,
+                  feed_order=[f"C{i}" for i in range(n)] + ["dense", "label"])
+    wall = time.perf_counter() - t0
+    stats = pf.stats()
+    want_ratio = np.mean([sum(np.unique(f[f"C{i}"]).size for i in range(n)) / (n * FM_B)
+                          for f in feeds])
+    entries = [e for e in trainer.exe.cache_info()["entries"] if "C0" in e["feeds"]]
+    res = {"steps": len(losses), "losses": losses, "wall_s": wall, "prefetch": stats,
+           "host_dedup_ratio": float(want_ratio), "entries": [e["kind"] for e in entries]}
+    print(f"phase 27 (d) Trainer(prefetcher=RowPrefetcher(26 fields)) pipelined, "
+          f"{FM_TRAINER_STEPS} steps of {FM_B}: losses {losses}; {wall:.2f} s; prefetcher "
+          f"{stats} (dedup ratio {stats['dedup_ratio']}, numpy's over the batches "
+          f"{want_ratio:.6f}); cache entries {res['entries']} [{card}]")
+    if len(losses) != FM_TRAINER_STEPS or not np.isfinite(losses).all() or \
+            stats["batches"] != FM_TRAINER_STEPS or \
+            abs(stats["dedup_ratio"] - want_ratio) > 1e-5 or res["entries"] != ["graph"]:
+        raise AssertionError(f"phase 27 (d): {res}")
+    return trainer, res
+
+
+def _deepfm_serving(torch, pt, card, trainer):
+    """Phase 27 (e): the trained DeepFM served by ServingSession with a row
+    cache on the largest table: lookup_rows equal to the trained rows (hits
+    on the second call), a served batch equal to the inferencer's own run
+    and to an op-by-op run."""
+    from paddle_tpu_torch.models import deepfm
+    n = len(deepfm.CRITEO_VOCAB)
+
+    def infer_func():
+        ids, dense, _ = deepfm.data_layers(n)
+        return deepfm.deepfm(ids, dense, deepfm.CRITEO_VOCAB, embed_dim=FM_DIM, is_test=True)
+
+    inf = pt.Inferencer(infer_func=infer_func, place=pt.CUDAPlace(0))
+    for v in inf.inference_program.list_vars():
+        if v.persistable and inf.scope.find_var(v.name) is not None:
+            inf.scope.find_var(v.name).copy_(trainer.scope.find_var(v.name))
+    sess = pt.ServingSession(inferencer=inf, max_batch_size=FM_SERVE_ROWS,
+                             embedding_cache={FM_CACHE_TABLE: {"capacity_rows": 4096}})
+    try:
+        table = trainer.scope.find_var(FM_CACHE_TABLE)
+        ids = np.array([0, 1, 2, 3, 10_131_226, 5_000_000, 1, 0], np.int64)
+        r1 = sess.lookup_rows(FM_CACHE_TABLE, ids)
+        r2 = sess.lookup_rows(FM_CACHE_TABLE, ids[::-1])
+        want = table[torch.from_numpy(ids).cuda()].cpu().numpy()
+        cache = sess.stats()["embedding"][FM_CACHE_TABLE]
+        f = deepfm.synthetic_feed(2700, FM_SERVE_ROWS)
+        feed = {k: v for k, v in f.items() if k != "label"}
+        served = sess.infer(feed)[0]
+        direct = inf.infer(feed)[0]
+        eager = inf.exe._run_eager(inf.inference_program, feed, list(inf.predict_vars),
+                                   inf.scope)[0]
+    finally:
+        sess.close()
+    res = {"lookup_equal": bool(np.array_equal(r1, want) and np.array_equal(r2, want[::-1])),
+           "cache": cache, "served_equal_direct": bool(np.array_equal(served, direct)),
+           "served_equal_eager": bool(np.array_equal(served, eager)),
+           "served": np.asarray(served).reshape(-1).tolist(),
+           "buckets": [r["kind"] for r in sess.warmup_report]}
+    print(f"phase 27 (e) ServingSession(embedding_cache={{{FM_CACHE_TABLE!r}: 4096 rows}}) over "
+          f"the trained DeepFM: lookup_rows equal to the trained table {res['lookup_equal']}; "
+          f"cache {cache}; a served {FM_SERVE_ROWS}-row batch {res['served']} equal to the "
+          f"inferencer's replay {res['served_equal_direct']} and to an op-by-op run "
+          f"{res['served_equal_eager']}; buckets {res['buckets']} [{card}]")
+    if not (res["lookup_equal"] and res["served_equal_direct"] and res["served_equal_eager"]) \
+            or cache["hits"] < len(ids) or not np.isfinite(res["served"]).all():
+        raise AssertionError(f"phase 27 (e): {res}")
+    return res
+
+
+def phase_sparse(torch, card):
+    """Phase 27 (see the module docstring): sparse gradients and the
+    embedding subsystem.  Returns (a)'s launches by kernel over its timed
+    replays (the bf16 instances apart), the kernels' largest errors at
+    (a)'s and (b)'s shapes, and K2's and K3's records at them."""
+    import paddle_tpu_torch as pt
+    counters = _counters()
+    res = {}
+    t_piece = time.perf_counter()
+    res["deepfm"] = _deepfm_cell(torch, pt, card, counters)
+    t_piece = _piece_seconds("phase 27 (a)", t_piece)
+    res["dense_twin"] = _deepfm_dense_twin(torch, pt, card, counters)
+    t_piece = _piece_seconds("phase 27 (b)", t_piece)
+    res["embedding_row"] = _embedding_row(torch, pt, card, counters)
+    t_piece = _piece_seconds("phase 27 (c)", t_piece)
+    trainer, res["trainer"] = _deepfm_trainer(torch, pt, card)
+    t_piece = _piece_seconds("phase 27 (d)", t_piece)
+    res["serving"] = _deepfm_serving(torch, pt, card, trainer)
+    del trainer
+    _piece_seconds("phase 27 (e)", t_piece)
+    _free_trainer(torch, "phase 27")
+    print(json.dumps({"sparse": res}))
+    a, b = res["deepfm"], res["dense_twin"]
+    errs = {"gather_rows": max(r["max_abs_err"] for r in a["k2"].values()),
+            "scatter_add_rows": max(r["max_abs_err"] for r in b["k3"].values()),
+            "fused_adam": max(a["k6"]["max_abs_err"], b["k6"]["max_abs_err"])}
+    return {"launches": {k: v - a["bf16_launches"][k] for k, v in a["launches"].items()},
+            "bf16_launches": a["bf16_launches"], "max_abs_err": errs,
+            "k2_shapes": a["k2"], "k3_shapes": b["k3"]}
+
+
 def _release_serving(torch, label):
     """A serving phase's inferencers (and their graphs' memory pools) are
     gone once it returns: collect them before the training phases."""
@@ -7053,6 +7694,7 @@ def _main(torch, build):
     book_launches = timed("book", phase_book)
     seq_launches = timed("sequences", phase_sequences)
     cf = timed("control_flow", phase_control_flow)
+    sparse = timed("sparse", phase_sparse)
     print(f"seconds by phase function: {json.dumps(seconds)}; "
           f"{sum(seconds.values()):.1f} in all; {time.perf_counter() - t_main:.1f} since the "
           f"card's name was read (the kernel build included) [{card}]")
@@ -7129,6 +7771,11 @@ def _main(torch, build):
     # instances apart (the bf16 entries' count, gated at 0 in both).
     # max_abs_err_control_flow: (a)'s check of K2, K3 and K6 and (b)'s of
     # K5 at their steps' shapes, also in max_abs_err
+    # launches_sparse: phase 27 (a), DeepFM's timed replays, counted from 0
+    # (K2 52, K6 1 a replay), the float32 and the bf16 instances apart (the
+    # bf16 entries' count, gated at 0 there).  max_abs_err_sparse: (a)'s
+    # check of K2 and K6 and (b)'s of K3 and K6 at their steps' shapes, also
+    # in max_abs_err
     for e in kernels:
         e["launches_trainer"] = trainer_launches[e["name"]]
         e["launches_profile"] = PHASE19["launches_profile"].get(e["name"], 0)
@@ -7148,6 +7795,16 @@ def _main(torch, build):
         if e["name"] in cf["max_abs_err"]:
             e["max_abs_err_control_flow"] = cf["max_abs_err"][e["name"]]
             e["max_abs_err"] = max(e["max_abs_err"], e["max_abs_err_control_flow"])
+        e["launches_sparse"] = sparse["launches"][e["name"]]
+        if e["name"] in sparse["max_abs_err"]:
+            e["max_abs_err_sparse"] = sparse["max_abs_err"][e["name"]]
+            e["max_abs_err"] = max(e["max_abs_err"], e["max_abs_err_sparse"])
+    # K2 at phase 27's shapes (the 10,131,227-row field's [V, 16] and [V, 1]
+    # tables, the scalar branch at D 1; a 1,460-row field's), each with its
+    # times, plain version, F.embedding and bound
+    kernels[1]["shapes_sparse"] = sparse["k2_shapes"]
+    # K3 at (b)'s shapes: the same tables' dense gradients of the dense twin
+    kernels[2]["shapes_sparse"] = sparse["k3_shapes"]
     k4["quantizers"]["launches_profile"] = {
         n: PHASE19["launches_profile"].get(n, 0) for n in ("abs_max_pair", "quantize_int8")}
     k4["quantizers"]["launches_reference_path"] = {
@@ -7168,7 +7825,8 @@ def _main(torch, build):
                  launches_lstm=seq_launches["a_bf16"].get(name, 0),
                  launches_imdb_trainer=seq_launches["b_bf16"].get(name, 0),
                  launches_seq_models=seq_launches["c_bf16"].get(name, 0),
-                 launches_control_flow=cf["bf16_launches"].get(name, 0))
+                 launches_control_flow=cf["bf16_launches"].get(name, 0),
+                 launches_sparse=sparse["bf16_launches"].get(name, 0))
         lstm_err = seq_launches["max_abs_err"].get(f"{name}_bf16")
         if lstm_err is not None:
             e["max_abs_err_lstm"] = lstm_err

@@ -33,7 +33,7 @@ This package imports torch, numpy and the standard library only -- never
 jax or paddle_tpu.
 """
 from . import ops  # noqa: F401  (registers every op lowering)
-from . import (amp, analysis, checkpoint, clip, compile_log, dataset,  # noqa: F401
+from . import (amp, analysis, checkpoint, clip, compile_log, dataset, embedding,  # noqa: F401
                faults, flags, health, initializer, io, layers, lod, log, models,
                nets, optimizer, passes, profiler, profiling, reader, regularizer,
                resource_sampler, telemetry, transpiler)

@@ -14,7 +14,7 @@ from __future__ import annotations
 from collections import defaultdict
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
-from .core.desc import OpDesc, VarDesc, grad_var_name, strip_grad_suffix
+from .core.desc import OpDesc, VarDesc, VarType, grad_var_name, strip_grad_suffix
 from .core.dtypes import DataType
 from .core.framework import Block, Program, Variable
 from .core.registry import OPS, default_grad_maker
@@ -159,13 +159,15 @@ def _backward_core(targets, target_gradients, parameter_list, no_grad_set, check
 
     # 3. append to the program
     written = {n for g in grad_ops for names in g.outputs.values() for n in names if n}
-    if any(g.type == "lookup_table_grad" and g.attrs.get("is_sparse")
-           for g in grad_ops):
-        raise NotImplementedError(
-            "sparse (SelectedRows) embedding gradients are not ported yet: "
-            "build the embedding with is_sparse=False")
     for g in grad_ops:
         block.desc.append_op(g)
+        # a sparse embedding's gradient is a SelectedRows, not a dense
+        # tensor: the clips, regularizers and the kernel pass read the type
+        if g.type == "lookup_table_grad" and g.attrs.get("is_sparse"):
+            for n in g.output_names():
+                vd = block.desc.find_var(n) if n else None
+                if vd is not None:
+                    vd.type = VarType.SELECTED_ROWS
     block._sync_with_desc()
 
     # 4. (param, grad) pairs

@@ -4,11 +4,14 @@ regularizers, as the JAX package's ``clip.py`` appends them:
 (``clip_by_norm``, per gradient) and ``GradientClipByGlobalNorm`` (every
 gradient scaled by clip_norm / max(global norm, clip_norm), the global
 norm read from all gradients before any update).  ``set_gradient_clip``
-attaches a clip to parameters.  Gradients are dense: SelectedRows
-(sparse) gradients are not ported yet."""
+attaches a clip to parameters.  A SelectedRows (sparse embedding)
+gradient adds its merged rows' squared norm to the global norm and is
+rescaled row by row (``sparse_scale_rows``); the per-gradient value and
+norm clips leave it as it is, as in the JAX package."""
 from __future__ import annotations
 
 from .core import unique_name
+from .core.desc import VarType
 
 
 class BaseGradientClipAttr:
@@ -71,11 +74,14 @@ def append_gradient_clip_ops(params_grads):
     any parameter clips every gradient by the one global norm."""
     from .core.framework import default_main_program
     block = default_main_program().global_block
-    gn = next((c for c in (getattr(p, "gradient_clip", None) for p, _ in params_grads)
+    sparse = [(p, g) for p, g in params_grads if getattr(g, "type", None) == VarType.SELECTED_ROWS]
+    params_grads = [(p, g) for p, g in params_grads
+                    if getattr(g, "type", None) != VarType.SELECTED_ROWS]
+    gn = next((c for c in (getattr(p, "gradient_clip", None) for p, _ in params_grads + sparse)
                if isinstance(c, GradientClipByGlobalNorm)), None)
     if gn is not None:
         sq_sums = []
-        for _, g in params_grads:
+        for _, g in params_grads + sparse:
             if g is None:
                 continue
             sq = _var(block, "gclip_sq")
@@ -103,6 +109,12 @@ def append_gradient_clip_ops(params_grads):
             block.append_op("elementwise_mul", inputs={"X": g, "Y": ratio},
                             outputs={"Out": scaled}, attrs={"axis": -1, "op_role": "backward"})
             out.append((p, scaled))
+        for p, g in sparse:
+            scaled = block.create_var(name=unique_name.generate(g.name + "_gclip"),
+                                      shape=g.shape, dtype=g.dtype, type=VarType.SELECTED_ROWS)
+            block.append_op("sparse_scale_rows", inputs={"X": g, "Y": ratio},
+                            outputs={"Out": scaled}, attrs={"op_role": "backward"})
+            out.append((p, scaled))
         return out
     out = []
     for p, g in params_grads:
@@ -111,7 +123,7 @@ def append_gradient_clip_ops(params_grads):
             out.append((p, g))
             continue
         out.append((p, clip._append_clip_op(block, g)))
-    return out
+    return out + sparse
 
 
 def _const(block, value):

@@ -922,20 +922,22 @@ class Executor:
 
     # ------------------------------------------------------- async pipeline
     def stage_feeds(self, program: Optional[Program] = None, feeds=(), depth: int = 2,
-                    reuse: bool = True) -> FeedStager:
+                    reuse: bool = True, on_batch=None) -> FeedStager:
         """Wrap an iterable of host feed dicts in a :class:`FeedStager` that
         converts batch N+1 on a background thread while batch N runs: on the
         card each value is coerced into a pinned buffer and copied to the
         device on the stager's stream, and ``run`` waits on the batch's
         event and reads the staged tensors as they are.  ``reuse=False``
         turns off the staged-tensor reuse cache and marks batches
-        donatable."""
+        donatable.  ``on_batch(host_feed, staged)`` runs on the stager's
+        thread after each batch is staged (``RowPrefetcher.on_batch``)."""
         program = program or default_main_program()
         block = program.desc.block(0)
 
         def convert(name, value):
             return self._feed_host(block, name, value)
-        return FeedStager(convert, feeds, depth=depth, reuse=reuse, device=self.device)
+        return FeedStager(convert, feeds, depth=depth, reuse=reuse, device=self.device,
+                          on_batch=on_batch)
 
     def run_pipelined(self, program: Optional[Program] = None, feeds=(),
                       fetch_list: Optional[Sequence] = None, scope: Optional[Scope] = None,

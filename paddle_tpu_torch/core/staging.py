@@ -53,6 +53,7 @@ import torch
 
 from ..telemetry import REGISTRY, TIMELINE, current_trace, next_flow_id
 from .dtypes import to_numpy
+from .selected_rows import SelectedRows
 
 __all__ = ["COUNTERS", "PipelineCounters", "PINNED_HANDOUT", "PINNED_HANDOUT_LIMIT",
            "FeedStager", "StagedBatch", "stager_stats", "host_to_device_copy",
@@ -266,6 +267,9 @@ class FetchHandle:
 
     def _host_array(self) -> np.ndarray:
         v = self._val
+        if isinstance(v, SelectedRows):
+            # a fetched sparse gradient stays sparse: its ids and rows on the host
+            return SelectedRows(to_numpy(v.ids).copy(), to_numpy(v.rows).copy(), v.height)
         if not self._pinned or v.dtype == torch.bfloat16:
             return to_numpy(v)          # bf16: widened into a new array
         n = _block_bytes(v)
@@ -322,12 +326,20 @@ def prefetch_to_host(handles: Sequence[FetchHandle]) -> int:
     (the handle's read bounds how many arrays hold one: see
     :class:`PinnedHandout`)."""
     started, device = [], None
+
+    def pinned(v):
+        host = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+        host.copy_(v, non_blocking=True)
+        return host
+
     for h in handles:
         v = h._val
         if isinstance(v, torch.Tensor) and v.is_cuda:
-            host = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-            host.copy_(v, non_blocking=True)
-            h._val, h._pinned, device = host, True, v.device
+            h._val, h._pinned, device = pinned(v), True, v.device
+            started.append(h)
+        elif isinstance(v, SelectedRows) and v.rows.is_cuda:
+            h._val = SelectedRows(pinned(v.ids), pinned(v.rows), v.height)
+            h._pinned, device = True, v.rows.device
             started.append(h)
     if started:
         event = torch.cuda.Event()
@@ -381,10 +393,12 @@ class StagedBatch(dict):
     On the card ``event`` is recorded on the stager's stream after the
     batch's copies: the executor's stream waits on it before reading the
     batch.  ``flow_id`` (set while the timeline is enabled) ties the
-    batch's stage span to the span of the step that reads it.  A plain
+    batch's stage span to the span of the step that reads it.
+    ``prefetched`` is ``{table: unique ids}`` where a ``RowPrefetcher``
+    rides the stager's thread (embedding/prefetch.py), else None.  A plain
     dict everywhere else."""
 
-    __slots__ = ("flow_id", "seq", "nbytes", "donatable", "event")
+    __slots__ = ("flow_id", "seq", "nbytes", "donatable", "event", "prefetched")
 
     def __init__(self, *a, **kw):
         super().__init__(*a, **kw)
@@ -393,6 +407,7 @@ class StagedBatch(dict):
         self.nbytes: int = 0
         self.donatable: bool = False
         self.event: Optional["torch.cuda.Event"] = None
+        self.prefetched: Optional[dict] = None
 
 
 # live stagers, for queue-depth / bytes-in-flight readings: weak, so a
@@ -447,16 +462,21 @@ class FeedStager:
     epoch-cycled pools pay one copy per distinct buffer; a conversion the
     cache could not serve counts as ``buffer_reuse_misses``.
     ``reuse=False`` turns the cache off and marks batches ``donatable``.
-    An error in ``convert`` or in ``feeds`` reaches the consumer."""
+    ``on_batch(host_feed, staged)``, where given, runs on the thread after
+    each batch is staged (a ``RowPrefetcher``'s dedup of the host ids).
+    An error in ``convert``, ``on_batch`` or ``feeds`` reaches the
+    consumer."""
 
     # staged tensors kept per feed name for reuse
     REUSE_DEPTH = 8
 
     def __init__(self, convert: Callable[[str, Any], Tuple[torch.Tensor, torch.dtype]],
-                 feeds: Iterable[dict], depth: int = 2, reuse: bool = True, device=None):
+                 feeds: Iterable[dict], depth: int = 2, reuse: bool = True, device=None,
+                 on_batch: Optional[Callable[[dict, "StagedBatch"], None]] = None):
         if depth < 1:
             raise ValueError(f"FeedStager depth must be >= 1, got {depth}")
         self._convert = convert
+        self._on_batch = on_batch
         self._reuse_enabled = reuse
         self.device = torch.device(device) if device is not None else torch.device("cpu")
         self._cuda = self.device.type == "cuda"
@@ -568,6 +588,8 @@ class FeedStager:
             # reads this batch records its head
             staged.flow_id = next_flow_id()
             TIMELINE.record_flow("s", "staged_batch", staged.flow_id, now - 1.0)
+        if self._on_batch is not None:
+            self._on_batch(feed, staged)
         return staged
 
     def _worker(self, it: Iterator[dict]):

@@ -15,7 +15,8 @@ __all__ = ["fc", "embedding", "conv2d", "conv2d_transpose", "pool2d", "batch_nor
            "square_error_cost", "accuracy", "topk", "mean", "mul", "matmul",
            "elementwise_add", "elementwise_sub", "elementwise_mul", "elementwise_div",
            "reduce_sum", "reduce_mean", "reduce_max", "reduce_min", "reduce_prod", "relu",
-           "sigmoid", "tanh", "reshape", "transpose", "concat", "split", "cast", "scale",
+           "sigmoid", "tanh", "sigmoid_cross_entropy_with_logits", "reshape", "transpose",
+           "concat", "split", "cast", "scale",
            "clip", "clip_by_norm", "one_hot", "lrn", "log", "sqrt", "square", "prelu",
            "flatten", "stack", "squeeze", "unsqueeze", "gather", "pad", "maxout",
            "hard_sigmoid", "leaky_relu", "soft_relu", "elu", "relu6", "pow", "swish",
@@ -453,6 +454,14 @@ def softmax_with_cross_entropy(logits, label, soft_label=False, name=None):
                      outputs={"Softmax": softmax_out, "Loss": loss},
                      attrs={"soft_label": soft_label})
     return loss
+
+
+def sigmoid_cross_entropy_with_logits(x, label, name=None):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("sigmoid_cross_entropy_with_logits",
+                     inputs={"X": x, "Label": label}, outputs={"Out": out})
+    return out
 
 
 def square_error_cost(input, label, name=None):

@@ -1,2 +1,2 @@
-from . import (alexnet, googlenet, machine_translation, mnist, resnet,  # noqa: F401
-               rnn_encoder_decoder, se_resnext, stacked_lstm, transformer, vgg)
+from . import (alexnet, deepfm, googlenet, machine_translation, mnist,  # noqa: F401
+               resnet, rnn_encoder_decoder, se_resnext, stacked_lstm, transformer, vgg)

@@ -15,6 +15,7 @@ import torch
 
 from ..core.dtypes import DataType
 from ..core.registry import register_infer_shape, register_lowering
+from ..core.selected_rows import SelectedRows, concat_rows
 from .common import (bcast_shape, bcast_y, in_dtype, in_shape, normalize_axis,
                      same_shape, set_out_shape)
 
@@ -190,9 +191,18 @@ def _mean_shape(block, op):
 def _sum(ctx, op):
     """Multi-input add; ``append_backward`` emits it to merge a gradient
     produced more than once, the regularizers to add the decay, and the
-    global-norm clip to total the squared norms.  (SelectedRows inputs
-    are not ported yet.)"""
+    global-norm clip to total the squared norms.  SelectedRows inputs
+    concatenate when all are sparse (``concat_rows``: duplicates stay, the
+    updates merge); a sparse input beside a dense one is densified."""
     xs = ctx.read_slot_list(op, "X")
+    if any(isinstance(x, SelectedRows) for x in xs):
+        if all(isinstance(x, SelectedRows) for x in xs):
+            out = xs[0]
+            for x in xs[1:]:
+                out = concat_rows(out, x)
+            ctx.write_slot(op, "Out", out)
+            return
+        xs = [x.to_dense() if isinstance(x, SelectedRows) else x for x in xs]
     out = xs[0]
     for x in xs[1:]:
         out = out + x
@@ -313,6 +323,11 @@ def _squared_l2_distance(ctx, op):
 @register_lowering("squared_l2_norm")
 def _squared_l2_norm(ctx, op):
     x = ctx.read_slot(op, "X")
+    if isinstance(x, SelectedRows):
+        # duplicates sum before they are squared, in float32
+        rows = x.merged().rows.to(torch.float32)
+        ctx.write_slot(op, "Out", torch.sum(rows * rows).reshape(()))
+        return
     ctx.write_slot(op, "Out", torch.sum(x * x).reshape(()))
 
 

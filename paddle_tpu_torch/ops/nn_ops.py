@@ -1,8 +1,9 @@
 """NN op lowerings: convolution and its transpose, pooling, batch_norm,
 layer_norm, lrn, dropout, lookup_table, softmax and the cross-entropy
-losses.  ``lookup_table`` gathers through the hand-written embedding
-kernels (ops/cuda/embedding.py): the gather forward, and the scatter-add
-as the gather's gradient.  The convolutions (cuDNN through ``F.conv2d``
+losses (``sigmoid_cross_entropy_with_logits`` too).  ``lookup_table``
+gathers through the hand-written embedding kernels
+(ops/cuda/embedding.py): the gather forward, and the scatter-add as the
+gather's gradient.  The convolutions (cuDNN through ``F.conv2d``
 and ``F.conv_transpose2d``), pooling, ``batch_norm``, ``lrn``,
 ``softmax``, ``log_softmax``, ``cross_entropy`` and
 ``softmax_with_cross_entropy`` are plain PyTorch, as the JAX package
@@ -397,6 +398,16 @@ def _lookup_table_shape(block, op):
         ids = ids[:-1]
     set_out_shape(block, op, "Out", tuple(ids) + (ws[-1],),
                   in_dtype(block, op, "W"))
+
+
+@register_lowering("sigmoid_cross_entropy_with_logits", non_diff_inputs=("Label",))
+def _sigmoid_ce(ctx, op):
+    """max(x, 0) - x * label + log1p(exp(-|x|)), elementwise (the JAX
+    lowering's expression); the label is not differentiated."""
+    x = ctx.read_slot(op, "X")
+    label = ctx.read_slot(op, "Label")
+    ctx.write_slot(op, "Out", torch.clamp_min(x, 0) - x * label
+                   + torch.log1p(torch.exp(-torch.abs(x))))
 
 
 @register_lowering("softmax")

@@ -24,8 +24,12 @@ one pass over every tensor of the group a step per operation, each
 operation in the order the JAX lowering writes it.  A group shares its
 attributes and its learning-rate var (part of the group key).
 
-An op lowered on its own is a group of one.  Gradients are dense:
-SelectedRows (sparse) gradients are not ported yet.
+An op lowered on its own is a group of one.  An update whose gradient is
+a SelectedRows (a sparse embedding's) leaves its group: ``sgd`` /
+``pallas_sgd``, ``adam`` / ``pallas_adam`` and ``adagrad`` update its
+touched rows in place (ops/sparse_ops.py), so a step's K5 or K6 launch
+covers its dense parameters only; every other rule raises
+``unsupported_sparse``, as in the JAX package.
 
 ``average_accumulates`` is ``ModelAverage``'s windowed parameter sum
 (optimizer.py): its counters stay int32 tensors and its branches are
@@ -36,8 +40,10 @@ from __future__ import annotations
 import torch
 
 from ..core.registry import register_group_lowering, register_infer_shape, register_lowering
+from ..core.selected_rows import SelectedRows
 from .common import in_dtype, in_shape, set_out_shape
 from .cuda.fused_optimizer import fused_adam_multi, fused_sgd_multi
+from .sparse_ops import sparse_adagrad, sparse_adam, sparse_sgd, unsupported_sparse
 
 _ADAM_IN = ("Param", "Grad", "Moment1", "Moment2", "Beta1Pow", "Beta2Pow", "LearningRate")
 _ADAM_OUT = ("ParamOut", "Moment1Out", "Moment2Out", "Beta1PowOut", "Beta2PowOut")
@@ -61,9 +67,31 @@ def _own(op, slot, out_slot, t):
     return t if op.output(out_slot) == op.input(slot) else t.clone()
 
 
+def _dense(ctx, ops, sparse_rule):
+    """The ops of ``ops`` whose gradient is dense; each other one (a
+    SelectedRows gradient) goes to ``sparse_rule(ctx, op, grad)`` now."""
+    dense = []
+    for op in ops:
+        g = ctx.read_slot(op, "Grad")
+        if isinstance(g, SelectedRows):
+            sparse_rule(ctx, op, g)
+        else:
+            dense.append(op)
+    return dense
+
+
+def _sgd_sparse(ctx, op, g):
+    p = ctx.read_slot(op, "Param")
+    ctx.write_slot(op, "ParamOut", sparse_sgd(_own(op, "Param", "ParamOut", p), g,
+                                              ctx.read_slot(op, "LearningRate")))
+
+
 @register_group_lowering("sgd", "pallas_sgd", key=_sgd_key)
 def _sgd_group(ctx, ops):
     entries = []
+    ops = _dense(ctx, ops, _sgd_sparse)
+    if not ops:
+        return
     for op in ops:
         p, g, lr = (ctx.read_slot(op, s) for s in ("Param", "Grad", "LearningRate"))
         entries.append((_own(op, "Param", "ParamOut", p), _grad_as(g, p), lr))
@@ -79,9 +107,21 @@ def _adam_key(op):
     return ("adam",) + _adam_attrs(op)
 
 
+def _adam_sparse(ctx, op, g):
+    p, _, m1, m2, b1p, b2p, lr = (ctx.read_slot(op, s) for s in _ADAM_IN)
+    p, m1, m2 = (_own(op, s, o, t) for s, o, t in
+                 zip(("Param", "Moment1", "Moment2"), _ADAM_OUT, (p, m1, m2)))
+    outs = sparse_adam(p, g.astype(p.dtype), m1, m2, b1p, b2p, lr, *_adam_attrs(op))
+    for slot, val in zip(_ADAM_OUT, outs):
+        ctx.write_slot(op, slot, val)
+
+
 @register_group_lowering("adam", "pallas_adam", key=_adam_key)
 def _adam_group(ctx, ops):
     entries = []
+    ops = _dense(ctx, ops, _adam_sparse)
+    if not ops:
+        return
     for op in ops:
         p, g, m1, m2, b1p, b2p, lr = (ctx.read_slot(op, s) for s in _ADAM_IN)
         p, m1, m2 = (_own(op, s, o, t) for s, o, t in
@@ -120,9 +160,21 @@ def _family(op_type, state, attrs, reads=()):
 
     state = [(s, s + "Out") if isinstance(s, str) else s for s in state]
 
+    def sparse(ctx, op, g):
+        if op_type != "adagrad":
+            unsupported_sparse(op_type)
+        p, mom = (_own(op, s, s + "Out", ctx.read_slot(op, s)) for s in ("Param", "Moment"))
+        p, mom = sparse_adagrad(p, g.astype(p.dtype), mom, ctx.read_slot(op, "LearningRate"),
+                                op.attr("epsilon", 1e-6))
+        ctx.write_slot(op, "ParamOut", p)
+        ctx.write_slot(op, "MomentOut", mom)
+
     def deco(rule):
         @register_group_lowering(op_type, key=key)
         def group(ctx, ops):
+            ops = _dense(ctx, ops, sparse)
+            if not ops:
+                return
             lr = ctx.read_slot(ops[0], "LearningRate")
             ps = [_own(op, "Param", "ParamOut", ctx.read_slot(op, "Param")) for op in ops]
             gs = [_grad_as(ctx.read_slot(op, "Grad"), p) for op, p in zip(ops, ps)]

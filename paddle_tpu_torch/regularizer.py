@@ -3,10 +3,12 @@ gradient by ``optimizer.minimize`` (after the gradient clips), as the JAX
 package's ``regularizer.py`` appends them: L2 adds ``coeff * param``, L1
 adds ``coeff * sign(param)``.  A parameter's own ``regularizer`` (from its
 ``ParamAttr``) takes precedence over the optimizer's ``regularization``.
-Gradients are dense: SelectedRows (sparse) gradients are not ported yet."""
+A SelectedRows (sparse embedding) gradient decays lazily, once a touched
+row (``sparse_weight_decay``), and stays sparse."""
 from __future__ import annotations
 
 from .core import unique_name
+from .core.desc import VarType
 
 
 class WeightDecayRegularizer:
@@ -58,8 +60,29 @@ def append_regularization_ops(params_grads, regularization=None):
         if grad is None or reg is None:
             out.append((param, grad))
             continue
-        out.append((param, reg.append_regularization_op(
-            param, grad, param.block.program.global_block)))
+        block = param.block.program.global_block
+        if getattr(grad, "type", None) == VarType.SELECTED_ROWS:
+            out.append((param, _sparse_decay(param, grad, reg, block)))
+            continue
+        out.append((param, reg.append_regularization_op(param, grad, block)))
+    return out
+
+
+def _sparse_decay(param, grad, reg, block):
+    """``grad`` ++ the decay of its touched rows, a SelectedRows."""
+    if isinstance(reg, L1DecayRegularizer):
+        mode = "l1"
+    elif isinstance(reg, L2DecayRegularizer):
+        mode = "l2"
+    else:
+        raise NotImplementedError(
+            f"custom regularizer {type(reg).__name__} has no sparse (SelectedRows) decay "
+            f"rule -- use L1Decay/L2Decay for is_sparse embeddings or set is_sparse=False")
+    out = block.create_var(name=unique_name.generate(grad.name + "_reg"), shape=grad.shape,
+                           dtype=grad.dtype, type=VarType.SELECTED_ROWS)
+    block.append_op("sparse_weight_decay", inputs={"Param": param, "Grad": grad},
+                    outputs={"Out": out},
+                    attrs={"coeff": reg._coeff, "mode": mode, "op_role": "backward"})
     return out
 
 

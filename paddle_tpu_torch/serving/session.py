@@ -40,7 +40,13 @@ class ServingSession:
     ``fault_site``: a per-model chaos hook (``faults``): every dispatched
     batch fires the generic ``serving.backend`` site and this one, so a
     fault plan can fail, slow or kill one model's backend; None (the
-    default) fires nothing."""
+    default) fires nothing.
+    ``param_path`` loads saved parameters into the ``Inferencer`` it
+    builds.  ``embedding_cache``: LRU row caches (``embedding.RowCache``)
+    in front of the model's embedding tables for :meth:`lookup_rows`, a
+    sequence of table names (capacity keyed on the memory budget) or
+    ``{table: {budget/fraction/capacity_rows}}``; ``stats()["embedding"]``
+    holds each table's cache counters."""
 
     def __init__(self, infer_func=None, place=None, inferencer=None,
                  max_batch_size: int = 32, max_wait_ms: float = 2.0,
@@ -49,17 +55,24 @@ class ServingSession:
                  buckets: Optional[Sequence[int]] = None,
                  warmup: bool = True, nan_guard: bool = True, passes=None,
                  amp=None, kernels=None, validate: Optional[str] = None,
-                 memory_budget=None, fault_site: Optional[str] = None):
+                 memory_budget=None, fault_site: Optional[str] = None,
+                 param_path: Optional[str] = None, embedding_cache=None):
         if inferencer is None:
             if infer_func is None:
                 raise ValueError("pass infer_func or an existing inferencer")
             from ..trainer import Inferencer
-            inferencer = Inferencer(infer_func=infer_func, place=place,
+            inferencer = Inferencer(infer_func=infer_func, param_path=param_path, place=place,
                                     passes=passes, amp=amp, kernels=kernels,
                                     validate=validate, memory_budget=memory_budget)
         elif memory_budget is not None:
             inferencer.exe.memory_budget = memory_budget
         self.inferencer = inferencer
+        if embedding_cache:
+            spec = embedding_cache
+            if not isinstance(spec, dict):
+                spec = {str(t): {} for t in spec}
+            for table, kw in spec.items():
+                self.inferencer.attach_row_cache(table, **dict(kw or {}))
         self._fault_site = fault_site
         self.buckets = tuple(sorted(
             int(b) for b in (buckets or pow2_buckets(max_batch_size))))
@@ -107,7 +120,15 @@ class ServingSession:
         s["executor"] = {"scope": exe.telemetry_scope, "compile_count": exe.compile_count,
                          "executables": len(exe._cache)}
         s["serving"] = REGISTRY.snapshot(scope=SERVING_SCOPE)
+        emb = self.inferencer.row_cache_stats()
+        if emb:
+            s["embedding"] = emb
         return s
+
+    def lookup_rows(self, table: str, ids):
+        """Embedding rows for ``ids``, through the table's row cache where
+        ``embedding_cache=`` attached one (a hit gathers nothing)."""
+        return self.inferencer.lookup_rows(table, ids)
 
     def close(self, drain: bool = True):
         """Stop accepting requests; by default drain in-flight batches."""

@@ -48,9 +48,11 @@ graph replays on, no new capture), ``save_on_fetch_timeout`` saves
 synchronously and stops after a fetch timeout.  ``train`` waits for the
 queued saves before it returns.
 
-Options of the JAX Trainer that need modules not ported yet raise
-``NotImplementedError`` naming their ROADMAP item: ``parallel``,
-``mesh``, ``layout`` (item 12), ``dispatch`` and ``prefetcher`` (item 11).
+``prefetcher=`` (an ``embedding.RowPrefetcher``) dedups each batch's
+embedding ids on the host as the batch is staged.  Options of the JAX
+Trainer that need modules not ported yet raise ``NotImplementedError``
+naming their ROADMAP item: ``parallel``, ``mesh``, ``layout`` (item 12)
+and ``dispatch`` (item 11).
 
 Before the first step the Trainer plans the step program's memory from
 the first batch's shapes (``analysis.plan_memory``), logs the predicted
@@ -83,11 +85,13 @@ import time
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from . import io as io_mod
 from . import telemetry
 from .core import unique_name
 from .core.desc import VarType
+from .core.dtypes import to_numpy
 from .core.executor import Executor, Place
 from .core.framework import Program, Variable, program_guard
 from .core.scope import Scope, scope_guard
@@ -180,10 +184,13 @@ class Trainer:
                  prefetcher=None):
         for option, value, item in (("parallel", parallel, "12"), ("mesh", mesh, "12"),
                                     ("layout", layout, "12"),
-                                    ("dispatch", dispatch, "11"),
-                                    ("prefetcher", prefetcher, "11")):
+                                    ("dispatch", dispatch, "11")):
             if value:
                 _not_ported(option, item)
+        # prefetcher: an embedding.RowPrefetcher; its on_batch hook dedups
+        # each batch's ids on the stager's thread (pipeline=True) or before
+        # the step (pipeline=False)
+        self.prefetcher = prefetcher
         if checkpoint and checkpoint_config:
             raise ValueError(
                 "pass either checkpoint= (paddle_tpu_torch.checkpoint, the async format) "
@@ -344,15 +351,20 @@ class Trainer:
             # returns non-blocking FetchHandles, so reading a metric in the
             # event handler is the step's one sync point
             batches = (feeder.feed(b) for i, b in enumerate(reader()) if i >= skip_until)
-            stager = self.exe.stage_feeds(self._step_program, batches)
+            on_batch = self.prefetcher.on_batch if self.prefetcher is not None else None
+            stager = self.exe.stage_feeds(self._step_program, batches, on_batch=on_batch)
             steps = enumerate(stager, start=skip_until)
         else:
             stager = None
 
             def _synchronous_steps():
                 for i, b in enumerate(reader()):
-                    if i >= skip_until:
-                        yield i, feeder.feed(b)
+                    if i < skip_until:
+                        continue
+                    feed = feeder.feed(b)
+                    if self.prefetcher is not None:
+                        self.prefetcher.on_batch(feed)
+                    yield i, feed
             steps = _synchronous_steps()
         steps = iter(steps)
         micro = 0   # micro-steps since the last application of the optimizer
@@ -571,6 +583,8 @@ class Inferencer:
             with scope_guard(self.scope):
                 io_mod.load_persistables(self.exe, param_path, self.inference_program)
         self.feed_names = [v.name for v in self._feed_vars()]
+        # table name -> embedding.RowCache serving lookup_rows()
+        self._row_caches: dict = {}
 
     def _feed_vars(self) -> List[Variable]:
         """The program's input vars: consumed but never produced by any op,
@@ -649,3 +663,47 @@ class Inferencer:
                             fetch_list=list(self.predict_vars),
                             scope=self.scope, return_numpy=return_numpy,
                             sync=sync)
+
+    # ------------------------------------------- serving embedding cache
+    def attach_row_cache(self, table: str, *, budget=None, fraction: float = 0.05,
+                         capacity_rows=None):
+        """Put an LRU row cache (``embedding.RowCache``) in front of
+        ``table`` for :meth:`lookup_rows`, its capacity keyed on the memory
+        planner's budget grammar (``budget`` falls back to the executor's
+        ``memory_budget``).  Returns the cache."""
+        from .embedding import RowCache
+        var = self.scope.find_var(table)
+        if var is None:
+            raise KeyError(f"no loaded parameter {table!r} to cache")
+        if capacity_rows is not None:
+            cache = RowCache(int(capacity_rows), table=table)
+        else:
+            dim = int(np.prod(var.shape[1:])) or 1
+            cache = RowCache.for_table(
+                int(var.shape[0]), dim, dtype=str(var.dtype).replace("torch.", ""),
+                budget=budget if budget is not None else self.exe.memory_budget,
+                fraction=fraction, table=table)
+        self._row_caches[table] = cache
+        return cache
+
+    def lookup_rows(self, table: str, ids) -> np.ndarray:
+        """Rows of parameter ``table`` at ``ids``, through the attached
+        :class:`~paddle_tpu_torch.embedding.RowCache` where there is one;
+        the misses (or every id, without a cache) are gathered from the
+        live table where it lies (K2 on the card) and copied to the host."""
+        from .ops.cuda.embedding import gather_rows
+        var = self.scope.find_var(table)
+        if var is None:
+            raise KeyError(f"no loaded parameter {table!r}")
+        ids = np.asarray(ids).reshape(-1).astype(np.int64)
+
+        def fetch(miss_ids):
+            at = torch.as_tensor(np.asarray(miss_ids, np.int32), device=var.device)
+            return to_numpy(gather_rows(var.reshape(var.shape[0], -1).contiguous(), at)
+                            ).reshape((len(at),) + tuple(var.shape[1:]))
+
+        cache = self._row_caches.get(table)
+        return fetch(ids) if cache is None else cache.lookup(ids, fetch)
+
+    def row_cache_stats(self) -> dict:
+        return {t: c.stats() for t, c in self._row_caches.items()}

@@ -2529,3 +2529,114 @@ def test_the_encoder_decoder_trains_one_replay_a_step(cuda):
     assert [float(r[1][0]) for r in runs] == [float(np.float32(v)) for v in rates[1:]] + \
         [float(np.float32(rates[-1]))]
     assert _replay_vs_eager(exe, main, feed, [loss, lr], scope) == (True, True)
+
+
+def _small_deepfm(is_test, vocab=(50, 30, 20), dim=4, batch=16):
+    from paddle_tpu_torch.models import deepfm
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        ids, dense, label = deepfm.data_layers(len(vocab))
+        loss, _ = deepfm.train_network(ids, dense, label, list(vocab), embed_dim=dim,
+                                       is_test=is_test)
+        pt.optimizer.Adam(learning_rate=0.01).minimize(loss)
+    feed = deepfm.synthetic_feed(4, batch, vocab)
+    feed["C0"][:3, 0] = vocab[0] - 1          # the last row, three times
+    return main, startup, loss, feed
+
+
+def test_sparse_adam_step_replays_bit_equal_to_an_eager_step(cuda):
+    """A small DeepFM with SelectedRows gradients and lazy Adam: one graph,
+    K2 once a lookup and K6 once (the dense MLP) a replay, no K3 and no
+    K5; a replay bit-equal to an op-by-op step; untouched rows unmoved."""
+    main, startup, loss, feed = _small_deepfm(is_test=True)
+    scope, exe = pt.Scope(), pt.Executor()
+    exe.run(startup, scope=scope)
+    exe.precompile(main, feed=feed, fetch_list=[loss], scope=scope)
+    counts = (gather_rows.launches, scatter_add_rows.launches, fused_adam.launches,
+              fused_sgd.launches)
+    start = {n: scope.find_var(n).clone() for n in ("fm_emb_0", "fm_w1_2")}
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    after = (gather_rows.launches, scatter_add_rows.launches, fused_adam.launches,
+             fused_sgd.launches)
+    assert tuple(b - a for a, b in zip(counts, after)) == (6, 0, 1, 0)
+    (entry,) = [e for e in exe.cache_info()["entries"] if "C0" in e["feeds"]]
+    assert entry["kind"] == "graph" and exe.cache_info()["captures"] == 1
+    for name, field in (("fm_emb_0", "C0"), ("fm_w1_2", "C2")):
+        hit = sorted(set(feed[field][:, 0].tolist()))
+        rest = [r for r in range(start[name].shape[0]) if r not in hit]
+        now = scope.find_var(name)
+        assert torch.equal(now[rest], start[name][rest])
+        assert not torch.equal(now[hit], start[name][hit])
+    assert _replay_vs_eager(exe, main, feed, [loss], scope) == (True, True)
+
+
+def test_merged_recorded_in_a_cuda_graph(cuda):
+    """``SelectedRows.merged()`` captured in a CUDA graph: replays over new
+    ids (copied into the static buffer) equal the eager merge bit for bit,
+    and the unique ids equal ``torch.unique``'s, padded with the height."""
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
+    height, k = 1000, 512
+    g = torch.Generator(device="cuda").manual_seed(0)
+    ids = torch.randint(0, 40, (k,), device="cuda", generator=g, dtype=torch.int32)
+    rows = torch.randn(k, 16, device="cuda", generator=g)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        SelectedRows(ids, rows, height).merged()
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = SelectedRows(ids, rows, height).merged()
+    for seed in range(3):
+        gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+        ids.copy_(torch.randint(0, 40 + 300 * seed, (k,), device="cuda", generator=gen,
+                                dtype=torch.int32))
+        ids[-1] = height - 1
+        rows.copy_(torch.randn(k, 16, device="cuda", generator=gen))
+        graph.replay()
+        want = SelectedRows(ids, rows, height).merged()
+        assert torch.equal(out.ids, want.ids) and torch.equal(out.rows, want.rows)
+        uniq = torch.unique(ids)
+        assert torch.equal(out.ids[:uniq.numel()], uniq)
+        assert bool((out.ids[uniq.numel():] == height).all())
+        dense = torch.zeros(height, 16, device="cuda", dtype=torch.float64).index_put_(
+            (ids.long(),), rows.double(), accumulate=True)
+        torch.testing.assert_close(out.to_dense(), dense.float(), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("rule", ["adam", "adagrad", "sgd"])
+def test_sparse_update_padded_slots_at_the_last_row(cuda, rule):
+    """A batch with duplicates and the table's last row (the padded slots
+    point at slot 0's row): the sparse update on the card twice bit-equal,
+    within 1e-6 of the CPU's, the untouched rows bit-equal."""
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
+    from paddle_tpu_torch.ops.sparse_ops import sparse_adagrad, sparse_adam, sparse_sgd
+    height, d = 300, 8
+    gen = torch.Generator().manual_seed(11)
+    ids = torch.tensor([299, 5, 299, 17, 5, 5, 299, 0], dtype=torch.int32)
+    rows = torch.randn(len(ids), d, generator=gen)
+    tables = [torch.randn(height, d, generator=gen) for _ in range(3)]
+    tables[2] = tables[2].abs()
+    lr = torch.tensor([0.05])
+    powers = (torch.tensor([0.9]), torch.tensor([0.999]))
+
+    def step(dev):
+        p, m1, m2 = (t.to(dev).clone() for t in tables)
+        g = SelectedRows(ids.to(dev), rows.to(dev), height)
+        g = g if rule == "sgd" else g.merged()
+        if rule == "adam":
+            sparse_adam(p, g, m1, m2, *(x.to(dev) for x in powers), lr.to(dev), 0.9, 0.999, 1e-8)
+        elif rule == "adagrad":
+            sparse_adagrad(p, g, m2, lr.to(dev), 1e-6)
+        else:
+            sparse_sgd(p, g, lr.to(dev))
+        return [t.cpu() for t in (p, m1, m2)]
+
+    a, b, cpu = step("cuda"), step("cuda"), step("cpu")
+    touched = [0, 5, 17, 299]
+    rest = [r for r in range(height) if r not in touched]
+    for x, y, z, t0 in zip(a, b, cpu, tables):
+        assert torch.equal(x, y)
+        torch.testing.assert_close(x, z, atol=1e-6, rtol=0)
+        assert torch.equal(x[rest], t0[rest])
+    assert not torch.equal(a[0][299], tables[0][299])

@@ -269,7 +269,7 @@ def test_begin_step_event_can_skip_the_metrics():
 
 @pytest.mark.parametrize("option,value,item", [
     ("parallel", True, "12"), ("mesh", object(), "12"), ("layout", object(), "12"),
-    ("dispatch", object(), "11"), ("prefetcher", object(), "11")])
+    ("dispatch", object(), "11")])
 def test_options_not_ported_raise_naming_their_roadmap_item(option, value, item):
     with pytest.raises(NotImplementedError, match=rf"ROADMAP §A item {item}\)"):
         _pt_trainer(**{option: value})

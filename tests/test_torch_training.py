@@ -171,16 +171,24 @@ def test_unported_training_options_raise():
     regularizer raised; both are ported now (tests/test_torch_unfused_head.py,
     tests/test_torch_optimizers.py), and so is ``piecewise_decay``, which
     raised while the port had no conditional sub-blocks
-    (tests/test_torch_control_flow.py).  What still raises: sparse
-    embedding gradients."""
+    (tests/test_torch_control_flow.py), and so are sparse embedding
+    gradients (tests/test_torch_sparse.py): what still raises is an update
+    rule without a sparse form, as in the JAX package."""
     main, startup = pt.Program(), pt.Program()
     with pt.program_guard(main, startup):
         ids = pt.layers.data(name="ids", shape=[1], dtype="int64")
         emb = pt.layers.embedding(ids, size=[10, 4], is_sparse=True)
-        with pytest.raises(NotImplementedError, match="sparse"):
-            pt.optimizer.SGD(0.1).minimize(pt.layers.mean(emb))
+        loss = pt.layers.mean(emb)
+        pt.optimizer.Momentum(0.1, momentum=0.9).minimize(loss)
         lr = pt.layers.piecewise_decay([2], [1.0, 0.5])
     assert main.desc.num_blocks() == 3 and lr.persistable
+    assert main.global_block.var(emb.block.ops[0].desc.input("W")[0] + "@GRAD").type == \
+        "selected_rows"
+    scope, exe = pt.Scope(), pt.Executor(pt.CPUPlace())
+    exe.run(startup, scope=scope)
+    with pytest.raises(NotImplementedError, match="sparse"):
+        exe.run(main, feed={"ids": np.array([[1], [3]], np.int64)}, fetch_list=[loss],
+                scope=scope)
 
 
 def test_sgd_trains_a_linear_regression():
