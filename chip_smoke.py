@@ -429,6 +429,34 @@ Phases, each fatal on failure (non-zero exit, no result line):
     ``ServingSession(embedding_cache=...)``: ``lookup_rows`` equal to the
     trained rows with hits, a served batch bit-equal to the inferencer's
     replay and to an op-by-op run.
+28. the data path (``phase_data``): phase 27 (a)'s DeepFM at the Criteo
+    width trained from RecordIO shards the port's native writer makes
+    from ``models/deepfm.py``'s seeded feed (4 shards of 4 chunks, a chunk
+    one batch of 2,048 records of 268 bytes: 26 int64 ids, 13 float32
+    features, an int64 label; a held-out chunk), with ``layers.auc`` in
+    the step; a 4-thread ``parallel_scan`` reads every record once; the
+    host ms a batch of the native and the Python scanner,
+    of the dispatch task reader's decode, ``DataFeeder`` and
+    ``open_files``' reader; (a) a ``DispatchMaster`` in the process, a
+    client ``rank0`` that leases a task and dies, then
+    ``Trainer(dispatch=DispatchConfig(worker="rank0", reap_on_start=
+    True))``, which reaps the lease on construction, and an epoch of 16
+    steps: every task finished once, the master done, one graph, step 0
+    the eager run and a replay and K2 52, K6 1 each later step (K3, K5 and
+    the bf16 instances 0; ``launches_dispatch``), ms a step with the
+    spread; the state bit-equal to the feed-dict control (the trainer's
+    step program run by ``exe.run`` on the same batches in the order the
+    reader consumed the tasks, from the same state and generator state:
+    dropout draws alike); (b) the same network over ``open_files`` (one
+    thread, the files' order) + ``read_file``, two passes through
+    ``EOFException`` / ``reset()``, each step one replay of one graph
+    (``launches_py_reader``), every record read by the native scanner,
+    the state bit-equal to the control over the same 32 batches; (c) the
+    trained model's ``clone(for_test=True)`` on the held-out batch: one
+    graph, K2 52 a replay, its AUC within ``AUC_TOL`` of ``metrics.Auc``
+    over the thresholds' buckets and of a float64 trapezoid; a 2-replay
+    profile (device busy ms a step) and from it the idle share of (a)'s
+    and (b)'s timed steps.
 
 Phase 9 also takes the 2 x 256 step in bf16 (``enable_amp``) with cuBLAS's
 reduced-precision bf16 reductions allowed (PyTorch's default) and not, and
@@ -7270,31 +7298,33 @@ def _deepfm_cell(torch, pt, card, counters):
     return res
 
 
-def _replay_profile(torch, exe, main, feed, loss, scope, label, card, want, step_ms):
+def _replay_profile(torch, exe, main, feed, loss, scope, label, card, want, step_ms,
+                    fetch=None, phase=27):
     """A profile of FM_PROFILE_STEPS replays behind a warm-up replay, which
     must record: device busy ms a replay, the timed replays' idle share
     (their median wall against the profile's busy time: the profiler
     stretches the host's side), the kernels by family gated at ``want`` a
-    replay."""
-    prof = _profile(torch, lambda: [exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    replay.  ``fetch`` (default ``[loss]``) keys the cache entry replayed."""
+    fetch = fetch or [loss]
+    prof = _profile(torch, lambda: [exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
                                     for _ in range(FM_PROFILE_STEPS)],
                     f"{label}_profile", card, {"batch": FM_B, "steps": FM_PROFILE_STEPS},
-                    warm=lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope))
+                    warm=lambda: exe.run(main, feed=feed, fetch_list=fetch, scope=scope))
     if prof is None:
-        raise AssertionError(f"phase 27 {label}: the profiler recorded no device activity; the "
-                             f"kernel gates and the idle share read it")
+        raise AssertionError(f"phase {phase} {label}: the profiler recorded no device activity; "
+                             f"the kernel gates and the idle share read it")
     fams = prof["by_family_launches"]
     got = {k: fams.get(k, 0) for k in want}
     if got != {k: FM_PROFILE_STEPS * v for k, v in want.items()}:
-        raise AssertionError(f"phase 27 {label}: the profile's kernels {got}, want {want} a "
+        raise AssertionError(f"phase {phase} {label}: the profile's kernels {got}, want {want} a "
                              f"replay")
     busy = prof["device_busy_ms"] / FM_PROFILE_STEPS
     out = {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share",
                                 "by_family_ms", "by_family_launches", "warm_records")}
     out.update(device_operations_a_step=sum(fams.values()) / FM_PROFILE_STEPS,
                device_busy_ms_a_step=busy, idle_share_of_timed_replays=1.0 - busy / step_ms)
-    print(f"phase 27 {label} profile of {FM_PROFILE_STEPS} replays: device busy {busy:.3f} ms a "
-          f"replay (timed median {step_ms:.3f} ms): idle share "
+    print(f"phase {phase} {label} profile of {FM_PROFILE_STEPS} replays: device busy "
+          f"{busy:.3f} ms a replay (timed median {step_ms:.3f} ms): idle share "
           f"{out['idle_share_of_timed_replays']:.4f} of the timed replays "
           f"({prof['device_idle_share']:.4f} of the profiled window); "
           f"{out['device_operations_a_step']:.0f} device operations a step; ms by family "
@@ -7612,7 +7642,470 @@ def phase_sparse(torch, card):
             "fused_adam": max(a["k6"]["max_abs_err"], b["k6"]["max_abs_err"])}
     return {"launches": {k: v - a["bf16_launches"][k] for k, v in a["launches"].items()},
             "bf16_launches": a["bf16_launches"], "max_abs_err": errs,
-            "k2_shapes": a["k2"], "k3_shapes": b["k3"]}
+            "k2_shapes": a["k2"], "k3_shapes": b["k3"], "step_ms_median": a["step_ms_median"]}
+
+
+# ---------------------------------------------------------------- phase 28
+
+# the data path: phase 27 (a)'s DeepFM at the Criteo width trained from
+# RecordIO shards written here by the port's native writer from
+# models/deepfm.py's seeded feed.  DATA_SHARDS shards of DATA_CHUNKS chunks,
+# a chunk one batch of FM_B samples (a dispatch task), and one held-out
+# shard of one chunk for (c); a record is the C-order bytes of a sample's
+# arrays in declaration order, as open_files decodes them: 26 int64 ids,
+# 13 float32 dense features, one int64 label (268 bytes)
+DATA_SHARDS, DATA_CHUNKS, DATA_SEED = 4, 4, 2800
+DATA_STEPS = DATA_SHARDS * DATA_CHUNKS
+DATA_RECORD = np.dtype([("ids", "<i8", (26,)), ("dense", "<f4", (13,)), ("label", "<i8", (1,))])
+DATA_ORDER = [f"C{i}" for i in range(26)] + ["dense", "label"]
+# launches a step of (a) and (b) (phase 27 (a)'s), of an eval replay in (c)
+DATA_PER_STEP = {"gather_rows": 52, "fused_adam": 1, "scatter_add_rows": 0, "fused_sgd": 0}
+DATA_BF16_PER_STEP = {"flash_attn_fwd": 0, "scatter_add_rows": 0, "linear_ce_fwd": 0}
+DATA_EVAL_PER_RUN = {"gather_rows": 52, "fused_adam": 0, "scatter_add_rows": 0, "fused_sgd": 0}
+DATA_EVAL_RUNS = 5
+DATA_LEASE_S = 60.0
+# (c): the auc op (float32 rates and trapezoid) against the float64
+# trapezoid at the same 200 thresholds and against metrics.Auc over the
+# thresholds' 199 buckets (the same ROC points)
+AUC_TOL = 1e-5
+
+
+def _data_records(feed):
+    """The FM_B records of one synthetic_feed batch, as bytes."""
+    rec = np.empty(FM_B, dtype=DATA_RECORD)
+    rec["ids"] = np.concatenate([feed[f"C{i}"] for i in range(26)], axis=1)
+    rec["dense"] = feed["dense"]
+    rec["label"] = feed["label"].astype(np.int64)
+    raw, n = rec.tobytes(), DATA_RECORD.itemsize
+    return [raw[k * n:(k + 1) * n] for k in range(FM_B)]
+
+
+def _data_sample(rec):
+    """One record as (a)'s sample tuple in DATA_ORDER: 26 [1] int64 ids,
+    the dense features, the label as float32 (deepfm.data_layers')."""
+    ids = np.frombuffer(rec, np.int64, 26, 0).reshape(26, 1)
+    return (*ids, np.frombuffer(rec, np.float32, 13, 208),
+            np.frombuffer(rec, np.int64, 1, 260).astype(np.float32))
+
+
+def _data_shards(root):
+    """Write the shards and the held-out shard with the native writer;
+    returns (shard paths, held-out path, the training batches' feeds in
+    task order, the held-out feed, seconds)."""
+    from paddle_tpu_torch import recordio
+    from paddle_tpu_torch.models.deepfm import synthetic_feed
+    t0 = time.perf_counter()
+    paths, feeds = [], []
+    for s in range(DATA_SHARDS + 1):
+        path = os.path.join(root, f"criteo-{s}.rio")
+        chunk_bytes = FM_B * (DATA_RECORD.itemsize + 4)
+        with recordio.Writer(path, max_chunk_bytes=chunk_bytes, use_native=True) as w:
+            for _ in range(DATA_CHUNKS if s < DATA_SHARDS else 1):
+                feeds.append(synthetic_feed(DATA_SEED + len(feeds), FM_B))
+                for r in _data_records(feeds[-1]):
+                    w.write(r)
+        paths.append(path)
+    return paths[:-1], paths[-1], feeds[:-1], feeds[-1], time.perf_counter() - t0
+
+
+def _data_net(pt, ids, dense, label):
+    """DeepFM over the field ids and dense features; returns the loss, the
+    batch AUC (layers.auc over [1 - p, p]) and p."""
+    from paddle_tpu_torch.models import deepfm
+    logits = deepfm.deepfm(ids, dense, deepfm.CRITEO_VOCAB, embed_dim=FM_DIM, hidden=FM_HIDDEN)
+    loss = pt.layers.mean(pt.layers.sigmoid_cross_entropy_with_logits(x=logits, label=label))
+    prob = pt.layers.sigmoid(logits)
+    predict = pt.layers.concat([pt.layers.scale(prob, scale=-1.0, bias=1.0), prob], axis=1)
+    return loss, pt.layers.auc(input=predict, label=label), prob
+
+
+def _persist_tensors(torch, program, scope):
+    """The names of ``program``'s persistables that are tensors in
+    ``scope`` (a py_reader's persistable reader holds its queue)."""
+    return sorted(v.name for v in program.list_vars()
+                  if v.persistable and isinstance(scope.find_var(v.name), torch.Tensor))
+
+
+def _restore(scope, state0, gen, rng0):
+    for n, t in state0.items():
+        scope.find_var(n).copy_(t)
+    gen.set_state(rng0)
+
+
+def _differing(torch, scope, ref):
+    return [n for n, t in ref.items() if not torch.equal(scope.find_var(n), t)]
+
+
+def _ms_stats(seconds):
+    ms = [1e3 * s for s in seconds]
+    return {"ms": ms, "median": float(np.median(ms)), "min": min(ms), "max": max(ms),
+            "examples_per_s": FM_B / (float(np.median(ms)) / 1e3)}
+
+
+def _data_host(pt, shards, payload):
+    """Host ms a batch of FM_B records: the native and the Python scanner
+    over one shard (DATA_CHUNKS batches), (a)'s task reader (Python chunk
+    read and decode) and its DataFeeder, (b)'s open_files reader (native
+    scan, decode, stack); best of 3 rounds."""
+    from paddle_tpu_torch import recordio
+    from paddle_tpu_torch.data_feeder import DataFeeder
+    from paddle_tpu_torch.dispatch import read_chunk
+
+    def best(fn, per):
+        out = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            out.append(1e3 * (time.perf_counter() - t0) / per)
+        return min(out)
+    main = pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, pt.Program()):
+        from paddle_tpu_torch.models import deepfm
+        ids, dense, label = deepfm.data_layers(26)
+    feeder = DataFeeder(feed_list=ids + [dense, label], program=main)
+    batch = [_data_sample(r) for ch in payload["chunks"]
+             for r in read_chunk(payload["path"], ch["offset"])]
+    out = {"scan_native_ms": best(lambda: list(recordio.scan(shards[0], use_native=True)),
+                                  DATA_CHUNKS),
+           "scan_python_ms": best(lambda: list(recordio.scan(shards[0], use_native=False)),
+                                  DATA_CHUNKS),
+           "dispatch_task_read_decode_ms": best(
+               lambda: [_data_sample(r) for ch in payload["chunks"]
+                        for r in read_chunk(payload["path"], ch["offset"])], 1),
+           "data_feeder_ms": best(lambda: feeder.feed(batch), 1)}
+    with pt.scope_guard(pt.Scope()), pt.unique_name.guard(), \
+            pt.program_guard(pt.Program(), pt.Program()):
+        reader = pt.layers.open_files([shards[0]], shapes=[[1]] * 26 + [[13], [1]],
+                                      dtypes=["int64"] * 26 + ["float32", "int64"],
+                                      thread_num=1, batch_size=FM_B)
+    out["open_files_scan_decode_stack_ms"] = best(lambda: list(reader._paddle_reader()),
+                                                  DATA_CHUNKS)
+    return out
+
+
+def _data_dispatch(torch, pt, card, counters, shards):
+    """Phase 28 (a): a dead rank's lease reaped by Trainer(dispatch=...) on
+    construction, an epoch of DATA_STEPS steps from the master's RecordIO
+    tasks; returns (the trainer, its state before training, the generator
+    and its state then, the readings)."""
+    from paddle_tpu_torch import dispatch
+    from paddle_tpu_torch.models import deepfm
+    cell = {}
+
+    def train_func():
+        ids, dense, label = deepfm.data_layers(26)
+        loss, auc, prob = _data_net(pt, ids, dense, label)
+        cell["prob"] = prob
+        return [loss, auc]
+
+    def task_reader(payload):
+        for ch in payload["chunks"]:
+            yield [_data_sample(r) for r in dispatch.read_chunk(payload["path"], ch["offset"])]
+
+    tasks = dispatch.make_recordio_tasks(shards)
+    if len(tasks) != DATA_STEPS or any(c["nrecords"] != FM_B for t in tasks for c in t["chunks"]):
+        raise AssertionError(f"phase 28: {len(tasks)} tasks {tasks[:2]}")
+    with dispatch.DispatchMaster(tasks, lease_timeout_s=DATA_LEASE_S, sweep_interval_s=1.0) as m:
+        dead = dispatch.DispatchClient(m.addr, worker="rank0", timeout_s=30.0)
+        held = dead.get_task()
+        dead.close()                         # rank0 dies holding task 0's lease
+        t0 = time.perf_counter()
+        with pt.unique_name.guard():
+            trainer = pt.Trainer(
+                train_func, lambda: pt.optimizer.Adam(learning_rate=FM_LR),
+                place=pt.CUDAPlace(0),
+                dispatch=dispatch.DispatchConfig(addr=m.addr, task_reader=task_reader,
+                                                 worker="rank0", reap_on_start=True,
+                                                 timeout_s=30.0))
+        init_s = time.perf_counter() - t0
+        reaped = m.stats()["counters"]["worker_reaps"]
+        scope = trainer.scope
+        persist = _persist_tensors(torch, trainer.train_program, scope)
+        state0 = {n: scope.find_var(n).clone() for n in persist}
+        gen = trainer.exe._scope_generator(trainer.train_program, scope)
+        rng0 = gen.get_state()
+        for f in counters.values():
+            f.launches = 0
+            if hasattr(f, "bf16_launches"):
+                f.bf16_launches = 0
+        bf16_before = _bf16_snapshot(counters)
+        run = _TrainerRun(trainer, counters)
+        t0 = time.perf_counter()
+        trainer.train(1, run, reader=None, feed_order=DATA_ORDER)
+        losses = run.losses()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launch_snapshot(counters)
+        bf16 = _delta(_bf16_snapshot(counters), bf16_before)
+        st = m.stats()
+    reader = trainer.dispatch_reader
+    recs = pt.telemetry.STEPS.records()[-DATA_STEPS:]
+    step_s = [r["step_time_s"] for r in recs[1:]]        # step 0 holds the capture
+    res = {"init_s": init_s, "held_task": held["task_id"], "reaped_on_start": reaped,
+           "losses": losses, "wall_s": wall, "steps": len(losses), "consumed": reader.consumed,
+           "tasks_finished": reader.tasks_finished, "master": st["counters"],
+           "done": st["done"], "launches": launches, "bf16_launches": bf16,
+           "step": _ms_stats(step_s),
+           "wait_ms_median": 1e3 * float(np.median([r["wait_s"] for r in recs[1:]])),
+           "run_ms_median": 1e3 * float(np.median([r["run_s"] for r in recs[1:]])),
+           "entries": [e["kind"] for e in trainer.exe.cache_info()["entries"]
+                       if "C0" in e["feeds"]], "captures": trainer.exe.cache_info()["captures"]}
+    print(f"phase 28 (a) Trainer(dispatch=DispatchConfig(worker='rank0', reap_on_start=True)): "
+          f"built and initialized in {init_s:.2f} s; rank0's dead lease on task "
+          f"{held['task_id']} reaped on construction ({reaped}); {len(losses)} steps over "
+          f"{len(tasks)} RecordIO chunk tasks in {wall:.2f} s: losses {losses}; consumed "
+          f"{reader.consumed}; master {st['counters']} done {st['done']}; step ms after the "
+          f"capture {[round(x, 3) for x in res['step']['ms']]} (median "
+          f"{res['step']['median']:.3f}, min {res['step']['min']:.3f}, max "
+          f"{res['step']['max']:.3f}; {res['step']['examples_per_s']:.0f} examples/s; the "
+          f"loop's wait for the stager {res['wait_ms_median']:.3f} ms, run "
+          f"{res['run_ms_median']:.3f} ms a step); launches {launches} [{card}]")
+    per_step = _gate_trainer_steps(run, "phase 28 (a)", DATA_PER_STEP, DATA_BF16_PER_STEP,
+                                   steps=DATA_STEPS)
+    c = st["counters"]
+    if not st["done"] or (c["finished"], c["served"], c["worker_reaps"], c["lease_expiry"],
+                          c["stale_finish"], c["dead"]) != (DATA_STEPS, DATA_STEPS + 1, 1, 0, 0,
+                                                            0) \
+            or reaped != 1 or reader.tasks_finished != DATA_STEPS \
+            or sorted(reader.consumed) != list(range(DATA_STEPS)):
+        raise AssertionError(f"phase 28 (a): the master {st}, reaped on start {reaped}, the "
+                             f"reader finished {reader.tasks_finished} of {reader.consumed}")
+    if res["entries"] != ["graph"] or not np.isfinite(losses).all() or any(bf16.values()) \
+            or [r["step"] for r in recs] != list(range(DATA_STEPS)):
+        raise AssertionError(f"phase 28 (a): entries {res['entries']}, losses {losses}, bf16 "
+                             f"{bf16}, step records {[r['step'] for r in recs]}")
+    res["launches_a_step"] = per_step
+    return trainer, cell, state0, gen, rng0, res
+
+
+def _data_control(trainer, feeds, order, state0, gen, rng0, label):
+    """The feed-dict control: the trainer's step program run by its
+    executor (the same graph) on ``feeds`` in ``order`` from the start
+    state and generator state; returns the host ms a step (each ends with
+    the loss on the host)."""
+    _restore(trainer.scope, state0, gen, rng0)
+    step_s = []
+    for k in order:
+        t0 = time.perf_counter()
+        trainer.exe.run(trainer._step_program, feed=feeds[k], fetch_list=trainer.train_outputs,
+                        scope=trainer.scope)
+        step_s.append(time.perf_counter() - t0)
+    if trainer.exe.cache_info()["captures"] != 1:
+        raise AssertionError(f"phase 28 {label}: the control captured a graph of its own")
+    return step_s
+
+
+def _data_open_files(torch, pt, card, counters, trainer, shards, state0, gen, rng0):
+    """Phase 28 (b): the same network over open_files + read_file (the
+    trainer's scope and state, thread_num=1), two passes through
+    EOFException / reset(); returns the readings and the final state."""
+    from paddle_tpu_torch import recordio
+    scope = trainer.scope
+    main, startup = pt.Program(), pt.Program()
+    with pt.scope_guard(scope), pt.unique_name.guard(), pt.program_guard(main, startup):
+        reader = pt.layers.open_files(shards, shapes=[[1]] * 26 + [[13], [1]],
+                                      dtypes=["int64"] * 26 + ["float32", "int64"],
+                                      thread_num=1, batch_size=FM_B)
+        outs = pt.layers.read_file(reader)
+        loss, auc, _ = _data_net(pt, outs[:26], outs[26], pt.layers.cast(outs[27], "float32"))
+        pt.optimizer.Adam(learning_rate=FM_LR).minimize(loss)
+    mine = _persist_tensors(torch, main, scope)
+    if mine != sorted(state0):
+        raise AssertionError(f"phase 28 (b): state names differ from (a)'s: "
+                             f"{sorted(set(mine) ^ set(state0))[:6]}")
+    exe = pt.Executor(pt.CUDAPlace(0))
+    _restore(scope, state0, gen, rng0)
+    recordio.reset_scans()
+    for f in counters.values():
+        f.launches = 0
+        if hasattr(f, "bf16_launches"):
+            f.bf16_launches = 0
+    bf16_before = _bf16_snapshot(counters)
+    losses, step_s, passes = [], [], []
+    t0 = time.perf_counter()
+    for _ in range(2):
+        reader.start()
+        n = 0
+        while True:
+            t1 = time.perf_counter()
+            try:
+                (lv, _) = exe.run(main, fetch_list=[loss, auc], scope=scope)
+            except pt.EOFException:
+                reader.reset()
+                break
+            step_s.append(time.perf_counter() - t1)
+            losses.append(float(np.asarray(lv)))
+            n += 1
+        passes.append(n)
+    wall = time.perf_counter() - t0
+    launches = _launch_snapshot(counters)
+    bf16 = {k: v - bf16_before[k] for k, v in _bf16_snapshot(counters).items()}
+    scans = recordio.scans()
+    entries = [e["kind"] for e in exe.cache_info()["entries"] if e["feeds"]]
+    later = step_s[1:]                  # the first run holds the capture
+    res = {"passes": passes, "losses": losses, "wall_s": wall, "scans": scans,
+           "launches": launches, "bf16_launches": bf16, "entries": entries,
+           "captures": exe.cache_info()["captures"], "step": _ms_stats(later),
+           "capture_step_ms": 1e3 * step_s[0]}
+    print(f"phase 28 (b) open_files(4 shards, thread_num=1) + read_file, two passes: "
+          f"{passes} steps, {wall:.2f} s; losses {losses[:3]} ... {losses[-3:]}; step ms after "
+          f"the capture: median {res['step']['median']:.3f} (min {res['step']['min']:.3f}, max "
+          f"{res['step']['max']:.3f}; {res['step']['examples_per_s']:.0f} examples/s); the "
+          f"capture's step {res['capture_step_ms']:.1f} ms; records scanned {scans}; cache "
+          f"entries {entries}, captures {res['captures']}; launches {launches} (bf16 {bf16}) "
+          f"[{card}]")
+    want = {k: (2 * DATA_STEPS + 1) * v for k, v in DATA_PER_STEP.items()}
+    if passes != [DATA_STEPS, DATA_STEPS] or entries != ["graph"] or res["captures"] != 1 \
+            or {k: launches[k] for k in want} != want or any(bf16.values()) \
+            or any(v for k, v in launches.items() if k not in want) \
+            or scans["native"] != 2 * DATA_STEPS * FM_B or scans["python"] \
+            or not np.isfinite(losses).all():
+        raise AssertionError(f"phase 28 (b): {res}; want launches {want} (the capture's eager "
+                             f"run and {2 * DATA_STEPS} replays), native scans only")
+    return res, exe
+
+
+def _data_eval(card, counters, trainer, cell, held_feed):
+    """Phase 28 (c): the trained model's clone(for_test=True) with its
+    layers.auc on the held-out batch: one graph, K2 52 a replay, the AUC
+    against metrics.Auc and a float64 trapezoid."""
+    from paddle_tpu_torch import metrics
+    test_prog = trainer.train_program.clone(for_test=True)
+    auc_name, prob_name = trainer.train_outputs[1].name, cell["prob"].name
+    fetch = [auc_name, prob_name]
+    exe, scope = trainer.exe, trainer.scope
+    captures = exe.cache_info()["captures"]
+    exe.run(test_prog, feed=held_feed, fetch_list=fetch, scope=scope)    # the capture
+    for f in counters.values():
+        f.launches = 0
+    step_s, outs = [], []
+    for _ in range(DATA_EVAL_RUNS):
+        t0 = time.perf_counter()
+        outs.append(exe.run(test_prog, feed=held_feed, fetch_list=fetch, scope=scope))
+        step_s.append(time.perf_counter() - t0)
+    launches = _launch_snapshot(counters)
+    auc = float(np.asarray(outs[-1][0]))
+    prob = np.asarray(outs[-1][1]).reshape(-1)
+    label = held_feed["label"].reshape(-1)
+    m = metrics.Auc(num_thresholds=199)
+    m.update(np.stack([1 - prob, prob], 1), label)
+    thr = np.linspace(0.0, 1.0, 200).astype(np.float32).astype(np.float64)
+    pos = prob[None, :].astype(np.float64) > thr[:, None]
+    tpr = (pos * label).sum(1) / max(label.sum(), 1.0)
+    fpr = (pos * (1 - label)).sum(1) / max((1 - label).sum(), 1.0)
+    f64 = float(-np.trapezoid(tpr, fpr))
+    p, n = prob[label == 1], prob[label == 0]
+    exact = float(((p[:, None] > n[None, :]).sum() + 0.5 * (p[:, None] == n[None, :]).sum())
+                  / (len(p) * len(n)))
+    captured = exe.cache_info()["captures"] - captures
+    res = {"captured": captured, "auc": auc, "metrics_auc": float(m.eval()),
+           "float64_trapezoid": f64, "exact_rank_auc": exact, "ms": _ms_stats(step_s),
+           "launches": launches,
+           "same": all(float(np.asarray(o[0])) == auc for o in outs)}
+    print(f"phase 28 (c) eval clone(for_test=True) on the held-out batch ({FM_B}): AUC {auc!r}; "
+          f"metrics.Auc(199 buckets) {res['metrics_auc']!r}, float64 trapezoid {f64!r}, "
+          f"exact rank AUC {exact!r}; ms a run {[round(x, 3) for x in res['ms']['ms']]}; "
+          f"launches over {DATA_EVAL_RUNS} replays {launches} [{card}]")
+    want = {k: DATA_EVAL_RUNS * v for k, v in DATA_EVAL_PER_RUN.items()}
+    if abs(auc - f64) > AUC_TOL or abs(auc - m.eval()) > AUC_TOL or not res["same"] \
+            or captured != 1 \
+            or {k: launches[k] for k in want} != want \
+            or any(v for k, v in launches.items() if k not in want):
+        raise AssertionError(f"phase 28 (c): {res}; want launches {want}, AUC within {AUC_TOL}")
+    return res
+
+
+def phase_data(torch, card, feed_dict_ms=None):
+    """Phase 28 (see the module docstring): the data path.  Returns the
+    launches of (a)'s epoch and of (b)'s two passes by kernel (the bf16
+    instances apart)."""
+    import paddle_tpu_torch as pt
+    counters = _counters()
+    root = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    res = {}
+    try:
+        t_piece = time.perf_counter()
+        shards, held, feeds, held_feed, write_s = _data_shards(root)
+        from paddle_tpu_torch.dispatch import make_recordio_tasks
+        res["host"] = _data_host(pt, shards, make_recordio_tasks(shards[:1])[0])
+        res["write_s"] = write_s
+        # parallel_scan over 4 threads keeps no order: every record once
+        from paddle_tpu_torch import recordio
+        written = sorted(r for f in feeds for r in _data_records(f))
+        res["parallel_scan_4_threads_exact"] = \
+            sorted(recordio.parallel_scan(shards, num_threads=4)) == written
+        if not res["parallel_scan_4_threads_exact"]:
+            raise AssertionError("phase 28: parallel_scan over 4 threads lost or repeated "
+                                 "records")
+        print(f"phase 28 shards: {DATA_SHARDS} x {DATA_CHUNKS} chunks of {FM_B} records of "
+              f"{DATA_RECORD.itemsize} bytes and a held-out chunk written in {write_s:.2f} s "
+              f"(parallel_scan over 4 threads: every record once) "
+              f"({sum(os.path.getsize(p) for p in shards) / 1e6:.2f} MB); host ms a batch of "
+              f"{FM_B}: {json.dumps({k: round(v, 3) for k, v in res['host'].items()})} [{card}]")
+        t_piece = _piece_seconds("phase 28 shards", t_piece)
+        trainer, cell, state0, gen, rng0, res["dispatch"] = _data_dispatch(
+            torch, pt, card, counters, shards)
+        t_piece = _piece_seconds("phase 28 (a)", t_piece)
+        scope = trainer.scope
+        trained = {n: scope.find_var(n).clone() for n in state0}
+        ctl_s = _data_control(trainer, feeds, res["dispatch"]["consumed"], state0, gen, rng0,
+                              "(a)")
+        differ = _differing(torch, scope, trained)
+        del trained
+        res["dispatch"]["control"] = {"state": len(state0), "differ": differ,
+                                      "step": _ms_stats(ctl_s)}
+        print(f"phase 28 (a) the feed-dict control (the same batches in the consumed order from "
+              f"the same state and generator state): {len(state0) - len(differ)} of "
+              f"{len(state0)} state tensors bit-equal, differing {differ[:6]}; control ms a "
+              f"step median {res['dispatch']['control']['step']['median']:.3f} (phase 27 (a)'s "
+              f"feed-dict replay {feed_dict_ms}) [{card}]")
+        if differ:
+            raise AssertionError(f"phase 28 (a): the state differs from the feed-dict "
+                                 f"control's: {differ[:6]}")
+        _data_control(trainer, feeds, list(range(DATA_STEPS)) * 2, state0, gen, rng0, "(b)")
+        control_b = {n: scope.find_var(n).clone() for n in state0}
+        t_piece = _piece_seconds("phase 28 controls", t_piece)
+        res["open_files"], exe_b = _data_open_files(torch, pt, card, counters, trainer, shards,
+                                                    state0, gen, rng0)
+        differ = _differing(torch, scope, control_b)
+        del control_b, state0
+        res["open_files"]["control_differ"] = differ
+        print(f"phase 28 (b) against the feed-dict control over the same 2 x {DATA_STEPS} "
+              f"batches in the files' order: {len(differ)} state tensors differ {differ[:6]} "
+              f"[{card}]")
+        if differ:
+            raise AssertionError(f"phase 28 (b): the state differs from the feed-dict "
+                                 f"control's: {differ[:6]}")
+        t_piece = _piece_seconds("phase 28 (b)", t_piece)
+        res["eval"] = _data_eval(card, counters, trainer, cell, held_feed)
+        t_piece = _piece_seconds("phase 28 (c)", t_piece)
+        prof = _replay_profile(torch, trainer.exe, trainer._step_program, feeds[0], None,
+                               scope, "data", card,
+                               {"gather_rows (K2)": 52, "fused_adam (K6)": 1,
+                                "scatter_add_rows (K3)": 0, "fused_sgd (K5)": 0},
+                               res["dispatch"]["step"]["median"], fetch=trainer.train_outputs,
+                               phase=28)
+        busy = prof["device_busy_ms_a_step"]
+        res["profile"] = prof
+        for key in ("dispatch", "open_files"):
+            res[key]["idle_share_of_timed_steps"] = 1.0 - busy / res[key]["step"]["median"]
+        print(f"phase 28 idle share of the timed steps (1 - the profile's busy {busy:.3f} ms a "
+              f"replay over the median step): (a) "
+              f"{res['dispatch']['idle_share_of_timed_steps']:.4f}, (b) "
+              f"{res['open_files']['idle_share_of_timed_steps']:.4f} [{card}]")
+        _piece_seconds("phase 28 profile", t_piece)
+        a, b = res["dispatch"], res["open_files"]
+        out = {"launches_dispatch": _delta(a["launches"], a["bf16_launches"]),
+               "bf16_launches_dispatch": a["bf16_launches"],
+               "launches_py_reader": _delta(b["launches"], b["bf16_launches"]),
+               "bf16_launches_py_reader": b["bf16_launches"]}
+        # the scope holds the 6.9 GB of tables and moments
+        del trainer, exe_b, cell, gen, scope
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _free_trainer(torch, "phase 28")
+    print(json.dumps({"data": res}, default=str))
+    return out
 
 
 def _release_serving(torch, label):
@@ -7695,6 +8188,7 @@ def _main(torch, build):
     seq_launches = timed("sequences", phase_sequences)
     cf = timed("control_flow", phase_control_flow)
     sparse = timed("sparse", phase_sparse)
+    data = timed("data", phase_data, sparse["step_ms_median"])
     print(f"seconds by phase function: {json.dumps(seconds)}; "
           f"{sum(seconds.values()):.1f} in all; {time.perf_counter() - t_main:.1f} since the "
           f"card's name was read (the kernel build included) [{card}]")
@@ -7776,6 +8270,11 @@ def _main(torch, build):
     # bf16 entries' count, gated at 0 there).  max_abs_err_sparse: (a)'s
     # check of K2 and K6 and (b)'s of K3 and K6 at their steps' shapes, also
     # in max_abs_err
+    # launches_dispatch: phase 28 (a), the Trainer(dispatch=) epoch of 16
+    # steps, counted from 0 (the capture's eager run and 16 replays: K2 52,
+    # K6 1 each); launches_py_reader: (b), open_files + read_file over two
+    # passes (the capture's eager run and 32 replays); the float32 and the
+    # bf16 instances apart (the bf16 entries' count, gated at 0 in both)
     for e in kernels:
         e["launches_trainer"] = trainer_launches[e["name"]]
         e["launches_profile"] = PHASE19["launches_profile"].get(e["name"], 0)
@@ -7796,6 +8295,8 @@ def _main(torch, build):
             e["max_abs_err_control_flow"] = cf["max_abs_err"][e["name"]]
             e["max_abs_err"] = max(e["max_abs_err"], e["max_abs_err_control_flow"])
         e["launches_sparse"] = sparse["launches"][e["name"]]
+        e["launches_dispatch"] = data["launches_dispatch"][e["name"]]
+        e["launches_py_reader"] = data["launches_py_reader"][e["name"]]
         if e["name"] in sparse["max_abs_err"]:
             e["max_abs_err_sparse"] = sparse["max_abs_err"][e["name"]]
             e["max_abs_err"] = max(e["max_abs_err"], e["max_abs_err_sparse"])
@@ -7826,7 +8327,9 @@ def _main(torch, build):
                  launches_imdb_trainer=seq_launches["b_bf16"].get(name, 0),
                  launches_seq_models=seq_launches["c_bf16"].get(name, 0),
                  launches_control_flow=cf["bf16_launches"].get(name, 0),
-                 launches_sparse=sparse["bf16_launches"].get(name, 0))
+                 launches_sparse=sparse["bf16_launches"].get(name, 0),
+                 launches_dispatch=data["bf16_launches_dispatch"].get(name, 0),
+                 launches_py_reader=data["bf16_launches_py_reader"].get(name, 0))
         lstm_err = seq_launches["max_abs_err"].get(f"{name}_bf16")
         if lstm_err is not None:
             e["max_abs_err_lstm"] = lstm_err

@@ -19,7 +19,12 @@ and the memory planner behind ``Executor(memory_budget=)``) checks a
 program before it first runs.  ``Trainer`` trains from a reader (``reader``,
 ``DataFeeder``), staging batches to the card on a background thread, with
 serial-dir checkpoints or the async ``checkpoint.CheckpointManager``;
-``io`` and ``checkpoint`` save and load in the JAX package's formats.  Observability: ``telemetry`` (metrics, the trace timeline, step
+``io`` and ``checkpoint`` save and load in the JAX package's formats.  The data path:
+``recordio`` (the chunked record files, scanned by a C++ library built
+with ``g++`` at first use), ``dispatch`` (the lease master, its client and
+``Trainer(dispatch=)``), the in-graph readers (``layers.py_reader``,
+``layers.open_files``, the executor's ``read`` binding), ``reader.DeviceLoader``
+and ``metrics``.  Observability: ``telemetry`` (metrics, the trace timeline, step
 records), ``health`` (the training flight recorder: sentinels inside the
 step, first-bad-op localization, divergence events), ``flags`` (the
 gflags registry: ``FLAGS.check_nan_inf``, ``FLAGS.benchmark``), ``faults``
@@ -33,16 +38,16 @@ This package imports torch, numpy and the standard library only -- never
 jax or paddle_tpu.
 """
 from . import ops  # noqa: F401  (registers every op lowering)
-from . import (amp, analysis, checkpoint, clip, compile_log, dataset, embedding,  # noqa: F401
-               faults, flags, health, initializer, io, layers, lod, log, models,
-               nets, optimizer, passes, profiler, profiling, reader, regularizer,
-               resource_sampler, telemetry, transpiler)
+from . import (amp, analysis, checkpoint, clip, compile_log, dataset, dispatch,  # noqa: F401
+               embedding, faults, flags, health, initializer, io, layers, lod, log,
+               metrics, models, nets, optimizer, passes, profiler, profiling, reader,
+               recordio, regularizer, resource_sampler, telemetry, transpiler)
 from .backward import append_backward, calc_gradient  # noqa: F401
 from .clip import (ErrorClipByValue, GradientClipByGlobalNorm,  # noqa: F401
                    GradientClipByNorm, GradientClipByValue)
 from .convert import params_from_numpy  # noqa: F401
 from .core import unique_name  # noqa: F401
-from .core.executor import CPUPlace, CUDAPlace, Executor, Place  # noqa: F401
+from .core.executor import CPUPlace, CUDAPlace, EOFException, Executor, Place  # noqa: F401
 from .core.framework import (Program, Variable, default_main_program,  # noqa: F401
                              default_startup_program, program_guard)
 from .core.scope import Scope, global_scope, scope_guard  # noqa: F401

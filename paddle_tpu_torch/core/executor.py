@@ -163,6 +163,12 @@ _LAST_PROGRAM_SIG_LOCK = threading.Lock()
 _DUMPED_PROGRAMS: set = set()
 
 
+class EOFException(Exception):
+    """An in-graph reader (``layers.py_reader`` / ``open_files``) is
+    exhausted (Fluid's ``core.EOFException``): catch it, call the reader's
+    ``reset()`` and start the next pass."""
+
+
 class Place:
     """Device tag."""
 
@@ -237,7 +243,10 @@ def analyze_state(block: BlockDesc, feed_names) -> tuple:
 
     defined: set = set()
     for op in block.ops:
-        scan(op, defined)
+        # a read op's reader is a queue on the host and its outputs are
+        # bound as feeds (Executor._pop_readers)
+        if op.type not in _SKIP_OPS:
+            scan(op, defined)
     state_out = []
     for n in written:
         vd = block.find_var(n)
@@ -515,6 +524,8 @@ class Executor:
         self._amp_bridge_memo: Dict[tuple, Program] = {}
         # (uid, version, feed names) -> (state_in, state_out, graph blockers)
         self._analysis_memo: Dict[tuple, tuple] = {}
+        # (uid, version) -> the block's read ops (in-graph readers)
+        self._read_ops_memo: Dict[tuple, List[OpDesc]] = {}
         self._cache: Dict[tuple, _CacheEntry] = {}
         # the key without state addresses, and the scope -> the key of the
         # one graph-eligible entry kept for it (see ``_get_entry``)
@@ -735,7 +746,68 @@ class Executor:
             if isinstance(t, torch.Tensor) and t.is_cuda:
                 t.record_stream(cur)
 
-    def _prepare(self, program, feed, fetch_list, scope):
+    def _pop_readers(self, program: Program, scope: Scope, feed) -> dict:
+        """Bind each in-graph ``read`` op's outputs from its reader's queue
+        (the py_reader contract): one batch a read op a run, added to the
+        feeds, so a step with a ``read`` op enters the card through the
+        same input copy as a fed one.  Every reader is checked before
+        anything is popped; at end of stream the batches already popped
+        from sibling readers go back to their queues (their streams stay
+        aligned for the next pass) and :class:`EOFException` is raised, or
+        the reader pipeline's error as the cause of a ``RuntimeError``.  A
+        batch holds one array an output, then the ``@SEQ_LEN`` lengths of
+        its ``lod_level > 0`` outputs in order."""
+        desc = program.desc
+        key = (desc.uid, desc.version)
+        read_ops = self._read_ops_memo.get(key)
+        if read_ops is None:
+            read_ops = [o for o in desc.block(0).ops if o.type == "read"]
+            self._read_ops_memo[key] = read_ops
+        if not read_ops:
+            return feed
+        from .lower import SEQ_LEN_SUFFIX
+        feed = dict(feed)
+        for rop in read_ops:
+            qname = rop.input("Reader")[0]
+            q = scope.find_var(qname)
+            if q is None:
+                raise RuntimeError(
+                    f"reader {qname!r} has no queue in the scope -- was the "
+                    f"py_reader created under a different scope?")
+            if not getattr(q, "started", True):
+                raise RuntimeError(
+                    f"reader {qname!r} was never started -- call "
+                    f"reader.start() before exe.run()")
+        popped = []
+        for rop in read_ops:
+            rname = rop.input("Reader")[0]
+            q = scope.find_var(rname)
+            batch = q.pop()
+            if batch is None:
+                for other_q, other_batch in popped:
+                    other_q.unpop(other_batch)
+                err = getattr(q, "error", None)
+                if err is not None:
+                    raise RuntimeError(f"reader {rname!r}'s data pipeline failed") from err
+                raise EOFException(f"reader {rname!r} exhausted (reset() it to start a "
+                                   f"new pass)")
+            popped.append((q, batch))
+        for rop, (q, batch) in zip(read_ops, popped):
+            outs = rop.output("Out")
+            lods = list(rop.attr("lod_levels", [0] * len(outs)))
+            data, extra = batch[:len(outs)], list(batch[len(outs):])
+            if len(data) < len(outs):
+                raise ValueError(
+                    f"reader {rop.input('Reader')[0]!r} batch has {len(data)} arrays "
+                    f"but the read op declares {len(outs)} outputs")
+            for name, arr in zip(outs, data):
+                feed[name] = arr
+            for name, lod in zip(outs, lods):
+                if lod and extra:
+                    feed[name + SEQ_LEN_SUFFIX] = extra.pop(0)
+        return feed
+
+    def _prepare(self, program, feed, fetch_list, scope, readers: bool = True):
         program = program or default_main_program()
         feed = feed or {}
         self._wait_staged(feed)
@@ -744,6 +816,8 @@ class Executor:
                        for f in (fetch_list or [])]
         program = self._apply_passes(program, list(feed), fetch_names, scope,
                                      lambda: _feed_shapes(feed))
+        if readers:
+            feed = self._pop_readers(program, scope, feed)
         block = program.desc.block(0)
         if TIMELINE.enabled:
             t0 = TIMELINE.now_us()
@@ -980,7 +1054,8 @@ class Executor:
                 shape, dtype = v
                 v = np.zeros(tuple(int(d) for d in shape), dtype=np.dtype(dtype))
             arrays[k] = v
-        program, scope, feeds, fetch_names = self._prepare(program, arrays, fetch_list, scope)
+        program, scope, feeds, fetch_names = self._prepare(program, arrays, fetch_list, scope,
+                                                           readers=False)
         self._check(program, feeds, fetch_names, donate_feeds)
         with self._lock:
             compiles = self.compile_count

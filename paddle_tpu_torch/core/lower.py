@@ -290,7 +290,9 @@ def lower_block(ctx: LowerCtx, block: BlockDesc):
     while i < len(ops):
         info = OPS.get(ops[i].type) if OPS.has(ops[i].type) else None
         if info is None or info.group_lower is None:
-            lower_op(ctx, ops[i], index=i)
+            # feed, fetch and read are bound by the executor, not lowered
+            if ops[i].type not in _SKIP_OPS:
+                lower_op(ctx, ops[i], index=i)
             i += 1
         else:
             i = _lower_group(ctx, ops, i, info)

@@ -12,7 +12,7 @@ from ..param_attr import ParamAttr
 # (exp, abs, floor, elementwise_max, ...) are reached as layers.nn.<name>
 __all__ = ["fc", "embedding", "conv2d", "conv2d_transpose", "pool2d", "batch_norm", "layer_norm", "dropout",
            "softmax", "cross_entropy", "softmax_with_cross_entropy", "fused_fc_softmax_ce",
-           "square_error_cost", "accuracy", "topk", "mean", "mul", "matmul",
+           "square_error_cost", "accuracy", "auc", "topk", "mean", "mul", "matmul",
            "elementwise_add", "elementwise_sub", "elementwise_mul", "elementwise_div",
            "reduce_sum", "reduce_mean", "reduce_max", "reduce_min", "reduce_prod", "relu",
            "sigmoid", "tanh", "sigmoid_cross_entropy_with_logits", "reshape", "transpose",
@@ -551,6 +551,16 @@ def accuracy(input, label, k=1, correct=None, total=None, name=None):
                      inputs={"Out": input, "Indices": indices, "Label": label},
                      outputs={"Accuracy": acc, "Correct": correct, "Total": total})
     return acc
+
+
+def auc(input, label, curve="ROC", num_thresholds=200, name=None):
+    """The batch's ROC AUC over ``num_thresholds`` thresholds (the ``auc``
+    op; the streaming AUC is ``metrics.Auc``)."""
+    helper = LayerHelper("auc", name=name)
+    out = helper.create_variable_for_type_inference("float32", True)
+    helper.append_op("auc", inputs={"Predict": input, "Label": label}, outputs={"AUC": out},
+                     attrs={"curve": curve, "num_thresholds": num_thresholds})
+    return out
 
 
 def prelu(x, mode="all", param_attr=None, name=None):

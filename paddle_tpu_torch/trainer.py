@@ -51,8 +51,16 @@ queued saves before it returns.
 ``prefetcher=`` (an ``embedding.RowPrefetcher``) dedups each batch's
 embedding ids on the host as the batch is staged.  Options of the JAX
 Trainer that need modules not ported yet raise ``NotImplementedError``
-naming their ROADMAP item: ``parallel``, ``mesh``, ``layout`` (item 12)
-and ``dispatch`` (item 11).
+naming their ROADMAP item: ``parallel``, ``mesh``, ``layout`` (item 12).
+
+``dispatch=DispatchConfig(...)`` (``dispatch/``, the elastic data
+dispatch) makes ``train(reader=None)`` read its epoch from a
+``DispatchMaster``'s leases through a ``DispatchReader``; the batches take
+the same ``DataFeeder`` / ``FeedStager`` path as a local reader's.  On
+construction the Trainer reaps the leases its previous incarnation (the
+same worker id, or ``reap_worker_id``) still holds, so they re-serve at
+once; a resumed run leaves mid-epoch progress to the master; each step
+record carries the trace context of the task that fed it.
 
 Before the first step the Trainer plans the step program's memory from
 the first batch's shapes (``analysis.plan_memory``), logs the predicted
@@ -183,8 +191,7 @@ class Trainer:
                  kernels=None, profile_steps: Optional[int] = None,
                  prefetcher=None):
         for option, value, item in (("parallel", parallel, "12"), ("mesh", mesh, "12"),
-                                    ("layout", layout, "12"),
-                                    ("dispatch", dispatch, "11")):
+                                    ("layout", layout, "12")):
             if value:
                 _not_ported(option, item)
         # prefetcher: an embedding.RowPrefetcher; its on_batch hook dedups
@@ -228,6 +235,23 @@ class Trainer:
         # set by the health layer's hooks, acted on after the step
         self._ckpt_rollback = threading.Event()
         self._ckpt_save_exit = threading.Event()
+        # dispatch: a DispatchConfig makes train(reader=None) read its epoch
+        # from the master's leases; the leases a previous incarnation of this
+        # worker still holds are reaped first, so they re-serve at once
+        self.dispatch_cfg = dispatch
+        self.dispatch_client = None
+        self.dispatch_reader = None
+        if dispatch is not None:
+            self.dispatch_client = dispatch.make_client()
+            if dispatch.reap_on_start:
+                try:
+                    reaped = self.dispatch_client.reap_worker(dispatch.reap_worker_id)
+                    if reaped:
+                        VLOG(0, "dispatch: reaped %d in-flight task(s) of a previous "
+                                "incarnation: %s", len(reaped), reaped)
+                except Exception as e:  # noqa: BLE001 -- the master may not be up yet
+                    VLOG(1, "dispatch reap_on_start skipped: %s", e)
+            self.dispatch_reader = dispatch.make_reader(self.dispatch_client)
         with program_guard(self.train_program, self.startup_program):
             outs = train_func()
             self.train_outputs = list(outs) if isinstance(outs, (list, tuple)) else [outs]
@@ -296,9 +320,13 @@ class Trainer:
     # ------------------------------------------------------------- training
     def train(self, num_epochs: int, event_handler: Callable,
               reader: Optional[Callable] = None, feed_order: Sequence[str] = ()):
+        dispatched = False
         if reader is None:
-            raise ValueError("train(reader=None) reads from a dispatch master, which is not "
-                             "ported (ROADMAP §A item 11): pass a reader")
+            if self.dispatch_reader is None:
+                raise ValueError("train(reader=None) needs Trainer(dispatch="
+                                 "DispatchConfig(...)) -- no data source")
+            reader = self.dispatch_reader
+            dispatched = True
         feed_vars = [self.train_program.global_block.var(n) for n in feed_order]
         buckets = self.seq_len_buckets
         if buckets is None and any(v.lod_level > 0 for v in feed_vars):
@@ -318,6 +346,11 @@ class Trainer:
         # resumed epoch
         start_epoch = self._ckpt_state["epoch_id"]
         resume_step = self._ckpt_state["step_id"]
+        if dispatched:
+            # the master owns mid-epoch progress (finished tasks never
+            # re-serve): skipping local step indices would drop the requeued
+            # tasks a restart exists to recover
+            resume_step = 0
         self._stop = False
         try:
             with scope_guard(self.scope):
@@ -465,10 +498,19 @@ class Trainer:
                 examples = int(shape[0])
                 break
         st = timings.get("step_time_s") or 0.0
+        trace = {}
+        if self.dispatch_reader is not None:
+            # the reader's generator runs on the stager's thread, so its
+            # task's consume span reaches this record only through the
+            # reader: the step joins the task's trace (the master's task
+            # span, the worker's consume span, this step)
+            ctx = self.dispatch_reader.current_trace
+            if ctx is not None:
+                trace = ctx.fields()
         telemetry.STEPS.record(epoch=epoch_id, step=step_id, examples=examples,
                                examples_per_sec=(examples / st) if st > 0 else 0.0,
                                compiles=self.exe.compile_count, pipeline=self.pipeline,
-                               **timings)
+                               **timings, **trace)
 
     def stop(self):
         self._stop = True

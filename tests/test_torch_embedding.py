@@ -230,10 +230,16 @@ def test_trainer_prefetcher(pipeline):
     assert torch.equal(after[4:], before[4:]) and not torch.equal(after[3], before[3])
 
 
-def test_trainer_dispatch_still_raises_naming_item_11():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        pt.Trainer(train_func=lambda: None, optimizer_func=lambda: None,
-                   place=pt.CPUPlace(), dispatch=object())
+def test_trainer_dispatch_takes_a_config_and_refuses_other_objects_as_jax_does():
+    """``dispatch=`` is ported: an object that is no ``DispatchConfig``
+    fails as the JAX Trainer fails on it (``make_client`` is missing),
+    before any program is built."""
+    import paddle_tpu as fluid
+    for pkg in (fluid, pt):
+        kw = {"place": pt.CPUPlace()} if pkg is pt else {}
+        with pytest.raises(AttributeError, match="make_client"):
+            pkg.Trainer(train_func=lambda: None, optimizer_func=lambda: None,
+                        dispatch=object(), **kw)
 
 
 # ------------------------------------------------------------ RowCache

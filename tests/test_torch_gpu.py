@@ -2640,3 +2640,79 @@ def test_sparse_update_padded_slots_at_the_last_row(cuda, rule):
         torch.testing.assert_close(x, z, atol=1e-6, rtol=0)
         assert torch.equal(x[rest], t0[rest])
     assert not torch.equal(a[0][299], tables[0][299])
+
+
+def _fed_and_read_programs():
+    """The same regression net and Adam step twice: over data layers, and
+    over a py_reader whose read op the executor binds."""
+    out = []
+    for read in (False, True):
+        main, startup, scope = pt.Program(), pt.Program(), pt.Scope()
+        with pt.scope_guard(scope), pt.unique_name.guard(), pt.program_guard(main, startup):
+            if read:
+                reader = layers.py_reader(capacity=4, shapes=[[-1, 32], [-1, 1]],
+                                          dtypes=["float32", "float32"])
+                x, y = layers.read_file(reader)
+            else:
+                reader = None
+                x = layers.data(name="x", shape=[32], dtype="float32")
+                y = layers.data(name="y", shape=[1], dtype="float32")
+            h = layers.fc(input=x, size=64, act="relu")
+            loss = layers.mean(layers.square_error_cost(input=layers.fc(input=h, size=1),
+                                                        label=y))
+            pt.optimizer.Adam(learning_rate=1e-2).minimize(loss)
+        out.append((main, startup, scope, loss, reader))
+    return out
+
+
+def test_a_read_op_step_replays_bit_equal_to_its_fed_twin(cuda):
+    """Four steps through a py_reader (the executor pops each batch and
+    copies it in as a feed) against the same steps fed: each program one
+    CUDA graph, K6 once a replay, losses and every state tensor bit-equal."""
+    (fmain, fstart, fscope, floss, _), (rmain, rstart, rscope, rloss, reader) = \
+        _fed_and_read_programs()
+    fexe, rexe = pt.Executor(), pt.Executor()
+    fexe.run(fstart, scope=fscope)
+    rexe.run(rstart, scope=rscope)
+    persist = [v.name for v in fmain.list_vars() if v.persistable]
+    for n in persist:
+        rscope.find_var(n).copy_(fscope.find_var(n))
+    rs = np.random.RandomState(5)
+    batches = [(rs.randn(64, 32).astype(np.float32), rs.randn(64, 1).astype(np.float32))
+               for _ in range(4)]
+    reader.decorate_paddle_reader(lambda: iter(batches))
+    reader.start()
+    names = rmain.desc.block(0).ops[0].output("Out")
+    k6 = fused_adam.launches
+    fed = [float(fexe.run(fmain, feed={"x": x, "y": y}, fetch_list=[floss], scope=fscope)[0])
+           for x, y in batches]
+    k6_fed = fused_adam.launches - k6
+    read = [float(rexe.run(rmain, fetch_list=[rloss], scope=rscope)[0]) for _ in batches]
+    with pytest.raises(pt.EOFException):
+        rexe.run(rmain, fetch_list=[rloss], scope=rscope)
+    assert read == fed
+    for n in persist:
+        assert torch.equal(rscope.find_var(n), fscope.find_var(n)), n
+    for exe, feeds in ((fexe, ["x", "y"]), (rexe, names)):
+        (entry,) = [e for e in exe.cache_info()["entries"] if e["feeds"]]
+        assert entry["kind"] == "graph" and sorted(entry["feeds"]) == sorted(feeds)
+        assert exe.cache_info()["captures"] == 1
+    assert fused_adam.launches - k6 == 2 * k6_fed and k6_fed == 5   # the capture's eager run
+
+
+def test_device_loader_yields_cuda_tensors_equal_to_the_host_batch(cuda):
+    """Batches copied on the loader's side stream: CUDA tensors equal to the
+    host arrays, read on the consumer's stream after their event."""
+    from paddle_tpu_torch.reader import DeviceLoader
+    rs = np.random.RandomState(7)
+    host = [(rs.randn(2048, 13).astype(np.float32), rs.randint(0, 1000, (2048, 26)))
+            for _ in range(6)]
+    got = []
+    for x, ids in DeviceLoader(lambda: iter(host), capacity=3)():
+        assert x.is_cuda and ids.is_cuda and ids.dtype == torch.int64
+        got.append((x * 2, ids + 1))          # work on the consumer's stream
+    torch.cuda.synchronize()
+    assert len(got) == len(host)
+    for (x2, ids1), (x, ids) in zip(got, host):
+        np.testing.assert_array_equal(x2.cpu().numpy(), x * 2)
+        np.testing.assert_array_equal(ids1.cpu().numpy(), ids + 1)
