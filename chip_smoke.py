@@ -457,6 +457,43 @@ Phases, each fatal on failure (non-zero exit, no result line):
     over the thresholds' buckets and of a float64 trapezoid; a 2-replay
     profile (device busy ms a step) and from it the idle share of (a)'s
     and (b)'s timed steps.
+29. decode serving and the fleet (``phase_decode``): K1 at
+    ``attention_lm``'s prefill shapes (causal, head_dim 16, B*H 4, T 8 /
+    16 / 32) and K2 at the decode models' [43, 12] table, each against
+    its plain version and timed beside SDPA / ``F.embedding``; (a)
+    machine translation's ``infer_network`` at the book width
+    (dictionaries of 30,000, word 32, hidden 32, beam 4, 12 steps; seeded
+    parameters) on 64 sources of the synthetic wmt16, padded to their
+    pow2 bucket: one graph replay a batch (the graph blockers printed),
+    K2 13 a replay and nothing else, the replay's SentenceIds and
+    SentenceScores bit-equal to an op-by-op run, K2 bit-equal to its
+    plain version at both tables with the step's ids, the CPU port from
+    the same parameters (ids equal, or differing only at a near tie whose
+    candidates' totals in the CPU's arithmetic differ by under
+    ``DEC_TIE_RTOL`` of their magnitude, printed; scores
+    within ``DEC_SCORE_RTOL``), ms a batch over 6 replays with the
+    spread, sentences/s, a profile's idle share, the peak; (b)
+    ``DecodeEngine`` with bench.py's decode row (``gru_lm``, 48 requests
+    from ``default_rng(11)``, batch 8, ``max_seq_len`` 32, seed 5): the
+    static and the continuous arm bit-identical and equal to the one-shot
+    ``reference_func`` program on the card, no fresh compile, K2's
+    launches equal to the ``lookup_table`` ops of the programs the engine
+    dispatched; tokens/s, TTFT and per-token p50 / p99, occupancy, the
+    speedup; then ``attention_lm`` (12 staggered ragged clients, K1 once
+    a prefill batch, tokens equal to a solo engine's) and
+    ``beam_gru_lm`` (8 requests equal to its one-shot program); (c)
+    ``EngineManager`` with transformer-base float32 serving (from saved
+    parameters; K1 18, K2 4 a batch) and ``gru_lm`` (``load_decode``):
+    the parameters refused over a 64 MiB budget (M501) before any build;
+    ``swap`` to equal parameters passing its canary, to a NaN set rolled
+    back with the old answers bit-equal; a 6 s ``FrontDoor`` soak of 16
+    clients over both models, ``delay@serving.backend.tb`` over its
+    middle third tripping the breaker (shedding, then closing through the
+    half-open probe), ``swap_decode`` at two thirds, the admitted p99
+    under twice the 0.25 s deadline; ``FleetHTTPServer`` on 127.0.0.1
+    answering ``POST /v1/infer`` and ``/v1/generate`` sent with a
+    ``traceparent`` whose trace id comes back.  ``launches_decode`` on
+    the kernels line counts (a), (b) and (c) apart, K3-K8 0 in each.
 
 Phase 9 also takes the 2 x 256 step in bf16 (``enable_amp``) with cuBLAS's
 reduced-precision bf16 reductions allowed (PyTorch's default) and not, and
@@ -7089,7 +7126,7 @@ def _deepfm_feeds(torch, n, seed):
     return feeds
 
 
-def _k2_at(torch, w, ids, label, card):
+def _k2_at(torch, w, ids, label, card, phase="phase 27 (a)"):
     """K2 on ``w`` at ``ids`` against its plain version (bit-equal) and
     ``F.embedding``: event ms (best of 3 rounds in turns), plain ms, bound."""
     from paddle_tpu_torch.ops.cuda.embedding import gather_rows, gather_rows_plain
@@ -7105,7 +7142,7 @@ def _k2_at(torch, w, ids, label, card):
     rec = dict(max_abs_err=(out - ref).abs().max().item(), bit_equal=equal, ms=ms,
                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
                rows_read=rows_read, table=list(w.shape), ids=ids.numel())
-    print(f"phase 27 (a) K2 {label} W=[{w.shape[0]},{w.shape[1]}] N={ids.numel()} "
+    print(f"{phase} K2 {label} W=[{w.shape[0]},{w.shape[1]}] N={ids.numel()} "
           f"({rows_read} rows read): bit-equal to plain and F.embedding {equal}; kernel {ms:.4f} "
           f"ms, plain {plain_ms:.4f} ms, F.embedding {lib_ms:.4f} ms, bound {bound_ms:.5f} ms "
           f"({bound_by}) [{card}]")
@@ -8108,6 +8145,769 @@ def phase_data(torch, card, feed_dict_ms=None):
     return out
 
 
+DEC_NMT = dict(src_dict_size=30000, trg_dict_size=30000, word_dim=32, hidden_dim=32,
+               beam_size=4, max_len=12)    # the book NMT's width (phase 26's encoder-decoder)
+DEC_SOURCES = 64
+DEC_REPLAYS = 6
+DEC_SCORE_RTOL = 1e-4      # (a): sentence scores, card against the CPU, relative
+# (a): an id may differ from the CPU port's only at a near tie: the two
+# candidates' totals, both scored in the CPU's arithmetic (float64 sums of
+# its step's own float32 inputs), within this fraction of their magnitude.
+# Relative, as the scores' gate is: a total after 8 steps is ~-80, where a
+# float32 ulp is 7.6e-6, so the two devices' summation orders alone move a
+# total by a few 1e-6
+DEC_TIE_RTOL = 1e-5
+DEC_CLIENTS, DEC_PER_CLIENT, DEC_BATCH, DEC_MAX_SEQ, DEC_SEED = 16, 3, 8, 32, 5
+DEC_NEW = (4, 20)          # max_new_tokens, bench.py's decode row
+DEC_REF_GEN = 20           # the one-shot programs' tokens (cut to each request's)
+DEC_ATTN_CLIENTS = 12
+DEC_BEAM_REQUESTS, DEC_BEAM_GEN = 8, 6
+DEC_K1_T = (8, 16, 32)     # attention_lm's prefill buckets at max_seq_len 32
+FLEET_SOAK_S, FLEET_CLIENTS, FLEET_DEADLINE_S = 6.0, 16, 0.25
+FLEET_BUDGET = "64MiB"     # (c) 1: under transformer-base's 0.4 GB of parameters
+OTHER_KERNELS = ("scatter_add_rows", "int8_matmul", "abs_max_pair", "quantize_int8", "fused_sgd",
+                 "fused_adam", "linear_ce_fwd", "linear_ce_bwd")
+
+
+def _gate_others_zero(launches, label):
+    bad = {k: launches[k] for k in OTHER_KERNELS if launches[k]}
+    if bad:
+        raise AssertionError(f"phase 29 {label}: kernels off the decode path launched: {bad}")
+
+
+def _lookup_count(program):
+    return sum(o.type == "lookup_table" for o in program.desc.block(0).ops)
+
+
+def _beam_first_divergence(card_steps, cpu_steps, cpu_inputs, n, end_id):
+    """Where source ``n``'s selection first differs between the card's run
+    and the CPU's: (step, lane, the card's and the CPU's candidate as
+    (parent, id), their totals in the CPU's arithmetic, the gap).  Each
+    total is that step's ``beam_search`` total of the candidate (a live
+    lane's score plus the token's log-prob, a finished lane's frozen score
+    for end_id) summed in float64 from the CPU run's inputs to the step."""
+    for t, ((ci, cp, _), (pi, pp, _)) in enumerate(zip(card_steps, cpu_steps)):
+        lanes = np.nonzero((ci[n] != pi[n]) | (cp[n] != pp[n]))[0]
+        if not len(lanes):
+            continue
+        b = int(lanes[0])
+        pre_ids, pre_sc, logp = cpu_inputs[t]
+
+        def total(parent, tok):
+            if pre_ids[n, parent] == end_id:
+                return float(pre_sc[n, parent]) if tok == end_id else -1e9
+            return float(np.float64(pre_sc[n, parent]) + np.float64(logp[n, parent, tok]))
+
+        card_c, cpu_c = (int(cp[n, b]), int(ci[n, b])), (int(pp[n, b]), int(pi[n, b]))
+        tc, tp = total(*card_c), total(*cpu_c)
+        return {"step": t, "lane": b, "card": card_c, "cpu": cpu_c, "card_total": tc,
+                "cpu_total": tp, "gap": abs(tc - tp),
+                "gap_rel": abs(tc - tp) / max(abs(tp), 1e-30)}
+    return None
+
+
+def _decode_beam(torch, pt, card, counters):
+    """(a): machine translation's ``infer_network`` at the book width."""
+    from paddle_tpu_torch.core.executor import analyze_state, graph_blockers
+    from paddle_tpu_torch.dataset import wmt16
+    from paddle_tpu_torch.models import machine_translation as mt
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        src = pt.layers.data(name="src", shape=[1], dtype="int64", lod_level=1)
+        ids_v, scores_v = mt.infer_network(src, **DEC_NMT)
+    ops = main.desc.block(0).ops
+    lookups = [o.input("Ids")[0] for o in ops if o.type == "lookup_table"]
+    steps = [(o.output("selected_ids")[0], o.output("parent_idx")[0],
+              o.output("selected_scores")[0]) for o in ops if o.type == "beam_search"]
+    step_inputs = [(o.input("pre_ids")[0], o.input("pre_scores")[0], o.input("scores")[0])
+                   for o in ops if o.type == "beam_search"]
+    scope, exe = pt.Scope(), pt.Executor(pt.CUDAPlace(0))
+    startup.random_seed = 29
+    exe.run(startup, scope=scope)
+    samples = [s for _, s in zip(range(DEC_SOURCES),
+                                 wmt16.test(DEC_NMT["src_dict_size"], DEC_NMT["trg_dict_size"])())]
+    longest = max(len(s[0]) for s in samples)
+    t_pad = 1 << (longest - 1).bit_length()          # the pow2 bucket
+    src_np = np.full((DEC_SOURCES, t_pad, 1), mt.END_ID, np.int64)
+    lens = np.zeros((DEC_SOURCES,), np.int32)
+    for i, s in enumerate(samples):
+        src_np[i, :len(s[0]), 0] = s[0]
+        lens[i] = len(s[0])
+    feed = {"src": src_np, "src@SEQ_LEN": lens}
+    fetch = [ids_v, scores_v]
+    state_in, state_out = analyze_state(main.desc.block(0), list(feed))
+    blockers = graph_blockers(main, state_in, state_out)
+    rep = exe.precompile(main, feed=feed, fetch_list=fetch, scope=scope)
+    print(f"phase 29 (a) infer_network {json.dumps(DEC_NMT)}: {len(ops)} ops, "
+          f"{len(lookups)} lookup_table, {len(steps)} beam_search; {DEC_SOURCES} sources of "
+          f"the synthetic wmt16 padded to {t_pad}; cache entry {rep['kind']} in "
+          f"{rep['compile_s']:.3f} s, graph blockers {blockers}, reasons {rep['reasons']} "
+          f"[{card}]")
+    if len(lookups) != 1 + DEC_NMT["max_len"]:
+        raise AssertionError(f"phase 29 (a): {len(lookups)} lookup_table ops, want "
+                             f"{1 + DEC_NMT['max_len']}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = _launch_snapshot(counters)
+    walls, outs = [], None
+    for _ in range(DEC_REPLAYS):
+        t0 = time.perf_counter()
+        outs = exe.run(main, feed=feed, fetch_list=fetch, scope=scope, return_numpy=False)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = _delta(_launch_snapshot(counters), before)
+    peak = torch.cuda.max_memory_allocated()
+    if launches["gather_rows"] != len(lookups) * DEC_REPLAYS or launches["flash_attn_fwd"]:
+        raise AssertionError(f"phase 29 (a): launches {launches} over {DEC_REPLAYS} replays, "
+                             f"want K2 {len(lookups)} a replay and no K1")
+    _gate_others_zero(launches, "(a)")
+    eager = exe._run_eager(main, feed=feed,
+                           fetch_list=fetch + lookups + [n for s in steps for n in s],
+                           scope=scope, return_numpy=False)
+    if not (torch.equal(outs[0], eager[0]) and torch.equal(outs[1], eager[1])):
+        raise AssertionError("phase 29 (a): the replay's SentenceIds / SentenceScores differ "
+                             "from the op-by-op run on the card")
+    if tuple(outs[0].shape) != (DEC_SOURCES, DEC_NMT["beam_size"], DEC_NMT["max_len"]) or \
+            not bool(torch.isfinite(outs[1]).all()):
+        raise AssertionError(f"phase 29 (a): SentenceIds {tuple(outs[0].shape)}, scores finite "
+                             f"{bool(torch.isfinite(outs[1]).all())}")
+    # K2 at the step's shapes: the source table at the source ids, the
+    # target table at a mid-decode step's beam ids
+    k2 = {}
+    mid = len(lookups) // 2
+    for label, table, ids in (("src", "src_emb", eager[2]), ("trg", "trg_emb", eager[2 + mid])):
+        rec = _k2_at(torch, scope.find_var(table), ids.reshape(-1).to(torch.int32),
+                     f"{label} ids", card, phase="phase 29 (a)")
+        if not rec["bit_equal"]:
+            raise AssertionError(f"phase 29 (a): K2 at [{table}] is not bit-equal to its plain "
+                                 f"version")
+        k2[f"nmt_{label}"] = rec
+    # the CPU port from the same parameters
+    persist = [n for n, v in main.desc.block(0).vars.items() if v.persistable]
+    cpu_scope, cexe = pt.Scope(), pt.Executor(pt.CPUPlace())
+    pt.params_from_numpy({n: scope.find_var(n).cpu().numpy() for n in persist}, cpu_scope, "cpu")
+    cpu = cexe.run(main, feed=feed, fetch_list=fetch + [n for s in steps for n in s]
+                   + [n for s in step_inputs for n in s], scope=cpu_scope)
+    card_ids, card_sc = eager[0].cpu().numpy(), eager[1].cpu().numpy()
+    base, k = 2 + len(lookups), len(steps)
+    card_steps = [tuple(eager[base + 3 * i + j].cpu().numpy() for j in range(3))
+                  for i in range(k)]
+    cpu_steps = [tuple(cpu[2 + 3 * i + j] for j in range(3)) for i in range(k)]
+    cpu_inputs = [tuple(cpu[2 + 3 * k + 3 * i + j] for j in range(3)) for i in range(k)]
+    differ = [n for n in range(DEC_SOURCES) if not np.array_equal(card_ids[n], cpu[0][n])]
+    ties = []
+    for n in differ:
+        div = _beam_first_divergence(card_steps, cpu_steps, cpu_inputs, n, mt.END_ID)
+        ties.append({"source": n, **(div or {})})
+        print(f"phase 29 (a) source {n}: ids differ card vs CPU; {json.dumps(div)} (gate: "
+              f"gap_rel < {DEC_TIE_RTOL}) [{card}]")
+    same = [n for n in range(DEC_SOURCES) if n not in differ]
+    rel = float(np.max(np.abs(card_sc[same] - cpu[1][same]) / np.maximum(np.abs(cpu[1][same]),
+                                                                          1e-30)))
+    if any("gap_rel" not in t or not t["gap_rel"] < DEC_TIE_RTOL for t in ties):
+        raise AssertionError(f"phase 29 (a): ids differ from the CPU port's beyond a near tie: "
+                             f"{ties}")
+    if not rel <= DEC_SCORE_RTOL:
+        raise AssertionError(f"phase 29 (a): scores {rel:.3e} relative from the CPU port's "
+                             f"(gate {DEC_SCORE_RTOL})")
+    st = _ms_stats(walls)
+    st["sentences_per_s"] = DEC_SOURCES / (st["median"] / 1e3)
+    prof = _replay_profile(torch, exe, main, feed, None, scope, "beam", card,
+                           {"gather_rows (K2)": len(lookups), "flash_attn_fwd (K1)": 0,
+                            "scatter_add_rows (K3)": 0},
+                           st["median"], fetch=fetch, phase=29)
+    res = {"ops": len(ops), "kind": rep["kind"], "blockers": blockers, "reasons": rep["reasons"],
+           "capture_s": rep["compile_s"], "replay": st, "peak_bytes": peak,
+           "launches": launches, "cpu_ids_differ": ties, "score_rel_err": rel,
+           "profile": prof, "k2": k2}
+    print(f"phase 29 (a) beam inference ({DEC_SOURCES} sources, beam {DEC_NMT['beam_size']}, "
+          f"{DEC_NMT['max_len']} steps, one replay a batch): ms a batch median "
+          f"{st['median']:.3f} (min {st['min']:.3f}, max {st['max']:.3f}), "
+          f"{st['sentences_per_s']:.1f} sentences/s, idle share "
+          f"{prof['idle_share_of_timed_replays']:.4f} of the timed replays, peak "
+          f"{peak / 2**20:.1f} MiB; replay bit-equal to op by op; card vs CPU: "
+          f"{len(differ)} of {DEC_SOURCES} sources' ids differ (near ties), scores "
+          f"{rel:.3e} relative [{card}]")
+    del exe, scope
+    return res, launches
+
+
+def _engine_k2_want(eng):
+    """K2 launches the engine's dispatched programs hold: each prefill
+    batch's program at its seq bucket, and the step program once an
+    iteration (one lookup_table each an embedding)."""
+    per = {t: _lookup_count(p[0]) for t, p in eng._prefill.items()}
+    step = _lookup_count(eng._step_prog)
+    recs = eng._records.records()
+    return sum(per[r["seq_bucket"]] for r in recs if r["kind"] == "prefill") + \
+        step * sum(r["kind"] == "iteration" for r in recs)
+
+
+def _decode_arm(pt, pre, step, reqs, static):
+    """bench.py's decode row, one arm (bench.py:1334-1430)."""
+    from paddle_tpu_torch import telemetry
+    from paddle_tpu_torch.serving import DECODE_SCOPE, DecodeEngine
+    telemetry.reset_scope(DECODE_SCOPE)
+    eng = DecodeEngine(pre, step, eos_id=0, max_seq_len=DEC_MAX_SEQ, max_batch_size=DEC_BATCH,
+                       max_queue=len(reqs) + 1, seed=DEC_SEED, default_timeout_s=300.0,
+                       name="bench")
+    counters = _counters()
+    before = _launch_snapshot(counters)
+    try:
+        t0 = time.perf_counter()
+        results, subs = [None] * len(reqs), [0.0] * len(reqs)
+
+        def post(j):
+            subs[j] = time.perf_counter() - t0
+            return eng.submit(reqs[j]["prompt"], reqs[j]["max_new"])
+
+        if static:
+            for lo in range(0, len(reqs), DEC_BATCH):
+                futs = [(j, post(j)) for j in range(lo, min(lo + DEC_BATCH, len(reqs)))]
+                for j, f in futs:
+                    results[j] = f.result(timeout=300.0)
+        else:
+            futs = [(j, post(j)) for j in range(len(reqs))]
+            for j, f in futs:
+                results[j] = f.result(timeout=300.0)
+        wall = time.perf_counter() - t0
+        st = eng.stats()
+    finally:
+        eng.close(drain=False)
+    launches = _delta(_launch_snapshot(counters), before)
+    want_k2 = _engine_k2_want(eng)
+    toks = sum(len(r.tokens) for r in results)
+    ttft = [sub + r.ttft_s for r, sub in zip(results, subs)]
+    per_tok = [r.decode_s / max(1, len(r.tokens)) for r in results]
+    row = {"tokens_per_sec": toks / wall, "tokens": toks, "wall_s": wall,
+           "ttft_p50_ms": float(np.percentile(ttft, 50)) * 1e3,
+           "ttft_p99_ms": float(np.percentile(ttft, 99)) * 1e3,
+           "per_token_p50_ms": float(np.percentile(per_tok, 50)) * 1e3,
+           "per_token_p99_ms": float(np.percentile(per_tok, 99)) * 1e3,
+           "occupancy": st["mean_batch_rows"] / DEC_BATCH,
+           "fresh_compiles": st["fresh_compiles_since_warmup"],
+           "prefill_batches": st["prefill_batches"], "iterations": st["iterations"],
+           "executables_warmed": st["executables_warmed"], "k2_want": want_k2}
+    return row, results, launches, eng
+
+
+def _oneshot_tokens(pt, ref, scope, prompts, gen, eos=0):
+    """The decode model's one-shot program (every token of the loop in one
+    program) on the card at batch 1, from ``scope``'s parameters; each
+    request's tokens cut at its own count (``gen`` may be a list) and at
+    the first whole-row EOS, as the engine retires it.  The kernel tier's
+    pass is off (``kernels=False``): ``gru_lm``'s one-shot program computes
+    a last step nothing reads, and the pass's verification refuses a
+    retyped op that is dead (D204), as the JAX package's does; its
+    ``lookup_table`` ops launch K2 on the card all the same."""
+    exe = pt.Executor(pt.CUDAPlace(0), kernels=False)
+    progs = {}
+    out = []
+    for i, p in enumerate(prompts):
+        t = 8 if len(p) <= 8 else 16
+        if t not in progs:
+            main, startup = pt.Program(), pt.Program()
+            with pt.unique_name.guard(), pt.program_guard(main, startup):
+                (_i, _l), toks_v = ref(t, max(gen) if isinstance(gen, list) else gen)
+            progs[t] = (main, toks_v)
+        main, toks_v = progs[t]
+        ids = np.full((1, t), eos, np.int64)
+        ids[0, :len(p)] = p
+        (toks,) = exe.run(main, feed={"ids": ids, "lens": np.array([[len(p)]], np.int32)},
+                          fetch_list=[toks_v], scope=scope)
+        toks = np.asarray(toks)[0][:gen[i] if isinstance(gen, list) else gen]
+        for k in range(len(toks)):
+            if np.all(toks[k] == eos):
+                toks = toks[:k + 1]
+                break
+        out.append(toks.astype(np.int64))
+    return out
+
+
+def _staggered(eng, prompts, gens, stagger=0.02):
+    results, errors = [None] * len(prompts), []
+
+    def client(i):
+        try:
+            time.sleep(stagger * (i % 4))
+            results[i] = eng.generate(prompts[i], max_new_tokens=gens[i], timeout=120.0)
+        except Exception as e:  # noqa: BLE001
+            errors.append(f"{type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=180.0)
+    if errors:
+        raise AssertionError(f"phase 29 (b): clients failed: {errors[:4]}")
+    return results
+
+
+def _k1_decode_shapes(torch, card):
+    """K1 at attention_lm's prefill shapes: causal, head_dim 16, B*H 4 (the
+    prefill batch bucket of 4 rows, one head), T 8 / 16 / 32."""
+    from paddle_tpu_torch.ops.cuda.flash_attention import flash_attn_fwd, flash_attn_fwd_plain
+    from paddle_tpu_torch.serving import decode_models as zoo
+    g = torch.Generator().manual_seed(29)
+    d, bh, out = zoo.HID, 4, {}
+    for t in DEC_K1_T:
+        q, k, v = (torch.randn(bh, t, d, generator=g).cuda() for _ in range(3))
+        lens = torch.full((bh,), t, dtype=torch.int32, device="cuda")
+        scale = d ** -0.5
+        o, lse = flash_attn_fwd(q, k, v, lens, True, scale)
+        ro, rlse = flash_attn_fwd_plain(q, k, v, lens, True, scale)
+        torch.cuda.synchronize()
+        err = max((o - ro).abs().max().item(), (lse - rlse).abs().max().item())
+        if not err <= FLASH_TOL:
+            raise AssertionError(f"phase 29 K1 T={t} d={d}: max abs err {err} > {FLASH_TOL}")
+        fns = [lambda: flash_attn_fwd(q, k, v, lens, True, scale),
+               lambda: torch.nn.functional.scaled_dot_product_attention(
+                   q[None], k[None], v[None], is_causal=True, scale=scale)]
+        ms, lib_ms = _best(lambda fn: _ms(fn, 200), fns)
+        plain_ms = _ms(lambda: flash_attn_fwd_plain(q, k, v, lens, True, scale), 50)
+        pairs = bh * t * (t + 1) // 2
+        nbytes = 4 * (4 * q.numel() + lse.numel() + lens.numel())
+        bound_ms, bound_by = _bound(nbytes, 2 * 2 * d * pairs, TF32_FLOPS / 3)
+        out[f"decode_prefill_T{t}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                           library_ms=lib_ms, bound_ms=bound_ms,
+                                           bound_by=bound_by, bh=bh, t=t, d=d, causal=True)
+        print(f"phase 29 K1 flash_attn_fwd decode prefill B*H={bh} T={t} d={d} causal: "
+              f"max_abs_err {err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+              f"{lib_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}) [{card}]")
+    return out
+
+
+def _decode_engines(torch, pt, card, counters):
+    """(b): DecodeEngine with bench.py's decode row (static and continuous
+    arms), then attention_lm with staggered ragged clients, then
+    beam_gru_lm.  Returns (record, launches of every engine's serving)."""
+    from paddle_tpu_torch.serving import DecodeEngine
+    from paddle_tpu_torch.serving import decode_models as zoo
+    res, total = {}, dict.fromkeys(counters, 0)
+
+    def add(launches):
+        for k, n in launches.items():
+            total[k] += n
+
+    pre, step, ref = zoo.gru_lm()
+    rs = np.random.default_rng(11)
+    reqs = [{"prompt": rs.integers(1, zoo.VOCAB, size=int(rs.integers(1, 11)), dtype=np.int64),
+             "max_new": int(rs.integers(DEC_NEW[0], DEC_NEW[1] + 1))}
+            for _ in range(DEC_CLIENTS * DEC_PER_CLIENT)]
+    arms, toks, engines = {}, {}, {}
+    for name, static in (("static", True), ("continuous", False)):
+        row, results, launches, eng = _decode_arm(pt, pre, step, reqs, static)
+        add(launches)
+        row["launches"] = launches
+        arms[name], toks[name], engines[name] = row, [np.asarray(r.tokens) for r in results], eng
+        if launches["gather_rows"] != row["k2_want"] or launches["flash_attn_fwd"]:
+            raise AssertionError(f"phase 29 (b) gru_lm {name}: K2 launched "
+                                 f"{launches['gather_rows']} times, the dispatched programs "
+                                 f"hold {row['k2_want']} lookup_table ops; K1 "
+                                 f"{launches['flash_attn_fwd']}")
+        _gate_others_zero(launches, f"(b) gru_lm {name}")
+        if row["fresh_compiles"]:
+            raise AssertionError(f"phase 29 (b) gru_lm {name}: {row['fresh_compiles']} fresh "
+                                 f"compiles after warmup")
+    differ = [j for j, (a, b) in enumerate(zip(toks["static"], toks["continuous"]))
+              if not np.array_equal(a, b)]
+    if differ:
+        raise AssertionError(f"phase 29 (b): static and continuous tokens differ at requests "
+                             f"{differ[:8]}")
+    want = _oneshot_tokens(pt, ref, engines["continuous"].scope, [r["prompt"] for r in reqs],
+                           [r["max_new"] for r in reqs])
+    bad = [j for j, (g, w) in enumerate(zip(toks["continuous"], want)) if not np.array_equal(
+        g.ravel(), w.ravel())]
+    if bad:
+        j = bad[0]
+        raise AssertionError(f"phase 29 (b): {len(bad)} requests differ from the one-shot "
+                             f"program, first {j}: {toks['continuous'][j].tolist()} vs "
+                             f"{want[j].tolist()}")
+    speedup = arms["continuous"]["tokens_per_sec"] / arms["static"]["tokens_per_sec"]
+    res["gru_lm"] = {"requests": len(reqs), "static": arms["static"],
+                     "continuous": arms["continuous"], "speedup": speedup}
+    for name in ("static", "continuous"):
+        a = arms[name]
+        print(f"phase 29 (b) gru_lm {name}: {a['tokens_per_sec']:.1f} tokens/s ({a['tokens']} "
+              f"tokens in {a['wall_s']:.3f} s), TTFT p50 {a['ttft_p50_ms']:.2f} / p99 "
+              f"{a['ttft_p99_ms']:.2f} ms, per-token p50 {a['per_token_p50_ms']:.3f} / p99 "
+              f"{a['per_token_p99_ms']:.3f} ms, occupancy {a['occupancy']:.3f}, "
+              f"{a['prefill_batches']} prefill batches, {a['iterations']} iterations, "
+              f"{a['executables_warmed']} warmed, fresh compiles {a['fresh_compiles']}, K2 "
+              f"{a['launches']['gather_rows']} = the programs' lookups [{card}]")
+    print(f"phase 29 (b) gru_lm: {len(reqs)} requests bit-identical across the arms and to the "
+          f"one-shot program on the card; continuous / static {speedup:.3f}x [{card}]")
+    del engines
+
+    # attention_lm: K1 once a prefill batch, solo == concurrent
+    pre, step, _ = zoo.attention_lm()
+    rs = np.random.default_rng(12)
+    prompts = [rs.integers(1, zoo.VOCAB, size=int(rs.integers(1, 11)), dtype=np.int64)
+               for _ in range(DEC_ATTN_CLIENTS)]
+    gens = [int(rs.integers(4, 17)) for _ in prompts]
+    solo = DecodeEngine(pre, step, eos_id=0, max_seq_len=DEC_MAX_SEQ, max_batch_size=1,
+                        seed=DEC_SEED, name="attn-solo")
+    try:
+        want = [np.asarray(solo.generate(p, g, timeout=120.0).tokens)
+                for p, g in zip(prompts, gens)]
+    finally:
+        solo.close(drain=False)
+    eng = DecodeEngine(pre, step, eos_id=0, max_seq_len=DEC_MAX_SEQ, max_batch_size=DEC_BATCH,
+                       seed=DEC_SEED, name="attn")
+    try:
+        before = _launch_snapshot(counters)
+        results = _staggered(eng, prompts, gens)
+        launches = _delta(_launch_snapshot(counters), before)
+        prefills = sum(r["kind"] == "prefill" for r in eng._records.records())
+        k2_want = _engine_k2_want(eng)
+        fresh = eng.fresh_compiles_since_warmup
+        warmed = len(eng.warmup_reports)
+        kinds = sorted({r["kind"] for r in eng.warmup_reports})
+    finally:
+        eng.close(drain=False)
+    add(launches)
+    bad = [i for i, (r, w) in enumerate(zip(results, want))
+           if not np.array_equal(np.asarray(r.tokens), w)]
+    if bad:
+        raise AssertionError(f"phase 29 (b) attention_lm: requests {bad} differ from the solo "
+                             f"engine's")
+    if launches["flash_attn_fwd"] != prefills or launches["gather_rows"] != k2_want:
+        raise AssertionError(f"phase 29 (b) attention_lm: K1 {launches['flash_attn_fwd']} for "
+                             f"{prefills} prefill batches, K2 {launches['gather_rows']} for "
+                             f"{k2_want} lookups")
+    _gate_others_zero(launches, "(b) attention_lm")
+    if fresh:
+        raise AssertionError(f"phase 29 (b) attention_lm: {fresh} fresh compiles after warmup")
+    res["attention_lm"] = {"requests": len(prompts), "prefill_batches": prefills,
+                           "launches": launches, "executables_warmed": warmed,
+                           "warm_kinds": kinds}
+    print(f"phase 29 (b) attention_lm: {len(prompts)} staggered ragged clients equal to a solo "
+          f"engine's tokens; K1 {launches['flash_attn_fwd']} = {prefills} prefill batches, K2 "
+          f"{launches['gather_rows']}; {warmed} warmed ({kinds}), fresh compiles 0 [{card}]")
+
+    # beam_gru_lm against its one-shot program
+    pre, step, ref = zoo.beam_gru_lm()
+    rs = np.random.default_rng(13)
+    prompts = [rs.integers(1, zoo.VOCAB, size=int(rs.integers(1, 9)), dtype=np.int64)
+               for _ in range(DEC_BEAM_REQUESTS)]
+    eng = DecodeEngine(pre, step, eos_id=0, max_seq_len=16, max_batch_size=DEC_BATCH,
+                       seed=DEC_SEED, name="beam")
+    try:
+        before = _launch_snapshot(counters)
+        results = _staggered(eng, prompts, [DEC_BEAM_GEN] * len(prompts))
+        launches = _delta(_launch_snapshot(counters), before)
+        k2_want = _engine_k2_want(eng)
+        fresh = eng.fresh_compiles_since_warmup
+        want = _oneshot_tokens(pt, ref, eng.scope, prompts, DEC_BEAM_GEN)
+    finally:
+        eng.close(drain=False)
+    add(launches)
+    bad = [i for i, (r, w) in enumerate(zip(results, want))
+           if not np.array_equal(np.asarray(r.tokens), w[:len(r.tokens)])]
+    if bad or launches["gather_rows"] != k2_want or fresh:
+        raise AssertionError(f"phase 29 (b) beam_gru_lm: requests {bad} differ from the one-shot "
+                             f"program; K2 {launches['gather_rows']} for {k2_want} lookups; "
+                             f"fresh compiles {fresh}")
+    _gate_others_zero(launches, "(b) beam_gru_lm")
+    res["beam_gru_lm"] = {"requests": len(prompts), "launches": launches}
+    print(f"phase 29 (b) beam_gru_lm: {len(prompts)} requests equal to the one-shot program, "
+          f"lane for lane; K2 {launches['gather_rows']} [{card}]")
+    return res, total
+
+
+def _soak_client(fd, c, stop, reqs, prompts, note, errors):
+    from paddle_tpu_torch.serving import CircuitOpen, RequestTimeout, ServingOverloaded
+    model = "tb" if c % 2 else "lm"
+    i = c
+    while time.perf_counter() < stop:
+        t0 = time.perf_counter()
+        try:
+            if model == "tb":
+                fd.infer("tb", reqs[i % len(reqs)], timeout_s=FLEET_DEADLINE_S)
+            else:
+                p, g = prompts[i % len(prompts)]
+                fd.generate("lm", p, max_new_tokens=g, timeout_s=FLEET_DEADLINE_S)
+            note(model, "ok", time.perf_counter() - t0)
+        except CircuitOpen:
+            note(model, "shed_breaker")
+            time.sleep(0.002)
+        except ServingOverloaded:
+            note(model, "shed_overload")
+            time.sleep(0.002)
+        except RequestTimeout:
+            note(model, "timeout")
+        except Exception as e:  # noqa: BLE001 -- counted; the gate reads them
+            note(model, "error")
+            errors.append(f"{model}: {type(e).__name__}: {e}")
+        i += 1
+
+
+def _http_json(url, body, headers):
+    import urllib.request
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json", **headers})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return r.status, json.loads(r.read()), dict(r.headers)
+
+
+def _decode_fleet(torch, pt, card, counters):
+    """(c): transformer-base serving and gru_lm decode behind one
+    EngineManager and FrontDoor."""
+    from paddle_tpu_torch import faults
+    from paddle_tpu_torch.serving import (EngineManager, FleetHTTPServer, FrontDoor,
+                                          ModelRejected, ServingNonFinite, SwapFailed)
+    from paddle_tpu_torch.serving import decode_models as zoo
+    root = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    res = {}
+    try:
+        t_piece = time.perf_counter()
+        main, startup = pt.Program(), pt.Program()
+        with pt.unique_name.guard(), pt.program_guard(main, startup):
+            _infer_func()
+        scope, exe = pt.Scope(), pt.Executor(pt.CUDAPlace(0))
+        startup.random_seed = 0
+        exe.run(startup, scope=scope)
+        d1, d_nan = os.path.join(root, "tb"), os.path.join(root, "tb_nan")
+        with pt.scope_guard(scope):
+            pt.io.save_persistables(exe, d1, main)
+            for n, v in main.desc.block(0).vars.items():
+                t = scope.find_var(n)
+                if v.persistable and isinstance(t, torch.Tensor) and t.is_floating_point():
+                    t.fill_(float("nan"))
+            pt.io.save_persistables(exe, d_nan, main)
+        del scope, exe
+        t_piece = _piece_seconds("phase 29 (c) parameters saved", t_piece)
+
+        # 1. M501 before any build
+        small = EngineManager(memory_budget=FLEET_BUDGET)
+        built, real = [], small._build_session
+        small._build_session = lambda *a, **k: built.append(1) or real(*a, **k)
+        try:
+            small.load("tb", infer_func=_infer_func, param_path=d1, warmup=False)
+        except ModelRejected as e:
+            res["rejected"] = {"code": e.code, "predicted_peak_bytes": e.predicted_peak_bytes,
+                               "budget_bytes": e.budget_bytes}
+        finally:
+            small.close()
+        if "rejected" not in res or built or res["rejected"]["code"] != "M501":
+            raise AssertionError(f"phase 29 (c) 1: the checkpoint over {FLEET_BUDGET} was not "
+                                 f"refused before any build ({res.get('rejected')}, built "
+                                 f"{len(built)})")
+        print(f"phase 29 (c) 1: transformer-base's checkpoint refused over {FLEET_BUDGET}: "
+              f"{json.dumps(res['rejected'])}, no session built [{card}]")
+
+        mgr = EngineManager()
+        pre, step, _ = zoo.gru_lm()
+        dec_kw = dict(eos_id=0, max_seq_len=DEC_MAX_SEQ, max_batch_size=DEC_BATCH,
+                      default_timeout_s=60.0)
+        try:
+            mgr.load("tb", infer_func=_infer_func, param_path=d1, max_batch_size=8,
+                     warmup=False)
+            mgr.session("tb").inferencer.warmup(BUCKETS, SERVE_SPECS)
+            mgr.load_decode("lm", pre, step, seed=DEC_SEED, **dec_kw)
+            t_piece = _piece_seconds("phase 29 (c) two models loaded", t_piece)
+            reqs = _requests(16, seed=29)
+            batch = _batch_feed(reqs, 8)
+            canary = {k: v[:1] for k, v in reqs[0].items()}
+            before = _launch_snapshot(counters)
+            answer = mgr.infer("tb", batch)
+            per_batch = _delta(_launch_snapshot(counters), before)
+            if per_batch["flash_attn_fwd"] != K1_PER_BATCH or \
+                    per_batch["gather_rows"] != K2_PER_BATCH:
+                raise AssertionError(f"phase 29 (c): a served batch launched {per_batch}")
+            if answer[0].shape != (8, T, VOCAB) or not np.isfinite(answer[0]).all():
+                raise AssertionError(f"phase 29 (c): answer {answer[0].shape}")
+
+            # 2. hot swap: equal parameters pass, NaN parameters roll back
+            mgr.swap("tb", infer_func=_infer_func, param_path=d1, canary=canary,
+                     max_batch_size=8, warmup=False)
+            mgr.session("tb").inferencer.warmup(BUCKETS, SERVE_SPECS)
+            same = np.array_equal(mgr.infer("tb", batch)[0], answer[0])
+            try:
+                mgr.swap("tb", infer_func=_infer_func, param_path=d_nan, canary=canary,
+                         max_batch_size=8, warmup=False)
+                rolled = None
+            except SwapFailed as e:
+                rolled = type(e.cause).__name__
+            kept = np.array_equal(mgr.infer("tb", batch)[0], answer[0])
+            version = mgr.models()["tb"]["version"]
+            if not (same and kept and rolled == ServingNonFinite.__name__ and version == 2):
+                raise AssertionError(f"phase 29 (c) 2: equal-parameter swap answers bit-equal "
+                                     f"{same}; NaN swap rolled back by {rolled}; answers kept "
+                                     f"{kept}; version {version}")
+            res["swap"] = {"equal_swap_bit_equal": same, "nan_swap_cause": rolled,
+                           "answers_kept": kept, "version": version}
+            print(f"phase 29 (c) 2: swap to equal parameters passed its canary, answers "
+                  f"bit-equal; the NaN set raised SwapFailed ({rolled}), v{version}'s answers "
+                  f"bit-equal [{card}]")
+            t_piece = _piece_seconds("phase 29 (c) swaps", t_piece)
+
+            # 3. the soak: a wedge over the middle third, swap_decode at 2/3
+            fd = FrontDoor(mgr, breaker_threshold=5, breaker_backoff_s=0.2,
+                           breaker_backoff_max_s=0.4, default_timeout_s=FLEET_DEADLINE_S)
+            rs = np.random.default_rng(29)
+            prompts = [(rs.integers(1, zoo.VOCAB, size=int(rs.integers(1, 9)), dtype=np.int64),
+                        int(rs.integers(2, 9))) for _ in range(32)]
+            lock, series, errors = threading.Lock(), {"tb": {}, "lm": {}}, []
+            t_start = time.perf_counter()
+
+            def note(model, kind, latency=None):
+                with lock:
+                    b = series[model].setdefault(int(time.perf_counter() - t_start), {
+                        "ok": 0, "shed_breaker": 0, "shed_overload": 0, "timeout": 0,
+                        "error": 0, "lat": []})
+                    b[kind] += 1
+                    if latency is not None:
+                        b["lat"].append(latency)
+
+            stats0 = dict(mgr.stats())
+            before = _launch_snapshot(counters)
+            stop = t_start + FLEET_SOAK_S
+            threads = [threading.Thread(target=_soak_client,
+                                        args=(fd, c, stop, reqs, prompts, note, errors))
+                       for c in range(FLEET_CLIENTS)]
+            for t in threads:
+                t.start()
+            time.sleep(FLEET_SOAK_S / 3.0)
+            faults.install(f"delay@serving.backend.tb:s={FLEET_DEADLINE_S * 2.0}", seed=7)
+            time.sleep(FLEET_SOAK_S / 3.0)
+            faults.install(None)
+            t_swap = time.perf_counter()
+            mgr.swap_decode("lm", pre, step, seed=23, **dec_kw)
+            swap_s = time.perf_counter() - t_swap
+            for t in threads:
+                t.join(timeout=FLEET_SOAK_S + 60)
+            # the breaker closes through its half-open probe
+            t0 = time.perf_counter()
+            while fd.breaker("tb").snapshot()["state"] != "closed" and \
+                    time.perf_counter() - t0 < 10.0:
+                try:
+                    fd.infer("tb", canary, timeout_s=5.0)
+                except Exception:  # noqa: BLE001 -- shed until the backoff ends
+                    time.sleep(0.05)
+            launches = _delta(_launch_snapshot(counters), before)
+            st = mgr.stats()
+            fd_stats = fd.breakers()
+            lat = sorted(v for m in series.values() for b in m.values() for v in b["lat"])
+            p99 = float(np.percentile(lat, 99)) if lat else float("inf")
+            totals = {m: {k: sum(b[k] for b in bs.values())
+                          for k in ("ok", "shed_breaker", "shed_overload", "timeout", "error")}
+                      for m, bs in series.items()}
+            soak = {"seconds": FLEET_SOAK_S, "clients": FLEET_CLIENTS,
+                    "deadline_s": FLEET_DEADLINE_S, "totals": totals,
+                    "admitted_p50_ms": float(np.percentile(lat, 50)) * 1e3 if lat else None,
+                    "admitted_p99_ms": p99 * 1e3, "swap_decode_s": swap_s,
+                    "breaker_trips": st["breaker_trips"] - stats0["breaker_trips"],
+                    "breaker_closes": st["breaker_closes"] - stats0["breaker_closes"],
+                    "swaps": st["swaps"] - stats0["swaps"], "breakers": fd_stats,
+                    "lm_version": mgr.models()["lm"]["version"],
+                    "lm_fresh_compiles": mgr.decode_engine("lm").fresh_compiles_since_warmup,
+                    "launches": launches,
+                    "series": {m: [{"t": t, **{k: v for k, v in b.items() if k != "lat"},
+                                    "p99_ms": float(np.percentile(b["lat"], 99)) * 1e3
+                                    if b["lat"] else None}
+                                   for t, b in sorted(bs.items())]
+                               for m, bs in series.items()}}
+            res["soak"] = soak
+            print(json.dumps({"fleet_soak": soak}, default=str))
+            print(f"phase 29 (c) 3: {FLEET_SOAK_S:.0f} s soak of {FLEET_CLIENTS} clients over "
+                  f"tb / lm: {json.dumps(totals)}; admitted p50 {soak['admitted_p50_ms']:.2f} "
+                  f"ms, p99 {soak['admitted_p99_ms']:.2f} ms (bound "
+                  f"{2 * FLEET_DEADLINE_S * 1e3:.0f}); breaker trips {soak['breaker_trips']}, "
+                  f"closes {soak['breaker_closes']}; swap_decode {swap_s:.2f} s -> "
+                  f"v{soak['lm_version']}, fresh compiles {soak['lm_fresh_compiles']}; "
+                  f"launches K1 {launches['flash_attn_fwd']}, K2 {launches['gather_rows']} "
+                  f"[{card}]")
+            if errors:
+                raise AssertionError(f"phase 29 (c) 3: soak errors: {errors[:4]}")
+            if not (soak["breaker_trips"] >= 1 and totals["tb"]["shed_breaker"] >= 1
+                    and soak["breaker_closes"] >= 1 and fd_stats["tb"]["state"] == "closed"):
+                raise AssertionError(f"phase 29 (c) 3: the wedge did not trip, shed and close "
+                                     f"the breaker: {fd_stats}, {totals}")
+            if not (soak["swaps"] == 1 and soak["lm_version"] == 2
+                    and soak["lm_fresh_compiles"] == 0):
+                raise AssertionError(f"phase 29 (c) 3: swap_decode: {soak['swaps']} swaps, "
+                                     f"v{soak['lm_version']}")
+            if not (totals["tb"]["ok"] and totals["lm"]["ok"]
+                    and p99 < 2.0 * FLEET_DEADLINE_S):
+                raise AssertionError(f"phase 29 (c) 3: admitted p99 {p99 * 1e3:.1f} ms, bound "
+                                     f"{2 * FLEET_DEADLINE_S * 1e3:.0f} ms; {totals}")
+            _gate_others_zero(launches, "(c)")
+            t_piece = _piece_seconds("phase 29 (c) soak", t_piece)
+
+            # 4. HTTP with a traceparent
+            trace_id = os.urandom(16).hex()
+            hdr = {"traceparent": f"00-{trace_id}-{os.urandom(8).hex()}-01"}
+            short = {k: (v[:1, :8] if v.ndim == 3 else np.minimum(v[:1], 8))
+                     for k, v in reqs[1].items()}
+            with FleetHTTPServer(fd, host="127.0.0.1") as srv:
+                code_i, out_i, h_i = _http_json(
+                    srv.address + "/v1/infer",
+                    {"model": "tb", "inputs": {k: v.tolist() for k, v in short.items()},
+                     "timeout_s": 30.0}, hdr)
+                code_g, out_g, h_g = _http_json(
+                    srv.address + "/v1/generate",
+                    {"model": "lm", "prompt": prompts[0][0].tolist(), "max_new_tokens": 4,
+                     "timeout_s": 30.0}, hdr)
+            logits = np.asarray(out_i["outputs"][0], np.float32)
+            http = {"infer": [code_i, list(logits.shape), h_i.get("traceparent")],
+                    "generate": [code_g, out_g.get("tokens"), h_g.get("traceparent")]}
+            res["http"] = http
+            print(f"phase 29 (c) 4: {srv.address} POST /v1/infer {code_i} logits "
+                  f"{list(logits.shape)}, POST /v1/generate {code_g} tokens "
+                  f"{out_g.get('tokens')}; sent trace {trace_id}, returned "
+                  f"{h_i.get('traceparent')} / {h_g.get('traceparent')} [{card}]")
+            if not (code_i == 200 and code_g == 200 and logits.shape == (1, 8, VOCAB)
+                    and np.isfinite(logits).all()
+                    and all((h or "").split("-")[1:2] == [trace_id] for h in (
+                        h_i.get("traceparent"), h_g.get("traceparent")))):
+                raise AssertionError(f"phase 29 (c) 4: {http}")
+        finally:
+            faults.reset()
+            mgr.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return res, launches
+
+
+def phase_decode(torch, card):
+    """Phase 29 (see the module docstring): decode serving and the fleet.
+    Returns the launches of (a), (b) and (c) by kernel, the bf16 instances
+    apart, and K1's and K2's records at the slice's shapes."""
+    import paddle_tpu_torch as pt
+    counters = _counters()
+    bf16 = _bf16_snapshot(counters)
+    res = {}
+    t_piece = time.perf_counter()
+    res["k1"] = _k1_decode_shapes(torch, card)
+    k2 = {}
+    from paddle_tpu_torch.serving import decode_models as zoo
+    g = torch.Generator().manual_seed(30)
+    w = torch.randn(zoo.VOCAB, zoo.EMB, generator=g).cuda()
+    for label, n in (("decode step, batch 8", DEC_BATCH), ("prefill, 4 x 32", 4 * 32)):
+        ids = torch.randint(0, zoo.VOCAB, (n,), generator=g, dtype=torch.int32).cuda()
+        rec = _k2_at(torch, w, ids, label, card, phase="phase 29 (b)")
+        if not rec["bit_equal"]:
+            raise AssertionError(f"phase 29: K2 at [{zoo.VOCAB}, {zoo.EMB}] is not bit-equal")
+        k2[f"decode_{label.split(',')[0].replace(' ', '_')}"] = rec
+    t_piece = _piece_seconds("phase 29 K1 / K2 at the slice's shapes", t_piece)
+    res["beam"], la = _decode_beam(torch, pt, card, counters)
+    k2.update(res["beam"].pop("k2"))
+    res["k2"] = k2
+    t_piece = _piece_seconds("phase 29 (a)", t_piece)
+    res["engines"], lb = _decode_engines(torch, pt, card, counters)
+    t_piece = _piece_seconds("phase 29 (b)", t_piece)
+    res["fleet"], lc = _decode_fleet(torch, pt, card, counters)
+    _piece_seconds("phase 29 (c)", t_piece)
+    if _bf16_snapshot(counters) != bf16:
+        raise AssertionError("phase 29: a bf16 instance launched")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps({"decode": res}, default=str))
+    return {"launches_decode": {"a": la, "b": lb, "c": lc}, "k1": res["k1"], "k2": k2}
+
+
 def _release_serving(torch, label):
     """A serving phase's inferencers (and their graphs' memory pools) are
     gone once it returns: collect them before the training phases."""
@@ -8189,6 +8989,7 @@ def _main(torch, build):
     cf = timed("control_flow", phase_control_flow)
     sparse = timed("sparse", phase_sparse)
     data = timed("data", phase_data, sparse["step_ms_median"])
+    dec = timed("decode", phase_decode)
     print(f"seconds by phase function: {json.dumps(seconds)}; "
           f"{sum(seconds.values()):.1f} in all; {time.perf_counter() - t_main:.1f} since the "
           f"card's name was read (the kernel build included) [{card}]")
@@ -8275,6 +9076,11 @@ def _main(torch, build):
     # K6 1 each); launches_py_reader: (b), open_files + read_file over two
     # passes (the capture's eager run and 32 replays); the float32 and the
     # bf16 instances apart (the bf16 entries' count, gated at 0 in both)
+    # launches_decode: phase 29, each part counted from 0 -- "a" the beam
+    # inference's timed replays (K2 13 a replay), "b" the decode engines'
+    # serving (K2 a lookup_table op of each dispatched program, K1 once an
+    # attention_lm prefill batch), "c" the fleet's soak; K3-K8 and the bf16
+    # instances gated at 0 in each
     for e in kernels:
         e["launches_trainer"] = trainer_launches[e["name"]]
         e["launches_profile"] = PHASE19["launches_profile"].get(e["name"], 0)
@@ -8300,12 +9106,17 @@ def _main(torch, build):
         if e["name"] in sparse["max_abs_err"]:
             e["max_abs_err_sparse"] = sparse["max_abs_err"][e["name"]]
             e["max_abs_err"] = max(e["max_abs_err"], e["max_abs_err_sparse"])
+        e["launches_decode"] = {k: dec["launches_decode"][k][e["name"]] for k in "abc"}
     # K2 at phase 27's shapes (the 10,131,227-row field's [V, 16] and [V, 1]
     # tables, the scalar branch at D 1; a 1,460-row field's), each with its
     # times, plain version, F.embedding and bound
     kernels[1]["shapes_sparse"] = sparse["k2_shapes"]
     # K3 at (b)'s shapes: the same tables' dense gradients of the dense twin
     kernels[2]["shapes_sparse"] = sparse["k3_shapes"]
+    # K1 at attention_lm's prefill shapes, K2 at the decode models' table and
+    # the book NMT's two tables (phase 29)
+    kernels[0]["shapes_decode"] = dec["k1"]
+    kernels[1]["shapes_decode"] = dec["k2"]
     k4["quantizers"]["launches_profile"] = {
         n: PHASE19["launches_profile"].get(n, 0) for n in ("abs_max_pair", "quantize_int8")}
     k4["quantizers"]["launches_reference_path"] = {
@@ -8329,7 +9140,8 @@ def _main(torch, build):
                  launches_control_flow=cf["bf16_launches"].get(name, 0),
                  launches_sparse=sparse["bf16_launches"].get(name, 0),
                  launches_dispatch=data["bf16_launches_dispatch"].get(name, 0),
-                 launches_py_reader=data["bf16_launches_py_reader"].get(name, 0))
+                 launches_py_reader=data["bf16_launches_py_reader"].get(name, 0),
+                 launches_decode={k: 0 for k in "abc"})
         lstm_err = seq_launches["max_abs_err"].get(f"{name}_bf16")
         if lstm_err is not None:
             e["max_abs_err_lstm"] = lstm_err

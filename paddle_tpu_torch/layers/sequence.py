@@ -4,7 +4,8 @@
 and ``lstm_unit`` cells), and the attention layers ``flash_attention`` and
 ``multi_head_attention``.  Ragged inputs are padded ``[N, T, ...]`` with
 ``@SEQ_LEN`` lengths (ops/sequence_ops.py).  ``beam_search`` and
-``beam_search_decode`` are not ported yet and raise."""
+``beam_search_decode`` are the dense-lane decoding layers
+(ops/beam_search_ops.py)."""
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
@@ -259,15 +260,46 @@ def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0,
 
 def beam_search(pre_ids, pre_scores, scores, beam_size, end_id, states=None,
                 name=None):
-    raise NotImplementedError(
-        "layers.beam_search is not ported yet (ROADMAP.md, queue A items 10 and 13: "
-        "the decoding ops and the rest of the layer surface)")
+    """One beam-selection step (the reference's ``beam_search`` op, in the
+    dense-lane form): pre_ids / pre_scores [N, B], scores = log-probs
+    [N, B, V]; returns (selected_ids, selected_scores, parent_idx), each
+    [N, B].  ``states``: optional flat-lane [N*B, ...] decoder states to
+    re-gather by parent; the returned tuple then ends with the list of
+    gathered states."""
+    helper = LayerHelper("beam_search", name=name)
+    sel_ids = helper.create_tmp_variable(pre_ids.dtype)
+    sel_scores = helper.create_tmp_variable("float32")
+    parents = helper.create_tmp_variable("int32")
+    inputs = {"pre_ids": pre_ids, "pre_scores": pre_scores, "scores": scores}
+    outputs = {"selected_ids": sel_ids, "selected_scores": sel_scores,
+               "parent_idx": parents}
+    new_states = None
+    if states:
+        inputs["States"] = list(states)
+        new_states = [helper.create_tmp_variable(s.dtype) for s in states]
+        for s, ns in zip(states, new_states):
+            ns.desc.shape = s.shape
+        outputs["SelectedStates"] = new_states
+    helper.append_op("beam_search", inputs=inputs, outputs=outputs,
+                     attrs={"beam_size": int(beam_size), "end_id": int(end_id)})
+    if new_states is not None:
+        return sel_ids, sel_scores, parents, new_states
+    return sel_ids, sel_scores, parents
 
 
 def beam_search_decode(ids, parent_idx, scores, end_id, name=None):
-    raise NotImplementedError(
-        "layers.beam_search_decode is not ported yet (ROADMAP.md, queue A items 10 and "
-        "13: the decoding ops and the rest of the layer surface)")
+    """Backtrack the per-step beam arrays into sentences (the reference's
+    ``beam_search_decode`` op).  ids / parent_idx: tensor arrays written
+    with ``array_write`` each step; returns (sentence_ids [N, B, T],
+    sentence_scores [N, B])."""
+    helper = LayerHelper("beam_search_decode", name=name)
+    sent_ids = helper.create_tmp_variable("int64")
+    sent_scores = helper.create_tmp_variable("float32")
+    helper.append_op("beam_search_decode",
+                     inputs={"Ids": ids, "ParentIdx": parent_idx, "Scores": scores},
+                     outputs={"SentenceIds": sent_ids, "SentenceScores": sent_scores},
+                     attrs={"end_id": int(end_id)})
+    return sent_ids, sent_scores
 
 
 def dynamic_lstmp(input, size, proj_size, h_0=None, c_0=None,

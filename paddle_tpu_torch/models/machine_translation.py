@@ -2,8 +2,10 @@
 book chapter 8, tests/book/test_machine_translation.py), as the JAX
 package's ``models/machine_translation.py`` builds its training network:
 the encoder is embedding -> fc 3H -> ``dynamic_gru``, its last step the
-decoder's initial state; the decoder is teacher-forced.  The beam-search
-``infer_network`` is not ported yet."""
+decoder's initial state; the decoder is teacher-forced.  ``infer_network``
+decodes with beam search: ``max_len`` unrolled steps of gru_unit +
+``beam_search`` over dense [N, B] lanes (ops/beam_search_ops.py), all in
+one program.  The train and infer programs share parameters by name."""
 from __future__ import annotations
 
 from .. import layers
@@ -59,6 +61,47 @@ def train_network(src_ids, trg_ids, label, src_dict_size, trg_dict_size,
 
 def infer_network(src_ids, src_dict_size, trg_dict_size, word_dim=32,
                   hidden_dim=32, beam_size=4, max_len=12):
-    raise NotImplementedError(
-        "machine_translation.infer_network needs beam_search, beam_search_decode and "
-        "create_array, which are not ported yet (ROADMAP.md, queue A items 10 and 13)")
+    """Beam-search decode; returns (sentence_ids [N, B, T],
+    sentence_scores [N, B])."""
+    p = _decoder_step_params()
+    _, enc_last = encoder(src_ids, src_dict_size, word_dim, hidden_dim)
+
+    # fan out to beam lanes: hidden [N*B, H]
+    hid = layers.expand(layers.unsqueeze(enc_last, axes=[1]),
+                        expand_times=[1, beam_size, 1])
+    hidden = layers.reshape(hid, shape=[-1, hidden_dim])
+
+    pre_ids = layers.fill_constant_batch_size_like(
+        enc_last, shape=[-1, beam_size], dtype="int64", value=START_ID)
+    # lane 0 active, the others at -1e9, so step 1 fans out from one beam
+    lane_bias = layers.assign_value(
+        values=[0.0] + [-1e9] * (beam_size - 1), shape=[beam_size],
+        dtype="float32")
+    zeros = layers.fill_constant_batch_size_like(
+        enc_last, shape=[-1, beam_size], dtype="float32", value=0.0)
+    pre_scores = layers.elementwise_add(zeros, lane_bias, axis=1)
+
+    ids_array = layers.create_array("int64")
+    parents_array = layers.create_array("int32")
+    for t in range(max_len):
+        step_ids = layers.reshape(pre_ids, shape=[-1, 1])   # [N*B, 1]
+        emb = layers.embedding(step_ids, size=[trg_dict_size, word_dim],
+                               param_attr=ParamAttr(name="trg_emb"))
+        proj = layers.fc(emb, size=hidden_dim * 3,
+                         param_attr=p["fc_w"], bias_attr=p["fc_b"])
+        hidden, _, _ = layers.gru_unit(proj, hidden, size=hidden_dim * 3,
+                                       param_attr=p["gru_w"],
+                                       bias_attr=p["gru_b"])
+        logits = layers.fc(hidden, size=trg_dict_size,
+                           param_attr=p["out_w"], bias_attr=p["out_b"])
+        logp = layers.log(layers.softmax(logits))
+        logp3 = layers.reshape(logp, shape=[-1, beam_size, trg_dict_size])
+        sel_ids, sel_scores, parents, (hidden,) = layers.beam_search(
+            pre_ids, pre_scores, logp3, beam_size, END_ID, states=[hidden])
+        i_var = layers.fill_constant(shape=[1], dtype="int64", value=t)
+        layers.array_write(sel_ids, i_var, ids_array)
+        layers.array_write(parents, i_var, parents_array)
+        pre_ids, pre_scores = sel_ids, sel_scores
+
+    return layers.beam_search_decode(ids_array, parents_array, pre_scores,
+                                     END_ID)

@@ -2716,3 +2716,81 @@ def test_device_loader_yields_cuda_tensors_equal_to_the_host_batch(cuda):
     for (x2, ids1), (x, ids) in zip(got, host):
         np.testing.assert_array_equal(x2.cpu().numpy(), x * 2)
         np.testing.assert_array_equal(ids1.cpu().numpy(), ids + 1)
+
+
+# ------------------------------------------------------- decode serving
+
+
+def _decode_step_feed(eng, b, cap, rs):
+    from paddle_tpu_torch.serving import decode_models as zoo
+    tok_row = tuple(int(d) for d in eng._tok_in.shape[1:])
+    feed = {eng._tok_in.name: rs.randint(1, zoo.VOCAB, (b,) + tok_row).astype(np.int64)}
+    if eng._pos_in is not None:
+        feed[eng._pos_in.name] = rs.randint(0, cap, (b, 1)).astype(np.int32)
+    for sp in eng._specs:
+        feed[sp.name] = rs.randn(*((b,) + sp.slot_shape(cap))).astype(np.float32)
+    return feed
+
+
+@pytest.mark.parametrize("family", ["gru_lm", "attention_lm", "beam_gru_lm"])
+def test_decode_step_replay_bit_equal_to_an_eager_step_at_every_bucket(cuda, family):
+    """The engine warms one CUDA graph a (batch, seq) bucket of its step
+    program; each replay is bit-equal to the same step run op by op."""
+    from paddle_tpu_torch.serving import DecodeEngine
+    from paddle_tpu_torch.serving import decode_models as zoo
+    pre, step, _ = getattr(zoo, family)()
+    eng = DecodeEngine(pre, step, eos_id=0, max_seq_len=16, max_batch_size=4, seed=3,
+                       name=f"replay-{family}")
+    try:
+        rs = np.random.RandomState(1)
+        kinds = {r["kind"] for r in eng.warmup_reports}
+        assert kinds == {"graph"}, eng.warmup_reports
+        for cap in eng.seq_buckets:
+            for b in eng.batch_buckets:
+                feed = _decode_step_feed(eng, b, cap, rs)
+                got = eng.exe.run(eng._step_prog, feed=feed, fetch_list=eng._step_fetch,
+                                  scope=eng.scope, return_numpy=False)
+                want = eng.exe._run_eager(eng._step_prog, feed=feed,
+                                          fetch_list=eng._step_fetch, scope=eng.scope,
+                                          return_numpy=False)
+                for g, w in zip(got, want):
+                    assert g.is_cuda and torch.equal(g, w), (family, b, cap)
+        assert eng.fresh_compiles_since_warmup == 0
+    finally:
+        eng.close(drain=False)
+
+
+@pytest.mark.parametrize("family", ["gru_lm", "attention_lm"])
+def test_decode_step_row_bit_equal_at_batch_1_and_inside_batch_8(cuda, family):
+    """Batch invariance, on which the static-vs-continuous gate rests: a
+    row's logits, next token and state at batch bucket 1 are bit-equal to
+    the same row inside bucket 8 (other rows random)."""
+    from paddle_tpu_torch.serving import decode_models as zoo
+    _, step, _ = getattr(zoo, family)()
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        (tok, pos, states), (nxt, outs) = step()
+    logits = next(o.input("X")[0] for o in main.desc.block(0).ops if o.type == "arg_max")
+    scope, exe = pt.Scope(), pt.Executor(pt.CUDAPlace(0))
+    startup.random_seed = 4
+    exe.run(startup, scope=scope)
+    fetch = [logits, nxt] + list(outs)
+    rs = np.random.RandomState(2)
+    cap, row = 16, 3
+
+    def feed(b):
+        f = {tok.name: rs.randint(1, zoo.VOCAB, (b, 1)).astype(np.int64)}
+        if pos is not None:
+            f[pos.name] = rs.randint(0, cap, (b, 1)).astype(np.int32)
+        for s in states:
+            f[s.name] = rs.randn(*((b,) + tuple(cap if d < 0 else d for d in s.shape[1:]))
+                                 ).astype(np.float32)
+        return f
+
+    wide = feed(8)
+    one = {k: v[row:row + 1] for k, v in wide.items()}
+    for _ in range(2):                   # a capture's first run, then a replay
+        got8 = exe.run(main, feed=wide, fetch_list=fetch, scope=scope)
+        got1 = exe.run(main, feed=one, fetch_list=fetch, scope=scope)
+    for g8, g1, name in zip(got8, got1, ["logits", "next"] + [o.name for o in outs]):
+        np.testing.assert_array_equal(g8[row:row + 1], g1, err_msg=name)

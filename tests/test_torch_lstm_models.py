@@ -239,13 +239,28 @@ def test_machine_translation_adam_step_matches_jax():
     _assert_step_f32(fetch, ref, got, jscope, tscope, state)
 
 
-def test_machine_translation_infer_network_names_its_items():
-    with pt.program_guard(pt.Program(), pt.Program()):
-        src = pt.layers.data(name="src", shape=[1], dtype="int64", lod_level=1)
-        with pytest.raises(NotImplementedError, match="items 10 and 13"):
-            pt.models.machine_translation.infer_network(src, 40, 30)
-        with pytest.raises(NotImplementedError, match="items 10 and 13"):
-            pt.layers.beam_search(None, None, None, 4, 1)
+def test_machine_translation_infer_network_builds_the_jax_ops():
+    """``infer_network`` and ``layers.beam_search`` (items 10 and 13 of the
+    port's roadmap, ported) build the JAX package's ops: equal ProgramDescs
+    under ``unique_name.guard()`` (``build_both``); the decode itself is
+    held against the JAX package in tests/test_torch_beam_search.py."""
+    def infer(pkg):
+        src = pkg.layers.data(name="src", shape=[1], dtype="int64", lod_level=1)
+        return pkg.models.machine_translation.infer_network(src, 40, 30, beam_size=2,
+                                                            max_len=3)
+    _, (tm, _, (ids, scores)) = build_both(infer)
+    types = [o.type for o in tm.desc.block(0).ops]
+    assert types.count("beam_search") == 3 and types[-1] == "beam_search_decode"
+
+    def step(pkg):
+        pre = pkg.layers.data(name="pre", shape=[4], dtype="int64")
+        sc = pkg.layers.data(name="sc", shape=[4], dtype="float32")
+        lp = pkg.layers.data(name="lp", shape=[4, 7], dtype="float32")
+        st = pkg.layers.data(name="st", shape=[5], dtype="float32")
+        return pkg.layers.beam_search(pre, sc, lp, 4, 1, states=[st])
+    _, (tm, _, out) = build_both(step)
+    assert [o.type for o in tm.desc.block(0).ops] == ["beam_search"]
+    assert len(out) == 4 and out[3][0].shape == out[3][0].block.var("st").shape
 
 
 # ------------------------------------------------------- the sentiment net
