@@ -493,7 +493,49 @@ Phases, each fatal on failure (non-zero exit, no result line):
     under twice the 0.25 s deadline; ``FleetHTTPServer`` on 127.0.0.1
     answering ``POST /v1/infer`` and ``/v1/generate`` sent with a
     ``traceparent`` whose trace id comes back.  ``launches_decode`` on
-    the kernels line counts (a), (b) and (c) apart, K3-K8 0 in each.
+    the kernels line counts (a), (b) and (c) apart, K3-K8 0 in each;
+    (b)'s ``attention_lm`` steps launch ``rowvec_mm`` (C7), counted apart.
+30. parameter-server training (``phase_pserver``): first C7's kernel,
+    ``rowvec_mm`` (``csrc/batched_rowvec_mm.cu``), at ``attention_lm``'s
+    decode shapes against its plain version (``ROWVEC_RTOL`` of the
+    largest value), every row bit-equal alone and inside batches of 1, 2,
+    3 and 8, timed beside ``torch.matmul``.  Then trainers and pservers
+    as processes on the one card (``tools/pserver_runner.py``; all six
+    pservers started together, every child stopped in a ``finally``).
+    Before the arms, the kernels at the shapes they run: K6 once a
+    parameter over the 186 updates of the first step (as the pservers
+    launch it), and K1, K2, K3, K7 and K8 at (b)'s 32-row trainer shapes,
+    each against its plain version (``max_abs_err_pserver``, also in
+    ``max_abs_err``); (a)'s 64-row trainer shapes are phases 1-7's.
+    (a) transformer-base (``bench.py``'s step in float32: 6+6 layers, 64
+    x 256, ``fuse_final_ce``, Adam 1e-3) transpiled over two pservers,
+    this process the trainer: the pservers' initial parameters and, after
+    each of 2 warm and 6 timed steps, every parameter bit-equal to the
+    local training of the same program from the same stamped startup and
+    feeds (run first, in this phase) -- as the next step's recv fetched
+    them, and after the last step through ``get_param`` -- each loss
+    bit-equal; one graph, the trainer's launches a step (K1 36, K2 4, K3
+    4, K7 1, K8 1) and the pservers' K6 186 a round over the two; ms a
+    step with its spread and its parts (the recv stage, the replay with
+    the pinned D2H, the send stage), each timed step in a profiler window
+    of its own (the trainer's device busy ms), the pservers' host round
+    and device ms a round (their own traces, cut at each round's end),
+    bytes each way, tokens/s beside the local step's, and the card's idle
+    share over the timed steps (1 - the trainer's and the pservers' device
+    busy time over the steps' wall time); (b) two ``pserver_runner`` trainers in sync
+    mode, 32 + 32 rows, 2 steps: the parameters they received bit-equal to
+    each other each round, the mean loss within ``PS_B_LOSS_RTOL`` of the
+    local 64-row step's, each parameter on the pservers within
+    ``PS_B_PARAM_NREL`` norm-relative; (c) ``tests/test_dist_lookup_table.
+    py``'s model with a [10,131,227, 16] table (Criteo's largest field)
+    sharded over two pservers, 2,048 Zipf ids a batch, 3 steps: the
+    prefetched rows bit-equal to a local ``lookup_table``, the touched rows
+    and the dense parameters within ``PS_C_RTOL`` / ``PS_C_ATOL`` of the
+    local step with ``is_distributed=False`` after each step (K5 on the
+    pservers, held against its plain version once a dense ``sgd`` op);
+    the prefetch and push ms a step and the bytes moved.
+    ``launches_pserver`` on the kernels line counts each arm, the trainers'
+    and the pservers' apart; the kernels line ends with C7's entry.
 
 Phase 9 also takes the 2 x 256 step in bf16 (``enable_amp``) with cuBLAS's
 reduced-precision bf16 reductions allowed (PyTorch's default) and not, and
@@ -8879,6 +8921,8 @@ def phase_decode(torch, card):
     counters = _counters()
     bf16 = _bf16_snapshot(counters)
     res = {}
+    from paddle_tpu_torch.ops.cuda.rowvec_mm import rowvec_mm
+    rowvec = {}
     t_piece = time.perf_counter()
     res["k1"] = _k1_decode_shapes(torch, card)
     k2 = {}
@@ -8892,20 +8936,717 @@ def phase_decode(torch, card):
             raise AssertionError(f"phase 29: K2 at [{zoo.VOCAB}, {zoo.EMB}] is not bit-equal")
         k2[f"decode_{label.split(',')[0].replace(' ', '_')}"] = rec
     t_piece = _piece_seconds("phase 29 K1 / K2 at the slice's shapes", t_piece)
+    r0 = rowvec_mm.launches
     res["beam"], la = _decode_beam(torch, pt, card, counters)
+    rowvec["a"] = rowvec_mm.launches - r0
     k2.update(res["beam"].pop("k2"))
     res["k2"] = k2
     t_piece = _piece_seconds("phase 29 (a)", t_piece)
+    r0 = rowvec_mm.launches
     res["engines"], lb = _decode_engines(torch, pt, card, counters)
+    rowvec["b"] = rowvec_mm.launches - r0
     t_piece = _piece_seconds("phase 29 (b)", t_piece)
+    r0 = rowvec_mm.launches
     res["fleet"], lc = _decode_fleet(torch, pt, card, counters)
+    rowvec["c"] = rowvec_mm.launches - r0
+    if not rowvec["b"]:
+        raise AssertionError("phase 29 (b): attention_lm's decode steps launched no rowvec_mm "
+                             "(C7's batch-invariant row-vector product)")
     _piece_seconds("phase 29 (c)", t_piece)
     if _bf16_snapshot(counters) != bf16:
         raise AssertionError("phase 29: a bf16 instance launched")
     gc.collect()
     torch.cuda.empty_cache()
     print(json.dumps({"decode": res}, default=str))
-    return {"launches_decode": {"a": la, "b": lb, "c": lc}, "k1": res["k1"], "k2": k2}
+    res["rowvec_launches"] = rowvec
+    return {"launches_decode": {"a": la, "b": lb, "c": lc}, "k1": res["k1"], "k2": k2,
+            "rowvec": rowvec}
+
+
+# C7's kernel against its plain version (torch.bmm, cuBLAS), float32: each
+# element within this fraction of the plain result's largest value (the two
+# sum over K in other orders: 1-2 ulp of the larger elements)
+ROWVEC_RTOL = 1e-6
+ROWVEC_BATCHES = (1, 2, 3, 8)
+ROWVEC_HID = 16            # attention_lm's head width (serving/decode_models.py HID)
+
+# the depth, the global batch's rows and the feeds' seed are the runner's
+# (tools/pserver_runner.py N_LAYER, ROWS, SEED): 6+6 layers, 64 rows
+PS_WARM, PS_TIMED = 2, 6   # (a): steps before the timed ones, timed steps
+PS_B_STEPS = 2             # (b): sync steps of the two trainers
+PS_C_STEPS = 3             # (c): steps of the distributed table
+# (b): two trainers' 32 + 32 rows averaged on the pservers against one local
+# step over the 64 rows.  The loss is the mean over all 64 x 256 positions,
+# so the two halves' mean gradient is the whole batch's up to rounding; Adam's
+# first steps move each element by about lr * sign(g), so an element whose
+# gradient is near 0 may move the other way: the gates are the mean loss,
+# relative, and each parameter's norm-relative distance
+PS_B_LOSS_RTOL = 1e-4
+PS_B_PARAM_NREL = 1e-3
+# (c): tests/test_dist_lookup_table.py:121's tolerance (the push subtracts
+# lr * rows in two roundings, K5 in one fused multiply-add)
+PS_C_RTOL, PS_C_ATOL = 1e-4, 1e-6
+# (a): kernel launches a trainer step (the forward and backward; the update
+# runs on the pservers: K6 once an adam op a round over the two)
+PS_TRAINER_PER_STEP = {"flash_attn_fwd": 2 * 3 * N_LAYER, "gather_rows": 4, "scatter_add_rows": 4,
+                       "fused_adam": 0, "fused_sgd": 0, "linear_ce_fwd": 1, "linear_ce_bwd": 1}
+PS_READY_S = 300.0         # a pserver's start (torch import, program, startup) at most
+
+
+def _rowvec_case(torch, b, k, n, transposed, g):
+    """(x [b, k], y [b, k, n]) on the card as a decode step gives them: the
+    probabilities times the value cache, or (``transposed``) the query times
+    the key cache read as [b, d, cap]."""
+    x = torch.randn(b, k, generator=g).cuda()
+    if not transposed:
+        x = torch.softmax(x, -1)          # attention probabilities
+    if transposed:
+        return x, torch.randn(b, n, k, generator=g).cuda().transpose(1, 2)
+    return x, torch.randn(b, k, n, generator=g).cuda()
+
+
+def _rowvec_check(torch, card):
+    """C7's kernel (``rowvec_mm``) at attention_lm's decode shapes (cap
+    DEC_MAX_SEQ, head width 16, batch DEC_BATCH): against its plain version
+    within ROWVEC_RTOL of its largest value, each row bit-equal across batch counts 1, 2, 3, 8,
+    and timed beside the plain version and ``torch.matmul``."""
+    from paddle_tpu_torch.ops.cuda.rowvec_mm import rowvec_mm, rowvec_mm_plain
+    g = torch.Generator().manual_seed(31)
+    cases, worst = {}, 0.0
+    before = rowvec_mm.launches
+    for label, k, n, tr in (("probs_x_v", DEC_MAX_SEQ, ROWVEC_HID, False),
+                            ("q_x_kT", ROWVEC_HID, DEC_MAX_SEQ, True)):
+        x, y = _rowvec_case(torch, max(ROWVEC_BATCHES), k, n, tr, g)
+        full, plain = rowvec_mm(x, y), rowvec_mm_plain(x, y)
+        err = float((full - plain).abs().max())
+        scale = float(plain.abs().max())
+        for b in ROWVEC_BATCHES:
+            for r in range(b):
+                if not torch.equal(rowvec_mm(x[r:r + 1], y[r:r + 1])[0], full[r]):
+                    raise AssertionError(f"C7 rowvec_mm {label}: row {r} alone differs from "
+                                         f"the row inside batch {max(ROWVEC_BATCHES)}")
+            sub = rowvec_mm(x[:b], y[:b])
+            if not torch.equal(sub, full[:b]):
+                raise AssertionError(f"C7 rowvec_mm {label}: batch {b} differs from the first "
+                                     f"{b} rows of batch {max(ROWVEC_BATCHES)}")
+        if err > ROWVEC_RTOL * scale:
+            raise AssertionError(f"C7 rowvec_mm {label}: max abs err {err:.3e} against the "
+                                 f"plain version > {ROWVEC_RTOL} x its largest value {scale:.3e}")
+        bsz = DEC_BATCH
+        xb, yb = x[:bsz], y[:bsz]
+        x3 = xb.unsqueeze(1)
+        nbytes = 4 * (bsz * k + bsz * k * n + bsz * n)
+        bound_ms, bound_by = _bound(nbytes, 2 * bsz * k * n)
+        cases[label] = {"shape": [bsz, k, n], "max_abs_err": err, "largest": scale,
+                        "ms": _ms(lambda: rowvec_mm(xb, yb), 200),
+                        "plain_ms": _ms(lambda: rowvec_mm_plain(xb, yb), 200),
+                        "library_ms": _ms(lambda: torch.matmul(x3, yb), 200),
+                        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes}
+        worst = max(worst, err)
+        print(f"phase 30 C7 rowvec_mm {label} [{bsz}, 1, {k}] x [{bsz}, {k}, {n}]: max abs err "
+              f"{err:.3e} (<= {ROWVEC_RTOL} x {scale:.3e}), every row bit-equal across batches "
+              f"{ROWVEC_BATCHES}; kernel {cases[label]['ms']:.4f} ms, plain (bmm) "
+              f"{cases[label]['plain_ms']:.4f}, torch.matmul {cases[label]['library_ms']:.4f}, "
+              f"bound {bound_ms:.6f} ({bound_by}) [{card}]")
+    rowvec_mm.launches = before      # the comparisons' launches are not the path's
+    return {"cases": cases, "max_abs_err": worst}
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _runner():
+    """The ``pserver_runner`` module (tools/ is a directory of scripts)."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "paddle_tpu_torch", "tools",
+                        "pserver_runner.py")
+    spec = importlib.util.spec_from_file_location("pserver_runner", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod, path
+
+
+class _Cluster:
+    """The runner processes of phase 30: each started with its log and its
+    JSON record under ``root``; ``stop`` ends them (SIGTERM, then a kill)
+    and reads the records."""
+
+    def __init__(self, root, path):
+        self.root, self.path, self.procs = root, path, {}
+
+    def start(self, name, *args):
+        out = os.path.join(self.root, name + ".json")
+        log = open(os.path.join(self.root, name + ".log"), "w")
+        p = subprocess.Popen([sys.executable, self.path, *[str(a) for a in args], "--out", out],
+                             stdout=log, stderr=subprocess.STDOUT, cwd=os.path.dirname(
+                                 os.path.abspath(__file__)))
+        self.procs[name] = (p, log, out)
+        return p
+
+    def pservers(self, name, model, trainers):
+        eps = [f"127.0.0.1:{_free_port()}" for _ in range(2)]
+        for i, ep in enumerate(eps):
+            self.start(f"{name}_ps{i}", "pserver", ep, trainers,
+                       os.path.join(self.root, f"{name}_ps{i}.ready"), "--model", model,
+                       "--endpoints", ",".join(eps))
+        return eps
+
+    def log_tail(self, name, n=3000):
+        try:
+            with open(os.path.join(self.root, name + ".log")) as f:
+                return f.read()[-n:]
+        except OSError:
+            return ""
+
+    def wait_ready(self, names):
+        deadline = time.time() + PS_READY_S
+        for name in names:
+            ready = os.path.join(self.root, name + ".ready")
+            while not os.path.exists(ready):
+                p = self.procs[name][0]
+                if p.poll() is not None or time.time() > deadline:
+                    raise AssertionError(f"phase 30: {name} never became ready:\n"
+                                         f"{self.log_tail(name)}")
+                time.sleep(0.1)
+
+    def wait(self, name, timeout):
+        p = self.procs[name][0]
+        try:
+            rc = p.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"phase 30: {name} did not end in {timeout} s:\n"
+                                 f"{self.log_tail(name)}")
+        if rc != 0:
+            raise AssertionError(f"phase 30: {name} exited {rc}:\n{self.log_tail(name)}")
+        with open(self.procs[name][2]) as f:
+            return json.load(f)
+
+    def stop(self, names):
+        import signal
+        for name in names:
+            p = self.procs[name][0]
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        records = {}
+        for name in names:
+            records[name] = self.wait(name, 60)
+        return records
+
+    def kill_all(self):
+        for p, log, _ in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                pass
+            log.close()
+
+
+def _placement(program):
+    """The endpoint of each parameter the trainer program's recvs pull
+    (its endpoint attrs name the live servers: the runners were started
+    on them)."""
+    return {op.attr("param_name"): op.attr("endpoint") for op in program.desc.block(0).ops
+            if op.type == "recv"}
+
+
+def _pserver_params(torch, placement, min_round):
+    """Every parameter as the pservers hold it after ``min_round`` rounds,
+    on the card."""
+    from paddle_tpu_torch.distributed.pserver import PServerClient
+    return {n: torch.from_numpy(PServerClient.for_endpoint(ep).get_param(n, min_round)).cuda()
+            for n, ep in placement.items()}
+
+
+def _first_differing(torch, got, want, order):
+    for n in order:
+        if not torch.equal(got[n], want[n]):
+            return n, float((got[n].double() - want[n].double()).abs().max())
+    return None
+
+
+def _local_control(torch, pt, runner, steps):
+    """The local training of transformer-base on the card from the stamped
+    startup (the pservers' own): each step's loss, the parameters after
+    each step (device clones), and each step's wall seconds."""
+    from paddle_tpu_torch.transpiler.distribute_transpiler import _stamp_init_seeds
+    main, startup, loss = runner.build(pt, "transformer")
+    _stamp_init_seeds(startup)
+    exe, scope = pt.Executor(pt.CUDAPlace(0)), pt.Scope()
+    exe.run(startup, scope=scope)
+    names = sorted(p.name for p in main.global_block.vars.values()
+                   if getattr(p, "trainable", False))
+    init = {n: scope.find_var(n).clone() for n in names}
+    losses, after, walls = [], [], []
+    for step in range(steps):
+        feed = runner.global_feed("transformer", runner.ROWS["transformer"], runner.SEED + step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (lv,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(lv))
+        after.append({n: scope.find_var(n).clone() for n in names})
+    del exe, scope
+    return {"names": names, "init": init, "losses": losses, "after": after, "walls": walls}
+
+
+def _ps_kernels(torch, pt, runner, card):
+    """Phase 30's kernels at the shapes its arms run them, each against its
+    plain version ((a)'s trainer runs phase 7's shapes, 64 rows, which
+    phases 1-7 hold).  K6 once a parameter, as (a)'s and (b)'s pservers
+    launch it (one ``adam`` op a launch), over transformer-base's 186
+    updates from the stamped startup's state and the first step's
+    gradients; K1, K2, K3, K7 and K8 at (b)'s trainer shapes (trainer 0's
+    32 rows of the first global batch: B*H 256, 8,192 ids and loss rows).
+    Returns each kernel's largest absolute error."""
+    from paddle_tpu_torch.ops.cuda.embedding import (gather_rows, gather_rows_plain,
+                                                     scatter_add_rows, scatter_add_rows_plain)
+    from paddle_tpu_torch.ops.cuda.flash_attention import flash_attn_fwd, flash_attn_fwd_plain
+    from paddle_tpu_torch.ops.cuda.fused_optimizer import fused_adam_multi, fused_adam_multi_plain
+    from paddle_tpu_torch.ops.cuda.linear_ce import (linear_ce_bwd, linear_ce_bwd_plain,
+                                                     linear_ce_fwd, linear_ce_fwd_plain)
+    from paddle_tpu_torch.transpiler.distribute_transpiler import _stamp_init_seeds
+    main, startup, _ = runner.build(pt, "transformer")
+    _stamp_init_seeds(startup)
+    exe, scope = pt.Executor(pt.CUDAPlace(0)), pt.Scope()
+    exe.run(startup, scope=scope)
+    ops = main.desc.block(0).ops
+    ups = [o for o in ops if o.type == "adam"]
+    slots = ("Param", "Moment1", "Moment2", "Beta1Pow", "Beta2Pow", "LearningRate")
+    state0 = {o.input(sl)[0]: scope.find_var(o.input(sl)[0]).clone() for o in ups for sl in slots}
+    feed = runner.global_feed("transformer", runner.ROWS["transformer"], runner.SEED)
+    outs = exe.run(main, feed=feed, fetch_list=[o.input("Grad")[0] for o in ups], scope=scope)
+    grads = {o.input("Param")[0]: torch.from_numpy(np.asarray(g)).to("cuda", torch.float32)
+             for o, g in zip(ups, outs)}
+    del exe, scope, outs
+    errs, ok = {}, {}
+    ((b1, b2, eps),) = {(o.attr("beta1"), o.attr("beta2"), o.attr("epsilon")) for o in ups}
+    k6_err, k6_ok = 0.0, True
+    for o in ups:
+        e = (state0[o.input("Param")[0]], grads[o.input("Param")[0]],
+             *(state0[o.input(sl)[0]] for sl in slots[1:]), False)
+        (mine,) = fused_adam_multi([_adam_clones(e)], b1, b2, eps)
+        (theirs,) = fused_adam_multi_plain([_adam_clones(e)], b1, b2, eps)
+        pairs = list(zip(mine, theirs))
+        k6_err = max(k6_err, _max_abs_diff(torch, pairs))
+        k6_ok = k6_ok and all(torch.equal(x, y) for x, y in pairs)
+    errs["fused_adam"], ok[f"fused_adam x {len(ups)}"] = k6_err, k6_ok and len(ups) == N_PARAMS
+    half = runner.share(feed, 0, 2)
+    rows = half["lbl"].shape[0]
+    g = torch.Generator().manual_seed(30)
+    scale = D_HEAD ** -0.5
+    errs["flash_attn_fwd"] = 0.0
+    for lens_name, causal in (("src@SEQ_LEN", False), ("trg@SEQ_LEN", True)):
+        q, k, v = (torch.randn(rows * H, T, D_HEAD, generator=g).cuda() for _ in range(3))
+        lens = torch.from_numpy(np.repeat(half[lens_name], H)).cuda()
+        out, lse = flash_attn_fwd(q, k, v, lens, causal, scale)
+        ref, ref_lse = flash_attn_fwd_plain(q, k, v, lens, causal, scale)
+        err = max((out - ref).abs().max().item(), (lse - ref_lse).abs().max().item())
+        errs["flash_attn_fwd"] = max(errs["flash_attn_fwd"], err)
+        ok[f"flash_attn_fwd causal={causal}"] = err <= FLASH_TOL
+    errs["gather_rows"] = errs["scatter_add_rows"] = 0.0
+    positions = torch.arange(T, dtype=torch.int32).repeat(rows).cuda()
+    lookups = [o for o in ops if o.type == "lookup_table"]
+    for o in lookups:
+        w, name = state0[o.input("W")[0]], o.input("Ids")[0]
+        ids = (torch.from_numpy(half[name].astype(np.int32)).reshape(-1).cuda()
+               if name in half else positions)
+        out, ref = gather_rows(w, ids), gather_rows_plain(w, ids)
+        errs["gather_rows"] = max(errs["gather_rows"], (out - ref).abs().max().item())
+        ok[f"gather_rows {o.input('W')[0]}"] = torch.equal(out, ref)
+        d_rows = 1e-3 * torch.randn(ids.numel(), w.shape[1], generator=g)
+        got = scatter_add_rows(w, ids, d_rows.cuda()).cpu()
+        want = scatter_add_rows_plain(w.cpu(), ids.cpu(), d_rows)
+        errs["scatter_add_rows"] = max(errs["scatter_add_rows"], (got - want).abs().max().item())
+        ok[f"scatter_add_rows {o.input('W')[0]}"] = torch.equal(got, want)
+    (ce,) = [o for o in ops if o.type == "fused_fc_softmax_ce"]
+    w, b = state0[ce.input("W")[0]], (state0[ce.input("Bias")[0]] if ce.input("Bias") else None)
+    x = torch.randn(rows * T, D_MODEL, generator=g).cuda()
+    labels = torch.from_numpy(half["lbl"].astype(np.int32)).reshape(-1).cuda()
+    gl = torch.full((rows * T,), 1.0 / (rows * T), device="cuda")
+    lse, lab = linear_ce_fwd(x, w, b, labels)
+    r_lse, r_lab = linear_ce_fwd_plain(x, w, b, labels)
+    dx, dw, db = linear_ce_bwd(x, w, b, labels, lse, gl)
+    r_dx, r_dw, r_db = linear_ce_bwd_plain(x, w, b, labels, r_lse, gl)
+    fwd = [(lse, r_lse), (lab, r_lab)]
+    bwd = [(a, r) for a, r in ((dx, r_dx), (dw, r_dw), (db, r_db)) if a is not None]
+    errs["linear_ce_fwd"] = max((a - r).abs().max().item() for a, r in fwd)
+    errs["linear_ce_bwd"] = max((a - r).abs().max().item() for a, r in bwd)
+    ok["linear_ce_fwd"] = max(_rel(a, r) for a, r in fwd) <= CE_RTOL
+    ok["linear_ce_bwd"] = max(_rel(a, r) for a, r in bwd) <= CE_RTOL
+    torch.cuda.synchronize()
+    print(f"phase 30 kernels at the arms' shapes against their plain versions: K6 once a "
+          f"parameter over the {len(ups)} updates of the first step (bit-equal), K1 at B*H "
+          f"{rows * H} T {T} d {D_HEAD} (tol {FLASH_TOL}), K2 and K3 (bit-equal, K3's plain "
+          f"version on the CPU) on the {len(lookups)} tables at {rows} x {T} ids, K7 and K8 at "
+          f"[{rows * T}, {D_MODEL}] x [{D_MODEL}, {w.shape[1]}] (tol {CE_RTOL} relative): ok "
+          f"{ok}; max abs err {errs} [{card}]")
+    if not all(ok.values()) or len(lookups) != 4:
+        raise AssertionError(f"phase 30: a kernel differs from its plain version at the arms' "
+                             f"shapes: {ok}, {errs}")
+    return errs
+
+
+def _ps_a(torch, pt, runner, card, cluster, eps, control):
+    """(a): one trainer (this process) through two pservers, parameters
+    bit-equal to the local control after every step: those the trainer's
+    recv fetched from the pservers at the next step (the round before's),
+    and after the last step those fetched with ``get_param``.  Each timed
+    step runs in a ``torch.profiler`` window of its own (the trainer's
+    device busy time); the pservers' device time a round is theirs
+    (``pserver_runner``'s ``_DeviceRounds``)."""
+    counters = _counters()
+    rows = runner.ROWS["transformer"]
+    main, startup, loss = runner.build(pt, "transformer")
+    t = runner.transpile(pt, main, startup, eps, 1, 0)
+    prog = t.get_trainer_program()
+    placement = _placement(prog)
+    names = control["names"]
+    if sorted(placement) != names:
+        raise AssertionError(f"phase 30 (a): recv pulls {len(placement)} parameters, the model "
+                             f"has {len(names)}")
+    exe, scope = pt.Executor(pt.CUDAPlace(0)), pt.Scope()
+    exe.run(startup, scope=scope)
+    steps = PS_WARM + PS_TIMED
+    walls, stages, losses, busy = [], [], [], []
+    launches = None
+    for step in range(steps):
+        feed = runner.global_feed("transformer", rows, runner.SEED + step)
+        if step == PS_WARM:
+            before = _launch_snapshot(counters)
+        out = {}
+
+        def run():
+            t0 = time.perf_counter()
+            (out["loss"],) = exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
+            out["wall"] = time.perf_counter() - t0
+
+        torch.cuda.synchronize()
+        if step < PS_WARM:
+            run()
+        else:
+            rec = _profile(torch, run, f"phase 30 (a) timed step {step - PS_WARM}", card,
+                           {"step": step})
+            busy.append(None if rec is None else rec["device_busy_ms"])
+        walls.append(out["wall"])
+        stages.append(dict(exe.last_host_stages))
+        lv = out["loss"]
+        losses.append(float(lv))
+        if step == steps - 1:
+            launches = _delta(_launch_snapshot(counters), before)
+        # the parameters the step's recv fetched: the pservers' after the
+        # step before
+        want = control["after"][step - 1] if step else control["init"]
+        bad = _first_differing(torch, {n: scope.find_var(n) for n in names}, want, names)
+        if bad:
+            raise AssertionError(f"phase 30 (a) step {step}: the {bad[0]} that recv fetched "
+                                 f"differs from the local parameter after step {step - 1} by "
+                                 f"{bad[1]:.3e} (the first of the update order that does)")
+        if lv != control["losses"][step]:
+            raise AssertionError(f"phase 30 (a) step {step}: loss {lv!r} against the local "
+                                 f"step's {control['losses'][step]!r}")
+    got = _pserver_params(torch, placement, steps)
+    bad = _first_differing(torch, got, control["after"][steps - 1], names)
+    if bad:
+        raise AssertionError(f"phase 30 (a) step {steps - 1}: the pservers' {bad[0]} differs "
+                             f"from the local step's by {bad[1]:.3e} (the first of the update "
+                             f"order that does)")
+    del got
+    per_step = {k: launches[k] / PS_TIMED for k in launches}
+    want = PS_TRAINER_PER_STEP
+    if {k: per_step[k] for k in want} != {k: float(v) for k, v in want.items()}:
+        raise AssertionError(f"phase 30 (a): the trainer launched {per_step} a step, want {want}")
+    graphs = [e for e in exe._cache.values() if e.graph is not None]
+    if len(graphs) != 1:
+        raise AssertionError(f"phase 30 (a): {len(graphs)} graphs, want the step's body as one")
+    records = cluster.stop([f"a_ps{i}" for i in range(2)])
+    timed = walls[PS_WARM:]
+    tstages = stages[PS_WARM:]
+    rounds, ps_dev = [], []
+    k6 = []
+    for rec in records.values():
+        rounds.append(rec["round_s"][PS_WARM:PS_WARM + PS_TIMED])
+        dev = rec.get("round_device_ms")
+        ps_dev.append(None if dev is None else dev[PS_WARM:PS_WARM + PS_TIMED])
+        after = rec["launches_after_round"]
+        k6.append([after[r]["fused_adam"] - after[r - 1]["fused_adam"]
+                   for r in range(PS_WARM, PS_WARM + PS_TIMED)])
+    k6_round = [a + b for a, b in zip(*k6)]
+    if set(k6_round) != {N_PARAMS}:
+        raise AssertionError(f"phase 30 (a): the pservers launched K6 {k6_round} times a timed "
+                             f"round over the two, want {N_PARAMS} (one an adam op)")
+    ps_launches = {}
+    for rec in records.values():
+        for k, v in rec["launches"].items():
+            ps_launches[k] = ps_launches.get(k, 0) + v - rec["launches_before"][k]
+    med = float(np.median(timed))
+    tokens = rows * T
+    local_med = float(np.median(control["walls"][PS_WARM:]))
+    round_ms = [max(a, b) * 1e3 for a, b in zip(*rounds)]
+    # the card's idle share over the timed steps: the trainer's device busy
+    # time (its windows) and the pservers' (their rounds, which end inside
+    # the trainer's steps) over the steps' wall time.  Without MPS the
+    # processes' work takes turns on the card, so the sum is their union
+    if None in busy or None in ps_dev:
+        idle = None
+    else:
+        idle = 1.0 - (sum(busy) + sum(sum(d) for d in ps_dev)) / (sum(timed) * 1e3)
+    ps_dev_round = None if None in ps_dev else [a + b for a, b in zip(*ps_dev)]
+    res = {
+        "steps": steps, "timed": PS_TIMED, "step_ms": [w * 1e3 for w in timed],
+        "step_ms_median": med * 1e3, "step_ms_spread": (max(timed) - min(timed)) * 1e3,
+        "recv_stage_ms": [s["head_s"] * 1e3 for s in tstages],
+        "replay_and_d2h_ms": [s["step_s"] * 1e3 for s in tstages],
+        "send_stage_ms": [s["tail_s"] * 1e3 for s in tstages],
+        "trainer_device_busy_ms": busy,
+        "pserver_round_ms": [[r * 1e3 for r in rr] for rr in rounds],
+        "pserver_device_ms": ps_dev, "pservers_device_ms_a_round": ps_dev_round,
+        "bytes_received_a_step": tstages[-1]["bytes_received"],
+        "bytes_sent_a_step": tstages[-1]["bytes_sent"],
+        "tokens_per_s": tokens / med, "local_tokens_per_s": tokens / local_med,
+        "local_step_ms_median": local_med * 1e3,
+        "device_idle_share_timed": idle,
+        "trainer_launches_per_step": per_step, "pserver_k6_per_round": k6_round,
+        "pserver_params": [len(r["params"]) for r in records.values()],
+        "losses": losses}
+    shown = "not measured" if idle is None else f"{idle:.4f}"
+    print(f"phase 30 (a) transformer-base, {runner.N_LAYER}+{runner.N_LAYER} layers, {rows} x "
+          f"{T}, one trainer, two pservers ({res['pserver_params']} parameters): every parameter "
+          f"bit-equal to the local step after each of {steps} steps; step "
+          f"{res['step_ms_median']:.1f} ms median (spread {res['step_ms_spread']:.1f}) = recv "
+          f"stage {np.median(res['recv_stage_ms']):.1f} + replay and D2H "
+          f"{np.median(res['replay_and_d2h_ms']):.1f} + send stage "
+          f"{np.median(res['send_stage_ms']):.1f}; the trainer's device busy ms a timed step "
+          f"{busy}; the pservers' round {np.median(round_ms):.1f} ms (host, the slower), their "
+          f"device ms a round {ps_dev_round} (the two summed); bytes a step "
+          f"{res['bytes_received_a_step']} in, {res['bytes_sent_a_step']} out; "
+          f"{res['tokens_per_s']:.0f} tokens/s against {res['local_tokens_per_s']:.0f} local; "
+          f"the card's idle share over the timed steps {shown} [{card}]")
+    del exe, scope
+    return res, launches, ps_launches
+
+
+def _ps_b(torch, pt, runner, card, cluster, eps, control):
+    """(b): two trainer processes in sync mode, 32 + 32 rows, against the
+    local step over 64."""
+    for i in range(2):
+        cluster.start(f"b_tr{i}", "trainer", ",".join(eps), 2, i, "--model", "transformer",
+                      "--steps", PS_B_STEPS)
+    trs = [cluster.wait(f"b_tr{i}", 600) for i in range(2)]
+    for step in range(PS_B_STEPS):
+        if trs[0]["digests"][step] != trs[1]["digests"][step]:
+            raise AssertionError(f"phase 30 (b) step {step}: the two trainers received different "
+                                 f"parameters")
+    mean_loss = [float(np.mean([trs[0]["losses"][s], trs[1]["losses"][s]]))
+                 for s in range(PS_B_STEPS)]
+    loss_rel = [abs(m - c) / abs(c) for m, c in zip(mean_loss, control["losses"])]
+    if max(loss_rel) > PS_B_LOSS_RTOL:
+        raise AssertionError(f"phase 30 (b): mean loss {mean_loss} against the local 64-row "
+                             f"step's {control['losses'][:PS_B_STEPS]}: relative {loss_rel} > "
+                             f"{PS_B_LOSS_RTOL}")
+    main, startup, _ = runner.build(pt, "transformer")
+    prog = runner.transpile(pt, main, startup, eps, 2, 0).get_trainer_program()
+    got = _pserver_params(torch, _placement(prog), PS_B_STEPS)
+    want = control["after"][PS_B_STEPS - 1]
+    nrel = {n: float((got[n].double() - want[n].double()).norm()
+                     / max(float(want[n].double().norm()), 1e-30)) for n in control["names"]}
+    worst = max(nrel, key=nrel.get)
+    if nrel[worst] > PS_B_PARAM_NREL:
+        raise AssertionError(f"phase 30 (b): {worst} on the pservers is {nrel[worst]:.3e} "
+                             f"norm-relative from the local step's > {PS_B_PARAM_NREL}")
+    records = cluster.stop([f"b_ps{i}" for i in range(2)])
+    ps_launches = {}
+    for rec in records.values():
+        for k, v in rec["launches"].items():
+            ps_launches[k] = ps_launches.get(k, 0) + v - rec["launches_before"][k]
+    tr_launches = {k: trs[0]["launches"][k] + trs[1]["launches"][k] for k in trs[0]["launches"]}
+    res = {"mean_loss": mean_loss, "local_loss": control["losses"][:PS_B_STEPS],
+           "loss_rel": loss_rel, "param_nrel_max": nrel[worst], "param_nrel_worst": worst,
+           "trainer_step_ms": [[s * 1e3 for s in tr["step_s"]] for tr in trs],
+           "trainer_stages": [tr["stages"] for tr in trs],
+           "pserver_round_ms": [[r * 1e3 for r in rec["round_s"]] for rec in records.values()],
+           "pserver_device_ms": [rec.get("round_device_ms") for rec in records.values()]}
+    print(f"phase 30 (b) two trainers x 32 rows, sync mode, {PS_B_STEPS} steps: received "
+          f"parameters bit-equal between the trainers each round; mean loss {mean_loss} against "
+          f"the local 64-row step's {control['losses'][:PS_B_STEPS]} (relative {max(loss_rel):.2e}"
+          f" <= {PS_B_LOSS_RTOL}); worst parameter {worst} {nrel[worst]:.2e} norm-relative "
+          f"(<= {PS_B_PARAM_NREL}) [{card}]")
+    return res, tr_launches, ps_launches
+
+
+def _k5_each(torch, ups, state0, grads, card):
+    """K5 once an ``sgd`` op, as (c)'s pservers launch it on the dense
+    parameters, from the startup's state and the first step's gradients,
+    against its plain version (bit-equal): the largest absolute error."""
+    from paddle_tpu_torch.ops.cuda.fused_optimizer import fused_sgd_multi, fused_sgd_multi_plain
+    err, equal = 0.0, True
+    for o in ups:
+        p, lr = state0[o.input("Param")[0]], state0[o.input("LearningRate")[0]]
+        g = grads[o.input("Param")[0]]
+        (mine,) = fused_sgd_multi([(p.clone(), g, lr)])
+        (theirs,) = fused_sgd_multi_plain([(p.clone(), g, lr)])
+        err = max(err, (mine - theirs).abs().max().item())
+        equal = equal and torch.equal(mine, theirs)
+    shapes = [list(state0[o.input("Param")[0]].shape) for o in ups]
+    print(f"phase 30 (c) K5 once a dense sgd op ({shapes}) against its plain version: "
+          f"bit-equal {equal}, max abs err {err} [{card}]")
+    if not equal or not ups:
+        raise AssertionError(f"phase 30 (c): K5 differs from its plain version ({err}) or there "
+                             f"is no dense sgd op ({len(ups)})")
+    return err
+
+
+def _ps_c(torch, pt, runner, card, cluster, eps):
+    """(c): the [10,131,227, 16] distributed table through two pservers
+    against the local step with ``is_distributed=False``."""
+    from paddle_tpu_torch.distributed.pserver import PServerClient
+    from paddle_tpu_torch.transpiler.distribute_transpiler import _stamp_init_seeds
+    counters = _counters()
+    main, startup, loss = runner.build(pt, "table", is_distributed=False)
+    _stamp_init_seeds(startup)
+    table = next(op.input("W")[0] for op in main.desc.block(0).ops if op.type == "lookup_table")
+    emb_out = next(op.output("Out")[0] for op in main.desc.block(0).ops
+                   if op.type == "lookup_table")
+    dense = sorted(p.name for p in main.global_block.vars.values()
+                   if getattr(p, "trainable", False) and p.name != table)
+    ups = [o for o in main.desc.block(0).ops if o.type == "sgd" and o.input("Param")[0] in dense]
+    exe, scope = pt.Executor(pt.CUDAPlace(0)), pt.Scope()
+    exe.run(startup, scope=scope)
+    state0 = {o.input(sl)[0]: scope.find_var(o.input(sl)[0]).clone() for o in ups
+              for sl in ("Param", "LearningRate")}
+    feeds = [runner.global_feed("table", runner.ROWS["table"], runner.SEED + s)
+             for s in range(PS_C_STEPS)]
+    touched = []
+    ctrl = []
+    for s, feed in enumerate(feeds):
+        out = exe.run(main, feed=feed, fetch_list=[loss, emb_out] + [o.input("Grad")[0]
+                                                                     for o in ups], scope=scope)
+        if s == 0:
+            grads = {o.input("Param")[0]: torch.from_numpy(np.asarray(gr)).cuda()
+                     for o, gr in zip(ups, out[2:])}
+        touched = np.unique(np.concatenate([touched, feed["ids"].reshape(-1)])).astype(np.int64)
+        ctrl.append({"loss": float(out[0]), "emb": out[1],
+                     "rows": scope.find_var(table)[torch.from_numpy(touched).cuda()].cpu().numpy(),
+                     "touched": touched,
+                     "dense": {n: scope.find_var(n).cpu().numpy() for n in dense}})
+    del exe, scope
+    k5 = _k5_each(torch, ups, state0, grads, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    main, startup, loss = runner.build(pt, "table")
+    t = runner.transpile(pt, main, startup, eps, 1, 0)
+    prog = t.get_trainer_program()
+    dl_out = next(op.output("Out")[0] for op in prog.desc.block(0).ops
+                  if op.type == "distributed_lookup_table")
+    placement = _placement(prog)
+    exe, scope = pt.Executor(pt.CUDAPlace(0)), pt.Scope()
+    exe.run(startup, scope=scope)
+    if scope.find_var(table) is not None:
+        raise AssertionError("phase 30 (c): the trainer's startup made the distributed table")
+    before = _launch_snapshot(counters)
+    stages, walls = [], []
+    for s, feed in enumerate(feeds):
+        t0 = time.perf_counter()
+        out = exe.run(prog, feed=feed, fetch_list=[loss, dl_out], scope=scope)
+        walls.append(time.perf_counter() - t0)
+        stages.append(dict(exe.last_host_stages))
+        if s == 0 and not np.array_equal(out[1], ctrl[0]["emb"]):
+            raise AssertionError("phase 30 (c): the prefetched rows differ from the local "
+                                 "lookup_table's")
+        ids = ctrl[s]["touched"]
+        rows = np.zeros((ids.shape[0], runner.TABLE_DIM), np.float32)
+        for k, ep in enumerate(eps):
+            m = (ids % len(eps)) == k
+            rows[m] = PServerClient.for_endpoint(ep).prefetch_rows(table, ids[m])
+        np.testing.assert_allclose(rows, ctrl[s]["rows"], rtol=PS_C_RTOL, atol=PS_C_ATOL,
+                                   err_msg=f"phase 30 (c) step {s}: touched table rows")
+        for n, ep in placement.items():
+            np.testing.assert_allclose(PServerClient.for_endpoint(ep).get_param(n, s + 1),
+                                       ctrl[s]["dense"][n], rtol=PS_C_RTOL, atol=PS_C_ATOL,
+                                       err_msg=f"phase 30 (c) step {s}: {n}")
+    launches = _delta(_launch_snapshot(counters), before)
+    records = cluster.stop([f"c_ps{i}" for i in range(2)])
+    ps_launches = {}
+    for rec in records.values():
+        for k, v in rec["launches"].items():
+            ps_launches[k] = ps_launches.get(k, 0) + v - rec["launches_before"][k]
+    if ps_launches["fused_sgd"] < PS_C_STEPS:
+        raise AssertionError(f"phase 30 (c): the pservers launched K5 {ps_launches['fused_sgd']}"
+                             f" times over {PS_C_STEPS} rounds")
+    res = {"steps": PS_C_STEPS, "ids_a_step": runner.TABLE_IDS,
+           "unique_ids": [int(np.unique(f["ids"]).size) for f in feeds],
+           "step_ms": [w * 1e3 for w in walls],
+           "prefetch_ms": [s["head_s"] * 1e3 for s in stages],
+           "push_and_send_ms": [s["tail_s"] * 1e3 for s in stages],
+           "bytes_received": [s["bytes_received"] for s in stages],
+           "bytes_sent": [s["bytes_sent"] for s in stages],
+           "pserver_round_ms": [[r * 1e3 for r in rec["round_s"]] for rec in records.values()],
+           "pserver_device_ms": [rec.get("round_device_ms") for rec in records.values()],
+           "local_losses": [c["loss"] for c in ctrl], "k5": k5}
+    print(f"phase 30 (c) distributed table [{runner.TABLE_ROWS}, {runner.TABLE_DIM}] over two "
+          f"pservers, {runner.TABLE_IDS} Zipf ids a batch ({res['unique_ids']} unique), "
+          f"{PS_C_STEPS} steps: prefetched rows bit-equal to the local lookup_table; touched rows"
+          f" and dense parameters within rtol {PS_C_RTOL} / atol {PS_C_ATOL} of the local step "
+          f"each step; prefetch {res['prefetch_ms']} ms, push + sends "
+          f"{res['push_and_send_ms']} ms a step, bytes in {res['bytes_received']}, out "
+          f"{res['bytes_sent']} [{card}]")
+    del exe, scope
+    return res, launches, ps_launches
+
+
+def phase_pserver(torch, card):
+    """Phase 30 (see the module docstring): C7's kernel, then
+    parameter-server training on the card -- (a) transformer-base through
+    two pservers bit-equal to local training, (b) two trainers in sync
+    mode, (c) the distributed lookup table at the Criteo width.  Returns
+    the launches by arm, C7's record and the largest absolute error of
+    each kernel held against its plain version at the arms' shapes."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed.pserver import PServerClient
+    t_piece = time.perf_counter()
+    rowvec = _rowvec_check(torch, card)
+    t_piece = _piece_seconds("phase 30 C7", t_piece)
+    runner, path = _runner()
+    root = tempfile.mkdtemp(prefix="chip_smoke_pserver_")
+    cluster = _Cluster(root, path)
+    res = {"c7": rowvec}
+    try:
+        eps = {"a": cluster.pservers("a", "transformer", 1),
+               "b": cluster.pservers("b", "transformer", 2),
+               "c": cluster.pservers("c", "table", 1)}
+        control = _local_control(torch, pt, runner, PS_WARM + PS_TIMED)
+        t_piece = _piece_seconds("phase 30 local control", t_piece)
+        errs = _ps_kernels(torch, pt, runner, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_piece = _piece_seconds("phase 30 kernels at the arms' shapes", t_piece)
+        cluster.wait_ready([f"{a}_ps{i}" for a in "abc" for i in range(2)])
+        t_piece = _piece_seconds("phase 30 pservers ready", t_piece)
+        res["a"], la, la_ps = _ps_a(torch, pt, runner, card, cluster, eps["a"], control)
+        t_piece = _piece_seconds("phase 30 (a)", t_piece)
+        res["b"], lb, lb_ps = _ps_b(torch, pt, runner, card, cluster, eps["b"], control)
+        t_piece = _piece_seconds("phase 30 (b)", t_piece)
+        del control
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["c"], lc, lc_ps = _ps_c(torch, pt, runner, card, cluster, eps["c"])
+        errs["fused_sgd"] = res["c"]["k5"]
+        _piece_seconds("phase 30 (c)", t_piece)
+    finally:
+        PServerClient.reset_all()
+        cluster.kill_all()
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps({"pserver": res}, default=str))
+    return {"launches_pserver": {"a": la, "a_pservers": la_ps, "b": lb, "b_pservers": lb_ps,
+                                 "c": lc, "c_pservers": lc_ps},
+            "rowvec": rowvec, "max_abs_err": errs}
 
 
 def _release_serving(torch, label):
@@ -8990,6 +9731,7 @@ def _main(torch, build):
     sparse = timed("sparse", phase_sparse)
     data = timed("data", phase_data, sparse["step_ms_median"])
     dec = timed("decode", phase_decode)
+    ps = timed("pserver", phase_pserver)
     print(f"seconds by phase function: {json.dumps(seconds)}; "
           f"{sum(seconds.values()):.1f} in all; {time.perf_counter() - t_main:.1f} since the "
           f"card's name was read (the kernel build included) [{card}]")
@@ -9081,6 +9823,13 @@ def _main(torch, build):
     # serving (K2 a lookup_table op of each dispatched program, K1 once an
     # attention_lm prefill batch), "c" the fleet's soak; K3-K8 and the bf16
     # instances gated at 0 in each
+    # launches_pserver: phase 30, by arm -- "a" the trainer's timed steps,
+    # "a_pservers" the two pservers' whole serving (K6 once an adam op a
+    # round), "b" the two trainers, "b_pservers", "c" the trainer of the
+    # distributed table, "c_pservers" (K5 once a dense sgd op a round).
+    # max_abs_err_pserver: phase 30's check of K6 once a parameter, K1, K2,
+    # K3, K7 and K8 at (b)'s trainer shapes and K5 at (c)'s dense shapes,
+    # also in max_abs_err
     for e in kernels:
         e["launches_trainer"] = trainer_launches[e["name"]]
         e["launches_profile"] = PHASE19["launches_profile"].get(e["name"], 0)
@@ -9107,6 +9856,11 @@ def _main(torch, build):
             e["max_abs_err_sparse"] = sparse["max_abs_err"][e["name"]]
             e["max_abs_err"] = max(e["max_abs_err"], e["max_abs_err_sparse"])
         e["launches_decode"] = {k: dec["launches_decode"][k][e["name"]] for k in "abc"}
+        e["launches_pserver"] = {k: v.get(e["name"], 0)
+                                 for k, v in ps["launches_pserver"].items()}
+        if e["name"] in ps["max_abs_err"]:
+            e["max_abs_err_pserver"] = ps["max_abs_err"][e["name"]]
+            e["max_abs_err"] = max(e["max_abs_err"], e["max_abs_err_pserver"])
     # K2 at phase 27's shapes (the 10,131,227-row field's [V, 16] and [V, 1]
     # tables, the scalar branch at D 1; a 1,460-row field's), each with its
     # times, plain version, F.embedding and bound
@@ -9141,12 +9895,30 @@ def _main(torch, build):
                  launches_sparse=sparse["bf16_launches"].get(name, 0),
                  launches_dispatch=data["bf16_launches_dispatch"].get(name, 0),
                  launches_py_reader=data["bf16_launches_py_reader"].get(name, 0),
-                 launches_decode={k: 0 for k in "abc"})
+                 launches_decode={k: 0 for k in "abc"},
+                 launches_pserver={k: v.get(name + ".bf16", 0)
+                                   for k, v in ps["launches_pserver"].items()})
         lstm_err = seq_launches["max_abs_err"].get(f"{name}_bf16")
         if lstm_err is not None:
             e["max_abs_err_lstm"] = lstm_err
             e["max_abs_err"] = max(e["max_abs_err"], lstm_err)
         kernels.append(e)
+    # C7's batch-invariant row-vector product: the route of a decode step's
+    # batched row-vector matmuls (attention_lm's attention over its cache),
+    # where the JAX package's matmul lowering hands the product to XLA.
+    # launches: phase 29 (b)'s decode engines; launches_decode by part;
+    # times and errors from phase 30's check at the decode shapes
+    rv = ps["rowvec"]["cases"]["probs_x_v"]
+    kernels.append({"name": "rowvec_mm", "route": "cuda",
+                    "source": "paddle_tpu_torch/csrc/batched_rowvec_mm.cu",
+                    "replaces": "paddle_tpu/ops/math_ops.py:57 (matmul, left to XLA: no Pallas "
+                                "kernel)",
+                    "launches": dec["rowvec"]["b"], "max_abs_err": ps["rowvec"]["max_abs_err"],
+                    **{k: rv[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms")},
+                    "shapes": ps["rowvec"]["cases"], "launches_decode": dec["rowvec"],
+                    "launches_pserver": {k: v.get("rowvec_mm", 0)
+                                         for k, v in ps["launches_pserver"].items()}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -24,7 +24,11 @@ serial-dir checkpoints or the async ``checkpoint.CheckpointManager``;
 with ``g++`` at first use), ``dispatch`` (the lease master, its client and
 ``Trainer(dispatch=)``), the in-graph readers (``layers.py_reader``,
 ``layers.open_files``, the executor's ``read`` binding), ``reader.DeviceLoader``
-and ``metrics``.  Observability: ``telemetry`` (metrics, the trace timeline, step
+and ``metrics``.  Parameter-server training: ``DistributeTranspiler``
+splits a program into trainer and pserver programs; ``distributed``
+holds the servers (``pserver``, run by ``Executor.run_pserver``) and the
+elastic ``master``; the executor runs a trainer step's server ops on the
+host around the step's graph.  Observability: ``telemetry`` (metrics, the trace timeline, step
 records), ``health`` (the training flight recorder: sentinels inside the
 step, first-bad-op localization, divergence events), ``flags`` (the
 gflags registry: ``FLAGS.check_nan_inf``, ``FLAGS.benchmark``), ``faults``
@@ -39,7 +43,7 @@ jax or paddle_tpu.
 """
 from . import ops  # noqa: F401  (registers every op lowering)
 from . import (amp, analysis, checkpoint, clip, compile_log, dataset, dispatch,  # noqa: F401
-               embedding, faults, flags, health, initializer, io, layers, lod, log,
+               distributed, embedding, faults, flags, health, initializer, io, layers, lod, log,
                metrics, models, nets, optimizer, passes, profiler, profiling, reader,
                recordio, regularizer, resource_sampler, telemetry, transpiler)
 from .backward import append_backward, calc_gradient  # noqa: F401
@@ -54,8 +58,8 @@ from .core.scope import Scope, global_scope, scope_guard  # noqa: F401
 from .data_feeder import DataFeeder  # noqa: F401
 from .param_attr import ParamAttr  # noqa: F401
 from .serving import ServingSession  # noqa: F401
-from .transpiler import (InferenceTranspiler, memory_optimize,  # noqa: F401
-                         release_memory)
+from .transpiler import (DistributeTranspiler, InferenceTranspiler,  # noqa: F401
+                         memory_optimize, release_memory)
 from .reader.decorator import batch  # noqa: F401
 from .trainer import (BeginEpochEvent, BeginStepEvent, CheckpointConfig,  # noqa: F401
                       EndEpochEvent, EndStepEvent, Inferencer, Trainer)

@@ -106,6 +106,17 @@ names); the executor runs the rewritten program.  A program flagged by
 bridge, memoized per program uid, version and fetch names), as in the JAX
 package; one the pass cannot rewrite raises.
 
+Parameter servers (``DistributeTranspiler``): a CUDA graph cannot call
+the host, so a trainer program's server ops run on the host around the
+rest of the step (``plan_host_stages``): the ``recv`` head copies each
+parameter into the scope's tensor in place, on the current stream, and a
+``distributed_lookup_table`` over fed ids binds its rows as a feed; then
+the body runs (one graph replay on the card); then the values the tail
+reads come to pinned host memory in one copy each, and the ``send`` tail
+pushes them, one ``send_grads`` round trip a pserver.  A server op that
+fits neither end stays in the body, and ``graph_blockers`` names it.
+``run_pserver`` serves a pserver program on this executor's place.
+
 Telemetry, as in the JAX package: each executor counts its cache in a
 telemetry scope of its own (``executor:<n>``: ``compile_count``,
 ``fresh_compiles``, ``persistent_hits`` (always 0: a CUDA graph is not
@@ -122,6 +133,7 @@ sampled per-op profiler (``paddle_tpu_torch.profiling``) over the program
 """
 from __future__ import annotations
 
+import copy
 import itertools
 import json
 import os
@@ -283,7 +295,83 @@ def graph_blockers(program: Program, state_in: Sequence[str],
     if unbounded:
         reasons.append(f"runs {unbounded} unbounded while loop(s) (no max_iters), which read "
                        f"their condition on the host each trip")
+    from ..ops.dist_ops import SERVER_OPS
+    server = sorted({op.type for op in ops if op.type in SERVER_OPS})
+    if server:
+        reasons.append(f"calls a parameter server between its other ops ({', '.join(server)}), "
+                       f"which runs on the host")
     return reasons
+
+
+class HostStages:
+    """How a program that talks to parameter servers runs (``plan_host_stages``):
+    ``head`` (server ops run on the host before the rest, in order),
+    ``body`` (a program of the other ops: one CUDA graph a step on the
+    card, where nothing else blocks it) and ``tail`` (server ops run on the
+    host after it, in order); ``tail_reads``: the names the tail reads,
+    which the body keeps as outputs unless they are feeds."""
+
+    def __init__(self, head: List[OpDesc], body: Program, tail: List[OpDesc]):
+        self.head, self.body, self.tail = head, body, tail
+        self.tail_reads = list(dict.fromkeys(n for op in tail for n in op.input_names() if n))
+
+
+def plan_host_stages(program: Program) -> Optional[HostStages]:
+    """Split block 0's parameter-server ops off a step (None: it has none).
+    A server op goes to the head when every server op before it does, every
+    name it reads is one no other op of the step writes (a feed, or state
+    the step does not write) and no op before it reads or writes what it
+    writes: ``recv`` and ``fetch_barrier``, and a ``distributed_lookup_table``
+    over fed ids, whose rows become a feed of the body.  Of the rest, one
+    goes to the tail when every server op after it does and no op after it
+    reads or writes its outputs or writes its inputs: ``send``,
+    ``send_barrier``, ``distributed_table_push``.  A server op that fits
+    neither stays in the body, whose ``graph_blockers`` then name it (it
+    runs op by op).  ``listen_and_serv`` is never split off."""
+    from ..ops.dist_ops import SERVER_OPS
+    ops = program.desc.block(0).ops
+    server = [i for i, op in enumerate(ops) if op.type in SERVER_OPS
+              and op.type != "listen_and_serv"]
+    if not server:
+        return None
+    writers: Dict[str, List[int]] = {}
+    for i, op in enumerate(ops):
+        for n in op.output_names():
+            if n:
+                writers.setdefault(n, []).append(i)
+    head: List[int] = []
+    for i in server:
+        op = ops[i]
+        outs = {n for n in op.output_names() if n}
+        if any(j not in head for j in server if j < i):
+            break
+        if any(w != i and w not in head for n in op.input_names() if n for w in writers.get(n, ())):
+            break
+        if any(outs & (set(ops[j].input_names()) | set(ops[j].output_names()))
+               for j in range(i) if j not in head):
+            break
+        head.append(i)
+    rest = [i for i in server if i not in head]
+    tail: List[int] = []
+    for i in reversed(rest):
+        op = ops[i]
+        if any(j not in tail for j in rest if j > i):
+            break
+        outs = {n for n in op.output_names() if n}
+        ins = {n for n in op.input_names() if n}
+        later = [ops[j] for j in range(i + 1, len(ops)) if j not in tail]
+        if any(outs & (set(o.input_names()) | set(o.output_names())) or ins & set(o.output_names())
+               for o in later):
+            break
+        tail.insert(0, i)
+    if not head and not tail:
+        return None
+    body = program.clone()
+    moved = set(head) | set(tail)
+    body.desc.block(0).ops = [op for i, op in enumerate(body.desc.block(0).ops) if i not in moved]
+    body.desc._bump()
+    body.blocks[0].ops = [o for i, o in enumerate(body.blocks[0].ops) if i not in moved]
+    return HostStages([ops[i] for i in head], body, [ops[i] for i in tail])
 
 
 def _matmul_flags() -> Tuple[Tuple[str, bool], ...]:
@@ -526,6 +614,12 @@ class Executor:
         self._analysis_memo: Dict[tuple, tuple] = {}
         # (uid, version) -> the block's read ops (in-graph readers)
         self._read_ops_memo: Dict[tuple, List[OpDesc]] = {}
+        # (uid, version) -> the program's HostStages, or None (no server op)
+        self._host_stages_memo: Dict[tuple, Optional[HostStages]] = {}
+        self._host_pool = None         # threads of the host stages, one an endpoint
+        # the last split run's host stages: seconds and payload bytes
+        self.last_host_stages: Optional[Dict[str, float]] = None
+        self.pserver = None            # the ParameterServer ``run_pserver`` serves
         self._cache: Dict[tuple, _CacheEntry] = {}
         # the key without state addresses, and the scope -> the key of the
         # one graph-eligible entry kept for it (see ``_get_entry``)
@@ -838,6 +932,10 @@ class Executor:
         tensors (clones of a graph's outputs).  ``donate_feeds`` (or a
         program's ``donate`` stamp) donates a ``donatable`` staged batch
         (see the module docstring)."""
+        stages = self._host_stages(program or default_main_program())
+        if stages is not None:
+            return self._run_host_stages(stages, feed, fetch_list, scope, return_numpy, sync,
+                                         donate_feeds)
         # a staged batch's flow id links its stage span to this step's span
         timeline = TIMELINE.enabled
         flow_id = getattr(feed, "flow_id", None) if timeline else None
@@ -911,6 +1009,157 @@ class Executor:
         out = [h.numpy() for h in outs]
         TIMELINE.record_complete("executor::fetch", t0, TIMELINE.now_us() - t0)
         return out
+
+    # ------------------------------------------------- parameter servers
+    def _host_stages(self, program: Program) -> Optional[HostStages]:
+        """``plan_host_stages`` of ``program``, once per (uid, version); the
+        body it splits off plans to None."""
+        key = (program.desc.uid, program.desc.version)
+        if key not in self._host_stages_memo:
+            stages = plan_host_stages(program)
+            self._host_stages_memo[key] = stages
+            if stages is not None:
+                self._host_stages_memo[(stages.body.desc.uid, stages.body.desc.version)] = None
+        return self._host_stages_memo[key]
+
+    def _by_endpoint(self, ops: List[OpDesc], call) -> list:
+        """``call(ops_of_one_endpoint)`` for each endpoint of ``ops`` (its
+        ``endpoint`` attr), on a thread each when there are several; the
+        results in the ops' order."""
+        groups: Dict[str, List[int]] = {}
+        for i, op in enumerate(ops):
+            groups.setdefault(str(op.attr("endpoint")), []).append(i)
+        parts = [[ops[i] for i in idx] for idx in groups.values()]
+        if len(parts) > 1:
+            if self._host_pool is None:
+                from concurrent.futures import ThreadPoolExecutor
+                self._host_pool = ThreadPoolExecutor(8, thread_name_prefix="pserver-io")
+            results = list(self._host_pool.map(call, parts))
+        else:
+            results = [call(p) for p in parts]
+        out: list = [None] * len(ops)
+        for idx, res in zip(groups.values(), results):
+            for i, r in zip(idx, res or [None] * len(idx)):
+                out[i] = r
+        return out
+
+    def _run_host_stages(self, stages: HostStages, feed, fetch_list, scope, return_numpy: bool,
+                         sync: bool, donate_feeds: bool):
+        """One step of a program that talks to parameter servers: the head
+        on the host (each ``recv`` copies its parameter into the scope's
+        tensor in place, on the current stream, before anything of the
+        step reads it; other head outputs become feeds of the body), the
+        body (one graph replay on the card), one copy of the values the
+        tail reads to pinned host memory, then the tail on the host (the
+        ``send`` ops one ``send_grads`` round trip an endpoint).  The head
+        and the tail run once a call, whatever the body's cache entry does
+        (its first run, a capture).  ``last_host_stages`` gets the seconds
+        of each part and the payload bytes each way."""
+        from ..ops import dist_ops
+        scope = scope or global_scope()
+        fetch_names = [f.name if isinstance(f, Variable) else str(f)
+                       for f in (fetch_list or [])]
+        body_feed = copy.copy(feed) if feed is not None else {}
+        t0 = time.perf_counter()
+        recvs = [op for op in stages.head if op.type == "recv"]
+        params = self._by_endpoint(recvs, lambda ops: [dist_ops.host_recv(op) for op in ops])
+        got = 0
+        for op, arr in zip(recvs, params):
+            name = op.output("Out")[0]
+            home = scope.find_var(name)
+            got += arr.nbytes
+            if isinstance(home, torch.Tensor) and tuple(home.shape) == tuple(arr.shape):
+                home.copy_(torch.from_numpy(arr), non_blocking=True)
+            else:
+                body_feed[name] = arr
+        for op in stages.head:
+            if op.type == "distributed_lookup_table":
+                ids_name = op.input("Ids")[0]
+                ids = body_feed[ids_name] if ids_name in body_feed else scope.find_var(ids_name)
+                rows = dist_ops.host_lookup(op, ids)
+                got += rows.nbytes
+                body_feed[op.output("Out")[0]] = rows
+            elif op.type != "recv":
+                dist_ops.run_on_host(op, {
+                    n: dist_ops.host_array(body_feed[n] if n in body_feed else scope.find_var(n))
+                    for n in op.input_names() if n})
+        t1 = time.perf_counter()
+        kept = [n for n in stages.tail_reads if n not in body_feed and n not in fetch_names]
+        names = fetch_names + kept
+        outs = self.run(stages.body, feed=body_feed, fetch_list=names, scope=scope,
+                        return_numpy=False, sync=False, donate_feeds=donate_feeds)
+        values = {}
+        for n in stages.tail_reads:
+            if n in body_feed:
+                values[n] = dist_ops.host_array(body_feed[n])
+            else:
+                values[n] = outs[names.index(n)].numpy()
+        t2 = time.perf_counter()
+        sent, i, tail = 0, 0, stages.tail
+        while i < len(tail):
+            if tail[i].type == "send":
+                j = i
+                while j < len(tail) and tail[j].type == "send":
+                    j += 1
+                grads = {id(op): dist_ops.send_slice(op, values[op.input("X")[0]])
+                         for op in tail[i:j]}
+                sent += sum(g.nbytes for g in grads.values())
+                self._by_endpoint(tail[i:j], lambda ops: dist_ops.host_send_grouped(
+                    ops, [grads[id(op)] for op in ops]))
+                i = j
+                continue
+            sent += dist_ops.run_on_host(tail[i], values)
+            i += 1
+        t3 = time.perf_counter()
+        self.last_host_stages = {"head_s": t1 - t0, "step_s": t2 - t1, "tail_s": t3 - t2,
+                                 "bytes_received": got, "bytes_sent": sent}
+        outs = outs[:len(fetch_names)]
+        if not sync:
+            return outs
+        if return_numpy:
+            return [h.numpy() for h in outs]
+        return [torch.from_numpy(h.numpy()).to(self.device) for h in outs]
+
+    def run_pserver(self, pserver_program, scope: Optional[Scope] = None,
+                    ready_file: Optional[str] = None, on_round=None):
+        """Run a parameter-server program: start serving and BLOCK -- the
+        analogue of ``exe.run(pserver_program)`` where the listen_and_serv
+        op loops forever (reference listen_and_serv_op.cc:251-300).  The
+        ``ParameterServer`` (``self.pserver``) runs its updates on this
+        executor's place, from ``scope`` (the pserver startup program run
+        into it first); its param blocks and table shards are carved out of
+        the scope first.  ``ready_file``: written with "host:port" once
+        serving (the test harness's _wait_ps_ready contract,
+        test_dist_base.py:201).  ``on_round(n)`` is called as round ``n``
+        ends.  A ``KeyboardInterrupt`` stops serving and returns."""
+        from ..distributed.pserver import (ParameterServer, serve_pserver,
+                                           slice_param_blocks, slice_table_shards)
+        meta = getattr(pserver_program, "_pserver_meta", None)
+        if meta is None:
+            raise ValueError("not a pserver program (use "
+                             "DistributeTranspiler.get_pserver_program)")
+        scope = scope or global_scope()
+        if meta.get("slices"):
+            slice_param_blocks(scope, meta["slices"])
+        ps = ParameterServer(meta["params"], meta["optimize_programs"], scope,
+                             meta["trainers"], meta["sync_mode"],
+                             lr_program=meta.get("lr_program"),
+                             tables=slice_table_shards(scope, meta.get("tables", {})),
+                             place=self.place)
+        ps.on_round = on_round
+        self.pserver = ps
+        host, port = meta["endpoint"].rsplit(":", 1)
+        srv, addr = serve_pserver(ps, host, int(port))
+        if ready_file:
+            with open(ready_file + ".tmp", "w") as f:
+                f.write(f"{addr[0]}:{addr[1]}")
+            os.replace(ready_file + ".tmp", ready_file)
+        try:
+            while True:
+                time.sleep(3600)
+        except KeyboardInterrupt:
+            srv.shutdown()
+            srv.server_close()
 
     def _run_eager(self, program: Optional[Program] = None, feed: Optional[dict] = None,
                    fetch_list: Optional[Sequence] = None, scope: Optional[Scope] = None,
@@ -1054,6 +1303,10 @@ class Executor:
                 shape, dtype = v
                 v = np.zeros(tuple(int(d) for d in shape), dtype=np.dtype(dtype))
             arrays[k] = v
+        if self._host_stages(program or default_main_program()) is not None:
+            raise NotImplementedError(
+                "precompile of a program that calls parameter servers: its host stages "
+                "talk to the servers, so its first run builds its entry")
         program, scope, feeds, fetch_names = self._prepare(program, arrays, fetch_list, scope,
                                                            readers=False)
         self._check(program, feeds, fetch_names, donate_feeds)

@@ -23,6 +23,10 @@ class Scope:
     def set_var(self, name: str, value):
         self._vars[name] = value
 
+    def erase(self, name: str):
+        """Drop ``name`` from this scope (not its ancestors)."""
+        self._vars.pop(name, None)
+
     def update_var(self, name: str, value):
         """Set in whichever ancestor holds the var; else set locally."""
         s: Optional[Scope] = self

@@ -182,12 +182,12 @@ def launch_counters():
     wrapper has a bf16 instance.  The executor reads them around a CUDA
     graph's capture, which launches nothing, and adds the captured counts
     at each replay."""
-    from . import embedding, flash_attention, fused_optimizer, int8_matmul, linear_ce
+    from . import embedding, flash_attention, fused_optimizer, int8_matmul, linear_ce, rowvec_mm
     wrappers = (flash_attention.flash_attn_fwd, embedding.gather_rows,
                 embedding.scatter_add_rows, int8_matmul.abs_max_pair,
                 int8_matmul.quantize_int8, int8_matmul.int8_matmul,
                 fused_optimizer.fused_sgd, fused_optimizer.fused_adam,
                 linear_ce.linear_ce_fwd, linear_ce.linear_ce_bwd,
-                linear_ce.gemm_3xtf32, linear_ce.gemm_bf16)
+                linear_ce.gemm_3xtf32, linear_ce.gemm_bf16, rowvec_mm.rowvec_mm)
     return [(w, a) for w in wrappers for a in ("launches", "bf16_launches")
             if hasattr(w, a)]

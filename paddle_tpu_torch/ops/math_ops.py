@@ -3,7 +3,9 @@ broadcast, reductions, unary ops, comparisons, ``isfinite``, scale, clip,
 the norm ops the gradient clips use, ``cos_sim``, ``squared_l2_distance``
 and the ``sum`` multi-input add.  ``mul``
 and ``matmul`` are plain ``torch.matmul`` (cuBLAS on the card), as the JAX
-package left them to XLA outside any Pallas kernel; the int8 form of both
+package left them to XLA outside any Pallas kernel, except a ``matmul`` of
+a batch of row vectors, which goes to the batch-invariant kernel of
+``ops/cuda/rowvec_mm.py``; the int8 form of both
 is the kernel tier's ``pallas_int8_matmul`` (ops/kernel_ops.py).  Ops
 without a grad lowering of their own differentiate through the generic
 grad (``core/lower.py``)."""
@@ -18,6 +20,7 @@ from ..core.registry import register_infer_shape, register_lowering
 from ..core.selected_rows import SelectedRows, concat_rows
 from .common import (bcast_shape, bcast_y, in_dtype, in_shape, normalize_axis,
                      same_shape, set_out_shape)
+from .cuda.rowvec_mm import batched_rowvec_matmul, is_rowvec_case
 
 
 @register_lowering("mul")
@@ -52,7 +55,10 @@ def _matmul(ctx, op):
         x = x.transpose(-1, -2)
     if op.attr("transpose_Y", False):
         y = y.transpose(-1, -2)
-    out = torch.matmul(x, y)
+    # a batch of row vectors (a decode step's attention over its cache) goes
+    # to the kernel that sums each element in one order whatever the batch
+    # count, so a row's result does not depend on the rows beside it
+    out = batched_rowvec_matmul(x, y) if is_rowvec_case(x, y) else torch.matmul(x, y)
     alpha = op.attr("alpha", 1.0)
     if alpha != 1.0:
         out = out * alpha

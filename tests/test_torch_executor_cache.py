@@ -492,10 +492,10 @@ def test_every_kernel_counter_is_read_around_a_capture():
     """``build.launch_counters()`` lists every counter a kernel wrapper
     keeps, so a capture can set each back and each replay add it."""
     from paddle_tpu_torch.ops.cuda import (build, embedding, flash_attention,
-                                           fused_optimizer, int8_matmul, linear_ce)
+                                           fused_optimizer, int8_matmul, linear_ce, rowvec_mm)
     listed = {(w, a) for w, a in build.launch_counters()}
     found = set()
-    for mod in (embedding, flash_attention, fused_optimizer, int8_matmul, linear_ce):
+    for mod in (embedding, flash_attention, fused_optimizer, int8_matmul, linear_ce, rowvec_mm):
         for fn in vars(mod).values():
             for attr in ("launches", "bf16_launches"):
                 if callable(fn) and isinstance(getattr(fn, attr, None), int):

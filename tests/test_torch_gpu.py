@@ -2794,3 +2794,161 @@ def test_decode_step_row_bit_equal_at_batch_1_and_inside_batch_8(cuda, family):
         got1 = exe.run(main, feed=one, fetch_list=fetch, scope=scope)
     for g8, g1, name in zip(got8, got1, ["logits", "next"] + [o.name for o in outs]):
         np.testing.assert_array_equal(g8[row:row + 1], g1, err_msg=name)
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_rowvec_mm_rows_bit_equal_across_batch_counts(cuda, transposed):
+    """C7: the batched row-vector product sums each element in one order
+    whatever the batch count, so a row's result alone and inside batches of
+    1, 2, 3 and 8 is bit-equal; each element within 1e-6 of the plain
+    version's largest value (cuBLAS sums in another order: 1-2 float32 ulp
+    of the larger elements).  The inputs are a decode step's: attention
+    probabilities times the value cache, the query times the key cache."""
+    from paddle_tpu_torch.ops.cuda.rowvec_mm import (batched_rowvec_matmul, rowvec_mm,
+                                                     rowvec_mm_plain)
+    g = torch.Generator().manual_seed(5)
+    k, n = (16, 32) if transposed else (32, 16)
+    x = (torch.randn(8, k, generator=g) if transposed
+         else torch.softmax(torch.randn(8, k, generator=g), -1)).to(cuda)
+    y = (torch.randn(8, n, k, generator=g).to(cuda).transpose(1, 2) if transposed
+         else torch.randn(8, k, n, generator=g).to(cuda))
+    full, plain = rowvec_mm(x, y), rowvec_mm_plain(x, y)
+    assert float((full - plain).abs().max()) <= 1e-6 * float(plain.abs().max())
+    for b in (1, 2, 3, 8):
+        got = rowvec_mm(x[:b], y[:b])
+        assert torch.equal(got, full[:b]), b
+        for r in range(b):
+            assert torch.equal(rowvec_mm(x[r:r + 1], y[r:r + 1])[0], full[r]), (b, r)
+    before = rowvec_mm.launches
+    out = batched_rowvec_matmul(x.unsqueeze(1), y)
+    assert rowvec_mm.launches == before + 1 and torch.equal(out[:, 0], full)
+
+
+def _ps_transformer(pt, n_layer=1, d_model=64, vocab=1000, t=32):
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        src = layers.data(name="src", shape=[1], dtype="int64", lod_level=1)
+        trg = layers.data(name="trg", shape=[1], dtype="int64", lod_level=1)
+        lbl = layers.data(name="lbl", shape=[t, 1], dtype="int64")
+        loss, _ = transformer.train_network(src, trg, lbl, vocab, vocab, max_len=t,
+                                            n_layer=n_layer, d_model=d_model, n_head=4,
+                                            d_inner=4 * d_model, fuse_final_ce=True)
+        pt.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    return main, startup, loss
+
+
+def _ps_feed(rows, seed, vocab=1000, t=32):
+    rs = np.random.RandomState(seed)
+    feed = {}
+    for name in ("src", "trg"):
+        lens = rs.randint(t // 2, t + 1, rows).astype(np.int32)
+        ids = rs.randint(1, vocab, (rows, t, 1)).astype(np.int64)
+        ids[np.arange(t)[None, :] >= lens[:, None]] = 0
+        feed[name], feed[name + "@SEQ_LEN"] = ids, lens
+    feed["lbl"] = rs.randint(1, vocab, (rows, t, 1)).astype(np.int64)
+    return feed
+
+
+def _card_cluster(pt, main, startup, n_servers=2):
+    """The trainer program of ``main`` and in-process pservers on the card
+    (threads on 127.0.0.1), the trainer program pointed at them."""
+    from paddle_tpu_torch.distributed.pserver import ParameterServer, serve_pserver
+    t = pt.DistributeTranspiler()
+    phs = [f"127.0.0.1:{i}" for i in range(n_servers)]
+    t.transpile(trainer_id=0, program=main, pservers=",".join(phs), trainers=1,
+                startup_program=startup)
+    prog = t.get_trainer_program()
+    servers, eps = [], {}
+    for ph in phs:
+        pp = t.get_pserver_program(ph)
+        scope = pt.Scope()
+        pt.Executor(pt.CUDAPlace(0)).run(t.get_startup_program(ph, pp), scope=scope)
+        meta = pp._pserver_meta
+        ps = ParameterServer(meta["params"], meta["optimize_programs"], scope, 1, True,
+                             lr_program=meta.get("lr_program"))
+        srv, addr = serve_pserver(ps, "127.0.0.1", 0)
+        servers.append((srv, ps))
+        eps[ph] = f"{addr[0]}:{addr[1]}"
+    for op in prog.desc.block(0).ops:
+        if "endpoint" in op.attrs:
+            op.attrs["endpoint"] = eps[op.attrs["endpoint"]]
+        if "endpoints" in op.attrs:
+            op.attrs["endpoints"] = [eps[e] for e in op.attrs["endpoints"]]
+    return prog, servers
+
+
+def test_pserver_step_on_the_card_bit_equal_to_local(cuda):
+    """One trainer through two pservers on the card (their updates through
+    the same K6 as local training): every parameter and loss bit-equal to
+    the local step's after each of 3 steps; the trainer's step is one
+    graph, its server ops on the host."""
+    from paddle_tpu_torch.distributed.pserver import PServerClient
+    from paddle_tpu_torch.transpiler.distribute_transpiler import _stamp_init_seeds
+    main, startup, loss = _ps_transformer(pt)
+    _stamp_init_seeds(startup)
+    exe, scope = pt.Executor(pt.CUDAPlace(0)), pt.Scope()
+    exe.run(startup, scope=scope)
+    names = sorted(p.name for p in main.global_block.vars.values()
+                   if getattr(p, "trainable", False))
+    want = []
+    for s in range(3):
+        (lv,) = exe.run(main, feed=_ps_feed(4, s), fetch_list=[loss], scope=scope)
+        want.append((float(lv), {n: scope.find_var(n).clone() for n in names}))
+    main2, startup2, loss2 = _ps_transformer(pt)
+    prog, servers = _card_cluster(pt, main2, startup2)
+    try:
+        tr, tscope = pt.Executor(pt.CUDAPlace(0)), pt.Scope()
+        tr.run(startup2, scope=tscope)
+        for s in range(3):
+            (lv,) = tr.run(prog, feed=_ps_feed(4, s), fetch_list=[loss2], scope=tscope)
+            assert float(lv) == want[s][0], s
+            for srv, ps in servers:
+                assert ps.device.type == "cuda" and ps.round == s + 1
+                for n in ps.param_names:
+                    assert torch.equal(ps.scope.find_var(n), want[s][1][n]), (s, n)
+        graphs = [e for e in tr._cache.values() if e.graph is not None]
+        assert len(graphs) == 1
+        assert not any(op.type in ("recv", "send") for op in graphs[0].block.ops)
+    finally:
+        for srv, _ in servers:
+            srv.shutdown()
+        PServerClient.reset_all()
+
+
+def test_server_ops_run_once_a_step_across_the_capture(cuda, monkeypatch):
+    """The first run of a trainer step is the body's eager run and capture,
+    the next its replay: each runs every recv and send once, and each
+    advances the client's round once."""
+    from paddle_tpu_torch.distributed.pserver import PServerClient
+    from paddle_tpu_torch.ops import dist_ops
+    main, startup, loss = _ps_transformer(pt)
+    prog, servers = _card_cluster(pt, main, startup, n_servers=1)
+    calls = {"recv": 0, "send": 0}
+    recv, grouped = dist_ops.host_recv, dist_ops.host_send_grouped
+
+    def count_recv(op):
+        calls["recv"] += 1
+        return recv(op)
+
+    def count_send(ops, grads):
+        calls["send"] += len(ops)
+        return grouped(ops, grads)
+    monkeypatch.setattr(dist_ops, "host_recv", count_recv)
+    monkeypatch.setattr(dist_ops, "host_send_grouped", count_send)
+    n_recv = sum(op.type == "recv" for op in prog.desc.block(0).ops)
+    n_send = sum(op.type == "send" for op in prog.desc.block(0).ops)
+    try:
+        tr, tscope = pt.Executor(pt.CUDAPlace(0)), pt.Scope()
+        tr.run(startup, scope=tscope)
+        client = None
+        for s in range(2):
+            tr.run(prog, feed=_ps_feed(4, s), fetch_list=[loss], scope=tscope)
+            client = client or PServerClient.for_endpoint(
+                next(op.attr("endpoint") for op in prog.desc.block(0).ops if op.type == "recv"))
+            assert calls == {"recv": n_recv * (s + 1), "send": n_send * (s + 1)}, s
+            assert client.step == s + 1 and servers[0][1].round == s + 1
+        assert tr.cache_info()["captures"] == 1
+    finally:
+        for srv, _ in servers:
+            srv.shutdown()
+        PServerClient.reset_all()

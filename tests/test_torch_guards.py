@@ -96,6 +96,28 @@ def test_the_import_scan_covers_the_health_slice_modules():
         assert f"paddle_tpu_torch/{path}" in scanned, path
 
 
+def test_the_import_scan_covers_the_pserver_modules():
+    scanned = {str(p.relative_to(REPO)) for p in (REPO / "paddle_tpu_torch").rglob("*.py")}
+    for path in ("distributed/__init__.py", "distributed/_transport.py",
+                 "distributed/master.py", "distributed/pserver.py",
+                 "transpiler/distribute_transpiler.py", "ops/dist_ops.py",
+                 "ops/cuda/rowvec_mm.py", "tools/pserver_runner.py"):
+        assert f"paddle_tpu_torch/{path}" in scanned, path
+
+
+def test_pserver_runner_imports_no_jax_and_no_paddle_tpu():
+    """The runner's process (its model functions, the transpiler, the
+    servers' modules) pulls in neither jax nor the JAX package."""
+    code = ("import sys; sys.argv = ['x']; import runpy; "
+            "runpy.run_path('paddle_tpu_torch/tools/pserver_runner.py', run_name='not_main'); "
+            "import paddle_tpu_torch.distributed.pserver, paddle_tpu_torch.ops.dist_ops; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'paddle_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.strip() == "[]"
+
+
 def test_trainer_and_inferencer_without_gpu_raise_instead_of_using_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
@@ -229,7 +251,7 @@ def test_scatter_add_rows_argument_errors(case):
 def _cuda_calls():
     """(module, plain-version name, call on CUDA tensors) per wrapper."""
     from paddle_tpu_torch.ops.cuda import (embedding, flash_attention,
-                                           fused_optimizer, int8_matmul, linear_ce)
+                                           fused_optimizer, int8_matmul, linear_ce, rowvec_mm)
     dev = torch.device("cuda")
     q = torch.randn(2, 16, 64, device=dev)
     x, w = torch.randn(8, 16, device=dev), torch.randn(16, 32, device=dev)
@@ -257,6 +279,8 @@ def _cuda_calls():
         (embedding, "gather_rows_plain", lambda: embedding.gather_rows(table, ids)),
         (flash_attention, "flash_attn_fwd_plain", lambda: flash_attention.flash_attn_fwd(q, q, q)),
         (fused_optimizer, "fused_sgd_plain", lambda: fused_optimizer.fused_sgd(x, x, one)),
+        (rowvec_mm, "rowvec_mm_plain",
+         lambda: rowvec_mm.rowvec_mm(x, torch.randn(8, 16, 4, device=dev))),
         (int8_matmul, "int8_matmul_plain", lambda: int8_matmul.int8_matmul(x, w)),
         (int8_matmul, "abs_max_pair_plain", lambda: int8_matmul.int8_matmul(x, w)),
         (int8_matmul, "quantize_int8_plain", lambda: int8_matmul.int8_matmul(x, w)),
