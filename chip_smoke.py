@@ -536,6 +536,38 @@ Phases, each fatal on failure (non-zero exit, no result line):
     the prefetch and push ms a step and the bytes moved.
     ``launches_pserver`` on the kernels line counts each arm, the trainers'
     and the pservers' apart; the kernels line ends with C7's entry.
+31. the collective half on the card (``phase_collective``; ROADMAP §A
+    item 12b): (d) ``switch_moe`` at transformer-base's FFN width (x
+    [16,384, 512], 8 experts, d_hidden 2048, capacity factor 1.25: a
+    [16,384, 8, 2,560] dispatch tensor) in an SGD step on the card
+    against the plain CPU step from the same parameters (``P31_MOE_*``);
+    (b) two processes of this script (``--collective-worker``) sharing the
+    card, ``backend="gloo"`` on CUDA tensors with ``make_mesh(...,
+    host_staged=True)`` (gloo's functional all-gather and its sends run on
+    host copies; the worker prints that it stages): transformer-base at
+    ``P31_B_LAYERS``, 64 global rows (32 a rank) x 256, 2 Adam steps
+    under ``{"data": 2}`` and ``{"fsdp": 2}`` from rank 0's parameters,
+    the global mean loss within ``P31_B_LOSS_RTOL`` and every parameter
+    within ``P31_B_PARAM_NREL`` norm-relative of rank 0's one-process
+    64-row steps, fsdp's state bytes a rank below data's, and each rank's
+    kernels (K1, K2, K3, K7, K8, K6 over its shards) against their plain
+    versions at its local shapes (``max_abs_err_collective``); (c) the
+    same pair: a two-stage ``PipelinedStages`` of transformer-base
+    encoder layers (``n_micro`` 4) on ``{"pipe": 2}`` and causal
+    ``flash_attention(use_ring=True)`` (8 heads x d 64, T 256) on
+    ``{"seq": 2}``, output and every parameter gradient against one
+    process (``P31_C_*``); (a) a world of one over NCCL on the card:
+    transformer-base's Adam step at 64 x 256 (6+6 layers) through
+    ``Trainer(layout=SpecLayout(mesh_axes={"data": -1, "fsdp": 1, "tp":
+    1}))`` against the plain ``Trainer`` over the same batches from the
+    same state, then ``ParallelExecutor`` against a plain ``Executor`` in
+    lockstep: one CUDA graph replay a step (its collectives inside), every
+    state tensor bit-equal after each step (on a failure the first op
+    whose output differs between the mesh's eager step and a plain one is
+    named), the launches a step equal (K1 36, K2 4, K3 4, K6 1, K7 1, K8
+    1; ``launches_collective``), tokens/s of a warm epoch each way.
+    (b) and (c)'s four workers run while this process takes (d); (a) runs
+    alone after them.  Phase 31 prints its seconds by piece.
 
 Phase 9 also takes the 2 x 256 step in bf16 (``enable_amp``) with cuBLAS's
 reduced-precision bf16 reductions allowed (PyTorch's default) and not, and
@@ -4747,6 +4779,10 @@ def _card_vs_cpu(torch, pt, card):
     for n in persist:
         card_scope.find_var(n).copy_(cpu_scope.find_var(n))
     losses, worst, worst_name, loss_rel = {"cpu": [], "card": []}, 0.0, None, 0.0
+    # C8's evidence (ROADMAP §C): the worst state tensor's changes, kept,
+    # and on a failed gate the card's kernels by name in a replay of the
+    # graph both steps ran (cuDNN's convolution algorithms among them)
+    worst_changes = None
     for step in range(2):
         before = {n: card_scope.find_var(n).cpu().numpy().copy() for n in persist}
         for n, a in before.items():
@@ -4763,7 +4799,7 @@ def _card_vs_cpu(torch, pt, card):
                 continue
             r = float(np.linalg.norm(d_card - d_cpu) / den)
             if r > worst:
-                worst, worst_name = r, f"{n} (step {step + 1})"
+                worst, worst_name, worst_changes = r, f"{n} (step {step + 1})", (d_card, d_cpu)
 
     # ties: a 3 x 3, stride 2, pad 1 max pool over equal values, and its gradient
     tie_grads = {}
@@ -4788,8 +4824,65 @@ def _card_vs_cpu(torch, pt, card):
           f"{worst:.2e} ({worst_name}; gate {CARD_VS_CPU_CHANGE_NREL}); max pool over ties: the "
           f"gradients {'bit-equal' if ties_equal else 'DIFFER'} [{card}]")
     if loss_rel > CARD_VS_CPU_LOSS_RTOL or worst > CARD_VS_CPU_CHANGE_NREL or not ties_equal:
-        raise AssertionError(f"phase 21 (d): {res}")
+        # the second step again from its state: a replay of the same graph
+        for n, a in before.items():
+            card_scope.find_var(n).copy_(torch.from_numpy(a))
+        kernels = {}
+        with _card_kernels(torch, kernels):
+            card_exe.run(main, feed=feed, fetch_list=[loss], scope=card_scope)
+        evidence = c8_evidence(worst_name, worst, *(worst_changes or (None, None)), kernels,
+                               _cudnn_flags(torch))
+        print(evidence)
+        raise AssertionError(f"phase 21 (d): {res}\n{evidence}")
     return res
+
+
+@contextlib.contextmanager
+def _card_kernels(torch, into):
+    """Count the card's kernels by name into ``into`` (name -> launches)
+    while the block runs."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        yield
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0)) > 0 \
+                and getattr(e, "cpu_time_total", 0) == 0:
+            into[e.key] = into.get(e.key, 0) + e.count
+
+
+def _cudnn_flags(torch):
+    c = torch.backends.cudnn
+    return {"deterministic": c.deterministic, "benchmark": c.benchmark, "allow_tf32":
+            c.allow_tf32, "version": c.version()}
+
+
+CONV_KERNEL_MARKS = ("conv", "cudnn", "wgrad", "dgrad", "fprop", "winograd", "fft", "implicit")
+
+
+def c8_evidence(worst_name, worst, d_card, d_cpu, kernels, cudnn_flags):
+    """Phase 21 (d)'s evidence when its gate fails (ROADMAP §C, C8): the
+    state tensor with the largest change against the CPU's, that change's
+    values on both sides, whether ``cudnn.deterministic`` was set, and the
+    card's convolution kernels (cuDNN's algorithms) by name and count in a
+    replay of the graph both steps ran, from the second step's state."""
+    lines = [f"phase 21 (d) evidence: the largest change {worst:.3e} norm-relative is "
+             f"{worst_name}; cudnn {cudnn_flags}"]
+    if d_card is not None:
+        diff = np.abs(d_card - d_cpu)
+        i = int(np.argmax(diff))
+        lines.append(f"  its change on the card: norm {np.linalg.norm(d_card):.6e}, on the CPU "
+                     f"{np.linalg.norm(d_cpu):.6e}; the worst element "
+                     f"{tuple(int(j) for j in np.unravel_index(i, diff.shape))}"
+                     f": card {d_card.flat[i]:.9e}, CPU {d_cpu.flat[i]:.9e}; first values card "
+                     f"{np.round(d_card.ravel()[:4], 9).tolist()}, CPU "
+                     f"{np.round(d_cpu.ravel()[:4], 9).tolist()}")
+    conv = sorted((k, n) for k, n in kernels.items()
+                  if any(m in k.lower() for m in CONV_KERNEL_MARKS))
+    lines.append(f"  the card's convolution kernels in the graph of the steps ({len(conv)} "
+                 f"names of {len(kernels)} kernels):")
+    lines += [f"    {n} x {k}" for k, n in conv]
+    return "\n".join(lines)
 
 
 def _mnist_adam(torch, pt, card, counters):
@@ -9649,6 +9742,676 @@ def phase_pserver(torch, card):
             "rowvec": rowvec, "max_abs_err": errs}
 
 
+# ------------------------------------------------------------------ phase 31
+# the collective half on the card (ROADMAP §A item 12b): (a) a world of one
+# over NCCL, (b) two ranks sharing the card over gloo, (c) the pipeline and
+# ring attention over gloo, (d) switch_moe at transformer-base's FFN width
+P31_STEPS = 6              # (a): the steps of each path's epoch (and of its timed epoch)
+P31_LAYERS = TRAINER_LAYERS  # (a): 2+2 layers at transformer-base's widths (phase 18's cut)
+P31_PER_STEP = {"flash_attn_fwd": 2 * 3 * P31_LAYERS, "gather_rows": 4, "scatter_add_rows": 4,
+                "fused_adam": 1, "linear_ce_fwd": 1, "linear_ce_bwd": 1}
+P31_AXES = {"data": -1, "fsdp": 1, "tp": 1}
+P31_B_STEPS = 2            # (b): steps of each layout
+P31_B_LAYERS = TRAINER_LAYERS  # (b): 2+2 layers (the eager gloo steps run op by op)
+P31_B_LOSS_RTOL = 1e-5     # (b): the global mean loss against the one-process 64-row step
+P31_B_PARAM_NREL = 1e-3    # (b): the worst parameter, norm-relative (phase 30 (b)'s gate)
+P31_PIPE_ROWS = 32         # (c): the pipeline's batch (8 rows a microbatch)
+P31_PIPE_MICRO = 4
+P31_RING_ROWS = 2          # (c): ring attention's batch at T 256, 8 heads x d 64
+# (c): pipelined / ring outputs and every parameter gradient against one
+# process on the card, norm-relative.  The gradient gate is phase 9's and
+# phase 30 (b)'s: the one-process step on the card itself is 2.3e-4 to
+# 5.0e-4 off the CPU's on these gradients (NVIDIA H100 80GB HBM3, 700 W;
+# the pipeline 1.9e-4 to 4.2e-4 off the CPU), float32 at T 256
+P31_C_NREL = 1e-5
+P31_C_GRAD_NREL = 1e-3
+P31_MOE_TOKENS = 16384     # (d): x [16,384, 512], 8 experts, d_hidden 2048, capacity 1.25
+P31_MOE_EXPERTS = 8
+P31_MOE_LR = 0.1
+# (d): the card's step against the plain CPU step from the same parameters,
+# norm-relative, TF32 off: the output, the aux loss, every gradient, and
+# every updated parameter's change (SGD)
+P31_MOE_NREL = 1e-4
+P31_MOE_GRAD_NREL = 1e-3
+P31_WORKER_S = 600         # (b), (c): a worker pair's limit
+
+
+def _p31_train_func(pt, n_layer):
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.models import transformer
+
+    def train_func():
+        src = layers.data(name="src", shape=[1], dtype="int64", lod_level=1)
+        trg = layers.data(name="trg", shape=[1], dtype="int64", lod_level=1)
+        lbl = layers.data(name="lbl", shape=[T, 1], dtype="int64")
+        loss, _ = transformer.train_network(src, trg, lbl, VOCAB, VOCAB, max_len=T,
+                                            n_layer=n_layer, d_model=D_MODEL, n_head=H,
+                                            d_inner=D_INNER, fuse_final_ce=True)
+        return loss
+    return train_func
+
+
+def _p31_trainer(pt, **kw):
+    with pt.unique_name.guard():
+        return pt.Trainer(_p31_train_func(pt, P31_LAYERS),
+                          lambda: pt.optimizer.Adam(learning_rate=1e-3),
+                          place=pt.CUDAPlace(0), **kw)
+
+
+def _local(t):
+    """A scope value's tensor on this rank (a DTensor's shard)."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _full(t):
+    """A scope value's whole tensor (a DTensor gathered: collective)."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _p31_persist(program):
+    return [v.name for v in program.list_vars() if v.persistable]
+
+
+def _p31_state(scope, names):
+    """Copies of the scope's state tensors (this rank's shards), on the
+    card."""
+    return {n: _local(scope.find_var(n)).clone() for n in names}
+
+
+def _p31_state_diff(torch, scope, names, want):
+    """The state tensors of ``scope`` not bit-equal to the copies ``want``:
+    {name: max abs difference}."""
+    bad = {}
+    for n in names:
+        got = _local(scope.find_var(n))
+        if not torch.equal(got, want[n]):
+            bad[n] = float((got.double() - want[n].double()).abs().max())
+    return bad
+
+
+def _p31_first_op(torch, pt, mesh_exe, program, feed, scope, state):
+    """On a failed bit-equality gate of (a): the first op whose output
+    differs between the mesh executor's eager step and a plain one, from
+    ``state`` and ``feed`` (both steps run op by op; the scope is restored)."""
+    from paddle_tpu_torch.profiling.divergence import divergence_report, op_output_names
+    names = [n for n in op_output_names(program) if n in set(
+        v.name for v in program.list_vars())]
+    runs = []
+    for exe in (mesh_exe, pt.Executor(pt.CUDAPlace(0))):
+        for n, v in state.items():
+            _local(scope.find_var(n)).copy_(v)
+        runs.append(dict(zip(names, exe._run_eager(program, feed=feed, fetch_list=names,
+                                                   scope=scope))))
+    return divergence_report(program, runs[0], runs[1])
+
+
+def _p31_a(torch, pt, card, counters):
+    """(a): a world of one over NCCL on the card.  transformer-base's Adam
+    step at 64 x 256 through ``Trainer(layout=SpecLayout(mesh_axes=
+    P31_AXES))`` against the plain ``Trainer`` over the same batches from
+    the same state: one CUDA graph replay a step, every state tensor
+    bit-equal after each step, the launches a step equal; then the same
+    through ``ParallelExecutor`` against a plain ``Executor``.  tokens/s of
+    a warm epoch each way."""
+    from paddle_tpu_torch.parallel import ParallelExecutor, SpecLayout
+    res = {}
+    reader = pt.batch(_trainer_samples(P31_STEPS * TRAIN_B, seed=31), TRAIN_B)
+
+    # the plain Trainer: its state after each step, on the host
+    t0 = time.perf_counter()
+    plain = _p31_trainer(pt)
+    names = _p31_persist(plain.train_program)
+    start = _p31_state(plain.scope, names)
+    snaps = []
+    run_p, loss_p = _train_once(plain, reader, counters, {
+        i: (lambda tr: snaps.append(_p31_state(tr.scope, names))) for i in range(P31_STEPS)})
+    per_p = _gate_trainer_steps(run_p, "phase 31 (a) plain Trainer", P31_PER_STEP,
+                                steps=P31_STEPS)
+    timed_p = _timed_epoch(torch, pt, plain, reader, "phase 31 (a) plain Trainer", card)
+    del plain, run_p
+    _free_trainer(torch, "phase 31 (a) plain Trainer")
+
+    # the same through the layout's Trainer on the one-device NCCL mesh
+    layout = SpecLayout(mesh_axes=P31_AXES)
+    mt = _p31_trainer(pt, layout=layout)
+    mesh = mt.exe.mesh
+    if mesh.backend != "nccl" or mesh.size != 1:
+        raise AssertionError(f"phase 31 (a): the trainer's mesh is {mesh!r}, want one NCCL rank")
+    for n in names:
+        _local(mt.scope.find_var(n)).copy_(start[n])
+    bad_steps = []
+
+    def compare(tr):
+        i = len(bad_steps)
+        bad_steps.append(_p31_state_diff(torch, tr.scope, names, snaps[i]))
+    run_m, loss_m = _train_once(mt, reader, counters, {i: compare for i in range(P31_STEPS)})
+    per_m = _gate_trainer_steps(run_m, "phase 31 (a) Trainer(layout=)", P31_PER_STEP,
+                                steps=P31_STEPS)
+    (entry,) = [e for e in mt.exe.cache_info()["entries"] if e["kind"] == "graph"]
+    print(f"phase 31 (a) Trainer(layout=SpecLayout(mesh_axes={P31_AXES})) on {mesh!r}: losses "
+          f"{loss_m} (plain {loss_p}); state tensors not bit-equal to the plain Trainer's after "
+          f"each step {[len(b) for b in bad_steps]} of {len(names)}; launches a step {per_m} "
+          f"(plain {per_p}); the step's entry {entry['kind']}, captured in "
+          f"{entry['compile_s']} s [{card}]")
+    if any(bad_steps) or loss_m != loss_p:
+        first = next(i for i, b in enumerate(bad_steps) if b) if any(bad_steps) else 0
+        worst = sorted(bad_steps[first].items(), key=lambda kv: -kv[1])[:5]
+        raise AssertionError(f"phase 31 (a): the mesh Trainer's state differs from the plain "
+                             f"Trainer's after step {first}: {worst}")
+    if per_m != per_p:
+        raise AssertionError(f"phase 31 (a): launches a step {per_m}, plain {per_p}")
+    timed_m = _timed_epoch(torch, pt, mt, reader, "phase 31 (a) Trainer(layout=)", card)
+    res["trainer"] = {"losses": loss_m, "launches_a_step": per_m, "tokens_per_s": timed_m[
+        "tokens_per_s"], "plain_tokens_per_s": timed_p["tokens_per_s"],
+        "capture_s": entry["compile_s"], "state_tensors": len(names)}
+    # the mesh paths' launches: this epoch and the timed one, then the
+    # ParallelExecutor's steps (not the plain Executor's beside them)
+    launches = {k: f.launches for k, f in counters.items()}
+    del mt, run_m, snaps
+    _free_trainer(torch, "phase 31 (a) Trainer(layout=)")
+
+    # ParallelExecutor against a plain Executor, in lockstep
+    main, startup, loss = _train_programs(pt, n_layer=P31_LAYERS)
+    feeds = [_train_feed(TRAIN_B, seed=3100 + i) for i in range(P31_STEPS)]
+    pscope, pexe = pt.Scope(), pt.Executor(pt.CUDAPlace(0))
+    pexe.run(startup, scope=pscope)
+    names = _p31_persist(main)
+    start = _p31_state(pscope, names)
+    mscope = pt.Scope()
+    pexe.run(startup, scope=mscope)
+    for n in names:
+        _local(mscope.find_var(n)).copy_(start[n])
+    pe = ParallelExecutor(loss_name=loss.name, main_program=main, scope=mscope)
+    for f in counters.values():
+        f.launches = 0
+    walls = {"plain": [], "parallel": []}
+    bad = []
+    for i, feed in enumerate(feeds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (lp,) = pexe.run(main, feed=feed, fetch_list=[loss], scope=pscope)
+        walls["plain"].append(time.perf_counter() - t0)
+        before = {k: f.launches for k, f in counters.items()}
+        t0 = time.perf_counter()
+        (lm,) = pe.run(fetch_list=[loss.name], feed=feed)
+        walls["parallel"].append(time.perf_counter() - t0)
+        after = {k: f.launches for k, f in counters.items()}
+        for k in launches:
+            launches[k] += after[k] - before[k]
+        diff = _p31_state_diff(torch, mscope, names, _p31_state(pscope, names))
+        if diff or float(lp) != float(lm):
+            report = _p31_first_op(torch, pt, pe._executor, main, feed, mscope,
+                                   _p31_state(pscope, names)) if i == 0 else ""
+            raise AssertionError(f"phase 31 (a): ParallelExecutor step {i} differs from the "
+                                 f"plain step: loss {float(lm)} vs {float(lp)}, "
+                                 f"{len(diff)} state tensors, worst "
+                                 f"{sorted(diff.items(), key=lambda kv: -kv[1])[:5]}; {report}")
+        bad.append({k: after[k] - before[k] for k in P31_PER_STEP})
+    pe_info = pe._executor.cache_info()
+    captures = pe_info["captures"]
+    per_pe = bad[1:]
+    if captures != 1 or any(p != P31_PER_STEP for p in per_pe):
+        raise AssertionError(f"phase 31 (a): ParallelExecutor captures {captures}, launches a "
+                             f"step after the first {per_pe}, want 1 and {P31_PER_STEP}")
+    med = {k: float(np.median(v[1:])) for k, v in walls.items()}
+    res["parallel_executor"] = {
+        "steps": len(feeds), "captures": captures, "launches_a_step": per_pe[0],
+        "tokens_per_s": TRAIN_B * T / med["parallel"],
+        "plain_tokens_per_s": TRAIN_B * T / med["plain"],
+        "reasons": pe_info["entries"][-1]["reasons"]}
+    print(f"phase 31 (a) ParallelExecutor on {pe.mesh!r}: {len(feeds)} steps bit-equal to the "
+          f"plain Executor's (every state tensor and the loss), one capture, launches a step "
+          f"{per_pe[0]}; {res['parallel_executor']['tokens_per_s']:.0f} tokens/s against "
+          f"{res['parallel_executor']['plain_tokens_per_s']:.0f} (host clock to the loss, "
+          f"medians of the warm steps, the two in turns) [{card}]")
+    del pe, pexe, pscope, mscope
+    _free_trainer(torch, "phase 31 (a) ParallelExecutor")
+    return res, launches
+
+
+def _p31_start(arm):
+    """(b) or (c): start two processes of ``python3 chip_smoke.py
+    --collective-worker`` that share the card over gloo; returns their
+    handle for :func:`_p31_finish`."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_collective_")
+    port = _free_port()
+    procs = []
+    for rank in range(2):
+        out = os.path.join(root, f"{arm}_{rank}.json")
+        log = open(os.path.join(root, f"{arm}_{rank}.log"), "w")
+        p = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--collective-worker",
+                              arm, str(rank), str(port), out], stdout=log,
+                             stderr=subprocess.STDOUT,
+                             cwd=os.path.dirname(os.path.abspath(__file__)))
+        procs.append((p, log, out))
+    return arm, root, procs, time.time() + P31_WORKER_S
+
+
+def _p31_finish(handle):
+    """Wait for a worker pair (killed at its limit), print their lines, and
+    return each rank's record; each rank's failure fails the phase."""
+    arm, root, procs, deadline = handle
+    try:
+        for p, _, _ in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.time()))
+            except subprocess.TimeoutExpired:
+                pass
+        recs, failed = [], []
+        for rank, (p, log, out) in enumerate(procs):
+            log.close()
+            with open(log.name) as f:
+                text = f.read()
+            print(f"phase 31 ({arm}) rank {rank} log:\n" + "\n".join(
+                line for line in text.splitlines() if line.startswith(("phase 31", "collectives"))))
+            if p.returncode != 0 or not os.path.exists(out):
+                failed.append(f"rank {rank} exited {p.returncode}:\n{text[-3000:]}")
+                continue
+            with open(out) as f:
+                recs.append(json.load(f))
+        if failed:
+            raise AssertionError(f"phase 31 ({arm}): " + "\n".join(failed))
+        return recs
+    finally:
+        for p, log, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+            log.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _p31_rows_kernels(torch, ops, scope, feed, rows, g, errs, ok):
+    """K1, K2, K3, K7 and K8 at a rank's ``rows`` of the batch ``feed``
+    against their plain versions, into ``errs`` and ``ok``."""
+    from paddle_tpu_torch.ops.cuda.embedding import (gather_rows, gather_rows_plain,
+                                                     scatter_add_rows, scatter_add_rows_plain)
+    from paddle_tpu_torch.ops.cuda.flash_attention import flash_attn_fwd, flash_attn_fwd_plain
+    from paddle_tpu_torch.ops.cuda.linear_ce import (linear_ce_bwd, linear_ce_bwd_plain,
+                                                     linear_ce_fwd, linear_ce_fwd_plain)
+    scale = D_HEAD ** -0.5
+    errs["flash_attn_fwd"] = 0.0
+    for lens_name, causal in (("src@SEQ_LEN", False), ("trg@SEQ_LEN", True)):
+        q, k, v = (torch.randn(rows * H, T, D_HEAD, generator=g).cuda() for _ in range(3))
+        lens = torch.from_numpy(np.repeat(feed[lens_name], H)).cuda()
+        out, lse = flash_attn_fwd(q, k, v, lens, causal, scale)
+        ref, ref_lse = flash_attn_fwd_plain(q, k, v, lens, causal, scale)
+        err = max((out - ref).abs().max().item(), (lse - ref_lse).abs().max().item())
+        errs["flash_attn_fwd"] = max(errs["flash_attn_fwd"], err)
+        ok[f"flash_attn_fwd causal={causal}"] = err <= FLASH_TOL
+    errs["gather_rows"] = errs["scatter_add_rows"] = 0.0
+    positions = torch.arange(T, dtype=torch.int32).repeat(rows).cuda()
+    for o in [o for o in ops if o.type == "lookup_table"]:
+        w, name = _full(scope.find_var(o.input("W")[0])), o.input("Ids")[0]
+        ids = (torch.from_numpy(feed[name].astype(np.int32)).reshape(-1).cuda()
+               if name in feed else positions)
+        out, ref = gather_rows(w, ids), gather_rows_plain(w, ids)
+        errs["gather_rows"] = max(errs["gather_rows"], (out - ref).abs().max().item())
+        ok[f"gather_rows {o.input('W')[0]}"] = torch.equal(out, ref)
+        d_rows = 1e-3 * torch.randn(ids.numel(), w.shape[1], generator=g)
+        got = scatter_add_rows(w, ids, d_rows.cuda()).cpu()
+        want = scatter_add_rows_plain(w.cpu(), ids.cpu(), d_rows)
+        errs["scatter_add_rows"] = max(errs["scatter_add_rows"], (got - want).abs().max().item())
+        ok[f"scatter_add_rows {o.input('W')[0]}"] = torch.equal(got, want)
+    (ce,) = [o for o in ops if o.type == "fused_fc_softmax_ce"]
+    w = _full(scope.find_var(ce.input("W")[0]))
+    b = _full(scope.find_var(ce.input("Bias")[0])) if ce.input("Bias") else None
+    x = torch.randn(rows * T, D_MODEL, generator=g).cuda()
+    labels = torch.from_numpy(feed["lbl"].astype(np.int32)).reshape(-1).cuda()
+    gl = torch.full((rows * T,), 1.0 / (rows * T), device="cuda")
+    lse, lab = linear_ce_fwd(x, w, b, labels)
+    r_lse, r_lab = linear_ce_fwd_plain(x, w, b, labels)
+    dx, dw, db = linear_ce_bwd(x, w, b, labels, lse, gl)
+    r_dx, r_dw, r_db = linear_ce_bwd_plain(x, w, b, labels, r_lse, gl)
+    fwd = [(lse, r_lse), (lab, r_lab)]
+    bwd = [(a, r) for a, r in ((dx, r_dx), (dw, r_dw), (db, r_db)) if a is not None]
+    errs["linear_ce_fwd"] = max((a - r).abs().max().item() for a, r in fwd)
+    errs["linear_ce_bwd"] = max((a - r).abs().max().item() for a, r in bwd)
+    ok["linear_ce_fwd"] = max(_rel(a, r) for a, r in fwd) <= CE_RTOL
+    ok["linear_ce_bwd"] = max(_rel(a, r) for a, r in bwd) <= CE_RTOL
+
+
+def _p31_kernels_at(torch, pt, main, scope, feed, rows, card, label, only_k6=False):
+    """Each rank's kernels at its local shapes against their plain
+    versions: K1 at B*H ``rows * H``, K2 and K3 on the four tables at the
+    rank's ids, K7 and K8 at ``rows * T`` rows, K6 over the rank's shards
+    of every parameter (half of each under fsdp); ``only_k6``: K6 alone.
+    Returns the largest absolute errors."""
+    from paddle_tpu_torch.ops.cuda.fused_optimizer import fused_adam_multi, fused_adam_multi_plain
+    g = torch.Generator().manual_seed(31)
+    ops = main.desc.block(0).ops
+    errs, ok = {}, {}
+    if not only_k6:
+        _p31_rows_kernels(torch, ops, scope, feed, rows, g, errs, ok)
+    ups = [o for o in ops if o.type == "adam"]
+    slots = ("Param", "Moment1", "Moment2", "Beta1Pow", "Beta2Pow", "LearningRate")
+    ((b1, b2, eps),) = {(o.attr("beta1"), o.attr("beta2"), o.attr("epsilon")) for o in ups}
+    entries = []
+    for o in ups:
+        p, m1, m2, p1, p2, lr = (_local(scope.find_var(o.input(sl)[0])) for sl in slots)
+        grad = 1e-3 * torch.randn(p.shape, generator=g).cuda()
+        entries.append((p, grad, m1, m2, p1, p2, lr, False))
+    mine = fused_adam_multi([_adam_clones(e) for e in entries], b1, b2, eps)
+    theirs = fused_adam_multi_plain([_adam_clones(e) for e in entries], b1, b2, eps)
+    pairs = [(x, y) for m, t in zip(mine, theirs) for x, y in zip(m, t)]
+    errs["fused_adam"] = _max_abs_diff(torch, pairs)
+    ok[f"fused_adam over {len(entries)} shards"] = all(torch.equal(x, y) for x, y in pairs)
+    torch.cuda.synchronize()
+    print(f"{label}: the kernels at this rank's shapes against their plain versions (K1 at B*H "
+          f"{rows * H}, K2/K3 at {rows} x {T} ids, K7/K8 at {rows * T} rows, K6 over "
+          f"{sum(e[0].numel() for e in entries)} parameter elements in {len(entries)} shards): "
+          f"ok {all(ok.values())}; max abs err {errs} [{card}]")
+    if not all(ok.values()):
+        raise AssertionError(f"{label}: a kernel differs from its plain version: {ok}, {errs}")
+    return errs
+
+
+def _p31_b_rank(torch, pt, rank, card):
+    """(b) on one rank: the transformer at P31_B_LAYERS, 64 global rows (32
+    this rank's) x 256, P31_B_STEPS Adam steps on ``{"data": 2}`` and on
+    ``{"fsdp": 2}`` (gloo on CUDA tensors, host-staged), each from rank 0's
+    parameters; rank 0 first takes the same steps alone on the 64 rows.
+    The mean loss and every parameter against that run; the state bytes
+    this rank holds; its kernels at its local shapes (K6 at each layout's
+    shards)."""
+    from paddle_tpu_torch.parallel import SpecLayout, make_mesh, shard_program_state
+    counters = _counters()
+    out = {}
+    feeds = [_train_feed(TRAIN_B, seed=3200 + i) for i in range(P31_B_STEPS)]
+    lo, hi = rank * TRAIN_B // 2, (rank + 1) * TRAIN_B // 2
+    t_piece = time.perf_counter()
+    start = ref = ref_loss = None
+    if rank == 0:
+        # the one-process 64-row steps, op by op, from the startup's state
+        main, startup, loss = _train_programs(pt, n_layer=P31_B_LAYERS)
+        scope, exe = pt.Scope(), pt.Executor(pt.CUDAPlace(0))
+        exe.run(startup, scope=scope)
+        start = {n: scope.find_var(n).clone() for n in _p31_persist(main)}
+        ref_loss = [float(exe._run_eager(main, feed=f, fetch_list=[loss], scope=scope)[0])
+                    for f in feeds]
+        ref = {p.name: scope.find_var(p.name).clone()
+               for p in main.global_block.all_parameters()}
+        del scope, exe
+        t_piece = _piece_seconds("phase 31 (b) rank 0's one-process steps", t_piece)
+    for axes in ({"data": 2}, {"fsdp": 2}):
+        key = next(iter(axes))
+        main, startup, loss = _train_programs(pt, n_layer=P31_B_LAYERS)
+        scope, exe = pt.Scope(), pt.Executor(pt.CUDAPlace(0))
+        exe.run(startup, scope=scope)
+        names = _p31_persist(main)
+        params = [p.name for p in main.global_block.all_parameters()]
+        if start is not None:
+            for n in names:
+                scope.find_var(n).copy_(start[n])
+        mesh = make_mesh(axes, host_staged=True)
+        layout = SpecLayout(mesh_axes=axes)
+        mexe = pt.Executor(mesh=mesh, layout=layout)
+        shard_program_state(main, scope, mesh, layout)
+        state_bytes = sum(_local(scope.find_var(n)).numel() * _local(scope.find_var(n))
+                          .element_size() for n in names)
+        t_piece = _piece_seconds(f"phase 31 (b) {axes} rank {rank} programs, startup and "
+                                 f"placement", t_piece)
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        losses = [float(mexe.run(main, feed={k: v[lo:hi] for k, v in f.items()},
+                                 fetch_list=[loss], scope=scope)[0]) for f in feeds]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in counters.items()}
+        final = {n: scope.find_var(n).full_tensor() for n in params}
+        rec = {"losses": losses, "state_bytes_a_rank": state_bytes, "wall_s": wall,
+               "launches": launches, "reasons": mexe.cache_info()["entries"][-1]["reasons"]}
+        if rank == 0:
+            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_loss))
+            worst = max((_norm_rel(final[n].cpu().numpy(), ref[n].cpu().numpy()), n)
+                        for n in params)
+            rec.update(ref_losses=ref_loss, loss_rel=loss_rel, worst_param_nrel=worst[0],
+                       worst_param=worst[1])
+            print(f"phase 31 (b) {axes}: mean loss {losses} against the one-process 64-row "
+                  f"step's {ref_loss} (worst relative {loss_rel:.3e}, gate {P31_B_LOSS_RTOL}); "
+                  f"worst parameter {worst[1]} {worst[0]:.3e} norm-relative (gate "
+                  f"{P31_B_PARAM_NREL}); state {state_bytes} bytes a rank; {P31_B_STEPS} steps "
+                  f"in {wall:.2f} s [{card}]")
+            if loss_rel > P31_B_LOSS_RTOL or worst[0] > P31_B_PARAM_NREL:
+                raise AssertionError(f"phase 31 (b) {axes}: outside the gates: loss {loss_rel}, "
+                                     f"{worst}")
+        rec["max_abs_err"] = _p31_kernels_at(torch, pt, main, scope,
+                                             {k: v[lo:hi] for k, v in feeds[0].items()},
+                                             TRAIN_B // 2, card, f"phase 31 (b) {axes} rank {rank}",
+                                             only_k6=key == "fsdp")
+        t_piece = _piece_seconds(f"phase 31 (b) {axes} rank {rank} steps and checks", t_piece)
+        out[key] = rec
+        del mexe, exe, scope, final
+        gc.collect()
+        torch.cuda.empty_cache()
+    if out["fsdp"]["state_bytes_a_rank"] >= out["data"]["state_bytes_a_rank"]:
+        raise AssertionError(f"phase 31 (b): fsdp holds {out['fsdp']['state_bytes_a_rank']} "
+                             f"state bytes a rank, data {out['data']['state_bytes_a_rank']}")
+    return out
+
+
+def _p31_projection_loss(layers, y):
+    """The mean of ``y`` times a fed random tensor ``r`` of its shape: a
+    layer_norm's output read through its mean (or its mean square) has an
+    input gradient of rounding noise alone, which no gate can hold."""
+    r = layers.data(name="r", shape=[T, D_MODEL], dtype="float32")
+    return layers.mean(layers.elementwise_mul(y, r))
+
+
+def _p31_pipe_program(pt):
+    """Two transformer-base encoder layers as a two-stage pipeline, and
+    their sum as the loss."""
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.models import transformer
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        x = layers.data(name="x", shape=[T, D_MODEL], dtype="float32")
+        pipe = layers.PipelinedStages(input=x, n_stages=2, n_micro=P31_PIPE_MICRO)
+        with pipe.block() as s:
+            pipe.complete(transformer.encoder_layer(s, D_MODEL, H, D_INNER))
+        loss = _p31_projection_loss(layers, pipe.output)
+    return main, startup, pipe.output, loss
+
+
+def _p31_ring_program(pt):
+    from paddle_tpu_torch import layers
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        x = layers.data(name="x", shape=[T, D_MODEL], dtype="float32")
+        out = layers.multi_head_attention(x, x, x, D_MODEL, H, causal=True,
+                                          use_ring_attention=True)
+        loss = _p31_projection_loss(layers, out)
+    return main, startup, out, loss
+
+
+def _p31_grads(pt, main, startup, loss):
+    """Append the gradients of ``loss`` to ``main``; the parameters and
+    their gradients' names."""
+    from paddle_tpu_torch.core.desc import grad_var_name
+    params = [p.name for p in main.global_block.all_parameters()]
+    with pt.program_guard(main, startup):
+        pt.append_backward(loss)
+    return params, [grad_var_name(p) for p in params]
+
+
+def _p31_c_rank(torch, pt, rank, card):
+    """(c) on one rank: the two-stage pipeline on ``{"pipe": 2}`` and ring
+    attention on ``{"seq": 2}`` (gloo on CUDA tensors, ppermute through
+    the host), each output and every parameter gradient against the same
+    program in one process on the card (rank 0)."""
+    from paddle_tpu_torch.parallel import make_mesh
+    out = {}
+    for name, build, axes, rows in (("pipeline", _p31_pipe_program, {"pipe": 2}, P31_PIPE_ROWS),
+                                    ("ring", _p31_ring_program, {"seq": 2}, P31_RING_ROWS)):
+        main, startup, y, loss = build(pt)
+        params, grads = _p31_grads(pt, main, startup, loss)
+        scope, exe = pt.Scope(), pt.Executor(pt.CUDAPlace(0))
+        exe.run(startup, scope=scope)
+        rs = np.random.RandomState(33)
+        feed = {k: rs.randn(rows, T, D_MODEL).astype(np.float32) for k in ("x", "r")}
+        fetch = [y.name] + grads
+        ref = exe.run(main, feed=feed, fetch_list=fetch, scope=scope) if rank == 0 else None
+        mesh = make_mesh(axes, host_staged=True)
+        mexe = pt.Executor(mesh=mesh)
+        t0 = time.perf_counter()
+        got = mexe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        wall = time.perf_counter() - t0
+        rec = {"wall_s": wall}
+        if rank == 0:
+            errs = [_norm_rel(np.asarray(a, np.float64), np.asarray(b, np.float64))
+                    for a, b in zip(got, ref)]
+            rec.update(out_nrel=errs[0], grad_nrel=max(errs[1:]), grads=len(errs) - 1)
+            print(f"phase 31 (c) {name} on {axes} ({rows} x {T} x {D_MODEL}): output "
+                  f"{errs[0]:.3e} and the worst of {len(errs) - 1} parameter gradients "
+                  f"{max(errs[1:]):.3e} norm-relative against one process (gates {P31_C_NREL}, "
+                  f"{P31_C_GRAD_NREL}); {wall:.2f} s [{card}]")
+            if errs[0] > P31_C_NREL or max(errs[1:]) > P31_C_GRAD_NREL:
+                raise AssertionError(f"phase 31 (c) {name}: outside the gates: {errs}")
+        out[name] = rec
+        del mexe, exe, scope
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _collective_worker(argv):
+    """``chip_smoke.py --collective-worker ARM RANK PORT OUT``: one rank of
+    phase 31 (b) or (c), gloo on the card's CUDA tensors."""
+    import torch
+    arm, rank, port, out = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import paddle_tpu_torch as pt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
+    pt.distributed.init_parallel_env(trainer_id=rank, num_trainers=2,
+                                     coordinator_address=f"127.0.0.1:{port}",
+                                     place=pt.CUDAPlace(0), backend="gloo")
+    res = (_p31_b_rank if arm == "b" else _p31_c_rank)(torch, pt, rank, card)
+    pt.distributed.barrier()
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+def _p31_moe_program(pt):
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.core.desc import grad_var_name
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        x = layers.data(name="x", shape=[D_MODEL], dtype="float32")
+        y, aux = layers.switch_moe(x, num_experts=P31_MOE_EXPERTS, d_hidden=D_INNER,
+                                   capacity_factor=1.25)
+        loss = layers.elementwise_add(layers.mean(layers.square(y)),
+                                      layers.scale(aux, scale=0.01))
+        pt.optimizer.SGD(learning_rate=P31_MOE_LR).minimize(loss)
+    params = [p.name for p in main.global_block.all_parameters()]
+    return main, startup, y, aux, loss, params, [grad_var_name(p) for p in params]
+
+
+def _p31_d(torch, pt, card):
+    """(d): ``switch_moe`` at transformer-base's FFN width in an SGD step
+    on the card (x [16,384, 512], 8 experts, d_hidden 2048, capacity
+    factor 1.25: a [16,384, 8, 2,560] dispatch tensor), against the plain
+    CPU step of the same program from the same parameters."""
+    main, startup, y, aux, loss, params, grads = _p31_moe_program(pt)
+    feed = {"x": np.random.RandomState(34).randn(P31_MOE_TOKENS, D_MODEL).astype(np.float32)}
+    fetch = [y.name, aux.name, loss.name] + grads
+    runs = {}
+    for where, place in (("card", pt.CUDAPlace(0)), ("cpu", pt.CPUPlace())):
+        scope, exe = pt.Scope(), pt.Executor(place)
+        exe.run(startup, scope=scope)
+        if where == "card":
+            torch.cuda.reset_peak_memory_stats()
+            start = {n: scope.find_var(n).cpu() for n in params}
+        else:
+            for n in params:
+                scope.find_var(n).copy_(start[n])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        torch.cuda.synchronize()
+        runs[where] = {"outs": outs, "s": time.perf_counter() - t0,
+                       "params": {n: _local(scope.find_var(n)).cpu() for n in params}}
+        if where == "card":
+            runs[where]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del exe, scope
+    gc.collect()
+    torch.cuda.empty_cache()
+    nrel = [_norm_rel(np.asarray(a, np.float64), np.asarray(b, np.float64))
+            for a, b in zip(runs["card"]["outs"], runs["cpu"]["outs"])]
+    moved = max(_norm_rel((runs["card"]["params"][n] - start[n]).double().numpy(),
+                          (runs["cpu"]["params"][n] - start[n]).double().numpy())
+                for n in params)
+    rec = {"out_nrel": nrel[0], "aux_nrel": nrel[1], "loss_nrel": nrel[2],
+           "grad_nrel": max(nrel[3:]), "update_nrel": moved, "card_s": runs["card"]["s"],
+           "cpu_s": runs["cpu"]["s"], "card_peak_gib": runs["card"]["peak_gib"], "dispatch_gb": P31_MOE_TOKENS * P31_MOE_EXPERTS
+           * int(1.25 * P31_MOE_TOKENS / P31_MOE_EXPERTS) * 4 / 1e9}
+    print(f"phase 31 (d) switch_moe (x [{P31_MOE_TOKENS}, {D_MODEL}], {P31_MOE_EXPERTS} experts, "
+          f"d_hidden {D_INNER}, capacity factor 1.25; dispatch {rec['dispatch_gb']:.2f} GB) SGD "
+          f"step, card against the plain CPU step, norm-relative: out {nrel[0]:.3e}, aux "
+          f"{nrel[1]:.3e}, loss {nrel[2]:.3e} (gate {P31_MOE_NREL}), worst of {len(grads)} "
+          f"gradients {rec['grad_nrel']:.3e}, worst parameter change {moved:.3e} (gate "
+          f"{P31_MOE_GRAD_NREL}); the step {runs['card']['s']:.3f} s on the card (its first: the "
+          f"eager run, the capture and a replay; peak {rec['card_peak_gib']:.2f} GiB), "
+          f"{runs['cpu']['s']:.3f} s on the CPU [{card}]")
+    if max(nrel[:3]) > P31_MOE_NREL or max(rec["grad_nrel"], moved) > P31_MOE_GRAD_NREL:
+        raise AssertionError(f"phase 31 (d): outside the gates: {rec}")
+    return rec
+
+
+def phase_collective(torch, card):
+    """Phase 31 (see the module docstring): the collective half on the card
+    -- (a) a world of one over NCCL through ``Trainer(layout=)`` and
+    ``ParallelExecutor``, bit-equal to the plain paths; (b) two ranks
+    sharing the card over gloo under ``{"data": 2}`` and ``{"fsdp": 2}``
+    against one process's 64-row step; (c) the pipeline and ring attention
+    over gloo; (d) ``switch_moe`` at transformer-base's FFN width.
+    Returns the launches of (a) and (d) and the kernels' largest errors at
+    (b)'s local shapes."""
+    import paddle_tpu_torch as pt
+    counters = _counters()
+    res = {}
+    t_piece = time.perf_counter()
+    # (b) and (c)'s worker pairs run while this process takes (d): five
+    # processes share the card, so (d)'s seconds are not its alone
+    workers = [_p31_start("b"), _p31_start("c")]
+    try:
+        for f in counters.values():
+            f.launches = 0
+        res["d"] = _p31_d(torch, pt, card)
+        # (d)'s SGD step: K5 updates the five expert parameters in one launch
+        d_launches = {k: f.launches for k, f in counters.items()}
+        if d_launches["fused_sgd"] < 1:
+            raise AssertionError(f"phase 31 (d): K5 never launched: {d_launches}")
+        t_piece = _piece_seconds("phase 31 (d), beside the workers", t_piece)
+    finally:
+        recs = []
+        for h in workers:
+            try:
+                recs.append(_p31_finish(h)[0])
+            except AssertionError as e:
+                recs.append(e)
+    for arm, rec in zip("bc", recs):
+        if isinstance(rec, AssertionError):
+            raise rec
+        res[arm] = rec
+    t_piece = _piece_seconds("phase 31 (b) and (c) to their end", t_piece)
+    # (a) last: its NCCL group of one is the process's (no worker needs it)
+    pt.distributed.init_parallel_env(place=pt.CUDAPlace(0))
+    res["a"], launches = _p31_a(torch, pt, card, counters)
+    launches = {k: n + d_launches.get(k, 0) for k, n in launches.items()}
+    _piece_seconds("phase 31 (a)", t_piece)
+    print(json.dumps({"collective": res}, default=str))
+    errs = {}
+    for k in ("data", "fsdp"):
+        for name, e in res["b"][k]["max_abs_err"].items():
+            errs[name] = max(errs.get(name, 0.0), e)
+    return {"launches": launches, "max_abs_err": errs}
+
+
 def _release_serving(torch, label):
     """A serving phase's inferencers (and their graphs' memory pools) are
     gone once it returns: collect them before the training phases."""
@@ -9732,6 +10495,7 @@ def _main(torch, build):
     data = timed("data", phase_data, sparse["step_ms_median"])
     dec = timed("decode", phase_decode)
     ps = timed("pserver", phase_pserver)
+    coll = timed("collective", phase_collective)
     print(f"seconds by phase function: {json.dumps(seconds)}; "
           f"{sum(seconds.values()):.1f} in all; {time.perf_counter() - t_main:.1f} since the "
           f"card's name was read (the kernel build included) [{card}]")
@@ -9827,6 +10591,11 @@ def _main(torch, build):
     # "a_pservers" the two pservers' whole serving (K6 once an adam op a
     # round), "b" the two trainers, "b_pservers", "c" the trainer of the
     # distributed table, "c_pservers" (K5 once a dense sgd op a round).
+    # launches_collective: phase 31 (a), the Trainer(layout=) epoch and the
+    # ParallelExecutor steps on the one-device NCCL mesh, and (d)'s SGD step
+    # (K5), counted from 0.
+    # max_abs_err_collective: (b)'s check of K1, K2, K3, K7, K8 and K6 at
+    # each rank's local shapes, also in max_abs_err
     # max_abs_err_pserver: phase 30's check of K6 once a parameter, K1, K2,
     # K3, K7 and K8 at (b)'s trainer shapes and K5 at (c)'s dense shapes,
     # also in max_abs_err
@@ -9861,6 +10630,10 @@ def _main(torch, build):
         if e["name"] in ps["max_abs_err"]:
             e["max_abs_err_pserver"] = ps["max_abs_err"][e["name"]]
             e["max_abs_err"] = max(e["max_abs_err"], e["max_abs_err_pserver"])
+        e["launches_collective"] = coll["launches"].get(e["name"], 0)
+        if e["name"] in coll["max_abs_err"]:
+            e["max_abs_err_collective"] = coll["max_abs_err"][e["name"]]
+            e["max_abs_err"] = max(e["max_abs_err"], e["max_abs_err_collective"])
     # K2 at phase 27's shapes (the 10,131,227-row field's [V, 16] and [V, 1]
     # tables, the scalar branch at D 1; a 1,460-row field's), each with its
     # times, plain version, F.embedding and bound
@@ -9897,7 +10670,8 @@ def _main(torch, build):
                  launches_py_reader=data["bf16_launches_py_reader"].get(name, 0),
                  launches_decode={k: 0 for k in "abc"},
                  launches_pserver={k: v.get(name + ".bf16", 0)
-                                   for k, v in ps["launches_pserver"].items()})
+                                   for k, v in ps["launches_pserver"].items()},
+                 launches_collective=0)
         lstm_err = seq_launches["max_abs_err"].get(f"{name}_bf16")
         if lstm_err is not None:
             e["max_abs_err_lstm"] = lstm_err
@@ -9918,7 +10692,8 @@ def _main(torch, build):
                                           "library_ms")},
                     "shapes": ps["rowvec"]["cases"], "launches_decode": dec["rowvec"],
                     "launches_pserver": {k: v.get("rowvec_mm", 0)
-                                         for k, v in ps["launches_pserver"].items()}})
+                                         for k, v in ps["launches_pserver"].items()},
+                    "launches_collective": 0})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -9926,6 +10701,10 @@ def _main(torch, build):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--collective-worker"]:
+        # one rank of phase 31 (b) or (c), started by phase_collective
+        _collective_worker(sys.argv[2:])
+        sys.exit(0)
     try:
         main()
     except Exception:  # noqa: BLE001 -- any phase failure is a non-zero exit

@@ -283,9 +283,8 @@ def plan_memory(program, *, fetch_list: Optional[Sequence] = None,
     ``feed_shapes`` maps feed name -> concrete shape (the executor passes
     the batch's shapes; offline callers can take them from a program
     dump).  Unknown feed batch dims fall back to ``batch`` (or 1, recorded
-    in ``plan.dynamic``).  ``mesh`` is a plain ``{axis: size}`` dict;
-    ``layout`` an object with the JAX package's ``SpecLayout``
-    interface.
+    in ``plan.dynamic``).  ``mesh`` is a ``parallel.mesh.Mesh`` or a
+    plain ``{axis: size}`` dict; ``layout`` a ``parallel.SpecLayout``.
     """
     t0 = time.perf_counter()
     desc: ProgramDesc = getattr(program, "desc", program)

@@ -13,10 +13,10 @@ Four checker families, the JAX package's codes (diagnostics.CATALOG):
 * **donation** (A3xx) -- a fed var written in the program, and a read of
   a parameter after its in-place update;
 * **hazards** (R4xx) -- feeds with dynamic non-batch dims and no
-  bucketing, and sharding annotations against a mesh.  The port has no
-  mesh yet: ``mesh=`` is the plain ``{axis: size}`` dict a mesh reduces
-  to, and ``layout=`` any object with ``mesh_axes``, ``spec_for`` and
-  ``fingerprint`` (the JAX package's ``SpecLayout`` interface);
+  bucketing, and sharding annotations against a mesh.  ``mesh=`` is a
+  ``parallel.mesh.Mesh`` (or the plain ``{axis: size}`` dict a mesh
+  reduces to), and ``layout=`` a ``parallel.SpecLayout`` (or any object
+  with its ``mesh_axes``, ``spec_for`` and ``fingerprint``);
 
 plus the memory planner's M5xx family (analysis/memory.py).
 
@@ -132,9 +132,9 @@ def verify(program, *, fetch_list: Optional[Sequence] = None,
 
     ``fetch_list`` (names or Variables) enables fetch-reachability and
     dead-op/dead-var analysis; ``feed_names`` overrides feed inference;
-    ``mesh`` (a plain ``{axis: size}`` dict, or any object with such a
-    ``.shape``) plus optional ``layout`` enable the sharding lint and the
-    memory planner's per-device division.  ``memory_budget`` (bytes /
+    ``mesh`` (a ``parallel.mesh.Mesh`` or a plain ``{axis: size}`` dict)
+    plus optional ``layout`` enable the sharding lint and the memory
+    planner's per-device division.  ``memory_budget`` (bytes /
     size string / device profile, see analysis.memory) arms the M501
     predicted-OOM check; ``feed_shapes`` gives the planner concrete feed
     dims.

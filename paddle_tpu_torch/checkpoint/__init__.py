@@ -12,7 +12,7 @@ that copy into the scope's tensors (the step's CUDA graph replays on).
 resume from the latest checkpoint, and the health layer's rollback and
 save-on-fetch-timeout.  A directory either package writes restores in the
 other; on one card a checkpoint has one shard (resharding onto a mesh
-waits for ROADMAP §A item 12)."""
+waits for ROADMAP §A item 12c)."""
 from .manager import (CHECKPOINT_SCOPE, CKPT_RECORDS, CheckpointConfig,  # noqa: F401
                       CheckpointManager, restore_fit_dir,
                       snapshot_program_state)

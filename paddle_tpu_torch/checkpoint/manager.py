@@ -32,8 +32,8 @@ either package writes restores in the other).
   ``checkpoint_<pid>.jsonl`` records and ``ckpt::*`` timeline spans.
 
 On one card a save has one shard (``shard_r0.npz``).  Saving or restoring
-across a mesh (``mesh=`` / ``layout=``) waits for the multi-GPU port
-(ROADMAP §A item 12) and raises.
+across a mesh (``mesh=`` / ``layout=``: multi-rank shard files and a
+resharded restore) waits for ROADMAP §A item 12c and raises.
 
 ``Trainer(checkpoint=CheckpointConfig(...))`` wires periodic saves,
 resume from the latest checkpoint, and the health layer's actions
@@ -73,8 +73,8 @@ _RNG_IMPL_PREFIX = "torch-"
 def _no_mesh(mesh, layout, what: str):
     if mesh is not None or layout is not None:
         raise NotImplementedError(
-            f"CheckpointManager.{what}(mesh=, layout=) needs the multi-GPU port "
-            f"(ROADMAP §A item 12): on one card a checkpoint has one shard")
+            f"CheckpointManager.{what}(mesh=, layout=) (multi-rank shard files, a resharded "
+            f"restore) is not ported to paddle_tpu_torch yet (ROADMAP §A item 12c)")
 
 
 class CheckpointConfig:

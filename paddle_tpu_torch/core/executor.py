@@ -117,6 +117,23 @@ pushes them, one ``send_grads`` round trip a pserver.  A server op that
 fits neither end stays in the body, and ``graph_blockers`` names it.
 ``run_pserver`` serves a pserver program on this executor's place.
 
+A mesh (``Executor(mesh=, batch_axis=, layout=)``, ``parallel/``; the
+JAX package's GSPMD executor on DTensor): each state var is placed once,
+before the first step that reads it, on its spec's placements (its
+``sharding`` attr, else the layout's rule, else replicated; rank 0's
+value broadcast, ``parallel.layout.place_tensor``); each feed is this
+rank's rows of the global batch, wrapped as a DTensor sharded over the
+batch axes (the layout's, else ``batch_axis`` and ``fsdp``); the block
+runs on DTensors, with each hand-written kernel on local shards and each
+gradient redistributed to its parameter's placements before the update
+group (``core/lower.py``); written state goes back shard to shard, and
+each fetch is gathered whole, inside the step.  The mesh and the layout's
+fingerprint key the cache.  An NCCL mesh's collectives are device work: the
+step is one CUDA graph with them inside (the capture's eager run builds
+the communicators first).  A gloo mesh's collectives run on the host, so
+``graph_blockers`` keeps its entries op by op.  Under a mesh the health
+sentinel waits for ROADMAP §A item 12c and raises.
+
 Telemetry, as in the JAX package: each executor counts its cache in a
 telemetry scope of its own (``executor:<n>``: ``compile_count``,
 ``fresh_compiles``, ``persistent_hits`` (always 0: a CUDA graph is not
@@ -153,7 +170,8 @@ from ..telemetry import REGISTRY, TIMELINE
 from .desc import GRAD_SUFFIX, BlockDesc, OpDesc, VarType, block_written_names
 from .dtypes import coerce_feed_dtype, convert_dtype
 from .framework import Program, Variable, default_main_program
-from .lower import _SKIP_OPS, LowerCtx, TensorArrayVal, lower_block, lower_op, plan_frees
+from .lower import (_SKIP_OPS, LowerCtx, TensorArrayVal, is_dtensor, lower_block, lower_op,
+                    plan_frees)
 from .registry import op_draws, op_forks, sub_blocks
 from .scope import Scope, global_scope
 from .staging import (COUNTERS, FeedStager, FetchHandle, executable_fingerprint,
@@ -268,7 +286,7 @@ def analyze_state(block: BlockDesc, feed_names) -> tuple:
 
 
 def graph_blockers(program: Program, state_in: Sequence[str],
-                   state_out: Sequence[str]) -> List[str]:
+                   state_out: Sequence[str], mesh=None) -> List[str]:
     """Why block 0 of ``program`` gets no CUDA graph (empty: it may).  The
     reference's rule: the block may be one executable when every state
     name it writes is one it reads (its graph then updates the scope's
@@ -279,8 +297,13 @@ def graph_blockers(program: Program, state_in: Sequence[str],
     without ``max_iters``, which reads its condition on the host each
     trip.  A bounded ``while``, a ``conditional_block`` and a
     ``recurrent`` op run a fixed number of trips on the device and are
-    recorded whole."""
+    recorded whole.  Under a ``mesh`` whose collectives run on the host
+    (gloo) no block gets a graph; an NCCL mesh's collectives are device
+    work, recorded with the rest."""
     reasons = []
+    if mesh is not None and not mesh.graph_safe:
+        reasons.append(f"runs its collectives over {mesh.backend} ({mesh!r}), on the host, "
+                       f"which a CUDA graph cannot hold")
     have = set(state_in)
     created = [n for n in state_out if n not in have]
     if created:
@@ -398,6 +421,11 @@ def _write_back(state_out: Sequence[str], homes: Dict[str, Any],
         v, h = env.get(n), homes.get(n)
         if v is None or v is h:
             continue
+        if is_dtensor(h):
+            # under a mesh: the value on the home's placements, shard to shard
+            v, h = _local_like(v, h), h.to_local()
+            if v is h:
+                continue
         if isinstance(h, torch.Tensor) and isinstance(v, torch.Tensor) and \
                 (h.shape, h.dtype, h.device) == (v.shape, v.dtype, v.device):
             dst.append(h)
@@ -409,6 +437,20 @@ def _write_back(state_out: Sequence[str], homes: Dict[str, Any],
         home_ids = {id(h) for h in dst}
         torch._foreach_copy_(dst, [v.clone() if id(v) in home_ids else v for v in src])
     return rest
+
+
+def _local_like(v, home) -> torch.Tensor:
+    """This rank's shard of ``v`` on ``home``'s placements (``home`` a
+    DTensor): a DTensor redistributed there, a plain (global) tensor split
+    there."""
+    from torch.distributed.tensor import distribute_tensor
+    if is_dtensor(v):
+        if tuple(v.placements) != tuple(home.placements):
+            v = v.redistribute(home.device_mesh, home.placements)
+        return v.to_local()
+    if not isinstance(v, torch.Tensor):
+        return v
+    return distribute_tensor(v, home.device_mesh, home.placements, src_data_rank=None).to_local()
 
 
 def _fetches(entry: "_CacheEntry", ctx: LowerCtx) -> List[torch.Tensor]:
@@ -457,6 +499,11 @@ def _dtype_name(dtype) -> str:
 def _tensor_sig(name: str, v, with_address: bool) -> tuple:
     if not isinstance(v, torch.Tensor):
         return (name, type(v).__name__)
+    if is_dtensor(v):
+        # the global shape and the placements; the shard's address
+        local = v.to_local()
+        sig = (name, tuple(v.shape), v.dtype, tuple(str(p) for p in v.placements))
+        return sig + (local.stride(), local.data_ptr()) if with_address else sig
     if with_address:
         return (name, tuple(v.shape), v.dtype, v.stride(), v.data_ptr())
     return (name, tuple(v.shape), v.dtype)
@@ -554,8 +601,9 @@ class _CacheEntry:
 
 
 class Executor:
-    """Executor on one device, with the executable cache described above.
-    ``place=None`` means ``CUDAPlace(0)``.
+    """Executor on one device (one rank's, under a ``mesh``), with the
+    executable cache described above.  ``place=None`` means
+    ``CUDAPlace(0)``, or the mesh's device.
 
     ``passes``: ``None``/``False``, a list of pass names or a
     ``PassPipeline``; ``amp``: ``None``/``AmpPolicy``/``AmpConfig``;
@@ -568,7 +616,28 @@ class Executor:
 
     def __init__(self, place: Optional[Place] = None, passes=None, amp=None,
                  kernels=None, validate: Optional[str] = None, memory_budget=None,
-                 sentinels=None):
+                 sentinels=None, mesh=None, batch_axis: str = "data", layout=None):
+        # mesh: a parallel.mesh.Mesh -- each run's state lives on its
+        # placements (the layout's specs and Variable.set_sharding), the
+        # feeds are this rank's rows of the global batch over the batch
+        # axes, the step runs on DTensors and fetches come back whole
+        self.mesh = mesh
+        self.batch_axis = batch_axis
+        self.layout = layout
+        self._layout_fp = layout.fingerprint() if layout is not None else None
+        if mesh is not None:
+            dev = mesh.device
+            if place is None:
+                place = CPUPlace() if dev.type == "cpu" else CUDAPlace(dev.index or 0)
+            if place_device(place) != dev:
+                raise ValueError(f"place {place!r} is not the device of {mesh!r} ({dev})")
+            if sentinels:
+                raise NotImplementedError(
+                    "the health sentinel under a mesh (its global-norm mode and the "
+                    "cross-rank skew) is not ported to paddle_tpu_torch yet "
+                    "(ROADMAP §A item 12c)")
+        elif layout is not None:
+            raise ValueError("Executor(layout=...) needs mesh=")
         self.place = place if place is not None else CUDAPlace(0)
         self.device = place_device(self.place)
         # sentinels: the health sentinel (``health.sentinel_extras``) over
@@ -765,7 +834,7 @@ class Executor:
         fed = set(feed_names)
         feeds = facts.feed_like() | {n for n in fetch_names if n in fed and n not in facts.producer}
         res = verify(program, fetch_list=fetch_names, feed_names=feeds,
-                     donate_feeds=donate_feeds)
+                     donate_feeds=donate_feeds, mesh=self.mesh, layout=self.layout)
         self._verified[key] = res
         record_findings(res)
         if res.errors and self.validate == "error":
@@ -796,8 +865,10 @@ class Executor:
             return
         from ..analysis import memory as _memory
         budget = _memory.parse_memory_budget(self.memory_budget)
-        plan = _memory.plan_memory(program, fetch_list=fetch_names, feed_shapes=shapes,
-                                   donate_feeds=donate_feeds)
+        plan = _memory.plan_memory(program, fetch_list=fetch_names,
+                                   feed_shapes=self.global_feed_shapes(program.desc.block(0),
+                                                                       shapes),
+                                   donate_feeds=donate_feeds, mesh=self.mesh, layout=self.layout)
         REGISTRY.gauge("predicted_peak_bytes", scope=self.telemetry_scope).set(plan.peak_bytes)
         _memory.export_plan(plan, scope=self.telemetry_scope, budget=budget)
         if plan.peak_bytes > budget:
@@ -821,7 +892,15 @@ class Executor:
     def _feed_tensor(self, block: BlockDesc, name: str, value) -> torch.Tensor:
         """A feed as a tensor in the dtype it runs in.  A numpy array is
         coerced on the host; a tensor keeps its device (a staged tensor is
-        in that dtype already, and is returned as it is)."""
+        in that dtype already, and is returned as it is).  Under a mesh a
+        DTensor feed (``DeviceLoader(sharding=)``) is taken as this rank's
+        shard on the feed's placements."""
+        if self.mesh is not None and is_dtensor(value):
+            from ..parallel.layout import as_placements
+            want = as_placements(self._feed_spec(block, name, value.ndim), self.mesh)
+            if tuple(value.placements) != want:
+                value = value.redistribute(self.mesh.device_mesh, want)
+            value = value.to_local()
         t, dtype = self._feed_host(block, name, value)
         return t.to(dtype=dtype)
 
@@ -1253,7 +1332,9 @@ class Executor:
         event and reads the staged tensors as they are.  ``reuse=False``
         turns off the staged-tensor reuse cache and marks batches
         donatable.  ``on_batch(host_feed, staged)`` runs on the stager's
-        thread after each batch is staged (``RowPrefetcher.on_batch``)."""
+        thread after each batch is staged (``RowPrefetcher.on_batch``).
+        Under a mesh each rank's stager stages that rank's rows to its own
+        device; the step takes them as its shard of the global batch."""
         program = program or default_main_program()
         block = program.desc.block(0)
 
@@ -1382,7 +1463,8 @@ class Executor:
         analysis = self._analysis_memo.get(akey)
         if analysis is None:
             state_in, state_out = analyze_state(desc.block(0), feeds)
-            analysis = (state_in, state_out, graph_blockers(program, state_in, state_out),
+            analysis = (state_in, state_out,
+                        graph_blockers(program, state_in, state_out, mesh=self.mesh),
                         any(op_draws(op, desc) for op in desc.block(0).ops))
             self._analysis_memo[akey] = analysis
         state = []
@@ -1392,6 +1474,12 @@ class Executor:
                 raise RuntimeError(
                     f"variable {n!r} used by the program is not initialized "
                     f"in the scope -- run the startup program first")
+            if self.mesh is not None and isinstance(v, torch.Tensor) and not is_dtensor(v):
+                # placed once, before the first step that reads it
+                from ..parallel.layout import place_tensor, state_spec
+                v = place_tensor(v, self.mesh, state_spec(desc.block(0), n, self.mesh,
+                                                          self.layout))
+                scope.update_var(n, v)
             state.append(v)
         return analysis + (state,)
 
@@ -1421,7 +1509,7 @@ class Executor:
         state_sig = shape_sig if blockers else \
             tuple(_tensor_sig(n, v, True) for n, v in zip(state_in, state)) + (id(gen),)
         rest = (self._amp_desc(program), self._passes_fp, program._kernel_policy_fp,
-                _matmul_flags(), donate)
+                _matmul_flags(), donate, id(self.mesh), self._layout_fp)
         # the sentinel adds outputs to the block, so it keys the entry and
         # the fingerprint as a pseudo-fetch (toggling it reads as a
         # fetch-list change in the capture log)
@@ -1458,7 +1546,8 @@ class Executor:
         program_fp = desc.fingerprint()
         entry.fingerprint = executable_fingerprint(
             program_fp, feed_sig, shape_sig, list(sig_fetches), *rest[:3],
-            torch.cuda.get_device_name(self.device) if on_card else "cpu",
+            (torch.cuda.get_device_name(self.device) if on_card else "cpu")
+            + ("" if self.mesh is None else f"|mesh={self._mesh_desc()}|layout={self._layout_fp}"),
             dict(_matmul_flags()))
         warm = None
         if on_card and not blockers:
@@ -1511,7 +1600,8 @@ class Executor:
         kernels = (program._kernel_policy_fp or "")[:12] or None
         cur = {"program_fp": program_fp, "scope": self.telemetry_scope, "feed_sig": feeds,
                "state_sig": state, "fetch_names": sig_fetches,
-               "donated": donated, "mesh": None, "amp": amp, "layout": None,
+               "donated": donated, "mesh": self._mesh_desc(), "amp": amp,
+               "layout": (self._layout_fp or "")[:12] or None,
                "passes": passes, "kernels": kernels}
         uid = program.desc.uid
         with _LAST_PROGRAM_SIG_LOCK:
@@ -1525,8 +1615,8 @@ class Executor:
             fingerprint=entry.fingerprint, kind=kind, reasons=reasons,
             compile_s=round(entry.compile_s, 6), ops=len(entry.block.ops),
             feeds={n: [s, d] for n, s, d in feeds}, fetches=list(entry.fetch_names),
-            state_vars=len(state), donated=len(donated), mesh=None, amp=amp,
-            layout=None, passes=passes, kernels=kernels, aot=entry.graph is not None,
+            state_vars=len(state), donated=len(donated), mesh=self._mesh_desc(), amp=amp,
+            layout=(self._layout_fp or "")[:12] or None, passes=passes, kernels=kernels, aot=entry.graph is not None,
             cost=None, memory=None)
         if t_span is not None:
             TIMELINE.record_complete(
@@ -1557,10 +1647,66 @@ class Executor:
                            "feed_names": sorted(feeds),
                            "feed_shapes": {k: [int(d) for d in v.shape]
                                            for k, v in feeds.items()},
-                           "mesh": None, "fingerprint": program.desc.fingerprint(),
+                           "mesh": self._mesh_desc(), "fingerprint": program.desc.fingerprint(),
                            "uid": key[0], "version": key[1]}, f)
         except (OSError, TypeError, ValueError) as e:
             VLOG(1, "program dump failed: %s: %s", type(e).__name__, e)
+
+    # ------------------------------------------------------------ the mesh
+    def _batch_axes(self) -> Tuple[str, ...]:
+        """Mesh axes the batch dim splits over: the layout's (data, fsdp)
+        axes when a layout is set, else ``batch_axis`` plus ``fsdp`` when
+        present (fsdp is data parallelism with the parameters sharded)."""
+        if self.layout is not None:
+            return self.layout.batch_axes(self.mesh)
+        return tuple(a for a in dict.fromkeys((self.batch_axis, "fsdp")) if a in self.mesh.shape)
+
+    def _feed_spec(self, block: BlockDesc, name: str, ndim: int):
+        """The spec a feed lands on under the mesh: the var's ``sharding``
+        attr, else dim 0 over the batch axes (a 0-d feed replicated)."""
+        vd = block.find_var(name)
+        spec = vd.attrs.get("sharding") if vd is not None else None
+        if spec is not None:
+            return spec
+        axes = self._batch_axes()
+        if not axes or ndim == 0:
+            return None
+        return [axes[0] if len(axes) == 1 else tuple(axes)]
+
+    def global_feed_shapes(self, block: BlockDesc, shapes: Dict[str, tuple]) -> Dict[str, tuple]:
+        """The global batch's feed shapes from this rank's (``shapes``):
+        each dim a feed's spec shards, times its axes' sizes."""
+        if self.mesh is None:
+            return shapes
+        out = {}
+        for k, shape in shapes.items():
+            shape = list(shape)
+            for d, e in enumerate(self._feed_spec(block, k, len(shape)) or ()):
+                for a in (e if isinstance(e, (list, tuple)) else (e,)):
+                    if a is not None and d < len(shape):
+                        shape[d] *= int(self.mesh.shape.get(a, 1))
+            out[k] = tuple(shape)
+        return out
+
+    def _global_feeds(self, block: BlockDesc, feeds: Dict[str, torch.Tensor]):
+        """Each feed (this rank's rows of the global batch: the JAX
+        package's multi-process feed, the global batch being the ranks'
+        rows concatenated in mesh order) as a DTensor on its spec's
+        placements; without a mesh the feeds as they are."""
+        if self.mesh is None:
+            return feeds
+        from torch.distributed.tensor import DTensor
+        from ..parallel.layout import as_placements
+        dm = self.mesh.device_mesh
+        return {k: DTensor.from_local(t, dm, as_placements(self._feed_spec(block, k, t.ndim),
+                                                            self.mesh), run_check=False)
+                for k, t in feeds.items()}
+
+    def _mesh_desc(self) -> Optional[dict]:
+        if self.mesh is None:
+            return None
+        return {"axes": {str(k): int(v) for k, v in self.mesh.shape.items()},
+                "devices": int(self.mesh.size), "backend": self.mesh.backend}
 
     def _new_generator(self, program: Program) -> torch.Generator:
         gen = torch.Generator(device=self.device)
@@ -1585,17 +1731,30 @@ class Executor:
             # the sentinel reads its watched names after the last op
             entry.frees = plan_frees(entry.block, set(entry.fetch_names) | set(entry.state_out)
                                      | set(entry.grad_watch) | set(entry.param_watch))
+        mesh = self.mesh
         ctx = LowerCtx(entry.block, env, gen, self.device, frees=entry.frees,
-                       amp=bool(entry.program.amp))
+                       amp=bool(entry.program.amp), mesh=mesh)
         ctx.sentinel = []
         with torch.no_grad():
             old = shadow_state(env, entry.param_watch) if entry.sentinel_extra else None
-            lower_block(ctx, entry.block)
+            if mesh is None:
+                lower_block(ctx, entry.block)
+            else:
+                from torch.distributed.tensor.experimental import implicit_replication
+                # a tensor an op makes (a constant, a draw) meets the
+                # DTensors as the same value on every rank
+                with implicit_replication():
+                    lower_block(ctx, entry.block)
             for n in entry.fetch_names:
                 # a fetched tensor array is its elements stacked
                 if isinstance(ctx.env.get(n), TensorArrayVal):
                     ctx.env[n] = torch.stack(list(ctx.env[n]))
             rest = _write_back(entry.state_out, homes, ctx.env)
+            if mesh is not None:
+                # a fetch is the global value (inside the graph on the card)
+                for n in entry.fetch_names:
+                    if is_dtensor(ctx.env.get(n)):
+                        ctx.env[n] = ctx.env[n].full_tensor()
             if entry.sentinel_extra:
                 ctx.sentinel = sentinel_extras(
                     ctx.env, old, [ctx.read(n) for n in entry.fetch_names],
@@ -1620,6 +1779,8 @@ class Executor:
         cuda = self.device.type == "cuda"
         for k, t in feeds.items():
             env[k] = t.to(self.device, non_blocking=cuda)
+        if self.mesh is not None:
+            env.update(self._global_feeds(entry.block, {k: env[k] for k in feeds}))
         if entry.donate and commit:
             # the environment holds the only reference: each feed goes
             # after its last reader (``plan_frees``)
@@ -1669,8 +1830,9 @@ class Executor:
             side.wait_stream(cur)
             with torch.cuda.stream(side):
                 private = _private(entry, homes)
-                ctx, _ = self._lower_block(entry, {**private, **static}, private,
-                                           None if gen is None else _copy_generator(gen))
+                ctx, _ = self._lower_block(entry, {**private, **self._global_feeds(entry.block,
+                                                                                 static)},
+                                           private, None if gen is None else _copy_generator(gen))
                 # a block that writes state or draws (the generator is state
                 # too) takes its step in the first replay
                 warm = None if entry.state_out or gen is not None else _fetches(entry, ctx)
@@ -1688,7 +1850,8 @@ class Executor:
                 graph.register_generator_state(gen)
             try:
                 with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                    ctx, rest = self._lower_block(entry, {**homes, **static}, homes, gen)
+                    ctx, rest = self._lower_block(
+                        entry, {**homes, **self._global_feeds(entry.block, static)}, homes, gen)
                     if rest:
                         raise RuntimeError(f"the block writes state in another shape or dtype "
                                            f"than the scope's: {sorted(rest)}")

@@ -11,7 +11,7 @@ import contextlib
 import os
 import sys
 import threading
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 from . import unique_name
 from .desc import CALLSITE_ATTR, BlockDesc, OpDesc, ProgramDesc, VarDesc, VarType
@@ -65,6 +65,17 @@ class Variable:
     @property
     def type(self) -> str:
         return self.desc.type
+
+    def set_sharding(self, spec: Sequence[Optional[str]]):
+        """Annotate with a spec over mesh axis names (one entry a dim: an
+        axis, a tuple of axes, or None), read under a mesh
+        (``parallel/layout.py``)."""
+        self.desc.attrs["sharding"] = list(spec)
+        return self
+
+    @property
+    def sharding(self):
+        return self.desc.attrs.get("sharding")
 
     def __str__(self):
         return (f"Variable({self.name}: shape={self.shape}, "

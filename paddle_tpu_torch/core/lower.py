@@ -23,6 +23,14 @@ buffers as it goes too).  A control-flow op runs its sub-block in a child
 context (:meth:`LowerCtx.child`) with the sub-block's own plan, and the
 names its sub-block reads count as read by the op.
 
+Under a mesh (``LowerCtx(mesh=)``, a ``parallel.mesh.Mesh``) the values
+are DTensors and each op runs on them as the JAX package's lowering runs
+under GSPMD: a non-persistable output whose var carries a ``sharding``
+attr is redistributed to it after its op (``with_sharding_constraint``),
+each gradient an update group reads is redistributed to its parameter's
+placements before the group runs (``_lower_group``), and the hand-written
+kernels run on local shards (``parallel.layout.on_local``).
+
 While a torch profiler is active each op's lowering runs inside a
 ``record_function`` range named ``op<idx>:<type>@<file.py:line>`` (the JAX
 package's ``jax.named_scope`` of the same name), so a device trace maps a
@@ -31,6 +39,7 @@ With no profiler active the lowering pays one check.
 """
 from __future__ import annotations
 
+import sys
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -117,6 +126,13 @@ def _propagate_seq_len(ctx: "LowerCtx", op: OpDesc):
             ctx.write(n + SEQ_LEN_SUFFIX, in_lens)
 
 
+def is_dtensor(v) -> bool:
+    """Whether ``v`` is a DTensor, without importing DTensor (a second
+    and more at import): no value is one before something imported it."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(v, mod.DTensor)
+
+
 class TensorArrayVal(list):
     """The value of a TENSOR_ARRAY var: a list of tensors (Fluid's
     LoDTensorArray)."""
@@ -136,10 +152,13 @@ class LowerCtx:
     def __init__(self, block: BlockDesc, env: Dict[str, Any],
                  generator: Optional[torch.Generator], device: torch.device,
                  frees: Optional[List[List[str]]] = None,
-                 parent: Optional["LowerCtx"] = None, amp: bool = False):
+                 parent: Optional["LowerCtx"] = None, amp: bool = False,
+                 mesh=None):
         self.block = block
         self.env = env
         self.parent = parent
+        # the executor's mesh: the values are DTensors over it
+        self.mesh = mesh
         self.generator = generator
         self.device = device
         self.frees = frees
@@ -198,7 +217,8 @@ class LowerCtx:
         """The context of ``block`` (a sub-block) run under this one, with
         this one's lowering-time casts unless ``amp`` says otherwise."""
         return LowerCtx(block, {} if env is None else env, generator, self.device,
-                        frees=frees, parent=self, amp=self.amp if amp is None else amp)
+                        frees=frees, parent=self, amp=self.amp if amp is None else amp,
+                        mesh=self.mesh)
 
 
 def _op_scope_name(op: OpDesc, index: Optional[int]) -> str:
@@ -235,6 +255,8 @@ def _lower_op(ctx: LowerCtx, op: OpDesc, index: Optional[int]):
         info.lower(ctx, op)
         if op.type not in SEQ_LEN_AWARE:
             _propagate_seq_len(ctx, op)
+        if ctx.mesh is not None:
+            _apply_sharding_constraints(ctx, op)
         return
     if op.type.endswith("_grad"):
         fwd_type = op.type[: -len("_grad")]
@@ -243,6 +265,40 @@ def _lower_op(ctx: LowerCtx, op: OpDesc, index: Optional[int]):
             return
     where = f" (op {index})" if index is not None else ""
     raise NotImplementedError(f"no lowering registered for op {op.type!r}{where}")
+
+
+def _apply_sharding_constraints(ctx: LowerCtx, op: OpDesc):
+    """Redistribute each non-persistable output of ``op`` whose var carries
+    a ``sharding`` spec (``Variable.set_sharding``) to that spec's
+    placements: the JAX package's ``with_sharding_constraint`` at the
+    var's definition point (persistable state is placed by the executor)."""
+    from ..parallel.layout import as_placements
+    for name in op.output_names():
+        if not name:
+            continue
+        vd = ctx.block.find_var(name)
+        spec = vd.attrs.get("sharding") if vd is not None else None
+        if spec is None or vd.persistable:
+            continue
+        val = ctx.env.get(name)
+        if is_dtensor(val) and val.ndim == len(spec):
+            want = as_placements(spec, ctx.mesh)
+            if tuple(val.placements) != want:
+                ctx.write(name, val.redistribute(ctx.mesh.device_mesh, want))
+
+
+def _grads_to_params(ctx: LowerCtx, group: List[OpDesc]):
+    """Under a mesh, each update's gradient redistributed to its
+    parameter's placements (a partial sum reduced, all-reduce or
+    reduce-scatter), so the group runs on shards that line up."""
+    for op in group:
+        gname, pname = op.input("Grad"), op.input("Param")
+        if not gname or not pname:
+            continue
+        g, p = ctx.read_opt(gname[0]), ctx.read_opt(pname[0])
+        if is_dtensor(g) and is_dtensor(p) \
+                and tuple(g.placements) != tuple(p.placements):
+            ctx.write(gname[0], g.redistribute(p.device_mesh, p.placements))
 
 
 def op_names(block: BlockDesc, op: OpDesc) -> Tuple[List[str], List[str]]:
@@ -336,6 +392,8 @@ def _lower_group(ctx: LowerCtx, ops: List[OpDesc], start: int, info) -> int:
         else:
             lower_op(ctx, op, index=i)
         i += 1
+    if ctx.mesh is not None:
+        _grads_to_params(ctx, group)
     if _profiler_enabled():
         name = f"{_op_scope_name(group[0], start)}[group of {len(group)}]"
         with torch.profiler.record_function(name):
@@ -402,7 +460,7 @@ def _lower_generic_grad(ctx: LowerCtx, op: OpDesc, fwd_type: str):
                     f"{op.type}: forward output {name!r} of {fwd_type} has no "
                     f"autograd history; its lowering is not differentiable")
             outs.append(out)
-            cots.append(g.to(out.dtype))
+            cots.append(_cotangent_like(g.to(out.dtype), out))
         if outs:
             grads = torch.autograd.grad(outs, primals, cots, allow_unused=True)
         else:
@@ -425,6 +483,19 @@ def _lower_generic_grad(ctx: LowerCtx, op: OpDesc, fwd_type: str):
                 written.add(n)
 
 
+def _cotangent_like(g, out):
+    """Under a mesh, ``g`` in ``out``'s kind: a plain tensor (an op's
+    whole value, the same on every rank) as a replicated DTensor for a
+    DTensor output, a DTensor gathered whole for a plain one."""
+    if is_dtensor(out) and not is_dtensor(g):
+        from torch.distributed.tensor import DTensor, Replicate
+        return DTensor.from_local(g, out.device_mesh, [Replicate()] * out.device_mesh.ndim,
+                                  run_check=False)
+    if is_dtensor(g) and not is_dtensor(out):
+        return g.full_tensor()
+    return g
+
+
 class _GradTraceCtx(LowerCtx):
     """The context a forward lowering runs in while its gradient is taken:
     differentiable inputs come from the leaf tensors, every other read goes
@@ -434,7 +505,7 @@ class _GradTraceCtx(LowerCtx):
     state (the JAX package reuses the forward's key without consuming it)."""
 
     def __init__(self, base: LowerCtx, overrides: Dict[str, Any]):
-        super().__init__(base.block, {}, None, base.device, amp=base.amp)
+        super().__init__(base.block, {}, None, base.device, amp=base.amp, mesh=base.mesh)
         self.amp_cast = base.amp_cast
         self._base = base
         self._overrides = overrides

@@ -3,7 +3,7 @@ one card:
 
 * :func:`sharded_table` -- a ``lookup_table`` layer whose parameter is
   stamped with the *embedding* layout role (the ``layout_role`` var attr
-  a mesh layout reads; item 12 of the ROADMAP ports the meshes), with
+  a mesh layout reads; ROADMAP item 12c places tables on a mesh), with
   ``is_sparse=True`` SelectedRows gradients, so a step's update gathers,
   updates and writes back only the batch's unique rows;
 * :class:`RowPrefetcher` -- dedups each batch's ids on the host, on the

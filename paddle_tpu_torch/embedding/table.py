@@ -3,7 +3,7 @@
 
 The layer is one ``lookup_table`` op; what it adds is its stamps: the
 ``layout_role`` var attr names the table's layout role (dim 0 over the
-mesh, once meshes are ported: ROADMAP item 12), and ``is_sparse=True``
+mesh, once tables are placed on meshes: ROADMAP item 12c), and ``is_sparse=True``
 gives it a SelectedRows gradient, so the optimizer updates only the
 batch's unique rows.
 """
@@ -51,11 +51,11 @@ def plan_table(name: str, rows: int, dim: int, *, dtype: str = "float32", mesh=N
     profile name) the result carries ``fits`` and ``budget_bytes``:
     ``Executor(memory_budget=)`` enforces the same bound as an M501
     pre-flight.  ``mesh=`` and ``layout=`` (a table split over devices)
-    wait for ROADMAP item 12."""
+    wait for ROADMAP item 12c."""
     if mesh is not None or layout is not None:
         raise NotImplementedError(
             "plan_table(mesh=, layout=) is not ported to paddle_tpu_torch yet (ROADMAP §A "
-            "item 12): a table is planned for one device")
+            "item 12c): a table is planned for one device")
     from ..analysis import memory as _memory
 
     rows, dim, slots = int(rows), int(dim), int(slots)

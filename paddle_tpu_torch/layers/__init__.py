@@ -7,5 +7,6 @@ from .nn import *  # noqa: F401,F403
 from .sequence import *  # noqa: F401,F403
 from .tensor import *  # noqa: F401,F403
 from .extras import *  # noqa: F401,F403
+from .pipeline import PipelinedStages  # noqa: F401
 
 monkey_patch_variable()

@@ -23,7 +23,7 @@ __all__ = ["fc", "embedding", "conv2d", "conv2d_transpose", "pool2d", "batch_nor
            "gelu", "logsigmoid", "softplus", "softsign", "tanh_shrink", "softshrink",
            "hard_shrink", "brelu", "stanh", "thresholded_relu", "mish", "silu", "exp_act",
            "fake_quantize_abs_max", "fake_quantize_range_abs_max", "fake_dequantize_max_abs",
-           "cos_sim"]
+           "cos_sim", "switch_moe"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -644,3 +644,49 @@ def cos_sim(X, Y, name=None):
     helper.append_op("cos_sim", inputs={"X": X, "Y": Y},
                      outputs={"Out": out, "XNorm": xnorm, "YNorm": ynorm})
     return out
+
+
+def switch_moe(x, num_experts, d_hidden, capacity_factor=1.25,
+               expert_axis=None, param_attr=None, name=None):
+    """Switch-style top-1 mixture-of-experts FFN (no reference
+    counterpart: MoE postdates it).  Returns (out, aux_loss); add
+    ``aux_loss`` (scaled, typically 0.01x) to the training loss for load
+    balancing.
+
+    ``expert_axis``: mesh axis name to shard the expert dimension of the
+    expert weights over (expert parallelism): W1, B1, W2 and B2 carry
+    ``[expert_axis, ...]`` shardings, which the executor's mesh places."""
+    from ..initializer import NormalInitializer
+    helper = LayerHelper("switch_moe", param_attr=param_attr, name=name)
+    d = int(x.shape[-1])
+    attr_for = helper.param_attr_for
+
+    gate_w = helper.create_parameter(
+        attr_for("gate"), shape=[d, num_experts], dtype=x.dtype,
+        default_initializer=NormalInitializer(0.0, 0.02))
+    w1 = helper.create_parameter(
+        attr_for("w1"), shape=[num_experts, d, d_hidden], dtype=x.dtype,
+        default_initializer=NormalInitializer(0.0, (2.0 / d) ** 0.5))
+    b1 = helper.create_parameter(
+        attr_for("b1"), shape=[num_experts, d_hidden], dtype=x.dtype,
+        is_bias=True)
+    w2 = helper.create_parameter(
+        attr_for("w2"), shape=[num_experts, d_hidden, d], dtype=x.dtype,
+        default_initializer=NormalInitializer(0.0, (2.0 / d_hidden) ** 0.5))
+    b2 = helper.create_parameter(
+        attr_for("b2"), shape=[num_experts, d], dtype=x.dtype,
+        is_bias=True)
+    if expert_axis is not None:
+        w1.set_sharding([expert_axis, None, None])
+        b1.set_sharding([expert_axis, None])
+        w2.set_sharding([expert_axis, None, None])
+        b2.set_sharding([expert_axis, None])
+    out = helper.create_variable_for_type_inference(x.dtype)
+    aux = helper.create_variable_for_type_inference("float32")
+    helper.append_op(
+        "moe_ffn",
+        inputs={"X": x, "GateW": gate_w, "W1": w1, "B1": b1, "W2": w2,
+                "B2": b2},
+        outputs={"Out": out, "AuxLoss": aux},
+        attrs={"capacity_factor": float(capacity_factor)})
+    return out, aux

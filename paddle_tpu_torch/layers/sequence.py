@@ -146,9 +146,10 @@ def sequence_expand_as(x, y, name=None):
 def flash_attention(q, k, v, num_heads=1, causal=False, use_ring=False,
                     ring_seq_axis="seq", ring_batch_axis="data", name=None):
     """Fused blockwise attention.  q/k/v: [N, T, H*D].  Ragged keys are
-    masked by k's @SEQ_LEN lengths.  The ring attrs are recorded for
-    ProgramDesc parity with the JAX package; the port runs on one device,
-    where the JAX package also takes the local kernel."""
+    masked by k's @SEQ_LEN lengths.  ``use_ring``: under an executor mesh
+    with the ``ring_seq_axis`` axis, ring attention over it
+    (``parallel/ring_attention.py``); without that axis the op takes the
+    local kernel, as the JAX package does."""
     helper = LayerHelper("flash_attention", name=name)
     out = helper.create_tmp_variable("float32")
     helper.append_op("flash_attention", inputs={"Q": q, "K": k, "V": v},

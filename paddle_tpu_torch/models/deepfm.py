@@ -31,10 +31,10 @@ def deepfm(sparse_ids, dense_input, vocab_sizes, embed_dim=16, hidden=(400, 400,
     """sparse_ids: one int64 ``[N, 1]`` Variable a field; dense_input: a
     float ``[N, num_dense]`` Variable; returns the ``[N, 1]`` logits.
     ``shard_tables`` (the tables split over a mesh) waits for ROADMAP
-    item 12."""
+    item 12c."""
     if shard_tables:
-        raise NotImplementedError("deepfm(shard_tables=True) needs a mesh, which is not "
-                                  "ported to paddle_tpu_torch yet (ROADMAP §A item 12)")
+        raise NotImplementedError("deepfm(shard_tables=True) (the tables split over a mesh) is "
+                                  "not ported to paddle_tpu_torch yet (ROADMAP §A item 12c)")
     first_order_terms = []
     embeddings = []  # [N, embed_dim] a field
     for i, (ids, vocab) in enumerate(zip(sparse_ids, vocab_sizes)):

@@ -44,10 +44,28 @@ def _inputs(ctx, op):
     return x, x2.contiguous(), w.contiguous(), b, labels
 
 
+def _on_rows(ctx, fn, x2, w, b, labels, *rows, partial_outs: int = 0):
+    """``fn`` (a linear-CE kernel) on each rank's rows under a mesh: x2,
+    labels and ``rows`` on x2's batch placements, W and the bias
+    replicated for the kernel; the outputs on the batch placements, but
+    the last ``partial_outs`` (W's and the bias's gradients), which are
+    partial sums over the ranks' rows."""
+    if ctx.mesh is None:
+        return fn(x2, w, b, labels, *rows)
+    from ..parallel.layout import batch_like, on_local, partial_where_sharded, replicate
+    pl, rep = batch_like(x2, ctx.mesh), replicate(ctx.mesh)
+    outs = 3 if partial_outs else 2
+    out_pl = (pl,) * (outs - partial_outs) + (partial_where_sharded(pl),) * partial_outs
+    if partial_outs and b is None:
+        out_pl = out_pl[:-1] + (None,)
+    return on_local(ctx.mesh, fn, (x2, w, b, labels) + rows,
+                    (pl, rep, None if b is None else rep, pl) + (pl,) * len(rows), out_pl)
+
+
 @register_lowering("fused_fc_softmax_ce", non_diff_inputs=("Label",))
 def _fused_fc_softmax_ce(ctx, op):
     x, x2, w, b, labels = _inputs(ctx, op)
-    lse, lab = linear_ce_fwd(x2, w, b, labels)
+    lse, lab = _on_rows(ctx, linear_ce_fwd, x2, w, b, labels)
     nfd = int(op.attr("num_flatten_dims", 1))
     ctx.write_slot(op, "Loss", (lse - lab).reshape(tuple(x.shape[:nfd]) + (1,)))
     ctx.write_slot(op, "LogSumExp", lse)            # saved for the backward
@@ -86,7 +104,7 @@ def _fused_fc_softmax_ce_grad(ctx, op):
     x, x2, w, b, labels = _inputs(ctx, op)
     lse = ctx.read_slot(op, "LogSumExp").contiguous()
     gloss = ctx.read_slot(op, "LossGrad").reshape(-1).contiguous()
-    dx2, dw, db = linear_ce_bwd(x2, w, b, labels, lse, gloss)
+    dx2, dw, db = _on_rows(ctx, linear_ce_bwd, x2, w, b, labels, lse, gloss, partial_outs=2)
     for slot, val, like in (("X", dx2, x), ("W", dw, w), ("Bias", db, b)):
         gnames = op.outputs.get(slot + "@GRAD_SLOT", [])
         if gnames and gnames[0] and val is not None:

@@ -50,7 +50,7 @@ def _pallas_int8_matmul(ctx, op):
         if op.attr("transpose_Y", False):
             y = y.transpose(-1, -2)
         if x.ndim == 2 and y.ndim == 2:
-            out = int8_matmul(x.contiguous(), y.contiguous(), bits=bits)
+            out = _int8_rows(ctx, x.contiguous(), y.contiguous(), bits)
         else:
             out = int8_matmul_plain(x, y, bits=bits)
         alpha = op.attr("alpha", 1.0)
@@ -62,8 +62,19 @@ def _pallas_int8_matmul(ctx, op):
     ync = op.attr("y_num_col_dims", 1)
     x2 = x.reshape(math.prod(x.shape[:xnc]), math.prod(x.shape[xnc:]))
     y2 = y.reshape(math.prod(y.shape[:ync]), math.prod(y.shape[ync:]))
-    out = int8_matmul(x2, y2, bits=bits)
+    out = _int8_rows(ctx, x2, y2, bits)
     ctx.write_slot(op, "Out", out.reshape(tuple(x.shape[:xnc]) + tuple(y.shape[ync:])))
+
+
+def _int8_rows(ctx, x2, y2, bits: int):
+    """K4 on [M, K] x [K, N]; under a mesh on each rank's rows of x2 with
+    y2 replicated."""
+    if ctx.mesh is None:
+        return int8_matmul(x2, y2, bits=bits)
+    from ..parallel.layout import batch_like, on_local, replicate
+    pl = batch_like(x2, ctx.mesh)
+    return on_local(ctx.mesh, lambda a, b: int8_matmul(a.contiguous(), b.contiguous(), bits=bits),
+                    (x2, y2), (pl, replicate(ctx.mesh)), pl)
 
 
 @register_infer_shape("pallas_int8_matmul")
@@ -98,12 +109,25 @@ def _pallas_scatter_add(ctx, op):
     if not gnames or not gnames[0]:
         return
     w = ctx.read_slot(op, "W")
-    _, flat = flat_ids(ctx.read_slot(op, "Ids"))
-    rows = ctx.read(op.input("__outgrad__Out")[0]).reshape((-1,) + tuple(w.shape[1:]))
+    ids = ctx.read_slot(op, "Ids")
+    grad = ctx.read(op.input("__outgrad__Out")[0])
     padding_idx = op.attr("padding_idx", -1)
-    if padding_idx is not None and padding_idx >= 0:
-        rows = torch.where((flat != padding_idx)[:, None], rows, 0.0)
-    ctx.write(gnames[0], scatter_add_rows(w, flat, rows.to(w.dtype).contiguous()))
+
+    def dw(w, ids, grad):
+        _, flat = flat_ids(ids)
+        rows = grad.reshape((-1,) + tuple(w.shape[1:]))
+        if padding_idx is not None and padding_idx >= 0:
+            rows = torch.where((flat != padding_idx)[:, None], rows, 0.0)
+        return scatter_add_rows(w, flat, rows.to(w.dtype).contiguous())
+
+    if ctx.mesh is None:
+        ctx.write(gnames[0], dw(w, ids, grad))
+        return
+    # each rank adds its own ids' rows: a partial sum of the table's gradient
+    from ..parallel.layout import batch_like, on_local, partial_where_sharded, replicate
+    pl = batch_like(ids, ctx.mesh)
+    ctx.write(gnames[0], on_local(ctx.mesh, dw, (w, ids, grad), (replicate(ctx.mesh), pl, pl),
+                                  partial_where_sharded(pl)))
 
 
 @register_infer_shape("pallas_scatter_add")

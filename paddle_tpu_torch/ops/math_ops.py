@@ -58,7 +58,15 @@ def _matmul(ctx, op):
     # a batch of row vectors (a decode step's attention over its cache) goes
     # to the kernel that sums each element in one order whatever the batch
     # count, so a row's result does not depend on the rows beside it
-    out = batched_rowvec_matmul(x, y) if is_rowvec_case(x, y) else torch.matmul(x, y)
+    if not is_rowvec_case(x, y):
+        out = torch.matmul(x, y)
+    elif ctx.mesh is None:
+        out = batched_rowvec_matmul(x, y)
+    else:
+        # under a mesh on each rank's batch rows
+        from ..parallel.layout import batch_like, on_local
+        pl = batch_like(x, ctx.mesh)
+        out = on_local(ctx.mesh, batched_rowvec_matmul, (x, y), (pl, pl), pl)
     alpha = op.attr("alpha", 1.0)
     if alpha != 1.0:
         out = out * alpha

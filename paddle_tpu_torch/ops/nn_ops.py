@@ -370,14 +370,27 @@ def flat_ids(ids):
 
 def lookup_rows(ctx, op, gather):
     """``lookup_table``'s output through ``gather(W, flat int32 ids)``, with
-    the ``padding_idx`` rows zeroed."""
+    the ``padding_idx`` rows zeroed.  Under a mesh the gather runs on each
+    rank's ids against the whole table (W replicated for the kernel), and
+    W's gradient is a partial sum over the ranks that hold other ids."""
     w = ctx.read_slot(op, "W")
-    ids, flat = flat_ids(ctx.read_slot(op, "Ids"))
-    out = gather(w.contiguous(), flat).reshape(tuple(ids.shape) + (w.shape[1],))
+    ids = ctx.read_slot(op, "Ids")
     padding_idx = op.attr("padding_idx", -1)
-    if padding_idx is not None and padding_idx >= 0:
-        out = torch.where((ids != padding_idx)[..., None], out, 0.0)
-    ctx.write_slot(op, "Out", out)
+
+    def rows(w, ids):
+        ids, flat = flat_ids(ids)
+        out = gather(w.contiguous(), flat).reshape(tuple(ids.shape) + (w.shape[1],))
+        if padding_idx is not None and padding_idx >= 0:
+            out = torch.where((ids != padding_idx)[..., None], out, 0.0)
+        return out
+
+    if ctx.mesh is None:
+        ctx.write_slot(op, "Out", rows(w, ids))
+        return
+    from ..parallel.layout import batch_like, on_local, partial_where_sharded, replicate
+    pl = batch_like(ids, ctx.mesh)
+    ctx.write_slot(op, "Out", on_local(ctx.mesh, rows, (w, ids), (replicate(ctx.mesh), pl), pl,
+                                       (partial_where_sharded(pl), None)))
 
 
 @register_lowering("lookup_table", non_diff_inputs=("Ids",))

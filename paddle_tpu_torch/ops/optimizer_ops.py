@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.lower import is_dtensor
 from ..core.registry import register_group_lowering, register_infer_shape, register_lowering
 from ..core.selected_rows import SelectedRows
 from .common import in_dtype, in_shape, set_out_shape
@@ -67,6 +68,25 @@ def _own(op, slot, out_slot, t):
     return t if op.output(out_slot) == op.input(slot) else t.clone()
 
 
+def _local(t):
+    """A DTensor's local shard (the update kernels run on the shards a
+    rank holds: p, g, m1 and m2 share the parameter's placements once
+    ``lower._grads_to_params`` ran); any other value as it is."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+def _like(value, home):
+    """``value`` (a local tensor the kernel wrote) as the value of its slot:
+    ``home`` itself where the kernel updated ``home``'s shard in place, a
+    DTensor on ``home``'s placements where ``home`` is one, else
+    ``value``."""
+    if not is_dtensor(home):
+        return value
+    if value is home.to_local():
+        return home
+    return type(home).from_local(value, home.device_mesh, home.placements, run_check=False)
+
+
 def _dense(ctx, ops, sparse_rule):
     """The ops of ``ops`` whose gradient is dense; each other one (a
     SelectedRows gradient) goes to ``sparse_rule(ctx, op, grad)`` now."""
@@ -92,11 +112,14 @@ def _sgd_group(ctx, ops):
     ops = _dense(ctx, ops, _sgd_sparse)
     if not ops:
         return
+    homes = []
     for op in ops:
         p, g, lr = (ctx.read_slot(op, s) for s in ("Param", "Grad", "LearningRate"))
-        entries.append((_own(op, "Param", "ParamOut", p), _grad_as(g, p), lr))
-    for op, out in zip(ops, fused_sgd_multi(entries)):
-        ctx.write_slot(op, "ParamOut", out)
+        p = _own(op, "Param", "ParamOut", p)
+        homes.append(p)
+        entries.append((_local(p), _local(_grad_as(g, p)), _local(lr)))
+    for op, out, p in zip(ops, fused_sgd_multi(entries), homes):
+        ctx.write_slot(op, "ParamOut", _like(out, p))
 
 
 def _adam_attrs(op):
@@ -122,14 +145,17 @@ def _adam_group(ctx, ops):
     ops = _dense(ctx, ops, _adam_sparse)
     if not ops:
         return
+    homes = []
     for op in ops:
         p, g, m1, m2, b1p, b2p, lr = (ctx.read_slot(op, s) for s in _ADAM_IN)
         p, m1, m2 = (_own(op, s, o, t) for s, o, t in
                      zip(("Param", "Moment1", "Moment2"), _ADAM_OUT, (p, m1, m2)))
-        entries.append((p, _grad_as(g, p), m1, m2, b1p, b2p, lr, op.type == "pallas_adam"))
-    for op, outs in zip(ops, fused_adam_multi(entries, *_adam_attrs(ops[0]))):
-        for slot, val in zip(_ADAM_OUT, outs):
-            ctx.write_slot(op, slot, val)
+        homes.append((p, m1, m2, b1p, b2p))
+        entries.append(tuple(_local(t) for t in (p, _grad_as(g, p), m1, m2, b1p, b2p, lr))
+                       + (op.type == "pallas_adam",))
+    for op, outs, home in zip(ops, fused_adam_multi(entries, *_adam_attrs(ops[0])), homes):
+        for slot, val, h in zip(_ADAM_OUT, outs, home):
+            ctx.write_slot(op, slot, _like(val, h))
 
 
 @register_lowering("pallas_sgd", no_gradient=True)

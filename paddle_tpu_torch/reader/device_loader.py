@@ -15,6 +15,13 @@ marked as used by that stream, so nothing reads it before it landed and
 its memory is not reused before the reader's work is done.  On the CPU
 the batches are CPU tensors (views of the reader's arrays where they
 can be).
+
+``sharding=`` (a ``parallel.layout.Sharding``, e.g.
+``distributed.feed_sharding()``) hands each batch out on the rank's shard
+of that mesh placement: the reader yields this rank's rows, they go to
+the mesh's device, and each array comes out as a DTensor on the
+sharding's placements (a 0-d array replicated), which
+``Executor(mesh=)`` takes as its feed.
 """
 from __future__ import annotations
 
@@ -63,16 +70,22 @@ class DeviceLoader:
     ``capacity`` -- batches in flight (2 = the classic double buffer).
     ``device``   -- where the batches go: a CUDA device (the default, the
                     current one) or ``"cpu"``.
-    ``sharding`` -- a mesh placement: not ported yet (ROADMAP §A item 12).
+    ``sharding`` -- a ``parallel.layout.Sharding``: each batch is this
+                    rank's shard of it, handed out as DTensors on the mesh's
+                    device (``device`` must be that device or None).
     """
 
     def __init__(self, reader: Callable[[], Iterable], capacity: int = 2, sharding=None,
                  device=None):
-        if sharding is not None:
-            raise NotImplementedError("DeviceLoader(sharding=) needs a mesh, which is not "
-                                      "ported to paddle_tpu_torch yet (ROADMAP §A item 12)")
         self.reader = reader
         self.capacity = max(1, int(capacity))
+        self.sharding = sharding
+        if sharding is not None:
+            mesh_dev = sharding.mesh.device
+            if device is not None and torch.device(device) != mesh_dev:
+                raise ValueError(f"DeviceLoader(device={device}) is not the device of the "
+                                 f"sharding's mesh ({mesh_dev})")
+            device = mesh_dev
         self.device = torch.device(device) if device is not None \
             else torch.device("cuda", torch.cuda.current_device())
         self._stream = None
@@ -106,7 +119,18 @@ class DeviceLoader:
             cur.wait_event(event)
             for t in _leaves(batch):
                 t.record_stream(cur)
+        if self.sharding is not None:
+            batch = _map(self._on_mesh, batch)
         return batch
+
+    def _on_mesh(self, t):
+        """This rank's shard ``t`` as the DTensor of the sharding's global
+        array (a 0-d array replicated)."""
+        from torch.distributed.tensor import DTensor
+        from ..parallel.layout import replicate
+        mesh = self.sharding.mesh
+        pl = self.sharding.placements if t.ndim else replicate(mesh)
+        return DTensor.from_local(t, mesh.device_mesh, pl, run_check=False)
 
     def __iter__(self) -> Iterator:
         host_q: "queue.Queue" = queue.Queue(maxsize=self.capacity)

@@ -49,9 +49,18 @@ synchronously and stops after a fetch timeout.  ``train`` waits for the
 queued saves before it returns.
 
 ``prefetcher=`` (an ``embedding.RowPrefetcher``) dedups each batch's
-embedding ids on the host as the batch is staged.  Options of the JAX
-Trainer that need modules not ported yet raise ``NotImplementedError``
-naming their ROADMAP item: ``parallel``, ``mesh``, ``layout`` (item 12).
+embedding ids on the host as the batch is staged.
+
+``parallel=True`` trains on a ``data`` mesh of every rank of the clique
+(``distributed.init_parallel_env``; one device a rank), ``mesh=`` on a
+given ``parallel.mesh.Mesh``, and ``layout=`` (a ``parallel.SpecLayout``)
+on its specs, over a mesh built from ``layout.mesh_axes`` when none is
+given: the executor runs each step on DTensors (``core/executor.py``),
+each rank feeding its own rows of the global batch.  Under a mesh the
+options that wait for ROADMAP §A item 12c raise ``NotImplementedError``
+naming it: ``checkpoint=`` and ``checkpoint_config=`` (multi-rank shard
+files and a resharded restore) and ``health=`` (the sentinel's
+global-norm mode).
 
 ``dispatch=DispatchConfig(...)`` (``dispatch/``, the elastic data
 dispatch) makes ``train(reader=None)`` read its epoch from a
@@ -190,10 +199,22 @@ class Trainer:
                  health=None, checkpoint=None, dispatch=None, amp=None,
                  kernels=None, profile_steps: Optional[int] = None,
                  prefetcher=None):
-        for option, value, item in (("parallel", parallel, "12"), ("mesh", mesh, "12"),
-                                    ("layout", layout, "12")):
-            if value:
-                _not_ported(option, item)
+        if mesh is None and layout is not None:
+            from .parallel import make_mesh
+            mesh = make_mesh(layout.mesh_axes) if layout.mesh_axes else make_mesh()
+        if mesh is None and parallel:
+            from .parallel import make_mesh
+            mesh = make_mesh()
+        if mesh is not None:
+            for option, value in (("checkpoint", checkpoint),
+                                  ("checkpoint_config", checkpoint_config), ("health", health)):
+                if value:
+                    _not_ported(f"{option}=) under a mesh (parallel=, mesh=, layout=", "12c")
+        # mesh/layout: sharded training (parallel/layout.py SpecLayout over
+        # data x fsdp x tp); parameters, optimizer slots and accumulation
+        # buffers are placed on the layout's specs before step 0
+        self.layout = layout
+        self._mesh = mesh
         # prefetcher: an embedding.RowPrefetcher; its on_batch hook dedups
         # each batch's ids on the stager's thread (pipeline=True) or before
         # the step (pipeline=False)
@@ -271,7 +292,8 @@ class Trainer:
         self.amp = amp
         self.kernels = kernels
         sentinels = self.health.config.sentinels if self.health else None
-        self.exe = Executor(place, amp=amp, kernels=kernels, sentinels=sentinels)
+        self.exe = Executor(place, amp=amp, kernels=kernels, sentinels=sentinels, mesh=mesh,
+                            layout=layout)
         self.exe.run(self.startup_program, scope=self.scope)
         if self.health:
             # attached after the startup run: an init program gives no
@@ -286,6 +308,13 @@ class Trainer:
                 self._load_checkpoint(serials[-1])
         if checkpoint:
             self._attach_checkpoint(checkpoint)
+        if mesh is not None:
+            # rank 0's values onto the placements before step 0 (one
+            # placement at init, not inside the first step); also covers
+            # values just loaded from param_path
+            from .parallel.layout import shard_program_state
+            for prog in filter(None, (self._step_program, self.apply_program)):
+                shard_program_state(prog, self.scope, mesh, layout)
         self._memory_planned = False
         self.memory_plan = None
 
@@ -473,8 +502,10 @@ class Trainer:
             from .analysis import memory as _memory
             plan = _memory.plan_memory(
                 self._step_program, fetch_list=[v.name for v in self.train_outputs],
-                feed_shapes={k: tuple(int(d) for d in v.shape) for k, v in feed.items()
-                             if hasattr(v, "shape")})
+                feed_shapes=self.exe.global_feed_shapes(
+                    self._step_program.desc.block(0),
+                    {k: tuple(int(d) for d in v.shape) for k, v in feed.items()
+                     if hasattr(v, "shape")}), mesh=self._mesh, layout=self.layout)
             self.memory_plan = plan
             _memory.export_plan(plan, source="trainer")
             b = plan.breakdown

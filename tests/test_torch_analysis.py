@@ -62,8 +62,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VOCAB, D_MODEL, N_HEAD, D_INNER, T, N_LAYER, ROWS = 1000, 64, 4, 256, 32, 1, 4
 # op types the port lowers (143, the 22 sequence and recurrent types, the
 # 13 control-flow types, the 12 sparse and embedding types, auc and the 7
-# parameter-server types)
-N_LOWERED = 200
+# parameter-server types, pipeline and moe_ffn)
+N_LOWERED = 202
 
 
 # ------------------------------------------------------------ the corpus
@@ -500,7 +500,7 @@ def test_infer_shape_coverage_equal_on_the_lowered_op_types():
     assert len(lowered) == N_LOWERED
     mine = [t for t in OPS.infer_shape_coverage() if t in lowered]
     theirs = [t for t in JAX_OPS.infer_shape_coverage() if t in lowered]
-    assert mine == theirs and len(mine) == 164
+    assert mine == theirs and len(mine) == 166
     for t in lowered:
         assert (OPS.infer_shape_fn(t) is None) == (JAX_OPS.infer_shape_fn(t) is None), t
     # a <type>_grad without a rule of its own gets the structural grad rule

@@ -266,10 +266,10 @@ def test_snapshot_is_consistent_despite_later_in_place_steps(tmp_path):
 def test_mesh_and_layout_wait_for_the_multi_gpu_port(tmp_path):
     _, main, scope, _ = _started()
     m = CheckpointManager(str(tmp_path), async_save=False)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 12c"):
         m.save(main, scope, step=1, mesh=object())
     m.save(main, scope, step=1)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 12c"):
         m.restore(main, scope, layout=object())
 
 

@@ -7,7 +7,7 @@ the JAX package's, on the CPU.
   over a power-of-two batch and a power-of-two rate keep every update
   exact) and to the JAX package's table;
 * ``plan_table``: the budget arithmetic equal to the JAX package's, a
-  mesh or layout raising (ROADMAP item 12); ``Executor(memory_budget=)``
+  mesh or layout raising (ROADMAP item 12c); ``Executor(memory_budget=)``
   M501-refusing the table's step; the step's memory plan sizing every
   var; the op types' infer-shape rules;
 * ``RowPrefetcher``: its counters and JSONL records, riding the
@@ -120,9 +120,9 @@ def test_plan_table_budget_math_against_jax():
 
 
 def test_plan_table_mesh_waits_for_item_12():
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 12c"):
         embedding.plan_table("t", 1024, 16, slots=1, mesh={"fsdp": 4})
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 12c"):
         embedding.plan_table("t", 1024, 16, layout=object())
 
 

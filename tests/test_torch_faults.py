@@ -227,3 +227,64 @@ def test_scatter_add_plain_is_an_ascending_loop_bit_for_bit(v, d, n):
     got = scatter_add_rows_plain(torch.empty(v, d), ids, rows)
     assert torch.equal(got, want)
     assert torch.equal(scatter_add_rows(torch.empty(v, d), ids, rows), want)
+
+
+# ------------------------------------------------- C8 and C9's evidence (§C)
+def _small_net():
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        x = pt.layers.data(name="x", shape=[6], dtype="float32")
+        h = pt.layers.fc(input=x, size=8, act="relu")
+        y = pt.layers.fc(input=h, size=3)
+    return main, startup, y
+
+
+def test_divergence_report_names_the_first_differing_op():
+    """C9's printer (tests/test_torch_gpu.py, on a failed replay-vs-eager
+    gate): two runs' op outputs, one of them bent at the first fc's
+    activation and everything after it; the report names that op and the
+    largest difference, and two equal runs read bit-equal."""
+    from paddle_tpu_torch.profiling.divergence import (divergence_report, first_differing_op,
+                                                       op_output_names)
+    main, startup, _ = _small_net()
+    scope, exe = pt.Scope(), pt.Executor(pt.CPUPlace())
+    exe.run(startup, scope=scope)
+    names = op_output_names(main)
+    feed = {"x": np.random.RandomState(0).randn(4, 6).astype(np.float32)}
+    run = lambda: dict(zip(names, exe._run_eager(main, feed=feed, fetch_list=names,  # noqa: E731
+                                                 scope=scope)))
+    want, got = run(), run()
+    assert "every one of" in divergence_report(main, got, want)
+    ops = main.desc.block(0).ops
+    (relu_i,) = [i for i, o in enumerate(ops) if o.type == "relu"]
+    bent = ops[relu_i].output_names()[0]
+    got[bent] = got[bent] + 0.25
+    for o in ops[relu_i + 1:]:
+        for n in o.output_names():
+            got[n] = got[n] + 1.0
+    i, typ, name, diff = first_differing_op(main, got, want)
+    assert (i, typ, name) == (relu_i, "relu", bent) and diff == pytest.approx(0.25)
+    report = divergence_report(main, got, want)
+    assert f"op {relu_i} (relu)" in report and "max abs diff 1.000e+00" in report
+
+
+def test_c8_evidence_names_the_worst_state_tensor_and_the_conv_kernels():
+    """C8's printer (chip_smoke.py phase 21 (d), on a failed card-vs-CPU
+    gate): a forced mismatch of one state tensor's change."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_for_c8", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    d_cpu = np.linspace(-1, 1, 12).reshape(3, 4) * 1e-3
+    d_card = d_cpu.copy()
+    d_card[2, 1] += 5e-5
+    kernels = {"sm90_xmma_wgrad_implicit_gemm_indexed": 40, "cudnn::winograd_fprop": 18,
+               "elementwise_kernel": 300}
+    text = cs.c8_evidence("batch_norm_18.w_1_velocity_0 (step 2)", 6.37e-3, d_card, d_cpu,
+                          kernels, {"deterministic": False, "benchmark": False})
+    assert "batch_norm_18.w_1_velocity_0 (step 2)" in text and "6.370e-03" in text
+    assert "'deterministic': False" in text and "(2, 1)" in text
+    assert "sm90_xmma_wgrad_implicit_gemm_indexed" in text and "winograd_fprop" in text
+    assert "elementwise_kernel" not in text and "2 names of 3 kernels" in text

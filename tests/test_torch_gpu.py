@@ -1016,6 +1016,20 @@ def _eager(inf, feed, **kw):
                               scope=inf.scope, **kw)
 
 
+def _replay_divergence(inf, feed):
+    """Every op output of the program from a graph replay (a second entry
+    that fetches them all: its first run captures, its second replays) and
+    from the eager run of ``feed``; the divergence report of the two."""
+    from paddle_tpu_torch.profiling.divergence import divergence_report, op_output_names
+    prog = inf.inference_program
+    names = [n for n in op_output_names(prog) if prog.global_block.has_var(n)]
+    inf.exe.run(prog, feed=feed, fetch_list=names, scope=inf.scope)
+    replay = dict(zip(names, inf.exe.run(prog, feed=feed, fetch_list=names, scope=inf.scope)))
+    eager = dict(zip(names, inf.exe._run_eager(prog, feed=feed, fetch_list=names,
+                                                scope=inf.scope)))
+    return "replay against eager: " + divergence_report(prog, replay, eager)
+
+
 @pytest.mark.parametrize("amp", [None, INT8_AMP], ids=["float32", "int8"])
 def test_graph_replay_matches_the_eager_run_of_the_same_batch(cuda, amp):
     inf = _warm(amp)
@@ -1025,7 +1039,11 @@ def test_graph_replay_matches_the_eager_run_of_the_same_batch(cuda, amp):
     (want,) = _eager(inf, feed)
     print(f"replay vs eager, max abs diff {float(np.abs(got - want).max()):.3e} "
           f"(bit-equal: {np.array_equal(got, want)})")
-    np.testing.assert_array_equal(got, want)
+    # C9's evidence (ROADMAP §C): on a difference, the first op whose output
+    # differs between a replay and the eager run of this batch
+    report = "" if np.array_equal(got, want) else _replay_divergence(inf, feed)
+    print(report)
+    np.testing.assert_array_equal(got, want, err_msg=report)
     # the control: the replay of another batch (the static feed buffers hold
     # each run's feeds) is far outside the gate
     (got_other,) = inf.infer(other)

@@ -105,6 +105,32 @@ def test_the_import_scan_covers_the_pserver_modules():
         assert f"paddle_tpu_torch/{path}" in scanned, path
 
 
+def test_the_import_scan_covers_the_collective_modules():
+    scanned = {str(p.relative_to(REPO)) for p in (REPO / "paddle_tpu_torch").rglob("*.py")}
+    for path in ("parallel/__init__.py", "parallel/mesh.py", "parallel/layout.py",
+                 "parallel/_collectives.py", "parallel/ring_attention.py",
+                 "parallel/pipeline.py", "parallel/parallel_executor.py", "ops/pipeline_ops.py",
+                 "ops/moe_ops.py", "layers/pipeline.py", "profiling/divergence.py"):
+        assert f"paddle_tpu_torch/{path}" in scanned, path
+
+
+def test_the_collective_half_imports_no_jax_and_no_paddle_tpu():
+    """The parallel package, DTensor under it, and the mesh executor's
+    modules pull in neither jax nor the JAX package; importing the port
+    alone does not import DTensor (a second of start-up every process
+    would pay)."""
+    code = ("import sys, paddle_tpu_torch; "
+            "before = 'torch.distributed.tensor' in sys.modules; "
+            "import paddle_tpu_torch.parallel, paddle_tpu_torch.parallel.ring_attention, "
+            "paddle_tpu_torch.parallel.pipeline, paddle_tpu_torch.ops.moe_ops, "
+            "torch.distributed.tensor.experimental; "
+            "print(before, sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'paddle_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.strip() == "False []"
+
+
 def test_pserver_runner_imports_no_jax_and_no_paddle_tpu():
     """The runner's process (its model functions, the transpiler, the
     servers' modules) pulls in neither jax nor the JAX package."""

@@ -582,7 +582,7 @@ def test_run_pserver_cluster_of_runner_processes(tmp_path):
 
 
 # ------------------------------------------------------ the env contract
-def test_env_contract_and_the_collective_half_raising(monkeypatch):
+def test_env_contract_and_the_collective_half_raising(monkeypatch, tmp_path):
     from paddle_tpu_torch import distributed as dist
     monkeypatch.setenv("PADDLE_TRAINER_ID", "3")
     monkeypatch.setenv("PADDLE_TRAINERS_NUM", "4")
@@ -593,9 +593,22 @@ def test_env_contract_and_the_collective_half_raising(monkeypatch):
     monkeypatch.delenv("PADDLE_TRAINERS_NUM")
     monkeypatch.setenv("PADDLE_TRAINERS", "2")
     assert dist.num_trainers() == 2
-    for fn in (dist.init_parallel_env, dist.data_mesh, dist.feed_sharding, dist.barrier):
-        with pytest.raises(NotImplementedError, match="item 12b"):
-            fn()
+    # the collective half is ported (tests/test_torch_parallel.py runs it in
+    # ranks); what a process outside a clique sees: a clique of two needs a
+    # rendezvous, one device a rank, no backend but NCCL and gloo, barrier a
+    # no-op, and what waits for item 12c raises naming it
+    monkeypatch.delenv("PADDLE_TRAINER_ENDPOINTS")
+    with pytest.raises(ValueError, match="needs a coordinator"):
+        dist.init_parallel_env(place=pt.CPUPlace())
+    with pytest.raises(ValueError, match="one device a rank"):
+        dist.init_parallel_env(local_device_count=2, place=pt.CPUPlace())
+    with pytest.raises(ValueError, match="'nccl' or 'gloo'"):
+        dist.init_parallel_env(num_trainers=1, place=pt.CPUPlace(), backend="mpi")
+    assert dist.barrier() is None
+    assert callable(dist.data_mesh) and callable(dist.feed_sharding)
+    with pytest.raises(NotImplementedError, match="item 12c"):
+        pt.checkpoint.CheckpointManager(str(tmp_path), async_save=False).save(
+            pt.Program(), pt.Scope(), step=1, mesh=object())
     assert not dist.is_initialized()
 
 

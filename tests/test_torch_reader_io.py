@@ -441,7 +441,9 @@ def test_device_loader_on_the_cpu_yields_the_batches_in_order():
         assert isinstance(x, torch.Tensor) and x.device.type == "cpu"
         np.testing.assert_array_equal(x.numpy(), wx)
         np.testing.assert_array_equal(d["ids"].numpy(), wd["ids"])
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # sharding= takes a parallel.layout.Sharding (its mesh's device); the
+    # mesh cases run in tests/test_torch_parallel.py's ranks
+    with pytest.raises(AttributeError, match="mesh"):
         DeviceLoader(lambda: iter(batches), sharding=object(), device="cpu")
 
 
