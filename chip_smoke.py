@@ -568,6 +568,31 @@ Phases, each fatal on failure (non-zero exit, no result line):
     1; ``launches_collective``), tokens/s of a warm epoch each way.
     (b) and (c)'s four workers run while this process takes (d); (a) runs
     alone after them.  Phase 31 prints its seconds by piece.
+32. sharded state on the card (``phase_sharded``; ROADMAP §A item 12c):
+    (a) bench.py's embedding row at its largest TPU size (a ``[262,144,
+    128]`` float32 ``sharded_table``, 1,024 Zipf(1.3) ids from seed 17,
+    ``SGD(0.125)`` on its mean) on two worker processes sharing the card
+    over gloo under ``SpecLayout()`` on ``{"fsdp": 2}`` (131,072 rows a
+    rank), both gradient arms: after each of ``P32_STEPS`` steps the
+    rank's shard bit-equal to one process's rows, K2 and K3 (dense arm)
+    handed the rank's shard alone, each rank's peak below one process's;
+    K2 and K3 at that shard against their plain versions, timed beside
+    ``F.embedding`` and ``index_add_``; (b) DeepFM with
+    ``shard_tables=True`` at the Criteo width through
+    ``Trainer(layout=SpecLayout(), health=True)`` on the world of one over
+    NCCL, every state tensor and the sentinel's values bit-equal to the
+    plain ``Trainer(health=True)``, one capture; (c) transformer-base
+    (``P32_C_LAYERS``) trained on a worker pair under ``{"fsdp": 2}``
+    through ``Trainer(checkpoint=, health=True)``, the step-2 save's two
+    shard files and one manifest (``validate_shards``), restored onto no
+    mesh in this process and onto ``{"data": 2}`` on the pair (bit-equal;
+    the next step within phase 31 (b)'s gates of one process's; an
+    impossible budget refused with M501 first); (d) the pair's sentinel
+    against one process's (``P32_SENTINEL_RTOL``), a NaN put into rank 1's
+    batch through ``faults`` tripping both ranks (localization skipped),
+    and the reference's ``tools/health_report.py`` over their telemetry.
+    ``launches_sharded`` counts the main path's launches (the workers'
+    mesh runs and (b)'s Trainer).
 
 Phase 9 also takes the 2 x 256 step in bf16 (``enable_amp``) with cuBLAS's
 reduced-precision bf16 reductions allowed (PyTorch's default) and not, and
@@ -9798,11 +9823,6 @@ def _p31_trainer(pt, **kw):
                           place=pt.CUDAPlace(0), **kw)
 
 
-def _local(t):
-    """A scope value's tensor on this rank (a DTensor's shard)."""
-    return t.to_local() if hasattr(t, "to_local") else t
-
-
 def _full(t):
     """A scope value's whole tensor (a DTensor gathered: collective)."""
     return t.full_tensor() if hasattr(t, "full_tensor") else t
@@ -9815,15 +9835,17 @@ def _p31_persist(program):
 def _p31_state(scope, names):
     """Copies of the scope's state tensors (this rank's shards), on the
     card."""
-    return {n: _local(scope.find_var(n)).clone() for n in names}
+    from paddle_tpu_torch.core.lower import local_of
+    return {n: local_of(scope.find_var(n)).clone() for n in names}
 
 
 def _p31_state_diff(torch, scope, names, want):
     """The state tensors of ``scope`` not bit-equal to the copies ``want``:
     {name: max abs difference}."""
+    from paddle_tpu_torch.core.lower import local_of
     bad = {}
     for n in names:
-        got = _local(scope.find_var(n))
+        got = local_of(scope.find_var(n))
         if not torch.equal(got, want[n]):
             bad[n] = float((got.double() - want[n].double()).abs().max())
     return bad
@@ -9833,13 +9855,14 @@ def _p31_first_op(torch, pt, mesh_exe, program, feed, scope, state):
     """On a failed bit-equality gate of (a): the first op whose output
     differs between the mesh executor's eager step and a plain one, from
     ``state`` and ``feed`` (both steps run op by op; the scope is restored)."""
+    from paddle_tpu_torch.core.lower import local_of
     from paddle_tpu_torch.profiling.divergence import divergence_report, op_output_names
     names = [n for n in op_output_names(program) if n in set(
         v.name for v in program.list_vars())]
     runs = []
     for exe in (mesh_exe, pt.Executor(pt.CUDAPlace(0))):
         for n, v in state.items():
-            _local(scope.find_var(n)).copy_(v)
+            local_of(scope.find_var(n)).copy_(v)
         runs.append(dict(zip(names, exe._run_eager(program, feed=feed, fetch_list=names,
                                                    scope=scope))))
     return divergence_report(program, runs[0], runs[1])
@@ -9853,6 +9876,7 @@ def _p31_a(torch, pt, card, counters):
     bit-equal after each step, the launches a step equal; then the same
     through ``ParallelExecutor`` against a plain ``Executor``.  tokens/s of
     a warm epoch each way."""
+    from paddle_tpu_torch.core.lower import local_of
     from paddle_tpu_torch.parallel import ParallelExecutor, SpecLayout
     res = {}
     reader = pt.batch(_trainer_samples(P31_STEPS * TRAIN_B, seed=31), TRAIN_B)
@@ -9878,7 +9902,7 @@ def _p31_a(torch, pt, card, counters):
     if mesh.backend != "nccl" or mesh.size != 1:
         raise AssertionError(f"phase 31 (a): the trainer's mesh is {mesh!r}, want one NCCL rank")
     for n in names:
-        _local(mt.scope.find_var(n)).copy_(start[n])
+        local_of(mt.scope.find_var(n)).copy_(start[n])
     bad_steps = []
 
     def compare(tr):
@@ -9920,7 +9944,7 @@ def _p31_a(torch, pt, card, counters):
     mscope = pt.Scope()
     pexe.run(startup, scope=mscope)
     for n in names:
-        _local(mscope.find_var(n)).copy_(start[n])
+        local_of(mscope.find_var(n)).copy_(start[n])
     pe = ParallelExecutor(loss_name=loss.name, main_program=main, scope=mscope)
     for f in counters.values():
         f.launches = 0
@@ -9969,9 +9993,10 @@ def _p31_a(torch, pt, card, counters):
     return res, launches
 
 
-def _p31_start(arm):
-    """(b) or (c): start two processes of ``python3 chip_smoke.py
-    --collective-worker`` that share the card over gloo; returns their
+def _p31_start(arm, env=None):
+    """Phase 31 (b) or (c), phase 32 (a) or (c): start two processes of
+    ``python3 chip_smoke.py --collective-worker`` that share the card over
+    gloo (``env``: variables added to their environment); returns their
     handle for :func:`_p31_finish`."""
     root = tempfile.mkdtemp(prefix="chip_smoke_collective_")
     port = _free_port()
@@ -9981,7 +10006,7 @@ def _p31_start(arm):
         log = open(os.path.join(root, f"{arm}_{rank}.log"), "w")
         p = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--collective-worker",
                               arm, str(rank), str(port), out], stdout=log,
-                             stderr=subprocess.STDOUT,
+                             stderr=subprocess.STDOUT, env={**os.environ, **(env or {})},
                              cwd=os.path.dirname(os.path.abspath(__file__)))
         procs.append((p, log, out))
     return arm, root, procs, time.time() + P31_WORKER_S
@@ -10002,15 +10027,16 @@ def _p31_finish(handle):
             log.close()
             with open(log.name) as f:
                 text = f.read()
-            print(f"phase 31 ({arm}) rank {rank} log:\n" + "\n".join(
-                line for line in text.splitlines() if line.startswith(("phase 31", "collectives"))))
+            print(f"worker {arm} rank {rank} log:\n" + "\n".join(
+                line for line in text.splitlines()
+                if line.startswith(("phase 31", "phase 32", "collectives"))))
             if p.returncode != 0 or not os.path.exists(out):
                 failed.append(f"rank {rank} exited {p.returncode}:\n{text[-3000:]}")
                 continue
             with open(out) as f:
                 recs.append(json.load(f))
         if failed:
-            raise AssertionError(f"phase 31 ({arm}): " + "\n".join(failed))
+            raise AssertionError(f"worker pair {arm}: " + "\n".join(failed))
         return recs
     finally:
         for p, log, _ in procs:
@@ -10077,6 +10103,7 @@ def _p31_kernels_at(torch, pt, main, scope, feed, rows, card, label, only_k6=Fal
     rank's ids, K7 and K8 at ``rows * T`` rows, K6 over the rank's shards
     of every parameter (half of each under fsdp); ``only_k6``: K6 alone.
     Returns the largest absolute errors."""
+    from paddle_tpu_torch.core.lower import local_of
     from paddle_tpu_torch.ops.cuda.fused_optimizer import fused_adam_multi, fused_adam_multi_plain
     g = torch.Generator().manual_seed(31)
     ops = main.desc.block(0).ops
@@ -10088,7 +10115,7 @@ def _p31_kernels_at(torch, pt, main, scope, feed, rows, card, label, only_k6=Fal
     ((b1, b2, eps),) = {(o.attr("beta1"), o.attr("beta2"), o.attr("epsilon")) for o in ups}
     entries = []
     for o in ups:
-        p, m1, m2, p1, p2, lr = (_local(scope.find_var(o.input(sl)[0])) for sl in slots)
+        p, m1, m2, p1, p2, lr = (local_of(scope.find_var(o.input(sl)[0])) for sl in slots)
         grad = 1e-3 * torch.randn(p.shape, generator=g).cuda()
         entries.append((p, grad, m1, m2, p1, p2, lr, False))
     mine = fused_adam_multi([_adam_clones(e) for e in entries], b1, b2, eps)
@@ -10114,6 +10141,7 @@ def _p31_b_rank(torch, pt, rank, card):
     The mean loss and every parameter against that run; the state bytes
     this rank holds; its kernels at its local shapes (K6 at each layout's
     shards)."""
+    from paddle_tpu_torch.core.lower import local_of
     from paddle_tpu_torch.parallel import SpecLayout, make_mesh, shard_program_state
     counters = _counters()
     out = {}
@@ -10147,7 +10175,7 @@ def _p31_b_rank(torch, pt, rank, card):
         layout = SpecLayout(mesh_axes=axes)
         mexe = pt.Executor(mesh=mesh, layout=layout)
         shard_program_state(main, scope, mesh, layout)
-        state_bytes = sum(_local(scope.find_var(n)).numel() * _local(scope.find_var(n))
+        state_bytes = sum(local_of(scope.find_var(n)).numel() * local_of(scope.find_var(n))
                           .element_size() for n in names)
         t_piece = _piece_seconds(f"phase 31 (b) {axes} rank {rank} programs, startup and "
                                  f"placement", t_piece)
@@ -10277,7 +10305,8 @@ def _p31_c_rank(torch, pt, rank, card):
 
 def _collective_worker(argv):
     """``chip_smoke.py --collective-worker ARM RANK PORT OUT``: one rank of
-    phase 31 (b) or (c), gloo on the card's CUDA tensors."""
+    phase 31 (b) or (c) or phase 32 (a) or (c), gloo on the card's CUDA
+    tensors."""
     import torch
     arm, rank, port, out = argv[0], int(argv[1]), int(argv[2]), argv[3]
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -10290,7 +10319,8 @@ def _collective_worker(argv):
     pt.distributed.init_parallel_env(trainer_id=rank, num_trainers=2,
                                      coordinator_address=f"127.0.0.1:{port}",
                                      place=pt.CUDAPlace(0), backend="gloo")
-    res = (_p31_b_rank if arm == "b" else _p31_c_rank)(torch, pt, rank, card)
+    res = {"b": _p31_b_rank, "c": _p31_c_rank, "p32a": _p32_a_rank,
+           "p32c": _p32_c_rank}[arm](torch, pt, rank, card)
     pt.distributed.barrier()
     with open(out, "w") as f:
         json.dump(res, f)
@@ -10316,6 +10346,7 @@ def _p31_d(torch, pt, card):
     on the card (x [16,384, 512], 8 experts, d_hidden 2048, capacity
     factor 1.25: a [16,384, 8, 2,560] dispatch tensor), against the plain
     CPU step of the same program from the same parameters."""
+    from paddle_tpu_torch.core.lower import local_of
     main, startup, y, aux, loss, params, grads = _p31_moe_program(pt)
     feed = {"x": np.random.RandomState(34).randn(P31_MOE_TOKENS, D_MODEL).astype(np.float32)}
     fetch = [y.name, aux.name, loss.name] + grads
@@ -10334,7 +10365,7 @@ def _p31_d(torch, pt, card):
         outs = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
         torch.cuda.synchronize()
         runs[where] = {"outs": outs, "s": time.perf_counter() - t0,
-                       "params": {n: _local(scope.find_var(n)).cpu() for n in params}}
+                       "params": {n: local_of(scope.find_var(n)).cpu() for n in params}}
         if where == "card":
             runs[where]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         del exe, scope
@@ -10410,6 +10441,602 @@ def phase_collective(torch, card):
         for name, e in res["b"][k]["max_abs_err"].items():
             errs[name] = max(errs.get(name, 0.0), e)
     return {"launches": launches, "max_abs_err": errs}
+
+
+# ------------------------------------------------------------------ phase 32
+# sharded state on the card (ROADMAP §A item 12c): (a) bench.py's embedding
+# row at its largest TPU size (bench.py:1466-1490) with the table
+# row-sharded over two gloo ranks sharing the card, both gradient arms;
+# (b) DeepFM with shard_tables=True at the Criteo width through
+# Trainer(layout=, health=True) on a world of one over NCCL; (c) a
+# transformer-base checkpoint across topologies; (d) health across (c)'s
+# ranks.  (a)'s and (c)'s two ranks share one card over gloo: their times
+# are no multi-card figure
+P32_ROWS, P32_DIM, P32_B = 262144, 128, 1024
+P32_LR, P32_STEPS, P32_SEED = 0.125, 3, 17
+P32_TABLE = "p32_table"
+P32_FM_STEPS = 2
+P32_FM_PER_STEP = {"gather_rows": 52, "fused_adam": 1}
+P32_C_LAYERS = N_LAYER     # (c), (d): transformer-base at its full 6+6 depth
+P32_C_ROWS = 8             # (c): global rows a batch (4 a rank) x T 256
+P32_C_STEPS = 2            # (c): the steps before the save (at step 2)
+P32_C_GATES = (P31_B_LOSS_RTOL, P31_B_PARAM_NREL)   # (c) (ii): phase 31 (b)'s
+# (d): the sentinel's global gradient norm against one process's from the
+# same state and global batch, relative: a development run on an NVIDIA
+# H100 80GB HBM3 at 700 W read 3.1e-6 (the ranks' sums of squares add in
+# another order, and each rank's step runs op by op over gloo while the
+# one-process step replays a graph)
+P32_SENTINEL_RTOL = 1e-5
+P32_NAN_SITE = "chip_smoke.nan_weights"   # a hit puts a NaN into a batch's weights
+# the kernels phase 32's main path runs (K4 is not on it)
+P32_KERNELS = ("flash_attn_fwd", "gather_rows", "scatter_add_rows", "fused_sgd", "fused_adam",
+               "linear_ce_fwd", "linear_ce_bwd")
+
+
+def _p32_table_program(pt, is_sparse):
+    """bench.py's embedding row: ``sharded_table`` -> mean, SGD 0.125."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        ids = pt.layers.data(name="ids", shape=[1], dtype="int64")
+        emb = pt.embedding.sharded_table(ids, P32_TABLE, rows=P32_ROWS, dim=P32_DIM,
+                                         is_sparse=is_sparse)
+        loss = pt.layers.mean(emb)
+        pt.optimizer.SGD(learning_rate=P32_LR).minimize(loss)
+    return main, startup, loss
+
+
+def _p32_table_feeds():
+    rng = np.random.default_rng(P32_SEED)
+    return [np.minimum(rng.zipf(1.3, (P32_B, 1)) - 1, P32_ROWS - 1).astype(np.int64)
+            for _ in range(P32_STEPS)]
+
+
+class _KernelTables:
+    """The tables K2's and K3's wrappers are handed (their argument check
+    runs first on every call)."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.ops.cuda import embedding as E
+        self.module, self.orig, self.seen = E, E._check, set()
+
+        def spy(name, w, flat_ids, rows=None):
+            self.seen.add((name, tuple(w.shape)))
+            return self.orig(name, w, flat_ids, rows)
+        E._check = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module._check = self.orig
+
+
+def _p32_a_rank(torch, pt, rank, card):
+    """(a) on one rank: each arm's P32_STEPS steps in one process on the
+    card (this rank takes them itself: its rows of the table after each
+    step, its peak), then on ``{"fsdp": 2}`` under ``SpecLayout()`` from the
+    same table (each step's shard bit-equal to those rows, the peak, the
+    kernels' launches and the tables they were handed)."""
+    from paddle_tpu_torch.core.lower import local_of
+    from paddle_tpu_torch.parallel import SpecLayout, make_mesh, shard_program_state
+    counters = _counters()
+    feeds = _p32_table_feeds()
+    start = torch.randn(P32_ROWS, P32_DIM, generator=torch.Generator().manual_seed(P32_ROWS))
+    lo, hi = rank * P32_ROWS // 2, (rank + 1) * P32_ROWS // 2
+    out = {"launches": {k: 0 for k in counters}}
+    for arm, sparse in (("dense", False), ("sparse", True)):
+        # one process: the whole table on the card
+        main, startup, loss = _p32_table_program(pt, sparse)
+        scope, exe = pt.Scope(), pt.Executor(pt.CUDAPlace(0))
+        exe.run(startup, scope=scope)
+        scope.find_var(P32_TABLE).copy_(start)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        want, single_ms = [], []
+        for f in feeds:
+            t0 = time.perf_counter()
+            exe.run(main, feed={"ids": f}, fetch_list=[loss], scope=scope)
+            torch.cuda.synchronize()
+            single_ms.append((time.perf_counter() - t0) * 1e3)
+            want.append(scope.find_var(P32_TABLE)[lo:hi].to("cpu", copy=True))
+        single_peak = torch.cuda.max_memory_allocated()
+        del scope, exe
+        gc.collect()
+        torch.cuda.empty_cache()
+        # two ranks: this rank's rows
+        main, startup, loss = _p32_table_program(pt, sparse)
+        scope = pt.Scope()
+        pt.Executor(pt.CUDAPlace(0)).run(startup, scope=scope)
+        scope.find_var(P32_TABLE).copy_(start)
+        mesh, layout = make_mesh({"fsdp": 2}, host_staged=True), SpecLayout()
+        shard_program_state(main, scope, mesh, layout)
+        mexe = pt.Executor(mesh=mesh, layout=layout)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for f in counters.values():
+            f.launches = 0
+        mesh_ms, equal = [], []
+        with _KernelTables() as kt:
+            for f in feeds:
+                t0 = time.perf_counter()
+                mexe.run(main, feed={"ids": f[rank * P32_B // 2:(rank + 1) * P32_B // 2]},
+                         fetch_list=[loss], scope=scope)
+                torch.cuda.synchronize()
+                mesh_ms.append((time.perf_counter() - t0) * 1e3)
+                equal.append(torch.equal(scope.find_var(P32_TABLE).to_local().cpu(),
+                                         want[len(equal)]))
+        mesh_peak = torch.cuda.max_memory_allocated()
+        launches = {k: f.launches for k, f in counters.items()}
+        for k, n in launches.items():
+            out["launches"][k] += n
+        v = scope.find_var(P32_TABLE)
+        held = sum(local_of(scope.find_var(n)).numel() * local_of(scope.find_var(n)).element_size()
+                   for n in _p31_persist(main))
+        rec = {"steps_bit_equal": equal, "single_ms": single_ms, "mesh_ms": mesh_ms,
+               "single_peak_bytes": single_peak, "mesh_peak_bytes": mesh_peak,
+               "state_bytes_a_rank": held, "placements": [repr(p) for p in v.placements],
+               "local": list(v.to_local().shape),
+               "launches": {k: n for k, n in launches.items() if n},
+               "kernel_tables": sorted([n, list(s)] for n, s in kt.seen)}
+        out[arm] = rec
+        print(f"phase 32 (a) rank {rank} {arm}: the [{P32_ROWS}, {P32_DIM}] table on "
+              f"{rec['placements']} (this rank's {rec['local']}); each step's shard bit-equal to "
+              f"one process's rows {equal}; step ms a rank {[round(x, 3) for x in mesh_ms]} "
+              f"against one process's {[round(x, 3) for x in single_ms]} (two ranks share the "
+              f"card over gloo: no multi-card figure); peak {mesh_peak} bytes against "
+              f"{single_peak}; state {held} bytes a rank; launches {rec['launches']}; the "
+              f"kernels' tables {rec['kernel_tables']} [{card}]")
+        want_launches = {"gather_rows": P32_STEPS}
+        if not sparse:
+            want_launches.update(scatter_add_rows=P32_STEPS, fused_sgd=P32_STEPS)
+        shard = [P32_ROWS // 2, P32_DIM]
+        if not all(equal) or mesh_peak >= single_peak or rec["launches"] != want_launches \
+                or {n for n, _ in rec["kernel_tables"]} != set(want_launches) - {"fused_sgd"} \
+                or any(s != shard for _, s in rec["kernel_tables"]) \
+                or rec["placements"] != ["Shard(dim=0)"]:
+            raise AssertionError(f"phase 32 (a) rank {rank} {arm}: {rec}; want launches "
+                                 f"{want_launches}, K2/K3 handed {shard}")
+        del scope, mexe, v
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _p32_shard_kernels(torch, card):
+    """K2 and K3 at (a)'s shapes, a rank's [131072, 128] shard at the first
+    step's 1,024 ids shifted by each rank's row offset, against their plain
+    versions (K2 bit-equal on the card, K3 bit-equal to its plain version
+    on the CPU), with times beside ``F.embedding`` and ``index_add_`` on the
+    shard (each over the ids in the shard: the library calls have no zero
+    row for another rank's id) and the bounds."""
+    from paddle_tpu_torch.ops.cuda.embedding import (gather_rows, gather_rows_plain,
+                                                     scatter_add_rows, scatter_add_rows_plain)
+    ids = torch.from_numpy(_p32_table_feeds()[0].reshape(-1).astype(np.int32)).cuda()
+    local = P32_ROWS // 2
+    w = torch.randn(local, P32_DIM, generator=torch.Generator().manual_seed(32)).cuda()
+    g = torch.randn(P32_B, P32_DIM, generator=torch.Generator().manual_seed(33)).cuda()
+    out = {}
+    for rank in range(2):
+        at = (ids - rank * local).contiguous()
+        inside = (at >= 0) & (at < local)
+        lib_ids = at.clamp(0, local - 1).long()
+        lib_rows = torch.where(inside[:, None], g, 0.0)
+        k2, ref2 = gather_rows(w, at), gather_rows_plain(w, at)
+        k3 = scatter_add_rows(w, at, g).cpu()
+        ref3 = scatter_add_rows_plain(w.cpu(), at.cpu(), g.cpu())
+        torch.cuda.synchronize()
+        ms2, lib2 = _best(lambda fn: _ms(fn, 200),
+                          [lambda: gather_rows(w, at),
+                           lambda: torch.nn.functional.embedding(lib_ids, w)])
+        plain2 = _ms(lambda: gather_rows_plain(w, at), 50)
+        ms3, lib3 = _best(lambda fn: _ms(fn, 20),
+                          [lambda: scatter_add_rows(w, at, g),
+                           lambda: torch.zeros_like(w).index_add_(0, lib_ids, lib_rows)])
+        plain3 = _ms(lambda: scatter_add_rows_plain(w, at, g), 20)
+        rows_read = int(torch.unique(at[inside]).numel())
+        b2, by2 = _bound(4 * (rows_read * P32_DIM + P32_B + P32_B * P32_DIM), 0)
+        b3, by3 = _bound(4 * (P32_B + P32_B * P32_DIM + local * P32_DIM), P32_B * P32_DIM)
+        out[rank] = {
+            "gather_rows": dict(max_abs_err=(k2 - ref2).abs().max().item(),
+                                bit_equal=torch.equal(k2, ref2), ms=ms2, plain_ms=plain2,
+                                library_ms=lib2, bound_ms=b2, bound_by=by2, rows_read=rows_read,
+                                table=[local, P32_DIM], ids=P32_B,
+                                ids_in_shard=int(inside.sum())),
+            "scatter_add_rows": dict(max_abs_err=(k3 - ref3).abs().max().item(),
+                                     bit_equal=torch.equal(k3, ref3), ms=ms3, plain_ms=plain3,
+                                     library_ms=lib3, bound_ms=b3, bound_by=by3,
+                                     table=[local, P32_DIM], ids=P32_B,
+                                     ids_in_shard=int(inside.sum()))}
+        for name, r in out[rank].items():
+            print(f"phase 32 (a) {name} on rank {rank}'s shard [{local},{P32_DIM}] at the step's "
+                  f"{P32_B} ids shifted by {rank * local} ({r['ids_in_shard']} in the shard): "
+                  f"bit-equal to its plain version {r['bit_equal']}; kernel {r['ms']:.4f} ms, "
+                  f"plain {r['plain_ms']:.4f} ms, "
+                  f"{'F.embedding' if name == 'gather_rows' else 'index_add_'} "
+                  f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}) "
+                  f"[{card}]")
+        if not all(r["bit_equal"] for r in out[rank].values()):
+            raise AssertionError(f"phase 32 (a): a kernel differs from its plain version at "
+                                 f"rank {rank}'s shard: {out[rank]}")
+    return out
+
+
+def _p32_fm_trainer(pt, shard):
+    from paddle_tpu_torch.models import deepfm
+    from paddle_tpu_torch.parallel import SpecLayout
+    n = len(deepfm.CRITEO_VOCAB)
+
+    def train_func():
+        ids, dense, label = deepfm.data_layers(n)
+        loss, _ = deepfm.train_network(ids, dense, label, deepfm.CRITEO_VOCAB, embed_dim=FM_DIM,
+                                       shard_tables=shard)
+        return loss
+    kw = {"layout": SpecLayout()} if shard else {}
+    with pt.unique_name.guard():
+        return pt.Trainer(train_func=train_func,
+                          optimizer_func=lambda: pt.optimizer.Adam(learning_rate=FM_LR),
+                          place=pt.CUDAPlace(0), health=True, **kw)
+
+
+def _p32_b(torch, pt, card, counters):
+    """(b): DeepFM with ``shard_tables=True`` at the Criteo width through
+    ``Trainer(layout=SpecLayout(), health=True)`` on the world of one over
+    NCCL, on phase 27 (d)'s feeds, against the plain ``Trainer(health=
+    True)`` from the same parameters: every state tensor bit-equal after
+    the epoch, one capture (the sentinel inside the step's graph), the
+    sentinel's values a step equal."""
+    from paddle_tpu_torch.core.lower import local_of
+    from paddle_tpu_torch import health
+    from paddle_tpu_torch.models import deepfm
+    n = len(deepfm.CRITEO_VOCAB)
+    feeds = [deepfm.synthetic_feed(270 + k, FM_B) for k in range(P32_FM_STEPS)]
+    order = [f"C{i}" for i in range(n)] + ["dense", "label"]
+
+    def reader():
+        for f in feeds:
+            yield list(zip(*[f[f"C{i}"] for i in range(n)], f["dense"], f["label"]))
+
+    def steps_of(tr):
+        first = len(health.HEALTH_RECORDS.records())
+        losses = []
+        tr.train(1, lambda ev: losses.append(float(np.asarray(ev.metrics[0])))
+                 if isinstance(ev, pt.EndStepEvent) else None, reader=reader, feed_order=order)
+        recs = [r for r in health.HEALTH_RECORDS.records()[first:] if r.get("kind") == "step"]
+        return losses, [{k: r.get(k) for k in ("ok", "loss", "grad_norm", "param_norm",
+                                                "update_ratio")} for r in recs]
+    t0 = time.perf_counter()
+    plain = _p32_fm_trainer(pt, False)
+    mt = _p32_fm_trainer(pt, True)
+    names = _p31_persist(plain.train_program)
+    for nm in names:
+        local_of(mt.scope.find_var(nm)).copy_(plain.scope.find_var(nm))
+    loss_p, sent_p = steps_of(plain)
+    for f in counters.values():
+        f.launches = 0
+    loss_m, sent_m = steps_of(mt)
+    launches = {k: f.launches for k, f in counters.items()}
+    info = mt.exe.cache_info()
+    bad = [nm for nm in names if not torch.equal(local_of(mt.scope.find_var(nm)),
+                                                 plain.scope.find_var(nm))]
+    mesh = mt.exe.mesh
+    placements = {nm: [repr(p) for p in mt.scope.find_var(nm).placements]
+                  for nm in ("fm_emb_2", "fm_w1_2")}
+    rec = {"losses": loss_m, "plain_losses": loss_p, "sentinel": sent_m, "plain_sentinel": sent_p,
+           "state_tensors": len(names), "not_bit_equal": bad[:8], "captures": info["captures"],
+           "mesh": repr(mesh), "placements": placements,
+           "launches": {k: v for k, v in launches.items() if v}, "seconds": time.perf_counter() - t0}
+    print(f"phase 32 (b) DeepFM(shard_tables=True) at the Criteo width through "
+          f"Trainer(layout=SpecLayout(), health=True) on {mesh!r}, {P32_FM_STEPS} steps of "
+          f"{FM_B}: losses {loss_m} (plain {loss_p}); state tensors not bit-equal to the plain "
+          f"Trainer's {len(bad)} of {len(names)}; captures {info['captures']}; the sentinel a "
+          f"step {sent_m} (plain {sent_p}); {placements}; launches {rec['launches']} "
+          f"[{card}]")
+    want = {k: v * P32_FM_STEPS for k, v in P32_FM_PER_STEP.items()}
+    if bad or loss_m != loss_p or sent_m != sent_p or info["captures"] != 1 \
+            or mesh.size != 1 or mesh.backend != "nccl" \
+            or placements["fm_emb_2"] != ["Shard(dim=0)"] \
+            or any(launches[k] < v for k, v in want.items()) \
+            or not all(s["ok"] for s in sent_m):
+        raise AssertionError(f"phase 32 (b): {rec}; want launches at least {want}")
+    del plain, mt
+    _free_trainer(torch, "phase 32 (b)")
+    return rec, launches
+
+
+def _p32_c_train_func(pt):
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.models import transformer
+
+    def train_func():
+        src = layers.data(name="src", shape=[1], dtype="int64", lod_level=1)
+        trg = layers.data(name="trg", shape=[1], dtype="int64", lod_level=1)
+        lbl = layers.data(name="lbl", shape=[T, 1], dtype="int64")
+        w = layers.data(name="weights", shape=[T, 1], dtype="float32")
+        loss, _ = transformer.train_network(src, trg, lbl, VOCAB, VOCAB, weights=w, max_len=T,
+                                            n_layer=P32_C_LAYERS, d_model=D_MODEL, n_head=H,
+                                            d_inner=D_INNER, fuse_final_ce=True)
+        return loss
+    return train_func
+
+
+def _p32_c_programs(pt):
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        loss = _p32_c_train_func(pt)()
+        pt.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    return main, startup, loss
+
+
+def _p32_c_samples(batch, rank=None):
+    """Batch ``batch``'s P32_C_ROWS samples (rank ``rank``'s rows of them,
+    or all): source lengths in [129, 256], target and label at 256,
+    weights 1; a hit of ``P32_NAN_SITE`` puts a NaN into the first
+    sample's weights."""
+    from paddle_tpu_torch import faults
+    rs = np.random.RandomState(3200 + batch)
+    out = [(rs.randint(1, VOCAB, (rs.randint(T // 2 + 1, T + 1), 1)).astype(np.int64),
+            rs.randint(1, VOCAB, (T, 1)).astype(np.int64),
+            rs.randint(1, VOCAB, (T, 1)).astype(np.int64),
+            np.ones((T, 1), np.float32)) for _ in range(P32_C_ROWS)]
+    if rank is not None:
+        per = P32_C_ROWS // 2
+        out = out[rank * per:(rank + 1) * per]
+        if faults.fire(P32_NAN_SITE):
+            out[0][3][0, 0] = np.nan
+    return out
+
+
+def _p32_digests(scope, names):
+    """sha1 of each state tensor's whole value (a DTensor gathered: every
+    rank calls it), as host bytes."""
+    import hashlib
+    return {n: hashlib.sha1(_full(scope.find_var(n)).detach().cpu().contiguous().numpy()
+                            .tobytes()).hexdigest() for n in names}
+
+
+def _p32_c_rank(torch, pt, rank, card):
+    """(c) and (d) on one rank (gloo on the card's CUDA tensors): the
+    transformer trained on ``{"fsdp": 2}`` through ``Trainer(checkpoint=,
+    health=True)``, saving at step 2; the sentinel's step-1 gradient norm
+    against one process's; a NaN put into rank 1's next batch through
+    ``faults``; then the step-2 checkpoint restored onto ``{"data": 2}``
+    (an impossible budget refused first), bit-equal, and its next step
+    against one process's step from the restored state."""
+    from paddle_tpu_torch import faults, health
+    from paddle_tpu_torch.analysis import PredictedOOMError
+    from paddle_tpu_torch.checkpoint import CheckpointConfig, CheckpointManager
+    from paddle_tpu_torch.parallel import SpecLayout, make_mesh
+    counters = _counters()
+    root = os.environ["CHIP_SMOKE_P32_DIR"]
+    ckpt = os.path.join(root, "ckpt")
+    order = ["src", "trg", "lbl", "weights"]
+    out = {"launches": {k: 0 for k in counters}}
+    t_piece = time.perf_counter()
+
+    def trainer(axes, **kw):
+        with pt.unique_name.guard():
+            return pt.Trainer(_p32_c_train_func(pt), lambda: pt.optimizer.Adam(learning_rate=1e-3),
+                              place=pt.CUDAPlace(0), mesh=make_mesh(axes, host_staged=True),
+                              layout=SpecLayout(mesh_axes=axes), **kw)
+
+    def epoch(tr, batches):
+        losses = []
+        for f in counters.values():
+            f.launches = 0
+        tr.train(1, lambda ev: losses.append(float(np.asarray(ev.metrics[0])))
+                 if isinstance(ev, pt.EndStepEvent) else None,
+                 reader=lambda: (_p32_c_samples(b, rank) for b in batches), feed_order=order)
+        for k, f in counters.items():
+            out["launches"][k] += f.launches
+        return losses
+
+    def plain_step(state, batch, sentinels=False):
+        """One process's step on the card from ``state`` (whole values) on
+        the global batch: (loss, the sentinel's values, parameters)."""
+        main, startup, loss = _p32_c_programs(pt)
+        scope, exe = pt.Scope(), pt.Executor(pt.CUDAPlace(0), sentinels=sentinels)
+        exe.run(startup, scope=scope)
+        for n, v in state.items():
+            scope.find_var(n).copy_(v.reshape(scope.find_var(n).shape))
+        taps = []
+        exe._health_hook = lambda **kw: taps.append([float(np.asarray(v).reshape(-1)[0])
+                                                     for v in kw["values"]])
+        feeder = pt.DataFeeder(feed_list=[main.global_block.var(n) for n in order],
+                               program=main, seq_len_buckets="pow2")
+        # the sentinel's values come from a step through run (a capture, its
+        # eager run first); a step without them runs op by op, no capture
+        step = exe.run if sentinels else exe._run_eager
+        (lv,) = step(main, feed=feeder.feed(_p32_c_samples(batch)), fetch_list=[loss],
+                     scope=scope)
+        params = {p.name: scope.find_var(p.name).clone()
+                  for p in main.global_block.all_parameters()}
+        return float(lv), (taps[0] if taps else None), params
+
+    # (c): train and save at step 2; (d): the trainer's sentinel
+    t1 = trainer({"fsdp": 2}, health=True,
+                 checkpoint=CheckpointConfig(dir=ckpt, step_interval=1, epoch_interval=0))
+    names = _p31_persist(t1.train_program)
+    start = {n: _full(t1.scope.find_var(n)).clone() for n in names}
+    first = len(health.HEALTH_RECORDS.records())
+    out["losses"] = epoch(t1, range(P32_C_STEPS))
+    steps = [r for r in health.HEALTH_RECORDS.records()[first:] if r.get("kind") == "step"]
+    out["steps_saved"] = t1.ckpt_manager.steps()
+    out["state2"] = _p32_digests(t1.scope, names)
+    t_piece = _piece_seconds(f"phase 32 (c) rank {rank}: the Trainer on {{'fsdp': 2}}, "
+                             f"{P32_C_STEPS} steps and the save", t_piece)
+    loss1, sent1, _ = plain_step(start, 0, sentinels=True)
+    del start
+    out["sentinel"] = {"grad_norm": steps[0]["grad_norm"], "plain_grad_norm": sent1[2],
+                       "loss": steps[0]["loss"], "plain_loss": loss1}
+    out["sentinel"]["rel"] = abs(sent1[2] - steps[0]["grad_norm"]) / abs(sent1[2])
+    # (d): a NaN in rank 1's next batch, through faults
+    faults.install(f"drop@{P32_NAN_SITE}:n=1" if rank == 1 else None, seed=0)
+    first = len(health.HEALTH_RECORDS.records())
+    try:
+        out["nan_losses"] = epoch(t1, [P32_C_STEPS])
+    finally:
+        faults.reset()
+    out["trips"] = [{k: r.get(k) for k in ("step", "bad_vars", "localization", "rank")}
+                    for r in health.HEALTH_RECORDS.records()[first:]
+                    if r.get("event") == "non-finite"]
+    del t1
+    _free_trainer(torch, f"phase 32 (c) rank {rank}'s first Trainer")
+    t_piece = _piece_seconds(f"phase 32 (c)-(d) rank {rank}: the sentinel's reference step and "
+                             f"the NaN step", t_piece)
+    # (c) (ii): onto {"data": 2}; an impossible budget first
+    try:
+        trainer({"data": 2}, checkpoint=CheckpointConfig(dir=ckpt, step_interval=0,
+                                                         epoch_interval=0, memory_budget=1024))
+        out["m501"] = None
+    except PredictedOOMError as e:
+        out["m501"] = e.diagnostic.code
+    t2 = trainer({"data": 2}, checkpoint=CheckpointConfig(dir=ckpt, step_interval=0,
+                                                          epoch_interval=0))
+    out["restored"] = _p32_digests(t2.scope, names)
+    out["restored_placements"] = {n: [repr(p) for p in t2.scope.find_var(n).placements]
+                                  for n in ("src_emb", "fc_0.w_0")}
+    restored = {n: _full(t2.scope.find_var(n)).clone() for n in names}
+    # the resumed epoch skips the steps the checkpoint took (its step_id)
+    out["next_loss"] = epoch(t2, list(range(P32_C_STEPS)) + [P32_C_STEPS + 1])
+    params = {p.name: _full(t2.scope.find_var(p.name)).cpu().numpy()
+              for p in t2.train_program.global_block.all_parameters()}
+    del t2
+    _free_trainer(torch, f"phase 32 (c) rank {rank}'s restored Trainer")
+    loss_p, _, params_p = plain_step(restored, P32_C_STEPS + 1)
+    out["next_loss_plain"] = loss_p
+    out["next_loss_rel"] = abs(out["next_loss"][0] - loss_p) / abs(loss_p)
+    worst = max((_norm_rel(params[n], params_p[n].cpu().numpy()), n) for n in params)
+    out["next_param_nrel"], out["next_param_worst"] = worst
+    _piece_seconds(f"phase 32 (c) rank {rank}: the restore onto {{'data': 2}} and its step",
+                   t_piece)
+    print(f"phase 32 (c) rank {rank}: losses {out['losses']}; saved steps "
+          f"{out['steps_saved']}; restored onto {{'data': 2}} {out['restored_placements']}, "
+          f"state digests equal to the saved state's "
+          f"{out['restored'] == out['state2']}; an impossible budget {out['m501']}; the next "
+          f"step's loss {out['next_loss']} against one process's {loss_p} (relative "
+          f"{out['next_loss_rel']:.3e}, gate {P32_C_GATES[0]}), worst parameter {worst[1]} "
+          f"{worst[0]:.3e} norm-relative (gate {P32_C_GATES[1]}) [{card}]")
+    print(f"phase 32 (d) rank {rank}: the sentinel's step-1 gradient norm "
+          f"{out['sentinel']['grad_norm']} against one process's "
+          f"{out['sentinel']['plain_grad_norm']} (relative {out['sentinel']['rel']:.3e}, gate "
+          f"{P32_SENTINEL_RTOL}); the NaN step's losses {out['nan_losses']}, trips {out['trips']} "
+          f"[{card}]")
+    if out["restored"] != out["state2"] or out["m501"] != "M501" \
+            or out["next_loss_rel"] > P32_C_GATES[0] or worst[0] > P32_C_GATES[1] \
+            or out["sentinel"]["rel"] > P32_SENTINEL_RTOL or len(out["trips"]) != 1 \
+            or "skipped" not in (out["trips"][0]["localization"] or {}) \
+            or out["trips"][0]["rank"] != rank:
+        raise AssertionError(f"phase 32 (c)-(d) rank {rank}: outside the gates: "
+                             f"{ {k: v for k, v in out.items() if k not in ('state2', 'restored')} }")
+    return out
+
+
+def _p32_c_parent(torch, pt, card, root, recs):
+    """(c) (i) and (d)'s report in this process: the step-2 checkpoint's
+    manifest names both ranks' files and passes ``validate_shards``; it
+    restores onto no mesh on the card, every persistable bit-equal to the
+    ranks' state; ``tools/health_report.py`` (the reference's, unedited)
+    over the ranks' telemetry."""
+    from paddle_tpu_torch.checkpoint import (CheckpointManager, checkpoint_dir, read_manifest,
+                                             validate_shards)
+    ckpt = os.path.join(root, "ckpt")
+    d = checkpoint_dir(ckpt, P32_C_STEPS)
+    man = read_manifest(d)
+    summary = validate_shards(d, man)
+    main, startup, _ = _p32_c_programs(pt)
+    scope, exe = pt.Scope(), pt.Executor(pt.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    CheckpointManager(ckpt).restore(main, scope, step=P32_C_STEPS)
+    names = _p31_persist(main)
+    digests = _p32_digests(scope, names)
+    bad = [n for n in names if digests[n] != recs[0]["state2"][n]]
+    del scope, exe
+    _free_trainer(torch, "phase 32 (c) (i)")
+    tool = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", "health_report.py")
+    tel = os.path.join(root, "telemetry")
+    run = subprocess.run([sys.executable, tool, tel, "--json"], capture_output=True, text=True,
+                         timeout=120)
+    strict = subprocess.run([sys.executable, tool, tel, "--strict"], capture_output=True,
+                            text=True, timeout=120)
+    report = json.loads(run.stdout) if run.returncode == 0 else {}
+    health_ranks = report.get("health") or {}
+    rec = {"shards": {k: v["file"] for k, v in man["shards"].items()}, "validate": summary,
+           "mesh": man["mesh"], "restored_on_no_mesh_not_equal": bad, "state_tensors": len(names),
+           "report_ranks": sorted(health_ranks),
+           "lockstep": (report.get("fingerprint_lockstep") or {}).get("lockstep"),
+           "trips": {r: h["events"].get("non-finite") for r, h in health_ranks.items()},
+           "report_rc": run.returncode, "strict_rc": strict.returncode}
+    print(f"phase 32 (c) (i): the step-{P32_C_STEPS} checkpoint's manifest names {rec['shards']} "
+          f"(mesh {rec['mesh']}), validate_shards {summary}; restored onto no mesh on the card, "
+          f"{len(names) - len(bad)} of {len(names)} persistables bit-equal to the ranks' state "
+          f"[{card}]")
+    print(f"phase 32 (d) tools/health_report.py --json: ranks {rec['report_ranks']}, fingerprint "
+          f"lockstep {rec['lockstep']}, non-finite trips by rank {rec['trips']} (exit "
+          f"{run.returncode}); --strict exit {strict.returncode}")
+    if rec["shards"] != {"0": "shard_r0.npz", "1": "shard_r1.npz"} or bad \
+            or rec["report_ranks"] != ["0", "1"] or rec["lockstep"] is not True \
+            or rec["trips"] != {"0": 1, "1": 1} or run.returncode != 0 or strict.returncode != 1:
+        raise AssertionError(f"phase 32 (c) (i) / (d): {rec}; {run.stderr[-2000:]}")
+    return rec
+
+
+def phase_sharded(torch, card):
+    """Phase 32 (see the comment above P32_ROWS): sharded state on the card.
+    (a)'s and (c)/(d)'s worker pairs run while this process takes (b), then
+    this process checks K2 and K3 at (a)'s shard shapes, restores (c)'s
+    checkpoint onto no mesh and reads (d)'s report.  Returns the launches
+    of the main path (the workers' mesh runs and (b)'s Trainer, counted
+    from 0; the one-process references and the kernel checks left out),
+    the kernels' largest errors and K2's and K3's records at the shard."""
+    import paddle_tpu_torch as pt
+    counters = _counters()
+    res = {}
+    t_piece = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    tel = os.path.join(root, "telemetry")
+    os.makedirs(tel)
+    env = {"CHIP_SMOKE_P32_DIR": root, "PADDLE_TPU_TELEMETRY_DIR": tel}
+    try:
+        workers = [_p31_start("p32a", env), _p31_start("p32c", env)]
+        try:
+            res["b"], b_launches = _p32_b(torch, pt, card, counters)
+            t_piece = _piece_seconds("phase 32 (b), beside the workers", t_piece)
+        finally:
+            recs = []
+            for h in workers:
+                try:
+                    recs.append(_p31_finish(h))
+                except AssertionError as e:
+                    recs.append(e)
+        for rec in recs:
+            if isinstance(rec, AssertionError):
+                raise rec
+        res["a"], res["c"] = recs
+        t_piece = _piece_seconds("phase 32 (a) and (c)-(d) to their end", t_piece)
+        res["kernels"] = _p32_shard_kernels(torch, card)
+        res["c_parent"] = _p32_c_parent(torch, pt, card, root, res["c"])
+        _piece_seconds("phase 32 the kernels at the shard, (c) (i) and (d)'s report", t_piece)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {k: b_launches.get(k, 0) + sum(r["launches"][k] for r in res["a"] + res["c"])
+                for k in counters}
+    print(f"phase 32 launches of the main path (the workers' mesh runs and (b)'s Trainer): "
+          f"{launches} [{card}]")
+    missing = [k for k in P32_KERNELS if not launches.get(k)]
+    if missing or launches["int8_matmul"]:
+        raise AssertionError(f"phase 32: kernels of the path never launched: {missing}; "
+                             f"{launches}")
+    print(json.dumps({"sharded": {
+        "a": [{k: v for k, v in r.items() if k != "launches"} for r in res["a"]],
+        "b": res["b"], "c": [{k: v for k, v in r.items() if k not in ("state2", "restored",
+                                                                      "launches")}
+                             for r in res["c"]],
+        "c_parent": res["c_parent"], "kernels": res["kernels"]}}, default=str))
+    errs = {name: max(res["kernels"][r][name]["max_abs_err"] for r in (0, 1))
+            for name in ("gather_rows", "scatter_add_rows")}
+    return {"launches": launches, "max_abs_err": errs,
+            "shapes": {name: {f"rank{r}": res["kernels"][r][name] for r in (0, 1)}
+                       for name in ("gather_rows", "scatter_add_rows")}}
 
 
 def _release_serving(torch, label):
@@ -10496,6 +11123,7 @@ def _main(torch, build):
     dec = timed("decode", phase_decode)
     ps = timed("pserver", phase_pserver)
     coll = timed("collective", phase_collective)
+    shard = timed("sharded", phase_sharded)
     print(f"seconds by phase function: {json.dumps(seconds)}; "
           f"{sum(seconds.values()):.1f} in all; {time.perf_counter() - t_main:.1f} since the "
           f"card's name was read (the kernel build included) [{card}]")
@@ -10596,6 +11224,11 @@ def _main(torch, build):
     # (K5), counted from 0.
     # max_abs_err_collective: (b)'s check of K1, K2, K3, K7, K8 and K6 at
     # each rank's local shapes, also in max_abs_err
+    # launches_sharded: phase 32's main path, counted from 0 -- (a)'s mesh
+    # steps on both ranks (K2, K3 and K5 on the dense arm's shard), (b)'s
+    # Trainer (K2 52, K6 1 a step), (c)-(d)'s Trainers on both ranks (K1,
+    # K2, K3, K6, K7, K8); the one-process references and the kernel checks
+    # left out.  max_abs_err_sharded: K2's and K3's checks at (a)'s shard
     # max_abs_err_pserver: phase 30's check of K6 once a parameter, K1, K2,
     # K3, K7 and K8 at (b)'s trainer shapes and K5 at (c)'s dense shapes,
     # also in max_abs_err
@@ -10634,6 +11267,10 @@ def _main(torch, build):
         if e["name"] in coll["max_abs_err"]:
             e["max_abs_err_collective"] = coll["max_abs_err"][e["name"]]
             e["max_abs_err"] = max(e["max_abs_err"], e["max_abs_err_collective"])
+        e["launches_sharded"] = shard["launches"].get(e["name"], 0)
+        if e["name"] in shard["max_abs_err"]:
+            e["max_abs_err_sharded"] = shard["max_abs_err"][e["name"]]
+            e["max_abs_err"] = max(e["max_abs_err"], e["max_abs_err_sharded"])
     # K2 at phase 27's shapes (the 10,131,227-row field's [V, 16] and [V, 1]
     # tables, the scalar branch at D 1; a 1,460-row field's), each with its
     # times, plain version, F.embedding and bound
@@ -10644,6 +11281,10 @@ def _main(torch, build):
     # the book NMT's two tables (phase 29)
     kernels[0]["shapes_decode"] = dec["k1"]
     kernels[1]["shapes_decode"] = dec["k2"]
+    # K2 and K3 at phase 32 (a)'s shard: [131,072, 128] at the step's 1,024
+    # ids shifted by each rank's row offset
+    kernels[1]["shapes_sharded"] = shard["shapes"]["gather_rows"]
+    kernels[2]["shapes_sharded"] = shard["shapes"]["scatter_add_rows"]
     k4["quantizers"]["launches_profile"] = {
         n: PHASE19["launches_profile"].get(n, 0) for n in ("abs_max_pair", "quantize_int8")}
     k4["quantizers"]["launches_reference_path"] = {
@@ -10671,7 +11312,7 @@ def _main(torch, build):
                  launches_decode={k: 0 for k in "abc"},
                  launches_pserver={k: v.get(name + ".bf16", 0)
                                    for k, v in ps["launches_pserver"].items()},
-                 launches_collective=0)
+                 launches_collective=0, launches_sharded=0)
         lstm_err = seq_launches["max_abs_err"].get(f"{name}_bf16")
         if lstm_err is not None:
             e["max_abs_err_lstm"] = lstm_err
@@ -10693,7 +11334,7 @@ def _main(torch, build):
                     "shapes": ps["rowvec"]["cases"], "launches_decode": dec["rowvec"],
                     "launches_pserver": {k: v.get("rowvec_mm", 0)
                                          for k, v in ps["launches_pserver"].items()},
-                    "launches_collective": 0})
+                    "launches_collective": 0, "launches_sharded": 0})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

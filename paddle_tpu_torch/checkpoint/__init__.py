@@ -11,8 +11,9 @@ that copy into the scope's tensors (the step's CUDA graph replays on).
 ``Trainer(checkpoint=CheckpointConfig(...))`` wires periodic saves,
 resume from the latest checkpoint, and the health layer's rollback and
 save-on-fetch-timeout.  A directory either package writes restores in the
-other; on one card a checkpoint has one shard (resharding onto a mesh
-waits for ROADMAP §A item 12c)."""
+other.  State on a mesh across processes saves one shard file a rank,
+rank 0's manifest naming them all, and restores onto any target mesh and
+layout (or onto no mesh)."""
 from .manager import (CHECKPOINT_SCOPE, CKPT_RECORDS, CheckpointConfig,  # noqa: F401
                       CheckpointManager, restore_fit_dir,
                       snapshot_program_state)

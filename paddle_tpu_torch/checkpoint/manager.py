@@ -11,12 +11,12 @@ either package writes restores in the other).
   step before it, never a torn one.  The writer thread waits on the event
   and takes host arrays only: npz writing, fsync and the atomic commit
   happen there.
-* **Atomic commit**: the payload goes into ``ckpt_<step>.tmp.<pid>/``, the
-  manifest last inside it, then one ``os.replace`` publishes the
-  directory; a reader never sees a torn checkpoint and a killed writer
-  leaves only a ``.tmp`` torso.  Keep-last-K retention prunes committed
-  checkpoints oldest first.  A save that failed on the writer raises at
-  the next ``save`` / ``wait``.
+* **Atomic commit**: the payload goes into ``ckpt_<step>.tmp.<token>/``
+  (a name of its own for each save), the manifest last inside it, then
+  one ``os.replace`` publishes the directory; a reader never sees a torn
+  checkpoint and a killed writer leaves only a ``.tmp`` torso.
+  Keep-last-K retention prunes committed checkpoints oldest first.  A
+  save that failed on the writer raises at the next ``save`` / ``wait``.
 * **Restore in place** (:meth:`CheckpointManager.restore`): each value is
   copied into the tensor the scope already holds (``io``'s rule), so a
   restore, a resume or a rollback keeps every state tensor's address and
@@ -31,9 +31,21 @@ either package writes restores in the other).
   bytes; ``save_s`` / ``snapshot_s`` / ``restore_s`` histograms),
   ``checkpoint_<pid>.jsonl`` records and ``ckpt::*`` timeline spans.
 
-On one card a save has one shard (``shard_r0.npz``).  Saving or restoring
-across a mesh (``mesh=`` / ``layout=``: multi-rank shard files and a
-resharded restore) waits for ROADMAP §A item 12c and raises.
+* **Multi-rank saves** (state on DTensors across processes): every rank
+  writes its own ``shard_r<k>.npz`` (its local shards with their global
+  index; a replicated chunk only by the lowest rank that holds it), to a
+  temporary name and then renamed; the ranks' chunk maps are gathered
+  through the clique on the training thread (``all_gather_object``, in
+  the synchronous half: the writer thread runs no collective), with
+  each rank's pending writer error, so that every rank raises together.
+  All ranks write into the save's own tmp directory, which rank 0 names;
+  rank 0's writer waits for every rank's file, then writes
+  ``program.json`` and the manifest last, naming every rank's file, and
+  renames the directory into place: the commit point.
+* **Resharded restore** (``restore(mesh=, layout=)``): the chunks are
+  reassembled into whole host arrays and each rank keeps its shard of the
+  TARGET placement (which need not be the source's), copied into the
+  DTensor the scope holds where the placement is unchanged.
 
 ``Trainer(checkpoint=CheckpointConfig(...))`` wires periodic saves,
 resume from the latest checkpoint, and the health layer's actions
@@ -47,6 +59,7 @@ import queue
 import shutil
 import threading
 import time
+import uuid
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from ..log import VLOG
@@ -70,11 +83,36 @@ _RNG_KEY = "@RNG_STATE@"
 _RNG_IMPL_PREFIX = "torch-"
 
 
-def _no_mesh(mesh, layout, what: str):
-    if mesh is not None or layout is not None:
-        raise NotImplementedError(
-            f"CheckpointManager.{what}(mesh=, layout=) (multi-rank shard files, a resharded "
-            f"restore) is not ported to paddle_tpu_torch yet (ROADMAP §A item 12c)")
+def _clique() -> Tuple[int, int]:
+    """(this process's rank, the clique's size) of the process group, or
+    (0, 1) without one."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _index_meta(sl: Tuple[slice, ...], shape) -> Optional[List[List[int]]]:
+    """A shard's slices as the manifest's index (``[[start, stop]]`` a
+    dim), or None for the whole array (the JAX package's form)."""
+    out = [[int(s.start), int(s.stop)] for s in sl]
+    if all(a == 0 and b == int(d) for (a, b), d in zip(out, shape)):
+        return None
+    return out
+
+
+def _chunk_map(chunks) -> Tuple[Dict[str, List[dict]], List[str]]:
+    """({var: [{"key", "index"}]}, the npz keys in chunk order) of a
+    snapshot's chunks: a whole var's key is its name, a shard's
+    ``<name>::<k>`` (the k-th chunk of that var in this file)."""
+    chunk_map: Dict[str, List[dict]] = {}
+    keys: List[str] = []
+    for name, index, _ in chunks:
+        k = len(chunk_map.get(name, ()))
+        key = name if index is None and k == 0 else f"{name}::{k}"
+        chunk_map.setdefault(name, []).append({"key": key, "index": index})
+        keys.append(key)
+    return chunk_map, keys
 
 
 class CheckpointConfig:
@@ -216,14 +254,23 @@ def snapshot_program_state(programs: Sequence, scope, include_rng: bool = True,
 
     The copies are enqueued on the current stream before the caller
     enqueues its next step, which then writes the tensors only after they
-    are read.  Returns ``{"vars": {name: meta}, "chunks": [(name, None,
-    array)], "rng": {"data", "impl"} or None}`` (the JAX package's shape:
-    one whole-array chunk a var), whose ``host()`` waits until the arrays
-    hold their values.  With a ``pool`` the pinned buffers come from it,
-    and go back to it once the arrays are no longer read."""
+    are read.  Returns ``{"vars": {name: meta}, "chunks": [(name, index,
+    array)], "rng": {"data", "impl"} or None}`` (the JAX package's shape),
+    whose ``host()`` waits until the arrays hold their values.  A plain
+    tensor is one whole-array chunk (index None); a DTensor is this rank's
+    local shard with its global index (``[[start, stop]]`` a dim), kept
+    only where this rank is the lowest that holds it, so a replicated or
+    partly replicated chunk is written once across the ranks.  Under a
+    clique of more than one rank a plain tensor is rank 0's alone.  With a
+    ``pool`` the pinned buffers come from it, and go back to it once the
+    arrays are no longer read."""
     import numpy as np
     import torch
 
+    from ..core.lower import is_dtensor
+    from ..parallel.layout import first_replica, local_index
+
+    rank, world = _clique()
     seen: Dict[str, Tuple[Any, Any]] = {}
     for prog in programs:
         block = prog.desc.block(0)
@@ -234,11 +281,19 @@ def snapshot_program_state(programs: Sequence, scope, include_rng: bool = True,
             if not isinstance(v, torch.Tensor):
                 continue
             seen[name] = (vd, v)
-    hosts, event, buffers = _host_copies([v for _, v in seen.values()], pool)
+    picked: List[Tuple[str, Any, Any]] = []      # (name, index, tensor) to write
+    for name, (vd, v) in seen.items():
+        if is_dtensor(v):
+            if first_replica(v.placements, v.device_mesh):
+                sl = local_index(v.placements, v.device_mesh, v.shape)
+                picked.append((name, _index_meta(sl, v.shape), v.to_local()))
+        elif rank == 0 or world == 1:
+            picked.append((name, None, v))
+    hosts, event, buffers = _host_copies([t for _, _, t in picked], pool)
     var_meta: Dict[str, dict] = {}
-    chunks: List[Tuple[str, Any, Any]] = []
-    for (name, (vd, v)), host in zip(seen.items(), hosts):
-        chunks.append((name, None, host))
+    chunks: List[Tuple[str, Any, Any]] = [(name, index, host) for (name, index, _), host
+                                          in zip(picked, hosts)]
+    for name, (vd, v) in seen.items():
         var_meta[name] = {
             "shape": [int(d) for d in v.shape],
             "dtype": str(v.dtype).replace("torch.", ""),
@@ -258,15 +313,60 @@ def snapshot_program_state(programs: Sequence, scope, include_rng: bool = True,
     return snap
 
 
-class _SaveJob:
-    __slots__ = ("snapshot", "step", "meta", "t_snap", "sync_event")
+def gather_program_state(programs: Sequence, scope) -> Optional[Dict[str, Any]]:
+    """Every persistable var of ``programs`` as a whole host tensor on rank
+    0 of the clique, None on the other ranks.  Each rank's host copies of
+    its own chunks (:func:`snapshot_program_state`: its local shards, a
+    replicated chunk only from its lowest holder) go to rank 0 one var at
+    a time (``gather_object``, on the calling thread), so no value is
+    gathered whole on a device and rank 0 receives one var at a time."""
+    import numpy as np
+    import torch.distributed as dist
 
-    def __init__(self, snapshot, step, meta, t_snap):
+    from ..io import _from_numpy
+    snap = snapshot_program_state(programs, scope, include_rng=False)
+    snap.host()
+    rank, world = _clique()
+    mine: Dict[str, List[Tuple[Any, Any]]] = {}
+    for name, index, arr in snap["chunks"]:
+        mine.setdefault(name, []).append((index, arr))
+    out: Optional[Dict[str, Any]] = {} if rank == 0 else None
+    for name, meta in snap["vars"].items():     # the same order on every rank
+        got: Optional[List[Any]] = [mine.get(name, [])]
+        if world > 1:
+            got = [None] * world if rank == 0 else None
+            dist.gather_object(mine.get(name, []), got, dst=0)
+        if out is None:
+            continue
+        shape = tuple(meta["shape"])
+        whole = None
+        for index, arr in (c for chunks in got for c in chunks):
+            if index is None:
+                whole = arr
+                continue
+            if whole is None:
+                whole = np.empty(shape, arr.dtype)
+            whole[manifest_mod.chunk_slices(index, shape)] = arr
+        out[name] = _from_numpy(whole, meta["dtype"])
+    return out
+
+
+class _SaveJob:
+    __slots__ = ("snapshot", "step", "meta", "t_snap", "sync_event", "rank", "world", "token")
+
+    def __init__(self, snapshot, step, meta, t_snap, rank: int = 0, world: int = 1,
+                 token: str = ""):
         self.snapshot = snapshot
         self.step = step
         self.meta = meta
         self.t_snap = t_snap
         self.sync_event: Optional[threading.Event] = None
+        # a multi-rank save (world > 1): this rank's shard file, rank 0's
+        # manifest naming every rank's
+        self.rank = rank
+        self.world = world
+        # names the save's tmp directory (the same on every rank of a clique)
+        self.token = token
 
 
 class CheckpointManager:
@@ -294,6 +394,8 @@ class CheckpointManager:
         self._lock = threading.Lock()
         self._error: Optional[BaseException] = None
         self.last_saved_step: Optional[int] = None
+        # a save of this manager ran in a clique of several ranks
+        self._multirank = False
         sc = CHECKPOINT_SCOPE
         self._m_saves = REGISTRY.counter("saves", scope=sc)
         self._m_async = REGISTRY.counter("saves_async", scope=sc)
@@ -322,14 +424,33 @@ class CheckpointManager:
         waiting for the snapshot's copies, npz serialization, the program
         and manifest writes, the atomic commit, retention.  A save asked
         for while the writer's queue is full is SKIPPED (``saves_skipped``):
-        checkpointing never stalls training.  Returns False on a skip."""
-        self._raise_pending()
-        _no_mesh(mesh, layout, "save")
+        checkpointing never stalls training.  Returns False on a skip.
+
+        Under a clique of more than one rank (state on DTensors across
+        processes) every rank calls ``save`` at the same step: the ranks
+        agree here, on this thread, whether to skip (any rank's full queue
+        skips every rank's save) and exchange their chunk maps; each
+        writes its own shard file into the save's tmp directory and rank 0
+        the manifest naming them all.  A writer error on any rank raises
+        on every rank here.  ``mesh`` and ``layout`` are recorded in the
+        manifest (``mesh`` and ``layout_fp``), as the JAX package records
+        them."""
         if not hasattr(programs, "__iter__"):
             programs = [programs]
         programs = [p for p in programs if p is not None]
         sync = (not self.async_save) if sync is None else bool(sync)
-        if not sync and self._q.full():
+        rank, world = _clique()
+        busy = not sync and self._q.full()
+        token = uuid.uuid4().hex
+        if world > 1:
+            # any rank's full queue skips every rank's save; rank 0 names
+            # the directory every rank writes into
+            said = self._exchange((busy, token))
+            busy = any(b for b, _ in said)
+            token = said[0][1]
+        else:
+            self._raise_pending()
+        if busy:
             return self._skip(step)
         ts = TIMELINE.now_us() if TIMELINE.enabled else None
         t0 = time.perf_counter()
@@ -344,13 +465,17 @@ class CheckpointManager:
             "step": int(step), "reason": reason,
             "trainer": {"epoch_id": int(epoch_id), "step_id": int(step_id)},
             "feed_shapes": {k: [int(d) for d in v] for k, v in (feed_shapes or {}).items()},
-            "mesh": None,
-            "layout_fp": None,
+            "mesh": ({"axes": {str(k): int(v) for k, v in dict(mesh.shape).items()}}
+                     if mesh is not None else None),
+            "layout_fp": layout.fingerprint() if layout is not None else None,
             "program_fp": programs[0].desc.fingerprint() if programs else None,
             "programs": [p.desc.to_dict() for p in programs],
             "extra": dict(extra or {}),
         }
-        job = _SaveJob(snap, int(step), meta, t_snap)
+        if world > 1:
+            meta["shards"] = self._agree(_chunk_map(snap["chunks"])[0])
+            self._multirank = True
+        job = _SaveJob(snap, int(step), meta, t_snap, rank, world, token)
         if sync:
             self._write(job)
             return True
@@ -364,6 +489,27 @@ class CheckpointManager:
             self._release(snap)
             return self._skip(step)
         return True
+
+    @staticmethod
+    def _agree(obj) -> List[Any]:
+        """Every rank's ``obj``, in rank order (``all_gather_object``: on
+        the training thread, never on the writer's)."""
+        import torch.distributed as dist
+        out: List[Any] = [None] * dist.get_world_size()
+        dist.all_gather_object(out, obj)
+        return out
+
+    def _exchange(self, obj=None) -> List[Any]:
+        """Every rank's ``obj`` in rank order, exchanged together with each
+        rank's pending writer error (taken): when any rank's writer failed,
+        every rank raises here, so none is left waiting in a collective."""
+        err, self._error = self._error, None
+        said = self._agree((None if err is None else f"{type(err).__name__}: {err}", obj))
+        failed = [(r, e) for r, (e, _) in enumerate(said) if e is not None]
+        if failed:
+            raise CheckpointError(f"a previous async save failed on rank {failed[0][0]}: "
+                                  f"{failed[0][1]}") from err
+        return [o for _, o in said]
 
     def _skip(self, step: int) -> bool:
         self._m_skipped.inc()
@@ -415,27 +561,37 @@ class CheckpointManager:
         t0 = time.perf_counter()
         ts = TIMELINE.now_us() if TIMELINE.enabled else None
         final = checkpoint_dir(self.root, job.step)
-        workdir = final + f".tmp.{os.getpid()}"
-        shutil.rmtree(workdir, ignore_errors=True)
+        multirank = job.world > 1
+        # everything in the save's own tmp directory (each rank's file
+        # there too, tmp then rename); rank 0's manifest, written last, and
+        # one rename of the directory publish it
+        workdir = final + f".tmp.{job.token}"
         os.makedirs(workdir, exist_ok=True)
 
+        chunk_map, keys = _chunk_map(job.snapshot["chunks"])
         payload: Dict[str, Any] = {}
-        chunk_map: Dict[str, List[dict]] = {}
         nbytes = 0
-        for name, index, arr in job.snapshot["chunks"]:
-            payload[name] = arr
+        for key, (_, _, arr) in zip(keys, job.snapshot["chunks"]):
+            payload[key] = arr
             nbytes += int(arr.nbytes)
-            chunk_map.setdefault(name, []).append({"key": name, "index": index})
         rng = job.snapshot.get("rng")
-        if rng is not None:
+        if rng is not None and job.rank == 0:
             payload["@RNG_STATE@::key"] = rng["data"]
-        shard = shard_filename(self.rank)
+        shard = shard_filename(job.rank if multirank else self.rank)
         tmp = os.path.join(workdir, shard + f".tmp.{os.getpid()}")
         with open(tmp, "wb") as f:
             np.savez(f, **payload)
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, os.path.join(workdir, shard))
+        if multirank and job.rank != 0:
+            self._saved(job, t0, ts, nbytes, final)
+            return
+        shards = {str(self.rank): {"file": shard, "chunks": chunk_map}}
+        if multirank:
+            shards = {str(r): {"file": shard_filename(r), "chunks": m}
+                      for r, m in enumerate(job.meta.pop("shards"))}
+            _wait_for_files(workdir, [v["file"] for v in shards.values()])
 
         progs = job.meta.pop("programs", None)
         if progs:
@@ -450,7 +606,7 @@ class CheckpointManager:
             "format": manifest_mod.FORMAT,
             "step": job.step,
             "vars": job.snapshot["vars"],
-            "shards": {str(self.rank): {"file": shard, "chunks": chunk_map}},
+            "shards": shards,
             "rng": ({"key": "@RNG_STATE@::key", "impl": rng["impl"]}
                     if rng is not None else None),
             **{k: v for k, v in job.meta.items() if k != "step"},
@@ -460,6 +616,10 @@ class CheckpointManager:
             shutil.rmtree(final, ignore_errors=True)
         os.replace(workdir, final)
         self._prune()
+        self._saved(job, t0, ts, nbytes, final)
+
+    def _saved(self, job: _SaveJob, t0: float, ts, nbytes: int, final: str):
+        """A save's counters, span, record and log line."""
         save_s = time.perf_counter() - t0
         with self._lock:
             self.last_saved_step = job.step
@@ -482,6 +642,7 @@ class CheckpointManager:
              job.step, final, len(job.snapshot["vars"]), nbytes, save_s * 1e3)
 
     def _prune(self):
+        """Keep-last-K retention (rank 0's, after its commit)."""
         steps = list_steps(self.root)
         while len(steps) > self.keep:
             victim = checkpoint_dir(self.root, steps.pop(0))
@@ -497,7 +658,10 @@ class CheckpointManager:
     # ------------------------------------------------------------- drain
     def wait(self, timeout: Optional[float] = None):
         """Block until every queued async save has committed.  Raises a
-        writer error."""
+        writer error.  After a multi-rank save every rank calls ``wait``:
+        it ends in an exchange of the clique's writer errors (raised on
+        every rank), so no rank returns before rank 0 has committed the
+        manifest."""
         if self._thread is not None and self._thread.is_alive():
             # a barrier: the worker acks it once every job queued before
             # it has been written and committed
@@ -505,7 +669,10 @@ class CheckpointManager:
             job.sync_event = threading.Event()
             self._q.put(job, timeout=timeout)
             job.sync_event.wait(timeout)
-        self._raise_pending()
+        if self._multirank:
+            self._exchange()
+        else:
+            self._raise_pending()
 
     def close(self):
         if self._thread is not None and self._thread.is_alive():
@@ -530,12 +697,20 @@ class CheckpointManager:
         ``scope``, each value copied into the tensor the scope holds (a
         name the scope lacks is bound on ``executor``'s device).  With a
         ``memory_budget`` (argument or manager default) the static planner
-        checks the program first and raises ``PredictedOOMError`` before
-        anything moves.  A var whose shape differs from the program's is
-        refused (``strict``) or skipped.  Returns the manifest."""
+        checks the program first, under the target ``mesh`` and
+        ``layout``, and raises ``PredictedOOMError`` before anything moves.
+        A var whose shape differs from the program's is refused
+        (``strict``) or skipped.
+
+        ``mesh`` (and ``layout``) place the state on the TARGET topology,
+        whatever the source's was: every shard file's chunks are
+        reassembled into whole host arrays, and each rank keeps its shard
+        of each var's target spec (its ``sharding`` attr, else the
+        layout's rule, else replicated), copied in place into a DTensor
+        the scope holds on those placements, else bound as a new one; no
+        collective runs.  Returns the manifest."""
         from ..io import _from_numpy, _place
 
-        _no_mesh(mesh, layout, "restore")
         t0 = time.perf_counter()
         if not hasattr(programs, "__iter__"):
             programs = [programs]
@@ -550,7 +725,8 @@ class CheckpointManager:
 
         budget = memory_budget if memory_budget is not None else self.memory_budget
         if budget is not None:
-            self.restore_fit(programs[0] if programs else None, manifest, budget=budget)
+            self.restore_fit(programs[0] if programs else None, manifest, mesh=mesh,
+                             layout=layout, budget=budget)
 
         want: List[str] = []
         drift: List[str] = []
@@ -574,8 +750,11 @@ class CheckpointManager:
         nbytes = 0
         for name, arr in arrays.items():
             nbytes += int(arr.nbytes)
-            _place(scope, executor, name,
-                   _from_numpy(arr, manifest["vars"][name].get("dtype")))
+            value = _from_numpy(arr, manifest["vars"][name].get("dtype"))
+            if mesh is None:
+                _place(scope, executor, name, value)
+            else:
+                _place_shard(scope, programs, name, value, mesh, layout)
         rng_meta = manifest.get("rng")
         if rng_meta and self.include_rng:
             _restore_rng(d, manifest, rng_meta, scope)
@@ -588,7 +767,9 @@ class CheckpointManager:
         CKPT_RECORDS.record(
             kind=reason if reason in ("rollback",) else "restore",
             step=step, vars=len(want), bytes=nbytes, restore_s=round(restore_s, 6),
-            source_mesh=(manifest.get("mesh") or {}).get("axes"), target_mesh=None, dir=d)
+            source_mesh=(manifest.get("mesh") or {}).get("axes"),
+            target_mesh=({str(k): int(v) for k, v in dict(mesh.shape).items()}
+                         if mesh is not None else None), dir=d)
         VLOG(0, "checkpoint: restored step %d from %s (%d vars, %d bytes, %.1f ms)%s",
              step, d, len(want), nbytes, restore_s * 1e3,
              f" -- {len(drift)} var(s) skipped on shape drift" if drift else "")
@@ -624,6 +805,55 @@ class CheckpointManager:
             raise _memory.PredictedOOMError(plan, budget_b)
         return {"peak_bytes": plan.peak_bytes, "budget_bytes": budget_b,
                 "num_devices": plan.num_devices}
+
+
+def _place_shard(scope, programs, name: str, value, mesh, layout):
+    """This rank's shard of the whole host ``value`` of ``name`` on its
+    target spec over ``mesh``: copied into the scope's DTensor where it
+    already lies on those placements (the tensor keeps its address, so a
+    captured step replays on), else bound as a new DTensor."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from ..core.lower import is_dtensor
+    from ..parallel.layout import as_placements, check_divisible, local_index, state_spec
+    block = next(p.desc.block(0) for p in programs if p.desc.block(0).find_var(name) is not None)
+    cur = scope.find_var(name)
+    if isinstance(cur, torch.Tensor) and cur.numel() == value.numel():
+        value = value.reshape(cur.shape)    # a [1] scalar the startup made stays [1] (io._place)
+    spec = state_spec(block, name, mesh, layout)
+    check_divisible(name, value.shape, spec, mesh)
+    placements = as_placements(spec, mesh)
+    local = value[local_index(placements, mesh, value.shape)]
+    if is_dtensor(cur) and tuple(cur.placements) == placements \
+            and tuple(cur.to_local().shape) == tuple(local.shape):
+        cur.to_local().copy_(local)
+        return
+    local = local.to(mesh.device, dtype=cur.dtype if isinstance(cur, torch.Tensor)
+                     else local.dtype).contiguous()
+    scope.set_var(name, DTensor.from_local(local, mesh.device_mesh, placements,
+                                           run_check=False, shape=value.shape,
+                                           stride=value.contiguous().stride()))
+
+
+#: how long rank 0's writer waits for the other ranks' shard files
+WAIT_FOR_SHARDS_S = 600.0
+
+
+def _wait_for_files(dirname: str, names: Sequence[str], timeout: float = None):
+    """Block until every file of ``names`` exists in ``dirname`` (each is
+    renamed into place whole, so existing means written).  Raises
+    ``CheckpointError`` naming the missing ones after ``timeout``."""
+    timeout = WAIT_FOR_SHARDS_S if timeout is None else timeout
+    deadline = time.time() + timeout
+    while True:
+        missing = [n for n in names if not os.path.isfile(os.path.join(dirname, n))]
+        if not missing:
+            return
+        if time.time() > deadline:
+            raise CheckpointError(f"shard files {missing} did not appear in {dirname!r} "
+                                  f"within {timeout} s: a writing rank failed or stopped")
+        time.sleep(0.01)
 
 
 def _restore_rng(d: str, manifest: Dict[str, Any], rng_meta: Dict[str, Any], scope):

@@ -132,7 +132,13 @@ fingerprint key the cache.  An NCCL mesh's collectives are device work: the
 step is one CUDA graph with them inside (the capture's eager run builds
 the communicators first).  A gloo mesh's collectives run on the host, so
 ``graph_blockers`` keeps its entries op by op.  Under a mesh the health
-sentinel waits for ROADMAP §A item 12c and raises.
+sentinel's norms are the global ones and its bitmask is OR-ed over the
+ranks (one all-reduce inside the step, ``health.sentinel_extras``);
+``FLAGS_check_nan_inf`` on a mesh that spans processes takes the JAX
+package's global mode: no snapshot, one fused isfinite reduction over the
+fetches and the written state and one host read a step, and on a failure
+a ``FloatingPointError`` naming the vars (the op-by-op replay needs one
+process).
 
 Telemetry, as in the JAX package: each executor counts its cache in a
 telemetry scope of its own (``executor:<n>``: ``compile_count``,
@@ -631,11 +637,6 @@ class Executor:
                 place = CPUPlace() if dev.type == "cpu" else CUDAPlace(dev.index or 0)
             if place_device(place) != dev:
                 raise ValueError(f"place {place!r} is not the device of {mesh!r} ({dev})")
-            if sentinels:
-                raise NotImplementedError(
-                    "the health sentinel under a mesh (its global-norm mode and the "
-                    "cross-rank skew) is not ported to paddle_tpu_torch yet "
-                    "(ROADMAP §A item 12c)")
         elif layout is not None:
             raise ValueError("Executor(layout=...) needs mesh=")
         self.place = place if place is not None else CUDAPlace(0)
@@ -1026,13 +1027,16 @@ class Executor:
         # FLAGS_check_nan_inf: the state and feeds before the run, for the
         # op-by-op replay that names the first bad op (the run updates the
         # state in place)
-        snapshot = self._nan_snapshot(program, feeds, scope) if check_nan else None
+        if check_nan and self._multiproc:
+            check_nan = "global"
+        snapshot = self._nan_snapshot(program, feeds, scope) \
+            if check_nan and check_nan != "global" else None
         # a monitor that localizes trips keeps each step's feed, on this
         # executor's device: a graph's feed buffers are overwritten by the
         # next replay, a donated batch is emptied
         kept_feed = {k: t.to(self.device, copy=True) for k, t in feeds.items()} \
             if self.sentinels and self._health_hook is not None and self._health_keep_feed \
-            else None
+            and not self._multiproc else None
         if donate:
             # the batch is the step's now: only ``feeds`` holds its tensors
             feed.clear()
@@ -1050,14 +1054,18 @@ class Executor:
             if entry.graph is not None and warm is None:
                 # the outputs' copies are enqueued before another replay can start
                 fetches = self._replay(entry, feeds)
-                if check_nan:
+                if check_nan == "global":
+                    self._check_nan_global(entry, fetches, scope)
+                elif check_nan:
                     self._check_nan_inf(entry, fetches, scope, snapshot)
                 outs, sentinel = self._stage_step(entry, fetches, sync, return_numpy, True,
                                                   label, dispatch_us)
         if outs is None:
             # an eager entry, or the eager run that preceded a fresh capture
             fetches = warm if warm is not None else self._lower(entry, feeds, state, scope)
-            if check_nan:
+            if check_nan == "global":
+                self._check_nan_global(entry, fetches, scope)
+            elif check_nan:
                 self._check_nan_inf(entry, fetches, scope, snapshot)
             outs, sentinel = self._stage_step(entry, fetches, sync, return_numpy, False,
                                               label, dispatch_us)
@@ -1074,7 +1082,8 @@ class Executor:
             # copies are enqueued behind the step: no sync here
             try:
                 self._health_hook(step=step_no, program=program, compiled=entry,
-                                  values=sentinel, feed=kept_feed, scope=scope)
+                                  values=sentinel, feed=kept_feed, scope=scope,
+                                  multiproc=self._multiproc)
             except Exception as e:  # noqa: BLE001 -- health never kills a run
                 VLOG(1, "health hook failed: %s: %s", type(e).__name__, e)
         if timeline:
@@ -1282,6 +1291,35 @@ class Executor:
         gen = scope.find_var(RNG_STATE_VAR)
         return env, (self._new_generator(program) if gen is None else _copy_generator(gen))
 
+    @property
+    def _multiproc(self) -> bool:
+        """Whether this executor's mesh spans processes."""
+        return self.mesh is not None and self.mesh.size > 1
+
+    def _check_nan_global(self, entry: _CacheEntry, outs: List[torch.Tensor],
+                          scope: Scope) -> None:
+        """FLAGS_check_nan_inf on a mesh that spans processes (the JAX
+        package's global mode): each fetch and written state value's
+        isfinite flag over this rank's shard, stacked, one all-reduce over
+        the mesh and one host read; a failure names every non-finite var
+        (the op-by-op replay that names the op needs one process)."""
+        from ..parallel.layout import all_reduce_over, mesh_groups
+        n = len(outs) - entry.sentinel_extra
+        named = [(name, v) for name, v in zip(entry.fetch_names, outs[:n])]
+        named += [(name, scope.find_var(name)) for name in entry.state_out]
+        named = [(name, v.to_local() if is_dtensor(v) else v) for name, v in named
+                 if isinstance(v, torch.Tensor) and v.is_floating_point()]
+        if not named:
+            return
+        bad = all_reduce_over(torch.stack([torch.logical_not(torch.isfinite(v).all())
+                                           for _, v in named]).to(torch.float32),
+                              mesh_groups(self.mesh))
+        hits = [name for (name, _), b in zip(named, bad.tolist()) if b > 0]
+        if hits:
+            raise FloatingPointError(
+                f"FLAGS_check_nan_inf: non-finite values in {hits} (multi-trainer global "
+                f"check; reproduce on a single process for per-op localization)")
+
     def _check_nan_inf(self, entry: _CacheEntry, outs: List[torch.Tensor], scope: Scope,
                        snapshot) -> None:
         """FLAGS_check_nan_inf: scan the fetches and the written state; on a
@@ -1478,7 +1516,7 @@ class Executor:
                 # placed once, before the first step that reads it
                 from ..parallel.layout import place_tensor, state_spec
                 v = place_tensor(v, self.mesh, state_spec(desc.block(0), n, self.mesh,
-                                                          self.layout))
+                                                          self.layout), n)
                 scope.update_var(n, v)
             state.append(v)
         return analysis + (state,)
@@ -1758,7 +1796,8 @@ class Executor:
             if entry.sentinel_extra:
                 ctx.sentinel = sentinel_extras(
                     ctx.env, old, [ctx.read(n) for n in entry.fetch_names],
-                    entry.sentinel_watch, entry.grad_watch, entry.param_watch, self.device)
+                    entry.sentinel_watch, entry.grad_watch, entry.param_watch, self.device,
+                    mesh=mesh)
         return ctx, rest
 
     def _lower(self, entry: _CacheEntry, feeds: Dict[str, torch.Tensor], state: list,

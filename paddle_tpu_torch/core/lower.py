@@ -133,6 +133,12 @@ def is_dtensor(v) -> bool:
     return mod is not None and isinstance(v, mod.DTensor)
 
 
+def local_of(v):
+    """A DTensor's local tensor (this rank's shard, or its whole replica);
+    any other value as it is."""
+    return v.to_local() if is_dtensor(v) else v
+
+
 class TensorArrayVal(list):
     """The value of a TENSOR_ARRAY var: a list of tensors (Fluid's
     LoDTensorArray)."""

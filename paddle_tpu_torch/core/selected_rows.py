@@ -134,6 +134,27 @@ def concat_rows(a: SelectedRows, b: SelectedRows) -> SelectedRows:
     return SelectedRows(torch.cat([a.ids, b.ids]), torch.cat([a.rows, b.rows]), a.height)
 
 
+def shard_rows(sr: SelectedRows, row_offset: int, local_rows: int) -> SelectedRows:
+    """The part of a whole table's gradient ``sr`` that lands in one
+    rank's row shard ``[row_offset, row_offset + local_rows)``: merged over
+    the whole batch first (so each row's sum is the single-device one),
+    then the slots in the shard shifted by ``-row_offset`` and moved to the
+    front in their ascending order, the others padded with
+    ``local_rows``, the shard's height, and zero rows (as :meth:`merged`
+    pads: a sum over every rank's rows counts each row once); merged, so
+    the sparse updates run on the rank's own rows and slots as a single
+    device runs on its table."""
+    m = sr.merged()
+    local = m.ids - row_offset
+    keep = (local >= 0) & (local < local_rows)
+    order = torch.sort(torch.logical_not(keep).to(torch.int32), stable=True).indices
+    ids = torch.where(keep, local, local_rows).to(m.ids.dtype)[order]
+    rows = torch.where(row_mask(keep, m.rows), m.rows, 0.0)[order]
+    out = SelectedRows(ids, rows, local_rows)
+    out._merged = True
+    return out
+
+
 def update_slots(sr: SelectedRows, *tables: torch.Tensor):
     """Where a merged SelectedRows' rows live in ``tables`` (tensors of
     ``height`` rows): ``(at, valid, gathered)`` -- int64 indices, the

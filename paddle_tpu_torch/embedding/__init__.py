@@ -1,11 +1,10 @@
-"""The giant-embedding subsystem (the JAX package's ``embedding/``), on
-one card:
+"""The giant-embedding subsystem (the JAX package's ``embedding/``):
 
 * :func:`sharded_table` -- a ``lookup_table`` layer whose parameter is
   stamped with the *embedding* layout role (the ``layout_role`` var attr
-  a mesh layout reads; ROADMAP item 12c places tables on a mesh), with
-  ``is_sparse=True`` SelectedRows gradients, so a step's update gathers,
-  updates and writes back only the batch's unique rows;
+  a mesh layout reads: on a mesh each rank holds its rows of the table),
+  with ``is_sparse=True`` SelectedRows gradients, so a step's update
+  gathers, updates and writes back only the batch's unique rows;
 * :class:`RowPrefetcher` -- dedups each batch's ids on the host, on the
   ``FeedStager``'s thread, and stages the unique id set beside the batch,
   with dedup-ratio and staged-byte telemetry in the ``"embedding"``

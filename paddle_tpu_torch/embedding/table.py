@@ -3,9 +3,14 @@
 
 The layer is one ``lookup_table`` op; what it adds is its stamps: the
 ``layout_role`` var attr names the table's layout role (dim 0 over the
-mesh, once tables are placed on meshes: ROADMAP item 12c), and ``is_sparse=True``
-gives it a SelectedRows gradient, so the optimizer updates only the
-batch's unique rows.
+mesh's fsdp x tp axes under a ``SpecLayout``, whatever the table's name,
+its optimizer slots riding its row shard), and ``is_sparse=True`` gives it
+a SelectedRows gradient, so the optimizer updates only the batch's unique
+rows.  On a mesh each rank holds its rows only: the lookup runs K2 on the
+rank's shard and the dense gradient lands in it (``ops/nn_ops.py``
+``sharded_lookup``); the sparse gradient holds the whole batch on every
+rank and the update keeps the rank's rows (``ops/optimizer_ops.py``
+``_rank_rows``).
 """
 from __future__ import annotations
 
@@ -45,17 +50,15 @@ def sharded_table(input, name: str, rows: int, dim: int, *, dtype: str = "float3
 
 def plan_table(name: str, rows: int, dim: int, *, dtype: str = "float32", mesh=None,
                layout=None, slots: int = 0, budget=None) -> Dict[str, Any]:
-    """Static size of a table with ``slots`` same-shape optimizer
-    accumulators (2 for adam's moments, 1 for adagrad, 0 for sgd), before
-    any program is built.  With a ``budget`` (bytes, "16GiB" or a device
+    """Static per-device size of a table with ``slots`` same-shape
+    optimizer accumulators (2 for adam's moments, 1 for adagrad, 0 for
+    sgd), before any program is built.  ``mesh`` (a ``parallel.Mesh`` or
+    an ``{axis: size}`` dict) and ``layout`` split it as the layout's
+    embedding role places it (dim 0 over fsdp x tp), its slots riding the
+    table's row shard.  With a ``budget`` (bytes, "16GiB" or a device
     profile name) the result carries ``fits`` and ``budget_bytes``:
     ``Executor(memory_budget=)`` enforces the same bound as an M501
-    pre-flight.  ``mesh=`` and ``layout=`` (a table split over devices)
-    wait for ROADMAP item 12c."""
-    if mesh is not None or layout is not None:
-        raise NotImplementedError(
-            "plan_table(mesh=, layout=) is not ported to paddle_tpu_torch yet (ROADMAP §A "
-            "item 12c): a table is planned for one device")
+    pre-flight."""
     from ..analysis import memory as _memory
 
     rows, dim, slots = int(rows), int(dim), int(slots)
@@ -63,7 +66,7 @@ def plan_table(name: str, rows: int, dim: int, *, dtype: str = "float32", mesh=N
     for i in range(slots):
         var_table[f"{name}_moment{i + 1}_0"] = {"shape": [rows, dim], "dtype": dtype,
                                                "slot_of": name}
-    plan = _memory.plan_state_memory(var_table)
+    plan = _memory.plan_state_memory(var_table, mesh=mesh, layout=layout)
     out: Dict[str, Any] = {
         "table": name, "rows": rows, "dim": dim, "dtype": dtype, "slots": slots,
         "total_bytes": sum(t.total_bytes for t in plan.tensors.values()),

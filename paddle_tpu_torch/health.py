@@ -33,6 +33,12 @@ an attached :class:`HealthMonitor` are the low-level path.  A monitor
 with ``localize=True`` keeps a device clone of each parked step's feed
 (at most ``max_pending``), since the graph's feed buffers are overwritten
 by the next replay and a donated batch is emptied.
+
+Under a mesh (``Executor(mesh=, sentinels=)``) the norms are the global
+ones and the bitmask is OR-ed across the ranks (one all-reduce inside the
+step), and a trip's localization on a mesh that spans processes is
+skipped, as the JAX package skips it; every record carries ``rank``, so
+``tools/health_report.py`` merges the ranks' streams.
 """
 from __future__ import annotations
 
@@ -143,7 +149,9 @@ def shadow_state(env: Dict[str, Any], names: Sequence[str]) -> Dict[str, Any]:
             by_dtype.setdefault(v.dtype, []).append(n)
     out: Dict[str, Any] = {}
     for dtype, group in by_dtype.items():
-        srcs = [env[n] for n in group]
+        # a DTensor's copy is of this rank's shard
+        from .core.lower import local_of
+        srcs = [local_of(env[n]) for n in group]
         flat = torch.empty(sum(t.numel() for t in srcs), dtype=dtype, device=srcs[0].device)
         views, off = [], 0
         for t in srcs:
@@ -154,10 +162,25 @@ def shadow_state(env: Dict[str, Any], names: Sequence[str]) -> Dict[str, Any]:
     return out
 
 
+def _rank_share(v):
+    """What this rank adds to a sum over a mesh of the value ``v``: a
+    DTensor's local shard where this rank is the lowest that holds it
+    (a partial sum reduced first), else None; any other value whole."""
+    from .core.lower import is_dtensor
+    if not is_dtensor(v):
+        return v
+    from torch.distributed.tensor import Partial, Replicate
+    from .parallel.layout import first_replica
+    if any(isinstance(p, Partial) for p in v.placements):
+        v = v.redistribute(v.device_mesh, [Replicate() if isinstance(p, Partial) else p
+                                           for p in v.placements])
+    return v.to_local() if first_replica(v.placements, v.device_mesh) else None
+
+
 def sentinel_extras(env: Dict[str, Any], old_state: Dict[str, Any],
                     fetch_vals: Sequence[Any], watch: Sequence[str],
                     grad_names: Sequence[str], param_names: Sequence[str],
-                    device=None) -> List[Any]:
+                    device=None, mesh=None) -> List[Any]:
     """The sentinel's five tensors, computed after the block's ops (inside
     the step's CUDA graph on the card).  ``old_state`` holds each watched
     state tensor's value before the step (:func:`shadow_state`); it is
@@ -173,28 +196,45 @@ def sentinel_extras(env: Dict[str, Any], old_state: Dict[str, Any],
     no uint32 arithmetic), bit ``i`` for ``watch[i]`` (fetch names, then
     the :data:`GRADS_GROUP` / :data:`PARAMS_GROUP` pseudo-entries); the
     rest float32 scalars, a norm NaN when its group is empty (an empty
-    group reads as healthy)."""
+    group reads as healthy).
+
+    Under a ``mesh`` the values are DTensors: each rank sums the squares
+    of the shards it is the lowest holder of, and one all-reduce over the
+    mesh (inside the step's graph on NCCL) totals the three groups' sums
+    and every watched value's non-finite flag, so the norms are the global
+    ones and the bitmask is OR-ed across the ranks."""
     import torch
+    from .core.lower import local_of
 
     def _sq_sum(tensors):
-        """Sum of squares over ``tensors`` in float32, or None for none."""
-        if not tensors:
-            return None
+        """Sum of squares over ``tensors`` in float32."""
         norms = torch._foreach_norm([t if t.dtype == torch.float32 else t.float()
                                      for t in tensors], 2)
         return torch.stack(norms).square().sum()
 
-    def _group(names):
-        return [env[n] for n in names if _is_float(env.get(n))]
+    def _shares(names):
+        # each float value's share of a sum over the mesh, by name
+        return {n: _rank_share(env[n]) for n in names if _is_float(env.get(n))}
 
-    params = [n for n in param_names if _is_float(env.get(n)) and n in old_state]
-    grad_sq = _sq_sum(_group(grad_names))
-    param_sq = _sq_sum(_group(param_names))
-    deltas = None
+    def _total(shares):
+        # None for a group empty on every rank (the same names on each),
+        # zero where this rank is the lowest holder of none of it
+        if not shares:
+            return None
+        mine = [t for t in shares.values() if t is not None]
+        return _sq_sum(mine) if mine else torch.zeros((), dtype=torch.float32, device=device)
+
+    grad_sq = _total(_shares(grad_names))
+    param_shares = _shares(param_names)
+    param_sq = _total(param_shares)
+    params = {n: t for n, t in param_shares.items() if n in old_state}
+    update_sq = None
     if params:
-        deltas = [old_state[n] for n in params]
-        torch._foreach_sub_(deltas, [env[n] for n in params])
-    update_sq = _sq_sum(deltas)
+        # the update's shares: the held params' old values less their new
+        deltas = {n: old_state[n] for n, t in params.items() if t is not None}
+        if deltas:
+            torch._foreach_sub_(list(deltas.values()), [local_of(env[n]) for n in deltas])
+        update_sq = _total({n: deltas.get(n) for n in params})
 
     def _nan():
         return torch.full((), float("nan"), dtype=torch.float32, device=device)
@@ -213,8 +253,11 @@ def sentinel_extras(env: Dict[str, Any], old_state: Dict[str, Any],
         elif n == PARAMS_GROUP:
             flags.append(torch.logical_and(_ok(param_sq), _ok(update_sq)))
         else:
-            v = env.get(n)
+            v = local_of(env.get(n))
             flags.append(torch.isfinite(v).all() if _is_float(v) else _ok(None))
+    if mesh is not None:
+        grad_sq, param_sq, update_sq, flags = _mesh_totals(mesh, grad_sq, param_sq,
+                                                           update_sq, flags, device)
     nwords = max(1, (len(flags) + 31) // 32)
     bad = torch.zeros(nwords * 32, dtype=torch.int64, device=device)
     if flags:
@@ -227,6 +270,22 @@ def sentinel_extras(env: Dict[str, Any], old_state: Dict[str, Any],
     if fetch_vals and _is_float(fetch_vals[0]):
         loss = fetch_vals[0].float().mean()
     return [mask, loss, _norm(grad_sq), _norm(param_sq), _norm(update_sq)]
+
+
+def _mesh_totals(mesh, grad_sq, param_sq, update_sq, flags, device):
+    """The three squared sums totalled and the flags AND-ed over every rank
+    of ``mesh``: one float32 vector all-reduced (summed) over each mesh
+    dim's group in turn (a NaN or Inf in any rank's sum stays one; a flag
+    is carried as its failure count)."""
+    import torch
+    from .parallel.layout import all_reduce_over, mesh_groups
+    sums = [grad_sq, param_sq, update_sq]
+    vec = torch.stack([t if t is not None else torch.zeros((), dtype=torch.float32,
+                                                           device=device) for t in sums]
+                      + [torch.logical_not(f).to(torch.float32) for f in flags])
+    all_reduce_over(vec, mesh_groups(mesh))
+    sums = [vec[j] if t is not None else None for j, t in enumerate(sums)]
+    return sums[0], sums[1], sums[2], [vec[3 + j] == 0 for j in range(len(flags))]
 
 
 def decode_sentinel_mask(mask_words, watch: Sequence[str]) -> List[str]:
@@ -435,15 +494,18 @@ def _install_fetch_timeout_hook():
 # ---------------------------------------------------------------- monitor
 
 class _Pending:
-    __slots__ = ("step", "program", "compiled", "values", "feed", "scope")
+    __slots__ = ("step", "program", "compiled", "values", "feed", "scope", "multiproc")
 
-    def __init__(self, step, program, compiled, values, feed, scope):
+    def __init__(self, step, program, compiled, values, feed, scope, multiproc=False):
         self.step = step
         self.program = program
         self.compiled = compiled
         self.values = values
         self.feed = feed
         self.scope = scope
+        # the step ran on a mesh that spans processes: its shards cannot be
+        # replayed here
+        self.multiproc = multiproc
 
 
 class HealthMonitor:
@@ -506,11 +568,12 @@ class HealthMonitor:
                 VLOG(1, "health event hook failed: %s: %s", type(e).__name__, e)
 
     # -- executor side -----------------------------------------------------
-    def on_step(self, *, step, program, compiled, values, feed=None, scope=None):
+    def on_step(self, *, step, program, compiled, values, feed=None, scope=None,
+                multiproc=False):
         """Park one step's sentinel values (non-blocking).  Past
         ``max_pending`` parked the oldest is resolved by force: the card
         is that far ahead anyway."""
-        entry = _Pending(step, program, compiled, values, feed, scope)
+        entry = _Pending(step, program, compiled, values, feed, scope, multiproc)
         force = None
         with self._lock:
             self._pending.append(entry)
@@ -578,6 +641,10 @@ class HealthMonitor:
         localization = None
         if not self.config.localize:
             pass
+        elif entry.multiproc:
+            localization = {
+                "skipped": "multi-process mesh (replay needs host copies of non-addressable "
+                           "shards); reproduce on a single process to localize"}
         elif entry.feed is None:
             localization = {"skipped": "no feed snapshot retained"}
         else:

@@ -30,11 +30,11 @@ def deepfm(sparse_ids, dense_input, vocab_sizes, embed_dim=16, hidden=(400, 400,
            is_test=False, shard_tables=False, is_sparse=True):
     """sparse_ids: one int64 ``[N, 1]`` Variable a field; dense_input: a
     float ``[N, num_dense]`` Variable; returns the ``[N, 1]`` logits.
-    ``shard_tables`` (the tables split over a mesh) waits for ROADMAP
-    item 12c."""
-    if shard_tables:
-        raise NotImplementedError("deepfm(shard_tables=True) (the tables split over a mesh) is "
-                                  "not ported to paddle_tpu_torch yet (ROADMAP §A item 12c)")
+    ``shard_tables`` splits each ``fm_emb_<i>`` table's rows over the mesh's
+    ``data`` axis (``set_sharding(["data", None])``, as the JAX model
+    does; the ``fm_w1_<i>`` tables keep the layout's rule): under a mesh
+    each rank holds its rows, and a vocabulary the axis does not divide
+    raises when the table is placed."""
     first_order_terms = []
     embeddings = []  # [N, embed_dim] a field
     for i, (ids, vocab) in enumerate(zip(sparse_ids, vocab_sizes)):
@@ -44,6 +44,9 @@ def deepfm(sparse_ids, dense_input, vocab_sizes, embed_dim=16, hidden=(400, 400,
         embeddings.append(layers.embedding(
             input=ids, size=[vocab, embed_dim], is_sparse=is_sparse,
             param_attr=ParamAttr(name=f"fm_emb_{i}")))
+        if shard_tables:
+            from ..core.framework import default_main_program
+            default_main_program().global_block.var(f"fm_emb_{i}").set_sharding(["data", None])
 
     first_order = _sum_list(first_order_terms)
 

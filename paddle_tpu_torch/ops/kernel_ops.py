@@ -113,18 +113,32 @@ def _pallas_scatter_add(ctx, op):
     grad = ctx.read(op.input("__outgrad__Out")[0])
     padding_idx = op.attr("padding_idx", -1)
 
-    def dw(w, ids, grad):
+    def dw(w, ids, grad, row_offset=0):
         _, flat = flat_ids(ids)
         rows = grad.reshape((-1,) + tuple(w.shape[1:]))
         if padding_idx is not None and padding_idx >= 0:
             rows = torch.where((flat != padding_idx)[:, None], rows, 0.0)
+        if row_offset:
+            flat = (flat - row_offset).contiguous()
         return scatter_add_rows(w, flat, rows.to(w.dtype).contiguous())
 
     if ctx.mesh is None:
         ctx.write(gnames[0], dw(w, ids, grad))
         return
+    from ..parallel.layout import (batch_like, on_local, partial_where_sharded, replicate,
+                                   row_shard)
+    shard = row_shard(w, ctx.mesh)
+    if shard is not None:
+        # a row-sharded table: the ids and output gradient gathered over the
+        # batch axes in the global batch's order, K3 into the rank's own
+        # rows at the ids shifted by its offset; W's gradient is Shard(0)
+        row_offset = shard[0]
+        rep = replicate(ctx.mesh)
+        ctx.write(gnames[0], on_local(
+            ctx.mesh, lambda w, ids, grad: dw(w, ids, grad, row_offset),
+            (w, ids, grad), (tuple(w.placements), rep, rep), tuple(w.placements)))
+        return
     # each rank adds its own ids' rows: a partial sum of the table's gradient
-    from ..parallel.layout import batch_like, on_local, partial_where_sharded, replicate
     pl = batch_like(ids, ctx.mesh)
     ctx.write(gnames[0], on_local(ctx.mesh, dw, (w, ids, grad), (replicate(ctx.mesh), pl, pl),
                                   partial_where_sharded(pl)))

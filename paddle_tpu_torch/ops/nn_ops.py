@@ -19,7 +19,7 @@ from ..core.desc import OpDesc, grad_var_name
 from ..core.registry import (register_grad_maker, register_infer_shape,
                              register_lowering)
 from .common import in_dtype, in_shape, same_shape, set_out_shape
-from .cuda.embedding import GatherRows
+from .cuda.embedding import GatherRows, gather_rows, scatter_add_rows
 
 
 def _conv_out_size(in_size, k, pad, stride, dilation=1):
@@ -368,11 +368,35 @@ def flat_ids(ids):
     return ids, ids.reshape(-1).to(torch.int32).contiguous()
 
 
+class ShardRows(torch.autograd.Function):
+    """The gather of a row-sharded table on one rank: K2 on the rank's
+    ``[local_rows, D]`` shard at the global batch's ids shifted by the
+    shard's ``row_offset`` (an id another rank holds falls outside the
+    shard and gathers a zero row), then the partial rows all-reduced over
+    the ``groups`` that split the rows.  Each output row has one nonzero
+    term, so the sum is the single-device gather bit for bit.  Its
+    gradient is K3 into the shard at the same shifted ids: the rows add in
+    the global batch's order, the single-device order."""
+
+    @staticmethod
+    def forward(ctx, w, flat, row_offset, groups):
+        from ..parallel.layout import all_reduce_over
+        local = (flat - row_offset).contiguous()
+        ctx.save_for_backward(w, local)
+        return all_reduce_over(gather_rows(w, local), groups)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        w, local = ctx.saved_tensors
+        return scatter_add_rows(w, local, grad_out.contiguous()), None, None, None
+
+
 def lookup_rows(ctx, op, gather):
     """``lookup_table``'s output through ``gather(W, flat int32 ids)``, with
-    the ``padding_idx`` rows zeroed.  Under a mesh the gather runs on each
-    rank's ids against the whole table (W replicated for the kernel), and
-    W's gradient is a partial sum over the ranks that hold other ids."""
+    the ``padding_idx`` rows zeroed.  Under a mesh, a replicated W: the
+    gather runs on each rank's ids against the whole table, and W's
+    gradient is a partial sum over the ranks that hold other ids.  A
+    row-sharded W (:func:`sharded_lookup`) is never gathered whole."""
     w = ctx.read_slot(op, "W")
     ids = ctx.read_slot(op, "Ids")
     padding_idx = op.attr("padding_idx", -1)
@@ -387,10 +411,42 @@ def lookup_rows(ctx, op, gather):
     if ctx.mesh is None:
         ctx.write_slot(op, "Out", rows(w, ids))
         return
-    from ..parallel.layout import batch_like, on_local, partial_where_sharded, replicate
+    from ..parallel.layout import (batch_like, on_local, partial_where_sharded, replicate,
+                                   row_shard)
     pl = batch_like(ids, ctx.mesh)
+    if row_shard(w, ctx.mesh) is not None:
+        ctx.write_slot(op, "Out", sharded_lookup(ctx.mesh, w, ids, padding_idx, pl))
+        return
     ctx.write_slot(op, "Out", on_local(ctx.mesh, rows, (w, ids), (replicate(ctx.mesh), pl), pl,
                                        (partial_where_sharded(pl), None)))
+
+
+def sharded_lookup(mesh, w, ids, padding_idx, out_placements):
+    """Rows of a row-sharded table W (a DTensor ``Shard(0)`` on the
+    table's mesh dims) at ``ids``, on ``out_placements`` (the ids' batch
+    placements).  Placements: W in on its own, ids in replicated (gathered
+    over the batch axes in the global batch's order), the rows out
+    replicated after :class:`ShardRows`' all-reduce over the table's dims,
+    then each rank's batch rows kept (a local slice); W's gradient comes
+    back on W's placements (``Shard(0)``: K3 into each rank's shard of the
+    whole batch's output gradient, which the slice's backward all-gathers),
+    never a partial sum of the whole table."""
+    from ..parallel.layout import on_local, replicate, row_groups, row_shard
+    row_offset, _ = row_shard(w, mesh)
+    groups = row_groups(w, mesh)
+
+    def rows(w, ids):
+        ids, flat = flat_ids(ids)
+        out = ShardRows.apply(w.contiguous(), flat, row_offset, groups)
+        out = out.reshape(tuple(ids.shape) + (w.shape[1],))
+        if padding_idx is not None and padding_idx >= 0:
+            out = torch.where((ids != padding_idx)[..., None], out, 0.0)
+        return out
+
+    rep = replicate(mesh)
+    out = on_local(mesh, rows, (w, ids), (tuple(w.placements), rep), rep,
+                   (tuple(w.placements), None))
+    return out.redistribute(mesh.device_mesh, out_placements)
 
 
 @register_lowering("lookup_table", non_diff_inputs=("Ids",))

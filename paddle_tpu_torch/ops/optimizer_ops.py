@@ -39,9 +39,9 @@ from __future__ import annotations
 
 import torch
 
-from ..core.lower import is_dtensor
+from ..core.lower import is_dtensor, local_of
 from ..core.registry import register_group_lowering, register_infer_shape, register_lowering
-from ..core.selected_rows import SelectedRows
+from ..core.selected_rows import SelectedRows, shard_rows
 from .common import in_dtype, in_shape, set_out_shape
 from .cuda.fused_optimizer import fused_adam_multi, fused_sgd_multi
 from .sparse_ops import sparse_adagrad, sparse_adam, sparse_sgd, unsupported_sparse
@@ -68,13 +68,6 @@ def _own(op, slot, out_slot, t):
     return t if op.output(out_slot) == op.input(slot) else t.clone()
 
 
-def _local(t):
-    """A DTensor's local shard (the update kernels run on the shards a
-    rank holds: p, g, m1 and m2 share the parameter's placements once
-    ``lower._grads_to_params`` ran); any other value as it is."""
-    return t.to_local() if is_dtensor(t) else t
-
-
 def _like(value, home):
     """``value`` (a local tensor the kernel wrote) as the value of its slot:
     ``home`` itself where the kernel updated ``home``'s shard in place, a
@@ -89,21 +82,35 @@ def _like(value, home):
 
 def _dense(ctx, ops, sparse_rule):
     """The ops of ``ops`` whose gradient is dense; each other one (a
-    SelectedRows gradient) goes to ``sparse_rule(ctx, op, grad)`` now."""
+    SelectedRows gradient) goes to ``sparse_rule(ctx, op, grad)`` now,
+    with the rows of the grad that land in this rank's rows of the param
+    (:func:`_rank_rows`)."""
     dense = []
     for op in ops:
         g = ctx.read_slot(op, "Grad")
         if isinstance(g, SelectedRows):
-            sparse_rule(ctx, op, g)
+            sparse_rule(ctx, op, _rank_rows(ctx, g, ctx.read_slot(op, "Param")))
         else:
             dense.append(op)
     return dense
 
 
+def _rank_rows(ctx, g, p):
+    """The part of the whole batch's sparse gradient ``g`` that updates
+    this rank's rows of ``p``: under a mesh that splits p's rows, the
+    rows in its shard shifted to local ids (:func:`shard_rows`); else
+    ``g`` whole (a replica applies the whole batch's update)."""
+    if ctx.mesh is None:
+        return g
+    from ..parallel.layout import row_shard
+    shard = row_shard(p, ctx.mesh)
+    return g if shard is None else shard_rows(g, *shard)
+
+
 def _sgd_sparse(ctx, op, g):
-    p = ctx.read_slot(op, "Param")
-    ctx.write_slot(op, "ParamOut", sparse_sgd(_own(op, "Param", "ParamOut", p), g,
-                                              ctx.read_slot(op, "LearningRate")))
+    p = _own(op, "Param", "ParamOut", ctx.read_slot(op, "Param"))
+    out = sparse_sgd(local_of(p), g, local_of(ctx.read_slot(op, "LearningRate")))
+    ctx.write_slot(op, "ParamOut", _like(out, p))
 
 
 @register_group_lowering("sgd", "pallas_sgd", key=_sgd_key)
@@ -117,7 +124,7 @@ def _sgd_group(ctx, ops):
         p, g, lr = (ctx.read_slot(op, s) for s in ("Param", "Grad", "LearningRate"))
         p = _own(op, "Param", "ParamOut", p)
         homes.append(p)
-        entries.append((_local(p), _local(_grad_as(g, p)), _local(lr)))
+        entries.append((local_of(p), local_of(_grad_as(g, p)), local_of(lr)))
     for op, out, p in zip(ops, fused_sgd_multi(entries), homes):
         ctx.write_slot(op, "ParamOut", _like(out, p))
 
@@ -134,9 +141,10 @@ def _adam_sparse(ctx, op, g):
     p, _, m1, m2, b1p, b2p, lr = (ctx.read_slot(op, s) for s in _ADAM_IN)
     p, m1, m2 = (_own(op, s, o, t) for s, o, t in
                  zip(("Param", "Moment1", "Moment2"), _ADAM_OUT, (p, m1, m2)))
-    outs = sparse_adam(p, g.astype(p.dtype), m1, m2, b1p, b2p, lr, *_adam_attrs(op))
-    for slot, val in zip(_ADAM_OUT, outs):
-        ctx.write_slot(op, slot, val)
+    outs = sparse_adam(local_of(p), g.astype(p.dtype),
+                       *(local_of(t) for t in (m1, m2, b1p, b2p, lr)), *_adam_attrs(op))
+    for slot, val, home in zip(_ADAM_OUT, outs, (p, m1, m2, b1p, b2p)):
+        ctx.write_slot(op, slot, _like(val, home))
 
 
 @register_group_lowering("adam", "pallas_adam", key=_adam_key)
@@ -151,7 +159,7 @@ def _adam_group(ctx, ops):
         p, m1, m2 = (_own(op, s, o, t) for s, o, t in
                      zip(("Param", "Moment1", "Moment2"), _ADAM_OUT, (p, m1, m2)))
         homes.append((p, m1, m2, b1p, b2p))
-        entries.append(tuple(_local(t) for t in (p, _grad_as(g, p), m1, m2, b1p, b2p, lr))
+        entries.append(tuple(local_of(t) for t in (p, _grad_as(g, p), m1, m2, b1p, b2p, lr))
                        + (op.type == "pallas_adam",))
     for op, outs, home in zip(ops, fused_adam_multi(entries, *_adam_attrs(ops[0])), homes):
         for slot, val, h in zip(_ADAM_OUT, outs, home):
@@ -190,10 +198,11 @@ def _family(op_type, state, attrs, reads=()):
         if op_type != "adagrad":
             unsupported_sparse(op_type)
         p, mom = (_own(op, s, s + "Out", ctx.read_slot(op, s)) for s in ("Param", "Moment"))
-        p, mom = sparse_adagrad(p, g.astype(p.dtype), mom, ctx.read_slot(op, "LearningRate"),
-                                op.attr("epsilon", 1e-6))
-        ctx.write_slot(op, "ParamOut", p)
-        ctx.write_slot(op, "MomentOut", mom)
+        new_p, new_mom = sparse_adagrad(local_of(p), g.astype(p.dtype), local_of(mom),
+                                        local_of(ctx.read_slot(op, "LearningRate")),
+                                        op.attr("epsilon", 1e-6))
+        ctx.write_slot(op, "ParamOut", _like(new_p, p))
+        ctx.write_slot(op, "MomentOut", _like(new_mom, mom))
 
     def deco(rule):
         @register_group_lowering(op_type, key=key)

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.lower import _lower_generic_grad
+from ..core.lower import _lower_generic_grad, is_dtensor, local_of
 from ..core.registry import mark_no_gradient, register_lowering
 from ..core.selected_rows import SelectedRows, concat_rows, row_mask, settle, update_slots
 from .nn_ops import flat_ids
@@ -43,18 +43,34 @@ def _lookup_table_grad(ctx, op):
     if not gnames or not gnames[0]:
         return
     w = ctx.read_slot(op, "W")
-    _, flat = flat_ids(ctx.read_slot(op, "Ids"))
+    ids = ctx.read_slot(op, "Ids")
     dname = (op.input("__outgrad__Out") or [""])[0]
     dout = ctx.read_opt(dname) if dname else None
+    if ctx.mesh is not None:
+        # every rank's rows of the batch, in the global batch's order: the
+        # gradient is the whole batch's on every rank (a replicated table's
+        # replicas all apply it; the update of a row-sharded one keeps the
+        # rank's own rows, ``optimizer_ops._rank_rows``)
+        ids, dout = (_whole(ctx.mesh, t) for t in (ids, dout))
+    _, flat = flat_ids(ids)
     row_shape = tuple(w.shape[1:])
     if dout is None:
-        rows = torch.zeros((flat.shape[0],) + row_shape, dtype=w.dtype, device=w.device)
+        rows = torch.zeros((flat.shape[0],) + row_shape, dtype=w.dtype, device=flat.device)
     else:
         rows = dout.reshape((-1,) + row_shape)
     padding_idx = op.attr("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         rows = torch.where(row_mask(flat != padding_idx, rows), rows, 0.0)
     ctx.write(gnames[0], SelectedRows(flat, rows, w.shape[0]).merged())
+
+
+def _whole(mesh, t):
+    """A DTensor's whole value on this rank (gathered over the mesh dims
+    that shard it); anything else as it is."""
+    from ..parallel.layout import replicate
+    if not is_dtensor(t):
+        return t
+    return t.redistribute(mesh.device_mesh, replicate(mesh)).to_local()
 
 
 # ------------------------------------------------ conversion / inspection
@@ -134,13 +150,26 @@ def unsupported_sparse(op_type: str):
 @register_lowering("sparse_weight_decay", no_gradient=True)
 def _sparse_weight_decay(ctx, op):
     """Out = Grad ++ SelectedRows(unique touched ids, coeff * f(Param[ids])),
-    f the identity (l2) or sign (l1): decay once a unique touched row."""
+    f the identity (l2) or sign (l1): decay once a unique touched row.
+    A row-sharded Param's rows are read on the rank that holds each and
+    all-reduced over the dims that split them (one nonzero term a row)."""
     p = ctx.read_slot(op, "Param")
     g = _need_sparse("sparse_weight_decay", ctx.read_slot(op, "Grad"))
     coeff = float(op.attr("coeff"))
     m = g.merged()
     valid = row_mask(m.ids < g.height, g.rows)
-    rows = p[torch.clamp(m.ids, max=g.height - 1).long()].to(g.rows.dtype)
+    at = torch.clamp(m.ids, max=g.height - 1).long()
+    shard = None
+    if ctx.mesh is not None:
+        from ..parallel.layout import all_reduce_over, row_groups, row_shard
+        shard = row_shard(p, ctx.mesh)
+    if shard is None:
+        rows = local_of(p)[at].to(g.rows.dtype)
+    else:
+        local = at - shard[0]
+        mine = row_mask((local >= 0) & (local < shard[1]), g.rows)
+        rows = local_of(p)[torch.clamp(local, 0, shard[1] - 1)].to(g.rows.dtype)
+        rows = all_reduce_over(torch.where(mine, rows, 0.0), row_groups(p, ctx.mesh))
     if str(op.attr("mode", "l2")) == "l1":
         rows = torch.sign(rows)
     decay = torch.where(valid, coeff * rows, 0.0)
@@ -152,8 +181,8 @@ def _sparse_scale_rows(ctx, op):
     """A SelectedRows gradient's rows times the scalar Y (the sparse half
     of ``GradientClipByGlobalNorm``'s rescale)."""
     x = _need_sparse("sparse_scale_rows", ctx.read_slot(op, "X"))
-    y = ctx.read_slot(op, "Y")
-    ctx.write_slot(op, "Out", SelectedRows(x.ids, x.rows * y.to(x.rows.dtype), x.height))
+    y = local_of(ctx.read_slot(op, "Y"))
+    ctx.write_slot(op, "Out", x._like(x.ids, x.rows * y.to(x.rows.dtype)))
 
 
 mark_no_gradient("get_tensor_from_selected_rows", "extract_rows", "merge_selected_rows",

@@ -354,7 +354,7 @@ def shard_program_state(program, scope, mesh, layout: Optional[SpecLayout],
         if v is None or not hasattr(v, "dtype") or not hasattr(v, "shape"):
             continue
         spec = state_spec(block, name, mesh, layout)
-        scope.set_var(name, place_tensor(v, mesh, spec))
+        scope.set_var(name, place_tensor(v, mesh, spec, name))
         report[name] = spec
     return report
 
@@ -375,14 +375,111 @@ def state_spec(block, name: str, mesh, layout: Optional[SpecLayout]):
     return None
 
 
-def place_tensor(value, mesh, spec):
+def check_divisible(name: str, shape, spec, mesh) -> None:
+    """Raise ``ValueError`` when a dim of ``shape`` does not divide by the
+    mesh sizes its spec entry names, as ``jax.device_put`` refuses such a
+    sharding (uneven shards are not a feature of either package; a rule's
+    spec never asks for one, ``_fit_axes`` degrades it first)."""
+    sizes = dict(mesh.shape)
+    for d, e in enumerate(_entries(spec)):
+        if e is None or d >= len(shape):
+            continue
+        n = int(np.prod([sizes.get(a, 1) for a in (e if isinstance(e, tuple) else (e,))]))
+        if int(shape[d]) % n:
+            raise ValueError(
+                f"{name}: the sharding {list(_entries(spec))} over {dict(sizes)} implies that "
+                f"the global size of its dimension {d} should be divisible by {n}, but it is "
+                f"equal to {int(shape[d])} (full shape: {tuple(int(s) for s in shape)})")
+
+
+def shard_range(placements, mesh, size: int, dim: int = 0) -> Tuple[int, int]:
+    """``(offset, local_size)``: where this rank's shard of a value placed
+    on ``placements`` over ``mesh`` lies along tensor dim ``dim`` (of
+    global ``size``).  The mesh dims that place ``Shard(dim)`` split it in
+    mesh order, each into equal parts (DTensor's order, and the JAX
+    package's for a tuple entry); a dim they leave alone is ``(0, size)``."""
+    from torch.distributed.tensor import Shard
+    dm = getattr(mesh, "device_mesh", mesh)     # a Mesh, or a DTensor's DeviceMesh
+    offset, size = 0, int(size)
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            n = int(dm.size(i))
+            if size % n:
+                raise ValueError(f"a dim of {size} does not split into {n} equal shards")
+            size //= n
+            offset += int(dm.get_local_rank(i)) * size
+    return offset, size
+
+
+def row_shard(value, mesh) -> Optional[Tuple[int, int]]:
+    """``(row_offset, local_rows)`` of the rows this rank holds of a table
+    placed ``Shard(0)`` over ``mesh`` (a ``sharded_table`` under
+    ``SpecLayout``'s embedding role, ``("fsdp", "tp")``, or an explicit
+    ``Variable.set_sharding(["data", None])``); None for a value whose rows
+    are not split (a plain tensor, or rows replicated on every mesh dim)."""
+    from torch.distributed.tensor import Shard
+    from ..core.lower import is_dtensor
+    if mesh is None or not is_dtensor(value) or not any(
+            isinstance(p, Shard) and p.dim == 0 for p in value.placements):
+        return None
+    return shard_range(value.placements, mesh, value.shape[0], 0)
+
+
+def local_index(placements, mesh, shape) -> Tuple[slice, ...]:
+    """This rank's shard of a value of global ``shape`` on ``placements``
+    over ``mesh``, as one slice a dim (:func:`shard_range`)."""
+    out = []
+    for d, size in enumerate(shape):
+        off, n = shard_range(placements, mesh, size, d)
+        out.append(slice(off, off + n))
+    return tuple(out)
+
+
+def first_replica(placements, mesh) -> bool:
+    """Whether this rank is the lowest rank that holds its shard of a value
+    on ``placements``: its index is 0 on every mesh dim that does not
+    split the value (a replicated value is written once, by rank 0)."""
+    from torch.distributed.tensor import Shard
+    dm = getattr(mesh, "device_mesh", mesh)
+    return all(isinstance(p, Shard) or dm.size(i) == 1 or dm.get_local_rank(i) == 0
+               for i, p in enumerate(placements))
+
+
+def row_groups(value, mesh) -> List[Any]:
+    """The process groups of the mesh dims that split ``value``'s rows
+    (each of more than one rank): a partial sum over a table's row shards
+    is all-reduced over each in turn (:func:`all_reduce_over`)."""
+    from torch.distributed.tensor import Shard
+    return [mesh.device_mesh.get_group(i) for i, p in enumerate(value.placements)
+            if isinstance(p, Shard) and p.dim == 0 and int(mesh.devices.shape[i]) > 1]
+
+
+def mesh_groups(mesh) -> List[Any]:
+    """The process group of each mesh dim of more than one rank: a sum over
+    every rank of the mesh is an all-reduce over each in turn."""
+    dm = mesh.device_mesh
+    return [dm.get_group(i) for i in range(dm.ndim) if dm.size(i) > 1]
+
+
+def all_reduce_over(t, groups):
+    """``t`` summed in place over each process group of ``groups`` in turn;
+    returns ``t``."""
+    import torch.distributed as dist
+    for g in groups:
+        dist.all_reduce(t, group=g)
+    return t
+
+
+def place_tensor(value, mesh, spec, name: str = "value"):
     """``value`` as a DTensor on ``spec``'s placements over ``mesh``: a
     DTensor already there is returned as it is, one elsewhere is
     redistributed, and a plain tensor takes the mesh's first rank's value
     (broadcast over the mesh, through host memory on a host-staged mesh)
-    and keeps this rank's shard of it."""
+    and keeps this rank's shard of it.  A dim the spec's axes do not
+    divide raises (:func:`check_divisible`)."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor, distribute_tensor
+    check_divisible(name, value.shape, spec, mesh)
     placements = as_placements(spec, mesh)
     if isinstance(value, DTensor):
         if tuple(value.placements) == placements:

@@ -56,11 +56,14 @@ embedding ids on the host as the batch is staged.
 given ``parallel.mesh.Mesh``, and ``layout=`` (a ``parallel.SpecLayout``)
 on its specs, over a mesh built from ``layout.mesh_axes`` when none is
 given: the executor runs each step on DTensors (``core/executor.py``),
-each rank feeding its own rows of the global batch.  Under a mesh the
-options that wait for ROADMAP §A item 12c raise ``NotImplementedError``
-naming it: ``checkpoint=`` and ``checkpoint_config=`` (multi-rank shard
-files and a resharded restore) and ``health=`` (the sentinel's
-global-norm mode).
+each rank feeding its own rows of the global batch.  Under a mesh,
+``checkpoint=`` saves from every rank (a shard file each, rank 0's
+manifest naming them all), resumes (``resume="auto"``) and rolls back onto
+the trainer's mesh and layout; ``checkpoint_config=``'s serial dirs save
+and load the whole values (``io``: every rank reads, rank 0 writes);
+``health=`` takes the sentinel's global norms and OR-ed bitmask over the
+ranks, and a trip's localization is skipped on a mesh that spans
+processes (reproduce it in one process).
 
 ``dispatch=DispatchConfig(...)`` (``dispatch/``, the elastic data
 dispatch) makes ``train(reader=None)`` read its epoch from a
@@ -182,11 +185,6 @@ def _list_serials(root: str) -> List[int]:
     return sorted(out)
 
 
-def _not_ported(option: str, item: str):
-    raise NotImplementedError(
-        f"Trainer({option}) is not ported to paddle_tpu_torch yet (ROADMAP §A item {item})")
-
-
 class Trainer:
     """Fluid's trainer.py:169 (see the module docstring)."""
 
@@ -205,11 +203,6 @@ class Trainer:
         if mesh is None and parallel:
             from .parallel import make_mesh
             mesh = make_mesh()
-        if mesh is not None:
-            for option, value in (("checkpoint", checkpoint),
-                                  ("checkpoint_config", checkpoint_config), ("health", health)):
-                if value:
-                    _not_ported(f"{option}=) under a mesh (parallel=, mesh=, layout=", "12c")
         # mesh/layout: sharded training (parallel/layout.py SpecLayout over
         # data x fsdp x tp); parameters, optimizer slots and accumulation
         # buffers are placed on the layout's specs before step 0
@@ -329,7 +322,8 @@ class Trainer:
             memory_budget=cfg.memory_budget, include_rng=cfg.include_rng)
         if cfg.resume == "auto" and self.ckpt_manager.latest() is not None:
             manifest = self.ckpt_manager.restore([self._step_program, self.apply_program],
-                                                 self.scope, executor=self.exe)
+                                                 self.scope, executor=self.exe,
+                                                 mesh=self._mesh, layout=self.layout)
             st = manifest.get("trainer") or {}
             self._ckpt_state = {"epoch_id": int(st.get("epoch_id", 0)),
                                 "step_id": int(st.get("step_id", 0))}
@@ -559,10 +553,20 @@ class Trainer:
 
     def _save_checkpoint(self, epoch_id: int, step_id: int):
         cfg = self.checkpoint_cfg
+        scope = self.scope
+        if self._mesh is not None:
+            # the whole values on rank 0's host (every rank takes part), written by rank 0
+            from .checkpoint.manager import gather_program_state
+            whole = gather_program_state([self.train_program], self.scope)
+            if whole is None:
+                return
+            scope = Scope()
+            for name, val in whole.items():
+                scope.set_var(name, val)
         serials = _list_serials(cfg.checkpoint_dir)
         serial = (serials[-1] + 1) if serials else 0
         d = _serial_dir(cfg.checkpoint_dir, serial)
-        with scope_guard(self.scope):
+        with scope_guard(scope):
             io_mod.save_persistables(self.exe, d, self.train_program)
         with open(os.path.join(d, _TRAINER_STATE), "w") as f:
             json.dump({"epoch_id": epoch_id, "step_id": step_id}, f)
@@ -595,7 +599,8 @@ class Trainer:
                        for k, v in (feed or {}).items() if hasattr(v, "shape")}
         self.ckpt_manager.save([self._step_program, self.apply_program], self.scope,
                                self._global_step, epoch_id=epoch_id, step_id=step_id,
-                               sync=sync, feed_shapes=feed_shapes, reason=reason)
+                               sync=sync, feed_shapes=feed_shapes, mesh=self._mesh,
+                               layout=self.layout, reason=reason)
 
     def _ckpt_step_actions(self, epoch_id: int, step_id: int, feed) -> bool:
         """After a step: a health-triggered rollback or save-and-exit
@@ -619,7 +624,8 @@ class Trainer:
                 self.ckpt_manager.wait(timeout=60.0)
             if self.ckpt_manager.latest() is not None:
                 self.ckpt_manager.restore([self._step_program, self.apply_program],
-                                          self.scope, executor=self.exe, reason="rollback")
+                                          self.scope, executor=self.exe, mesh=self._mesh,
+                                          layout=self.layout, reason="rollback")
             return False
         if self._ckpt_save_exit.is_set():
             # a fetch timeout: save everything synchronously and stop

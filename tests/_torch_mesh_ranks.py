@@ -1,5 +1,6 @@
-"""The multi-rank cases of ``tests/test_torch_parallel.py`` and
-``tests/test_torch_pipeline_moe.py``: each test file spawns its gloo
+"""The multi-rank cases of ``tests/test_torch_parallel.py``,
+``tests/test_torch_pipeline_moe.py``, ``tests/test_torch_sharded_tables.py``
+and ``tests/test_torch_mesh_checkpoint.py``: each test file spawns its gloo
 ranks on the CPU once (:func:`spawn`), every rank runs the file's cases
 in order (collectives need every rank in each), and the tests read the
 records the ranks wrote.  The JAX package's references are computed by
@@ -23,12 +24,13 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn(suite: str, world: int, workdir: str):
-    """Run ``suite``'s cases in ``world`` spawned ranks; each rank's
-    records: {case: {"ok": bool, "value" or "error"}, "findings": n}."""
+def spawn(suite: str, world: int, workdir: str, env=None):
+    """Run ``suite``'s cases in ``world`` spawned ranks (``env``: variables
+    each rank sets before it imports the port); each rank's records:
+    {case: {"ok": bool, "value" or "error"}, "findings": n}."""
     import torch.multiprocessing as mp
     port = free_port()
-    ctx = mp.start_processes(run_rank, args=(world, port, workdir, suite), nprocs=world,
+    ctx = mp.start_processes(run_rank, args=(world, port, workdir, suite, env), nprocs=world,
                              join=False, start_method="spawn")
     deadline = time.time() + SPAWN_S
     try:
@@ -47,7 +49,32 @@ def spawn(suite: str, world: int, workdir: str):
     return out
 
 
-def run_rank(rank, world, port, workdir, suite):
+class world_of_one:
+    """A clique of one gloo rank on the CPU inside the calling process, and
+    its ``{"data": 1}`` mesh, torn down on exit (the process group
+    destroyed, the port's clique state and mesh cache reset), so the
+    process's later tests see no group."""
+
+    def __enter__(self):
+        import paddle_tpu_torch as pt
+        from paddle_tpu_torch.parallel import make_mesh
+        pt.distributed.init_parallel_env(trainer_id=0, num_trainers=1,
+                                         coordinator_address=f"localhost:{free_port()}",
+                                         place=pt.CPUPlace())
+        return make_mesh({"data": 1})
+
+    def __exit__(self, *exc):
+        import torch.distributed as tdist
+        from paddle_tpu_torch import distributed as dist
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+        dist._state.update(initialized=False, num_trainers=1, trainer_id=0, device=None,
+                           backend=None)
+        dist._data_meshes.clear()
+
+
+def run_rank(rank, world, port, workdir, suite, env=None):
+    os.environ.update(env or {})
     import torch
     torch.set_num_threads(2)
     import paddle_tpu_torch as pt
@@ -308,12 +335,22 @@ def case_trainer(pt, rank, world, workdir):
         out[label] = losses_of(tr, _tf_samples(rank, world))
         out[label + "_captures"] = tr.exe.cache_info()["captures"]
         out[label + "_mesh"] = dict(tr.exe.mesh.shape)
-    for option, value in (("checkpoint", True), ("health", True)):
-        try:
-            _tf_trainer(pt, parallel=True, **{option: value})
-            out[option] = None
-        except NotImplementedError as e:
-            out[option] = str(e)
+    # the options that waited for item 12c under a mesh: each trains the
+    # epoch beside Trainer(parallel=True) and does its part
+    from paddle_tpu_torch import health
+    from paddle_tpu_torch.checkpoint import CheckpointConfig
+    root = os.path.join(workdir, "trainer_ckpt")
+    for option, value in (("checkpoint", CheckpointConfig(dir=root, step_interval=1,
+                                                          epoch_interval=0)),
+                          ("health", True)):
+        tr = _tf_trainer(pt, parallel=True, **{option: value})
+        rec = {"losses": losses_of(tr, _tf_samples(rank, world))}
+        if option == "checkpoint":
+            rec["steps"] = tr.ckpt_manager.steps()
+        else:
+            rec["ok"] = [r["ok"] for r in health.HEALTH_RECORDS.records()
+                         if r.get("kind") == "step"][-2:]
+        out[option] = rec
     return out
 
 
@@ -380,13 +417,15 @@ def case_errors(pt, rank, world, workdir):
     from paddle_tpu_torch import distributed as dist
     from paddle_tpu_torch.parallel import SpecLayout, make_mesh
     out = {}
+    # what waited for item 12c under a mesh now works: the sentinel's
+    # executor builds, a save from both ranks commits one manifest
+    out["sentinels_under_mesh"] = list(pt.Executor(mesh=dist.data_mesh(), sentinels=True)
+                                       .sentinels)
+    out["checkpoint_save"] = CheckpointManager(os.path.join(workdir, "ckpt_errors"),
+                                               async_save=False).save(
+        pt.Program(), pt.Scope(), step=1, mesh=dist.data_mesh())
     for label, call in (
             ("layout_without_mesh", lambda: pt.Executor(pt.CPUPlace(), layout=SpecLayout())),
-            ("sentinels_under_mesh", lambda: pt.Executor(mesh=dist.data_mesh(),
-                                                         sentinels=True)),
-            ("checkpoint_save", lambda: CheckpointManager(
-                os.path.join(workdir, f"ckpt{rank}"), async_save=False).save(
-                    pt.Program(), pt.Scope(), step=1, mesh=dist.data_mesh())),
             ("host_staged_nccl", None),
             ("bad_axes", lambda: make_mesh({"data": 3})),
             ("two_inferred", lambda: make_mesh({"data": -1, "fsdp": -1}))):
@@ -563,3 +602,512 @@ def case_moe(pt, rank, world, workdir):
 
 SUITES["pipeline_moe"] = [("collectives", case_collectives), ("pipeline", case_pipeline),
                           ("ring", case_ring), ("moe", case_moe)]
+
+
+# ------------------------------------------------- the sharded-tables suite
+TBL = dict(rows=64, dim=8, batch=8, steps=3)
+
+
+def build_table(pkg, is_sparse=True, opt="sgd", name="user_table"):
+    """tests/test_embedding.py's net: ``sharded_table`` -> mean, SGD 0.5
+    (``opt="sgd_clip"``: under a global-norm clip of 0.05, which the
+    batch's gradient norm of ~0.12 exceeds; ``opt="sgd_l2"``: with an L2
+    decay of 0.25), or Adam 0.1."""
+    main, startup = pkg.Program(), pkg.Program()
+    with pkg.unique_name.guard(), pkg.program_guard(main, startup):
+        ids = pkg.layers.data(name="ids", shape=[1], dtype="int64")
+        emb = pkg.embedding.sharded_table(ids, name, rows=TBL["rows"], dim=TBL["dim"],
+                                          is_sparse=is_sparse)
+        loss = pkg.layers.mean(emb)
+        if opt == "sgd_clip":
+            pkg.clip.set_gradient_clip(pkg.clip.GradientClipByGlobalNorm(clip_norm=0.05))
+        decay = pkg.regularizer.L2Decay(0.25) if opt == "sgd_l2" else None
+        (pkg.optimizer.Adam(learning_rate=0.1) if opt == "adam" else
+         pkg.optimizer.SGD(0.5, regularization=decay)).minimize(loss)
+    return main, startup, loss
+
+
+def table_feeds():
+    """tests/test_embedding.py's ``_train`` batches: 8 ids a step."""
+    rng = np.random.RandomState(3)
+    return [{"ids": rng.randint(0, TBL["rows"], (TBL["batch"], 1)).astype(np.int64)}
+            for _ in range(TBL["steps"])]
+
+
+class KernelShapes:
+    """Records the table each call of K2's and K3's wrappers is handed
+    (their argument check runs first on every call, on the CPU too)."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.ops.cuda import embedding as E
+        self.module, self.orig, self.seen = E, E._check, set()
+
+        def spy(name, w, flat_ids, rows=None):
+            self.seen.add((name, tuple(w.shape)))
+            return self.orig(name, w, flat_ids, rows)
+        E._check = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module._check = self.orig
+
+
+def train_table(pt, start, is_sparse, opt="sgd", axes=None, rank=0, world=1, kernels=None):
+    """The table net from ``start`` over ``table_feeds`` (each rank its rows
+    of a batch); returns (the whole table, the rank's shard shape, its
+    placements, the kernels' tables)."""
+    from paddle_tpu_torch.parallel import SpecLayout, make_mesh
+    main, startup, loss = build_table(pt, is_sparse, opt)
+    scope = pt.Scope()
+    pt.Executor(pt.CPUPlace()).run(startup, scope=scope)
+    _carry(pt, scope, {"user_table": start})
+    exe = (pt.Executor(pt.CPUPlace(), kernels=kernels) if axes is None else
+           pt.Executor(mesh=make_mesh(axes), layout=SpecLayout(), kernels=kernels))
+    with KernelShapes() as ks:
+        for f in table_feeds():
+            exe.run(main, feed=_rows(f, rank, world) if axes else f, fetch_list=[loss],
+                    scope=scope)
+    v = scope.find_var("user_table")
+    placements = [repr(p) for p in v.placements] if hasattr(v, "placements") else None
+    local = list(v.to_local().shape) if hasattr(v, "to_local") else list(v.shape)
+    return _np(v), local, placements, sorted([n, list(s)] for n, s in ks.seen)
+
+
+TABLE_ARMS = (("dense", False, "sgd", None), ("sparse", True, "sgd", None),
+              ("dense_kernel_tier", False, "sgd", True), ("sparse_kernel_tier", True, "sgd", True),
+              ("sparse_adam", True, "adam", None), ("dense_adam", False, "adam", None),
+              ("sparse_clip", True, "sgd_clip", None), ("sparse_l2", True, "sgd_l2", None))
+
+
+def case_tables(pt, rank, world, workdir):
+    """Each arm on ``{"fsdp": 2}`` under ``SpecLayout()`` against the same
+    net in one process from the same table; rank 0 writes both tables."""
+    start = _load(workdir, "tbl_start.npz")["user_table"]
+    out = {}
+    for arm, sparse, opt, kernels in TABLE_ARMS:
+        got, local, placements, seen = train_table(pt, start, sparse, opt, {"fsdp": world},
+                                                   rank, world, kernels)
+        single, _, _, seen1 = train_table(pt, start, sparse, opt, kernels=kernels)
+        if rank == 0:
+            np.savez(os.path.join(workdir, f"tbl_{arm}.npz"), mesh=got, single=single)
+        out[arm] = {"equal_single": bool(np.array_equal(got, single)), "local": local,
+                    "placements": placements, "kernel_tables": seen,
+                    "kernel_tables_single": seen1}
+    return out
+
+
+def case_plan(pt, rank, world, workdir):
+    from paddle_tpu_torch.parallel import SpecLayout, make_mesh
+    mesh = make_mesh({"fsdp": world})
+    return {str(kw): pt.embedding.plan_table("t", 1024, 16, mesh=mesh, layout=SpecLayout(), **kw)
+            for kw in PLAN_CASES}
+
+
+PLAN_CASES = ({"slots": 1, "budget": 1024 * 16 * 4}, {"slots": 2}, {"slots": 0, "budget": "1MiB"})
+FM = dict(vocab=(8, 16, 4), odd_vocab=(5, 16, 4), dim=4, dense=3, batch=8, steps=2)
+
+
+def build_deepfm(pkg, shard_tables, vocab=FM["vocab"]):
+    """DeepFM at a small width (no dropout: ``is_test``), SGD 0.5."""
+    from importlib import import_module
+    deepfm = import_module(pkg.__name__ + ".models.deepfm")
+    main, startup = pkg.Program(), pkg.Program()
+    L = pkg.layers
+    with pkg.unique_name.guard(), pkg.program_guard(main, startup):
+        ids = [L.data(name=f"C{i}", shape=[1], dtype="int64") for i in range(len(vocab))]
+        dense = L.data(name="dense", shape=[FM["dense"]], dtype="float32")
+        label = L.data(name="label", shape=[1], dtype="float32")
+        logits = deepfm.deepfm(ids, dense, list(vocab), embed_dim=FM["dim"], hidden=(8,),
+                               is_test=True, shard_tables=shard_tables)
+        loss = pkg.layers.mean(pkg.layers.sigmoid_cross_entropy_with_logits(x=logits,
+                                                                            label=label))
+        pkg.optimizer.SGD(0.5).minimize(loss)
+    return main, startup, loss
+
+
+def deepfm_feeds(vocab=FM["vocab"]):
+    from paddle_tpu_torch.models.deepfm import synthetic_feed
+    return [synthetic_feed(40 + s, FM["batch"], vocab_sizes=vocab, num_dense=FM["dense"])
+            for s in range(FM["steps"])]
+
+
+def case_deepfm(pt, rank, world, workdir):
+    """``deepfm(shard_tables=True)`` on ``{"data": 2}`` against the same
+    model unsharded on the mesh (bit-equal) and in one process; a
+    vocabulary the axis does not divide raises at placement."""
+    from paddle_tpu_torch.parallel import SpecLayout, make_mesh
+    init = _load(workdir, "fm_init.npz")
+    out = {}
+    runs = {}
+    for label, shard, axes in (("sharded", True, {"data": world}),
+                               ("unsharded", False, {"data": world}), ("single", False, None)):
+        main, startup, loss = build_deepfm(pt, shard)
+        scope = pt.Scope()
+        pt.Executor(pt.CPUPlace()).run(startup, scope=scope)
+        _carry(pt, scope, init)
+        exe = pt.Executor(pt.CPUPlace()) if axes is None else \
+            pt.Executor(mesh=make_mesh(axes), layout=SpecLayout())
+        losses = [float(exe.run(main, feed=_rows(f, rank, world) if axes else f,
+                                fetch_list=[loss], scope=scope)[0]) for f in deepfm_feeds()]
+        runs[label] = {n: _np(scope.find_var(n)) for n in init}
+        out[label] = {"losses": losses}
+        if shard:
+            out[label]["placements"] = {n: [repr(p) for p in scope.find_var(n).placements]
+                                        for n in ("fm_emb_0", "fm_w1_0")}
+    out["sharded_equal_unsharded"] = all(np.array_equal(runs["sharded"][n], runs["unsharded"][n])
+                                         for n in init)
+    worst = max(float(np.abs(runs["sharded"][n] - runs["single"][n]).max()) for n in init)
+    out["sharded_vs_single_max_abs"] = worst
+    main, startup, loss = build_deepfm(pt, True, FM["odd_vocab"])
+    scope = pt.Scope()
+    pt.Executor(pt.CPUPlace()).run(startup, scope=scope)
+    from paddle_tpu_torch.telemetry import REGISTRY
+    findings = REGISTRY.counter("validate_findings", scope="analysis")
+    before = findings.value
+    try:
+        pt.Executor(mesh=make_mesh({"data": world}), layout=SpecLayout()).run(
+            main, feed=_rows(deepfm_feeds(FM["odd_vocab"])[0], rank, world), fetch_list=[loss],
+            scope=scope)
+        out["odd"] = None
+    except ValueError as e:
+        out["odd"] = str(e)
+    # the verifier's R404 on the planted odd vocabulary, as in the JAX package
+    out["odd_findings"] = findings.value - before
+    return out
+
+
+SUITES["sharded_tables"] = [("tables", case_tables), ("plan", case_plan), ("deepfm", case_deepfm)]
+
+
+# ------------------------------------------------ the mesh-checkpoint suite
+NAN_SITE = "test.nan_feed"     # fired once a batch by mlp_reader: a hit puts a NaN in x
+
+
+def persist_names(program):
+    return [v.name for v in program.list_vars() if v.persistable]
+
+
+def case_ckpt_save(pt, rank, world, workdir):
+    """The 1+1 transformer on ``{"fsdp": 2}`` from the JAX init, 2 Adam
+    steps, a synchronous save at step 2 (rank 0 writes the state it saved),
+    one more step and an async save at step 3."""
+    from paddle_tpu_torch.checkpoint import (CheckpointManager, checkpoint_dir, read_manifest,
+                                             validate_shards)
+    from paddle_tpu_torch.parallel import SpecLayout, make_mesh, shard_program_state
+    root = os.path.join(workdir, "ckpt_tf")
+    main, startup, loss = build_transformer(pt)
+    scope = pt.Scope()
+    pt.Executor(pt.CPUPlace()).run(startup, scope=scope)
+    _carry(pt, scope, _load(workdir, "tf_init.npz"))
+    axes = {"fsdp": world}
+    mesh, layout = make_mesh(axes), SpecLayout(mesh_axes=axes)
+    shard_program_state(main, scope, mesh, layout)
+    mexe = pt.Executor(mesh=mesh, layout=layout)
+    feeds = transformer_feeds(3)
+    for f in feeds[:2]:
+        mexe.run(main, feed=_rows(f, rank, world), fetch_list=[loss], scope=scope)
+    m = CheckpointManager(root, async_save=False)
+    assert m.save(main, scope, step=2, mesh=mesh, layout=layout)
+    state = {n: _np(scope.find_var(n)) for n in persist_names(main)}
+    if rank == 0:
+        np.savez(os.path.join(workdir, "ck_state2.npz"), **state)
+    loss3 = float(mexe.run(main, feed=_rows(feeds[2], rank, world), fetch_list=[loss],
+                           scope=scope)[0])
+    ma = CheckpointManager(root, async_save=True)
+    saved_async = ma.save(main, scope, step=3, mesh=mesh, layout=layout)
+    ma.wait()
+    ma.close()
+    pt.distributed.barrier()
+    out = {"loss3": loss3, "async": saved_async, "steps": m.steps()}
+    for step in (2, 3):
+        d = checkpoint_dir(root, step)
+        man = read_manifest(d)
+        out[step] = {
+            "files": sorted(f for f in os.listdir(d)),
+            "shards": {k: v["file"] for k, v in man["shards"].items()},
+            "validate": validate_shards(d, man), "mesh": man["mesh"],
+            "layout_fp": man["layout_fp"] == layout.fingerprint(),
+            "chunks": {n: sum(len(info["chunks"].get(n, [])) for info in man["shards"].values())
+                       for n in man["vars"]},
+            "sharded": sorted(n for n in persist_names(main)
+                              if "Shard" in repr(scope.find_var(n).placements))}
+    return out
+
+
+def case_ckpt_restore(pt, rank, world, workdir):
+    """Step 2's checkpoint restored onto ``{"data": 2}`` and onto its own
+    ``{"fsdp": 2}`` (each bit-equal to the state saved; the next step's
+    loss against the source's), again in place, an impossible budget
+    refused first; and the JAX package's checkpoint of its table (saved on
+    its 2 x 2 virtual-device mesh) restored onto ``{"fsdp": 2}``."""
+    from paddle_tpu_torch.analysis import PredictedOOMError
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+    from paddle_tpu_torch.parallel import SpecLayout, make_mesh
+    m = CheckpointManager(os.path.join(workdir, "ckpt_tf"), async_save=False)
+    want = _load(workdir, "ck_state2.npz")
+    feeds = transformer_feeds(3)
+    out = {}
+    for axes in ({"data": world}, {"fsdp": world}):
+        main, startup, loss = build_transformer(pt)
+        scope = pt.Scope()
+        pt.Executor(pt.CPUPlace()).run(startup, scope=scope)
+        mesh, layout = make_mesh(axes), SpecLayout(mesh_axes=axes)
+        rec = {}
+        try:
+            m.restore(main, scope, step=2, mesh=mesh, layout=layout, memory_budget=256)
+            rec["m501"] = None
+        except PredictedOOMError as e:
+            rec["m501"] = e.diagnostic.code
+            rec["untouched"] = not any(hasattr(scope.find_var(n), "placements")
+                                       for n in persist_names(main))
+        man = m.restore(main, scope, step=2, mesh=mesh, layout=layout)
+        got = {n: _np(scope.find_var(n)) for n in persist_names(main)}
+        rec["diffs"] = {n: float(np.abs(got[n].reshape(want[n].shape) - want[n]).max())
+                        for n in want if not np.array_equal(got[n].reshape(want[n].shape),
+                                                            want[n])}
+        rec["placements"] = {n: [repr(p) for p in scope.find_var(n).placements]
+                             for n in ("src_emb", "fc_0.w_0")}
+        rec["source_mesh"] = man["mesh"]
+        ptrs = {n: scope.find_var(n).to_local().data_ptr() for n in persist_names(main)}
+        m.restore(main, scope, step=2, mesh=mesh, layout=layout)
+        rec["in_place"] = all(scope.find_var(n).to_local().data_ptr() == p
+                              for n, p in ptrs.items())
+        mexe = pt.Executor(mesh=mesh, layout=layout)
+        rec["loss3"] = float(mexe.run(main, feed=_rows(feeds[2], rank, world), fetch_list=[loss],
+                                      scope=scope)[0])
+        from paddle_tpu_torch.checkpoint import CKPT_RECORDS
+        last = [r for r in CKPT_RECORDS.records() if r.get("kind") == "restore"][-1]
+        rec["record"] = {k: last.get(k) for k in ("source_mesh", "target_mesh")}
+        out[layout_key(axes)] = rec
+    main, startup, loss = build_table(pt, True)
+    scope = pt.Scope()
+    pt.Executor(pt.CPUPlace()).run(startup, scope=scope)
+    mesh = make_mesh({"fsdp": world})
+    CheckpointManager(os.path.join(workdir, "ckpt_jax"), async_save=False).restore(
+        main, scope, mesh=mesh, layout=SpecLayout())
+    v = scope.find_var("user_table")
+    out["jax_table"] = {"equal": bool(np.array_equal(_np(v), _load(workdir, "jax_table.npz")
+                                                     ["user_table"])),
+                        "placements": [repr(p) for p in v.placements],
+                        "local": list(v.to_local().shape)}
+    return out
+
+
+def _mlp_train_func(pt):
+    def train_func():
+        L = pt.layers
+        x = L.data(name="x", shape=[16], dtype="float32")
+        y = L.data(name="y", shape=[1], dtype="int64")
+        h = L.fc(input=x, size=32, act="relu")
+        pred = L.fc(input=h, size=4, act="softmax")
+        return L.mean(L.cross_entropy(input=pred, label=y))
+    return train_func
+
+
+def mlp_reader(rank, world, batches, seed=0):
+    """This rank's rows of ``batches`` global batches of 8; each batch
+    fires ``NAN_SITE`` (``faults``), and a hit puts a NaN in its first x."""
+    from paddle_tpu_torch import faults
+
+    def reader():
+        for s in range(batches):
+            d = mlp_data(seed + s, batch=8)
+            lo, hi = rank * 8 // world, (rank + 1) * 8 // world
+            xs = d["x"][lo:hi].copy()
+            if faults.fire(NAN_SITE):
+                xs[0, 0] = np.nan
+            yield [(x, y) for x, y in zip(xs, d["y"][lo:hi])]
+    return reader
+
+
+def _mlp_trainer(pt, world, root, **kw):
+    from paddle_tpu_torch.checkpoint import CheckpointConfig
+    from paddle_tpu_torch.parallel import SpecLayout
+    with pt.unique_name.guard():
+        return pt.Trainer(_mlp_train_func(pt), lambda: pt.optimizer.SGD(learning_rate=0.1),
+                          place=pt.CPUPlace(), layout=SpecLayout(mesh_axes={"fsdp": world}),
+                          checkpoint=CheckpointConfig(dir=root, step_interval=1, epoch_interval=0,
+                                                      rollback_on_divergence=True),
+                          **kw)
+
+
+def _train_events(tr, reader):
+    got = []
+    tr.train(1, lambda ev: got.append(float(np.asarray(ev.metrics[0])))
+             if type(ev).__name__ == "EndStepEvent" else None,
+             reader=reader, feed_order=["x", "y"])
+    return got
+
+
+def case_trainer_ckpt(pt, rank, world, workdir):
+    """Trainer(layout=, health=True, checkpoint=) on ``{"fsdp": 2}``: an
+    epoch saves at its second step; a new Trainer resumes it; a NaN put
+    into rank 1's next batch through ``faults`` trips the sentinel on both
+    ranks, and the rollback restores the saved shards."""
+    from paddle_tpu_torch import faults, health
+    root = os.path.join(workdir, "ckpt_mlp")
+    tr = _mlp_trainer(pt, world, root, health=True)
+    names = persist_names(tr.train_program)
+    losses = _train_events(tr, mlp_reader(rank, world, 2))
+    saved = {n: _np(tr.scope.find_var(n)) for n in names}
+    out = {"losses": losses, "steps": tr.ckpt_manager.steps(),
+           "placements": {p.name: [list(p.shape), [repr(q) for q in
+                                                   tr.scope.find_var(p.name).placements]]
+                          for p in tr.train_program.global_block.all_parameters()}}
+    resumed = _mlp_trainer(pt, world, root, health=True)
+    out["resume_equal"] = all(np.array_equal(_np(resumed.scope.find_var(n)).reshape(saved[n].shape),
+                                             saved[n]) for n in names)
+    out["resume_step"] = resumed._global_step
+    trips0 = len([r for r in health.HEALTH_RECORDS.records() if r.get("event") == "non-finite"])
+    faults.install(f"drop@{NAN_SITE}:n=1" if rank == 1 else None, seed=0)
+    try:
+        out["nan_losses"] = _train_events(tr, mlp_reader(rank, world, 1, seed=50))
+    finally:
+        faults.reset()
+    trips = [r for r in health.HEALTH_RECORDS.records() if r.get("event") == "non-finite"]
+    out["trips"] = [{k: r.get(k) for k in ("bad_vars", "localization", "rank")}
+                    for r in trips[trips0:]]
+    out["rolled_back"] = all(np.array_equal(_np(tr.scope.find_var(n)).reshape(saved[n].shape),
+                                            saved[n]) for n in names)
+    out["finite"] = all(np.isfinite(_np(tr.scope.find_var(n))).all() for n in names)
+    return out
+
+
+def case_sentinel(pt, rank, world, workdir):
+    """``Executor(mesh=, sentinels=True)``'s values against one process's
+    from the same state and global batch (the MLP, SGD 0.1)."""
+    from paddle_tpu_torch.parallel import SpecLayout, make_mesh
+    main, startup, loss = build_mlp(pt)
+    init = _load(workdir, "mlp_init.npz")
+    feed = mlp_data(7, batch=8)
+    got = {}
+    for label, axes in (("single", None), ("mesh", {"fsdp": world})):
+        scope = pt.Scope()
+        pt.Executor(pt.CPUPlace()).run(startup, scope=scope)
+        _carry(pt, scope, init)
+        exe = pt.Executor(pt.CPUPlace(), sentinels=True) if axes is None else \
+            pt.Executor(mesh=make_mesh(axes), layout=SpecLayout(mesh_axes=axes), sentinels=True)
+        taps = []
+        exe._health_hook = lambda **kw: taps.append(
+            ([np.asarray(v).tolist() for v in kw["values"]], kw.get("multiproc")))
+        exe.run(main, feed=feed if axes is None else _rows(feed, rank, world),
+                fetch_list=[loss], scope=scope)
+        (values, multiproc), = taps
+        got[label] = {"mask": values[0], "loss": values[1], "grad_norm": values[2],
+                      "param_norm": values[3], "update_norm": values[4], "multiproc": multiproc}
+    return got
+
+
+def case_nan_global(pt, rank, world, workdir):
+    """FLAGS_check_nan_inf on the mesh: a clean step passes; a NaN in rank
+    1's rows fails on both ranks, naming the vars."""
+    from paddle_tpu_torch.flags import FLAGS
+    from paddle_tpu_torch.parallel import SpecLayout, make_mesh
+    main, startup, loss = build_mlp(pt)
+    scope = pt.Scope()
+    pt.Executor(pt.CPUPlace()).run(startup, scope=scope)
+    _carry(pt, scope, _load(workdir, "mlp_init.npz"))
+    axes = {"fsdp": world}
+    exe = pt.Executor(mesh=make_mesh(axes), layout=SpecLayout(mesh_axes=axes))
+    out = {}
+    FLAGS.check_nan_inf = True
+    try:
+        feed = _rows(mlp_data(8, batch=8), rank, world)
+        out["clean"] = float(exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0])
+        if rank == 1:
+            feed["x"] = feed["x"].copy()
+            feed["x"][0, 0] = np.nan
+        try:
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            out["error"] = None
+        except FloatingPointError as e:
+            out["error"] = str(e)
+    finally:
+        FLAGS.check_nan_inf = False
+    return out
+
+
+def case_resave(pt, rank, world, workdir):
+    """The table net on ``{"fsdp": 2}``: two async saves at one step, the
+    table changed between them, then ``wait`` and a restore onto the mesh;
+    then a writer error put on rank 1 alone, which the next ``save`` and
+    the next ``wait`` raise on both ranks."""
+    from paddle_tpu_torch.checkpoint import (CheckpointError, CheckpointManager,
+                                             checkpoint_dir, read_manifest, validate_shards)
+    from paddle_tpu_torch.parallel import SpecLayout, make_mesh, shard_program_state
+    root = os.path.join(workdir, "ckpt_resave")
+    main, startup, _ = build_table(pt, True)
+    mesh, layout = make_mesh({"fsdp": world}), SpecLayout()
+    scope = pt.Scope()
+    pt.Executor(pt.CPUPlace()).run(startup, scope=scope)
+    shard_program_state(main, scope, mesh, layout)
+    table = scope.find_var("user_table")
+    m = CheckpointManager(root, async_save=True)
+    out = {"saved": [m.save(main, scope, step=5, mesh=mesh, layout=layout)]}
+    table.to_local().add_(1.0)
+    out["saved"].append(m.save(main, scope, step=5, mesh=mesh, layout=layout))
+    m.wait()
+    d = checkpoint_dir(root, 5)
+    out["entries"] = sorted(os.listdir(root)) == [os.path.basename(d)]
+    out["validate"] = validate_shards(d, read_manifest(d))
+    again = pt.Scope()
+    pt.Executor(pt.CPUPlace()).run(startup, scope=again)
+    m.restore(main, again, step=5, mesh=mesh, layout=layout)
+    out["second"] = bool(np.array_equal(_np(again.find_var("user_table")), _np(table)))
+    for call in ("save", "wait"):
+        if rank == 1:
+            m._error = RuntimeError("injected writer failure")
+        try:
+            m.save(main, scope, step=6, mesh=mesh, layout=layout) if call == "save" else m.wait()
+            out[call + "_raised"] = None
+        except CheckpointError as e:
+            out[call + "_raised"] = str(e)
+    m.close()
+    out["steps"] = m.steps()
+    return out
+
+
+def case_legacy_dir(pt, rank, world, workdir):
+    """``Trainer(checkpoint_config=)`` with the row-sharded table on
+    ``{"fsdp": 2}``: after the epoch's save, a save with every way to make
+    a DTensor whole on the device refused, whose serial dir rank 0 writes
+    with the whole table."""
+    from torch.distributed.tensor import DTensor
+    from paddle_tpu_torch.parallel import SpecLayout
+    root = os.path.join(workdir, "legacy_tbl")
+
+    def train_func():
+        ids = pt.layers.data(name="ids", shape=[1], dtype="int64")
+        return pt.layers.mean(pt.embedding.sharded_table(ids, "user_table", rows=TBL["rows"],
+                                                         dim=TBL["dim"], is_sparse=True))
+    with pt.unique_name.guard():
+        tr = pt.Trainer(train_func, lambda: pt.optimizer.SGD(0.5), place=pt.CPUPlace(),
+                        layout=SpecLayout(mesh_axes={"fsdp": world}),
+                        checkpoint_config=pt.CheckpointConfig(checkpoint_dir=root))
+    ids = _rows(table_feeds()[0], rank, world)["ids"]
+    tr.train(1, lambda ev: None, reader=lambda: iter([[(i,) for i in ids]]),
+             feed_order=["ids"])
+    table = tr.scope.find_var("user_table")
+    orig = DTensor.full_tensor, DTensor.redistribute
+
+    def refuse(*a, **k):
+        raise AssertionError("a DTensor was made whole on the device")
+    DTensor.full_tensor = DTensor.redistribute = refuse
+    try:
+        tr._save_checkpoint(0, 1)
+    finally:
+        DTensor.full_tensor, DTensor.redistribute = orig
+    out = {"local": list(table.to_local().shape)}
+    whole = _np(table)
+    if rank == 0:
+        dirs = sorted(os.listdir(root))
+        with np.load(os.path.join(root, dirs[-1], "__params__.npz")) as z:
+            out["dirs"] = dirs
+            out["equal"] = bool(np.array_equal(z["user_table"], whole))
+    return out
+
+
+SUITES["mesh_checkpoint"] = [("ckpt_save", case_ckpt_save), ("ckpt_restore", case_ckpt_restore),
+                             ("trainer_ckpt", case_trainer_ckpt), ("sentinel", case_sentinel),
+                             ("nan_global", case_nan_global), ("resave", case_resave),
+                             ("legacy_dir", case_legacy_dir)]

@@ -264,13 +264,39 @@ def test_snapshot_is_consistent_despite_later_in_place_steps(tmp_path):
 
 
 def test_mesh_and_layout_wait_for_the_multi_gpu_port(tmp_path):
-    _, main, scope, _ = _started()
+    """``save`` / ``restore`` with ``mesh=`` and ``layout=`` (the multi-GPU
+    half, ported): on a world of one here (two ranks in
+    tests/test_torch_mesh_checkpoint.py) the state lives on DTensors; the
+    save records the mesh and the layout's fingerprint as the JAX package
+    records them, and the restore places each value back on the mesh in
+    place, or onto no mesh."""
+    from paddle_tpu_torch.parallel import SpecLayout, shard_program_state
+    import _torch_mesh_ranks as R
+    _, main, scope, exe = _started()
+    layout = SpecLayout()
     m = CheckpointManager(str(tmp_path), async_save=False)
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        m.save(main, scope, step=1, mesh=object())
-    m.save(main, scope, step=1)
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        m.restore(main, scope, layout=object())
+    at_save = _persistable_values(main, scope)
+    with R.world_of_one() as mesh:
+        shard_program_state(main, scope, mesh, layout)
+        m.save(main, scope, step=1, mesh=mesh, layout=layout)
+        man = read_manifest(manifest_mod.checkpoint_dir(str(tmp_path), 1))
+        assert man["mesh"] == {"axes": {"data": 1}}
+        assert man["layout_fp"] == layout.fingerprint()
+        validate_shards(manifest_mod.checkpoint_dir(str(tmp_path), 1), man)
+        names = list(at_save)
+        ptrs = {n: scope.find_var(n).to_local().data_ptr() for n in names}
+        for n in names:
+            scope.find_var(n).to_local().zero_()
+        m.restore(main, scope, mesh=mesh, layout=layout)
+        for n in names:
+            v = scope.find_var(n)
+            assert v.to_local().data_ptr() == ptrs[n]
+            np.testing.assert_array_equal(v.full_tensor().numpy(), at_save[n])
+    fresh = pt.Scope()
+    exe.run(pt.default_startup_program(), scope=fresh)
+    m.restore(main, fresh, layout=layout)
+    for n, b in at_save.items():
+        np.testing.assert_array_equal(_persistable_values(main, fresh)[n], b)
 
 
 # ------------------------------------------------------------ cross-package

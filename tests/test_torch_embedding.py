@@ -6,8 +6,8 @@ the JAX package's, on the CPU.
   argument checks; sparse SGD bit-equal to dense over 3 steps (a mean
   over a power-of-two batch and a power-of-two rate keep every update
   exact) and to the JAX package's table;
-* ``plan_table``: the budget arithmetic equal to the JAX package's, a
-  mesh or layout raising (ROADMAP item 12c); ``Executor(memory_budget=)``
+* ``plan_table``: the budget arithmetic equal to the JAX package's, on
+  one device and over a mesh; ``Executor(memory_budget=)``
   M501-refusing the table's step; the step's memory plan sizing every
   var; the op types' infer-shape rules;
 * ``RowPrefetcher``: its counters and JSONL records, riding the
@@ -120,10 +120,22 @@ def test_plan_table_budget_math_against_jax():
 
 
 def test_plan_table_mesh_waits_for_item_12():
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        embedding.plan_table("t", 1024, 16, slots=1, mesh={"fsdp": 4})
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        embedding.plan_table("t", 1024, 16, layout=object())
+    """``plan_table(mesh=, layout=)`` (ROADMAP item 12c, ported): a mesh
+    given as ``{axis: size}``, or only through the layout's ``mesh_axes``,
+    plans the table's rows split as the JAX package plans them."""
+    from paddle_tpu.parallel import SpecLayout as JaxSpecLayout
+    from paddle_tpu_torch.parallel import SpecLayout
+    for kw, jkw in (({"mesh": {"fsdp": 4}, "layout": SpecLayout()},
+                     {"mesh": {"fsdp": 4}, "layout": JaxSpecLayout()}),
+                    ({"layout": SpecLayout(mesh_axes={"fsdp": 2, "tp": 2})},
+                     {"layout": JaxSpecLayout(mesh_axes={"fsdp": 2, "tp": 2})}),
+                    ({"mesh": {"fsdp": 4}}, {"mesh": {"fsdp": 4}})):
+        got = embedding.plan_table("t", 1024, 16, slots=1, budget=1024 * 16 * 4, **kw)
+        assert got == fluid.embedding.plan_table("t", 1024, 16, slots=1, budget=1024 * 16 * 4,
+                                                 **jkw)
+    split = embedding.plan_table("t", 1024, 16, slots=1, mesh={"fsdp": 4}, layout=SpecLayout())
+    assert split["num_devices"] == 4
+    assert split["per_device_bytes"] == split["total_bytes"] // 4
 
 
 def test_executor_budget_refuses_oversize_table():

@@ -596,7 +596,8 @@ def test_env_contract_and_the_collective_half_raising(monkeypatch, tmp_path):
     # the collective half is ported (tests/test_torch_parallel.py runs it in
     # ranks); what a process outside a clique sees: a clique of two needs a
     # rendezvous, one device a rank, no backend but NCCL and gloo, barrier a
-    # no-op, and what waits for item 12c raises naming it
+    # no-op, and a checkpoint saved with a mesh (item 12c, ported) commits
+    # one shard file and records the mesh, joining no clique
     monkeypatch.delenv("PADDLE_TRAINER_ENDPOINTS")
     with pytest.raises(ValueError, match="needs a coordinator"):
         dist.init_parallel_env(place=pt.CPUPlace())
@@ -606,9 +607,14 @@ def test_env_contract_and_the_collective_half_raising(monkeypatch, tmp_path):
         dist.init_parallel_env(num_trainers=1, place=pt.CPUPlace(), backend="mpi")
     assert dist.barrier() is None
     assert callable(dist.data_mesh) and callable(dist.feed_sharding)
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        pt.checkpoint.CheckpointManager(str(tmp_path), async_save=False).save(
-            pt.Program(), pt.Scope(), step=1, mesh=object())
+    import types
+    m = pt.checkpoint.CheckpointManager(str(tmp_path), async_save=False)
+    assert m.save(pt.Program(), pt.Scope(), step=1,
+                  mesh=types.SimpleNamespace(shape={"data": 1}))
+    man = pt.checkpoint.read_manifest(pt.checkpoint.checkpoint_dir(str(tmp_path), 1))
+    # one shard file, under the trainer id the env contract gives
+    assert man["mesh"] == {"axes": {"data": 1}}
+    assert list(man["shards"]) == [str(dist.trainer_id())]
     assert not dist.is_initialized()
 
 

@@ -646,8 +646,14 @@ def test_deepfm_criteo_widths_and_feed():
         assert ids.shape == (2048, 1) and ids.min() >= 0 and ids.max() <= v - 1
     assert feed["dense"].shape == (2048, 13) and feed["label"].shape == (2048, 1)
     assert 0 < feed["label"].mean() < 0.5
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        from paddle_tpu_torch.models import deepfm
-        with pt.program_guard(pt.Program(), pt.Program()):
-            ids, dense, label = deepfm.data_layers(3)
-            deepfm.deepfm(ids, dense, [5, 5, 5], shard_tables=True)
+    # shard_tables=True (ROADMAP item 12c, ported) splits each fm_emb_<i>
+    # table's rows over the data axis, as the JAX model stamps them; the
+    # meshes it runs on: tests/test_torch_sharded_tables.py
+    from paddle_tpu_torch.models import deepfm
+    main = pt.Program()
+    with pt.program_guard(main, pt.Program()):
+        ids, dense, label = deepfm.data_layers(3)
+        deepfm.deepfm(ids, dense, [5, 5, 5], shard_tables=True)
+    for i in range(3):
+        assert main.global_block.var(f"fm_emb_{i}").sharding == ["data", None]
+        assert main.global_block.var(f"fm_w1_{i}").sharding is None

@@ -11,8 +11,8 @@ parameters within the Adam bound below (``SGD`` likewise, so K5's CPU body
 runs).  Then the port alone: ``pipeline=True`` against ``False``
 bit-equal, a partial last batch, serial-dir checkpoint rotation, a
 resume whose losses are bit-equal to the run without the stop,
-``stop()``, the options that raise, and the step records' keys (which
-``tools/stats.py`` reads).
+``stop()``, the options that work under a mesh (a world of one), and the
+step records' keys (which ``tools/stats.py`` reads).
 """
 import json
 import os
@@ -31,6 +31,7 @@ from paddle_tpu.models import transformer as jax_transformer
 from paddle_tpu_torch import telemetry as pt_telemetry
 from paddle_tpu_torch.models import transformer as pt_transformer
 
+import _torch_mesh_ranks as R
 from _torch_validate import _no_port_validate_findings  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
@@ -269,13 +270,41 @@ def test_begin_step_event_can_skip_the_metrics():
 
 @pytest.mark.parametrize("option,value,item", [
     ("checkpoint", True, "12c"), ("checkpoint_config", "cfg", "12c"), ("health", True, "12c")])
-def test_options_not_ported_raise_naming_their_roadmap_item(option, value, item):
-    """parallel=, mesh= and layout= are ported (tests/test_torch_parallel.py);
-    under a mesh the options that wait for item 12c raise naming it."""
-    if value == "cfg":
-        value = pt.CheckpointConfig()
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP §A item {item}\)"):
-        _pt_trainer(mesh=object(), **{option: value})
+def test_options_not_ported_raise_naming_their_roadmap_item(option, value, item, tmp_path):
+    """The options that waited for ROADMAP item 12c under a mesh now work
+    (here on a world of one; two ranks in tests/test_torch_mesh_checkpoint.py):
+    each trains a batch on the ``{"data": 1}`` mesh and does its part --
+    a manifest checkpoint recording the mesh that a new Trainer resumes
+    bit-equal, a serial dir of the whole values, a clean health record."""
+    from paddle_tpu_torch import health
+    from paddle_tpu_torch.checkpoint import CheckpointConfig as AsyncConfig
+    from paddle_tpu_torch.checkpoint import checkpoint_dir, read_manifest
+    if option == "checkpoint":
+        value = AsyncConfig(dir=str(tmp_path), epoch_interval=1, async_save=False)
+    elif value == "cfg":
+        value = pt.CheckpointConfig(checkpoint_dir=str(tmp_path))
+    with R.world_of_one() as mesh:
+        ttr = _pt_trainer(mesh=mesh, pipeline=False, **{option: value})
+        assert ttr.exe.mesh is mesh
+        rec = _train(ttr, epochs=1, reader=_samples(BATCH))
+        assert len(rec.losses) == 1 and np.isfinite(rec.losses[0])
+        state = {n: v.full_tensor() for n, v in _state(ttr).items()}
+        if option == "checkpoint":
+            man = read_manifest(checkpoint_dir(str(tmp_path), ttr.ckpt_manager.latest()))
+            assert man["mesh"] == {"axes": {"data": 1}} and list(man["shards"]) == ["0"]
+            resumed = _pt_trainer(mesh=mesh, pipeline=False, **{option: value})
+            for n, v in state.items():
+                got = resumed.scope.find_var(n)
+                assert got.placements == ttr.scope.find_var(n).placements
+                assert torch.equal(got.full_tensor().reshape(v.shape), v), n
+        elif option == "checkpoint_config":
+            d = tmp_path / "checkpoint_0"
+            with np.load(d / "__params__.npz") as z:
+                for n, v in state.items():
+                    np.testing.assert_array_equal(z[n].reshape(v.shape), v.numpy(), err_msg=n)
+        else:
+            steps = [r for r in health.HEALTH_RECORDS.records() if r.get("kind") == "step"]
+            assert steps[-1]["ok"] is True and np.isfinite(steps[-1]["grad_norm"])
 
 
 def test_train_without_a_reader_raises():
